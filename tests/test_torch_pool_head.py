@@ -1,0 +1,70 @@
+"""The ``pool_head_fwd`` kernel's plain twin against the Pallas
+``_pool_head_fwd_kernel`` (``pool_head_fused``, interpret mode on the CPU).
+Inputs are made with numpy from a seed."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from eegflow.nn.pallas_attention import pool_head_fused as pallas_pool_head
+from eegflow_torch.nn.cuda_attention import pool_head_fused, pool_head_fused_plain
+
+# Same LayerNorm formula and the same bf16-rounded operands on both sides;
+# float32 sums in another order (and, under bf16, a last-bit LN difference
+# can flip the rounding of one y element), online softmax against a direct one.
+TOL = 2e-5
+
+
+def _params(rng, d, k):
+    f = lambda *s, sc=0.3: (sc * rng.standard_normal(s)).astype(np.float32)  # noqa: E731
+    ln = {"scale": 1.0 + f(d, sc=0.1), "bias": f(d, sc=0.1)}
+    attn = {"proj": {"w": f(d, k), "b": f(k)}, "score": {"w": f(k, 1), "b": f(1)}}
+    return ln, attn
+
+
+def _map(tree, fn):
+    return {k: (_map(v, fn) if isinstance(v, dict) else fn(v)) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("use_ln", [True, False])
+@pytest.mark.parametrize("n_parts", [1, 2])
+def test_pool_head_twin_matches_pallas(n_parts, use_ln, bf16):
+    rng = np.random.default_rng(20 + n_parts)
+    d_part, k, b, t = 16, 16, 5, 24
+    ln, attn = _params(rng, d_part * n_parts, k)
+    xs = tuple(np.tanh(rng.standard_normal((b, t, d_part))).astype(np.float32)
+               for _ in range(n_parts))
+    want_ctx, want_s = pallas_pool_head(
+        _map(ln, jnp.asarray) if use_ln else None, _map(attn, jnp.asarray),
+        tuple(jnp.asarray(x) for x in xs), use_ln=use_ln, bf16=bf16)
+    tln, tattn = _map(ln, torch.from_numpy), _map(attn, torch.from_numpy)
+    txs = tuple(torch.from_numpy(x) for x in xs)
+    got_ctx, got_s = pool_head_fused_plain(tln if use_ln else None, tattn, txs, use_ln, bf16)
+    assert len(got_ctx) == n_parts and got_s.shape == (b, t)
+    for g, w in zip(got_ctx, want_ctx):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=TOL, rtol=0)
+    np.testing.assert_allclose(got_s.numpy(), np.asarray(want_s), atol=TOL, rtol=0)
+    # on CPU tensors the wrapper runs the twin
+    w_ctx, w_s = pool_head_fused(tln if use_ln else None, tattn, txs, use_ln, bf16)
+    torch.testing.assert_close(w_s, got_s, rtol=0, atol=0)
+    for g, w in zip(w_ctx, got_ctx):
+        torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_pool_head_scores_stable_at_large_magnitude():
+    """Large raw scores: the twin's softmax must not overflow (the kernel
+    keeps a running max for the same reason)."""
+    rng = np.random.default_rng(3)
+    ln, attn = _params(rng, 16, 16)
+    attn["score"]["w"] *= 200.0
+    x = torch.from_numpy(rng.standard_normal((2, 12, 16)).astype(np.float32))
+    ctx, s = pool_head_fused_plain(None, _map(attn, torch.from_numpy), (x,),
+                                   use_ln=False, bf16=True)
+    assert s.abs().max() > 100 and torch.isfinite(ctx[0]).all()
+    want_ctx, _ = jax.jit(lambda a, xx: pallas_pool_head(None, a, (xx,), use_ln=False,
+                                                         bf16=True))(
+        _map(attn, jnp.asarray), jnp.asarray(x.numpy()))
+    np.testing.assert_allclose(ctx[0].numpy(), np.asarray(want_ctx[0]), atol=1e-4, rtol=0)
