@@ -31,27 +31,31 @@ def _leaf_tensor(v: Any) -> torch.Tensor:
     return torch.from_numpy(np.array(v, dtype=np.float32))
 
 
-def module_from_tree(tree: Any, device: Optional[torch.device] = None) -> nn.Module:
+def module_from_tree(tree: Any, device: Optional[torch.device] = None,
+                     trainable: bool = False) -> nn.Module:
     """Nested dict/list of arrays -> ModuleDict / ModuleList / ParameterDict.
-    Parameters are float32 and do not require grad (the path is inference)."""
+    Parameters are float32; they require grad only when ``trainable`` (the
+    serving path leaves them frozen)."""
     if isinstance(tree, (list, tuple)):
-        return nn.ModuleList([module_from_tree(v, device) for v in tree])
+        return nn.ModuleList([module_from_tree(v, device, trainable) for v in tree])
     if not isinstance(tree, dict):
         raise TypeError(f"expected a dict or list node, got {type(tree).__name__}")
     if tree and all(_is_leaf(v) for v in tree.values()):
         return nn.ParameterDict({
-            k: nn.Parameter(_leaf_tensor(v).to(device), requires_grad=False)
+            k: nn.Parameter(_leaf_tensor(v).to(device), requires_grad=trainable)
             for k, v in tree.items()})
     if any(_is_leaf(v) for v in tree.values()):
         raise TypeError("a params node mixes arrays and sub-trees: "
                         f"{sorted(tree)}")
-    return nn.ModuleDict({k: module_from_tree(v, device) for k, v in tree.items()})
+    return nn.ModuleDict({k: module_from_tree(v, device, trainable)
+                          for k, v in tree.items()})
 
 
-def params_from_jax(tree: Any, device: Optional[torch.device | str] = None) -> nn.ModuleDict:
+def params_from_jax(tree: Any, device: Optional[torch.device | str] = None,
+                    trainable: bool = False) -> nn.ModuleDict:
     """JAX params pytree (numpy or jax arrays) -> torch parameter tree."""
     tree = _to_numpy_tree(tree)
-    return module_from_tree(tree, torch.device(device) if device else None)
+    return module_from_tree(tree, torch.device(device) if device else None, trainable)
 
 
 def params_to_jax(params: Any) -> Any:

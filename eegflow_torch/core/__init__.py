@@ -1,6 +1,6 @@
-"""Configs, seeded generators and the checkpoint reader."""
+"""Configs, seeded generators and the artifact reader and writer."""
 
-from eegflow_torch.core.config import CouplingConfig, ModelConfig
+from eegflow_torch.core.config import CouplingConfig, ModelConfig, TrainConfig
 from eegflow_torch.core.prng import make_generator
 
-__all__ = ["CouplingConfig", "ModelConfig", "make_generator"]
+__all__ = ["CouplingConfig", "ModelConfig", "TrainConfig", "make_generator"]

@@ -1,17 +1,27 @@
-// Fused LSTM layer-direction forward, eval mode, for Hopper (sm_90a).
+// Fused LSTM layer-direction forward for Hopper (sm_90a): eval mode and
+// training mode.
 //
 // Replaces: eegflow/nn/pallas_lstm.py _fwd_proj_kernel (entry
-// lstm_fwd_fused_proj) with need_residuals=False and no dropout, the mode the
-// coupled-inference path runs (3 layers x 2 directions per batch).
+// lstm_fwd_fused_proj). Eval mode (eegflow_lstm_fwd) is need_residuals=False
+// without dropout, the mode the coupled-inference path runs. Training mode
+// (eegflow_lstm_fwd_train) is need_residuals=True under the default
+// adjoint-residual contract (_ADJ_RES=1) with the uint8-mask input dropout
+// (the reference's n_masks path): the mode the training step runs, 3 layers
+// x 2 directions per micro-step.
 //
 // Per step t (walked T-1..0 for the reverse direction, h written at its
 // natural position):
-//   z = b + sum_p bf16(x_p[t]) . bf16(W_ih_p) + bf16(h) . bf16(W_hh)
+//   x_p = where(m_p[t], x_p[t] * (1/keep), 0)     (training mode with masks)
+//   z = b + sum_p bf16(x_p) . bf16(W_ih_p) + bf16(h) . bf16(W_hh)
 //   i, f, o = 0.5 tanh(z/2) + 0.5;  g = tanh(z)
-//   c = f c + i g;  h = o tanh(c)          (c, h float32, zero initial state)
+//   c = f c_prev + i g;  h = o tanh(c)      (c, h float32, zero initial state)
 // Products of bf16-rounded operands are accumulated in float32. The input
 // arrives as one or two parts (a bidirectional predecessor's halves) read
-// through two pointers; they are never concatenated.
+// through two pointers; they are never concatenated. Training mode also
+// writes the six float32 adjoint planes of step t into res (B, T, 6H):
+//   [g i(1-i), c_prev f(1-f), i(1-g^2), o(1-tanh^2 c), f, tanh(c) o(1-o)]
+// so the backward (lstm_bwd.cu) needs neither c nor a transcendental.
+// Eval mode writes no residuals.
 //
 // What bounds it on the card: the recurrence is serial in t, and every step
 // needs all of W_ih (D x 4H) and W_hh (H x 4H). At H=256 W_hh alone is 512 KB
@@ -19,17 +29,22 @@
 // a block may hold. This first design therefore re-reads the weights from
 // global memory every step and relies on them staying resident in the 50 MB
 // L2; the time per step is bound by L2 bandwidth and FMA issue, with few
-// warps per SM (one CTA of H threads per 8 batch rows).
+// warps per SM (one CTA of H threads per 8 batch rows). Training mode adds
+// 6H float32 of residual writes per row and step (0.8 GB per launch at
+// B=512, T=256, H=256), coalesced across the CTA's threads.
 //
 // Design: a CTA owns kRows batch rows and one direction; thread u owns hidden
 // unit u and computes the four gate columns u, H+u, 2H+u, 3H+u for all kRows
-// rows, so the gate math needs no exchange between threads and the weight
-// loads are coalesced across the warp. c stays in registers. x_t and h_{t-1}
-// are staged in shared memory (bf16-rounded, transposed to [k][row] so one
-// float4 pair feeds the 8 rows), double-buffered so each step needs a single
-// __syncthreads. Rows past B are masked (no padding of the batch).
+// rows, so the gate math and the residual planes need no exchange between
+// threads and the weight loads are coalesced across the warp. c stays in
+// registers. x_t (masked, then bf16-rounded) and h_{t-1} are staged in shared
+// memory (transposed to [k][row] so one float4 pair feeds the 8 rows),
+// double-buffered so each step needs a single __syncthreads. Rows past B are
+// masked (no padding of the batch). The two modes are one template.
 // Splitting W_hh across a thread-block cluster (distributed shared memory,
 // FlashRNN-style) and wgmma are later work.
+
+#include <stdint.h>
 
 #include "common.cuh"
 
@@ -60,12 +75,24 @@ __device__ __forceinline__ void accumulate(float (&acc)[4][kRows],
   }
 }
 
+// One input element, with the inverted-dropout keep-mask applied when the
+// part has one (the reference's _masked: where(m != 0, x * inv_keep, 0)).
+__device__ __forceinline__ float load_input(const float* __restrict__ x,
+                                            const uint8_t* __restrict__ m, size_t i,
+                                            float inv_keep) {
+  const float v = x[i];
+  if (m == nullptr) return v;
+  return m[i] != 0 ? v * inv_keep : 0.f;
+}
+
+template <bool kTrain>
 __global__ void __launch_bounds__(kMaxThreads)
-lstm_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ x1, int d0,
-                int d1, const __nv_bfloat16* __restrict__ w0,
+lstm_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
+                const uint8_t* __restrict__ m0, const uint8_t* __restrict__ m1,
+                int d0, int d1, float inv_keep, const __nv_bfloat16* __restrict__ w0,
                 const __nv_bfloat16* __restrict__ w1, const float* __restrict__ bias,
                 const __nv_bfloat16* __restrict__ whh, float* __restrict__ h_out,
-                int B, int T, int H, int reverse) {
+                float* __restrict__ res_out, int B, int T, int H, int reverse) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D = d0 + d1;
@@ -97,8 +124,9 @@ lstm_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ x1, int 
       const int row = row0 + r;
       float v = 0.f;
       if (row < B) {
-        v = (k < d0) ? x0[(static_cast<size_t>(row) * T + t) * d0 + k]
-                     : x1[(static_cast<size_t>(row) * T + t) * d1 + (k - d0)];
+        const size_t bt = static_cast<size_t>(row) * T + t;
+        v = (k < d0) ? load_input(x0, m0, bt * d0 + k, inv_keep)
+                     : load_input(x1, m1, bt * d1 + (k - d0), inv_keep);
       }
       xs[k * kRows + r] = eegflow::bf16_round(v);
     }
@@ -120,33 +148,72 @@ lstm_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ x1, int 
       const float fg = eegflow::sigmoid_tanh(acc[1][r] + b_f);
       const float gg = tanhf(acc[2][r] + b_g);
       const float og = eegflow::sigmoid_tanh(acc[3][r] + b_o);
-      c[r] = fg * c[r] + ig * gg;
-      const float h = og * tanhf(c[r]);
+      const float c_prev = c[r];
+      c[r] = fg * c_prev + ig * gg;
+      const float tc = tanhf(c[r]);
+      const float h = og * tc;
       h_next[u * kRows + r] = eegflow::bf16_round(h);
       const int row = row0 + r;
-      if (row < B) h_out[(static_cast<size_t>(row) * T + t) * H + u] = h;
+      if (row < B) {
+        const size_t bt = static_cast<size_t>(row) * T + t;
+        h_out[bt * H + u] = h;
+        if (kTrain) {
+          float* z = res_out + bt * 6 * H + u;
+          z[0] = gg * (ig * (1.f - ig));
+          z[H] = c_prev * (fg * (1.f - fg));
+          z[2 * H] = ig * (1.f - gg * gg);
+          z[3 * H] = og * (1.f - tc * tc);
+          z[4 * H] = fg;
+          z[5 * H] = tc * (og * (1.f - og));
+        }
+      }
     }
     p ^= 1;
   }
 }
 
+template <bool kTrain>
+int launch(const float* x0, const float* x1, const uint8_t* m0, const uint8_t* m1,
+           int d0, int d1, float inv_keep, const __nv_bfloat16* w0,
+           const __nv_bfloat16* w1, const float* bias, const __nv_bfloat16* whh,
+           float* h_out, float* res_out, int B, int T, int H, int reverse,
+           cudaStream_t stream) {
+  if (H <= 0 || H > kMaxThreads || H % 32 != 0 || B <= 0 || T <= 0 || d0 <= 0 ||
+      d1 < 0 || (kTrain && res_out == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = 2 * static_cast<size_t>(d0 + d1 + H) * kRows * sizeof(float);
+  cudaError_t err = eegflow::allow_dynamic_smem(lstm_fwd_kernel<kTrain>, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid((B + kRows - 1) / kRows);
+  lstm_fwd_kernel<kTrain><<<grid, H, smem, stream>>>(x0, x1, m0, m1, d0, d1, inv_keep,
+                                                     w0, w1, bias, whh, h_out, res_out,
+                                                     B, T, H, reverse);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
-// h_out (B, T, H) float32; x_p (B, T, d_p) float32; w_p (d_p, 4H) bf16;
-// bias (4H,) float32; whh (H, 4H) bf16. x1/w1 may be null when d1 == 0.
+// Eval mode. h_out (B, T, H) float32; x_p (B, T, d_p) float32; w_p (d_p, 4H)
+// bf16; bias (4H,) float32; whh (H, 4H) bf16. x1/w1 may be null when d1 == 0.
 extern "C" int eegflow_lstm_fwd(const float* x0, const float* x1, int d0, int d1,
                                 const __nv_bfloat16* w0, const __nv_bfloat16* w1,
                                 const float* bias, const __nv_bfloat16* whh,
                                 float* h_out, int B, int T, int H, int reverse,
                                 cudaStream_t stream) {
-  if (H <= 0 || H > kMaxThreads || H % 32 != 0 || B <= 0 || T <= 0 || d0 <= 0 ||
-      d1 < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * static_cast<size_t>(d0 + d1 + H) * kRows * sizeof(float);
-  cudaError_t err = eegflow::allow_dynamic_smem(lstm_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kRows - 1) / kRows);
-  lstm_fwd_kernel<<<grid, H, smem, stream>>>(x0, x1, d0, d1, w0, w1, bias, whh,
-                                             h_out, B, T, H, reverse);
-  return static_cast<int>(cudaGetLastError());
+  return launch<false>(x0, x1, nullptr, nullptr, d0, d1, 1.f, w0, w1, bias, whh, h_out,
+                       nullptr, B, T, H, reverse, stream);
+}
+
+// Training mode: as eval mode, plus uint8 keep-masks m_p (B, T, d_p) (null:
+// no dropout on that part; 0 = dropped) scaled by inv_keep, and the adjoint
+// planes res_out (B, T, 6H) float32.
+extern "C" int eegflow_lstm_fwd_train(const float* x0, const float* x1,
+                                      const uint8_t* m0, const uint8_t* m1, int d0,
+                                      int d1, float inv_keep, const __nv_bfloat16* w0,
+                                      const __nv_bfloat16* w1, const float* bias,
+                                      const __nv_bfloat16* whh, float* h_out,
+                                      float* res_out, int B, int T, int H, int reverse,
+                                      cudaStream_t stream) {
+  return launch<true>(x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, bias, whh, h_out,
+                      res_out, B, T, H, reverse, stream);
 }

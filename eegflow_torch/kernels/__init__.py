@@ -1,9 +1,10 @@
 """Build, load and count the hand-written CUDA kernels.
 
 The sources in ``eegflow_torch/csrc`` have a plain C interface. On first use
-:func:`load_library` compiles them with ``nvcc`` for ``sm_90a`` into one
+:func:`load_library` compiles them with ``nvcc`` for ``sm_90a``, one ``nvcc``
+process per source, all started together, and links the objects into one
 shared library under ``eegflow_torch/_build/`` (named by a hash of the
-sources and flags, so an edited source rebuilds) and loads it with
+sources and flags, so an edited source rebuilds), which it loads with
 ``ctypes``. Nothing is downloaded and nothing else is needed: no PyTorch
 headers, no ``torch.utils.cpp_extension``. A failed build raises with
 nvcc's output.
@@ -31,7 +32,7 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v", "-lineinfo"]
 
 #: kernel name -> launches made through its wrapper in this process
 launch_counts: Counter = Counter()
@@ -43,14 +44,37 @@ build_info: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _SIGNATURES = {
     # x0, x1, d0, d1, w0, w1, b, whh, h_out, B, T, H, reverse, stream
     "eegflow_lstm_fwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, b, whh, h_out, res_out,
+    # B, T, H, reverse, stream
+    "eegflow_lstm_fwd_train": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _P],
+    # res, h, g, x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, whh_t, add0, add1,
+    # dx0, dx1, dw_ih, dw_hh, db, dz, part, splits, B, T, H, reverse, stream
+    "eegflow_lstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
     # x0, x1, d0, d1, gamma, beta, w1, b1, w2, ctx0, ctx1, scores,
     # B, T, K, use_ln, bf16, stream
     "eegflow_pool_head_fwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
+    # x0, x1, d0, d1, gamma, beta, w1, w1t, b1, w2, wts, gs, g0, g1, gctx,
+    # dh0, dh1, dw1, vec, y_scr, u_scr, vec_part, part, splits, B, T, K,
+    # use_ln, bf16, stream
+    "eegflow_pool_head_bwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                              _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
+                              _I, _I, _P],
 }
+
+
+def gemm_splits(rows: int) -> int:
+    """How many slices the kernels split a weight-gradient sum over ``rows``
+    (= B*T) into: about 4096 rows a slice, at most 16. The split depends on
+    the shapes only, so the summation order, and the result, repeat bitwise
+    run to run."""
+    return max(1, min(16, -(-rows // 4096)))
 
 
 def reset_launch_counts() -> None:
@@ -91,17 +115,35 @@ def load_library() -> ctypes.CDLL:
         if not so.exists():
             t0 = time.perf_counter()
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                   *[str(s) for s in sorted(CSRC.glob("*.cu"))]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            if proc.returncode != 0:
+            nvcc = _nvcc()
+            objs, procs = [], []
+            for src in sorted(CSRC.glob("*.cu")):
+                obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                    stderr=subprocess.STDOUT, text=True)))
+                objs.append(obj)
+            log, failed = [], None
+            for cmd, proc in procs:
+                out = proc.communicate()[0]
+                log.append(out)
+                if proc.returncode != 0 and failed is None:
+                    failed = (cmd, proc.returncode, out)
+            link = [nvcc, *NVCC_FLAGS[:2], "-shared", "-o", str(tmp), *[str(o) for o in objs]]
+            if failed is None:
+                proc = subprocess.run(link, capture_output=True, text=True)
+                log.append(proc.stdout + proc.stderr)
+                if proc.returncode != 0:
+                    failed = (link, proc.returncode, proc.stdout + proc.stderr)
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            if failed is not None:
                 tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed (exit {proc.returncode}): {' '.join(cmd)}\n"
-                    f"{proc.stdout}\n{proc.stderr}")
+                cmd, code, out = failed
+                raise RuntimeError(f"nvcc failed (exit {code}): {' '.join(cmd)}\n{out}")
             os.replace(tmp, so)
-            build_info.update(seconds=time.perf_counter() - t0,
-                              log=proc.stdout + proc.stderr, command=cmd)
+            build_info.update(seconds=time.perf_counter() - t0, log="".join(log),
+                              command=[p[0] for p in procs] + [link])
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():
             fn = getattr(lib, name)

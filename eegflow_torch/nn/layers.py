@@ -1,4 +1,5 @@
-"""Functional building blocks: dense, layer norm, GELU (``eegflow.nn.layers``).
+"""Functional building blocks: dense, layer norm, GELU, dropout
+(``eegflow.nn.layers``).
 
 Params are nested mappings of float32 tensors (see :mod:`eegflow_torch.convert`).
 
@@ -14,7 +15,7 @@ and ``torch.backends.cudnn.allow_tf32`` to False explicitly.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence, Union
 
 import torch
 import torch.nn.functional as F
@@ -68,3 +69,20 @@ def layer_norm_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor,
 def gelu(x: torch.Tensor) -> torch.Tensor:
     """Exact (erf) GELU."""
     return F.gelu(x, approximate="none")
+
+
+def dropout_mask(gen: torch.Generator, rate: float, shape: Sequence[int],
+                 device: Optional[Union[torch.device, str]] = None) -> torch.Tensor:
+    """Boolean KEEP-mask with P(keep) = 1 - rate, drawn from ``gen`` (a
+    generator on ``device``): ``rand < keep``. The keep probability is exact,
+    unlike the reference's 8-bit draw (``EEGFLOW_DROP8``), which quantises it."""
+    return torch.rand(tuple(shape), generator=gen, device=device) < (1.0 - rate)
+
+
+def dropout(x: torch.Tensor, rate: float, mask: Optional[torch.Tensor]) -> torch.Tensor:
+    """Inverted dropout with an explicit keep-mask: ``where(mask, x / keep,
+    0)``, as ``eegflow.nn.layers.dropout`` applies its mask; identity when
+    ``mask`` is None or ``rate`` is 0."""
+    if mask is None or rate <= 0.0:
+        return x
+    return torch.where(mask, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))

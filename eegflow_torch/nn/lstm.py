@@ -6,17 +6,18 @@ g, o; zero initial state; (h, c) stay float32; the reverse direction walks
 time backwards and writes each state at its natural position.
 
 This is the float32 algorithm oracle every LSTM kernel of the port is held
-against. The bf16 serving path runs the fused kernel instead
+against, and the float32-policy path of the classifier (autograd through the
+loop). The bf16 path runs the fused kernels instead
 (:mod:`eegflow_torch.nn.cuda_lstm`).
 """
 
 from __future__ import annotations
 
-from typing import List, Mapping, Optional
+from typing import List, Mapping, Optional, Sequence
 
 import torch
 
-from eegflow_torch.nn.layers import matmul_policy
+from eegflow_torch.nn.layers import dropout, matmul_policy
 
 
 def lstm_layer_init(gen: torch.Generator, in_dim: int, hidden: int):
@@ -69,14 +70,20 @@ def lstm_layer_apply(params: Mapping[str, torch.Tensor], x: torch.Tensor,
 
 
 def bilstm_stack_apply(layers: List[Mapping], x: torch.Tensor,
-                       compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
-    """(B, T, D) -> (B, T, H * n_dir), eval mode (no dropout)."""
+                       compute_dtype: Optional[torch.dtype] = None,
+                       masks: Optional[Sequence[torch.Tensor]] = None,
+                       rate: float = 0.0) -> torch.Tensor:
+    """(B, T, D) -> (B, T, H * n_dir). ``masks[i]`` (B, T, H * n_dir), when
+    given, is the keep-mask of inter-layer dropout (``rate``) on layer i's
+    output, for every layer but the last, as torch's ``nn.LSTM`` drops."""
     out = x
-    for layer in layers:
+    for idx, layer in enumerate(layers):
         fwd = lstm_layer_apply(layer["fwd"], out, False, compute_dtype)
         if "bwd" in layer:
             bwd = lstm_layer_apply(layer["bwd"], out, True, compute_dtype)
             out = torch.cat([fwd, bwd], dim=-1)
         else:
             out = fwd
+        if masks is not None and idx < len(masks):
+            out = dropout(out, rate, masks[idx])
     return out

@@ -71,7 +71,7 @@ def test_classifier_init_matches_jax_structure():
     _assert_tree_equal(again, got)
 
 
-@pytest.mark.parametrize("name", ["ModelConfig", "CouplingConfig"])
+@pytest.mark.parametrize("name", ["ModelConfig", "CouplingConfig", "TrainConfig"])
 def test_config_defaults_match_reference(name):
     ref, port = getattr(jcfg, name), getattr(tcfg, name)
     ref_fields = [(f.name, f.default) for f in dataclasses.fields(ref)]
