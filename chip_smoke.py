@@ -12,21 +12,39 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
   5. serves a full-width coupled model (61 -> 256, 3 bidirectional layers,
      T=256, random weights from a seed) over HTTP on 127.0.0.1: /health and
      three /predict requests of 1, 7 and 33 windows; checks the answers, the
-     kernel launch counts, and the probabilities against the plain path;
+     kernel launch counts (1 input_block_fwd, 6 lstm_fwd, 1 pool_head_fwd per
+     batch), and the probabilities against the plain path;
   6. times predict_batch at the 1024 bucket on the kernel path and the
      plain path (CUDA events), and each kernel against its twin;
-  7. the training kernels against their twins at B=64, T=256, H=256:
-     lstm_fwd in training mode (masks, residual planes), lstm_bwd and
-     pool_head_bwd;
+  7. the bf16 training kernels against their twins at B=64, T=256, H=256:
+     lstm_fwd in training mode (masks, residual planes), lstm_bwd, and
+     pool_head_bwd in its bf16 and float32 modes;
   8. trains through the `train` stage of the CLI (in-process) on a
      synthetic processed_sequences.npz (2048 training windows of 256 x 61,
-     2 epochs, full-width ModelConfig, default TrainConfig); checks the
-     kernel launches per micro-step, the finite loss, the written artifacts,
-     and that the serve loader reads the checkpoint;
-  9. one training micro-step at B=512 on the kernel path against the plain
-     path from identical params and masks (loss and every gradient), a
+     2 epochs, full-width ModelConfig, default TrainConfig: bf16); checks the
+     kernel launches per micro-step (1 input_block_fwd, 1 input_block_bwd,
+     6 lstm_fwd_train, 6 lstm_bwd, 1 pool_head_fwd, 1 pool_head_bwd) and per
+     eval batch, the finite loss, the written artifacts, and that the serve
+     loader reads the checkpoint;
+  9. one bf16 training micro-step at B=512 on the kernel path against the
+     plain path from identical params and masks (loss and every gradient), a
      second kernel run bitwise identical; then times the micro-step on both
-     paths and each training kernel against its twin at B=512.
+     paths and each training kernel against its twin at B=512;
+ 10. the float32 policy's kernels against their twins: lstm_rec_fwd (eval and
+     training mode) and lstm_rec_bwd at B=64, T=256, H=256 on the gates of
+     one- and two-part inputs, both directions; input_block_fwd and
+     input_block_bwd in both modes; attention_pool at D=256;
+ 11. attention_pool through its entry point, attention_pool_apply, at B=512,
+     T=256, D=256 (no classifier path calls it), against its twin;
+ 12. the `train` stage with --config {"train": {"bf16": false}} for 1 epoch on
+     a synthetic set: launches per micro-step (1 input_block_fwd,
+     1 input_block_bwd, 6 lstm_rec_fwd_train, 6 lstm_rec_bwd, 1 pool_head_fwd,
+     1 pool_head_bwd) and per eval batch (6 lstm_rec_fwd), the serve loader on
+     its checkpoint, and coupled_rollout(bf16=False) on it, kernel path
+     against plain path;
+ 13. one float32 micro-step at B=512, kernel path against plain path (loss,
+     every gradient, bitwise repeat), timed on both paths, and each float32
+     kernel (and the input block in both modes) timed against its twin.
 The line before the last lists the kernels as JSON; the last line is
 {"ok": true, "device": {...}}.
 """
@@ -75,6 +93,21 @@ POOL_BWD_REL_TOL = 1e-3
 # holds its fused kernels to its scan path at 2e-2 (tests/test_pallas_lstm.py)
 STEP_LOSS_TOL = 1e-3
 STEP_GRAD_REL_TOL = 2e-2
+# float32 kernels vs twins: the same float32 operations, sums in another
+# order (the twins' products are cuBLAS float32 with TF32 off) through 256
+# steps of the recurrence; gradients relative to their largest entry
+REC_TOL = 1e-4
+REC_BWD_REL_TOL = 1e-3
+# input block: float32 sums in another order; under bf16 a last-bit
+# difference in dz can flip its bf16 rounding before the dx and dW products
+INPUT_TOL = 1e-4
+INPUT_BWD_REL_TOL = {False: 1e-3, True: 5e-3}
+# attention_pool (float32): sums in another order, an online softmax
+ATTN_POOL_TOL = 1e-4
+# the float32 micro-step, kernel path vs plain path: summation order only
+STEP32_LOSS_TOL = 1e-4
+STEP32_GRAD_REL_TOL = 1e-3
+N_TRAIN32_EPOCHS = 1
 B_TRAIN = 512
 N_TRAIN_WINDOWS = 2048
 TRAIN_EPOCHS = 2
@@ -149,11 +182,20 @@ def main() -> int:
     from eegflow_torch.cli.main import load_coupled_model
     from eegflow_torch.cli.main import main as cli_main
     from eegflow_torch.core.artifacts import load_checkpoint, save_results
-    from eegflow_torch.nn.cuda_attention import (pool_head_bwd, pool_head_bwd_plain,
-                                                 pool_head_fused, pool_head_fused_plain)
+    from eegflow_torch.couple.rollout import coupled_rollout
+    from eegflow_torch.nn.attention import additive_attention_init
+    from eegflow_torch.nn.cuda_attention import (attention_pool, attention_pool_apply,
+                                                 attention_pool_plain, pool_head_bwd,
+                                                 pool_head_bwd_plain, pool_head_fused,
+                                                 pool_head_fused_plain)
+    from eegflow_torch.nn.cuda_input import (input_block_bwd, input_block_bwd_plain,
+                                             input_block_fused, input_block_fused_plain)
     from eegflow_torch.nn.cuda_lstm import (lstm_bwd, lstm_bwd_plain, lstm_fwd_fused_proj,
                                             lstm_fwd_fused_proj_plain, lstm_fwd_train,
-                                            lstm_fwd_train_plain)
+                                            lstm_fwd_train_plain, lstm_recurrence,
+                                            lstm_recurrence_backward,
+                                            lstm_recurrence_backward_plain,
+                                            lstm_recurrence_plain)
     from eegflow_torch.nn.losses import cross_entropy_loss
     from eegflow_torch.nn.model import classifier_apply, classifier_init, draw_dropout_masks
     from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
@@ -274,6 +316,8 @@ def main() -> int:
                 "lstm_fwd launched 6 times per batch")
         require(counts.get("pool_head_fwd", 0) == n_batches,
                 "pool_head_fwd launched once per batch")
+        require(counts.get("input_block_fwd", 0) == n_batches,
+                "input_block_fwd launched once per batch")
         status, out = request(addr, "POST", "/predict", {"windows": [[1, 2]]})
         require(status == 400 and "N, T, C" in out["error"], "validation error")
     finally:
@@ -364,20 +408,24 @@ def main() -> int:
     g_ctx = tuple(0.1 * randn(B_CHECK, H) for _ in range(2))
     g_sc = 0.01 * randn(B_CHECK, T)
     gctx = 0.1 * randn(B_CHECK)
-    pool_args = (params["lstm_norm"], params["attention"], pool_parts, wts, g_sc, g_ctx, gctx,
-                 True, True)
-    got = pool_head_bwd(*pool_args)
-    want = pool_head_bwd_plain(*pool_args)
-    torch.cuda.synchronize()
     names = ("dh", "dW1", "db1", "dw2", "dgamma", "dbeta")
-    errs = {"dh": max(rel_err(a, b) for a, b in zip(got[0], want[0]))}
-    errs.update({n: rel_err(a, b) for n, a, b in zip(names[1:], got[1:], want[1:])})
-    print(f"pool_head_bwd parts=2x{H} K={H} B={B_CHECK} T={T}: "
-          + ", ".join(f"{k} rel {v:.3e}" for k, v in errs.items())
-          + f" (tol {POOL_BWD_REL_TOL:g})", flush=True)
-    require(max(errs.values()) <= POOL_BWD_REL_TOL, f"pool_head_bwd within {POOL_BWD_REL_TOL}")
-    pool_bwd_err = max([(a - b).abs().max().item() for a, b in zip(got[0], want[0])]
-                       + [(a - b).abs().max().item() for a, b in zip(got[1:], want[1:])])
+    pool_bwd_err = 0.0
+    for bf16 in (True, False):
+        pool_args = (params["lstm_norm"], params["attention"], pool_parts, wts, g_sc, g_ctx,
+                     gctx, True, bf16)
+        got = pool_head_bwd(*pool_args)
+        want = pool_head_bwd_plain(*pool_args)
+        torch.cuda.synchronize()
+        errs = {"dh": max(rel_err(a, b) for a, b in zip(got[0], want[0]))}
+        errs.update({n: rel_err(a, b) for n, a, b in zip(names[1:], got[1:], want[1:])})
+        print(f"pool_head_bwd bf16={int(bf16)} parts=2x{H} K={H} B={B_CHECK} T={T}: "
+              + ", ".join(f"{k} rel {v:.3e}" for k, v in errs.items())
+              + f" (tol {POOL_BWD_REL_TOL:g})", flush=True)
+        require(max(errs.values()) <= POOL_BWD_REL_TOL,
+                f"pool_head_bwd bf16={int(bf16)} within {POOL_BWD_REL_TOL}")
+        pool_bwd_err = max([pool_bwd_err]
+                           + [(a - b).abs().max().item() for a, b in zip(got[0], want[0])]
+                           + [(a - b).abs().max().item() for a, b in zip(got[1:], want[1:])])
 
     # phase 8: the train stage of the CLI on a synthetic processed set
     rng8 = np.random.default_rng(SEED + 8)
@@ -402,11 +450,13 @@ def main() -> int:
         n_eval = TRAIN_EPOCHS + 1  # one validation batch per epoch, one test batch
         print(f"train stage: {TRAIN_EPOCHS} epochs, {n_micro} micro-steps of {B_TRAIN} in "
               f"{t_train:.1f} s; launches {train_counts}")
-        for name, per_step in (("lstm_fwd_train", 6), ("lstm_bwd", 6), ("pool_head_bwd", 1)):
+        for name, per_step in (("lstm_fwd_train", 6), ("lstm_bwd", 6), ("pool_head_bwd", 1),
+                               ("input_block_bwd", 1)):
             require(train_counts.get(name, 0) == per_step * n_micro,
                     f"{name} launched {per_step} times per micro-step")
-        require(train_counts.get("pool_head_fwd", 0) == n_micro + n_eval,
-                "pool_head_fwd launched once per micro-step and per eval batch")
+        for name in ("pool_head_fwd", "input_block_fwd"):
+            require(train_counts.get(name, 0) == n_micro + n_eval,
+                    f"{name} launched once per micro-step and per eval batch")
         require(train_counts.get("lstm_fwd", 0) == 6 * n_eval,
                 "eval-mode lstm_fwd launched 6 times per eval batch")
         ckpt = out_dir / "models" / "lstm_attention"
@@ -436,10 +486,10 @@ def main() -> int:
     cw = torch.tensor([1.0, 1.0], device=dev)
     leaves = list(tparams.parameters())
 
-    def micro_step(impl):
+    def micro_step(impl, compute_dtype=torch.bfloat16):
         for q in leaves:
             q.grad = None
-        logits = classifier_apply(tparams, x9, cfg, compute_dtype=torch.bfloat16,
+        logits = classifier_apply(tparams, x9, cfg, compute_dtype=compute_dtype,
                                   lstm_impl=impl, train=True, masks=masks9)
         loss = cross_entropy_loss(logits, y9, cw)
         loss.backward()
@@ -492,6 +542,208 @@ def main() -> int:
         print(f"{name} B={B_TRAIN} T={T} H={H} parts=2: kernel {m['kernel']:.3f} ms, "
               f"plain {m['plain']:.3f} ms [{smi}]", flush=True)
 
+    # phase 10: the float32 policy's kernels against their twins
+    rec_err = rec_bwd_err = 0.0
+    for n_parts, layer in ((1, params["lstm"][0]), (2, params["lstm"][1])):
+        xs = tuple(torch.tanh(randn(B_CHECK, T, H)) for _ in range(n_parts))
+        for direction, reverse in (("fwd", False), ("bwd", True)):
+            p = layer[direction]
+            gates = torch.cat(xs, dim=-1) @ p["w_ih"] + p["b"]
+            h_e = lstm_recurrence(gates, p["w_hh"], reverse)
+            h_k, c_k = lstm_recurrence(gates, p["w_hh"], reverse, True)
+            h_p, c_p = lstm_recurrence_plain(gates, p["w_hh"], reverse, True)
+            torch.cuda.synchronize()
+            err = max((h_e - h_p).abs().max().item(), (h_k - h_p).abs().max().item(),
+                      (c_k - c_p).abs().max().item())
+            print(f"lstm_rec_fwd parts={n_parts} reverse={reverse} B={B_CHECK} T={T} H={H}: "
+                  f"h (eval, training) and c max_abs_diff {err:.3e} (tol {REC_TOL:g})")
+            require(bool(torch.isfinite(h_k).all()) and err <= REC_TOL,
+                    f"lstm_rec_fwd within {REC_TOL} of its twin")
+            rec_err = max(rec_err, err)
+            g_up = 0.1 * randn(B_CHECK, T, H)
+            got = lstm_recurrence_backward(gates, h_p, c_p, p["w_hh"], g_up, reverse)
+            again = lstm_recurrence_backward(gates, h_p, c_p, p["w_hh"], g_up, reverse)
+            want = lstm_recurrence_backward_plain(gates, h_p, c_p, p["w_hh"], g_up, reverse)
+            torch.cuda.synchronize()
+            errs = {"dgates": rel_err(got[0], want[0]), "dW_hh": rel_err(got[1], want[1])}
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"lstm_rec_bwd parts={n_parts} reverse={reverse}: "
+                  + ", ".join(f"{k} rel {v:.3e}" for k, v in errs.items())
+                  + f" (tol {REC_BWD_REL_TOL:g}); repeat bitwise identical: {same}")
+            require(max(errs.values()) <= REC_BWD_REL_TOL and same,
+                    f"lstm_rec_bwd within {REC_BWD_REL_TOL} of its twin, bitwise repeatable")
+            rec_bwd_err = max(rec_bwd_err, *[(a - b).abs().max().item()
+                                             for a, b in zip(got, want)])
+    x_in = randn(B_CHECK, T, C)
+    dy_in = randn(B_CHECK, T, H)
+    in_fwd_err = in_bwd_err = 0.0
+    for bf16 in (False, True):
+        y_k = input_block_fused(params["input_proj"], params["input_norm"], x_in, bf16)
+        y_p = input_block_fused_plain(params["input_proj"], params["input_norm"], x_in, bf16)
+        got = input_block_bwd(params["input_proj"], params["input_norm"], x_in, dy_in, bf16)
+        again = input_block_bwd(params["input_proj"], params["input_norm"], x_in, dy_in, bf16)
+        want = input_block_bwd_plain(params["input_proj"], params["input_norm"], x_in, dy_in,
+                                     bf16)
+        torch.cuda.synchronize()
+        err = (y_k - y_p).abs().max().item()
+        errs = {n: rel_err(a, b) for n, a, b in
+                zip(("dx", "dW", "db", "dgamma", "dbeta"), got, want)}
+        same = all(torch.equal(a, b) for a, b in zip(got, again))
+        print(f"input_block bf16={int(bf16)} B={B_CHECK} T={T} C={C} H={H}: forward "
+              f"max_abs_diff {err:.3e} (tol {INPUT_TOL:g}); backward "
+              + ", ".join(f"{k} rel {v:.3e}" for k, v in errs.items())
+              + f" (tol {INPUT_BWD_REL_TOL[bf16]:g}); repeat bitwise identical: {same}")
+        require(err <= INPUT_TOL, f"input_block_fwd within {INPUT_TOL} of its twin")
+        require(max(errs.values()) <= INPUT_BWD_REL_TOL[bf16] and same,
+                "input_block_bwd within tolerance of its twin, bitwise repeatable")
+        in_fwd_err = max(in_fwd_err, err)
+        in_bwd_err = max(in_bwd_err, *[(a - b).abs().max().item() for a, b in zip(got, want)])
+    attn256 = {name: {k: v.to(dev) for k, v in sub.items()}
+               for name, sub in additive_attention_init(make_generator(SEED + 10), H).items()}
+    apool_args = (torch.tanh(randn(B_CHECK, T, H)), attn256["proj"]["w"], attn256["proj"]["b"],
+                  attn256["score"]["w"][:, 0])
+    got = attention_pool(*apool_args)
+    want = attention_pool_plain(*apool_args)
+    torch.cuda.synchronize()
+    apool_err = max((a - b).abs().max().item() for a, b in zip(got, want))
+    print(f"attention_pool D={H} K={H // 2} B={B_CHECK} T={T}: ctx and scores max_abs_diff "
+          f"{apool_err:.3e} (tol {ATTN_POOL_TOL:g})", flush=True)
+    require(apool_err <= ATTN_POOL_TOL, f"attention_pool within {ATTN_POOL_TOL} of its twin")
+
+    # phase 11: attention_pool through its entry point at B=512
+    xa = torch.tanh(randn(B_TRAIN, T, H))
+    kernels.reset_launch_counts()
+    ctx_a, wts_a = attention_pool_apply(attn256, xa)
+    torch.cuda.synchronize()
+    attn_counts = dict(kernels.launch_counts)
+    require(attn_counts == {"attention_pool": 1}, f"attention_pool_apply launches {attn_counts}")
+    ctx_w, s_w = attention_pool_plain(xa, attn256["proj"]["w"], attn256["proj"]["b"],
+                                      attn256["score"]["w"][:, 0])
+    wts_w = torch.softmax(s_w + attn256["score"]["b"][0], dim=-1)
+    err = max((ctx_a - ctx_w).abs().max().item(), (wts_a - wts_w).abs().max().item())
+    print(f"attention_pool_apply B={B_TRAIN} T={T} D={H}: launches {attn_counts}; context and "
+          f"weights max_abs_diff {err:.3e} (tol {ATTN_POOL_TOL:g})")
+    require(err <= ATTN_POOL_TOL and bool(torch.isfinite(ctx_a).all()),
+            "attention_pool_apply agrees with its twin")
+    apool_err = max(apool_err, err)
+    aargs = (xa, attn256["proj"]["w"], attn256["proj"]["b"], attn256["score"]["w"][:, 0])
+    m = median_ms({"plain": lambda: attention_pool_plain(*aargs),
+                   "kernel": lambda: attention_pool(*aargs)}, rounds=1)
+    apool_ms = (m["kernel"], m["plain"])
+    print(f"attention_pool B={B_TRAIN} T={T} D={H} K={H // 2}: kernel {m['kernel']:.3f} ms, "
+          f"plain {m['plain']:.3f} ms [{smi}]", flush=True)
+
+    # phase 12: the train stage under the float32 policy
+    rng12 = np.random.default_rng(SEED + 12)
+    with tempfile.TemporaryDirectory(prefix="eegflow_chip_smoke_f32_") as tmp:
+        out_dir = Path(tmp)
+        (out_dir / "processed_data").mkdir()
+        arrays = {}
+        for split, n in (("train", N_TRAIN_WINDOWS), ("val", 256), ("test", 256)):
+            arrays[f"X_{split}"], arrays[f"y_{split}"] = synthetic_split(rng12, n, T, C)
+        np.savez(out_dir / "processed_data" / "processed_sequences.npz", **arrays)
+        save_results(out_dir / "results" / "ode_results.json",
+                     {"fitted_params": DEFAULT_RATES})
+        (out_dir / "config.json").write_text(json.dumps({"train": {"bf16": False}}))
+        kernels.reset_launch_counts()
+        t_train = time.perf_counter()
+        rc = cli_main(["--output-dir", str(out_dir), "--config", str(out_dir / "config.json"),
+                       "train", "--epochs", str(N_TRAIN32_EPOCHS), "--device", "cuda"])
+        torch.cuda.synchronize()
+        t_train = time.perf_counter() - t_train
+        f32_counts = dict(kernels.launch_counts)
+        require(rc == 0, "float32 train stage returned 0")
+        n_micro = N_TRAIN32_EPOCHS * (3 * N_TRAIN_WINDOWS // B_TRAIN)
+        n_eval = N_TRAIN32_EPOCHS + 1
+        print(f"train stage (bf16 false): {N_TRAIN32_EPOCHS} epoch, {n_micro} micro-steps of "
+              f"{B_TRAIN} in {t_train:.1f} s; launches {f32_counts}")
+        want_counts = {"input_block_fwd": n_micro + n_eval, "input_block_bwd": n_micro,
+                       "lstm_rec_fwd_train": 6 * n_micro, "lstm_rec_bwd": 6 * n_micro,
+                       "pool_head_fwd": n_micro + n_eval, "pool_head_bwd": n_micro,
+                       "lstm_rec_fwd": 6 * n_eval}
+        require(f32_counts == want_counts,
+                f"float32 launches 1/1/6/6/1/1 per micro-step, 6 lstm_rec_fwd per eval "
+                f"batch: want {want_counts}")
+        _, _, hist, _ = load_checkpoint(out_dir / "models" / "lstm_attention")
+        require(all(math.isfinite(v) for v in hist["train_loss"] + hist["val_loss"]),
+                "finite losses in the float32 history")
+        print(f"float32 train history: train_loss {hist['train_loss']}, val_loss "
+              f"{hist['val_loss']}, val_f1 {hist['val_f1']}")
+        served_model = load_coupled_model(out_dir, dev)
+        xt = torch.from_numpy(arrays["X_test"][:64]).to(dev)
+        rollout_args = (served_model.params, xt, served_model.k_base, served_model.model_cfg)
+        with torch.inference_mode():
+            kernels.reset_launch_counts()
+            roll_k = coupled_rollout(*rollout_args, bf16=False)
+            torch.cuda.synchronize()
+            roll_counts = dict(kernels.launch_counts)
+            roll_p = coupled_rollout(*rollout_args, bf16=False, lstm_impl="plain")
+        err = max((roll_k[n] - roll_p[n]).abs().max().item()
+                  for n in ("probs", "final_state", "attention"))
+        print(f"serve loader read the float32 checkpoint; coupled_rollout(bf16=False) on 64 "
+              f"windows: launches {roll_counts}, kernel vs plain max_abs_diff {err:.3e} "
+              f"(tol {PROBS_TOL:g})", flush=True)
+        require(roll_counts == {"input_block_fwd": 1, "lstm_rec_fwd": 6, "pool_head_fwd": 1},
+                "coupled_rollout(bf16=False) runs the float32 kernels")
+        require(err <= PROBS_TOL, "float32 rollout: kernel path agrees with the plain path")
+
+    # phase 13: a float32 micro-step at B=512, kernel path against plain path
+    kernels.reset_launch_counts()
+    loss_k, grads_k = micro_step("kernel", None)
+    torch.cuda.synchronize()
+    step_counts = dict(kernels.launch_counts)
+    loss_k2, grads_k2 = micro_step("kernel", None)
+    loss_p, grads_p = micro_step("plain", None)
+    torch.cuda.synchronize()
+    require(step_counts == {"input_block_fwd": 1, "input_block_bwd": 1, "lstm_rec_fwd_train": 6,
+                            "lstm_rec_bwd": 6, "pool_head_fwd": 1, "pool_head_bwd": 1},
+            f"float32 micro-step launches {step_counts}")
+    loss_diff = abs(loss_k.item() - loss_p.item())
+    grad_rel = max(rel_err(a, b) for a, b in zip(grads_k, grads_p) if b.abs().max() > 0)
+    bitwise = torch.equal(loss_k, loss_k2) and all(torch.equal(a, b)
+                                                   for a, b in zip(grads_k, grads_k2))
+    print(f"float32 micro-step B={B_TRAIN}: loss kernel {loss_k.item():.6f} plain "
+          f"{loss_p.item():.6f} (diff {loss_diff:.3e}, tol {STEP32_LOSS_TOL:g}); gradients max "
+          f"rel diff {grad_rel:.3e} over {len(leaves)} leaves (tol {STEP32_GRAD_REL_TOL:g}); "
+          f"second kernel run bitwise identical: {bitwise}")
+    require(math.isfinite(loss_k.item()) and loss_diff <= STEP32_LOSS_TOL,
+            "float32 micro-step loss: kernel path within tolerance of the plain path")
+    require(grad_rel <= STEP32_GRAD_REL_TOL, "float32 micro-step gradients within tolerance")
+    require(bitwise, "float32 kernel-path gradients bitwise repeatable")
+    del grads_k, grads_k2, grads_p
+    step32_ms = median_ms({"plain": lambda: micro_step("plain", None),
+                           "kernel": lambda: micro_step("kernel", None)})
+    for impl in ("kernel", "plain"):
+        print(f"float32 training micro-step (forward + backward) B={B_TRAIN} T={T} "
+              f"lstm_impl={impl}: median {step32_ms[impl]:.3f} ms, "
+              f"{B_TRAIN / step32_ms[impl] * 1e3:.1f} windows/s [{smi}]")
+
+    gates2 = torch.cat(xs2, dim=-1) @ p1["w_ih"] + p1["b"]
+    h32, c32 = lstm_recurrence_plain(gates2, p1["w_hh"], True, True)
+    x512 = randn(B_TRAIN, T, C)
+    dy512 = randn(B_TRAIN, T, H)
+    ib = (params["input_proj"], params["input_norm"])
+    pargs32 = pargs2[:-1] + (False,)
+    timed = (
+        ("lstm_rec_fwd", lstm_recurrence, lstm_recurrence_plain, (gates2, p1["w_hh"], True)),
+        ("lstm_rec_fwd_train", lstm_recurrence, lstm_recurrence_plain,
+         (gates2, p1["w_hh"], True, True)),
+        ("lstm_rec_bwd", lstm_recurrence_backward, lstm_recurrence_backward_plain,
+         (gates2, h32, c32, p1["w_hh"], g2, True)),
+        ("input_block_fwd bf16", input_block_fused, input_block_fused_plain, (*ib, x512, True)),
+        ("input_block_bwd bf16", input_block_bwd, input_block_bwd_plain,
+         (*ib, x512, dy512, True)),
+        ("input_block_fwd float32", input_block_fused, input_block_fused_plain,
+         (*ib, x512, False)),
+        ("input_block_bwd float32", input_block_bwd, input_block_bwd_plain,
+         (*ib, x512, dy512, False)),
+        ("pool_head_bwd float32", pool_head_bwd, pool_head_bwd_plain, pargs32))
+    for name, kfn, pfn, args in timed:
+        m = median_ms({"plain": lambda: pfn(*args), "kernel": lambda: kfn(*args)}, rounds=1)
+        train_ms[name] = (m["kernel"], m["plain"])
+        print(f"{name} B={B_TRAIN} T={T} H={H}: kernel {m['kernel']:.3f} ms, "
+              f"plain {m['plain']:.3f} ms [{smi}]", flush=True)
+
     def entry(name, source, replaces, launches, err, ms, plain_ms):
         return {"name": name, "route": "cuda", "source": f"eegflow_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
@@ -509,6 +761,21 @@ def main() -> int:
               counts.get("pool_head_fwd", 0), pool_err, pool_ms, pool_plain_ms),
         entry("pool_head_bwd", "pool_head_bwd.cu", "eegflow/nn/pallas_attention.py:221",
               train_counts.get("pool_head_bwd", 0), pool_bwd_err, *train_ms["pool_head_bwd"]),
+        entry("lstm_rec_fwd", "lstm_rec.cu", "eegflow/nn/pallas_lstm.py:146",
+              f32_counts.get("lstm_rec_fwd", 0), rec_err, *train_ms["lstm_rec_fwd"]),
+        entry("lstm_rec_fwd_train", "lstm_rec.cu", "eegflow/nn/pallas_lstm.py:146",
+              f32_counts.get("lstm_rec_fwd_train", 0), rec_err,
+              *train_ms["lstm_rec_fwd_train"]),
+        entry("lstm_rec_bwd", "lstm_rec.cu", "eegflow/nn/pallas_lstm.py:1551",
+              f32_counts.get("lstm_rec_bwd", 0), rec_bwd_err, *train_ms["lstm_rec_bwd"]),
+        entry("input_block_fwd", "input_block.cu", "eegflow/nn/pallas_input.py:78",
+              train_counts.get("input_block_fwd", 0), in_fwd_err,
+              *train_ms["input_block_fwd bf16"]),
+        entry("input_block_bwd", "input_block.cu", "eegflow/nn/pallas_input.py:117",
+              train_counts.get("input_block_bwd", 0), in_bwd_err,
+              *train_ms["input_block_bwd bf16"]),
+        entry("attention_pool", "pool_head_fwd.cu", "eegflow/nn/pallas_attention.py:28",
+              attn_counts.get("attention_pool", 0), apool_err, *apool_ms),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,
                                              "count": torch.cuda.device_count()}}),

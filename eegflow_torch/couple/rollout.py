@@ -1,10 +1,10 @@
 """Coupled LSTM->ODE trajectory prediction (``eegflow.couple.rollout``).
 
-Classifier forward (eval, bf16 policy), softmax, rate modulation,
-initial-state inference, one batched exact ODE solve, and the final-state
-thresholds — all on the model's device. ``predict_batch`` pads each chunk of
-windows to a power-of-two bucket, as the JAX package does, so the shapes the
-device sees stay few and static.
+Classifier forward (eval; the bf16 policy, or float32 with ``bf16=False``),
+softmax, rate modulation, initial-state inference, one batched exact ODE
+solve, and the final-state thresholds — all on the model's device.
+``predict_batch`` pads each chunk of windows to a power-of-two bucket, as the
+JAX package does, so the shapes the device sees stay few and static.
 """
 
 from __future__ import annotations

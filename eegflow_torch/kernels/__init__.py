@@ -9,10 +9,10 @@ sources and flags, so an edited source rebuilds), which it loads with
 headers, no ``torch.utils.cpp_extension``. A failed build raises with
 nvcc's output.
 
-Every C entry point returns ``cudaGetLastError()``; :func:`check` raises when
-it is not 0. Each wrapper adds one to :data:`launch_counts` where it launches
-its kernel and nowhere else, so a run can show that its main path went
-through the kernels.
+Every C entry point that launches returns ``cudaGetLastError()``;
+:func:`check` raises when it is not 0. Each wrapper adds one to
+:data:`launch_counts` where it launches its kernel and nowhere else, so a
+run can show that its main path went through the kernels.
 """
 
 from __future__ import annotations
@@ -46,20 +46,41 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
+    # lstm_fwd.cu, kernel 2 (bf16 policy), eval mode:
     # x0, x1, d0, d1, w0, w1, b, whh, h_out, B, T, H, reverse, stream
     "eegflow_lstm_fwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # lstm_fwd.cu, kernel 2, training mode:
     # x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, b, whh, h_out, res_out,
     # B, T, H, reverse, stream
     "eegflow_lstm_fwd_train": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P,
                                _I, _I, _I, _I, _P],
+    # lstm_bwd.cu, kernel 3:
     # res, h, g, x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, whh_t, add0, add1,
     # dx0, dx1, dw_ih, dw_hh, db, dz, part, splits, B, T, H, reverse, stream
     "eegflow_lstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # lstm_rec.cu, kernel 1 (float32 policy); c_out null in eval mode:
+    # gates, whh, h_out, c_out, B, T, H, reverse, stream
+    "eegflow_lstm_rec_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # lstm_rec.cu, kernel 5:
+    # gates, h, c, g, whh, whh_t, dgates, B, T, H, reverse, stream
+    "eegflow_lstm_rec_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # input_block.cu, kernel 9:
+    # x, w, b, gamma, beta, y, rows, C, H, bf16, stream
+    "eegflow_input_block_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # input_block.cu, kernel 10:
+    # x, dy, w, b, gamma, beta, dx, dw, vec, dz_scr, vec_part, part, splits,
+    # rows, C, H, bf16, stream
+    "eegflow_input_block_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                _I, _I, _I, _I, _P],
+    # rows -> the number of partial rows (vec_part) kernel 10 writes
+    "eegflow_input_block_bwd_ctas": [_I],
+    # pool_head_fwd.cu, kernel 7 (and kernel 6: one part, use_ln=0, bf16=0):
     # x0, x1, d0, d1, gamma, beta, w1, b1, w2, ctx0, ctx1, scores,
     # B, T, K, use_ln, bf16, stream
     "eegflow_pool_head_fwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
+    # pool_head_bwd.cu, kernel 8:
     # x0, x1, d0, d1, gamma, beta, w1, w1t, b1, w2, wts, gs, g0, g1, gctx,
     # dh0, dh1, dw1, vec, y_scr, u_scr, vec_part, part, splits, B, T, K,
     # use_ln, bf16, stream

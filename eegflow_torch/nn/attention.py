@@ -1,9 +1,11 @@
 """Additive attention pooling (``eegflow.nn.attention``).
 
 Linear(D -> D/2) -> tanh -> Linear(D/2 -> 1) -> softmax over time ->
-weighted sum. This is the plain path: the classifier uses it under the
-float32 policy. Under the bf16 serving policy the fused LayerNorm +
-attention-pool head (:mod:`eegflow_torch.nn.cuda_attention`) runs instead.
+weighted sum, in plain PyTorch. The classifier runs the fused LayerNorm +
+attention-pool head (:mod:`eegflow_torch.nn.cuda_attention`) under both
+precision policies and takes only ``additive_attention_init`` from here;
+``additive_attention_apply`` is the counterpart of the reference's, held to
+it by the tests.
 """
 
 from __future__ import annotations

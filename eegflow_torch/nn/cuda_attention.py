@@ -13,6 +13,12 @@ For CPU tensors a wrapper runs its plain PyTorch twin
 tensors it launches the kernel or raises. :class:`PoolHead` is the
 ``torch.autograd.Function`` around the pair, as ``_pool_head_core``'s custom
 VJP is in the reference.
+
+:func:`attention_pool` is the reference's ``_attention_pool_kernel`` (entry
+``attention_pool_pallas``): one part, no LayerNorm, float32. It launches
+``pool_head_fwd.cu`` in that mode under its own launch count;
+:func:`attention_pool_apply` is ``pallas_attention_apply``. No classifier
+path calls it, in the reference or here.
 """
 
 from __future__ import annotations
@@ -99,8 +105,13 @@ def pool_head_fused(ln_params: Optional[Mapping], attn_params: Mapping, xs: Part
     xs = as_parts(xs)
     if xs[0].device.type == "cpu":
         return pool_head_fused_plain(ln_params, attn_params, xs, use_ln, bf16)
+    return _pool_head_fwd_launch(ln_params, attn_params, xs, use_ln, bf16, "pool_head_fwd")
+
+
+def _pool_head_fwd_launch(ln_params, attn_params, xs, use_ln, bf16, name):
+    """Launch ``pool_head_fwd.cu`` on CUDA parts; counted under ``name``."""
     if xs[0].device.type != "cuda":
-        raise ValueError(f"pool_head_fwd: unsupported device {xs[0].device}")
+        raise ValueError(f"{name}: unsupported device {xs[0].device}")
     _check_cuda_args(xs, ln_params, attn_params, use_ln)
     lib = kernels.load_library()
     dev = xs[0].device
@@ -121,11 +132,44 @@ def pool_head_fused(ln_params: Optional[Mapping], attn_params: Mapping, xs: Part
         gamma.data_ptr() if use_ln else None, beta.data_ptr() if use_ln else None,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         ctx[0].data_ptr(), ctx[1].data_ptr() if two else None, scores.data_ptr(),
-        batch, steps, w1.shape[1], int(use_ln), int(bf16),
-        torch.cuda.current_stream(dev).cuda_stream)
-    kernels.check(lib, err, "pool_head_fwd")
-    kernels.launch_counts["pool_head_fwd"] += 1
+        batch, steps, w1.shape[1], int(use_ln), int(bf16), _stream(dev))
+    kernels.check(lib, err, name)
+    kernels.launch_counts[name] += 1
     return tuple(ctx), scores
+
+
+def attention_pool_plain(h: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                         w2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of kernel 6: (B, T, D) -> (ctx (B, D), raw scores (B, T)),
+    s = tanh(h . W1 + b1) . w2 and ctx = sum_t softmax(s)_t h_t in float32;
+    ``w2`` is the score weight as a (K,) vector, and the score bias is not
+    added."""
+    h = h.to(torch.float32)
+    scores = (torch.tanh(h @ w1 + b1) * w2).sum(-1)
+    return (torch.softmax(scores, dim=-1)[..., None] * h).sum(1), scores
+
+
+def attention_pool(h: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
+                   w2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 6, ``attention_pool_pallas``: additive-attention pooling of one
+    (B, T, D) float32 part, no LayerNorm -> (ctx (B, D), raw scores (B, T)).
+    It is ``pool_head_fwd.cu`` with one part, ``use_ln=0`` and ``bf16=0``
+    (that case computes exactly this contract), counted as
+    ``attention_pool``."""
+    if h.device.type == "cpu":
+        return attention_pool_plain(h, w1, b1, w2)
+    attn = {"proj": {"w": w1, "b": b1}, "score": {"w": w2.reshape(-1, 1)}}
+    (ctx,), scores = _pool_head_fwd_launch(None, attn, (h,), False, False, "attention_pool")
+    return ctx, scores
+
+
+def attention_pool_apply(params: Mapping, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``pallas_attention_apply``: a drop-in for additive attention, (B, T, D)
+    -> (context (B, D), weights (B, T)), through :func:`attention_pool`; the
+    score bias and the softmax are applied outside the kernel."""
+    ctx, scores = attention_pool(x, params["proj"]["w"], params["proj"]["b"],
+                                 params["score"]["w"][:, 0])
+    return ctx, torch.softmax(scores + params["score"]["b"][0], dim=-1)
 
 
 PoolGrads = Tuple[Tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor, torch.Tensor,

@@ -1,0 +1,207 @@
+"""Fused input block ``gelu(LayerNorm(x . W + b))``, forward and recomputing
+backward (``eegflow.nn.pallas_input`` counterpart).
+
+:func:`input_block_fused` launches the hand-written CUDA kernel
+``eegflow_torch/csrc/input_block.cu`` for CUDA tensors; it replaces
+``eegflow/nn/pallas_input.py`` ``_input_block_fwd_kernel`` (entry
+``_fwd_call``). :func:`input_block_bwd` launches the same source's backward,
+which replaces ``_input_block_bwd_kernel`` (entry ``_bwd_call``): it
+recomputes the forward from x, so no (B, T, H) residual is kept. The kernel
+source says what bounds it on the card and how its design deals with that.
+For CPU tensors a wrapper runs its plain twin (:func:`input_block_fused_plain`,
+:func:`input_block_bwd_plain`); for CUDA tensors it launches the kernel or
+raises. :class:`InputBlock` is the ``torch.autograd.Function`` around the
+pair, as ``_input_block_core``'s custom VJP is in the reference.
+
+The reference's ``out_keep``/``out_seed``/``out_mask`` modes (input dropout
+folded into the block's output) are options that the port does not take: the
+input dropout is applied by the first LSTM layer, from explicit masks.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Mapping, Tuple
+
+import torch
+
+from eegflow_torch import kernels
+from eegflow_torch.nn.cuda_lstm import _device_kind, _stream
+from eegflow_torch.nn.layers import bf16_round
+
+LN_EPS = 1e-5
+_INV_SQRT2 = 1.0 / math.sqrt(2.0)
+_INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
+
+
+def _erf(x: torch.Tensor) -> torch.Tensor:
+    """erf by Abramowitz & Stegun 7.1.26 (|err| <= 1.5e-7), as the kernels
+    and the reference's Pallas kernels evaluate it."""
+    ax = x.abs()
+    t = 1.0 / (1.0 + 0.3275911 * ax)
+    poly = ((((1.061405429 * t - 1.453152027) * t + 1.421413741) * t - 0.284496736) * t
+            + 0.254829592) * t
+    r = 1.0 - poly * torch.exp(-ax * ax)
+    return torch.where(x < 0.0, -r, r)
+
+
+def _gelu(z: torch.Tensor) -> torch.Tensor:
+    return 0.5 * z * (1.0 + _erf(z * _INV_SQRT2))
+
+
+def _gelu_grad(z: torch.Tensor) -> torch.Tensor:
+    """d/dz of GELU: Phi(z) + z phi(z)."""
+    return 0.5 * (1.0 + _erf(z * _INV_SQRT2)) + z * torch.exp(-0.5 * z * z) * _INV_SQRT2PI
+
+
+def _project_ln(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, bf16: bool
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x . W + b (bf16-rounded operands under ``bf16``), then the LayerNorm
+    statistics as the kernels take them (mean and E[z^2] - mean^2) ->
+    (xhat, rsig)."""
+    z = (bf16_round(x) @ bf16_round(w) if bf16 else x @ w) + b
+    mu = z.mean(-1, keepdim=True)
+    rsig = torch.rsqrt((z * z).mean(-1, keepdim=True) - mu * mu + LN_EPS)
+    return (z - mu) * rsig, rsig
+
+
+def input_block_fused_plain(proj: Mapping, norm: Mapping, x: torch.Tensor,
+                            bf16: bool = False) -> torch.Tensor:
+    """Plain twin of kernel 9: (B, T, C) -> gelu(LN(x . W + b)) (B, T, H),
+    float32, with the kernel's A&S erf (within 1.5e-7 of ``torch.erf``)."""
+    xhat, _ = _project_ln(x.to(torch.float32), proj["w"], proj["b"], bf16)
+    return _gelu(xhat * norm["scale"] + norm["bias"])
+
+
+Grads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
+
+
+def input_block_bwd_plain(proj: Mapping, norm: Mapping, x: torch.Tensor, dy: torch.Tensor,
+                          bf16: bool = False) -> Grads:
+    """Plain twin of kernel 10: recompute the forward from x and, from the
+    upstream gradient ``dy`` (B, T, H), return (dx (B, T, C), dW (C, H),
+    db, dgamma, dbeta (H,)). dx and dW take bf16(dz), bf16(W) and bf16(x)
+    under ``bf16``; the sums are float32."""
+    x = x.to(torch.float32)
+    w, gamma = proj["w"], norm["scale"]
+    xhat, rsig = _project_ln(x, w, proj["b"], bf16)
+    dln = dy * _gelu_grad(xhat * gamma + norm["bias"])
+    dxhat = dln * gamma
+    dz = rsig * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    rnd = bf16_round if bf16 else (lambda t: t)
+    dz2 = rnd(dz).reshape(-1, dz.shape[-1])
+    dw = rnd(x).reshape(-1, x.shape[-1]).t() @ dz2
+    dx = (dz2 @ rnd(w).t()).reshape(x.shape)
+    bt = (0, 1)  # sums over all (b, t) rows
+    return dx, dw, dz.sum(dim=bt), (dln * xhat).sum(dim=bt), dln.sum(dim=bt)
+
+
+def _check_cuda_args(proj, norm, x, dy=None):
+    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError("x must be contiguous float32 (B, T, C)")
+    channels = x.shape[-1]
+    w = proj["w"]
+    if w.dim() != 2 or w.shape[0] != channels:
+        raise ValueError(f"input_proj w must be ({channels}, H), got {tuple(w.shape)}")
+    hidden = w.shape[1]
+    if hidden % 32 or hidden > 512:
+        raise ValueError(f"the input block kernels need H % 32 == 0 and H <= 512, got {hidden}")
+    for t in (proj["b"], norm["scale"], norm["bias"]):
+        if tuple(t.shape) != (hidden,):
+            raise ValueError(f"bias, scale and LayerNorm bias must be ({hidden},)")
+    if any(t.device != x.device for t in (w, proj["b"], norm["scale"], norm["bias"])):
+        raise ValueError("parameters must be on the input's device")
+    if dy is not None and (dy.dtype != torch.float32 or dy.device != x.device
+                           or tuple(dy.shape) != (*x.shape[:2], hidden)
+                           or not dy.is_contiguous()):
+        raise ValueError(f"dy must be contiguous float32 {(*x.shape[:2], hidden)}")
+
+
+def _f32(t: torch.Tensor) -> torch.Tensor:
+    return t.to(torch.float32).contiguous()
+
+
+def input_block_fused(proj: Mapping, norm: Mapping, x: torch.Tensor,
+                      bf16: bool = False) -> torch.Tensor:
+    """Kernel 9: ``gelu(LayerNorm(x @ W + b))`` over (B, T, C) windows ->
+    (B, T, H) float32; ``bf16`` rounds x and W to bf16 (float32 sums)."""
+    if _device_kind("input_block_fwd", x) == "cpu":
+        return input_block_fused_plain(proj, norm, x, bf16)
+    _check_cuda_args(proj, norm, x)
+    lib = kernels.load_library()
+    batch, steps, channels = x.shape
+    hidden = proj["w"].shape[1]
+    y = torch.empty(batch, steps, hidden, dtype=torch.float32, device=x.device)
+    w, b, gamma, beta = (_f32(t) for t in (proj["w"], proj["b"], norm["scale"], norm["bias"]))
+    err = lib.eegflow_input_block_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+                                      gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
+                                      batch * steps, channels, hidden, int(bf16),
+                                      _stream(x.device))
+    kernels.check(lib, err, "input_block_fwd")
+    kernels.launch_counts["input_block_fwd"] += 1
+    return y
+
+
+def input_block_bwd(proj: Mapping, norm: Mapping, x: torch.Tensor, dy: torch.Tensor,
+                    bf16: bool = False) -> Grads:
+    """Kernel 10: the recomputing backward of :func:`input_block_fused` ->
+    (dx, dW, db, dgamma, dbeta), as :func:`input_block_bwd_plain`."""
+    if _device_kind("input_block_bwd", x) == "cpu":
+        return input_block_bwd_plain(proj, norm, x, dy, bf16)
+    _check_cuda_args(proj, norm, x, dy)
+    lib = kernels.load_library()
+    dev = x.device
+    batch, steps, channels = x.shape
+    hidden = proj["w"].shape[1]
+    rows = batch * steps
+    w, b, gamma, beta = (_f32(t) for t in (proj["w"], proj["b"], norm["scale"], norm["bias"]))
+    f32 = dict(dtype=torch.float32, device=dev)
+    dx = torch.empty_like(x)
+    dw = torch.empty(channels, hidden, **f32)
+    vec = torch.empty(3 * hidden, **f32)
+    dz_scr = torch.empty(rows, hidden, **f32)
+    vec_part = torch.empty(lib.eegflow_input_block_bwd_ctas(rows) * 3 * hidden, **f32)
+    splits = kernels.gemm_splits(rows)
+    part = torch.empty(splits * channels * hidden, **f32)
+    err = lib.eegflow_input_block_bwd(
+        x.data_ptr(), dy.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), dx.data_ptr(), dw.data_ptr(), vec.data_ptr(), dz_scr.data_ptr(),
+        vec_part.data_ptr(), part.data_ptr(), splits, rows, channels, hidden, int(bf16),
+        _stream(dev))
+    kernels.check(lib, err, "input_block_bwd")
+    kernels.launch_counts["input_block_bwd"] += 1
+    db, dgamma, dbeta = vec.split(hidden)
+    return dx, dw, db, dgamma, dbeta
+
+
+class InputBlock(torch.autograd.Function):
+    """``forward(kernel, bf16, x, w, b, gamma, beta) -> y`` through kernel 9
+    (``kernel``) or its twin; the backward recomputes from x through kernel
+    10 or its twin. Only x and the four parameters are saved."""
+
+    @staticmethod
+    def forward(ctx, kernel, bf16, x, w, b, gamma, beta):
+        proj, norm = {"w": w, "b": b}, {"scale": gamma, "bias": beta}
+        y = (input_block_fused if kernel else input_block_fused_plain)(proj, norm, x, bf16)
+        ctx.kernel, ctx.bf16 = kernel, bf16
+        ctx.save_for_backward(x, w, b, gamma, beta)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, w, b, gamma, beta = ctx.saved_tensors
+        bwd = input_block_bwd if ctx.kernel else input_block_bwd_plain
+        dx, dw, db, dgamma, dbeta = bwd({"w": w, "b": b}, {"scale": gamma, "bias": beta}, x,
+                                        dy.contiguous(), ctx.bf16)
+        return None, None, dx, dw, db, dgamma, dbeta
+
+
+def input_block(proj: Mapping, norm: Mapping, x: torch.Tensor, bf16: bool = False,
+                kernel: bool = False) -> torch.Tensor:
+    """The classifier's input block: through :class:`InputBlock` where
+    gradients are enabled, else kernel 9 (``kernel``) or its twin alone."""
+    if torch.is_grad_enabled():
+        return InputBlock.apply(kernel, bf16, x, proj["w"], proj["b"], norm["scale"],
+                                norm["bias"])
+    return (input_block_fused if kernel else input_block_fused_plain)(proj, norm, x, bf16)

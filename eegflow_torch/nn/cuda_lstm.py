@@ -1,9 +1,9 @@
-"""Fused LSTM layer-direction forward and backward (``eegflow.nn.pallas_lstm``
-counterpart).
+"""LSTM layer-direction forward and backward kernels (``eegflow.nn.pallas_lstm``
+counterpart), for both precision policies.
 
-Three wrappers launch hand-written CUDA kernels for CUDA tensors; each
+Five wrappers launch hand-written CUDA kernels for CUDA tensors; each
 kernel source says which TPU kernel it replaces, what bounds it on the card
-and how its design deals with that:
+and how its design deals with that. The bf16 policy:
 
 * :func:`lstm_fwd_fused_proj` — ``csrc/lstm_fwd.cu`` in eval mode: the
   reference's ``_fwd_proj_kernel`` (entry ``lstm_fwd_fused_proj``) with
@@ -14,11 +14,23 @@ and how its design deals with that:
 * :func:`lstm_bwd` — ``csrc/lstm_bwd.cu``: ``_bwd_fused_kernel`` (entry
   ``lstm_bwd_fused``), the adjoint from those planes to dx, dW_ih, dW_hh, db.
 
+The float32 policy, whose input projection and weight products stay
+``torch.matmul`` as the reference leaves them to XLA:
+
+* :func:`lstm_recurrence` — ``csrc/lstm_rec.cu``: ``_lstm_chunk_kernel``
+  (entry ``lstm_recurrence_pallas``), the recurrence over precomputed gates;
+  in training mode it also writes c.
+* :func:`lstm_recurrence_backward` — ``csrc/lstm_rec.cu``:
+  ``_lstm_bwd_chunk_kernel`` (entry ``lstm_recurrence_backward``), dgates
+  from (gates, h, c), plus dW_hh.
+
 Each has a plain PyTorch twin in this module (``*_plain``). For CPU tensors a
 wrapper runs its twin; for CUDA tensors it launches the kernel or raises.
-:class:`BiLSTMLayer` puts both directions of a bidirectional layer under one
-``torch.autograd.Function``, as ``_bilstm_layer_fused_core`` does: two
-training-mode forwards, then two backwards, the second adding the first's dx.
+:class:`BiLSTMLayer` (bf16) and :class:`BiLSTMLayerF32` (float32) put both
+directions of a bidirectional layer under one ``torch.autograd.Function``,
+as ``_bilstm_layer_fused_core`` does; the bf16 one's second backward adds
+the first's dx in its kernel, the float32 one adds the two dx, as the
+reference's float32 fallback does.
 """
 
 from __future__ import annotations
@@ -378,9 +390,10 @@ class BiLSTMLayer(torch.autograd.Function):
 
 
 def bilstm_layer(layer: Mapping, xs: Parts, masks: Masks = None, keep: float = 1.0,
-                 kernel: bool = False) -> Tuple[torch.Tensor, ...]:
+                 kernel: bool = False, bf16: bool = True) -> Tuple[torch.Tensor, ...]:
     """One layer of the stack (``{"fwd": ..., "bwd": ...}`` params) over input
-    parts, differentiable through :class:`BiLSTMLayer` -> output parts."""
+    parts, differentiable through :class:`BiLSTMLayer` (the bf16 policy) or
+    :class:`BiLSTMLayerF32` (``bf16=False``) -> output parts."""
     xs = as_parts(xs)
     ms = _mask_list(masks, len(xs))
     two = len(xs) == 2
@@ -388,5 +401,218 @@ def bilstm_layer(layer: Mapping, xs: Parts, masks: Masks = None, keep: float = 1
     weights = [pf["w_ih"], pf["w_hh"], pf["b"]]
     if pb is not None:
         weights += [pb["w_ih"], pb["w_hh"], pb["b"]]
-    return BiLSTMLayer.apply(kernel, float(keep), ms[0], ms[1] if two else None,
-                             xs[0], xs[1] if two else None, *weights)
+    fn = BiLSTMLayer if bf16 else BiLSTMLayerF32
+    return fn.apply(kernel, float(keep), ms[0], ms[1] if two else None,
+                    xs[0], xs[1] if two else None, *weights)
+
+
+# ---------------------------------------------------------------------------
+# The float32 policy: recurrence-only kernels over precomputed gates
+# ---------------------------------------------------------------------------
+
+
+def _shift(seq: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """The state before each step: seq[:, t-1] (seq[:, t+1] for the reverse
+    direction), zero before the direction's first step."""
+    zero = torch.zeros_like(seq[:, :1])
+    if reverse:
+        return torch.cat([seq[:, 1:], zero], dim=1)
+    return torch.cat([zero, seq[:, :-1]], dim=1)
+
+
+def _dw_hh(h: torch.Tensor, dgates: torch.Tensor, reverse: bool) -> torch.Tensor:
+    """dW_hh = sum over (b, t) of h_prev^T dgates, float32 (the reference's
+    einsum outside its kernel)."""
+    hidden = h.shape[-1]
+    return _shift(h, reverse).reshape(-1, hidden).t() @ dgates.reshape(-1, 4 * hidden)
+
+
+def lstm_recurrence_plain(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False,
+                          collect_cell: bool = False):
+    """Plain twin of kernel 1: gates (B, T, 4H) -> h (B, T, H), or (h, c)
+    with ``collect_cell``. z = gates[t] + h_prev . W_hh in float32, gate order
+    i, f, g, o, the tanh-form sigmoid, zero initial state."""
+    batch, steps, g4 = gates.shape
+    hidden = g4 // 4
+    h = torch.zeros(batch, hidden, dtype=torch.float32, device=gates.device)
+    c = torch.zeros_like(h)
+    hs = torch.empty(batch, steps, hidden, dtype=torch.float32, device=gates.device)
+    cs = torch.empty_like(hs) if collect_cell else None
+    for t in (range(steps - 1, -1, -1) if reverse else range(steps)):
+        zi, zf, zg, zo = (gates[:, t] + h @ w_hh).split(hidden, dim=-1)
+        c = _sigmoid(zf) * c + _sigmoid(zi) * torch.tanh(zg)
+        h = _sigmoid(zo) * torch.tanh(c)
+        hs[:, t] = h
+        if collect_cell:
+            cs[:, t] = c
+    return (hs, cs) if collect_cell else hs
+
+
+def lstm_recurrence_backward_plain(gates: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                                   w_hh: torch.Tensor, g: torch.Tensor,
+                                   reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain twin of kernel 5: -> (dgates (B, T, 4H), dW_hh (H, 4H)).
+
+    The activations are recomputed from z = gates + h_prev . W_hh; the
+    adjoint walks against the direction of time (dh = g + dh_carry,
+    dc = dh o (1 - tanh^2 c) + dc_carry, dz = [dc g i(1-i), dc c_prev f(1-f),
+    dc i (1-g^2), dh tanh(c) o(1-o)], dc_carry = dc f, dh_carry =
+    dz . W_hh^T), all in float32.
+    """
+    batch, steps, g4 = gates.shape
+    hidden = g4 // 4
+    zi, zf, zg, zo = (gates + _shift(h, reverse) @ w_hh).split(hidden, dim=-1)
+    i, f, gg, o = _sigmoid(zi), _sigmoid(zf), torch.tanh(zg), _sigmoid(zo)
+    c_prev, tc = _shift(c, reverse), torch.tanh(c)
+    whh_t = w_hh.t()
+    dh_c = torch.zeros(batch, hidden, dtype=torch.float32, device=gates.device)
+    dc_c = torch.zeros_like(dh_c)
+    dgates = torch.empty_like(gates)
+    for t in (range(steps) if reverse else range(steps - 1, -1, -1)):
+        dh = g[:, t] + dh_c
+        dc = dh * o[:, t] * (1 - tc[:, t] * tc[:, t]) + dc_c
+        dc_c = dc * f[:, t]
+        dz = torch.cat([dc * gg[:, t] * i[:, t] * (1 - i[:, t]),
+                        dc * c_prev[:, t] * f[:, t] * (1 - f[:, t]),
+                        dc * i[:, t] * (1 - gg[:, t] * gg[:, t]),
+                        dh * tc[:, t] * o[:, t] * (1 - o[:, t])], dim=-1)
+        dgates[:, t] = dz
+        dh_c = dz @ whh_t
+    return dgates, _dw_hh(h, dgates, reverse)
+
+
+def _check_rec_args(gates, w_hh, *seqs):
+    if gates.dtype != torch.float32 or gates.dim() != 3 or not gates.is_contiguous():
+        raise ValueError("gates must be contiguous float32 (B, T, 4H)")
+    batch, steps, g4 = gates.shape
+    hidden = g4 // 4
+    if g4 != 4 * hidden or tuple(w_hh.shape) != (hidden, 4 * hidden):
+        raise ValueError(f"w_hh must be (H, 4H) = ({hidden}, {g4}), got {tuple(w_hh.shape)}")
+    if hidden % 32 or hidden > 512:
+        raise ValueError(f"the lstm kernels need H % 32 == 0 and H <= 512, got {hidden}")
+    for name, t in seqs:
+        if (t.dtype != torch.float32 or tuple(t.shape) != (batch, steps, hidden)
+                or not t.is_contiguous() or t.device != gates.device):
+            raise ValueError(f"{name} must be contiguous float32 ({batch}, {steps}, {hidden})")
+    if w_hh.device != gates.device:
+        raise ValueError("w_hh must be on the gates' device")
+
+
+def lstm_recurrence(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False,
+                    collect_cell: bool = False):
+    """Kernel 1: precomputed gates (B, T, 4H) float32 -> h (B, T, H), or
+    (h, c) with ``collect_cell`` (training mode). Counted as ``lstm_rec_fwd``
+    (eval) or ``lstm_rec_fwd_train``."""
+    if _device_kind("lstm_rec_fwd", gates) == "cpu":
+        return lstm_recurrence_plain(gates, w_hh, reverse, collect_cell)
+    _check_rec_args(gates, w_hh)
+    lib = kernels.load_library()
+    dev = gates.device
+    batch, steps, g4 = gates.shape
+    hidden = g4 // 4
+    whh = w_hh.to(torch.float32).contiguous()
+    h = torch.empty(batch, steps, hidden, dtype=torch.float32, device=dev)
+    c = torch.empty_like(h) if collect_cell else None
+    name = "lstm_rec_fwd_train" if collect_cell else "lstm_rec_fwd"
+    err = lib.eegflow_lstm_rec_fwd(gates.data_ptr(), whh.data_ptr(), h.data_ptr(), _ptr(c),
+                                   batch, steps, hidden, int(reverse), _stream(dev))
+    kernels.check(lib, err, name)
+    kernels.launch_counts[name] += 1
+    return (h, c) if collect_cell else h
+
+
+def lstm_recurrence_backward(gates: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+                             w_hh: torch.Tensor, g: torch.Tensor,
+                             reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Kernel 5: the adjoint of :func:`lstm_recurrence` from its training-mode
+    (gates, h, c) and the upstream gradient ``g`` of h -> (dgates (B, T, 4H),
+    dW_hh (H, 4H)), float32. dW_hh is a ``torch.matmul`` outside the kernel,
+    as in the reference."""
+    if _device_kind("lstm_rec_bwd", gates) == "cpu":
+        return lstm_recurrence_backward_plain(gates, h, c, w_hh, g, reverse)
+    _check_rec_args(gates, w_hh, ("h", h), ("c", c), ("g", g))
+    lib = kernels.load_library()
+    dev = gates.device
+    batch, steps, g4 = gates.shape
+    whh = w_hh.to(torch.float32).contiguous()
+    whh_t = whh.t().contiguous()
+    dgates = torch.empty_like(gates)
+    err = lib.eegflow_lstm_rec_bwd(gates.data_ptr(), h.data_ptr(), c.data_ptr(), g.data_ptr(),
+                                   whh.data_ptr(), whh_t.data_ptr(), dgates.data_ptr(),
+                                   batch, steps, g4 // 4, int(reverse), _stream(dev))
+    kernels.check(lib, err, "lstm_rec_bwd")
+    kernels.launch_counts["lstm_rec_bwd"] += 1
+    return dgates, _dw_hh(h, dgates, reverse)
+
+
+def _gates(xs: Sequence[torch.Tensor], w_ih: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """concat(xs) . W_ih + b (B, T, 4H), one float32 ``torch.addmm``."""
+    x = xs[0] if len(xs) == 1 else torch.cat(tuple(xs), dim=-1)
+    batch, steps, width = x.shape
+    return torch.addmm(b, x.reshape(-1, width), w_ih).reshape(batch, steps, -1)
+
+
+def lstm_rec_layer(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor,
+                   reverse: bool = False, kernel: bool = False) -> torch.Tensor:
+    """One layer-direction under the float32 policy in eval mode (no
+    residuals): gates by ``torch.addmm``, then kernel 1 (``kernel``) or its
+    twin -> h (B, T, H)."""
+    rec = lstm_recurrence if kernel else lstm_recurrence_plain
+    return rec(_gates(as_parts(xs), w_ih, b), w_hh, reverse, False)
+
+
+class BiLSTMLayerF32(torch.autograd.Function):
+    """One LSTM layer under the float32 policy, over input parts, both
+    directions under one Function (the reference's ``_bilstm_fwd`` /
+    ``_bilstm_bwd`` float32 branch).
+
+    ``forward(kernel, keep, m0, m1, x0, x1, w_ih_f, w_hh_f, b_f, w_ih_b,
+    w_hh_b, b_b) -> (h_f, h_b)``, arguments as :class:`BiLSTMLayer`. The
+    masks are applied outside the kernels, as ``_apply_masks_xla`` does:
+    before the projection and on dx. Per direction the forward runs
+    gates = masked x . W_ih + b and kernel 1 in training mode, and saves
+    (gates, h, c); the backward runs kernel 5, then dW_ih = x^T dgates,
+    dx = dgates W_ih^T (masked) and db as ``torch.matmul`` and sums, and adds
+    the two directions' dx.
+    """
+
+    @staticmethod
+    def forward(ctx, kernel, keep, m0, m1, x0, x1, w_ih_f, w_hh_f, b_f,
+                w_ih_b=None, w_hh_b=None, b_b=None):
+        xs = (x0,) if x1 is None else (x0, x1)
+        masks = (m0,) if x1 is None else (m0, m1)
+        xe = tuple(apply_mask(x, m, keep) for x, m in zip(xs, masks))
+        rec = lstm_recurrence if kernel else lstm_recurrence_plain
+        dirs = [(w_ih_f, w_hh_f, b_f, False)]
+        if w_ih_b is not None:
+            dirs.append((w_ih_b, w_hh_b, b_b, True))
+        outs, saved = [], []
+        for w_ih, w_hh, b, reverse in dirs:
+            gates = _gates(xe, w_ih, b)
+            h, c = rec(gates, w_hh, reverse, True)
+            outs.append(h)
+            saved += [gates, h, c]
+        ctx.kernel, ctx.keep, ctx.two = kernel, keep, x1 is not None
+        ctx.save_for_backward(x0, x1, m0, m1, w_ih_f, w_hh_f, w_ih_b, w_hh_b, *saved)
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        x0, x1, m0, m1, w_ih_f, w_hh_f, w_ih_b, w_hh_b, *saved = ctx.saved_tensors
+        xs = (x0, x1) if ctx.two else (x0,)
+        masks = (m0, m1) if ctx.two else (m0,)
+        xe = tuple(apply_mask(x, m, ctx.keep) for x, m in zip(xs, masks))
+        widths = [x.shape[-1] for x in xs]
+        bwd = lstm_recurrence_backward if ctx.kernel else lstm_recurrence_backward_plain
+        dxs, out = None, []
+        for d, (w_ih, w_hh) in enumerate(((w_ih_f, w_hh_f), (w_ih_b, w_hh_b))[:len(grads)]):
+            gates, h, c = saved[3 * d: 3 * d + 3]
+            dgates, dw_hh = bwd(gates, h, c, w_hh, grads[d].contiguous(), d == 1)
+            dz = dgates.reshape(-1, dgates.shape[-1])
+            dw_ih = torch.cat([x.reshape(-1, x.shape[-1]).t() @ dz for x in xe], dim=0)
+            dx = tuple(apply_mask((dz @ w.t()).reshape(x.shape), m, ctx.keep)
+                       for x, m, w in zip(xs, masks, torch.split(w_ih, widths, dim=0)))
+            dxs = dx if dxs is None else tuple(a + b for a, b in zip(dxs, dx))
+            out += [dw_ih, dw_hh, dgates.sum(dim=(0, 1))]
+        out += [None] * (6 - len(out))
+        return (None, None, None, None, dxs[0], dxs[1] if ctx.two else None, *out)

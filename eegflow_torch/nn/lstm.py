@@ -5,10 +5,11 @@ matmul; a Python loop over time then runs the recurrence. Gate order i, f,
 g, o; zero initial state; (h, c) stay float32; the reverse direction walks
 time backwards and writes each state at its natural position.
 
-This is the float32 algorithm oracle every LSTM kernel of the port is held
-against, and the float32-policy path of the classifier (autograd through the
-loop). The bf16 path runs the fused kernels instead
-(:mod:`eegflow_torch.nn.cuda_lstm`).
+This is the float32 algorithm oracle the port's LSTM kernels are held
+against in the tests, and ``bilstm_stack_init`` builds the classifier's
+stack. The classifier itself runs the kernels of
+:mod:`eegflow_torch.nn.cuda_lstm` (or their twins) under both precision
+policies.
 """
 
 from __future__ import annotations

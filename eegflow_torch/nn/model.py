@@ -6,35 +6,44 @@
 ``classifier_apply`` is a plain function over such a tree (or a nested dict
 of tensors), in eval mode or, with ``train=True``, in training mode.
 
-``lstm_impl`` picks how the recurrent stack and the pool head run:
+``lstm_impl`` picks how the input block, the recurrent stack and the pool
+head run, under either precision policy:
 
-* ``"kernel"`` — the hand-written CUDA kernels: eval mode launches
-  ``lstm_fwd`` six times for 3 bidirectional layers and ``pool_head_fwd``
-  once; a differentiable forward (training, or gradients enabled on the
-  parameters) launches ``lstm_fwd`` in training mode instead, and its
-  backward ``lstm_bwd`` six times and ``pool_head_bwd`` once. CUDA tensors
-  only: on a CPU tensor it raises, and a kernel that cannot launch raises.
+* ``"kernel"`` — the hand-written CUDA kernels. Eval mode launches
+  ``input_block_fwd`` once, six LSTM forwards for 3 bidirectional layers and
+  ``pool_head_fwd`` once. A differentiable forward (training, or gradients
+  enabled on the parameters) launches the LSTM forwards in training mode
+  instead, and its backward ``input_block_bwd`` once, six LSTM backwards and
+  ``pool_head_bwd`` once. Under the bf16 policy
+  (``compute_dtype=torch.bfloat16``) the LSTM kernels are ``lstm_fwd`` /
+  ``lstm_fwd_train`` / ``lstm_bwd`` (input projection inside the kernel);
+  under the float32 policy (``compute_dtype=None``) they are
+  ``lstm_rec_fwd`` / ``lstm_rec_fwd_train`` / ``lstm_rec_bwd`` (recurrence
+  only; the projection and the weight products are float32
+  ``torch.matmul``), and the pool head runs in its float32 mode. CUDA
+  tensors only: on a CPU tensor it raises, and a kernel that cannot launch
+  raises.
 * ``"plain"`` — the kernels' plain PyTorch twins, on the same schedule.
 * ``"auto"`` — ``"kernel"`` for CUDA tensors, ``"plain"`` for CPU tensors.
 
-The fused schedule is the bf16 policy (``compute_dtype=torch.bfloat16``),
-as in the JAX package, whose fused LSTM kernels are bf16-only. Under the
-float32 policy the plain path runs the eager float32 stack
-(:mod:`eegflow_torch.nn.lstm`), LayerNorm and additive attention; its
-kernel counterpart (the recurrence-only ``_lstm_chunk_kernel``) is not
-ported yet, so ``"kernel"`` with float32 raises.
+This is the JAX package's ``lstm_impl="pallas"`` schedule with its fused
+input block (``EEGFLOW_FUSED_INPUT=1``). Without attention (the mean-pool
+ablation) the stack's parts are concatenated, layer-normed and averaged in
+plain PyTorch, as the reference does.
 
 Dropout (training mode) takes explicit keep-masks (:class:`DropoutMasks`,
 drawn by :func:`draw_dropout_masks` from a ``torch.Generator``) at the
 reference's places: rate d/2 on the stack's input, d on each layer's output
-but the last, d after ``head1`` and after ``head2``. On the fused schedule
-the stack's masks are applied inside the LSTM kernels as uint8 masks (the
-reference's explicit-mask mode, ``EEGFLOW_MASK_DROPOUT``); forward and
-backward use the same masks, so gradients are exact.
+but the last, d after ``head1`` and after ``head2``. Each LSTM layer applies
+the masks of its input parts as uint8 masks (the reference's explicit-mask
+mode, ``EEGFLOW_MASK_DROPOUT``): inside the kernels under bf16, before the
+projection and on dx under float32. Forward and backward use the same
+masks, so gradients are exact.
 """
 
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Mapping, Optional, Sequence, Tuple, Union
 
@@ -44,13 +53,14 @@ from torch import nn
 from eegflow_torch.convert import module_from_tree
 from eegflow_torch.core.config import ModelConfig
 from eegflow_torch.core.prng import make_generator
-from eegflow_torch.nn.attention import additive_attention_apply, additive_attention_init
+from eegflow_torch.nn.attention import additive_attention_init
 from eegflow_torch.nn.cuda_attention import pool_head, pool_head_fused, pool_head_fused_plain
+from eegflow_torch.nn.cuda_input import input_block
 from eegflow_torch.nn.cuda_lstm import (bilstm_layer, lstm_fwd_fused_proj,
-                                        lstm_fwd_fused_proj_plain)
+                                        lstm_fwd_fused_proj_plain, lstm_rec_layer)
 from eegflow_torch.nn.layers import (dense_apply, dense_init, dropout, dropout_mask, gelu,
                                      layer_norm_apply, layer_norm_init)
-from eegflow_torch.nn.lstm import bilstm_stack_apply, bilstm_stack_init
+from eegflow_torch.nn.lstm import bilstm_stack_init
 
 LSTM_IMPLS = ("auto", "kernel", "plain")
 
@@ -127,18 +137,19 @@ def classifier_init(config: ModelConfig, gen: Optional[torch.Generator] = None,
     return module_from_tree(tree, torch.device(device) if device else None, trainable)
 
 
-def _fused_stack(layers, h: torch.Tensor, kernel: bool) -> Tuple[torch.Tensor, ...]:
-    """BiLSTM stack as feature parts: a bidirectional layer's fwd/rev halves
-    flow to the next layer (and to the pool head) as two tensors."""
-    fwd_fn = lstm_fwd_fused_proj if kernel else lstm_fwd_fused_proj_plain
+def _stack_eval(layers, h: torch.Tensor, kernel: bool, bf16: bool) -> Tuple[torch.Tensor, ...]:
+    """The stack without residuals (inference) as feature parts: a
+    bidirectional layer's fwd/rev halves flow to the next layer (and to the
+    pool head) as two tensors."""
+    if bf16:
+        fwd_fn = lstm_fwd_fused_proj if kernel else lstm_fwd_fused_proj_plain
+    else:
+        fwd_fn = functools.partial(lstm_rec_layer, kernel=kernel)
     parts = (h,)
     for layer in layers:
-        out = [fwd_fn(parts, layer["fwd"]["w_ih"], layer["fwd"]["b"],
-                      layer["fwd"]["w_hh"], False)]
-        if "bwd" in layer:
-            out.append(fwd_fn(parts, layer["bwd"]["w_ih"], layer["bwd"]["b"],
-                              layer["bwd"]["w_hh"], True))
-        parts = tuple(out)
+        parts = tuple(fwd_fn(parts, layer[d]["w_ih"], layer[d]["b"], layer[d]["w_hh"],
+                             d == "bwd")
+                      for d in ("fwd", "bwd") if d in layer)
     return parts
 
 
@@ -146,17 +157,18 @@ def _as_u8(masks: Optional[Sequence[torch.Tensor]]):
     return None if masks is None else tuple(m.to(torch.uint8).contiguous() for m in masks)
 
 
-def _fused_stack_train(layers, h: torch.Tensor, kernel: bool, masks: Optional[DropoutMasks],
-                       rate: float) -> Tuple[torch.Tensor, ...]:
-    """The differentiable stack (:class:`~eegflow_torch.nn.cuda_lstm.BiLSTMLayer`
-    per layer) as feature parts; each layer's kernels apply the dropout of
-    its input as masks."""
+def _stack_train(layers, h: torch.Tensor, kernel: bool, bf16: bool,
+                 masks: Optional[DropoutMasks], rate: float) -> Tuple[torch.Tensor, ...]:
+    """The differentiable stack, one autograd Function per layer
+    (:class:`~eegflow_torch.nn.cuda_lstm.BiLSTMLayer` under bf16,
+    :class:`~eegflow_torch.nn.cuda_lstm.BiLSTMLayerF32` under float32), as
+    feature parts; each layer applies the dropout of its input as masks."""
     part_masks, keep = None, 1.0
     if masks is not None and masks.input is not None:
         part_masks, keep = (masks.input,), 1.0 - rate / 2
     parts = (h,)
     for idx, layer in enumerate(layers):
-        parts = bilstm_layer(layer, parts, _as_u8(part_masks), keep, kernel)
+        parts = bilstm_layer(layer, parts, _as_u8(part_masks), keep, kernel, bf16)
         part_masks, keep = None, 1.0
         if masks is not None and idx < len(masks.layers):
             part_masks, keep = masks.layers[idx], 1.0 - rate
@@ -176,58 +188,43 @@ def classifier_apply(
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """(B, T, C) windows -> (B, num_classes) logits (+ attention (B, T)).
 
-    ``train=True`` applies dropout with ``masks`` (none when ``masks`` is
-    None, as the reference does without a dropout key).
+    ``compute_dtype`` is ``torch.bfloat16`` (the bf16 policy) or None
+    (float32). ``train=True`` applies dropout with ``masks`` (none when
+    ``masks`` is None, as the reference does without a dropout key).
     """
-    impl = resolve_lstm_impl(lstm_impl, x.device)
-    fused = compute_dtype == torch.bfloat16
-    if impl == "kernel" and not fused:
-        raise NotImplementedError(
-            "the float32 policy needs the recurrence-only kernel "
-            "(eegflow/nn/pallas_lstm.py _lstm_chunk_kernel), not ported yet; "
-            "use compute_dtype=torch.bfloat16 or lstm_impl='plain'")
-    kernel = impl == "kernel"
+    if compute_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"unsupported compute_dtype {compute_dtype}")
+    kernel = resolve_lstm_impl(lstm_impl, x.device) == "kernel"
+    bf16 = compute_dtype == torch.bfloat16
     rate = config.dropout
     masks = masks if train else None
 
-    h = dense_apply(params["input_proj"], x.to(torch.float32), compute_dtype)
-    h = gelu(layer_norm_apply(params["input_norm"], h))
+    h = input_block(params["input_proj"], params["input_norm"],
+                    x.to(torch.float32).contiguous(), bf16, kernel)
 
     ln = params["lstm_norm"] if config.use_layer_norm else None
     # the residual-free eval kernels serve inference; a forward that may be
     # differentiated (or carries dropout) runs the autograd Functions
     differentiable = masks is not None or (torch.is_grad_enabled() and h.requires_grad)
-    if fused:
-        parts = (_fused_stack_train(params["lstm"], h, kernel, masks, rate) if differentiable
-                 else _fused_stack(params["lstm"], h, kernel))
-    if fused and config.use_attention:
+    parts = (_stack_train(params["lstm"], h, kernel, bf16, masks, rate) if differentiable
+             else _stack_eval(params["lstm"], h, kernel, bf16))
+    if config.use_attention:
         if differentiable:
             ctx_parts, raw_scores = pool_head(ln, params["attention"], parts,
-                                              use_ln=config.use_layer_norm, bf16=True,
+                                              use_ln=config.use_layer_norm, bf16=bf16,
                                               kernel=kernel)
         else:
             pool_fn = pool_head_fused if kernel else pool_head_fused_plain
             ctx_parts, raw_scores = pool_fn(ln, params["attention"], parts,
-                                            use_ln=config.use_layer_norm, bf16=True)
+                                            use_ln=config.use_layer_norm, bf16=bf16)
         context = torch.cat(ctx_parts, dim=-1)
         attn = torch.softmax(raw_scores + params["attention"]["score"]["b"][0], dim=-1)
     else:
-        if fused:
-            h = torch.cat(parts, dim=-1)
-        else:
-            if masks is not None:
-                h = dropout(h, rate / 2, masks.input)
-            layer_masks = (None if masks is None
-                           else [torch.cat(m, dim=-1) for m in masks.layers])
-            h = bilstm_stack_apply(params["lstm"], h, masks=layer_masks, rate=rate)
+        h = torch.cat(parts, dim=-1)
         if config.use_layer_norm:
             h = layer_norm_apply(ln, h)
-        if config.use_attention:
-            context, attn = additive_attention_apply(params["attention"], h)
-        else:
-            context = h.mean(dim=1)  # ablation fallback: mean pooling
-            attn = torch.full(h.shape[:2], 1.0 / h.shape[1], dtype=h.dtype,
-                              device=h.device)
+        context = h.mean(dim=1)  # ablation fallback: mean pooling
+        attn = torch.full(h.shape[:2], 1.0 / h.shape[1], dtype=h.dtype, device=h.device)
 
     z = gelu(dense_apply(params["head1"], context, compute_dtype))
     if masks is not None:

@@ -1,9 +1,11 @@
 """Profile one training micro-step on the GPU with ``torch.profiler``.
 
-    python -m eegflow_torch.train.profile [--impl kernel|plain] [--trace DIR]
+    python -m eegflow_torch.train.profile [--impl kernel|plain] [--policy bf16|float32]
+                                          [--trace DIR]
 
-Runs the full-width classifier (``ModelConfig()``, B=512, T=256, bf16 policy,
-random weights and windows from a seed) through one forward + backward +
+Runs the full-width classifier (``ModelConfig()``, B=512, T=256, the bf16
+policy or, with ``--policy float32``, ``TrainConfig(bf16=False)``; random
+weights and windows from a seed) through one forward + backward +
 optimizer micro-step after two warm-up steps, and prints the step's wall
 time, the share of it in which the device was busy (the union of the
 device-side intervals: kernels, copies, memsets), and the device time by
@@ -52,6 +54,7 @@ def _busy_us(intervals):
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="eegflow_torch.train.profile")
     parser.add_argument("--impl", default="kernel", choices=["kernel", "plain"])
+    parser.add_argument("--policy", default="bf16", choices=["bf16", "float32"])
     parser.add_argument("--trace", default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -67,7 +70,8 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfg, train_cfg = ModelConfig(), TrainConfig(lstm_impl=args.impl)
+    cfg = ModelConfig()
+    train_cfg = TrainConfig(lstm_impl=args.impl, bf16=args.policy == "bf16")
     params = classifier_init(cfg, make_generator(0), dev, trainable=True)
     opt = make_optimizer(list(params.parameters()), train_cfg, updates_per_epoch=1)
     step = make_train_step(cfg, train_cfg, opt)
@@ -100,7 +104,7 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
-    print(f"micro-step B={BATCH} T={STEPS} impl={args.impl}: wall "
+    print(f"micro-step B={BATCH} T={STEPS} impl={args.impl} policy={args.policy}: wall "
           f"{wall_us / 1e3:.3f} ms (profiler on), device busy {busy / 1e3:.3f} ms = "
           f"{100 * busy / wall_us:.2f} %, idle {100 * (1 - busy / wall_us):.2f} %, "
           f"{len(device)} device operations, summed device time {total_dev / 1e3:.3f} ms "
@@ -110,7 +114,8 @@ def main(argv=None) -> int:
         print(f"  {100 * us / total_dev:6.2f} %  {us / 1e3:9.3f} ms  x{n:<5d} {name}")
     if args.trace:
         Path(args.trace).mkdir(parents=True, exist_ok=True)
-        prof.export_chrome_trace(str(Path(args.trace) / f"train_step_{args.impl}.json"))
+        prof.export_chrome_trace(
+            str(Path(args.trace) / f"train_step_{args.impl}_{args.policy}.json"))
     print(json.dumps({"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
                       "device_ms": total_dev / 1e3, "ops": len(device)}))
     return 0

@@ -14,11 +14,16 @@ from eegflow_torch import kernels
 from eegflow_torch.core.config import CouplingConfig, ModelConfig
 from eegflow_torch.core.prng import make_generator
 from eegflow_torch.couple.rollout import CoupledModel, predict_batch
-from eegflow_torch.nn.cuda_attention import (pool_head_bwd, pool_head_bwd_plain,
+from eegflow_torch.nn.cuda_attention import (attention_pool, attention_pool_plain,
+                                             pool_head_bwd, pool_head_bwd_plain,
                                              pool_head_fused, pool_head_fused_plain)
+from eegflow_torch.nn.cuda_input import (input_block_bwd, input_block_bwd_plain,
+                                         input_block_fused, input_block_fused_plain)
 from eegflow_torch.nn.cuda_lstm import (lstm_bwd, lstm_bwd_plain, lstm_fwd_fused_proj,
                                         lstm_fwd_fused_proj_plain, lstm_fwd_train,
-                                        lstm_fwd_train_plain)
+                                        lstm_fwd_train_plain, lstm_recurrence,
+                                        lstm_recurrence_backward,
+                                        lstm_recurrence_backward_plain, lstm_recurrence_plain)
 from eegflow_torch.nn.losses import cross_entropy_loss
 from eegflow_torch.nn.model import classifier_apply, classifier_init, draw_dropout_masks
 from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
@@ -39,6 +44,10 @@ POOL_TOL = {False: 1e-4, True: 2e-3}
 BWD_REL_TOL = 5e-3
 # a whole micro-step, kernel path vs plain path (as chip_smoke.py)
 STEP_REL_TOL = 2e-2
+# float32 kernels vs twins: the same float32 operations, sums in another order
+# (the twins' products are cuBLAS float32, TF32 off)
+F32_TOL = 1e-4
+F32_REL_TOL = 1e-3
 
 
 @pytest.fixture
@@ -112,10 +121,18 @@ def test_kernel_path_matches_plain_path(dev):
     got = predict_batch(model, x)
     assert kernels.launch_counts["lstm_fwd"] == 4
     assert kernels.launch_counts["pool_head_fwd"] == 1
+    assert kernels.launch_counts["input_block_fwd"] == 1
     want = predict_batch(model, x, lstm_impl="plain")
     np.testing.assert_allclose(got["probs"], want["probs"], atol=LSTM_TOL, rtol=0)
-    with pytest.raises(NotImplementedError):
-        classifier_apply(params, torch.from_numpy(x).to(dev), cfg, lstm_impl="kernel")
+    # the float32 policy runs on the kernels too
+    xt = torch.from_numpy(x).to(dev)
+    kernels.reset_launch_counts()
+    with torch.no_grad():
+        got32 = classifier_apply(params, xt, cfg, lstm_impl="kernel")
+        want32 = classifier_apply(params, xt, cfg, lstm_impl="plain")
+    assert dict(kernels.launch_counts) == {"input_block_fwd": 1, "lstm_rec_fwd": 4,
+                                           "pool_head_fwd": 1}
+    assert (got32 - want32).abs().max().item() <= F32_TOL
 
 
 def _rel(got, want):
@@ -174,9 +191,10 @@ def test_lstm_bwd_kernel_matches_twin_and_repeats_bitwise(dev, n_parts, reverse,
     assert all(torch.equal(a, c) for a, c in zip(got[0] + got[1:], again[0] + again[1:]))
 
 
+@pytest.mark.parametrize("bf16", [True, False])
 @pytest.mark.parametrize("use_ln", [True, False])
 @pytest.mark.parametrize("n_parts", [1, 2])
-def test_pool_head_bwd_kernel_matches_twin_and_repeats_bitwise(dev, n_parts, use_ln):
+def test_pool_head_bwd_kernel_matches_twin_and_repeats_bitwise(dev, n_parts, use_ln, bf16):
     gen = make_generator(40 + n_parts)
     d_part, k, batch, steps = 64, 96, 6, 37
     d = d_part * n_parts
@@ -188,13 +206,13 @@ def test_pool_head_bwd_kernel_matches_twin_and_repeats_bitwise(dev, n_parts, use
     gs = 0.01 * _randn(gen, batch, steps, dev=dev)
     gc = tuple(0.1 * _randn(gen, batch, d_part, dev=dev) for _ in range(n_parts))
     gctx = 0.1 * _randn(gen, batch, dev=dev)
-    args = (ln if use_ln else None, attn, xs, w, gs, gc, gctx, use_ln, True)
+    args = (ln if use_ln else None, attn, xs, w, gs, gc, gctx, use_ln, bf16)
     got, again, want = pool_head_bwd(*args), pool_head_bwd(*args), pool_head_bwd_plain(*args)
     torch.cuda.synchronize()
     for a, c in zip(got[0], want[0]):
-        assert _rel(a, c) <= POOL_TOL[True]
+        assert _rel(a, c) <= POOL_TOL[bf16]
     for a, c in zip(got[1:], want[1:]):
-        assert (a is None) == (c is None) and (a is None or _rel(a, c) <= POOL_TOL[True])
+        assert (a is None) == (c is None) and (a is None or _rel(a, c) <= POOL_TOL[bf16])
     flat = lambda out: list(out[0]) + [t for t in out[1:] if t is not None]  # noqa: E731
     assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
 
@@ -219,10 +237,9 @@ def test_training_micro_step_kernel_path_matches_plain_path(dev):
 
     kernels.reset_launch_counts()
     loss_k, grads_k = step("kernel")
-    assert kernels.launch_counts["lstm_fwd_train"] == 4
-    assert kernels.launch_counts["lstm_bwd"] == 4
-    assert kernels.launch_counts["pool_head_fwd"] == 1
-    assert kernels.launch_counts["pool_head_bwd"] == 1
+    assert dict(kernels.launch_counts) == {"input_block_fwd": 1, "input_block_bwd": 1,
+                                           "lstm_fwd_train": 4, "lstm_bwd": 4,
+                                           "pool_head_fwd": 1, "pool_head_bwd": 1}
     loss_k2, grads_k2 = step("kernel")
     loss_p, grads_p = step("plain")
     assert abs(loss_k - loss_p) <= 1e-3 and loss_k == loss_k2
@@ -231,3 +248,124 @@ def test_training_micro_step_kernel_path_matches_plain_path(dev):
         if a is not None:
             assert torch.equal(a, a2)
             assert _rel(a, c) <= STEP_REL_TOL
+
+
+def _gates_case(gen, batch, hidden, dev, steps=40):
+    """Gates of a one-part float32 projection, at the magnitudes the stack
+    gives them."""
+    bound = hidden ** -0.5
+    w_ih = (torch.rand(hidden, 4 * hidden, generator=gen) * 2 - 1).to(dev) * bound
+    w_hh = (torch.rand(hidden, 4 * hidden, generator=gen) * 2 - 1).to(dev) * bound
+    x = torch.tanh(_randn(gen, batch, steps, hidden, dev=dev))
+    return (x @ w_ih).contiguous(), w_hh
+
+
+@pytest.mark.parametrize("collect_cell", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch,hidden", [(5, 64), (16, 256)])
+def test_lstm_rec_kernel_matches_twin(dev, reverse, collect_cell, batch, hidden):
+    gates, w_hh = _gates_case(make_generator(50), batch, hidden, dev)
+    name = "lstm_rec_fwd_train" if collect_cell else "lstm_rec_fwd"
+    before = kernels.launch_counts[name]
+    got = lstm_recurrence(gates, w_hh, reverse, collect_cell)
+    assert kernels.launch_counts[name] == before + 1
+    want = lstm_recurrence_plain(gates, w_hh, reverse, collect_cell)
+    torch.cuda.synchronize()
+    for a, w in zip(got if collect_cell else (got,), want if collect_cell else (want,)):
+        assert (a - w).abs().max().item() <= F32_TOL
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch,hidden", [(5, 64), (16, 256)])
+def test_lstm_rec_bwd_kernel_matches_twin_and_repeats_bitwise(dev, reverse, batch, hidden):
+    gen = make_generator(51)
+    gates, w_hh = _gates_case(gen, batch, hidden, dev)
+    h, c = lstm_recurrence_plain(gates, w_hh, reverse, True)
+    g = 0.1 * _randn(gen, *h.shape, dev=dev)
+    before = kernels.launch_counts["lstm_rec_bwd"]
+    got = lstm_recurrence_backward(gates, h, c, w_hh, g, reverse)
+    again = lstm_recurrence_backward(gates, h, c, w_hh, g, reverse)
+    assert kernels.launch_counts["lstm_rec_bwd"] == before + 2
+    want = lstm_recurrence_backward_plain(gates, h, c, w_hh, g, reverse)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert _rel(a, w) <= F32_REL_TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _input_case(gen, hidden, dev, batch=5, steps=37, channels=61):
+    bound = channels ** -0.5
+    proj = {"w": (torch.rand(channels, hidden, generator=gen) * 2 - 1).to(dev) * bound,
+            "b": (torch.rand(hidden, generator=gen) * 2 - 1).to(dev) * bound}
+    norm = {"scale": 1 + 0.1 * _randn(gen, hidden, dev=dev),
+            "bias": 0.1 * _randn(gen, hidden, dev=dev)}
+    return proj, norm, _randn(gen, batch, steps, channels, dev=dev)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("hidden", [64, 256])
+def test_input_block_kernels_match_twins_and_repeat_bitwise(dev, bf16, hidden):
+    gen = make_generator(52)
+    proj, norm, x = _input_case(gen, hidden, dev)
+    before = dict(kernels.launch_counts)
+    y = input_block_fused(proj, norm, x, bf16)
+    dy = _randn(gen, *y.shape, dev=dev)
+    got = input_block_bwd(proj, norm, x, dy, bf16)
+    again = input_block_bwd(proj, norm, x, dy, bf16)
+    assert kernels.launch_counts["input_block_fwd"] == before.get("input_block_fwd", 0) + 1
+    assert kernels.launch_counts["input_block_bwd"] == before.get("input_block_bwd", 0) + 2
+    want_y = input_block_fused_plain(proj, norm, x, bf16)
+    want = input_block_bwd_plain(proj, norm, x, dy, bf16)
+    torch.cuda.synchronize()
+    assert (y - want_y).abs().max().item() <= F32_TOL
+    for a, w in zip(got, want):
+        assert _rel(a, w) <= (BWD_REL_TOL if bf16 else F32_REL_TOL)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("batch,dim", [(3, 64), (16, 256)])
+def test_attention_pool_kernel_matches_twin(dev, batch, dim):
+    gen = make_generator(53)
+    k = dim // 2
+    w1 = 0.2 * _randn(gen, dim, k, dev=dev)
+    b1, w2 = 0.2 * _randn(gen, k, dev=dev), 0.2 * _randn(gen, k, dev=dev)
+    h = torch.tanh(_randn(gen, batch, 37, dim, dev=dev))
+    before = kernels.launch_counts["attention_pool"]
+    ctx, scores = attention_pool(h, w1, b1, w2)
+    assert kernels.launch_counts["attention_pool"] == before + 1
+    want_ctx, want_s = attention_pool_plain(h, w1, b1, w2)
+    torch.cuda.synchronize()
+    assert (ctx - want_ctx).abs().max().item() <= POOL_TOL[False]
+    assert (scores - want_s).abs().max().item() <= POOL_TOL[False]
+
+
+def test_f32_training_micro_step_kernel_path_matches_plain_path(dev):
+    cfg = ModelConfig(input_size=7, hidden_size=64, num_layers=2)
+    params = classifier_init(cfg, make_generator(6), device=dev, trainable=True)
+    rng = np.random.default_rng(6)
+    x = torch.from_numpy(rng.standard_normal((9, 32, 7)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 2, 9)).to(dev)
+    masks = draw_dropout_masks(cfg, 9, 32, torch.Generator(device=dev).manual_seed(1), dev)
+    leaves = list(params.parameters())
+
+    def step(impl):
+        for q in leaves:
+            q.grad = None
+        logits = classifier_apply(params, x, cfg, lstm_impl=impl, train=True, masks=masks)
+        loss = cross_entropy_loss(logits, y)
+        loss.backward()
+        return loss.item(), [q.grad.clone() if q.grad is not None else None for q in leaves]
+
+    kernels.reset_launch_counts()
+    loss_k, grads_k = step("kernel")
+    assert dict(kernels.launch_counts) == {"input_block_fwd": 1, "input_block_bwd": 1,
+                                           "lstm_rec_fwd_train": 4, "lstm_rec_bwd": 4,
+                                           "pool_head_fwd": 1, "pool_head_bwd": 1}
+    loss_k2, grads_k2 = step("kernel")
+    loss_p, grads_p = step("plain")
+    assert abs(loss_k - loss_p) <= F32_TOL and loss_k == loss_k2
+    for a, a2, c in zip(grads_k, grads_k2, grads_p):
+        assert (a is None) == (c is None)
+        if a is not None:
+            assert torch.equal(a, a2)
+            assert _rel(a, c) <= F32_REL_TOL

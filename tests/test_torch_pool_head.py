@@ -1,6 +1,8 @@
 """The ``pool_head_fwd`` kernel's plain twin against the Pallas
-``_pool_head_fwd_kernel`` (``pool_head_fused``, interpret mode on the CPU).
-Inputs are made with numpy from a seed."""
+``_pool_head_fwd_kernel`` (``pool_head_fused``, interpret mode on the CPU),
+and kernel 6's twin (``attention_pool``) against ``_attention_pool_kernel``
+(``attention_pool_pallas`` / ``pallas_attention_apply``). Inputs are made
+with numpy from a seed."""
 
 import jax
 import jax.numpy as jnp
@@ -8,8 +10,11 @@ import numpy as np
 import pytest
 import torch
 
+from eegflow.nn.pallas_attention import attention_pool_pallas, pallas_attention_apply
 from eegflow.nn.pallas_attention import pool_head_fused as pallas_pool_head
-from eegflow_torch.nn.cuda_attention import pool_head_fused, pool_head_fused_plain
+from eegflow_torch.nn.cuda_attention import (attention_pool, attention_pool_apply,
+                                             attention_pool_plain, pool_head_fused,
+                                             pool_head_fused_plain)
 
 # Same LayerNorm formula and the same bf16-rounded operands on both sides;
 # float32 sums in another order (and, under bf16, a last-bit LN difference
@@ -68,3 +73,32 @@ def test_pool_head_scores_stable_at_large_magnitude():
                                                          bf16=True))(
         _map(attn, jnp.asarray), jnp.asarray(x.numpy()))
     np.testing.assert_allclose(ctx[0].numpy(), np.asarray(want_ctx[0]), atol=1e-4, rtol=0)
+
+
+@pytest.mark.parametrize("batch", [3, 8])
+def test_attention_pool_twin_matches_pallas(batch):
+    """Kernel 6: one float32 part, no LayerNorm; the raw scores and the
+    context against ``attention_pool_pallas``, and the apply wrapper (score
+    bias and softmax outside) against ``pallas_attention_apply``. Float32
+    sums in another order, an online softmax against a direct one (TOL)."""
+    rng = np.random.default_rng(30 + batch)
+    d, k, t = 32, 16, 24
+    _, attn = _params(rng, d, k)
+    x = rng.standard_normal((batch, t, d)).astype(np.float32)
+    tattn = _map(attn, torch.from_numpy)
+    args = (torch.from_numpy(x), tattn["proj"]["w"], tattn["proj"]["b"],
+            tattn["score"]["w"][:, 0])
+    ctx, scores = attention_pool_plain(*args)
+    if batch % 8 == 0:  # the Pallas entry takes a batch the tile divides
+        want_ctx, want_s = attention_pool_pallas(
+            jnp.asarray(x), jnp.asarray(attn["proj"]["w"]), jnp.asarray(attn["proj"]["b"]),
+            jnp.asarray(attn["score"]["w"][:, 0]), batch_tile=8, t_chunk=8, interpret=True)
+        np.testing.assert_allclose(ctx.numpy(), np.asarray(want_ctx), atol=TOL, rtol=0)
+        np.testing.assert_allclose(scores.numpy(), np.asarray(want_s), atol=TOL, rtol=0)
+    want_ctx, want_w = pallas_attention_apply(_map(attn, jnp.asarray), jnp.asarray(x))
+    got_ctx, got_w = attention_pool_apply(tattn, torch.from_numpy(x))
+    np.testing.assert_allclose(got_ctx.numpy(), np.asarray(want_ctx), atol=TOL, rtol=0)
+    np.testing.assert_allclose(got_w.numpy(), np.asarray(want_w), atol=TOL, rtol=0)
+    # on CPU tensors the wrapper runs the twin
+    w_ctx, w_s = attention_pool(*args)
+    assert torch.equal(w_ctx, ctx) and torch.equal(w_s, scores)
