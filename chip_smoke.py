@@ -44,9 +44,22 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      against plain path;
  13. one float32 micro-step at B=512, kernel path against plain path (loss,
      every gradient, bitwise repeat), timed on both paths, and each float32
-     kernel (and the input block in both modes) timed against its twin.
-The line before the last lists the kernels as JSON; the last line is
-{"ok": true, "device": {...}}.
+     kernel (and the input block in both modes) timed against its twin;
+ 14. the kernels of the two other bf16 backward schedules against their
+     twins at B=64, T=256, H=256, one and two parts: lstm_fwd_train_gates
+     (h, gates, c; both directions), lstm_bwd_v2 on the same residuals (masks,
+     dx_add, bitwise repeat), lstm_bwd_dualdir with and without mask_from_x
+     (bitwise repeat) and, without dropout, against two lstm_bwd launches;
+ 15. one bf16 micro-step at B=512 under lstm_bwd="two_pass" and under
+     "dualdir", kernel path against plain path (loss, every gradient, bitwise
+     repeat, exact launch counts), each timed in turns against "fused", and
+     lstm_bwd_v2 and lstm_bwd_dualdir timed at B=512 against their twins and
+     against kernel 3 on the same work; then one cuDNN LSTM call per LSTM
+     kernel at its shape as a yardstick (never on the port's path).
+The line before the last lists the kernels as JSON, each with its time, its
+twin's, its bound on an H100 (bytes over 3.35 TB/s or products over the
+dtype's peak, whichever is larger) and the library call's time where there is
+one; the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -109,6 +122,11 @@ STEP32_LOSS_TOL = 1e-4
 STEP32_GRAD_REL_TOL = 1e-3
 N_TRAIN32_EPOCHS = 1
 B_TRAIN = 512
+# the least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, dense):
+# HBM bytes per second, and products per second by operand type (bf16 on the
+# tensor cores; float32 outside them, since TF32 is off)
+HBM_BYTES_PER_S = 3.35e12
+PEAK_FLOPS = {"bf16": 989e12, "float32": 67e12}
 N_TRAIN_WINDOWS = 2048
 TRAIN_EPOCHS = 2
 
@@ -145,6 +163,28 @@ def median_ms(fns, rounds=2):
 
 def rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
+
+
+def nbytes(*items):
+    """Bytes of every tensor in ``items`` (tuples, lists and dicts walked;
+    anything else counts 0)."""
+    total = 0
+    for t in items:
+        if isinstance(t, torch.Tensor):
+            total += t.numel() * t.element_size()
+        elif isinstance(t, (tuple, list)):
+            total += nbytes(*t)
+        elif isinstance(t, dict):
+            total += nbytes(*t.values())
+    return total
+
+
+def bound(bytes_moved, flops, dtype):
+    """(ms, "bytes" | "operations"): the larger of the bytes over the HBM
+    rate and the products' operations over the peak rate of ``dtype``."""
+    by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
+    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
 def synthetic_split(rng, n, steps, channels):
@@ -190,12 +230,14 @@ def main() -> int:
                                                  pool_head_fused_plain)
     from eegflow_torch.nn.cuda_input import (input_block_bwd, input_block_bwd_plain,
                                              input_block_fused, input_block_fused_plain)
-    from eegflow_torch.nn.cuda_lstm import (lstm_bwd, lstm_bwd_plain, lstm_fwd_fused_proj,
-                                            lstm_fwd_fused_proj_plain, lstm_fwd_train,
-                                            lstm_fwd_train_plain, lstm_recurrence,
-                                            lstm_recurrence_backward,
+    from eegflow_torch.nn.cuda_lstm import (lstm_bwd, lstm_bwd_dualdir, lstm_bwd_dualdir_plain,
+                                            lstm_bwd_plain, lstm_bwd_v2, lstm_bwd_v2_plain,
+                                            lstm_fwd_fused_proj, lstm_fwd_fused_proj_plain,
+                                            lstm_fwd_train, lstm_fwd_train_gates,
+                                            lstm_fwd_train_gates_plain, lstm_fwd_train_plain,
+                                            lstm_recurrence, lstm_recurrence_backward,
                                             lstm_recurrence_backward_plain,
-                                            lstm_recurrence_plain)
+                                            lstm_recurrence_plain, select_dropout)
     from eegflow_torch.nn.losses import cross_entropy_loss
     from eegflow_torch.nn.model import classifier_apply, classifier_init, draw_dropout_masks
     from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
@@ -348,16 +390,26 @@ def main() -> int:
     x2 = tuple(torch.tanh(randn(BUCKET, T, H)) for _ in range(2))
     p0, p1 = params["lstm"][0]["fwd"], params["lstm"][1]["fwd"]
     kernel_ms = {}
+    # name -> (bytes, operations of its products, their dtype) of the timed call
+    work = {}
+
+    def lstm_flops(batch, d_in, hidden):
+        """Products of one LSTM layer-direction's forward: 2 B T (D + H) 4H."""
+        return 2 * batch * T * (d_in + hidden) * 4 * hidden
+
     for label, xs, p in (("1 part", x1, p0), ("2 parts", x2, p1)):
         args = (xs, p["w_ih"], p["b"], p["w_hh"], False)
-        lstm_fwd_fused_proj(*args)
+        out = lstm_fwd_fused_proj(*args)
+        if label == "2 parts":
+            work["lstm_fwd"] = (nbytes(args, out), lstm_flops(BUCKET, 2 * H, H), "bf16")
         ms = cuda_ms(lambda: lstm_fwd_fused_proj(*args), 3)
         plain_ms = cuda_ms(lambda: lstm_fwd_fused_proj_plain(*args), 2)
         kernel_ms[label] = (ms, plain_ms)
         print(f"lstm_fwd B={BUCKET} T={T} H={H} {label}: kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms [{smi}]")
     pargs = (params["lstm_norm"], params["attention"], x2, True, True)
-    pool_head_fused(*pargs)
+    work["pool_head_fwd"] = (nbytes(pargs, pool_head_fused(*pargs)), 2 * BUCKET * T * 2 * H * H,
+                             "bf16")
     pool_ms = cuda_ms(lambda: pool_head_fused(*pargs), 5)
     pool_plain_ms = cuda_ms(lambda: pool_head_fused_plain(*pargs), 5)
     print(f"pool_head_fwd B={BUCKET} T={T} parts=2x{H} K={H}: kernel {pool_ms:.3f} ms, "
@@ -486,11 +538,11 @@ def main() -> int:
     cw = torch.tensor([1.0, 1.0], device=dev)
     leaves = list(tparams.parameters())
 
-    def micro_step(impl, compute_dtype=torch.bfloat16):
+    def micro_step(impl, compute_dtype=torch.bfloat16, lstm_bwd="fused"):
         for q in leaves:
             q.grad = None
         logits = classifier_apply(tparams, x9, cfg, compute_dtype=compute_dtype,
-                                  lstm_impl=impl, train=True, masks=masks9)
+                                  lstm_impl=impl, train=True, masks=masks9, lstm_bwd=lstm_bwd)
         loss = cross_entropy_loss(logits, y9, cw)
         loss.backward()
         return loss.detach(), [q.grad.clone() if q.grad is not None else torch.zeros_like(q)
@@ -533,10 +585,17 @@ def main() -> int:
               torch.softmax(randn(B_TRAIN, T), dim=-1), 0.01 * randn(B_TRAIN, T),
               tuple(0.1 * randn(B_TRAIN, H) for _ in range(2)), 0.1 * randn(B_TRAIN), True,
               True)
+    # products of one layer-direction's backward at B=512, two parts: dh_carry,
+    # dx, dW_ih and dW_hh, 2 B T 4H (2 D + 2 H)
+    bwd_flops = 2 * B_TRAIN * T * 4 * H * (2 * 2 * H + 2 * H)
+    head_flops = 3 * 2 * B_TRAIN * T * 2 * H * H  # projection, dW1, dh
     train_ms = {}
-    for name, kfn, pfn, args in (("lstm_fwd_train", lstm_fwd_train, lstm_fwd_train_plain, fargs),
-                                 ("lstm_bwd", lstm_bwd, lstm_bwd_plain, bargs),
-                                 ("pool_head_bwd", pool_head_bwd, pool_head_bwd_plain, pargs2)):
+    for name, kfn, pfn, args, flops in (
+            ("lstm_fwd_train", lstm_fwd_train, lstm_fwd_train_plain, fargs,
+             lstm_flops(B_TRAIN, 2 * H, H)),
+            ("lstm_bwd", lstm_bwd, lstm_bwd_plain, bargs, bwd_flops),
+            ("pool_head_bwd", pool_head_bwd, pool_head_bwd_plain, pargs2, head_flops)):
+        work[name] = (nbytes(args, kfn(*args)), flops, "bf16")
         m = median_ms({"plain": lambda: pfn(*args), "kernel": lambda: kfn(*args)}, rounds=1)
         train_ms[name] = (m["kernel"], m["plain"])
         print(f"{name} B={B_TRAIN} T={T} H={H} parts=2: kernel {m['kernel']:.3f} ms, "
@@ -627,6 +686,8 @@ def main() -> int:
             "attention_pool_apply agrees with its twin")
     apool_err = max(apool_err, err)
     aargs = (xa, attn256["proj"]["w"], attn256["proj"]["b"], attn256["score"]["w"][:, 0])
+    work["attention_pool"] = (nbytes(aargs, attention_pool(*aargs)),
+                              2 * B_TRAIN * T * H * (H // 2), "float32")
     m = median_ms({"plain": lambda: attention_pool_plain(*aargs),
                    "kernel": lambda: attention_pool(*aargs)}, rounds=1)
     apool_ms = (m["kernel"], m["plain"])
@@ -724,30 +785,232 @@ def main() -> int:
     dy512 = randn(B_TRAIN, T, H)
     ib = (params["input_proj"], params["input_norm"])
     pargs32 = pargs2[:-1] + (False,)
+    rec_flops = 2 * B_TRAIN * T * H * 4 * H  # one h . W_hh per step, float32
+    in_flops = 2 * B_TRAIN * T * C * H  # x . W of the input block
     timed = (
-        ("lstm_rec_fwd", lstm_recurrence, lstm_recurrence_plain, (gates2, p1["w_hh"], True)),
+        ("lstm_rec_fwd", lstm_recurrence, lstm_recurrence_plain, (gates2, p1["w_hh"], True),
+         rec_flops, "float32"),
         ("lstm_rec_fwd_train", lstm_recurrence, lstm_recurrence_plain,
-         (gates2, p1["w_hh"], True, True)),
+         (gates2, p1["w_hh"], True, True), rec_flops, "float32"),
+        # z recomputed, dh_carry, and dW_hh
         ("lstm_rec_bwd", lstm_recurrence_backward, lstm_recurrence_backward_plain,
-         (gates2, h32, c32, p1["w_hh"], g2, True)),
-        ("input_block_fwd bf16", input_block_fused, input_block_fused_plain, (*ib, x512, True)),
+         (gates2, h32, c32, p1["w_hh"], g2, True), 3 * rec_flops, "float32"),
+        ("input_block_fwd bf16", input_block_fused, input_block_fused_plain, (*ib, x512, True),
+         in_flops, "bf16"),
+        # the recomputed forward, dW and dx
         ("input_block_bwd bf16", input_block_bwd, input_block_bwd_plain,
-         (*ib, x512, dy512, True)),
+         (*ib, x512, dy512, True), 3 * in_flops, "bf16"),
         ("input_block_fwd float32", input_block_fused, input_block_fused_plain,
-         (*ib, x512, False)),
+         (*ib, x512, False), in_flops, "float32"),
         ("input_block_bwd float32", input_block_bwd, input_block_bwd_plain,
-         (*ib, x512, dy512, False)),
-        ("pool_head_bwd float32", pool_head_bwd, pool_head_bwd_plain, pargs32))
-    for name, kfn, pfn, args in timed:
+         (*ib, x512, dy512, False), 3 * in_flops, "float32"),
+        ("pool_head_bwd float32", pool_head_bwd, pool_head_bwd_plain, pargs32, head_flops,
+         "float32"))
+    for name, kfn, pfn, args, flops, dtype in timed:
+        work[name] = (nbytes(args, kfn(*args)), flops, dtype)
         m = median_ms({"plain": lambda: pfn(*args), "kernel": lambda: kfn(*args)}, rounds=1)
         train_ms[name] = (m["kernel"], m["plain"])
         print(f"{name} B={B_TRAIN} T={T} H={H}: kernel {m['kernel']:.3f} ms, "
               f"plain {m['plain']:.3f} ms [{smi}]", flush=True)
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms):
+    # phase 14: the kernels of the two other bf16 backward schedules
+    gates_err = v2_err = dd_err = 0.0
+    for n_parts, layer, keep in ((1, params["lstm"][0], keep_in),
+                                 (2, params["lstm"][1], keep_mid)):
+        xs = tuple(torch.tanh(randn(B_CHECK, T, H)) for _ in range(n_parts))
+        ms = tuple(keep_masks((B_CHECK, T, H), keep) for _ in range(n_parts))
+        for direction, reverse in (("fwd", False), ("bwd", True)):
+            p = layer[direction]
+            fwd_args = (xs, p["w_ih"], p["b"], p["w_hh"], reverse, ms, keep)
+            got = lstm_fwd_train_gates(*fwd_args)
+            h_p, gates_p, c_p = lstm_fwd_train_gates_plain(*fwd_args)
+            torch.cuda.synchronize()
+            err = max((a - b).abs().max().item() for a, b in zip(got, (h_p, gates_p, c_p)))
+            print(f"lstm_fwd_train_gates parts={n_parts} reverse={reverse} B={B_CHECK} T={T} "
+                  f"H={H}: h, gates and c max_abs_diff {err:.3e} (tol {TRAIN_FWD_TOL:g})")
+            require(all(bool(torch.isfinite(t).all()) for t in got) and err <= TRAIN_FWD_TOL,
+                    f"lstm_fwd_train_gates within {TRAIN_FWD_TOL} of its twin")
+            gates_err = max(gates_err, err)
+            g_up = 0.1 * randn(B_CHECK, T, H)
+            dx_add = tuple(randn(B_CHECK, T, H) for _ in range(n_parts)) if reverse else None
+            v2_args = (gates_p, c_p, h_p, g_up, xs, p["w_ih"], p["w_hh"], reverse, ms, keep,
+                       dx_add)
+            got = lstm_bwd_v2(*v2_args)
+            again = lstm_bwd_v2(*v2_args)
+            want = lstm_bwd_v2_plain(*v2_args)
+            torch.cuda.synchronize()
+            errs = {"dx": max(rel_err(a, b) for a, b in zip(got[0], want[0])),
+                    "dW_ih": rel_err(got[1], want[1]), "dW_hh": rel_err(got[2], want[2]),
+                    "db": rel_err(got[3], want[3])}
+            same = all(torch.equal(a, b) for a, b in zip(got[0] + got[1:], again[0] + again[1:]))
+            print(f"lstm_bwd_v2 parts={n_parts} reverse={reverse} dx_add={dx_add is not None}: "
+                  + ", ".join(f"{k} rel {v:.3e}" for k, v in errs.items())
+                  + f" (tol {BWD_REL_TOL:g}); repeat bitwise identical: {same}")
+            require(max(errs.values()) <= BWD_REL_TOL and same,
+                    f"lstm_bwd_v2 within {BWD_REL_TOL} of its twin, bitwise repeatable")
+            v2_err = max(v2_err, *[(a - b).abs().max().item()
+                                   for a, b in zip(got[0] + got[1:], want[0] + want[1:])])
+        # kernel 4: the layer's two directions on parts dropped by select dropout
+        for mask_from_x in (True, False):
+            xd = (tuple(select_dropout(x, m, keep) for x, m in zip(xs, ms)) if mask_from_x
+                  else xs)
+            kd = keep if mask_from_x else 1.0
+            pf, pb = layer["fwd"], layer["bwd"]
+            h_f, res_f = lstm_fwd_train_plain(xd, pf["w_ih"], pf["b"], pf["w_hh"], False)
+            h_r, res_r = lstm_fwd_train_plain(xd, pb["w_ih"], pb["b"], pb["w_hh"], True)
+            g_f, g_r = 0.1 * randn(B_CHECK, T, H), 0.1 * randn(B_CHECK, T, H)
+            dd_args = (res_f, h_f, g_f, res_r, h_r, g_r, xd, (pf["w_ih"], pf["w_hh"]),
+                       (pb["w_ih"], pb["w_hh"]), kd, mask_from_x)
+            got = lstm_bwd_dualdir(*dd_args)
+            again = lstm_bwd_dualdir(*dd_args)
+            want = lstm_bwd_dualdir_plain(*dd_args)
+            flat = lambda out: list(out[0]) + list(out[1]) + list(out[2])  # noqa: E731
+            cases = {"twin": want}
+            if not mask_from_x:  # kernel 3 twice: forward, then reverse adding its dx
+                dx_f, *gr_f = lstm_bwd(res_f, h_f, g_f, xd, pf["w_ih"], pf["w_hh"], False)
+                dx_b, *gr_r = lstm_bwd(res_r, h_r, g_r, xd, pb["w_ih"], pb["w_hh"], True,
+                                       dx_add=dx_f)
+                cases["two lstm_bwd"] = (dx_b, tuple(gr_f), tuple(gr_r))
+            torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+            for label, ref in cases.items():
+                err = max(rel_err(a, b) for a, b in zip(flat(got), flat(ref)))
+                print(f"lstm_bwd_dualdir parts={n_parts} mask_from_x={mask_from_x} vs {label}: "
+                      f"dx, dW_ih, dW_hh, db of both directions max rel {err:.3e} "
+                      f"(tol {BWD_REL_TOL:g}); repeat bitwise identical: {same}")
+                require(err <= BWD_REL_TOL and same,
+                        f"lstm_bwd_dualdir within {BWD_REL_TOL} of {label}, bitwise repeatable")
+            dd_err = max(dd_err, *[(a - b).abs().max().item()
+                                   for a, b in zip(flat(got), flat(want))])
+    print(flush=True)
+
+    # phase 15: B=512 micro-steps under the two other backward schedules
+    sched_counts, sched_ms = {}, {}
+    for sched, fwd_name, bwd_name, n_bwd in (("two_pass", "lstm_fwd_train_gates",
+                                              "lstm_bwd_v2", 6),
+                                             ("dualdir", "lstm_fwd_train", "lstm_bwd_dualdir",
+                                              3)):
+        kernels.reset_launch_counts()
+        loss_k, grads_k = micro_step("kernel", lstm_bwd=sched)
+        torch.cuda.synchronize()
+        sched_counts[sched] = dict(kernels.launch_counts)
+        loss_k2, grads_k2 = micro_step("kernel", lstm_bwd=sched)
+        loss_p, grads_p = micro_step("plain", lstm_bwd=sched)
+        torch.cuda.synchronize()
+        want_counts = {"input_block_fwd": 1, "input_block_bwd": 1, fwd_name: 6,
+                       bwd_name: n_bwd, "pool_head_fwd": 1, "pool_head_bwd": 1}
+        print(f"micro-step lstm_bwd={sched} B={B_TRAIN}: launches {sched_counts[sched]}")
+        require(sched_counts[sched] == want_counts,
+                f"lstm_bwd={sched} launches per micro-step: want {want_counts}")
+        loss_diff = abs(loss_k.item() - loss_p.item())
+        grad_rel = max(rel_err(a, b) for a, b in zip(grads_k, grads_p) if b.abs().max() > 0)
+        bitwise = torch.equal(loss_k, loss_k2) and all(torch.equal(a, b)
+                                                       for a, b in zip(grads_k, grads_k2))
+        print(f"micro-step lstm_bwd={sched} B={B_TRAIN}: loss kernel {loss_k.item():.6f} plain "
+              f"{loss_p.item():.6f} (diff {loss_diff:.3e}, tol {STEP_LOSS_TOL:g}); gradients "
+              f"max rel diff {grad_rel:.3e} over {len(leaves)} leaves (tol "
+              f"{STEP_GRAD_REL_TOL:g}); second kernel run bitwise identical: {bitwise}")
+        require(math.isfinite(loss_k.item()) and loss_diff <= STEP_LOSS_TOL,
+                f"lstm_bwd={sched} micro-step loss within tolerance of the plain path")
+        require(grad_rel <= STEP_GRAD_REL_TOL,
+                f"lstm_bwd={sched} micro-step gradients within tolerance")
+        require(bitwise, f"lstm_bwd={sched} kernel-path gradients bitwise repeatable")
+        del grads_k, grads_k2, grads_p
+        m = median_ms({"fused": lambda: micro_step("kernel"),
+                       sched: lambda: micro_step("kernel", lstm_bwd=sched)})
+        sched_ms[sched] = m
+        for name in ("fused", sched):
+            print(f"training micro-step lstm_bwd={name} B={B_TRAIN} T={T} (kernel path, in turns "
+                  f"with the other): median {m[name]:.3f} ms, "
+                  f"{B_TRAIN / m[name] * 1e3:.1f} windows/s [{smi}]", flush=True)
+
+    # kernel 3b and kernel 4 at B=512 against their twins and kernel 3
+    h_g, gates_g, c_g = lstm_fwd_train_gates_plain(*fargs)
+    v2_args = (gates_g, c_g, h_g, g2, xs2, p1["w_ih"], p1["w_hh"], True, ms2, keep_mid, add2)
+    work["lstm_fwd_train_gates"] = (nbytes(fargs, (h_g, gates_g, c_g)),
+                                    lstm_flops(B_TRAIN, 2 * H, H), "bf16")
+    work["lstm_bwd_v2"] = (nbytes(v2_args, lstm_bwd_v2(*v2_args)), bwd_flops, "bf16")
+    del h_g, gates_g, c_g
+    m = median_ms({"plain": lambda: lstm_fwd_train_gates_plain(*fargs),
+                   "kernel": lambda: lstm_fwd_train_gates(*fargs)}, rounds=1)
+    train_ms["lstm_fwd_train_gates"] = (m["kernel"], m["plain"])
+    print(f"lstm_fwd_train_gates B={B_TRAIN} T={T} H={H} parts=2: kernel {m['kernel']:.3f} ms, "
+          f"plain {m['plain']:.3f} ms [{smi}]")
+    m = median_ms({"plain": lambda: lstm_bwd_v2_plain(*v2_args),
+                   "kernel": lambda: lstm_bwd_v2(*v2_args),
+                   "kernel 3": lambda: lstm_bwd(*bargs)}, rounds=1)
+    train_ms["lstm_bwd_v2"] = (m["kernel"], m["plain"])
+    print(f"lstm_bwd_v2 B={B_TRAIN} T={T} H={H} parts=2 dx_add: kernel {m['kernel']:.3f} ms, "
+          f"plain {m['plain']:.3f} ms, kernel 3 (lstm_bwd) on the same work "
+          f"{m['kernel 3']:.3f} ms [{smi}]")
+    del v2_args
+    pf, pb = params["lstm"][1]["fwd"], params["lstm"][1]["bwd"]
+    xd2 = tuple(select_dropout(x, m_, keep_mid) for x, m_ in zip(xs2, ms2))
+    h_f, res_f = lstm_fwd_train_plain(xd2, pf["w_ih"], pf["b"], pf["w_hh"], False)
+    h_r, res_r = lstm_fwd_train_plain(xd2, pb["w_ih"], pb["b"], pb["w_hh"], True)
+    g_r = 0.1 * randn(B_TRAIN, T, H)
+    dd_args = (res_f, h_f, g2, res_r, h_r, g_r, xd2, (pf["w_ih"], pf["w_hh"]),
+               (pb["w_ih"], pb["w_hh"]), keep_mid, True)
+    work["lstm_bwd_dualdir"] = (nbytes(dd_args, lstm_bwd_dualdir(*dd_args)), 2 * bwd_flops,
+                                "bf16")
+
+    def two_lstm_bwd():
+        dx_f = lstm_bwd(res_f, h_f, g2, xd2, pf["w_ih"], pf["w_hh"], False)[0]
+        return lstm_bwd(res_r, h_r, g_r, xd2, pb["w_ih"], pb["w_hh"], True, dx_add=dx_f)
+
+    m = median_ms({"plain": lambda: lstm_bwd_dualdir_plain(*dd_args),
+                   "kernel": lambda: lstm_bwd_dualdir(*dd_args),
+                   "2 x kernel 3": two_lstm_bwd}, rounds=1)
+    train_ms["lstm_bwd_dualdir"] = (m["kernel"], m["plain"])
+    print(f"lstm_bwd_dualdir B={B_TRAIN} T={T} H={H} parts=2 mask_from_x: kernel "
+          f"{m['kernel']:.3f} ms, plain {m['plain']:.3f} ms, two kernel 3 launches (lstm_bwd, "
+          f"forward then reverse with dx_add) on the same work {m['2 x kernel 3']:.3f} ms "
+          f"[{smi}]", flush=True)
+    del dd_args, res_f, res_r, h_f, h_r
+
+    # one cuDNN LSTM call per LSTM kernel, at its shape (TF32 off): the forward,
+    # or forward + backward minus forward; in bf16 for the bf16 kernels where
+    # cuDNN takes it (torch.backends.cudnn.is_acceptable), else in float16
+    def library_lstm_ms(batch, dtype, backward=False, train=False, bidirectional=False):
+        lstm = torch.nn.LSTM(2 * H, H, batch_first=True, bidirectional=bidirectional).to(
+            dev, dtype)
+        lstm.flatten_parameters()
+        x = torch.randn(batch, T, 2 * H, device=dev, dtype=dtype, generator=lgen)
+        x.requires_grad_(backward or train)
+        g = torch.randn(batch, T, (2 if bidirectional else 1) * H, device=dev, dtype=dtype,
+                        generator=lgen)
+        with torch.set_grad_enabled(backward or train):
+            fwd_ms = median_ms({"f": lambda: lstm(x)}, rounds=2)["f"]
+            if not backward:
+                return fwd_ms
+            both = median_ms({"fb": lambda: lstm(x)[0].backward(g)}, rounds=2)["fb"]
+        return both - fwd_ms
+
+    lgen = torch.Generator(device=dev).manual_seed(SEED + 15)
+    lib16 = (torch.bfloat16 if torch.backends.cudnn.is_acceptable(
+        torch.zeros(1, device=dev, dtype=torch.bfloat16)) else torch.float16)
+    library_ms = {
+        "lstm_fwd": library_lstm_ms(BUCKET, lib16),
+        "lstm_fwd_train": library_lstm_ms(B_TRAIN, lib16, train=True),
+        "lstm_bwd": library_lstm_ms(B_TRAIN, lib16, backward=True),
+        "lstm_bwd_dualdir": library_lstm_ms(B_TRAIN, lib16, backward=True, bidirectional=True),
+        "lstm_rec_fwd": library_lstm_ms(B_TRAIN, torch.float32),
+        "lstm_rec_fwd_train": library_lstm_ms(B_TRAIN, torch.float32, train=True),
+        "lstm_rec_bwd": library_lstm_ms(B_TRAIN, torch.float32, backward=True),
+    }
+    library_ms["lstm_fwd_train_gates"] = library_ms["lstm_fwd_train"]
+    library_ms["lstm_bwd_v2"] = library_ms["lstm_bwd"]
+    print(f"library yardsticks, one cuDNN torch.nn.LSTM call (D={2 * H}, H={H}, T={T}, {lib16} for "
+          f"the bf16 kernels, float32 for the float32 ones): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in library_ms.items()) + f" [{smi}]", flush=True)
+
+    def entry(name, source, replaces, launches, err, ms, plain_ms, work_name=None):
+        bytes_moved, flops, dtype = work[work_name or name]
+        bound_ms, bound_by = bound(bytes_moved, flops, dtype)
         return {"name": name, "route": "cuda", "source": f"eegflow_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
-                "plain_ms": plain_ms}
+                "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": library_ms.get(name)}
 
     print(json.dumps({"kernels": [
         entry("lstm_fwd", "lstm_fwd.cu", "eegflow/nn/pallas_lstm.py:430",
@@ -770,12 +1033,20 @@ def main() -> int:
               f32_counts.get("lstm_rec_bwd", 0), rec_bwd_err, *train_ms["lstm_rec_bwd"]),
         entry("input_block_fwd", "input_block.cu", "eegflow/nn/pallas_input.py:78",
               train_counts.get("input_block_fwd", 0), in_fwd_err,
-              *train_ms["input_block_fwd bf16"]),
+              *train_ms["input_block_fwd bf16"], "input_block_fwd bf16"),
         entry("input_block_bwd", "input_block.cu", "eegflow/nn/pallas_input.py:117",
               train_counts.get("input_block_bwd", 0), in_bwd_err,
-              *train_ms["input_block_bwd bf16"]),
+              *train_ms["input_block_bwd bf16"], "input_block_bwd bf16"),
         entry("attention_pool", "pool_head_fwd.cu", "eegflow/nn/pallas_attention.py:28",
               attn_counts.get("attention_pool", 0), apool_err, *apool_ms),
+        entry("lstm_fwd_train_gates", "lstm_fwd.cu", "eegflow/nn/pallas_lstm.py:430",
+              sched_counts["two_pass"].get("lstm_fwd_train_gates", 0), gates_err,
+              *train_ms["lstm_fwd_train_gates"]),
+        entry("lstm_bwd_v2", "lstm_bwd_v2.cu", "eegflow/nn/pallas_lstm.py:960",
+              sched_counts["two_pass"].get("lstm_bwd_v2", 0), v2_err, *train_ms["lstm_bwd_v2"]),
+        entry("lstm_bwd_dualdir", "lstm_bwd_dualdir.cu", "eegflow/nn/pallas_lstm.py:1293",
+              sched_counts["dualdir"].get("lstm_bwd_dualdir", 0), dd_err,
+              *train_ms["lstm_bwd_dualdir"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,
                                              "count": torch.cuda.device_count()}}),

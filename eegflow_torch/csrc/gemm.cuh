@@ -99,7 +99,9 @@ gemm_kernel(LoadA a, LoadB b, Store out, int M, int N, int K, int k_per_split) {
   }
 }
 
-// out[i] = sum_{s < splits} part[s * count + i], summed in order of s.
+// out[i] = sum_{s < splits} part[s * count + i], summed in order of s;
+// kAccumulate adds the sum to out[i] instead.
+template <bool kAccumulate = false>
 static __global__ void reduce_splits_kernel(const float* __restrict__ part,
                                             float* __restrict__ out, int splits,
                                             size_t count) {
@@ -107,7 +109,7 @@ static __global__ void reduce_splits_kernel(const float* __restrict__ part,
   if (i >= count) return;
   float v = 0.f;
   for (int s = 0; s < splits; ++s) v += part[s * count + i];
-  out[i] = v;
+  out[i] = kAccumulate ? out[i] + v : v;
 }
 
 // Writes one split's partial sums of an (M, N) product.
@@ -120,10 +122,11 @@ struct PartialStore {
 };
 
 // C = A . B over k in `splits` slices, then the slices summed in order into
-// out (M, N). part holds splits * M * N floats.
+// out (M, N), or added to it with `accumulate`. part holds splits * M * N
+// floats.
 template <class LoadA, class LoadB>
 cudaError_t gemm_split_k(LoadA a, LoadB b, float* out, float* part, int M, int N, int K,
-                         int splits, cudaStream_t stream) {
+                         int splits, cudaStream_t stream, bool accumulate = false) {
   int per = (K + splits - 1) / splits;
   per = (per + kGemmBK - 1) / kGemmBK * kGemmBK;
   const dim3 grid((N + kGemmBN - 1) / kGemmBN, (M + kGemmBM - 1) / kGemmBM, splits);
@@ -132,8 +135,11 @@ cudaError_t gemm_split_k(LoadA a, LoadB b, float* out, float* part, int M, int N
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return err;
   const size_t count = static_cast<size_t>(M) * N;
-  reduce_splits_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, stream>>>(
-      part, out, splits, count);
+  const unsigned blocks = static_cast<unsigned>((count + 255) / 256);
+  if (accumulate)
+    reduce_splits_kernel<true><<<blocks, 256, 0, stream>>>(part, out, splits, count);
+  else
+    reduce_splits_kernel<<<blocks, 256, 0, stream>>>(part, out, splits, count);
   return cudaGetLastError();
 }
 

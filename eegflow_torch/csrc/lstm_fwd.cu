@@ -1,5 +1,5 @@
 // Fused LSTM layer-direction forward for Hopper (sm_90a): eval mode and
-// training mode.
+// two training modes.
 //
 // Replaces: eegflow/nn/pallas_lstm.py _fwd_proj_kernel (entry
 // lstm_fwd_fused_proj). Eval mode (eegflow_lstm_fwd) is need_residuals=False
@@ -7,7 +7,10 @@
 // (eegflow_lstm_fwd_train) is need_residuals=True under the default
 // adjoint-residual contract (_ADJ_RES=1) with the uint8-mask input dropout
 // (the reference's n_masks path): the mode the training step runs, 3 layers
-// x 2 directions per micro-step.
+// x 2 directions per micro-step. Raw-gate training mode
+// (eegflow_lstm_fwd_train_gates) is need_residuals=True under the raw-gate
+// contract (_ADJ_RES=0): the post-activation gates and c of every step, the
+// residuals of the two-pass backward (lstm_bwd_v2.cu).
 //
 // Per step t (walked T-1..0 for the reverse direction, h written at its
 // natural position):
@@ -21,7 +24,10 @@
 // writes the six float32 adjoint planes of step t into res (B, T, 6H):
 //   [g i(1-i), c_prev f(1-f), i(1-g^2), o(1-tanh^2 c), f, tanh(c) o(1-o)]
 // so the backward (lstm_bwd.cu) needs neither c nor a transcendental.
-// Eval mode writes no residuals.
+// Raw-gate mode writes [i, f, g, o] (B, T, 4H) and c (B, T, H) instead, 5H
+// float32 a row and step against the planes' 6H; its backward recomputes
+// tanh(c) and reads c_prev from c at t-1 (t+1 reverse). Eval mode writes no
+// residuals.
 //
 // What bounds it on the card: the recurrence is serial in t, and every step
 // needs all of W_ih (D x 4H) and W_hh (H x 4H). At H=256 W_hh alone is 512 KB
@@ -40,7 +46,7 @@
 // registers. x_t (masked, then bf16-rounded) and h_{t-1} are staged in shared
 // memory (transposed to [k][row] so one float4 pair feeds the 8 rows),
 // double-buffered so each step needs a single __syncthreads. Rows past B are
-// masked (no padding of the batch). The two modes are one template.
+// masked (no padding of the batch). The three modes are one template.
 // Splitting W_hh across a thread-block cluster (distributed shared memory,
 // FlashRNN-style) and wgmma are later work.
 
@@ -85,14 +91,18 @@ __device__ __forceinline__ float load_input(const float* __restrict__ x,
   return m[i] != 0 ? v * inv_keep : 0.f;
 }
 
-template <bool kTrain>
+// What a launch writes besides h.
+enum Mode { kEval = 0, kPlanes = 1, kGates = 2 };
+
+template <int kMode>
 __global__ void __launch_bounds__(kMaxThreads)
 lstm_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
                 const uint8_t* __restrict__ m0, const uint8_t* __restrict__ m1,
                 int d0, int d1, float inv_keep, const __nv_bfloat16* __restrict__ w0,
                 const __nv_bfloat16* __restrict__ w1, const float* __restrict__ bias,
                 const __nv_bfloat16* __restrict__ whh, float* __restrict__ h_out,
-                float* __restrict__ res_out, int B, int T, int H, int reverse) {
+                float* __restrict__ res_out, float* __restrict__ c_out, int B, int T,
+                int H, int reverse) {
   extern __shared__ float4 smem4[];
   float* smem = reinterpret_cast<float*>(smem4);
   const int D = d0 + d1;
@@ -157,7 +167,7 @@ lstm_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
       if (row < B) {
         const size_t bt = static_cast<size_t>(row) * T + t;
         h_out[bt * H + u] = h;
-        if (kTrain) {
+        if (kMode == kPlanes) {
           float* z = res_out + bt * 6 * H + u;
           z[0] = gg * (ig * (1.f - ig));
           z[H] = c_prev * (fg * (1.f - fg));
@@ -165,6 +175,13 @@ lstm_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
           z[3 * H] = og * (1.f - tc * tc);
           z[4 * H] = fg;
           z[5 * H] = tc * (og * (1.f - og));
+        } else if (kMode == kGates) {
+          float* z = res_out + bt * 4 * H + u;
+          z[0] = ig;
+          z[H] = fg;
+          z[2 * H] = gg;
+          z[3 * H] = og;
+          c_out[bt * H + u] = c[r];
         }
       }
     }
@@ -172,22 +189,23 @@ lstm_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
   }
 }
 
-template <bool kTrain>
+template <int kMode>
 int launch(const float* x0, const float* x1, const uint8_t* m0, const uint8_t* m1,
            int d0, int d1, float inv_keep, const __nv_bfloat16* w0,
            const __nv_bfloat16* w1, const float* bias, const __nv_bfloat16* whh,
-           float* h_out, float* res_out, int B, int T, int H, int reverse,
+           float* h_out, float* res_out, float* c_out, int B, int T, int H, int reverse,
            cudaStream_t stream) {
   if (H <= 0 || H > kMaxThreads || H % 32 != 0 || B <= 0 || T <= 0 || d0 <= 0 ||
-      d1 < 0 || (kTrain && res_out == nullptr))
+      d1 < 0 || (kMode != kEval && res_out == nullptr) ||
+      (kMode == kGates && c_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t smem = 2 * static_cast<size_t>(d0 + d1 + H) * kRows * sizeof(float);
-  cudaError_t err = eegflow::allow_dynamic_smem(lstm_fwd_kernel<kTrain>, smem);
+  cudaError_t err = eegflow::allow_dynamic_smem(lstm_fwd_kernel<kMode>, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((B + kRows - 1) / kRows);
-  lstm_fwd_kernel<kTrain><<<grid, H, smem, stream>>>(x0, x1, m0, m1, d0, d1, inv_keep,
-                                                     w0, w1, bias, whh, h_out, res_out,
-                                                     B, T, H, reverse);
+  lstm_fwd_kernel<kMode><<<grid, H, smem, stream>>>(x0, x1, m0, m1, d0, d1, inv_keep, w0,
+                                                    w1, bias, whh, h_out, res_out, c_out,
+                                                    B, T, H, reverse);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -200,8 +218,8 @@ extern "C" int eegflow_lstm_fwd(const float* x0, const float* x1, int d0, int d1
                                 const float* bias, const __nv_bfloat16* whh,
                                 float* h_out, int B, int T, int H, int reverse,
                                 cudaStream_t stream) {
-  return launch<false>(x0, x1, nullptr, nullptr, d0, d1, 1.f, w0, w1, bias, whh, h_out,
-                       nullptr, B, T, H, reverse, stream);
+  return launch<kEval>(x0, x1, nullptr, nullptr, d0, d1, 1.f, w0, w1, bias, whh, h_out,
+                       nullptr, nullptr, B, T, H, reverse, stream);
 }
 
 // Training mode: as eval mode, plus uint8 keep-masks m_p (B, T, d_p) (null:
@@ -214,6 +232,21 @@ extern "C" int eegflow_lstm_fwd_train(const float* x0, const float* x1,
                                       const __nv_bfloat16* whh, float* h_out,
                                       float* res_out, int B, int T, int H, int reverse,
                                       cudaStream_t stream) {
-  return launch<true>(x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, bias, whh, h_out,
-                      res_out, B, T, H, reverse, stream);
+  return launch<kPlanes>(x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, bias, whh, h_out,
+                         res_out, nullptr, B, T, H, reverse, stream);
+}
+
+// Raw-gate training mode: as training mode, but the residuals are the
+// post-activation gates [i, f, g, o] gates_out (B, T, 4H) and the cell state
+// c_out (B, T, H), float32.
+extern "C" int eegflow_lstm_fwd_train_gates(const float* x0, const float* x1,
+                                            const uint8_t* m0, const uint8_t* m1, int d0,
+                                            int d1, float inv_keep,
+                                            const __nv_bfloat16* w0,
+                                            const __nv_bfloat16* w1, const float* bias,
+                                            const __nv_bfloat16* whh, float* h_out,
+                                            float* gates_out, float* c_out, int B, int T,
+                                            int H, int reverse, cudaStream_t stream) {
+  return launch<kGates>(x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, bias, whh, h_out,
+                        gates_out, c_out, B, T, H, reverse, stream);
 }

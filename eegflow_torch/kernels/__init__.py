@@ -59,6 +59,25 @@ _SIGNATURES = {
     # dx0, dx1, dw_ih, dw_hh, db, dz, part, splits, B, T, H, reverse, stream
     "eegflow_lstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # lstm_fwd.cu, kernel 2, raw-gate training mode:
+    # x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, b, whh, h_out, gates_out, c_out,
+    # B, T, H, reverse, stream
+    "eegflow_lstm_fwd_train_gates": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P,
+                                     _P, _I, _I, _I, _I, _P],
+    # lstm_bwd_v2.cu, kernel 3b:
+    # gates, c, h, g, x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, whh_t, add0,
+    # add1, dx0, dx1, dw_ih, dw_hh, db, carry, db_part, dz16, part, splits,
+    # t_chunk, B, T, H, reverse, stream, aux_stream
+    "eegflow_lstm_bwd_v2": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _P, _P],
+    # lstm_bwd_dualdir.cu, kernel 4:
+    # res_f, h_f, g_f, res_r, h_r, g_r, x0, x1, d0, d1, mask_from_x, inv_keep,
+    # w0_f, w1_f, whh_t_f, w0_r, w1_r, whh_t_r, dx0, dx1, dw_ih_f, dw_hh_f,
+    # db_f, dw_ih_r, dw_hh_r, db_r, dz_f, dz_r, part, splits, B, T, H, stream
+    "eegflow_lstm_bwd_dualdir": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P,
+                                 _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                                 _P, _I, _I, _I, _I, _P],
     # lstm_rec.cu, kernel 1 (float32 policy); c_out null in eval mode:
     # gates, whh, h_out, c_out, B, T, H, reverse, stream
     "eegflow_lstm_rec_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -90,12 +109,12 @@ _SIGNATURES = {
 }
 
 
-def gemm_splits(rows: int) -> int:
+def gemm_splits(rows: int, rows_per_split: int = 4096) -> int:
     """How many slices the kernels split a weight-gradient sum over ``rows``
-    (= B*T) into: about 4096 rows a slice, at most 16. The split depends on
-    the shapes only, so the summation order, and the result, repeat bitwise
-    run to run."""
-    return max(1, min(16, -(-rows // 4096)))
+    (= B*T) into: about ``rows_per_split`` rows a slice, at most 16. The
+    split depends on the shapes only, so the summation order, and the
+    result, repeat bitwise run to run."""
+    return max(1, min(16, -(-rows // rows_per_split)))
 
 
 def reset_launch_counts() -> None:

@@ -39,6 +39,16 @@ the masks of its input parts as uint8 masks (the reference's explicit-mask
 mode, ``EEGFLOW_MASK_DROPOUT``): inside the kernels under bf16, before the
 projection and on dx under float32. Forward and backward use the same
 masks, so gradients are exact.
+
+``lstm_bwd`` picks the bf16 stack's backward schedule
+(:data:`~eegflow_torch.nn.cuda_lstm.LSTM_BWD_SCHEDULES`): ``"fused"`` (the
+default, above), ``"two_pass"`` (raw-gate forwards, kernel 3b: the
+reference's ``EEGFLOW_ADJOINT_RES=0 EEGFLOW_BWD_V2=1``) or ``"dualdir"``
+(kernel 4, one backward launch per layer: ``EEGFLOW_BWD_DUALDIR=1`` on the
+reference's select-dropout path, where each layer's input parts are dropped
+by :func:`~eegflow_torch.nn.cuda_lstm.select_dropout` with the same masks
+and the kernels recover the mask from the zeros). The float32 policy runs
+only ``"fused"``.
 """
 
 from __future__ import annotations
@@ -56,8 +66,9 @@ from eegflow_torch.core.prng import make_generator
 from eegflow_torch.nn.attention import additive_attention_init
 from eegflow_torch.nn.cuda_attention import pool_head, pool_head_fused, pool_head_fused_plain
 from eegflow_torch.nn.cuda_input import input_block
-from eegflow_torch.nn.cuda_lstm import (bilstm_layer, lstm_fwd_fused_proj,
-                                        lstm_fwd_fused_proj_plain, lstm_rec_layer)
+from eegflow_torch.nn.cuda_lstm import (bilstm_layer, check_lstm_bwd, lstm_fwd_fused_proj,
+                                        lstm_fwd_fused_proj_plain, lstm_rec_layer,
+                                        select_dropout)
 from eegflow_torch.nn.layers import (dense_apply, dense_init, dropout, dropout_mask, gelu,
                                      layer_norm_apply, layer_norm_init)
 from eegflow_torch.nn.lstm import bilstm_stack_init
@@ -158,17 +169,23 @@ def _as_u8(masks: Optional[Sequence[torch.Tensor]]):
 
 
 def _stack_train(layers, h: torch.Tensor, kernel: bool, bf16: bool,
-                 masks: Optional[DropoutMasks], rate: float) -> Tuple[torch.Tensor, ...]:
+                 masks: Optional[DropoutMasks], rate: float,
+                 lstm_bwd: str = "fused") -> Tuple[torch.Tensor, ...]:
     """The differentiable stack, one autograd Function per layer
     (:class:`~eegflow_torch.nn.cuda_lstm.BiLSTMLayer` under bf16,
     :class:`~eegflow_torch.nn.cuda_lstm.BiLSTMLayerF32` under float32), as
-    feature parts; each layer applies the dropout of its input as masks."""
+    feature parts; each layer applies the dropout of its input as masks, or
+    under ``"dualdir"`` reads parts dropped by ``select_dropout``."""
     part_masks, keep = None, 1.0
     if masks is not None and masks.input is not None:
         part_masks, keep = (masks.input,), 1.0 - rate / 2
     parts = (h,)
     for idx, layer in enumerate(layers):
-        parts = bilstm_layer(layer, parts, _as_u8(part_masks), keep, kernel, bf16)
+        if lstm_bwd == "dualdir" and part_masks is not None:
+            parts = tuple(select_dropout(p, m, keep) for p, m in zip(parts, part_masks))
+            part_masks = None
+        parts = bilstm_layer(layer, parts, _as_u8(part_masks), keep, kernel, bf16,
+                             lstm_bwd=lstm_bwd)
         part_masks, keep = None, 1.0
         if masks is not None and idx < len(masks.layers):
             part_masks, keep = masks.layers[idx], 1.0 - rate
@@ -185,17 +202,22 @@ def classifier_apply(
     *,
     train: bool = False,
     masks: Optional[DropoutMasks] = None,
+    lstm_bwd: str = "fused",
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """(B, T, C) windows -> (B, num_classes) logits (+ attention (B, T)).
 
     ``compute_dtype`` is ``torch.bfloat16`` (the bf16 policy) or None
     (float32). ``train=True`` applies dropout with ``masks`` (none when
     ``masks`` is None, as the reference does without a dropout key).
+    ``lstm_bwd`` picks the stack's backward schedule (module docstring);
+    any value but ``"fused"`` needs the bf16 policy, and ``"dualdir"`` a
+    bidirectional stack.
     """
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"unsupported compute_dtype {compute_dtype}")
-    kernel = resolve_lstm_impl(lstm_impl, x.device) == "kernel"
     bf16 = compute_dtype == torch.bfloat16
+    check_lstm_bwd(lstm_bwd, bf16, config.bidirectional)
+    kernel = resolve_lstm_impl(lstm_impl, x.device) == "kernel"
     rate = config.dropout
     masks = masks if train else None
 
@@ -206,7 +228,8 @@ def classifier_apply(
     # the residual-free eval kernels serve inference; a forward that may be
     # differentiated (or carries dropout) runs the autograd Functions
     differentiable = masks is not None or (torch.is_grad_enabled() and h.requires_grad)
-    parts = (_stack_train(params["lstm"], h, kernel, bf16, masks, rate) if differentiable
+    parts = (_stack_train(params["lstm"], h, kernel, bf16, masks, rate, lstm_bwd)
+             if differentiable
              else _stack_eval(params["lstm"], h, kernel, bf16))
     if config.use_attention:
         if differentiable:

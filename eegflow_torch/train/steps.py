@@ -26,6 +26,7 @@ from typing import Callable, Dict, Optional, Sequence
 import torch
 
 from eegflow_torch.core.config import ModelConfig, TrainConfig
+from eegflow_torch.nn.cuda_lstm import check_lstm_bwd
 from eegflow_torch.nn.losses import cross_entropy_loss
 from eegflow_torch.nn.model import DropoutMasks, classifier_apply
 from eegflow_torch.train.schedule import warmup_cosine_schedule
@@ -99,20 +100,23 @@ def make_optimizer(params: Sequence[torch.Tensor], train_cfg: TrainConfig,
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: AdamW,
                     class_weights: Optional[torch.Tensor] = None,
-                    lstm_impl: Optional[str] = None) -> Callable:
+                    lstm_impl: Optional[str] = None, *, lstm_bwd: str = "fused") -> Callable:
     """``step(params, x, y, masks) -> {"loss", "correct", "count"}``: forward
     in training mode with the dropout ``masks``, weighted cross-entropy,
     backward, optimizer step (the parameters change in place on every
     ``accumulation_steps``-th call). ``loss`` and ``correct`` stay on the
-    device."""
+    device. ``lstm_bwd``: the LSTM stack's backward schedule
+    (``classifier_apply``); not a ``TrainConfig`` field, whose fields stay
+    the JAX package's."""
     compute_dtype = torch.bfloat16 if train_cfg.bf16 else None
     impl = lstm_impl or train_cfg.lstm_impl
+    check_lstm_bwd(lstm_bwd, train_cfg.bf16, model_cfg.bidirectional)
 
     def step(params, x: torch.Tensor, y: torch.Tensor,
              masks: Optional[DropoutMasks]) -> Dict[str, object]:
         optimizer.zero_grad()
         logits = classifier_apply(params, x, model_cfg, compute_dtype=compute_dtype,
-                                  lstm_impl=impl, train=True, masks=masks)
+                                  lstm_impl=impl, train=True, masks=masks, lstm_bwd=lstm_bwd)
         loss = cross_entropy_loss(logits, y, class_weights)
         loss.backward()
         optimizer.step()

@@ -19,10 +19,13 @@ from eegflow_torch.nn.cuda_attention import (attention_pool, attention_pool_plai
                                              pool_head_fused, pool_head_fused_plain)
 from eegflow_torch.nn.cuda_input import (input_block_bwd, input_block_bwd_plain,
                                          input_block_fused, input_block_fused_plain)
-from eegflow_torch.nn.cuda_lstm import (lstm_bwd, lstm_bwd_plain, lstm_fwd_fused_proj,
-                                        lstm_fwd_fused_proj_plain, lstm_fwd_train,
-                                        lstm_fwd_train_plain, lstm_recurrence,
-                                        lstm_recurrence_backward,
+from eegflow_torch.nn.cuda_lstm import (V2_CHUNK_BYTES, lstm_bwd, lstm_bwd_dualdir,
+                                        lstm_bwd_dualdir_plain, lstm_bwd_plain, lstm_bwd_v2,
+                                        lstm_bwd_v2_plain,
+                                        lstm_fwd_fused_proj, lstm_fwd_fused_proj_plain,
+                                        lstm_fwd_train, lstm_fwd_train_gates,
+                                        lstm_fwd_train_gates_plain, lstm_fwd_train_plain,
+                                        lstm_recurrence, lstm_recurrence_backward,
                                         lstm_recurrence_backward_plain, lstm_recurrence_plain)
 from eegflow_torch.nn.losses import cross_entropy_loss
 from eegflow_torch.nn.model import classifier_apply, classifier_init, draw_dropout_masks
@@ -369,3 +372,130 @@ def test_f32_training_micro_step_kernel_path_matches_plain_path(dev):
         if a is not None:
             assert torch.equal(a, a2)
             assert _rel(a, c) <= F32_REL_TOL
+
+
+@pytest.mark.parametrize("masked", [True, False])
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch,hidden", [(5, 64), (16, 256)])
+def test_lstm_fwd_train_gates_kernel_matches_twin(dev, n_parts, reverse, batch, hidden,
+                                                  masked):
+    w_ih, w_hh, b, xs, ms, keep = _lstm_case(make_generator(60 + n_parts), n_parts, batch,
+                                             hidden, dev)
+    if not masked:
+        ms, keep = None, 1.0
+    before = kernels.launch_counts["lstm_fwd_train_gates"]
+    got = lstm_fwd_train_gates(xs, w_ih, b, w_hh, reverse, ms, keep)
+    assert kernels.launch_counts["lstm_fwd_train_gates"] == before + 1
+    want = lstm_fwd_train_gates_plain(xs, w_ih, b, w_hh, reverse, ms, keep)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert (a - w).abs().max().item() <= LSTM_TOL
+
+
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch,hidden,steps", [(5, 64, 40), (16, 256, 40), (32, 256, 600)])
+def test_lstm_bwd_v2_kernel_matches_twin_and_repeats_bitwise(dev, n_parts, reverse, batch,
+                                                             hidden, steps):
+    """One chunk of all 40 steps, and at B=32, H=256 three chunks of at most
+    256 steps (what V2_CHUNK_BYTES of bf16 dz holds), the last one 88 long."""
+    t_chunk = V2_CHUNK_BYTES // (batch * 4 * hidden * 2)
+    assert steps <= t_chunk or steps % t_chunk
+    gen = make_generator(70 + n_parts)
+    w_ih, w_hh, b, xs, ms, keep = _lstm_case(gen, n_parts, batch, hidden, dev, steps=steps)
+    h, gates, c = lstm_fwd_train_gates_plain(xs, w_ih, b, w_hh, reverse, ms, keep)
+    g = 0.1 * _randn(gen, *h.shape, dev=dev)
+    add = tuple(_randn(gen, *x.shape, dev=dev) for x in xs) if reverse else None
+    args = (gates, c, h, g, xs, w_ih, w_hh, reverse, ms, keep, add)
+    before = kernels.launch_counts["lstm_bwd_v2"]
+    got = lstm_bwd_v2(*args)
+    again = lstm_bwd_v2(*args)
+    assert kernels.launch_counts["lstm_bwd_v2"] == before + 2
+    want = lstm_bwd_v2_plain(*args)
+    torch.cuda.synchronize()
+    for a, w in zip(got[0] + got[1:], want[0] + want[1:]):
+        assert _rel(a, w) <= BWD_REL_TOL
+    assert all(torch.equal(a, w) for a, w in zip(got[0] + got[1:], again[0] + again[1:]))
+    # dropped inputs get exactly zero input gradient (before the sibling's dx)
+    if add is None:
+        for dx, m in zip(got[0], ms):
+            assert (dx[m == 0] == 0).all()
+
+
+@pytest.mark.parametrize("mask_from_x", [True, False])
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("batch,hidden", [(5, 64), (16, 256)])
+def test_lstm_bwd_dualdir_kernel_matches_twin_and_repeats_bitwise(dev, n_parts, batch, hidden,
+                                                                  mask_from_x):
+    gen = make_generator(80 + n_parts)
+    w_f = _lstm_case(gen, n_parts, batch, hidden, dev)
+    w_ih_r, w_hh_r, b_r = _lstm_case(gen, n_parts, batch, hidden, dev)[:3]
+    w_ih_f, w_hh_f, b_f, xs, ms, keep = w_f
+    if mask_from_x:  # the parts as select dropout leaves them
+        xs = tuple(torch.where(m != 0, x / keep, torch.zeros((), device=dev))
+                   for x, m in zip(xs, ms))
+    else:
+        keep = 1.0
+    h_f, res_f = lstm_fwd_train_plain(xs, w_ih_f, b_f, w_hh_f, False)
+    h_r, res_r = lstm_fwd_train_plain(xs, w_ih_r, b_r, w_hh_r, True)
+    g_f, g_r = (0.1 * _randn(gen, *h_f.shape, dev=dev) for _ in range(2))
+    args = (res_f, h_f, g_f, res_r, h_r, g_r, xs, (w_ih_f, w_hh_f), (w_ih_r, w_hh_r), keep,
+            mask_from_x)
+    before = kernels.launch_counts["lstm_bwd_dualdir"]
+    got = lstm_bwd_dualdir(*args)
+    again = lstm_bwd_dualdir(*args)
+    assert kernels.launch_counts["lstm_bwd_dualdir"] == before + 2
+    want = lstm_bwd_dualdir_plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda out: list(out[0]) + list(out[1]) + list(out[2])  # noqa: E731
+    for a, w in zip(flat(got), flat(want)):
+        assert _rel(a, w) <= BWD_REL_TOL
+    assert all(torch.equal(a, w) for a, w in zip(flat(got), flat(again)))
+    if mask_from_x:
+        for dx, x in zip(got[0], xs):
+            assert (dx[x == 0] == 0).all()
+    else:
+        # without dropout, one dual-direction launch is kernel 3 twice: the
+        # forward direction, then the reverse one adding the first's dx
+        dx_f, *gr_f = lstm_bwd(res_f, h_f, g_f, xs, w_ih_f, w_hh_f, False)
+        dx, *gr_r = lstm_bwd(res_r, h_r, g_r, xs, w_ih_r, w_hh_r, True, dx_add=dx_f)
+        for a, w in zip(flat(got), list(dx) + gr_f + gr_r):
+            assert _rel(a, w) <= BWD_REL_TOL
+
+
+@pytest.mark.parametrize("lstm_bwd", ["fused", "two_pass", "dualdir"])
+def test_training_micro_step_schedules_kernel_path_match_plain_path(dev, lstm_bwd):
+    cfg = ModelConfig(input_size=7, hidden_size=64, num_layers=2)
+    params = classifier_init(cfg, make_generator(7), device=dev, trainable=True)
+    rng = np.random.default_rng(7)
+    x = torch.from_numpy(rng.standard_normal((9, 32, 7)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 2, 9)).to(dev)
+    masks = draw_dropout_masks(cfg, 9, 32, torch.Generator(device=dev).manual_seed(2), dev)
+    leaves = list(params.parameters())
+
+    def step(impl):
+        for q in leaves:
+            q.grad = None
+        logits = classifier_apply(params, x, cfg, compute_dtype=torch.bfloat16, lstm_impl=impl,
+                                  train=True, masks=masks, lstm_bwd=lstm_bwd)
+        loss = cross_entropy_loss(logits, y)
+        loss.backward()
+        return loss.item(), [q.grad.clone() if q.grad is not None else None for q in leaves]
+
+    kernels.reset_launch_counts()
+    loss_k, grads_k = step("kernel")
+    fwd, bwd, n_bwd = {"fused": ("lstm_fwd_train", "lstm_bwd", 4),
+                       "two_pass": ("lstm_fwd_train_gates", "lstm_bwd_v2", 4),
+                       "dualdir": ("lstm_fwd_train", "lstm_bwd_dualdir", 2)}[lstm_bwd]
+    assert dict(kernels.launch_counts) == {"input_block_fwd": 1, "input_block_bwd": 1,
+                                           fwd: 4, bwd: n_bwd, "pool_head_fwd": 1,
+                                           "pool_head_bwd": 1}
+    loss_k2, grads_k2 = step("kernel")
+    loss_p, grads_p = step("plain")
+    assert abs(loss_k - loss_p) <= 1e-3 and loss_k == loss_k2
+    for a, a2, c in zip(grads_k, grads_k2, grads_p):
+        assert (a is None) == (c is None)
+        if a is not None:
+            assert torch.equal(a, a2)
+            assert _rel(a, c) <= STEP_REL_TOL
