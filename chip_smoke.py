@@ -5,9 +5,13 @@ Run from the root of the repository:  python3 chip_smoke.py
 
 Phases, each printed on its own lines; any failure raises and exits non-zero:
   1. the card (nvidia-smi name and power limit); requires CUDA;
-  2. builds the CUDA kernels from eegflow_torch/csrc with nvcc;
+  2. builds the CUDA kernels from eegflow_torch/csrc with nvcc and prints
+     ptxas's register, spill and shared-memory report, and the cluster plan
+     of each recurrent kernel at the main path's shapes (rows per cluster,
+     cudaOccupancyMaxActiveClusters, waves, resident weight rows, shared
+     memory);
   3. lstm_fwd against its plain twin at B=64, T=256, H=256, one and two
-     input parts, both directions;
+     input parts, both directions, and bitwise against itself;
   4. pool_head_fwd against its plain twin: two parts of 256, K=256, T=256;
   5. serves a full-width coupled model (61 -> 256, 3 bidirectional layers,
      T=256, random weights from a seed) over HTTP on 127.0.0.1: /health and
@@ -15,10 +19,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      kernel launch counts (1 input_block_fwd, 6 lstm_fwd, 1 pool_head_fwd per
      batch), and the probabilities against the plain path;
   6. times predict_batch at the 1024 bucket on the kernel path and the
-     plain path (CUDA events), and each kernel against its twin;
+     plain path (CUDA events), and each kernel against its twin; lstm_fwd at
+     B=1024 (the cluster plan serving launches) is also held to its twin
+     and to a bitwise repeat;
   7. the bf16 training kernels against their twins at B=64, T=256, H=256:
-     lstm_fwd in training mode (masks, residual planes), lstm_bwd, and
-     pool_head_bwd in its bf16 and float32 modes;
+     lstm_fwd in training mode (masks, residual planes) and lstm_bwd, each
+     also bitwise against itself, and pool_head_bwd in its bf16 and float32
+     modes;
   8. trains through the `train` stage of the CLI (in-process) on a
      synthetic processed_sequences.npz (2048 training windows of 256 x 61,
      2 epochs, full-width ModelConfig, default TrainConfig: bf16); checks the
@@ -28,8 +35,10 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      loader reads the checkpoint;
   9. one bf16 training micro-step at B=512 on the kernel path against the
      plain path from identical params and masks (loss and every gradient), a
-     second kernel run bitwise identical; then times the micro-step on both
-     paths and each training kernel against its twin at B=512;
+     second kernel run bitwise identical; holds lstm_fwd_train and lstm_bwd
+     at B=512 (the plans the micro-step launches) to their twins and to a
+     bitwise repeat; then times the micro-step on both paths and each
+     training kernel against its twin at B=512;
  10. the float32 policy's kernels against their twins: lstm_rec_fwd (eval and
      training mode) and lstm_rec_bwd at B=64, T=256, H=256 on the gates of
      one- and two-part inputs, both directions; input_block_fwd and
@@ -47,15 +56,19 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      kernel (and the input block in both modes) timed against its twin;
  14. the kernels of the two other bf16 backward schedules against their
      twins at B=64, T=256, H=256, one and two parts: lstm_fwd_train_gates
-     (h, gates, c; both directions), lstm_bwd_v2 on the same residuals (masks,
-     dx_add, bitwise repeat), lstm_bwd_dualdir with and without mask_from_x
-     (bitwise repeat) and, without dropout, against two lstm_bwd launches;
+     (h, gates, c; both directions; bitwise repeat), lstm_bwd_v2 on the same
+     residuals (masks, dx_add, bitwise repeat), lstm_bwd_dualdir with and
+     without mask_from_x (bitwise repeat) and, without dropout, against two
+     lstm_bwd launches (bit for bit: the two share their chain and products);
  15. one bf16 micro-step at B=512 under lstm_bwd="two_pass" and under
      "dualdir", kernel path against plain path (loss, every gradient, bitwise
      repeat, exact launch counts), each timed in turns against "fused", and
      lstm_bwd_v2 and lstm_bwd_dualdir timed at B=512 against their twins and
-     against kernel 3 on the same work; then one cuDNN LSTM call per LSTM
-     kernel at its shape as a yardstick (never on the port's path).
+     against kernel 3 on the same work; lstm_fwd_train_gates and
+     lstm_bwd_dualdir at B=512 held to their twins and to bitwise repeats,
+     and lstm_bwd_dualdir without dropout to two lstm_bwd launches bit for
+     bit; then one cuDNN LSTM call per LSTM kernel at its shape as a
+     yardstick (never on the port's path).
 The line before the last lists the kernels as JSON, each with its time, its
 twin's, its bound on an H100 (bytes over 3.35 TB/s or products over the
 dtype's peak, whichever is larger) and the library call's time where there is
@@ -165,6 +178,24 @@ def rel_err(got, want):
     return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
+def hold_at_main_shape(label, got, again, want, tol, relative):
+    """Hold a kernel's outputs at a main-path shape (the plan the main path
+    launches) to its twin's on the same inputs: the largest difference,
+    relative to each output's largest entry where ``relative``, within
+    ``tol``, and a second launch bitwise identical. ``got``, ``again`` and
+    ``want`` are flat lists of tensors. -> the largest absolute difference."""
+    torch.cuda.synchronize()
+    err = max((rel_err(a, w) if relative else (a - w).abs().max().item())
+              for a, w in zip(got, want))
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    finite = all(bool(torch.isfinite(a).all()) for a in got)
+    print(f"{label}: max {'rel' if relative else 'abs'} diff {err:.3e} (tol {tol:g}); repeat "
+          f"bitwise identical: {same}", flush=True)
+    require(finite and err <= tol and same,
+            f"{label} within {tol} of its twin, finite, bitwise repeatable")
+    return max((a - w).abs().max().item() for a, w in zip(got, want))
+
+
 def nbytes(*items):
     """Bytes of every tensor in ``items`` (tuples, lists and dicts walked;
     anything else counts 0)."""
@@ -230,7 +261,8 @@ def main() -> int:
                                                  pool_head_fused_plain)
     from eegflow_torch.nn.cuda_input import (input_block_bwd, input_block_bwd_plain,
                                              input_block_fused, input_block_fused_plain)
-    from eegflow_torch.nn.cuda_lstm import (lstm_bwd, lstm_bwd_dualdir, lstm_bwd_dualdir_plain,
+    from eegflow_torch.nn.cuda_lstm import (kernel_plan, lstm_bwd, lstm_bwd_dualdir,
+                                            lstm_bwd_dualdir_plain,
                                             lstm_bwd_plain, lstm_bwd_v2, lstm_bwd_v2_plain,
                                             lstm_fwd_fused_proj, lstm_fwd_fused_proj_plain,
                                             lstm_fwd_train, lstm_fwd_train_gates,
@@ -265,6 +297,15 @@ def main() -> int:
         for line in kernels.build_info["log"].splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("  ptxas: " + line.strip())
+    # the cluster plans of kernels 2, 3 and 4 at the main path's shapes
+    for kind, batch, mode, label in (("fwd", BUCKET, 0, "lstm_fwd"),
+                                     ("fwd", B_TRAIN, 1, "lstm_fwd_train"),
+                                     ("fwd", B_TRAIN, 2, "lstm_fwd_train_gates"),
+                                     ("bwd", B_TRAIN, 0, "lstm_bwd"),
+                                     ("bwd_dualdir", B_TRAIN, 0, "lstm_bwd_dualdir"),
+                                     ("fwd", B_CHECK, 1, "lstm_fwd_train"),
+                                     ("bwd", B_CHECK, 0, "lstm_bwd")):
+        print(f"cluster plan {label}: {kernel_plan(kind, batch, H, mode).describe()}")
     print(flush=True)
 
     cfg = ModelConfig()
@@ -284,13 +325,16 @@ def main() -> int:
         for direction, reverse in (("fwd", False), ("bwd", True)):
             p = layer[direction]
             got = lstm_fwd_fused_proj(xs, p["w_ih"], p["b"], p["w_hh"], reverse)
+            again = lstm_fwd_fused_proj(xs, p["w_ih"], p["b"], p["w_hh"], reverse)
             want = lstm_fwd_fused_proj_plain(xs, p["w_ih"], p["b"], p["w_hh"], reverse)
             torch.cuda.synchronize()
             require(bool(torch.isfinite(got).all()), "lstm_fwd output finite")
             err = (got - want).abs().max().item()
+            same = torch.equal(got, again)
             print(f"lstm_fwd parts={n_parts} reverse={reverse} B={B_CHECK} T={T} H={H}: "
-                  f"max_abs_diff {err:.3e} (tol {LSTM_TOL:g})")
-            require(err <= LSTM_TOL, f"lstm_fwd within {LSTM_TOL} of its twin")
+                  f"max_abs_diff {err:.3e} (tol {LSTM_TOL:g}); repeat bitwise identical: {same}")
+            require(err <= LSTM_TOL and same,
+                    f"lstm_fwd within {LSTM_TOL} of its twin, bitwise repeatable")
             lstm_err = max(lstm_err, err)
 
     # phase 4: pool_head_fwd against its twin
@@ -400,6 +444,10 @@ def main() -> int:
     for label, xs, p in (("1 part", x1, p0), ("2 parts", x2, p1)):
         args = (xs, p["w_ih"], p["b"], p["w_hh"], False)
         out = lstm_fwd_fused_proj(*args)
+        lstm_err = max(lstm_err, hold_at_main_shape(
+            f"lstm_fwd B={BUCKET} T={T} H={H} {label} ({kernel_plan('fwd', BUCKET, H).rows} rows "
+            f"a cluster)", [out], [lstm_fwd_fused_proj(*args)],
+            [lstm_fwd_fused_proj_plain(*args)], LSTM_TOL, relative=False))
         if label == "2 parts":
             work["lstm_fwd"] = (nbytes(args, out), lstm_flops(BUCKET, 2 * H, H), "bf16")
         ms = cuda_ms(lambda: lstm_fwd_fused_proj(*args), 3)
@@ -430,29 +478,35 @@ def main() -> int:
         for direction, reverse in (("fwd", False), ("bwd", True)):
             p = layer[direction]
             h_k, res_k = lstm_fwd_train(xs, p["w_ih"], p["b"], p["w_hh"], reverse, ms, keep)
+            h_k2, res_k2 = lstm_fwd_train(xs, p["w_ih"], p["b"], p["w_hh"], reverse, ms, keep)
             h_p, res_p = lstm_fwd_train_plain(xs, p["w_ih"], p["b"], p["w_hh"], reverse, ms,
                                               keep)
             torch.cuda.synchronize()
             err = max((h_k - h_p).abs().max().item(), (res_k - res_p).abs().max().item())
+            same = torch.equal(h_k, h_k2) and torch.equal(res_k, res_k2)
             print(f"lstm_fwd train parts={n_parts} reverse={reverse} B={B_CHECK} T={T} H={H}: "
-                  f"h and planes max_abs_diff {err:.3e} (tol {TRAIN_FWD_TOL:g})")
-            require(bool(torch.isfinite(res_k).all()) and err <= TRAIN_FWD_TOL,
-                    f"lstm_fwd training mode within {TRAIN_FWD_TOL} of its twin")
+                  f"h and planes max_abs_diff {err:.3e} (tol {TRAIN_FWD_TOL:g}); repeat bitwise "
+                  f"identical: {same}")
+            require(bool(torch.isfinite(res_k).all()) and err <= TRAIN_FWD_TOL and same,
+                    f"lstm_fwd training mode within {TRAIN_FWD_TOL} of its twin, bitwise "
+                    f"repeatable")
             train_fwd_err = max(train_fwd_err, err)
             g_up = 0.1 * randn(B_CHECK, T, H)
             dx_add = tuple(randn(B_CHECK, T, H) for _ in range(n_parts)) if reverse else None
-            got = lstm_bwd(res_p, h_p, g_up, xs, p["w_ih"], p["w_hh"], reverse, ms, keep,
-                           dx_add)
-            want = lstm_bwd_plain(res_p, h_p, g_up, xs, p["w_ih"], p["w_hh"], reverse, ms,
-                                  keep, dx_add)
+            bwd_args = (res_p, h_p, g_up, xs, p["w_ih"], p["w_hh"], reverse, ms, keep, dx_add)
+            got = lstm_bwd(*bwd_args)
+            again = lstm_bwd(*bwd_args)
+            want = lstm_bwd_plain(*bwd_args)
             torch.cuda.synchronize()
             errs = {"dx": max(rel_err(a, b) for a, b in zip(got[0], want[0])),
                     "dW_ih": rel_err(got[1], want[1]), "dW_hh": rel_err(got[2], want[2]),
                     "db": rel_err(got[3], want[3])}
+            same = all(torch.equal(a, b) for a, b in zip(got[0] + got[1:], again[0] + again[1:]))
             print(f"lstm_bwd parts={n_parts} reverse={reverse} dx_add={dx_add is not None}: "
                   + ", ".join(f"{k} rel {v:.3e}" for k, v in errs.items())
-                  + f" (tol {BWD_REL_TOL:g})")
-            require(max(errs.values()) <= BWD_REL_TOL, f"lstm_bwd within {BWD_REL_TOL}")
+                  + f" (tol {BWD_REL_TOL:g}); repeat bitwise identical: {same}")
+            require(max(errs.values()) <= BWD_REL_TOL and same,
+                    f"lstm_bwd within {BWD_REL_TOL}, bitwise repeatable")
             bwd_err = max(bwd_err, *[(a - b).abs().max().item()
                                      for a, b in zip(got[0] + got[1:], want[0] + want[1:])])
     pool_parts = tuple(torch.tanh(randn(B_CHECK, T, H)) for _ in range(2))
@@ -588,6 +642,18 @@ def main() -> int:
     # products of one layer-direction's backward at B=512, two parts: dh_carry,
     # dx, dW_ih and dW_hh, 2 B T 4H (2 D + 2 H)
     bwd_flops = 2 * B_TRAIN * T * 4 * H * (2 * 2 * H + 2 * H)
+    # kernels 2 (planes) and 3 at the micro-step's batch, on the plans it launches
+    train_fwd_err = max(train_fwd_err, hold_at_main_shape(
+        f"lstm_fwd train B={B_TRAIN} T={T} H={H} parts=2 reverse "
+        f"({kernel_plan('fwd', B_TRAIN, H, 1).rows} rows a cluster)",
+        list(lstm_fwd_train(*fargs)), list(lstm_fwd_train(*fargs)), [h2, res2], TRAIN_FWD_TOL,
+        relative=False))
+    flat_bwd = lambda out: list(out[0]) + list(out[1:])  # noqa: E731
+    bwd_err = max(bwd_err, hold_at_main_shape(
+        f"lstm_bwd B={B_TRAIN} T={T} H={H} parts=2 reverse dx_add "
+        f"({kernel_plan('bwd', B_TRAIN, H).rows} rows a cluster): dx, dW_ih, dW_hh, db",
+        flat_bwd(lstm_bwd(*bargs)), flat_bwd(lstm_bwd(*bargs)), flat_bwd(lstm_bwd_plain(*bargs)),
+        BWD_REL_TOL, relative=True))
     head_flops = 3 * 2 * B_TRAIN * T * 2 * H * H  # projection, dW1, dh
     train_ms = {}
     for name, kfn, pfn, args, flops in (
@@ -823,13 +889,17 @@ def main() -> int:
             p = layer[direction]
             fwd_args = (xs, p["w_ih"], p["b"], p["w_hh"], reverse, ms, keep)
             got = lstm_fwd_train_gates(*fwd_args)
+            again = lstm_fwd_train_gates(*fwd_args)
             h_p, gates_p, c_p = lstm_fwd_train_gates_plain(*fwd_args)
             torch.cuda.synchronize()
             err = max((a - b).abs().max().item() for a, b in zip(got, (h_p, gates_p, c_p)))
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
             print(f"lstm_fwd_train_gates parts={n_parts} reverse={reverse} B={B_CHECK} T={T} "
-                  f"H={H}: h, gates and c max_abs_diff {err:.3e} (tol {TRAIN_FWD_TOL:g})")
-            require(all(bool(torch.isfinite(t).all()) for t in got) and err <= TRAIN_FWD_TOL,
-                    f"lstm_fwd_train_gates within {TRAIN_FWD_TOL} of its twin")
+                  f"H={H}: h, gates and c max_abs_diff {err:.3e} (tol {TRAIN_FWD_TOL:g}); "
+                  f"repeat bitwise identical: {same}")
+            require(all(bool(torch.isfinite(t).all()) for t in got) and err <= TRAIN_FWD_TOL
+                    and same, f"lstm_fwd_train_gates within {TRAIN_FWD_TOL} of its twin, "
+                    f"bitwise repeatable")
             gates_err = max(gates_err, err)
             g_up = 0.1 * randn(B_CHECK, T, H)
             dx_add = tuple(randn(B_CHECK, T, H) for _ in range(n_parts)) if reverse else None
@@ -873,6 +943,12 @@ def main() -> int:
                 cases["two lstm_bwd"] = (dx_b, tuple(gr_f), tuple(gr_r))
             torch.cuda.synchronize()
             same = all(torch.equal(a, b) for a, b in zip(flat(got), flat(again)))
+            if not mask_from_x:
+                k3_same = all(torch.equal(a, b)
+                              for a, b in zip(flat(got), flat(cases["two lstm_bwd"])))
+                print(f"lstm_bwd_dualdir parts={n_parts} without dropout: equals two lstm_bwd "
+                      f"launches bit for bit: {k3_same}")
+                require(k3_same, "lstm_bwd_dualdir equals two lstm_bwd launches bit for bit")
             for label, ref in cases.items():
                 err = max(rel_err(a, b) for a, b in zip(flat(got), flat(ref)))
                 print(f"lstm_bwd_dualdir parts={n_parts} mask_from_x={mask_from_x} vs {label}: "
@@ -930,6 +1006,11 @@ def main() -> int:
     work["lstm_fwd_train_gates"] = (nbytes(fargs, (h_g, gates_g, c_g)),
                                     lstm_flops(B_TRAIN, 2 * H, H), "bf16")
     work["lstm_bwd_v2"] = (nbytes(v2_args, lstm_bwd_v2(*v2_args)), bwd_flops, "bf16")
+    gates_err = max(gates_err, hold_at_main_shape(
+        f"lstm_fwd_train_gates B={B_TRAIN} T={T} H={H} parts=2 reverse "
+        f"({kernel_plan('fwd', B_TRAIN, H, 2).rows} rows a cluster): h, gates, c",
+        list(lstm_fwd_train_gates(*fargs)), list(lstm_fwd_train_gates(*fargs)),
+        [h_g, gates_g, c_g], TRAIN_FWD_TOL, relative=False))
     del h_g, gates_g, c_g
     m = median_ms({"plain": lambda: lstm_fwd_train_gates_plain(*fargs),
                    "kernel": lambda: lstm_fwd_train_gates(*fargs)}, rounds=1)
@@ -953,6 +1034,32 @@ def main() -> int:
                (pb["w_ih"], pb["w_hh"]), keep_mid, True)
     work["lstm_bwd_dualdir"] = (nbytes(dd_args, lstm_bwd_dualdir(*dd_args)), 2 * bwd_flops,
                                 "bf16")
+    # kernel 4 on the plan the "dualdir" micro-step launches: against its twin,
+    # and, without dropout, against two kernel 3 launches bit for bit
+    dd_plan = kernel_plan("bwd_dualdir", B_TRAIN, H).rows
+    flat = lambda out: list(out[0]) + list(out[1]) + list(out[2])  # noqa: E731
+    dd_err = max(dd_err, hold_at_main_shape(
+        f"lstm_bwd_dualdir B={B_TRAIN} T={T} H={H} parts=2 mask_from_x ({dd_plan} rows a "
+        f"cluster): dx, dW_ih, dW_hh, db of both directions", flat(lstm_bwd_dualdir(*dd_args)),
+        flat(lstm_bwd_dualdir(*dd_args)), flat(lstm_bwd_dualdir_plain(*dd_args)), BWD_REL_TOL,
+        relative=True))
+    h_f0, res_f0 = lstm_fwd_train_plain(xs2, pf["w_ih"], pf["b"], pf["w_hh"], False)
+    h_r0, res_r0 = lstm_fwd_train_plain(xs2, pb["w_ih"], pb["b"], pb["w_hh"], True)
+    dd0 = (res_f0, h_f0, g2, res_r0, h_r0, g_r, xs2, (pf["w_ih"], pf["w_hh"]),
+           (pb["w_ih"], pb["w_hh"]), 1.0, False)
+    got = flat(lstm_bwd_dualdir(*dd0))
+    dx_f, *gr_f = lstm_bwd(res_f0, h_f0, g2, xs2, pf["w_ih"], pf["w_hh"], False)
+    dx_b, *gr_r = lstm_bwd(res_r0, h_r0, g_r, xs2, pb["w_ih"], pb["w_hh"], True, dx_add=dx_f)
+    dd_err = max(dd_err, hold_at_main_shape(
+        f"lstm_bwd_dualdir B={B_TRAIN} T={T} H={H} parts=2 without dropout ({dd_plan} rows a "
+        f"cluster)", got, flat(lstm_bwd_dualdir(*dd0)), flat(lstm_bwd_dualdir_plain(*dd0)),
+        BWD_REL_TOL, relative=True))
+    k3_same = all(torch.equal(a, b) for a, b in zip(got, flat((dx_b, tuple(gr_f), tuple(gr_r)))))
+    print(f"lstm_bwd_dualdir B={B_TRAIN} without dropout ({dd_plan} rows a cluster) equals two "
+          f"lstm_bwd launches ({kernel_plan('bwd', B_TRAIN, H).rows} rows a cluster) bit for "
+          f"bit: {k3_same}", flush=True)
+    require(k3_same, f"lstm_bwd_dualdir at B={B_TRAIN} equals two lstm_bwd launches bit for bit")
+    del dd0, got, dx_f, dx_b, gr_f, gr_r, h_f0, res_f0, h_r0, res_r0
 
     def two_lstm_bwd():
         dx_f = lstm_bwd(res_f, h_f, g2, xd2, pf["w_ih"], pf["w_hh"], False)[0]

@@ -151,30 +151,4 @@ cudaError_t gemm(LoadA a, LoadB b, Store out, int M, int N, int K, cudaStream_t 
   return cudaGetLastError();
 }
 
-// Column sums of a row-major (rows, cols) float32 matrix in `splits` slices
-// of rows, each slice summed in order, then the slices summed in order.
-static __global__ void colsum_partial_kernel(const float* __restrict__ x,
-                                             float* __restrict__ part, int rows, int cols,
-                                             int rows_per_split) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= cols) return;
-  const int r0 = blockIdx.y * rows_per_split;
-  const int r1 = min(rows, r0 + rows_per_split);
-  float v = 0.f;
-  for (int r = r0; r < r1; ++r) v += x[static_cast<size_t>(r) * cols + j];
-  part[static_cast<size_t>(blockIdx.y) * cols + j] = v;
-}
-
-inline cudaError_t colsum_split(const float* x, float* out, float* part, int rows, int cols,
-                                int splits, cudaStream_t stream) {
-  const int per = (rows + splits - 1) / splits;
-  const dim3 grid((cols + 255) / 256, splits);
-  colsum_partial_kernel<<<grid, 256, 0, stream>>>(x, part, rows, cols, per);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  reduce_splits_kernel<<<(cols + 255) / 256, 256, 0, stream>>>(part, out, splits,
-                                                               static_cast<size_t>(cols));
-  return cudaGetLastError();
-}
-
 }  // namespace eegflow

@@ -1,4 +1,4 @@
-// Fused LSTM layer-direction backward for Hopper (sm_90a).
+// Fused LSTM layer-direction backward for Hopper (sm_90a), kernel 3.
 //
 // Replaces: eegflow/nn/pallas_lstm.py _bwd_fused_kernel (entry
 // lstm_bwd_fused) under the default adjoint-residual contract (_ADJ_RES=1)
@@ -22,86 +22,84 @@
 //   db      = sum over (b, t) of dz (float32)
 // Products take bf16-rounded operands and sum in float32.
 //
-// What bounds it on the card: the adjoint chain is serial in t and needs
-// all of W_hh (512 KB in bf16 at H=256) every step, like the forward; the
-// three products are 2 B T 4H (d0 + d1 + H) multiply-adds (at B=512, T=256,
-// H=256 and two parts: 0.2 TFLOP per launch) whose weight-gradient sums run
-// over B T = 131072 rows.
+// What bounds it on the card: the chain is serial in t and each step needs
+// all of W_hh^T (512 KB bf16 at H = 256) against the dz of every unit; the
+// three products are 2 B T 4H (d0 + d1 + H) multiply-adds, 0.34 TFLOP at
+// B = 512, T = 256, H = 256 with two parts (0.35 ms at the bf16 tensor-core
+// peak), and the bytes in and out are 0.58 ms of HBM. The serial chain's
+// latency is what remains above the bound (lstm_bwd_chain.cuh): on an H100
+// 80GB HBM3 at 700 W the chain takes ~2.5 ms of a ~5 ms launch at B = 512.
 //
 // Design, two stages per launch. (1) The chain of lstm_bwd_chain.cuh (shared
-// with kernel 4): one CTA per 8 batch rows, one thread per hidden unit, the
-// carries in registers, dz to a float32 scratch (B, T, 4H) and, bf16-rounded,
-// to a double-buffered shared tile that feeds the dh_carry product, whose
-// W_hh^T reads are coalesced across the warp (the wrapper passes W_hh^T).
-// (2) The products, on the tiled GEMM of gemm.cuh: dx with its mask and
-// dx_add in the epilogue; dW_ih, dW_hh and db split over B T into partial
-// sums that a second pass adds in a fixed order. No atomics: the result is
-// bitwise repeatable. Tensor cores and fusing the chain with the products
-// are later work.
+// with kernel 4) on thread-block clusters: W_hh^T split over the cluster's
+// CTAs and resident in shared memory, bf16 dz exchanged through distributed
+// shared memory, dh_carry on mma.sync; it writes bf16 dz (B, T, 4H) and
+// per-16-row partials of db. (2) The products on the tensor-core GEMM of
+// mma_gemm.cuh from the bf16 dz: dx with its mask and dx_add in the
+// epilogue; dW_ih and dW_hh split over B T into partial sums that a second
+// pass adds in a fixed order, as are db's partials. No atomics: the result
+// is bitwise repeatable.
 
 #include <stdint.h>
 
 #include "common.cuh"
-#include "gemm.cuh"
 #include "lstm_bwd_chain.cuh"
 
 namespace {
 
-__global__ void __launch_bounds__(kChainMaxThreads)
+using eegflow::ClusterGeom;
+
+template <int kMT, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads, 1)
 lstm_bwd_chain_kernel(const float* __restrict__ res, const float* __restrict__ g,
-                      const __nv_bfloat16* __restrict__ whh_t, float* __restrict__ dz,
-                      int B, int T, int H, int reverse) {
-  chain_direction(res, g, whh_t, dz, B, T, H, reverse);
+                      const uint4* __restrict__ wfrag, __nv_bfloat16* __restrict__ dz16,
+                      float* __restrict__ db_part, int B, int T, int H, int k_res, int reverse) {
+  chain_direction<kMT>(res, g, wfrag, dz16, db_part, B, T, H, k_res, reverse);
 }
 
 }  // namespace
 
-namespace lstm_bwd_ops {
-
-// dx epilogue: the part's dropout mask, then the sibling direction's dx
-struct DxStore {
-  float* dx;
-  const uint8_t* m;
-  const float* add;
-  int D;
-  float inv_keep;
-  __device__ void operator()(int, int bt, int d, float v) const {
-    const size_t i = static_cast<size_t>(bt) * D + d;
-    if (m != nullptr) v = m[i] != 0 ? v * inv_keep : 0.f;
-    if (add != nullptr) v += add[i];
-    dx[i] = v;
-  }
-};
-
-}  // namespace lstm_bwd_ops
-
 using namespace lstm_bwd_ops;
 
+// The chain's shared memory per CTA and the clusters the card holds at once
+// at this geometry.
+extern "C" int eegflow_lstm_bwd_plan(int H, int hc, int rows, int k_res, int* smem,
+                                     int* clusters) {
+  const ClusterGeom geo{H, hc, rows, k_res, 1};
+  *smem = static_cast<int>(geo.smem_bytes());
+  *clusters = 0;
+  cudaError_t err = eegflow::with_tile(geo, [&](auto mt, auto threads) {
+    return eegflow::max_active_clusters(
+        lstm_bwd_chain_kernel<decltype(mt)::value, decltype(threads)::value>, geo, smem,
+        clusters);
+  });
+  return static_cast<int>(err);
+}
+
 // res (B, T, 6H), h, g (B, T, H), x_p (B, T, d_p) float32; m_p (B, T, d_p)
-// uint8 or null; w_p (d_p, 4H) and whh_t (4H, H) bf16; add_p (B, T, d_p) or
-// null. Outputs dx_p (B, T, d_p), dw_ih (d0 + d1, 4H), dw_hh (H, 4H), db (4H)
-// float32. Scratch: dz (B, T, 4H) and part (splits * max(d0, d1, H) * 4H)
-// float32. x1, m1, w1, add1 and dx1 may be null when d1 == 0.
+// uint8 or null; w_p (d_p, 4H) bf16; wfrag W_hh^T bf16 in the fragment order
+// of nn/lstm_plan.py bwd_fragments; add_p (B, T, d_p) or null. Outputs dx_p
+// (B, T, d_p), dw_ih (d0 + d1, 4H), dw_hh (H, 4H), db (4H) float32. Scratch:
+// dz16 (B, T, 4H) bf16, db_part (ceil(B / 16), 4H) and part (splits *
+// max(d0, d1, H) * 4H) float32. (hc, rows, k_res): the cluster plan. x1, m1,
+// w1, add1 and dx1 may be null when d1 == 0.
 extern "C" int eegflow_lstm_bwd(const float* res, const float* h, const float* g,
                                 const float* x0, const float* x1, const uint8_t* m0,
                                 const uint8_t* m1, int d0, int d1, float inv_keep,
                                 const __nv_bfloat16* w0, const __nv_bfloat16* w1,
-                                const __nv_bfloat16* whh_t, const float* add0,
-                                const float* add1, float* dx0, float* dx1, float* dw_ih,
-                                float* dw_hh, float* db, float* dz, float* part,
-                                int splits, int B, int T, int H, int reverse,
+                                const uint4* wfrag, const float* add0, const float* add1,
+                                float* dx0, float* dx1, float* dw_ih, float* dw_hh, float* db,
+                                __nv_bfloat16* dz16, float* db_part, float* part, int splits,
+                                int B, int T, int H, int hc, int rows, int k_res, int reverse,
                                 cudaStream_t stream) {
-  if (H <= 0 || H > kChainMaxThreads || H % 32 != 0 || B <= 0 || T <= 0 || d0 <= 0 ||
-      d1 < 0 || splits <= 0)
+  const ClusterGeom geo{H, hc, rows, k_res, 1};
+  if (!geo.valid() || B <= 0 || T <= 0 || d0 <= 0 || d1 < 0 || splits <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int G = 4 * H;
-  const int BT = B * T;
-  const size_t smem = chain_smem_bytes(H);
-  cudaError_t err = eegflow::allow_dynamic_smem(lstm_bwd_chain_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lstm_bwd_chain_kernel<<<(B + kChainRows - 1) / kChainRows, H, smem, stream>>>(
-      res, g, whh_t, dz, B, T, H, reverse);
-  err = cudaGetLastError();
+  cudaError_t err = eegflow::with_tile(geo, [&](auto mt, auto threads) {
+    return eegflow::launch_cluster(
+        lstm_bwd_chain_kernel<decltype(mt)::value, decltype(threads)::value>, geo,
+        (B + rows - 1) / rows, 1, stream, res, g, wfrag, dz16, db_part, B, T, H, k_res, reverse);
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const float* xs[2] = {x0, x1};
@@ -110,19 +108,9 @@ extern "C" int eegflow_lstm_bwd(const float* res, const float* h, const float* g
   const float* adds[2] = {add0, add1};
   float* dxs[2] = {dx0, dx1};
   const int ds[2] = {d0, d1};
-  size_t row_off = 0;
-  for (int q = 0; q < (d1 > 0 ? 2 : 1); ++q) {
-    err = eegflow::gemm(DzRowsA{dz, G}, WihT{ws[q], G},
-                        DxStore{dxs[q], ms[q], adds[q], ds[q], inv_keep}, BT, ds[q], G,
-                        stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    err = eegflow::gemm_split_k(MaskedXA{xs[q], ms[q], ds[q], inv_keep}, DzB{dz, G},
-                                dw_ih + row_off * G, part, ds[q], G, BT, splits, stream);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    row_off += ds[q];
-  }
-  err = eegflow::gemm_split_k(HPrevA{h, T, H, reverse}, DzB{dz, G}, dw_hh, part, H, G, BT,
-                              splits, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(eegflow::colsum_split(dz, db, part, BT, G, splits, stream));
+  const int BT = B * T;
+  auto dx_store = [&](int qp) { return DxStore{dxs[qp], ms[qp], adds[qp], BT, ds[qp], inv_keep}; };
+  return static_cast<int>(bwd_products(dx_store, h, xs, ms, ds, d1 > 0 ? 2 : 1, inv_keep, ws,
+                                       dz16, db_part, dw_ih, dw_hh, db, part, splits, B, T, H,
+                                       reverse, stream));
 }

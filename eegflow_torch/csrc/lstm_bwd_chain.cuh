@@ -1,172 +1,318 @@
-// The adjoint chain and the product operands shared by the backward kernels
-// that read the six adjoint planes: kernel 3 (lstm_bwd.cu, one direction a
+// The adjoint chain and the products shared by the backward kernels that
+// read the six adjoint planes: kernel 3 (lstm_bwd.cu, one direction a
 // launch) and kernel 4 (lstm_bwd_dualdir.cu, both directions in one launch).
+// With them it replaces the adjoint and the products of
+// eegflow/nn/pallas_lstm.py _bwd_fused_kernel and _bwd_dualdir_kernel.
 //
 // The chain walks against the direction of time (t = T-1..0 for the forward
 // direction, 0..T-1 for the reverse one):
 //   dh = g[t] + dh_carry;   dc = dh E + dc_carry;   dc_carry = dc F
 //   dz = [dc A, dc B, dc C, dh G]                    (float32)
 //   dh_carry = bf16(dz) . bf16(W_hh)^T
-// One CTA per 8 batch rows and direction, one thread per hidden unit, the
-// carries in registers; dz of a step is written to a float32 scratch
-// (B, T, 4H) and, bf16-rounded, to a double-buffered shared tile that feeds
-// the dh_carry product, whose W_hh^T reads are coalesced across the warp.
-// Each kernel's entry function calls chain_direction once per direction.
+// and the products, with h_prev[t] the state before step t and x_p masked
+// as in the forward:
+//   dx_p = bf16(dz) . bf16(W_ih_p)^T (masked, plus the sibling's dx)
+//   dW_ih_p = bf16(x_p)^T . bf16(dz);  dW_hh = bf16(h_prev)^T . bf16(dz)
+//   db = sum over (b, t) of the float32 dz
+//
+// What bounds it on the card: the chain is serial in t and each step needs
+// all of W_hh^T (512 KB bf16 at H = 256, over the 227 KB a block may hold)
+// against the dz of every unit; the products are 0.4 TFLOP a launch at
+// B = 512, T = 256, H = 256 with two parts (0.4 ms on the tensor cores).
+// The chain's time is the latency of its serial step: on an H100 80GB HBM3
+// at 700 W ~10 us at 32 rows a cluster, ~3 us of it the dh_carry product,
+// ~2.5 us the DSMEM exchange of dz, ~1 us each the plane loads and the dz
+// stores (python -m eegflow_torch.kernels.ablate).
+//
+// Design. The chain runs on thread-block clusters (lstm_cluster.cuh): a
+// cluster of H/64 CTAs owns 16, 32 or 48 batch rows and one direction; each
+// CTA owns 64 units and holds W_hh^T[:, its units] (4H x 64 bf16, 128 KB at
+// H = 256) in shared memory for the whole launch. Per step a thread
+// computes dz for all four gates of its (row, unit) pairs from the planes,
+// in registers with the carries; the bf16 dz of the CTA's units goes to
+// every CTA of the cluster through distributed shared memory, then a cluster
+// barrier, and each CTA's 8 warps run dh_carry for its units, bf16(dz)
+// (rows x 4H) . W_hh^T-slice, on mma.sync; each warp's n-tile is its own
+// octet, so the result lands on the threads that own those units. Between
+// the barrier's arrive and wait go the bf16 dz store to HBM and the next
+// step's plane loads. The dz tile has one buffer (two would not fit beside
+// the slice at 32 rows): a second barrier phase, arrived at after the
+// product's reads and waited for before the next step's exchange, keeps a
+// CTA from overwriting a buffer another CTA still reads. db is summed in
+// registers over the steps, then over the 16 rows of each m-tile in a fixed
+// order, into per-16-row partials that a second pass adds in order. The
+// products then run on the tensor-core GEMM of mma_gemm.cuh from the bf16
+// dz: dx with its epilogue, dW_ih and dW_hh split over B T with fixed-order
+// partial sums. No float atomics: a launch repeats bit for bit, and per row
+// and per 16-row tile the result does not depend on the plan, so kernel 4
+// without dropout equals two kernel 3 launches bit for bit.
 #pragma once
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "gemm.cuh"
+#include "lstm_cluster.cuh"
+#include "mma_gemm.cuh"
 
 namespace {
 
-constexpr int kChainRows = 8;          // batch rows per CTA of the chain
-constexpr int kChainMaxThreads = 512;  // H <= 512 (one thread per hidden unit)
-
-// One direction's chain over a CTA's 8 rows, inlined into the kernels'
-// entry functions. The chain is bound by the latency of its W_hh^T loads,
-// and the pointers are __restrict__ so the compiler keeps enough of them in
-// flight: one direction takes 17.2 ms at B=512, T=256, H=256 (H100 80GB
-// HBM3, 700 W, train/profile.py); the same body reading pointers picked
-// from a struct by blockIdx.y took 23.6 ms.
-__device__ __forceinline__ void chain_direction(const float* __restrict__ res,
-                                                const float* __restrict__ g,
-                                                const __nv_bfloat16* __restrict__ whh_t,
-                                                float* __restrict__ dz, int B, int T, int H,
-                                                int reverse) {
-  extern __shared__ float4 smem4[];
-  float* const dzs = reinterpret_cast<float*>(smem4);  // [2][4H][kChainRows]
-  const int G = 4 * H;
-  const int u = threadIdx.x;  // blockDim.x == H
-  const int row0 = blockIdx.x * kChainRows;
-
-  float dh_carry[kChainRows], dc_carry[kChainRows];
+// Four 16-deep k-tiles of a warp's dh_carry product for each m-tile, one in
+// each accumulator chain: A (bf16 dz, 16 rows a m-tile, ld_bytes apart) by
+// ldmatrix from a_addr, B two 16-byte fragment pairs of the warp's octet.
+template <int kMT>
+__device__ __forceinline__ void bwd_kquad(float (&acc)[4][kMT][4], uint32_t a_addr, int ld_bytes,
+                                          uint4 b0, uint4 b1) {
 #pragma unroll
-  for (int r = 0; r < kChainRows; ++r) dh_carry[r] = dc_carry[r] = 0.f;
-
-  int p = 0;
-  for (int s = 0; s < T; ++s) {
-    const int t = reverse ? s : T - 1 - s;
-    float* buf = dzs + p * G * kChainRows;
+  for (int mt = 0; mt < kMT; ++mt) {
+    uint32_t a[4][4];
 #pragma unroll
-    for (int r = 0; r < kChainRows; ++r) {
-      const int row = row0 + r;
-      float zi = 0.f, zf = 0.f, zg = 0.f, zo = 0.f;
-      if (row < B) {
-        const size_t bt = static_cast<size_t>(row) * T + t;
-        const float* rp = res + bt * 6 * H + u;
-        const float dh = g[bt * H + u] + dh_carry[r];
-        const float dc = dh * rp[3 * H] + dc_carry[r];
-        dc_carry[r] = dc * rp[4 * H];
-        zi = dc * rp[0];
-        zf = dc * rp[H];
-        zg = dc * rp[2 * H];
-        zo = dh * rp[5 * H];
-        float* dzp = dz + bt * G + u;
-        dzp[0] = zi;
-        dzp[H] = zf;
-        dzp[2 * H] = zg;
-        dzp[3 * H] = zo;
-      }
-      buf[u * kChainRows + r] = eegflow::bf16_round(zi);
-      buf[(H + u) * kChainRows + r] = eegflow::bf16_round(zf);
-      buf[(2 * H + u) * kChainRows + r] = eegflow::bf16_round(zg);
-      buf[(3 * H + u) * kChainRows + r] = eegflow::bf16_round(zo);
-    }
-    __syncthreads();
-
-    float acc[kChainRows];
-#pragma unroll
-    for (int r = 0; r < kChainRows; ++r) acc[r] = 0.f;
-    const __nv_bfloat16* wj = whh_t + u;
-#pragma unroll 4
-    for (int j = 0; j < G; ++j, wj += H) {
-      const float w = __bfloat162float(*wj);
-      const float4 za = *reinterpret_cast<const float4*>(buf + j * kChainRows);
-      const float4 zb = *reinterpret_cast<const float4*>(buf + j * kChainRows + 4);
-      acc[0] = fmaf(za.x, w, acc[0]);
-      acc[1] = fmaf(za.y, w, acc[1]);
-      acc[2] = fmaf(za.z, w, acc[2]);
-      acc[3] = fmaf(za.w, w, acc[3]);
-      acc[4] = fmaf(zb.x, w, acc[4]);
-      acc[5] = fmaf(zb.y, w, acc[5]);
-      acc[6] = fmaf(zb.z, w, acc[6]);
-      acc[7] = fmaf(zb.w, w, acc[7]);
-    }
-#pragma unroll
-    for (int r = 0; r < kChainRows; ++r) dh_carry[r] = acc[r];
-    p ^= 1;
+    for (int c = 0; c < 4; ++c) eegflow::ldmatrix_x4(a[c], a_addr + mt * 16 * ld_bytes + c * 32);
+    eegflow::mma_bf16(acc[0][mt], a[0], b0.x, b0.y);
+    eegflow::mma_bf16(acc[1][mt], a[1], b0.z, b0.w);
+    eegflow::mma_bf16(acc[2][mt], a[2], b1.x, b1.y);
+    eegflow::mma_bf16(acc[3][mt], a[3], b1.z, b1.w);
   }
 }
 
-// Dynamic shared memory of a chain CTA: the double-buffered bf16(dz) tile.
-inline size_t chain_smem_bytes(int H) {
-  return 2 * static_cast<size_t>(4 * H) * kChainRows * sizeof(float);
+// One direction's chain over a cluster's row tile, inlined into the kernels'
+// entry functions with __restrict__ pointers. Thread (warp w, lane = 4 g + q)
+// of CTA `rank` owns units u0 = 8 (rank * warps + w) + 2 q, u0 + 1 and, in
+// m-tile mt, rows 16 mt + g and 16 mt + g + 8 of the tile.
+//   res (B, T, 6H), g (B, T, H) float32; wfrag W_hh^T in the fragment order
+//   of nn/lstm_plan.py bwd_fragments; dz16 (B, T, 4H) bf16 out; db_part
+//   (ceil(B / 16), 4H) float32 out.
+template <int kMT>
+__device__ __forceinline__ void chain_direction(const float* __restrict__ res,
+                                                const float* __restrict__ gup,
+                                                const uint4* __restrict__ wfrag,
+                                                __nv_bfloat16* __restrict__ dz16,
+                                                float* __restrict__ db_part, int B, int T,
+                                                int H, int k_res, int reverse) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, q = lane & 3;
+  const int hc = H / (8 * warps);
+  const uint32_t rank = eegflow::cluster_rank();
+  const int tile = blockIdx.x / hc;
+  const int row0 = tile * 16 * kMT;
+  const int octet = rank * warps + warp;
+  const int u0 = octet * 8 + 2 * q;
+  const int G = 4 * H;
+  const int KT2 = H / 8, KT2_res = k_res / 32;  // pairs of 16-row k-tiles of K = 4H
+  const int ldz = G + 8;                        // bf16 elements per row of the dz buffer
+  uint4* const wsm = reinterpret_cast<uint4*>(smem);
+  __nv_bfloat16* const dzbuf =
+      reinterpret_cast<__nv_bfloat16*>(smem + static_cast<size_t>(warps) * KT2_res * 512);
+
+  for (int i = threadIdx.x; i < warps * KT2_res * 32; i += blockDim.x) {
+    const int w = i / (KT2_res * 32);
+    wsm[i] = wfrag[(static_cast<size_t>(rank) * warps + w) * KT2 * 32 + (i - w * KT2_res * 32)];
+  }
+
+  // the planes A..G and g of step t for this thread's pairs: [mt][k][2 rh + uu]
+  float pl[kMT][7][4];
+  auto load_planes = [&](int t) {
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int row = row0 + 16 * mt + 8 * rh + g;
+        const size_t bt = static_cast<size_t>(row) * T + t;
+#pragma unroll
+        for (int k = 0; k < 7; ++k) {
+          float2 v = make_float2(0.f, 0.f);
+          if (row < B)
+            v = __ldcs(reinterpret_cast<const float2*>(
+                k < 6 ? res + bt * 6 * H + k * H + u0 : gup + bt * H + u0));
+          pl[mt][k][2 * rh] = v.x;
+          pl[mt][k][2 * rh + 1] = v.y;
+        }
+      }
+  };
+  load_planes(reverse ? 0 : T - 1);
+  eegflow::cluster_arrive();
+  eegflow::cluster_wait();
+
+  float dh_c[kMT][4], dc_c[kMT][4], dbacc[kMT][4][2];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dh_c[mt][e] = dc_c[mt][e] = 0.f;
+#pragma unroll
+    for (int gate = 0; gate < 4; ++gate) dbacc[mt][gate][0] = dbacc[mt][gate][1] = 0.f;
+  }
+  const uint32_t cur = eegflow::smem_addr(dzbuf);
+  const uint32_t a_base = cur + ((lane & 15) * ldz + (lane >> 4) * 8) * 2;
+  for (int s = 0; s < T; ++s) {
+    const int t = reverse ? s : T - 1 - s;
+    uint32_t zp[kMT][4][2];  // bf16 dz pairs: [mt][gate][rh]
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+      float z[4][4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float dh = pl[mt][6][e] + dh_c[mt][e];
+        const float dc = dh * pl[mt][3][e] + dc_c[mt][e];
+        dc_c[mt][e] = dc * pl[mt][4][e];
+        z[0][e] = dc * pl[mt][0][e];
+        z[1][e] = dc * pl[mt][1][e];
+        z[2][e] = dc * pl[mt][2][e];
+        z[3][e] = dh * pl[mt][5][e];
+      }
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate) {
+        dbacc[mt][gate][0] += z[gate][0];
+        dbacc[mt][gate][1] += z[gate][1];
+        dbacc[mt][gate][0] += z[gate][2];
+        dbacc[mt][gate][1] += z[gate][3];
+        zp[mt][gate][0] = eegflow::pack_bf16(z[gate][0], z[gate][1]);
+        zp[mt][gate][1] = eegflow::pack_bf16(z[gate][2], z[gate][3]);
+      }
+    }
+
+    // bf16 dz of this CTA's units to every CTA of the cluster, once every CTA
+    // has read the buffer's previous step (the second phase of that step):
+    // a transpose across each quad gives lane q gate q's 16 bytes of the
+    // octet per row
+    uint4 chunk[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const uint32_t v[4] = {zp[mt][0][rh], zp[mt][1][rh], zp[mt][2][rh], zp[mt][3][rh]};
+        chunk[mt][rh] = eegflow::quad_transpose(v, lane);
+      }
+    if (s > 0) eegflow::cluster_wait();
+    for (int r = 0; r < hc; ++r) {
+      const uint32_t base = eegflow::map_rank(cur, r);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh)
+          eegflow::st_cluster_v4(base + ((16 * mt + 8 * rh + g) * ldz + q * H + octet * 8) * 2,
+                                 chunk[mt][rh]);
+    }
+    eegflow::cluster_arrive();
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int row = row0 + 16 * mt + 8 * rh + g;
+        if (row < B)
+          *reinterpret_cast<uint4*>(dz16 + (static_cast<size_t>(row) * T + t) * G + q * H +
+                                    octet * 8) = chunk[mt][rh];
+      }
+    if (s + 1 < T) load_planes(reverse ? t + 1 : t - 1);
+    eegflow::cluster_wait();
+
+    // dh_carry of this warp's octet: dz (rows x 4H) . W_hh^T[:, octet], in
+    // four accumulator chains over the k-tiles, added in a fixed order
+    float acc[4][kMT][4];
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[c][mt][e] = 0.f;
+    const uint4* ws = wsm + warp * KT2_res * 32 + lane;
+#pragma unroll 2
+    for (int kk = 0; kk < KT2_res; kk += 2)
+      bwd_kquad<kMT>(acc, a_base + kk * 64, ldz * 2, ws[kk * 32], ws[(kk + 1) * 32]);
+    const uint4* wg = wfrag + static_cast<size_t>(octet) * KT2 * 32 + lane;
+#pragma unroll 2
+    for (int kk = KT2_res; kk < KT2; kk += 2)
+      bwd_kquad<kMT>(acc, a_base + kk * 64, ldz * 2, __ldg(wg + kk * 32),
+                     __ldg(wg + (kk + 1) * 32));
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        dh_c[mt][e] = (acc[0][mt][e] + acc[1][mt][e]) + (acc[2][mt][e] + acc[3][mt][e]);
+    eegflow::cluster_arrive();  // this CTA's reads of the buffer are done
+  }
+  eegflow::cluster_wait();
+
+  // db: each m-tile's sums over its 16 rows (the 8 lanes of one q, in a
+  // fixed order), one partial row per 16-row tile of the batch
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt) {
+    const int btile = tile * kMT + mt;
+#pragma unroll
+    for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+      for (int uu = 0; uu < 2; ++uu) {
+        float v = dbacc[mt][gate][uu];
+        v += __shfl_xor_sync(0xffffffffu, v, 4);
+        v += __shfl_xor_sync(0xffffffffu, v, 8);
+        v += __shfl_xor_sync(0xffffffffu, v, 16);
+        if (g == 0 && btile * 16 < B)
+          db_part[static_cast<size_t>(btile) * G + gate * H + u0 + uu] = v;
+      }
+  }
 }
 
 }  // namespace
 
-// Operand loaders of the products (gemm.cuh), in a named namespace so the
-// GEMM template is instantiated on types with linkage.
+// Operands and epilogues of the products (mma_gemm.cuh), in a named namespace
+// so the GEMM template is instantiated on types with linkage.
 namespace lstm_bwd_ops {
 
-// bf16(dz) as the A operand of dx = dz . W_ih_p^T: A(m = b*T + t, k = gate col)
-struct DzRowsA {
-  static constexpr bool kMContiguous = false;
-  const float* dz;
-  int G;
-  __device__ float operator()(int m, int k) const {
-    return eegflow::bf16_round(dz[static_cast<size_t>(m) * G + k]);
-  }
-};
-
-// W_ih_p^T as the B operand of dx: B(k = gate col, n = feature) = W_ih_p[n][k]
-struct WihT {
-  static constexpr bool kNContiguous = false;
-  const __nv_bfloat16* w;
-  int G;
-  __device__ float operator()(int k, int n) const {
-    return __bfloat162float(w[static_cast<size_t>(n) * G + k]);
-  }
-};
-
-// bf16(masked x_p) as the A operand of dW_ih_p = x_p^T . dz: A(m = feature,
-// k = b*T + t); m null takes x_p as it is
-struct MaskedXA {
-  static constexpr bool kMContiguous = true;
-  const float* x;
+// dx epilogue: the part's dropout mask, then the sibling direction's dx
+struct DxStore {
+  float* dx;
   const uint8_t* m;
-  int D;
+  const float* add;
+  int M, D;
   float inv_keep;
-  __device__ float operator()(int d, int bt) const {
-    const size_t i = static_cast<size_t>(bt) * D + d;
-    float v = x[i];
+  __device__ void one(size_t i, float v) const {
     if (m != nullptr) v = m[i] != 0 ? v * inv_keep : 0.f;
-    return eegflow::bf16_round(v);
+    if (add != nullptr) v += add[i];
+    dx[i] = v;
+  }
+  __device__ void operator()(int, int bt, int d, float v0, float v1) const {
+    if (bt >= M) return;
+    const size_t i = static_cast<size_t>(bt) * D + d;
+    if (d < D) one(i, v0);
+    if (d + 1 < D) one(i + 1, v1);
   }
 };
 
-// bf16(h_prev) as the A operand of dW_hh = h_prev^T . dz: A(m = unit, k = b*T + t)
-struct HPrevA {
-  static constexpr bool kMContiguous = true;
-  const float* h;
-  int T, H, reverse;
-  __device__ float operator()(int u, int bt) const {
-    const int b = bt / T;
-    const int tp = (bt - b * T) + (reverse ? 1 : -1);
-    if (tp < 0 || tp >= T) return 0.f;
-    return eegflow::bf16_round(h[(static_cast<size_t>(b) * T + tp) * H + u]);
+// The products of one direction from its bf16 dz (B T, 4H), and db from the
+// chain's per-16-row partials: dx_p with the epilogue `dx_store(q)`, dW_ih
+// (the parts' rows stacked), dW_hh; `part` holds splits * max(d0, d1, H) * 4H
+// floats. m_p null: the part is used as it is.
+template <class DxStoreFor>
+cudaError_t bwd_products(DxStoreFor dx_store, const float* h, const float* const* xs,
+                         const uint8_t* const* ms, const int* ds, int n_parts, float inv_keep,
+                         const __nv_bfloat16* const* ws, const __nv_bfloat16* dz16,
+                         const float* db_part, float* dw_ih, float* dw_hh, float* db,
+                         float* part, int splits, int B, int T, int H, int reverse,
+                         cudaStream_t stream) {
+  const int G = 4 * H;
+  const int BT = B * T;
+  const eegflow::Bf16Cols dz_cols{{dz16, nullptr}, {BT, 0}, G, G};
+  size_t row_off = 0;
+  cudaError_t err;
+  for (int qp = 0; qp < n_parts; ++qp) {
+    err = eegflow::mma_gemm(eegflow::Bf16Rows{dz16, BT, G, G},
+                            eegflow::Bf16Rows{ws[qp], ds[qp], G, G}, dx_store(qp), BT, ds[qp], G,
+                            0, stream);
+    if (err != cudaSuccess) return err;
+    err = eegflow::mma_gemm_split_k(eegflow::MaskedXCols{xs[qp], ms[qp], ds[qp], BT, inv_keep},
+                                    dz_cols, dw_ih + row_off * G, part, ds[qp], G, BT, splits,
+                                    stream);
+    if (err != cudaSuccess) return err;
+    row_off += ds[qp];
   }
-};
-
-// bf16(dz) as the B operand of the weight gradients: B(k = b*T + t, n = gate col)
-struct DzB {
-  static constexpr bool kNContiguous = true;
-  const float* dz;
-  int G;
-  __device__ float operator()(int bt, int n) const {
-    return eegflow::bf16_round(dz[static_cast<size_t>(bt) * G + n]);
-  }
-};
+  err = eegflow::mma_gemm_split_k(eegflow::HPrevCols{h, T, H, BT, reverse}, dz_cols, dw_hh, part,
+                                  H, G, BT, splits, stream);
+  if (err != cudaSuccess) return err;
+  const int tiles = (B + 15) / 16;
+  eegflow::reduce_splits_kernel<<<(G + 255) / 256, 256, 0, stream>>>(db_part, db, tiles,
+                                                                      static_cast<size_t>(G));
+  return cudaGetLastError();
+}
 
 }  // namespace lstm_bwd_ops

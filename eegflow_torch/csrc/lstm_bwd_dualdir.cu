@@ -22,46 +22,46 @@
 //   dW_hh_d = bf16(h_prev_d)^T . bf16(dz_d);   db_d = sum of dz_d (float32)
 // The two directions' dx are added in the kernel, forward then reverse.
 //
-// What bounds it on the card: each direction's chain is kernel 3's, serial in
-// t and bound by latency (all of W_hh, 512 KB bf16 at H=256, from L2 every
-// step). Kernel 3 runs the two chains one launch after the other with
-// B/8 CTAs each (64 of 132 SMs at B=512). Here one chain kernel runs both
-// directions side by side, 2 B/8 CTAs (128 at B=512), so the two chains
-// share the time of one. The products are twice kernel 3's per launch
-// (0.4 TFLOP at B=512, T=256, H=256, two parts) on CUDA cores.
+// What bounds it on the card: each direction's chain is kernel 3's, serial
+// in t; the products are twice kernel 3's per launch (0.7 TFLOP at B = 512,
+// T = 256, H = 256, two parts).
 //
-// Design: kernel 3's chain (chain_direction, lstm_bwd_chain.cuh) on a grid
-// of (B/8, 2), blockIdx.y the direction, each branch calling it with its
-// direction's pointers, dz to a float32 scratch per direction.
-// Then gemm.cuh runs kernel 3's products with its operand loaders: dx of the
-// forward direction with the mask_from_x epilogue below, dx of the reverse
-// direction adding the forward one in its epilogue, the weight gradients
-// split over B T with fixed-order partial sums, db by fixed-order column
-// sums. No atomics: a launch repeats bit for bit, and without dropout it
-// equals two kernel 3 launches (forward, then reverse with dx_add).
+// Design: kernel 3's cluster chain (chain_direction, lstm_bwd_chain.cuh) on
+// a grid of (row tiles x cluster, 2), blockIdx.y the direction, each branch
+// calling it with its direction's pointers; each direction's bf16 dz and db
+// partials to its own scratch. Then kernel 3's tensor-core products
+// (bwd_products): dx of the forward direction with the mask_from_x epilogue
+// below, dx of the reverse direction adding the forward one in its
+// epilogue, the weight gradients split over B T with fixed-order partial
+// sums, db from the per-16-row partials in order. No atomics: a launch
+// repeats bit for bit, and without dropout it equals two kernel 3 launches
+// (forward, then reverse with dx_add) bit for bit.
 
 #include <stdint.h>
 
 #include "common.cuh"
-#include "gemm.cuh"
 #include "lstm_bwd_chain.cuh"
 
 namespace {
 
+using eegflow::ClusterGeom;
+
 struct Dir {
   const float* res;
   const float* g;
-  const __nv_bfloat16* whh_t;
-  float* dz;
+  const uint4* wfrag;
+  __nv_bfloat16* dz16;
+  float* db_part;
 };
 
-// grid (ceil(B / 8), 2): blockIdx.y 0 the forward direction, 1 the reverse
-__global__ void __launch_bounds__(kChainMaxThreads)
-lstm_bwd_dualdir_chain_kernel(Dir fwd, Dir rev, int B, int T, int H) {
+// grid (row tiles x cluster, 2): blockIdx.y 0 the forward direction, 1 the reverse
+template <int kMT, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+lstm_bwd_dualdir_chain_kernel(Dir fwd, Dir rev, int B, int T, int H, int k_res) {
   if (blockIdx.y == 0)
-    chain_direction(fwd.res, fwd.g, fwd.whh_t, fwd.dz, B, T, H, 0);
+    chain_direction<kMT>(fwd.res, fwd.g, fwd.wfrag, fwd.dz16, fwd.db_part, B, T, H, k_res, 0);
   else
-    chain_direction(rev.res, rev.g, rev.whh_t, rev.dz, B, T, H, 1);
+    chain_direction<kMT>(rev.res, rev.g, rev.wfrag, rev.dz16, rev.db_part, B, T, H, k_res, 1);
 }
 
 }  // namespace
@@ -74,14 +74,19 @@ struct DxFromXStore {
   float* dx;
   const float* x;
   const float* add;
-  int D;
+  int M, D;
   int mask_from_x;
   float inv_keep;
-  __device__ void operator()(int, int bt, int d, float v) const {
-    const size_t i = static_cast<size_t>(bt) * D + d;
+  __device__ void one(size_t i, float v) const {
     if (mask_from_x) v = x[i] == 0.f ? 0.f : v * inv_keep;
     if (add != nullptr) v = add[i] + v;
     dx[i] = v;
+  }
+  __device__ void operator()(int, int bt, int d, float v0, float v1) const {
+    if (bt >= M) return;
+    const size_t i = static_cast<size_t>(bt) * D + d;
+    if (d < D) one(i, v0);
+    if (d + 1 < D) one(i + 1, v1);
   }
 };
 
@@ -89,63 +94,72 @@ struct DxFromXStore {
 
 using namespace lstm_bwd_ops;
 
+// The dual-direction chain's shared memory per CTA and the clusters the card
+// holds at once at this geometry.
+extern "C" int eegflow_lstm_bwd_dualdir_plan(int H, int hc, int rows, int k_res, int* smem,
+                                             int* clusters) {
+  const ClusterGeom geo{H, hc, rows, k_res, 1};
+  *smem = static_cast<int>(geo.smem_bytes());
+  *clusters = 0;
+  cudaError_t err = eegflow::with_tile(geo, [&](auto mt, auto threads) {
+    return eegflow::max_active_clusters(
+        lstm_bwd_dualdir_chain_kernel<decltype(mt)::value, decltype(threads)::value>, geo, smem,
+        clusters);
+  });
+  return static_cast<int>(err);
+}
+
 // Per direction (suffix _f forward, _r reverse): res (B, T, 6H), h, g (B, T,
-// H) float32; w0, w1 (d_p, 4H) and whh_t (4H, H) bf16; outputs dw_ih (d0 +
-// d1, 4H), dw_hh (H, 4H), db (4H) float32; scratch dz (B, T, 4H) float32.
-// Shared: x_p (B, T, d_p) float32, outputs dx_p (B, T, d_p) float32 (the two
-// directions' sum), part (splits * max(d0, d1, H) * 4H) float32. x1, the w1
-// and dx1 may be null when d1 == 0. mask_from_x: 1 when x_p carries the
-// select dropout (dropped positions exactly 0) with keep = 1 / inv_keep.
+// H) float32; w0, w1 (d_p, 4H) bf16 and wfrag W_hh^T in the fragment order
+// of nn/lstm_plan.py bwd_fragments; outputs dw_ih (d0 + d1, 4H), dw_hh (H,
+// 4H), db (4H) float32; scratch dz16 (B, T, 4H) bf16 and db_part (ceil(B /
+// 16), 4H) float32. Shared: x_p (B, T, d_p) float32, outputs dx_p (B, T, d_p)
+// float32 (the two directions' sum), part (splits * max(d0, d1, H) * 4H)
+// float32; (hc, rows, k_res) the cluster plan. x1, the w1 and dx1 may be null
+// when d1 == 0. mask_from_x: 1 when x_p carries the select dropout (dropped
+// positions exactly 0) with keep = 1 / inv_keep.
 extern "C" int eegflow_lstm_bwd_dualdir(
     const float* res_f, const float* h_f, const float* g_f, const float* res_r,
     const float* h_r, const float* g_r, const float* x0, const float* x1, int d0, int d1,
     int mask_from_x, float inv_keep, const __nv_bfloat16* w0_f, const __nv_bfloat16* w1_f,
-    const __nv_bfloat16* whh_t_f, const __nv_bfloat16* w0_r, const __nv_bfloat16* w1_r,
-    const __nv_bfloat16* whh_t_r, float* dx0, float* dx1, float* dw_ih_f, float* dw_hh_f,
-    float* db_f, float* dw_ih_r, float* dw_hh_r, float* db_r, float* dz_f, float* dz_r,
-    float* part, int splits, int B, int T, int H, cudaStream_t stream) {
-  if (H <= 0 || H > kChainMaxThreads || H % 32 != 0 || B <= 0 || T <= 0 || d0 <= 0 ||
-      d1 < 0 || splits <= 0)
+    const uint4* wfrag_f, const __nv_bfloat16* w0_r, const __nv_bfloat16* w1_r,
+    const uint4* wfrag_r, float* dx0, float* dx1, float* dw_ih_f, float* dw_hh_f, float* db_f,
+    float* dw_ih_r, float* dw_hh_r, float* db_r, __nv_bfloat16* dz16_f, __nv_bfloat16* dz16_r,
+    float* db_part_f, float* db_part_r, float* part, int splits, int B, int T, int H, int hc,
+    int rows, int k_res, cudaStream_t stream) {
+  const ClusterGeom geo{H, hc, rows, k_res, 1};
+  if (!geo.valid() || B <= 0 || T <= 0 || d0 <= 0 || d1 < 0 || splits <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const int G = 4 * H;
-  const int BT = B * T;
-  const size_t smem = chain_smem_bytes(H);
-  cudaError_t err = eegflow::allow_dynamic_smem(lstm_bwd_dualdir_chain_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kChainRows - 1) / kChainRows, 2);
-  lstm_bwd_dualdir_chain_kernel<<<grid, H, smem, stream>>>(
-      Dir{res_f, g_f, whh_t_f, dz_f}, Dir{res_r, g_r, whh_t_r, dz_r}, B, T, H);
-  err = cudaGetLastError();
+  const Dir fwd{res_f, g_f, wfrag_f, dz16_f, db_part_f};
+  const Dir rev{res_r, g_r, wfrag_r, dz16_r, db_part_r};
+  cudaError_t err = eegflow::with_tile(geo, [&](auto mt, auto threads) {
+    return eegflow::launch_cluster(
+        lstm_bwd_dualdir_chain_kernel<decltype(mt)::value, decltype(threads)::value>, geo,
+        (B + rows - 1) / rows, 2, stream, fwd, rev, B, T, H, k_res);
+  });
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const float* xs[2] = {x0, x1};
+  const uint8_t* no_masks[2] = {nullptr, nullptr};
   const __nv_bfloat16* ws[2][2] = {{w0_f, w1_f}, {w0_r, w1_r}};
-  const float* dzs[2] = {dz_f, dz_r};
+  const __nv_bfloat16* dzs[2] = {dz16_f, dz16_r};
+  const float* db_parts[2] = {db_part_f, db_part_r};
+  const float* hs[2] = {h_f, h_r};
   float* dw_ih[2] = {dw_ih_f, dw_ih_r};
+  float* dw_hh[2] = {dw_hh_f, dw_hh_r};
+  float* dbs[2] = {db_f, db_r};
   float* dxs[2] = {dx0, dx1};
   const int ds[2] = {d0, d1};
+  const int BT = B * T;
   for (int dir = 0; dir < 2; ++dir) {
-    size_t row_off = 0;
-    for (int q = 0; q < (d1 > 0 ? 2 : 1); ++q) {
-      err = eegflow::gemm(DzRowsA{dzs[dir], G}, WihT{ws[dir][q], G},
-                          DxFromXStore{dxs[q], xs[q], dir == 1 ? dxs[q] : nullptr, ds[q],
-                                       mask_from_x, inv_keep},
-                          BT, ds[q], G, stream);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      err = eegflow::gemm_split_k(MaskedXA{xs[q], nullptr, ds[q], 1.f}, DzB{dzs[dir], G},
-                                  dw_ih[dir] + row_off * G, part, ds[q], G, BT, splits,
-                                  stream);
-      if (err != cudaSuccess) return static_cast<int>(err);
-      row_off += ds[q];
-    }
+    auto dx_store = [&](int qp) {
+      return DxFromXStore{dxs[qp], xs[qp], dir == 1 ? dxs[qp] : nullptr, BT, ds[qp],
+                          mask_from_x, inv_keep};
+    };
+    err = bwd_products(dx_store, hs[dir], xs, no_masks, ds, d1 > 0 ? 2 : 1, 1.f, ws[dir],
+                       dzs[dir], db_parts[dir], dw_ih[dir], dw_hh[dir], dbs[dir], part, splits,
+                       B, T, H, dir, stream);
+    if (err != cudaSuccess) return static_cast<int>(err);
   }
-  err = eegflow::gemm_split_k(HPrevA{h_f, T, H, 0}, DzB{dz_f, G}, dw_hh_f, part, H, G, BT,
-                              splits, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = eegflow::gemm_split_k(HPrevA{h_r, T, H, 1}, DzB{dz_r, G}, dw_hh_r, part, H, G, BT,
-                              splits, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  err = eegflow::colsum_split(dz_f, db_f, part, BT, G, splits, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  return static_cast<int>(eegflow::colsum_split(dz_r, db_r, part, BT, G, splits, stream));
+  return static_cast<int>(cudaSuccess);
 }

@@ -1,5 +1,5 @@
-// Fused LSTM layer-direction forward for Hopper (sm_90a): eval mode and
-// two training modes.
+// Fused LSTM layer-direction forward for Hopper (sm_90a), kernel 2: eval mode
+// and two training modes.
 //
 // Replaces: eegflow/nn/pallas_lstm.py _fwd_proj_kernel (entry
 // lstm_fwd_fused_proj). Eval mode (eegflow_lstm_fwd) is need_residuals=False
@@ -24,216 +24,339 @@
 // writes the six float32 adjoint planes of step t into res (B, T, 6H):
 //   [g i(1-i), c_prev f(1-f), i(1-g^2), o(1-tanh^2 c), f, tanh(c) o(1-o)]
 // so the backward (lstm_bwd.cu) needs neither c nor a transcendental.
-// Raw-gate mode writes [i, f, g, o] (B, T, 4H) and c (B, T, H) instead, 5H
-// float32 a row and step against the planes' 6H; its backward recomputes
-// tanh(c) and reads c_prev from c at t-1 (t+1 reverse). Eval mode writes no
-// residuals.
+// Raw-gate mode writes [i, f, g, o] (B, T, 4H) and c (B, T, H) instead; its
+// backward recomputes tanh(c) and reads c_prev from c at t-1 (t+1 reverse).
+// Eval mode writes no residuals.
 //
-// What bounds it on the card: the recurrence is serial in t, and every step
-// needs all of W_ih (D x 4H) and W_hh (H x 4H). At H=256 W_hh alone is 512 KB
-// in bf16 and layers 1-2 add 1 MB of W_ih, above the 227 KB of shared memory
-// a block may hold. This first design therefore re-reads the weights from
-// global memory every step and relies on them staying resident in the 50 MB
-// L2; the time per step is bound by L2 bandwidth and FMA issue, with few
-// warps per SM (one CTA of H threads per 8 batch rows). Training mode adds
-// 6H float32 of residual writes per row and step (0.8 GB per launch at
-// B=512, T=256, H=256), coalesced across the CTA's threads.
+// What bounds it on the card: the recurrence is serial in t. Each step's
+// h . W_hh needs all of W_hh (512 KB bf16 at H = 256, over the 227 KB a block
+// may hold) and the h of every unit; the input projection does not depend
+// on h. At B = 512, T = 256, H = 256 the products are 0.2 TFLOP (0.2 ms on
+// the tensor cores) and training mode writes 0.8 GB of planes (0.24 ms of
+// HBM): the bound is far below one microsecond a step, so the time is the
+// latency of the serial step. On an H100 80GB HBM3 at 700 W a step of the
+// recurrence takes ~5 us at 32 rows a cluster (B = 512), its product, DSMEM
+// exchange, HBM stores and pre-gate loads under 1 us each, the rest the
+// cluster barrier and the gate math (python -m eegflow_torch.kernels.ablate).
 //
-// Design: a CTA owns kRows batch rows and one direction; thread u owns hidden
-// unit u and computes the four gate columns u, H+u, 2H+u, 3H+u for all kRows
-// rows, so the gate math and the residual planes need no exchange between
-// threads and the weight loads are coalesced across the warp. c stays in
-// registers. x_t (masked, then bf16-rounded) and h_{t-1} are staged in shared
-// memory (transposed to [k][row] so one float4 pair feeds the 8 rows),
-// double-buffered so each step needs a single __syncthreads. Rows past B are
-// masked (no padding of the batch). The three modes are one template.
-// Splitting W_hh across a thread-block cluster (distributed shared memory,
-// FlashRNN-style) and wgmma are later work.
+// Design, two stages per launch:
+// (1) The input projection b + sum_p bf16(mask_p(x_p)) . bf16(W_ih_p) for all
+//     B T rows at once on the tensor cores (mma_gemm.cuh): the mask and 1/keep
+//     applied in the A loader before the bf16 rounding, the two parts as two
+//     K segments, the result to a float32 pre-gate scratch (B, T, 4H).
+// (2) The recurrence on thread-block clusters (lstm_cluster.cuh): a cluster
+//     of H/64 CTAs owns 16, 32 or 48 batch rows; each CTA owns 64 units and
+//     holds W_hh[:, their 256 gate columns] (128 KB at H = 256) in shared
+//     memory for the whole launch, in an order where one warp's four mma
+//     n-tiles are the i, f, g, o columns of the same 8 units. Per step its 8 warps run
+//     bf16(h_{t-1}) . W_hh-slice on mma.sync; each thread's accumulators then
+//     hold all four gates of its (row, unit) pairs, so the cell update needs
+//     no exchange and c stays in registers. The bf16 h of the CTA's units
+//     goes to every CTA of the cluster through distributed shared memory
+//     (double-buffered), then one cluster barrier; h, the residual stores and
+//     the next step's pre-gate loads are issued between its arrive and wait.
+//     Rows past B are masked; the batch is not padded. The three modes are
+//     one template. At H = 512 the slice exceeds shared memory: its first
+//     rows stay resident and the rest is read from L2 each step
+//     (nn/lstm_plan.py).
 
 #include <stdint.h>
 
 #include "common.cuh"
+#include "lstm_cluster.cuh"
+#include "mma_gemm.cuh"
 
 namespace {
 
-constexpr int kRows = 8;          // batch rows per CTA
-constexpr int kMaxThreads = 512;  // H <= 512 (one thread per hidden unit)
-
-// acc[g][r] += sum_k xs[k][r] * W[k][g*H + u]  for k in [0, D)
-__device__ __forceinline__ void accumulate(float (&acc)[4][kRows],
-                                           const float* __restrict__ xs,
-                                           const __nv_bfloat16* __restrict__ w,
-                                           int D, int H, int u) {
-  const size_t G = 4 * static_cast<size_t>(H);
-  const __nv_bfloat16* wk = w + u;
-#pragma unroll 4
-  for (int k = 0; k < D; ++k, wk += G) {
-    const float wg[4] = {__bfloat162float(wk[0]), __bfloat162float(wk[H]),
-                         __bfloat162float(wk[2 * H]), __bfloat162float(wk[3 * H])};
-    const float4 xa = *reinterpret_cast<const float4*>(xs + k * kRows);
-    const float4 xb = *reinterpret_cast<const float4*>(xs + k * kRows + 4);
-    const float xv[kRows] = {xa.x, xa.y, xa.z, xa.w, xb.x, xb.y, xb.z, xb.w};
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[g][r] = fmaf(xv[r], wg[g], acc[g][r]);
-    }
-  }
-}
-
-// One input element, with the inverted-dropout keep-mask applied when the
-// part has one (the reference's _masked: where(m != 0, x * inv_keep, 0)).
-__device__ __forceinline__ float load_input(const float* __restrict__ x,
-                                            const uint8_t* __restrict__ m, size_t i,
-                                            float inv_keep) {
-  const float v = x[i];
-  if (m == nullptr) return v;
-  return m[i] != 0 ? v * inv_keep : 0.f;
-}
+using eegflow::ClusterGeom;
 
 // What a launch writes besides h.
 enum Mode { kEval = 0, kPlanes = 1, kGates = 2 };
 
-template <int kMode>
-__global__ void __launch_bounds__(kMaxThreads)
-lstm_fwd_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
-                const uint8_t* __restrict__ m0, const uint8_t* __restrict__ m1,
-                int d0, int d1, float inv_keep, const __nv_bfloat16* __restrict__ w0,
-                const __nv_bfloat16* __restrict__ w1, const float* __restrict__ bias,
-                const __nv_bfloat16* __restrict__ whh, float* __restrict__ h_out,
-                float* __restrict__ res_out, float* __restrict__ c_out, int B, int T,
-                int H, int reverse) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int D = d0 + d1;
-  // layout: x_t buffers [2][D][kRows], then h buffers [2][H][kRows]
-  float* const xbase = smem;
-  float* const hbase = smem + 2 * D * kRows;
+// b + the projection's sum, to the pre-gate scratch (M = B T rows of 4H)
+struct PreStore {
+  float* pre;
+  const float* bias;
+  int M, N;
+  __device__ void operator()(int, int m, int n, float v0, float v1) const {
+    if (m >= M || n >= N) return;
+    *reinterpret_cast<float2*>(pre + static_cast<size_t>(m) * N + n) =
+        make_float2(bias[n] + v0, bias[n + 1] + v1);
+  }
+};
 
-  const int u = threadIdx.x;  // blockDim.x == H
-  const int nthreads = blockDim.x;
-  const int row0 = blockIdx.x * kRows;
-
-  for (int i = u; i < H * kRows; i += nthreads) hbase[i] = 0.f;
-  float c[kRows];
+// One 16-deep k-tile of a warp's product for each m-tile: A (h, 16 rows a
+// m-tile, ld_bytes apart) by ldmatrix at a_addr, B the k-tile's fragments of
+// the i, f (b01) and g, o (b23) columns of the warp's octet.
+template <int kMT>
+__device__ __forceinline__ void fwd_ktile(float (&acc)[kMT][4][4], uint32_t a_addr, int ld_bytes,
+                                          uint4 b01, uint4 b23) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) c[r] = 0.f;
-  const float b_i = bias[u], b_f = bias[H + u], b_g = bias[2 * H + u],
-              b_o = bias[3 * H + u];
+  for (int mt = 0; mt < kMT; ++mt) {
+    uint32_t a[4];
+    eegflow::ldmatrix_x4(a, a_addr + mt * 16 * ld_bytes);
+    eegflow::mma_bf16(acc[mt][0], a, b01.x, b01.y);
+    eegflow::mma_bf16(acc[mt][1], a, b01.z, b01.w);
+    eegflow::mma_bf16(acc[mt][2], a, b23.x, b23.y);
+    eegflow::mma_bf16(acc[mt][3], a, b23.z, b23.w);
+  }
+}
 
+// Stage 2. Thread (warp w, lane = 4 g + q) of cluster CTA `rank` owns the
+// units u0 = 8 (rank * warps + w) + 2 q and u0 + 1 and, in m-tile mt, the rows
+// 16 mt + g and 16 mt + g + 8 of the cluster's tile.
+template <int kMode, int kMT, int kMaxThreads>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+lstm_fwd_rec_kernel(const float* __restrict__ pre, const uint4* __restrict__ wfrag,
+                    float* __restrict__ h_out, float* __restrict__ res_out,
+                    float* __restrict__ c_out, int B, int T, int H, int k_res, int reverse) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int warps = blockDim.x / 32;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g = lane >> 2, q = lane & 3;
+  const int hc = H / (8 * warps);
+  const uint32_t rank = eegflow::cluster_rank();
+  const int row0 = (blockIdx.x / hc) * 16 * kMT;
+  const int octet = rank * warps + warp;
+  const int u0 = octet * 8 + 2 * q;
+  const int G = 4 * H;
+  const int KT = H / 16, KT_res = k_res / 16;
+  const int ldh = H + 8;  // bf16 elements per row of an h buffer
+  const int buf_elems = 16 * kMT * ldh;
+  uint4* const wsm = reinterpret_cast<uint4*>(smem);
+  __nv_bfloat16* const hbuf =
+      reinterpret_cast<__nv_bfloat16*>(smem + static_cast<size_t>(warps) * KT_res * 1024);
+
+  // the resident part of this CTA's slice: per octet, its first KT_res k-tiles
+  for (int i = threadIdx.x; i < warps * KT_res * 64; i += blockDim.x) {
+    const int w = i / (KT_res * 64);
+    wsm[i] = wfrag[(static_cast<size_t>(rank) * warps + w) * KT * 64 + (i - w * KT_res * 64)];
+  }
+  for (int i = threadIdx.x; i < buf_elems; i += blockDim.x) hbuf[i] = __float2bfloat16(0.f);
+
+  float c[kMT][4], pre_r[kMT][4][4];
+#pragma unroll
+  for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c[mt][e] = 0.f;
+
+  // pre-gates of step t for this thread's (row, unit) pairs: [mt][gate][2 rh + uu]
+  auto load_pre = [&](int t) {
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int row = row0 + 16 * mt + 8 * rh + g;
+        const float* p = pre + (static_cast<size_t>(row) * T + t) * G + u0;
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) {
+          float2 v = make_float2(0.f, 0.f);
+          if (row < B) v = __ldcs(reinterpret_cast<const float2*>(p + gate * H));
+          pre_r[mt][gate][2 * rh] = v.x;
+          pre_r[mt][gate][2 * rh + 1] = v.y;
+        }
+      }
+  };
+  load_pre(reverse ? T - 1 : 0);
+  eegflow::cluster_arrive();
+  eegflow::cluster_wait();
+
+  const uint32_t a_lane = ((lane & 15) * ldh + (lane >> 4) * 8) * 2;
   int p = 0;
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? T - 1 - s : s;
-    // stage x_t: consecutive threads read consecutive features of one row
-    float* xs = xbase + p * D * kRows;
-    const float* h_prev = hbase + p * H * kRows;
-    float* h_next = hbase + (p ^ 1) * H * kRows;
-    for (int i = u; i < D * kRows; i += nthreads) {
-      const int r = i / D;
-      const int k = i - r * D;
-      const int row = row0 + r;
-      float v = 0.f;
-      if (row < B) {
-        const size_t bt = static_cast<size_t>(row) * T + t;
-        v = (k < d0) ? load_input(x0, m0, bt * d0 + k, inv_keep)
-                     : load_input(x1, m1, bt * d1 + (k - d0), inv_keep);
-      }
-      xs[k * kRows + r] = eegflow::bf16_round(v);
+    // h_{t-1} . W_hh-slice: even and odd k-tiles in two accumulator sets
+    // (eight independent mma chains a warp), the resident k-tiles from
+    // shared memory, the rest from L2, then the two sets added
+    float acc[kMT][4][4], acc_odd[kMT][4][4];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][gate][e] = acc_odd[mt][gate][e] = 0.f;
+    const uint32_t a_base = eegflow::smem_addr(hbuf + p * buf_elems) + a_lane;
+    const uint4* ws = wsm + warp * KT_res * 64 + lane;
+#pragma unroll 2
+    for (int kt = 0; kt < KT_res; kt += 2) {
+      const uint4* w = ws + kt * 64;
+      fwd_ktile(acc, a_base + kt * 32, ldh * 2, w[0], w[32]);
+      fwd_ktile(acc_odd, a_base + kt * 32 + 32, ldh * 2, w[64], w[96]);
     }
-    __syncthreads();
-
-    float acc[4][kRows];
-#pragma unroll
-    for (int g = 0; g < 4; ++g) {
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) acc[g][r] = 0.f;
+    const uint4* wg = wfrag + static_cast<size_t>(octet) * KT * 64 + lane;
+#pragma unroll 2
+    for (int kt = KT_res; kt < KT; kt += 2) {
+      const uint4* w = wg + kt * 64;
+      fwd_ktile(acc, a_base + kt * 32, ldh * 2, __ldg(w), __ldg(w + 32));
+      fwd_ktile(acc_odd, a_base + kt * 32 + 32, ldh * 2, __ldg(w + 64), __ldg(w + 96));
     }
-    accumulate(acc, xs, w0, d0, H, u);
-    if (d1 > 0) accumulate(acc, xs + d0 * kRows, w1, d1, H, u);
-    accumulate(acc, h_prev, whh, H, H, u);
-
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const float ig = eegflow::sigmoid_tanh(acc[0][r] + b_i);
-      const float fg = eegflow::sigmoid_tanh(acc[1][r] + b_f);
-      const float gg = tanhf(acc[2][r] + b_g);
-      const float og = eegflow::sigmoid_tanh(acc[3][r] + b_o);
-      const float c_prev = c[r];
-      c[r] = fg * c_prev + ig * gg;
-      const float tc = tanhf(c[r]);
-      const float h = og * tc;
-      h_next[u * kRows + r] = eegflow::bf16_round(h);
-      const int row = row0 + r;
-      if (row < B) {
-        const size_t bt = static_cast<size_t>(row) * T + t;
-        h_out[bt * H + u] = h;
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[mt][gate][e] += acc_odd[mt][gate][e];
+
+    // the cell update; res_v holds what the stores after the arrive write
+    float hv[kMT][4];
+    float res_v[kMT][kMode == kPlanes ? 6 : (kMode == kGates ? 5 : 1)][4];
+    uint32_t packed[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float ig = eegflow::sigmoid_tanh(pre_r[mt][0][e] + acc[mt][0][e]);
+        const float fg = eegflow::sigmoid_tanh(pre_r[mt][1][e] + acc[mt][1][e]);
+        const float gg = tanhf(pre_r[mt][2][e] + acc[mt][2][e]);
+        const float og = eegflow::sigmoid_tanh(pre_r[mt][3][e] + acc[mt][3][e]);
+        const float c_prev = c[mt][e];
+        c[mt][e] = fg * c_prev + ig * gg;
+        const float tc = tanhf(c[mt][e]);
+        hv[mt][e] = og * tc;
         if (kMode == kPlanes) {
-          float* z = res_out + bt * 6 * H + u;
-          z[0] = gg * (ig * (1.f - ig));
-          z[H] = c_prev * (fg * (1.f - fg));
-          z[2 * H] = ig * (1.f - gg * gg);
-          z[3 * H] = og * (1.f - tc * tc);
-          z[4 * H] = fg;
-          z[5 * H] = tc * (og * (1.f - og));
+          res_v[mt][0][e] = gg * (ig * (1.f - ig));
+          res_v[mt][1][e] = c_prev * (fg * (1.f - fg));
+          res_v[mt][2][e] = ig * (1.f - gg * gg);
+          res_v[mt][3][e] = og * (1.f - tc * tc);
+          res_v[mt][4][e] = fg;
+          res_v[mt][5][e] = tc * (og * (1.f - og));
         } else if (kMode == kGates) {
-          float* z = res_out + bt * 4 * H + u;
-          z[0] = ig;
-          z[H] = fg;
-          z[2 * H] = gg;
-          z[3 * H] = og;
-          c_out[bt * H + u] = c[r];
+          res_v[mt][0][e] = ig;
+          res_v[mt][1][e] = fg;
+          res_v[mt][2][e] = gg;
+          res_v[mt][3][e] = og;
+          res_v[mt][4][e] = c[mt][e];
         }
       }
+      packed[mt][0] = eegflow::pack_bf16(hv[mt][0], hv[mt][1]);
+      packed[mt][1] = eegflow::pack_bf16(hv[mt][2], hv[mt][3]);
     }
+
+    // bf16 h of this CTA's units to every CTA of the cluster: each quad
+    // gathers its octet's 16 bytes per row, and lane q stores them to the
+    // ranks q, q + 4
+    uint4 chunk[kMT][2];
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) chunk[mt][rh] = eegflow::quad_gather(packed[mt][rh], lane);
+    const uint32_t next = eegflow::smem_addr(hbuf + (p ^ 1) * buf_elems);
+    for (int r = q; r < hc; r += 4) {
+      const uint32_t base = eegflow::map_rank(next, r);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh)
+          eegflow::st_cluster_v4(base + ((16 * mt + 8 * rh + g) * ldh + octet * 8) * 2,
+                                 chunk[mt][rh]);
+    }
+    eegflow::cluster_arrive();
+
+#pragma unroll
+    for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh) {
+        const int row = row0 + 16 * mt + 8 * rh + g;
+        if (row >= B) continue;
+        const size_t bt = static_cast<size_t>(row) * T + t;
+        const int e = 2 * rh;
+        *reinterpret_cast<float2*>(h_out + bt * H + u0) = make_float2(hv[mt][e], hv[mt][e + 1]);
+        if (kMode == kPlanes) {
+          float* z = res_out + bt * 6 * H + u0;
+#pragma unroll
+          for (int k = 0; k < 6; ++k)
+            __stcs(reinterpret_cast<float2*>(z + k * H),
+                   make_float2(res_v[mt][k][e], res_v[mt][k][e + 1]));
+        } else if (kMode == kGates) {
+          float* z = res_out + bt * 4 * H + u0;
+#pragma unroll
+          for (int k = 0; k < 4; ++k)
+            __stcs(reinterpret_cast<float2*>(z + k * H),
+                   make_float2(res_v[mt][k][e], res_v[mt][k][e + 1]));
+          __stcs(reinterpret_cast<float2*>(c_out + bt * H + u0),
+                 make_float2(res_v[mt][4][e], res_v[mt][4][e + 1]));
+        }
+      }
+    if (s + 1 < T) load_pre(reverse ? t - 1 : t + 1);
+    eegflow::cluster_wait();
     p ^= 1;
   }
 }
 
 template <int kMode>
-int launch(const float* x0, const float* x1, const uint8_t* m0, const uint8_t* m1,
-           int d0, int d1, float inv_keep, const __nv_bfloat16* w0,
-           const __nv_bfloat16* w1, const float* bias, const __nv_bfloat16* whh,
-           float* h_out, float* res_out, float* c_out, int B, int T, int H, int reverse,
+int launch(const float* x0, const float* x1, const uint8_t* m0, const uint8_t* m1, int d0,
+           int d1, float inv_keep, const __nv_bfloat16* w0, const __nv_bfloat16* w1,
+           const float* bias, const uint4* wfrag, float* pre, float* h_out, float* res_out,
+           float* c_out, int B, int T, int H, int hc, int rows, int k_res, int reverse,
            cudaStream_t stream) {
-  if (H <= 0 || H > kMaxThreads || H % 32 != 0 || B <= 0 || T <= 0 || d0 <= 0 ||
-      d1 < 0 || (kMode != kEval && res_out == nullptr) ||
-      (kMode == kGates && c_out == nullptr))
+  const ClusterGeom geo{H, hc, rows, k_res, 0};
+  if (!geo.valid() || B <= 0 || T <= 0 || d0 <= 0 || d1 < 0 ||
+      (kMode != kEval && res_out == nullptr) || (kMode == kGates && c_out == nullptr))
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = 2 * static_cast<size_t>(d0 + d1 + H) * kRows * sizeof(float);
-  cudaError_t err = eegflow::allow_dynamic_smem(lstm_fwd_kernel<kMode>, smem);
+  const int G = 4 * H;
+  const int BT = B * T;
+  cudaError_t err = eegflow::mma_gemm(
+      eegflow::MaskedXRows{{x0, x1}, {m0, m1}, {d0, d1}, BT, inv_keep},
+      eegflow::Bf16Cols{{w0, w1}, {d0, d1}, G, G}, PreStore{pre, bias, BT, G}, BT, G, d0, d1,
+      stream);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((B + kRows - 1) / kRows);
-  lstm_fwd_kernel<kMode><<<grid, H, smem, stream>>>(x0, x1, m0, m1, d0, d1, inv_keep, w0,
-                                                    w1, bias, whh, h_out, res_out, c_out,
-                                                    B, T, H, reverse);
-  return static_cast<int>(cudaGetLastError());
+  err = eegflow::with_tile(geo, [&](auto mt, auto threads) {
+    return eegflow::launch_cluster(
+        lstm_fwd_rec_kernel<kMode, decltype(mt)::value, decltype(threads)::value>, geo,
+        (B + rows - 1) / rows, 1, stream, pre, wfrag, h_out, res_out, c_out, B, T, H, k_res,
+        reverse);
+  });
+  return static_cast<int>(err);
+}
+
+template <int kMode>
+cudaError_t plan_query(int H, int hc, int rows, int k_res, int* smem, int* clusters) {
+  const ClusterGeom geo{H, hc, rows, k_res, 0};
+  *smem = static_cast<int>(geo.smem_bytes());
+  *clusters = 0;
+  return eegflow::with_tile(geo, [&](auto mt, auto threads) {
+    return eegflow::max_active_clusters(
+        lstm_fwd_rec_kernel<kMode, decltype(mt)::value, decltype(threads)::value>, geo, smem,
+        clusters);
+  });
 }
 
 }  // namespace
 
+// The recurrence's shared memory per CTA and the clusters the card holds at
+// once for mode (0 eval, 1 planes, 2 raw gates) at this geometry.
+extern "C" int eegflow_lstm_fwd_plan(int mode, int H, int hc, int rows, int k_res, int* smem,
+                                     int* clusters) {
+  cudaError_t err = mode == kEval     ? plan_query<kEval>(H, hc, rows, k_res, smem, clusters)
+                    : mode == kPlanes ? plan_query<kPlanes>(H, hc, rows, k_res, smem, clusters)
+                                      : plan_query<kGates>(H, hc, rows, k_res, smem, clusters);
+  return static_cast<int>(err);
+}
+
 // Eval mode. h_out (B, T, H) float32; x_p (B, T, d_p) float32; w_p (d_p, 4H)
-// bf16; bias (4H,) float32; whh (H, 4H) bf16. x1/w1 may be null when d1 == 0.
+// bf16; bias (4H,) float32; wfrag W_hh (H, 4H) bf16 in the fragment order of
+// nn/lstm_plan.py fwd_fragments; pre (B, T, 4H) float32 scratch; (hc, rows,
+// k_res) the cluster plan. x1/w1 may be null when d1 == 0.
 extern "C" int eegflow_lstm_fwd(const float* x0, const float* x1, int d0, int d1,
                                 const __nv_bfloat16* w0, const __nv_bfloat16* w1,
-                                const float* bias, const __nv_bfloat16* whh,
-                                float* h_out, int B, int T, int H, int reverse,
+                                const float* bias, const uint4* wfrag, float* pre, float* h_out,
+                                int B, int T, int H, int hc, int rows, int k_res, int reverse,
                                 cudaStream_t stream) {
-  return launch<kEval>(x0, x1, nullptr, nullptr, d0, d1, 1.f, w0, w1, bias, whh, h_out,
-                       nullptr, nullptr, B, T, H, reverse, stream);
+  return launch<kEval>(x0, x1, nullptr, nullptr, d0, d1, 1.f, w0, w1, bias, wfrag, pre, h_out,
+                       nullptr, nullptr, B, T, H, hc, rows, k_res, reverse, stream);
 }
 
 // Training mode: as eval mode, plus uint8 keep-masks m_p (B, T, d_p) (null:
 // no dropout on that part; 0 = dropped) scaled by inv_keep, and the adjoint
 // planes res_out (B, T, 6H) float32.
-extern "C" int eegflow_lstm_fwd_train(const float* x0, const float* x1,
-                                      const uint8_t* m0, const uint8_t* m1, int d0,
-                                      int d1, float inv_keep, const __nv_bfloat16* w0,
-                                      const __nv_bfloat16* w1, const float* bias,
-                                      const __nv_bfloat16* whh, float* h_out,
-                                      float* res_out, int B, int T, int H, int reverse,
-                                      cudaStream_t stream) {
-  return launch<kPlanes>(x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, bias, whh, h_out,
-                         res_out, nullptr, B, T, H, reverse, stream);
+extern "C" int eegflow_lstm_fwd_train(const float* x0, const float* x1, const uint8_t* m0,
+                                      const uint8_t* m1, int d0, int d1, float inv_keep,
+                                      const __nv_bfloat16* w0, const __nv_bfloat16* w1,
+                                      const float* bias, const uint4* wfrag, float* pre,
+                                      float* h_out, float* res_out, int B, int T, int H, int hc,
+                                      int rows, int k_res, int reverse, cudaStream_t stream) {
+  return launch<kPlanes>(x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, bias, wfrag, pre, h_out,
+                         res_out, nullptr, B, T, H, hc, rows, k_res, reverse, stream);
 }
 
 // Raw-gate training mode: as training mode, but the residuals are the
@@ -241,12 +364,12 @@ extern "C" int eegflow_lstm_fwd_train(const float* x0, const float* x1,
 // c_out (B, T, H), float32.
 extern "C" int eegflow_lstm_fwd_train_gates(const float* x0, const float* x1,
                                             const uint8_t* m0, const uint8_t* m1, int d0,
-                                            int d1, float inv_keep,
-                                            const __nv_bfloat16* w0,
+                                            int d1, float inv_keep, const __nv_bfloat16* w0,
                                             const __nv_bfloat16* w1, const float* bias,
-                                            const __nv_bfloat16* whh, float* h_out,
+                                            const uint4* wfrag, float* pre, float* h_out,
                                             float* gates_out, float* c_out, int B, int T,
-                                            int H, int reverse, cudaStream_t stream) {
-  return launch<kGates>(x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, bias, whh, h_out,
-                        gates_out, c_out, B, T, H, reverse, stream);
+                                            int H, int hc, int rows, int k_res, int reverse,
+                                            cudaStream_t stream) {
+  return launch<kGates>(x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, bias, wfrag, pre, h_out,
+                        gates_out, c_out, B, T, H, hc, rows, k_res, reverse, stream);
 }

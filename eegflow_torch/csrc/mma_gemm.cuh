@@ -1,0 +1,470 @@
+// A bf16 tensor-core GEMM for the LSTM kernels' big products (kernel 2's
+// input projection, kernel 3's and 4's dx and weight gradients), and the
+// mma.sync / ldmatrix / cp.async primitives the recurrent kernels share.
+//
+//   C[m][n] = sum over the K segments s of sum_k A_s(m, k) B_s(k, n)
+//
+// with bf16 operands and float32 accumulation (mma.sync.m16n8k16). A and B
+// are operand functors that fill 8-element chunks of a shared-memory tile
+// along their contiguous dimension, in one of two ways. An operand that
+// already is bf16 in memory (kAsync) copies them with cp.async. One that
+// needs a mask, a 1/keep scale, a shift by one step or bf16 rounding of a
+// float32 value (the operand rules of the reference's products) loads its
+// float32 chunks into registers (load) before the CTA computes the current
+// tile, and converts and stores them (store) after it, so those loads are in
+// flight while the tensor cores work. Each operand says whether its
+// contiguous dimension is K (kKMajor) or M / N; the tile is stored that way
+// and read by ldmatrix, transposed where it is not K-major. A problem has one
+// or two K segments (two input parts read through two pointers, never
+// concatenated). The store functor takes (split, m, n, v(m, n), v(m, n + 1))
+// for even n.
+//
+// Design: 128 x 128 tiles of C per CTA, 32-deep slices of K in a ring of 4
+// shared-memory stages (three in flight while one is used, one barrier a
+// slice); 8 warps of 64 x 32, each 4 x 4 mma tiles per 16 of K.
+// Split-K writes per-split partial sums that gemm.cuh's reduce_splits_kernel
+// adds in order of the split: no float atomics, so a result repeats bit for
+// bit. wgmma and TMA are later work: mma.sync at half the card's bf16 rate
+// already takes these products well below the serial chains.
+#pragma once
+
+#include <stdint.h>
+
+#include "common.cuh"
+#include "gemm.cuh"
+
+namespace eegflow {
+
+// ---- PTX primitives ---------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// four 8x8 b16 matrices; lane i gives the address of row i % 8 of matrix i / 8
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// d += a . b for one 16 x 8 x 16 tile, bf16 operands, float32 accumulators
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 16 bytes global -> shared; zero-filled when !valid (src is then not read)
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int kPending>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(kPending) : "memory");
+}
+
+__device__ __forceinline__ void st_shared_v4(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y),
+               "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// two floats rounded to bf16 (nearest even), lo in the low half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint4 pack_bf16x8(const float (&v)[8]) {
+  return make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                    pack_bf16(v[6], v[7]));
+}
+
+// 8 consecutive floats at p (16-byte aligned)
+__device__ __forceinline__ void load_f32x8(float (&v)[8], const float* p) {
+  const float4 a = *reinterpret_cast<const float4*>(p);
+  const float4 b = *reinterpret_cast<const float4*>(p + 4);
+  v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
+  v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// ---- the GEMM ----------------------------------------------------------------
+
+constexpr int kMmaBM = 128;
+constexpr int kMmaBN = 128;
+constexpr int kMmaBK = 32;
+constexpr int kMmaThreads = 256;
+constexpr int kMmaStages = 4;
+
+// A shared-memory operand tile of kRows (M or N) by kMmaBK, bf16: [kRows][BK+8]
+// when K-major, else [BK][kRows+8]; the padding keeps ldmatrix conflict-free.
+template <bool kKMajor, int kRows>
+struct MmaTile {
+  static constexpr int kStride = kKMajor ? kMmaBK + 8 : kRows + 8;
+  static constexpr int kElems = kKMajor ? kRows * kStride : kMmaBK * kStride;
+  static constexpr int kChunks = kRows * kMmaBK / 8;
+  // chunk c: its first element (r, k), 8 elements along the contiguous dim
+  __device__ static void chunk(int c, int& r, int& k) {
+    if (kKMajor) {
+      r = c / (kMmaBK / 8);
+      k = (c % (kMmaBK / 8)) * 8;
+    } else {
+      k = c / (kRows / 8);
+      r = (c % (kRows / 8)) * 8;
+    }
+  }
+  __device__ static int off(int r, int k) { return kKMajor ? r * kStride + k : k * kStride + r; }
+};
+
+// The chunks of one operand tile this thread copies: issue starts them
+// (cp.async, or loads to registers), finish converts and stores the
+// register-staged ones.
+template <class Op, class Tile>
+struct MmaStager {
+  static constexpr int kPer = Tile::kChunks / kMmaThreads;
+  typename Op::Raw raw[Op::kAsync ? 1 : kPer];
+  __device__ __forceinline__ void issue(const Op& op, int seg, int r0, int kb, int tid,
+                                        __nv_bfloat16* tile) {
+#pragma unroll
+    for (int i = 0; i < kPer; ++i) {
+      int r, k;
+      Tile::chunk(tid + i * kMmaThreads, r, k);
+      if constexpr (Op::kAsync)
+        op.fill(seg, r0 + r, kb + k, smem_addr(tile + Tile::off(r, k)));
+      else
+        raw[i] = op.load(seg, r0 + r, kb + k);
+    }
+  }
+  __device__ __forceinline__ void finish(const Op& op, int tid, __nv_bfloat16* tile) {
+    if constexpr (!Op::kAsync) {
+#pragma unroll
+      for (int i = 0; i < kPer; ++i) {
+        int r, k;
+        Tile::chunk(tid + i * kMmaThreads, r, k);
+        op.store(raw[i], smem_addr(tile + Tile::off(r, k)));
+      }
+    }
+  }
+};
+
+template <class LoadA, class LoadB>
+constexpr size_t mma_gemm_smem() {
+  return kMmaStages * (MmaTile<LoadA::kKMajor, kMmaBM>::kElems +
+                       MmaTile<LoadB::kKMajor, kMmaBN>::kElems) *
+         sizeof(__nv_bfloat16);
+}
+
+template <class LoadA, class LoadB, class Store>
+__global__ void __launch_bounds__(kMmaThreads, 2)
+mma_gemm_kernel(LoadA a, LoadB b, Store out, int M, int N, int k_seg0, int k_seg1,
+                int tiles_per_split) {
+  using TA = MmaTile<LoadA::kKMajor, kMmaBM>;
+  using TB = MmaTile<LoadB::kKMajor, kMmaBN>;
+  extern __shared__ __align__(16) uint8_t mma_smem[];
+  __nv_bfloat16* const As = reinterpret_cast<__nv_bfloat16*>(mma_smem);
+  __nv_bfloat16* const Bs = As + kMmaStages * TA::kElems;
+  const int tid = threadIdx.x;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
+  const int m0 = blockIdx.y * kMmaBM, n0 = blockIdx.x * kMmaBN;
+  const int tiles0 = (k_seg0 + kMmaBK - 1) / kMmaBK;
+  const int tiles = tiles0 + (k_seg1 + kMmaBK - 1) / kMmaBK;
+  const int t_begin = blockIdx.z * tiles_per_split;
+  const int n_tiles = min(tiles, t_begin + tiles_per_split) - t_begin;
+
+  MmaStager<LoadA, TA> sa;
+  MmaStager<LoadB, TB> sb;
+  // start the copies of the split's i-th tile into its stage: cp.async, or
+  // loads to registers
+  auto issue = [&](int i) {
+    const int tile = t_begin + i;
+    const int seg = tile < tiles0 ? 0 : 1;
+    const int kb = (seg == 0 ? tile : tile - tiles0) * kMmaBK;
+    const int stage = i % kMmaStages;
+    sa.issue(a, seg, m0, kb, tid, As + stage * TA::kElems);
+    sb.issue(b, seg, n0, kb, tid, Bs + stage * TB::kElems);
+  };
+  // convert and store what the register-staged operands loaded for tile i
+  auto finish = [&](int i) {
+    const int stage = i % kMmaStages;
+    sa.finish(a, tid, As + stage * TA::kElems);
+    sb.finish(b, tid, Bs + stage * TB::kElems);
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  // a ring of kMmaStages tiles: kMmaStages - 1 in flight while one is used
+#pragma unroll
+  for (int i = 0; i < kMmaStages - 1; ++i) {
+    if (i < n_tiles) {
+      issue(i);
+      finish(i);
+    }
+    cp_async_commit();
+  }
+  for (int it = 0; it < n_tiles; ++it) {
+    cp_async_wait<kMmaStages - 2>();
+    __syncthreads();  // tile it has landed; tile it - 1's stage is free again
+    const int next = it + kMmaStages - 1;
+    if (next < n_tiles) issue(next);
+    cp_async_commit();
+    const __nv_bfloat16* const as = As + (it % kMmaStages) * TA::kElems;
+    const __nv_bfloat16* const bs = Bs + (it % kMmaStages) * TB::kElems;
+#pragma unroll
+    for (int kk = 0; kk < kMmaBK / 16; ++kk) {
+      uint32_t af[4][4], bfr[4][2];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int mb = wm * 64 + i * 16;
+        if (LoadA::kKMajor)
+          ldmatrix_x4(af[i],
+                      smem_addr(as + TA::off(mb + (lane & 15), kk * 16 + (lane >> 4) * 8)));
+        else
+          ldmatrix_x4_trans(af[i], smem_addr(as + TA::off(mb + ((lane >> 3) & 1) * 8,
+                                                          kk * 16 + (lane & 7) +
+                                                              ((lane >> 4) << 3))));
+      }
+#pragma unroll
+      for (int jp = 0; jp < 2; ++jp) {
+        const int nb = wn * 32 + jp * 16;
+        uint32_t r[4];
+        if (LoadB::kKMajor)
+          ldmatrix_x4(r, smem_addr(bs + TB::off(nb + (lane & 7) + ((lane >> 4) << 3),
+                                                kk * 16 + ((lane >> 3) & 1) * 8)));
+        else
+          ldmatrix_x4_trans(r, smem_addr(bs + TB::off(nb + (lane >> 4) * 8,
+                                                      kk * 16 + (lane & 7) +
+                                                          ((lane >> 3) & 1) * 8)));
+        bfr[2 * jp][0] = r[0];
+        bfr[2 * jp][1] = r[1];
+        bfr[2 * jp + 1][0] = r[2];
+        bfr[2 * jp + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) mma_bf16(acc[i][j], af[i], bfr[j][0], bfr[j][1]);
+    }
+    if (next < n_tiles) finish(next);
+  }
+
+  const int g = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + wm * 64 + i * 16 + g;
+      const int n = n0 + wn * 32 + j * 8 + q * 2;
+      out(blockIdx.z, m, n, acc[i][j][0], acc[i][j][1]);
+      out(blockIdx.z, m + 8, n, acc[i][j][2], acc[i][j][3]);
+    }
+  }
+}
+
+// C = sum over the segments of A . B with an epilogue functor, no split of K.
+template <class LoadA, class LoadB, class Store>
+cudaError_t mma_gemm(LoadA a, LoadB b, Store out, int M, int N, int k_seg0, int k_seg1,
+                     cudaStream_t stream) {
+  const int tiles = (k_seg0 + kMmaBK - 1) / kMmaBK + (k_seg1 + kMmaBK - 1) / kMmaBK;
+  constexpr size_t smem = mma_gemm_smem<LoadA, LoadB>();
+  cudaError_t err = allow_dynamic_smem(mma_gemm_kernel<LoadA, LoadB, Store>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM, 1);
+  mma_gemm_kernel<<<grid, kMmaThreads, smem, stream>>>(a, b, out, M, N, k_seg0, k_seg1, tiles);
+  return cudaGetLastError();
+}
+
+// Writes one split's partial sums of an (M, N) product, N even.
+struct PartialStore2 {
+  float* part;
+  int M, N;
+  __device__ void operator()(int s, int m, int n, float v0, float v1) const {
+    if (m >= M || n >= N) return;
+    *reinterpret_cast<float2*>(part + (static_cast<size_t>(s) * M + m) * N + n) =
+        make_float2(v0, v1);
+  }
+};
+
+// C = A . B over K in `splits` slices of whole 32-row tiles, the slices'
+// partial sums then added in order of the slice into out (M, N), N even.
+// part holds splits * M * N floats.
+template <class LoadA, class LoadB>
+cudaError_t mma_gemm_split_k(LoadA a, LoadB b, float* out, float* part, int M, int N, int K,
+                             int splits, cudaStream_t stream) {
+  const int tiles = (K + kMmaBK - 1) / kMmaBK;
+  const int per = (tiles + splits - 1) / splits;
+  constexpr size_t smem = mma_gemm_smem<LoadA, LoadB>();
+  cudaError_t err = allow_dynamic_smem(mma_gemm_kernel<LoadA, LoadB, PartialStore2>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kMmaBN - 1) / kMmaBN, (M + kMmaBM - 1) / kMmaBM, splits);
+  mma_gemm_kernel<<<grid, kMmaThreads, smem, stream>>>(a, b, PartialStore2{part, M, N}, M, N, K,
+                                                       0, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t count = static_cast<size_t>(M) * N;
+  reduce_splits_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, stream>>>(
+      part, out, splits, count);
+  return cudaGetLastError();
+}
+
+// ---- operands shared by the LSTM products --------------------------------------
+
+// bf16 rows, K contiguous: element (r, k) = p[r * ld + k], r < R, k < K;
+// K and ld multiples of 8.
+struct Bf16Rows {
+  static constexpr bool kKMajor = true;
+  static constexpr bool kAsync = true;
+  struct Raw {};
+  const __nv_bfloat16* p;
+  int R, K, ld;
+  __device__ void fill(int, int r, int k, uint32_t dst) const {
+    const bool valid = r < R && k < K;
+    cp_async16(dst, valid ? p + static_cast<size_t>(r) * ld + k : p, valid);
+  }
+};
+
+// bf16, r contiguous, in one or two K segments: element (r, k) of segment s =
+// p[s][k * ld + r], r < R, k < K[s]; R and ld multiples of 8.
+struct Bf16Cols {
+  static constexpr bool kKMajor = false;
+  static constexpr bool kAsync = true;
+  struct Raw {};
+  const __nv_bfloat16* p[2];
+  int K[2];
+  int R, ld;
+  __device__ void fill(int s, int r, int k, uint32_t dst) const {
+    const bool valid = r < R && k < K[s];
+    cp_async16(dst, valid ? p[s] + static_cast<size_t>(k) * ld + r : p[s], valid);
+  }
+};
+
+// 8 consecutive float32 elements as loaded, with their keep-mask bytes and
+// the scale of a kept one (1 and every byte kept when the part has no mask)
+struct MaskedRaw {
+  float v[8];
+  uint2 keep;
+  float scale;
+};
+
+// 8 consecutive elements of an input part at flat index i0 (row-major rows
+// of D), the ones at or past `limit` (within the row) zero
+__device__ __forceinline__ MaskedRaw masked_load_x8(const float* __restrict__ x,
+                                                    const uint8_t* __restrict__ m, size_t i0,
+                                                    int D, int limit, float inv_keep) {
+  MaskedRaw raw;
+  raw.scale = m != nullptr ? inv_keep : 1.f;
+  raw.keep = make_uint2(0x01010101u, 0x01010101u);
+  if (limit >= 8 && (D & 7) == 0) {
+    load_f32x8(raw.v, x + i0);
+    if (m != nullptr) raw.keep = *reinterpret_cast<const uint2*>(m + i0);
+    return raw;
+  }
+  uint32_t w[2] = {0u, 0u};
+#pragma unroll
+  for (int e = 0; e < 8; ++e) {
+    raw.v[e] = e < limit ? x[i0 + e] : 0.f;
+    const uint32_t kept = e < limit && (m == nullptr || m[i0 + e] != 0) ? 1u : 0u;
+    w[e >> 2] |= kept << (8 * (e & 3));
+  }
+  raw.keep = make_uint2(w[0], w[1]);
+  return raw;
+}
+
+// where(m != 0, x * (1/keep), 0) (the reference's _masked), rounded to bf16
+__device__ __forceinline__ void masked_store(const MaskedRaw& raw, uint32_t dst) {
+  const uint32_t w[2] = {raw.keep.x, raw.keep.y};
+  float v[8];
+#pragma unroll
+  for (int e = 0; e < 8; ++e)
+    v[e] = ((w[e >> 2] >> (8 * (e & 3))) & 0xffu) != 0 ? raw.v[e] * raw.scale : 0.f;
+  st_shared_v4(dst, pack_bf16x8(v));
+}
+
+// bf16(masked x_p) with K contiguous, one or two parts as the K segments:
+// element (r = b*T + t, k = feature) of segment s = mask_s(x_s)[r * D[s] + k]
+struct MaskedXRows {
+  static constexpr bool kKMajor = true;
+  static constexpr bool kAsync = false;
+  using Raw = MaskedRaw;
+  const float* x[2];
+  const uint8_t* m[2];
+  int D[2];
+  int M;
+  float inv_keep;
+  __device__ Raw load(int s, int r, int k) const {
+    return masked_load_x8(x[s], m[s], static_cast<size_t>(r) * D[s] + k, D[s],
+                          r < M ? D[s] - k : 0, inv_keep);
+  }
+  __device__ void store(const Raw& raw, uint32_t dst) const { masked_store(raw, dst); }
+};
+
+// bf16(masked x_p) with M contiguous: element (r = feature, k = b*T + t) =
+// mask(x)[k * D + r]
+struct MaskedXCols {
+  static constexpr bool kKMajor = false;
+  static constexpr bool kAsync = false;
+  using Raw = MaskedRaw;
+  const float* x;
+  const uint8_t* m;
+  int D, K;
+  float inv_keep;
+  __device__ Raw load(int, int r, int k) const {
+    return masked_load_x8(x, m, static_cast<size_t>(k) * D + r, D, k < K ? D - r : 0,
+                          inv_keep);
+  }
+  __device__ void store(const Raw& raw, uint32_t dst) const { masked_store(raw, dst); }
+};
+
+// bf16(h_prev) with M contiguous: element (r = unit, k = b*T + t) = h[b, t-1]
+// (h[b, t+1] reverse), zero before the direction's first step
+struct HPrevCols {
+  static constexpr bool kKMajor = false;
+  static constexpr bool kAsync = false;
+  struct Raw {
+    float v[8];
+  };
+  const float* h;
+  int T, H, K, reverse;
+  __device__ Raw load(int, int r, int k) const {
+    Raw raw;
+    const int b = k / T;
+    const int tp = (k - b * T) + (reverse ? 1 : -1);
+    if (k < K && r < H && tp >= 0 && tp < T) {
+      load_f32x8(raw.v, h + (static_cast<size_t>(b) * T + tp) * H + r);
+    } else {
+#pragma unroll
+      for (int e = 0; e < 8; ++e) raw.v[e] = 0.f;
+    }
+    return raw;
+  }
+  __device__ void store(const Raw& raw, uint32_t dst) const {
+    st_shared_v4(dst, pack_bf16x8(raw.v));
+  }
+};
+
+}  // namespace eegflow

@@ -39,6 +39,7 @@ launch_counts: Counter = Counter()
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
+_lib_csrc: Optional[Path] = None
 #: nvcc's output (ptxas register / shared-memory report) and the build time
 build_info: dict = {}
 
@@ -46,24 +47,34 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    # lstm_fwd.cu, kernel 2 (bf16 policy), eval mode:
-    # x0, x1, d0, d1, w0, w1, b, whh, h_out, B, T, H, reverse, stream
-    "eegflow_lstm_fwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # lstm_fwd.cu, kernel 2 (bf16 policy), eval mode; (hc, rows, k_res) is
+    # the cluster plan of nn/lstm_plan.py:
+    # x0, x1, d0, d1, w0, w1, b, wfrag, pre, h_out, B, T, H, hc, rows, k_res,
+    # reverse, stream
+    "eegflow_lstm_fwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
     # lstm_fwd.cu, kernel 2, training mode:
-    # x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, b, whh, h_out, res_out,
-    # B, T, H, reverse, stream
-    "eegflow_lstm_fwd_train": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _P],
-    # lstm_bwd.cu, kernel 3:
-    # res, h, g, x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, whh_t, add0, add1,
-    # dx0, dx1, dw_ih, dw_hh, db, dz, part, splits, B, T, H, reverse, stream
-    "eegflow_lstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P,
-                         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P],
+    # x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, b, wfrag, pre, h_out, res_out,
+    # B, T, H, hc, rows, k_res, reverse, stream
+    "eegflow_lstm_fwd_train": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P,
+                               _I, _I, _I, _I, _I, _I, _I, _P],
     # lstm_fwd.cu, kernel 2, raw-gate training mode:
-    # x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, b, whh, h_out, gates_out, c_out,
-    # B, T, H, reverse, stream
-    "eegflow_lstm_fwd_train_gates": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P,
-                                     _P, _I, _I, _I, _I, _P],
+    # x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, b, wfrag, pre, h_out, gates_out,
+    # c_out, B, T, H, hc, rows, k_res, reverse, stream
+    "eegflow_lstm_fwd_train_gates": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P,
+                                     _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # lstm_fwd.cu, the recurrence's shared memory and clusters held at once:
+    # mode (0 eval, 1 planes, 2 raw gates), H, hc, rows, k_res, *smem, *clusters
+    "eegflow_lstm_fwd_plan": [_I, _I, _I, _I, _I, _P, _P],
+    # lstm_bwd.cu, kernel 3:
+    # res, h, g, x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, wfrag, add0, add1,
+    # dx0, dx1, dw_ih, dw_hh, db, dz16, db_part, part, splits, B, T, H, hc,
+    # rows, k_res, reverse, stream
+    "eegflow_lstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # lstm_bwd.cu, the chain's shared memory and clusters held at once:
+    # H, hc, rows, k_res, *smem, *clusters
+    "eegflow_lstm_bwd_plan": [_I, _I, _I, _I, _P, _P],
     # lstm_bwd_v2.cu, kernel 3b:
     # gates, c, h, g, x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, whh_t, add0,
     # add1, dx0, dx1, dw_ih, dw_hh, db, carry, db_part, dz16, part, splits,
@@ -73,11 +84,15 @@ _SIGNATURES = {
                             _I, _P, _P],
     # lstm_bwd_dualdir.cu, kernel 4:
     # res_f, h_f, g_f, res_r, h_r, g_r, x0, x1, d0, d1, mask_from_x, inv_keep,
-    # w0_f, w1_f, whh_t_f, w0_r, w1_r, whh_t_r, dx0, dx1, dw_ih_f, dw_hh_f,
-    # db_f, dw_ih_r, dw_hh_r, db_r, dz_f, dz_r, part, splits, B, T, H, stream
-    "eegflow_lstm_bwd_dualdir": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F, _P, _P,
+    # w0_f, w1_f, wfrag_f, w0_r, w1_r, wfrag_r, dx0, dx1, dw_ih_f, dw_hh_f,
+    # db_f, dw_ih_r, dw_hh_r, db_r, dz16_f, dz16_r, db_part_f, db_part_r, part,
+    # splits, B, T, H, hc, rows, k_res, stream
+    "eegflow_lstm_bwd_dualdir": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
                                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                                 _P, _I, _I, _I, _I, _P],
+                                 _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # lstm_bwd_dualdir.cu, its chain's shared memory and clusters held at once:
+    # H, hc, rows, k_res, *smem, *clusters
+    "eegflow_lstm_bwd_dualdir_plan": [_I, _I, _I, _I, _P, _P],
     # lstm_rec.cu, kernel 1 (float32 policy); c_out null in eval mode:
     # gates, whh, h_out, c_out, B, T, H, reverse, stream
     "eegflow_lstm_rec_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -121,8 +136,8 @@ def reset_launch_counts() -> None:
     launch_counts.clear()
 
 
-def _sources():
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
+def _sources(csrc: Path):
+    return sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh"))
 
 
 def _nvcc() -> str:
@@ -136,29 +151,39 @@ def _nvcc() -> str:
     return found
 
 
-def _source_hash() -> str:
+def _source_hash(csrc: Path) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in _sources(csrc):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]
 
 
-def load_library() -> ctypes.CDLL:
-    """Build (once per source hash) and load the kernel library."""
-    global _lib
+def load_library(csrc: Optional[Path] = None, build_dir: Optional[Path] = None) -> ctypes.CDLL:
+    """Build (once per source hash) and load the kernel library, from the
+    sources in ``csrc`` into ``build_dir`` (by default the package's
+    ``csrc/`` and ``_build/``). The first load of a process is the library
+    every wrapper uses; a later call naming other sources raises, since two
+    builds of the library in one process fault (each holds its own static
+    CUDA runtime)."""
+    global _lib, _lib_csrc
     with _lock:
         if _lib is not None:
+            if csrc is not None and Path(csrc).resolve() != _lib_csrc:
+                raise RuntimeError(f"the kernel library of this process was built from "
+                                   f"{_lib_csrc}, not {csrc}")
             return _lib
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        so = BUILD_DIR / f"libeegflow_kernels_{_source_hash()}.so"
+        csrc = Path(csrc) if csrc is not None else CSRC
+        build_dir = Path(build_dir) if build_dir is not None else BUILD_DIR
+        build_dir.mkdir(parents=True, exist_ok=True)
+        so = build_dir / f"libeegflow_kernels_{_source_hash(csrc)}.so"
         if not so.exists():
             t0 = time.perf_counter()
             tmp = so.with_suffix(f".{os.getpid()}.tmp")
             nvcc = _nvcc()
             objs, procs = [], []
-            for src in sorted(CSRC.glob("*.cu")):
-                obj = BUILD_DIR / f"{src.stem}.{os.getpid()}.o"
+            for src in sorted(csrc.glob("*.cu")):
+                obj = build_dir / f"{src.stem}.{os.getpid()}.o"
                 cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
                 procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                                     stderr=subprocess.STDOUT, text=True)))
@@ -192,7 +217,7 @@ def load_library() -> ctypes.CDLL:
         lib.eegflow_cuda_error_string.argtypes = [ctypes.c_int]
         lib.eegflow_cuda_error_string.restype = ctypes.c_char_p
         build_info["library"] = str(so)
-        _lib = lib
+        _lib, _lib_csrc = lib, csrc.resolve()
         return lib
 
 

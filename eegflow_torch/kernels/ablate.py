@@ -1,0 +1,153 @@
+"""Where a step of the recurrent kernels' time goes, on the GPU.
+
+    python -m eegflow_torch.kernels.ablate [--variant base|nomma|noexch|nostore|noload]
+                                           [--rows 16,32,48]
+
+Builds the kernels from a copy of ``eegflow_torch/csrc`` with one part of
+the serial step of kernel 2's recurrence and of kernels 3 and 4's chain
+taken out (``nomma``: the per-step product; ``noexch``: the DSMEM exchange
+of the new state; ``nostore``: the HBM stores of h, the planes and bf16 dz;
+``noload``: the HBM loads of the pre-gates and planes; ``base``: nothing),
+then times, with ``torch.profiler``, the recurrence kernel of each
+full-width call (H=256, T=256, two parts of 256): kernel 2 in eval and
+training mode and kernel 3 at B=16 (one cluster) and at the main path's
+batch (512; eval 1024), and kernel 4 at 512. ``--rows`` restricts the
+plan's rows per cluster (``cuda_lstm.restrict_plan_rows``). A variant's
+results are wrong by construction and only its times mean anything; the
+difference to ``base`` is the part's share of a step. Each variant needs its
+own process: two builds of the library in one process fault. Needs CUDA and
+nvcc.
+"""
+
+from __future__ import annotations
+
+import argparse
+import shutil
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+import torch
+
+H, STEPS = 256, 256
+
+# variant -> (source file, text, replacement); each text occurs once in its
+# source (held by tests/test_torch_lstm_plan.py)
+VARIANTS = {
+    "base": [],
+    "nomma": [
+        ("lstm_fwd.cu", "for (int kt = 0; kt < KT_res; kt += 2)",
+         "for (int kt = 0; kt < 0; kt += 2)"),
+        ("lstm_fwd.cu", "for (int kt = KT_res; kt < KT; kt += 2)",
+         "for (int kt = KT; kt < KT; kt += 2)"),
+        ("lstm_bwd_chain.cuh", "for (int kk = 0; kk < KT2_res; kk += 2)",
+         "for (int kk = 0; kk < 0; kk += 2)"),
+        ("lstm_bwd_chain.cuh", "for (int kk = KT2_res; kk < KT2; kk += 2)",
+         "for (int kk = KT2; kk < KT2; kk += 2)")],
+    "noexch": [
+        ("lstm_fwd.cu", "for (int r = q; r < hc; r += 4) {", "for (int r = q; r < 0; r += 4) {"),
+        ("lstm_bwd_chain.cuh", "    for (int r = 0; r < hc; ++r) {\n      const uint32_t base",
+         "    for (int r = 0; r < 0; ++r) {\n      const uint32_t base")],
+    "nostore": [
+        ("lstm_fwd.cu", "        if (row >= B) continue;\n        const size_t bt",
+         "        if (row >= 0) continue;\n        const size_t bt"),
+        ("lstm_bwd_chain.cuh", "        if (row < B)\n          *reinterpret_cast<uint4*>(dz16",
+         "        if (row < 0)\n          *reinterpret_cast<uint4*>(dz16")],
+    "noload": [
+        ("lstm_fwd.cu", "if (row < B) v = __ldcs", "if (row < 0) v = __ldcs"),
+        ("lstm_bwd_chain.cuh", "          if (row < B)\n            v = __ldcs(",
+         "          if (row < 0)\n            v = __ldcs(")],
+}
+
+
+def patched_sources(variant: str, into: Path) -> Path:
+    """A copy of the kernel sources under ``into`` with ``variant``'s parts
+    taken out -> its ``csrc`` directory."""
+    from eegflow_torch import kernels
+
+    src = into / "csrc"
+    shutil.copytree(kernels.CSRC, src)
+    for name, text, repl in VARIANTS[variant]:
+        path = src / name
+        body = path.read_text()
+        if body.count(text) != 1:
+            raise RuntimeError(f"variant {variant}: {name} holds {text!r} "
+                               f"{body.count(text)} times, not once")
+        path.write_text(body.replace(text, repl))
+    return src
+
+
+def _recurrence_ms(fn, reps: int = 3) -> float:
+    """Mean device ms a call of ``fn`` spends in the recurrence or chain kernel."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.time_range.end - e.time_range.start for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and ("rec_kernel" in e.name or "chain_kernel" in e.name)) / reps / 1e3
+
+
+def main(argv=None) -> int:
+    parser = argparse.ArgumentParser(prog="eegflow_torch.kernels.ablate")
+    parser.add_argument("--variant", default="base", choices=sorted(VARIANTS))
+    parser.add_argument("--rows", default=None, help="rows per cluster the plan may take")
+    args = parser.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("ablate: needs a CUDA device", file=sys.stderr)
+        return 2
+    from eegflow_torch import kernels
+    from eegflow_torch.nn import cuda_lstm as cl
+
+    if args.rows:
+        cl.restrict_plan_rows(int(r) for r in args.rows.split(","))
+    tmp = Path(tempfile.mkdtemp(prefix="eegflow_ablate_"))
+    try:
+        kernels.load_library(patched_sources(args.variant, tmp), tmp / "build")
+        dev = torch.device("cuda", 0)
+        gen = torch.Generator(device="cpu").manual_seed(0)
+        bound = H ** -0.5
+
+        def uniform(*shape):
+            return ((torch.rand(shape, generator=gen) * 2 - 1) * bound).to(dev)
+
+        w_ih, w_hh, b = uniform(2 * H, 4 * H), uniform(H, 4 * H), uniform(4 * H)
+        card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                               "--format=csv,noheader"], capture_output=True, text=True,
+                              timeout=60).stdout.strip()
+        for batch in (16, 512, 1024):
+            xs = tuple(torch.randn(batch, STEPS, H, generator=gen).to(dev) for _ in range(2))
+            ms = tuple((torch.rand(batch, STEPS, H, generator=gen) < 0.7).to(torch.uint8)
+                       .to(dev) for _ in range(2))
+            calls = {"lstm_fwd": (lambda: cl.lstm_fwd_fused_proj(xs, w_ih, b, w_hh),
+                                  ("fwd", batch, H, 0))}
+            if batch < 1024:
+                h, res = cl.lstm_fwd_train_plain(xs, w_ih, b, w_hh, False, ms, 0.7)
+                g = 0.1 * torch.randn(h.shape, generator=gen).to(dev)
+                calls["lstm_fwd_train"] = (
+                    lambda: cl.lstm_fwd_train(xs, w_ih, b, w_hh, False, ms, 0.7),
+                    ("fwd", batch, H, 1))
+                calls["lstm_bwd"] = (
+                    lambda: cl.lstm_bwd(res, h, g, xs, w_ih, w_hh, False, ms, 0.7),
+                    ("bwd", batch, H))
+                calls["lstm_bwd_dualdir"] = (
+                    lambda: cl.lstm_bwd_dualdir(res, h, g, res, h, g, xs, (w_ih, w_hh),
+                                                (w_ih, w_hh)),
+                    ("bwd_dualdir", batch, H))
+            for name, (fn, plan_args) in calls.items():
+                plan = cl.kernel_plan(*plan_args)
+                ms_rec = _recurrence_ms(fn)
+                print(f"{args.variant} {name} B={batch}: rows {plan.rows}, "
+                      f"{plan.clusters} clusters in {plan.waves} wave(s); recurrence "
+                      f"{ms_rec:.3f} ms, {ms_rec / STEPS * 1e3:.2f} us a step [{card}]",
+                      flush=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

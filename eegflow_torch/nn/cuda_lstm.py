@@ -32,6 +32,11 @@ The float32 policy, whose input projection and weight products stay
   ``_lstm_bwd_chunk_kernel`` (entry ``lstm_recurrence_backward``), dgates
   from (gates, h, c), plus dW_hh.
 
+Kernels 2, 3 and 4 run their recurrences on thread-block clusters: the
+wrappers ask :func:`kernel_plan` for the launch plan (``nn/lstm_plan.py``,
+with ``cudaOccupancyMaxActiveClusters`` of the card) and hand the kernels
+W_hh in the plan's fragment order; a cluster the card cannot hold raises.
+
 Each has a plain PyTorch twin in this module (``*_plain``). For CPU tensors a
 wrapper runs its twin; for CUDA tensors it launches the kernel or raises.
 :class:`BiLSTMLayer` (bf16) and :class:`BiLSTMLayerF32` (float32) put both
@@ -55,11 +60,13 @@ bf16 path under one set of its flags:
 
 from __future__ import annotations
 
+import ctypes
 from typing import Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 
 from eegflow_torch import kernels
+from eegflow_torch.nn import lstm_plan
 from eegflow_torch.nn.layers import bf16_round
 
 Parts = Union[torch.Tensor, Sequence[torch.Tensor]]
@@ -187,8 +194,7 @@ def _check_cuda_args(xs, w_ih, b, w_hh, masks=None):
         raise ValueError(f"w_ih must be ({d_total}, {4 * hidden}), got {tuple(w_ih.shape)}")
     if b is not None and tuple(b.shape) != (4 * hidden,):
         raise ValueError(f"b must be ({4 * hidden},), got {tuple(b.shape)}")
-    if hidden % 32 or hidden > 512:
-        raise ValueError(f"the lstm kernels need H % 32 == 0 and H <= 512, got {hidden}")
+    lstm_plan.check_hidden(hidden)
     for w in (w_ih, b, w_hh):
         if w is not None and w.device != dev:
             raise ValueError("weights must be on the inputs' device")
@@ -208,6 +214,99 @@ def _stream(dev: torch.device) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
+#: kernel 2's modes: wrapper (and counter) name -> (C entry point, mode of
+#: ``eegflow_lstm_fwd_plan``, widths of its outputs in units of H: h first)
+_FWD_MODES = {"lstm_fwd": ("eegflow_lstm_fwd", 0, (1,)),
+              "lstm_fwd_train": ("eegflow_lstm_fwd_train", 1, (1, 6)),
+              "lstm_fwd_train_gates": ("eegflow_lstm_fwd_train_gates", 2, (1, 4, 1))}
+#: recurrent kernel -> its cluster-plan query
+_PLAN_QUERIES = {"fwd": "eegflow_lstm_fwd_plan", "bwd": "eegflow_lstm_bwd_plan",
+                 "bwd_dualdir": "eegflow_lstm_bwd_dualdir_plan"}
+_max_clusters = {}
+_plans = {}
+#: the rows per cluster the wrappers' plans may take
+_plan_rows = lstm_plan.ROWS
+
+
+def restrict_plan_rows(rows=lstm_plan.ROWS) -> None:
+    """Let every later launch plan take only ``rows`` rows per cluster (a
+    subset of ``lstm_plan.ROWS``; all of them by default). For experiments
+    on the plan (``python -m eegflow_torch.kernels.ablate --rows``)."""
+    global _plan_rows
+    _plan_rows = lstm_plan.check_rows(rows)
+
+
+def _query_clusters(kernel: str, mode: int, hidden: int, rows: int, hc: int, k_res: int,
+                    smem: int) -> int:
+    """``cudaOccupancyMaxActiveClusters`` of a recurrent kernel at this
+    geometry (once per geometry), checking that the kernel needs the shared
+    memory the plan computed."""
+    key = (kernel, mode, hidden, rows, hc, k_res)
+    if key not in _max_clusters:
+        lib = kernels.load_library()
+        got_smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
+        args = (hidden, hc, rows, k_res, ctypes.byref(got_smem), ctypes.byref(clusters))
+        err = getattr(lib, _PLAN_QUERIES[kernel])(*(((mode,) if kernel == "fwd" else ())
+                                                    + args))
+        kernels.check(lib, err, _PLAN_QUERIES[kernel])
+        if got_smem.value != smem:
+            raise RuntimeError(f"{kernel}: the plan's shared memory ({smem} B) is not the "
+                               f"kernel's ({got_smem.value} B)")
+        _max_clusters[key] = clusters.value
+    return _max_clusters[key]
+
+
+def kernel_plan(kernel: str, batch: int, hidden: int, mode: int = 0) -> lstm_plan.LstmPlan:
+    """The cluster launch plan of a recurrent kernel on this card: ``"fwd"``
+    (kernel 2, ``mode`` 0 eval, 1 planes, 2 raw gates), ``"bwd"`` (kernel 3's
+    chain) or ``"bwd_dualdir"`` (kernel 4's, both directions). Raises when
+    the card holds no such cluster."""
+    key = (kernel, batch, hidden, mode, _plan_rows)
+    if key not in _plans:
+        _plans[key] = lstm_plan.plan(
+            "fwd" if kernel == "fwd" else "bwd", batch, hidden,
+            lambda rows, hc, k_res, smem, threads: _query_clusters(kernel, mode, hidden, rows,
+                                                                   hc, k_res, smem),
+            directions=2 if kernel == "bwd_dualdir" else 1, rows_allowed=_plan_rows)
+    return _plans[key]
+
+
+def _fwd_kernel(name: str, xs, w_ih, b, w_hh, reverse, masks=None, keep=1.0):
+    """Launch kernel 2 in mode ``name`` (a key of :data:`_FWD_MODES`) on CUDA
+    parts -> its outputs, float32 (B, T, width H) each: h, then the
+    residuals. The wrapper builds the bf16 W_ih parts, W_hh in fragment
+    order and the pre-gate scratch (B, T, 4H)."""
+    entry, mode, widths_out = _FWD_MODES[name]
+    _check_cuda_args(xs, w_ih, b, w_hh, masks)
+    masks = _mask_list(masks, len(xs))
+    lib = kernels.load_library()
+    dev = xs[0].device
+    batch, steps = xs[0].shape[:2]
+    hidden = w_hh.shape[0]
+    plan = kernel_plan("fwd", batch, hidden, mode)
+    widths = [x.shape[-1] for x in xs]
+    w_parts = torch.split(w_ih.to(torch.bfloat16).contiguous(), widths, dim=0)
+    wfrag = lstm_plan.fwd_fragments(w_hh)
+    bias = b.to(torch.float32).contiguous()
+    pre = torch.empty(batch, steps, 4 * hidden, dtype=torch.float32, device=dev)
+    outs = [torch.empty(batch, steps, w * hidden, dtype=torch.float32, device=dev)
+            for w in widths_out]
+    two = len(xs) == 2
+    args = [xs[0].data_ptr(), _ptr(xs[1]) if two else None]
+    if mode:
+        args += [_ptr(masks[0]), _ptr(masks[1]) if two else None]
+    args += [widths[0], widths[1] if two else 0]
+    if mode:
+        args.append(1.0 / keep)
+    args += [w_parts[0].data_ptr(), w_parts[1].data_ptr() if two else None, bias.data_ptr(),
+             wfrag.data_ptr(), pre.data_ptr(), *[o.data_ptr() for o in outs],
+             batch, steps, hidden, plan.hc, plan.rows, plan.k_res, int(reverse), _stream(dev)]
+    err = getattr(lib, entry)(*args)
+    kernels.check(lib, err, name)
+    kernels.launch_counts[name] += 1
+    return outs
+
+
 def lstm_fwd_fused_proj(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor,
                         w_hh: torch.Tensor, reverse: bool = False) -> torch.Tensor:
     """One LSTM direction over input parts (B, T, D_p) -> h (B, T, H) float32.
@@ -219,26 +318,7 @@ def lstm_fwd_fused_proj(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor,
     xs = as_parts(xs)
     if _device_kind("lstm_fwd", xs[0]) == "cpu":
         return lstm_fwd_fused_proj_plain(xs, w_ih, b, w_hh, reverse)
-    _check_cuda_args(xs, w_ih, b, w_hh)
-    lib = kernels.load_library()
-    dev = xs[0].device
-    batch, steps = xs[0].shape[:2]
-    hidden = w_hh.shape[0]
-    widths = [x.shape[-1] for x in xs]
-    w_parts = torch.split(w_ih.to(torch.bfloat16).contiguous(), widths, dim=0)
-    whh = w_hh.to(torch.bfloat16).contiguous()
-    bias = b.to(torch.float32).contiguous()
-    out = torch.empty(batch, steps, hidden, dtype=torch.float32, device=dev)
-    two = len(xs) == 2
-    err = lib.eegflow_lstm_fwd(
-        xs[0].data_ptr(), _ptr(xs[1]) if two else None,
-        widths[0], widths[1] if two else 0,
-        w_parts[0].data_ptr(), w_parts[1].data_ptr() if two else None,
-        bias.data_ptr(), whh.data_ptr(), out.data_ptr(),
-        batch, steps, hidden, int(reverse), _stream(dev))
-    kernels.check(lib, err, "lstm_fwd")
-    kernels.launch_counts["lstm_fwd"] += 1
-    return out
+    return _fwd_kernel("lstm_fwd", xs, w_ih, b, w_hh, reverse)[0]
 
 
 def lstm_fwd_train(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor,
@@ -252,29 +332,7 @@ def lstm_fwd_train(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.T
     xs = as_parts(xs)
     if _device_kind("lstm_fwd_train", xs[0]) == "cpu":
         return lstm_fwd_train_plain(xs, w_ih, b, w_hh, reverse, masks, keep)
-    _check_cuda_args(xs, w_ih, b, w_hh, masks)
-    masks = _mask_list(masks, len(xs))
-    lib = kernels.load_library()
-    dev = xs[0].device
-    batch, steps = xs[0].shape[:2]
-    hidden = w_hh.shape[0]
-    widths = [x.shape[-1] for x in xs]
-    w_parts = torch.split(w_ih.to(torch.bfloat16).contiguous(), widths, dim=0)
-    whh = w_hh.to(torch.bfloat16).contiguous()
-    bias = b.to(torch.float32).contiguous()
-    out = torch.empty(batch, steps, hidden, dtype=torch.float32, device=dev)
-    res = torch.empty(batch, steps, 6 * hidden, dtype=torch.float32, device=dev)
-    two = len(xs) == 2
-    err = lib.eegflow_lstm_fwd_train(
-        xs[0].data_ptr(), _ptr(xs[1]) if two else None,
-        _ptr(masks[0]), _ptr(masks[1]) if two else None,
-        widths[0], widths[1] if two else 0, 1.0 / keep,
-        w_parts[0].data_ptr(), w_parts[1].data_ptr() if two else None,
-        bias.data_ptr(), whh.data_ptr(), out.data_ptr(), res.data_ptr(),
-        batch, steps, hidden, int(reverse), _stream(dev))
-    kernels.check(lib, err, "lstm_fwd_train")
-    kernels.launch_counts["lstm_fwd_train"] += 1
-    return out, res
+    return tuple(_fwd_kernel("lstm_fwd_train", xs, w_ih, b, w_hh, reverse, masks, keep))
 
 
 def lstm_fwd_train_gates(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor,
@@ -285,30 +343,7 @@ def lstm_fwd_train_gates(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor, w_hh: t
     xs = as_parts(xs)
     if _device_kind("lstm_fwd_train_gates", xs[0]) == "cpu":
         return lstm_fwd_train_gates_plain(xs, w_ih, b, w_hh, reverse, masks, keep)
-    _check_cuda_args(xs, w_ih, b, w_hh, masks)
-    masks = _mask_list(masks, len(xs))
-    lib = kernels.load_library()
-    dev = xs[0].device
-    batch, steps = xs[0].shape[:2]
-    hidden = w_hh.shape[0]
-    widths = [x.shape[-1] for x in xs]
-    w_parts = torch.split(w_ih.to(torch.bfloat16).contiguous(), widths, dim=0)
-    whh = w_hh.to(torch.bfloat16).contiguous()
-    bias = b.to(torch.float32).contiguous()
-    out = torch.empty(batch, steps, hidden, dtype=torch.float32, device=dev)
-    gates = torch.empty(batch, steps, 4 * hidden, dtype=torch.float32, device=dev)
-    c = torch.empty_like(out)
-    two = len(xs) == 2
-    err = lib.eegflow_lstm_fwd_train_gates(
-        xs[0].data_ptr(), _ptr(xs[1]) if two else None,
-        _ptr(masks[0]), _ptr(masks[1]) if two else None,
-        widths[0], widths[1] if two else 0, 1.0 / keep,
-        w_parts[0].data_ptr(), w_parts[1].data_ptr() if two else None,
-        bias.data_ptr(), whh.data_ptr(), out.data_ptr(), gates.data_ptr(), c.data_ptr(),
-        batch, steps, hidden, int(reverse), _stream(dev))
-    kernels.check(lib, err, "lstm_fwd_train_gates")
-    kernels.launch_counts["lstm_fwd_train_gates"] += 1
-    return out, gates, c
+    return tuple(_fwd_kernel("lstm_fwd_train_gates", xs, w_ih, b, w_hh, reverse, masks, keep))
 
 
 Grads = Tuple[Tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor, torch.Tensor]
@@ -418,14 +453,17 @@ def lstm_bwd(res: torch.Tensor, h: torch.Tensor, g: torch.Tensor, xs: Parts,
     lib = kernels.load_library()
     dev = xs[0].device
     gates = 4 * hidden
+    plan = kernel_plan("bwd", batch, hidden)
     widths = [x.shape[-1] for x in xs]
     w_parts = torch.split(w_ih.to(torch.bfloat16).contiguous(), widths, dim=0)
-    whh_t = w_hh.to(torch.bfloat16).t().contiguous()
+    wfrag = lstm_plan.bwd_fragments(w_hh)
     dxs = [torch.empty_like(x) for x in xs]
     dw_ih = torch.empty(sum(widths), gates, dtype=torch.float32, device=dev)
     dw_hh = torch.empty(hidden, gates, dtype=torch.float32, device=dev)
     db = torch.empty(gates, dtype=torch.float32, device=dev)
-    dz = torch.empty(batch, steps, gates, dtype=torch.float32, device=dev)
+    dz16 = torch.empty(batch, steps, gates, dtype=torch.bfloat16, device=dev)
+    db_part = torch.empty(-(-batch // lstm_plan.ROW_TILE), gates, dtype=torch.float32,
+                          device=dev)
     splits = kernels.gemm_splits(batch * steps)
     part = torch.empty(splits * max(widths + [hidden]) * gates, dtype=torch.float32,
                        device=dev)
@@ -435,11 +473,12 @@ def lstm_bwd(res: torch.Tensor, h: torch.Tensor, g: torch.Tensor, xs: Parts,
         xs[0].data_ptr(), _ptr(xs[1]) if two else None,
         _ptr(masks[0]), _ptr(masks[1]) if two else None,
         widths[0], widths[1] if two else 0, 1.0 / keep,
-        w_parts[0].data_ptr(), w_parts[1].data_ptr() if two else None, whh_t.data_ptr(),
+        w_parts[0].data_ptr(), w_parts[1].data_ptr() if two else None, wfrag.data_ptr(),
         _ptr(dx_add[0]) if dx_add else None, _ptr(dx_add[1]) if dx_add and two else None,
         dxs[0].data_ptr(), dxs[1].data_ptr() if two else None,
-        dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(), dz.data_ptr(), part.data_ptr(),
-        splits, batch, steps, hidden, int(reverse), _stream(dev))
+        dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(), dz16.data_ptr(), db_part.data_ptr(),
+        part.data_ptr(), splits, batch, steps, hidden, plan.hc, plan.rows, plan.k_res,
+        int(reverse), _stream(dev))
     kernels.check(lib, err, "lstm_bwd")
     kernels.launch_counts["lstm_bwd"] += 1
     return tuple(dxs), dw_ih, dw_hh, db
@@ -621,16 +660,19 @@ def lstm_bwd_dualdir(res_f: torch.Tensor, h_f: torch.Tensor, g_f: torch.Tensor,
                 ("res_r", res_r, 6 * hidden), ("h_r", h_r, hidden), ("g_r", g_r, hidden))
     lib = kernels.load_library()
     dev = xs[0].device
+    plan = kernel_plan("bwd_dualdir", batch, hidden)
     widths = [x.shape[-1] for x in xs]
     wp_f = torch.split(w_ih_f.to(torch.bfloat16).contiguous(), widths, dim=0)
     wp_r = torch.split(w_ih_r.to(torch.bfloat16).contiguous(), widths, dim=0)
-    whh_t_f = w_hh_f.to(torch.bfloat16).t().contiguous()
-    whh_t_r = w_hh_r.to(torch.bfloat16).t().contiguous()
+    wfrag_f = lstm_plan.bwd_fragments(w_hh_f)
+    wfrag_r = lstm_plan.bwd_fragments(w_hh_r)
     dxs = [torch.empty_like(x) for x in xs]
     grads = [(torch.empty(sum(widths), g4, dtype=torch.float32, device=dev),
               torch.empty(hidden, g4, dtype=torch.float32, device=dev),
               torch.empty(g4, dtype=torch.float32, device=dev)) for _ in range(2)]
-    dz = torch.empty(2, batch, steps, g4, dtype=torch.float32, device=dev)
+    dz16 = torch.empty(2, batch, steps, g4, dtype=torch.bfloat16, device=dev)
+    db_part = torch.empty(2, -(-batch // lstm_plan.ROW_TILE), g4, dtype=torch.float32,
+                          device=dev)
     splits = kernels.gemm_splits(batch * steps)
     part = torch.empty(splits * max(widths + [hidden]) * g4, dtype=torch.float32, device=dev)
     two = len(xs) == 2
@@ -639,12 +681,13 @@ def lstm_bwd_dualdir(res_f: torch.Tensor, h_f: torch.Tensor, g_f: torch.Tensor,
         res_r.data_ptr(), h_r.data_ptr(), g_r.data_ptr(),
         xs[0].data_ptr(), _ptr(xs[1]) if two else None, widths[0], widths[1] if two else 0,
         int(mask_from_x), 1.0 / keep,
-        wp_f[0].data_ptr(), wp_f[1].data_ptr() if two else None, whh_t_f.data_ptr(),
-        wp_r[0].data_ptr(), wp_r[1].data_ptr() if two else None, whh_t_r.data_ptr(),
+        wp_f[0].data_ptr(), wp_f[1].data_ptr() if two else None, wfrag_f.data_ptr(),
+        wp_r[0].data_ptr(), wp_r[1].data_ptr() if two else None, wfrag_r.data_ptr(),
         dxs[0].data_ptr(), dxs[1].data_ptr() if two else None,
         *[t.data_ptr() for t in grads[0]], *[t.data_ptr() for t in grads[1]],
-        dz[0].data_ptr(), dz[1].data_ptr(), part.data_ptr(), splits,
-        batch, steps, hidden, _stream(dev))
+        dz16[0].data_ptr(), dz16[1].data_ptr(), db_part[0].data_ptr(), db_part[1].data_ptr(),
+        part.data_ptr(), splits, batch, steps, hidden, plan.hc, plan.rows, plan.k_res,
+        _stream(dev))
     kernels.check(lib, err, "lstm_bwd_dualdir")
     kernels.launch_counts["lstm_bwd_dualdir"] += 1
     return tuple(dxs), grads[0], grads[1]

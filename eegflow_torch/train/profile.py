@@ -1,7 +1,9 @@
-"""Profile one training micro-step on the GPU with ``torch.profiler``.
+"""Profile one training micro-step, or one served batch, on the GPU with
+``torch.profiler``.
 
     python -m eegflow_torch.train.profile [--impl kernel|plain] [--policy bf16|float32]
-                                          [--bwd fused|two_pass|dualdir] [--trace DIR]
+                                          [--bwd fused|two_pass|dualdir] [--infer]
+                                          [--trace DIR]
 
 Runs the full-width classifier (``ModelConfig()``, B=512, T=256, the bf16
 policy or, with ``--policy float32``, ``TrainConfig(bf16=False)``; random
@@ -10,7 +12,9 @@ schedule, ``make_train_step(..., lstm_bwd=...)``) through one forward + backward
 optimizer micro-step after two warm-up steps, and prints the step's wall
 time, the share of it in which the device was busy (the union of the
 device-side intervals: kernels, copies, memsets), and the device time by
-kernel name. ``--trace`` also writes the Chrome trace there. Needs CUDA.
+kernel name. ``--infer`` profiles one ``predict_batch`` of the coupled
+model on 1024 windows (the serving bucket) instead, after two warm-ups.
+``--trace`` also writes the Chrome trace there. Needs CUDA.
 """
 
 from __future__ import annotations
@@ -28,6 +32,7 @@ import numpy as np
 import torch
 
 BATCH, STEPS = 512, 256
+BUCKET = 1024
 
 
 def _kernel_key(name: str) -> str:
@@ -57,6 +62,7 @@ def main(argv=None) -> int:
     parser.add_argument("--impl", default="kernel", choices=["kernel", "plain"])
     parser.add_argument("--policy", default="bf16", choices=["bf16", "float32"])
     parser.add_argument("--bwd", default="fused", choices=["fused", "two_pass", "dualdir"])
+    parser.add_argument("--infer", action="store_true")
     parser.add_argument("--trace", default=None)
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
@@ -73,18 +79,31 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
     cfg = ModelConfig()
-    train_cfg = TrainConfig(lstm_impl=args.impl, bf16=args.policy == "bf16")
     params = classifier_init(cfg, make_generator(0), dev, trainable=True)
-    opt = make_optimizer(list(params.parameters()), train_cfg, updates_per_epoch=1)
-    step = make_train_step(cfg, train_cfg, opt, lstm_bwd=args.bwd)
     rng = np.random.default_rng(0)
-    x = torch.from_numpy(rng.standard_normal((BATCH, STEPS, cfg.input_size),
-                                             dtype=np.float32)).to(dev)
-    y = torch.from_numpy(rng.integers(0, 2, BATCH)).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(0)
+    if args.infer:
+        from eegflow_torch.core.config import CouplingConfig
+        from eegflow_torch.couple.rollout import CoupledModel, predict_batch
+        from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
 
-    def one_step():
-        step(params, x, y, draw_dropout_masks(cfg, BATCH, STEPS, gen, dev))
+        model = CoupledModel(params=params, model_cfg=cfg,
+                             k_base=rates_to_array(DEFAULT_RATES, dev),
+                             coupling=CouplingConfig(), lstm_impl=args.impl, device=dev)
+        windows = rng.standard_normal((BUCKET, STEPS, cfg.input_size)).astype(np.float32)
+
+        def one_step():
+            predict_batch(model, windows, batch_size=BUCKET, lstm_impl=args.impl)
+    else:
+        train_cfg = TrainConfig(lstm_impl=args.impl, bf16=args.policy == "bf16")
+        opt = make_optimizer(list(params.parameters()), train_cfg, updates_per_epoch=1)
+        step = make_train_step(cfg, train_cfg, opt, lstm_bwd=args.bwd)
+        x = torch.from_numpy(rng.standard_normal((BATCH, STEPS, cfg.input_size),
+                                                 dtype=np.float32)).to(dev)
+        y = torch.from_numpy(rng.integers(0, 2, BATCH)).to(dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def one_step():
+            step(params, x, y, draw_dropout_masks(cfg, BATCH, STEPS, gen, dev))
 
     for _ in range(2):
         one_step()
@@ -106,8 +125,10 @@ def main(argv=None) -> int:
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
-    print(f"micro-step B={BATCH} T={STEPS} impl={args.impl} policy={args.policy} "
-          f"bwd={args.bwd}: wall "
+    what = (f"predict_batch B={BUCKET} T={STEPS} impl={args.impl}" if args.infer else
+            f"micro-step B={BATCH} T={STEPS} impl={args.impl} policy={args.policy} "
+            f"bwd={args.bwd}")
+    print(f"{what}: wall "
           f"{wall_us / 1e3:.3f} ms (profiler on), device busy {busy / 1e3:.3f} ms = "
           f"{100 * busy / wall_us:.2f} %, idle {100 * (1 - busy / wall_us):.2f} %, "
           f"{len(device)} device operations, summed device time {total_dev / 1e3:.3f} ms "
@@ -118,7 +139,8 @@ def main(argv=None) -> int:
     if args.trace:
         Path(args.trace).mkdir(parents=True, exist_ok=True)
         prof.export_chrome_trace(
-            str(Path(args.trace) / f"train_step_{args.impl}_{args.policy}_{args.bwd}.json"))
+            str(Path(args.trace) / (f"predict_batch_{args.impl}.json" if args.infer else
+                                    f"train_step_{args.impl}_{args.policy}_{args.bwd}.json")))
     print(json.dumps({"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
                       "device_ms": total_dev / 1e3, "ops": len(device)}))
     return 0

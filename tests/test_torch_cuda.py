@@ -499,3 +499,91 @@ def test_training_micro_step_schedules_kernel_path_match_plain_path(dev, lstm_bw
         if a is not None:
             assert torch.equal(a, a2)
             assert _rel(a, c) <= STEP_REL_TOL
+
+
+# The cluster kernels (kernel 2's three modes, kernel 3) over the batch,
+# width and length range: every B in {1, 5, 17, 64}, H in {64, 128, 256, 512}
+# and T in {1, 7, 40} appears with one and two parts and both directions;
+# d_part 37 takes the projection's unaligned path; B=600 and B=1000 take
+# clusters of 32 and 48 rows. H=160 (2 CTAs of 80 units) and H=416 (4 of
+# 104, the slice partly streamed) take CTAs of more than 8 warps. Each launch
+# is repeated and must give the same bits.
+CLUSTER_CASES = [(1, 64, 1, 48), (5, 128, 7, 48), (17, 256, 40, 48), (64, 512, 40, 48),
+                 (64, 64, 7, 37), (17, 512, 1, 48), (5, 256, 40, 48), (1, 128, 40, 48),
+                 (600, 256, 7, 48), (1000, 256, 3, 48), (5, 160, 7, 48), (17, 416, 40, 48)]
+FWD_MODES = {"eval": (lstm_fwd_fused_proj, lstm_fwd_fused_proj_plain, "lstm_fwd"),
+             "planes": (lstm_fwd_train, lstm_fwd_train_plain, "lstm_fwd_train"),
+             "gates": (lstm_fwd_train_gates, lstm_fwd_train_gates_plain,
+                       "lstm_fwd_train_gates")}
+
+
+def _fwd_args(mode, w_ih, w_hh, b, xs, ms, keep, reverse):
+    if mode == "eval":
+        return (xs, w_ih, b, w_hh, reverse)
+    return (xs, w_ih, b, w_hh, reverse, ms, keep)
+
+
+@pytest.mark.parametrize("mode", list(FWD_MODES))
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch,hidden,steps,d_part", CLUSTER_CASES)
+def test_cluster_lstm_fwd_matches_twin_and_repeats_bitwise(dev, mode, n_parts, reverse, batch,
+                                                           hidden, steps, d_part):
+    kfn, pfn, name = FWD_MODES[mode]
+    w_ih, w_hh, b, xs, ms, keep = _lstm_case(make_generator(90 + n_parts), n_parts, batch,
+                                             hidden, dev, d_part=d_part, steps=steps)
+    args = _fwd_args(mode, w_ih, w_hh, b, xs, ms, keep, reverse)
+    before = kernels.launch_counts[name]
+    got, again = kfn(*args), kfn(*args)
+    assert kernels.launch_counts[name] == before + 2
+    want = pfn(*args)
+    torch.cuda.synchronize()
+    as_tuple = lambda out: out if isinstance(out, tuple) else (out,)  # noqa: E731
+    for a, a2, w in zip(as_tuple(got), as_tuple(again), as_tuple(want)):
+        assert (a - w).abs().max().item() <= LSTM_TOL
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_cluster_lstm_fwd_eval_at_the_serving_bucket(dev, n_parts, reverse):
+    """B=1024, the coupled-inference bucket: 48 rows a cluster."""
+    w_ih, w_hh, b, xs, _, _ = _lstm_case(make_generator(95), n_parts, 1024, 256, dev,
+                                         d_part=256, steps=40)
+    got = lstm_fwd_fused_proj(xs, w_ih, b, w_hh, reverse)
+    again = lstm_fwd_fused_proj(xs, w_ih, b, w_hh, reverse)
+    want = lstm_fwd_fused_proj_plain(xs, w_ih, b, w_hh, reverse)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= LSTM_TOL and torch.equal(got, again)
+
+
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch,hidden,steps,d_part", CLUSTER_CASES)
+def test_cluster_lstm_bwd_matches_twin_and_repeats_bitwise(dev, n_parts, reverse, batch, hidden,
+                                                           steps, d_part):
+    gen = make_generator(96 + n_parts)
+    w_ih, w_hh, b, xs, ms, keep = _lstm_case(gen, n_parts, batch, hidden, dev, d_part=d_part,
+                                             steps=steps)
+    h, res = lstm_fwd_train_plain(xs, w_ih, b, w_hh, reverse, ms, keep)
+    g = 0.1 * _randn(gen, *h.shape, dev=dev)
+    add = tuple(_randn(gen, *x.shape, dev=dev) for x in xs) if reverse else None
+    args = (res, h, g, xs, w_ih, w_hh, reverse, ms, keep, add)
+    before = kernels.launch_counts["lstm_bwd"]
+    got, again = lstm_bwd(*args), lstm_bwd(*args)
+    assert kernels.launch_counts["lstm_bwd"] == before + 2
+    want = lstm_bwd_plain(*args)
+    torch.cuda.synchronize()
+    for a, w in zip(got[0] + got[1:], want[0] + want[1:]):
+        assert _rel(a, w) <= BWD_REL_TOL
+    assert all(torch.equal(a, c) for a, c in zip(got[0] + got[1:], again[0] + again[1:]))
+
+
+def test_cluster_plans_query_the_card(dev):
+    """The plans of the main path's shapes: whole slices resident, one wave,
+    and the kernels' own shared memory (checked inside kernel_plan)."""
+    from eegflow_torch.nn.cuda_lstm import kernel_plan
+    for kind, batch, mode in (("fwd", 512, 1), ("fwd", 1024, 0), ("bwd", 512, 0),
+                              ("bwd_dualdir", 512, 0)):
+        p = kernel_plan(kind, batch, 256, mode)
+        assert p.hc == 4 and p.resident and p.max_clusters >= 1 and p.waves == 1

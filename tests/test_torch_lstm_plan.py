@@ -1,0 +1,202 @@
+"""The host side of the cluster LSTM kernels (kernels 2, 3 and 4), without a
+card: the launch planner of ``eegflow_torch.nn.lstm_plan`` and the weight
+layouts the wrappers build.
+
+The fragment tests decode the layouts with the B-operand fragment of
+``mma.sync.m16n8k16`` as the PTX ISA defines it (lane = 4 n + k-pair; b0, b1
+at k = 2 k-pair + 0/1, b2, b3 eight rows further), independently of the
+permutations that build them, and multiply in the order the kernels do."""
+
+import numpy as np
+import pytest
+import torch
+
+from eegflow_torch.nn import lstm_plan as lp
+
+HIDDEN = list(range(32, 513, 32))
+
+
+def _fixed(n):
+    """A card that holds ``n`` clusters of any geometry."""
+    return lambda rows, hc, k_res, smem, threads: n
+
+
+@pytest.mark.parametrize("hidden", HIDDEN)
+@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+def test_plan_geometry_fits_the_card(kind, hidden):
+    p = lp.plan(kind, 64, hidden, _fixed(32))
+    assert p.hc * p.units == hidden and p.units % 8 == 0 and 1 <= p.hc <= lp.MAX_CLUSTER
+    assert p.threads <= 512 and p.rows in (16, 32, 48) and (p.threads <= 256 or p.rows == 16)
+    assert p.smem == lp.smem_bytes(kind, hidden, p.units, p.rows, p.k_res) <= lp.SMEM_LIMIT
+    assert p.resident or (p.k_res % lp.K_STEP == 0 and 0 <= p.k_res < lp.k_total(kind, hidden))
+    if hidden in (64, 128, 256):  # what ModelConfig resolves to, and H=64: whole slice
+        assert p.resident
+    assert (p.hc, p.units) == {64: (1, 64), 128: (2, 64), 256: (4, 64)}.get(
+        hidden, (p.hc, p.units))
+
+
+@pytest.mark.parametrize("batch", [1, 5, 16, 17, 64, 512, 1000, 1024, 4096])
+@pytest.mark.parametrize("kind,directions", [("fwd", 1), ("bwd", 1), ("bwd", 2)])
+def test_plan_covers_every_row_once_within_the_active_clusters(kind, directions, batch):
+    active = 30  # what an H100 SXM holds of these clusters of 4
+    p = lp.plan(kind, batch, 256, _fixed(active), directions)
+    covered = [r for tile in range(p.tiles) for r in p.rows_of(tile)]
+    assert covered == list(range(batch))
+    assert p.clusters == p.tiles * directions
+    # every row count keeps the whole slice at H=256: the fewest waves win
+    assert p.resident
+    assert p.waves == -(-p.clusters // active) == min(
+        -(-(-(-batch // rows) * directions) // active) for rows in lp.ROWS)
+    if kind == "fwd" and batch in (512, 1024):  # the main path's shapes: one wave
+        assert (p.rows, p.waves) == ((32, 1) if batch == 512 else (48, 1))
+
+
+def test_plan_prefers_a_resident_slice_then_fewer_waves_then_fewer_rows():
+    # H=384 forward: 16 rows keep the whole slice, 32 do not
+    assert lp.resident_rows("fwd", 384, 64, 16) == 384 > lp.resident_rows("fwd", 384, 64, 32)
+    p = lp.plan("fwd", 1024, 384, _fixed(20))
+    assert (p.rows, p.resident, p.waves) == (16, True, 4)
+    # kernel 4 at B=512: 48 rows give one wave; kernel 3: a tie, the fewer rows
+    assert (lp.plan("bwd", 512, 256, _fixed(30), directions=2).rows,
+            lp.plan("bwd", 512, 256, _fixed(30)).rows) == (48, 32)
+    # H=512: no resident plan; the fewest waves, then the fewer rows
+    p = lp.plan("fwd", 1024, 512, _fixed(16))
+    assert not p.resident and (p.rows, p.waves) == (32, 2)
+
+
+@pytest.mark.parametrize("hidden", [0, 16, 48, 100, 544, 1024])
+def test_plan_rejects_hidden_outside_the_range(hidden):
+    with pytest.raises(ValueError, match="H % 32"):
+        lp.plan("fwd", 8, hidden, _fixed(32))
+
+
+def test_plan_raises_when_no_cluster_fits():
+    with pytest.raises(RuntimeError, match="fits on this card"):
+        lp.plan("fwd", 8, 256, _fixed(0))
+    seen = []
+    lp.plan("bwd", 8, 512, lambda rows, hc, k_res, smem, threads: seen.append(smem) or 4)
+    assert seen and max(seen) <= lp.SMEM_LIMIT  # over-large geometries are not queried
+
+
+def _decode_fwd(frag, hidden):
+    """W (H, 4H) in gate-interleaved column order, read from the forward
+    fragments the way a warp's lanes hold them."""
+    frag = frag.float().reshape(hidden // 8, hidden // 16, 2, 32, 2, 4).numpy()
+    w = np.zeros((hidden, 4 * hidden), np.float32)  # columns: octet, gate, unit
+    for o in range(hidden // 8):
+        for kt in range(hidden // 16):
+            for half in range(2):
+                for lane in range(32):
+                    n, kp = lane // 4, lane % 4
+                    for gi in range(2):
+                        b = frag[o, kt, half, lane, gi]
+                        col = (o * 4 + 2 * half + gi) * 8 + n
+                        k = kt * 16 + 2 * kp
+                        w[[k, k + 1, k + 8, k + 9], col] = b
+    return w
+
+
+def _decode_bwd(frag, hidden):
+    """W_hh^T (4H, H) read from the backward fragments as lanes hold them."""
+    frag = frag.float().reshape(hidden // 8, hidden // 8, 32, 2, 4).numpy()
+    wt = np.zeros((4 * hidden, hidden), np.float32)
+    for o in range(hidden // 8):
+        for kt2 in range(hidden // 8):
+            for lane in range(32):
+                n, kp = lane // 4, lane % 4
+                for kk in range(2):
+                    k = (2 * kt2 + kk) * 16 + 2 * kp
+                    wt[[k, k + 1, k + 8, k + 9], o * 8 + n] = frag[o, kt2, lane, kk]
+    return wt
+
+
+@pytest.mark.parametrize("hidden", [32, 64, 96])
+def test_fwd_fragments_round_trip_and_product(hidden):
+    rng = np.random.default_rng(hidden)
+    w = torch.from_numpy(rng.standard_normal((hidden, 4 * hidden)).astype(np.float32))
+    frag = lp.fwd_fragments(w)
+    assert frag.dtype == torch.bfloat16 and frag.numel() == w.numel()
+    assert torch.equal(lp.fwd_unfragment(frag, hidden), w.to(torch.bfloat16))
+    perm = lp.gate_interleave(hidden)
+    assert sorted(perm.tolist()) == list(range(4 * hidden))
+    w16 = w.to(torch.bfloat16).float()
+    decoded = _decode_fwd(frag, hidden)
+    assert np.array_equal(decoded, w16[:, perm].numpy())
+    h = torch.from_numpy(rng.standard_normal((16, hidden)).astype(np.float32))
+    h16 = h.to(torch.bfloat16).float()
+    np.testing.assert_allclose(h16.numpy() @ decoded, (h16 @ w16)[:, perm].numpy(),
+                               rtol=1e-5, atol=1e-4)
+
+
+@pytest.mark.parametrize("hidden", [32, 64, 96])
+def test_bwd_fragments_round_trip_and_product(hidden):
+    rng = np.random.default_rng(100 + hidden)
+    w = torch.from_numpy(rng.standard_normal((hidden, 4 * hidden)).astype(np.float32))
+    frag = lp.bwd_fragments(w)
+    assert frag.dtype == torch.bfloat16 and frag.numel() == w.numel()
+    assert torch.equal(lp.bwd_unfragment(frag, hidden), w.to(torch.bfloat16))
+    w16 = w.to(torch.bfloat16).float()
+    decoded = _decode_bwd(frag, hidden)
+    assert np.array_equal(decoded, w16.t().numpy())
+    dz = torch.from_numpy(rng.standard_normal((16, 4 * hidden)).astype(np.float32))
+    dz16 = dz.to(torch.bfloat16).float()
+    np.testing.assert_allclose(dz16.numpy() @ decoded, (dz16 @ w16.t()).numpy(), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_a_cta_slice_is_contiguous_in_fragment_order():
+    """A CTA copies its slice as one block per octet: octet o's fragments
+    are row o of both layouts."""
+    hidden = 64
+    octet_of_col = (torch.arange(4 * hidden) % hidden) // 8
+    f = lp.fwd_fragments(octet_of_col.float().expand(hidden, -1))
+    b = lp.bwd_fragments((torch.arange(hidden) // 8).float()[:, None].expand(-1, 4 * hidden))
+    for o in range(hidden // 8):
+        assert (f[o].float() == o).all() and (b[o].float() == o).all()
+
+
+@pytest.mark.parametrize("allowed", [(16,), (32,), (48,), (16, 48)])
+def test_plan_takes_only_the_rows_it_is_allowed(allowed):
+    # kernel 4 at B=512 on 30 clusters: the more rows, the fewer waves
+    p = lp.plan("bwd", 512, 256, _fixed(30), directions=2, rows_allowed=allowed)
+    assert p.rows == max(allowed) and p.resident
+
+
+@pytest.mark.parametrize("rows", [(), (8,), (16, 64)])
+def test_plan_rejects_rows_outside_the_kernels_tiles(rows):
+    with pytest.raises(ValueError, match="subset"):
+        lp.plan("fwd", 64, 256, _fixed(30), rows_allowed=rows)
+    from eegflow_torch.nn import cuda_lstm
+
+    with pytest.raises(ValueError, match="subset"):
+        cuda_lstm.restrict_plan_rows(rows)
+    assert cuda_lstm._plan_rows == lp.ROWS
+
+
+@pytest.mark.parametrize("variant", ["base", "nomma", "noexch", "nostore", "noload"])
+def test_ablation_variants_patch_the_current_sources(variant, tmp_path):
+    """Each text an ablation replaces occurs once in today's kernel sources,
+    so the variant builds what its name says."""
+    from eegflow_torch import kernels
+    from eegflow_torch.kernels import ablate
+
+    src = ablate.patched_sources(variant, tmp_path)
+    changed = {p.name for p in src.iterdir()
+               if p.read_bytes() != (kernels.CSRC / p.name).read_bytes()}
+    assert changed == {name for name, _, _ in ablate.VARIANTS[variant]}
+    for name, text, repl in ablate.VARIANTS[variant]:
+        assert (kernels.CSRC / name).read_text().count(text) == 1
+        assert repl in (src / name).read_text()
+
+
+def test_load_library_keeps_one_build_per_process(tmp_path, monkeypatch):
+    """A second build of the library in one process faults: once a library
+    is loaded, naming other sources raises."""
+    from eegflow_torch import kernels
+
+    monkeypatch.setattr(kernels, "_lib", object())
+    monkeypatch.setattr(kernels, "_lib_csrc", kernels.CSRC.resolve())
+    assert kernels.load_library() is kernels._lib
+    assert kernels.load_library(kernels.CSRC) is kernels._lib
+    with pytest.raises(RuntimeError, match="built from"):
+        kernels.load_library(tmp_path)
