@@ -31,7 +31,7 @@ class CoupledModel:
     k_base: torch.Tensor
     coupling: CouplingConfig
     lstm_impl: str = "auto"
-    device: torch.device = torch.device("cpu")
+    device: torch.device = torch.device("cuda")
 
 
 def coupled_rollout(

@@ -53,7 +53,7 @@ def predict_probs(params: Any, x: Union[np.ndarray, torch.Tensor], model_cfg: Mo
 
 def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray,
                      y_val: np.ndarray, model_cfg: ModelConfig, train_cfg: TrainConfig,
-                     device: Union[torch.device, str] = "cpu", verbose: bool = True,
+                     device: Union[torch.device, str] = "cuda", verbose: bool = True,
                      epoch_transform: Optional[Callable] = None) -> TrainResult:
     """Full training run -> best params + history.
 

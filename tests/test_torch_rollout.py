@@ -161,7 +161,8 @@ def test_predict_batch_matches_jax_rollout():
     x = _windows(6, 11)
     want = jax_predict_batch(JaxCoupledModel(jp, jc, jax_rates(DEFAULT_RATES),
                                              jcfg.CouplingConfig(), lstm_impl="pallas"), x)
-    model = CoupledModel(tp, tc, rates_to_array(DEFAULT_RATES), tcfg.CouplingConfig())
+    model = CoupledModel(tp, tc, rates_to_array(DEFAULT_RATES), tcfg.CouplingConfig(),
+                         device=torch.device("cpu"))
     got = predict_batch(model, x)
     assert set(got) == set(want)
     for name in ("probs", "attention", "trajectories", "final_state"):
@@ -177,7 +178,8 @@ def test_predict_batch_buckets_and_chunks():
     same rows as one rollout over the whole batch."""
     _, _, tp, tc = _models(SMALL, seed=5)
     x = _windows(7, 13)
-    model = CoupledModel(tp, tc, rates_to_array(DEFAULT_RATES), tcfg.CouplingConfig())
+    model = CoupledModel(tp, tc, rates_to_array(DEFAULT_RATES), tcfg.CouplingConfig(),
+                         device=torch.device("cpu"))
     chunked = predict_batch(model, x, batch_size=8)
     whole = coupled_rollout(tp, torch.from_numpy(x), model.k_base, tc)
     for name, val in chunked.items():

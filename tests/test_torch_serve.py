@@ -33,6 +33,7 @@ def server():
         model_cfg=TOY_CFG,
         k_base=rates_to_array(DEFAULT_RATES),
         coupling=CouplingConfig(),
+        device=torch.device("cpu"),
     )
     httpd = serve(model, host="127.0.0.1", port=0, warmup_seq_len=16)
     thread = threading.Thread(target=httpd.serve_forever, daemon=True)
@@ -126,3 +127,16 @@ def test_cuda_device_without_gpu_raises():
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device("cuda")
     assert resolve_device("cpu").type == "cpu"
+
+
+def test_trainer_and_served_model_default_to_the_card():
+    """As the CLI's --device: the entry points run on the card unless the
+    caller asks for the CPU, as these tests do."""
+    import inspect
+
+    from eegflow_torch.train.loop import train_classifier
+
+    assert inspect.signature(train_classifier).parameters["device"].default == "cuda"
+    model = CoupledModel(params={}, model_cfg=TOY_CFG, k_base=torch.zeros(6),
+                         coupling=CouplingConfig())
+    assert model.device == torch.device("cuda")

@@ -364,8 +364,8 @@ def test_train_classifier_learns_and_is_bitwise_deterministic():
     train_cfg = tcfg.TrainConfig(epochs=4, batch_size=16, accumulation_steps=2,
                                  eval_batch_size=32, learning_rate=3e-3, warmup_epochs=1,
                                  patience=10)
-    runs = [train_classifier(x_tr, y_tr, x_va, y_va, model_cfg, train_cfg, verbose=False)
-            for _ in range(2)]
+    runs = [train_classifier(x_tr, y_tr, x_va, y_va, model_cfg, train_cfg, device="cpu",
+                             verbose=False) for _ in range(2)]
     a, b = runs
     for k in ("train_loss", "val_loss", "val_acc", "val_f1", "learning_rates"):
         assert a.history[k] == b.history[k], k
