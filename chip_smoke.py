@@ -9,7 +9,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      ptxas's register, spill and shared-memory report, and the cluster plan
      of each recurrent kernel at the main path's shapes (rows per cluster,
      cudaOccupancyMaxActiveClusters, waves, resident weight rows, shared
-     memory);
+     memory): kernel 2's three modes, kernels 3, 3b and 4 at B=512, kernel 1
+     (float32) in training mode at B=512 and in eval mode at B=512 and 1024;
   3. lstm_fwd against its plain twin at B=64, T=256, H=256, one and two
      input parts, both directions, and bitwise against itself;
   4. pool_head_fwd against its plain twin: two parts of 256, K=256, T=256;
@@ -40,9 +41,10 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      bitwise repeat; then times the micro-step on both paths and each
      training kernel against its twin at B=512;
  10. the float32 policy's kernels against their twins: lstm_rec_fwd (eval and
-     training mode) and lstm_rec_bwd at B=64, T=256, H=256 on the gates of
-     one- and two-part inputs, both directions; input_block_fwd and
-     input_block_bwd in both modes; attention_pool at D=256;
+     training mode, each also bitwise against itself) and lstm_rec_bwd at
+     B=64, T=256, H=256 on the gates of one- and two-part inputs, both
+     directions; input_block_fwd and input_block_bwd in both modes;
+     attention_pool at D=256;
  11. attention_pool through its entry point, attention_pool_apply, at B=512,
      T=256, D=256 (no classifier path calls it), against its twin;
  12. the `train` stage with --config {"train": {"bf16": false}} for 1 epoch on
@@ -52,8 +54,12 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      its checkpoint, and coupled_rollout(bf16=False) on it, kernel path
      against plain path;
  13. one float32 micro-step at B=512, kernel path against plain path (loss,
-     every gradient, bitwise repeat), timed on both paths, and each float32
-     kernel (and the input block in both modes) timed against its twin;
+     every gradient, bitwise repeat), timed on both paths and in turns with
+     the bf16 "fused" step; lstm_rec_fwd on the plans the main path launches
+     (training and eval at B=512, eval at B=1024) held to its twin and to a
+     bitwise repeat, and lstm_rec_bwd's recomputed pre-activations held to
+     lstm_rec_fwd's bit for bit; each float32 kernel (and the input block in
+     both modes) timed against its twin, lstm_rec_fwd eval also at B=1024;
  14. the kernels of the two other bf16 backward schedules against their
      twins at B=64, T=256, H=256, one and two parts: lstm_fwd_train_gates
      (h, gates, c; both directions; bitwise repeat), lstm_bwd_v2 on the same
@@ -64,8 +70,9 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      "dualdir", kernel path against plain path (loss, every gradient, bitwise
      repeat, exact launch counts), each timed in turns against "fused", and
      lstm_bwd_v2 and lstm_bwd_dualdir timed at B=512 against their twins and
-     against kernel 3 on the same work; lstm_fwd_train_gates and
-     lstm_bwd_dualdir at B=512 held to their twins and to bitwise repeats,
+     against kernel 3 on the same work; lstm_fwd_train_gates, lstm_bwd_v2
+     (two parts, dx_add) and lstm_bwd_dualdir at B=512 held to their twins
+     and to bitwise repeats,
      and lstm_bwd_dualdir without dropout to two lstm_bwd launches bit for
      bit; then one cuDNN LSTM call per LSTM kernel at its shape as a
      yardstick (never on the port's path).
@@ -267,6 +274,7 @@ def main() -> int:
                                             lstm_fwd_fused_proj, lstm_fwd_fused_proj_plain,
                                             lstm_fwd_train, lstm_fwd_train_gates,
                                             lstm_fwd_train_gates_plain, lstm_fwd_train_plain,
+                                            lstm_rec_preactivations,
                                             lstm_recurrence, lstm_recurrence_backward,
                                             lstm_recurrence_backward_plain,
                                             lstm_recurrence_plain, select_dropout)
@@ -297,14 +305,19 @@ def main() -> int:
         for line in kernels.build_info["log"].splitlines():
             if "Compiling entry" in line or "registers" in line or "spill" in line:
                 print("  ptxas: " + line.strip())
-    # the cluster plans of kernels 2, 3 and 4 at the main path's shapes
+    # the cluster plans of kernels 1-4 at the main path's shapes
     for kind, batch, mode, label in (("fwd", BUCKET, 0, "lstm_fwd"),
                                      ("fwd", B_TRAIN, 1, "lstm_fwd_train"),
                                      ("fwd", B_TRAIN, 2, "lstm_fwd_train_gates"),
                                      ("bwd", B_TRAIN, 0, "lstm_bwd"),
+                                     ("bwd_v2", B_TRAIN, 0, "lstm_bwd_v2"),
                                      ("bwd_dualdir", B_TRAIN, 0, "lstm_bwd_dualdir"),
+                                     ("rec", B_TRAIN, 1, "lstm_rec_fwd_train"),
+                                     ("rec", B_TRAIN, 0, "lstm_rec_fwd"),
+                                     ("rec", BUCKET, 0, "lstm_rec_fwd"),
                                      ("fwd", B_CHECK, 1, "lstm_fwd_train"),
-                                     ("bwd", B_CHECK, 0, "lstm_bwd")):
+                                     ("bwd", B_CHECK, 0, "lstm_bwd"),
+                                     ("rec", B_CHECK, 1, "lstm_rec_fwd_train")):
         print(f"cluster plan {label}: {kernel_plan(kind, batch, H, mode).describe()}")
     print(flush=True)
 
@@ -677,13 +690,17 @@ def main() -> int:
             h_e = lstm_recurrence(gates, p["w_hh"], reverse)
             h_k, c_k = lstm_recurrence(gates, p["w_hh"], reverse, True)
             h_p, c_p = lstm_recurrence_plain(gates, p["w_hh"], reverse, True)
+            same = (torch.equal(h_e, lstm_recurrence(gates, p["w_hh"], reverse))
+                    and all(torch.equal(a, b) for a, b in
+                            zip((h_k, c_k), lstm_recurrence(gates, p["w_hh"], reverse, True))))
             torch.cuda.synchronize()
             err = max((h_e - h_p).abs().max().item(), (h_k - h_p).abs().max().item(),
                       (c_k - c_p).abs().max().item())
             print(f"lstm_rec_fwd parts={n_parts} reverse={reverse} B={B_CHECK} T={T} H={H}: "
-                  f"h (eval, training) and c max_abs_diff {err:.3e} (tol {REC_TOL:g})")
-            require(bool(torch.isfinite(h_k).all()) and err <= REC_TOL,
-                    f"lstm_rec_fwd within {REC_TOL} of its twin")
+                  f"h (eval, training) and c max_abs_diff {err:.3e} (tol {REC_TOL:g}); repeat "
+                  f"bitwise identical: {same}")
+            require(bool(torch.isfinite(h_k).all()) and err <= REC_TOL and same,
+                    f"lstm_rec_fwd within {REC_TOL} of its twin, bitwise repeatable")
             rec_err = max(rec_err, err)
             g_up = 0.1 * randn(B_CHECK, T, H)
             got = lstm_recurrence_backward(gates, h_p, c_p, p["w_hh"], g_up, reverse)
@@ -839,14 +856,46 @@ def main() -> int:
     require(bitwise, "float32 kernel-path gradients bitwise repeatable")
     del grads_k, grads_k2, grads_p
     step32_ms = median_ms({"plain": lambda: micro_step("plain", None),
-                           "kernel": lambda: micro_step("kernel", None)})
+                           "kernel": lambda: micro_step("kernel", None),
+                           "bf16 fused": lambda: micro_step("kernel")})
     for impl in ("kernel", "plain"):
         print(f"float32 training micro-step (forward + backward) B={B_TRAIN} T={T} "
               f"lstm_impl={impl}: median {step32_ms[impl]:.3f} ms, "
-              f"{B_TRAIN / step32_ms[impl] * 1e3:.1f} windows/s [{smi}]")
+              f"{B_TRAIN / step32_ms[impl] * 1e3:.1f} windows/s (in turns with the bf16 "
+              f"\"fused\" step on the kernel path, {step32_ms['bf16 fused']:.3f} ms) [{smi}]")
 
     gates2 = torch.cat(xs2, dim=-1) @ p1["w_ih"] + p1["b"]
     h32, c32 = lstm_recurrence_plain(gates2, p1["w_hh"], True, True)
+    # kernel 1 on the plans the main path launches: training (the float32
+    # micro-step) and eval at B=512, eval at the serving bucket
+    # (coupled_rollout(bf16=False) of a 1024-window batch)
+    gates_big = (torch.cat(tuple(torch.tanh(randn(BUCKET, T, H)) for _ in range(2)), dim=-1)
+                 @ p1["w_ih"] + p1["b"])
+    h_big = lstm_recurrence_plain(gates_big, p1["w_hh"], False)
+    for label, args, want in (("training", (gates2, p1["w_hh"], True, True), [h32, c32]),
+                              ("eval", (gates2, p1["w_hh"], True), [h32]),
+                              ("eval", (gates_big, p1["w_hh"], False), [h_big])):
+        plan = kernel_plan("rec", args[0].shape[0], H, int(len(args) == 4))
+        as_list = lambda out: list(out) if isinstance(out, tuple) else [out]  # noqa: E731
+        rec_err = max(rec_err, hold_at_main_shape(
+            f"lstm_rec_fwd {label} B={args[0].shape[0]} T={T} H={H} ({plan.rows} rows a cluster "
+            f"of {plan.hc}, {plan.clusters} clusters in {plan.waves} wave(s)): "
+            + ("h, c" if len(want) == 2 else "h"), as_list(lstm_recurrence(*args)),
+            as_list(lstm_recurrence(*args)), want, REC_TOL, relative=False))
+    # kernel 5 recomputes kernel 1's pre-activations bit for bit (both sum
+    # each product with k ascending from 0 and add the gate last)
+    z_fwd, z_bwd = lstm_rec_preactivations(gates2, p1["w_hh"], True)
+    torch.cuda.synchronize()
+    z_same = torch.equal(z_fwd, z_bwd)
+    print(f"lstm_rec_bwd's recomputed z vs lstm_rec_fwd's pre-activations B={B_TRAIN}: bit for "
+          f"bit {z_same}, max abs diff {(z_fwd - z_bwd).abs().max().item():.3e}")
+    require(z_same, "kernel 5 recomputes kernel 1's pre-activations bit for bit")
+    del z_fwd, z_bwd, h_big
+    m = median_ms({"plain": lambda: lstm_recurrence_plain(gates_big, p1["w_hh"], False),
+                   "kernel": lambda: lstm_recurrence(gates_big, p1["w_hh"], False)}, rounds=1)
+    print(f"lstm_rec_fwd eval B={BUCKET} T={T} H={H}: kernel {m['kernel']:.3f} ms, plain "
+          f"{m['plain']:.3f} ms [{smi}]", flush=True)
+    del gates_big
     x512 = randn(B_TRAIN, T, C)
     dy512 = randn(B_TRAIN, T, H)
     ib = (params["input_proj"], params["input_norm"])
@@ -1006,6 +1055,11 @@ def main() -> int:
     work["lstm_fwd_train_gates"] = (nbytes(fargs, (h_g, gates_g, c_g)),
                                     lstm_flops(B_TRAIN, 2 * H, H), "bf16")
     work["lstm_bwd_v2"] = (nbytes(v2_args, lstm_bwd_v2(*v2_args)), bwd_flops, "bf16")
+    v2_err = max(v2_err, hold_at_main_shape(
+        f"lstm_bwd_v2 B={B_TRAIN} T={T} H={H} parts=2 reverse dx_add "
+        f"({kernel_plan('bwd_v2', B_TRAIN, H).rows} rows a cluster): dx, dW_ih, dW_hh, db",
+        flat_bwd(lstm_bwd_v2(*v2_args)), flat_bwd(lstm_bwd_v2(*v2_args)),
+        flat_bwd(lstm_bwd_v2_plain(*v2_args)), BWD_REL_TOL, relative=True))
     gates_err = max(gates_err, hold_at_main_shape(
         f"lstm_fwd_train_gates B={B_TRAIN} T={T} H={H} parts=2 reverse "
         f"({kernel_plan('fwd', B_TRAIN, H, 2).rows} rows a cluster): h, gates, c",
@@ -1104,6 +1158,7 @@ def main() -> int:
         "lstm_rec_fwd": library_lstm_ms(B_TRAIN, torch.float32),
         "lstm_rec_fwd_train": library_lstm_ms(B_TRAIN, torch.float32, train=True),
         "lstm_rec_bwd": library_lstm_ms(B_TRAIN, torch.float32, backward=True),
+        f"lstm_rec_fwd B={BUCKET}": library_lstm_ms(BUCKET, torch.float32),
     }
     library_ms["lstm_fwd_train_gates"] = library_ms["lstm_fwd_train"]
     library_ms["lstm_bwd_v2"] = library_ms["lstm_bwd"]

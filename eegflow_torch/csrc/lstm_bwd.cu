@@ -54,7 +54,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
 lstm_bwd_chain_kernel(const float* __restrict__ res, const float* __restrict__ g,
                       const uint4* __restrict__ wfrag, __nv_bfloat16* __restrict__ dz16,
                       float* __restrict__ db_part, int B, int T, int H, int k_res, int reverse) {
-  chain_direction<kMT>(res, g, wfrag, dz16, db_part, B, T, H, k_res, reverse);
+  chain_direction<kMT, false>(res, nullptr, g, wfrag, dz16, db_part, B, T, H, k_res,
+                              reverse);
 }
 
 }  // namespace

@@ -1,14 +1,19 @@
-// The adjoint chain and the products shared by the backward kernels that
-// read the six adjoint planes: kernel 3 (lstm_bwd.cu, one direction a
-// launch) and kernel 4 (lstm_bwd_dualdir.cu, both directions in one launch).
-// With them it replaces the adjoint and the products of
-// eegflow/nn/pallas_lstm.py _bwd_fused_kernel and _bwd_dualdir_kernel.
+// The adjoint chain and the products shared by the bf16 backward kernels:
+// kernel 3 (lstm_bwd.cu, one direction a launch) and kernel 4
+// (lstm_bwd_dualdir.cu, both directions in one launch) from the six adjoint
+// planes, kernel 3b (lstm_bwd_v2.cu) from the raw gates and c. With them it
+// replaces the adjoint and the products of eegflow/nn/pallas_lstm.py
+// _bwd_fused_kernel, _bwd_dualdir_kernel and _bwd_fused_kernel_v2.
 //
 // The chain walks against the direction of time (t = T-1..0 for the forward
 // direction, 0..T-1 for the reverse one):
 //   dh = g[t] + dh_carry;   dc = dh E + dc_carry;   dc_carry = dc F
 //   dz = [dc A, dc B, dc C, dh G]                    (float32)
 //   dh_carry = bf16(dz) . bf16(W_hh)^T
+// from the planes, or from the raw gates [i, f, g, o], c and c_prev (c at the
+// step before t in the forward's order, zero before the direction's first):
+//   do = dh tanh(c);  dc = dh o (1 - tanh^2 c) + dc_carry;  dc_carry = dc f
+//   dz = [dc g i(1-i), dc c_prev f(1-f), dc i (1-g^2), do o(1-o)]
 // and the products, with h_prev[t] the state before step t and x_p masked
 // as in the forward:
 //   dx_p = bf16(dz) . bf16(W_ih_p)^T (masked, plus the sibling's dx)
@@ -79,11 +84,13 @@ __device__ __forceinline__ void bwd_kquad(float (&acc)[4][kMT][4], uint32_t a_ad
 // entry functions with __restrict__ pointers. Thread (warp w, lane = 4 g + q)
 // of CTA `rank` owns units u0 = 8 (rank * warps + w) + 2 q, u0 + 1 and, in
 // m-tile mt, rows 16 mt + g and 16 mt + g + 8 of the tile.
-//   res (B, T, 6H), g (B, T, H) float32; wfrag W_hh^T in the fragment order
-//   of nn/lstm_plan.py bwd_fragments; dz16 (B, T, 4H) bf16 out; db_part
+//   res (B, T, 6H) planes, or with kRaw the raw gates (B, T, 4H) and cst the
+//   cell state c (B, T, H); g (B, T, H) float32; wfrag W_hh^T in the fragment
+//   order of nn/lstm_plan.py bwd_fragments; dz16 (B, T, 4H) bf16 out; db_part
 //   (ceil(B / 16), 4H) float32 out.
-template <int kMT>
+template <int kMT, bool kRaw>
 __device__ __forceinline__ void chain_direction(const float* __restrict__ res,
+                                                const float* __restrict__ cst,
                                                 const float* __restrict__ gup,
                                                 const uint4* __restrict__ wfrag,
                                                 __nv_bfloat16* __restrict__ dz16,
@@ -111,21 +118,32 @@ __device__ __forceinline__ void chain_direction(const float* __restrict__ res,
     wsm[i] = wfrag[(static_cast<size_t>(rank) * warps + w) * KT2 * 32 + (i - w * KT2_res * 32)];
   }
 
-  // the planes A..G and g of step t for this thread's pairs: [mt][k][2 rh + uu]
+  // what step t reads for this thread's pairs, [mt][k][2 rh + uu]: the planes
+  // A..G and g, or (kRaw) i, f, g, o, c, c_prev and g. One loader serves both,
+  // so the ablations of eegflow_torch.kernels.ablate patch both alike.
   float pl[kMT][7][4];
   auto load_planes = [&](int t) {
+    const int tp = reverse ? t + 1 : t - 1;
+    const bool has_prev = tp >= 0 && tp < T;
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
       for (int rh = 0; rh < 2; ++rh) {
         const int row = row0 + 16 * mt + 8 * rh + g;
         const size_t bt = static_cast<size_t>(row) * T + t;
+        const size_t btp = has_prev ? static_cast<size_t>(row) * T + tp : bt;
 #pragma unroll
         for (int k = 0; k < 7; ++k) {
+          const float* src;
+          if (kRaw)
+            src = k < 4 ? res + bt * 4 * H + k * H : k == 4 ? cst + bt * H
+                        : k == 5 ? cst + btp * H : gup + bt * H;
+          else
+            src = k < 6 ? res + bt * 6 * H + k * H : gup + bt * H;
           float2 v = make_float2(0.f, 0.f);
           if (row < B)
-            v = __ldcs(reinterpret_cast<const float2*>(
-                k < 6 ? res + bt * 6 * H + k * H + u0 : gup + bt * H + u0));
+            v = __ldcs(reinterpret_cast<const float2*>(src + u0));
+          if (kRaw && k == 5 && !has_prev) v = make_float2(0.f, 0.f);
           pl[mt][k][2 * rh] = v.x;
           pl[mt][k][2 * rh + 1] = v.y;
         }
@@ -154,12 +172,24 @@ __device__ __forceinline__ void chain_direction(const float* __restrict__ res,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const float dh = pl[mt][6][e] + dh_c[mt][e];
-        const float dc = dh * pl[mt][3][e] + dc_c[mt][e];
-        dc_c[mt][e] = dc * pl[mt][4][e];
-        z[0][e] = dc * pl[mt][0][e];
-        z[1][e] = dc * pl[mt][1][e];
-        z[2][e] = dc * pl[mt][2][e];
-        z[3][e] = dh * pl[mt][5][e];
+        if (kRaw) {
+          const float gi = pl[mt][0][e], gf = pl[mt][1][e], gg = pl[mt][2][e];
+          const float go = pl[mt][3][e], tc = tanhf(pl[mt][4][e]);
+          const float d_o = dh * tc;
+          const float dc = dh * go * (1.f - tc * tc) + dc_c[mt][e];
+          dc_c[mt][e] = dc * gf;
+          z[0][e] = dc * gg * gi * (1.f - gi);
+          z[1][e] = dc * pl[mt][5][e] * gf * (1.f - gf);
+          z[2][e] = dc * gi * (1.f - gg * gg);
+          z[3][e] = d_o * go * (1.f - go);
+        } else {
+          const float dc = dh * pl[mt][3][e] + dc_c[mt][e];
+          dc_c[mt][e] = dc * pl[mt][4][e];
+          z[0][e] = dc * pl[mt][0][e];
+          z[1][e] = dc * pl[mt][1][e];
+          z[2][e] = dc * pl[mt][2][e];
+          z[3][e] = dh * pl[mt][5][e];
+        }
       }
 #pragma unroll
       for (int gate = 0; gate < 4; ++gate) {

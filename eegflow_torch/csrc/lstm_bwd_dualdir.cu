@@ -59,9 +59,11 @@ template <int kMT, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 lstm_bwd_dualdir_chain_kernel(Dir fwd, Dir rev, int B, int T, int H, int k_res) {
   if (blockIdx.y == 0)
-    chain_direction<kMT>(fwd.res, fwd.g, fwd.wfrag, fwd.dz16, fwd.db_part, B, T, H, k_res, 0);
+    chain_direction<kMT, false>(fwd.res, nullptr, fwd.g, fwd.wfrag, fwd.dz16, fwd.db_part, B,
+                                T, H, k_res, 0);
   else
-    chain_direction<kMT>(rev.res, rev.g, rev.wfrag, rev.dz16, rev.db_part, B, T, H, k_res, 1);
+    chain_direction<kMT, false>(rev.res, nullptr, rev.g, rev.wfrag, rev.dz16, rev.db_part, B,
+                                T, H, k_res, 1);
 }
 
 }  // namespace

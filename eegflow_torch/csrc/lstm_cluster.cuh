@@ -1,15 +1,17 @@
 // The thread-block-cluster pieces of the recurrent LSTM kernels (kernel 2's
-// recurrence in lstm_fwd.cu, the adjoint chain of kernels 3 and 4 in
-// lstm_bwd_chain.cuh): the geometry of a launch, the cluster barrier, stores
-// into another CTA's shared memory, and the launch itself.
+// recurrence in lstm_fwd.cu, the adjoint chain of kernels 3, 3b and 4 in
+// lstm_bwd_chain.cuh, kernel 1's float32 recurrence in lstm_rec.cu): the
+// geometry of a launch, the cluster barrier, stores into another CTA's
+// shared memory, and the launch itself.
 //
 // A cluster of hc CTAs owns 16 * kMT batch rows (kMT = 1..3 mma m-tiles)
-// and one direction; CTA `rank` owns the hidden units of octets rank * warps
-// .. (rank + 1) * warps - 1, one warp per octet of 8 units, and keeps its
-// slice of the recurrent weight (in the fragment order nn/lstm_plan.py
-// builds) in shared memory: the first k_res rows of it, the rest read from
-// L2 each step. Each step a CTA sends its part of the new state (bf16) to
-// every CTA of the cluster through distributed shared memory, then arrives
+// and one direction; CTA `rank` owns U = H / hc hidden units with 4 U
+// threads (bf16 kernels: one warp per octet of 8 units; kernel 1: four row
+// groups of U threads) and keeps its slice of the recurrent weight (in the
+// layout nn/lstm_plan.py builds) in shared memory: the first k_res rows of
+// it, the rest read from L2 each step. Each step a CTA sends its part of
+// the new state (bf16, or float32 in kernel 1) to every CTA of the cluster
+// through distributed shared memory, then arrives
 // at the cluster barrier (release); work that does not need the exchange
 // (HBM stores, the next step's loads) goes before the wait (acquire). The
 // forward double-buffers h, so one barrier per step is enough: a CTA writes
@@ -87,17 +89,23 @@ struct ClusterGeom {
   int hc;     // CTAs per cluster
   int rows;   // batch rows per cluster: 16, 32 or 48
   int k_res;  // resident rows of the CTA's weight slice
-  int kind;   // 0: forward (K = H, 4U columns); 1: backward (K = 4H, U columns)
+  int kind;   // 0: forward (K = H, 4U bf16 columns); 1: backward (K = 4H, U
+              // bf16 columns); 2: float32 recurrence (K = H, 4U float32 columns)
 
   int units() const { return H / hc; }
   int threads() const { return 32 * (units() / 8); }
-  int k_total() const { return kind == 0 ? H : 4 * H; }
-  size_t slice_row_bytes() const { return (kind == 0 ? 4 * units() : units()) * 2; }
-  // the weight slice's k_res rows, then the bf16 state buffers (two
-  // forward, one backward) of `rows` rows of K + 8 elements
+  int k_total() const { return kind == 1 ? 4 * H : H; }
+  size_t slice_row_bytes() const {
+    return kind == 0 ? 4 * units() * 2 : kind == 1 ? units() * 2 : 4 * units() * 4;
+  }
+  // the weight slice's k_res rows, then the state buffers: two bf16 ones
+  // (forward) or one (backward) of `rows` rows of K + 8 elements, or two
+  // float32 ones (float32 recurrence) of rows of H + 4
   size_t smem_bytes() const {
-    return static_cast<size_t>(k_res) * slice_row_bytes() +
-           (kind == 0 ? 2 : 1) * static_cast<size_t>(rows) * (k_total() + 8) * 2;
+    const size_t state = kind == 2 ? 2 * static_cast<size_t>(rows) * (H + 4) * 4
+                                   : (kind == 0 ? 2 : 1) * static_cast<size_t>(rows) *
+                                         (k_total() + 8) * 2;
+    return static_cast<size_t>(k_res) * slice_row_bytes() + state;
   }
   bool valid() const {
     return H % 32 == 0 && H >= 32 && H <= 512 && hc >= 1 && hc <= 8 && H % (8 * hc) == 0 &&

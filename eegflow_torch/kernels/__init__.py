@@ -76,12 +76,15 @@ _SIGNATURES = {
     # H, hc, rows, k_res, *smem, *clusters
     "eegflow_lstm_bwd_plan": [_I, _I, _I, _I, _P, _P],
     # lstm_bwd_v2.cu, kernel 3b:
-    # gates, c, h, g, x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, whh_t, add0,
-    # add1, dx0, dx1, dw_ih, dw_hh, db, carry, db_part, dz16, part, splits,
-    # t_chunk, B, T, H, reverse, stream, aux_stream
+    # gates, c, h, g, x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, wfrag, add0,
+    # add1, dx0, dx1, dw_ih, dw_hh, db, dz16, db_part, part, splits, B, T, H,
+    # hc, rows, k_res, reverse, stream
     "eegflow_lstm_bwd_v2": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P,
-                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                            _I, _P, _P],
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                            _I, _I, _P],
+    # lstm_bwd_v2.cu, its chain's shared memory and clusters held at once:
+    # H, hc, rows, k_res, *smem, *clusters
+    "eegflow_lstm_bwd_v2_plan": [_I, _I, _I, _I, _P, _P],
     # lstm_bwd_dualdir.cu, kernel 4:
     # res_f, h_f, g_f, res_r, h_r, g_r, x0, x1, d0, d1, mask_from_x, inv_keep,
     # w0_f, w1_f, wfrag_f, w0_r, w1_r, wfrag_r, dx0, dx1, dw_ih_f, dw_hh_f,
@@ -94,8 +97,19 @@ _SIGNATURES = {
     # H, hc, rows, k_res, *smem, *clusters
     "eegflow_lstm_bwd_dualdir_plan": [_I, _I, _I, _I, _P, _P],
     # lstm_rec.cu, kernel 1 (float32 policy); c_out null in eval mode:
-    # gates, whh, h_out, c_out, B, T, H, reverse, stream
-    "eegflow_lstm_rec_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # gates, wslice, h_out, c_out, B, T, H, hc, rows, k_res, reverse, stream
+    "eegflow_lstm_rec_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # lstm_rec.cu, kernel 1 writing its pre-activations too:
+    # gates, wslice, h_out, c_out, z_out, B, T, H, hc, rows, k_res, reverse,
+    # stream
+    "eegflow_lstm_rec_fwd_z": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # lstm_rec.cu, kernel 1's shared memory and clusters held at once:
+    # mode (0 eval, 1 training, 2 training with z), H, hc, rows, k_res,
+    # *smem, *clusters
+    "eegflow_lstm_rec_plan": [_I, _I, _I, _I, _I, _P, _P],
+    # lstm_rec.cu, kernel 5's recomputation of z alone:
+    # gates, h, whh, z_out, B, T, H, reverse, stream
+    "eegflow_lstm_rec_bwd_z": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # lstm_rec.cu, kernel 5:
     # gates, h, c, g, whh, whh_t, dgates, B, T, H, reverse, stream
     "eegflow_lstm_rec_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -4,14 +4,16 @@
                                            [--rows 16,32,48]
 
 Builds the kernels from a copy of ``eegflow_torch/csrc`` with one part of
-the serial step of kernel 2's recurrence and of kernels 3 and 4's chain
-taken out (``nomma``: the per-step product; ``noexch``: the DSMEM exchange
-of the new state; ``nostore``: the HBM stores of h, the planes and bf16 dz;
-``noload``: the HBM loads of the pre-gates and planes; ``base``: nothing),
-then times, with ``torch.profiler``, the recurrence kernel of each
-full-width call (H=256, T=256, two parts of 256): kernel 2 in eval and
-training mode and kernel 3 at B=16 (one cluster) and at the main path's
-batch (512; eval 1024), and kernel 4 at 512. ``--rows`` restricts the
+the serial step of kernel 2's recurrence, of kernels 3, 3b and 4's chain and
+of kernel 1's float32 recurrence taken out (``nomma``: the per-step
+product; ``noexch``: the DSMEM exchange of the new state; ``nostore``: the
+HBM stores of h, c, the planes and bf16 dz; ``noload``: the HBM loads of the
+pre-gates, the planes and the raw gates; ``base``: nothing), then times,
+with ``torch.profiler``, the recurrence kernel of each full-width call
+(H=256, T=256, two parts of 256): kernel 2 in eval and training mode, kernels
+3 and 3b and kernel 1 in training mode at B=16 (one cluster) and at the main
+path's batch (512; eval 1024, kernel 1 in eval mode too), and kernel 4 at
+512. ``--rows`` restricts the
 plan's rows per cluster (``cuda_lstm.restrict_plan_rows``). A variant's
 results are wrong by construction and only its times mean anything; the
 difference to ``base`` is the part's share of a step. Each variant needs its
@@ -44,20 +46,29 @@ VARIANTS = {
         ("lstm_bwd_chain.cuh", "for (int kk = 0; kk < KT2_res; kk += 2)",
          "for (int kk = 0; kk < 0; kk += 2)"),
         ("lstm_bwd_chain.cuh", "for (int kk = KT2_res; kk < KT2; kk += 2)",
-         "for (int kk = KT2; kk < KT2; kk += 2)")],
+         "for (int kk = KT2; kk < KT2; kk += 2)"),
+        ("lstm_rec.cu", "for (int k = 0; k < k_res; k += 4) {", "for (int k = 0; k < 0; k += 4) {"),
+        ("lstm_rec.cu", "for (int k = k_res; k < H; k += 4) {", "for (int k = H; k < H; k += 4) {")],
     "noexch": [
         ("lstm_fwd.cu", "for (int r = q; r < hc; r += 4) {", "for (int r = q; r < 0; r += 4) {"),
         ("lstm_bwd_chain.cuh", "    for (int r = 0; r < hc; ++r) {\n      const uint32_t base",
+         "    for (int r = 0; r < 0; ++r) {\n      const uint32_t base"),
+        ("lstm_rec.cu", "    for (int r = 0; r < hc; ++r) {\n      const uint32_t base",
          "    for (int r = 0; r < 0; ++r) {\n      const uint32_t base")],
     "nostore": [
         ("lstm_fwd.cu", "        if (row >= B) continue;\n        const size_t bt",
          "        if (row >= 0) continue;\n        const size_t bt"),
         ("lstm_bwd_chain.cuh", "        if (row < B)\n          *reinterpret_cast<uint4*>(dz16",
-         "        if (row < 0)\n          *reinterpret_cast<uint4*>(dz16")],
+         "        if (row < 0)\n          *reinterpret_cast<uint4*>(dz16"),
+        ("lstm_rec.cu", "      if (row < B)\n        *reinterpret_cast<uint4*>(h_out",
+         "      if (row < 0)\n        *reinterpret_cast<uint4*>(h_out"),
+        ("lstm_rec.cu", "if (row0 + r < B) __stcs(c_out", "if (row0 + r < 0) __stcs(c_out")],
     "noload": [
         ("lstm_fwd.cu", "if (row < B) v = __ldcs", "if (row < 0) v = __ldcs"),
         ("lstm_bwd_chain.cuh", "          if (row < B)\n            v = __ldcs(",
-         "          if (row < 0)\n            v = __ldcs(")],
+         "          if (row < 0)\n            v = __ldcs("),
+        ("lstm_rec.cu", "if (row < B) v = __ldcs(p + gate * H);",
+         "if (row < 0) v = __ldcs(p + gate * H);")],
 }
 
 
@@ -88,7 +99,8 @@ def _recurrence_ms(fn, reps: int = 3) -> float:
         torch.cuda.synchronize()
     return sum(e.time_range.end - e.time_range.start for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
-               and ("rec_kernel" in e.name or "chain_kernel" in e.name)) / reps / 1e3
+               and ("rec_kernel" in e.name or "rec_fwd_kernel" in e.name
+                    or "chain_kernel" in e.name)) / reps / 1e3
 
 
 def main(argv=None) -> int:
@@ -122,8 +134,11 @@ def main(argv=None) -> int:
             xs = tuple(torch.randn(batch, STEPS, H, generator=gen).to(dev) for _ in range(2))
             ms = tuple((torch.rand(batch, STEPS, H, generator=gen) < 0.7).to(torch.uint8)
                        .to(dev) for _ in range(2))
+            gates = (torch.cat(xs, dim=-1) @ w_ih + b).contiguous()
             calls = {"lstm_fwd": (lambda: cl.lstm_fwd_fused_proj(xs, w_ih, b, w_hh),
-                                  ("fwd", batch, H, 0))}
+                                  ("fwd", batch, H, 0)),
+                     "lstm_rec_fwd": (lambda: cl.lstm_recurrence(gates, w_hh),
+                                      ("rec", batch, H, 0))}
             if batch < 1024:
                 h, res = cl.lstm_fwd_train_plain(xs, w_ih, b, w_hh, False, ms, 0.7)
                 g = 0.1 * torch.randn(h.shape, generator=gen).to(dev)
@@ -133,6 +148,12 @@ def main(argv=None) -> int:
                 calls["lstm_bwd"] = (
                     lambda: cl.lstm_bwd(res, h, g, xs, w_ih, w_hh, False, ms, 0.7),
                     ("bwd", batch, H))
+                hg, raw, c = cl.lstm_fwd_train_gates_plain(xs, w_ih, b, w_hh, False, ms, 0.7)
+                calls["lstm_bwd_v2"] = (
+                    lambda: cl.lstm_bwd_v2(raw, c, hg, g, xs, w_ih, w_hh, False, ms, 0.7),
+                    ("bwd_v2", batch, H))
+                calls["lstm_rec_fwd_train"] = (
+                    lambda: cl.lstm_recurrence(gates, w_hh, False, True), ("rec", batch, H, 1))
                 calls["lstm_bwd_dualdir"] = (
                     lambda: cl.lstm_bwd_dualdir(res, h, g, res, h, g, xs, (w_ih, w_hh),
                                                 (w_ih, w_hh)),

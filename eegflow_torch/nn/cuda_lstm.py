@@ -32,10 +32,12 @@ The float32 policy, whose input projection and weight products stay
   ``_lstm_bwd_chunk_kernel`` (entry ``lstm_recurrence_backward``), dgates
   from (gates, h, c), plus dW_hh.
 
-Kernels 2, 3 and 4 run their recurrences on thread-block clusters: the
-wrappers ask :func:`kernel_plan` for the launch plan (``nn/lstm_plan.py``,
-with ``cudaOccupancyMaxActiveClusters`` of the card) and hand the kernels
-W_hh in the plan's fragment order; a cluster the card cannot hold raises.
+Kernels 1, 2, 3, 3b and 4 run their recurrences on thread-block clusters:
+the wrappers ask :func:`kernel_plan` for the launch plan
+(``nn/lstm_plan.py``, with ``cudaOccupancyMaxActiveClusters`` of the card)
+and hand the kernels W_hh in the plan's layout (the ``mma`` fragment order
+of the bf16 kernels, CTA slices for kernel 1); a cluster the card cannot hold
+raises.
 
 Each has a plain PyTorch twin in this module (``*_plain``). For CPU tensors a
 wrapper runs its twin; for CUDA tensors it launches the kernel or raises.
@@ -219,9 +221,13 @@ def _stream(dev: torch.device) -> int:
 _FWD_MODES = {"lstm_fwd": ("eegflow_lstm_fwd", 0, (1,)),
               "lstm_fwd_train": ("eegflow_lstm_fwd_train", 1, (1, 6)),
               "lstm_fwd_train_gates": ("eegflow_lstm_fwd_train_gates", 2, (1, 4, 1))}
-#: recurrent kernel -> its cluster-plan query
+#: recurrent kernel -> its cluster-plan query; the queries of "fwd" and "rec"
+#: take the kernel's mode
 _PLAN_QUERIES = {"fwd": "eegflow_lstm_fwd_plan", "bwd": "eegflow_lstm_bwd_plan",
-                 "bwd_dualdir": "eegflow_lstm_bwd_dualdir_plan"}
+                 "bwd_v2": "eegflow_lstm_bwd_v2_plan",
+                 "bwd_dualdir": "eegflow_lstm_bwd_dualdir_plan", "rec": "eegflow_lstm_rec_plan"}
+#: recurrent kernel -> its kind in lstm_plan
+_PLAN_KINDS = {"fwd": "fwd", "bwd": "bwd", "bwd_v2": "bwd", "bwd_dualdir": "bwd", "rec": "rec"}
 _max_clusters = {}
 _plans = {}
 #: the rows per cluster the wrappers' plans may take
@@ -246,8 +252,8 @@ def _query_clusters(kernel: str, mode: int, hidden: int, rows: int, hc: int, k_r
         lib = kernels.load_library()
         got_smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
         args = (hidden, hc, rows, k_res, ctypes.byref(got_smem), ctypes.byref(clusters))
-        err = getattr(lib, _PLAN_QUERIES[kernel])(*(((mode,) if kernel == "fwd" else ())
-                                                    + args))
+        err = getattr(lib, _PLAN_QUERIES[kernel])(
+            *(((mode,) if kernel in ("fwd", "rec") else ()) + args))
         kernels.check(lib, err, _PLAN_QUERIES[kernel])
         if got_smem.value != smem:
             raise RuntimeError(f"{kernel}: the plan's shared memory ({smem} B) is not the "
@@ -259,12 +265,16 @@ def _query_clusters(kernel: str, mode: int, hidden: int, rows: int, hc: int, k_r
 def kernel_plan(kernel: str, batch: int, hidden: int, mode: int = 0) -> lstm_plan.LstmPlan:
     """The cluster launch plan of a recurrent kernel on this card: ``"fwd"``
     (kernel 2, ``mode`` 0 eval, 1 planes, 2 raw gates), ``"bwd"`` (kernel 3's
-    chain) or ``"bwd_dualdir"`` (kernel 4's, both directions). Raises when
-    the card holds no such cluster."""
+    chain), ``"bwd_v2"`` (kernel 3b's), ``"bwd_dualdir"`` (kernel 4's, both
+    directions) or ``"rec"`` (kernel 1, float32; ``mode`` 0 eval, 1
+    training, 2 training with z). Raises when the card holds no such
+    cluster."""
+    if kernel not in _PLAN_KINDS:
+        raise ValueError(f"kernel must be one of {tuple(_PLAN_KINDS)}, got {kernel!r}")
     key = (kernel, batch, hidden, mode, _plan_rows)
     if key not in _plans:
         _plans[key] = lstm_plan.plan(
-            "fwd" if kernel == "fwd" else "bwd", batch, hidden,
+            _PLAN_KINDS[kernel], batch, hidden,
             lambda rows, hc, k_res, smem, threads: _query_clusters(kernel, mode, hidden, rows,
                                                                    hc, k_res, smem),
             directions=2 if kernel == "bwd_dualdir" else 1, rows_allowed=_plan_rows)
@@ -519,25 +529,6 @@ def lstm_bwd_v2_plain(gates: torch.Tensor, c: torch.Tensor, h: torch.Tensor, g: 
     return _weight_products(dz, h, xs, w_ih, reverse, masks, keep, dx_add)
 
 
-#: bytes of one bf16 dz chunk buffer of kernel 3b (two are live): small enough
-#: that both stay in the H100's 50 MB L2
-V2_CHUNK_BYTES = 16 << 20
-#: rows a split-K slice of one chunk's weight-gradient product covers: a
-#: chunk's sums are T/t_chunk times shorter than kernel 3's, so they are cut
-#: finer to give each product enough CTAs (1024 at B=512, t_chunk 16)
-V2_ROWS_PER_SPLIT = 512
-_aux_streams = {}
-
-
-def _aux_stream(dev: torch.device) -> "torch.cuda.Stream":
-    """The second stream kernel 3b runs its chunks' products on (one per
-    device, made at first use)."""
-    key = torch.cuda.current_device() if dev.index is None else dev.index
-    if key not in _aux_streams:
-        _aux_streams[key] = torch.cuda.Stream(device=dev)
-    return _aux_streams[key]
-
-
 def lstm_bwd_v2(gates: torch.Tensor, c: torch.Tensor, h: torch.Tensor, g: torch.Tensor,
                 xs: Parts, w_ih: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False,
                 masks: Masks = None, keep: float = 1.0,
@@ -546,12 +537,8 @@ def lstm_bwd_v2(gates: torch.Tensor, c: torch.Tensor, h: torch.Tensor, g: torch.
     raw-gate forward (:func:`lstm_fwd_train_gates`): ``gates`` (B, T, 4H),
     ``c``, ``h`` and the upstream ``g`` (B, T, H), the same input parts and
     masks as the forward -> (dx parts, dW_ih (D, 4H), dW_hh (H, 4H), db
-    (4H,)), float32.
-
-    A chunk of the adjoint is as many steps as fit :data:`V2_CHUNK_BYTES` of
-    bf16 dz (the last one may be shorter); the chunks' products run on a
-    second stream beside the next chunk's chain.
-    """
+    (4H,)), float32. Kernel 3's chain with a raw-gate step, on its own plan
+    (``kernel_plan("bwd_v2", ...)``), and kernel 3's products."""
     xs = as_parts(xs)
     if _device_kind("lstm_bwd_v2", gates) == "cpu":
         return lstm_bwd_v2_plain(gates, c, h, g, xs, w_ih, w_hh, reverse, masks, keep,
@@ -564,20 +551,20 @@ def lstm_bwd_v2(gates: torch.Tensor, c: torch.Tensor, h: torch.Tensor, g: torch.
     _check_seqs(xs, ("gates", gates, g4), ("c", c, hidden), ("h", h, hidden),
                 ("g", g, hidden))
     dx_add = _check_dx_add(dx_add, xs)
-    t_chunk = max(1, min(steps, V2_CHUNK_BYTES // (batch * g4 * 2)))
     lib = kernels.load_library()
     dev = xs[0].device
+    plan = kernel_plan("bwd_v2", batch, hidden)
     widths = [x.shape[-1] for x in xs]
     w_parts = torch.split(w_ih.to(torch.bfloat16).contiguous(), widths, dim=0)
-    whh_t = w_hh.to(torch.bfloat16).t().contiguous()
+    wfrag = lstm_plan.bwd_fragments(w_hh)
     dxs = [torch.empty_like(x) for x in xs]
     dw_ih = torch.empty(sum(widths), g4, dtype=torch.float32, device=dev)
     dw_hh = torch.empty(hidden, g4, dtype=torch.float32, device=dev)
     db = torch.empty(g4, dtype=torch.float32, device=dev)
-    carry = torch.zeros(2, batch, hidden, dtype=torch.float32, device=dev)
-    db_part = torch.zeros(-(-batch // 8), g4, dtype=torch.float32, device=dev)
-    dz16 = torch.empty(2, batch, t_chunk, g4, dtype=torch.bfloat16, device=dev)
-    splits = kernels.gemm_splits(batch * t_chunk, V2_ROWS_PER_SPLIT)
+    dz16 = torch.empty(batch, steps, g4, dtype=torch.bfloat16, device=dev)
+    db_part = torch.empty(-(-batch // lstm_plan.ROW_TILE), g4, dtype=torch.float32,
+                          device=dev)
+    splits = kernels.gemm_splits(batch * steps)
     part = torch.empty(splits * max(widths + [hidden]) * g4, dtype=torch.float32, device=dev)
     two = len(xs) == 2
     err = lib.eegflow_lstm_bwd_v2(
@@ -585,13 +572,12 @@ def lstm_bwd_v2(gates: torch.Tensor, c: torch.Tensor, h: torch.Tensor, g: torch.
         xs[0].data_ptr(), _ptr(xs[1]) if two else None,
         _ptr(masks[0]), _ptr(masks[1]) if two else None,
         widths[0], widths[1] if two else 0, 1.0 / keep,
-        w_parts[0].data_ptr(), w_parts[1].data_ptr() if two else None, whh_t.data_ptr(),
+        w_parts[0].data_ptr(), w_parts[1].data_ptr() if two else None, wfrag.data_ptr(),
         _ptr(dx_add[0]) if dx_add else None, _ptr(dx_add[1]) if dx_add and two else None,
         dxs[0].data_ptr(), dxs[1].data_ptr() if two else None,
-        dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(), carry.data_ptr(),
-        db_part.data_ptr(), dz16.data_ptr(), part.data_ptr(), splits, t_chunk,
-        batch, steps, hidden, int(reverse), _stream(dev),
-        _aux_stream(dev).cuda_stream)
+        dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(), dz16.data_ptr(), db_part.data_ptr(),
+        part.data_ptr(), splits, batch, steps, hidden, plan.hc, plan.rows, plan.k_res,
+        int(reverse), _stream(dev))
     kernels.check(lib, err, "lstm_bwd_v2")
     kernels.launch_counts["lstm_bwd_v2"] += 1
     return tuple(dxs), dw_ih, dw_hh, db
@@ -916,6 +902,34 @@ def _check_rec_args(gates, w_hh, *seqs):
         raise ValueError("w_hh must be on the gates' device")
 
 
+def _rec_fwd_kernel(name: str, gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
+                    mode: int) -> Tuple[torch.Tensor, ...]:
+    """Launch kernel 1 in ``mode`` (0 eval, 1 training, 2 training with z)
+    on CUDA gates -> h, then c (modes 1, 2), then z (mode 2). The wrapper
+    builds W_hh's CTA slices (``lstm_plan.rec_slices``) for the plan."""
+    _check_rec_args(gates, w_hh)
+    lib = kernels.load_library()
+    dev = gates.device
+    batch, steps, g4 = gates.shape
+    hidden = g4 // 4
+    plan = kernel_plan("rec", batch, hidden, mode)
+    wslice = lstm_plan.rec_slices(w_hh, plan.hc)
+    h = torch.empty(batch, steps, hidden, dtype=torch.float32, device=dev)
+    outs = [h] + [torch.empty_like(h) for _ in range(mode > 0)]
+    if mode == 2:
+        outs.append(torch.empty_like(gates))
+    geometry = (batch, steps, hidden, plan.hc, plan.rows, plan.k_res, int(reverse), _stream(dev))
+    if mode == 2:
+        err = lib.eegflow_lstm_rec_fwd_z(gates.data_ptr(), wslice.data_ptr(),
+                                         *[o.data_ptr() for o in outs], *geometry)
+    else:
+        err = lib.eegflow_lstm_rec_fwd(gates.data_ptr(), wslice.data_ptr(), h.data_ptr(),
+                                       _ptr(outs[1]) if mode else None, *geometry)
+    kernels.check(lib, err, name)
+    kernels.launch_counts[name] += 1
+    return tuple(outs)
+
+
 def lstm_recurrence(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False,
                     collect_cell: bool = False):
     """Kernel 1: precomputed gates (B, T, 4H) float32 -> h (B, T, H), or
@@ -923,20 +937,34 @@ def lstm_recurrence(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool = Fal
     (eval) or ``lstm_rec_fwd_train``."""
     if _device_kind("lstm_rec_fwd", gates) == "cpu":
         return lstm_recurrence_plain(gates, w_hh, reverse, collect_cell)
-    _check_rec_args(gates, w_hh)
+    if collect_cell:
+        return _rec_fwd_kernel("lstm_rec_fwd_train", gates, w_hh, reverse, 1)
+    return _rec_fwd_kernel("lstm_rec_fwd", gates, w_hh, reverse, 0)[0]
+
+
+def lstm_rec_preactivations(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False
+                            ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The pre-activations z = gates + h_prev . W_hh (B, T, 4H) two ways:
+    kernel 1 in training mode writing its z (counted as ``lstm_rec_fwd_z``),
+    and kernel 5's recomputation from kernel 1's h (its first stage alone,
+    counted as ``lstm_rec_bwd_z``) -> (forward's z, backward's z). Both sum
+    each product with k ascending from 0 and add the gate last, so on the
+    card they agree bit for bit; on the CPU both are the plain twin's z."""
+    if _device_kind("lstm_rec_fwd", gates) == "cpu":
+        h = lstm_recurrence_plain(gates, w_hh, reverse)
+        z = gates + _shift(h, reverse) @ w_hh
+        return z, z
+    h, _, z_fwd = _rec_fwd_kernel("lstm_rec_fwd_z", gates, w_hh, reverse, 2)
     lib = kernels.load_library()
-    dev = gates.device
-    batch, steps, g4 = gates.shape
-    hidden = g4 // 4
     whh = w_hh.to(torch.float32).contiguous()
-    h = torch.empty(batch, steps, hidden, dtype=torch.float32, device=dev)
-    c = torch.empty_like(h) if collect_cell else None
-    name = "lstm_rec_fwd_train" if collect_cell else "lstm_rec_fwd"
-    err = lib.eegflow_lstm_rec_fwd(gates.data_ptr(), whh.data_ptr(), h.data_ptr(), _ptr(c),
-                                   batch, steps, hidden, int(reverse), _stream(dev))
-    kernels.check(lib, err, name)
-    kernels.launch_counts[name] += 1
-    return (h, c) if collect_cell else h
+    z_bwd = torch.empty_like(gates)
+    batch, steps, g4 = gates.shape
+    err = lib.eegflow_lstm_rec_bwd_z(gates.data_ptr(), h.data_ptr(), whh.data_ptr(),
+                                     z_bwd.data_ptr(), batch, steps, g4 // 4, int(reverse),
+                                     _stream(gates.device))
+    kernels.check(lib, err, "lstm_rec_bwd_z")
+    kernels.launch_counts["lstm_rec_bwd_z"] += 1
+    return z_fwd, z_bwd
 
 
 def lstm_recurrence_backward(gates: torch.Tensor, h: torch.Tensor, c: torch.Tensor,

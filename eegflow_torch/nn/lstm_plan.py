@@ -1,26 +1,31 @@
 """Host side of the cluster LSTM kernels (kernel 2, ``csrc/lstm_fwd.cu``;
-kernels 3 and 4, ``csrc/lstm_bwd_chain.cuh``): the launch plan and the
-weight layouts the wrappers build.
+kernels 3, 3b and 4, ``csrc/lstm_bwd_chain.cuh``; kernel 1, the float32
+recurrence in ``csrc/lstm_rec.cu``): the launch plan and the weight layouts
+the wrappers build.
 
 A cluster of ``hc`` CTAs owns a tile of ``rows`` batch rows (16, 32 or 48:
-one to three ``mma.sync`` m-tiles) and one direction. Each CTA owns ``units = H / hc``
-hidden units, grouped in octets of 8, one warp per octet, and keeps its slice
-of the recurrent weight in shared memory for the whole launch:
+one to three ``mma.sync`` m-tiles) and one direction. Each CTA owns ``units =
+H / hc`` hidden units with 4U threads (the bf16 kernels: one warp per octet
+of 8 units; kernel 1: four row groups of one thread per unit) and keeps its
+slice of the recurrent weight in shared memory for the whole launch:
 
-* forward: W_hh[:, the 4 gate columns of its units], H x 4U bf16;
-* backward: W_hh^T[:, its units], 4H x U bf16.
+* ``"fwd"``: W_hh[:, the 4 gate columns of its units], H x 4U bf16;
+* ``"bwd"``: W_hh^T[:, its units], 4H x U bf16;
+* ``"rec"`` (float32, kernel 1): W_hh[:, the 4 gate columns of its units],
+  H x 4U float32, aiming at 32 units a CTA (8 CTAs at H = 256).
 
 Where the slice does not fit the 227 KB a block may hold (H = 512), its first
 ``k_res`` rows (of K = H forward, 4H backward) stay resident and the rest is
-read from L2 every step. Beside the slice a CTA holds the bf16 state the
-cluster exchanges each step: h (rows x H) forward, double-buffered; dz
-(rows x 4H) backward, in one buffer the chain fills and reads between two
-barrier phases. The plan takes the number of clusters the card can hold at
-once (``cudaOccupancyMaxActiveClusters``, queried by the caller) and picks
-the rows per cluster: a whole slice resident first, then the fewest waves,
-then the fewest rows. A CTA of more than 8 warps (over 64 units, at widths
-such as H = 160) has 128 registers a thread and takes 16 rows. A cluster
-the card cannot hold raises.
+read from L2 every step. Beside the slice a CTA holds the state the cluster
+exchanges each step: h (rows x H) forward, double-buffered, bf16 (``"fwd"``)
+or float32 (``"rec"``); bf16 dz (rows x 4H) backward, in one buffer the
+chain fills and reads between two barrier phases. The plan takes the number
+of clusters the card can hold at once (``cudaOccupancyMaxActiveClusters``,
+queried by the caller) and picks the rows per cluster: a whole slice resident
+first, then the fewest waves, then the fewest rows. A CTA of more than 8
+warps (over 64 units: H = 160 in the bf16 kernels, H = 416 in kernel 1) has
+128 registers a thread and takes 16 rows. A cluster the card cannot hold
+raises.
 
 The weights go to the kernels in **fragment order**: the B operand of one
 ``mma.sync.m16n8k16`` (16 k by 8 n, bf16) as the 32 lanes of a warp hold it,
@@ -29,7 +34,9 @@ the n of one warp's four n-tiles are the i, f, g, o columns of the same 8
 units (the gate-interleaved order), so each thread's accumulators hold all
 four gates of its (row, unit) pairs; one 16-byte load gives a lane two
 gates' fragments. Backward, one 16-byte load gives a lane two k-tiles of its
-octet's n-tile.
+octet's n-tile. Kernel 1 multiplies on CUDA cores and takes its float32
+slice as (CTA, k, unit, gate), so one 16-byte load gives a thread the four
+gates of its unit at one k (:func:`rec_slices`).
 """
 
 from __future__ import annotations
@@ -43,15 +50,16 @@ import torch
 SMEM_LIMIT = 232_448
 #: the largest portable cluster
 MAX_CLUSTER = 8
-#: hidden units per CTA the plan aims at (4 CTAs at H = 256)
-TARGET_UNITS = 64
+#: hidden units per CTA the plan aims at, per kind (4 CTAs at H = 256 for
+#: the bf16 kernels, 8 for the float32 recurrence)
+TARGET_UNITS = {"fwd": 64, "bwd": 64, "rec": 32}
 #: rows of one mma m-tile; a cluster takes one to three
 ROW_TILE = 16
 ROWS = (16, 32, 48)
 #: the granularity of the resident rows of a slice (the product loops take
 #: four 16-row k-tiles at a time)
 K_STEP = 64
-KINDS = ("fwd", "bwd")
+KINDS = ("fwd", "bwd", "rec")
 
 #: (rows, hc, k_res, smem, threads) -> clusters the card holds at once
 MaxClusters = Callable[[int, int, int, int, int], int]
@@ -62,38 +70,53 @@ def check_hidden(hidden: int) -> None:
         raise ValueError(f"the lstm kernels need H % 32 == 0 and H <= 512, got {hidden}")
 
 
-def cluster_size(hidden: int) -> int:
+def check_kind(kind: str) -> None:
+    if kind not in KINDS:
+        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+
+
+def cluster_size(hidden: int, kind: str = "fwd") -> int:
     """CTAs per cluster: the largest divisor of the octet count H/8 that is
-    at most ceil(H / 64) and at most 8 (4 at H=256, 2 at H=128, 1 at H=64)."""
+    at most ceil(H / target units) and at most 8 (bf16 kinds: 4 at H=256, 2
+    at H=128, 1 at H=64; ``"rec"``: 8 at H=256, 4 at H=128, 4 of 104 units
+    at H=416)."""
     check_hidden(hidden)
+    check_kind(kind)
     octets = hidden // 8
-    cap = min(MAX_CLUSTER, -(-hidden // TARGET_UNITS))
+    cap = min(MAX_CLUSTER, -(-hidden // TARGET_UNITS[kind]))
     return max(d for d in range(1, cap + 1) if octets % d == 0)
 
 
 def k_total(kind: str, hidden: int) -> int:
     """Rows of a CTA's weight slice: the product's K (H forward, 4H backward)."""
-    return hidden if kind == "fwd" else 4 * hidden
+    return 4 * hidden if kind == "bwd" else hidden
+
+
+def slice_row_bytes(kind: str, units: int) -> int:
+    """Bytes of one row of a CTA's slice: 4U bf16 (``"fwd"``), U bf16
+    (``"bwd"``) or 4U float32 (``"rec"``)."""
+    return {"fwd": 4 * units * 2, "bwd": units * 2, "rec": 4 * units * 4}[kind]
 
 
 def smem_bytes(kind: str, hidden: int, units: int, rows: int, k_res: int) -> int:
     """Dynamic shared memory of a recurrent CTA: ``k_res`` resident rows of
-    its slice (4U bf16 forward, U backward) and the bf16 state tiles the
-    cluster exchanges (two of h forward, one of dz backward), rows padded by
-    8 elements against bank conflicts. ``csrc/lstm_cluster.cuh`` computes
-    the same."""
-    if kind not in KINDS:
-        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    its slice and the state tiles the cluster exchanges: two of bf16 h
+    (``"fwd"``) or one of bf16 dz (``"bwd"``), rows padded by 8 elements
+    against bank conflicts, or two of float32 h (``"rec"``), rows padded by
+    4. ``csrc/lstm_cluster.cuh`` computes the same."""
+    check_kind(kind)
     width = k_total(kind, hidden)
-    per_row = (4 * units if kind == "fwd" else units) * 2
-    buffers = 2 if kind == "fwd" else 1
-    return k_res * per_row + buffers * rows * (width + 8) * 2
+    if kind == "rec":
+        state = 2 * rows * (width + 4) * 4
+    else:
+        state = (2 if kind == "fwd" else 1) * rows * (width + 8) * 2
+    return k_res * slice_row_bytes(kind, units) + state
 
 
 def resident_rows(kind: str, hidden: int, units: int, rows: int) -> int:
     """The rows of the slice that fit beside the state buffers: all K of
     them, or else the most that are a multiple of 64."""
-    per_row = (4 * units if kind == "fwd" else units) * 2
+    per_row = slice_row_bytes(kind, units)
     fit = max(0, (SMEM_LIMIT - smem_bytes(kind, hidden, units, rows, 0)) // per_row)
     return k_total(kind, hidden) if fit >= k_total(kind, hidden) else fit // K_STEP * K_STEP
 
@@ -158,12 +181,11 @@ def plan(kind: str, batch: int, hidden: int, max_clusters: MaxClusters,
          directions: int = 1, rows_allowed=ROWS) -> LstmPlan:
     """The launch plan of a recurrent kernel (see the module docstring),
     taking one of ``rows_allowed`` rows per cluster."""
-    if kind not in KINDS:
-        raise ValueError(f"kind must be one of {KINDS}, got {kind!r}")
+    check_kind(kind)
     if batch <= 0 or directions not in (1, 2):
         raise ValueError(f"batch must be positive and directions 1 or 2, got {batch}, "
                          f"{directions}")
-    hc = cluster_size(hidden)
+    hc = cluster_size(hidden, kind)
     units = hidden // hc
     cands = []
     for rows in check_rows(rows_allowed):
@@ -228,3 +250,19 @@ def bwd_unfragment(frag: torch.Tensor, hidden: int) -> torch.Tensor:
     w = frag.reshape(hidden // 8, hidden // 8, 8, 4, 2, 2, 2)
     return w.permute(0, 2, 1, 4, 5, 3, 6).reshape(hidden, 4 * hidden)
 
+
+def rec_slices(w_hh: torch.Tensor, hc: int) -> torch.Tensor:
+    """W_hh (H, 4H) -> float32 (hc, H, U, 4) for kernel 1: CTA c's slice,
+    [k][unit][gate] = W_hh[k, gate H + c U + unit] (U = H / hc)."""
+    hidden = w_hh.shape[0]
+    check_hidden(hidden)
+    if hidden % (8 * hc):
+        raise ValueError(f"{hc} CTAs do not split H={hidden} into octets")
+    w = w_hh.to(torch.float32).reshape(hidden, 4, hc, hidden // hc)
+    return w.permute(2, 0, 3, 1).contiguous()
+
+
+def rec_unslice(slices: torch.Tensor) -> torch.Tensor:
+    """The inverse of :func:`rec_slices`: -> W_hh (H, 4H) float32."""
+    hc, hidden, units, _ = slices.shape
+    return slices.permute(1, 3, 0, 2).reshape(hidden, 4 * hidden)

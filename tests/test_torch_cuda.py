@@ -19,13 +19,13 @@ from eegflow_torch.nn.cuda_attention import (attention_pool, attention_pool_plai
                                              pool_head_fused, pool_head_fused_plain)
 from eegflow_torch.nn.cuda_input import (input_block_bwd, input_block_bwd_plain,
                                          input_block_fused, input_block_fused_plain)
-from eegflow_torch.nn.cuda_lstm import (V2_CHUNK_BYTES, lstm_bwd, lstm_bwd_dualdir,
-                                        lstm_bwd_dualdir_plain, lstm_bwd_plain, lstm_bwd_v2,
-                                        lstm_bwd_v2_plain,
+from eegflow_torch.nn.cuda_lstm import (lstm_bwd, lstm_bwd_dualdir, lstm_bwd_dualdir_plain,
+                                        lstm_bwd_plain, lstm_bwd_v2, lstm_bwd_v2_plain,
                                         lstm_fwd_fused_proj, lstm_fwd_fused_proj_plain,
                                         lstm_fwd_train, lstm_fwd_train_gates,
                                         lstm_fwd_train_gates_plain, lstm_fwd_train_plain,
-                                        lstm_recurrence, lstm_recurrence_backward,
+                                        lstm_rec_preactivations, lstm_recurrence,
+                                        lstm_recurrence_backward,
                                         lstm_recurrence_backward_plain, lstm_recurrence_plain)
 from eegflow_torch.nn.losses import cross_entropy_loss
 from eegflow_torch.nn.model import classifier_apply, classifier_init, draw_dropout_masks
@@ -398,10 +398,8 @@ def test_lstm_fwd_train_gates_kernel_matches_twin(dev, n_parts, reverse, batch, 
 @pytest.mark.parametrize("batch,hidden,steps", [(5, 64, 40), (16, 256, 40), (32, 256, 600)])
 def test_lstm_bwd_v2_kernel_matches_twin_and_repeats_bitwise(dev, n_parts, reverse, batch,
                                                              hidden, steps):
-    """One chunk of all 40 steps, and at B=32, H=256 three chunks of at most
-    256 steps (what V2_CHUNK_BYTES of bf16 dz holds), the last one 88 long."""
-    t_chunk = V2_CHUNK_BYTES // (batch * 4 * hidden * 2)
-    assert steps <= t_chunk or steps % t_chunk
+    """Kernel 3b's chain walks all T steps in one launch: 40, and 600 at
+    B=32, H=256 (bf16 dz of 39 MB, the whole sequence through HBM once)."""
     gen = make_generator(70 + n_parts)
     w_ih, w_hh, b, xs, ms, keep = _lstm_case(gen, n_parts, batch, hidden, dev, steps=steps)
     h, gates, c = lstm_fwd_train_gates_plain(xs, w_ih, b, w_hh, reverse, ms, keep)
@@ -579,11 +577,85 @@ def test_cluster_lstm_bwd_matches_twin_and_repeats_bitwise(dev, n_parts, reverse
     assert all(torch.equal(a, c) for a, c in zip(got[0] + got[1:], again[0] + again[1:]))
 
 
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch,hidden,steps,d_part", CLUSTER_CASES)
+def test_cluster_lstm_bwd_v2_matches_twin_and_repeats_bitwise(dev, n_parts, reverse, batch,
+                                                              hidden, steps, d_part):
+    """Kernel 3b on kernel 3's cluster chain, from the raw-gate residuals."""
+    gen = make_generator(98 + n_parts)
+    w_ih, w_hh, b, xs, ms, keep = _lstm_case(gen, n_parts, batch, hidden, dev, d_part=d_part,
+                                             steps=steps)
+    h, gates, c = lstm_fwd_train_gates_plain(xs, w_ih, b, w_hh, reverse, ms, keep)
+    g = 0.1 * _randn(gen, *h.shape, dev=dev)
+    add = tuple(_randn(gen, *x.shape, dev=dev) for x in xs) if reverse else None
+    args = (gates, c, h, g, xs, w_ih, w_hh, reverse, ms, keep, add)
+    before = kernels.launch_counts["lstm_bwd_v2"]
+    got, again = lstm_bwd_v2(*args), lstm_bwd_v2(*args)
+    assert kernels.launch_counts["lstm_bwd_v2"] == before + 2
+    want = lstm_bwd_v2_plain(*args)
+    torch.cuda.synchronize()
+    for a, w in zip(got[0] + got[1:], want[0] + want[1:]):
+        assert _rel(a, w) <= BWD_REL_TOL
+    assert all(torch.equal(a, c) for a, c in zip(got[0] + got[1:], again[0] + again[1:]))
+
+
+def _rec_gates(gen, batch, hidden, dev, d_part, steps):
+    """Gates of a float32 projection of one input part, with its W_hh."""
+    w_ih, w_hh, b, xs, _, _ = _lstm_case(gen, 1, batch, hidden, dev, d_part=d_part, steps=steps)
+    return (torch.tanh(xs[0]) @ w_ih + b).contiguous(), w_hh
+
+
+@pytest.mark.parametrize("collect_cell", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch,hidden,steps,d_part", CLUSTER_CASES)
+def test_cluster_lstm_rec_matches_twin_and_repeats_bitwise(dev, collect_cell, reverse, batch,
+                                                           hidden, steps, d_part):
+    """Kernel 1 with W_hh resident across a cluster, in float32: eval (h) and
+    training (h, c) mode."""
+    gates, w_hh = _rec_gates(make_generator(99), batch, hidden, dev, d_part, steps)
+    name = "lstm_rec_fwd_train" if collect_cell else "lstm_rec_fwd"
+    before = kernels.launch_counts[name]
+    got = lstm_recurrence(gates, w_hh, reverse, collect_cell)
+    again = lstm_recurrence(gates, w_hh, reverse, collect_cell)
+    assert kernels.launch_counts[name] == before + 2
+    want = lstm_recurrence_plain(gates, w_hh, reverse, collect_cell)
+    torch.cuda.synchronize()
+    as_tuple = lambda out: out if isinstance(out, tuple) else (out,)  # noqa: E731
+    for a, a2, w in zip(as_tuple(got), as_tuple(again), as_tuple(want)):
+        assert (a - w).abs().max().item() <= F32_TOL
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch,hidden", [(5, 64), (17, 416), (600, 256)])
+def test_lstm_rec_bwd_recomputes_the_forward_preactivations_bitwise(dev, reverse, batch,
+                                                                    hidden):
+    """Kernel 5 recomputes z = gates + h_prev . W_hh bit for bit as kernel 1
+    formed it: both sum each product with k ascending from 0, then add the
+    gate."""
+    gates, w_hh = _rec_gates(make_generator(100), batch, hidden, dev, 48, 40)
+    z_fwd, z_bwd = lstm_rec_preactivations(gates, w_hh, reverse)
+    h = lstm_recurrence_plain(gates, w_hh, reverse)
+    torch.cuda.synchronize()
+    assert torch.equal(z_fwd, z_bwd)
+    shifted = torch.zeros_like(h)
+    if reverse:
+        shifted[:, :-1] = h[:, 1:]
+    else:
+        shifted[:, 1:] = h[:, :-1]
+    assert (z_fwd - (gates + shifted @ w_hh)).abs().max().item() <= F32_TOL
+
+
 def test_cluster_plans_query_the_card(dev):
-    """The plans of the main path's shapes: whole slices resident, one wave,
-    and the kernels' own shared memory (checked inside kernel_plan)."""
+    """The plans of the main path's shapes: whole slices resident, the
+    kernels' own shared memory (checked inside kernel_plan), clusters of 4
+    CTAs for the bf16 kernels and of 8 for kernel 1, one wave where the
+    card holds enough of them (kernel 1's eval at B=1024 may take two)."""
     from eegflow_torch.nn.cuda_lstm import kernel_plan
     for kind, batch, mode in (("fwd", 512, 1), ("fwd", 1024, 0), ("bwd", 512, 0),
-                              ("bwd_dualdir", 512, 0)):
+                              ("bwd_dualdir", 512, 0), ("bwd_v2", 512, 0), ("rec", 512, 1),
+                              ("rec", 512, 0), ("rec", 1024, 0)):
         p = kernel_plan(kind, batch, 256, mode)
-        assert p.hc == 4 and p.resident and p.max_clusters >= 1 and p.waves == 1
+        assert p.hc == (8 if kind == "rec" else 4) and p.resident and p.max_clusters >= 1
+        assert p.waves == 1 or (kind, batch) == ("rec", 1024) and p.waves == 2

@@ -1,6 +1,6 @@
-"""The host side of the cluster LSTM kernels (kernels 2, 3 and 4), without a
-card: the launch planner of ``eegflow_torch.nn.lstm_plan`` and the weight
-layouts the wrappers build.
+"""The host side of the cluster LSTM kernels (kernels 1, 2, 3, 3b and 4),
+without a card: the launch planner of ``eegflow_torch.nn.lstm_plan`` and the
+weight layouts the wrappers build.
 
 The fragment tests decode the layouts with the B-operand fragment of
 ``mma.sync.m16n8k16`` as the PTX ISA defines it (lane = 4 n + k-pair; b0, b1
@@ -22,7 +22,7 @@ def _fixed(n):
 
 
 @pytest.mark.parametrize("hidden", HIDDEN)
-@pytest.mark.parametrize("kind", ["fwd", "bwd"])
+@pytest.mark.parametrize("kind", ["fwd", "bwd", "rec"])
 def test_plan_geometry_fits_the_card(kind, hidden):
     p = lp.plan(kind, 64, hidden, _fixed(32))
     assert p.hc * p.units == hidden and p.units % 8 == 0 and 1 <= p.hc <= lp.MAX_CLUSTER
@@ -31,12 +31,13 @@ def test_plan_geometry_fits_the_card(kind, hidden):
     assert p.resident or (p.k_res % lp.K_STEP == 0 and 0 <= p.k_res < lp.k_total(kind, hidden))
     if hidden in (64, 128, 256):  # what ModelConfig resolves to, and H=64: whole slice
         assert p.resident
-    assert (p.hc, p.units) == {64: (1, 64), 128: (2, 64), 256: (4, 64)}.get(
-        hidden, (p.hc, p.units))
+    want = ({64: (2, 32), 128: (4, 32), 256: (8, 32)} if kind == "rec"
+            else {64: (1, 64), 128: (2, 64), 256: (4, 64)})
+    assert (p.hc, p.units) == want.get(hidden, (p.hc, p.units))
 
 
 @pytest.mark.parametrize("batch", [1, 5, 16, 17, 64, 512, 1000, 1024, 4096])
-@pytest.mark.parametrize("kind,directions", [("fwd", 1), ("bwd", 1), ("bwd", 2)])
+@pytest.mark.parametrize("kind,directions", [("fwd", 1), ("bwd", 1), ("bwd", 2), ("rec", 1)])
 def test_plan_covers_every_row_once_within_the_active_clusters(kind, directions, batch):
     active = 30  # what an H100 SXM holds of these clusters of 4
     p = lp.plan(kind, batch, 256, _fixed(active), directions)
@@ -187,6 +188,120 @@ def test_ablation_variants_patch_the_current_sources(variant, tmp_path):
     for name, text, repl in ablate.VARIANTS[variant]:
         assert (kernels.CSRC / name).read_text().count(text) == 1
         assert repl in (src / name).read_text()
+
+
+@pytest.mark.parametrize("hidden,hc", [(32, 1), (64, 2), (128, 4), (160, 5), (256, 8),
+                                       (416, 4), (512, 8)])
+def test_rec_clusters_aim_at_32_units_a_cta(hidden, hc):
+    """Kernel 1 (float32): the largest divisor of H/8 up to ceil(H/32) and 8;
+    the bf16 kinds keep theirs (ceil(H/64))."""
+    assert lp.cluster_size(hidden, "rec") == hc
+    assert lp.cluster_size(hidden) == lp.cluster_size(hidden, "bwd") == max(
+        d for d in range(1, min(8, -(-hidden // 64)) + 1) if (hidden // 8) % d == 0)
+
+
+def test_rec_shared_memory_and_resident_rows():
+    """The float32 slice (H x 4U x 4 B) and two float32 h buffers of rows of
+    H + 4: at H=256 the whole 128 KB slice stays beside 48 rows; at H=512 only
+    its first k_res rows, a multiple of 64."""
+    assert lp.slice_row_bytes("rec", 32) == 512
+    assert lp.smem_bytes("rec", 256, 32, 48, 256) == 131_072 + 2 * 48 * 260 * 4 == 230_912
+    assert lp.smem_bytes("rec", 256, 32, 32, 256) == 131_072 + 2 * 32 * 260 * 4
+    for rows in lp.ROWS:
+        assert lp.resident_rows("rec", 256, 32, rows) == 256
+    assert [lp.resident_rows("rec", 512, 64, rows) for rows in lp.ROWS] == [128, 64, 0]
+    assert lp.smem_bytes("rec", 512, 64, 16, 128) <= lp.SMEM_LIMIT
+    assert lp.smem_bytes("rec", 512, 64, 16, 192) > lp.SMEM_LIMIT
+    with pytest.raises(ValueError, match="kind"):
+        lp.smem_bytes("f32", 256, 32, 16, 0)
+
+
+@pytest.mark.parametrize("batch,active,rows,waves", [
+    (512, 16, 32, 1),    # 16 clusters of 32 rows in one wave
+    (512, 11, 48, 1),    # only 48 rows fit one wave
+    (512, 10, 32, 2),    # two waves either way: the fewer rows
+    (1024, 16, 32, 2),   # float32 eval at the serving bucket: two waves
+    (1024, 22, 48, 1),
+    (64, 16, 16, 1)])
+def test_rec_plan_picks_rows_by_waves(batch, active, rows, waves):
+    p = lp.plan("rec", batch, 256, _fixed(active))
+    assert (p.hc, p.units, p.threads, p.resident) == (8, 32, 128, True)
+    assert (p.rows, p.waves) == (rows, waves)
+
+
+def test_rec_plan_streams_the_slice_at_512():
+    """H=512: 8 CTAs of 64 units; no row count keeps the 512 KB slice, so the
+    plan takes the fewest waves, then the fewer rows."""
+    p = lp.plan("rec", 512, 512, _fixed(16))
+    assert (p.hc, p.units, p.resident) == (8, 64, False)
+    assert (p.rows, p.k_res, p.waves) == (32, 64, 1)
+
+
+@pytest.mark.parametrize("hidden,hc", [(32, 1), (64, 2), (160, 5), (256, 8), (416, 4)])
+def test_rec_slices_round_trip_and_product(hidden, hc):
+    """CTA c's slice holds W_hh[k, gate H + c U + u] at [c, k, u, gate], so one
+    16-byte load gives a thread its unit's four gates at one k; its product
+    with h in the kernel's order (k ascending) is h . W_hh."""
+    rng = np.random.default_rng(200 + hidden)
+    w = torch.from_numpy(rng.standard_normal((hidden, 4 * hidden)).astype(np.float32))
+    sl = lp.rec_slices(w, hc)
+    units = hidden // hc
+    assert sl.dtype == torch.float32 and tuple(sl.shape) == (hc, hidden, units, 4)
+    assert torch.equal(lp.rec_unslice(sl), w)
+    c, k, u, gate = hc - 1, hidden - 3, units - 1, 2
+    assert sl[c, k, u, gate] == w[k, gate * hidden + c * units + u]
+    h = torch.from_numpy(rng.standard_normal((3, hidden)).astype(np.float32))
+    z = torch.zeros(3, hc, units, 4)
+    for kk in range(hidden):
+        z += h[:, kk, None, None, None] * sl[:, kk]
+    want = (h.double() @ w.double()).reshape(3, 4, hc, units).permute(0, 2, 3, 1)
+    np.testing.assert_allclose(z.numpy(), want.float().numpy(), rtol=1e-4, atol=1e-4)
+
+
+def test_rec_slices_reject_a_split_off_octets():
+    with pytest.raises(ValueError, match="octets"):
+        lp.rec_slices(torch.zeros(64, 256), 3)
+
+
+def test_kernel_plans_query_each_kernel_on_its_kind(monkeypatch):
+    """kernel_plan asks each recurrent kernel's own query for its clusters
+    (kernel 3b's chain has its own registers), on the planner kind of its
+    weight slice: kernel 3b plans as kernel 3, kernel 1 as "rec"."""
+    from eegflow_torch.nn import cuda_lstm
+
+    asked = []
+
+    def fake(kernel, mode, hidden, rows, hc, k_res, smem):
+        asked.append((kernel, mode, rows, hc))
+        return 30 if kernel != "rec" else 16
+
+    monkeypatch.setattr(cuda_lstm, "_query_clusters", fake)
+    monkeypatch.setattr(cuda_lstm, "_plans", {})
+    assert set(cuda_lstm._PLAN_QUERIES) == set(cuda_lstm._PLAN_KINDS)
+    v2 = cuda_lstm.kernel_plan("bwd_v2", 512, 256)
+    k3 = cuda_lstm.kernel_plan("bwd", 512, 256)
+    assert v2.kind == k3.kind == "bwd" and (v2.hc, v2.rows, v2.k_res, v2.smem) == (
+        k3.hc, k3.rows, k3.k_res, k3.smem)
+    rec = cuda_lstm.kernel_plan("rec", 512, 256, 1)
+    assert (rec.kind, rec.hc, rec.rows, rec.waves) == ("rec", 8, 32, 1)
+    assert {a[0] for a in asked} == {"bwd_v2", "bwd", "rec"}
+    assert all(mode == 1 for kernel, mode, _, hc in asked if kernel == "rec")
+    with pytest.raises(ValueError, match="kernel must be one of"):
+        cuda_lstm.kernel_plan("bwd_raw", 512, 256)
+
+
+def test_raw_gate_chain_shares_the_patched_loader():
+    """Kernel 3b instantiates the chain of lstm_bwd_chain.cuh with its raw-gate
+    step, so the ablations' texts there patch kernels 3, 3b and 4 alike."""
+    from eegflow_torch import kernels
+
+    v2 = (kernels.CSRC / "lstm_bwd_v2.cu").read_text()
+    chain = (kernels.CSRC / "lstm_bwd_chain.cuh").read_text()
+    assert "chain_direction<kMT, true>" in v2 and '#include "gemm.cuh"' not in v2
+    for name in ("lstm_bwd.cu", "lstm_bwd_dualdir.cu"):
+        assert "chain_direction<kMT, true>" not in (kernels.CSRC / name).read_text()
+    assert chain.count("auto load_planes = [&](int t)") == 1
+    assert chain.count("v = __ldcs(") == 1
 
 
 def test_load_library_keeps_one_build_per_process(tmp_path, monkeypatch):

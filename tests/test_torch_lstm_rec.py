@@ -16,7 +16,8 @@ import torch
 from eegflow.nn.pallas_lstm import (bilstm_layer_fused_parts, lstm_layer_fused_parts,
                                     lstm_recurrence_backward as jax_rec_bwd,
                                     lstm_recurrence_pallas)
-from eegflow_torch.nn.cuda_lstm import (bilstm_layer, lstm_rec_layer, lstm_recurrence,
+from eegflow_torch.nn.cuda_lstm import (bilstm_layer, lstm_rec_layer,
+                                        lstm_rec_preactivations, lstm_recurrence,
                                         lstm_recurrence_backward,
                                         lstm_recurrence_backward_plain,
                                         lstm_recurrence_plain)
@@ -73,6 +74,32 @@ def test_recurrence_twin_matches_pallas(reverse, collect_cell):
         assert all(torch.equal(a, b) for a, b in zip(wrapped, got))
     else:
         assert torch.equal(wrapped, got)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+def test_preactivations_match_pallas_state(reverse):
+    """The pre-activations z = gates + h_prev . W_hh that kernel 1 forms and
+    kernel 5 recomputes (one value on the CPU: the twin's) agree with the
+    Pallas kernel's h and c: c[t] = f c[t-1] + i g from the tanh-form gates
+    of z."""
+    _, gates, w_hh = _gates(65 + reverse)
+    batch = gates.shape[0]
+    h_j, c_j = lstm_recurrence_pallas(_pad(gates), jnp.asarray(w_hh), batch_tile=TILE,
+                                      t_chunk=4, interpret=True, collect_cell=True,
+                                      reverse=reverse)
+    h_j, c_j = np.asarray(h_j)[:batch], np.asarray(c_j)[:batch]
+    z_fwd, z_bwd = lstm_rec_preactivations(torch.from_numpy(gates), torch.from_numpy(w_hh),
+                                           reverse)
+    assert torch.equal(z_fwd, z_bwd)
+    h_prev, c_prev = np.zeros_like(h_j), np.zeros_like(c_j)
+    if reverse:
+        h_prev[:, :-1], c_prev[:, :-1] = h_j[:, 1:], c_j[:, 1:]
+    else:
+        h_prev[:, 1:], c_prev[:, 1:] = h_j[:, :-1], c_j[:, :-1]
+    np.testing.assert_allclose(z_fwd.numpy(), gates + h_prev @ w_hh, atol=FWD_TOL, rtol=0)
+    sig = lambda v: 0.5 * np.tanh(0.5 * v) + 0.5  # noqa: E731
+    i, f, g, _ = np.split(z_fwd.numpy(), 4, axis=-1)
+    np.testing.assert_allclose(sig(f) * c_prev + sig(i) * np.tanh(g), c_j, atol=FWD_TOL, rtol=0)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
