@@ -872,16 +872,17 @@ def main() -> int:
     gates_big = (torch.cat(tuple(torch.tanh(randn(BUCKET, T, H)) for _ in range(2)), dim=-1)
                  @ p1["w_ih"] + p1["b"])
     h_big = lstm_recurrence_plain(gates_big, p1["w_hh"], False)
-    for label, args, want in (("training", (gates2, p1["w_hh"], True, True), [h32, c32]),
-                              ("eval", (gates2, p1["w_hh"], True), [h32]),
-                              ("eval", (gates_big, p1["w_hh"], False), [h_big])):
-        plan = kernel_plan("rec", args[0].shape[0], H, int(len(args) == 4))
-        as_list = lambda out: list(out) if isinstance(out, tuple) else [out]  # noqa: E731
+    for gates_m, reverse, train, want in ((gates2, True, True, [h32, c32]),
+                                          (gates2, True, False, [h32]),
+                                          (gates_big, False, False, [h_big])):
+        plan = kernel_plan("rec", gates_m.shape[0], H, int(train))
+        got, again = (lstm_recurrence(gates_m, p1["w_hh"], reverse, train) for _ in range(2))
         rec_err = max(rec_err, hold_at_main_shape(
-            f"lstm_rec_fwd {label} B={args[0].shape[0]} T={T} H={H} ({plan.rows} rows a cluster "
-            f"of {plan.hc}, {plan.clusters} clusters in {plan.waves} wave(s)): "
-            + ("h, c" if len(want) == 2 else "h"), as_list(lstm_recurrence(*args)),
-            as_list(lstm_recurrence(*args)), want, REC_TOL, relative=False))
+            f"lstm_rec_fwd {'training' if train else 'eval'} B={gates_m.shape[0]} T={T} H={H} "
+            f"({plan.rows} rows a cluster of {plan.hc}, {plan.clusters} clusters in "
+            f"{plan.waves} wave(s)): " + ("h, c" if train else "h"),
+            list(got) if train else [got], list(again) if train else [again], want, REC_TOL,
+            relative=False))
     # kernel 5 recomputes kernel 1's pre-activations bit for bit (both sum
     # each product with k ascending from 0 and add the gate last)
     z_fwd, z_bwd = lstm_rec_preactivations(gates2, p1["w_hh"], True)

@@ -31,10 +31,12 @@
 // may hold). Kernel 1's products are 2 B T H 4H operations, 69 GFLOP at
 // B = 512, T = 256, H = 256: 1.03 ms at the card's 67 TFLOP/s of float32
 // outside the tensor cores (TF32 is off, so they cannot compute this
-// function), above its 0.77 GB of HBM traffic (0.23 ms). Per step that is
-// ~4 us of FMA on each of 128 SMs, so kernel 1 is bound by its products once
-// the weights stay on chip; the rest of a step is the exchange of h and the
-// cluster barrier.
+// function), above its 0.77 GB of HBM traffic (0.23 ms). Once the weights
+// stay on chip the products bound it: the card holds 15 clusters of 8 such
+// CTAs, so B = 512 runs 11 clusters of 48 rows on 88 SMs and a step costs
+// ~15 us, ~9.6 of them the product, ~1.3 the exchange of h, the rest the
+// cell update and the cluster barrier (H100 80GB HBM3 at 700 W, python -m
+// eegflow_torch.kernels.ablate).
 //
 // Kernel 1's design, after kernel 2's recurrence (lstm_fwd.cu) in float32:
 // a thread-block cluster (lstm_cluster.cuh) of hc CTAs owns a tile of 16,

@@ -48,7 +48,8 @@ VARIANTS = {
         ("lstm_bwd_chain.cuh", "for (int kk = KT2_res; kk < KT2; kk += 2)",
          "for (int kk = KT2; kk < KT2; kk += 2)"),
         ("lstm_rec.cu", "for (int k = 0; k < k_res; k += 4) {", "for (int k = 0; k < 0; k += 4) {"),
-        ("lstm_rec.cu", "for (int k = k_res; k < H; k += 4) {", "for (int k = H; k < H; k += 4) {")],
+        ("lstm_rec.cu", "for (int k = k_res; k < H; k += 4) {",
+         "for (int k = H; k < H; k += 4) {")],
     "noexch": [
         ("lstm_fwd.cu", "for (int r = q; r < hc; r += 4) {", "for (int r = q; r < 0; r += 4) {"),
         ("lstm_bwd_chain.cuh", "    for (int r = 0; r < hc; ++r) {\n      const uint32_t base",

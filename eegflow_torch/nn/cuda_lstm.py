@@ -455,15 +455,26 @@ def lstm_bwd(res: torch.Tensor, h: torch.Tensor, g: torch.Tensor, xs: Parts,
     if _device_kind("lstm_bwd", res) == "cpu":
         return lstm_bwd_plain(res, h, g, xs, w_ih, w_hh, reverse, masks, keep, dx_add)
     _check_cuda_args(xs, w_ih, None, w_hh, masks)
+    hidden = w_hh.shape[0]
+    _check_seqs(xs, ("res", res, 6 * hidden), ("h", h, hidden), ("g", g, hidden))
+    return _chain_bwd("lstm_bwd", "bwd", (res,), h, g, xs, w_ih, w_hh, reverse, masks, keep,
+                      _check_dx_add(dx_add, xs))
+
+
+def _chain_bwd(name: str, plan_kind: str, residuals, h, g, xs, w_ih, w_hh, reverse, masks,
+               keep, dx_add) -> Grads:
+    """Launch kernel 3 (``residuals`` the planes) or 3b (the raw gates and c)
+    on checked CUDA arguments: the C entry ``eegflow_<name>``, counted as
+    ``name``, on the plan ``kernel_plan(plan_kind, ...)``. The wrapper builds
+    the bf16 W_ih parts, W_hh^T in fragment order, the outputs and the
+    scratch (bf16 dz, db's per-16-row partials, split-K partials)."""
     masks = _mask_list(masks, len(xs))
     batch, steps = xs[0].shape[:2]
     hidden = w_hh.shape[0]
-    _check_seqs(xs, ("res", res, 6 * hidden), ("h", h, hidden), ("g", g, hidden))
-    dx_add = _check_dx_add(dx_add, xs)
     lib = kernels.load_library()
     dev = xs[0].device
     gates = 4 * hidden
-    plan = kernel_plan("bwd", batch, hidden)
+    plan = kernel_plan(plan_kind, batch, hidden)
     widths = [x.shape[-1] for x in xs]
     w_parts = torch.split(w_ih.to(torch.bfloat16).contiguous(), widths, dim=0)
     wfrag = lstm_plan.bwd_fragments(w_hh)
@@ -478,8 +489,8 @@ def lstm_bwd(res: torch.Tensor, h: torch.Tensor, g: torch.Tensor, xs: Parts,
     part = torch.empty(splits * max(widths + [hidden]) * gates, dtype=torch.float32,
                        device=dev)
     two = len(xs) == 2
-    err = lib.eegflow_lstm_bwd(
-        res.data_ptr(), h.data_ptr(), g.data_ptr(),
+    err = getattr(lib, "eegflow_" + name)(
+        *[r.data_ptr() for r in residuals], h.data_ptr(), g.data_ptr(),
         xs[0].data_ptr(), _ptr(xs[1]) if two else None,
         _ptr(masks[0]), _ptr(masks[1]) if two else None,
         widths[0], widths[1] if two else 0, 1.0 / keep,
@@ -489,8 +500,8 @@ def lstm_bwd(res: torch.Tensor, h: torch.Tensor, g: torch.Tensor, xs: Parts,
         dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(), dz16.data_ptr(), db_part.data_ptr(),
         part.data_ptr(), splits, batch, steps, hidden, plan.hc, plan.rows, plan.k_res,
         int(reverse), _stream(dev))
-    kernels.check(lib, err, "lstm_bwd")
-    kernels.launch_counts["lstm_bwd"] += 1
+    kernels.check(lib, err, name)
+    kernels.launch_counts[name] += 1
     return tuple(dxs), dw_ih, dw_hh, db
 
 
@@ -544,43 +555,11 @@ def lstm_bwd_v2(gates: torch.Tensor, c: torch.Tensor, h: torch.Tensor, g: torch.
         return lstm_bwd_v2_plain(gates, c, h, g, xs, w_ih, w_hh, reverse, masks, keep,
                                  dx_add)
     _check_cuda_args(xs, w_ih, None, w_hh, masks)
-    masks = _mask_list(masks, len(xs))
-    batch, steps = xs[0].shape[:2]
     hidden = w_hh.shape[0]
-    g4 = 4 * hidden
-    _check_seqs(xs, ("gates", gates, g4), ("c", c, hidden), ("h", h, hidden),
+    _check_seqs(xs, ("gates", gates, 4 * hidden), ("c", c, hidden), ("h", h, hidden),
                 ("g", g, hidden))
-    dx_add = _check_dx_add(dx_add, xs)
-    lib = kernels.load_library()
-    dev = xs[0].device
-    plan = kernel_plan("bwd_v2", batch, hidden)
-    widths = [x.shape[-1] for x in xs]
-    w_parts = torch.split(w_ih.to(torch.bfloat16).contiguous(), widths, dim=0)
-    wfrag = lstm_plan.bwd_fragments(w_hh)
-    dxs = [torch.empty_like(x) for x in xs]
-    dw_ih = torch.empty(sum(widths), g4, dtype=torch.float32, device=dev)
-    dw_hh = torch.empty(hidden, g4, dtype=torch.float32, device=dev)
-    db = torch.empty(g4, dtype=torch.float32, device=dev)
-    dz16 = torch.empty(batch, steps, g4, dtype=torch.bfloat16, device=dev)
-    db_part = torch.empty(-(-batch // lstm_plan.ROW_TILE), g4, dtype=torch.float32,
-                          device=dev)
-    splits = kernels.gemm_splits(batch * steps)
-    part = torch.empty(splits * max(widths + [hidden]) * g4, dtype=torch.float32, device=dev)
-    two = len(xs) == 2
-    err = lib.eegflow_lstm_bwd_v2(
-        gates.data_ptr(), c.data_ptr(), h.data_ptr(), g.data_ptr(),
-        xs[0].data_ptr(), _ptr(xs[1]) if two else None,
-        _ptr(masks[0]), _ptr(masks[1]) if two else None,
-        widths[0], widths[1] if two else 0, 1.0 / keep,
-        w_parts[0].data_ptr(), w_parts[1].data_ptr() if two else None, wfrag.data_ptr(),
-        _ptr(dx_add[0]) if dx_add else None, _ptr(dx_add[1]) if dx_add and two else None,
-        dxs[0].data_ptr(), dxs[1].data_ptr() if two else None,
-        dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(), dz16.data_ptr(), db_part.data_ptr(),
-        part.data_ptr(), splits, batch, steps, hidden, plan.hc, plan.rows, plan.k_res,
-        int(reverse), _stream(dev))
-    kernels.check(lib, err, "lstm_bwd_v2")
-    kernels.launch_counts["lstm_bwd_v2"] += 1
-    return tuple(dxs), dw_ih, dw_hh, db
+    return _chain_bwd("lstm_bwd_v2", "bwd_v2", (gates, c), h, g, xs, w_ih, w_hh, reverse,
+                      masks, keep, _check_dx_add(dx_add, xs))
 
 
 DirGrads = Tuple[torch.Tensor, torch.Tensor, torch.Tensor]
@@ -902,10 +881,14 @@ def _check_rec_args(gates, w_hh, *seqs):
         raise ValueError("w_hh must be on the gates' device")
 
 
-def _rec_fwd_kernel(name: str, gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
+#: kernel 1's modes (0 eval, 1 training, 2 training with z) -> counter name
+_REC_MODES = ("lstm_rec_fwd", "lstm_rec_fwd_train", "lstm_rec_fwd_z")
+
+
+def _rec_fwd_kernel(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
                     mode: int) -> Tuple[torch.Tensor, ...]:
-    """Launch kernel 1 in ``mode`` (0 eval, 1 training, 2 training with z)
-    on CUDA gates -> h, then c (modes 1, 2), then z (mode 2). The wrapper
+    """Launch kernel 1 in ``mode`` (a position in :data:`_REC_MODES`) on
+    CUDA gates -> h, then c (modes 1, 2), then z (mode 2). The wrapper
     builds W_hh's CTA slices (``lstm_plan.rec_slices``) for the plan."""
     _check_rec_args(gates, w_hh)
     lib = kernels.load_library()
@@ -925,8 +908,8 @@ def _rec_fwd_kernel(name: str, gates: torch.Tensor, w_hh: torch.Tensor, reverse:
     else:
         err = lib.eegflow_lstm_rec_fwd(gates.data_ptr(), wslice.data_ptr(), h.data_ptr(),
                                        _ptr(outs[1]) if mode else None, *geometry)
-    kernels.check(lib, err, name)
-    kernels.launch_counts[name] += 1
+    kernels.check(lib, err, _REC_MODES[mode])
+    kernels.launch_counts[_REC_MODES[mode]] += 1
     return tuple(outs)
 
 
@@ -938,8 +921,8 @@ def lstm_recurrence(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool = Fal
     if _device_kind("lstm_rec_fwd", gates) == "cpu":
         return lstm_recurrence_plain(gates, w_hh, reverse, collect_cell)
     if collect_cell:
-        return _rec_fwd_kernel("lstm_rec_fwd_train", gates, w_hh, reverse, 1)
-    return _rec_fwd_kernel("lstm_rec_fwd", gates, w_hh, reverse, 0)[0]
+        return _rec_fwd_kernel(gates, w_hh, reverse, 1)
+    return _rec_fwd_kernel(gates, w_hh, reverse, 0)[0]
 
 
 def lstm_rec_preactivations(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False
@@ -954,7 +937,7 @@ def lstm_rec_preactivations(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bo
         h = lstm_recurrence_plain(gates, w_hh, reverse)
         z = gates + _shift(h, reverse) @ w_hh
         return z, z
-    h, _, z_fwd = _rec_fwd_kernel("lstm_rec_fwd_z", gates, w_hh, reverse, 2)
+    h, _, z_fwd = _rec_fwd_kernel(gates, w_hh, reverse, 2)
     lib = kernels.load_library()
     whh = w_hh.to(torch.float32).contiguous()
     z_bwd = torch.empty_like(gates)
