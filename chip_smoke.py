@@ -10,7 +10,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      of each recurrent kernel at the main path's shapes (rows per cluster,
      cudaOccupancyMaxActiveClusters, waves, resident weight rows, shared
      memory): kernel 2's three modes, kernels 3, 3b and 4 at B=512, kernel 1
-     (float32) in training mode at B=512 and in eval mode at B=512 and 1024;
+     (float32) in training mode at B=512 and in eval mode at B=512 and 1024,
+     kernel 5 (float32) at B=512;
   3. lstm_fwd against its plain twin at B=64, T=256, H=256, one and two
      input parts, both directions, and bitwise against itself;
   4. pool_head_fwd against its plain twin: two parts of 256, K=256, T=256;
@@ -25,8 +26,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      and to a bitwise repeat;
   7. the bf16 training kernels against their twins at B=64, T=256, H=256:
      lstm_fwd in training mode (masks, residual planes) and lstm_bwd, each
-     also bitwise against itself, and pool_head_bwd in its bf16 and float32
-     modes;
+     also bitwise against itself, and pool_head_bwd in its bf16 (tensor
+     cores) and float32 modes;
   8. trains through the `train` stage of the CLI (in-process) on a
      synthetic processed_sequences.npz (2048 training windows of 256 x 61,
      2 epochs, full-width ModelConfig, default TrainConfig: bf16); checks the
@@ -37,13 +38,15 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
   9. one bf16 training micro-step at B=512 on the kernel path against the
      plain path from identical params and masks (loss and every gradient), a
      second kernel run bitwise identical; holds lstm_fwd_train and lstm_bwd
-     at B=512 (the plans the micro-step launches) to their twins and to a
-     bitwise repeat; then times the micro-step on both paths and each
-     training kernel against its twin at B=512;
+     at B=512 (the plans the micro-step launches) and pool_head_bwd in bf16
+     mode at B=512, T=256, D=512, K=256 to their twins and to a bitwise
+     repeat; then times the micro-step on both paths and each training
+     kernel against its twin at B=512;
  10. the float32 policy's kernels against their twins: lstm_rec_fwd (eval and
-     training mode, each also bitwise against itself) and lstm_rec_bwd at
-     B=64, T=256, H=256 on the gates of one- and two-part inputs, both
-     directions; input_block_fwd and input_block_bwd in both modes;
+     training mode, each also bitwise against itself; training mode's z
+     written over the gates) and lstm_rec_bwd on that z at B=64, T=256,
+     H=256 on the gates of one- and two-part inputs, both directions;
+     input_block_fwd and input_block_bwd in both modes;
      attention_pool at D=256;
  11. attention_pool through its entry point, attention_pool_apply, at B=512,
      T=256, D=256 (no classifier path calls it), against its twin;
@@ -56,9 +59,9 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
  13. one float32 micro-step at B=512, kernel path against plain path (loss,
      every gradient, bitwise repeat), timed on both paths and in turns with
      the bf16 "fused" step; lstm_rec_fwd on the plans the main path launches
-     (training and eval at B=512, eval at B=1024) held to its twin and to a
-     bitwise repeat, and lstm_rec_bwd's recomputed pre-activations held to
-     lstm_rec_fwd's bit for bit; each float32 kernel (and the input block in
+     (training at B=512, with the z it leaves over the gates, and eval at
+     B=512 and 1024) and lstm_rec_bwd on its B=512 plan held to their twins
+     and to a bitwise repeat; each float32 kernel (and the input block in
      both modes) timed against its twin, lstm_rec_fwd eval also at B=1024;
  14. the kernels of the two other bf16 backward schedules against their
      twins at B=64, T=256, H=256, one and two parts: lstm_fwd_train_gates
@@ -274,7 +277,6 @@ def main() -> int:
                                             lstm_fwd_fused_proj, lstm_fwd_fused_proj_plain,
                                             lstm_fwd_train, lstm_fwd_train_gates,
                                             lstm_fwd_train_gates_plain, lstm_fwd_train_plain,
-                                            lstm_rec_preactivations,
                                             lstm_recurrence, lstm_recurrence_backward,
                                             lstm_recurrence_backward_plain,
                                             lstm_recurrence_plain, select_dropout)
@@ -313,11 +315,13 @@ def main() -> int:
                                      ("bwd_v2", B_TRAIN, 0, "lstm_bwd_v2"),
                                      ("bwd_dualdir", B_TRAIN, 0, "lstm_bwd_dualdir"),
                                      ("rec", B_TRAIN, 1, "lstm_rec_fwd_train"),
+                                     ("rec_bwd", B_TRAIN, 0, "lstm_rec_bwd"),
                                      ("rec", B_TRAIN, 0, "lstm_rec_fwd"),
                                      ("rec", BUCKET, 0, "lstm_rec_fwd"),
                                      ("fwd", B_CHECK, 1, "lstm_fwd_train"),
                                      ("bwd", B_CHECK, 0, "lstm_bwd"),
-                                     ("rec", B_CHECK, 1, "lstm_rec_fwd_train")):
+                                     ("rec", B_CHECK, 1, "lstm_rec_fwd_train"),
+                                     ("rec_bwd", B_CHECK, 0, "lstm_rec_bwd")):
         print(f"cluster plan {label}: {kernel_plan(kind, batch, H, mode).describe()}")
     print(flush=True)
 
@@ -667,6 +671,11 @@ def main() -> int:
         f"({kernel_plan('bwd', B_TRAIN, H).rows} rows a cluster): dx, dW_ih, dW_hh, db",
         flat_bwd(lstm_bwd(*bargs)), flat_bwd(lstm_bwd(*bargs)), flat_bwd(lstm_bwd_plain(*bargs)),
         BWD_REL_TOL, relative=True))
+    flat_pool = lambda out: list(out[0]) + list(out[1:])  # noqa: E731
+    pool_bwd_err = max(pool_bwd_err, hold_at_main_shape(
+        f"pool_head_bwd bf16 B={B_TRAIN} T={T} parts=2x{H} K={H} (tensor cores): dh, dW1, db1, "
+        f"dw2, dgamma, dbeta", flat_pool(pool_head_bwd(*pargs2)), flat_pool(pool_head_bwd(*pargs2)),
+        flat_pool(pool_head_bwd_plain(*pargs2)), POOL_BWD_REL_TOL, relative=True))
     head_flops = 3 * 2 * B_TRAIN * T * 2 * H * H  # projection, dW1, dh
     train_ms = {}
     for name, kfn, pfn, args, flops in (
@@ -688,24 +697,27 @@ def main() -> int:
             p = layer[direction]
             gates = torch.cat(xs, dim=-1) @ p["w_ih"] + p["b"]
             h_e = lstm_recurrence(gates, p["w_hh"], reverse)
-            h_k, c_k = lstm_recurrence(gates, p["w_hh"], reverse, True)
-            h_p, c_p = lstm_recurrence_plain(gates, p["w_hh"], reverse, True)
+            # training mode writes z over its gates: each call gets its own copy
+            z_k, z_k2, z_p = gates.clone(), gates.clone(), gates.clone()
+            h_k, c_k = lstm_recurrence(z_k, p["w_hh"], reverse, True)
+            h_p, c_p = lstm_recurrence_plain(z_p, p["w_hh"], reverse, True)
             same = (torch.equal(h_e, lstm_recurrence(gates, p["w_hh"], reverse))
                     and all(torch.equal(a, b) for a, b in
-                            zip((h_k, c_k), lstm_recurrence(gates, p["w_hh"], reverse, True))))
+                            zip((h_k, c_k), lstm_recurrence(z_k2, p["w_hh"], reverse, True)))
+                    and torch.equal(z_k, z_k2))
             torch.cuda.synchronize()
             err = max((h_e - h_p).abs().max().item(), (h_k - h_p).abs().max().item(),
-                      (c_k - c_p).abs().max().item())
+                      (c_k - c_p).abs().max().item(), (z_k - z_p).abs().max().item())
             print(f"lstm_rec_fwd parts={n_parts} reverse={reverse} B={B_CHECK} T={T} H={H}: "
-                  f"h (eval, training) and c max_abs_diff {err:.3e} (tol {REC_TOL:g}); repeat "
+                  f"h (eval, training), c and z max_abs_diff {err:.3e} (tol {REC_TOL:g}); repeat "
                   f"bitwise identical: {same}")
             require(bool(torch.isfinite(h_k).all()) and err <= REC_TOL and same,
                     f"lstm_rec_fwd within {REC_TOL} of its twin, bitwise repeatable")
             rec_err = max(rec_err, err)
             g_up = 0.1 * randn(B_CHECK, T, H)
-            got = lstm_recurrence_backward(gates, h_p, c_p, p["w_hh"], g_up, reverse)
-            again = lstm_recurrence_backward(gates, h_p, c_p, p["w_hh"], g_up, reverse)
-            want = lstm_recurrence_backward_plain(gates, h_p, c_p, p["w_hh"], g_up, reverse)
+            got = lstm_recurrence_backward(z_p, h_p, c_p, p["w_hh"], g_up, reverse)
+            again = lstm_recurrence_backward(z_p, h_p, c_p, p["w_hh"], g_up, reverse)
+            want = lstm_recurrence_backward_plain(z_p, h_p, c_p, p["w_hh"], g_up, reverse)
             torch.cuda.synchronize()
             errs = {"dgates": rel_err(got[0], want[0]), "dW_hh": rel_err(got[1], want[1])}
             same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -865,33 +877,40 @@ def main() -> int:
               f"\"fused\" step on the kernel path, {step32_ms['bf16 fused']:.3f} ms) [{smi}]")
 
     gates2 = torch.cat(xs2, dim=-1) @ p1["w_ih"] + p1["b"]
-    h32, c32 = lstm_recurrence_plain(gates2, p1["w_hh"], True, True)
+    z32 = gates2.clone()  # training mode leaves z over its gates
+    h32, c32 = lstm_recurrence_plain(z32, p1["w_hh"], True, True)
     # kernel 1 on the plans the main path launches: training (the float32
-    # micro-step) and eval at B=512, eval at the serving bucket
-    # (coupled_rollout(bf16=False) of a 1024-window batch)
+    # micro-step, h, c and the z it leaves over the gates) and eval at B=512,
+    # eval at the serving bucket (coupled_rollout(bf16=False) of a
+    # 1024-window batch)
     gates_big = (torch.cat(tuple(torch.tanh(randn(BUCKET, T, H)) for _ in range(2)), dim=-1)
                  @ p1["w_ih"] + p1["b"])
     h_big = lstm_recurrence_plain(gates_big, p1["w_hh"], False)
-    for gates_m, reverse, train, want in ((gates2, True, True, [h32, c32]),
+    for gates_m, reverse, train, want in ((gates2, True, True, [h32, c32, z32]),
                                           (gates2, True, False, [h32]),
                                           (gates_big, False, False, [h_big])):
         plan = kernel_plan("rec", gates_m.shape[0], H, int(train))
-        got, again = (lstm_recurrence(gates_m, p1["w_hh"], reverse, train) for _ in range(2))
+        runs = []
+        for _ in range(2):
+            z = gates_m.clone() if train else gates_m
+            out = lstm_recurrence(z, p1["w_hh"], reverse, train)
+            runs.append(list(out) + [z] if train else [out])
         rec_err = max(rec_err, hold_at_main_shape(
             f"lstm_rec_fwd {'training' if train else 'eval'} B={gates_m.shape[0]} T={T} H={H} "
             f"({plan.rows} rows a cluster of {plan.hc}, {plan.clusters} clusters in "
-            f"{plan.waves} wave(s)): " + ("h, c" if train else "h"),
-            list(got) if train else [got], list(again) if train else [again], want, REC_TOL,
-            relative=False))
-    # kernel 5 recomputes kernel 1's pre-activations bit for bit (both sum
-    # each product with k ascending from 0 and add the gate last)
-    z_fwd, z_bwd = lstm_rec_preactivations(gates2, p1["w_hh"], True)
-    torch.cuda.synchronize()
-    z_same = torch.equal(z_fwd, z_bwd)
-    print(f"lstm_rec_bwd's recomputed z vs lstm_rec_fwd's pre-activations B={B_TRAIN}: bit for "
-          f"bit {z_same}, max abs diff {(z_fwd - z_bwd).abs().max().item():.3e}")
-    require(z_same, "kernel 5 recomputes kernel 1's pre-activations bit for bit")
-    del z_fwd, z_bwd, h_big
+            f"{plan.waves} wave(s)): " + ("h, c, z over the gates" if train else "h"),
+            runs[0], runs[1], want, REC_TOL, relative=False))
+    # kernel 5 on the plan the float32 micro-step launches, from the z kernel
+    # 1's training mode leaves
+    plan = kernel_plan("rec_bwd", B_TRAIN, H)
+    rec_bwd_args = (z32, h32, c32, p1["w_hh"], g2, True)
+    rec_bwd_err = max(rec_bwd_err, hold_at_main_shape(
+        f"lstm_rec_bwd B={B_TRAIN} T={T} H={H} ({plan.rows} rows a cluster of {plan.hc}, "
+        f"{plan.clusters} clusters in {plan.waves} wave(s)): dgates, dW_hh",
+        list(lstm_recurrence_backward(*rec_bwd_args)),
+        list(lstm_recurrence_backward(*rec_bwd_args)),
+        list(lstm_recurrence_backward_plain(*rec_bwd_args)), REC_BWD_REL_TOL, relative=True))
+    del h_big
     m = median_ms({"plain": lambda: lstm_recurrence_plain(gates_big, p1["w_hh"], False),
                    "kernel": lambda: lstm_recurrence(gates_big, p1["w_hh"], False)}, rounds=1)
     print(f"lstm_rec_fwd eval B={BUCKET} T={T} H={H}: kernel {m['kernel']:.3f} ms, plain "
@@ -903,14 +922,17 @@ def main() -> int:
     pargs32 = pargs2[:-1] + (False,)
     rec_flops = 2 * B_TRAIN * T * H * 4 * H  # one h . W_hh per step, float32
     in_flops = 2 * B_TRAIN * T * C * H  # x . W of the input block
+    # training mode writes z over its gates; the timed calls share one buffer
+    # (its z drifts from call to call, which no timing depends on)
+    z_buf = gates2.clone()
     timed = (
         ("lstm_rec_fwd", lstm_recurrence, lstm_recurrence_plain, (gates2, p1["w_hh"], True),
          rec_flops, "float32"),
         ("lstm_rec_fwd_train", lstm_recurrence, lstm_recurrence_plain,
-         (gates2, p1["w_hh"], True, True), rec_flops, "float32"),
-        # z recomputed, dh_carry, and dW_hh
+         (z_buf, p1["w_hh"], True, True), rec_flops, "float32"),
+        # dh_carry and dW_hh
         ("lstm_rec_bwd", lstm_recurrence_backward, lstm_recurrence_backward_plain,
-         (gates2, h32, c32, p1["w_hh"], g2, True), 3 * rec_flops, "float32"),
+         rec_bwd_args, 2 * rec_flops, "float32"),
         ("input_block_fwd bf16", input_block_fused, input_block_fused_plain, (*ib, x512, True),
          in_flops, "bf16"),
         # the recomputed forward, dW and dx
@@ -923,7 +945,9 @@ def main() -> int:
         ("pool_head_bwd float32", pool_head_bwd, pool_head_bwd_plain, pargs32, head_flops,
          "float32"))
     for name, kfn, pfn, args, flops, dtype in timed:
-        work[name] = (nbytes(args, kfn(*args)), flops, dtype)
+        # kernel 1's training mode also writes z (the size of its gates)
+        extra = nbytes(z_buf) if name == "lstm_rec_fwd_train" else 0
+        work[name] = (nbytes(args, kfn(*args)) + extra, flops, dtype)
         m = median_ms({"plain": lambda: pfn(*args), "kernel": lambda: kfn(*args)}, rounds=1)
         train_ms[name] = (m["kernel"], m["plain"])
         print(f"{name} B={B_TRAIN} T={T} H={H}: kernel {m['kernel']:.3f} ms, "

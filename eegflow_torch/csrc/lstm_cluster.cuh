@@ -1,24 +1,26 @@
 // The thread-block-cluster pieces of the recurrent LSTM kernels (kernel 2's
 // recurrence in lstm_fwd.cu, the adjoint chain of kernels 3, 3b and 4 in
-// lstm_bwd_chain.cuh, kernel 1's float32 recurrence in lstm_rec.cu): the
-// geometry of a launch, the cluster barrier, stores into another CTA's
-// shared memory, and the launch itself.
+// lstm_bwd_chain.cuh, kernel 1's float32 recurrence and kernel 5's float32
+// adjoint in lstm_rec.cu): the geometry of a launch, the cluster barrier,
+// stores into another CTA's shared memory, and the launch itself.
 //
 // A cluster of hc CTAs owns 16 * kMT batch rows (kMT = 1..3 mma m-tiles)
 // and one direction; CTA `rank` owns U = H / hc hidden units with 4 U
 // threads (bf16 kernels: one warp per octet of 8 units; kernel 1: four row
-// groups of U threads) and keeps its slice of the recurrent weight (in the
-// layout nn/lstm_plan.py builds) in shared memory: the first k_res rows of
-// it, the rest read from L2 each step. Each step a CTA sends its part of
-// the new state (bf16, or float32 in kernel 1) to every CTA of the cluster
+// groups of U threads; kernels 1 and 5) and keeps its slice of the recurrent
+// weight (in the layout nn/lstm_plan.py builds) in shared memory: the first
+// k_res rows of it, the rest read from L2 each step. Each step a CTA sends
+// its part of the new state (bf16, or float32 in kernel 1; kernel 5 sends
+// each CTA its block of a partial dh instead) to every CTA of the cluster
 // through distributed shared memory, then arrives
 // at the cluster barrier (release); work that does not need the exchange
 // (HBM stores, the next step's loads) goes before the wait (acquire). The
 // forward double-buffers h, so one barrier per step is enough: a CTA writes
 // a buffer again only after every CTA has arrived past its reads of it. The
-// backward keeps one dz buffer and a second barrier phase per step, arrived
-// at after the product's reads and waited for just before the next step's
-// exchange, so the step's elementwise work hides it.
+// backward kernels keep one buffer (dz; kernel 5 its partial inbox) and a
+// second barrier phase per step, arrived at after the buffer's reads and
+// waited for just before the next step's exchange, so the step's work hides
+// it.
 #pragma once
 
 #include <stdint.h>
@@ -28,6 +30,9 @@
 #include "common.cuh"
 
 namespace eegflow {
+
+// the largest portable cluster
+constexpr int kMaxCluster = 8;
 
 __device__ __forceinline__ uint32_t cluster_rank() {
   uint32_t r;
@@ -90,25 +95,36 @@ struct ClusterGeom {
   int rows;   // batch rows per cluster: 16, 32 or 48
   int k_res;  // resident rows of the CTA's weight slice
   int kind;   // 0: forward (K = H, 4U bf16 columns); 1: backward (K = 4H, U
-              // bf16 columns); 2: float32 recurrence (K = H, 4U float32 columns)
+              // bf16 columns); 2: float32 recurrence (K = H, 4U float32
+              // columns); 3: float32 adjoint (K = 4U, H float32 columns)
 
   int units() const { return H / hc; }
-  int threads() const { return 32 * (units() / 8); }
-  int k_total() const { return kind == 1 ? 4 * H : H; }
+  // 4U threads; kernel 5 8U (two halves that split its rows and products)
+  int threads() const { return 32 * (units() / 8) * (kind == 3 ? 2 : 1); }
+  int k_total() const { return kind == 1 ? 4 * H : kind == 3 ? 4 * units() : H; }
   size_t slice_row_bytes() const {
-    return kind == 0 ? 4 * units() * 2 : kind == 1 ? units() * 2 : 4 * units() * 4;
+    return kind == 0 ? 4 * units() * 2
+         : kind == 1 ? units() * 2
+         : kind == 2 ? 4 * units() * 4
+                     : static_cast<size_t>(H) * 4;
   }
   // the weight slice's k_res rows, then the state buffers: two bf16 ones
-  // (forward) or one (backward) of `rows` rows of K + 8 elements, or two
-  // float32 ones (float32 recurrence) of rows of H + 4
+  // (forward) or one (backward) of `rows` rows of K + 8 elements; two
+  // float32 ones (float32 recurrence) of rows of H + 4; or (float32 adjoint)
+  // the dz tile, rows x 4U, and the partial inbox, hc x rows x U, float32
   size_t smem_bytes() const {
-    const size_t state = kind == 2 ? 2 * static_cast<size_t>(rows) * (H + 4) * 4
-                                   : (kind == 0 ? 2 : 1) * static_cast<size_t>(rows) *
-                                         (k_total() + 8) * 2;
+    size_t state;
+    if (kind == 2)
+      state = 2 * static_cast<size_t>(rows) * (H + 4) * 4;
+    else if (kind == 3)
+      state = static_cast<size_t>(rows) * (4 * units() + H) * 4;
+    else
+      state = (kind == 0 ? 2 : 1) * static_cast<size_t>(rows) * (k_total() + 8) * 2;
     return static_cast<size_t>(k_res) * slice_row_bytes() + state;
   }
   bool valid() const {
-    return H % 32 == 0 && H >= 32 && H <= 512 && hc >= 1 && hc <= 8 && H % (8 * hc) == 0 &&
+    return H % 32 == 0 && H >= 32 && H <= 512 && hc >= 1 && hc <= kMaxCluster &&
+           H % (8 * hc) == 0 &&
            units() / 8 <= 16 && (rows == 16 || rows == 32 || rows == 48) && k_res >= 0 &&
            (k_res == k_total() || k_res % 64 == 0) && k_res <= k_total() && smem_bytes() <= 232448;
   }
@@ -118,10 +134,16 @@ struct ClusterGeom {
 // count, each an std::integral_constant: the instantiation of a recurrent
 // kernel that a launch or a query takes. More than 256 threads (over 8
 // octets a CTA, widths such as H = 160) leave 128 registers a thread, and
-// take 16 rows only.
-template <class F>
+// take 16 rows only; a kernel whose CTAs may exceed 512 threads (kernel 5)
+// asks for the 1024-thread instantiation with kThreadsCap.
+template <int kThreadsCap = 512, class F>
 cudaError_t with_tile(const ClusterGeom& geo, F&& f) {
   using std::integral_constant;
+  if constexpr (kThreadsCap > 512) {
+    if (geo.threads() > 512)
+      return geo.rows == 16 ? f(integral_constant<int, 1>{}, integral_constant<int, 1024>{})
+                            : cudaErrorInvalidValue;
+  }
   if (geo.threads() > 256)
     return geo.rows == 16 ? f(integral_constant<int, 1>{}, integral_constant<int, 512>{})
                           : cudaErrorInvalidValue;

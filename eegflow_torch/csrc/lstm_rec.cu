@@ -14,63 +14,75 @@
 //   z = gates[t] + h_prev . W_hh        (float32 products and sums)
 //   i, f, o = 0.5 tanh(z/2) + 0.5;  g = tanh(z)
 //   c = f c_prev + i g;  h = o tanh(c)
-// writes h (B, T, H) and, in training mode (c_out given), c (B, T, H).
+// writes h (B, T, H) and, in training mode (c_out given), c (B, T, H) and
+// the pre-activations z over its gates input, in place: each thread reads
+// gates[row, t, gate H + u] a step ahead and writes z to the same element.
 //
-// Backward, kernel 5 (eegflow_lstm_rec_bwd), from the forward's (gates, h,
-// c), the upstream gradient g of h and W_hh. With h_prev[t], c_prev[t] the
-// state before step t (t-1 forward, t+1 reverse, zero before the direction's
-// first step), the activations are recomputed from z[t] = gates[t] + h_prev[t]
-// . W_hh and the adjoint walks against the direction of time:
+// Backward, kernel 5 (eegflow_lstm_rec_bwd), from the z, c the training-mode
+// forward left, the upstream gradient g of h and W_hh. With c_prev[t] the
+// cell state before step t (t-1 forward, t+1 reverse, zero before the
+// direction's first step), the adjoint walks against the direction of time:
 //   dh = g[t] + dh_carry;  do = dh tanh(c);  dc = dh o (1 - tanh^2 c) + dc_carry
 //   dz = [dc g i(1-i), dc c_prev f(1-f), dc i (1-g^2), do o(1-o)]
 //   dc_carry = dc f;  dh_carry = dz . W_hh^T            (float32)
-// and writes dgates = dz (B, T, 4H).
+// and writes dgates = dz (B, T, 4H). It reads the forward's z, where the
+// reference recomputes z from the gates, h and W_hh.
 //
 // What bounds them on the card: both recurrences are serial in t and need
 // all of W_hh every step (1 MB float32 at H = 256, over the 227 KB a block
-// may hold). Kernel 1's products are 2 B T H 4H operations, 69 GFLOP at
+// may hold). Each one's products are 2 B T H 4H operations, 69 GFLOP at
 // B = 512, T = 256, H = 256: 1.03 ms at the card's 67 TFLOP/s of float32
 // outside the tensor cores (TF32 is off, so they cannot compute this
-// function), above its 0.77 GB of HBM traffic (0.23 ms). Once the weights
-// stay on chip the products bound it: the card holds 15 clusters of 8 such
-// CTAs, so B = 512 runs 11 clusters of 48 rows on 88 SMs and a step costs
-// ~15 us, ~9.6 of them the product, ~1.3 the exchange of h, the rest the
-// cell update and the cluster barrier (H100 80GB HBM3 at 700 W, python -m
-// eegflow_torch.kernels.ablate).
+// function), above their HBM traffic (0.77 GB for kernel 1 in eval mode,
+// 1.3 GB with c and z; 1.3 GB for kernel 5: 0.39 ms). Once the weights stay
+// on chip the products bound them: the card holds 15 clusters of 8 such
+// CTAs, so B = 512 runs 11 clusters of 48 rows on 88 SMs and a kernel 1 step
+// costs ~15 us, ~9.6 of them the product, ~1.3 the exchange of h, the rest
+// the cell update and the cluster barrier (H100 80GB HBM3 at 700 W, python
+// -m eegflow_torch.kernels.ablate).
 //
-// Kernel 1's design, after kernel 2's recurrence (lstm_fwd.cu) in float32:
-// a thread-block cluster (lstm_cluster.cuh) of hc CTAs owns a tile of 16,
-// 32 or 48 batch rows and one direction; each CTA owns U = H / hc units (8
-// CTAs of 32 at H = 256) and keeps W_hh[:, the 4U gate columns of its
-// units] in shared memory for the whole launch, float32, in the layout
-// (k, unit, gate) of nn/lstm_plan.py rec_slices (128 KB at H = 256; at
-// H = 512 its first k_res rows, the rest read from L2 each step). Beside it
-// h_{t-1} of the tile is double-buffered in float32, rows of H + 4. Thread
-// (row group q of 4, unit uu) computes all four gates of its unit for
-// kR = rows / 4 rows on CUDA-core FMA: per k one 16-byte load of the unit's
-// four weights (the warp's 32 lanes read 32 consecutive units) and one
-// 16-byte broadcast load of h per row and four k, 4 kR accumulators, c in
-// registers. Each output is summed with k ascending in one fmaf chain from
-// 0 and the gate added last, the order of kernel 5's z GEMM (gemm.cuh,
-// ZStore), so kernel 5's recomputed z is bitwise the forward's. The new h
-// of the CTA's units goes to every CTA of the cluster through distributed
-// shared memory, as 16-byte stores after a 4 x 4 transpose across each quad
-// (rows by units); then one cluster barrier a step, with the HBM stores of h
-// and c and the next step's gate loads between its arrive and wait. Rows
-// past B are masked; the batch is not padded. No atomics: a launch repeats
-// bitwise.
+// Both run on thread-block clusters (lstm_cluster.cuh) of hc CTAs that own a
+// tile of 16, 32 or 48 batch rows and one direction; each CTA owns U = H / hc
+// units (8 CTAs of 32 at H = 256) and keeps its slice of W_hh, W_hh[:, the
+// 4U gate columns of its units], in shared memory for the whole launch,
+// float32 (128 KB at H = 256; at H = 512 its first k_res rows, the rest read
+// from L2 each step). Thread (row group of kR = rows / 4 rows, unit uu) owns
+// the cell of its unit for its rows, with the carries in registers. Products
+// run on CUDA-core FMA, each output one fmaf chain from 0 over its k
+// ascending. Rows past B are masked; the batch is not padded. No atomics: a
+// launch repeats bitwise.
 //
-// Kernel 5's design: (1) z for all B*T rows as one tiled GEMM (gemm.cuh)
-// written into dgates, with the forward's product order (k ascending, fmaf
-// from 0, then + gates); (2) the serial chain, one CTA per kRows batch rows
-// and one thread per unit, reads z, overwrites it with dz in place and
-// carries dh through dz . W_hh^T read from L2 (the wrapper passes W_hh^T so
-// the reads are coalesced).
+// Kernel 1: the slice in the layout (k, unit, gate) of nn/lstm_plan.py
+// rec_slices; h_{t-1} of the tile double-buffered in float32, rows of H + 4.
+// Per k a thread does one 16-byte load of its unit's four weights (the
+// warp's 32 lanes read 32 consecutive units) and one 16-byte broadcast load
+// of h per row and four k, 4 kR accumulators; the gate is added last. The
+// new h of the CTA's units goes to every CTA of the cluster through
+// distributed shared memory, as 16-byte stores after a 4 x 4 transpose
+// across each quad (rows by units); then one cluster barrier a step, with
+// the HBM stores of h, c and z and the next step's gate loads between its
+// arrive and wait. Since kernel 5 reads the z kernel 1 writes, nothing ties
+// kernel 1's summation order to another kernel's.
+//
+// Kernel 5: dh_carry = dz . W_hh^T by reduce-scatter. Each CTA multiplies
+// its own dz (rows x 4U, staged in shared memory) by its own slice, laid out
+// (unit, gate, k) with k contiguous (nn/lstm_plan.py rec_bwd_slices), into a
+// partial dh for all H units: thread (row group, uu) owns the 4-unit quads
+// uu and uu + U of its rows, so a warp's lanes read consecutive 16-byte
+// words of the slice and the dz of a row is a broadcast. It sends each CTA r
+// of the cluster the rows x U block of r's units through DSMEM (the volume
+// of kernel 1's h exchange), and after the cluster barrier each thread adds
+// the hc partials of its (row, unit) in rank order. The FMA count a step is
+// kernel 1's. The partial inbox has one buffer (a second one would not fit
+// beside the slice at 48 rows): a second barrier phase a step, arrived at
+// once the inbox is read and waited for just before the next exchange,
+// keeps a CTA from overwriting an inbox another still reads; the step's
+// cell update and product hide its wait. dz goes to HBM, and the next step's
+// z, c_prev and g are loaded, between the exchange's arrive and wait.
 
 #include <stdint.h>
 
 #include "common.cuh"
-#include "gemm.cuh"
 #include "lstm_cluster.cuh"
 #include "mma_gemm.cuh"
 
@@ -78,9 +90,9 @@ namespace {
 
 using eegflow::ClusterGeom;
 
-// What a kernel 1 launch writes besides h: nothing (eval), c (training),
-// or c and the pre-activations z (the check of kernel 5's recomputation).
-enum RecMode { kRecEval = 0, kRecTrain = 1, kRecZ = 2 };
+// What a kernel 1 launch writes besides h: nothing (eval), or c and z over
+// the gates (training).
+enum RecMode { kRecEval = 0, kRecTrain = 1 };
 
 // Four k of a thread's product: its kR rows' h at k..k+3 (one float4 each,
 // ldh floats apart) times the (i, f, g, o) weights of its unit at each k,
@@ -107,9 +119,9 @@ __device__ __forceinline__ void rec_kquad(float (&acc)[kR][4], const float* h, i
 // of the cluster's tile. wslice: (hc, H, U) float4 (i, f, g, o) weights.
 template <int kMode, int kMT, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-lstm_rec_fwd_kernel(const float* __restrict__ gates, const float4* __restrict__ wslice,
-                    float* __restrict__ h_out, float* __restrict__ c_out,
-                    float* __restrict__ z_out, int B, int T, int H, int k_res, int reverse) {
+lstm_rec_fwd_kernel(float* __restrict__ gates, const float4* __restrict__ wslice,
+                    float* __restrict__ h_out, float* __restrict__ c_out, int B, int T, int H,
+                    int k_res, int reverse) {
   constexpr int kR = 4 * kMT;
   extern __shared__ __align__(16) uint8_t smem[];
   const int U = blockDim.x / 4;
@@ -179,23 +191,16 @@ lstm_rec_fwd_kernel(const float* __restrict__ gates, const float4* __restrict__ 
       rec_kquad<kR>(acc, hp + k, ldh, w);
     }
 
-    // the cell update
+    // the cell update; pre becomes z
     float hv[kR];
 #pragma unroll
     for (int r = 0; r < kR; ++r) {
-      const float zi = pre[r][0] + acc[r][0], zf = pre[r][1] + acc[r][1];
-      const float zg = pre[r][2] + acc[r][2], zo = pre[r][3] + acc[r][3];
-      if (kMode == kRecZ && row0 + r < B) {
-        float* z = z_out + (static_cast<size_t>(row0 + r) * T + t) * G + u;
-        z[0] = zi;
-        z[H] = zf;
-        z[2 * H] = zg;
-        z[3 * H] = zo;
-      }
-      const float ig = eegflow::sigmoid_tanh(zi);
-      const float fg = eegflow::sigmoid_tanh(zf);
-      const float gg = tanhf(zg);
-      const float og = eegflow::sigmoid_tanh(zo);
+#pragma unroll
+      for (int gate = 0; gate < 4; ++gate) pre[r][gate] += acc[r][gate];
+      const float ig = eegflow::sigmoid_tanh(pre[r][0]);
+      const float fg = eegflow::sigmoid_tanh(pre[r][1]);
+      const float gg = tanhf(pre[r][2]);
+      const float og = eegflow::sigmoid_tanh(pre[r][3]);
       c[r] = fg * c[r] + ig * gg;
       hv[r] = og * tanhf(c[r]);
     }
@@ -225,7 +230,14 @@ lstm_rec_fwd_kernel(const float* __restrict__ gates, const float4* __restrict__ 
         *reinterpret_cast<uint4*>(h_out + (static_cast<size_t>(row) * T + t) * H + ucol) =
             chunk[b];
     }
-    if (kMode != kRecEval) {
+    if (kMode == kRecTrain) {
+#pragma unroll
+      for (int r = 0; r < kR; ++r) {
+        if (row0 + r >= B) continue;
+        float* zp = gates + (static_cast<size_t>(row0 + r) * T + t) * G + u;
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) __stcs(zp + gate * H, pre[r][gate]);
+      }
 #pragma unroll
       for (int r = 0; r < kR; ++r)
         if (row0 + r < B) __stcs(c_out + (static_cast<size_t>(row0 + r) * T + t) * H + u, c[r]);
@@ -237,18 +249,16 @@ lstm_rec_fwd_kernel(const float* __restrict__ gates, const float4* __restrict__ 
 }
 
 template <int kMode>
-cudaError_t rec_fwd_launch(const float* gates, const float4* wslice, float* h_out, float* c_out,
-                           float* z_out, int B, int T, int H, int hc, int rows, int k_res,
-                           int reverse, cudaStream_t stream) {
+cudaError_t rec_fwd_launch(float* gates, const float4* wslice, float* h_out, float* c_out, int B,
+                           int T, int H, int hc, int rows, int k_res, int reverse,
+                           cudaStream_t stream) {
   const ClusterGeom geo{H, hc, rows, k_res, 2};
-  if (!geo.valid() || B <= 0 || T <= 0 || (kMode != kRecEval && c_out == nullptr) ||
-      (kMode == kRecZ && z_out == nullptr))
+  if (!geo.valid() || B <= 0 || T <= 0 || (kMode == kRecTrain && c_out == nullptr))
     return cudaErrorInvalidValue;
   return eegflow::with_tile(geo, [&](auto mt, auto threads) {
     return eegflow::launch_cluster(
         lstm_rec_fwd_kernel<kMode, decltype(mt)::value, decltype(threads)::value>, geo,
-        (B + rows - 1) / rows, 1, stream, gates, wslice, h_out, c_out, z_out, B, T, H, k_res,
-        reverse);
+        (B + rows - 1) / rows, 1, stream, gates, wslice, h_out, c_out, B, T, H, k_res, reverse);
   });
 }
 
@@ -264,202 +274,252 @@ cudaError_t rec_plan_query(int H, int hc, int rows, int k_res, int* smem, int* c
   });
 }
 
-// Kernel 5's chain: one CTA per kRows batch rows, one thread per hidden unit.
-constexpr int kRows = 8;
-constexpr int kMaxThreads = 512;  // H <= 512
-
-__global__ void __launch_bounds__(kMaxThreads)
-lstm_rec_bwd_chain_kernel(const float* __restrict__ c, const float* __restrict__ g,
-                          const float* __restrict__ whh_t, float* __restrict__ dgates, int B,
-                          int T, int H, int reverse) {
-  extern __shared__ float4 smem4[];
-  float* const dzs = reinterpret_cast<float*>(smem4);  // [2][4H][kRows]
-  const int G = 4 * H;
-  const int u = threadIdx.x;  // blockDim.x == H
-  const int row0 = blockIdx.x * kRows;
-
-  float dh_carry[kRows], dc_carry[kRows];
+// Four n of a thread's product: its kR rows' dz at n..n+3 (one float4
+// broadcast each, ldz floats apart) times the slice's weights of its output
+// quad at each n, added into acc with n ascending.
+template <int kR>
+__device__ __forceinline__ void rec_bwd_nquad(float (&acc)[kR][4], const float* dz, int ldz,
+                                              const float4 (&w)[4]) {
 #pragma unroll
-  for (int r = 0; r < kRows; ++r) dh_carry[r] = dc_carry[r] = 0.f;
+  for (int r = 0; r < kR; ++r) {
+    const float4 dv = *reinterpret_cast<const float4*>(dz + r * ldz);
+    const float d[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+    for (int nn = 0; nn < 4; ++nn) {
+      acc[r][0] = fmaf(d[nn], w[nn].x, acc[r][0]);
+      acc[r][1] = fmaf(d[nn], w[nn].y, acc[r][1]);
+      acc[r][2] = fmaf(d[nn], w[nn].z, acc[r][2]);
+      acc[r][3] = fmaf(d[nn], w[nn].w, acc[r][3]);
+    }
+  }
+}
 
-  int p = 0;
+// Kernel 5. Thread i of cluster CTA `rank` (blockDim 8U: two halves of 4U)
+// is (half = i / 4U, row group grp, unit uu) with i % 4U = grp U + uu. For
+// the cell's adjoint it owns unit u = rank U + uu and the kR / 2 rows
+// kR grp + half kR / 2 .. of the tile. In the product it owns one output
+// quad (4 units) of kR grp's rows: quad uu + U half of all kR rows when the
+// H / 4 quads are more than U (kSplitQ, hc > 4), else quad uu of its cell
+// rows. wslice: (hc, 4U, H) float32, [CTA][unit uu, gate][k]
+// = W_hh[k, gate H + rank U + uu] (rec_bwd_slices).
+template <int kMT, int kMaxThreads, bool kSplitQ>
+__global__ void __launch_bounds__(kMaxThreads, 1)
+lstm_rec_bwd_kernel(const float* __restrict__ z, const float* __restrict__ cst,
+                    const float* __restrict__ gup, const float* __restrict__ wslice,
+                    float* __restrict__ dgates, int B, int T, int H, int k_res, int reverse) {
+  constexpr int kR = 4 * kMT;                 // rows of a row group
+  constexpr int kER = kR / 2;                 // a thread's cell rows
+  constexpr int kPR = kSplitQ ? kR : kER;     // a thread's product rows
+  constexpr int kRows = 16 * kMT;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int U = blockDim.x / 8;
+  const int hc = H / U;
+  const int K = 4 * U;  // the CTA's gate columns, the product's depth
+  const int quads = H / 4;
+  const uint32_t rank = eegflow::cluster_rank();
+  const int half = threadIdx.x / (4 * U);
+  const int grp = (threadIdx.x - half * 4 * U) / U;
+  const int uu = threadIdx.x - half * 4 * U - grp * U;
+  const int u = rank * U + uu;
+  const int er0 = grp * kR + half * kER;      // the first cell row in the tile
+  const int pr0 = kSplitQ ? grp * kR : er0;   // the first product row
+  const int quad = kSplitQ ? uu + U * half : uu;
+  const int qcol = 4 * min(quad, quads - 1);  // the quad's first unit, clamped in range
+  const int row0 = (blockIdx.x / hc) * kRows + er0;
+  const int G = 4 * H;
+  float* const wsm = reinterpret_cast<float*>(smem);      // [k_res][H]
+  float* const dzs = wsm + static_cast<size_t>(k_res) * H;  // [rows][K]: (row, uu, gate)
+  float* const inbox = dzs + kRows * K;                     // [hc][rows][U]
+  const float* const wsl = wslice + static_cast<size_t>(rank) * K * H;
+
+  for (int i = threadIdx.x; i < k_res * H / 4; i += blockDim.x)
+    reinterpret_cast<float4*>(wsm)[i] = reinterpret_cast<const float4*>(wsl)[i];
+
+  // what step t reads for this thread's (row, unit) pairs: z, c_prev, g
+  float zr[kER][4], cp[kER], gr[kER];
+  auto load_step = [&](int t) {
+    const int tp = reverse ? t + 1 : t - 1;
+    const bool has_prev = tp >= 0 && tp < T;
+#pragma unroll
+    for (int r = 0; r < kER; ++r) {
+      const int row = row0 + r;
+      const size_t bt = static_cast<size_t>(row) * T + t;
+      if (row < B) {
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) zr[r][gate] = __ldcs(z + bt * G + gate * H + u);
+        gr[r] = __ldcs(gup + bt * H + u);
+        cp[r] = has_prev ? __ldcs(cst + (static_cast<size_t>(row) * T + tp) * H + u) : 0.f;
+      } else {
+#pragma unroll
+        for (int gate = 0; gate < 4; ++gate) zr[r][gate] = 0.f;
+        gr[r] = cp[r] = 0.f;
+      }
+    }
+  };
+  // c at the first step of the walk, then each step's c_prev is the next one's c
+  const int t_first = reverse ? 0 : T - 1;
+  float c_cur[kER], dc_c[kER];
+#pragma unroll
+  for (int r = 0; r < kER; ++r) {
+    const int row = row0 + r;
+    c_cur[r] = row < B ? cst[(static_cast<size_t>(row) * T + t_first) * H + u] : 0.f;
+    dc_c[r] = 0.f;
+  }
+  load_step(t_first);
+  eegflow::cluster_arrive();
+  eegflow::cluster_wait();
+
+  const uint32_t box = eegflow::smem_addr(inbox);
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? s : T - 1 - s;
-    const int tp = reverse ? t + 1 : t - 1;  // the step before t in the forward's order
-    float* buf = dzs + p * G * kRows;
+    // the cell's adjoint: dh = g + the hc partials of dh_carry in rank
+    // order, dz into the CTA's dz tile as (row, uu, i f g o)
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int row = row0 + r;
-      float zi = 0.f, zf = 0.f, zg = 0.f, zo = 0.f;
-      if (row < B) {
-        const size_t bt = static_cast<size_t>(row) * T + t;
-        float* zp = dgates + bt * G + u;  // z on entry, dz on exit
-        const float ig = eegflow::sigmoid_tanh(zp[0]);
-        const float fg = eegflow::sigmoid_tanh(zp[H]);
-        const float gg = tanhf(zp[2 * H]);
-        const float og = eegflow::sigmoid_tanh(zp[3 * H]);
-        const float c_prev =
-            (tp >= 0 && tp < T) ? c[(static_cast<size_t>(row) * T + tp) * H + u] : 0.f;
-        const float tc = tanhf(c[bt * H + u]);
-        const float dh = g[bt * H + u] + dh_carry[r];
-        const float dout = dh * tc;
-        const float dc = dh * og * (1.f - tc * tc) + dc_carry[r];
-        dc_carry[r] = dc * fg;
-        zi = dc * gg * ig * (1.f - ig);
-        zf = dc * c_prev * fg * (1.f - fg);
-        zg = dc * ig * (1.f - gg * gg);
-        zo = dout * og * (1.f - og);
-        zp[0] = zi;
-        zp[H] = zf;
-        zp[2 * H] = zg;
-        zp[3 * H] = zo;
+    for (int r = 0; r < kER; ++r) {
+      float carry = 0.f;
+      if (s > 0) {
+#pragma unroll
+        for (int src = 0; src < eegflow::kMaxCluster; ++src)
+          if (src < hc) carry += inbox[(src * kRows + er0 + r) * U + uu];
       }
-      buf[u * kRows + r] = zi;
-      buf[(H + u) * kRows + r] = zf;
-      buf[(2 * H + u) * kRows + r] = zg;
-      buf[(3 * H + u) * kRows + r] = zo;
+      const float dh = gr[r] + carry;
+      const float ig = eegflow::sigmoid_tanh(zr[r][0]);
+      const float fg = eegflow::sigmoid_tanh(zr[r][1]);
+      const float gg = tanhf(zr[r][2]);
+      const float og = eegflow::sigmoid_tanh(zr[r][3]);
+      const float tc = tanhf(c_cur[r]);
+      const float dout = dh * tc;
+      const float dc = dh * og * (1.f - tc * tc) + dc_c[r];
+      dc_c[r] = dc * fg;
+      *reinterpret_cast<float4*>(dzs + (er0 + r) * K + 4 * uu) =
+          make_float4(dc * gg * ig * (1.f - ig), dc * cp[r] * fg * (1.f - fg),
+                      dc * ig * (1.f - gg * gg), dout * og * (1.f - og));
+      c_cur[r] = cp[r];
     }
-    __syncthreads();
+    if (s > 0) eegflow::cluster_arrive();  // this CTA's reads of the inbox are done
+    __syncthreads();                        // the dz tile is whole
 
-    float acc[kRows];
+    // the partial dh_carry of every unit from this CTA's dz and slice: the
+    // resident n-rows from shared memory, the rest from L2, n ascending
+    float acc[kPR][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) acc[r] = 0.f;
-    const float* wj = whh_t + u;
-#pragma unroll 4
-    for (int j = 0; j < G; ++j, wj += H) {
-      const float w = *wj;
-      const float4 za = *reinterpret_cast<const float4*>(buf + j * kRows);
-      const float4 zb = *reinterpret_cast<const float4*>(buf + j * kRows + 4);
-      acc[0] = fmaf(za.x, w, acc[0]);
-      acc[1] = fmaf(za.y, w, acc[1]);
-      acc[2] = fmaf(za.z, w, acc[2]);
-      acc[3] = fmaf(za.w, w, acc[3]);
-      acc[4] = fmaf(zb.x, w, acc[4]);
-      acc[5] = fmaf(zb.y, w, acc[5]);
-      acc[6] = fmaf(zb.z, w, acc[6]);
-      acc[7] = fmaf(zb.w, w, acc[7]);
+    for (int r = 0; r < kPR; ++r)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[r][e] = 0.f;
+    if (s + 1 < T) {
+      const float* dzr = dzs + pr0 * K;
+#pragma unroll 2
+      for (int n = 0; n < k_res; n += 4) {
+        const float4 w[4] = {*reinterpret_cast<const float4*>(wsm + n * H + qcol),
+                             *reinterpret_cast<const float4*>(wsm + (n + 1) * H + qcol),
+                             *reinterpret_cast<const float4*>(wsm + (n + 2) * H + qcol),
+                             *reinterpret_cast<const float4*>(wsm + (n + 3) * H + qcol)};
+        rec_bwd_nquad<kPR>(acc, dzr + n, K, w);
+      }
+      const float4* wg = reinterpret_cast<const float4*>(wsl + qcol);
+#pragma unroll 2
+      for (int n = k_res; n < K; n += 4) {
+        const float4 w[4] = {__ldg(wg + n * H / 4), __ldg(wg + (n + 1) * H / 4),
+                             __ldg(wg + (n + 2) * H / 4), __ldg(wg + (n + 3) * H / 4)};
+        rec_bwd_nquad<kPR>(acc, dzr + n, K, w);
+      }
     }
+    if (s > 0) eegflow::cluster_wait();  // every CTA has read its inbox
+
+    // the quad's rows to the CTA that owns its units
+    if (s + 1 < T && quad < quads) {
+      const int dst = qcol / U;
+      const uint32_t base =
+          eegflow::map_rank(box, dst) + ((rank * kRows + pr0) * U + qcol - dst * U) * 4;
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) dh_carry[r] = acc[r];
-    p ^= 1;
+      for (int r = 0; r < kPR; ++r)
+        eegflow::st_cluster_v4(base + r * U * 4,
+                               make_uint4(__float_as_uint(acc[r][0]), __float_as_uint(acc[r][1]),
+                                          __float_as_uint(acc[r][2]),
+                                          __float_as_uint(acc[r][3])));
+    }
+    eegflow::cluster_arrive();
+
+    // dz of the thread's pairs to HBM, from the tile, and the next step's loads
+#pragma unroll
+    for (int r = 0; r < kER; ++r) {
+      const int row = row0 + r;
+      const float4 dv = *reinterpret_cast<const float4*>(dzs + (er0 + r) * K + 4 * uu);
+      if (row >= B) continue;
+      float* dp = dgates + (static_cast<size_t>(row) * T + t) * G + u;
+      __stcs(dp, dv.x);
+      __stcs(dp + H, dv.y);
+      __stcs(dp + 2 * H, dv.z);
+      __stcs(dp + 3 * H, dv.w);
+    }
+    if (s + 1 < T) load_step(reverse ? t + 1 : t - 1);
+    eegflow::cluster_wait();
   }
 }
 
-bool bad_shape(int B, int T, int H) {
-  return H <= 0 || H > kMaxThreads || H % 32 != 0 || B <= 0 || T <= 0;
-}
+using RecBwdKernel = void (*)(const float*, const float*, const float*, const float*, float*,
+                              int, int, int, int, int);
 
-}  // namespace
-
-// Operands and epilogue of the recomputation z = gates + h_prev . W_hh
-// (gemm.cuh), in a named namespace so the GEMM template is instantiated on
-// types with linkage.
-namespace lstm_rec_ops {
-
-// h_prev as the A operand: A(m = b*T + t, k = unit) = h[b, t -/+ 1, k], 0 at the edge
-struct HPrevRowsA {
-  static constexpr bool kMContiguous = false;
-  const float* h;
-  int T, H, reverse;
-  __device__ float operator()(int bt, int k) const {
-    const int b = bt / T;
-    const int tp = (bt - b * T) + (reverse ? 1 : -1);
-    if (tp < 0 || tp >= T) return 0.f;
-    return h[(static_cast<size_t>(b) * T + tp) * H + k];
-  }
-};
-
-// W_hh as the B operand: B(k = unit, n = gate column)
-struct WhhB {
-  static constexpr bool kNContiguous = true;
-  const float* w;
-  int G;
-  __device__ float operator()(int k, int n) const { return w[static_cast<size_t>(k) * G + n]; }
-};
-
-// z = gates + the product, written where dz will go
-struct ZStore {
-  const float* gates;
-  float* z;
-  int G;
-  __device__ void operator()(int, int bt, int n, float v) const {
-    const size_t i = static_cast<size_t>(bt) * G + n;
-    z[i] = gates[i] + v;
-  }
-};
-
-}  // namespace lstm_rec_ops
-
-namespace {
-
-// Kernel 5's stage 1: z = gates + h_prev . W_hh for all B T rows into z.
-cudaError_t rec_z(const float* gates, const float* h, const float* whh, float* z, int B, int T,
-                  int H, int reverse, cudaStream_t stream) {
-  using namespace lstm_rec_ops;
-  const int G = 4 * H;
-  return eegflow::gemm(HPrevRowsA{h, T, H, reverse}, WhhB{whh, G}, ZStore{gates, z, G}, B * T,
-                       G, H, stream);
+// The instantiation of kernel 5 for a geometry's tile and cluster size.
+template <int kMT, int kMaxThreads>
+RecBwdKernel rec_bwd_kernel_for(int hc) {
+  if (hc > 4) return lstm_rec_bwd_kernel<kMT, kMaxThreads, true>;
+  return lstm_rec_bwd_kernel<kMT, kMaxThreads, false>;
 }
 
 }  // namespace
 
 // Kernel 1's shared memory per CTA and the clusters the card holds at once
-// for mode (0 eval, 1 training, 2 training with z) at this geometry.
+// for mode (0 eval, 1 training) at this geometry.
 extern "C" int eegflow_lstm_rec_plan(int mode, int H, int hc, int rows, int k_res, int* smem,
                                      int* clusters) {
-  cudaError_t err =
-      mode == kRecEval    ? rec_plan_query<kRecEval>(H, hc, rows, k_res, smem, clusters)
-      : mode == kRecTrain ? rec_plan_query<kRecTrain>(H, hc, rows, k_res, smem, clusters)
-                          : rec_plan_query<kRecZ>(H, hc, rows, k_res, smem, clusters);
+  const cudaError_t err = mode == kRecEval
+                              ? rec_plan_query<kRecEval>(H, hc, rows, k_res, smem, clusters)
+                              : rec_plan_query<kRecTrain>(H, hc, rows, k_res, smem, clusters);
   return static_cast<int>(err);
 }
 
-// Kernel 1. gates (B, T, 4H) float32; wslice W_hh float32 in the layout of
-// nn/lstm_plan.py rec_slices (hc, H, U, 4); h_out (B, T, H) float32; c_out
-// (B, T, H) float32, or null in eval mode; (hc, rows, k_res) the cluster plan.
-extern "C" int eegflow_lstm_rec_fwd(const float* gates, const float4* wslice, float* h_out,
+// Kernel 1. gates (B, T, 4H) float32, overwritten with z in training mode;
+// wslice W_hh float32 in the layout of nn/lstm_plan.py rec_slices
+// (hc, H, U, 4); h_out (B, T, H) float32; c_out (B, T, H) float32, or null
+// in eval mode; (hc, rows, k_res) the cluster plan.
+extern "C" int eegflow_lstm_rec_fwd(float* gates, const float4* wslice, float* h_out,
                                     float* c_out, int B, int T, int H, int hc, int rows,
                                     int k_res, int reverse, cudaStream_t stream) {
   const cudaError_t err =
       c_out == nullptr
-          ? rec_fwd_launch<kRecEval>(gates, wslice, h_out, nullptr, nullptr, B, T, H, hc, rows,
-                                     k_res, reverse, stream)
-          : rec_fwd_launch<kRecTrain>(gates, wslice, h_out, c_out, nullptr, B, T, H, hc, rows,
-                                      k_res, reverse, stream);
+          ? rec_fwd_launch<kRecEval>(gates, wslice, h_out, nullptr, B, T, H, hc, rows, k_res,
+                                     reverse, stream)
+          : rec_fwd_launch<kRecTrain>(gates, wslice, h_out, c_out, B, T, H, hc, rows, k_res,
+                                      reverse, stream);
   return static_cast<int>(err);
 }
 
-// Kernel 1 in training mode that also writes its pre-activations z_out
-// (B, T, 4H) float32, and kernel 5's stage 1 alone (z into z_out from the
-// forward's gates and h and W_hh (H, 4H)): the two sides of the check that
-// kernel 5 recomputes the forward's z bit for bit.
-extern "C" int eegflow_lstm_rec_fwd_z(const float* gates, const float4* wslice, float* h_out,
-                                      float* c_out, float* z_out, int B, int T, int H, int hc,
-                                      int rows, int k_res, int reverse, cudaStream_t stream) {
-  return static_cast<int>(rec_fwd_launch<kRecZ>(gates, wslice, h_out, c_out, z_out, B, T, H, hc,
-                                                rows, k_res, reverse, stream));
+// Kernel 5's shared memory per CTA and the clusters the card holds at once.
+extern "C" int eegflow_lstm_rec_bwd_plan(int H, int hc, int rows, int k_res, int* smem,
+                                         int* clusters) {
+  const ClusterGeom geo{H, hc, rows, k_res, 3};
+  *smem = static_cast<int>(geo.smem_bytes());
+  *clusters = 0;
+  return static_cast<int>(eegflow::with_tile<1024>(geo, [&](auto mt, auto threads) {
+    return eegflow::max_active_clusters(
+        rec_bwd_kernel_for<decltype(mt)::value, decltype(threads)::value>(hc), geo, smem,
+        clusters);
+  }));
 }
 
-extern "C" int eegflow_lstm_rec_bwd_z(const float* gates, const float* h, const float* whh,
-                                      float* z_out, int B, int T, int H, int reverse,
-                                      cudaStream_t stream) {
-  if (bad_shape(B, T, H)) return static_cast<int>(cudaErrorInvalidValue);
-  return static_cast<int>(rec_z(gates, h, whh, z_out, B, T, H, reverse, stream));
-}
-
-// Kernel 5. gates (B, T, 4H), h, c, g (B, T, H) float32; whh (H, 4H) and
-// whh_t (4H, H) float32. Output dgates (B, T, 4H) float32.
-extern "C" int eegflow_lstm_rec_bwd(const float* gates, const float* h, const float* c,
-                                    const float* g, const float* whh, const float* whh_t,
-                                    float* dgates, int B, int T, int H, int reverse,
+// Kernel 5. z, dgates (B, T, 4H), c, g (B, T, H) float32; wslice W_hh
+// float32 in the layout of nn/lstm_plan.py rec_bwd_slices (hc, U, 4, H);
+// (hc, rows, k_res) the cluster plan. Output dgates.
+extern "C" int eegflow_lstm_rec_bwd(const float* z, const float* c, const float* g,
+                                    const float* wslice, float* dgates, int B, int T, int H,
+                                    int hc, int rows, int k_res, int reverse,
                                     cudaStream_t stream) {
-  if (bad_shape(B, T, H)) return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = rec_z(gates, h, whh, dgates, B, T, H, reverse, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = 2 * static_cast<size_t>(4 * H) * kRows * sizeof(float);
-  err = eegflow::allow_dynamic_smem(lstm_rec_bwd_chain_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  lstm_rec_bwd_chain_kernel<<<(B + kRows - 1) / kRows, H, smem, stream>>>(c, g, whh_t, dgates,
-                                                                          B, T, H, reverse);
-  return static_cast<int>(cudaGetLastError());
+  const ClusterGeom geo{H, hc, rows, k_res, 3};
+  if (!geo.valid() || B <= 0 || T <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  return static_cast<int>(eegflow::with_tile<1024>(geo, [&](auto mt, auto threads) {
+    return eegflow::launch_cluster(
+        rec_bwd_kernel_for<decltype(mt)::value, decltype(threads)::value>(hc), geo,
+        (B + rows - 1) / rows, 1, stream, z, c, g, wslice, dgates, B, T, H, k_res, reverse);
+  }));
 }

@@ -21,25 +21,49 @@
 // (without LN, dh_t = dy_t and no dgamma, dbeta). Rounding to bf16 happens
 // only under `bf16`, at the same points as the reference.
 //
-// What bounds it on the card: per row it streams T x D float32 of input
-// once and does two T x D x K products (the recomputed projection and dy),
-// W1 read from L2 for every chunk of steps; dW1 is a third product of the
-// same size whose sum runs over all B T steps.
+// What bounds it on the card: three products of 2 B T D K operations (the
+// recomputed projection, dy and dW1: 34 GFLOP each at B = 512, T = 256,
+// D = 512, K = 256), 0.10 ms together at the bf16 tensor-core peak, below
+// the bytes: x read and dh written once (0.54 GB, 0.16 ms). The float32
+// mode's products cannot use the tensor cores (TF32 is off).
 //
-// Design: one CTA per batch row walks time in chunks of kT steps staged in
-// shared memory, as the forward does: one warp per step for the LayerNorm
-// statistics and the row dots, each thread owning columns k of W1 for the
-// projection and features d for dy. The per-row sums of db1, dw2, dgamma
-// and dbeta are owned by single threads in shared memory and written as one
-// partial row per batch row; bf16(y) and bf16(u) go to float32 scratch
-// (B T x D and B T x K) from which the tiled GEMM of gemm.cuh forms dW1 in
-// split-K partials. Both partial sets are then summed in a fixed order: no
-// atomics, so the result is bitwise repeatable.
+// bf16 mode. One CTA per batch row walks time in tiles of kM = 64 (b, t)
+// rows. Per tile: one warp per row computes the LayerNorm statistics and y
+// (float32) with shuffles, keeps bf16(y) as a K-major tile in shared memory
+// (and writes it to bf16 scratch for dW1), and ds. The two products run on
+// mma.sync m16n8k16 with bf16 operands and float32 accumulators, in
+// registers: proj = bf16(y)[kM x D] . bf16(W1)[D x K], then, after the
+// epilogue forms u (bf16(u) into a second tile and the bf16 scratch),
+// dy = bf16(u)[kM x K] . bf16(W1)^T[K x D]. W1 and W1^T, rounded to bf16
+// once per launch by the wrapper, stream through a ring of three 32-deep
+// slices in shared memory with cp.async (mma_gemm.cuh's helpers); each warp
+// owns every row of the tile and 16-column pairs of the output, so the
+// product of two bf16 values is exact and the sums are float32, as the
+// reference's preferred_element_type=float32; only the order of summation
+// differs. dy goes as float32 to shared memory, over the tiles and the
+// ring, which the dy product no longer reads; then each warp, two rows at a
+// time, forms dh (the LayerNorm backward, xhat recomputed from x) as the
+// forward's LayerNorm pass does, and each lane sums dgamma and dbeta of its
+// columns over its warp's rows, added over the warps in order at the end.
+// db1 and dw2: per-column sums over a tile's rows reduced across lanes in a
+// fixed order, added by the column's one owner thread into the CTA's
+// partial row. dW1 = bf16(y)^T . bf16(u) over all B T rows runs on mma_gemm.cuh's
+// tensor-core split-K from the bf16 scratch. Every partial set is summed in
+// a fixed order: no atomics, so the result repeats bit for bit.
+//
+// float32 mode: one CTA per batch row walks time in chunks of kT steps staged
+// in shared memory, one warp per step for the LayerNorm statistics and the
+// row dots, each thread owning columns k of W1 for the projection and
+// features d for dy on CUDA-core FMA; y and u go to float32 scratch from
+// which gemm.cuh's tiled split-K forms dW1.
 
 #include <math.h>
 
+#include <algorithm>
+
 #include "common.cuh"
 #include "gemm.cuh"
+#include "mma_gemm.cuh"
 
 namespace {
 
@@ -47,6 +71,10 @@ constexpr int kT = 16;          // time steps per chunk
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
+// float32 mode. Its bf16 branches are dead (the bf16 mode has its own
+// kernel below), but taking them out slowed this kernel by ~1.1 ms at
+// B=512 on an H100 80GB HBM3 (chip_smoke.py, train.profile), so the body
+// stays as it was until this mode's redesign; it is launched with bf16 = 0.
 __global__ void __launch_bounds__(kThreads)
 pool_head_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ x1, int d0,
                      int d1, const float* __restrict__ gamma, const float* __restrict__ beta,
@@ -249,9 +277,360 @@ pool_head_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ x1,
   }
 }
 
+
+// bf16 mode: a tile of kM (b, t) rows of one batch row, kBThreads threads
+// (8 warps), the W1 slices kSlice deep in a ring of kStages.
+constexpr int kM = 64;
+constexpr int kMT = kM / 16;  // m-tiles of a tile
+constexpr int kBThreads = 256;
+constexpr int kBWarps = kBThreads / 32;
+constexpr int kSlice = 32;
+constexpr int kStages = 3;
+constexpr int kMaxD = 512;  // so a warp owns at most 4 16-column pairs of dy
+constexpr int kMaxK = 256;  // and 2 of proj
+
+// acc[m-tile][n-tile][4] += A . B for this warp's 16-column pairs
+// (pair = warp + 8 p, p < kNP, pair < N / 16): A a K-major bf16 tile of kM
+// rows (lda elements apart) holding the whole depth; B (depth x N, bf16
+// rows of N in global memory) streamed through the ring in kSlice-deep
+// slices by cp.async, each stage [kSlice][N + 8]. The caller makes sure no
+// thread still reads the ring.
+template <int kNP>
+__device__ __forceinline__ void tile_mma(float (&acc)[kMT][2 * kNP][4],
+                                         const __nv_bfloat16* As, int lda,
+                                         const __nv_bfloat16* __restrict__ Bg, int depth, int N,
+                                         __nv_bfloat16* ring, int stage_elems) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ldb = N + 8;
+  const int slices = depth / kSlice;
+  const int chunks_per_row = N / 8;
+  auto issue = [&](int i) {
+    __nv_bfloat16* st = ring + (i % kStages) * stage_elems;
+    for (int c = tid; c < kSlice * chunks_per_row; c += kBThreads) {
+      const int r = c / chunks_per_row, col = (c - r * chunks_per_row) * 8;
+      eegflow::cp_async16(eegflow::smem_addr(st + r * ldb + col),
+                          Bg + static_cast<size_t>(i * kSlice + r) * N + col, true);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < slices) issue(i);
+    eegflow::cp_async_commit();
+  }
+  for (int it = 0; it < slices; ++it) {
+    eegflow::cp_async_wait<kStages - 2>();
+    __syncthreads();  // slice it has landed; slice it - 1's stage is free again
+    if (it + kStages - 1 < slices) issue(it + kStages - 1);
+    eegflow::cp_async_commit();
+    const __nv_bfloat16* bs = ring + (it % kStages) * stage_elems;
+#pragma unroll
+    for (int kk = 0; kk < kSlice / 16; ++kk) {
+      uint32_t af[kMT][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+        eegflow::ldmatrix_x4(af[i], eegflow::smem_addr(As + (16 * i + (lane & 15)) * lda +
+                                                       it * kSlice + kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+      for (int p = 0; p < kNP; ++p) {
+        const int pair = warp + kBWarps * p;
+        if (pair >= N / 16) continue;
+        uint32_t r[4];
+        eegflow::ldmatrix_x4_trans(
+            r, eegflow::smem_addr(bs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb +
+                                  pair * 16 + (lane >> 4) * 8));
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) {
+          eegflow::mma_bf16(acc[i][2 * p], af[i], r[0], r[1]);
+          eegflow::mma_bf16(acc[i][2 * p + 1], af[i], r[2], r[3]);
+        }
+      }
+    }
+  }
+  eegflow::cp_async_wait<0>();
+}
+
+// bf16 mode, one CTA per batch row. Thread (warp w, lane = 4 g + q) holds,
+// for m-tile i and n-tile j of its pairs, rows 16 i + g, 16 i + g + 8 and
+// columns 16 pair + 8 (j % 2) + 2 q, + 1 of each product; in the row-wise
+// phases warp w takes rows w, w + 8, .. (the LayerNorm backward: pairs of
+// rows 2 w, 2 w + 1, 2 w + 16, ..) and lane l columns l + 32 i.
+//   x_p (B, T, d_p) float32; w1b (D, K) and w1tb (K, D) bf16; y_scr (B T, D)
+//   and u_scr (B T, K) bf16 scratch; vec_part (B, 2K + 2D) the row's
+//   [db1, dw2, dgamma, dbeta] partials.
+__global__ void __launch_bounds__(kBThreads, 1)
+pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict__ x1, int d0,
+                          int d1, const float* __restrict__ gamma,
+                          const float* __restrict__ beta, const __nv_bfloat16* __restrict__ w1b,
+                          const __nv_bfloat16* __restrict__ w1tb, const float* __restrict__ b1,
+                          const float* __restrict__ w2, const float* __restrict__ wts,
+                          const float* __restrict__ gsc, const float* __restrict__ g0,
+                          const float* __restrict__ g1, const float* __restrict__ gctx,
+                          float* __restrict__ dh0, float* __restrict__ dh1,
+                          __nv_bfloat16* __restrict__ y_scr, __nv_bfloat16* __restrict__ u_scr,
+                          float* __restrict__ vec_part, int T, int K, int use_ln, float eps) {
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int D = d0 + d1;
+  const int lda_y = D + 8, lda_u = K + 8;
+  const int stage_elems = kSlice * (max(D, K) + 8);
+  __nv_bfloat16* const ys = reinterpret_cast<__nv_bfloat16*>(smem);  // [kM][D + 8]
+  __nv_bfloat16* const us = ys + kM * lda_y;                          // [kM][K + 8]
+  __nv_bfloat16* const ring = us + kM * lda_u;                        // [kStages][stage]
+  float* const g = reinterpret_cast<float*>(ring + kStages * stage_elems);  // [D]
+  float* const acc_db1 = g + D;         // [K]
+  float* const acc_dw2 = acc_db1 + K;   // [K]
+  float* const mu_s = acc_dw2 + K;      // [kM] per-row LayerNorm mean,
+  float* const rsig_s = mu_s + kM;      // [kM] 1 / sigma,
+  float* const ds_s = rsig_s + kM;      // [kM] ds and
+  float* const w_s = ds_s + kM;         // [kM] softmax weight
+  // dy as float32, [kM][D + 8], over the two tiles and the ring once the
+  // dy product is done with them (they hold at least twice its bytes)
+  float* const dys = reinterpret_cast<float*>(smem);
+  const int ldd = D + 8;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const float inv_d = 1.0f / static_cast<float>(D);
+  const float gc = gctx[b];
+  for (int d = tid; d < D; d += kBThreads)
+    g[d] = d < d0 ? g0[static_cast<size_t>(b) * d0 + d] : g1[static_cast<size_t>(b) * d1 + d - d0];
+  for (int k = tid; k < K; k += kBThreads) acc_db1[k] = acc_dw2[k] = 0.f;
+  // dgamma and dbeta of the lane's columns lane + 32 i over its warp's rows
+  float pdg[kMaxD / 32], pdb[kMaxD / 32];
+#pragma unroll
+  for (int i = 0; i < kMaxD / 32; ++i) pdg[i] = pdb[i] = 0.f;
+  __syncthreads();
+
+  for (int t0 = 0; t0 < T; t0 += kM) {
+    // LayerNorm (recomputed), bf16(y) into the tile and the scratch, ds
+    for (int r = warp; r < kM; r += kBWarps) {
+      const int t = t0 + r;
+      const bool valid = t < T;
+      const size_t bt = static_cast<size_t>(b) * T + t;
+      float xv[kMaxD / 32];
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxD / 32; ++i) {
+        const int d = lane + 32 * i;
+        float v = 0.f;
+        if (valid && d < D) v = d < d0 ? x0[bt * d0 + d] : x1[bt * d1 + (d - d0)];
+        xv[i] = v;
+        s1 += v;
+        s2 += v * v;
+      }
+      float mu = 0.f, rsig = 1.f;
+      if (use_ln) {
+        s1 = eegflow::warp_sum(s1);
+        s2 = eegflow::warp_sum(s2);
+        mu = s1 * inv_d;
+        rsig = rsqrtf(s2 * inv_d - mu * mu + eps);
+      }
+      float gy = 0.f;
+#pragma unroll
+      for (int i = 0; i < kMaxD / 32; ++i) {
+        const int d = lane + 32 * i;
+        if (d >= D) continue;
+        float v = xv[i];
+        if (use_ln) v = (v - mu) * rsig * gamma[d] + beta[d];
+        if (!valid) v = 0.f;
+        const __nv_bfloat16 vb = __float2bfloat16_rn(v);
+        ys[r * lda_y + d] = vb;
+        if (valid) y_scr[bt * D + d] = vb;
+        gy += g[d] * v;
+      }
+      gy = eegflow::warp_sum(gy);
+      if (lane == 0) {
+        const float w = valid ? wts[bt] : 0.f;
+        mu_s[r] = mu;
+        rsig_s[r] = rsig;
+        w_s[r] = w;
+        ds_s[r] = valid ? w * (gy - gc) + gsc[bt] : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // proj = bf16(y) . bf16(W1); u = ds (1 - proj^2) w2; db1, dw2
+    {
+      float acc[kMT][4][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      tile_mma<2>(acc, ys, lda_y, w1b, D, K, ring, stage_elems);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int pair = warp + kBWarps * (j / 2);
+        if (pair >= K / 16) continue;
+        const int col = pair * 16 + 8 * (j % 2) + 2 * q;
+        const float bk[2] = {b1[col], b1[col + 1]}, w2k[2] = {w2[col], w2[col + 1]};
+        float sdb[2] = {0.f, 0.f}, sdw[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int row = 16 * i + 8 * rh + gq;
+            const float ds = ds_s[row];
+            float u[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float pr = tanhf(acc[i][j][2 * rh + e] + bk[e]);
+              u[e] = ds * (1.f - pr * pr) * w2k[e];
+              sdb[e] += u[e];
+              sdw[e] += ds * pr;
+            }
+            const __nv_bfloat162 ub = __floats2bfloat162_rn(u[0], u[1]);
+            *reinterpret_cast<__nv_bfloat162*>(us + row * lda_u + col) = ub;
+            if (t0 + row < T)
+              *reinterpret_cast<__nv_bfloat162*>(
+                  u_scr + (static_cast<size_t>(b) * T + t0 + row) * K + col) = ub;
+          }
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            sdb[e] += __shfl_xor_sync(0xffffffffu, sdb[e], off);
+            sdw[e] += __shfl_xor_sync(0xffffffffu, sdw[e], off);
+          }
+        if (gq == 0) {
+          acc_db1[col] += sdb[0];
+          acc_db1[col + 1] += sdb[1];
+          acc_dw2[col] += sdw[0];
+          acc_dw2[col + 1] += sdw[1];
+        }
+      }
+    }
+    __syncthreads();  // the u tile is whole; no thread reads the ring
+
+    // dy = w g + bf16(u) . bf16(W1)^T, staged as float32 in shared memory
+    {
+      float acc[kMT][8][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      tile_mma<4>(acc, us, lda_u, w1tb, K, D, ring, stage_elems);
+      __syncthreads();  // no thread reads the tiles or the ring any more
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int pair = warp + kBWarps * (j / 2);
+        if (pair >= D / 16) continue;
+        const int col = pair * 16 + 8 * (j % 2) + 2 * q;
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int row = 16 * i + 8 * rh + gq;
+            *reinterpret_cast<float2*>(dys + row * ldd + col) =
+                make_float2(w_s[row] * g[col] + acc[i][j][2 * rh],
+                            w_s[row] * g[col + 1] + acc[i][j][2 * rh + 1]);
+          }
+      }
+    }
+    __syncthreads();
+
+    // the LayerNorm backward, one warp per pair of rows (their loads in
+    // flight together), and dgamma, dbeta
+    for (int r0 = 2 * warp; r0 < kM; r0 += 2 * kBWarps) {
+      float xh[2][kMaxD / 32];
+      float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+      if (use_ln) {
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int t = t0 + r0 + rr;
+          const size_t bt = static_cast<size_t>(b) * T + min(t, T - 1);
+#pragma unroll
+          for (int i = 0; i < kMaxD / 32; ++i) {
+            const int d = lane + 32 * i;
+            float x = 0.f;
+            if (t < T && d < D) x = d < d0 ? x0[bt * d0 + d] : x1[bt * d1 + (d - d0)];
+            xh[rr][i] = x;
+          }
+        }
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int r = r0 + rr;
+          if (t0 + r >= T) continue;
+          const float* dyr = dys + r * ldd;
+#pragma unroll
+          for (int i = 0; i < kMaxD / 32; ++i) {
+            const int d = lane + 32 * i;
+            if (d >= D) continue;
+            xh[rr][i] = (xh[rr][i] - mu_s[r]) * rsig_s[r];
+            const float dy = dyr[d];
+            const float dxh = dy * gamma[d];
+            m1[rr] += dxh;
+            m2[rr] += dxh * xh[rr][i];
+            pdg[i] += dy * xh[rr][i];
+            pdb[i] += dy;
+          }
+          m1[rr] = eegflow::warp_sum(m1[rr]) * inv_d;
+          m2[rr] = eegflow::warp_sum(m2[rr]) * inv_d;
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = r0 + rr;
+        const int t = t0 + r;
+        if (t >= T) continue;
+        const size_t bt = static_cast<size_t>(b) * T + t;
+        const float* dyr = dys + r * ldd;
+        const float rsig = rsig_s[r];
+#pragma unroll
+        for (int i = 0; i < kMaxD / 32; ++i) {
+          const int d = lane + 32 * i;
+          if (d >= D) continue;
+          float v = dyr[d];
+          if (use_ln) v = rsig * (v * gamma[d] - m1[rr] - xh[rr][i] * m2[rr]);
+          if (d < d0)
+            dh0[bt * d0 + d] = v;
+          else
+            dh1[bt * d1 + (d - d0)] = v;
+        }
+      }
+    }
+    __syncthreads();  // the next tile overwrites the tiles and the row stats
+  }
+
+  // the warps' dgamma and dbeta summed in warp order
+  float* const part_s = dys;  // [kBWarps][2][D]
+#pragma unroll
+  for (int i = 0; i < kMaxD / 32; ++i) {
+    const int d = lane + 32 * i;
+    if (d >= D) continue;
+    part_s[2 * warp * D + d] = pdg[i];
+    part_s[(2 * warp + 1) * D + d] = pdb[i];
+  }
+  __syncthreads();
+  float* out = vec_part + static_cast<size_t>(b) * (2 * K + 2 * D);
+  for (int k = tid; k < K; k += kBThreads) {
+    out[k] = acc_db1[k];
+    out[K + k] = acc_dw2[k];
+  }
+  for (int d = tid; d < D; d += kBThreads) {
+    float dg = 0.f, dbt = 0.f;
+    for (int w = 0; w < kBWarps; ++w) {
+      dg += part_s[2 * w * D + d];
+      dbt += part_s[(2 * w + 1) * D + d];
+    }
+    out[2 * K + d] = dg;
+    out[2 * K + D + d] = dbt;
+  }
+}
+
+size_t bf16_smem_bytes(int D, int K) {
+  const size_t elems = static_cast<size_t>(kM) * (D + 8) + static_cast<size_t>(kM) * (K + 8) +
+                       static_cast<size_t>(kStages) * kSlice * (std::max(D, K) + 8);
+  const size_t floats = static_cast<size_t>(D) + 2 * K + 4 * kM;
+  return elems * 2 + floats * 4;
+}
+
 }  // namespace
 
-// Operands of dW1 = bf16(y)^T . bf16(u) over the scratch rows (gemm.cuh).
+// Operands of the float32 mode's dW1 = y^T . u over the scratch rows (gemm.cuh).
 namespace pool_head_bwd_ops {
 
 struct RowsA {  // A(m = feature, k = b*T + t) = y_scr[k][m]
@@ -270,38 +649,61 @@ struct RowsB {  // B(k = b*T + t, n = column) = u_scr[k][n]
 
 }  // namespace pool_head_bwd_ops
 
-// x_p (B, T, d_p) float32; gamma, beta (d0 + d1,) or null without LN; w1
-// (d0 + d1, K) and w1t (K, d0 + d1) float32; b1, w2 (K,); wts, gs (B, T);
-// g_p (B, d_p); gctx (B,). Outputs dh_p (B, T, d_p), dw1 (d0 + d1, K) and
-// vec (2K + 2(d0 + d1)) = [db1, dw2, dgamma, dbeta] float32. Scratch, float32:
-// y_scr (B, T, d0 + d1), u_scr (B, T, K), vec_part (B, 2K + 2(d0 + d1)),
-// part (splits * (d0 + d1) * K). x1, g1 and dh1 may be null when d1 == 0.
+// x_p (B, T, d_p) float32; gamma, beta (d0 + d1,) or null without LN; b1,
+// w2 (K,); wts, gs (B, T); g_p (B, d_p); gctx (B,). W1 as w1 (d0 + d1, K)
+// and w1t (K, d0 + d1): bf16 under `bf16` (which needs d0 + d1 <= 512 and
+// K <= 256, both multiples of 32), else float32. Outputs dh_p (B, T, d_p),
+// dw1 (d0 + d1, K) and vec (2K + 2(d0 + d1)) = [db1, dw2, dgamma, dbeta]
+// float32. Scratch: y_scr (B, T, d0 + d1) and u_scr (B, T, K), bf16 under
+// `bf16`, else float32; vec_part (B, 2K + 2(d0 + d1)) and part
+// (splits * (d0 + d1) * K) float32. x1, g1 and dh1 may be null when d1 == 0.
 extern "C" int eegflow_pool_head_bwd(
     const float* x0, const float* x1, int d0, int d1, const float* gamma, const float* beta,
-    const float* w1, const float* w1t, const float* b1, const float* w2, const float* wts,
+    const void* w1, const void* w1t, const float* b1, const float* w2, const float* wts,
     const float* gs, const float* g0, const float* g1, const float* gctx, float* dh0,
-    float* dh1, float* dw1, float* vec, float* y_scr, float* u_scr, float* vec_part,
+    float* dh1, float* dw1, float* vec, void* y_scr, void* u_scr, float* vec_part,
     float* part, int splits, int B, int T, int K, int use_ln, int bf16,
     cudaStream_t stream) {
-  if (B <= 0 || T <= 0 || K <= 0 || d0 <= 0 || d1 < 0 || splits <= 0 ||
-      (use_ln && (gamma == nullptr || beta == nullptr)))
-    return static_cast<int>(cudaErrorInvalidValue);
   const int D = d0 + d1;
-  const size_t smem =
-      (3 * static_cast<size_t>(kT) * D + static_cast<size_t>(kT) * K + 3 * D + 2 * K +
-       3 * kT) *
-      sizeof(float);
-  cudaError_t err = eegflow::allow_dynamic_smem(pool_head_bwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  pool_head_bwd_kernel<<<B, kThreads, smem, stream>>>(
-      x0, x1, d0, d1, gamma, beta, w1, w1t, b1, w2, wts, gs, g0, g1, gctx, dh0, dh1, y_scr,
-      u_scr, vec_part, T, K, use_ln, bf16, 1e-5f);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  using pool_head_bwd_ops::RowsA;
-  using pool_head_bwd_ops::RowsB;
-  err = eegflow::gemm_split_k(RowsA{y_scr, D}, RowsB{u_scr, K}, dw1, part, D, K, B * T,
-                              splits, stream);
+  if (B <= 0 || T <= 0 || K <= 0 || d0 <= 0 || d1 < 0 || splits <= 0 ||
+      (use_ln && (gamma == nullptr || beta == nullptr)) ||
+      (bf16 && (D % 32 != 0 || K % 32 != 0 || D > kMaxD || K > kMaxK)))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (bf16) {
+    using Bf = __nv_bfloat16;
+    const size_t smem = bf16_smem_bytes(D, K);
+    err = eegflow::allow_dynamic_smem(pool_head_bwd_bf16_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    pool_head_bwd_bf16_kernel<<<B, kBThreads, smem, stream>>>(
+        x0, x1, d0, d1, gamma, beta, static_cast<const Bf*>(w1), static_cast<const Bf*>(w1t),
+        b1, w2, wts, gs, g0, g1, gctx, dh0, dh1, static_cast<Bf*>(y_scr), static_cast<Bf*>(u_scr),
+        vec_part, T, K, use_ln, 1e-5f);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const int BT = B * T;
+    err = eegflow::mma_gemm_split_k(
+        eegflow::Bf16Cols{{static_cast<const Bf*>(y_scr), nullptr}, {BT, 0}, D, D},
+        eegflow::Bf16Cols{{static_cast<const Bf*>(u_scr), nullptr}, {BT, 0}, K, K}, dw1, part, D,
+        K, BT, splits, stream);
+  } else {
+    const size_t smem =
+        (3 * static_cast<size_t>(kT) * D + static_cast<size_t>(kT) * K + 3 * D + 2 * K +
+         3 * kT) *
+        sizeof(float);
+    err = eegflow::allow_dynamic_smem(pool_head_bwd_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    float* const ys = static_cast<float*>(y_scr);
+    float* const us = static_cast<float*>(u_scr);
+    pool_head_bwd_kernel<<<B, kThreads, smem, stream>>>(
+        x0, x1, d0, d1, gamma, beta, static_cast<const float*>(w1),
+        static_cast<const float*>(w1t), b1, w2, wts, gs, g0, g1, gctx, dh0, dh1, ys, us,
+        vec_part, T, K, use_ln, 0, 1e-5f);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    err = eegflow::gemm_split_k(pool_head_bwd_ops::RowsA{ys, D}, pool_head_bwd_ops::RowsB{us, K},
+                                dw1, part, D, K, B * T, splits, stream);
+  }
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t count = 2 * static_cast<size_t>(K) + 2 * static_cast<size_t>(D);
   eegflow::reduce_splits_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0,

@@ -96,23 +96,19 @@ _SIGNATURES = {
     # lstm_bwd_dualdir.cu, its chain's shared memory and clusters held at once:
     # H, hc, rows, k_res, *smem, *clusters
     "eegflow_lstm_bwd_dualdir_plan": [_I, _I, _I, _I, _P, _P],
-    # lstm_rec.cu, kernel 1 (float32 policy); c_out null in eval mode:
+    # lstm_rec.cu, kernel 1 (float32 policy); c_out null in eval mode, and in
+    # training mode z written over the gates:
     # gates, wslice, h_out, c_out, B, T, H, hc, rows, k_res, reverse, stream
     "eegflow_lstm_rec_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
-    # lstm_rec.cu, kernel 1 writing its pre-activations too:
-    # gates, wslice, h_out, c_out, z_out, B, T, H, hc, rows, k_res, reverse,
-    # stream
-    "eegflow_lstm_rec_fwd_z": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # lstm_rec.cu, kernel 1's shared memory and clusters held at once:
-    # mode (0 eval, 1 training, 2 training with z), H, hc, rows, k_res,
-    # *smem, *clusters
+    # mode (0 eval, 1 training), H, hc, rows, k_res, *smem, *clusters
     "eegflow_lstm_rec_plan": [_I, _I, _I, _I, _I, _P, _P],
-    # lstm_rec.cu, kernel 5's recomputation of z alone:
-    # gates, h, whh, z_out, B, T, H, reverse, stream
-    "eegflow_lstm_rec_bwd_z": [_P, _P, _P, _P, _I, _I, _I, _I, _P],
     # lstm_rec.cu, kernel 5:
-    # gates, h, c, g, whh, whh_t, dgates, B, T, H, reverse, stream
-    "eegflow_lstm_rec_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # z, c, g, wslice, dgates, B, T, H, hc, rows, k_res, reverse, stream
+    "eegflow_lstm_rec_bwd": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
+    # lstm_rec.cu, kernel 5's shared memory and clusters held at once:
+    # H, hc, rows, k_res, *smem, *clusters
+    "eegflow_lstm_rec_bwd_plan": [_I, _I, _I, _I, _P, _P],
     # input_block.cu, kernel 9:
     # x, w, b, gamma, beta, y, rows, C, H, bf16, stream
     "eegflow_input_block_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
@@ -128,7 +124,8 @@ _SIGNATURES = {
     # B, T, K, use_ln, bf16, stream
     "eegflow_pool_head_fwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P,
                               _I, _I, _I, _I, _I, _P],
-    # pool_head_bwd.cu, kernel 8:
+    # pool_head_bwd.cu, kernel 8 (w1, w1t, y_scr and u_scr bf16 under bf16,
+    # else float32):
     # x0, x1, d0, d1, gamma, beta, w1, w1t, b1, w2, wts, gs, g0, g1, gctx,
     # dh0, dh1, dw1, vec, y_scr, u_scr, vec_part, part, splits, B, T, K,
     # use_ln, bf16, stream

@@ -4,16 +4,17 @@
                                            [--rows 16,32,48]
 
 Builds the kernels from a copy of ``eegflow_torch/csrc`` with one part of
-the serial step of kernel 2's recurrence, of kernels 3, 3b and 4's chain and
-of kernel 1's float32 recurrence taken out (``nomma``: the per-step
-product; ``noexch``: the DSMEM exchange of the new state; ``nostore``: the
-HBM stores of h, c, the planes and bf16 dz; ``noload``: the HBM loads of the
-pre-gates, the planes and the raw gates; ``base``: nothing), then times,
-with ``torch.profiler``, the recurrence kernel of each full-width call
-(H=256, T=256, two parts of 256): kernel 2 in eval and training mode, kernels
-3 and 3b and kernel 1 in training mode at B=16 (one cluster) and at the main
-path's batch (512; eval 1024, kernel 1 in eval mode too), and kernel 4 at
-512. ``--rows`` restricts the
+the serial step of kernel 2's recurrence, of kernels 3, 3b and 4's chain, of
+kernel 1's float32 recurrence and of kernel 5's float32 adjoint taken out
+(``nomma``: the per-step product; ``noexch``: the DSMEM exchange of the new
+state, or of kernel 5's partial dh; ``nostore``: the HBM stores of h, c, z,
+the planes, bf16 dz and kernel 5's dz; ``noload``: the HBM loads of the
+pre-gates, the planes, the raw gates and kernel 5's z, c_prev and g;
+``base``: nothing), then times, with ``torch.profiler``, the recurrence
+kernel of each full-width call (H=256, T=256, two parts of 256): kernel 2 in
+eval and training mode, kernels 3 and 3b and kernels 1 (training mode) and 5
+at B=16 (one cluster) and at the main path's batch (512; eval 1024, kernel 1
+in eval mode too), and kernel 4 at 512. ``--rows`` restricts the
 plan's rows per cluster (``cuda_lstm.restrict_plan_rows``). A variant's
 results are wrong by construction and only its times mean anything; the
 difference to ``base`` is the part's share of a step. Each variant needs its
@@ -49,13 +50,18 @@ VARIANTS = {
          "for (int kk = KT2; kk < KT2; kk += 2)"),
         ("lstm_rec.cu", "for (int k = 0; k < k_res; k += 4) {", "for (int k = 0; k < 0; k += 4) {"),
         ("lstm_rec.cu", "for (int k = k_res; k < H; k += 4) {",
-         "for (int k = H; k < H; k += 4) {")],
+         "for (int k = H; k < H; k += 4) {"),
+        ("lstm_rec.cu", "for (int n = 0; n < k_res; n += 4) {",
+         "for (int n = 0; n < 0; n += 4) {"),
+        ("lstm_rec.cu", "for (int n = k_res; n < K; n += 4) {",
+         "for (int n = K; n < K; n += 4) {")],
     "noexch": [
         ("lstm_fwd.cu", "for (int r = q; r < hc; r += 4) {", "for (int r = q; r < 0; r += 4) {"),
         ("lstm_bwd_chain.cuh", "    for (int r = 0; r < hc; ++r) {\n      const uint32_t base",
          "    for (int r = 0; r < 0; ++r) {\n      const uint32_t base"),
         ("lstm_rec.cu", "    for (int r = 0; r < hc; ++r) {\n      const uint32_t base",
-         "    for (int r = 0; r < 0; ++r) {\n      const uint32_t base")],
+         "    for (int r = 0; r < 0; ++r) {\n      const uint32_t base"),
+        ("lstm_rec.cu", "    if (s + 1 < T && quad < quads) {", "    if (s + 1 < T && quad < 0) {")],
     "nostore": [
         ("lstm_fwd.cu", "        if (row >= B) continue;\n        const size_t bt",
          "        if (row >= 0) continue;\n        const size_t bt"),
@@ -63,13 +69,20 @@ VARIANTS = {
          "        if (row < 0)\n          *reinterpret_cast<uint4*>(dz16"),
         ("lstm_rec.cu", "      if (row < B)\n        *reinterpret_cast<uint4*>(h_out",
          "      if (row < 0)\n        *reinterpret_cast<uint4*>(h_out"),
-        ("lstm_rec.cu", "if (row0 + r < B) __stcs(c_out", "if (row0 + r < 0) __stcs(c_out")],
+        ("lstm_rec.cu", "if (row0 + r < B) __stcs(c_out", "if (row0 + r < 0) __stcs(c_out"),
+        ("lstm_rec.cu", "if (row0 + r >= B) continue;", "if (row0 + r >= 0) continue;"),
+        ("lstm_rec.cu", "if (row >= B) continue;\n      float* dp = dgates",
+         "if (row >= 0) continue;\n      float* dp = dgates")],
     "noload": [
         ("lstm_fwd.cu", "if (row < B) v = __ldcs", "if (row < 0) v = __ldcs"),
         ("lstm_bwd_chain.cuh", "          if (row < B)\n            v = __ldcs(",
          "          if (row < 0)\n            v = __ldcs("),
         ("lstm_rec.cu", "if (row < B) v = __ldcs(p + gate * H);",
-         "if (row < 0) v = __ldcs(p + gate * H);")],
+         "if (row < 0) v = __ldcs(p + gate * H);"),
+        ("lstm_rec.cu", "      if (row < B) {\n#pragma unroll\n        for (int gate = 0; gate < 4; "
+                        "++gate) zr[r][gate]",
+         "      if (row < 0) {\n#pragma unroll\n        for (int gate = 0; gate < 4; "
+         "++gate) zr[r][gate]")],
 }
 
 
@@ -101,7 +114,7 @@ def _recurrence_ms(fn, reps: int = 3) -> float:
     return sum(e.time_range.end - e.time_range.start for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA
                and ("rec_kernel" in e.name or "rec_fwd_kernel" in e.name
-                    or "chain_kernel" in e.name)) / reps / 1e3
+                    or "rec_bwd_kernel" in e.name or "chain_kernel" in e.name)) / reps / 1e3
 
 
 def main(argv=None) -> int:
@@ -153,8 +166,14 @@ def main(argv=None) -> int:
                 calls["lstm_bwd_v2"] = (
                     lambda: cl.lstm_bwd_v2(raw, c, hg, g, xs, w_ih, w_hh, False, ms, 0.7),
                     ("bwd_v2", batch, H))
+                # training mode writes z over its gates: each call gets a copy
                 calls["lstm_rec_fwd_train"] = (
-                    lambda: cl.lstm_recurrence(gates, w_hh, False, True), ("rec", batch, H, 1))
+                    lambda: cl.lstm_recurrence(gates.clone(), w_hh, False, True),
+                    ("rec", batch, H, 1))
+                z = gates.clone()
+                hr, cr = cl.lstm_recurrence_plain(z, w_hh, False, True)
+                calls["lstm_rec_bwd"] = (
+                    lambda: cl.lstm_recurrence_backward(z, hr, cr, w_hh, g), ("rec_bwd", batch, H))
                 calls["lstm_bwd_dualdir"] = (
                     lambda: cl.lstm_bwd_dualdir(res, h, g, res, h, g, xs, (w_ih, w_hh),
                                                 (w_ih, w_hh)),

@@ -230,7 +230,9 @@ def pool_head_bwd(ln_params: Optional[Mapping], attn_params: Mapping, xs: Parts,
                   g_ctx: Sequence[torch.Tensor], gctx: torch.Tensor,
                   use_ln: bool = True, bf16: bool = False) -> PoolGrads:
     """Backward of :func:`pool_head_fused` (arguments as
-    :func:`pool_head_bwd_plain`)."""
+    :func:`pool_head_bwd_plain`). Under ``bf16`` the kernel runs its products
+    on the tensor cores and needs D <= 512 and K <= 256, both multiples of
+    32 (the classifier's D = 2H and K = H for H <= 256)."""
     xs = as_parts(xs)
     if xs[0].device.type == "cpu":
         return pool_head_bwd_plain(ln_params, attn_params, xs, weights, g_scores, g_ctx,
@@ -251,13 +253,18 @@ def pool_head_bwd(ln_params: Optional[Mapping], attn_params: Mapping, xs: Parts,
             raise ValueError(f"{name} must be contiguous float32 {shape}")
     if len(g_ctx) != len(xs):
         raise ValueError("one context gradient per part")
+    k = attn_params["proj"]["w"].shape[1]
+    if bf16 and (d_total % 32 or k % 32 or d_total > 512 or k > 256):
+        raise ValueError(f"pool_head_bwd under bf16 needs D <= 512 and K <= 256, both "
+                         f"multiples of 32; got D={d_total}, K={k}")
     lib = kernels.load_library()
     dev = xs[0].device
     two = len(xs) == 2
     f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
-    w1 = f32(attn_params["proj"]["w"])
-    k = w1.shape[1]
-    w1t = w1.t().contiguous()
+    # W1 and W1^T in the products' operand type: bf16, rounded once here
+    wdt = torch.bfloat16 if bf16 else torch.float32
+    w1 = attn_params["proj"]["w"].to(wdt).contiguous()
+    w1t = attn_params["proj"]["w"].t().to(wdt).contiguous()
     b1 = f32(attn_params["proj"]["b"])
     w2 = f32(attn_params["score"]["w"][:, 0])
     gamma = f32(ln_params["scale"]) if use_ln else None
@@ -265,8 +272,8 @@ def pool_head_bwd(ln_params: Optional[Mapping], attn_params: Mapping, xs: Parts,
     dh = [torch.empty_like(x) for x in xs]
     dw1 = torch.empty(d_total, k, dtype=torch.float32, device=dev)
     vec = torch.empty(2 * k + 2 * d_total, dtype=torch.float32, device=dev)
-    y_scr = torch.empty(batch, steps, d_total, dtype=torch.float32, device=dev)
-    u_scr = torch.empty(batch, steps, k, dtype=torch.float32, device=dev)
+    y_scr = torch.empty(batch, steps, d_total, dtype=wdt, device=dev)
+    u_scr = torch.empty(batch, steps, k, dtype=wdt, device=dev)
     vec_part = torch.empty(batch, 2 * k + 2 * d_total, dtype=torch.float32, device=dev)
     splits = kernels.gemm_splits(batch * steps)
     part = torch.empty(splits * d_total * k, dtype=torch.float32, device=dev)

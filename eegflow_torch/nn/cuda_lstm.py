@@ -27,17 +27,16 @@ The float32 policy, whose input projection and weight products stay
 
 * :func:`lstm_recurrence` — ``csrc/lstm_rec.cu``: ``_lstm_chunk_kernel``
   (entry ``lstm_recurrence_pallas``), the recurrence over precomputed gates;
-  in training mode it also writes c.
+  in training mode it also writes c, and z over the gates.
 * :func:`lstm_recurrence_backward` — ``csrc/lstm_rec.cu``:
   ``_lstm_bwd_chunk_kernel`` (entry ``lstm_recurrence_backward``), dgates
-  from (gates, h, c), plus dW_hh.
+  from the forward's (z, c), plus dW_hh from h.
 
-Kernels 1, 2, 3, 3b and 4 run their recurrences on thread-block clusters:
-the wrappers ask :func:`kernel_plan` for the launch plan
-(``nn/lstm_plan.py``, with ``cudaOccupancyMaxActiveClusters`` of the card)
-and hand the kernels W_hh in the plan's layout (the ``mma`` fragment order
-of the bf16 kernels, CTA slices for kernel 1); a cluster the card cannot hold
-raises.
+Kernels 1-5 run their recurrences on thread-block clusters: the wrappers ask
+:func:`kernel_plan` for the launch plan (``nn/lstm_plan.py``, with
+``cudaOccupancyMaxActiveClusters`` of the card) and hand the kernels W_hh in
+the plan's layout (the ``mma`` fragment order of the bf16 kernels, CTA
+slices for kernels 1 and 5); a cluster the card cannot hold raises.
 
 Each has a plain PyTorch twin in this module (``*_plain``). For CPU tensors a
 wrapper runs its twin; for CUDA tensors it launches the kernel or raises.
@@ -225,9 +224,11 @@ _FWD_MODES = {"lstm_fwd": ("eegflow_lstm_fwd", 0, (1,)),
 #: take the kernel's mode
 _PLAN_QUERIES = {"fwd": "eegflow_lstm_fwd_plan", "bwd": "eegflow_lstm_bwd_plan",
                  "bwd_v2": "eegflow_lstm_bwd_v2_plan",
-                 "bwd_dualdir": "eegflow_lstm_bwd_dualdir_plan", "rec": "eegflow_lstm_rec_plan"}
+                 "bwd_dualdir": "eegflow_lstm_bwd_dualdir_plan", "rec": "eegflow_lstm_rec_plan",
+                 "rec_bwd": "eegflow_lstm_rec_bwd_plan"}
 #: recurrent kernel -> its kind in lstm_plan
-_PLAN_KINDS = {"fwd": "fwd", "bwd": "bwd", "bwd_v2": "bwd", "bwd_dualdir": "bwd", "rec": "rec"}
+_PLAN_KINDS = {"fwd": "fwd", "bwd": "bwd", "bwd_v2": "bwd", "bwd_dualdir": "bwd", "rec": "rec",
+               "rec_bwd": "rec_bwd"}
 _max_clusters = {}
 _plans = {}
 #: the rows per cluster the wrappers' plans may take
@@ -266,9 +267,9 @@ def kernel_plan(kernel: str, batch: int, hidden: int, mode: int = 0) -> lstm_pla
     """The cluster launch plan of a recurrent kernel on this card: ``"fwd"``
     (kernel 2, ``mode`` 0 eval, 1 planes, 2 raw gates), ``"bwd"`` (kernel 3's
     chain), ``"bwd_v2"`` (kernel 3b's), ``"bwd_dualdir"`` (kernel 4's, both
-    directions) or ``"rec"`` (kernel 1, float32; ``mode`` 0 eval, 1
-    training, 2 training with z). Raises when the card holds no such
-    cluster."""
+    directions), ``"rec"`` (kernel 1, float32; ``mode`` 0 eval, 1
+    training) or ``"rec_bwd"`` (kernel 5). Raises when the card holds no
+    such cluster."""
     if kernel not in _PLAN_KINDS:
         raise ValueError(f"kernel must be one of {tuple(_PLAN_KINDS)}, got {kernel!r}")
     key = (kernel, batch, hidden, mode, _plan_rows)
@@ -814,7 +815,10 @@ def lstm_recurrence_plain(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool
                           collect_cell: bool = False):
     """Plain twin of kernel 1: gates (B, T, 4H) -> h (B, T, H), or (h, c)
     with ``collect_cell``. z = gates[t] + h_prev . W_hh in float32, gate order
-    i, f, g, o, the tanh-form sigmoid, zero initial state."""
+    i, f, g, o, the tanh-form sigmoid, zero initial state. With
+    ``collect_cell`` (training mode) z is written over ``gates`` in place, as
+    the kernel writes it: the residual :func:`lstm_recurrence_backward`
+    reads."""
     batch, steps, g4 = gates.shape
     hidden = g4 // 4
     h = torch.zeros(batch, hidden, dtype=torch.float32, device=gates.device)
@@ -822,35 +826,38 @@ def lstm_recurrence_plain(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool
     hs = torch.empty(batch, steps, hidden, dtype=torch.float32, device=gates.device)
     cs = torch.empty_like(hs) if collect_cell else None
     for t in (range(steps - 1, -1, -1) if reverse else range(steps)):
-        zi, zf, zg, zo = (gates[:, t] + h @ w_hh).split(hidden, dim=-1)
+        z = gates[:, t] + h @ w_hh
+        zi, zf, zg, zo = z.split(hidden, dim=-1)
         c = _sigmoid(zf) * c + _sigmoid(zi) * torch.tanh(zg)
         h = _sigmoid(zo) * torch.tanh(c)
         hs[:, t] = h
         if collect_cell:
             cs[:, t] = c
+            gates[:, t] = z
     return (hs, cs) if collect_cell else hs
 
 
-def lstm_recurrence_backward_plain(gates: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+def lstm_recurrence_backward_plain(z: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                                    w_hh: torch.Tensor, g: torch.Tensor,
                                    reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain twin of kernel 5: -> (dgates (B, T, 4H), dW_hh (H, 4H)).
+    """Plain twin of kernel 5: from the training-mode forward's
+    pre-activations ``z`` (B, T, 4H), h and c -> (dgates (B, T, 4H), dW_hh
+    (H, 4H)).
 
-    The activations are recomputed from z = gates + h_prev . W_hh; the
-    adjoint walks against the direction of time (dh = g + dh_carry,
+    The adjoint walks against the direction of time (dh = g + dh_carry,
     dc = dh o (1 - tanh^2 c) + dc_carry, dz = [dc g i(1-i), dc c_prev f(1-f),
     dc i (1-g^2), dh tanh(c) o(1-o)], dc_carry = dc f, dh_carry =
     dz . W_hh^T), all in float32.
     """
-    batch, steps, g4 = gates.shape
+    batch, steps, g4 = z.shape
     hidden = g4 // 4
-    zi, zf, zg, zo = (gates + _shift(h, reverse) @ w_hh).split(hidden, dim=-1)
+    zi, zf, zg, zo = z.split(hidden, dim=-1)
     i, f, gg, o = _sigmoid(zi), _sigmoid(zf), torch.tanh(zg), _sigmoid(zo)
     c_prev, tc = _shift(c, reverse), torch.tanh(c)
     whh_t = w_hh.t()
-    dh_c = torch.zeros(batch, hidden, dtype=torch.float32, device=gates.device)
+    dh_c = torch.zeros(batch, hidden, dtype=torch.float32, device=z.device)
     dc_c = torch.zeros_like(dh_c)
-    dgates = torch.empty_like(gates)
+    dgates = torch.empty_like(z)
     for t in (range(steps) if reverse else range(steps - 1, -1, -1)):
         dh = g[:, t] + dh_c
         dc = dh * o[:, t] * (1 - tc[:, t] * tc[:, t]) + dc_c
@@ -864,32 +871,34 @@ def lstm_recurrence_backward_plain(gates: torch.Tensor, h: torch.Tensor, c: torc
     return dgates, _dw_hh(h, dgates, reverse)
 
 
-def _check_rec_args(gates, w_hh, *seqs):
+def _check_rec_args(gates, w_hh, *seqs, name="gates"):
     if gates.dtype != torch.float32 or gates.dim() != 3 or not gates.is_contiguous():
-        raise ValueError("gates must be contiguous float32 (B, T, 4H)")
+        raise ValueError(f"{name} must be contiguous float32 (B, T, 4H)")
     batch, steps, g4 = gates.shape
     hidden = g4 // 4
     if g4 != 4 * hidden or tuple(w_hh.shape) != (hidden, 4 * hidden):
         raise ValueError(f"w_hh must be (H, 4H) = ({hidden}, {g4}), got {tuple(w_hh.shape)}")
     if hidden % 32 or hidden > 512:
         raise ValueError(f"the lstm kernels need H % 32 == 0 and H <= 512, got {hidden}")
-    for name, t in seqs:
+    for seq_name, t in seqs:
         if (t.dtype != torch.float32 or tuple(t.shape) != (batch, steps, hidden)
                 or not t.is_contiguous() or t.device != gates.device):
-            raise ValueError(f"{name} must be contiguous float32 ({batch}, {steps}, {hidden})")
+            raise ValueError(f"{seq_name} must be contiguous float32 ({batch}, {steps}, "
+                             f"{hidden})")
     if w_hh.device != gates.device:
-        raise ValueError("w_hh must be on the gates' device")
+        raise ValueError(f"w_hh must be on the device of {name}")
 
 
-#: kernel 1's modes (0 eval, 1 training, 2 training with z) -> counter name
-_REC_MODES = ("lstm_rec_fwd", "lstm_rec_fwd_train", "lstm_rec_fwd_z")
+#: kernel 1's modes (0 eval, 1 training) -> counter name
+_REC_MODES = ("lstm_rec_fwd", "lstm_rec_fwd_train")
 
 
 def _rec_fwd_kernel(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
                     mode: int) -> Tuple[torch.Tensor, ...]:
     """Launch kernel 1 in ``mode`` (a position in :data:`_REC_MODES`) on
-    CUDA gates -> h, then c (modes 1, 2), then z (mode 2). The wrapper
-    builds W_hh's CTA slices (``lstm_plan.rec_slices``) for the plan."""
+    CUDA gates -> h, then c (mode 1, which also writes z over ``gates``).
+    The wrapper builds W_hh's CTA slices (``lstm_plan.rec_slices``) for the
+    plan."""
     _check_rec_args(gates, w_hh)
     lib = kernels.load_library()
     dev = gates.device
@@ -897,17 +906,11 @@ def _rec_fwd_kernel(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
     hidden = g4 // 4
     plan = kernel_plan("rec", batch, hidden, mode)
     wslice = lstm_plan.rec_slices(w_hh, plan.hc)
-    h = torch.empty(batch, steps, hidden, dtype=torch.float32, device=dev)
-    outs = [h] + [torch.empty_like(h) for _ in range(mode > 0)]
-    if mode == 2:
-        outs.append(torch.empty_like(gates))
-    geometry = (batch, steps, hidden, plan.hc, plan.rows, plan.k_res, int(reverse), _stream(dev))
-    if mode == 2:
-        err = lib.eegflow_lstm_rec_fwd_z(gates.data_ptr(), wslice.data_ptr(),
-                                         *[o.data_ptr() for o in outs], *geometry)
-    else:
-        err = lib.eegflow_lstm_rec_fwd(gates.data_ptr(), wslice.data_ptr(), h.data_ptr(),
-                                       _ptr(outs[1]) if mode else None, *geometry)
+    outs = [torch.empty(batch, steps, hidden, dtype=torch.float32, device=dev)
+            for _ in range(1 + mode)]
+    err = lib.eegflow_lstm_rec_fwd(gates.data_ptr(), wslice.data_ptr(), outs[0].data_ptr(),
+                                   _ptr(outs[1]) if mode else None, batch, steps, hidden,
+                                   plan.hc, plan.rows, plan.k_res, int(reverse), _stream(dev))
     kernels.check(lib, err, _REC_MODES[mode])
     kernels.launch_counts[_REC_MODES[mode]] += 1
     return tuple(outs)
@@ -916,7 +919,8 @@ def _rec_fwd_kernel(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
 def lstm_recurrence(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False,
                     collect_cell: bool = False):
     """Kernel 1: precomputed gates (B, T, 4H) float32 -> h (B, T, H), or
-    (h, c) with ``collect_cell`` (training mode). Counted as ``lstm_rec_fwd``
+    (h, c) with ``collect_cell`` (training mode, which also writes the
+    pre-activations z over ``gates`` in place). Counted as ``lstm_rec_fwd``
     (eval) or ``lstm_rec_fwd_train``."""
     if _device_kind("lstm_rec_fwd", gates) == "cpu":
         return lstm_recurrence_plain(gates, w_hh, reverse, collect_cell)
@@ -925,50 +929,28 @@ def lstm_recurrence(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool = Fal
     return _rec_fwd_kernel(gates, w_hh, reverse, 0)[0]
 
 
-def lstm_rec_preactivations(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False
-                            ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The pre-activations z = gates + h_prev . W_hh (B, T, 4H) two ways:
-    kernel 1 in training mode writing its z (counted as ``lstm_rec_fwd_z``),
-    and kernel 5's recomputation from kernel 1's h (its first stage alone,
-    counted as ``lstm_rec_bwd_z``) -> (forward's z, backward's z). Both sum
-    each product with k ascending from 0 and add the gate last, so on the
-    card they agree bit for bit; on the CPU both are the plain twin's z."""
-    if _device_kind("lstm_rec_fwd", gates) == "cpu":
-        h = lstm_recurrence_plain(gates, w_hh, reverse)
-        z = gates + _shift(h, reverse) @ w_hh
-        return z, z
-    h, _, z_fwd = _rec_fwd_kernel(gates, w_hh, reverse, 2)
-    lib = kernels.load_library()
-    whh = w_hh.to(torch.float32).contiguous()
-    z_bwd = torch.empty_like(gates)
-    batch, steps, g4 = gates.shape
-    err = lib.eegflow_lstm_rec_bwd_z(gates.data_ptr(), h.data_ptr(), whh.data_ptr(),
-                                     z_bwd.data_ptr(), batch, steps, g4 // 4, int(reverse),
-                                     _stream(gates.device))
-    kernels.check(lib, err, "lstm_rec_bwd_z")
-    kernels.launch_counts["lstm_rec_bwd_z"] += 1
-    return z_fwd, z_bwd
-
-
-def lstm_recurrence_backward(gates: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
+def lstm_recurrence_backward(z: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
                              w_hh: torch.Tensor, g: torch.Tensor,
                              reverse: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
     """Kernel 5: the adjoint of :func:`lstm_recurrence` from its training-mode
-    (gates, h, c) and the upstream gradient ``g`` of h -> (dgates (B, T, 4H),
-    dW_hh (H, 4H)), float32. dW_hh is a ``torch.matmul`` outside the kernel,
-    as in the reference."""
-    if _device_kind("lstm_rec_bwd", gates) == "cpu":
-        return lstm_recurrence_backward_plain(gates, h, c, w_hh, g, reverse)
-    _check_rec_args(gates, w_hh, ("h", h), ("c", c), ("g", g))
+    z (written over its gates), h and c and the upstream gradient ``g`` of h
+    -> (dgates (B, T, 4H), dW_hh (H, 4H)), float32. The kernel reads z, c
+    and g and writes dgates, a new tensor (``z`` is left as it is); dW_hh is
+    a ``torch.matmul`` outside the kernel, as in the reference. The wrapper
+    builds W_hh's CTA slices (``lstm_plan.rec_bwd_slices``) for the plan."""
+    if _device_kind("lstm_rec_bwd", z) == "cpu":
+        return lstm_recurrence_backward_plain(z, h, c, w_hh, g, reverse)
+    _check_rec_args(z, w_hh, ("h", h), ("c", c), ("g", g), name="z")
     lib = kernels.load_library()
-    dev = gates.device
-    batch, steps, g4 = gates.shape
-    whh = w_hh.to(torch.float32).contiguous()
-    whh_t = whh.t().contiguous()
-    dgates = torch.empty_like(gates)
-    err = lib.eegflow_lstm_rec_bwd(gates.data_ptr(), h.data_ptr(), c.data_ptr(), g.data_ptr(),
-                                   whh.data_ptr(), whh_t.data_ptr(), dgates.data_ptr(),
-                                   batch, steps, g4 // 4, int(reverse), _stream(dev))
+    dev = z.device
+    batch, steps, g4 = z.shape
+    hidden = g4 // 4
+    plan = kernel_plan("rec_bwd", batch, hidden)
+    wslice = lstm_plan.rec_bwd_slices(w_hh, plan.hc)
+    dgates = torch.empty_like(z)
+    err = lib.eegflow_lstm_rec_bwd(z.data_ptr(), c.data_ptr(), g.data_ptr(), wslice.data_ptr(),
+                                   dgates.data_ptr(), batch, steps, hidden, plan.hc, plan.rows,
+                                   plan.k_res, int(reverse), _stream(dev))
     kernels.check(lib, err, "lstm_rec_bwd")
     kernels.launch_counts["lstm_rec_bwd"] += 1
     return dgates, _dw_hh(h, dgates, reverse)
@@ -999,8 +981,9 @@ class BiLSTMLayerF32(torch.autograd.Function):
     w_hh_b, b_b) -> (h_f, h_b)``, arguments as :class:`BiLSTMLayer`. The
     masks are applied outside the kernels, as ``_apply_masks_xla`` does:
     before the projection and on dx. Per direction the forward runs
-    gates = masked x . W_ih + b and kernel 1 in training mode, and saves
-    (gates, h, c); the backward runs kernel 5, then dW_ih = x^T dgates,
+    gates = masked x . W_ih + b and kernel 1 in training mode, which writes
+    z over the gates, and saves (z, h, c); the backward runs kernel 5 on
+    them, then dW_ih = x^T dgates,
     dx = dgates W_ih^T (masked) and db as ``torch.matmul`` and sums, and adds
     the two directions' dx.
     """
@@ -1017,10 +1000,10 @@ class BiLSTMLayerF32(torch.autograd.Function):
             dirs.append((w_ih_b, w_hh_b, b_b, True))
         outs, saved = [], []
         for w_ih, w_hh, b, reverse in dirs:
-            gates = _gates(xe, w_ih, b)
-            h, c = rec(gates, w_hh, reverse, True)
+            z = _gates(xe, w_ih, b)
+            h, c = rec(z, w_hh, reverse, True)  # z over the gates
             outs.append(h)
-            saved += [gates, h, c]
+            saved += [z, h, c]
         ctx.kernel, ctx.keep, ctx.two = kernel, keep, x1 is not None
         ctx.save_for_backward(x0, x1, m0, m1, w_ih_f, w_hh_f, w_ih_b, w_hh_b, *saved)
         return tuple(outs)
@@ -1035,8 +1018,8 @@ class BiLSTMLayerF32(torch.autograd.Function):
         bwd = lstm_recurrence_backward if ctx.kernel else lstm_recurrence_backward_plain
         dxs, out = None, []
         for d, (w_ih, w_hh) in enumerate(((w_ih_f, w_hh_f), (w_ih_b, w_hh_b))[:len(grads)]):
-            gates, h, c = saved[3 * d: 3 * d + 3]
-            dgates, dw_hh = bwd(gates, h, c, w_hh, grads[d].contiguous(), d == 1)
+            z, h, c = saved[3 * d: 3 * d + 3]
+            dgates, dw_hh = bwd(z, h, c, w_hh, grads[d].contiguous(), d == 1)
             dz = dgates.reshape(-1, dgates.shape[-1])
             dw_ih = torch.cat([x.reshape(-1, x.shape[-1]).t() @ dz for x in xe], dim=0)
             dx = tuple(apply_mask((dz @ w.t()).reshape(x.shape), m, ctx.keep)

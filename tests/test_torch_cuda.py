@@ -24,8 +24,7 @@ from eegflow_torch.nn.cuda_lstm import (lstm_bwd, lstm_bwd_dualdir, lstm_bwd_dua
                                         lstm_fwd_fused_proj, lstm_fwd_fused_proj_plain,
                                         lstm_fwd_train, lstm_fwd_train_gates,
                                         lstm_fwd_train_gates_plain, lstm_fwd_train_plain,
-                                        lstm_rec_preactivations, lstm_recurrence,
-                                        lstm_recurrence_backward,
+                                        lstm_recurrence, lstm_recurrence_backward,
                                         lstm_recurrence_backward_plain, lstm_recurrence_plain)
 from eegflow_torch.nn.losses import cross_entropy_loss
 from eegflow_torch.nn.model import classifier_apply, classifier_init, draw_dropout_masks
@@ -51,6 +50,9 @@ STEP_REL_TOL = 2e-2
 # (the twins' products are cuBLAS float32, TF32 off)
 F32_TOL = 1e-4
 F32_REL_TOL = 1e-3
+# kernel 8 in bf16 mode vs twin, relative: LayerNorm and product sums in
+# another order, and bf16 flips of y or u
+POOL_BWD_REL_TOL = 1e-3
 
 
 @pytest.fixture
@@ -270,9 +272,10 @@ def test_lstm_rec_kernel_matches_twin(dev, reverse, collect_cell, batch, hidden)
     gates, w_hh = _gates_case(make_generator(50), batch, hidden, dev)
     name = "lstm_rec_fwd_train" if collect_cell else "lstm_rec_fwd"
     before = kernels.launch_counts[name]
-    got = lstm_recurrence(gates, w_hh, reverse, collect_cell)
+    # training mode writes z over its gates: each call gets its own copy
+    got = lstm_recurrence(gates.clone(), w_hh, reverse, collect_cell)
     assert kernels.launch_counts[name] == before + 1
-    want = lstm_recurrence_plain(gates, w_hh, reverse, collect_cell)
+    want = lstm_recurrence_plain(gates.clone(), w_hh, reverse, collect_cell)
     torch.cuda.synchronize()
     for a, w in zip(got if collect_cell else (got,), want if collect_cell else (want,)):
         assert (a - w).abs().max().item() <= F32_TOL
@@ -283,7 +286,7 @@ def test_lstm_rec_kernel_matches_twin(dev, reverse, collect_cell, batch, hidden)
 def test_lstm_rec_bwd_kernel_matches_twin_and_repeats_bitwise(dev, reverse, batch, hidden):
     gen = make_generator(51)
     gates, w_hh = _gates_case(gen, batch, hidden, dev)
-    h, c = lstm_recurrence_plain(gates, w_hh, reverse, True)
+    h, c = lstm_recurrence_plain(gates, w_hh, reverse, True)  # z over the gates
     g = 0.1 * _randn(gen, *h.shape, dev=dev)
     before = kernels.launch_counts["lstm_rec_bwd"]
     got = lstm_recurrence_backward(gates, h, c, w_hh, g, reverse)
@@ -616,46 +619,114 @@ def test_cluster_lstm_rec_matches_twin_and_repeats_bitwise(dev, collect_cell, re
     gates, w_hh = _rec_gates(make_generator(99), batch, hidden, dev, d_part, steps)
     name = "lstm_rec_fwd_train" if collect_cell else "lstm_rec_fwd"
     before = kernels.launch_counts[name]
-    got = lstm_recurrence(gates, w_hh, reverse, collect_cell)
-    again = lstm_recurrence(gates, w_hh, reverse, collect_cell)
+    # training mode writes z over its gates: each call gets its own copy
+    z, z2, zp = gates.clone(), gates.clone(), gates.clone()
+    got = lstm_recurrence(z, w_hh, reverse, collect_cell)
+    again = lstm_recurrence(z2, w_hh, reverse, collect_cell)
     assert kernels.launch_counts[name] == before + 2
-    want = lstm_recurrence_plain(gates, w_hh, reverse, collect_cell)
+    want = lstm_recurrence_plain(zp, w_hh, reverse, collect_cell)
     torch.cuda.synchronize()
     as_tuple = lambda out: out if isinstance(out, tuple) else (out,)  # noqa: E731
-    for a, a2, w in zip(as_tuple(got), as_tuple(again), as_tuple(want)):
+    for a, a2, w in zip(as_tuple(got) + (z,), as_tuple(again) + (z2,), as_tuple(want) + (zp,)):
         assert (a - w).abs().max().item() <= F32_TOL
+        assert torch.equal(a, a2)
+    if not collect_cell:  # eval mode leaves the gates as they are
+        assert torch.equal(z, gates)
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch,hidden,steps,d_part", CLUSTER_CASES)
+def test_cluster_lstm_rec_bwd_matches_twin_and_repeats_bitwise(dev, reverse, batch, hidden,
+                                                               steps, d_part):
+    """Kernel 5 on kernel 1's clusters, from the z kernel 1's training mode
+    leaves over the gates: dh_carry reduce-scattered through DSMEM."""
+    gen = make_generator(101)
+    z, w_hh = _rec_gates(gen, batch, hidden, dev, d_part, steps)
+    h, c = lstm_recurrence(z, w_hh, reverse, True)
+    g = 0.1 * _randn(gen, *h.shape, dev=dev)
+    before = kernels.launch_counts["lstm_rec_bwd"]
+    got = lstm_recurrence_backward(z, h, c, w_hh, g, reverse)
+    again = lstm_recurrence_backward(z, h, c, w_hh, g, reverse)
+    assert kernels.launch_counts["lstm_rec_bwd"] == before + 2
+    want = lstm_recurrence_backward_plain(z, h, c, w_hh, g, reverse)
+    torch.cuda.synchronize()
+    for a, a2, w in zip(got, again, want):
+        assert _rel(a, w) <= F32_REL_TOL
         assert torch.equal(a, a2)
 
 
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("batch,hidden", [(5, 64), (17, 416), (600, 256)])
-def test_lstm_rec_bwd_recomputes_the_forward_preactivations_bitwise(dev, reverse, batch,
-                                                                    hidden):
-    """Kernel 5 recomputes z = gates + h_prev . W_hh bit for bit as kernel 1
-    formed it: both sum each product with k ascending from 0, then add the
-    gate."""
+def test_lstm_rec_training_mode_writes_the_twins_z_over_the_gates(dev, reverse, batch, hidden):
+    """Kernel 1 in training mode leaves z = gates + h_prev . W_hh in its gates
+    (the residual kernel 5 reads), within float32 summation order of the
+    twin's z, and the gates of eval mode untouched."""
     gates, w_hh = _rec_gates(make_generator(100), batch, hidden, dev, 48, 40)
-    z_fwd, z_bwd = lstm_rec_preactivations(gates, w_hh, reverse)
-    h = lstm_recurrence_plain(gates, w_hh, reverse)
+    z = gates.clone()
+    h, _ = lstm_recurrence(z, w_hh, reverse, True)
+    z_twin = gates.clone()
+    lstm_recurrence_plain(z_twin, w_hh, reverse, True)
     torch.cuda.synchronize()
-    assert torch.equal(z_fwd, z_bwd)
+    assert (z - z_twin).abs().max().item() <= F32_TOL
     shifted = torch.zeros_like(h)
     if reverse:
         shifted[:, :-1] = h[:, 1:]
     else:
         shifted[:, 1:] = h[:, :-1]
-    assert (z_fwd - (gates + shifted @ w_hh)).abs().max().item() <= F32_TOL
+    assert (z - (gates + shifted @ w_hh)).abs().max().item() <= F32_TOL
+
+
+@pytest.mark.parametrize("ln_parts", [(False, 1), (True, 2)])
+@pytest.mark.parametrize("batch,steps", [(3, 100), (2, 256)])
+def test_pool_head_bwd_bf16_on_tensor_cores_matches_twin_and_repeats_bitwise(dev, ln_parts,
+                                                                             batch, steps):
+    """Kernel 8's bf16 mode at the classifier's widths (parts of 256, K=256;
+    one part of 256 and K=128 without LN), B T not a multiple of its 64-row
+    tile (T=100) and a whole number of tiles (T=256)."""
+    use_ln, n_parts = ln_parts
+    gen = make_generator(110 + n_parts)
+    d_part, k = 256, 128 * n_parts
+    d = d_part * n_parts
+    ln = {"scale": 1 + 0.1 * _randn(gen, d, dev=dev), "bias": 0.1 * _randn(gen, d, dev=dev)}
+    attn = {"proj": {"w": 0.05 * _randn(gen, d, k, dev=dev), "b": 0.1 * _randn(gen, k, dev=dev)},
+            "score": {"w": 0.1 * _randn(gen, k, 1, dev=dev)}}
+    xs = tuple(torch.tanh(_randn(gen, batch, steps, d_part, dev=dev)) for _ in range(n_parts))
+    w = torch.softmax(_randn(gen, batch, steps, dev=dev), dim=-1)
+    gs = 0.01 * _randn(gen, batch, steps, dev=dev)
+    gc = tuple(0.1 * _randn(gen, batch, d_part, dev=dev) for _ in range(n_parts))
+    gctx = 0.1 * _randn(gen, batch, dev=dev)
+    args = (ln if use_ln else None, attn, xs, w, gs, gc, gctx, use_ln, True)
+    before = kernels.launch_counts["pool_head_bwd"]
+    got, again = pool_head_bwd(*args), pool_head_bwd(*args)
+    assert kernels.launch_counts["pool_head_bwd"] == before + 2
+    want = pool_head_bwd_plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda out: list(out[0]) + [t for t in out[1:] if t is not None]  # noqa: E731
+    assert len(flat(got)) == len(flat(want)) == n_parts + (5 if use_ln else 3)
+    for a, c in zip(flat(got), flat(want)):
+        assert _rel(a, c) <= POOL_BWD_REL_TOL
+    assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
+
+
+def test_pool_head_bwd_bf16_rejects_widths_off_its_tiles(dev):
+    x = torch.zeros(2, 5, 40, device=dev)
+    attn = {"proj": {"w": torch.zeros(40, 64, device=dev), "b": torch.zeros(64, device=dev)},
+            "score": {"w": torch.zeros(64, 1, device=dev)}}
+    z2 = torch.zeros(2, 5, device=dev)
+    with pytest.raises(ValueError, match="multiples of 32"):
+        pool_head_bwd(None, attn, (x,), z2, z2, (torch.zeros(2, 40, device=dev),),
+                      torch.zeros(2, device=dev), False, True)
 
 
 def test_cluster_plans_query_the_card(dev):
     """The plans of the main path's shapes: whole slices resident, the
     kernels' own shared memory (checked inside kernel_plan), clusters of 4
-    CTAs for the bf16 kernels and of 8 for kernel 1, one wave where the
+    CTAs for the bf16 kernels and of 8 for kernels 1 and 5, one wave where the
     card holds enough of them (kernel 1's eval at B=1024 may take two)."""
     from eegflow_torch.nn.cuda_lstm import kernel_plan
     for kind, batch, mode in (("fwd", 512, 1), ("fwd", 1024, 0), ("bwd", 512, 0),
                               ("bwd_dualdir", 512, 0), ("bwd_v2", 512, 0), ("rec", 512, 1),
-                              ("rec", 512, 0), ("rec", 1024, 0)):
+                              ("rec", 512, 0), ("rec", 1024, 0), ("rec_bwd", 512, 0)):
         p = kernel_plan(kind, batch, 256, mode)
-        assert p.hc == (8 if kind == "rec" else 4) and p.resident and p.max_clusters >= 1
+        assert p.hc == (8 if kind.startswith("rec") else 4) and p.resident and p.max_clusters >= 1
         assert p.waves == 1 or (kind, batch) == ("rec", 1024) and p.waves == 2

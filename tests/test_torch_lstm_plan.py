@@ -1,4 +1,4 @@
-"""The host side of the cluster LSTM kernels (kernels 1, 2, 3, 3b and 4),
+"""The host side of the cluster LSTM kernels (kernels 1-5),
 without a card: the launch planner of ``eegflow_torch.nn.lstm_plan`` and the
 weight layouts the wrappers build.
 
@@ -22,22 +22,24 @@ def _fixed(n):
 
 
 @pytest.mark.parametrize("hidden", HIDDEN)
-@pytest.mark.parametrize("kind", ["fwd", "bwd", "rec"])
+@pytest.mark.parametrize("kind", ["fwd", "bwd", "rec", "rec_bwd"])
 def test_plan_geometry_fits_the_card(kind, hidden):
     p = lp.plan(kind, 64, hidden, _fixed(32))
     assert p.hc * p.units == hidden and p.units % 8 == 0 and 1 <= p.hc <= lp.MAX_CLUSTER
-    assert p.threads <= 512 and p.rows in (16, 32, 48) and (p.threads <= 256 or p.rows == 16)
+    assert p.threads <= (1024 if kind == "rec_bwd" else 512) and p.rows in (16, 32, 48)
+    assert p.threads <= 256 or p.rows == 16
     assert p.smem == lp.smem_bytes(kind, hidden, p.units, p.rows, p.k_res) <= lp.SMEM_LIMIT
     assert p.resident or (p.k_res % lp.K_STEP == 0 and 0 <= p.k_res < lp.k_total(kind, hidden))
     if hidden in (64, 128, 256):  # what ModelConfig resolves to, and H=64: whole slice
         assert p.resident
-    want = ({64: (2, 32), 128: (4, 32), 256: (8, 32)} if kind == "rec"
+    want = ({64: (2, 32), 128: (4, 32), 256: (8, 32)} if kind in ("rec", "rec_bwd")
             else {64: (1, 64), 128: (2, 64), 256: (4, 64)})
     assert (p.hc, p.units) == want.get(hidden, (p.hc, p.units))
 
 
 @pytest.mark.parametrize("batch", [1, 5, 16, 17, 64, 512, 1000, 1024, 4096])
-@pytest.mark.parametrize("kind,directions", [("fwd", 1), ("bwd", 1), ("bwd", 2), ("rec", 1)])
+@pytest.mark.parametrize("kind,directions", [("fwd", 1), ("bwd", 1), ("bwd", 2), ("rec", 1),
+                                             ("rec_bwd", 1)])
 def test_plan_covers_every_row_once_within_the_active_clusters(kind, directions, batch):
     active = 30  # what an H100 SXM holds of these clusters of 4
     p = lp.plan(kind, batch, 256, _fixed(active), directions)
@@ -266,7 +268,8 @@ def test_rec_slices_reject_a_split_off_octets():
 def test_kernel_plans_query_each_kernel_on_its_kind(monkeypatch):
     """kernel_plan asks each recurrent kernel's own query for its clusters
     (kernel 3b's chain has its own registers), on the planner kind of its
-    weight slice: kernel 3b plans as kernel 3, kernel 1 as "rec"."""
+    weight slice: kernel 3b plans as kernel 3, kernel 1 as "rec", kernel 5
+    as "rec_bwd"."""
     from eegflow_torch.nn import cuda_lstm
 
     asked = []
@@ -284,7 +287,9 @@ def test_kernel_plans_query_each_kernel_on_its_kind(monkeypatch):
         k3.hc, k3.rows, k3.k_res, k3.smem)
     rec = cuda_lstm.kernel_plan("rec", 512, 256, 1)
     assert (rec.kind, rec.hc, rec.rows, rec.waves) == ("rec", 8, 32, 1)
-    assert {a[0] for a in asked} == {"bwd_v2", "bwd", "rec"}
+    k5 = cuda_lstm.kernel_plan("rec_bwd", 512, 256)
+    assert (k5.kind, k5.hc, k5.units, k5.threads) == ("rec_bwd", 8, 32, 256)
+    assert {a[0] for a in asked} == {"bwd_v2", "bwd", "rec", "rec_bwd"}
     assert all(mode == 1 for kernel, mode, _, hc in asked if kernel == "rec")
     with pytest.raises(ValueError, match="kernel must be one of"):
         cuda_lstm.kernel_plan("bwd_raw", 512, 256)
@@ -315,3 +320,55 @@ def test_load_library_keeps_one_build_per_process(tmp_path, monkeypatch):
     assert kernels.load_library(kernels.CSRC) is kernels._lib
     with pytest.raises(RuntimeError, match="built from"):
         kernels.load_library(tmp_path)
+
+
+@pytest.mark.parametrize("hidden,hc", [(32, 1), (64, 2), (160, 5), (256, 8), (416, 4)])
+def test_rec_bwd_slices_round_trip_and_product(hidden, hc):
+    """Kernel 5's slice of CTA c holds W_hh[k, gate H + c U + u] at
+    [c, u, gate, k], k contiguous; each CTA's product of its own dz columns
+    with it, n = (u, gate) ascending, summed over the CTAs in rank order, is
+    dz . W_hh^T."""
+    rng = np.random.default_rng(300 + hidden)
+    w = torch.from_numpy(rng.standard_normal((hidden, 4 * hidden)).astype(np.float32))
+    sl = lp.rec_bwd_slices(w, hc)
+    units = hidden // hc
+    assert sl.dtype == torch.float32 and tuple(sl.shape) == (hc, units, 4, hidden)
+    assert sl.is_contiguous() and torch.equal(lp.rec_bwd_unslice(sl), w)
+    c, u, gate, k = hc - 1, units - 1, 2, hidden - 3
+    assert sl[c, u, gate, k] == w[k, gate * hidden + c * units + u]
+    dz = torch.from_numpy(rng.standard_normal((3, 4 * hidden)).astype(np.float32))
+    dh = torch.zeros(3, hidden)
+    for cta in range(hc):
+        own = dz.reshape(3, 4, hc, units)[:, :, cta].permute(0, 2, 1)  # (row, u, gate)
+        part = torch.zeros(3, hidden)
+        for uu in range(units):
+            for g in range(4):
+                part += own[:, uu, g, None] * sl[cta, uu, g]
+        dh += part
+    want = dz.double() @ w.double().t()
+    np.testing.assert_allclose(dh.numpy(), want.float().numpy(), rtol=1e-4, atol=1e-3)
+    with pytest.raises(ValueError, match="octets"):
+        lp.rec_bwd_slices(torch.zeros(64, 256), 3)
+
+
+@pytest.mark.parametrize("hidden", [64, 128, 160, 256, 416])
+def test_rec_bwd_plan_takes_kernel_1s_clusters(hidden):
+    """Kernel 5 runs on kernel 1's geometry (the same CTAs and units, with
+    twice the threads: two halves split the rows and the product); its CTA
+    holds the 4U x H slice, the dz tile (rows x 4U) and one partial inbox
+    (hc x rows x U), float32. At B=512 on a card of 15 such clusters,
+    H <= 256 keeps the whole slice beside 48 rows in one wave; H=416 (CTAs
+    of 26 warps) takes 16 rows and streams all but 64 slice rows."""
+    p = lp.plan("rec_bwd", 512, hidden, _fixed(15))
+    r = lp.plan("rec", 512, hidden, _fixed(15))
+    assert (p.hc, p.units, p.threads) == (r.hc, r.units, 2 * r.threads)
+    k = 4 * p.units
+    assert lp.k_total("rec_bwd", hidden) == k
+    assert p.smem == p.k_res * hidden * 4 + p.rows * (k + hidden) * 4 <= lp.SMEM_LIMIT
+    if hidden <= 256:
+        assert (p.rows, p.k_res, p.waves) == (48, k, 1)
+    else:
+        assert (p.rows, p.k_res) == (16, 64) and not p.resident
+    assert lp.smem_bytes("rec_bwd", 256, 32, 48, 128) == 131_072 + 24_576 + 49_152
+    with pytest.raises(ValueError, match="hidden"):
+        lp.slice_row_bytes("rec_bwd", 32)

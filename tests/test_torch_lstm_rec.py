@@ -1,8 +1,10 @@
 """The port's float32-policy LSTM kernels against eegflow's Pallas kernels in
 interpret mode: the recurrence twin (kernel 1) against
-``lstm_recurrence_pallas`` with and without ``collect_cell``, the backward
-twin (kernel 5) against ``lstm_recurrence_backward`` on the same gates, h
-and c, and the ``BiLSTMLayerF32`` autograd Function against ``jax.grad`` of
+``lstm_recurrence_pallas`` with and without ``collect_cell`` (training mode,
+which writes the pre-activations z over its gates), the backward twin
+(kernel 5) from that z, h and c against ``lstm_recurrence_backward`` on the
+gates, h and c, and the ``BiLSTMLayerF32`` autograd Function against
+``jax.grad`` of
 ``bilstm_layer_fused_parts(..., bf16=False)`` and of a unidirectional
 ``lstm_layer_fused_parts``, with explicit keep-masks. Both directions; odd
 batches. Inputs are made with numpy from a seed; tiny shapes."""
@@ -16,8 +18,7 @@ import torch
 from eegflow.nn.pallas_lstm import (bilstm_layer_fused_parts, lstm_layer_fused_parts,
                                     lstm_recurrence_backward as jax_rec_bwd,
                                     lstm_recurrence_pallas)
-from eegflow_torch.nn.cuda_lstm import (bilstm_layer, lstm_rec_layer,
-                                        lstm_rec_preactivations, lstm_recurrence,
+from eegflow_torch.nn.cuda_lstm import (bilstm_layer, lstm_rec_layer, lstm_recurrence,
                                         lstm_recurrence_backward,
                                         lstm_recurrence_backward_plain,
                                         lstm_recurrence_plain)
@@ -61,15 +62,17 @@ def test_recurrence_twin_matches_pallas(reverse, collect_cell):
     batch = gates.shape[0]
     want = lstm_recurrence_pallas(_pad(gates), jnp.asarray(w_hh), batch_tile=TILE, t_chunk=4,
                                   interpret=True, collect_cell=collect_cell, reverse=reverse)
-    args = (torch.from_numpy(gates), torch.from_numpy(w_hh), reverse, collect_cell)
-    got = lstm_recurrence_plain(*args)
+    # training mode writes z over its gates: each call gets its own copy
+    args = lambda: (torch.from_numpy(gates.copy()), torch.from_numpy(w_hh), reverse,  # noqa
+                    collect_cell)
+    got = lstm_recurrence_plain(*args())
     if collect_cell:
         for a, b in zip(got, want):
             np.testing.assert_allclose(a.numpy(), np.asarray(b)[:batch], atol=FWD_TOL, rtol=0)
     else:
         np.testing.assert_allclose(got.numpy(), np.asarray(want)[:batch], atol=FWD_TOL, rtol=0)
     # on CPU tensors the wrapper runs the twin
-    wrapped = lstm_recurrence(*args)
+    wrapped = lstm_recurrence(*args())
     if collect_cell:
         assert all(torch.equal(a, b) for a, b in zip(wrapped, got))
     else:
@@ -78,19 +81,20 @@ def test_recurrence_twin_matches_pallas(reverse, collect_cell):
 
 @pytest.mark.parametrize("reverse", [False, True])
 def test_preactivations_match_pallas_state(reverse):
-    """The pre-activations z = gates + h_prev . W_hh that kernel 1 forms and
-    kernel 5 recomputes (one value on the CPU: the twin's) agree with the
-    Pallas kernel's h and c: c[t] = f c[t-1] + i g from the tanh-form gates
-    of z."""
+    """The pre-activations z = gates + h_prev . W_hh that kernel 1's training
+    mode writes over its gates and kernel 5 reads (on the CPU the twin's, by
+    the wrapper as by the twin) agree with the Pallas kernel's h and c:
+    c[t] = f c[t-1] + i g from the tanh-form gates of z."""
     _, gates, w_hh = _gates(65 + reverse)
     batch = gates.shape[0]
     h_j, c_j = lstm_recurrence_pallas(_pad(gates), jnp.asarray(w_hh), batch_tile=TILE,
                                       t_chunk=4, interpret=True, collect_cell=True,
                                       reverse=reverse)
     h_j, c_j = np.asarray(h_j)[:batch], np.asarray(c_j)[:batch]
-    z_fwd, z_bwd = lstm_rec_preactivations(torch.from_numpy(gates), torch.from_numpy(w_hh),
-                                           reverse)
-    assert torch.equal(z_fwd, z_bwd)
+    z_fwd, z_twin = torch.from_numpy(gates.copy()), torch.from_numpy(gates.copy())
+    lstm_recurrence(z_fwd, torch.from_numpy(w_hh), reverse, True)
+    lstm_recurrence_plain(z_twin, torch.from_numpy(w_hh), reverse, True)
+    assert torch.equal(z_fwd, z_twin) and not np.array_equal(z_fwd.numpy(), gates)
     h_prev, c_prev = np.zeros_like(h_j), np.zeros_like(c_j)
     if reverse:
         h_prev[:, :-1], c_prev[:, :-1] = h_j[:, 1:], c_j[:, 1:]
@@ -104,15 +108,17 @@ def test_preactivations_match_pallas_state(reverse):
 
 @pytest.mark.parametrize("reverse", [False, True])
 def test_backward_twin_matches_pallas_on_the_same_sequences(reverse):
+    """Kernel 5's twin takes the z the forward wrote over its gates; the
+    Pallas kernel recomputes it from the gates, h and c."""
     rng, gates, w_hh = _gates(70 + reverse)
     batch = gates.shape[0]
-    h, c = lstm_recurrence_plain(torch.from_numpy(gates), torch.from_numpy(w_hh), reverse,
-                                 collect_cell=True)
+    z = torch.from_numpy(gates.copy())
+    h, c = lstm_recurrence_plain(z, torch.from_numpy(w_hh), reverse, collect_cell=True)
     g = (0.1 * rng.standard_normal(h.shape)).astype(np.float32)
     want_dg, want_dw = jax_rec_bwd(_pad(gates), _pad(h.numpy()), _pad(c.numpy()),
                                    jnp.asarray(w_hh), _pad(g), batch_tile=TILE, t_chunk=4,
                                    interpret=True, reverse=reverse)
-    args = (torch.from_numpy(gates), h, c, torch.from_numpy(w_hh), torch.from_numpy(g), reverse)
+    args = (z, h, c, torch.from_numpy(w_hh), torch.from_numpy(g), reverse)
     dgates, dw_hh = lstm_recurrence_backward_plain(*args)
     assert _rel(dgates.numpy(), np.asarray(want_dg)[:batch]) < GRAD_REL_TOL
     assert _rel(dw_hh.numpy(), want_dw) < GRAD_REL_TOL
