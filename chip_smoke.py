@@ -22,8 +22,9 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      batch), and the probabilities against the plain path;
   6. times predict_batch at the 1024 bucket on the kernel path and the
      plain path (CUDA events), and each kernel against its twin; lstm_fwd at
-     B=1024 (the cluster plan serving launches) is also held to its twin
-     and to a bitwise repeat;
+     B=1024 (the cluster plan serving launches) and pool_head_fwd in bf16
+     mode (tensor cores) at B=1024 are also held to their twins and to a
+     bitwise repeat;
   7. the bf16 training kernels against their twins at B=64, T=256, H=256:
      lstm_fwd in training mode (masks, residual planes) and lstm_bwd, each
      also bitwise against itself, and pool_head_bwd in its bf16 (tensor
@@ -38,10 +39,10 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
   9. one bf16 training micro-step at B=512 on the kernel path against the
      plain path from identical params and masks (loss and every gradient), a
      second kernel run bitwise identical; holds lstm_fwd_train and lstm_bwd
-     at B=512 (the plans the micro-step launches) and pool_head_bwd in bf16
-     mode at B=512, T=256, D=512, K=256 to their twins and to a bitwise
-     repeat; then times the micro-step on both paths and each training
-     kernel against its twin at B=512;
+     at B=512 (the plans the micro-step launches), pool_head_fwd and
+     pool_head_bwd in bf16 mode at B=512, T=256, D=512, K=256 to their twins
+     and to a bitwise repeat; then times the micro-step on both paths and
+     each training kernel against its twin at B=512 (pool_head_fwd too);
  10. the float32 policy's kernels against their twins: lstm_rec_fwd (eval and
      training mode, each also bitwise against itself; training mode's z
      written over the gates) and lstm_rec_bwd on that z at B=64, T=256,
@@ -61,8 +62,12 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      the bf16 "fused" step; lstm_rec_fwd on the plans the main path launches
      (training at B=512, with the z it leaves over the gates, and eval at
      B=512 and 1024) and lstm_rec_bwd on its B=512 plan held to their twins
-     and to a bitwise repeat; each float32 kernel (and the input block in
-     both modes) timed against its twin, lstm_rec_fwd eval also at B=1024;
+     and to a bitwise repeat; input_block_bwd in bf16 mode (tensor cores)
+     at B=512 held to its twin and to a bitwise repeat, and its two launches
+     (the row kernel and the partial-row reduction) timed apart with
+     torch.profiler; each float32 kernel (and the input block and
+     pool_head_fwd in both modes) timed against its twin, lstm_rec_fwd eval
+     also at B=1024;
  14. the kernels of the two other bf16 backward schedules against their
      twins at B=64, T=256, H=256, one and two parts: lstm_fwd_train_gates
      (h, gates, c; both directions; bitwise repeat), lstm_bwd_v2 on the same
@@ -87,6 +92,7 @@ one; the last line is {"ok": true, "device": {...}}.
 
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -206,6 +212,21 @@ def hold_at_main_shape(label, got, again, want, tol, relative):
     return max((a - w).abs().max().item() for a, w in zip(got, want))
 
 
+def device_ms(fn, reps):
+    """Device milliseconds a call of ``fn`` by kernel name (torch.profiler,
+    ``reps`` calls after a warmup)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    names = (re.search(r"(\w+)(?:<[^>]*>)?\(", e.key) for e in events)
+    return {m.group(1) if m else e.key: e.device_time_total / 1e3 / reps
+            for m, e in zip(names, events)}
+
+
 def nbytes(*items):
     """Bytes of every tensor in ``items`` (tuples, lists and dicts walked;
     anything else counts 0)."""
@@ -269,7 +290,7 @@ def main() -> int:
                                                  attention_pool_plain, pool_head_bwd,
                                                  pool_head_bwd_plain, pool_head_fused,
                                                  pool_head_fused_plain)
-    from eegflow_torch.nn.cuda_input import (input_block_bwd, input_block_bwd_plain,
+    from eegflow_torch.nn.cuda_input import (bwd_plan, input_block_bwd, input_block_bwd_plain,
                                              input_block_fused, input_block_fused_plain)
     from eegflow_torch.nn.cuda_lstm import (kernel_plan, lstm_bwd, lstm_bwd_dualdir,
                                             lstm_bwd_dualdir_plain,
@@ -473,6 +494,11 @@ def main() -> int:
         print(f"lstm_fwd B={BUCKET} T={T} H={H} {label}: kernel {ms:.3f} ms, "
               f"plain {plain_ms:.3f} ms [{smi}]")
     pargs = (params["lstm_norm"], params["attention"], x2, True, True)
+    flat_head = lambda out: list(out[0]) + [out[1]]  # noqa: E731
+    pool_err = max(pool_err, hold_at_main_shape(
+        f"pool_head_fwd bf16 B={BUCKET} T={T} parts=2x{H} K={H} (tensor cores): ctx parts, "
+        f"scores", flat_head(pool_head_fused(*pargs)), flat_head(pool_head_fused(*pargs)),
+        flat_head(pool_head_fused_plain(*pargs)), POOL_TOL, relative=False))
     work["pool_head_fwd"] = (nbytes(pargs, pool_head_fused(*pargs)), 2 * BUCKET * T * 2 * H * H,
                              "bf16")
     pool_ms = cuda_ms(lambda: pool_head_fused(*pargs), 5)
@@ -677,12 +703,20 @@ def main() -> int:
         f"dw2, dgamma, dbeta", flat_pool(pool_head_bwd(*pargs2)), flat_pool(pool_head_bwd(*pargs2)),
         flat_pool(pool_head_bwd_plain(*pargs2)), POOL_BWD_REL_TOL, relative=True))
     head_flops = 3 * 2 * B_TRAIN * T * 2 * H * H  # projection, dW1, dh
+    # kernel 7 at the micro-step's batch
+    fargs7 = (params["lstm_norm"], params["attention"], pool2, True, True)
+    pool_err = max(pool_err, hold_at_main_shape(
+        f"pool_head_fwd bf16 B={B_TRAIN} T={T} parts=2x{H} K={H} (tensor cores): ctx parts, "
+        f"scores", flat_head(pool_head_fused(*fargs7)), flat_head(pool_head_fused(*fargs7)),
+        flat_head(pool_head_fused_plain(*fargs7)), POOL_TOL, relative=False))
     train_ms = {}
     for name, kfn, pfn, args, flops in (
             ("lstm_fwd_train", lstm_fwd_train, lstm_fwd_train_plain, fargs,
              lstm_flops(B_TRAIN, 2 * H, H)),
             ("lstm_bwd", lstm_bwd, lstm_bwd_plain, bargs, bwd_flops),
-            ("pool_head_bwd", pool_head_bwd, pool_head_bwd_plain, pargs2, head_flops)):
+            ("pool_head_bwd", pool_head_bwd, pool_head_bwd_plain, pargs2, head_flops),
+            ("pool_head_fwd bf16", pool_head_fused, pool_head_fused_plain, fargs7,
+             head_flops // 3)):
         work[name] = (nbytes(args, kfn(*args)), flops, "bf16")
         m = median_ms({"plain": lambda: pfn(*args), "kernel": lambda: kfn(*args)}, rounds=1)
         train_ms[name] = (m["kernel"], m["plain"])
@@ -922,6 +956,19 @@ def main() -> int:
     pargs32 = pargs2[:-1] + (False,)
     rec_flops = 2 * B_TRAIN * T * H * 4 * H  # one h . W_hh per step, float32
     in_flops = 2 * B_TRAIN * T * C * H  # x . W of the input block
+    # kernel 10's bf16 mode at the micro-step's shape, on its persistent grid
+    in_plan = bwd_plan(B_TRAIN * T, C, H, True)
+    in_bwd_err = max(in_bwd_err, hold_at_main_shape(
+        f"input_block_bwd bf16 B={B_TRAIN} T={T} C={C} H={H} ({in_plan.ctas} CTAs of "
+        f"{in_plan.tile_rows}-row tiles, tensor cores): dx, dW, db, dgamma, dbeta",
+        list(input_block_bwd(*ib, x512, dy512, True)),
+        list(input_block_bwd(*ib, x512, dy512, True)),
+        list(input_block_bwd_plain(*ib, x512, dy512, True)), INPUT_BWD_REL_TOL[True],
+        relative=True))
+    in_parts = device_ms(lambda: input_block_bwd(*ib, x512, dy512, True), 5)
+    print(f"input_block_bwd bf16 B={B_TRAIN} T={T}: device ms a call by launch (torch.profiler): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in in_parts.items()) + f" [{smi}]",
+          flush=True)
     # training mode writes z over its gates; the timed calls share one buffer
     # (its z drifts from call to call, which no timing depends on)
     z_buf = gates2.clone()
@@ -943,7 +990,9 @@ def main() -> int:
         ("input_block_bwd float32", input_block_bwd, input_block_bwd_plain,
          (*ib, x512, dy512, False), 3 * in_flops, "float32"),
         ("pool_head_bwd float32", pool_head_bwd, pool_head_bwd_plain, pargs32, head_flops,
-         "float32"))
+         "float32"),
+        ("pool_head_fwd float32", pool_head_fused, pool_head_fused_plain,
+         fargs7[:-1] + (False,), head_flops // 3, "float32"))
     for name, kfn, pfn, args, flops, dtype in timed:
         # kernel 1's training mode also writes z (the size of its gates)
         extra = nbytes(z_buf) if name == "lstm_rec_fwd_train" else 0

@@ -25,6 +25,19 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
+// out[i] = sum_{s < splits} part[s * count + i], summed in order of s;
+// kAccumulate adds the sum to out[i] instead.
+template <bool kAccumulate = false>
+static __global__ void reduce_splits_kernel(const float* __restrict__ part,
+                                            float* __restrict__ out, int splits,
+                                            size_t count) {
+  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= count) return;
+  float v = 0.f;
+  for (int s = 0; s < splits; ++s) v += part[s * count + i];
+  out[i] = kAccumulate ? out[i] + v : v;
+}
+
 // Raise the dynamic shared-memory cap of `kernel` when `bytes` exceeds the
 // 48 KB default; returns the CUDA error of the attribute call.
 template <typename Kernel>

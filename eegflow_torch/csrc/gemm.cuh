@@ -10,7 +10,7 @@
 // which of its indices is contiguous in memory (kMContiguous /
 // kNContiguous) so the tile loads are coalesced. The output functor takes
 // (split, m, n, value): a split-K product writes its partial sums to a
-// (splits, M, N) scratch that reduce_splits_kernel then sums over the
+// (splits, M, N) scratch that reduce_splits_kernel (common.cuh) sums over the
 // splits in order.
 //
 // Design: 64 x 64 tiles of C per CTA, 16-deep slices of k staged in shared
@@ -97,19 +97,6 @@ gemm_kernel(LoadA a, LoadB b, Store out, int M, int N, int K, int k_per_split) {
       if (m < M && n < N) out(blockIdx.z, m, n, acc[i][j]);
     }
   }
-}
-
-// out[i] = sum_{s < splits} part[s * count + i], summed in order of s;
-// kAccumulate adds the sum to out[i] instead.
-template <bool kAccumulate = false>
-static __global__ void reduce_splits_kernel(const float* __restrict__ part,
-                                            float* __restrict__ out, int splits,
-                                            size_t count) {
-  const size_t i = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= count) return;
-  float v = 0.f;
-  for (int s = 0; s < splits; ++s) v += part[s * count + i];
-  out[i] = kAccumulate ? out[i] + v : v;
 }
 
 // Writes one split's partial sums of an (M, N) product.

@@ -13,43 +13,59 @@
 //   xhat = (z - mu) rsig;  zl = xhat gamma + beta;  y = gelu(zl)
 // with GELU's erf from Abramowitz & Stegun 7.1.26 (|err| <= 1.5e-7), as the
 // reference's kernel evaluates it. The backward recomputes z from x with the
-// same products in the same order and the same statistics code as the
-// forward, and from the upstream gradient dy produces
+// same operands and from the upstream gradient dy produces
 //   dln = dy gelu'(zl);  dgamma += dln xhat;  dbeta += dln
 //   dxhat = dln gamma;  dz = rsig (dxhat - mean(dxhat) - xhat mean(dxhat xhat))
 //   db += dz;  dx = bf16?(dz) . bf16?(W)^T;  dW += bf16?(x)^T . bf16?(dz)
 // (the sums over all B*T rows).
 //
 // What bounds it on the card: a row reads 61 floats and writes 256 (the
-// backward reads 256 + 61 and writes 61 + 256 of scratch); the products are
-// 2 x 61 x 256 multiply-adds a row each way, so at B=512, T=256 a launch
-// moves ~0.2 GB and does ~4 GFLOP: memory-bound. The LayerNorm needs a
+// backward reads 61 + 256 and writes 61); the products are 2 x 61 x 256
+// multiply-adds a row each (three in the backward), so at B=512, T=256 the
+// backward moves 198 MB (0.059 ms at 3.35 TB/s) and does 12 GFLOP (0.012 ms
+// at the bf16 tensor-core peak): memory-bound. The LayerNorm needs a
 // reduction across the 256 units of a row.
 //
-// Design: a CTA of H threads owns kR rows at a time, thread u owns unit u
-// (column u of W), so x . W, the LayerNorm and GELU are per-thread loops
-// over the kR rows with the row staged in shared memory; the row sums (the
-// statistics, mean(dxhat), mean(dxhat xhat)) reduce by warp shuffles and
-// then over the warps in a fixed order. The backward stages W (bf16-rounded
-// under bf16) in shared memory, padded so dx = dz . W^T reads it without
-// bank conflicts, and forms dx in the kernel. It walks the rows in a grid of
-// at most kMaxCtas CTAs, each owning its partial db, dgamma, dbeta; those
-// partial rows, and the split-K partials of dW (from bf16?(dz) written to a
-// float32 scratch, on gemm.cuh's tiled GEMM), are summed in a fixed order.
-// No atomics: a launch repeats bitwise.
+// Forward, and the backward's float32 mode: a CTA of H threads owns kR rows
+// at a time, thread u owns unit u (column u of W), so x . W, the LayerNorm
+// and GELU are per-thread loops over the kR rows with the row staged in
+// shared memory; the row sums (the statistics, mean(dxhat), mean(dxhat
+// xhat)) reduce by warp shuffles and then over the warps in a fixed order.
+// The float32 backward stages W in shared memory, padded so dx = dz . W^T
+// reads it without bank conflicts, and forms dx in the kernel. It walks the
+// rows in the caller's grid of at most 256 CTAs, each owning its partial db,
+// dgamma, dbeta; those partial rows, and the split-K partials of dW (from dz
+// written to a float32 scratch, on gemm.cuh's tiled GEMM), are summed in a
+// fixed order.
+//
+// The backward's bf16 mode (input_block_bwd_bf16_kernel): a persistent grid
+// of a fixed number of CTAs of 16 warps (the caller's), each walking row
+// tiles of kTile = 64 rows (tile i of CTA c: i = c, c + grid, ..), runs
+// its three products on mma.sync m16n8k16 with C padded to kCP = 64 by zeros
+// in shared memory and bf16(W) resident there: z = bf16(x)[64 x 64] .
+// bf16(W)[64 x H] (+ b) into a float32 tile; then one warp per row (two
+// passes of shuffles: the statistics, then mean(dxhat) and mean(dxhat
+// xhat)) forms dz, bf16(dz) into a tile, and each lane sums db, dgamma and
+// dbeta of its columns; then dx = bf16(dz) . bf16(W)^T is stored and dW +=
+// bf16(x)^T . bf16(dz) accumulates in registers across the CTA's tiles. dy
+// and x stream into shared memory by cp.async one tile ahead, behind the
+// products. Each CTA writes one partial row [dW (C x H), db, dgamma, dbeta]
+// (the warps' column sums added in warp order), and a second small launch
+// adds the rows in CTA order: no scratch of size B*T x H, no atomics, so a
+// launch repeats bit for bit. Needs C <= 64 and H <= 256, H % 32 == 0.
 
 #include <math.h>
 
-#include <algorithm>
+#include <stdint.h>
 
 #include "common.cuh"
 #include "gemm.cuh"
+#include "mma_gemm.cuh"
 
 namespace {
 
 constexpr int kR = 16;          // rows per CTA pass
 constexpr int kMaxH = 512;      // H <= 512 (one thread per unit)
-constexpr int kMaxCtas = 256;   // CTAs of the backward (rows are walked)
 
 __device__ __forceinline__ float maybe_bf16(float v, int bf16) {
   return bf16 ? eegflow::bf16_round(v) : v;
@@ -87,8 +103,13 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ x, float* x
 }
 
 // z[r] = sum_c xs[r][c] w[c][u] + b_u over c ascending; w has leading
-// dimension ldw. The forward and the backward both call this, with the same
-// values of w, so they compute the same z bit for bit.
+// dimension ldw. The forward and the float32 backward both call this, with
+// the same values of w, so they compute the same z bit for bit. The bf16
+// backward recomputes z on the tensor cores, whose float32 sums run in
+// another order: its z may differ from the forward's in the last bit, which
+// moves gelu'(zl) far less than the backward's tolerance (the reference's
+// bit-identity of the recomputed statistics is a property of its TPU
+// kernels, pallas_input.py _proj_ln, not of the function).
 __device__ __forceinline__ void project(const float* xs, const float* w, int ldw, int C,
                                         int u, float bias, int bf16, float (&z)[kR]) {
 #pragma unroll
@@ -172,6 +193,9 @@ input_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
   }
 }
 
+// The backward's float32 mode, launched with bf16 = 0: its bf16 branches are
+// dead (the bf16 mode has its own kernel below) and stay, as in
+// pool_head_fwd.cu and pool_head_bwd.cu.
 __global__ void __launch_bounds__(kMaxH)
 input_block_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                        const float* __restrict__ w, const float* __restrict__ bias,
@@ -250,22 +274,320 @@ input_block_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy
   out[2 * H + u] = dbet;
 }
 
+// bf16 backward: tiles of kTile rows, kBThreads threads (16 warps), the
+// channels padded to kCP.
+constexpr int kTile = 64;
+constexpr int kBThreads = 512;
+constexpr int kBWarps = kBThreads / 32;
+constexpr int kCP = 64;
+constexpr int kMaxHB = 256;          // a warp owns one 16-column pair of z
+constexpr int kChunks = kMaxHB / 128;  // float4 chunks of a row a lane owns
+
+// Thread (warp w, lane = 4 g + q). z: rows 16 i + g, + 8 of m-tile i and
+// columns 16 w + 8 j + 2 q, + 1. Row pass: rows w + 16 r, columns
+// 4 (lane + 32 i) .. + 3. dx: rows 16 (w % 4) + g, + 8, channels
+// 16 (w / 4) + 8 j + 2 q, + 1. dW: channels 16 (w % 4) + g, + 8, columns
+// 16 p + 8 j + 2 q, + 1 of the pairs p = w / 4 + 4 jj.
+//   x (rows, C), dy (rows, H) (both 16-byte aligned), w (C, H), bias, gamma, beta
+//   (H,) float32; dx (rows, C); part (gridDim.x, C H + 3 H) the CTA's partial
+//   [dW, db, dgamma, dbeta].
+__global__ void __launch_bounds__(kBThreads, 1)
+input_block_bwd_bf16_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                            const float* __restrict__ w, const float* __restrict__ bias,
+                            const float* __restrict__ gamma, const float* __restrict__ beta,
+                            float* __restrict__ dx, float* __restrict__ part, int rows, int C,
+                            int H, float eps) {
+  using eegflow::smem_addr;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int ldw = H + 8, ldx = kCP + 8, ldz = H + 8;
+  __nv_bfloat16* const ws = reinterpret_cast<__nv_bfloat16*>(smem);  // [kCP][H + 8] bf16(W)
+  __nv_bfloat16* const xs = ws + kCP * ldw;                         // [kTile][kCP + 8] bf16(x)
+  __nv_bfloat16* const dzs = xs + kTile * ldx;                      // [kTile][H + 8] bf16(dz)
+  float* const zs = reinterpret_cast<float*>(dzs + kTile * ldz);    // [kTile][H + 8] z
+  float* const dys = zs + kTile * ldz;                              // [kTile][H] dy
+  float* const xraw = dys + kTile * H;                              // [kTile * C] x as read
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const int tiles = (rows + kTile - 1) / kTile;
+  const int hc = H / 4;  // float4 chunks of a row
+  const float inv_h = 1.0f / static_cast<float>(H);
+
+  // a tile's dy into dys and its x rows (contiguous, 16-byte aligned) into
+  // xraw by cp.async, rows past `rows` zero-filled
+  auto fetch = [&](int tile) {
+    const int row0 = tile * kTile;
+    for (int c = tid; c < kTile * hc; c += kBThreads) {
+      const int r = c / hc, col = (c - r * hc) * 4;
+      const bool valid = row0 + r < rows;
+      eegflow::cp_async16(smem_addr(dys + r * H + col),
+                          valid ? dy + static_cast<size_t>(row0 + r) * H + col : dy, valid);
+    }
+    const int nx = min(kTile, rows - row0) * C;  // floats of the tile's rows
+    const float* const xt = x + static_cast<size_t>(row0) * C;
+    for (int c = tid; c < (kTile * C + 3) / 4; c += kBThreads) {
+      const int n = min(4, max(0, nx - 4 * c));
+      eegflow::cp_async16_part(smem_addr(xraw + 4 * c), n > 0 ? xt + 4 * c : x, 4 * n);
+    }
+    eegflow::cp_async_commit();
+  };
+  fetch(blockIdx.x);
+  // bf16(W), its rows past C zero; xs's columns past C zero (never written again)
+  for (int i = tid; i < kCP * H; i += kBThreads) {
+    const int c = i / H;
+    ws[c * ldw + (i - c * H)] = __float2bfloat16_rn(c < C ? w[i] : 0.f);
+  }
+  for (int i = tid; i < kTile * (kCP - C); i += kBThreads) {
+    const int r = i / (kCP - C);
+    xs[r * ldx + C + (i - r * (kCP - C))] = __float2bfloat16_rn(0.f);
+  }
+
+  // db, dgamma, dbeta of the lane's columns over the warp's rows
+  float pdb[kChunks][4], pdg[kChunks][4], pdbt[kChunks][4];
+  // dW of the warp's channels and pairs over the CTA's rows
+  float acc_w[4][2][4];
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pdb[i][e] = pdg[i][e] = pdbt[i][e] = 0.f;
+#pragma unroll
+  for (int jj = 0; jj < 4; ++jj)
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc_w[jj][j][e] = 0.f;
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * kTile;
+    const int tr = min(kTile, rows - row0);
+    eegflow::cp_async_wait<0>();
+    __syncthreads();  // the tile's x and dy landed
+    for (int i = tid; i < kTile * C; i += kBThreads) {
+      const int r = i / C;
+      xs[r * ldx + (i - r * C)] = __float2bfloat16_rn(xraw[i]);
+    }
+    __syncthreads();
+
+    // z = bf16(x) . bf16(W) + b into zs, warp w taking columns 16 w .. + 15
+    if (warp < H / 16) {
+      float acc[4][2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < kCP / 16; ++kk) {
+        uint32_t r[4];
+        eegflow::ldmatrix_x4_trans(
+            r, smem_addr(ws + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldw + warp * 16 +
+                         (lane >> 4) * 8));
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          uint32_t af[4];
+          eegflow::ldmatrix_x4(af, smem_addr(xs + (16 * i + (lane & 15)) * ldx + kk * 16 +
+                                             (lane >> 4) * 8));
+          eegflow::mma_bf16(acc[i][0], af, r[0], r[1]);
+          eegflow::mma_bf16(acc[i][1], af, r[2], r[3]);
+        }
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int col = warp * 16 + 8 * j + 2 * q;
+        const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh)
+            *reinterpret_cast<float2*>(zs + (16 * i + 8 * rh + gq) * ldz + col) =
+                make_float2(acc[i][j][2 * rh] + b0, acc[i][j][2 * rh + 1] + b1);
+      }
+    }
+    __syncthreads();  // z whole
+
+    // the LayerNorm and GELU backward, one warp per row: dz, bf16(dz) into
+    // dzs. Rows past `rows` have dy = 0 (zero-filled), so their dz and sums
+    // are 0.
+    for (int r = warp; r < kTile; r += kBWarps) {
+      float zv[kChunks][4], dv[kChunks][4];
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) {
+        const int ch = lane + 32 * i;
+        float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f), d4 = z4;
+        if (ch < hc) {
+          z4 = *reinterpret_cast<const float4*>(zs + r * ldz + 4 * ch);
+          d4 = *reinterpret_cast<const float4*>(dys + r * H + 4 * ch);
+        }
+        zv[i][0] = z4.x, zv[i][1] = z4.y, zv[i][2] = z4.z, zv[i][3] = z4.w;
+        dv[i][0] = d4.x, dv[i][1] = d4.y, dv[i][2] = d4.z, dv[i][3] = d4.w;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          s1 += zv[i][e];
+          s2 += zv[i][e] * zv[i][e];
+        }
+      }
+      float mu, rsig;
+      ln_stats(eegflow::warp_sum(s1), eegflow::warp_sum(s2), inv_h, eps, mu, rsig);
+      float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) {
+        const int ch = lane + 32 * i;
+        if (ch >= hc) continue;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float gv = gamma[4 * ch + e];
+          const float xhat = (zv[i][e] - mu) * rsig;
+          const float dln = dv[i][e] * gelu_grad(xhat * gv + beta[4 * ch + e]);
+          pdg[i][e] += dln * xhat;
+          pdbt[i][e] += dln;
+          const float dxh = dln * gv;
+          zv[i][e] = xhat;
+          dv[i][e] = dxh;
+          m1 += dxh;
+          m2 += dxh * xhat;
+        }
+      }
+      m1 = eegflow::warp_sum(m1) * inv_h;
+      m2 = eegflow::warp_sum(m2) * inv_h;
+#pragma unroll
+      for (int i = 0; i < kChunks; ++i) {
+        const int ch = lane + 32 * i;
+        if (ch >= hc) continue;
+        float dz[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dz[e] = rsig * (dv[i][e] - m1 - zv[i][e] * m2);
+          pdb[i][e] += dz[e];
+        }
+        *reinterpret_cast<uint2*>(dzs + r * ldz + 4 * ch) =
+            make_uint2(eegflow::pack_bf16(dz[0], dz[1]), eegflow::pack_bf16(dz[2], dz[3]));
+      }
+    }
+    __syncthreads();  // bf16(dz) whole; no thread reads dys or xraw any more
+    if (tile + static_cast<int>(gridDim.x) < tiles) fetch(tile + gridDim.x);
+
+    // dx = bf16(dz) . bf16(W)^T
+    {
+      const int mt = warp & 3, nb = 16 * (warp >> 2);
+      float acc[2][4];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+      for (int kk = 0; kk < H / 16; ++kk) {
+        uint32_t af[4], r[4];
+        eegflow::ldmatrix_x4(af, smem_addr(dzs + (16 * mt + (lane & 15)) * ldz + kk * 16 +
+                                           (lane >> 4) * 8));
+        eegflow::ldmatrix_x4(r, smem_addr(ws + (nb + (lane & 7) + ((lane >> 4) << 3)) * ldw +
+                                          kk * 16 + ((lane >> 3) & 1) * 8));
+        eegflow::mma_bf16(acc[0], af, r[0], r[1]);
+        eegflow::mma_bf16(acc[1], af, r[2], r[3]);
+      }
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const int row = 16 * mt + 8 * rh + gq;
+          if (row >= tr) continue;
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = nb + 8 * j + 2 * q + e;
+            if (c < C) dx[static_cast<size_t>(row0 + row) * C + c] = acc[j][2 * rh + e];
+          }
+        }
+    }
+
+    // dW += bf16(x)^T . bf16(dz) over the tile's rows
+    {
+      const int mt = warp & 3;
+#pragma unroll
+      for (int kk = 0; kk < kTile / 16; ++kk) {
+        uint32_t af[4];
+        eegflow::ldmatrix_x4_trans(af, smem_addr(xs + (kk * 16 + (lane & 7) +
+                                                       ((lane >> 4) << 3)) * ldx +
+                                                 16 * mt + ((lane >> 3) & 1) * 8));
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int pr = (warp >> 2) + 4 * jj;
+          if (pr >= H / 16) continue;
+          uint32_t r[4];
+          eegflow::ldmatrix_x4_trans(
+              r, smem_addr(dzs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldz + pr * 16 +
+                           (lane >> 4) * 8));
+          eegflow::mma_bf16(acc_w[jj][0], af, r[0], r[1]);
+          eegflow::mma_bf16(acc_w[jj][1], af, r[2], r[3]);
+        }
+      }
+    }
+    __syncthreads();  // the next tile overwrites xs, zs and dzs
+  }
+
+  // the CTA's partial row: dW, then db, dgamma, dbeta summed over the warps
+  // in order
+  float* const out = part + static_cast<size_t>(blockIdx.x) * (C + 3) * H;
+  {
+    const int mt = warp & 3;
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj) {
+      const int pr = (warp >> 2) + 4 * jj;
+      if (pr >= H / 16) continue;
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const int c = 16 * mt + 8 * rh + gq;
+          if (c < C)
+            *reinterpret_cast<float2*>(out + static_cast<size_t>(c) * H + pr * 16 + 8 * j +
+                                       2 * q) =
+                make_float2(acc_w[jj][j][2 * rh], acc_w[jj][j][2 * rh + 1]);
+        }
+    }
+  }
+  float* const red = zs;  // [kBWarps][3][H], over zs and dys
+#pragma unroll
+  for (int i = 0; i < kChunks; ++i) {
+    const int ch = lane + 32 * i;
+    if (ch >= hc) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      red[(3 * warp) * H + 4 * ch + e] = pdb[i][e];
+      red[(3 * warp + 1) * H + 4 * ch + e] = pdg[i][e];
+      red[(3 * warp + 2) * H + 4 * ch + e] = pdbt[i][e];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 3 * H; i += kBThreads) {
+    float v = 0.f;
+    for (int wi = 0; wi < kBWarps; ++wi) v += red[wi * 3 * H + i];
+    out[static_cast<size_t>(C) * H + i] = v;
+  }
+}
+
+size_t bwd_bf16_smem_bytes(int H) {
+  return (static_cast<size_t>(kCP) * (H + 8) + static_cast<size_t>(kTile) * (kCP + 8) +
+          static_cast<size_t>(kTile) * (H + 8)) *
+             sizeof(__nv_bfloat16) +
+         (static_cast<size_t>(kTile) * (H + 8) + static_cast<size_t>(kTile) * H +
+          static_cast<size_t>(kTile) * kCP) *
+             sizeof(float);
+}
+
 bool bad_shape(int rows, int C, int H) {
   return rows <= 0 || C <= 0 || H <= 0 || H > kMaxH || H % 32 != 0;
 }
 
 }  // namespace
 
-// Operands of dW = bf16?(x)^T . bf16?(dz) over the rows (gemm.cuh).
+// Operands of the float32 mode's dW = x^T . dz over the rows (gemm.cuh).
 namespace input_block_ops {
 
-struct XRowsA {  // A(m = channel, k = row) = bf16?(x[k][m])
+struct XRowsA {  // A(m = channel, k = row) = x[k][m]
   static constexpr bool kMContiguous = true;
   const float* x;
-  int C, bf16;
-  __device__ float operator()(int c, int row) const {
-    return maybe_bf16(x[static_cast<size_t>(row) * C + c], bf16);
-  }
+  int C;
+  __device__ float operator()(int c, int row) const { return x[static_cast<size_t>(row) * C + c]; }
 };
 
 struct DzRowsB {  // B(k = row, n = unit) = dz_scr[k][n]
@@ -295,38 +617,57 @@ extern "C" int eegflow_input_block_fwd(const float* x, const float* w, const flo
 }
 
 // Backward. x (rows, C), dy (rows, H), w (C, H), bias, gamma, beta (H,)
-// float32. Outputs dx (rows, C), dw (C, H) and vec (3H) = [db, dgamma,
-// dbeta] float32. Scratch, float32: dz_scr (rows, H), vec_part
-// (eegflow_input_block_bwd_ctas(rows) * 3H), part (splits * C * H).
+// float32. Outputs dx (rows, C) and grads (C H + 3 H) = [dW (C, H), db,
+// dgamma, dbeta] float32, on `ctas` CTAs (the caller's plan,
+// eegflow_torch/nn/cuda_input.py bwd_plan). bf16 (which needs C <= 64, H <=
+// 256 and x and dy 16-byte aligned): part (ctas, C H + 3 H) float32 scratch, the
+// CTAs' partial rows; ctas <= the 64-row tiles; dz_scr and splits unused.
+// float32: dz_scr (rows, H) and part (ctas * 3 H + splits * C * H) float32
+// scratch, the CTAs' [db, dgamma, dbeta] rows and then dW's split-K partials.
 extern "C" int eegflow_input_block_bwd(const float* x, const float* dy, const float* w,
                                        const float* bias, const float* gamma,
-                                       const float* beta, float* dx, float* dw, float* vec,
-                                       float* dz_scr, float* vec_part, float* part,
-                                       int splits, int rows, int C, int H, int bf16,
+                                       const float* beta, float* dx, float* grads,
+                                       float* dz_scr, float* part, int ctas, int splits,
+                                       int rows, int C, int H, int bf16,
                                        cudaStream_t stream) {
-  if (bad_shape(rows, C, H) || splits <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  const int ctas = std::min(kMaxCtas, (rows + kR - 1) / kR);
+  if (bad_shape(rows, C, H) || ctas <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  const size_t count_w = static_cast<size_t>(C) * H;
+  if (bf16) {
+    if (C > kCP || H > kMaxHB || ctas > (rows + kTile - 1) / kTile ||
+        reinterpret_cast<uintptr_t>(dy) % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+      return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = bwd_bf16_smem_bytes(H);
+    err = eegflow::allow_dynamic_smem(input_block_bwd_bf16_kernel, smem);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    input_block_bwd_bf16_kernel<<<ctas, kBThreads, smem, stream>>>(
+        x, dy, w, bias, gamma, beta, dx, part, rows, C, H, 1e-5f);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const size_t count = count_w + 3 * static_cast<size_t>(H);
+    eegflow::reduce_splits_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0,
+                                    stream>>>(part, grads, ctas, count);
+    return static_cast<int>(cudaGetLastError());
+  }
+  if (splits <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  float* const vec_part = part;
+  float* const dw_part = part + static_cast<size_t>(ctas) * 3 * H;
   const size_t smem = (static_cast<size_t>(C) * (H + 1) + static_cast<size_t>(kR) * H +
                        static_cast<size_t>(kR) * C + kMaxH / 32 * kR * 2) *
                       sizeof(float);
-  cudaError_t err = eegflow::allow_dynamic_smem(input_block_bwd_kernel, smem);
+  err = eegflow::allow_dynamic_smem(input_block_bwd_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   input_block_bwd_kernel<<<ctas, H, smem, stream>>>(x, dy, w, bias, gamma, beta, dx, dz_scr,
-                                                    vec_part, rows, C, bf16, 1e-5f);
+                                                    vec_part, rows, C, 0, 1e-5f);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   using input_block_ops::DzRowsB;
   using input_block_ops::XRowsA;
-  err = eegflow::gemm_split_k(XRowsA{x, C, bf16}, DzRowsB{dz_scr, H}, dw, part, C, H, rows,
+  err = eegflow::gemm_split_k(XRowsA{x, C}, DzRowsB{dz_scr, H}, grads, dw_part, C, H, rows,
                               splits, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t count = 3 * static_cast<size_t>(H);
   eegflow::reduce_splits_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0,
-                                  stream>>>(vec_part, vec, ctas, count);
+                                  stream>>>(vec_part, grads + count_w, ctas, count);
   return static_cast<int>(cudaGetLastError());
-}
-
-// The number of partial rows the backward writes to vec_part.
-extern "C" int eegflow_input_block_bwd_ctas(int rows) {
-  return rows <= 0 ? 0 : std::min(kMaxCtas, (rows + kR - 1) / kR);
 }

@@ -1,6 +1,8 @@
 // A bf16 tensor-core GEMM for the LSTM kernels' big products (kernel 2's
-// input projection, kernel 3's and 4's dx and weight gradients), and the
-// mma.sync / ldmatrix / cp.async primitives the recurrent kernels share.
+// input projection, kernel 3's and 4's dx and weight gradients), the
+// mma.sync / ldmatrix / cp.async primitives the recurrent kernels share, and
+// tile_mma, the pool-head kernels' product of a resident tile against a
+// streamed operand.
 //
 //   C[m][n] = sum over the K segments s of sum_k A_s(m, k) B_s(k, n)
 //
@@ -22,7 +24,7 @@
 // Design: 128 x 128 tiles of C per CTA, 32-deep slices of K in a ring of 4
 // shared-memory stages (three in flight while one is used, one barrier a
 // slice); 8 warps of 64 x 32, each 4 x 4 mma tiles per 16 of K.
-// Split-K writes per-split partial sums that gemm.cuh's reduce_splits_kernel
+// Split-K writes per-split partial sums that common.cuh's reduce_splits_kernel
 // adds in order of the split: no float atomics, so a result repeats bit for
 // bit. wgmma and TMA are later work: mma.sync at half the card's bf16 rate
 // already takes these products well below the serial chains.
@@ -66,11 +68,16 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// the first n bytes (0 <= n <= 16, a multiple of 4) of 16 global -> shared,
+// the rest zero-filled (src is read only for n > 0)
+__device__ __forceinline__ void cp_async16_part(uint32_t dst, const void* src, int n) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(n)
+               : "memory");
+}
+
 // 16 bytes global -> shared; zero-filled when !valid (src is then not read)
 __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
-               "r"(valid ? 16 : 0)
-               : "memory");
+  cp_async16_part(dst, src, valid ? 16 : 0);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -105,6 +112,72 @@ __device__ __forceinline__ void load_f32x8(float (&v)[8], const float* p) {
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   v[0] = a.x, v[1] = a.y, v[2] = a.z, v[3] = a.w;
   v[4] = b.x, v[5] = b.y, v[6] = b.z, v[7] = b.w;
+}
+
+// ---- one tile's product against an operand streamed from global memory -----
+
+constexpr int kTileSlice = 32;  // depth of a streamed slice
+
+// acc[m-tile][n-tile][4] += A . B for this warp's 16-column pairs (pair =
+// warp + kWarps p, p < kNP, pair < N / 16) in a CTA of kWarps warps: A a
+// K-major bf16 tile of 16 kMT rows (lda elements apart) in shared memory
+// holding the whole depth; B (depth x N, bf16 rows of N in global memory)
+// streamed through a ring of kStages kTileSlice-deep slices by cp.async,
+// each stage [kTileSlice][N + 8]. depth is a multiple of kTileSlice and N of
+// 16. Thread (warp, lane = 4 g + q) gets rows 16 i + g, + 8 and columns
+// 16 pair + 8 (n % 2) + 2 q, + 1 of m-tile i, n-tile n. The caller makes sure
+// no thread still reads the ring.
+template <int kMT, int kNP, int kStages, int kWarps>
+__device__ __forceinline__ void tile_mma(float (&acc)[kMT][2 * kNP][4], const __nv_bfloat16* As,
+                                         int lda, const __nv_bfloat16* __restrict__ Bg,
+                                         int depth, int N, __nv_bfloat16* ring,
+                                         int stage_elems) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int ldb = N + 8;
+  const int slices = depth / kTileSlice;
+  const int chunks_per_row = N / 8;
+  auto issue = [&](int i) {
+    __nv_bfloat16* st = ring + (i % kStages) * stage_elems;
+    for (int c = tid; c < kTileSlice * chunks_per_row; c += 32 * kWarps) {
+      const int r = c / chunks_per_row, col = (c - r * chunks_per_row) * 8;
+      cp_async16(smem_addr(st + r * ldb + col),
+                 Bg + static_cast<size_t>(i * kTileSlice + r) * N + col, true);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < slices) issue(i);
+    cp_async_commit();
+  }
+  for (int it = 0; it < slices; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // slice it has landed; slice it - 1's stage is free again
+    if (it + kStages - 1 < slices) issue(it + kStages - 1);
+    cp_async_commit();
+    const __nv_bfloat16* bs = ring + (it % kStages) * stage_elems;
+#pragma unroll
+    for (int kk = 0; kk < kTileSlice / 16; ++kk) {
+      uint32_t af[kMT][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+        ldmatrix_x4(af[i], smem_addr(As + (16 * i + (lane & 15)) * lda + it * kTileSlice +
+                                     kk * 16 + (lane >> 4) * 8));
+#pragma unroll
+      for (int p = 0; p < kNP; ++p) {
+        const int pair = warp + kWarps * p;
+        if (pair >= N / 16) continue;
+        uint32_t r[4];
+        ldmatrix_x4_trans(r, smem_addr(bs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb +
+                                       pair * 16 + (lane >> 4) * 8));
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) {
+          mma_bf16(acc[i][2 * p], af[i], r[0], r[1]);
+          mma_bf16(acc[i][2 * p + 1], af[i], r[2], r[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
 }
 
 // ---- the GEMM ----------------------------------------------------------------

@@ -36,7 +36,7 @@
 // epilogue forms u (bf16(u) into a second tile and the bf16 scratch),
 // dy = bf16(u)[kM x K] . bf16(W1)^T[K x D]. W1 and W1^T, rounded to bf16
 // once per launch by the wrapper, stream through a ring of three 32-deep
-// slices in shared memory with cp.async (mma_gemm.cuh's helpers); each warp
+// slices in shared memory with cp.async (mma_gemm.cuh's tile_mma); each warp
 // owns every row of the tile and 16-column pairs of the output, so the
 // product of two bf16 values is exact and the sums are float32, as the
 // reference's preferred_element_type=float32; only the order of summation
@@ -284,70 +284,10 @@ constexpr int kM = 64;
 constexpr int kMT = kM / 16;  // m-tiles of a tile
 constexpr int kBThreads = 256;
 constexpr int kBWarps = kBThreads / 32;
-constexpr int kSlice = 32;
+constexpr int kSlice = eegflow::kTileSlice;
 constexpr int kStages = 3;
 constexpr int kMaxD = 512;  // so a warp owns at most 4 16-column pairs of dy
 constexpr int kMaxK = 256;  // and 2 of proj
-
-// acc[m-tile][n-tile][4] += A . B for this warp's 16-column pairs
-// (pair = warp + 8 p, p < kNP, pair < N / 16): A a K-major bf16 tile of kM
-// rows (lda elements apart) holding the whole depth; B (depth x N, bf16
-// rows of N in global memory) streamed through the ring in kSlice-deep
-// slices by cp.async, each stage [kSlice][N + 8]. The caller makes sure no
-// thread still reads the ring.
-template <int kNP>
-__device__ __forceinline__ void tile_mma(float (&acc)[kMT][2 * kNP][4],
-                                         const __nv_bfloat16* As, int lda,
-                                         const __nv_bfloat16* __restrict__ Bg, int depth, int N,
-                                         __nv_bfloat16* ring, int stage_elems) {
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ldb = N + 8;
-  const int slices = depth / kSlice;
-  const int chunks_per_row = N / 8;
-  auto issue = [&](int i) {
-    __nv_bfloat16* st = ring + (i % kStages) * stage_elems;
-    for (int c = tid; c < kSlice * chunks_per_row; c += kBThreads) {
-      const int r = c / chunks_per_row, col = (c - r * chunks_per_row) * 8;
-      eegflow::cp_async16(eegflow::smem_addr(st + r * ldb + col),
-                          Bg + static_cast<size_t>(i * kSlice + r) * N + col, true);
-    }
-  };
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < slices) issue(i);
-    eegflow::cp_async_commit();
-  }
-  for (int it = 0; it < slices; ++it) {
-    eegflow::cp_async_wait<kStages - 2>();
-    __syncthreads();  // slice it has landed; slice it - 1's stage is free again
-    if (it + kStages - 1 < slices) issue(it + kStages - 1);
-    eegflow::cp_async_commit();
-    const __nv_bfloat16* bs = ring + (it % kStages) * stage_elems;
-#pragma unroll
-    for (int kk = 0; kk < kSlice / 16; ++kk) {
-      uint32_t af[kMT][4];
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-        eegflow::ldmatrix_x4(af[i], eegflow::smem_addr(As + (16 * i + (lane & 15)) * lda +
-                                                       it * kSlice + kk * 16 + (lane >> 4) * 8));
-#pragma unroll
-      for (int p = 0; p < kNP; ++p) {
-        const int pair = warp + kBWarps * p;
-        if (pair >= N / 16) continue;
-        uint32_t r[4];
-        eegflow::ldmatrix_x4_trans(
-            r, eegflow::smem_addr(bs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb +
-                                  pair * 16 + (lane >> 4) * 8));
-#pragma unroll
-        for (int i = 0; i < kMT; ++i) {
-          eegflow::mma_bf16(acc[i][2 * p], af[i], r[0], r[1]);
-          eegflow::mma_bf16(acc[i][2 * p + 1], af[i], r[2], r[3]);
-        }
-      }
-    }
-  }
-  eegflow::cp_async_wait<0>();
-}
 
 // bf16 mode, one CTA per batch row. Thread (warp w, lane = 4 g + q) holds,
 // for m-tile i and n-tile j of its pairs, rows 16 i + g, 16 i + g + 8 and
@@ -458,7 +398,7 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
         for (int j = 0; j < 4; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-      tile_mma<2>(acc, ys, lda_y, w1b, D, K, ring, stage_elems);
+      eegflow::tile_mma<kMT, 2, kStages, kBWarps>(acc, ys, lda_y, w1b, D, K, ring, stage_elems);
 #pragma unroll
       for (int j = 0; j < 4; ++j) {
         const int pair = warp + kBWarps * (j / 2);
@@ -512,7 +452,7 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
         for (int j = 0; j < 8; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-      tile_mma<4>(acc, us, lda_u, w1tb, K, D, ring, stage_elems);
+      eegflow::tile_mma<kMT, 4, kStages, kBWarps>(acc, us, lda_u, w1tb, K, D, ring, stage_elems);
       __syncthreads();  // no thread reads the tiles or the ring any more
 #pragma unroll
       for (int j = 0; j < 8; ++j) {

@@ -32,6 +32,18 @@ from eegflow_torch.nn.cuda_lstm import Parts, _ptr, _stream, as_parts
 from eegflow_torch.nn.layers import bf16_round
 
 LN_EPS = 1e-5
+#: the widest D and K the bf16 modes of the pool-head kernels take
+BF16_MAX_D, BF16_MAX_K = 512, 256
+
+
+def check_bf16_widths(name: str, d_total: int, k: int) -> None:
+    """The widths the bf16 modes of ``pool_head_fwd.cu`` and
+    ``pool_head_bwd.cu`` run on the tensor cores: D <= 512 and K <= 256, both
+    multiples of 32 (the classifier's D = 2H and K = H for H <= 256). Raises
+    ``ValueError`` naming ``name`` for any other; there is no other body."""
+    if d_total % 32 or k % 32 or d_total > BF16_MAX_D or k > BF16_MAX_K:
+        raise ValueError(f"{name} under bf16 needs D <= {BF16_MAX_D} and K <= {BF16_MAX_K}, "
+                         f"both multiples of 32; got D={d_total}, K={k}")
 
 
 def pool_head_fused_plain(ln_params: Optional[Mapping], attn_params: Mapping,
@@ -101,6 +113,8 @@ def pool_head_fused(ln_params: Optional[Mapping], attn_params: Mapping, xs: Part
     ``xs``: one or two (B, T, D_p) parts (their concat is the BiLSTM output).
     Returns ``(ctx_parts, raw_scores)``: concat the parts for the (B, D)
     context; softmax(raw_scores + score bias) gives the attention weights.
+    Under ``bf16`` the kernel runs its product on the tensor cores and takes
+    the widths :func:`check_bf16_widths` allows.
     """
     xs = as_parts(xs)
     if xs[0].device.type == "cpu":
@@ -113,13 +127,16 @@ def _pool_head_fwd_launch(ln_params, attn_params, xs, use_ln, bf16, name):
     if xs[0].device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {xs[0].device}")
     _check_cuda_args(xs, ln_params, attn_params, use_ln)
-    lib = kernels.load_library()
-    dev = xs[0].device
     batch, steps = xs[0].shape[:2]
     widths = [x.shape[-1] for x in xs]
+    if bf16:
+        check_bf16_widths(name, sum(widths), attn_params["proj"]["w"].shape[1])
+    lib = kernels.load_library()
+    dev = xs[0].device
     two = len(xs) == 2
     f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
-    w1 = f32(attn_params["proj"]["w"])
+    # W1 in the product's operand type: bf16, rounded once here
+    w1 = attn_params["proj"]["w"].to(torch.bfloat16 if bf16 else torch.float32).contiguous()
     b1 = f32(attn_params["proj"]["b"])
     w2 = f32(attn_params["score"]["w"][:, 0])
     gamma = f32(ln_params["scale"]) if use_ln else None
@@ -254,9 +271,8 @@ def pool_head_bwd(ln_params: Optional[Mapping], attn_params: Mapping, xs: Parts,
     if len(g_ctx) != len(xs):
         raise ValueError("one context gradient per part")
     k = attn_params["proj"]["w"].shape[1]
-    if bf16 and (d_total % 32 or k % 32 or d_total > 512 or k > 256):
-        raise ValueError(f"pool_head_bwd under bf16 needs D <= 512 and K <= 256, both "
-                         f"multiples of 32; got D={d_total}, K={k}")
+    if bf16:
+        check_bf16_widths("pool_head_bwd", d_total, k)
     lib = kernels.load_library()
     dev = xs[0].device
     two = len(xs) == 2

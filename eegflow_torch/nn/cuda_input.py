@@ -21,17 +21,64 @@ input dropout is applied by the first LSTM layer, from explicit masks.
 from __future__ import annotations
 
 import math
-from typing import Mapping, Tuple
+from typing import List, Mapping, NamedTuple, Tuple
 
 import torch
 
 from eegflow_torch import kernels
-from eegflow_torch.nn.cuda_lstm import _device_kind, _stream
+from eegflow_torch.nn.cuda_lstm import _device_kind, _ptr, _stream
 from eegflow_torch.nn.layers import bf16_round
 
 LN_EPS = 1e-5
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
+#: kernel 10's bf16 mode: rows a CTA takes at a time, its fixed persistent
+#: grid (one 221 KB CTA on each of an H100's 132 SMs; a fixed count keeps the
+#: order of the partial sums, and so the result, the same on any card), and
+#: the widest input and hidden sizes it takes
+BWD_TILE_ROWS = 64
+BWD_CTAS = 132
+BWD_MAX_CHANNELS, BWD_MAX_HIDDEN = 64, 256
+#: its float32 mode: rows a CTA takes at a time, and at most this many CTAs
+_F32_TILE_ROWS, _F32_MAX_CTAS = 16, 256
+
+
+class BwdPlan(NamedTuple):
+    """A launch of kernel 10: ``ctas`` CTAs, each taking ``tile_rows`` rows at
+    a time; float32 scratch of ``dz_scr`` floats (float32 mode: dz for dW's
+    GEMM) and ``part`` floats (bf16: one partial row [dW, db, dgamma,
+    dbeta] a CTA; float32: the CTAs' [db, dgamma, dbeta] rows, then dW's
+    ``splits`` split-K partials)."""
+
+    ctas: int
+    tile_rows: int
+    splits: int
+    dz_scr: int
+    part: int
+
+    def tiles_of(self, cta: int, rows: int) -> List[Tuple[int, int]]:
+        """(first row, rows) of each tile CTA ``cta`` walks, in its order:
+        tiles cta, cta + ctas, .. of ``rows`` rows."""
+        return [(t * self.tile_rows, min(self.tile_rows, rows - t * self.tile_rows))
+                for t in range(cta, -(-rows // self.tile_rows), self.ctas)]
+
+
+def bwd_plan(rows: int, channels: int, hidden: int, bf16: bool) -> BwdPlan:
+    """Kernel 10's grid and scratch for ``rows`` = B*T rows of ``channels``
+    inputs and ``hidden`` units; the wrapper allocates from it. Raises
+    ``ValueError`` for widths the bf16 mode does not take (C <= 64, H <= 256,
+    H % 32 == 0); there is no other body."""
+    if bf16:
+        if channels > BWD_MAX_CHANNELS or hidden > BWD_MAX_HIDDEN or hidden % 32:
+            raise ValueError(f"input_block_bwd under bf16 needs C <= {BWD_MAX_CHANNELS} and "
+                             f"H <= {BWD_MAX_HIDDEN}, H % 32 == 0; got C={channels}, "
+                             f"H={hidden}")
+        ctas = min(BWD_CTAS, -(-rows // BWD_TILE_ROWS))
+        return BwdPlan(ctas, BWD_TILE_ROWS, 0, 0, ctas * (channels + 3) * hidden)
+    ctas = min(_F32_MAX_CTAS, -(-rows // _F32_TILE_ROWS))
+    splits = kernels.gemm_splits(rows)
+    return BwdPlan(ctas, _F32_TILE_ROWS, splits, rows * hidden,
+                   ctas * 3 * hidden + splits * channels * hidden)
 
 
 def _erf(x: torch.Tensor) -> torch.Tensor:
@@ -146,33 +193,37 @@ def input_block_fused(proj: Mapping, norm: Mapping, x: torch.Tensor,
 def input_block_bwd(proj: Mapping, norm: Mapping, x: torch.Tensor, dy: torch.Tensor,
                     bf16: bool = False) -> Grads:
     """Kernel 10: the recomputing backward of :func:`input_block_fused` ->
-    (dx, dW, db, dgamma, dbeta), as :func:`input_block_bwd_plain`."""
+    (dx, dW, db, dgamma, dbeta), as :func:`input_block_bwd_plain`. Under
+    ``bf16`` the kernel runs its three products on the tensor cores and takes
+    the widths :func:`bwd_plan` allows."""
     if _device_kind("input_block_bwd", x) == "cpu":
         return input_block_bwd_plain(proj, norm, x, dy, bf16)
     _check_cuda_args(proj, norm, x, dy)
-    lib = kernels.load_library()
-    dev = x.device
     batch, steps, channels = x.shape
     hidden = proj["w"].shape[1]
     rows = batch * steps
+    plan = bwd_plan(rows, channels, hidden, bf16)
+    lib = kernels.load_library()
+    dev = x.device
     w, b, gamma, beta = (_f32(t) for t in (proj["w"], proj["b"], norm["scale"], norm["bias"]))
+    # the bf16 mode streams x and dy in 16-byte copies
+    x_in = x if x.data_ptr() % 16 == 0 else x.clone()
+    if dy.data_ptr() % 16:
+        dy = dy.clone()
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
-    dw = torch.empty(channels, hidden, **f32)
-    vec = torch.empty(3 * hidden, **f32)
-    dz_scr = torch.empty(rows, hidden, **f32)
-    vec_part = torch.empty(lib.eegflow_input_block_bwd_ctas(rows) * 3 * hidden, **f32)
-    splits = kernels.gemm_splits(rows)
-    part = torch.empty(splits * channels * hidden, **f32)
+    grads = torch.empty((channels + 3) * hidden, **f32)
+    dz_scr = torch.empty(plan.dz_scr, **f32) if plan.dz_scr else None
+    part = torch.empty(plan.part, **f32)
     err = lib.eegflow_input_block_bwd(
-        x.data_ptr(), dy.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), dx.data_ptr(), dw.data_ptr(), vec.data_ptr(), dz_scr.data_ptr(),
-        vec_part.data_ptr(), part.data_ptr(), splits, rows, channels, hidden, int(bf16),
-        _stream(dev))
+        x_in.data_ptr(), dy.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
+        beta.data_ptr(), dx.data_ptr(), grads.data_ptr(), _ptr(dz_scr), part.data_ptr(),
+        plan.ctas, plan.splits, rows, channels, hidden, int(bf16), _stream(dev))
     kernels.check(lib, err, "input_block_bwd")
     kernels.launch_counts["input_block_bwd"] += 1
+    dw, vec = grads.split([channels * hidden, 3 * hidden])
     db, dgamma, dbeta = vec.split(hidden)
-    return dx, dw, db, dgamma, dbeta
+    return dx, dw.view(channels, hidden), db, dgamma, dbeta
 
 
 class InputBlock(torch.autograd.Function):

@@ -718,6 +718,74 @@ def test_pool_head_bwd_bf16_rejects_widths_off_its_tiles(dev):
                       torch.zeros(2, device=dev), False, True)
 
 
+@pytest.mark.parametrize("ln_parts", [(False, 1), (True, 2)])
+@pytest.mark.parametrize("batch,steps", [(3, 100), (2, 256)])
+def test_pool_head_fwd_bf16_on_tensor_cores_matches_twin_and_repeats_bitwise(dev, ln_parts,
+                                                                             batch, steps):
+    """Kernel 7's bf16 mode at the classifier's widths (parts of 256, K=256;
+    one part of 256 and K=128 without LN), T not a multiple of its 64-row
+    tile (T=100) and a whole number of tiles (T=256)."""
+    use_ln, n_parts = ln_parts
+    gen = make_generator(120 + n_parts)
+    d_part, k = 256, 128 * n_parts
+    d = d_part * n_parts
+    ln = {"scale": 1 + 0.1 * _randn(gen, d, dev=dev), "bias": 0.1 * _randn(gen, d, dev=dev)}
+    attn = {"proj": {"w": 0.05 * _randn(gen, d, k, dev=dev), "b": 0.1 * _randn(gen, k, dev=dev)},
+            "score": {"w": 0.1 * _randn(gen, k, 1, dev=dev)}}
+    xs = tuple(torch.tanh(_randn(gen, batch, steps, d_part, dev=dev)) for _ in range(n_parts))
+    args = (ln if use_ln else None, attn, xs, use_ln, True)
+    before = kernels.launch_counts["pool_head_fwd"]
+    got, again = pool_head_fused(*args), pool_head_fused(*args)
+    assert kernels.launch_counts["pool_head_fwd"] == before + 2
+    want = pool_head_fused_plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda out: list(out[0]) + [out[1]]  # noqa: E731
+    for a, c in zip(flat(got), flat(want)):
+        assert bool(torch.isfinite(a).all()) and (a - c).abs().max().item() <= POOL_TOL[True]
+    assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
+
+
+def test_pool_head_fwd_bf16_rejects_widths_off_its_tiles(dev):
+    x = torch.zeros(2, 5, 40, device=dev)
+    attn = {"proj": {"w": torch.zeros(40, 64, device=dev), "b": torch.zeros(64, device=dev)},
+            "score": {"w": torch.zeros(64, 1, device=dev)}}
+    with pytest.raises(ValueError, match="multiples of 32"):
+        pool_head_fused(None, attn, (x,), False, True)
+    # the float32 mode takes any width
+    pool_head_fused(None, attn, (x,), False, False)
+
+
+@pytest.mark.parametrize("hidden", [64, 256])
+@pytest.mark.parametrize("batch,steps", [(5, 37), (40, 256)])
+def test_input_block_bwd_bf16_on_tensor_cores_matches_twin_and_repeats_bitwise(dev, hidden,
+                                                                               batch, steps):
+    """Kernel 10's bf16 mode on ragged rows (5 x 37 = 185, not a multiple of
+    its 64-row tile) and on rows spanning more tiles than its persistent grid
+    holds (40 x 256 = 10240 rows, 160 tiles on 132 CTAs)."""
+    gen = make_generator(130 + hidden)
+    proj, norm, x = _input_case(gen, hidden, dev, batch=batch, steps=steps)
+    dy = _randn(gen, batch, steps, hidden, dev=dev)
+    before = kernels.launch_counts["input_block_bwd"]
+    got = input_block_bwd(proj, norm, x, dy, True)
+    again = input_block_bwd(proj, norm, x, dy, True)
+    assert kernels.launch_counts["input_block_bwd"] == before + 2
+    want = input_block_bwd_plain(proj, norm, x, dy, True)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and _rel(a, w) <= BWD_REL_TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_input_block_bwd_rejects_widths_off_its_tiles(dev):
+    gen = make_generator(140)
+    for channels, hidden, bf16 in ((65, 64, True), (61, 288, True), (61, 48, True),
+                                   (61, 48, False), (61, 544, False)):
+        proj, norm, x = _input_case(gen, hidden, dev, channels=channels)
+        dy = torch.zeros(*x.shape[:2], hidden, device=dev)
+        with pytest.raises(ValueError):
+            input_block_bwd(proj, norm, x, dy, bf16)
+
+
 def test_cluster_plans_query_the_card(dev):
     """The plans of the main path's shapes: whole slices resident, the
     kernels' own shared memory (checked inside kernel_plan), clusters of 4

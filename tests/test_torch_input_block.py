@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from eegflow.nn.pallas_input import input_block_fused as jax_input_block
-from eegflow_torch.nn.cuda_input import (input_block, input_block_bwd, input_block_bwd_plain,
+from eegflow_torch import kernels
+from eegflow_torch.nn.cuda_input import (BWD_CTAS, BWD_TILE_ROWS, bwd_plan, input_block,
+                                         input_block_bwd, input_block_bwd_plain,
                                          input_block_fused, input_block_fused_plain)
 
 # forward: the same (bf16-rounded) operands and LayerNorm formula; float32
@@ -97,3 +99,42 @@ def test_function_matches_jax_vjp(bf16):
     # without gradients the block runs the forward alone, to the same values
     with torch.no_grad():
         assert torch.equal(input_block(tp, tn, tx, bf16), y.detach())
+
+
+@pytest.mark.parametrize("bf16", [True, False])
+@pytest.mark.parametrize("rows", [1, 63, 64, 185, 8448, 8449, 131072])
+def test_bwd_plan_owns_every_row_tile_once_and_sizes_the_scratch(rows, bf16):
+    """Kernel 10's launch plan, from which the wrapper allocates: the CTAs'
+    tiles (tile i of CTA c: i = c, c + ctas, ..) cover every row exactly once
+    and every CTA owns at least one, also where the rows span more tiles than
+    the bf16 mode's persistent grid holds (8449 rows); the scratch holds one
+    partial row [dW, db, dgamma, dbeta] a CTA under bf16, and the float32
+    mode's dz rows, [db, dgamma, dbeta] rows and split-K partials."""
+    channels, hidden = 61, 256
+    plan = bwd_plan(rows, channels, hidden, bf16)
+    owned = np.zeros(rows, np.int64)
+    for cta in range(plan.ctas):
+        tiles = plan.tiles_of(cta, rows)
+        assert tiles
+        for row0, n in tiles:
+            assert row0 % plan.tile_rows == 0 and 0 < n <= plan.tile_rows
+            owned[row0:row0 + n] += 1
+    assert (owned == 1).all()
+    if bf16:
+        assert plan.tile_rows == BWD_TILE_ROWS
+        assert plan.ctas == min(BWD_CTAS, -(-rows // BWD_TILE_ROWS))
+        assert (plan.splits, plan.dz_scr) == (0, 0)
+        assert plan.part == plan.ctas * (channels * hidden + 3 * hidden)
+    else:
+        assert plan.ctas == min(256, -(-rows // plan.tile_rows))
+        assert plan.splits == kernels.gemm_splits(rows)
+        assert plan.dz_scr == rows * hidden
+        assert plan.part == plan.ctas * 3 * hidden + plan.splits * channels * hidden
+
+
+@pytest.mark.parametrize("channels,hidden", [(65, 256), (61, 288), (61, 48), (61, 512)])
+def test_bwd_plan_rejects_widths_off_the_bf16_tiles(channels, hidden):
+    with pytest.raises(ValueError, match="input_block_bwd under bf16 needs C <= 64"):
+        bwd_plan(185, channels, hidden, True)
+    if hidden % 32 == 0:
+        bwd_plan(185, channels, hidden, False)  # the float32 mode takes them

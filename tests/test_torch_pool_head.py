@@ -13,8 +13,8 @@ import torch
 from eegflow.nn.pallas_attention import attention_pool_pallas, pallas_attention_apply
 from eegflow.nn.pallas_attention import pool_head_fused as pallas_pool_head
 from eegflow_torch.nn.cuda_attention import (attention_pool, attention_pool_apply,
-                                             attention_pool_plain, pool_head_fused,
-                                             pool_head_fused_plain)
+                                             attention_pool_plain, check_bf16_widths,
+                                             pool_head_fused, pool_head_fused_plain)
 
 # Same LayerNorm formula and the same bf16-rounded operands on both sides;
 # float32 sums in another order (and, under bf16, a last-bit LN difference
@@ -102,3 +102,21 @@ def test_attention_pool_twin_matches_pallas(batch):
     # on CPU tensors the wrapper runs the twin
     w_ctx, w_s = attention_pool(*args)
     assert torch.equal(w_ctx, ctx) and torch.equal(w_s, scores)
+
+
+@pytest.mark.parametrize("hidden", [32, 64, 128, 160, 256])
+def test_bf16_width_rule_takes_the_classifiers_widths(hidden):
+    """The bf16 modes of kernels 7 and 8 share one width rule; it takes the
+    classifier's D = 2H and K = H for every H <= 256 that is a multiple of
+    32, and the widths of the card tests (D = 64, K = 96)."""
+    for name in ("pool_head_fwd", "pool_head_bwd"):
+        check_bf16_widths(name, 2 * hidden, hidden)
+    check_bf16_widths("pool_head_fwd", 64, 96)
+    check_bf16_widths("pool_head_fwd", 512, 256)
+
+
+@pytest.mark.parametrize("d,k", [(40, 64), (544, 256), (512, 288), (512, 48), (48, 32)])
+def test_bf16_width_rule_rejects_widths_off_its_tiles(d, k):
+    with pytest.raises(ValueError, match=rf"pool_head_fwd under bf16 needs D <= 512 and K "
+                                         rf"<= 256, both multiples of 32; got D={d}, K={k}"):
+        check_bf16_widths("pool_head_fwd", d, k)
