@@ -22,9 +22,9 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      batch), and the probabilities against the plain path;
   6. times predict_batch at the 1024 bucket on the kernel path and the
      plain path (CUDA events), and each kernel against its twin; lstm_fwd at
-     B=1024 (the cluster plan serving launches) and pool_head_fwd in bf16
-     mode (tensor cores) at B=1024 are also held to their twins and to a
-     bitwise repeat;
+     B=1024 (the cluster plan serving launches), pool_head_fwd in bf16
+     mode (tensor cores) and input_block_fwd in bf16 mode at B=1024 are also
+     held to their twins and to a bitwise repeat;
   7. the bf16 training kernels against their twins at B=64, T=256, H=256:
      lstm_fwd in training mode (masks, residual planes) and lstm_bwd, each
      also bitwise against itself, and pool_head_bwd in its bf16 (tensor
@@ -62,12 +62,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      the bf16 "fused" step; lstm_rec_fwd on the plans the main path launches
      (training at B=512, with the z it leaves over the gates, and eval at
      B=512 and 1024) and lstm_rec_bwd on its B=512 plan held to their twins
-     and to a bitwise repeat; input_block_bwd in bf16 mode (tensor cores)
-     at B=512 held to its twin and to a bitwise repeat, and its two launches
-     (the row kernel and the partial-row reduction) timed apart with
-     torch.profiler; each float32 kernel (and the input block and
-     pool_head_fwd in both modes) timed against its twin, lstm_rec_fwd eval
-     also at B=1024;
+     and to a bitwise repeat; input_block_bwd in bf16 mode (tensor cores),
+     input_block_fwd in both modes and pool_head_bwd in float32 mode (3xTF32)
+     at B=512 held to their twins and to bitwise repeats, and their launches
+     (kernel 10's row kernel and partial-row reduction, kernel 8's kernel,
+     dW1 GEMM and reductions) timed apart with torch.profiler; each float32
+     kernel (and the input block and pool_head_fwd in both modes) timed
+     against its twin, lstm_rec_fwd eval also at B=1024;
  14. the kernels of the two other bf16 backward schedules against their
      twins at B=64, T=256, H=256, one and two parts: lstm_fwd_train_gates
      (h, gates, c; both directions; bitwise repeat), lstm_bwd_v2 on the same
@@ -153,9 +154,11 @@ N_TRAIN32_EPOCHS = 1
 B_TRAIN = 512
 # the least time of a kernel's work on an H100 SXM (NVIDIA's data sheet, dense):
 # HBM bytes per second, and products per second by operand type (bf16 on the
-# tensor cores; float32 outside them, since TF32 is off)
+# tensor cores; float32 outside them, since TF32 is off; float32 in 3xTF32,
+# three TF32 tensor-core products for each, at a third of the 495 TFLOP/s
+# TF32 peak)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "float32": 67e12}
+PEAK_FLOPS = {"bf16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 N_TRAIN_WINDOWS = 2048
 TRAIN_EPOCHS = 2
 
@@ -290,8 +293,9 @@ def main() -> int:
                                                  attention_pool_plain, pool_head_bwd,
                                                  pool_head_bwd_plain, pool_head_fused,
                                                  pool_head_fused_plain)
-    from eegflow_torch.nn.cuda_input import (bwd_plan, input_block_bwd, input_block_bwd_plain,
-                                             input_block_fused, input_block_fused_plain)
+    from eegflow_torch.nn.cuda_input import (bwd_plan, fwd_plan, input_block_bwd,
+                                             input_block_bwd_plain, input_block_fused,
+                                             input_block_fused_plain)
     from eegflow_torch.nn.cuda_lstm import (kernel_plan, lstm_bwd, lstm_bwd_dualdir,
                                             lstm_bwd_dualdir_plain,
                                             lstm_bwd_plain, lstm_bwd_v2, lstm_bwd_v2_plain,
@@ -505,6 +509,19 @@ def main() -> int:
     pool_plain_ms = cuda_ms(lambda: pool_head_fused_plain(*pargs), 5)
     print(f"pool_head_fwd B={BUCKET} T={T} parts=2x{H} K={H}: kernel {pool_ms:.3f} ms, "
           f"plain {pool_plain_ms:.3f} ms [{smi}]")
+    # kernel 9's bf16 mode on the plan serving launches at the bucket
+    ib = (params["input_proj"], params["input_norm"])
+    xin_big = torch.from_numpy(x_big).to(dev)
+    in_big_plan = fwd_plan(BUCKET * T, H)
+    in_fwd_err = hold_at_main_shape(
+        f"input_block_fwd bf16 B={BUCKET} T={T} C={C} H={H} ({in_big_plan.ctas} CTAs of "
+        f"{in_big_plan.tile_rows}-row tiles, tensor cores): y",
+        [input_block_fused(*ib, xin_big, True)], [input_block_fused(*ib, xin_big, True)],
+        [input_block_fused_plain(*ib, xin_big, True)], INPUT_TOL, relative=False)
+    in_big_ms = device_ms(lambda: input_block_fused(*ib, xin_big, True), 5)
+    print(f"input_block_fwd bf16 B={BUCKET} T={T}: device ms a call by launch (torch.profiler): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in in_big_ms.items()) + f" [{smi}]", flush=True)
+    del xin_big
 
     # phase 7: the training kernels against their twins
     keep_in, keep_mid = 1.0 - cfg.dropout / 2, 1.0 - cfg.dropout
@@ -764,7 +781,7 @@ def main() -> int:
                                              for a, b in zip(got, want)])
     x_in = randn(B_CHECK, T, C)
     dy_in = randn(B_CHECK, T, H)
-    in_fwd_err = in_bwd_err = 0.0
+    in_fwd_err32 = in_bwd_err = 0.0
     for bf16 in (False, True):
         y_k = input_block_fused(params["input_proj"], params["input_norm"], x_in, bf16)
         y_p = input_block_fused_plain(params["input_proj"], params["input_norm"], x_in, bf16)
@@ -784,7 +801,10 @@ def main() -> int:
         require(err <= INPUT_TOL, f"input_block_fwd within {INPUT_TOL} of its twin")
         require(max(errs.values()) <= INPUT_BWD_REL_TOL[bf16] and same,
                 "input_block_bwd within tolerance of its twin, bitwise repeatable")
-        in_fwd_err = max(in_fwd_err, err)
+        if bf16:
+            in_fwd_err = max(in_fwd_err, err)
+        else:
+            in_fwd_err32 = max(in_fwd_err32, err)
         in_bwd_err = max(in_bwd_err, *[(a - b).abs().max().item() for a, b in zip(got, want)])
     attn256 = {name: {k: v.to(dev) for k, v in sub.items()}
                for name, sub in additive_attention_init(make_generator(SEED + 10), H).items()}
@@ -952,7 +972,6 @@ def main() -> int:
     del gates_big
     x512 = randn(B_TRAIN, T, C)
     dy512 = randn(B_TRAIN, T, H)
-    ib = (params["input_proj"], params["input_norm"])
     pargs32 = pargs2[:-1] + (False,)
     rec_flops = 2 * B_TRAIN * T * H * 4 * H  # one h . W_hh per step, float32
     in_flops = 2 * B_TRAIN * T * C * H  # x . W of the input block
@@ -969,6 +988,32 @@ def main() -> int:
     print(f"input_block_bwd bf16 B={B_TRAIN} T={T}: device ms a call by launch (torch.profiler): "
           + ", ".join(f"{k} {v:.3f}" for k, v in in_parts.items()) + f" [{smi}]",
           flush=True)
+    # kernel 9 in both modes at the micro-step's shape, on its persistent grid
+    in_plan = fwd_plan(B_TRAIN * T, H)
+    for bf16 in (True, False):
+        mode = "bf16" if bf16 else "float32"
+        err = hold_at_main_shape(
+            f"input_block_fwd {mode} B={B_TRAIN} T={T} C={C} H={H} ({in_plan.ctas} CTAs of "
+            f"{in_plan.tile_rows}-row tiles, {'tensor' if bf16 else 'CUDA'} cores): y",
+            [input_block_fused(*ib, x512, bf16)], [input_block_fused(*ib, x512, bf16)],
+            [input_block_fused_plain(*ib, x512, bf16)], INPUT_TOL, relative=False)
+        if bf16:
+            in_fwd_err = max(in_fwd_err, err)
+        else:
+            in_fwd_err32 = max(in_fwd_err32, err)
+        split = device_ms(lambda: input_block_fused(*ib, x512, bf16), 5)
+        print(f"input_block_fwd {mode} B={B_TRAIN} T={T}: device ms a call by launch "
+              f"(torch.profiler): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+              + f" [{smi}]", flush=True)
+    # kernel 8's float32 mode at the micro-step's shape (two parts of 256)
+    pool_bwd_err32 = hold_at_main_shape(
+        f"pool_head_bwd float32 B={B_TRAIN} T={T} parts=2x{H} K={H} (3xTF32 tensor cores): dh, "
+        f"dW1, db1, dw2, dgamma, dbeta", flat_pool(pool_head_bwd(*pargs32)),
+        flat_pool(pool_head_bwd(*pargs32)), flat_pool(pool_head_bwd_plain(*pargs32)),
+        POOL_BWD_REL_TOL, relative=True)
+    split = device_ms(lambda: pool_head_bwd(*pargs32), 5)
+    print(f"pool_head_bwd float32 B={B_TRAIN} T={T}: device ms a call by launch (torch.profiler): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f" [{smi}]", flush=True)
     # training mode writes z over its gates; the timed calls share one buffer
     # (its z drifts from call to call, which no timing depends on)
     z_buf = gates2.clone()
@@ -990,7 +1035,7 @@ def main() -> int:
         ("input_block_bwd float32", input_block_bwd, input_block_bwd_plain,
          (*ib, x512, dy512, False), 3 * in_flops, "float32"),
         ("pool_head_bwd float32", pool_head_bwd, pool_head_bwd_plain, pargs32, head_flops,
-         "float32"),
+         "tf32x3"),
         ("pool_head_fwd float32", pool_head_fused, pool_head_fused_plain,
          fargs7[:-1] + (False,), head_flops // 3, "float32"))
     for name, kfn, pfn, args, flops, dtype in timed:
@@ -999,8 +1044,10 @@ def main() -> int:
         work[name] = (nbytes(args, kfn(*args)) + extra, flops, dtype)
         m = median_ms({"plain": lambda: pfn(*args), "kernel": lambda: kfn(*args)}, rounds=1)
         train_ms[name] = (m["kernel"], m["plain"])
+        bound_ms, bound_by = bound(*work[name])
         print(f"{name} B={B_TRAIN} T={T} H={H}: kernel {m['kernel']:.3f} ms, "
-              f"plain {m['plain']:.3f} ms [{smi}]", flush=True)
+              f"plain {m['plain']:.3f} ms, bound {bound_ms:.3f} ms by {bound_by} at the "
+              f"{dtype} peak [{smi}]", flush=True)
 
     # phase 14: the kernels of the two other bf16 backward schedules
     gates_err = v2_err = dd_err = 0.0
@@ -1270,6 +1317,12 @@ def main() -> int:
         entry("input_block_fwd", "input_block.cu", "eegflow/nn/pallas_input.py:78",
               train_counts.get("input_block_fwd", 0), in_fwd_err,
               *train_ms["input_block_fwd bf16"], "input_block_fwd bf16"),
+        entry("input_block_fwd float32", "input_block.cu", "eegflow/nn/pallas_input.py:78",
+              f32_counts.get("input_block_fwd", 0), in_fwd_err32,
+              *train_ms["input_block_fwd float32"]),
+        entry("pool_head_bwd float32", "pool_head_bwd.cu", "eegflow/nn/pallas_attention.py:221",
+              f32_counts.get("pool_head_bwd", 0), pool_bwd_err32,
+              *train_ms["pool_head_bwd float32"]),
         entry("input_block_bwd", "input_block.cu", "eegflow/nn/pallas_input.py:117",
               train_counts.get("input_block_bwd", 0), in_bwd_err,
               *train_ms["input_block_bwd bf16"], "input_block_bwd bf16"),

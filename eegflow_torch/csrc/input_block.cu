@@ -21,22 +21,42 @@
 //
 // What bounds it on the card: a row reads 61 floats and writes 256 (the
 // backward reads 61 + 256 and writes 61); the products are 2 x 61 x 256
-// multiply-adds a row each (three in the backward), so at B=512, T=256 the
-// backward moves 198 MB (0.059 ms at 3.35 TB/s) and does 12 GFLOP (0.012 ms
-// at the bf16 tensor-core peak): memory-bound. The LayerNorm needs a
-// reduction across the 256 units of a row.
+// multiply-adds a row each (three in the backward). At B=512, T=256 the
+// forward moves 166 MB (0.050 ms at 3.35 TB/s; y is 80 % of it) and does
+// 4.1 GFLOP (0.061 ms at the float32 CUDA-core peak, 0.004 ms at the bf16
+// tensor-core peak); the backward moves 198 MB (0.059 ms) and does 12 GFLOP.
+// Both are memory-bound except the float32 forward, bound by its products.
+// The LayerNorm needs a reduction across the H units of a row.
 //
-// Forward, and the backward's float32 mode: a CTA of H threads owns kR rows
-// at a time, thread u owns unit u (column u of W), so x . W, the LayerNorm
-// and GELU are per-thread loops over the kR rows with the row staged in
+// Forward (input_block_fwd_kernel): a persistent grid of a fixed number of
+// CTAs of 16 warps (the caller's plan, eegflow_torch/nn/cuda_input.py
+// fwd_plan) walks tiles of kRows rows (64; 32 for H > 256, where a 64-row z
+// tile and W would not fit): tile i of CTA c is i = c, c + grid, .. . W is
+// resident in shared memory once per CTA, and a tile's x rows (one contiguous
+// span) stream in by cp.async one tile ahead, behind the product and the
+// LayerNorm pass. z goes into a float32 tile; then one warp per row forms the
+// statistics with shuffles (no CTA barrier per row), the LayerNorm and GELU,
+// and stores the row with 16-byte streaming stores. The bf16 mode computes z
+// on mma.sync m16n8k16 with C padded to kCP = 64 by zeros (z_pair_mma, the
+// same function as the bf16 backward's recomputed z, so both see the same z
+// and the same statistics, row_stats). The float32 mode keeps the products on
+// CUDA cores (TF32 would be a different function): float32 W in shared
+// memory, each thread a 4-row x 8-unit register tile, each z summed exactly
+// as `project` sums it (fmaf over c ascending from 0, then + b), so the
+// float32 backward recomputes it bit for bit. C > kCP runs the product in
+// channel chunks of kCP, W and x staged per chunk (no row of the classifier
+// takes that path). Rows past B*T read as zero x and store nothing.
+//
+// The backward's float32 mode: a CTA of H threads owns kR rows at a time,
+// thread u owns unit u (column u of W), so x . W, the LayerNorm and GELU's
+// derivative are per-thread loops over the kR rows with the row staged in
 // shared memory; the row sums (the statistics, mean(dxhat), mean(dxhat
 // xhat)) reduce by warp shuffles and then over the warps in a fixed order.
-// The float32 backward stages W in shared memory, padded so dx = dz . W^T
-// reads it without bank conflicts, and forms dx in the kernel. It walks the
-// rows in the caller's grid of at most 256 CTAs, each owning its partial db,
-// dgamma, dbeta; those partial rows, and the split-K partials of dW (from dz
-// written to a float32 scratch, on gemm.cuh's tiled GEMM), are summed in a
-// fixed order.
+// It stages W in shared memory, padded so dx = dz . W^T reads it without bank
+// conflicts, and forms dx in the kernel. It walks the rows in the caller's
+// grid of at most 256 CTAs, each owning its partial db, dgamma, dbeta; those
+// partial rows, and the split-K partials of dW (from dz written to a float32
+// scratch, on gemm.cuh's tiled GEMM), are summed in a fixed order.
 //
 // The backward's bf16 mode (input_block_bwd_bf16_kernel): a persistent grid
 // of a fixed number of CTAs of 16 warps (the caller's), each walking row
@@ -58,6 +78,8 @@
 
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "common.cuh"
 #include "gemm.cuh"
 #include "mma_gemm.cuh"
@@ -71,20 +93,25 @@ __device__ __forceinline__ float maybe_bf16(float v, int bf16) {
   return bf16 ? eegflow::bf16_round(v) : v;
 }
 
-// erf by Abramowitz & Stegun 7.1.26, as eegflow/nn/pallas_input.py _erf
+// erf by Abramowitz & Stegun 7.1.26, as eegflow/nn/pallas_input.py _erf.
+// kFast takes the hardware's approximate reciprocal and exponential, a few
+// float32 ulp apart from the IEEE forms (the formula itself is up to 1.5e-7
+// off erf): the forward's GELU, which bounds its LayerNorm pass, uses it.
+template <bool kFast = false>
 __device__ __forceinline__ float erf_as(float x) {
   const float ax = fabsf(x);
-  const float t = 1.0f / (1.0f + 0.3275911f * ax);
+  const float d = 1.0f + 0.3275911f * ax;
+  const float t = kFast ? __fdividef(1.0f, d) : 1.0f / d;
   const float poly =
       ((((1.061405429f * t - 1.453152027f) * t + 1.421413741f) * t - 0.284496736f) * t +
        0.254829592f) *
       t;
-  const float r = 1.0f - poly * expf(-ax * ax);
+  const float r = 1.0f - poly * (kFast ? __expf(-ax * ax) : expf(-ax * ax));
   return x < 0.f ? -r : r;
 }
 
-__device__ __forceinline__ float gelu(float z) {
-  return 0.5f * z * (1.0f + erf_as(z * 0.7071067811865476f));
+__device__ __forceinline__ float gelu_fast(float z) {
+  return 0.5f * z * (1.0f + erf_as<true>(z * 0.7071067811865476f));
 }
 
 __device__ __forceinline__ float gelu_grad(float z) {
@@ -103,13 +130,10 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ x, float* x
 }
 
 // z[r] = sum_c xs[r][c] w[c][u] + b_u over c ascending; w has leading
-// dimension ldw. The forward and the float32 backward both call this, with
-// the same values of w, so they compute the same z bit for bit. The bf16
-// backward recomputes z on the tensor cores, whose float32 sums run in
-// another order: its z may differ from the forward's in the last bit, which
-// moves gelu'(zl) far less than the backward's tolerance (the reference's
-// bit-identity of the recomputed statistics is a property of its TPU
-// kernels, pallas_input.py _proj_ln, not of the function).
+// dimension ldw. The float32 backward calls this; the float32 forward's
+// register tile (ZTileF32) sums each z in the same order, with the same
+// values of w, so the two compute the same z bit for bit (the reference's
+// bit-identity of the recomputed statistics, pallas_input.py _proj_ln).
 __device__ __forceinline__ void project(const float* xs, const float* w, int ldw, int C,
                                         int u, float bias, int bf16, float (&z)[kR]) {
 #pragma unroll
@@ -160,42 +184,364 @@ __device__ __forceinline__ void ln_stats(float s1, float s2, float inv_h, float 
   rsig = rsqrtf(s2 * inv_h - mu * mu + eps);
 }
 
-__global__ void __launch_bounds__(kMaxH)
+// ---- the bf16 z tile and the row statistics, shared by kernels 9 and 10 ----
+
+constexpr int kCP = 64;  // channels of a product chunk, padded by zeros
+
+// acc[i][j] += bf16(x)[16 kMT rows x kCP] . bf16(W)[kCP x the 16 columns of
+// `pair`], the kCP / 16 k-steps in ascending order: xs and ws bf16 tiles in
+// shared memory, ldx and ldw elements a row. Thread (lane = 4 g + q) gets
+// rows 16 i + g, + 8 and columns 16 pair + 8 j + 2 q, + 1.
+template <int kMT>
+__device__ __forceinline__ void z_pair_mma(float (&acc)[kMT][2][4], const __nv_bfloat16* xs,
+                                           int ldx, const __nv_bfloat16* ws, int ldw, int pair,
+                                           int lane) {
+  using eegflow::smem_addr;
+#pragma unroll
+  for (int kk = 0; kk < kCP / 16; ++kk) {
+    uint32_t r[4];
+    eegflow::ldmatrix_x4_trans(
+        r, smem_addr(ws + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldw + pair * 16 +
+                     (lane >> 4) * 8));
+#pragma unroll
+    for (int i = 0; i < kMT; ++i) {
+      uint32_t af[4];
+      eegflow::ldmatrix_x4(af, smem_addr(xs + (16 * i + (lane & 15)) * ldx + kk * 16 +
+                                         (lane >> 4) * 8));
+      eegflow::mma_bf16(acc[i][0], af, r[0], r[1]);
+      eegflow::mma_bf16(acc[i][1], af, r[2], r[3]);
+    }
+  }
+}
+
+// z = acc + b of z_pair_mma's rows and columns into the float32 tile zs
+template <int kMT>
+__device__ __forceinline__ void z_pair_store(const float (&acc)[kMT][2][4], float* zs, int ldz,
+                                             const float* __restrict__ bias, int pair,
+                                             int lane) {
+  const int gq = lane >> 2, q = lane & 3;
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int col = pair * 16 + 8 * j + 2 * q;
+    const float b0 = bias[col], b1 = bias[col + 1];
+#pragma unroll
+    for (int i = 0; i < kMT; ++i)
+#pragma unroll
+      for (int rh = 0; rh < 2; ++rh)
+        *reinterpret_cast<float2*>(zs + (16 * i + 8 * rh + gq) * ldz + col) =
+            make_float2(acc[i][j][2 * rh] + b0, acc[i][j][2 * rh + 1] + b1);
+  }
+}
+
+// One warp's row of z (hc float4 chunks; lane l takes chunks l + 32 i) into
+// zv, and its LayerNorm statistics, summed over the chunks in order and then
+// by shuffles. Chunks past hc read as 0, so a wider kCh sums the same.
+template <int kCh>
+__device__ __forceinline__ void row_stats(const float* zrow, int hc, int lane, float inv_h,
+                                          float eps, float (&zv)[kCh][4], float& mu,
+                                          float& rsig) {
+  float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+  for (int i = 0; i < kCh; ++i) {
+    const int ch = lane + 32 * i;
+    float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (ch < hc) z4 = *reinterpret_cast<const float4*>(zrow + 4 * ch);
+    zv[i][0] = z4.x, zv[i][1] = z4.y, zv[i][2] = z4.z, zv[i][3] = z4.w;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      s1 += zv[i][e];
+      s2 += zv[i][e] * zv[i][e];
+    }
+  }
+  ln_stats(eegflow::warp_sum(s1), eegflow::warp_sum(s2), inv_h, eps, mu, rsig);
+}
+
+// ---- kernel 9: the forward ----
+
+constexpr int kFThreads = 512;
+constexpr int kFWarps = kFThreads / 32;
+constexpr int kFChunks = kMaxH / 128;  // float4 chunks of a row a lane owns
+
+// bf16 z of a tile: warp w owns the 16-column pairs w + 16 p (p < kNP), all
+// kRows rows; kNP = 64 / kRows, so H <= 256 at 64 rows and H <= 512 at 32.
+template <int kRows>
+struct ZTileBf16 {
+  static constexpr int kMT = kRows / 16;
+  static constexpr int kNP = 64 / kRows;
+  float acc[kNP][kMT][2][4];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int p = 0; p < kNP; ++p)
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[p][i][j][e] = 0.f;
+  }
+  // one chunk of kCP channels: xs [kRows][ldx] and ws [kCP][ldw] bf16
+  __device__ __forceinline__ void accumulate(const __nv_bfloat16* xs, int ldx,
+                                             const __nv_bfloat16* ws, int ldw, int H, int warp,
+                                             int lane) {
+#pragma unroll
+    for (int p = 0; p < kNP; ++p) {
+      const int pair = warp + kFWarps * p;
+      if (pair < H / 16) z_pair_mma<kMT>(acc[p], xs, ldx, ws, ldw, pair, lane);
+    }
+  }
+  __device__ __forceinline__ void store(float* zs, int ldz, const float* __restrict__ bias,
+                                        int H, int warp, int lane) const {
+#pragma unroll
+    for (int p = 0; p < kNP; ++p) {
+      const int pair = warp + kFWarps * p;
+      if (pair < H / 16) z_pair_store<kMT>(acc[p], zs, ldz, bias, pair, lane);
+    }
+  }
+};
+
+// float32 z of a tile on CUDA cores: warp tiles of 16 rows x 64 units (at
+// most kFWarps of them: kRows / 16 x Hp / 64, Hp = H rounded up to 64), warp
+// w owning tile w; lane (lr = lane / 8, lu = lane % 8) the rows 4 lr .. + 3
+// of it and the units 4 lu + 32 j + e (j < 2, e < 4). x is staged transposed,
+// xt [c][ldx], W as ws [c][Hp] float32 (columns past H zero).
+template <int kRows>
+struct ZTileF32 {
+  static constexpr int kWR = kRows / 16;  // warp tiles down a tile
+  float acc[4][8];
+  float bv[8];  // b of the thread's units (0 past H)
+  int r0, u0;   // the thread's first row and unit
+  bool active;
+
+  __device__ __forceinline__ void init(const float* __restrict__ bias, int H, int warp,
+                                       int lane) {
+    const int Hp = (H + 63) / 64 * 64;
+    active = warp < kWR * (Hp / 64);
+    r0 = 16 * (warp % kWR) + 4 * (lane >> 3);
+    u0 = 64 * (warp / kWR) + 4 * (lane & 7);
+#pragma unroll
+    for (int j = 0; j < 2; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int u = u0 + 32 * j + e;
+        bv[4 * j + e] = active && u < H ? bias[u] : 0.f;
+      }
+  }
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int n = 0; n < 8; ++n) acc[r][n] = 0.f;
+  }
+  // channels c0 + c, c < cn, in ascending order: z = fmaf(x, w, z)
+  __device__ __forceinline__ void accumulate(const float* xt, int ldx, const float* ws, int Hp,
+                                             int cn) {
+    if (!active) return;
+    const float* xp = xt + r0;
+    const float* wp = ws + u0;
+#pragma unroll 4
+    for (int c = 0; c < cn; ++c) {
+      const float4 xv = *reinterpret_cast<const float4*>(xp + c * ldx);
+      const float4 w0 = *reinterpret_cast<const float4*>(wp + c * Hp);
+      const float4 w1 = *reinterpret_cast<const float4*>(wp + c * Hp + 32);
+      const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
+      const float wn[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+#pragma unroll
+        for (int n = 0; n < 8; ++n) acc[r][n] = fmaf(xr[r], wn[n], acc[r][n]);
+    }
+  }
+  __device__ __forceinline__ void store(float* zs, int ldz) const {
+    if (!active) return;
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        *reinterpret_cast<float4*>(zs + (r0 + r) * ldz + u0 + 32 * j) =
+            make_float4(acc[r][4 * j] + bv[4 * j], acc[r][4 * j + 1] + bv[4 * j + 1],
+                        acc[r][4 * j + 2] + bv[4 * j + 2], acc[r][4 * j + 3] + bv[4 * j + 3]);
+  }
+};
+
+// gelu(LN(z)) of four consecutive units
+__device__ __forceinline__ float4 ln_gelu4(const float (&z)[4], float mu, float rsig,
+                                           float4 g, float4 b) {
+  const float gv[4] = {g.x, g.y, g.z, g.w}, bv[4] = {b.x, b.y, b.z, b.w};
+  float o[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float xhat = (z[e] - mu) * rsig;
+    o[e] = gelu_fast(xhat * gv[e] + bv[e]);
+  }
+  return make_float4(o[0], o[1], o[2], o[3]);
+}
+
+// Kernel 9 on tiles of kRows rows, kFThreads threads a CTA; x (rows, C) and
+// y (rows, H) 16-byte aligned, w (C, H), bias, gamma, beta (H,) float32.
+// Shared memory (fwd_smem_bytes): z [kRows][ldz] f32, the tile's raw x
+// [kRows * min(C, kCP)] f32, W [kCP][ldw] (bf16, or f32 with ldw = Hp), and
+// the product's x (bf16 [kRows][kCP + 8], or f32 transposed [kCP][kRows + 4]).
+template <int kRows, bool kBf16>
+__global__ void __launch_bounds__(kFThreads, 1)
 input_block_fwd_kernel(const float* __restrict__ x, const float* __restrict__ w,
                        const float* __restrict__ bias, const float* __restrict__ gamma,
                        const float* __restrict__ beta, float* __restrict__ y, int rows, int C,
-                       int bf16, float eps) {
-  extern __shared__ float4 smem4[];
-  float* const xs = reinterpret_cast<float*>(smem4);  // [kR][C]
-  float* const red = xs + kR * C;                     // [warps][kR][2]
-  const int u = threadIdx.x;  // blockDim.x == H
-  const int H = blockDim.x;
-  const int row0 = blockIdx.x * kR;
+                       int H, float eps) {
+  using eegflow::smem_addr;
+  using Bf = __nv_bfloat16;
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int Hp = (H + 63) / 64 * 64;
+  const int ldz = (kBf16 ? H : Hp) + 8;
+  const int ldw = kBf16 ? H + 8 : Hp;
+  const int ldx = kBf16 ? kCP + 8 : kRows + 4;
+  float* const zs = reinterpret_cast<float*>(smem);
+  float* const xraw = zs + kRows * ldz;
+  uint8_t* const wbase = reinterpret_cast<uint8_t*>(xraw + kRows * kCP);
+  uint8_t* const xbase = wbase + static_cast<size_t>(kCP) * ldw * (kBf16 ? 2 : 4);
+  Bf* const wsb = reinterpret_cast<Bf*>(wbase);
+  float* const wsf = reinterpret_cast<float*>(wbase);
+  Bf* const xsb = reinterpret_cast<Bf*>(xbase);
+  float* const xtf = reinterpret_cast<float*>(xbase);
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int tiles = (rows + kRows - 1) / kRows;
+  const int nch = (C + kCP - 1) / kCP;
+  const int hc = H / 4;
   const float inv_h = 1.0f / static_cast<float>(H);
 
-  stage_rows(x, xs, row0, rows, C, bf16);
-  __syncthreads();
-  float z[kR], s1[kR], s2[kR];
-  project(xs, w, H, C, u, bias[u], bf16, z);
+  // W's channels c0 .. c0 + kCP into ws: bf16 rows past C zero; float32
+  // columns past H zero
+  auto stage_w = [&](int c0) {
+    const int cn = min(kCP, C - c0);
+    if constexpr (kBf16) {
+      for (int i = tid; i < kCP * H; i += kFThreads) {
+        const int c = i / H, u = i - c * H;
+        wsb[c * ldw + u] = __float2bfloat16_rn(
+            c < cn ? w[static_cast<size_t>(c0 + c) * H + u] : 0.f);
+      }
+    } else {
+      for (int i = tid; i < cn * Hp; i += kFThreads) {
+        const int c = i / Hp, u = i - c * Hp;
+        wsf[i] = u < H ? w[static_cast<size_t>(c0 + c) * H + u] : 0.f;
+      }
+    }
+  };
+  // x[r][c] (c < cn) of the tile into the product's tile, from `src` with
+  // row stride lds; the bf16 tile's columns cn .. kCP - 1 zero
+  auto stage_x = [&](const float* src, int lds, int cn, int avail) {
+    if constexpr (kBf16) {
+      for (int i = tid; i < kRows * kCP; i += kFThreads) {
+        const int r = i / kCP, c = i - r * kCP;
+        xsb[r * ldx + c] = __float2bfloat16_rn(c < cn && r < avail ? src[r * lds + c] : 0.f);
+      }
+    } else {
+      for (int i = tid; i < kRows * cn; i += kFThreads) {
+        const int c = i / kRows, r = i - c * kRows;
+        xtf[c * ldx + r] = r < avail ? src[r * lds + c] : 0.f;
+      }
+    }
+  };
+  // C <= kCP: the tile's x rows (one contiguous span, 16-byte aligned) into
+  // xraw by cp.async, rows past `rows` zero-filled
+  auto fetch = [&](int tile) {
+    const int row0 = tile * kRows;
+    const int nx = min(kRows, rows - row0) * C;
+    const float* const xtile = x + static_cast<size_t>(row0) * C;
+    for (int c = tid; c < kRows * C / 4; c += kFThreads) {
+      const int n = min(4, max(0, nx - 4 * c));
+      eegflow::cp_async16_part(smem_addr(xraw + 4 * c), n > 0 ? xtile + 4 * c : x, 4 * n);
+    }
+    eegflow::cp_async_commit();
+  };
+
+  // gamma and beta of the lane's columns 4 (lane + 32 i) .. + 3
+  float4 gam[kFChunks], bet[kFChunks];
 #pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    s1[r] = z[r];
-    s2[r] = z[r] * z[r];
+  for (int i = 0; i < kFChunks; ++i) {
+    const int u = 4 * (lane + 32 * i);
+    gam[i] = u < H ? make_float4(gamma[u], gamma[u + 1], gamma[u + 2], gamma[u + 3])
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
+    bet[i] = u < H ? make_float4(beta[u], beta[u + 1], beta[u + 2], beta[u + 3])
+                   : make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  row_sums(s1, s2, red);
-  const float gu = gamma[u], bu = beta[u];
+  using ZTile = typename std::conditional<kBf16, ZTileBf16<kRows>, ZTileF32<kRows>>::type;
+  ZTile zt;
+  if constexpr (!kBf16) zt.init(bias, H, warp, lane);
+  if (nch == 1) {  // W resident for the CTA's tiles
+    if (static_cast<int>(blockIdx.x) < tiles) fetch(blockIdx.x);
+    stage_w(0);
+  }
+
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    const int row0 = tile * kRows;
+    const int avail = min(kRows, rows - row0);
+    zt.zero();
+    for (int ch = 0; ch < nch; ++ch) {
+      const int cn = min(kCP, C - ch * kCP);
+      if (nch == 1) {
+        eegflow::cp_async_wait<0>();
+        __syncthreads();  // the tile's x landed; the last tile's rows are done with zs
+        stage_x(xraw, C, cn, kRows);
+        __syncthreads();  // xraw is free again
+        if (tile + static_cast<int>(gridDim.x) < tiles) fetch(tile + gridDim.x);
+      } else {
+        __syncthreads();  // no thread reads ws or the x tile any more
+        stage_w(ch * kCP);
+        stage_x(x + static_cast<size_t>(row0) * C + ch * kCP, C, cn, avail);
+        __syncthreads();
+      }
+      if constexpr (kBf16)
+        zt.accumulate(xsb, ldx, wsb, ldw, H, warp, lane);
+      else
+        zt.accumulate(xtf, ldx, wsf, Hp, cn);
+    }
+    if constexpr (kBf16)
+      zt.store(zs, ldz, bias, H, warp, lane);
+    else
+      zt.store(zs, ldz);
+    __syncthreads();  // z whole
+
+    // one warp per row: the statistics, the LayerNorm and GELU, y stored
+    for (int r = warp; r < avail; r += kFWarps) {
+      float zv[kFChunks][4], mu, rsig;
+      row_stats<kFChunks>(zs + r * ldz, hc, lane, inv_h, eps, zv, mu, rsig);
+      float* const yr = y + static_cast<size_t>(row0 + r) * H;
 #pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    float mu, rsig;
-    ln_stats(s1[r], s2[r], inv_h, eps, mu, rsig);
-    const float zl = (z[r] - mu) * rsig * gu + bu;
-    if (row0 + r < rows) y[static_cast<size_t>(row0 + r) * H + u] = gelu(zl);
+      for (int i = 0; i < kFChunks; ++i) {
+        const int ch = lane + 32 * i;
+        if (ch >= hc) continue;
+        const float4 o = ln_gelu4(zv[i], mu, rsig, gam[i], bet[i]);
+        __stcs(reinterpret_cast<float4*>(yr + 4 * ch), o);
+      }
+    }
   }
+}
+
+template <int kRows, bool kBf16>
+size_t fwd_smem_bytes(int C, int H) {
+  const size_t Hp = (H + 63) / 64 * 64;
+  const size_t ldz = (kBf16 ? H : Hp) + 8;
+  const size_t w_bytes = kBf16 ? kCP * (H + 8) * 2 : kCP * Hp * 4;
+  const size_t x_bytes = kBf16 ? kRows * (kCP + 8) * 2 : kCP * (kRows + 4) * 4;
+  return (kRows * ldz + kRows * kCP) * sizeof(float) + w_bytes + x_bytes;
+}
+
+template <int kRows, bool kBf16>
+cudaError_t launch_fwd(const float* x, const float* w, const float* bias, const float* gamma,
+                       const float* beta, float* y, int ctas, int rows, int C, int H,
+                       cudaStream_t stream) {
+  const size_t smem = fwd_smem_bytes<kRows, kBf16>(C, H);
+  cudaError_t err = eegflow::allow_dynamic_smem(input_block_fwd_kernel<kRows, kBf16>, smem);
+  if (err != cudaSuccess) return err;
+  input_block_fwd_kernel<kRows, kBf16><<<ctas, kFThreads, smem, stream>>>(
+      x, w, bias, gamma, beta, y, rows, C, H, 1e-5f);
+  return cudaGetLastError();
 }
 
 // The backward's float32 mode, launched with bf16 = 0: its bf16 branches are
 // dead (the bf16 mode has its own kernel below) and stay, as in
-// pool_head_fwd.cu and pool_head_bwd.cu.
+// pool_head_fwd.cu.
 __global__ void __launch_bounds__(kMaxH)
 input_block_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
                        const float* __restrict__ w, const float* __restrict__ bias,
@@ -279,7 +625,6 @@ input_block_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy
 constexpr int kTile = 64;
 constexpr int kBThreads = 512;
 constexpr int kBWarps = kBThreads / 32;
-constexpr int kCP = 64;
 constexpr int kMaxHB = 256;          // a warp owns one 16-column pair of z
 constexpr int kChunks = kMaxHB / 128;  // float4 chunks of a row a lane owns
 
@@ -377,32 +722,8 @@ input_block_bwd_bf16_kernel(const float* __restrict__ x, const float* __restrict
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kCP / 16; ++kk) {
-        uint32_t r[4];
-        eegflow::ldmatrix_x4_trans(
-            r, smem_addr(ws + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldw + warp * 16 +
-                         (lane >> 4) * 8));
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          uint32_t af[4];
-          eegflow::ldmatrix_x4(af, smem_addr(xs + (16 * i + (lane & 15)) * ldx + kk * 16 +
-                                             (lane >> 4) * 8));
-          eegflow::mma_bf16(acc[i][0], af, r[0], r[1]);
-          eegflow::mma_bf16(acc[i][1], af, r[2], r[3]);
-        }
-      }
-#pragma unroll
-      for (int j = 0; j < 2; ++j) {
-        const int col = warp * 16 + 8 * j + 2 * q;
-        const float b0 = bias[col], b1 = bias[col + 1];
-#pragma unroll
-        for (int i = 0; i < 4; ++i)
-#pragma unroll
-          for (int rh = 0; rh < 2; ++rh)
-            *reinterpret_cast<float2*>(zs + (16 * i + 8 * rh + gq) * ldz + col) =
-                make_float2(acc[i][j][2 * rh] + b0, acc[i][j][2 * rh + 1] + b1);
-      }
+      z_pair_mma<4>(acc, xs, ldx, ws, ldw, warp, lane);
+      z_pair_store<4>(acc, zs, ldz, bias, warp, lane);
     }
     __syncthreads();  // z whole
 
@@ -410,26 +731,15 @@ input_block_bwd_bf16_kernel(const float* __restrict__ x, const float* __restrict
     // dzs. Rows past `rows` have dy = 0 (zero-filled), so their dz and sums
     // are 0.
     for (int r = warp; r < kTile; r += kBWarps) {
-      float zv[kChunks][4], dv[kChunks][4];
-      float s1 = 0.f, s2 = 0.f;
+      float zv[kChunks][4], dv[kChunks][4], mu, rsig;
+      row_stats<kChunks>(zs + r * ldz, hc, lane, inv_h, eps, zv, mu, rsig);
 #pragma unroll
       for (int i = 0; i < kChunks; ++i) {
         const int ch = lane + 32 * i;
-        float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f), d4 = z4;
-        if (ch < hc) {
-          z4 = *reinterpret_cast<const float4*>(zs + r * ldz + 4 * ch);
-          d4 = *reinterpret_cast<const float4*>(dys + r * H + 4 * ch);
-        }
-        zv[i][0] = z4.x, zv[i][1] = z4.y, zv[i][2] = z4.z, zv[i][3] = z4.w;
+        float4 d4 = make_float4(0.f, 0.f, 0.f, 0.f);
+        if (ch < hc) d4 = *reinterpret_cast<const float4*>(dys + r * H + 4 * ch);
         dv[i][0] = d4.x, dv[i][1] = d4.y, dv[i][2] = d4.z, dv[i][3] = d4.w;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          s1 += zv[i][e];
-          s2 += zv[i][e] * zv[i][e];
-        }
       }
-      float mu, rsig;
-      ln_stats(eegflow::warp_sum(s1), eegflow::warp_sum(s2), inv_h, eps, mu, rsig);
       float m1 = 0.f, m2 = 0.f;
 #pragma unroll
       for (int i = 0; i < kChunks; ++i) {
@@ -602,18 +912,26 @@ struct DzRowsB {  // B(k = row, n = unit) = dz_scr[k][n]
 }  // namespace input_block_ops
 
 // Forward. x (rows, C), w (C, H), bias, gamma, beta (H,) float32 -> y (rows,
-// H) float32.
+// H) float32, on `ctas` CTAs walking tiles of tile_rows rows (the caller's
+// plan, eegflow_torch/nn/cuda_input.py fwd_plan: 64, or 32 for H > 256); x
+// and y 16-byte aligned.
 extern "C" int eegflow_input_block_fwd(const float* x, const float* w, const float* bias,
                                        const float* gamma, const float* beta, float* y,
-                                       int rows, int C, int H, int bf16,
-                                       cudaStream_t stream) {
-  if (bad_shape(rows, C, H)) return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = (static_cast<size_t>(kR) * C + kMaxH / 32 * kR * 2) * sizeof(float);
-  cudaError_t err = eegflow::allow_dynamic_smem(input_block_fwd_kernel, smem);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  input_block_fwd_kernel<<<(rows + kR - 1) / kR, H, smem, stream>>>(x, w, bias, gamma, beta, y,
-                                                                    rows, C, bf16, 1e-5f);
-  return static_cast<int>(cudaGetLastError());
+                                       int ctas, int tile_rows, int rows, int C, int H,
+                                       int bf16, cudaStream_t stream) {
+  // a 64-row tile's warps cover H <= 256 (ZTileBf16, ZTileF32)
+  if (bad_shape(rows, C, H) || ctas <= 0 || (tile_rows != 32 && tile_rows != 64) ||
+      (tile_rows == 64 && H > 256) ||
+      reinterpret_cast<uintptr_t>(x) % 16 != 0 || reinterpret_cast<uintptr_t>(y) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err;
+  if (tile_rows == 64)
+    err = bf16 ? launch_fwd<64, true>(x, w, bias, gamma, beta, y, ctas, rows, C, H, stream)
+               : launch_fwd<64, false>(x, w, bias, gamma, beta, y, ctas, rows, C, H, stream);
+  else
+    err = bf16 ? launch_fwd<32, true>(x, w, bias, gamma, beta, y, ctas, rows, C, H, stream)
+               : launch_fwd<32, false>(x, w, bias, gamma, beta, y, ctas, rows, C, H, stream);
+  return static_cast<int>(err);
 }
 
 // Backward. x (rows, C), dy (rows, H), w (C, H), bias, gamma, beta (H,)

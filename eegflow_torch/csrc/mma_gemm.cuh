@@ -2,7 +2,8 @@
 // input projection, kernel 3's and 4's dx and weight gradients), the
 // mma.sync / ldmatrix / cp.async primitives the recurrent kernels share, and
 // tile_mma, the pool-head kernels' product of a resident tile against a
-// streamed operand.
+// streamed operand; and their float32 counterparts in 3xTF32 for the
+// float32 pool-head backward (tile_mma_tf32x3, tf32x3_gemm_split_k).
 //
 //   C[m][n] = sum over the K segments s of sum_k A_s(m, k) B_s(k, n)
 //
@@ -28,6 +29,13 @@
 // adds in order of the split: no float atomics, so a result repeats bit for
 // bit. wgmma and TMA are later work: mma.sync at half the card's bf16 rate
 // already takes these products well below the serial chains.
+//
+// 3xTF32: a float32 operand a splits into hi = tf32(a) and lo = tf32(a - hi)
+// (cvt.rna, round to nearest); a . b is then hi_a hi_b + hi_a lo_b +
+// lo_a hi_b on mma.sync m16n8k8 with float32 accumulators: each product good
+// to about 2^-21 relative (the dropped lo_a lo_b and lo's own rounding),
+// against float32's 2^-24, where a single TF32 product keeps 2^-11. It costs
+// three tensor-core products for one.
 #pragma once
 
 #include <stdint.h>
@@ -178,6 +186,261 @@ __device__ __forceinline__ void tile_mma(float (&acc)[kMT][2 * kNP][4], const __
     }
   }
   cp_async_wait<0>();
+}
+
+// ---- 3xTF32 -------------------------------------------------------------------
+
+// v rounded to TF32 (nearest, ties away from zero), as a b32 operand: the
+// bits of cvt.rna.tf32.f32 for every finite v, in two integer operations
+// (the low 13 of the magnitude's bits rounded off; a carry moves into the
+// exponent as rounding up should) instead of a conversion
+__device__ __forceinline__ uint32_t tf32_rna(float v) {
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
+}
+
+// v = hi + lo to about 2^-22 relative: hi = tf32(v), lo = tf32(v - hi)
+__device__ __forceinline__ void tf32_split(float v, uint32_t& hi, uint32_t& lo) {
+  hi = tf32_rna(v);
+  lo = tf32_rna(v - __uint_as_float(hi));
+}
+
+// d += a . b for one 16 x 8 x 8 tile, TF32 operands, float32 accumulators
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// An A fragment (m16 x k8, row-major) of float32 values split for 3xTF32
+struct Tf32A {
+  uint32_t hi[4], lo[4];
+  __device__ __forceinline__ void split(const uint32_t (&r)[4]) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) tf32_split(__uint_as_float(r[e]), hi[e], lo[e]);
+  }
+};
+
+// acc[m-tile][n-tile][4] += A . B in 3xTF32 for this warp's 16-column pairs
+// (pair = warp + kWarps p, p < kNP, pair < N / 16) in a CTA of kWarps warps:
+// A a float32 tile of 16 kMT rows (lda floats apart, lda % 32 == 4) in shared
+// memory holding the whole depth; B given as its transpose BTg (N rows of
+// `depth` float32 in global memory) and streamed through a ring of kStages
+// kSlice-deep slices by cp.async, each stage [N][kSlice + 4]. depth is a
+// multiple of kSlice, N of 16, both pointers 16-byte aligned. ldmatrix reads
+// the 32-bit elements as pairs of b16: each 8 x 8 b16 matrix is 8 rows of 4
+// floats, which is the m16n8k8 TF32 fragment layout for A (row-major) and for
+// B's transpose. Thread (warp, lane = 4 g + q) gets rows 16 i + g, + 8 and
+// columns 16 pair + 8 (n % 2) + 2 q, + 1 of m-tile i, n-tile n. Per k-step
+// the three products go in passes (lo . hi, hi . lo, then hi . hi) over all
+// the warp's tiles, so no two consecutive ones share an accumulator. The
+// caller makes sure no thread still reads the ring.
+template <int kMT, int kNP, int kSlice, int kStages, int kWarps>
+__device__ __forceinline__ void tile_mma_tf32x3(float (&acc)[kMT][2 * kNP][4], const float* As,
+                                                int lda, const float* __restrict__ BTg,
+                                                int depth, int N, float* ring,
+                                                int stage_elems) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int ldb = kSlice + 4;
+  constexpr int kRowChunks = kSlice / 4;  // 16-byte chunks of a slice row
+  const int slices = depth / kSlice;
+  auto issue = [&](int i) {
+    float* st = ring + (i % kStages) * stage_elems;
+    for (int c = tid; c < N * kRowChunks; c += 32 * kWarps) {
+      const int r = c / kRowChunks, col = (c - r * kRowChunks) * 4;
+      cp_async16(smem_addr(st + r * ldb + col),
+                 BTg + static_cast<size_t>(r) * depth + i * kSlice + col, true);
+    }
+  };
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < slices) issue(i);
+    cp_async_commit();
+  }
+  for (int it = 0; it < slices; ++it) {
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // slice it has landed; slice it - 1's stage is free again
+    if (it + kStages - 1 < slices) issue(it + kStages - 1);
+    cp_async_commit();
+    const float* bs = ring + (it % kStages) * stage_elems;
+#pragma unroll
+    for (int kk = 0; kk < kSlice / 8; ++kk) {
+      Tf32A a[kMT];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i) {
+        uint32_t r[4];
+        ldmatrix_x4(r, smem_addr(As + (16 * i + (lane & 7) + ((lane >> 3) & 1) * 8) * lda +
+                                 it * kSlice + kk * 8 + (lane >> 4) * 4));
+        a[i].split(r);
+      }
+#pragma unroll
+      for (int p = 0; p < kNP; ++p) {
+        const int pair = warp + kWarps * p;
+        if (pair >= N / 16) continue;
+        uint32_t r[4], bh[4], bl[4];
+        ldmatrix_x4(r, smem_addr(bs + (pair * 16 + (lane & 7) + ((lane >> 4) << 3)) * ldb +
+                                 kk * 8 + ((lane >> 3) & 1) * 4));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tf32_split(__uint_as_float(r[e]), bh[e], bl[e]);
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) {
+          mma_tf32(acc[i][2 * p], a[i].lo, bh[0], bh[1]);
+          mma_tf32(acc[i][2 * p + 1], a[i].lo, bh[2], bh[3]);
+        }
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) {
+          mma_tf32(acc[i][2 * p], a[i].hi, bl[0], bl[1]);
+          mma_tf32(acc[i][2 * p + 1], a[i].hi, bl[2], bl[3]);
+        }
+#pragma unroll
+        for (int i = 0; i < kMT; ++i) {
+          mma_tf32(acc[i][2 * p], a[i].hi, bh[0], bh[1]);
+          mma_tf32(acc[i][2 * p + 1], a[i].hi, bh[2], bh[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// The split-K GEMM in 3xTF32 over float32 rows: part[split] (M, N) = the
+// split's sum over k of A[k][m] B[k][n], A (K, M) and B (K, N) row-major
+// (M and N multiples of 4, both 16-byte aligned). 128 x 128 tiles of C per
+// CTA, 16-deep slices of k in a ring of 4 stages by cp.async, 8 warps of
+// 64 x 32; the fragments are read from the k-major tiles with scalar loads
+// (conflict-free at a row stride of 8 mod 32 floats) and split as they load.
+// The kernel and its launcher are templates, so only a file that launches
+// them compiles them.
+constexpr int kT3BM = 128;
+constexpr int kT3BN = 128;
+constexpr int kT3BK = 16;
+constexpr int kT3Stages = 4;
+constexpr int kT3Threads = 256;
+constexpr int kT3Lda = kT3BM + 8;
+constexpr int kT3Ldb = kT3BN + 8;
+
+template <int kBK>
+__global__ void __launch_bounds__(kT3Threads, 2)
+tf32x3_gemm_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                   float* __restrict__ part, int M, int N, int K, int tiles_per_split) {
+  extern __shared__ __align__(16) uint8_t t3_smem[];
+  float* const As = reinterpret_cast<float*>(t3_smem);  // [stages][BK][BM + 8]
+  float* const Bs = As + kT3Stages * kBK * kT3Lda;     // [stages][BK][BN + 8]
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, q = lane & 3;
+  const int wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
+  const int m0 = blockIdx.y * kT3BM, n0 = blockIdx.x * kT3BN;
+  const int tiles = (K + kBK - 1) / kBK;
+  const int t_begin = blockIdx.z * tiles_per_split;
+  const int n_tiles = min(tiles, t_begin + tiles_per_split) - t_begin;
+
+  auto issue = [&](int i) {
+    const int k0 = (t_begin + i) * kBK;
+    float* const as = As + (i % kT3Stages) * kBK * kT3Lda;
+    float* const bs = Bs + (i % kT3Stages) * kBK * kT3Ldb;
+#pragma unroll
+    for (int j = 0; j < kBK * kT3BM / 4 / kT3Threads; ++j) {
+      const int c = tid + j * kT3Threads;
+      const int r = c / (kT3BM / 4), col = (c % (kT3BM / 4)) * 4;
+      const bool valid = k0 + r < K && m0 + col < M;
+      cp_async16(smem_addr(as + r * kT3Lda + col),
+                 valid ? A + static_cast<size_t>(k0 + r) * M + m0 + col : A, valid);
+    }
+#pragma unroll
+    for (int j = 0; j < kBK * kT3BN / 4 / kT3Threads; ++j) {
+      const int c = tid + j * kT3Threads;
+      const int r = c / (kT3BN / 4), col = (c % (kT3BN / 4)) * 4;
+      const bool valid = k0 + r < K && n0 + col < N;
+      cp_async16(smem_addr(bs + r * kT3Ldb + col),
+                 valid ? B + static_cast<size_t>(k0 + r) * N + n0 + col : B, valid);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int i = 0; i < kT3Stages - 1; ++i) {
+    if (i < n_tiles) issue(i);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < n_tiles; ++kt) {
+    cp_async_wait<kT3Stages - 2>();
+    __syncthreads();  // tile kt has landed; tile kt - 1's stage is free again
+    if (kt + kT3Stages - 1 < n_tiles) issue(kt + kT3Stages - 1);
+    cp_async_commit();
+    const float* const as = As + (kt % kT3Stages) * kBK * kT3Lda;
+    const float* const bs = Bs + (kt % kT3Stages) * kBK * kT3Ldb;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 8; ++kk) {
+      const float* const ak = as + (kk * 8 + q) * kT3Lda + wm * 64 + g;
+      const float* const bk = bs + (kk * 8 + q) * kT3Ldb + wn * 32 + g;
+      Tf32A a[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const uint32_t r[4] = {__float_as_uint(ak[16 * i]), __float_as_uint(ak[16 * i + 8]),
+                               __float_as_uint(ak[4 * kT3Lda + 16 * i]),
+                               __float_as_uint(ak[4 * kT3Lda + 16 * i + 8])};
+        a[i].split(r);
+      }
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        uint32_t bh[2], bl[2];
+        tf32_split(bk[8 * j], bh[0], bl[0]);
+        tf32_split(bk[4 * kT3Ldb + 8 * j], bh[1], bl[1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma_tf32(acc[i][j], a[i].lo, bh[0], bh[1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma_tf32(acc[i][j], a[i].hi, bl[0], bl[1]);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma_tf32(acc[i][j], a[i].hi, bh[0], bh[1]);
+      }
+    }
+  }
+
+  float* const out = part + static_cast<size_t>(blockIdx.z) * M * N;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int m = m0 + wm * 64 + 16 * i + g;
+      const int n = n0 + wn * 32 + 8 * j + 2 * q;
+      if (n >= N) continue;
+      if (m < M)
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(m) * N + n) =
+            make_float2(acc[i][j][0], acc[i][j][1]);
+      if (m + 8 < M)
+        *reinterpret_cast<float2*>(out + static_cast<size_t>(m + 8) * N + n) =
+            make_float2(acc[i][j][2], acc[i][j][3]);
+    }
+}
+
+// out (M, N) = A^T B over the K rows of A (K, M) and B (K, N), float32 in
+// 3xTF32, in `splits` slices of whole 16-row tiles whose partial sums are
+// then added in order of the slice. part holds splits * M * N floats.
+template <int kBK = kT3BK>
+cudaError_t tf32x3_gemm_split_k(const float* A, const float* B, float* out, float* part, int M,
+                                int N, int K, int splits, cudaStream_t stream) {
+  const int tiles = (K + kBK - 1) / kBK;
+  const int per = (tiles + splits - 1) / splits;
+  constexpr size_t smem = kT3Stages * kBK * (kT3Lda + kT3Ldb) * sizeof(float);
+  cudaError_t err = allow_dynamic_smem(tf32x3_gemm_kernel<kBK>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + kT3BN - 1) / kT3BN, (M + kT3BM - 1) / kT3BM, splits);
+  tf32x3_gemm_kernel<kBK><<<grid, kT3Threads, smem, stream>>>(A, B, part, M, N, K, per);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  const size_t count = static_cast<size_t>(M) * N;
+  reduce_splits_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, stream>>>(
+      part, out, splits, count);
+  return cudaGetLastError();
 }
 
 // ---- the GEMM ----------------------------------------------------------------

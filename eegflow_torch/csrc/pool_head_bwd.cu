@@ -23,260 +23,58 @@
 //
 // What bounds it on the card: three products of 2 B T D K operations (the
 // recomputed projection, dy and dW1: 34 GFLOP each at B = 512, T = 256,
-// D = 512, K = 256), 0.10 ms together at the bf16 tensor-core peak, below
-// the bytes: x read and dh written once (0.54 GB, 0.16 ms). The float32
-// mode's products cannot use the tensor cores (TF32 is off).
+// D = 512, K = 256). In bf16 they take 0.10 ms together at the tensor-core
+// peak, below the bytes: x read and dh written once (0.54 GB, 0.16 ms). In
+// float32 they take 1.54 ms at the CUDA-core peak (TF32 is off), and 0.62 ms
+// as three TF32 products each at the TF32 peak (3xTF32, below).
 //
-// bf16 mode. One CTA per batch row walks time in tiles of kM = 64 (b, t)
-// rows. Per tile: one warp per row computes the LayerNorm statistics and y
-// (float32) with shuffles, keeps bf16(y) as a K-major tile in shared memory
-// (and writes it to bf16 scratch for dW1), and ds. The two products run on
-// mma.sync m16n8k16 with bf16 operands and float32 accumulators, in
-// registers: proj = bf16(y)[kM x D] . bf16(W1)[D x K], then, after the
-// epilogue forms u (bf16(u) into a second tile and the bf16 scratch),
-// dy = bf16(u)[kM x K] . bf16(W1)^T[K x D]. W1 and W1^T, rounded to bf16
-// once per launch by the wrapper, stream through a ring of three 32-deep
-// slices in shared memory with cp.async (mma_gemm.cuh's tile_mma); each warp
-// owns every row of the tile and 16-column pairs of the output, so the
-// product of two bf16 values is exact and the sums are float32, as the
-// reference's preferred_element_type=float32; only the order of summation
-// differs. dy goes as float32 to shared memory, over the tiles and the
-// ring, which the dy product no longer reads; then each warp, two rows at a
-// time, forms dh (the LayerNorm backward, xhat recomputed from x) as the
+// Both modes share one structure. One CTA per batch row walks time in tiles
+// of kM (b, t) rows. Per tile: one warp per row computes the LayerNorm
+// statistics and y (float32) with shuffles, keeps y as a K-major tile in
+// shared memory (and writes it to scratch for dW1), and ds. The two products
+// run on the tensor cores in registers: proj = y[kM x D] . W1[D x K], then,
+// after the epilogue forms u (into a second tile and the scratch), dy =
+// u[kM x K] . W1^T[K x D]. W1 and W1^T stream through a ring of slices in
+// shared memory with cp.async; each warp owns every row of the tile and
+// 16-column pairs of the output. dy goes as float32 to shared memory, over
+// the tiles and the ring, which the dy product no longer reads; then each
+// warp forms dh (the LayerNorm backward, xhat recomputed from x) as the
 // forward's LayerNorm pass does, and each lane sums dgamma and dbeta of its
 // columns over its warp's rows, added over the warps in order at the end.
 // db1 and dw2: per-column sums over a tile's rows reduced across lanes in a
 // fixed order, added by the column's one owner thread into the CTA's
-// partial row. dW1 = bf16(y)^T . bf16(u) over all B T rows runs on mma_gemm.cuh's
-// tensor-core split-K from the bf16 scratch. Every partial set is summed in
-// a fixed order: no atomics, so the result repeats bit for bit.
+// partial row. dW1 = y^T . u over all B T rows runs on a split-K GEMM from
+// the scratch. Every partial set is summed in a fixed order: no atomics, so
+// the result repeats bit for bit.
 //
-// float32 mode: one CTA per batch row walks time in chunks of kT steps staged
-// in shared memory, one warp per step for the LayerNorm statistics and the
-// row dots, each thread owning columns k of W1 for the projection and
-// features d for dy on CUDA-core FMA; y and u go to float32 scratch from
-// which gemm.cuh's tiled split-K forms dW1.
+// bf16 mode (pool_head_bwd_bf16_kernel): 64-row tiles; y and u rounded to
+// bf16 (tiles and scratch), W1 and W1^T rounded to bf16 once per launch by the
+// wrapper and streamed through three 32-deep slices (mma_gemm.cuh's
+// tile_mma, mma.sync m16n8k16); the product of two bf16 values is exact and
+// the sums are float32, as the reference's preferred_element_type=float32;
+// only the order of summation differs. dW1 on mma_gemm.cuh's tensor-core
+// split-K from the bf16 scratch.
+//
+// float32 mode (pool_head_bwd_f32_kernel): the same in 3xTF32 (mma_gemm.cuh:
+// each float32 operand split into two TF32 parts as its fragment loads, three
+// m16n8k8 products a tile, float32 accumulators, each product good to about
+// 2^-21 relative). Float32 tiles are twice the bf16 ones, so a tile has 32
+// rows on 16 warps (16 rows on 8 warps for D > 512 or K > 256, up to 1024 and
+// 512), and B reaches the tensor cores transposed: proj streams W1^T and dy
+// streams W1, in 16-deep slices (8 at 16 rows) through one ring of three
+// stages of D rows (two at 16 rows), or twice as many of K rows. y and u go
+// to float32 scratch, and dW1 runs on mma_gemm.cuh's tf32x3_gemm_split_k. On
+// an H100 the products are bound by mma.sync's issue, not by streaming W1
+// from L2 (PERF.md).
 
 #include <math.h>
 
 #include <algorithm>
 
 #include "common.cuh"
-#include "gemm.cuh"
 #include "mma_gemm.cuh"
 
 namespace {
-
-constexpr int kT = 16;          // time steps per chunk
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-
-// float32 mode. Its bf16 branches are dead (the bf16 mode has its own
-// kernel below), but taking them out slowed this kernel by ~1.1 ms at
-// B=512 on an H100 80GB HBM3 (chip_smoke.py, train.profile), so the body
-// stays as it was until this mode's redesign; it is launched with bf16 = 0.
-__global__ void __launch_bounds__(kThreads)
-pool_head_bwd_kernel(const float* __restrict__ x0, const float* __restrict__ x1, int d0,
-                     int d1, const float* __restrict__ gamma, const float* __restrict__ beta,
-                     const float* __restrict__ w1, const float* __restrict__ w1t,
-                     const float* __restrict__ b1, const float* __restrict__ w2,
-                     const float* __restrict__ wts, const float* __restrict__ gsc,
-                     const float* __restrict__ g0, const float* __restrict__ g1,
-                     const float* __restrict__ gctx, float* __restrict__ dh0,
-                     float* __restrict__ dh1, float* __restrict__ y_scr,
-                     float* __restrict__ u_scr, float* __restrict__ vec_part, int T, int K,
-                     int use_ln, int bf16, float eps) {
-  extern __shared__ float4 smem4[];
-  float* smem = reinterpret_cast<float*>(smem4);
-  const int D = d0 + d1;
-  float* y = smem;               // [kT][D]  LN output, then dy
-  float* xh = y + kT * D;        // [kT][D]  normalized input (LN only)
-  float* yb = xh + kT * D;       // [D][kT]  projection operand
-  float* us = yb + kT * D;       // [K][kT]  dy operand bf16(u)
-  float* g = us + kT * K;        // [D]      upstream gradient of the context
-  float* acc_db1 = g + D;        // [K]
-  float* acc_dw2 = acc_db1 + K;  // [K]
-  float* acc_dg = acc_dw2 + K;   // [D]
-  float* acc_dbt = acc_dg + D;   // [D]
-  float* w_s = acc_dbt + D;      // [kT] softmax weights of the chunk
-  float* ds_s = w_s + kT;        // [kT]
-  float* rsig_s = ds_s + kT;     // [kT]
-
-  const int b = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const float inv_d = 1.0f / static_cast<float>(D);
-  const float gc = gctx[b];
-
-  for (int d = tid; d < D; d += kThreads) {
-    g[d] = (d < d0) ? g0[static_cast<size_t>(b) * d0 + d]
-                    : g1[static_cast<size_t>(b) * d1 + (d - d0)];
-    acc_dg[d] = 0.f;
-    acc_dbt[d] = 0.f;
-  }
-  for (int k = tid; k < K; k += kThreads) acc_db1[k] = acc_dw2[k] = 0.f;
-
-  for (int t0 = 0; t0 < T; t0 += kT) {
-    const int tc = min(kT, T - t0);
-    const size_t bt0 = static_cast<size_t>(b) * T + t0;
-    for (int i = tid; i < kT * D; i += kThreads) {
-      const int tt = i / D;
-      const int d = i - tt * D;
-      float v = 0.f;
-      if (tt < tc) v = (d < d0) ? x0[(bt0 + tt) * d0 + d] : x1[(bt0 + tt) * d1 + (d - d0)];
-      y[i] = v;
-    }
-    if (tid < kT) w_s[tid] = tid < tc ? wts[bt0 + tid] : 0.f;
-    __syncthreads();
-
-    // LayerNorm (recomputed), the projection operand, and ds_t
-    for (int tt = warp; tt < kT; tt += kWarps) {
-      float* row = y + tt * D;
-      float mu = 0.f, rsig = 1.f;
-      if (use_ln) {
-        float s1 = 0.f, s2 = 0.f;
-        for (int d = lane; d < D; d += 32) {
-          const float v = row[d];
-          s1 += v;
-          s2 += v * v;
-        }
-        s1 = eegflow::warp_sum(s1);
-        s2 = eegflow::warp_sum(s2);
-        mu = s1 * inv_d;
-        rsig = rsqrtf(s2 * inv_d - mu * mu + eps);
-      }
-      float gy = 0.f;
-      for (int d = lane; d < D; d += 32) {
-        float v = row[d];
-        if (use_ln) {
-          const float xhat = (v - mu) * rsig;
-          xh[tt * D + d] = xhat;
-          v = xhat * gamma[d] + beta[d];
-        }
-        row[d] = v;
-        const float vb = bf16 ? eegflow::bf16_round(v) : v;
-        yb[d * kT + tt] = vb;
-        if (tt < tc) y_scr[(bt0 + tt) * D + d] = vb;
-        gy += g[d] * v;
-      }
-      gy = eegflow::warp_sum(gy);
-      if (lane == 0) {
-        ds_s[tt] = tt < tc ? w_s[tt] * (gy - gc) + gsc[bt0 + tt] : 0.f;
-        rsig_s[tt] = rsig;
-      }
-    }
-    __syncthreads();
-
-    // proj_t recomputed per column k; u_t, db1, dw2
-    for (int k = tid; k < K; k += kThreads) {
-      float a[kT];
-#pragma unroll
-      for (int tt = 0; tt < kT; ++tt) a[tt] = 0.f;
-      const float* wk = w1 + k;
-      for (int d = 0; d < D; ++d, wk += K) {
-        const float w = bf16 ? eegflow::bf16_round(*wk) : *wk;
-        const float4* yv = reinterpret_cast<const float4*>(yb + d * kT);
-#pragma unroll
-        for (int q = 0; q < kT / 4; ++q) {
-          const float4 v = yv[q];
-          a[4 * q + 0] = fmaf(v.x, w, a[4 * q + 0]);
-          a[4 * q + 1] = fmaf(v.y, w, a[4 * q + 1]);
-          a[4 * q + 2] = fmaf(v.z, w, a[4 * q + 2]);
-          a[4 * q + 3] = fmaf(v.w, w, a[4 * q + 3]);
-        }
-      }
-      const float bk = b1[k], w2k = w2[k];
-      float db1 = acc_db1[k], dw2 = acc_dw2[k];
-#pragma unroll
-      for (int tt = 0; tt < kT; ++tt) {
-        const float pr = tanhf(a[tt] + bk);
-        const float ds = ds_s[tt];
-        const float u = ds * (1.f - pr * pr) * w2k;
-        const float ub = bf16 ? eegflow::bf16_round(u) : u;
-        us[k * kT + tt] = tt < tc ? ub : 0.f;
-        if (tt < tc) {
-          db1 += u;
-          dw2 += ds * pr;
-          u_scr[(bt0 + tt) * K + k] = ub;
-        }
-      }
-      acc_db1[k] = db1;
-      acc_dw2[k] = dw2;
-    }
-    __syncthreads();
-
-    // dy_t = w_t g + bf16(u_t) . W1^T per feature d; dgamma, dbeta
-    for (int d = tid; d < D; d += kThreads) {
-      float a[kT];
-#pragma unroll
-      for (int tt = 0; tt < kT; ++tt) a[tt] = 0.f;
-      const float* wd = w1t + d;
-      for (int k = 0; k < K; ++k, wd += D) {
-        const float w = bf16 ? eegflow::bf16_round(*wd) : *wd;
-        const float4* uv = reinterpret_cast<const float4*>(us + k * kT);
-#pragma unroll
-        for (int q = 0; q < kT / 4; ++q) {
-          const float4 v = uv[q];
-          a[4 * q + 0] = fmaf(v.x, w, a[4 * q + 0]);
-          a[4 * q + 1] = fmaf(v.y, w, a[4 * q + 1]);
-          a[4 * q + 2] = fmaf(v.z, w, a[4 * q + 2]);
-          a[4 * q + 3] = fmaf(v.w, w, a[4 * q + 3]);
-        }
-      }
-      const float gd = g[d];
-      float dg = acc_dg[d], dbt = acc_dbt[d];
-#pragma unroll
-      for (int tt = 0; tt < kT; ++tt) {
-        const float dy = tt < tc ? w_s[tt] * gd + a[tt] : 0.f;
-        y[tt * D + d] = dy;
-        if (use_ln && tt < tc) {
-          dg += dy * xh[tt * D + d];
-          dbt += dy;
-        }
-      }
-      acc_dg[d] = dg;
-      acc_dbt[d] = dbt;
-    }
-    __syncthreads();
-
-    // LayerNorm backward, one warp per step
-    for (int tt = warp; tt < tc; tt += kWarps) {
-      const float* dyr = y + tt * D;
-      const size_t bt = bt0 + tt;
-      float m1 = 0.f, m2 = 0.f, rsig = rsig_s[tt];
-      if (use_ln) {
-        for (int d = lane; d < D; d += 32) {
-          const float dxh = dyr[d] * gamma[d];
-          m1 += dxh;
-          m2 += dxh * xh[tt * D + d];
-        }
-        m1 = eegflow::warp_sum(m1) * inv_d;
-        m2 = eegflow::warp_sum(m2) * inv_d;
-      }
-      for (int d = lane; d < D; d += 32) {
-        float v = dyr[d];
-        if (use_ln) v = rsig * (v * gamma[d] - m1 - xh[tt * D + d] * m2);
-        if (d < d0)
-          dh0[bt * d0 + d] = v;
-        else
-          dh1[bt * d1 + (d - d0)] = v;
-      }
-    }
-    __syncthreads();  // the next chunk overwrites y, xh and the step arrays
-  }
-
-  float* out = vec_part + static_cast<size_t>(b) * (2 * K + 2 * D);
-  for (int k = tid; k < K; k += kThreads) {
-    out[k] = acc_db1[k];
-    out[K + k] = acc_dw2[k];
-  }
-  for (int d = tid; d < D; d += kThreads) {
-    out[2 * K + d] = acc_dg[d];
-    out[2 * K + D + d] = acc_dbt[d];
-  }
-}
-
 
 // bf16 mode: a tile of kM (b, t) rows of one batch row, kBThreads threads
 // (8 warps), the W1 slices kSlice deep in a ring of kStages.
@@ -568,35 +366,311 @@ size_t bf16_smem_bytes(int D, int K) {
   return elems * 2 + floats * 4;
 }
 
+// float32 mode: a tile of 16 kMT (b, t) rows of one batch row, kWarps
+// warps, W1 and W1^T streamed transposed in kSlice-deep slices through a
+// ring of kStages stages of D rows (dy) or 2 kStages of K rows (proj: the
+// same bytes in flight at K = D / 2). kMT = 2 takes D <= 512 and K <= 256
+// on 16 warps, kMT = 1 up to 1024 and 512 on 8 (the lanes' dgamma and dbeta
+// of 1024 columns would not fit 16 warps' registers): a warp owns at most
+// 64 / kMT / kWarps 16-column pairs of proj and 128 / kMT / kWarps of dy.
+//   Thread (warp w, lane = 4 g + q) holds, for m-tile i and n-tile j of its
+// pairs, rows 16 i + g, + 8 and columns 16 pair + 8 (j % 2) + 2 q, + 1 of
+// each product; in the row-wise phases warp w takes rows w, w + kWarps, ..
+// and lane l columns l + 32 i.
+//   x_p (B, T, d_p) float32; w1 (D, K) and w1t (K, D) float32; y_scr (B T, D)
+// and u_scr (B T, K) float32 scratch; vec_part (B, 2K + 2D) the row's [db1,
+// dw2, dgamma, dbeta] partials.
+template <int kMT, int kSlice, int kStages, int kWarps>
+__global__ void __launch_bounds__(32 * kWarps, 1)
+pool_head_bwd_f32_kernel(const float* __restrict__ x0, const float* __restrict__ x1, int d0,
+                         int d1, const float* __restrict__ gamma, const float* __restrict__ beta,
+                         const float* __restrict__ w1, const float* __restrict__ w1t,
+                         const float* __restrict__ b1, const float* __restrict__ w2,
+                         const float* __restrict__ wts, const float* __restrict__ gsc,
+                         const float* __restrict__ g0, const float* __restrict__ g1,
+                         const float* __restrict__ gctx, float* __restrict__ dh0,
+                         float* __restrict__ dh1, float* __restrict__ y_scr,
+                         float* __restrict__ u_scr, float* __restrict__ vec_part, int T, int K,
+                         int use_ln, float eps) {
+  constexpr int kRows = 16 * kMT;
+  constexpr int kThreads = 32 * kWarps;
+  constexpr int kDMax = 1024 / kMT;             // the widest D (and 2 K) of this tile
+  constexpr int kNPp = kDMax / 32 / kWarps;     // 16-column pairs of proj a warp owns
+  constexpr int kNPd = kDMax / 16 / kWarps;     // and of dy
+  constexpr int kCols = kDMax / 32;             // columns of a row a lane owns
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int D = d0 + d1;
+  const int lda_y = D + 4, lda_u = K + 4;
+  const int ldr = kSlice + 4;
+  float* const ys = reinterpret_cast<float*>(smem);  // [kRows][D + 4]
+  float* const us = ys + kRows * lda_y;               // [kRows][K + 4]
+  float* const ring = us + kRows * lda_u;             // the ring's stages
+  float* const g = ring + max(2 * kStages * K, kStages * D) * ldr;  // [D]
+  float* const acc_db1 = g + D;                       // [K]
+  float* const acc_dw2 = acc_db1 + K;                 // [K]
+  float* const mu_s = acc_dw2 + K;                    // [kRows] per-row LayerNorm mean,
+  float* const rsig_s = mu_s + kRows;                 // [kRows] 1 / sigma,
+  float* const ds_s = rsig_s + kRows;                 // [kRows] ds and
+  float* const w_s = ds_s + kRows;                    // [kRows] softmax weight
+  // dy as float32 over the y tile, which no thread reads after the proj
+  // product
+  float* const dys = ys;
+
+  const int b = blockIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const float inv_d = 1.0f / static_cast<float>(D);
+  const float gc = gctx[b];
+  for (int d = tid; d < D; d += kThreads)
+    g[d] = d < d0 ? g0[static_cast<size_t>(b) * d0 + d] : g1[static_cast<size_t>(b) * d1 + d - d0];
+  for (int k = tid; k < K; k += kThreads) acc_db1[k] = acc_dw2[k] = 0.f;
+  // x of step t, the lane's columns lane + 32 i (0 past D or past T)
+  auto load_row = [&](int t, float (&xv)[kCols]) {
+    const size_t bt = static_cast<size_t>(b) * T + min(t, T - 1);
+#pragma unroll
+    for (int i = 0; i < kCols; ++i) {
+      const int d = lane + 32 * i;
+      xv[i] = t < T && d < D ? (d < d0 ? x0[bt * d0 + d] : x1[bt * d1 + (d - d0)]) : 0.f;
+    }
+  };
+  // dgamma and dbeta of the lane's columns over its warp's rows
+  float pdg[kCols], pdb[kCols];
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) pdg[i] = pdb[i] = 0.f;
+  __syncthreads();
+
+  for (int t0 = 0; t0 < T; t0 += kRows) {
+    // LayerNorm (recomputed), y into the tile and the scratch, ds
+    for (int r = warp; r < kRows; r += kWarps) {
+      const int t = t0 + r;
+      const bool valid = t < T;
+      const size_t bt = static_cast<size_t>(b) * T + t;
+      float xv[kCols];
+      load_row(t, xv);
+      float mu = 0.f, rsig = 1.f;
+      if (use_ln) {
+        float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < kCols; ++i) {
+          s1 += xv[i];
+          s2 += xv[i] * xv[i];
+        }
+        s1 = eegflow::warp_sum(s1);
+        s2 = eegflow::warp_sum(s2);
+        mu = s1 * inv_d;
+        rsig = rsqrtf(s2 * inv_d - mu * mu + eps);
+      }
+      float gy = 0.f;
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        const int d = lane + 32 * i;
+        if (d >= D) continue;
+        float v = xv[i];
+        if (use_ln) v = (v - mu) * rsig * gamma[d] + beta[d];
+        if (!valid) v = 0.f;
+        ys[r * lda_y + d] = v;
+        if (valid) y_scr[bt * D + d] = v;
+        gy += g[d] * v;
+      }
+      gy = eegflow::warp_sum(gy);
+      if (lane == 0) {
+        const float w = valid ? wts[bt] : 0.f;
+        mu_s[r] = mu;
+        rsig_s[r] = rsig;
+        w_s[r] = w;
+        ds_s[r] = valid ? w * (gy - gc) + gsc[bt] : 0.f;
+      }
+    }
+    __syncthreads();
+
+    // proj = y . W1; u = ds (1 - proj^2) w2; db1, dw2
+    {
+      float acc[kMT][2 * kNPp][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * kNPp; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      eegflow::tile_mma_tf32x3<kMT, kNPp, kSlice, 2 * kStages, kWarps>(acc, ys, lda_y, w1t, D,
+                                                                        K, ring, K * ldr);
+#pragma unroll
+      for (int j = 0; j < 2 * kNPp; ++j) {
+        const int pair = warp + kWarps * (j / 2);
+        if (pair >= K / 16) continue;
+        const int col = pair * 16 + 8 * (j % 2) + 2 * q;
+        const float bk[2] = {b1[col], b1[col + 1]}, w2k[2] = {w2[col], w2[col + 1]};
+        float sdb[2] = {0.f, 0.f}, sdw[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int row = 16 * i + 8 * rh + gq;
+            const float ds = ds_s[row];
+            float u[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float pr = tanhf(acc[i][j][2 * rh + e] + bk[e]);
+              u[e] = ds * (1.f - pr * pr) * w2k[e];
+              sdb[e] += u[e];
+              sdw[e] += ds * pr;
+            }
+            const float2 u2 = make_float2(u[0], u[1]);
+            *reinterpret_cast<float2*>(us + row * lda_u + col) = u2;
+            if (t0 + row < T)
+              *reinterpret_cast<float2*>(u_scr + (static_cast<size_t>(b) * T + t0 + row) * K +
+                                         col) = u2;
+          }
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            sdb[e] += __shfl_xor_sync(0xffffffffu, sdb[e], off);
+            sdw[e] += __shfl_xor_sync(0xffffffffu, sdw[e], off);
+          }
+        if (gq == 0) {
+          acc_db1[col] += sdb[0];
+          acc_db1[col + 1] += sdb[1];
+          acc_dw2[col] += sdw[0];
+          acc_dw2[col + 1] += sdw[1];
+        }
+      }
+    }
+    __syncthreads();  // the u tile is whole; no thread reads the ring or the y tile
+
+    // dy = w g + u . W1^T, staged as float32 over the y tile
+    {
+      float acc[kMT][2 * kNPd][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * kNPd; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      eegflow::tile_mma_tf32x3<kMT, kNPd, kSlice, kStages, kWarps>(acc, us, lda_u, w1, K, D,
+                                                                    ring, D * ldr);
+#pragma unroll
+      for (int j = 0; j < 2 * kNPd; ++j) {
+        const int pair = warp + kWarps * (j / 2);
+        if (pair >= D / 16) continue;
+        const int col = pair * 16 + 8 * (j % 2) + 2 * q;
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int row = 16 * i + 8 * rh + gq;
+            *reinterpret_cast<float2*>(dys + row * lda_y + col) =
+                make_float2(w_s[row] * g[col] + acc[i][j][2 * rh],
+                            w_s[row] * g[col + 1] + acc[i][j][2 * rh + 1]);
+          }
+      }
+    }
+    __syncthreads();
+
+    // the LayerNorm backward, one warp per row, and dgamma, dbeta
+    for (int r = warp; r < kRows; r += kWarps) {
+      const int t = t0 + r;
+      if (t >= T) break;
+      const size_t bt = static_cast<size_t>(b) * T + t;
+      const float* dyr = dys + r * lda_y;
+      const float rsig = rsig_s[r];
+      float xh[kCols];
+      float m1 = 0.f, m2 = 0.f;
+      if (use_ln) {
+        load_row(t, xh);
+#pragma unroll
+        for (int i = 0; i < kCols; ++i) {
+          const int d = lane + 32 * i;
+          if (d >= D) continue;
+          xh[i] = (xh[i] - mu_s[r]) * rsig;
+          const float dy = dyr[d];
+          const float dxh = dy * gamma[d];
+          m1 += dxh;
+          m2 += dxh * xh[i];
+          pdg[i] += dy * xh[i];
+          pdb[i] += dy;
+        }
+        m1 = eegflow::warp_sum(m1) * inv_d;
+        m2 = eegflow::warp_sum(m2) * inv_d;
+      }
+#pragma unroll
+      for (int i = 0; i < kCols; ++i) {
+        const int d = lane + 32 * i;
+        if (d >= D) continue;
+        float v = dyr[d];
+        if (use_ln) v = rsig * (v * gamma[d] - m1 - xh[i] * m2);
+        if (d < d0)
+          dh0[bt * d0 + d] = v;
+        else
+          dh1[bt * d1 + (d - d0)] = v;
+      }
+    }
+    __syncthreads();  // the next tile overwrites the tiles and the row stats
+  }
+
+  // the warps' dgamma and dbeta summed in warp order
+  float* const part_s = ys;  // [kWarps][2][D], over the tiles and the ring
+#pragma unroll
+  for (int i = 0; i < kCols; ++i) {
+    const int d = lane + 32 * i;
+    if (d >= D) continue;
+    part_s[2 * warp * D + d] = pdg[i];
+    part_s[(2 * warp + 1) * D + d] = pdb[i];
+  }
+  __syncthreads();
+  float* out = vec_part + static_cast<size_t>(b) * (2 * K + 2 * D);
+  for (int k = tid; k < K; k += kThreads) {
+    out[k] = acc_db1[k];
+    out[K + k] = acc_dw2[k];
+  }
+  for (int d = tid; d < D; d += kThreads) {
+    float dg = 0.f, dbt = 0.f;
+    for (int w = 0; w < kWarps; ++w) {
+      dg += part_s[2 * w * D + d];
+      dbt += part_s[(2 * w + 1) * D + d];
+    }
+    out[2 * K + d] = dg;
+    out[2 * K + D + d] = dbt;
+  }
+}
+
+template <int kMT, int kSlice, int kStages>
+size_t f32_smem_bytes(int D, int K) {
+  const size_t rows = 16 * kMT;
+  return (rows * (D + 4) + rows * (K + 4) +
+          static_cast<size_t>(std::max(2 * kStages * K, kStages * D)) * (kSlice + 4) + D + 2 * K +
+          4 * rows) *
+         sizeof(float);
+}
+
+template <int kMT, int kSlice, int kStages, int kWarps>
+cudaError_t launch_f32(const float* x0, const float* x1, int d0, int d1, const float* gamma,
+                       const float* beta, const float* w1, const float* w1t, const float* b1,
+                       const float* w2, const float* wts, const float* gs, const float* g0,
+                       const float* g1, const float* gctx, float* dh0, float* dh1,
+                       float* y_scr, float* u_scr, float* vec_part, int B, int T, int K,
+                       int use_ln, cudaStream_t stream) {
+  const size_t smem = f32_smem_bytes<kMT, kSlice, kStages>(d0 + d1, K);
+  auto kernel = pool_head_bwd_f32_kernel<kMT, kSlice, kStages, kWarps>;
+  cudaError_t err = eegflow::allow_dynamic_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, 32 * kWarps, smem, stream>>>(x0, x1, d0, d1, gamma, beta, w1, w1t, b1, w2, wts, gs,
+                                         g0, g1, gctx, dh0, dh1, y_scr, u_scr, vec_part, T, K,
+                                         use_ln, 1e-5f);
+  return cudaGetLastError();
+}
+
 }  // namespace
-
-// Operands of the float32 mode's dW1 = y^T . u over the scratch rows (gemm.cuh).
-namespace pool_head_bwd_ops {
-
-struct RowsA {  // A(m = feature, k = b*T + t) = y_scr[k][m]
-  static constexpr bool kMContiguous = true;
-  const float* a;
-  int M;
-  __device__ float operator()(int m, int k) const { return a[static_cast<size_t>(k) * M + m]; }
-};
-
-struct RowsB {  // B(k = b*T + t, n = column) = u_scr[k][n]
-  static constexpr bool kNContiguous = true;
-  const float* b;
-  int N;
-  __device__ float operator()(int k, int n) const { return b[static_cast<size_t>(k) * N + n]; }
-};
-
-}  // namespace pool_head_bwd_ops
 
 // x_p (B, T, d_p) float32; gamma, beta (d0 + d1,) or null without LN; b1,
 // w2 (K,); wts, gs (B, T); g_p (B, d_p); gctx (B,). W1 as w1 (d0 + d1, K)
 // and w1t (K, d0 + d1): bf16 under `bf16` (which needs d0 + d1 <= 512 and
-// K <= 256, both multiples of 32), else float32. Outputs dh_p (B, T, d_p),
-// dw1 (d0 + d1, K) and vec (2K + 2(d0 + d1)) = [db1, dw2, dgamma, dbeta]
-// float32. Scratch: y_scr (B, T, d0 + d1) and u_scr (B, T, K), bf16 under
-// `bf16`, else float32; vec_part (B, 2K + 2(d0 + d1)) and part
-// (splits * (d0 + d1) * K) float32. x1, g1 and dh1 may be null when d1 == 0.
+// K <= 256), else float32 (d0 + d1 <= 1024 and K <= 512, 16-byte aligned);
+// D and K multiples of 32. Outputs dh_p (B, T, d_p), dw1 (d0 + d1, K) and vec
+// (2K + 2(d0 + d1)) = [db1, dw2, dgamma, dbeta] float32. Scratch: y_scr (B,
+// T, d0 + d1) and u_scr (B, T, K), bf16 under `bf16`, else float32 (16-byte
+// aligned); vec_part (B, 2K + 2(d0 + d1)) and part (splits * (d0 + d1) * K)
+// float32. x1, g1 and dh1 may be null when d1 == 0.
 extern "C" int eegflow_pool_head_bwd(
     const float* x0, const float* x1, int d0, int d1, const float* gamma, const float* beta,
     const void* w1, const void* w1t, const float* b1, const float* w2, const float* wts,
@@ -606,10 +680,11 @@ extern "C" int eegflow_pool_head_bwd(
     cudaStream_t stream) {
   const int D = d0 + d1;
   if (B <= 0 || T <= 0 || K <= 0 || d0 <= 0 || d1 < 0 || splits <= 0 ||
-      (use_ln && (gamma == nullptr || beta == nullptr)) ||
-      (bf16 && (D % 32 != 0 || K % 32 != 0 || D > kMaxD || K > kMaxK)))
+      (use_ln && (gamma == nullptr || beta == nullptr)) || D % 32 != 0 || K % 32 != 0 ||
+      D > (bf16 ? kMaxD : 2 * kMaxD) || K > (bf16 ? kMaxK : 2 * kMaxK))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
+  const int BT = B * T;
   if (bf16) {
     using Bf = __nv_bfloat16;
     const size_t smem = bf16_smem_bytes(D, K);
@@ -621,28 +696,27 @@ extern "C" int eegflow_pool_head_bwd(
         vec_part, T, K, use_ln, 1e-5f);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int BT = B * T;
     err = eegflow::mma_gemm_split_k(
         eegflow::Bf16Cols{{static_cast<const Bf*>(y_scr), nullptr}, {BT, 0}, D, D},
         eegflow::Bf16Cols{{static_cast<const Bf*>(u_scr), nullptr}, {BT, 0}, K, K}, dw1, part, D,
         K, BT, splits, stream);
   } else {
-    const size_t smem =
-        (3 * static_cast<size_t>(kT) * D + static_cast<size_t>(kT) * K + 3 * D + 2 * K +
-         3 * kT) *
-        sizeof(float);
-    err = eegflow::allow_dynamic_smem(pool_head_bwd_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
+    const float* const wf = static_cast<const float*>(w1);
+    const float* const wtf = static_cast<const float*>(w1t);
     float* const ys = static_cast<float*>(y_scr);
     float* const us = static_cast<float*>(u_scr);
-    pool_head_bwd_kernel<<<B, kThreads, smem, stream>>>(
-        x0, x1, d0, d1, gamma, beta, static_cast<const float*>(w1),
-        static_cast<const float*>(w1t), b1, w2, wts, gs, g0, g1, gctx, dh0, dh1, ys, us,
-        vec_part, T, K, use_ln, 0, 1e-5f);
-    err = cudaGetLastError();
+    for (const void* ptr : {static_cast<const void*>(wf), static_cast<const void*>(wtf),
+                            static_cast<const void*>(ys), static_cast<const void*>(us)})
+      if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (D <= kMaxD && K <= kMaxK)
+      err = launch_f32<2, 16, 3, 16>(x0, x1, d0, d1, gamma, beta, wf, wtf, b1, w2, wts, gs, g0, g1,
+                                 gctx, dh0, dh1, ys, us, vec_part, B, T, K, use_ln, stream);
+    else
+      err = launch_f32<1, 8, 2, 8>(x0, x1, d0, d1, gamma, beta, wf, wtf, b1, w2, wts, gs, g0, g1,
+                                gctx, dh0, dh1, ys, us, vec_part, B, T, K, use_ln, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
-    err = eegflow::gemm_split_k(pool_head_bwd_ops::RowsA{ys, D}, pool_head_bwd_ops::RowsB{us, K},
-                                dw1, part, D, K, B * T, splits, stream);
+    err = eegflow::tf32x3_gemm_split_k(ys, us, dw1, part, D, K, BT, splits, stream);
   }
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t count = 2 * static_cast<size_t>(K) + 2 * static_cast<size_t>(D);

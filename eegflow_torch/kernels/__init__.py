@@ -109,9 +109,9 @@ _SIGNATURES = {
     # lstm_rec.cu, kernel 5's shared memory and clusters held at once:
     # H, hc, rows, k_res, *smem, *clusters
     "eegflow_lstm_rec_bwd_plan": [_I, _I, _I, _I, _P, _P],
-    # input_block.cu, kernel 9:
-    # x, w, b, gamma, beta, y, rows, C, H, bf16, stream
-    "eegflow_input_block_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    # input_block.cu, kernel 9 (grid and tile from nn/cuda_input.py fwd_plan):
+    # x, w, b, gamma, beta, y, ctas, tile_rows, rows, C, H, bf16, stream
+    "eegflow_input_block_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # input_block.cu, kernel 10 (grid and scratch from nn/cuda_input.py
     # bwd_plan): x, dy, w, b, gamma, beta, dx, grads, dz_scr, part, ctas,
     # splits, rows, C, H, bf16, stream

@@ -1,7 +1,9 @@
-"""Where a step of the recurrent kernels' time goes, on the GPU.
+"""Where a step of the recurrent kernels' time goes, and the parts of the
+input-block forward and the float32 pool-head backward, on the GPU.
 
-    python -m eegflow_torch.kernels.ablate [--variant base|nomma|noexch|nostore|noload]
-                                           [--rows 16,32,48]
+    python -m eegflow_torch.kernels.ablate [--variant base|nomma|noexch|nostore|noload|noln|
+                                                     nostream|onetf32]
+                                           [--rows 16,32,48] [--calls all|recurrent|head]
 
 Builds the kernels from a copy of ``eegflow_torch/csrc`` with one part of
 the serial step of kernel 2's recurrence, of kernels 3, 3b and 4's chain, of
@@ -14,26 +16,39 @@ pre-gates, the planes, the raw gates and kernel 5's z, c_prev and g;
 kernel of each full-width call (H=256, T=256, two parts of 256): kernel 2 in
 eval and training mode, kernels 3 and 3b and kernels 1 (training mode) and 5
 at B=16 (one cluster) and at the main path's batch (512; eval 1024, kernel 1
-in eval mode too), and kernel 4 at 512. ``--rows`` restricts the
+in eval mode too), and kernel 4 at 512. The same variants take out a part of
+kernel 9 (the input-block forward, both modes) and of kernel 8's float32
+mode (3xTF32): ``nomma`` its products (kernel 8: both in-kernel products and
+the dW1 GEMM), ``noload`` its HBM reads of x, ``nostore`` its HBM stores (y;
+dh and the y and u scratch), and ``noln`` the LayerNorm (kernel 9: the
+statistics, LayerNorm and GELU; kernel 8: the statistics and the LayerNorm
+backward's row sums), and two take out a part of kernel 8's float32
+products alone: ``nostream`` the streaming of W1 and W1^T (the products
+read stale slices), ``onetf32`` two of the three TF32 products (one TF32
+product, a different function). Each is timed at B=512 (kernel 9's bf16
+mode also at 1024), every launch of the call by name. ``--calls`` times only the
+recurrent kernels or only kernels 9 and 8. ``--rows`` restricts the
 plan's rows per cluster (``cuda_lstm.restrict_plan_rows``). A variant's
 results are wrong by construction and only its times mean anything; the
-difference to ``base`` is the part's share of a step. Each variant needs its
-own process: two builds of the library in one process fault. Needs CUDA and
-nvcc.
+difference to ``base`` is the part's share of a step or a call. Each variant
+needs its own process: two builds of the library in one process fault.
+Needs CUDA and nvcc.
 """
 
 from __future__ import annotations
 
 import argparse
+import re
 import shutil
 import subprocess
 import sys
 import tempfile
+import time
 from pathlib import Path
 
 import torch
 
-H, STEPS = 256, 256
+H, STEPS, CHANNELS = 256, 256, 61
 
 # variant -> (source file, text, replacement); each text occurs once in its
 # source (held by tests/test_torch_lstm_plan.py)
@@ -54,7 +69,22 @@ VARIANTS = {
         ("lstm_rec.cu", "for (int n = 0; n < k_res; n += 4) {",
          "for (int n = 0; n < 0; n += 4) {"),
         ("lstm_rec.cu", "for (int n = k_res; n < K; n += 4) {",
-         "for (int n = K; n < K; n += 4) {")],
+         "for (int n = K; n < K; n += 4) {"),
+        ("input_block.cu", "for (int c = 0; c < cn; ++c) {\n      const float4 xv",
+         "for (int c = 0; c < 0; ++c) {\n      const float4 xv"),
+        ("input_block.cu", "if (pair < H / 16) z_pair_mma<kMT>(acc[p]",
+         "if (pair < 0) z_pair_mma<kMT>(acc[p]"),
+        ("mma_gemm.cuh", "for (int it = 0; it < slices; ++it) {\n"
+         "    cp_async_wait<kStages - 2>();\n"
+         "    __syncthreads();  // slice it has landed; slice it - 1's stage is free again\n"
+         "    if (it + kStages - 1 < slices) issue(it + kStages - 1);\n    cp_async_commit();\n"
+         "    const float* bs",
+         "for (int it = 0; it < 0; ++it) {\n    cp_async_wait<kStages - 2>();\n"
+         "    __syncthreads();  // slice it has landed; slice it - 1's stage is free again\n"
+         "    if (it + kStages - 1 < slices) issue(it + kStages - 1);\n    cp_async_commit();\n"
+         "    const float* bs"),
+        ("mma_gemm.cuh", "for (int kt = 0; kt < n_tiles; ++kt) {",
+         "for (int kt = 0; kt < 0; ++kt) {")],
     "noexch": [
         ("lstm_fwd.cu", "for (int r = q; r < hc; r += 4) {", "for (int r = q; r < 0; r += 4) {"),
         ("lstm_bwd_chain.cuh", "    for (int r = 0; r < hc; ++r) {\n      const uint32_t base",
@@ -72,7 +102,21 @@ VARIANTS = {
         ("lstm_rec.cu", "if (row0 + r < B) __stcs(c_out", "if (row0 + r < 0) __stcs(c_out"),
         ("lstm_rec.cu", "if (row0 + r >= B) continue;", "if (row0 + r >= 0) continue;"),
         ("lstm_rec.cu", "if (row >= B) continue;\n      float* dp = dgates",
-         "if (row >= 0) continue;\n      float* dp = dgates")],
+         "if (row >= 0) continue;\n      float* dp = dgates"),
+        ("input_block.cu", "__stcs(reinterpret_cast<float4*>(yr + 4 * ch), o);",
+         "*reinterpret_cast<float4*>(zs + r * ldz + 4 * ch) = o;"),
+        ("pool_head_bwd.cu", "if (valid) y_scr[bt * D + d] = v;",
+         "if (valid && d < 0) y_scr[bt * D + d] = v;"),
+        ("pool_head_bwd.cu", "if (t0 + row < T)\n              *reinterpret_cast<float2*>(u_scr",
+         "if (t0 + row < 0)\n              *reinterpret_cast<float2*>(u_scr"),
+        ("pool_head_bwd.cu", "        if (d < d0)\n          dh0[bt * d0 + d] = v;\n        else\n"
+         "          dh1[bt * d1 + (d - d0)] = v;\n      }\n    }\n    __syncthreads();  // the "
+         "next tile overwrites the tiles and the row stats\n  }\n\n  // the warps' dgamma and "
+         "dbeta summed in warp order\n  float* const part_s = ys;",
+         "        if (d < 0)\n          dh0[bt * d0 + d] = v;\n        else if (d < 0)\n"
+         "          dh1[bt * d1 + (d - d0)] = v;\n      }\n    }\n    __syncthreads();  // the "
+         "next tile overwrites the tiles and the row stats\n  }\n\n  // the warps' dgamma and "
+         "dbeta summed in warp order\n  float* const part_s = ys;")],
     "noload": [
         ("lstm_fwd.cu", "if (row < B) v = __ldcs", "if (row < 0) v = __ldcs"),
         ("lstm_bwd_chain.cuh", "          if (row < B)\n            v = __ldcs(",
@@ -82,7 +126,33 @@ VARIANTS = {
         ("lstm_rec.cu", "      if (row < B) {\n#pragma unroll\n        for (int gate = 0; gate < 4; "
                         "++gate) zr[r][gate]",
          "      if (row < 0) {\n#pragma unroll\n        for (int gate = 0; gate < 4; "
-         "++gate) zr[r][gate]")],
+         "++gate) zr[r][gate]"),
+        ("input_block.cu", "eegflow::cp_async16_part(smem_addr(xraw + 4 * c), n > 0 ? xtile + 4 "
+         "* c : x, 4 * n);",
+         "eegflow::cp_async16_part(smem_addr(xraw + 4 * c), n > 0 ? xtile + 4 * c : x, 0);"),
+        ("pool_head_bwd.cu", "xv[i] = t < T && d < D ? (d < d0 ? x0[bt * d0 + d] : x1[bt * d1 + "
+         "(d - d0)]) : 0.f;",
+         "xv[i] = 0.f;")],
+    "nostream": [
+        ("mma_gemm.cuh", "if (it + kStages - 1 < slices) issue(it + kStages - 1);\n"
+         "    cp_async_commit();\n    const float* bs",
+         "if (it + kStages - 1 < 0) issue(it + kStages - 1);\n"
+         "    cp_async_commit();\n    const float* bs")],
+    "onetf32": [
+        ("mma_gemm.cuh", "          mma_tf32(acc[i][2 * p], a[i].lo, bh[0], bh[1]);\n"
+         "          mma_tf32(acc[i][2 * p + 1], a[i].lo, bh[2], bh[3]);\n", ""),
+        ("mma_gemm.cuh", "          mma_tf32(acc[i][2 * p], a[i].hi, bl[0], bl[1]);\n"
+         "          mma_tf32(acc[i][2 * p + 1], a[i].hi, bl[2], bl[3]);\n", ""),
+        ("mma_gemm.cuh", "        for (int i = 0; i < 4; ++i) mma_tf32(acc[i][j], a[i].lo, bh[0], "
+         "bh[1]);\n#pragma unroll\n        for (int i = 0; i < 4; ++i) mma_tf32(acc[i][j], "
+         "a[i].hi, bl[0], bl[1]);\n#pragma unroll\n", "")],
+    "noln": [
+        ("input_block.cu", "const float4 o = ln_gelu4(zv[i], mu, rsig, gam[i], bet[i]);",
+         "const float4 o = make_float4(zv[i][0], zv[i][1], zv[i][2], zv[i][3]);"),
+        ("pool_head_bwd.cu", "if (use_ln) {\n        float s1 = 0.f, s2 = 0.f;",
+         "if (use_ln < 0) {\n        float s1 = 0.f, s2 = 0.f;"),
+        ("pool_head_bwd.cu", "if (use_ln) {\n        load_row(t, xh);",
+         "if (use_ln < 0) {\n        load_row(t, xh);")],
 }
 
 
@@ -117,10 +187,55 @@ def _recurrence_ms(fn, reps: int = 3) -> float:
                     or "rec_bwd_kernel" in e.name or "chain_kernel" in e.name)) / reps / 1e3
 
 
+def _device_ms_by_name(fn, reps: int = 5, warm_s: float = 0.5) -> dict:
+    """Mean device ms a call of ``fn`` spends in each kernel, by name, after
+    ``warm_s`` seconds of calls (the card's clocks settle under load)."""
+    t0 = time.perf_counter()
+    while time.perf_counter() - t0 < warm_s:
+        fn()
+        torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_time_total > 0]
+    names = (re.search(r"(\w+)(?:<[^>]*>)?\(", e.key) for e in events)
+    return {m.group(1) if m else e.key: e.device_time_total / 1e3 / reps
+            for m, e in zip(names, events)}
+
+
+def _head_calls(dev, gen):
+    """Kernel 9 (both modes at B=512, bf16 at 1024) and kernel 8's float32
+    mode (B=512, two parts of 256, K=256, LayerNorm) at full width."""
+    from eegflow_torch.nn.cuda_attention import pool_head_bwd
+    from eegflow_torch.nn.cuda_input import input_block_fused
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    bound = CHANNELS ** -0.5
+    proj = {"w": (torch.rand(CHANNELS, H, generator=gen) * 2 - 1).to(dev) * bound,
+            "b": (torch.rand(H, generator=gen) * 2 - 1).to(dev) * bound}
+    norm = {"scale": 1 + 0.1 * randn(H), "bias": 0.1 * randn(H)}
+    x512, x1024 = randn(512, STEPS, CHANNELS), randn(1024, STEPS, CHANNELS)
+    d, k = 2 * H, H
+    ln = {"scale": 1 + 0.1 * randn(d), "bias": 0.1 * randn(d)}
+    attn = {"proj": {"w": 0.05 * randn(d, k), "b": 0.1 * randn(k)},
+            "score": {"w": 0.1 * randn(k, 1)}}
+    pargs = (ln, attn, tuple(torch.tanh(randn(512, STEPS, H)) for _ in range(2)),
+             torch.softmax(randn(512, STEPS), dim=-1), 0.01 * randn(512, STEPS),
+             tuple(0.1 * randn(512, H) for _ in range(2)), 0.1 * randn(512), True, False)
+    return {"input_block_fwd bf16 B=512": lambda: input_block_fused(proj, norm, x512, True),
+            "input_block_fwd float32 B=512": lambda: input_block_fused(proj, norm, x512, False),
+            "input_block_fwd bf16 B=1024": lambda: input_block_fused(proj, norm, x1024, True),
+            "pool_head_bwd float32 B=512": lambda: pool_head_bwd(*pargs)}
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="eegflow_torch.kernels.ablate")
     parser.add_argument("--variant", default="base", choices=sorted(VARIANTS))
     parser.add_argument("--rows", default=None, help="rows per cluster the plan may take")
+    parser.add_argument("--calls", default="all", choices=("all", "recurrent", "head"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("ablate: needs a CUDA device", file=sys.stderr)
@@ -144,7 +259,7 @@ def main(argv=None) -> int:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True, text=True,
                               timeout=60).stdout.strip()
-        for batch in (16, 512, 1024):
+        for batch in (16, 512, 1024) if args.calls != "head" else ():
             xs = tuple(torch.randn(batch, STEPS, H, generator=gen).to(dev) for _ in range(2))
             ms = tuple((torch.rand(batch, STEPS, H, generator=gen) < 0.7).to(torch.uint8)
                        .to(dev) for _ in range(2))
@@ -185,6 +300,11 @@ def main(argv=None) -> int:
                       f"{plan.clusters} clusters in {plan.waves} wave(s); recurrence "
                       f"{ms_rec:.3f} ms, {ms_rec / STEPS * 1e3:.2f} us a step [{card}]",
                       flush=True)
+        for name, fn in _head_calls(dev, gen).items() if args.calls != "recurrent" else ():
+            by_name = _device_ms_by_name(fn)
+            print(f"{args.variant} {name}: device {sum(by_name.values()):.3f} ms a call: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in by_name.items()) + f" [{card}]",
+                  flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0

@@ -34,6 +34,14 @@ from eegflow_torch.nn.layers import bf16_round
 LN_EPS = 1e-5
 #: the widest D and K the bf16 modes of the pool-head kernels take
 BF16_MAX_D, BF16_MAX_K = 512, 256
+#: and the float32 mode of the backward (3xTF32 on the tensor cores)
+F32_BWD_MAX_D, F32_BWD_MAX_K = 1024, 512
+
+
+def _check_widths(what: str, d_total: int, k: int, max_d: int, max_k: int) -> None:
+    if d_total % 32 or k % 32 or d_total > max_d or k > max_k:
+        raise ValueError(f"{what} needs D <= {max_d} and K <= {max_k}, both multiples of 32; "
+                         f"got D={d_total}, K={k}")
 
 
 def check_bf16_widths(name: str, d_total: int, k: int) -> None:
@@ -41,9 +49,7 @@ def check_bf16_widths(name: str, d_total: int, k: int) -> None:
     ``pool_head_bwd.cu`` run on the tensor cores: D <= 512 and K <= 256, both
     multiples of 32 (the classifier's D = 2H and K = H for H <= 256). Raises
     ``ValueError`` naming ``name`` for any other; there is no other body."""
-    if d_total % 32 or k % 32 or d_total > BF16_MAX_D or k > BF16_MAX_K:
-        raise ValueError(f"{name} under bf16 needs D <= {BF16_MAX_D} and K <= {BF16_MAX_K}, "
-                         f"both multiples of 32; got D={d_total}, K={k}")
+    _check_widths(f"{name} under bf16", d_total, k, BF16_MAX_D, BF16_MAX_K)
 
 
 def pool_head_fused_plain(ln_params: Optional[Mapping], attn_params: Mapping,
@@ -247,9 +253,10 @@ def pool_head_bwd(ln_params: Optional[Mapping], attn_params: Mapping, xs: Parts,
                   g_ctx: Sequence[torch.Tensor], gctx: torch.Tensor,
                   use_ln: bool = True, bf16: bool = False) -> PoolGrads:
     """Backward of :func:`pool_head_fused` (arguments as
-    :func:`pool_head_bwd_plain`). Under ``bf16`` the kernel runs its products
-    on the tensor cores and needs D <= 512 and K <= 256, both multiples of
-    32 (the classifier's D = 2H and K = H for H <= 256)."""
+    :func:`pool_head_bwd_plain`). The kernel runs its products on the tensor
+    cores, in bf16 under ``bf16`` (D <= 512 and K <= 256, both multiples of
+    32: the classifier's D = 2H and K = H for H <= 256), else in 3xTF32 (D <=
+    1024 and K <= 512, multiples of 32: H <= 512)."""
     xs = as_parts(xs)
     if xs[0].device.type == "cpu":
         return pool_head_bwd_plain(ln_params, attn_params, xs, weights, g_scores, g_ctx,
@@ -273,13 +280,18 @@ def pool_head_bwd(ln_params: Optional[Mapping], attn_params: Mapping, xs: Parts,
     k = attn_params["proj"]["w"].shape[1]
     if bf16:
         check_bf16_widths("pool_head_bwd", d_total, k)
+    else:
+        _check_widths("pool_head_bwd in float32", d_total, k, F32_BWD_MAX_D, F32_BWD_MAX_K)
     lib = kernels.load_library()
     dev = xs[0].device
     two = len(xs) == 2
     f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
-    # W1 and W1^T in the products' operand type: bf16, rounded once here
+    # W1 and W1^T in the products' operand type: bf16, rounded once here;
+    # the float32 mode streams them in 16-byte copies
     wdt = torch.bfloat16 if bf16 else torch.float32
     w1 = attn_params["proj"]["w"].to(wdt).contiguous()
+    if w1.data_ptr() % 16:
+        w1 = w1.clone()
     w1t = attn_params["proj"]["w"].t().to(wdt).contiguous()
     b1 = f32(attn_params["proj"]["b"])
     w2 = f32(attn_params["score"]["w"][:, 0])

@@ -32,6 +32,11 @@ from eegflow_torch.nn.layers import bf16_round
 LN_EPS = 1e-5
 _INV_SQRT2 = 1.0 / math.sqrt(2.0)
 _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
+#: kernel 9: its fixed persistent grid (one 512-thread CTA on each of an
+#: H100's 132 SMs) and the widest hidden size a 64-row tile takes (32-row
+#: tiles above it, up to 512)
+FWD_CTAS = 132
+FWD_WIDE_TILE_MAX_HIDDEN = 256
 #: kernel 10's bf16 mode: rows a CTA takes at a time, its fixed persistent
 #: grid (one 221 KB CTA on each of an H100's 132 SMs; a fixed count keeps the
 #: order of the partial sums, and so the result, the same on any card), and
@@ -41,6 +46,36 @@ BWD_CTAS = 132
 BWD_MAX_CHANNELS, BWD_MAX_HIDDEN = 64, 256
 #: its float32 mode: rows a CTA takes at a time, and at most this many CTAs
 _F32_TILE_ROWS, _F32_MAX_CTAS = 16, 256
+
+
+def _tiles_of(cta: int, rows: int, ctas: int, tile_rows: int) -> List[Tuple[int, int]]:
+    """(first row, rows) of each tile a persistent CTA ``cta`` walks, in its
+    order: tiles cta, cta + ctas, .. of ``rows`` rows."""
+    return [(t * tile_rows, min(tile_rows, rows - t * tile_rows))
+            for t in range(cta, -(-rows // tile_rows), ctas)]
+
+
+class FwdPlan(NamedTuple):
+    """A launch of kernel 9: ``ctas`` CTAs, each taking ``tile_rows`` rows at
+    a time."""
+
+    ctas: int
+    tile_rows: int
+
+    def tiles_of(self, cta: int, rows: int) -> List[Tuple[int, int]]:
+        return _tiles_of(cta, rows, self.ctas, self.tile_rows)
+
+
+def fwd_plan(rows: int, hidden: int) -> FwdPlan:
+    """Kernel 9's grid and tile for ``rows`` = B*T rows of ``hidden`` units,
+    in either mode: 64-row tiles up to H = 256 and 32-row tiles above it (a
+    64-row float32 z tile beside float32 W would not fit in shared memory at
+    H = 512), on at most :data:`FWD_CTAS` CTAs. Raises ``ValueError`` for H
+    outside 32..512 or not a multiple of 32."""
+    if hidden % 32 or not 0 < hidden <= 512:
+        raise ValueError(f"the input block kernels need H % 32 == 0 and H <= 512, got {hidden}")
+    tile_rows = 64 if hidden <= FWD_WIDE_TILE_MAX_HIDDEN else 32
+    return FwdPlan(min(FWD_CTAS, -(-rows // tile_rows)), tile_rows)
 
 
 class BwdPlan(NamedTuple):
@@ -57,10 +92,7 @@ class BwdPlan(NamedTuple):
     part: int
 
     def tiles_of(self, cta: int, rows: int) -> List[Tuple[int, int]]:
-        """(first row, rows) of each tile CTA ``cta`` walks, in its order:
-        tiles cta, cta + ctas, .. of ``rows`` rows."""
-        return [(t * self.tile_rows, min(self.tile_rows, rows - t * self.tile_rows))
-                for t in range(cta, -(-rows // self.tile_rows), self.ctas)]
+        return _tiles_of(cta, rows, self.ctas, self.tile_rows)
 
 
 def bwd_plan(rows: int, channels: int, hidden: int, bf16: bool) -> BwdPlan:
@@ -172,19 +204,23 @@ def _f32(t: torch.Tensor) -> torch.Tensor:
 def input_block_fused(proj: Mapping, norm: Mapping, x: torch.Tensor,
                       bf16: bool = False) -> torch.Tensor:
     """Kernel 9: ``gelu(LayerNorm(x @ W + b))`` over (B, T, C) windows ->
-    (B, T, H) float32; ``bf16`` rounds x and W to bf16 (float32 sums)."""
+    (B, T, H) float32; ``bf16`` rounds x and W to bf16 (float32 sums), on
+    the tensor cores. Its tiles and grid come from :func:`fwd_plan`."""
     if _device_kind("input_block_fwd", x) == "cpu":
         return input_block_fused_plain(proj, norm, x, bf16)
     _check_cuda_args(proj, norm, x)
-    lib = kernels.load_library()
     batch, steps, channels = x.shape
     hidden = proj["w"].shape[1]
+    plan = fwd_plan(batch * steps, hidden)
+    lib = kernels.load_library()
     y = torch.empty(batch, steps, hidden, dtype=torch.float32, device=x.device)
     w, b, gamma, beta = (_f32(t) for t in (proj["w"], proj["b"], norm["scale"], norm["bias"]))
-    err = lib.eegflow_input_block_fwd(x.data_ptr(), w.data_ptr(), b.data_ptr(),
+    # the kernel streams x in 16-byte copies
+    x_in = x if x.data_ptr() % 16 == 0 else x.clone()
+    err = lib.eegflow_input_block_fwd(x_in.data_ptr(), w.data_ptr(), b.data_ptr(),
                                       gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
-                                      batch * steps, channels, hidden, int(bf16),
-                                      _stream(x.device))
+                                      plan.ctas, plan.tile_rows, batch * steps, channels,
+                                      hidden, int(bf16), _stream(x.device))
     kernels.check(lib, err, "input_block_fwd")
     kernels.launch_counts["input_block_fwd"] += 1
     return y

@@ -776,6 +776,120 @@ def test_input_block_bwd_bf16_on_tensor_cores_matches_twin_and_repeats_bitwise(d
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("hidden", [32, 256, 512])
+@pytest.mark.parametrize("batch,steps", [(5, 37), (40, 256)])
+def test_input_block_fwd_on_persistent_tiles_matches_twin_and_repeats_bitwise(dev, bf16, hidden,
+                                                                              batch, steps):
+    """Kernel 9 on ragged rows (5 x 37 = 185, not a multiple of its 64- or
+    32-row tile) and on rows spanning more tiles than its persistent grid
+    holds (40 x 256 = 10240 rows: 160 tiles of 64, or 320 of 32 at H=512, on
+    132 CTAs), at the narrowest width, the classifier's and the widest."""
+    gen = make_generator(150 + hidden + int(bf16))
+    proj, norm, x = _input_case(gen, hidden, dev, batch=batch, steps=steps)
+    before = kernels.launch_counts["input_block_fwd"]
+    got = input_block_fused(proj, norm, x, bf16)
+    again = input_block_fused(proj, norm, x, bf16)
+    assert kernels.launch_counts["input_block_fwd"] == before + 2
+    want = input_block_fused_plain(proj, norm, x, bf16)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape and bool(torch.isfinite(got).all())
+    assert (got - want).abs().max().item() <= F32_TOL
+    assert torch.equal(got, again)
+
+
+@pytest.mark.parametrize("bf16", [False, True])
+@pytest.mark.parametrize("channels", [7, 64, 130])
+def test_input_block_fwd_takes_any_channel_count(dev, bf16, channels):
+    """C below the 16-wide mma step, C = kCP (the resident W's rows) and C =
+    130 (three channel chunks, W and x staged per chunk)."""
+    gen = make_generator(160 + channels)
+    proj, norm, x = _input_case(gen, 96, dev, batch=3, steps=50, channels=channels)
+    got = input_block_fused(proj, norm, x, bf16)
+    want = input_block_fused_plain(proj, norm, x, bf16)
+    torch.cuda.synchronize()
+    assert (got - want).abs().max().item() <= F32_TOL
+    assert torch.equal(got, input_block_fused(proj, norm, x, bf16))
+
+
+def test_input_block_fwd_reads_an_unaligned_input(dev):
+    gen = make_generator(170)
+    proj, norm, x = _input_case(gen, 64, dev, batch=2, steps=9)
+    flat = torch.empty(x.numel() + 1, device=dev)
+    shifted = flat[1:].view(x.shape)
+    shifted.copy_(x)
+    for bf16 in (False, True):
+        assert torch.equal(input_block_fused(proj, norm, shifted, bf16),
+                           input_block_fused(proj, norm, x, bf16))
+
+
+@pytest.mark.parametrize("ln_parts", [(False, 1), (True, 1), (False, 2), (True, 2)])
+@pytest.mark.parametrize("batch,steps", [(3, 100), (2, 256)])
+def test_pool_head_bwd_f32_on_tensor_cores_matches_twin_and_repeats_bitwise(dev, ln_parts,
+                                                                            batch, steps):
+    """Kernel 8's float32 mode (3xTF32) at the classifier's widths (parts of
+    256, K=256; one part of 256 and K=128), T not a multiple of its 32-row
+    tile (T=100) and a whole number of tiles (T=256), with and without LN."""
+    use_ln, n_parts = ln_parts
+    gen = make_generator(180 + n_parts + 2 * int(use_ln))
+    d_part, k = 256, 128 * n_parts
+    d = d_part * n_parts
+    ln = {"scale": 1 + 0.1 * _randn(gen, d, dev=dev), "bias": 0.1 * _randn(gen, d, dev=dev)}
+    attn = {"proj": {"w": 0.05 * _randn(gen, d, k, dev=dev), "b": 0.1 * _randn(gen, k, dev=dev)},
+            "score": {"w": 0.1 * _randn(gen, k, 1, dev=dev)}}
+    xs = tuple(torch.tanh(_randn(gen, batch, steps, d_part, dev=dev)) for _ in range(n_parts))
+    w = torch.softmax(_randn(gen, batch, steps, dev=dev), dim=-1)
+    gs = 0.01 * _randn(gen, batch, steps, dev=dev)
+    gc = tuple(0.1 * _randn(gen, batch, d_part, dev=dev) for _ in range(n_parts))
+    gctx = 0.1 * _randn(gen, batch, dev=dev)
+    args = (ln if use_ln else None, attn, xs, w, gs, gc, gctx, use_ln, False)
+    before = kernels.launch_counts["pool_head_bwd"]
+    got, again = pool_head_bwd(*args), pool_head_bwd(*args)
+    assert kernels.launch_counts["pool_head_bwd"] == before + 2
+    want = pool_head_bwd_plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda out: list(out[0]) + [t for t in out[1:] if t is not None]  # noqa: E731
+    assert len(flat(got)) == len(flat(want)) == n_parts + (5 if use_ln else 3)
+    for a, c in zip(flat(got), flat(want)):
+        assert bool(torch.isfinite(a).all()) and _rel(a, c) <= POOL_TOL[False]
+    assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
+
+
+@pytest.mark.parametrize("d_part,k", [(512, 512), (512, 96)])
+def test_pool_head_bwd_f32_takes_the_widths_of_hidden_512(dev, d_part, k):
+    """D = 1024 (two parts of 512) with K = 512 (a hidden-512 classifier) and
+    with K = 96: the 16-row tiles of the float32 mode."""
+    gen = make_generator(190 + k)
+    d = 2 * d_part
+    batch, steps = 2, 45
+    ln = {"scale": 1 + 0.1 * _randn(gen, d, dev=dev), "bias": 0.1 * _randn(gen, d, dev=dev)}
+    attn = {"proj": {"w": 0.03 * _randn(gen, d, k, dev=dev), "b": 0.1 * _randn(gen, k, dev=dev)},
+            "score": {"w": 0.1 * _randn(gen, k, 1, dev=dev)}}
+    xs = tuple(torch.tanh(_randn(gen, batch, steps, d_part, dev=dev)) for _ in range(2))
+    w = torch.softmax(_randn(gen, batch, steps, dev=dev), dim=-1)
+    gs = 0.01 * _randn(gen, batch, steps, dev=dev)
+    gc = tuple(0.1 * _randn(gen, batch, d_part, dev=dev) for _ in range(2))
+    gctx = 0.1 * _randn(gen, batch, dev=dev)
+    args = (ln, attn, xs, w, gs, gc, gctx, True, False)
+    got, again, want = pool_head_bwd(*args), pool_head_bwd(*args), pool_head_bwd_plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda out: list(out[0]) + list(out[1:])  # noqa: E731
+    for a, c in zip(flat(got), flat(want)):
+        assert _rel(a, c) <= POOL_TOL[False]
+    assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
+
+
+def test_pool_head_bwd_f32_rejects_widths_off_its_tiles(dev):
+    for d, k in ((40, 64), (64, 40), (1056, 64), (64, 544)):
+        x = torch.zeros(2, 5, d, device=dev)
+        attn = {"proj": {"w": torch.zeros(d, k, device=dev), "b": torch.zeros(k, device=dev)},
+                "score": {"w": torch.zeros(k, 1, device=dev)}}
+        z2 = torch.zeros(2, 5, device=dev)
+        with pytest.raises(ValueError, match="multiples of 32"):
+            pool_head_bwd(None, attn, (x,), z2, z2, (torch.zeros(2, d, device=dev),),
+                          torch.zeros(2, device=dev), False, False)
+
+
 def test_input_block_bwd_rejects_widths_off_its_tiles(dev):
     gen = make_generator(140)
     for channels, hidden, bf16 in ((65, 64, True), (61, 288, True), (61, 48, True),

@@ -13,8 +13,8 @@ import torch
 
 from eegflow.nn.pallas_input import input_block_fused as jax_input_block
 from eegflow_torch import kernels
-from eegflow_torch.nn.cuda_input import (BWD_CTAS, BWD_TILE_ROWS, bwd_plan, input_block,
-                                         input_block_bwd, input_block_bwd_plain,
+from eegflow_torch.nn.cuda_input import (BWD_CTAS, BWD_TILE_ROWS, FWD_CTAS, bwd_plan, fwd_plan,
+                                         input_block, input_block_bwd, input_block_bwd_plain,
                                          input_block_fused, input_block_fused_plain)
 
 # forward: the same (bf16-rounded) operands and LayerNorm formula; float32
@@ -138,3 +138,30 @@ def test_bwd_plan_rejects_widths_off_the_bf16_tiles(channels, hidden):
         bwd_plan(185, channels, hidden, True)
     if hidden % 32 == 0:
         bwd_plan(185, channels, hidden, False)  # the float32 mode takes them
+
+
+@pytest.mark.parametrize("hidden", [32, 256, 288, 512])
+@pytest.mark.parametrize("rows", [1, 31, 32, 185, 8448, 8449, 131072, 262144])
+def test_fwd_plan_owns_every_row_tile_once_and_takes_its_tile_by_width(rows, hidden):
+    """Kernel 9's launch plan: its persistent CTAs' tiles (tile i of CTA c: i
+    = c, c + ctas, ..) cover every row exactly once, every CTA owns at least
+    one, on at most FWD_CTAS CTAs; 64-row tiles up to H = 256 (the warps of a
+    64-row tile cover 256 units), 32-row tiles above it (a 64-row float32 z
+    tile and W would not fit in shared memory at H = 512)."""
+    plan = fwd_plan(rows, hidden)
+    assert plan.tile_rows == (64 if hidden <= 256 else 32)
+    assert plan.ctas == min(FWD_CTAS, -(-rows // plan.tile_rows))
+    owned = np.zeros(rows, np.int64)
+    for cta in range(plan.ctas):
+        tiles = plan.tiles_of(cta, rows)
+        assert tiles
+        for row0, n in tiles:
+            assert row0 % plan.tile_rows == 0 and 0 < n <= plan.tile_rows
+            owned[row0:row0 + n] += 1
+    assert (owned == 1).all()
+
+
+@pytest.mark.parametrize("hidden", [0, 48, 544, 1024])
+def test_fwd_plan_rejects_hidden_off_the_kernel(hidden):
+    with pytest.raises(ValueError, match="H % 32 == 0 and H <= 512"):
+        fwd_plan(185, hidden)

@@ -176,7 +176,8 @@ def test_plan_rejects_rows_outside_the_kernels_tiles(rows):
     assert cuda_lstm._plan_rows == lp.ROWS
 
 
-@pytest.mark.parametrize("variant", ["base", "nomma", "noexch", "nostore", "noload"])
+@pytest.mark.parametrize("variant", ["base", "nomma", "noexch", "nostore", "noload", "noln",
+                                     "nostream", "onetf32"])
 def test_ablation_variants_patch_the_current_sources(variant, tmp_path):
     """Each text an ablation replaces occurs once in today's kernel sources,
     so the variant builds what its name says."""
