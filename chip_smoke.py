@@ -24,7 +24,9 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      plain path (CUDA events), and each kernel against its twin; lstm_fwd at
      B=1024 (the cluster plan serving launches), pool_head_fwd in bf16
      mode (tensor cores) and input_block_fwd in bf16 mode at B=1024 are also
-     held to their twins and to a bitwise repeat;
+     held to their twins and to a bitwise repeat, and pool_head_fwd in float32
+     mode (3xTF32; the float32 served batch) held likewise and its launch
+     timed with torch.profiler;
   7. the bf16 training kernels against their twins at B=64, T=256, H=256:
      lstm_fwd in training mode (masks, residual planes) and lstm_bwd, each
      also bitwise against itself, and pool_head_bwd in its bf16 (tensor
@@ -62,11 +64,12 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      the bf16 "fused" step; lstm_rec_fwd on the plans the main path launches
      (training at B=512, with the z it leaves over the gates, and eval at
      B=512 and 1024) and lstm_rec_bwd on its B=512 plan held to their twins
-     and to a bitwise repeat; input_block_bwd in bf16 mode (tensor cores),
-     input_block_fwd in both modes and pool_head_bwd in float32 mode (3xTF32)
-     at B=512 held to their twins and to bitwise repeats, and their launches
-     (kernel 10's row kernel and partial-row reduction, kernel 8's kernel,
-     dW1 GEMM and reductions) timed apart with torch.profiler; each float32
+     and to a bitwise repeat; input_block_bwd in both modes (bf16 on the
+     tensor cores, float32 in 3xTF32), input_block_fwd in both modes,
+     pool_head_bwd and pool_head_fwd in float32 mode (3xTF32) at B=512 held to
+     their twins and to bitwise repeats, and their launches (kernel 10's row
+     kernel and partial-row reduction, kernel 8's kernel, dW1 GEMM and
+     reductions) timed apart with torch.profiler; each float32
      kernel (and the input block and pool_head_fwd in both modes) timed
      against its twin, lstm_rec_fwd eval also at B=1024;
  14. the kernels of the two other bf16 backward schedules against their
@@ -147,6 +150,9 @@ INPUT_TOL = 1e-4
 INPUT_BWD_REL_TOL = {False: 1e-3, True: 5e-3}
 # attention_pool (float32): sums in another order, an online softmax
 ATTN_POOL_TOL = 1e-4
+# pool_head_fwd in float32 mode (3xTF32, each product good to ~2^-21
+# relative) vs its twin's float32 products: ctx and scores
+POOL32_TOL = 1e-4
 # the float32 micro-step, kernel path vs plain path: summation order only
 STEP32_LOSS_TOL = 1e-4
 STEP32_GRAD_REL_TOL = 1e-3
@@ -216,8 +222,11 @@ def hold_at_main_shape(label, got, again, want, tol, relative):
 
 
 def device_ms(fn, reps):
-    """Device milliseconds a call of ``fn`` by kernel name (torch.profiler,
-    ``reps`` calls after a warmup)."""
+    """Mean device milliseconds of a launch of each kernel a call of ``fn``
+    makes, by kernel name (torch.profiler, ``reps`` calls after a warmup).
+    The mean is over the launches the profiler recorded: on the H100
+    machines it has dropped some of a session's launches, and a sum over
+    ``reps`` calls would count those as 0."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
@@ -226,7 +235,7 @@ def device_ms(fn, reps):
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_time_total > 0]
     names = (re.search(r"(\w+)(?:<[^>]*>)?\(", e.key) for e in events)
-    return {m.group(1) if m else e.key: e.device_time_total / 1e3 / reps
+    return {m.group(1) if m else e.key: e.device_time_total / 1e3 / e.count
             for m, e in zip(names, events)}
 
 
@@ -246,9 +255,12 @@ def nbytes(*items):
 
 def bound(bytes_moved, flops, dtype):
     """(ms, "bytes" | "operations"): the larger of the bytes over the HBM
-    rate and the products' operations over the peak rate of ``dtype``."""
+    rate and the products' operations over the peak rate of ``dtype``; a
+    kernel whose products run at several peaks gives ``flops`` and ``dtype``
+    as tuples, and their times add."""
+    pairs = zip(flops, dtype) if isinstance(dtype, tuple) else [(flops, dtype)]
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
-    by_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    by_ops = sum(f / PEAK_FLOPS[d] for f, d in pairs) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
 
 
@@ -509,6 +521,16 @@ def main() -> int:
     pool_plain_ms = cuda_ms(lambda: pool_head_fused_plain(*pargs), 5)
     print(f"pool_head_fwd B={BUCKET} T={T} parts=2x{H} K={H}: kernel {pool_ms:.3f} ms, "
           f"plain {pool_plain_ms:.3f} ms [{smi}]")
+    # kernel 7's float32 mode on the float32 served batch (coupled_rollout(bf16=False))
+    pargs32_big = pargs[:-1] + (False,)
+    pool_err32 = hold_at_main_shape(
+        f"pool_head_fwd float32 B={BUCKET} T={T} parts=2x{H} K={H} (3xTF32 tensor cores): ctx "
+        f"parts, scores", flat_head(pool_head_fused(*pargs32_big)),
+        flat_head(pool_head_fused(*pargs32_big)), flat_head(pool_head_fused_plain(*pargs32_big)),
+        POOL32_TOL, relative=False)
+    split = device_ms(lambda: pool_head_fused(*pargs32_big), 5)
+    print(f"pool_head_fwd float32 B={BUCKET} T={T}: device ms a launch by kernel (torch.profiler): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f" [{smi}]", flush=True)
     # kernel 9's bf16 mode on the plan serving launches at the bucket
     ib = (params["input_proj"], params["input_norm"])
     xin_big = torch.from_numpy(x_big).to(dev)
@@ -519,7 +541,7 @@ def main() -> int:
         [input_block_fused(*ib, xin_big, True)], [input_block_fused(*ib, xin_big, True)],
         [input_block_fused_plain(*ib, xin_big, True)], INPUT_TOL, relative=False)
     in_big_ms = device_ms(lambda: input_block_fused(*ib, xin_big, True), 5)
-    print(f"input_block_fwd bf16 B={BUCKET} T={T}: device ms a call by launch (torch.profiler): "
+    print(f"input_block_fwd bf16 B={BUCKET} T={T}: device ms a launch by kernel (torch.profiler): "
           + ", ".join(f"{k} {v:.3f}" for k, v in in_big_ms.items()) + f" [{smi}]", flush=True)
     del xin_big
 
@@ -781,7 +803,7 @@ def main() -> int:
                                              for a, b in zip(got, want)])
     x_in = randn(B_CHECK, T, C)
     dy_in = randn(B_CHECK, T, H)
-    in_fwd_err32 = in_bwd_err = 0.0
+    in_fwd_err32 = in_bwd_err = in_bwd_err32 = 0.0
     for bf16 in (False, True):
         y_k = input_block_fused(params["input_proj"], params["input_norm"], x_in, bf16)
         y_p = input_block_fused_plain(params["input_proj"], params["input_norm"], x_in, bf16)
@@ -801,11 +823,13 @@ def main() -> int:
         require(err <= INPUT_TOL, f"input_block_fwd within {INPUT_TOL} of its twin")
         require(max(errs.values()) <= INPUT_BWD_REL_TOL[bf16] and same,
                 "input_block_bwd within tolerance of its twin, bitwise repeatable")
+        bwd_abs = max((a - b).abs().max().item() for a, b in zip(got, want))
         if bf16:
             in_fwd_err = max(in_fwd_err, err)
+            in_bwd_err = max(in_bwd_err, bwd_abs)
         else:
             in_fwd_err32 = max(in_fwd_err32, err)
-        in_bwd_err = max(in_bwd_err, *[(a - b).abs().max().item() for a, b in zip(got, want)])
+            in_bwd_err32 = max(in_bwd_err32, bwd_abs)
     attn256 = {name: {k: v.to(dev) for k, v in sub.items()}
                for name, sub in additive_attention_init(make_generator(SEED + 10), H).items()}
     apool_args = (torch.tanh(randn(B_CHECK, T, H)), attn256["proj"]["w"], attn256["proj"]["b"],
@@ -836,7 +860,7 @@ def main() -> int:
     apool_err = max(apool_err, err)
     aargs = (xa, attn256["proj"]["w"], attn256["proj"]["b"], attn256["score"]["w"][:, 0])
     work["attention_pool"] = (nbytes(aargs, attention_pool(*aargs)),
-                              2 * B_TRAIN * T * H * (H // 2), "float32")
+                              2 * B_TRAIN * T * H * (H // 2), "tf32x3")
     m = median_ms({"plain": lambda: attention_pool_plain(*aargs),
                    "kernel": lambda: attention_pool(*aargs)}, rounds=1)
     apool_ms = (m["kernel"], m["plain"])
@@ -985,7 +1009,7 @@ def main() -> int:
         list(input_block_bwd_plain(*ib, x512, dy512, True)), INPUT_BWD_REL_TOL[True],
         relative=True))
     in_parts = device_ms(lambda: input_block_bwd(*ib, x512, dy512, True), 5)
-    print(f"input_block_bwd bf16 B={B_TRAIN} T={T}: device ms a call by launch (torch.profiler): "
+    print(f"input_block_bwd bf16 B={B_TRAIN} T={T}: device ms a launch by kernel (torch.profiler): "
           + ", ".join(f"{k} {v:.3f}" for k, v in in_parts.items()) + f" [{smi}]",
           flush=True)
     # kernel 9 in both modes at the micro-step's shape, on its persistent grid
@@ -1002,7 +1026,7 @@ def main() -> int:
         else:
             in_fwd_err32 = max(in_fwd_err32, err)
         split = device_ms(lambda: input_block_fused(*ib, x512, bf16), 5)
-        print(f"input_block_fwd {mode} B={B_TRAIN} T={T}: device ms a call by launch "
+        print(f"input_block_fwd {mode} B={B_TRAIN} T={T}: device ms a launch by kernel "
               f"(torch.profiler): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
               + f" [{smi}]", flush=True)
     # kernel 8's float32 mode at the micro-step's shape (two parts of 256)
@@ -1012,7 +1036,30 @@ def main() -> int:
         flat_pool(pool_head_bwd(*pargs32)), flat_pool(pool_head_bwd_plain(*pargs32)),
         POOL_BWD_REL_TOL, relative=True)
     split = device_ms(lambda: pool_head_bwd(*pargs32), 5)
-    print(f"pool_head_bwd float32 B={B_TRAIN} T={T}: device ms a call by launch (torch.profiler): "
+    print(f"pool_head_bwd float32 B={B_TRAIN} T={T}: device ms a launch by kernel (torch.profiler): "
+          + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f" [{smi}]", flush=True)
+    # kernel 10's float32 mode at the micro-step's shape, on its persistent grid
+    in_plan32 = bwd_plan(B_TRAIN * T, C, H, False)
+    in_bwd_err32 = max(in_bwd_err32, hold_at_main_shape(
+        f"input_block_bwd float32 B={B_TRAIN} T={T} C={C} H={H} ({in_plan32.ctas} CTAs of "
+        f"{in_plan32.tile_rows}-row tiles, 3xTF32 tensor cores): dx, dW, db, dgamma, dbeta",
+        list(input_block_bwd(*ib, x512, dy512, False)),
+        list(input_block_bwd(*ib, x512, dy512, False)),
+        list(input_block_bwd_plain(*ib, x512, dy512, False)), INPUT_BWD_REL_TOL[False],
+        relative=True))
+    split = device_ms(lambda: input_block_bwd(*ib, x512, dy512, False), 5)
+    print(f"input_block_bwd float32 B={B_TRAIN} T={T}: device ms a launch by kernel "
+          f"(torch.profiler): " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+          + f" [{smi}]", flush=True)
+    # kernel 7's float32 mode at the micro-step's batch
+    fargs32 = fargs7[:-1] + (False,)
+    pool_err32 = max(pool_err32, hold_at_main_shape(
+        f"pool_head_fwd float32 B={B_TRAIN} T={T} parts=2x{H} K={H} (3xTF32 tensor cores): ctx "
+        f"parts, scores", flat_head(pool_head_fused(*fargs32)),
+        flat_head(pool_head_fused(*fargs32)), flat_head(pool_head_fused_plain(*fargs32)),
+        POOL32_TOL, relative=False))
+    split = device_ms(lambda: pool_head_fused(*fargs32), 5)
+    print(f"pool_head_fwd float32 B={B_TRAIN} T={T}: device ms a launch by kernel (torch.profiler): "
           + ", ".join(f"{k} {v:.3f}" for k, v in split.items()) + f" [{smi}]", flush=True)
     # training mode writes z over its gates; the timed calls share one buffer
     # (its z drifts from call to call, which no timing depends on)
@@ -1032,12 +1079,13 @@ def main() -> int:
          (*ib, x512, dy512, True), 3 * in_flops, "bf16"),
         ("input_block_fwd float32", input_block_fused, input_block_fused_plain,
          (*ib, x512, False), in_flops, "float32"),
+        # the recomputed forward on CUDA cores, dx and dW in 3xTF32
         ("input_block_bwd float32", input_block_bwd, input_block_bwd_plain,
-         (*ib, x512, dy512, False), 3 * in_flops, "float32"),
+         (*ib, x512, dy512, False), (in_flops, 2 * in_flops), ("float32", "tf32x3")),
         ("pool_head_bwd float32", pool_head_bwd, pool_head_bwd_plain, pargs32, head_flops,
          "tf32x3"),
-        ("pool_head_fwd float32", pool_head_fused, pool_head_fused_plain,
-         fargs7[:-1] + (False,), head_flops // 3, "float32"))
+        ("pool_head_fwd float32", pool_head_fused, pool_head_fused_plain, fargs32,
+         head_flops // 3, "tf32x3"))
     for name, kfn, pfn, args, flops, dtype in timed:
         # kernel 1's training mode also writes z (the size of its gates)
         extra = nbytes(z_buf) if name == "lstm_rec_fwd_train" else 0
@@ -1045,9 +1093,10 @@ def main() -> int:
         m = median_ms({"plain": lambda: pfn(*args), "kernel": lambda: kfn(*args)}, rounds=1)
         train_ms[name] = (m["kernel"], m["plain"])
         bound_ms, bound_by = bound(*work[name])
+        peaks = "+".join(dtype) if isinstance(dtype, tuple) else dtype
         print(f"{name} B={B_TRAIN} T={T} H={H}: kernel {m['kernel']:.3f} ms, "
               f"plain {m['plain']:.3f} ms, bound {bound_ms:.3f} ms by {bound_by} at the "
-              f"{dtype} peak [{smi}]", flush=True)
+              f"{peaks} peak [{smi}]", flush=True)
 
     # phase 14: the kernels of the two other bf16 backward schedules
     gates_err = v2_err = dd_err = 0.0
@@ -1326,6 +1375,12 @@ def main() -> int:
         entry("input_block_bwd", "input_block.cu", "eegflow/nn/pallas_input.py:117",
               train_counts.get("input_block_bwd", 0), in_bwd_err,
               *train_ms["input_block_bwd bf16"], "input_block_bwd bf16"),
+        entry("input_block_bwd float32", "input_block.cu", "eegflow/nn/pallas_input.py:117",
+              f32_counts.get("input_block_bwd", 0), in_bwd_err32,
+              *train_ms["input_block_bwd float32"]),
+        entry("pool_head_fwd float32", "pool_head_fwd.cu", "eegflow/nn/pallas_attention.py:155",
+              f32_counts.get("pool_head_fwd", 0), pool_err32,
+              *train_ms["pool_head_fwd float32"]),
         entry("attention_pool", "pool_head_fwd.cu", "eegflow/nn/pallas_attention.py:28",
               attn_counts.get("attention_pool", 0), apool_err, *apool_ms),
         entry("lstm_fwd_train_gates", "lstm_fwd.cu", "eegflow/nn/pallas_lstm.py:430",

@@ -24,9 +24,11 @@
 // multiply-adds a row each (three in the backward). At B=512, T=256 the
 // forward moves 166 MB (0.050 ms at 3.35 TB/s; y is 80 % of it) and does
 // 4.1 GFLOP (0.061 ms at the float32 CUDA-core peak, 0.004 ms at the bf16
-// tensor-core peak); the backward moves 198 MB (0.059 ms) and does 12 GFLOP.
-// Both are memory-bound except the float32 forward, bound by its products.
-// The LayerNorm needs a reduction across the H units of a row.
+// tensor-core peak); the backward moves 198 MB (0.059 ms) and does 12 GFLOP
+// (float32: z 4.1 GFLOP on CUDA cores, 0.061 ms, and dx and dW 8.2 GFLOP in
+// 3xTF32, 0.050 ms at a third of the TF32 peak). Both are memory-bound
+// except the float32 modes, bound by their products. The LayerNorm needs a
+// reduction across the H units of a row.
 //
 // Forward (input_block_fwd_kernel): a persistent grid of a fixed number of
 // CTAs of 16 warps (the caller's plan, eegflow_torch/nn/cuda_input.py
@@ -41,38 +43,48 @@
 // same function as the bf16 backward's recomputed z, so both see the same z
 // and the same statistics, row_stats). The float32 mode keeps the products on
 // CUDA cores (TF32 would be a different function): float32 W in shared
-// memory, each thread a 4-row x 8-unit register tile, each z summed exactly
-// as `project` sums it (fmaf over c ascending from 0, then + b), so the
-// float32 backward recomputes it bit for bit. C > kCP runs the product in
-// channel chunks of kCP, W and x staged per chunk (no row of the classifier
-// takes that path). Rows past B*T read as zero x and store nothing.
+// memory, each thread a 4-row register tile (ZTileF32), each z
+// summed as fmaf over c ascending from 0, then + b; the float32 backward
+// recomputes z with the same tile, so both see the same z bit for bit (the
+// reference's bit-identical recomputation, pallas_input.py _proj_ln). C > kCP
+// runs the product in channel chunks of kCP, W and x staged per chunk (no
+// row of the classifier takes that path). Rows past B*T read as zero x and
+// store nothing.
 //
-// The backward's float32 mode: a CTA of H threads owns kR rows at a time,
-// thread u owns unit u (column u of W), so x . W, the LayerNorm and GELU's
-// derivative are per-thread loops over the kR rows with the row staged in
-// shared memory; the row sums (the statistics, mean(dxhat), mean(dxhat
-// xhat)) reduce by warp shuffles and then over the warps in a fixed order.
-// It stages W in shared memory, padded so dx = dz . W^T reads it without bank
-// conflicts, and forms dx in the kernel. It walks the rows in the caller's
-// grid of at most 256 CTAs, each owning its partial db, dgamma, dbeta; those
-// partial rows, and the split-K partials of dW (from dz written to a float32
-// scratch, on gemm.cuh's tiled GEMM), are summed in a fixed order.
-//
-// The backward's bf16 mode (input_block_bwd_bf16_kernel): a persistent grid
-// of a fixed number of CTAs of 16 warps (the caller's), each walking row
-// tiles of kTile = 64 rows (tile i of CTA c: i = c, c + grid, ..), runs
-// its three products on mma.sync m16n8k16 with C padded to kCP = 64 by zeros
-// in shared memory and bf16(W) resident there: z = bf16(x)[64 x 64] .
-// bf16(W)[64 x H] (+ b) into a float32 tile; then one warp per row (two
-// passes of shuffles: the statistics, then mean(dxhat) and mean(dxhat
-// xhat)) forms dz, bf16(dz) into a tile, and each lane sums db, dgamma and
-// dbeta of its columns; then dx = bf16(dz) . bf16(W)^T is stored and dW +=
-// bf16(x)^T . bf16(dz) accumulates in registers across the CTA's tiles. dy
-// and x stream into shared memory by cp.async one tile ahead, behind the
-// products. Each CTA writes one partial row [dW (C x H), db, dgamma, dbeta]
+// Backward: both modes run on a persistent grid of a fixed number of CTAs of
+// 16 warps (the caller's plan, cuda_input.py bwd_plan), each walking row
+// tiles (tile i of CTA c: i = c, c + grid, ..), with dy and x streaming into
+// shared memory by cp.async one tile ahead, behind the products. Per tile: z
+// into a float32 tile; then one warp per row (two passes of shuffles: the
+// statistics, then mean(dxhat) and mean(dxhat xhat)) forms dz into a tile,
+// and each lane sums db, dgamma and dbeta of its columns; then dx = dz . W^T
+// is stored and dW += x^T . dz accumulates in registers across the CTA's
+// tiles. Each CTA writes one partial row [dW (C x H), db, dgamma, dbeta]
 // (the warps' column sums added in warp order), and a second small launch
 // adds the rows in CTA order: no scratch of size B*T x H, no atomics, so a
-// launch repeats bit for bit. Needs C <= 64 and H <= 256, H % 32 == 0.
+// launch repeats bit for bit. Rows past B*T have zero x and zero-filled dy,
+// so their dz is exactly 0.
+//
+// The backward's bf16 mode (input_block_bwd_bf16_kernel): 64-row tiles, its
+// three products on mma.sync m16n8k16 with C padded to kCP = 64 by zeros in
+// shared memory and bf16(W) resident there: z = bf16(x) . bf16(W) (+ b), dx =
+// bf16(dz) . bf16(W)^T, dW += bf16(x)^T . bf16(dz). Needs C <= 64 and H <=
+// 256, H % 32 == 0.
+//
+// The backward's float32 mode (input_block_bwd_f32_kernel): 32-row tiles (16
+// for H > 256, as the forward's rule), W resident as float32 [c][u], z
+// recomputed on CUDA cores with the forward's ZTileF32 on warp tiles half as
+// wide, all 16 warps busy (the statistics are the forward's bit for bit), dz
+// a float32 tile, and dx and dW in 3xTF32 on
+// mma.sync m16n8k8 (mma_gemm.cuh's tf32_split, Tf32A and mma_tf32: each
+// product good to about 2^-21 relative). ldmatrix cannot transpose 32-bit
+// elements, so each operand is read where its k runs contiguous: dx's A (dz
+// [r][u]) and B (W [c][u], k = u) and dW's A (x staged transposed, [c][r],
+// k = r) by ldmatrix at row strides of 4 mod 32 floats (conflict-free), dW's
+// B (dz, k = r across rows) by scalar loads (two-way bank conflicts). Any C:
+// for C > kCP the CTA walks its tiles once per channel chunk, recomputing z
+// and dz each time and forming that chunk's dx columns and dW rows. H % 32
+// == 0, H <= 512.
 
 #include <math.h>
 
@@ -81,17 +93,11 @@
 #include <type_traits>
 
 #include "common.cuh"
-#include "gemm.cuh"
 #include "mma_gemm.cuh"
 
 namespace {
 
-constexpr int kR = 16;          // rows per CTA pass
-constexpr int kMaxH = 512;      // H <= 512 (one thread per unit)
-
-__device__ __forceinline__ float maybe_bf16(float v, int bf16) {
-  return bf16 ? eegflow::bf16_round(v) : v;
-}
+constexpr int kMaxH = 512;  // the widest H of either kernel
 
 // erf by Abramowitz & Stegun 7.1.26, as eegflow/nn/pallas_input.py _erf.
 // kFast takes the hardware's approximate reciprocal and exponential, a few
@@ -118,63 +124,6 @@ __device__ __forceinline__ float gelu_grad(float z) {
   const float phi = expf(-0.5f * z * z) * 0.3989422804014327f;
   const float cdf = 0.5f * (1.0f + erf_as(z * 0.7071067811865476f));
   return cdf + z * phi;
-}
-
-// Stage kR rows of x (row-major, C floats each) into xs, bf16-rounded under
-// bf16; rows past `rows` read as 0.
-__device__ __forceinline__ void stage_rows(const float* __restrict__ x, float* xs, int row0,
-                                           int rows, int C, int bf16) {
-  const int avail = min(kR, rows - row0) * C;
-  for (int i = threadIdx.x; i < kR * C; i += blockDim.x)
-    xs[i] = i < avail ? maybe_bf16(x[static_cast<size_t>(row0) * C + i], bf16) : 0.f;
-}
-
-// z[r] = sum_c xs[r][c] w[c][u] + b_u over c ascending; w has leading
-// dimension ldw. The float32 backward calls this; the float32 forward's
-// register tile (ZTileF32) sums each z in the same order, with the same
-// values of w, so the two compute the same z bit for bit (the reference's
-// bit-identity of the recomputed statistics, pallas_input.py _proj_ln).
-__device__ __forceinline__ void project(const float* xs, const float* w, int ldw, int C,
-                                        int u, float bias, int bf16, float (&z)[kR]) {
-#pragma unroll
-  for (int r = 0; r < kR; ++r) z[r] = 0.f;
-  for (int c = 0; c < C; ++c) {
-    const float wc = maybe_bf16(w[static_cast<size_t>(c) * ldw + u], bf16);
-#pragma unroll
-    for (int r = 0; r < kR; ++r) z[r] = fmaf(xs[r * C + c], wc, z[r]);
-  }
-#pragma unroll
-  for (int r = 0; r < kR; ++r) z[r] = z[r] + bias;
-}
-
-// a[r] and b[r] summed over the CTA's threads, for each of the kR rows: by
-// shuffles within a warp, then over the warps in order. Every thread gets
-// the same sums. red holds kMaxH / 32 * kR * 2 floats.
-__device__ __forceinline__ void row_sums(float (&a)[kR], float (&b)[kR], float* red) {
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int nwarps = blockDim.x >> 5;
-#pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    const float sa = eegflow::warp_sum(a[r]);
-    const float sb = eegflow::warp_sum(b[r]);
-    if (lane == 0) {
-      red[(warp * kR + r) * 2] = sa;
-      red[(warp * kR + r) * 2 + 1] = sb;
-    }
-  }
-  __syncthreads();
-#pragma unroll
-  for (int r = 0; r < kR; ++r) {
-    float sa = 0.f, sb = 0.f;
-    for (int w = 0; w < nwarps; ++w) {
-      sa += red[(w * kR + r) * 2];
-      sb += red[(w * kR + r) * 2 + 1];
-    }
-    a[r] = sa;
-    b[r] = sb;
-  }
-  __syncthreads();  // red is reused by the next call
 }
 
 // mean and 1/sqrt(var + eps) of a row from its sums of z and z^2
@@ -300,27 +249,31 @@ struct ZTileBf16 {
   }
 };
 
-// float32 z of a tile on CUDA cores: warp tiles of 16 rows x 64 units (at
-// most kFWarps of them: kRows / 16 x Hp / 64, Hp = H rounded up to 64), warp
-// w owning tile w; lane (lr = lane / 8, lu = lane % 8) the rows 4 lr .. + 3
-// of it and the units 4 lu + 32 j + e (j < 2, e < 4). x is staged transposed,
-// xt [c][ldx], W as ws [c][Hp] float32 (columns past H zero).
-template <int kRows>
+// float32 z of a tile on CUDA cores: warp tiles of 16 rows x kUW units (at
+// most 16 of them: kRows / 16 x Hp / kUW, Hp = H rounded up to 64), warp w
+// owning tile w; lane (lr = lane / 8, lu = lane % 8) the rows 4 lr .. + 3 of
+// it and the units 4 lu + 32 j + e (j < kUW / 32, e < 4). x is staged
+// transposed, xt [c][ldx], W as ws [c][ldw] float32 (ldw >= Hp, columns past
+// H zero). Each z is fmaf over c ascending from 0, then + b, whatever the
+// tile shape: kernels 9 (kUW = 64) and 10 (kUW = 32, so its 32-row tiles
+// keep all 16 warps busy) both take z from here and agree bit for bit.
+template <int kRows, int kUW = 64>
 struct ZTileF32 {
   static constexpr int kWR = kRows / 16;  // warp tiles down a tile
-  float acc[4][8];
-  float bv[8];  // b of the thread's units (0 past H)
-  int r0, u0;   // the thread's first row and unit
+  static constexpr int kN = kUW / 8;      // units a thread owns
+  float acc[4][kN];
+  float bv[kN];  // b of the thread's units (0 past H)
+  int r0, u0;    // the thread's first row and unit
   bool active;
 
   __device__ __forceinline__ void init(const float* __restrict__ bias, int H, int warp,
                                        int lane) {
     const int Hp = (H + 63) / 64 * 64;
-    active = warp < kWR * (Hp / 64);
+    active = warp < kWR * (Hp / kUW);
     r0 = 16 * (warp % kWR) + 4 * (lane >> 3);
-    u0 = 64 * (warp / kWR) + 4 * (lane & 7);
+    u0 = kUW * (warp / kWR) + 4 * (lane & 7);
 #pragma unroll
-    for (int j = 0; j < 2; ++j)
+    for (int j = 0; j < kN / 4; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int u = u0 + 32 * j + e;
@@ -331,10 +284,10 @@ struct ZTileF32 {
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int n = 0; n < 8; ++n) acc[r][n] = 0.f;
+      for (int n = 0; n < kN; ++n) acc[r][n] = 0.f;
   }
   // channels c0 + c, c < cn, in ascending order: z = fmaf(x, w, z)
-  __device__ __forceinline__ void accumulate(const float* xt, int ldx, const float* ws, int Hp,
+  __device__ __forceinline__ void accumulate(const float* xt, int ldx, const float* ws, int ldw,
                                              int cn) {
     if (!active) return;
     const float* xp = xt + r0;
@@ -342,14 +295,17 @@ struct ZTileF32 {
 #pragma unroll 4
     for (int c = 0; c < cn; ++c) {
       const float4 xv = *reinterpret_cast<const float4*>(xp + c * ldx);
-      const float4 w0 = *reinterpret_cast<const float4*>(wp + c * Hp);
-      const float4 w1 = *reinterpret_cast<const float4*>(wp + c * Hp + 32);
+      float wn[kN];
+#pragma unroll
+      for (int j = 0; j < kN / 4; ++j) {
+        const float4 wj = *reinterpret_cast<const float4*>(wp + c * ldw + 32 * j);
+        wn[4 * j] = wj.x, wn[4 * j + 1] = wj.y, wn[4 * j + 2] = wj.z, wn[4 * j + 3] = wj.w;
+      }
       const float xr[4] = {xv.x, xv.y, xv.z, xv.w};
-      const float wn[8] = {w0.x, w0.y, w0.z, w0.w, w1.x, w1.y, w1.z, w1.w};
 #pragma unroll
       for (int r = 0; r < 4; ++r)
 #pragma unroll
-        for (int n = 0; n < 8; ++n) acc[r][n] = fmaf(xr[r], wn[n], acc[r][n]);
+        for (int n = 0; n < kN; ++n) acc[r][n] = fmaf(xr[r], wn[n], acc[r][n]);
     }
   }
   __device__ __forceinline__ void store(float* zs, int ldz) const {
@@ -357,7 +313,7 @@ struct ZTileF32 {
 #pragma unroll
     for (int r = 0; r < 4; ++r)
 #pragma unroll
-      for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < kN / 4; ++j)
         *reinterpret_cast<float4*>(zs + (r0 + r) * ldz + u0 + 32 * j) =
             make_float4(acc[r][4 * j] + bv[4 * j], acc[r][4 * j + 1] + bv[4 * j + 1],
                         acc[r][4 * j + 2] + bv[4 * j + 2], acc[r][4 * j + 3] + bv[4 * j + 3]);
@@ -539,85 +495,341 @@ cudaError_t launch_fwd(const float* x, const float* w, const float* bias, const 
   return cudaGetLastError();
 }
 
-// The backward's float32 mode, launched with bf16 = 0: its bf16 branches are
-// dead (the bf16 mode has its own kernel below) and stay, as in
-// pool_head_fwd.cu.
-__global__ void __launch_bounds__(kMaxH)
-input_block_bwd_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-                       const float* __restrict__ w, const float* __restrict__ bias,
-                       const float* __restrict__ gamma, const float* __restrict__ beta,
-                       float* __restrict__ dx, float* __restrict__ dz_scr,
-                       float* __restrict__ vec_part, int rows, int C, int bf16, float eps) {
-  extern __shared__ float4 smem4[];
-  const int u = threadIdx.x;  // blockDim.x == H
-  const int H = blockDim.x;
-  const int ldw = H + 1;                               // padded: dx reads w[c][k] across c
-  float* const ws = reinterpret_cast<float*>(smem4);   // [C][H + 1]  bf16?(W)
-  float* const dzs = ws + C * ldw;                     // [kR][H]     bf16?(dz)
-  float* const xs = dzs + kR * H;                      // [kR][C]     bf16?(x)
-  float* const red = xs + kR * C;                      // [warps][kR][2]
+// ---- kernel 10, float32 mode ----
+
+constexpr int kF32Threads = 512;
+constexpr int kF32Warps = kF32Threads / 32;
+
+// Tiles of kRows rows (32: H <= 256; 16: H <= 512), kF32Threads threads.
+// Thread (warp w, lane = 4 g + q): row pass rows w, w + 16, columns 4 (lane +
+// 32 i) .. + 3; dx m-tile w % kMT (rows 16 (w % kMT) + g, + 8) and n-tile
+// w / kMT (channels 8 (w / kMT) + 2 q, + 1 of the chunk); dW channels
+// 16 (w % 4) + g, + 8 of the chunk and units 8 nt + 2 q, + 1 of the n-tiles
+// nt = w / 4 + 4 j.
+//   x (rows, C), dy (rows, H) (both 16-byte aligned), w (C, H), bias, gamma,
+//   beta (H,) float32; dx (rows, C); part (gridDim.x, C H + 3 H) the CTA's
+//   partial [dW, db, dgamma, dbeta].
+// Shared memory (bwd_f32_smem_bytes): W of a channel chunk [kCP][Hp + 4], x^T
+// of the chunk [kCP][kRows + 4], z and then dz [kRows][Hp + 4], dy [kRows][H],
+// the tile's x as read [kRows * kCP] (C <= kCP).
+template <int kRows>
+__global__ void __launch_bounds__(kF32Threads, 1)
+input_block_bwd_f32_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                           const float* __restrict__ w, const float* __restrict__ bias,
+                           const float* __restrict__ gamma, const float* __restrict__ beta,
+                           float* __restrict__ dx, float* __restrict__ part, int rows, int C,
+                           int H, float eps) {
+  using eegflow::smem_addr;
+  constexpr int kMT = kRows / 16;      // m-tiles of dx
+  constexpr int kMaxHt = 512 / kMT;    // the widest H of this tile
+  constexpr int kCh = kMaxHt / 128;    // float4 chunks of a row a lane owns
+  constexpr int kNT = kMaxHt / 8 / 4;  // n-tiles of dW a warp owns
+  constexpr int kGroup = 4;            // dW's n-tiles whose products go in turns
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int Hp = (H + 63) / 64 * 64;
+  const int ldw = Hp + 4, ldx = kRows + 4, ldz = Hp + 4;
+  float* const ws = reinterpret_cast<float*>(smem);
+  float* const xt = ws + kCP * ldw;
+  float* const zs = xt + kCP * ldx;
+  float* const dys = zs + kRows * ldz;
+  float* const xraw = dys + kRows * H;
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const int tiles = (rows + kRows - 1) / kRows;
+  const int nch = (C + kCP - 1) / kCP;
+  const int hc = H / 4;
   const float inv_h = 1.0f / static_cast<float>(H);
 
-  for (int c = 0; c < C; ++c)
-    ws[c * ldw + u] = maybe_bf16(w[static_cast<size_t>(c) * H + u], bf16);
-  const float bu = bias[u], gu = gamma[u], btu = beta[u];
-  float db = 0.f, dgam = 0.f, dbet = 0.f;
+  // W's channels c0 .. c0 + kCP into ws, rows past C and columns past H zero
+  auto stage_w = [&](int c0) {
+    for (int i = tid; i < kCP * Hp; i += kF32Threads) {
+      const int c = i / Hp, u = i - c * Hp;
+      ws[c * ldw + u] = c0 + c < C && u < H ? w[static_cast<size_t>(c0 + c) * H + u] : 0.f;
+    }
+  };
+  // the tile's x[r][c0 + c] transposed into xt from src (its channel c0,
+  // rows lds floats apart), rows past avail and channels past C zero
+  auto stage_x = [&](const float* src, int lds, int c0, int avail) {
+    const int cn = min(kCP, C - c0);
+    for (int i = tid; i < kCP * kRows; i += kF32Threads) {
+      const int c = i / kRows, r = i - c * kRows;
+      xt[c * ldx + r] = c < cn && r < avail ? src[r * lds + c] : 0.f;
+    }
+  };
+  // a tile's dy into dys by cp.async, rows past `rows` zero-filled, and for
+  // C <= kCP its x rows (one contiguous span) into xraw
+  auto fetch = [&](int tile) {
+    const int row0 = tile * kRows;
+    const float* const dyg = dy + static_cast<size_t>(row0) * H;
+    for (int c = tid; c < kRows * hc; c += kF32Threads) {
+      const int r = c / hc, col = (c - r * hc) * 4;
+      const bool valid = row0 + r < rows;
+      eegflow::cp_async16(smem_addr(dys + r * H + col), valid ? dyg + r * H + col : dy, valid);
+    }
+    if (nch == 1) {
+      const int nx = min(kRows, rows - row0) * C;  // floats of the tile's rows
+      const float* const xg = x + static_cast<size_t>(row0) * C;
+      for (int c = tid; c < kRows * C / 4; c += kF32Threads) {
+        const int n = min(4, max(0, nx - 4 * c));
+        eegflow::cp_async16_part(smem_addr(xraw + 4 * c), n > 0 ? xg + 4 * c : x, 4 * n);
+      }
+    }
+    eegflow::cp_async_commit();
+  };
 
-  for (int row0 = blockIdx.x * kR; row0 < rows; row0 += gridDim.x * kR) {
-    stage_rows(x, xs, row0, rows, C, bf16);
-    __syncthreads();
-    float z[kR], s1[kR], s2[kR];
-    project(xs, ws, ldw, C, u, bu, bf16, z);
+  // db, dgamma, dbeta of the lane's columns over the warp's rows
+  float pdb[kCh][4], pdg[kCh][4], pdbt[kCh][4];
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      s1[r] = z[r];
-      s2[r] = z[r] * z[r];
-    }
-    row_sums(s1, s2, red);
+  for (int i = 0; i < kCh; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) pdb[i][e] = pdg[i][e] = pdbt[i][e] = 0.f;
+  ZTileF32<kRows, 32> zt;
+  zt.init(bias, H, warp, lane);
+  float* const out = part + static_cast<size_t>(blockIdx.x) * (C + 3) * H;
 
-    float rsig[kR], dxh[kR];
+  // one pass over the CTA's tiles per channel chunk (one for C <= kCP): dx's
+  // columns and dW's rows of channels c0 .. c0 + kCP
+  for (int pass = 0; pass < nch; ++pass) {
+    const int c0 = pass * kCP;
+    const int cn = min(kCP, C - c0);
+    float acc_w[kNT][4];  // dW of the warp's channels and n-tiles over the CTA's rows
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      float mu;
-      ln_stats(s1[r], s2[r], inv_h, eps, mu, rsig[r]);
-      z[r] = (z[r] - mu) * rsig[r];  // xhat from here on
-      const float g =
-          row0 + r < rows ? dy[static_cast<size_t>(row0 + r) * H + u] : 0.f;
-      const float dln = g * gelu_grad(z[r] * gu + btu);
-      dgam += dln * z[r];
-      dbet += dln;
-      dxh[r] = dln * gu;
-      s1[r] = dxh[r];
-      s2[r] = dxh[r] * z[r];
-    }
-    row_sums(s1, s2, red);
+    for (int j = 0; j < kNT; ++j)
 #pragma unroll
-    for (int r = 0; r < kR; ++r) {
-      const float dz = rsig[r] * (dxh[r] - s1[r] * inv_h - z[r] * (s2[r] * inv_h));
-      db += dz;
-      const float dzb = maybe_bf16(dz, bf16);
-      dzs[r * H + u] = dzb;
-      if (row0 + r < rows) dz_scr[static_cast<size_t>(row0 + r) * H + u] = dzb;
-    }
-    __syncthreads();
+      for (int e = 0; e < 4; ++e) acc_w[j][e] = 0.f;
+    if (static_cast<int>(blockIdx.x) < tiles) fetch(blockIdx.x);
+    if (nch == 1) stage_w(0);  // W resident for the CTA's tiles
 
-    const int avail = min(kR, rows - row0) * C;
-    for (int i = u; i < avail; i += H) {
-      const int r = i / C;
-      const int c = i - r * C;
-      const float* dzr = dzs + r * H;
-      const float* wc = ws + c * ldw;
-      float acc = 0.f;
-      for (int k = 0; k < H; ++k) acc = fmaf(dzr[k], wc[k], acc);
-      dx[static_cast<size_t>(row0) * C + i] = acc;
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int row0 = tile * kRows;
+      const int tr = min(kRows, rows - row0);
+      eegflow::cp_async_wait<0>();
+      __syncthreads();  // the tile's dy (and x) landed
+
+      // z = x . W + b, each z summed as kernel 9 sums it
+      zt.zero();
+      if (nch == 1) {
+        stage_x(xraw, C, 0, kRows);
+        __syncthreads();
+        zt.accumulate(xt, ldx, ws, ldw, C);
+      } else {
+        for (int ch = 0; ch < nch; ++ch) {
+          if (ch > 0) __syncthreads();  // no thread reads ws or xt any more
+          stage_w(ch * kCP);
+          stage_x(x + static_cast<size_t>(row0) * C + ch * kCP, C, ch * kCP, tr);
+          __syncthreads();
+          zt.accumulate(xt, ldx, ws, ldw, min(kCP, C - ch * kCP));
+        }
+      }
+      zt.store(zs, ldz);
+      __syncthreads();  // z whole
+
+      // the LayerNorm and GELU backward, one warp per row: dz over z in zs.
+      // Rows past `rows` have dy = 0 (zero-filled), so their dz and sums are 0.
+      for (int r = warp; r < kRows; r += kF32Warps) {
+        float zv[kCh][4], dv[kCh][4], mu, rsig;
+        row_stats<kCh>(zs + r * ldz, hc, lane, inv_h, eps, zv, mu, rsig);
+#pragma unroll
+        for (int i = 0; i < kCh; ++i) {
+          const int ch = lane + 32 * i;
+          float4 d4 = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (ch < hc) d4 = *reinterpret_cast<const float4*>(dys + r * H + 4 * ch);
+          dv[i][0] = d4.x, dv[i][1] = d4.y, dv[i][2] = d4.z, dv[i][3] = d4.w;
+        }
+        float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < kCh; ++i) {
+          const int ch = lane + 32 * i;
+          if (ch >= hc) continue;
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float gv = gamma[4 * ch + e];
+            const float xhat = (zv[i][e] - mu) * rsig;
+            const float dln = dv[i][e] * gelu_grad(xhat * gv + beta[4 * ch + e]);
+            if (pass == 0) {
+              pdg[i][e] += dln * xhat;
+              pdbt[i][e] += dln;
+            }
+            const float dxh = dln * gv;
+            zv[i][e] = xhat;
+            dv[i][e] = dxh;
+            m1 += dxh;
+            m2 += dxh * xhat;
+          }
+        }
+        m1 = eegflow::warp_sum(m1) * inv_h;
+        m2 = eegflow::warp_sum(m2) * inv_h;
+#pragma unroll
+        for (int i = 0; i < kCh; ++i) {
+          const int ch = lane + 32 * i;
+          if (ch >= hc) continue;
+          float dz[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dz[e] = rsig * (dv[i][e] - m1 - zv[i][e] * m2);
+            if (pass == 0) pdb[i][e] += dz[e];
+          }
+          *reinterpret_cast<float4*>(zs + r * ldz + 4 * ch) =
+              make_float4(dz[0], dz[1], dz[2], dz[3]);
+        }
+      }
+      __syncthreads();  // dz whole; no thread reads dys, xraw or (C > kCP) ws and xt
+      if (nch > 1) {  // the pass's channels of W and x for dx and dW
+        stage_w(c0);
+        stage_x(x + static_cast<size_t>(row0) * C + c0, C, c0, tr);
+        __syncthreads();
+      }
+      if (tile + static_cast<int>(gridDim.x) < tiles) fetch(tile + gridDim.x);
+
+      // dx = dz . W^T over the units in 16-deep steps (two k-steps of 8):
+      // lo . hi, hi . lo and hi . hi into sums of their own for each k-step
+      // parity, so consecutive products do not wait on each other
+      {
+        const int mt = warp % kMT, nt = warp / kMT;
+        if (nt < kCP / 8 && 8 * nt < cn) {
+          float acc[6][4];
+#pragma unroll
+          for (int s = 0; s < 6; ++s)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) acc[s][e] = 0.f;
+          for (int k0 = 0; k0 < H; k0 += 16) {
+            uint32_t br[4];
+            eegflow::ldmatrix_x4(br, smem_addr(ws + (8 * nt + (lane & 7)) * ldw + k0 +
+                                               (lane >> 3) * 4));
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              uint32_t ar[4];
+              eegflow::ldmatrix_x4(ar, smem_addr(zs + (16 * mt + (lane & 7) +
+                                                       ((lane >> 3) & 1) * 8) * ldz +
+                                                 k0 + 8 * h + (lane >> 4) * 4));
+              eegflow::Tf32A a;
+              a.split(ar);
+              uint32_t bh[2], bl[2];
+              eegflow::tf32_split(__uint_as_float(br[2 * h]), bh[0], bl[0]);
+              eegflow::tf32_split(__uint_as_float(br[2 * h + 1]), bh[1], bl[1]);
+              eegflow::mma_tf32(acc[3 * h], a.lo, bh[0], bh[1]);
+              eegflow::mma_tf32(acc[3 * h + 1], a.hi, bl[0], bl[1]);
+              eegflow::mma_tf32(acc[3 * h + 2], a.hi, bh[0], bh[1]);
+            }
+          }
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int row = 16 * mt + 8 * rh + gq;
+            if (row >= tr) continue;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = 8 * nt + 2 * q + e;
+              const int k = 2 * rh + e;
+              const float v = (acc[2][k] + acc[5][k]) +
+                              ((acc[0][k] + acc[3][k]) + (acc[1][k] + acc[4][k]));
+              if (c < cn) dx[static_cast<size_t>(row0 + row) * C + c0 + c] = v;
+            }
+          }
+        }
+      }
+
+      // dW += x^T . dz over the tile's rows: per k-step, kGroup n-tiles at a
+      // time, lo . hi over the group, then hi . lo, then hi . hi
+      {
+        const int mt = warp & 3;
+        if (16 * mt < cn) {
+#pragma unroll
+          for (int kk = 0; kk < kRows / 8; ++kk) {
+            uint32_t ar[4];
+            eegflow::ldmatrix_x4(ar, smem_addr(xt + (16 * mt + (lane & 7) +
+                                                     ((lane >> 3) & 1) * 8) * ldx +
+                                               kk * 8 + (lane >> 4) * 4));
+            eegflow::Tf32A a;
+            a.split(ar);
+            const float* const dzk = zs + (kk * 8 + q) * ldz + gq;
+#pragma unroll
+            for (int j0 = 0; j0 < kNT; j0 += kGroup) {
+              uint32_t bh[kGroup][2], bl[kGroup][2];
+#pragma unroll
+              for (int j = 0; j < kGroup; ++j) {
+                const int n = 8 * ((warp >> 2) + 4 * (j0 + j));
+                const bool on = n < H;
+                eegflow::tf32_split(on ? dzk[n] : 0.f, bh[j][0], bl[j][0]);
+                eegflow::tf32_split(on ? dzk[4 * ldz + n] : 0.f, bh[j][1], bl[j][1]);
+              }
+#pragma unroll
+              for (int j = 0; j < kGroup; ++j)
+                if (8 * ((warp >> 2) + 4 * (j0 + j)) < H)
+                  eegflow::mma_tf32(acc_w[j0 + j], a.lo, bh[j][0], bh[j][1]);
+#pragma unroll
+              for (int j = 0; j < kGroup; ++j)
+                if (8 * ((warp >> 2) + 4 * (j0 + j)) < H)
+                  eegflow::mma_tf32(acc_w[j0 + j], a.hi, bl[j][0], bl[j][1]);
+#pragma unroll
+              for (int j = 0; j < kGroup; ++j)
+                if (8 * ((warp >> 2) + 4 * (j0 + j)) < H)
+                  eegflow::mma_tf32(acc_w[j0 + j], a.hi, bh[j][0], bh[j][1]);
+            }
+          }
+        }
+      }
+      __syncthreads();  // the next tile overwrites xt, zs, dys (and ws)
     }
-    __syncthreads();  // the next pass overwrites xs and dzs
+
+    // the pass's rows of the CTA's partial dW
+    {
+      const int mt = warp & 3;
+#pragma unroll
+      for (int j = 0; j < kNT; ++j) {
+        const int n = 8 * ((warp >> 2) + 4 * j) + 2 * q;
+        if (n >= H) continue;
+#pragma unroll
+        for (int rh = 0; rh < 2; ++rh) {
+          const int c = 16 * mt + 8 * rh + gq;
+          if (c < cn)
+            *reinterpret_cast<float2*>(out + static_cast<size_t>(c0 + c) * H + n) =
+                make_float2(acc_w[j][2 * rh], acc_w[j][2 * rh + 1]);
+        }
+      }
+    }
   }
 
-  float* out = vec_part + static_cast<size_t>(blockIdx.x) * 3 * H;
-  out[u] = db;
-  out[H + u] = dgam;
-  out[2 * H + u] = dbet;
+  // db, dgamma, dbeta summed over the warps in order
+  __syncthreads();
+  float* const red = ws;  // [kF32Warps][3][H], over W
+#pragma unroll
+  for (int i = 0; i < kCh; ++i) {
+    const int ch = lane + 32 * i;
+    if (ch >= hc) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      red[(3 * warp) * H + 4 * ch + e] = pdb[i][e];
+      red[(3 * warp + 1) * H + 4 * ch + e] = pdg[i][e];
+      red[(3 * warp + 2) * H + 4 * ch + e] = pdbt[i][e];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 3 * H; i += kF32Threads) {
+    float v = 0.f;
+    for (int wi = 0; wi < kF32Warps; ++wi) v += red[wi * 3 * H + i];
+    out[static_cast<size_t>(C) * H + i] = v;
+  }
+}
+
+template <int kRows>
+size_t bwd_f32_smem_bytes(int H) {
+  const size_t Hp = (H + 63) / 64 * 64;
+  return (kCP * (Hp + 4) + kCP * (kRows + 4) + kRows * (Hp + 4) + static_cast<size_t>(kRows) * H +
+          kRows * kCP) *
+         sizeof(float);
+}
+
+template <int kRows>
+cudaError_t launch_bwd_f32(const float* x, const float* dy, const float* w, const float* bias,
+                           const float* gamma, const float* beta, float* dx, float* part,
+                           int ctas, int rows, int C, int H, cudaStream_t stream) {
+  const size_t smem = bwd_f32_smem_bytes<kRows>(H);
+  cudaError_t err = eegflow::allow_dynamic_smem(input_block_bwd_f32_kernel<kRows>, smem);
+  if (err != cudaSuccess) return err;
+  input_block_bwd_f32_kernel<kRows><<<ctas, kF32Threads, smem, stream>>>(
+      x, dy, w, bias, gamma, beta, dx, part, rows, C, H, 1e-5f);
+  return cudaGetLastError();
 }
 
 // bf16 backward: tiles of kTile rows, kBThreads threads (16 warps), the
@@ -890,27 +1102,6 @@ bool bad_shape(int rows, int C, int H) {
 
 }  // namespace
 
-// Operands of the float32 mode's dW = x^T . dz over the rows (gemm.cuh).
-namespace input_block_ops {
-
-struct XRowsA {  // A(m = channel, k = row) = x[k][m]
-  static constexpr bool kMContiguous = true;
-  const float* x;
-  int C;
-  __device__ float operator()(int c, int row) const { return x[static_cast<size_t>(row) * C + c]; }
-};
-
-struct DzRowsB {  // B(k = row, n = unit) = dz_scr[k][n]
-  static constexpr bool kNContiguous = true;
-  const float* dz;
-  int H;
-  __device__ float operator()(int row, int n) const {
-    return dz[static_cast<size_t>(row) * H + n];
-  }
-};
-
-}  // namespace input_block_ops
-
 // Forward. x (rows, C), w (C, H), bias, gamma, beta (H,) float32 -> y (rows,
 // H) float32, on `ctas` CTAs walking tiles of tile_rows rows (the caller's
 // plan, eegflow_torch/nn/cuda_input.py fwd_plan: 64, or 32 for H > 256); x
@@ -934,58 +1125,41 @@ extern "C" int eegflow_input_block_fwd(const float* x, const float* w, const flo
   return static_cast<int>(err);
 }
 
-// Backward. x (rows, C), dy (rows, H), w (C, H), bias, gamma, beta (H,)
-// float32. Outputs dx (rows, C) and grads (C H + 3 H) = [dW (C, H), db,
-// dgamma, dbeta] float32, on `ctas` CTAs (the caller's plan,
-// eegflow_torch/nn/cuda_input.py bwd_plan). bf16 (which needs C <= 64, H <=
-// 256 and x and dy 16-byte aligned): part (ctas, C H + 3 H) float32 scratch, the
-// CTAs' partial rows; ctas <= the 64-row tiles; dz_scr and splits unused.
-// float32: dz_scr (rows, H) and part (ctas * 3 H + splits * C * H) float32
-// scratch, the CTAs' [db, dgamma, dbeta] rows and then dW's split-K partials.
+// Backward. x (rows, C), dy (rows, H) (both 16-byte aligned), w (C, H),
+// bias, gamma, beta (H,) float32. Outputs dx (rows, C) and grads (C H + 3 H)
+// = [dW (C, H), db, dgamma, dbeta] float32, on `ctas` CTAs walking tiles of
+// tile_rows rows (the caller's plan, eegflow_torch/nn/cuda_input.py
+// bwd_plan: bf16 64 rows, C <= 64, H <= 256; float32 32 rows, or 16 for H >
+// 256); ctas <= the tiles. part (ctas, C H + 3 H) float32 scratch, the CTAs'
+// partial rows.
 extern "C" int eegflow_input_block_bwd(const float* x, const float* dy, const float* w,
                                        const float* bias, const float* gamma,
-                                       const float* beta, float* dx, float* grads,
-                                       float* dz_scr, float* part, int ctas, int splits,
-                                       int rows, int C, int H, int bf16,
-                                       cudaStream_t stream) {
-  if (bad_shape(rows, C, H) || ctas <= 0) return static_cast<int>(cudaErrorInvalidValue);
+                                       const float* beta, float* dx, float* grads, float* part,
+                                       int ctas, int tile_rows, int rows, int C, int H,
+                                       int bf16, cudaStream_t stream) {
+  if (bad_shape(rows, C, H) || ctas <= 0 || tile_rows <= 0 ||
+      ctas > (rows + tile_rows - 1) / tile_rows ||
+      reinterpret_cast<uintptr_t>(dy) % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
-  const size_t count_w = static_cast<size_t>(C) * H;
   if (bf16) {
-    if (C > kCP || H > kMaxHB || ctas > (rows + kTile - 1) / kTile ||
-        reinterpret_cast<uintptr_t>(dy) % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
-      return static_cast<int>(cudaErrorInvalidValue);
+    if (C > kCP || H > kMaxHB || tile_rows != kTile) return static_cast<int>(cudaErrorInvalidValue);
     const size_t smem = bwd_bf16_smem_bytes(H);
     err = eegflow::allow_dynamic_smem(input_block_bwd_bf16_kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
     input_block_bwd_bf16_kernel<<<ctas, kBThreads, smem, stream>>>(
         x, dy, w, bias, gamma, beta, dx, part, rows, C, H, 1e-5f);
     err = cudaGetLastError();
-    if (err != cudaSuccess) return static_cast<int>(err);
-    const size_t count = count_w + 3 * static_cast<size_t>(H);
-    eegflow::reduce_splits_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0,
-                                    stream>>>(part, grads, ctas, count);
-    return static_cast<int>(cudaGetLastError());
+  } else if (tile_rows == 32 && H <= 256) {
+    err = launch_bwd_f32<32>(x, dy, w, bias, gamma, beta, dx, part, ctas, rows, C, H, stream);
+  } else if (tile_rows == 16 && H > 256) {
+    err = launch_bwd_f32<16>(x, dy, w, bias, gamma, beta, dx, part, ctas, rows, C, H, stream);
+  } else {
+    return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (splits <= 0) return static_cast<int>(cudaErrorInvalidValue);
-  float* const vec_part = part;
-  float* const dw_part = part + static_cast<size_t>(ctas) * 3 * H;
-  const size_t smem = (static_cast<size_t>(C) * (H + 1) + static_cast<size_t>(kR) * H +
-                       static_cast<size_t>(kR) * C + kMaxH / 32 * kR * 2) *
-                      sizeof(float);
-  err = eegflow::allow_dynamic_smem(input_block_bwd_kernel, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  input_block_bwd_kernel<<<ctas, H, smem, stream>>>(x, dy, w, bias, gamma, beta, dx, dz_scr,
-                                                    vec_part, rows, C, 0, 1e-5f);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  using input_block_ops::DzRowsB;
-  using input_block_ops::XRowsA;
-  err = eegflow::gemm_split_k(XRowsA{x, C}, DzRowsB{dz_scr, H}, grads, dw_part, C, H, rows,
-                              splits, stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t count = 3 * static_cast<size_t>(H);
-  eegflow::reduce_splits_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0,
-                                  stream>>>(vec_part, grads + count_w, ctas, count);
+  const size_t count = (static_cast<size_t>(C) + 3) * H;
+  eegflow::reduce_splits_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, stream>>>(
+      part, grads, ctas, count);
   return static_cast<int>(cudaGetLastError());
 }

@@ -56,7 +56,6 @@
 #include <stdint.h>
 
 #include "common.cuh"
-#include "gemm.cuh"
 #include "lstm_cluster.cuh"
 #include "mma_gemm.cuh"
 

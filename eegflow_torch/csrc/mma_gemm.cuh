@@ -41,7 +41,6 @@
 #include <stdint.h>
 
 #include "common.cuh"
-#include "gemm.cuh"
 
 namespace eegflow {
 

@@ -1,5 +1,6 @@
 """Where a step of the recurrent kernels' time goes, and the parts of the
-input-block forward and the float32 pool-head backward, on the GPU.
+input-block forward, the float32 input-block backward and the float32 pool
+head, on the GPU.
 
     python -m eegflow_torch.kernels.ablate [--variant base|nomma|noexch|nostore|noload|noln|
                                                      nostream|onetf32]
@@ -17,17 +18,22 @@ kernel of each full-width call (H=256, T=256, two parts of 256): kernel 2 in
 eval and training mode, kernels 3 and 3b and kernels 1 (training mode) and 5
 at B=16 (one cluster) and at the main path's batch (512; eval 1024, kernel 1
 in eval mode too), and kernel 4 at 512. The same variants take out a part of
-kernel 9 (the input-block forward, both modes) and of kernel 8's float32
-mode (3xTF32): ``nomma`` its products (kernel 8: both in-kernel products and
-the dW1 GEMM), ``noload`` its HBM reads of x, ``nostore`` its HBM stores (y;
-dh and the y and u scratch), and ``noln`` the LayerNorm (kernel 9: the
-statistics, LayerNorm and GELU; kernel 8: the statistics and the LayerNorm
-backward's row sums), and two take out a part of kernel 8's float32
-products alone: ``nostream`` the streaming of W1 and W1^T (the products
-read stale slices), ``onetf32`` two of the three TF32 products (one TF32
-product, a different function). Each is timed at B=512 (kernel 9's bf16
-mode also at 1024), every launch of the call by name. ``--calls`` times only the
-recurrent kernels or only kernels 9 and 8. ``--rows`` restricts the
+kernel 9 (the input-block forward, both modes), of kernel 10's float32 mode
+and of the float32 modes of kernels 8 and 7 (3xTF32): ``nomma`` its
+products (kernel 10: z, dx and dW; kernel 8: both in-kernel products and
+the dW1 GEMM; kernel 7: proj), ``noload`` its HBM reads (x; kernel 10 also
+dy), ``nostore`` its HBM stores (y; kernel 10's dx; kernel 8's dh and the y
+and u scratch; kernel 7's scores), and ``noln`` the LayerNorm (kernel 9:
+the statistics, LayerNorm and GELU; kernel 8: the statistics and the
+LayerNorm backward's row sums), and two take out a part of the 3xTF32
+products alone: ``nostream`` the streaming of W1 and W1^T into kernels 8
+and 7 (the products read stale slices), ``onetf32`` two of the three TF32
+products (one TF32 product, a different function; kernel 10's dx and dW
+too). Each is timed at B=512 (kernel 9's bf16 mode also at 1024), every
+launch of the call by name, with the SM clock and power draw that
+``nvidia-smi`` samples during the warm-up (a power-limited card lowers its
+clock under a sustained load). ``--calls`` times only the recurrent kernels or
+only kernels 9, 10, 8 and 7. ``--rows`` restricts the
 plan's rows per cluster (``cuda_lstm.restrict_plan_rows``). A variant's
 results are wrong by construction and only its times mean anything; the
 difference to ``base`` is the part's share of a step or a call. Each variant
@@ -40,6 +46,7 @@ from __future__ import annotations
 import argparse
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -74,6 +81,10 @@ VARIANTS = {
          "for (int c = 0; c < 0; ++c) {\n      const float4 xv"),
         ("input_block.cu", "if (pair < H / 16) z_pair_mma<kMT>(acc[p]",
          "if (pair < 0) z_pair_mma<kMT>(acc[p]"),
+        ("input_block.cu", "for (int k0 = 0; k0 < H; k0 += 16) {",
+         "for (int k0 = 0; k0 < 0; k0 += 16) {"),
+        ("input_block.cu", "for (int kk = 0; kk < kRows / 8; ++kk) {",
+         "for (int kk = 0; kk < 0; ++kk) {"),
         ("mma_gemm.cuh", "for (int it = 0; it < slices; ++it) {\n"
          "    cp_async_wait<kStages - 2>();\n"
          "    __syncthreads();  // slice it has landed; slice it - 1's stage is free again\n"
@@ -105,6 +116,9 @@ VARIANTS = {
          "if (row >= 0) continue;\n      float* dp = dgates"),
         ("input_block.cu", "__stcs(reinterpret_cast<float4*>(yr + 4 * ch), o);",
          "*reinterpret_cast<float4*>(zs + r * ldz + 4 * ch) = o;"),
+        ("input_block.cu", "if (c < cn) dx[static_cast<size_t>(row0 + row) * C + c0 + c] = v;",
+         "if (c < 0) dx[static_cast<size_t>(row0 + row) * C + c0 + c] = v;"),
+        ("pool_head_fwd.cu", "          scores[bt0 + r] = s[h];\n", ""),
         ("pool_head_bwd.cu", "if (valid) y_scr[bt * D + d] = v;",
          "if (valid && d < 0) y_scr[bt * D + d] = v;"),
         ("pool_head_bwd.cu", "if (t0 + row < T)\n              *reinterpret_cast<float2*>(u_scr",
@@ -132,6 +146,11 @@ VARIANTS = {
          "eegflow::cp_async16_part(smem_addr(xraw + 4 * c), n > 0 ? xtile + 4 * c : x, 0);"),
         ("pool_head_bwd.cu", "xv[i] = t < T && d < D ? (d < d0 ? x0[bt * d0 + d] : x1[bt * d1 + "
          "(d - d0)]) : 0.f;",
+         "xv[i] = 0.f;"),
+        ("input_block.cu", "valid ? dyg + r * H + col : dy, valid);", "dy, false);"),
+        ("input_block.cu", "n > 0 ? xg + 4 * c : x, 4 * n);", "x, 0);"),
+        ("pool_head_fwd.cu", "xv[i] = r < tc && d < D ? (d < d0 ? x0[bt * d0 + d] : x1[bt * d1 + "
+         "(d - d0)]) : 0.f;",
          "xv[i] = 0.f;")],
     "nostream": [
         ("mma_gemm.cuh", "if (it + kStages - 1 < slices) issue(it + kStages - 1);\n"
@@ -145,7 +164,11 @@ VARIANTS = {
          "          mma_tf32(acc[i][2 * p + 1], a[i].hi, bl[2], bl[3]);\n", ""),
         ("mma_gemm.cuh", "        for (int i = 0; i < 4; ++i) mma_tf32(acc[i][j], a[i].lo, bh[0], "
          "bh[1]);\n#pragma unroll\n        for (int i = 0; i < 4; ++i) mma_tf32(acc[i][j], "
-         "a[i].hi, bl[0], bl[1]);\n#pragma unroll\n", "")],
+         "a[i].hi, bl[0], bl[1]);\n#pragma unroll\n", ""),
+        ("input_block.cu", "eegflow::mma_tf32(acc[3 * h], a.lo, bh[0], bh[1]);", ""),
+        ("input_block.cu", "eegflow::mma_tf32(acc[3 * h + 1], a.hi, bl[0], bl[1]);", ""),
+        ("input_block.cu", "eegflow::mma_tf32(acc_w[j0 + j], a.lo, bh[j][0], bh[j][1]);", "{}"),
+        ("input_block.cu", "eegflow::mma_tf32(acc_w[j0 + j], a.hi, bl[j][0], bl[j][1]);", "{}")],
     "noln": [
         ("input_block.cu", "const float4 o = ln_gelu4(zv[i], mu, rsig, gam[i], bet[i]);",
          "const float4 o = make_float4(zv[i][0], zv[i][1], zv[i][2], zv[i][3]);"),
@@ -174,41 +197,60 @@ def patched_sources(variant: str, into: Path) -> Path:
 
 
 def _recurrence_ms(fn, reps: int = 3) -> float:
-    """Mean device ms a call of ``fn`` spends in the recurrence or chain kernel."""
+    """Mean device ms of a launch of the recurrence or chain kernel (one a
+    call of ``fn``), over the launches the profiler recorded."""
     fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
-    return sum(e.time_range.end - e.time_range.start for e in prof.events()
-               if e.device_type == torch.autograd.DeviceType.CUDA
-               and ("rec_kernel" in e.name or "rec_fwd_kernel" in e.name
-                    or "rec_bwd_kernel" in e.name or "chain_kernel" in e.name)) / reps / 1e3
+    spans = [e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == torch.autograd.DeviceType.CUDA
+             and ("rec_kernel" in e.name or "rec_fwd_kernel" in e.name
+                  or "rec_bwd_kernel" in e.name or "chain_kernel" in e.name)]
+    return sum(spans) / max(len(spans), 1) / 1e3
 
 
-def _device_ms_by_name(fn, reps: int = 5, warm_s: float = 0.5) -> dict:
-    """Mean device ms a call of ``fn`` spends in each kernel, by name, after
-    ``warm_s`` seconds of calls (the card's clocks settle under load)."""
-    t0 = time.perf_counter()
-    while time.perf_counter() - t0 < warm_s:
-        fn()
-        torch.cuda.synchronize()
+def _device_ms_by_name(fn, reps: int = 5, warm_s: float = 0.5):
+    """Mean device ms of a launch of each kernel a call of ``fn`` makes, by
+    name, after ``warm_s`` seconds of calls (the card's clocks settle under
+    load), and the median SM clock (MHz) and the largest power draw (W) that
+    ``nvidia-smi`` sampled every 100 ms during the warm-up. The mean is over
+    the launches the profiler recorded (it has dropped some of a session's
+    launches on the H100 machines), so kernels launched once a call add up to
+    the call's device time."""
+    smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+                            "--format=csv,noheader,nounits", "-lms", "100"],
+                           stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < warm_s:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        smi.terminate()
+        samples = [tuple(float(v) for v in line.split(","))
+                   for line in smi.communicate(timeout=10)[0].splitlines() if "," in line]
     with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_time_total > 0]
     names = (re.search(r"(\w+)(?:<[^>]*>)?\(", e.key) for e in events)
-    return {m.group(1) if m else e.key: e.device_time_total / 1e3 / reps
-            for m, e in zip(names, events)}
+    by_name = {m.group(1) if m else e.key: e.device_time_total / 1e3 / e.count
+               for m, e in zip(names, events)}
+    clock = statistics.median(c for c, _ in samples) if samples else float("nan")
+    power = max((w for _, w in samples), default=float("nan"))
+    return by_name, clock, power
 
 
 def _head_calls(dev, gen):
-    """Kernel 9 (both modes at B=512, bf16 at 1024) and kernel 8's float32
-    mode (B=512, two parts of 256, K=256, LayerNorm) at full width."""
-    from eegflow_torch.nn.cuda_attention import pool_head_bwd
-    from eegflow_torch.nn.cuda_input import input_block_fused
+    """Kernel 9 (both modes at B=512, bf16 at 1024), kernel 10's float32 mode
+    (B=512) and the float32 modes of kernels 8 and 7 (B=512, two parts of
+    256, K=256, LayerNorm) at full width."""
+    from eegflow_torch.nn.cuda_attention import pool_head_bwd, pool_head_fused
+    from eegflow_torch.nn.cuda_input import input_block_bwd, input_block_fused
 
     def randn(*shape):
         return torch.randn(shape, generator=gen).to(dev)
@@ -225,10 +267,15 @@ def _head_calls(dev, gen):
     pargs = (ln, attn, tuple(torch.tanh(randn(512, STEPS, H)) for _ in range(2)),
              torch.softmax(randn(512, STEPS), dim=-1), 0.01 * randn(512, STEPS),
              tuple(0.1 * randn(512, H) for _ in range(2)), 0.1 * randn(512), True, False)
+    dy512 = randn(512, STEPS, H)
     return {"input_block_fwd bf16 B=512": lambda: input_block_fused(proj, norm, x512, True),
             "input_block_fwd float32 B=512": lambda: input_block_fused(proj, norm, x512, False),
             "input_block_fwd bf16 B=1024": lambda: input_block_fused(proj, norm, x1024, True),
-            "pool_head_bwd float32 B=512": lambda: pool_head_bwd(*pargs)}
+            "input_block_bwd float32 B=512": lambda: input_block_bwd(proj, norm, x512, dy512,
+                                                                     False),
+            "pool_head_bwd float32 B=512": lambda: pool_head_bwd(*pargs),
+            "pool_head_fwd float32 B=512": lambda: pool_head_fused(ln, attn, pargs[2], True,
+                                                                   False)}
 
 
 def main(argv=None) -> int:
@@ -301,10 +348,11 @@ def main(argv=None) -> int:
                       f"{ms_rec:.3f} ms, {ms_rec / STEPS * 1e3:.2f} us a step [{card}]",
                       flush=True)
         for name, fn in _head_calls(dev, gen).items() if args.calls != "recurrent" else ():
-            by_name = _device_ms_by_name(fn)
-            print(f"{args.variant} {name}: device {sum(by_name.values()):.3f} ms a call: "
-                  + ", ".join(f"{k} {v:.3f}" for k, v in by_name.items()) + f" [{card}]",
-                  flush=True)
+            by_name, clock, power = _device_ms_by_name(fn)
+            print(f"{args.variant} {name}: device ms a launch by kernel: "
+                  + ", ".join(f"{k} {v:.3f}" for k, v in by_name.items())
+                  + f"; during the warm-up SM clock {clock:.0f} MHz (median), power up to "
+                  f"{power:.1f} W [{card}]", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0

@@ -34,8 +34,8 @@ from eegflow_torch.nn.layers import bf16_round
 LN_EPS = 1e-5
 #: the widest D and K the bf16 modes of the pool-head kernels take
 BF16_MAX_D, BF16_MAX_K = 512, 256
-#: and the float32 mode of the backward (3xTF32 on the tensor cores)
-F32_BWD_MAX_D, F32_BWD_MAX_K = 1024, 512
+#: and the float32 modes of both (3xTF32 on the tensor cores; kernel 6 too)
+F32_MAX_D, F32_MAX_K = 1024, 512
 
 
 def _check_widths(what: str, d_total: int, k: int, max_d: int, max_k: int) -> None:
@@ -50,6 +50,15 @@ def check_bf16_widths(name: str, d_total: int, k: int) -> None:
     multiples of 32 (the classifier's D = 2H and K = H for H <= 256). Raises
     ``ValueError`` naming ``name`` for any other; there is no other body."""
     _check_widths(f"{name} under bf16", d_total, k, BF16_MAX_D, BF16_MAX_K)
+
+
+def check_f32_widths(name: str, d_total: int, k: int) -> None:
+    """The widths the float32 modes of ``pool_head_fwd.cu`` and
+    ``pool_head_bwd.cu`` (and kernel 6) run in 3xTF32: D <= 1024 and K <= 512,
+    both multiples of 32 (the classifier's D = 2H and K = H for H <= 512).
+    Raises ``ValueError`` naming ``name`` for any other; there is no other
+    body."""
+    _check_widths(f"{name} in float32", d_total, k, F32_MAX_D, F32_MAX_K)
 
 
 def pool_head_fused_plain(ln_params: Optional[Mapping], attn_params: Mapping,
@@ -119,8 +128,9 @@ def pool_head_fused(ln_params: Optional[Mapping], attn_params: Mapping, xs: Part
     ``xs``: one or two (B, T, D_p) parts (their concat is the BiLSTM output).
     Returns ``(ctx_parts, raw_scores)``: concat the parts for the (B, D)
     context; softmax(raw_scores + score bias) gives the attention weights.
-    Under ``bf16`` the kernel runs its product on the tensor cores and takes
-    the widths :func:`check_bf16_widths` allows.
+    The kernel runs its product on the tensor cores, in bf16 under ``bf16``
+    (the widths :func:`check_bf16_widths` allows), else in 3xTF32 (the widths
+    :func:`check_f32_widths` allows).
     """
     xs = as_parts(xs)
     if xs[0].device.type == "cpu":
@@ -135,14 +145,20 @@ def _pool_head_fwd_launch(ln_params, attn_params, xs, use_ln, bf16, name):
     _check_cuda_args(xs, ln_params, attn_params, use_ln)
     batch, steps = xs[0].shape[:2]
     widths = [x.shape[-1] for x in xs]
-    if bf16:
-        check_bf16_widths(name, sum(widths), attn_params["proj"]["w"].shape[1])
+    k = attn_params["proj"]["w"].shape[1]
+    (check_bf16_widths if bf16 else check_f32_widths)(name, sum(widths), k)
     lib = kernels.load_library()
     dev = xs[0].device
     two = len(xs) == 2
     f32 = lambda t: t.to(torch.float32).contiguous()  # noqa: E731
-    # W1 in the product's operand type: bf16, rounded once here
-    w1 = attn_params["proj"]["w"].to(torch.bfloat16 if bf16 else torch.float32).contiguous()
+    # W1 as the product's B operand: bf16, rounded once here, or float32 W1^T
+    # (K rows of D), which the float32 mode streams in 16-byte copies
+    if bf16:
+        w1 = attn_params["proj"]["w"].to(torch.bfloat16).contiguous()
+    else:
+        w1 = attn_params["proj"]["w"].t().to(torch.float32).contiguous()
+        if w1.data_ptr() % 16:
+            w1 = w1.clone()
     b1 = f32(attn_params["proj"]["b"])
     w2 = f32(attn_params["score"]["w"][:, 0])
     gamma = f32(ln_params["scale"]) if use_ln else None
@@ -155,7 +171,7 @@ def _pool_head_fwd_launch(ln_params, attn_params, xs, use_ln, bf16, name):
         gamma.data_ptr() if use_ln else None, beta.data_ptr() if use_ln else None,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         ctx[0].data_ptr(), ctx[1].data_ptr() if two else None, scores.data_ptr(),
-        batch, steps, w1.shape[1], int(use_ln), int(bf16), _stream(dev))
+        batch, steps, k, int(use_ln), int(bf16), _stream(dev))
     kernels.check(lib, err, name)
     kernels.launch_counts[name] += 1
     return tuple(ctx), scores
@@ -177,7 +193,8 @@ def attention_pool(h: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
     """Kernel 6, ``attention_pool_pallas``: additive-attention pooling of one
     (B, T, D) float32 part, no LayerNorm -> (ctx (B, D), raw scores (B, T)).
     It is ``pool_head_fwd.cu`` with one part, ``use_ln=0`` and ``bf16=0``
-    (that case computes exactly this contract), counted as
+    (that case computes exactly this contract; D <= 1024 and K <= 512,
+    multiples of 32, :func:`check_f32_widths`), counted as
     ``attention_pool``."""
     if h.device.type == "cpu":
         return attention_pool_plain(h, w1, b1, w2)
@@ -281,7 +298,7 @@ def pool_head_bwd(ln_params: Optional[Mapping], attn_params: Mapping, xs: Parts,
     if bf16:
         check_bf16_widths("pool_head_bwd", d_total, k)
     else:
-        _check_widths("pool_head_bwd in float32", d_total, k, F32_BWD_MAX_D, F32_BWD_MAX_K)
+        check_f32_widths("pool_head_bwd", d_total, k)
     lib = kernels.load_library()
     dev = xs[0].device
     two = len(xs) == 2

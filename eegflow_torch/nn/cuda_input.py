@@ -26,7 +26,7 @@ from typing import List, Mapping, NamedTuple, Tuple
 import torch
 
 from eegflow_torch import kernels
-from eegflow_torch.nn.cuda_lstm import _device_kind, _ptr, _stream
+from eegflow_torch.nn.cuda_lstm import _device_kind, _stream
 from eegflow_torch.nn.layers import bf16_round
 
 LN_EPS = 1e-5
@@ -37,15 +37,15 @@ _INV_SQRT2PI = 1.0 / math.sqrt(2.0 * math.pi)
 #: tiles above it, up to 512)
 FWD_CTAS = 132
 FWD_WIDE_TILE_MAX_HIDDEN = 256
-#: kernel 10's bf16 mode: rows a CTA takes at a time, its fixed persistent
-#: grid (one 221 KB CTA on each of an H100's 132 SMs; a fixed count keeps the
-#: order of the partial sums, and so the result, the same on any card), and
-#: the widest input and hidden sizes it takes
-BWD_TILE_ROWS = 64
+#: kernel 10: its fixed persistent grid (one CTA of 16 warps on each of an
+#: H100's 132 SMs; a fixed count keeps the order of the partial sums, and so
+#: the result, the same on any card); the bf16 mode's row tile and the widest
+#: input and hidden sizes it takes; the float32 mode takes 32-row tiles up to
+#: FWD_WIDE_TILE_MAX_HIDDEN and 16-row tiles above it (float32 W, z and dy
+#: tiles of 32 rows would not fit in shared memory at H = 512)
 BWD_CTAS = 132
+BWD_TILE_ROWS = 64
 BWD_MAX_CHANNELS, BWD_MAX_HIDDEN = 64, 256
-#: its float32 mode: rows a CTA takes at a time, and at most this many CTAs
-_F32_TILE_ROWS, _F32_MAX_CTAS = 16, 256
 
 
 def _tiles_of(cta: int, rows: int, ctas: int, tile_rows: int) -> List[Tuple[int, int]]:
@@ -80,15 +80,11 @@ def fwd_plan(rows: int, hidden: int) -> FwdPlan:
 
 class BwdPlan(NamedTuple):
     """A launch of kernel 10: ``ctas`` CTAs, each taking ``tile_rows`` rows at
-    a time; float32 scratch of ``dz_scr`` floats (float32 mode: dz for dW's
-    GEMM) and ``part`` floats (bf16: one partial row [dW, db, dgamma,
-    dbeta] a CTA; float32: the CTAs' [db, dgamma, dbeta] rows, then dW's
-    ``splits`` split-K partials)."""
+    a time, and ``part`` floats of scratch: one partial row [dW, db, dgamma,
+    dbeta] a CTA, which a second launch adds in CTA order."""
 
     ctas: int
     tile_rows: int
-    splits: int
-    dz_scr: int
     part: int
 
     def tiles_of(self, cta: int, rows: int) -> List[Tuple[int, int]]:
@@ -96,21 +92,25 @@ class BwdPlan(NamedTuple):
 
 
 def bwd_plan(rows: int, channels: int, hidden: int, bf16: bool) -> BwdPlan:
-    """Kernel 10's grid and scratch for ``rows`` = B*T rows of ``channels``
-    inputs and ``hidden`` units; the wrapper allocates from it. Raises
-    ``ValueError`` for widths the bf16 mode does not take (C <= 64, H <= 256,
-    H % 32 == 0); there is no other body."""
+    """Kernel 10's grid, tile and scratch for ``rows`` = B*T rows of
+    ``channels`` inputs and ``hidden`` units; the wrapper allocates from it.
+    The bf16 mode takes 64-row tiles and C <= 64, H <= 256, H % 32 == 0; the
+    float32 mode any C and kernel 9's widths (H % 32 == 0, H <= 512) on
+    32-row tiles, 16-row above H = 256. Raises ``ValueError`` for other
+    widths; there is no other body."""
     if bf16:
         if channels > BWD_MAX_CHANNELS or hidden > BWD_MAX_HIDDEN or hidden % 32:
             raise ValueError(f"input_block_bwd under bf16 needs C <= {BWD_MAX_CHANNELS} and "
                              f"H <= {BWD_MAX_HIDDEN}, H % 32 == 0; got C={channels}, "
                              f"H={hidden}")
-        ctas = min(BWD_CTAS, -(-rows // BWD_TILE_ROWS))
-        return BwdPlan(ctas, BWD_TILE_ROWS, 0, 0, ctas * (channels + 3) * hidden)
-    ctas = min(_F32_MAX_CTAS, -(-rows // _F32_TILE_ROWS))
-    splits = kernels.gemm_splits(rows)
-    return BwdPlan(ctas, _F32_TILE_ROWS, splits, rows * hidden,
-                   ctas * 3 * hidden + splits * channels * hidden)
+        tile_rows = BWD_TILE_ROWS
+    else:
+        if hidden % 32 or not 0 < hidden <= 512:
+            raise ValueError(f"input_block_bwd in float32 needs H % 32 == 0 and H <= 512; got "
+                             f"C={channels}, H={hidden}")
+        tile_rows = 32 if hidden <= FWD_WIDE_TILE_MAX_HIDDEN else 16
+    ctas = min(BWD_CTAS, -(-rows // tile_rows))
+    return BwdPlan(ctas, tile_rows, ctas * (channels + 3) * hidden)
 
 
 def _erf(x: torch.Tensor) -> torch.Tensor:
@@ -229,9 +229,9 @@ def input_block_fused(proj: Mapping, norm: Mapping, x: torch.Tensor,
 def input_block_bwd(proj: Mapping, norm: Mapping, x: torch.Tensor, dy: torch.Tensor,
                     bf16: bool = False) -> Grads:
     """Kernel 10: the recomputing backward of :func:`input_block_fused` ->
-    (dx, dW, db, dgamma, dbeta), as :func:`input_block_bwd_plain`. Under
-    ``bf16`` the kernel runs its three products on the tensor cores and takes
-    the widths :func:`bwd_plan` allows."""
+    (dx, dW, db, dgamma, dbeta), as :func:`input_block_bwd_plain`. The kernel
+    runs dx and dW on the tensor cores, in bf16 under ``bf16``, else in
+    3xTF32, and takes the widths :func:`bwd_plan` allows."""
     if _device_kind("input_block_bwd", x) == "cpu":
         return input_block_bwd_plain(proj, norm, x, dy, bf16)
     _check_cuda_args(proj, norm, x, dy)
@@ -242,19 +242,18 @@ def input_block_bwd(proj: Mapping, norm: Mapping, x: torch.Tensor, dy: torch.Ten
     lib = kernels.load_library()
     dev = x.device
     w, b, gamma, beta = (_f32(t) for t in (proj["w"], proj["b"], norm["scale"], norm["bias"]))
-    # the bf16 mode streams x and dy in 16-byte copies
+    # the kernel streams x and dy in 16-byte copies
     x_in = x if x.data_ptr() % 16 == 0 else x.clone()
     if dy.data_ptr() % 16:
         dy = dy.clone()
     f32 = dict(dtype=torch.float32, device=dev)
     dx = torch.empty_like(x)
     grads = torch.empty((channels + 3) * hidden, **f32)
-    dz_scr = torch.empty(plan.dz_scr, **f32) if plan.dz_scr else None
     part = torch.empty(plan.part, **f32)
     err = lib.eegflow_input_block_bwd(
         x_in.data_ptr(), dy.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
-        beta.data_ptr(), dx.data_ptr(), grads.data_ptr(), _ptr(dz_scr), part.data_ptr(),
-        plan.ctas, plan.splits, rows, channels, hidden, int(bf16), _stream(dev))
+        beta.data_ptr(), dx.data_ptr(), grads.data_ptr(), part.data_ptr(), plan.ctas,
+        plan.tile_rows, rows, channels, hidden, int(bf16), _stream(dev))
     kernels.check(lib, err, "input_block_bwd")
     kernels.launch_counts["input_block_bwd"] += 1
     dw, vec = grads.split([channels * hidden, 3 * hidden])

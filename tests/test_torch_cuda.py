@@ -751,8 +751,9 @@ def test_pool_head_fwd_bf16_rejects_widths_off_its_tiles(dev):
             "score": {"w": torch.zeros(64, 1, device=dev)}}
     with pytest.raises(ValueError, match="multiples of 32"):
         pool_head_fused(None, attn, (x,), False, True)
-    # the float32 mode takes any width
-    pool_head_fused(None, attn, (x,), False, False)
+    # so does the float32 mode (3xTF32 on the tensor cores)
+    with pytest.raises(ValueError, match="pool_head_fwd in float32 needs"):
+        pool_head_fused(None, attn, (x,), False, False)
 
 
 @pytest.mark.parametrize("hidden", [64, 256])
@@ -888,6 +889,101 @@ def test_pool_head_bwd_f32_rejects_widths_off_its_tiles(dev):
         with pytest.raises(ValueError, match="multiples of 32"):
             pool_head_bwd(None, attn, (x,), z2, z2, (torch.zeros(2, d, device=dev),),
                           torch.zeros(2, device=dev), False, False)
+
+
+@pytest.mark.parametrize("hidden", [64, 256, 512])
+@pytest.mark.parametrize("batch,steps", [(5, 37), (40, 256)])
+def test_input_block_bwd_f32_on_tensor_cores_matches_twin_and_repeats_bitwise(dev, hidden,
+                                                                              batch, steps):
+    """Kernel 10's float32 mode (dx and dW in 3xTF32) on ragged rows (5 x 37
+    = 185, not a multiple of its 32- or 16-row tile) and on rows spanning
+    more tiles than its persistent grid holds (40 x 256 = 10240 rows: 320
+    tiles of 32, or 640 of 16 at H=512, on 132 CTAs)."""
+    gen = make_generator(200 + hidden)
+    proj, norm, x = _input_case(gen, hidden, dev, batch=batch, steps=steps)
+    dy = _randn(gen, batch, steps, hidden, dev=dev)
+    before = kernels.launch_counts["input_block_bwd"]
+    got = input_block_bwd(proj, norm, x, dy, False)
+    again = input_block_bwd(proj, norm, x, dy, False)
+    assert kernels.launch_counts["input_block_bwd"] == before + 2
+    want = input_block_bwd_plain(proj, norm, x, dy, False)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and bool(torch.isfinite(a).all()) and _rel(a, w) <= F32_REL_TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("channels", [7, 61, 130])
+def test_input_block_bwd_f32_takes_any_channel_count(dev, channels):
+    """C below one 8-wide n-tile, the classifier's C = 61 and C = 130 (three
+    channel chunks: a pass over the tiles per chunk)."""
+    gen = make_generator(210 + channels)
+    proj, norm, x = _input_case(gen, 96, dev, batch=3, steps=50, channels=channels)
+    dy = _randn(gen, 3, 50, 96, dev=dev)
+    got = input_block_bwd(proj, norm, x, dy, False)
+    want = input_block_bwd_plain(proj, norm, x, dy, False)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and _rel(a, w) <= F32_REL_TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, input_block_bwd(proj, norm, x, dy, False)))
+
+
+def _pool_case(gen, d_part, k, n_parts, batch, steps, dev, w_scale=0.05):
+    d = d_part * n_parts
+    ln = {"scale": 1 + 0.1 * _randn(gen, d, dev=dev), "bias": 0.1 * _randn(gen, d, dev=dev)}
+    attn = {"proj": {"w": w_scale * _randn(gen, d, k, dev=dev),
+                     "b": 0.1 * _randn(gen, k, dev=dev)},
+            "score": {"w": 0.1 * _randn(gen, k, 1, dev=dev)}}
+    xs = tuple(torch.tanh(_randn(gen, batch, steps, d_part, dev=dev)) for _ in range(n_parts))
+    return ln, attn, xs
+
+
+@pytest.mark.parametrize("ln_parts", [(False, 1), (True, 1), (False, 2), (True, 2)])
+@pytest.mark.parametrize("batch,steps", [(3, 100), (2, 256)])
+def test_pool_head_fwd_f32_on_tensor_cores_matches_twin_and_repeats_bitwise(dev, ln_parts,
+                                                                            batch, steps):
+    """Kernel 7's float32 mode (3xTF32) at the classifier's widths (parts of
+    256, K=256; one part of 256 and K=128), T not a multiple of its 32-row
+    tile (T=100) and a whole number of tiles (T=256), with and without LN."""
+    use_ln, n_parts = ln_parts
+    gen = make_generator(220 + n_parts + 2 * int(use_ln))
+    ln, attn, xs = _pool_case(gen, 256, 128 * n_parts, n_parts, batch, steps, dev)
+    args = (ln if use_ln else None, attn, xs, use_ln, False)
+    before = kernels.launch_counts["pool_head_fwd"]
+    got, again = pool_head_fused(*args), pool_head_fused(*args)
+    assert kernels.launch_counts["pool_head_fwd"] == before + 2
+    want = pool_head_fused_plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda out: list(out[0]) + [out[1]]  # noqa: E731
+    for a, c in zip(flat(got), flat(want)):
+        assert bool(torch.isfinite(a).all()) and (a - c).abs().max().item() <= POOL_TOL[False]
+    assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
+
+
+@pytest.mark.parametrize("d_part,k", [(512, 512), (512, 96)])
+def test_pool_head_fwd_f32_takes_the_widths_of_hidden_512(dev, d_part, k):
+    """D = 1024 (two parts of 512) with K = 512 (a hidden-512 classifier) and
+    with K = 96: the 16-row tiles of the float32 mode."""
+    gen = make_generator(230 + k)
+    ln, attn, xs = _pool_case(gen, d_part, k, 2, 2, 45, dev, w_scale=0.03)
+    args = (ln, attn, xs, True, False)
+    got, again, want = pool_head_fused(*args), pool_head_fused(*args), pool_head_fused_plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda out: list(out[0]) + [out[1]]  # noqa: E731
+    for a, c in zip(flat(got), flat(want)):
+        assert (a - c).abs().max().item() <= POOL_TOL[False]
+    assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
+
+
+def test_pool_head_fwd_f32_rejects_widths_off_its_tiles(dev):
+    for d, k in ((40, 64), (64, 40), (1056, 64), (64, 544)):
+        x = torch.zeros(2, 5, d, device=dev)
+        attn = {"proj": {"w": torch.zeros(d, k, device=dev), "b": torch.zeros(k, device=dev)},
+                "score": {"w": torch.zeros(k, 1, device=dev)}}
+        with pytest.raises(ValueError, match="multiples of 32"):
+            pool_head_fused(None, attn, (x,), False, False)
+        with pytest.raises(ValueError, match="multiples of 32"):
+            attention_pool(x, attn["proj"]["w"], attn["proj"]["b"], attn["score"]["w"][:, 0])
 
 
 def test_input_block_bwd_rejects_widths_off_its_tiles(dev):

@@ -12,7 +12,6 @@ import pytest
 import torch
 
 from eegflow.nn.pallas_input import input_block_fused as jax_input_block
-from eegflow_torch import kernels
 from eegflow_torch.nn.cuda_input import (BWD_CTAS, BWD_TILE_ROWS, FWD_CTAS, bwd_plan, fwd_plan,
                                          input_block, input_block_bwd, input_block_bwd_plain,
                                          input_block_fused, input_block_fused_plain)
@@ -107,9 +106,10 @@ def test_bwd_plan_owns_every_row_tile_once_and_sizes_the_scratch(rows, bf16):
     """Kernel 10's launch plan, from which the wrapper allocates: the CTAs'
     tiles (tile i of CTA c: i = c, c + ctas, ..) cover every row exactly once
     and every CTA owns at least one, also where the rows span more tiles than
-    the bf16 mode's persistent grid holds (8449 rows); the scratch holds one
-    partial row [dW, db, dgamma, dbeta] a CTA under bf16, and the float32
-    mode's dz rows, [db, dgamma, dbeta] rows and split-K partials."""
+    the persistent grid holds (8449 rows); 64-row tiles under bf16, 32-row
+    tiles in float32 at the classifier's H = 256; the scratch holds one
+    partial row [dW, db, dgamma, dbeta] a CTA in both modes, and nothing of
+    size B*T x H."""
     channels, hidden = 61, 256
     plan = bwd_plan(rows, channels, hidden, bf16)
     owned = np.zeros(rows, np.int64)
@@ -120,16 +120,10 @@ def test_bwd_plan_owns_every_row_tile_once_and_sizes_the_scratch(rows, bf16):
             assert row0 % plan.tile_rows == 0 and 0 < n <= plan.tile_rows
             owned[row0:row0 + n] += 1
     assert (owned == 1).all()
-    if bf16:
-        assert plan.tile_rows == BWD_TILE_ROWS
-        assert plan.ctas == min(BWD_CTAS, -(-rows // BWD_TILE_ROWS))
-        assert (plan.splits, plan.dz_scr) == (0, 0)
-        assert plan.part == plan.ctas * (channels * hidden + 3 * hidden)
-    else:
-        assert plan.ctas == min(256, -(-rows // plan.tile_rows))
-        assert plan.splits == kernels.gemm_splits(rows)
-        assert plan.dz_scr == rows * hidden
-        assert plan.part == plan.ctas * 3 * hidden + plan.splits * channels * hidden
+    assert plan._fields == ("ctas", "tile_rows", "part")
+    assert plan.tile_rows == (BWD_TILE_ROWS if bf16 else 32)
+    assert plan.ctas == min(BWD_CTAS, -(-rows // plan.tile_rows))
+    assert plan.part == plan.ctas * (channels * hidden + 3 * hidden)
 
 
 @pytest.mark.parametrize("channels,hidden", [(65, 256), (61, 288), (61, 48), (61, 512)])
@@ -138,6 +132,34 @@ def test_bwd_plan_rejects_widths_off_the_bf16_tiles(channels, hidden):
         bwd_plan(185, channels, hidden, True)
     if hidden % 32 == 0:
         bwd_plan(185, channels, hidden, False)  # the float32 mode takes them
+    else:
+        with pytest.raises(ValueError, match="input_block_bwd in float32 needs H % 32 == 0"):
+            bwd_plan(185, channels, hidden, False)
+
+
+@pytest.mark.parametrize("channels", [7, 61, 130])
+@pytest.mark.parametrize("hidden", [32, 256, 288, 512])
+@pytest.mark.parametrize("rows", [185, 8449, 131072])
+def test_bwd_plan_f32_takes_kernel_9s_widths_on_their_tiles(rows, hidden, channels):
+    """The float32 mode takes kernel 9's widths, so a float32 model with
+    H <= 512 trains: any C, 32-row tiles up to H = 256 and 16-row tiles above
+    it, each row tile owned once, one partial row a CTA."""
+    plan = bwd_plan(rows, channels, hidden, False)
+    assert plan.tile_rows == (32 if hidden <= 256 else 16)
+    assert plan.ctas == min(BWD_CTAS, -(-rows // plan.tile_rows))
+    assert plan.part == plan.ctas * (channels + 3) * hidden
+    owned = np.zeros(rows, np.int64)
+    for cta in range(plan.ctas):
+        for row0, n in plan.tiles_of(cta, rows):
+            owned[row0:row0 + n] += 1
+    assert (owned == 1).all()
+
+
+@pytest.mark.parametrize("hidden", [0, 48, 544, 1024])
+def test_bwd_plan_f32_rejects_hidden_off_the_kernel(hidden):
+    with pytest.raises(ValueError, match="input_block_bwd in float32 needs H % 32 == 0 and "
+                                         "H <= 512"):
+        bwd_plan(185, 61, hidden, False)
 
 
 @pytest.mark.parametrize("hidden", [32, 256, 288, 512])

@@ -14,7 +14,8 @@ from eegflow.nn.pallas_attention import attention_pool_pallas, pallas_attention_
 from eegflow.nn.pallas_attention import pool_head_fused as pallas_pool_head
 from eegflow_torch.nn.cuda_attention import (attention_pool, attention_pool_apply,
                                              attention_pool_plain, check_bf16_widths,
-                                             pool_head_fused, pool_head_fused_plain)
+                                             check_f32_widths, pool_head_fused,
+                                             pool_head_fused_plain)
 
 # Same LayerNorm formula and the same bf16-rounded operands on both sides;
 # float32 sums in another order (and, under bf16, a last-bit LN difference
@@ -120,3 +121,22 @@ def test_bf16_width_rule_rejects_widths_off_its_tiles(d, k):
     with pytest.raises(ValueError, match=rf"pool_head_fwd under bf16 needs D <= 512 and K "
                                          rf"<= 256, both multiples of 32; got D={d}, K={k}"):
         check_bf16_widths("pool_head_fwd", d, k)
+
+
+@pytest.mark.parametrize("hidden", [32, 64, 256, 288, 512])
+def test_f32_width_rule_takes_the_classifiers_widths(hidden):
+    """The float32 modes of kernels 7 and 8 (and kernel 6) share one width
+    rule; it takes the classifier's D = 2H and K = H for every H <= 512 that
+    is a multiple of 32 (the widths kernels 9 and 10 take), kernel 6's D = H,
+    K = H / 2, and the widths of the card tests (D = 1024, K = 96)."""
+    for name in ("pool_head_fwd", "pool_head_bwd", "attention_pool"):
+        check_f32_widths(name, 2 * hidden, hidden)
+    check_f32_widths("attention_pool", 256, 128)
+    check_f32_widths("pool_head_fwd", 1024, 96)
+
+
+@pytest.mark.parametrize("d,k", [(40, 64), (64, 40), (1056, 64), (64, 544), (48, 32)])
+def test_f32_width_rule_rejects_widths_off_its_tiles(d, k):
+    with pytest.raises(ValueError, match=rf"pool_head_fwd in float32 needs D <= 1024 and K "
+                                         rf"<= 512, both multiples of 32; got D={d}, K={k}"):
+        check_f32_widths("pool_head_fwd", d, k)

@@ -1,12 +1,15 @@
-"""The precision of 3xTF32, the float32 pool-head backward's products
-(``eegflow_torch/csrc/mma_gemm.cuh`` ``tile_mma_tf32x3`` and
-``tf32x3_gemm_split_k``), emulated in plain PyTorch on the CPU: each float32
+"""The precision of 3xTF32, the products of the float32 pool head (kernels
+7 and 8, ``eegflow_torch/csrc/mma_gemm.cuh`` ``tile_mma_tf32x3`` and
+``tf32x3_gemm_split_k``) and of the float32 input-block backward (kernel 10's
+dx and dW, ``csrc/input_block.cu``), emulated in plain PyTorch on the CPU: each float32
 operand split into hi = tf32(a) and lo = tf32(a - hi) (``cvt.rna``: round
 to nearest, ties away from zero, to 10 mantissa bits), a . b as
 lo_a hi_b + hi_a lo_b + hi_a hi_b with float32 sums. At the pool head's
 widths (D = 512, K = 256) the three products agree with float64 and with
 the plain twin's float32 product to 1e-6 of the largest entry, where one
-TF32 product misses by more than 1e-5. Inputs are made with numpy from a
+TF32 product misses by more than 1e-5; so do kernel 10's dx = dz . W^T (a
+sum over H = 256) and dW = x^T . dz (over the rows) at C = 61, and kernel
+7's scores s = tanh(y . W1 + b1) . w2. Inputs are made with numpy from a
 seed."""
 
 import numpy as np
@@ -80,3 +83,51 @@ def test_tf32x3_holds_float32_precision_at_the_pool_heads_widths(product):
     assert _rel(got, a @ b) <= REL_TOL
     # one TF32 product is a different function
     assert _rel(tf32_rna(a) @ tf32_rna(b), want64) > 10 * REL_TOL
+
+
+C_IN, H_IN = 61, 256
+
+
+def _input_operands(seed):
+    """The input block's backward operands at full width: x windows N(0, 1),
+    W as dense_init draws it (61 -> 256), dz at the scale rsig dxhat takes."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((ROWS, C_IN)).astype(np.float32)
+    bound = 1 / np.sqrt(C_IN)
+    w = rng.uniform(-bound, bound, (C_IN, H_IN)).astype(np.float32)
+    dz = (0.3 * rng.standard_normal((ROWS, H_IN))).astype(np.float32)
+    return torch.from_numpy(x), torch.from_numpy(w), torch.from_numpy(dz)
+
+
+@pytest.mark.parametrize("product", ["dx", "dW"])
+def test_tf32x3_holds_float32_precision_at_the_input_blocks_widths(product):
+    """Kernel 10's float32 products: dx = dz . W^T (a sum over H = 256) and
+    dW = x^T . dz (a sum over the rows), at C = 61."""
+    x, w, dz = _input_operands({"dx": 4, "dW": 5}[product])
+    a, b = {"dx": (dz, w.t()), "dW": (x.t(), dz)}[product]
+    got = matmul_tf32x3(a, b)
+    want64 = a.to(torch.float64) @ b.to(torch.float64)
+    assert _rel(got, want64) <= REL_TOL
+    # the plain twin's float32 product (input_block_bwd_plain)
+    assert _rel(got, a @ b) <= REL_TOL
+    assert _rel(tf32_rna(a) @ tf32_rna(b), want64) > 10 * REL_TOL
+
+
+def test_tf32x3_scores_hold_float32_precision_at_the_pool_heads_widths():
+    """Kernel 7's float32 scores s = tanh(y . W1 + b1) . w2 at D = 512, K =
+    256, from the 3xTF32 projection, against float64 and against the twin's
+    float32 product; one TF32 product moves them by more than 10x as much."""
+    y, w1, _ = _operands(6)
+    rng = np.random.default_rng(7)
+    b1 = torch.from_numpy((0.1 * rng.standard_normal(K)).astype(np.float32))
+    w2 = torch.from_numpy((0.1 * rng.standard_normal(K)).astype(np.float32))
+
+    def scores(proj):
+        return (torch.tanh(proj.to(torch.float64) + b1.to(torch.float64))
+                * w2.to(torch.float64)).sum(-1)
+
+    want64 = scores(y.to(torch.float64) @ w1.to(torch.float64))
+    got = scores(matmul_tf32x3(y, w1))
+    assert _rel(got, want64) <= REL_TOL
+    assert _rel(got, scores(y @ w1)) <= REL_TOL
+    assert _rel(scores(tf32_rna(y) @ tf32_rna(w1)), want64) > 10 * REL_TOL
