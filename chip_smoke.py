@@ -88,6 +88,22 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      and lstm_bwd_dualdir without dropout to two lstm_bwd launches bit for
      bit; then one cuDNN LSTM call per LSTM kernel at its shape as a
      yardstick (never on the port's path).
+ 16. kernels 11 and 12 against their twins: apf_rk4 (a DE population of 90,
+     200 points, 16 substeps) in trajectory mode, loss mode and loss mode
+     with tangents, each bitwise repeatable; sos_filtfilt on 61 x 20,000
+     samples (bitwise repeatable), and bandpass_filter(method="filtfilt") on a
+     61 x 60,000 recording against scipy's float64 filtfilt; their times
+     beside their chain bounds;
+ 17. the pipeline from raw recordings to a served model, every step a CLI
+     call on the card in one temporary directory: synth (12 subjects x 120 s
+     per task, 61 channels at 500 Hz), preprocess (default fft filter),
+     train --epochs 1 (default TrainConfig, bf16 "fused"), fit-ode (default
+     ODEConfig: apf_rk4 and nothing else), serve in its own process with a
+     --config whose coupling sets strength 0.8 and 30 forecast steps; the
+     served answers equal predict_batch at that coupling and differ from the
+     default coupling's; prints each stage's time, the windows per split,
+     the proportion points, the fit and which of scipy, pandas and sklearn
+     import; then times apf_rk4 and its twin at the fit's shape.
 The line before the last lists the kernels as JSON, each with its time, its
 twin's, its bound on an H100 (bytes over 3.35 TB/s or products over the
 dtype's peak, whichever is larger) and the library call's time where there is
@@ -97,6 +113,7 @@ one; the last line is {"ok": true, "device": {...}}.
 import json
 import math
 import re
+import signal
 import statistics
 import subprocess
 import sys
@@ -167,6 +184,41 @@ HBM_BYTES_PER_S = 3.35e12
 PEAK_FLOPS = {"bf16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
 N_TRAIN_WINDOWS = 2048
 TRAIN_EPOCHS = 2
+# kernel 11 (apf_rk4) vs its twin: the same float32 RK4 steps, with FMA
+# contraction and the field's 3-term sums in another order; the loss
+# relative, the tangents' gradient relative to its largest entry,
+# trajectories absolute
+APF_LOSS_REL_TOL = 1e-5
+APF_GRAD_REL_TOL = 1e-4
+APF_TRAJ_TOL = 1e-6
+# kernel 11's check shape: a DE population (popsize 15 x 6 rates), 200
+# output points, 16 RK4 substeps an interval
+APF_CANDIDATES, APF_POINTS, APF_SUBSTEPS = 90, 200, 16
+# kernel 12 (sos_filtfilt) vs its twin, relative to the output's scale: the
+# same roundings (the multiply-adds written out on both sides); vs scipy's
+# float64 filtfilt: the float32 recursion floor (the JAX package's bound)
+SOS_REL_TOL = 1e-5
+SOS_SCIPY_REL_TOL = 3e-4
+# kernel 12's shape: one recording of the pipeline (61 channels, 120 s at
+# 500 Hz)
+SOS_ROWS, SOS_SAMPLES = 61, 60_000
+# the pipeline phase: synth 12 subjects x 1 session x 120 s per task
+PIPE_SUBJECTS, PIPE_SECONDS = 12, 120.0
+# dependent operations on the serial chain, for the chain bounds: one RK4
+# step of kernel 11 (per stage max, the field's mul-fma-add, and the axpy
+# to the next stage's point: 3 x 5, then stage 4's field: 4, then the sum's
+# last add and the update: 2) and one sample of one section of kernel 12 (the
+# delay line's loop-carried cycle: fma, mul, fma, add); FP32 latency on
+# Hopper, cycles
+APF_CHAIN_OPS_PER_STEP = 21
+SOS_CHAIN_OPS_PER_SAMPLE = 4
+FP32_LATENCY_CYCLES = 4
+# float32 operations a kernel does, for its roofline bound: one RK4 step of
+# one candidate (4 fields of 3 max + 3 x (mul + 2 fma), 3 axpys, the
+# weighted sum and the update: 111, an FMA as 2) and one section-sample of
+# kernel 12 (3 fma, 2 mul, 1 add: 9)
+APF_FLOPS_PER_STEP = 111
+SOS_FLOPS_PER_SECTION_SAMPLE = 9
 
 
 def require(cond, msg):
@@ -204,8 +256,9 @@ def rel_err(got, want):
 
 
 def hold_at_main_shape(label, got, again, want, tol, relative):
-    """Hold a kernel's outputs at a main-path shape (the plan the main path
-    launches) to its twin's on the same inputs: the largest difference,
+    """Hold a kernel's outputs at a shape ``label`` names (a main-path shape
+    launches the main path's plan) to its twin's on the same inputs: the
+    largest difference,
     relative to each output's largest entry where ``relative``, within
     ``tol``, and a second launch bitwise identical. ``got``, ``again`` and
     ``want`` are flat lists of tensors. -> the largest absolute difference."""
@@ -283,6 +336,294 @@ def request(addr, method, path, payload=None):
         return resp.status, json.loads(resp.read())
     finally:
         conn.close()
+
+
+def sm_clock_mhz():
+    """(current, max) SM clock of card 0 in MHz, from nvidia-smi."""
+    out = subprocess.run(["nvidia-smi", "--id=0", "--query-gpu=clocks.sm,clocks.max.sm",
+                          "--format=csv,noheader,nounits"], capture_output=True, text=True,
+                         timeout=60, check=True).stdout
+    cur, top = (float(v) for v in out.strip().split(","))
+    return cur, top
+
+
+def chain_ms(links, clock_mhz):
+    """Milliseconds of ``links`` dependent FP32 operations in series at
+    ``clock_mhz``: the least time of a serial recurrence."""
+    return links * FP32_LATENCY_CYCLES / (clock_mhz * 1e3)
+
+
+def kernel_check_phase(dev, smi):
+    """Phase 16: kernel 11's three modes against its twin at a DE
+    population's shape, and kernel 12 through ``bandpass_filter(method=
+    "filtfilt")`` on a full recording against its twin and scipy's filtfilt
+    (each repeats bit for bit), and their times. -> the kernels line's
+    numbers for kernel 12."""
+    from scipy.signal import filtfilt
+
+    from eegflow_torch import kernels
+    from eegflow_torch.core.config import ODEConfig
+    from eegflow_torch.data.synthetic import generate_recording
+    from eegflow_torch.ode.cuda_ode import (rk4_fit_loss, rk4_fit_loss_plain, rk4_trajectory,
+                                            rk4_trajectory_plain, step_sizes)
+    from eegflow_torch.signal.filters import (_sos_design, bandpass_filter, butter_bandpass,
+                                              sos_filtfilt, sos_filtfilt_plain)
+
+    out = {}
+    rng = np.random.default_rng(SEED + 16)
+    # kernel 11 at a DE population's shape
+    n, pts, sub = APF_CANDIDATES, APF_POINTS, APF_SUBSTEPS
+    lo, hi = np.array(ODEConfig().bounds).T
+    k = torch.tensor(lo + rng.uniform(size=(n, 6)) * (hi - lo), dtype=torch.float32,
+                     device=dev)
+    y0 = torch.tensor(rng.dirichlet([2.0, 2.0, 2.0], n), dtype=torch.float32, device=dev)
+    obs = torch.tensor(rng.dirichlet([4.0, 4.0, 4.0], pts), dtype=torch.float32, device=dev)
+    start = obs[0] / obs[0].sum()
+    h = step_sizes(0.0, float(pts - 1), pts, sub)
+    targs = (y0, k, pts, sub, h)
+    largs = (k, start, obs, sub, h, 1e-3)
+    shape = f"B={n} points={pts} substeps={sub}"
+    hold_at_main_shape(f"apf_rk4 trajectory {shape}", [rk4_trajectory(*targs)],
+                       [rk4_trajectory(*targs)], [rk4_trajectory_plain(*targs)], APF_TRAJ_TOL,
+                       relative=False)
+    got, again = rk4_fit_loss(*largs, grad=True), rk4_fit_loss(*largs, grad=True)
+    want = rk4_fit_loss_plain(*largs, grad=True)
+    hold_at_main_shape(f"apf_rk4 loss with tangents {shape}", got[:1], again[:1], want[:1],
+                       APF_LOSS_REL_TOL, relative=True)
+    hold_at_main_shape(f"apf_rk4 tangent gradient {shape}", got[1:], again[1:], want[1:],
+                       APF_GRAD_REL_TOL, relative=True)
+    # the modes with and without tangents are two compilations of the loss
+    hold_at_main_shape(f"apf_rk4 loss without tangents {shape}", rk4_fit_loss(*largs)[:1],
+                       rk4_fit_loss(*largs)[:1], want[:1], APF_LOSS_REL_TOL, relative=True)
+    m = median_ms({"plain": lambda: rk4_fit_loss_plain(*largs),
+                   "kernel": lambda: rk4_fit_loss(*largs)}, rounds=1)
+    m["kernel grad"] = median_ms({"g": lambda: rk4_fit_loss(*largs, grad=True)})["g"]
+    m["kernel traj"] = median_ms({"t": lambda: rk4_trajectory(*targs)})["t"]
+    clock = sm_clock_mhz()
+    steps = (pts - 1) * sub
+    print(f"apf_rk4 {shape} ({steps} serial steps): loss kernel {m['kernel']:.3f} ms, with "
+          f"tangents {m['kernel grad']:.3f} ms, trajectory {m['kernel traj']:.3f} ms, plain "
+          f"twin (loss) {m['plain']:.3f} ms; chain bound "
+          f"{chain_ms(steps * APF_CHAIN_OPS_PER_STEP, clock[1]):.3f} ms at the "
+          f"{clock[1]:.0f} MHz max SM clock (read {clock[0]:.0f} MHz) [{smi}]", flush=True)
+
+    # kernel 12 on one recording, as bandpass_filter(method="filtfilt") gives it
+    b, a = butter_bandpass(1.0, 45.0, 500.0, 4)
+    sos, zi, padlen = _sos_design(b, a)
+    # one synthetic recording, eyes closed (61 channels, volts)
+    rec = generate_recording(True, SOS_SAMPLES / 500.0, 500.0, seed=SEED + 16)
+    require(rec.shape == (SOS_ROWS, SOS_SAMPLES), "the recording's shape")
+    x_rec = torch.from_numpy(rec).to(dev)
+    kernels.reset_launch_counts()
+    got = bandpass_filter(x_rec, 1.0, 45.0, 500.0, 4, method="filtfilt")
+    torch.cuda.synchronize()
+    out["sos_launches"] = kernels.launch_counts["sos_filtfilt"]
+    require(out["sos_launches"] == 1, "bandpass_filter(method='filtfilt') runs kernel 12 once")
+    again = bandpass_filter(x_rec, 1.0, 45.0, 500.0, 4, method="filtfilt")
+    t0 = time.perf_counter()
+    want = sos_filtfilt_plain(x_rec, sos, zi, padlen)
+    torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    out["sos_err"] = hold_at_main_shape(
+        f"sos_filtfilt through bandpass_filter(method='filtfilt') rows={SOS_ROWS} "
+        f"samples={SOS_SAMPLES} sections={len(sos)}", [got], [again], [want], SOS_REL_TOL,
+        relative=True)
+    ref = filtfilt(b, a, rec.astype(np.float64), axis=1)
+    sp_err = np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max()
+    print(f"bandpass_filter(method='filtfilt') rows={SOS_ROWS} samples={SOS_SAMPLES}: max "
+          f"diff to scipy filtfilt (float64) {sp_err:.3e} of its scale (tol "
+          f"{SOS_SCIPY_REL_TOL:g})", flush=True)
+    require(sp_err < SOS_SCIPY_REL_TOL, "kernel 12 agrees with scipy's filtfilt")
+    kernel_ms = median_ms({"k": lambda: sos_filtfilt(x_rec, sos, zi, padlen)})["k"]
+    clock = sm_clock_mhz()
+    links = 2 * (SOS_SAMPLES + 2 * padlen) * SOS_CHAIN_OPS_PER_SAMPLE
+    out["sos_ms"] = (kernel_ms, plain_ms)
+    out["sos_chain_ms"] = chain_ms(links, clock[1])
+    print(f"sos_filtfilt rows={SOS_ROWS} samples={SOS_SAMPLES}: kernel {kernel_ms:.3f} ms, "
+          f"plain twin {plain_ms:.1f} ms (one call, host clock to synchronize); chain bound "
+          f"{out['sos_chain_ms']:.3f} ms at the {clock[1]:.0f} MHz max SM clock (read "
+          f"{clock[0]:.0f} MHz) [{smi}]", flush=True)
+    out["sos_work"] = (nbytes(x_rec, got), SOS_ROWS * 2 * (SOS_SAMPLES + 2 * padlen)
+                       * len(sos) * SOS_FLOPS_PER_SECTION_SAMPLE, "float32")
+    return out
+
+
+def apf_at_the_fit(dev, props, smi):
+    """Kernel 11 at the shapes the fit-ode stage gave it, held to its twin
+    and timed: the DE's loss over a population of 90 on the pipeline's
+    proportion series, and the polish's loss and gradient of one candidate
+    through the fit loss's autograd. -> (kernel ms, plain ms, largest abs
+    difference, (bytes, flops, dtype), chain bound ms)."""
+    from eegflow_torch.core.config import ODEConfig
+    from eegflow_torch.fit.evolution import make_fit_loss
+    from eegflow_torch.ode.cuda_ode import rk4_fit_loss_plain
+
+    cfg = ODEConfig()
+    n, pts = cfg.de_popsize * 6, len(props)
+    loss = make_fit_loss(props.astype(np.float32), 0.0, float(pts - 1), pts, cfg.reg_weight,
+                         cfg.rk4_substeps, dev)
+    lo, hi = np.array(cfg.bounds).T
+    rng = np.random.default_rng(SEED + 17)
+    k = torch.tensor(lo + rng.uniform(size=(n, 6)) * (hi - lo), dtype=torch.float32,
+                     device=dev)
+    args = (k, loss.y0, loss.observed, loss.substeps, loss.steps, loss.reg_weight)
+    shape = f"points={pts} substeps={cfg.rk4_substeps}"
+    err = hold_at_main_shape(f"apf_rk4 at the fit, the DE's loss B={n} {shape}", [loss(k)],
+                             [loss(k)], [rk4_fit_loss_plain(*args)[0]], APF_LOSS_REL_TOL,
+                             relative=True)
+
+    def polish_step():
+        # as the polish's loss_and_grad: one candidate, the gradient by backward
+        kk = k[0].clone().requires_grad_()
+        val = loss(kk)
+        val.backward()
+        return [val.detach().reshape(1), kk.grad.reshape(1, 6)]
+
+    got, again = polish_step(), polish_step()
+    want = rk4_fit_loss_plain(k[:1], *args[1:], grad=True)
+    err = max(err, hold_at_main_shape(f"apf_rk4 at the fit, the polish's loss B=1 {shape}",
+                                      got[:1], again[:1], want[:1], APF_LOSS_REL_TOL,
+                                      relative=True))
+    err = max(err, hold_at_main_shape(f"apf_rk4 at the fit, the polish's gradient B=1 {shape}",
+                                      got[1:], again[1:], want[1:], APF_GRAD_REL_TOL,
+                                      relative=True))
+    m = median_ms({"kernel": lambda: loss(k), "plain": lambda: rk4_fit_loss_plain(*args)},
+                  rounds=1)
+    clock = sm_clock_mhz()
+    steps = (pts - 1) * cfg.rk4_substeps
+    chain = chain_ms(steps * APF_CHAIN_OPS_PER_STEP, clock[1])
+    print(f"apf_rk4 at the fit: B={n} {shape} ({steps} serial steps): kernel "
+          f"{m['kernel']:.3f} ms, plain twin {m['plain']:.1f} ms; chain bound {chain:.3f} ms at "
+          f"the {clock[1]:.0f} MHz max SM clock (read {clock[0]:.0f} MHz) [{smi}]", flush=True)
+    work = (nbytes(k, loss.observed, loss.y0) + 4 * n, n * steps * APF_FLOPS_PER_STEP,
+            "float32")
+    return m["kernel"], m["plain"], err, work, chain
+
+
+def pipeline_phase(dev, smi):
+    """Phase 17: synth -> preprocess -> train -> fit-ode -> serve --config,
+    every step a CLI call on the card in one temporary directory, nothing
+    written by hand. -> launches, times and the fit's proportions."""
+    from eegflow_torch import kernels
+    from eegflow_torch.cli.main import load_coupled_model
+    from eegflow_torch.cli.main import main as cli_main
+    from eegflow_torch.core.artifacts import load_processed, load_results
+    from eegflow_torch.core.config import CouplingConfig, ODEConfig
+    from eegflow_torch.couple.rollout import predict_batch
+    from eegflow_torch.ode.field import RATE_NAMES
+    from eegflow_torch.ode.mapping import map_eye_state_to_cognitive
+
+    for name in ("scipy", "pandas", "sklearn"):
+        try:
+            __import__(name)
+            print(f"host package {name}: imports on this machine")
+        except ImportError as e:
+            print(f"host package {name}: does not import ({e})")
+    out, times = {}, {}
+    with tempfile.TemporaryDirectory(prefix="eegflow_chip_pipeline_") as tmp:
+        tmp = Path(tmp)
+        base = ["--data-dir", str(tmp / "data"), "--output-dir", str(tmp / "out")]
+
+        def stage(name, argv, config=None):
+            kernels.reset_launch_counts()
+            t0 = time.perf_counter()
+            rc = cli_main((["--config", str(config)] if config else []) + argv)
+            torch.cuda.synchronize()
+            times[name] = time.perf_counter() - t0
+            counts = dict(kernels.launch_counts)
+            require(rc == 0, f"{name} stage returned 0")
+            print(f"pipeline {name}: {times[name]:.1f} s, launches {counts}", flush=True)
+            return counts
+
+        stage("synth", base + ["synth", "--subjects", str(PIPE_SUBJECTS), "--sessions", "1",
+                               "--duration", str(PIPE_SECONDS)])
+        stage("preprocess", base + ["preprocess", "--device", dev.type])
+        arrays, meta = load_processed(tmp / "out" / "processed_data" / "processed_sequences.npz")
+        windows = {s: tuple(arrays[f"X_{s}"].shape) for s in ("train", "val", "test")}
+        print(f"pipeline windows per split: {windows}; subjects "
+              f"{ {s: len(v['subjects']) for s, v in meta['splits'].items()} }")
+        require(all(len(v) == 3 and v[1:] == (T, C) for v in windows.values())
+                and min(v[0] for v in windows.values()) > 0
+                and np.isfinite(arrays["X_train"]).all(), "processed windows")
+        stage("train", base + ["train", "--epochs", "1", "--device", dev.type])
+        counts = stage("fit-ode", base + ["fit-ode", "--device", dev.type])
+        out["apf_launches"] = counts.get("apf_rk4", 0)
+        require(out["apf_launches"] > 0 and set(counts) == {"apf_rk4"},
+                "fit-ode runs kernel 11 and nothing else")
+        eye = np.concatenate([arrays["y_train"], arrays["y_test"]])
+        _, props = map_eye_state_to_cognitive(eye, 20)
+        res = load_results(tmp / "out" / "results" / "ode_results.json")
+        print(f"pipeline fit-ode: {len(props)} proportion points, {res['fit_info']}, loss "
+              f"{res['fit_loss']:.6g}, rates {res['fitted_params']}, steady state "
+              f"{res['steady_state']}", flush=True)
+        require(math.isfinite(res["fit_loss"]) and res["stability"]["is_stable"]
+                and all(lo - 1e-9 <= res["fitted_params"][nm] <= hi + 1e-9
+                        for nm, (lo, hi) in zip(RATE_NAMES, ODEConfig().bounds)),
+                "fitted rates finite, stable and within the bounds")
+        out["fit_props"] = props
+
+        # serve --config in its own process, as a user starts it
+        coupling = {"coupling_strength": 0.8, "forecast_steps": 30}
+        (tmp / "serve.json").write_text(json.dumps({"coupling": coupling}))
+        cmd = [sys.executable, "-m", "eegflow_torch.cli.main", "--output-dir", str(tmp / "out"),
+               "--config", str(tmp / "serve.json"), "serve", "--port", "0", "--device", dev.type]
+        t0 = time.perf_counter()
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                text=True, cwd=str(Path(__file__).resolve().parent))
+        try:
+            lines = []
+            reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+            reader.start()
+            deadline = time.time() + 600
+            addr = None
+            while addr is None and time.time() < deadline and proc.poll() is None:
+                for line in list(lines):
+                    found = re.search(r"http://([\d.]+):(\d+)", line)
+                    if found:
+                        addr = (found.group(1), int(found.group(2)))
+                time.sleep(0.2)
+            require(addr is not None, f"serve printed its address: {''.join(lines)[-2000:]}")
+            x_test = arrays["X_test"]
+            picks = [x_test[:1], x_test[1:6], x_test[6:23]]
+            served = []
+            for i, xs in enumerate(picks):
+                status, body = request(addr, "POST", "/predict",
+                                       {"windows": xs.tolist(), "trajectories": i == 0})
+                require(status == 200, f"/predict -> {status} {body}")
+                served.append(body)
+            status, health = request(addr, "GET", "/health")
+            times["serve"] = time.perf_counter() - t0
+            require(status == 200 and health["model"]["coupling_strength"] == 0.8,
+                    "/health reports the config's coupling")
+        finally:
+            proc.send_signal(signal.SIGINT)
+            try:
+                proc.wait(timeout=60)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=60)
+        model = load_coupled_model(tmp / "out", dev, CouplingConfig(**coupling))
+        default = load_coupled_model(tmp / "out", dev)
+        err, moved = 0.0, 0.0
+        for xs, body in zip(picks, served):
+            want = predict_batch(model, xs, batch_size=BUCKET)
+            for key in ("probs", "final_state"):
+                err = max(err, float(np.abs(np.asarray(body[key]) - want[key]).max()))
+            moved = max(moved, float(np.abs(np.asarray(body["final_state"]) - predict_batch(
+                default, xs, batch_size=BUCKET)["final_state"]).max()))
+        traj = np.asarray(served[0]["trajectories"])
+        err = max(err, float(np.abs(traj - predict_batch(model, picks[0],
+                                                         batch_size=BUCKET)["trajectories"]).max()))
+        print(f"pipeline serve --config (coupling_strength 0.8, forecast_steps 30), own process, "
+              f"{times['serve']:.1f} s to start and answer {len(picks)} /predict: served "
+              f"probs, final states and trajectories {traj.shape} vs predict_batch at that "
+              f"coupling max abs diff {err:.3e}; vs the default coupling's final states "
+              f"{moved:.3e}", flush=True)
+        require(traj.shape == (1, 30, 3) and err <= 1e-6 and moved > 1e-4,
+                "served answers equal predict_batch at the config's coupling")
+    print(f"pipeline stage times: {', '.join(f'{k} {v:.1f} s' for k, v in times.items())}; "
+          f"total {sum(times.values()):.1f} s [{smi}]", flush=True)
+    return out
 
 
 def main() -> int:
@@ -1299,6 +1640,16 @@ def main() -> int:
           f"[{smi}]", flush=True)
     del dd_args, res_f, res_r, h_f, h_r
 
+    # phase 16: kernels 11 and 12 against their twins; phase 17: the pipeline
+    t_new = time.perf_counter()
+    checks = kernel_check_phase(dev, smi)
+    pipe = pipeline_phase(dev, smi)
+    apf_ms, apf_plain_ms, apf_err, work["apf_rk4"], apf_chain = apf_at_the_fit(
+        dev, pipe["fit_props"], smi)
+    work["sos_filtfilt"] = checks["sos_work"]
+    print(f"phases 16-17 (kernels 11 and 12, the pipeline): {time.perf_counter() - t_new:.1f} s",
+          flush=True)
+
     # one cuDNN LSTM call per LSTM kernel, at its shape (TF32 off): the forward,
     # or forward + backward minus forward; in bf16 for the bf16 kernels where
     # cuDNN takes it (torch.backends.cudnn.is_acceptable), else in float16
@@ -1336,13 +1687,13 @@ def main() -> int:
           f"the bf16 kernels, float32 for the float32 ones): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in library_ms.items()) + f" [{smi}]", flush=True)
 
-    def entry(name, source, replaces, launches, err, ms, plain_ms, work_name=None):
+    def entry(name, source, replaces, launches, err, ms, plain_ms, work_name=None, **extra):
         bytes_moved, flops, dtype = work[work_name or name]
         bound_ms, bound_by = bound(bytes_moved, flops, dtype)
         return {"name": name, "route": "cuda", "source": f"eegflow_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms.get(name)}
+                "library_ms": library_ms.get(name), **extra}
 
     print(json.dumps({"kernels": [
         entry("lstm_fwd", "lstm_fwd.cu", "eegflow/nn/pallas_lstm.py:430",
@@ -1391,6 +1742,15 @@ def main() -> int:
         entry("lstm_bwd_dualdir", "lstm_bwd_dualdir.cu", "eegflow/nn/pallas_lstm.py:1293",
               sched_counts["dualdir"].get("lstm_bwd_dualdir", 0), dd_err,
               *train_ms["lstm_bwd_dualdir"]),
+        # kernels of the port with no Pallas counterpart: the lax loops they
+        # replace, and the least time of their serial chain
+        entry("apf_rk4", "apf_rk4.cu", "eegflow/ode/integrate.py:41-68 (rk4_solve lax.scan + "
+              "fori_loop) and eegflow/fit/evolution.py:52-62 (make_fit_loss)",
+              pipe["apf_launches"], apf_err, apf_ms, apf_plain_ms,
+              chain_bound_ms=apf_chain),
+        entry("sos_filtfilt", "sos_filter.cu", "eegflow/signal/filters.py:96-138 (_sos_scan "
+              "lax.scan, _filtfilt_core)", checks["sos_launches"], checks["sos_err"],
+              *checks["sos_ms"], chain_bound_ms=checks["sos_chain_ms"]),
     ]}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": card_name,
                                              "count": torch.cuda.device_count()}}),

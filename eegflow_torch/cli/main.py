@@ -1,48 +1,56 @@
-"""eegflow_torch CLI: the ``train`` and ``serve`` subcommands.
+"""eegflow_torch CLI: the ``synth``, ``preprocess``, ``train``, ``fit-ode``
+and ``serve`` subcommands, which run the pipeline from raw recordings to a
+served model on the card:
 
-``train`` reads ``processed_data/processed_sequences.npz`` under
-``--output-dir`` (the JAX package's preprocess stage writes it), trains the
-BiLSTM-attention classifier, evaluates it on the test split with attention,
-and writes the JAX package's artifacts: ``models/lstm_attention``
-(``checkpoint.json`` + ``params.msgpack``), ``results/lstm_results.json`` and
-``models/attention_weights.npy``:
+    python -m eegflow_torch.cli.main --data-dir data/synth synth --subjects 12 --duration 120
+    python -m eegflow_torch.cli.main --data-dir data/synth --output-dir outputs preprocess
+    python -m eegflow_torch.cli.main --output-dir outputs train
+    python -m eegflow_torch.cli.main --output-dir outputs fit-ode
+    python -m eegflow_torch.cli.main --output-dir outputs --config cfg.json serve --port 8799
 
-    python -m eegflow_torch.cli.main --output-dir outputs train --device cuda
+``synth`` writes a synthetic ds004148-shaped BIDS tree of BrainVision files
+(host numpy; byte for byte the JAX package's). ``preprocess`` discovers and
+splits the recordings, filters, z-scores and windows them on the device and
+writes ``processed_data/processed_sequences.npz`` and its metadata.
+``train`` reads that archive, trains the BiLSTM-attention classifier,
+evaluates it on the test split with attention and writes
+``models/lstm_attention`` (``checkpoint.json`` + ``params.msgpack``),
+``results/lstm_results.json`` and ``models/attention_weights.npy``.
+``fit-ode`` maps the train and test eye states to cognitive-state
+proportions, fits the six rates (DE and L-BFGS-B polish on kernel 11) and
+writes ``results/ode_results.json``. ``serve`` loads the checkpoint and the
+fitted rates and serves the coupled model over HTTP. Every artifact is the
+JAX package's format, so either package reads what the other writes.
 
-``--config`` reads the ``model`` and ``train`` sections of a
-``PipelineConfig`` JSON. The training figures of the JAX package's stage
-(``plot_training_history``, ``plot_attention_weights``) are not drawn: the
-plotting module is not ported.
+``--config`` reads a ``PipelineConfig`` JSON (defaults for what it leaves
+out); each stage reads its sections as the JAX package's does (``serve``:
+``coupling``, ``train.lstm_impl`` and ``preprocess.sequence_length``). The
+figures the JAX package's stages draw (fig01, fig04, fig07, fig08, fig10-12)
+are not drawn: the plotting module is not ported.
 
-``serve`` loads the classifier checkpoint and the fitted rates in
-``results/ode_results.json`` and serves the coupled model over HTTP:
-
-    python -m eegflow_torch.cli.main --output-dir outputs serve --port 8799 --device cuda
-
-``--device cuda`` without a usable GPU raises; it never carries on on the CPU.
+``--device cuda`` (the default of ``preprocess``, ``train``, ``fit-ode``
+and ``serve``) without a usable GPU raises; it never carries on on the CPU.
+``--device cpu`` runs the kernels' plain twins.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
-import json
 import sys
+import time
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Optional
 
 import numpy as np
 import torch
 
 from eegflow_torch.convert import params_from_jax
 from eegflow_torch.core.artifacts import (load_checkpoint, load_processed, load_results,
-                                          save_checkpoint, save_results)
-from eegflow_torch.core.config import CouplingConfig, ModelConfig, TrainConfig
+                                          save_checkpoint, save_processed, save_results)
+from eegflow_torch.core.config import CouplingConfig, PipelineConfig, TrainConfig
 from eegflow_torch.couple.rollout import CoupledModel
 from eegflow_torch.ode.field import rates_to_array
-
-#: window length of the warmup batch (the preprocessing's sequence length)
-WINDOW_LEN = 256
 
 
 def resolve_device(name: str) -> torch.device:
@@ -52,22 +60,25 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
-def load_coupled_model(output_dir: str | Path, device: torch.device) -> CoupledModel:
-    """The counterpart of ``eegflow.cli.main._load_coupled_model``."""
+def load_config(path: Optional[str]) -> PipelineConfig:
+    """The ``PipelineConfig`` JSON at ``path`` (defaults for what it leaves
+    out), or the defaults without a file."""
+    return PipelineConfig.from_json(path) if path else PipelineConfig()
+
+
+def load_coupled_model(output_dir: str | Path, device: torch.device,
+                       coupling: CouplingConfig = CouplingConfig(),
+                       lstm_impl: str = "auto") -> CoupledModel:
+    """The counterpart of ``eegflow.cli.main._load_coupled_model``: the
+    classifier checkpoint and the fitted rates under ``output_dir``, with
+    ``coupling`` and ``lstm_impl``."""
     out = Path(output_dir)
     params, model_cfg, _, _ = load_checkpoint(out / "models" / "lstm_attention")
     ode_results = load_results(out / "results" / "ode_results.json")
     return CoupledModel(
         params=params_from_jax(params, device), model_cfg=model_cfg,
         k_base=rates_to_array(ode_results["fitted_params"], device),
-        coupling=CouplingConfig(), device=device)
-
-
-def load_configs(path: Optional[str]) -> Tuple[ModelConfig, TrainConfig]:
-    """The ``model`` and ``train`` sections of a ``PipelineConfig`` JSON
-    (defaults for what it leaves out, or without a file)."""
-    data = json.loads(Path(path).read_text()) if path else {}
-    return ModelConfig(**data.get("model", {})), TrainConfig(**data.get("train", {}))
+        coupling=coupling, lstm_impl=lstm_impl, device=device)
 
 
 def apply_small_subject_reg(train_cfg: TrainConfig, n_train_subj: Optional[int]) -> TrainConfig:
@@ -98,7 +109,8 @@ def cmd_train(args) -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     device = resolve_device(args.device)
-    model_cfg, train_cfg = load_configs(args.config)
+    cfg = load_config(args.config)
+    model_cfg, train_cfg = cfg.model, cfg.train
     out = Path(args.output_dir)
     models, results = out / "models", out / "results"
     models.mkdir(parents=True, exist_ok=True)
@@ -162,16 +174,106 @@ def cmd_train(args) -> None:
     np.save(models / "attention_weights.npy", attention)
 
 
-def cmd_serve(args) -> None:
+def cmd_synth(args) -> None:
+    from eegflow_torch.data.synthetic import generate_synthetic_dataset
+
+    root = generate_synthetic_dataset(
+        args.data_dir, n_subjects=args.subjects, n_sessions=args.sessions,
+        duration_s=args.duration, n_channels=args.channels, seed=args.seed)
+    print(f"synthetic dataset written to {root}")
+
+
+def cmd_preprocess(args) -> int:
+    from eegflow_torch.data.bids import discover_recordings
+    from eegflow_torch.data.brainvision import read_brainvision
+    from eegflow_torch.signal.preprocess import process_recordings, split_subjects
+
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    recs = discover_recordings(args.data_dir, cfg.data.tasks, cfg.data.max_subjects)
+    if not recs:
+        print(f"no recordings found under {args.data_dir}")
+        return 1
+    print(f"found {len(recs)} recordings ({len({r['subject'] for r in recs})} subjects)")
+    splits = split_subjects(recs, cfg.preprocess.train_frac, cfg.preprocess.val_frac,
+                            cfg.preprocess.seed)
+    loaded, n_skipped = {}, 0
+    for split in ("train", "val", "test"):
+        loaded[split] = []
+        for r in splits.get(split, []):
+            try:  # one unreadable recording does not stop the stage
+                data, _ = read_brainvision(r["vhdr_path"], cfg.data.crop_seconds)
+            except (OSError, ValueError) as e:
+                print(f"  skipping {r['vhdr_path']}: {type(e).__name__}: {e}")
+                n_skipped += 1
+                continue
+            loaded[split].append((r, data))
+    if n_skipped:
+        print(f"  skipped {n_skipped} unreadable recordings")
+    arrays, meta = process_recordings(loaded, cfg.preprocess, device)
+    meta["channel_names"] = [c["name"] for c in
+                             read_brainvision(recs[0]["vhdr_path"])[1]["channels"]]
+    npz = save_processed(Path(args.output_dir) / "processed_data", arrays, meta)
+    for s in ("train", "val", "test"):
+        print(f"  {s}: {arrays[f'X_{s}'].shape}")
+    print(f"saved {npz}")
+    return 0
+
+
+def cmd_fit_ode(args) -> None:
+    from eegflow_torch.fit.evolution import fit_ode_rates
+    from eegflow_torch.ode.field import stability_analysis, steady_state, validate_rates
+    from eegflow_torch.ode.mapping import map_eye_state_to_cognitive
+    from eegflow_torch.ode.sensitivity import parameter_sensitivity
+
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    out = Path(args.output_dir)
+    arrays, _ = load_processed(out / "processed_data" / "processed_sequences.npz")
+    eye_states = np.concatenate([np.asarray(arrays["y_train"]), np.asarray(arrays["y_test"])])
+    _, proportions = map_eye_state_to_cognitive(eye_states, cfg.ode.map_window_size)
+    print(f"{len(eye_states)} eye states -> {len(proportions)} proportion windows")
+    t = np.arange(len(proportions), dtype=np.float64)
+    t_fit = time.perf_counter()
+    rates, loss, info = fit_ode_rates(proportions, t, cfg.ode, device=device)
+    print(f"fitted rates: { {k: round(v, 4) for k, v in rates.items()} } loss={loss:.6f} "
+          f"({info}) in {time.perf_counter() - t_fit:.1f} s on {device}")
+    validation = validate_rates(rates)
+    for w in validation["warnings"]:
+        print(f"  WARNING: {w}")
+    k = rates_to_array(rates, device)
+    save_results(out / "results" / "ode_results.json", {
+        "fitted_params": rates,
+        "fit_loss": loss,
+        "fit_info": info,
+        "steady_state": steady_state(k).cpu().tolist(),
+        "stability": stability_analysis(k),
+        "sensitivity": parameter_sensitivity(k),
+        "validation": validation,
+    })
+
+
+def start_server(args):
+    """The coupled model of ``--output-dir`` with the config's ``coupling``
+    and ``train.lstm_impl``, served on ``--host``/``--port`` (warmed up at
+    ``preprocess.sequence_length``) -> (server, model); the caller runs
+    ``serve_forever``."""
     from eegflow_torch.cli.serve import serve
 
     # float32 matmuls outside the kernels (dense layers, the ODE) stay float32
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    model = load_coupled_model(args.output_dir, resolve_device(args.device))
-    httpd = serve(model, host=args.host, port=args.port,
-                  warmup_seq_len=WINDOW_LEN)
-    print(f"serving coupled LSTM-ODE model on http://{args.host}:{args.port} "
+    cfg = load_config(args.config)
+    model = load_coupled_model(args.output_dir, resolve_device(args.device), cfg.coupling,
+                               cfg.train.lstm_impl)
+    return serve(model, host=args.host, port=args.port,
+                 warmup_seq_len=cfg.preprocess.sequence_length), model
+
+
+def cmd_serve(args) -> None:
+    httpd, model = start_server(args)
+    host, port = httpd.server_address[:2]
+    print(f"serving coupled LSTM-ODE model on http://{host}:{port} "
           f"(POST /predict, GET /health) on {model.device}", flush=True)
     try:
         httpd.serve_forever()
@@ -183,13 +285,27 @@ def cmd_serve(args) -> None:
 
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="eegflow_torch")
+    parser.add_argument("--data-dir", default="data/ds004148")
     parser.add_argument("--output-dir", default="outputs")
     parser.add_argument("--config", default=None, help="PipelineConfig JSON file")
     sub = parser.add_subparsers(dest="command", required=True)
+    p = sub.add_parser("synth", help="generate a synthetic ds004148-shaped dataset")
+    p.add_argument("--subjects", type=int, default=4)
+    p.add_argument("--sessions", type=int, default=1)
+    p.add_argument("--duration", type=float, default=30.0)
+    p.add_argument("--channels", type=int, default=61)
+    p.add_argument("--seed", type=int, default=42)
+    p.set_defaults(fn=cmd_synth)
+    p = sub.add_parser("preprocess", help="filter, z-score and window the recordings")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_preprocess)
     p = sub.add_parser("train", help="train the BiLSTM-attention classifier")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_train)
+    p = sub.add_parser("fit-ode", help="fit the APF rates to the eye-state proportions")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_fit_ode)
     p = sub.add_parser("serve", help="serve the coupled model over HTTP")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8799)
@@ -200,8 +316,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    args.fn(args)
-    return 0
+    return args.fn(args) or 0
 
 
 if __name__ == "__main__":

@@ -1,6 +1,8 @@
 """Configs, seeded generators and the artifact reader and writer."""
 
-from eegflow_torch.core.config import CouplingConfig, ModelConfig, TrainConfig
+from eegflow_torch.core.config import (CouplingConfig, DataConfig, ModelConfig, ODEConfig,
+                                       PipelineConfig, PreprocessConfig, TrainConfig)
 from eegflow_torch.core.prng import make_generator
 
-__all__ = ["CouplingConfig", "ModelConfig", "TrainConfig", "make_generator"]
+__all__ = ["CouplingConfig", "DataConfig", "ModelConfig", "ODEConfig", "PipelineConfig",
+           "PreprocessConfig", "TrainConfig", "make_generator"]

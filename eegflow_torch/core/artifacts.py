@@ -278,6 +278,20 @@ def save_results(path: str | Path, results: Dict[str, Any]) -> Path:
     return path
 
 
+def save_processed(out_dir: str | Path, arrays: Dict[str, np.ndarray],
+                   metadata: Dict[str, Any], name: str = "processed_sequences") -> Path:
+    """Write the processed archive ``{name}.npz`` (compressed) and
+    ``preprocessing_metadata.json`` beside it, as
+    ``eegflow.core.artifacts.save_processed`` does."""
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    npz_path = out_dir / f"{name}.npz"
+    np.savez_compressed(npz_path, **arrays)
+    (out_dir / "preprocessing_metadata.json").write_text(
+        json.dumps(_jsonable(metadata), indent=2))
+    return npz_path
+
+
 def load_processed(path: str | Path, mmap: bool = True
                    ) -> Tuple[Dict[str, np.ndarray], Optional[Dict[str, Any]]]:
     """The processed archive (``processed_sequences.npz``) and, if present,

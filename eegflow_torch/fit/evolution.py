@@ -1,0 +1,163 @@
+"""ODE rate fitting: differential evolution on the population's device and
+an L-BFGS-B polish (``eegflow.fit.evolution``).
+
+The whole population's loss is one launch of kernel 11's fit-loss mode
+(:mod:`eegflow_torch.ode.cuda_ode`); the generation loop runs on the device
+and reads one flag a generation (the convergence test) back to the host.
+
+As the reference, after scipy's defaults:
+  * strategy best1bin: mutant = best + F (r1 - r2), F dithered U(0.5, 1);
+  * binomial crossover, CR = 0.7, one guaranteed dimension;
+  * Latin-hypercube initialisation within the bounds;
+  * stop when std(fitness) <= atol + tol |mean(fitness)|;
+  * polish: scipy's L-BFGS-B within the bounds on the host, loss and
+    gradient from one launch of kernel 11 (:class:`Rk4FitLoss`).
+
+The draws come from a ``torch.Generator`` on the population's device seeded
+from ``de_seed``: they repeat bit for bit from the seed, but are not the
+reference's ``jax.random`` (threefry) stream.
+"""
+
+from __future__ import annotations
+
+from typing import Callable, Dict, Optional, Tuple
+
+import numpy as np
+import torch
+
+from eegflow_torch.core.config import ODEConfig
+from eegflow_torch.ode.cuda_ode import Rk4FitLoss, step_sizes
+from eegflow_torch.ode.field import rates_to_dict
+
+
+class FitLoss:
+    """The fitting loss over rate vectors ``k (..., 6)`` -> ``(...,)``: MSE
+    between the RK4 trajectory from the first observed state (clipped and
+    renormalised) and the observed proportions (n_points, 3), plus
+    ``reg_weight * sum(k^2)``. Differentiable in k."""
+
+    def __init__(self, observed, t0: float, t1: float, n_points: int,
+                 reg_weight: float = 1e-3, substeps: int = 16,
+                 device: Optional[torch.device | str] = None):
+        if not isinstance(observed, torch.Tensor):
+            observed = torch.tensor(np.asarray(observed, np.float32))
+        self.observed = observed.to(device=device, dtype=torch.float32)
+        if self.observed.shape != (n_points, 3):
+            raise ValueError(f"observed must be ({n_points}, 3), got "
+                             f"{tuple(self.observed.shape)}")
+        self.device = self.observed.device
+        self.y0 = self.observed[0] / self.observed[0].sum()
+        self.substeps = substeps
+        self.steps = step_sizes(t0, t1, n_points, substeps)
+        self.reg_weight = reg_weight
+
+    def __call__(self, k: torch.Tensor) -> torch.Tensor:
+        k = torch.as_tensor(k, dtype=torch.float32, device=self.device)
+        loss = Rk4FitLoss.apply(k.reshape(-1, 6), self.y0, self.observed, self.substeps,
+                                self.steps, self.reg_weight)
+        return loss.reshape(k.shape[:-1])
+
+
+def make_fit_loss(observed, t0: float, t1: float, n_points: int, reg_weight: float = 1e-3,
+                  substeps: int = 16, device: Optional[torch.device | str] = None) -> FitLoss:
+    """The reference's ``make_fit_loss``: a :class:`FitLoss` on ``device``
+    (observed's device when it is a tensor, else the card)."""
+    if device is None:
+        device = observed.device if isinstance(observed, torch.Tensor) else "cuda"
+    return FitLoss(observed, t0, t1, n_points, reg_weight, substeps, device)
+
+
+def _latin_hypercube(gen: torch.Generator, n: int, lo: torch.Tensor,
+                     hi: torch.Tensor) -> torch.Tensor:
+    """Stratified uniform samples, permuted independently per dimension."""
+    d = lo.shape[0]
+    u = torch.rand((n, d), generator=gen, device=lo.device)
+    strata = (torch.arange(n, device=lo.device, dtype=lo.dtype)[:, None] + u) / n
+    perms = torch.argsort(torch.rand((n, d), generator=gen, device=lo.device), dim=0,
+                          stable=True)
+    return lo + torch.gather(strata, 0, perms) * (hi - lo)
+
+
+def _de_minimize(loss_fn: Callable[[torch.Tensor], torch.Tensor], gen: torch.Generator,
+                 lo: torch.Tensor, hi: torch.Tensor, popsize: int, maxiter: int, tol: float,
+                 atol: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """best1bin DE -> (best member, its loss, generations run)."""
+    d = lo.shape[0]
+    n = popsize * d
+    dev = lo.device
+    pop = _latin_hypercube(gen, n, lo, hi)
+    fit = loss_fn(pop)
+    self_mask = torch.eye(n, device=dev) * 2.0
+    dims = torch.arange(d, device=dev)
+    gens = 0
+    while gens < maxiter:
+        if bool(fit.std(correction=0) <= atol + tol * fit.mean().abs()):
+            break
+        best = pop[torch.argmin(fit)]
+        f_scale = torch.rand((), generator=gen, device=dev) * 0.5 + 0.5
+        # two distinct partners, neither the member itself
+        u = torch.rand((n, n), generator=gen, device=dev) + self_mask
+        r = torch.topk(u, 2, dim=1, largest=False).indices
+        mutant = torch.clamp(best + f_scale * (pop[r[:, 0]] - pop[r[:, 1]]), lo, hi)
+        cross = torch.rand((n, d), generator=gen, device=dev) < 0.7
+        jrand = torch.randint(0, d, (n,), generator=gen, device=dev)
+        cross = cross | (dims[None, :] == jrand[:, None])
+        trial = torch.where(cross, mutant, pop)
+        trial_fit = loss_fn(trial)
+        improve = trial_fit < fit
+        pop = torch.where(improve[:, None], trial, pop)
+        fit = torch.where(improve, trial_fit, fit)
+        gens += 1
+    i_best = torch.argmin(fit)
+    return pop[i_best], fit[i_best], gens
+
+
+def differential_evolution_fit(loss_fn: FitLoss, bounds: Tuple[Tuple[float, float], ...],
+                               seed: int = 42, popsize: int = 15, maxiter: int = 1000,
+                               tol: float = 1e-7, polish: bool = True
+                               ) -> Tuple[np.ndarray, float, Dict[str, object]]:
+    """Minimise ``loss_fn`` within ``bounds`` -> (x float64, loss, info with
+    ``generations`` and ``polished``). The population lives on
+    ``loss_fn.device``."""
+    dev = loss_fn.device
+    lo = torch.tensor([b[0] for b in bounds], dtype=torch.float32, device=dev)
+    hi = torch.tensor([b[1] for b in bounds], dtype=torch.float32, device=dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(seed))
+    with torch.no_grad():
+        x, fx, gens = _de_minimize(loss_fn, gen, lo, hi, popsize, maxiter, tol)
+    x = x.cpu().numpy().astype(np.float64)
+    fx = float(fx)
+    info = {"generations": int(gens), "polished": False}
+
+    if polish:
+        from scipy.optimize import minimize
+
+        def loss_and_grad(xx):
+            k = torch.tensor(xx, dtype=torch.float32, device=dev, requires_grad=True)
+            val = loss_fn(k)
+            val.backward()
+            return float(val.detach()), k.grad.cpu().numpy().astype(np.float64)
+
+        res = minimize(loss_and_grad, x, jac=True, bounds=list(bounds), method="L-BFGS-B")
+        if res.fun <= fx:
+            x, fx = np.asarray(res.x), float(res.fun)
+            info["polished"] = True
+    return x, fx, info
+
+
+def fit_ode_rates(observed_proportions: np.ndarray, time_points: np.ndarray,
+                  config: Optional[ODEConfig] = None,
+                  device: torch.device | str = "cuda"
+                  ) -> Tuple[Dict[str, float], float, Dict[str, object]]:
+    """Fit the six rates to observed [A, P, F] proportions (n_points, 3) at
+    ``time_points`` -> (rates, loss, info), the DE on ``device``."""
+    config = config or ODEConfig()
+    t = np.asarray(time_points, np.float64)
+    loss = make_fit_loss(np.asarray(observed_proportions, np.float32), float(t[0]),
+                         float(t[-1]), len(t), reg_weight=config.reg_weight,
+                         substeps=config.rk4_substeps, device=device)
+    x, fx, info = differential_evolution_fit(
+        loss, config.bounds, seed=config.de_seed, popsize=config.de_popsize,
+        maxiter=config.de_maxiter, tol=config.de_tol)
+    return rates_to_dict(x), fx, info

@@ -28,6 +28,8 @@ from collections import Counter
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -131,6 +133,14 @@ _SIGNATURES = {
     "eegflow_pool_head_bwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _P],
+    # apf_rk4.cu, kernel 11 (trajectory mode with traj, else the fit loss,
+    # with its gradient when grad is given):
+    # y0, y0_stride, k, B, n_points, substeps, half, full, sixth, traj, obs,
+    # reg_weight, loss, grad, stream
+    "eegflow_apf_rk4": [_P, _I, _P, _I, _I, _I, _F, _F, _F, _P, _P, _F, _P, _P, _P],
+    # sos_filter.cu, kernel 12 (x, y_fwd and out in (time, row) layout):
+    # x, sos, zi, y_fwd, out, rows, T, padlen, sections, stream
+    "eegflow_sos_filtfilt": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 
@@ -229,6 +239,11 @@ def load_library(csrc: Optional[Path] = None, build_dir: Optional[Path] = None) 
         build_info["library"] = str(so)
         _lib, _lib_csrc = lib, csrc.resolve()
         return lib
+
+
+def stream(dev: torch.device) -> int:
+    """The handle of ``dev``'s current CUDA stream, for a launch."""
+    return torch.cuda.current_stream(dev).cuda_stream
 
 
 def check(lib: ctypes.CDLL, err: int, name: str) -> None:

@@ -4,7 +4,7 @@ head, on the GPU.
 
     python -m eegflow_torch.kernels.ablate [--variant base|nomma|noexch|nostore|noload|noln|
                                                      nostream|onetf32]
-                                           [--rows 16,32,48] [--calls all|recurrent|head]
+                                           [--rows 16,32,48] [--calls all|recurrent|head|filter]
 
 Builds the kernels from a copy of ``eegflow_torch/csrc`` with one part of
 the serial step of kernel 2's recurrence, of kernels 3, 3b and 4's chain, of
@@ -29,11 +29,15 @@ LayerNorm backward's row sums), and two take out a part of the 3xTF32
 products alone: ``nostream`` the streaming of W1 and W1^T into kernels 8
 and 7 (the products read stale slices), ``onetf32`` two of the three TF32
 products (one TF32 product, a different function; kernel 10's dx and dW
-too). Each is timed at B=512 (kernel 9's bf16 mode also at 1024), every
+too). Kernel 12 (``sos_filter.cu``, ``--calls filter``) takes ``nomma`` as
+its recursion (the samples pass through), ``noload`` as its reads of x and
+of the forward pass, ``nostore`` as its writes of the forward pass and the
+output; it is timed on 61 x 20,000 and 61 x 60,000 samples. Each is timed
+at B=512 (kernel 9's bf16 mode also at 1024), every
 launch of the call by name, with the SM clock and power draw that
 ``nvidia-smi`` samples during the warm-up (a power-limited card lowers its
 clock under a sustained load). ``--calls`` times only the recurrent kernels or
-only kernels 9, 10, 8 and 7. ``--rows`` restricts the
+only kernels 9, 10, 8 and 7, ``filter`` only kernel 12. ``--rows`` restricts the
 plan's rows per cluster (``cuda_lstm.restrict_plan_rows``). A variant's
 results are wrong by construction and only its times mean anything; the
 difference to ``base`` is the part's share of a step or a call. Each variant
@@ -95,7 +99,10 @@ VARIANTS = {
          "    if (it + kStages - 1 < slices) issue(it + kStages - 1);\n    cp_async_commit();\n"
          "    const float* bs"),
         ("mma_gemm.cuh", "for (int kt = 0; kt < n_tiles; ++kt) {",
-         "for (int kt = 0; kt < 0; ++kt) {")],
+         "for (int kt = 0; kt < 0; ++kt) {"),
+        ("sos_filter.cu", "        last = cascade.step(cur[j]);", "        last = cur[j];"),
+        ("sos_filter.cu", "        const float v = cascade.step(cur[j]);",
+         "        const float v = cur[j];")],
     "noexch": [
         ("lstm_fwd.cu", "for (int r = q; r < hc; r += 4) {", "for (int r = q; r < 0; r += 4) {"),
         ("lstm_bwd_chain.cuh", "    for (int r = 0; r < hc; ++r) {\n      const uint32_t base",
@@ -130,7 +137,11 @@ VARIANTS = {
          "        if (d < 0)\n          dh0[bt * d0 + d] = v;\n        else if (d < 0)\n"
          "          dh1[bt * d1 + (d - d0)] = v;\n      }\n    }\n    __syncthreads();  // the "
          "next tile overwrites the tiles and the row stats\n  }\n\n  // the warps' dgamma and "
-         "dbeta summed in warp order\n  float* const part_s = ys;")],
+         "dbeta summed in warp order\n  float* const part_s = ys;"),
+        ("sos_filter.cu", "        y_fwd[static_cast<size_t>(i) * rows + r] = last;",
+         "        if (last == 12345.f) y_fwd[0] = last;"),
+        ("sos_filter.cu", "        if (o >= 0 && o < t) out[static_cast<size_t>(o) * rows + r] = v;",
+         "        if (v == 12345.f) out[0] = v;")],
     "noload": [
         ("lstm_fwd.cu", "if (row < B) v = __ldcs", "if (row < 0) v = __ldcs"),
         ("lstm_bwd_chain.cuh", "          if (row < B)\n            v = __ldcs(",
@@ -151,7 +162,13 @@ VARIANTS = {
         ("input_block.cu", "n > 0 ? xg + 4 * c : x, 4 * n);", "x, 0);"),
         ("pool_head_fwd.cu", "xv[i] = r < tc && d < D ? (d < d0 ? x0[bt * d0 + d] : x1[bt * d1 + "
          "(d - d0)]) : 0.f;",
-         "xv[i] = 0.f;")],
+         "xv[i] = 0.f;"),
+        ("sos_filter.cu", "  if (i < padlen) return __fsub_rn",
+         "  return 1e-3f * i;\n  if (i < padlen) return __fsub_rn"),
+        ("sos_filter.cu", "cur[j] = j < n ? y_fwd[static_cast<size_t>(n - 1 - j) * rows + r] : 0.f;",
+         "cur[j] = 1e-3f * j;"),
+        ("sos_filter.cu", "nxt[j] = i < n ? y_fwd[static_cast<size_t>(n - 1 - i) * rows + r] : 0.f;",
+         "nxt[j] = 1e-3f * i;")],
     "nostream": [
         ("mma_gemm.cuh", "if (it + kStages - 1 < slices) issue(it + kStages - 1);\n"
          "    cp_async_commit();\n    const float* bs",
@@ -278,11 +295,26 @@ def _head_calls(dev, gen):
                                                                    False)}
 
 
+def _filter_calls(dev, gen):
+    """Kernel 12 on 61 channels of 20,000 and of 60,000 samples (a 120 s
+    recording at 500 Hz), the default 4th-order bandpass: 4 sections."""
+    from eegflow_torch.signal.filters import _sos_design, butter_bandpass, sos_filtfilt
+
+    sos, zi, padlen = _sos_design(*butter_bandpass(1.0, 45.0, 500.0, 4))
+    calls = {}
+    for samples in (20_000, 60_000):
+        x = torch.randn(CHANNELS, samples, generator=gen).to(dev)
+        calls[f"sos_filtfilt {CHANNELS} x {samples}"] = (
+            lambda x=x: sos_filtfilt(x, sos, zi, padlen))
+    return calls
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(prog="eegflow_torch.kernels.ablate")
     parser.add_argument("--variant", default="base", choices=sorted(VARIANTS))
     parser.add_argument("--rows", default=None, help="rows per cluster the plan may take")
-    parser.add_argument("--calls", default="all", choices=("all", "recurrent", "head"))
+    parser.add_argument("--calls", default="all",
+                        choices=("all", "recurrent", "head", "filter"))
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("ablate: needs a CUDA device", file=sys.stderr)
@@ -306,7 +338,7 @@ def main(argv=None) -> int:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True, text=True,
                               timeout=60).stdout.strip()
-        for batch in (16, 512, 1024) if args.calls != "head" else ():
+        for batch in (16, 512, 1024) if args.calls in ("all", "recurrent") else ():
             xs = tuple(torch.randn(batch, STEPS, H, generator=gen).to(dev) for _ in range(2))
             ms = tuple((torch.rand(batch, STEPS, H, generator=gen) < 0.7).to(torch.uint8)
                        .to(dev) for _ in range(2))
@@ -347,7 +379,10 @@ def main(argv=None) -> int:
                       f"{plan.clusters} clusters in {plan.waves} wave(s); recurrence "
                       f"{ms_rec:.3f} ms, {ms_rec / STEPS * 1e3:.2f} us a step [{card}]",
                       flush=True)
-        for name, fn in _head_calls(dev, gen).items() if args.calls != "recurrent" else ():
+        head = _head_calls(dev, gen) if args.calls in ("all", "head") else {}
+        if args.calls in ("all", "filter"):
+            head.update(_filter_calls(dev, gen))
+        for name, fn in head.items():
             by_name, clock, power = _device_ms_by_name(fn)
             print(f"{args.variant} {name}: device ms a launch by kernel: "
                   + ", ".join(f"{k} {v:.3f}" for k, v in by_name.items())

@@ -28,7 +28,7 @@ from typing import Mapping, Optional, Sequence, Tuple
 import torch
 
 from eegflow_torch import kernels
-from eegflow_torch.nn.cuda_lstm import Parts, _ptr, _stream, as_parts
+from eegflow_torch.nn.cuda_lstm import Parts, _ptr, as_parts
 from eegflow_torch.nn.layers import bf16_round
 
 LN_EPS = 1e-5
@@ -171,7 +171,7 @@ def _pool_head_fwd_launch(ln_params, attn_params, xs, use_ln, bf16, name):
         gamma.data_ptr() if use_ln else None, beta.data_ptr() if use_ln else None,
         w1.data_ptr(), b1.data_ptr(), w2.data_ptr(),
         ctx[0].data_ptr(), ctx[1].data_ptr() if two else None, scores.data_ptr(),
-        batch, steps, k, int(use_ln), int(bf16), _stream(dev))
+        batch, steps, k, int(use_ln), int(bf16), kernels.stream(dev))
     kernels.check(lib, err, name)
     kernels.launch_counts[name] += 1
     return tuple(ctx), scores
@@ -330,7 +330,7 @@ def pool_head_bwd(ln_params: Optional[Mapping], attn_params: Mapping, xs: Parts,
         g_ctx[1].data_ptr() if two else None, gctx.data_ptr(),
         dh[0].data_ptr(), dh[1].data_ptr() if two else None, dw1.data_ptr(), vec.data_ptr(),
         y_scr.data_ptr(), u_scr.data_ptr(), vec_part.data_ptr(), part.data_ptr(), splits,
-        batch, steps, k, int(use_ln), int(bf16), _stream(dev))
+        batch, steps, k, int(use_ln), int(bf16), kernels.stream(dev))
     kernels.check(lib, err, "pool_head_bwd")
     kernels.launch_counts["pool_head_bwd"] += 1
     db1, dw2, dgamma, dbeta = vec.split([k, k, d_total, d_total])

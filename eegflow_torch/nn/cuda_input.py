@@ -26,7 +26,7 @@ from typing import List, Mapping, NamedTuple, Tuple
 import torch
 
 from eegflow_torch import kernels
-from eegflow_torch.nn.cuda_lstm import _device_kind, _stream
+from eegflow_torch.nn.cuda_lstm import _device_kind
 from eegflow_torch.nn.layers import bf16_round
 
 LN_EPS = 1e-5
@@ -220,7 +220,7 @@ def input_block_fused(proj: Mapping, norm: Mapping, x: torch.Tensor,
     err = lib.eegflow_input_block_fwd(x_in.data_ptr(), w.data_ptr(), b.data_ptr(),
                                       gamma.data_ptr(), beta.data_ptr(), y.data_ptr(),
                                       plan.ctas, plan.tile_rows, batch * steps, channels,
-                                      hidden, int(bf16), _stream(x.device))
+                                      hidden, int(bf16), kernels.stream(x.device))
     kernels.check(lib, err, "input_block_fwd")
     kernels.launch_counts["input_block_fwd"] += 1
     return y
@@ -253,7 +253,7 @@ def input_block_bwd(proj: Mapping, norm: Mapping, x: torch.Tensor, dy: torch.Ten
     err = lib.eegflow_input_block_bwd(
         x_in.data_ptr(), dy.data_ptr(), w.data_ptr(), b.data_ptr(), gamma.data_ptr(),
         beta.data_ptr(), dx.data_ptr(), grads.data_ptr(), part.data_ptr(), plan.ctas,
-        plan.tile_rows, rows, channels, hidden, int(bf16), _stream(dev))
+        plan.tile_rows, rows, channels, hidden, int(bf16), kernels.stream(dev))
     kernels.check(lib, err, "input_block_bwd")
     kernels.launch_counts["input_block_bwd"] += 1
     dw, vec = grads.split([channels * hidden, 3 * hidden])

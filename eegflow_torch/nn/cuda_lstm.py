@@ -211,10 +211,6 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
 #: kernel 2's modes: wrapper (and counter) name -> (C entry point, mode of
 #: ``eegflow_lstm_fwd_plan``, widths of its outputs in units of H: h first)
 _FWD_MODES = {"lstm_fwd": ("eegflow_lstm_fwd", 0, (1,)),
@@ -311,7 +307,8 @@ def _fwd_kernel(name: str, xs, w_ih, b, w_hh, reverse, masks=None, keep=1.0):
         args.append(1.0 / keep)
     args += [w_parts[0].data_ptr(), w_parts[1].data_ptr() if two else None, bias.data_ptr(),
              wfrag.data_ptr(), pre.data_ptr(), *[o.data_ptr() for o in outs],
-             batch, steps, hidden, plan.hc, plan.rows, plan.k_res, int(reverse), _stream(dev)]
+             batch, steps, hidden, plan.hc, plan.rows, plan.k_res, int(reverse),
+             kernels.stream(dev)]
     err = getattr(lib, entry)(*args)
     kernels.check(lib, err, name)
     kernels.launch_counts[name] += 1
@@ -500,7 +497,7 @@ def _chain_bwd(name: str, plan_kind: str, residuals, h, g, xs, w_ih, w_hh, rever
         dxs[0].data_ptr(), dxs[1].data_ptr() if two else None,
         dw_ih.data_ptr(), dw_hh.data_ptr(), db.data_ptr(), dz16.data_ptr(), db_part.data_ptr(),
         part.data_ptr(), splits, batch, steps, hidden, plan.hc, plan.rows, plan.k_res,
-        int(reverse), _stream(dev))
+        int(reverse), kernels.stream(dev))
     kernels.check(lib, err, name)
     kernels.launch_counts[name] += 1
     return tuple(dxs), dw_ih, dw_hh, db
@@ -653,7 +650,7 @@ def lstm_bwd_dualdir(res_f: torch.Tensor, h_f: torch.Tensor, g_f: torch.Tensor,
         *[t.data_ptr() for t in grads[0]], *[t.data_ptr() for t in grads[1]],
         dz16[0].data_ptr(), dz16[1].data_ptr(), db_part[0].data_ptr(), db_part[1].data_ptr(),
         part.data_ptr(), splits, batch, steps, hidden, plan.hc, plan.rows, plan.k_res,
-        _stream(dev))
+        kernels.stream(dev))
     kernels.check(lib, err, "lstm_bwd_dualdir")
     kernels.launch_counts["lstm_bwd_dualdir"] += 1
     return tuple(dxs), grads[0], grads[1]
@@ -910,7 +907,8 @@ def _rec_fwd_kernel(gates: torch.Tensor, w_hh: torch.Tensor, reverse: bool,
             for _ in range(1 + mode)]
     err = lib.eegflow_lstm_rec_fwd(gates.data_ptr(), wslice.data_ptr(), outs[0].data_ptr(),
                                    _ptr(outs[1]) if mode else None, batch, steps, hidden,
-                                   plan.hc, plan.rows, plan.k_res, int(reverse), _stream(dev))
+                                   plan.hc, plan.rows, plan.k_res, int(reverse),
+                                   kernels.stream(dev))
     kernels.check(lib, err, _REC_MODES[mode])
     kernels.launch_counts[_REC_MODES[mode]] += 1
     return tuple(outs)
@@ -950,7 +948,7 @@ def lstm_recurrence_backward(z: torch.Tensor, h: torch.Tensor, c: torch.Tensor,
     dgates = torch.empty_like(z)
     err = lib.eegflow_lstm_rec_bwd(z.data_ptr(), c.data_ptr(), g.data_ptr(), wslice.data_ptr(),
                                    dgates.data_ptr(), batch, steps, hidden, plan.hc, plan.rows,
-                                   plan.k_res, int(reverse), _stream(dev))
+                                   plan.k_res, int(reverse), kernels.stream(dev))
     kernels.check(lib, err, "lstm_rec_bwd")
     kernels.launch_counts["lstm_rec_bwd"] += 1
     return dgates, _dw_hh(h, dgates, reverse)

@@ -71,7 +71,8 @@ def test_classifier_init_matches_jax_structure():
     _assert_tree_equal(again, got)
 
 
-@pytest.mark.parametrize("name", ["ModelConfig", "CouplingConfig", "TrainConfig"])
+@pytest.mark.parametrize("name", ["ModelConfig", "CouplingConfig", "TrainConfig", "DataConfig",
+                                  "PreprocessConfig", "ODEConfig", "PipelineConfig"])
 def test_config_defaults_match_reference(name):
     ref, port = getattr(jcfg, name), getattr(tcfg, name)
     ref_fields = [(f.name, f.default) for f in dataclasses.fields(ref)]
@@ -80,6 +81,28 @@ def test_config_defaults_match_reference(name):
     if name == "ModelConfig":
         for kw in ({}, {"input_size": 20}, {"hidden_size": 64}):
             assert port(**kw).resolved_hidden() == ref(**kw).resolved_hidden()
+    assert port().to_dict() == ref().to_dict() if name == "PipelineConfig" else \
+        dataclasses.asdict(port()) == dataclasses.asdict(ref())
+    if name == "ODEConfig":
+        assert port().rates() == ref().rates()
+
+
+def test_pipeline_config_reads_json_as_the_reference(tmp_path):
+    """The same file gives field-for-field equal trees, tuples back as
+    tuples, absent sections and fields at their defaults."""
+    data = {"data": {"tasks": ["eyesclosed"], "max_subjects": None},
+            "preprocess": {"filter_method": "filtfilt", "sequence_length": 128},
+            "ode": {"bounds": [[0.0, 1.0]] * 6, "de_maxiter": 7},
+            "coupling": {"coupling_strength": 0.8, "sweep_alphas": [0.0, 1.0]},
+            "train": {"bf16": False}}
+    (tmp_path / "cfg.json").write_text(json.dumps(data))
+    got = tcfg.PipelineConfig.from_json(tmp_path / "cfg.json")
+    want = jcfg.PipelineConfig.from_json(tmp_path / "cfg.json")
+    assert got.to_dict() == want.to_dict()
+    assert got.ode.bounds == ((0.0, 1.0),) * 6 and got.data.tasks == ("eyesclosed",)
+    assert got.coupling.sweep_alphas == (0.0, 1.0) and got.model == tcfg.ModelConfig()
+    got.to_json(tmp_path / "out.json")
+    assert jcfg.PipelineConfig.from_json(tmp_path / "out.json") == want
 
 
 def test_load_checkpoint_reads_jax_checkpoint(tmp_path):

@@ -28,7 +28,11 @@ from eegflow_torch.nn.cuda_lstm import (lstm_bwd, lstm_bwd_dualdir, lstm_bwd_dua
                                         lstm_recurrence_backward_plain, lstm_recurrence_plain)
 from eegflow_torch.nn.losses import cross_entropy_loss
 from eegflow_torch.nn.model import classifier_apply, classifier_init, draw_dropout_masks
+from eegflow_torch.ode.cuda_ode import (rk4_fit_loss, rk4_fit_loss_plain, rk4_trajectory,
+                                        rk4_trajectory_plain, step_sizes)
 from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
+from eegflow_torch.signal.filters import (MAX_SECTIONS, _sos_design, butter_bandpass,
+                                          filtfilt_iir, sos_filtfilt, sos_filtfilt_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -53,6 +57,21 @@ F32_REL_TOL = 1e-3
 # kernel 8 in bf16 mode vs twin, relative: LayerNorm and product sums in
 # another order, and bf16 flips of y or u
 POOL_BWD_REL_TOL = 1e-3
+# kernel 11 vs twin: the same float32 RK4 steps, with FMA contraction and the
+# field's 3-term sums in another order; the loss relative, the tangents'
+# gradient relative to its largest entry, trajectories absolute
+APF_LOSS_REL_TOL = 1e-5
+APF_GRAD_REL_TOL = 1e-4
+APF_TRAJ_TOL = 1e-6
+# kernel 12 vs twin, relative to the output's scale: the same roundings
+# (multiply-adds written out in both), so measured 0
+SOS_REL_TOL = 1e-5
+# kernel 12 vs scipy's float64 filtfilt: the float32 recursion floor
+SOS_SCIPY_REL_TOL = 3e-4
+
+
+def rel_err(got, want):
+    return ((got - want).abs().max() / want.abs().max().clamp_min(1e-30)).item()
 
 
 @pytest.fixture
@@ -1008,3 +1027,91 @@ def test_cluster_plans_query_the_card(dev):
         p = kernel_plan(kind, batch, 256, mode)
         assert p.hc == (8 if kind.startswith("rec") else 4) and p.resident and p.max_clusters >= 1
         assert p.waves == 1 or (kind, batch) == ("rec", 1024) and p.waves == 2
+
+
+@pytest.mark.parametrize("batch", [1, 37, 90])
+@pytest.mark.parametrize("n_points,substeps", [(40, 16), (7, 3)])
+def test_apf_rk4_kernel_matches_twin_and_repeats_bitwise(dev, batch, n_points, substeps):
+    """Kernel 11's three modes (trajectory, loss, loss with tangents) against
+    the twin, populations that are not multiples of 32 included."""
+    rng = np.random.default_rng(batch + n_points)
+    k = torch.tensor(rng.uniform(0.01, 0.5, (batch, 6)), dtype=torch.float32)
+    y0 = torch.tensor(rng.dirichlet([2.0, 2.0, 2.0], batch), dtype=torch.float32)
+    obs = torch.tensor(rng.dirichlet([2.0, 2.0, 2.0], n_points), dtype=torch.float32)
+    h = step_sizes(0.0, float(n_points - 1), n_points, substeps)
+    kernels.reset_launch_counts()
+    got = rk4_trajectory(y0.to(dev), k.to(dev), n_points, substeps, h)
+    again = rk4_trajectory(y0.to(dev), k.to(dev), n_points, substeps, h)
+    want = rk4_trajectory_plain(y0, k, n_points, substeps, h)
+    assert (got.cpu() - want).abs().max().item() <= APF_TRAJ_TOL
+    assert torch.equal(got, again)
+    start = obs[0] / obs[0].sum()
+    want_l, want_g = rk4_fit_loss_plain(k, start, obs, substeps, h, 1e-3, grad=True)
+    args = (k.to(dev), start.to(dev), obs.to(dev), substeps, h, 1e-3)
+    got_l, got_g = rk4_fit_loss(*args, grad=True)
+    again_l, again_g = rk4_fit_loss(*args, grad=True)
+    plain_l, none = rk4_fit_loss(*args)
+    torch.cuda.synchronize()
+    assert none is None and kernels.launch_counts["apf_rk4"] == 5
+    assert rel_err(got_l.cpu(), want_l) <= APF_LOSS_REL_TOL
+    assert rel_err(got_g.cpu(), want_g) <= APF_GRAD_REL_TOL
+    assert torch.equal(got_l, again_l) and torch.equal(got_g, again_g)
+    # the modes with and without tangents are two compilations of the loss
+    assert rel_err(plain_l, got_l) <= APF_LOSS_REL_TOL
+    with pytest.raises(ValueError, match="no gradient"):
+        rk4_trajectory(y0.to(dev), k.to(dev).requires_grad_(), n_points, substeps, h)
+
+
+def test_fit_ode_rates_on_the_card_recovers_rates_and_repeats(dev):
+    from eegflow_torch.core.config import ODEConfig
+    from eegflow_torch.fit import fit_ode_rates
+    from eegflow_torch.ode.integrate import solve
+
+    true = {"k_ap": 0.12, "k_af": 0.06, "k_pa": 0.25, "k_pf": 0.18, "k_fa": 0.09, "k_fp": 0.22}
+    _, obs = solve([0.6, 0.25, 0.15], (0.0, 60.0), 60, k=rates_to_array(true, dev),
+                   method="expm")
+    cfg = ODEConfig(de_maxiter=150, reg_weight=0.0)
+    fitted, fx, info = fit_ode_rates(obs.cpu().numpy(), np.linspace(0, 60, 60), cfg, dev)
+    assert fx < 1e-5 and info["generations"] <= 150
+    assert fit_ode_rates(obs.cpu().numpy(), np.linspace(0, 60, 60), cfg, dev) == \
+        (fitted, fx, info)
+
+
+# (rows, samples, order, band): 8 sections at 8-30 Hz and fs 250, where the
+# order-16 (b, a) still factors into stable sections (at 1-45 Hz and fs 500
+# tf2sos gives a pole at |p| = 1.06, in the reference's design path too)
+@pytest.mark.parametrize("rows,samples,order,band", [(61, 3000, 4, (1.0, 45.0, 500.0)),
+                                                     (5, 200, 2, (1.0, 45.0, 500.0)),
+                                                     (70, 1000, 8, (8.0, 30.0, 250.0))])
+def test_sos_filtfilt_kernel_matches_twin_and_scipy(dev, rows, samples, order, band):
+    from scipy.signal import filtfilt
+
+    rng = np.random.default_rng(rows)
+    x = np.cumsum(rng.standard_normal((rows, samples)), axis=1)
+    b, a = butter_bandpass(*band, order)
+    sos, zi, padlen = _sos_design(b, a)
+    xt = torch.tensor(x, dtype=torch.float32)
+    kernels.reset_launch_counts()
+    got = sos_filtfilt(xt.to(dev), sos, zi, padlen)
+    again = filtfilt_iir(xt.to(dev), b, a)
+    torch.cuda.synchronize()
+    assert kernels.launch_counts["sos_filtfilt"] == 2
+    want = sos_filtfilt_plain(xt, sos, zi, padlen)
+    scale = want.abs().max().item()
+    assert (got.cpu() - want).abs().max().item() <= SOS_REL_TOL * scale
+    assert torch.equal(got, again)
+    ref = filtfilt(b, a, x, axis=1)
+    assert np.abs(got.cpu().numpy() - ref).max() / np.abs(ref).max() < SOS_SCIPY_REL_TOL
+
+
+def test_sos_filtfilt_rejects_what_it_does_not_take(dev):
+    b, a = butter_bandpass(1.0, 45.0, 500.0, 4)
+    sos, zi, padlen = _sos_design(b, a)
+    with pytest.raises(ValueError, match="sections"):
+        sos_filtfilt(torch.zeros(2, 100, device=dev), np.tile(sos, (3, 1)), np.tile(zi, (3, 1)),
+                     padlen)
+    assert 3 * len(sos) > MAX_SECTIONS
+    with pytest.raises(ValueError, match="padlen"):
+        sos_filtfilt(torch.zeros(2, padlen, device=dev), sos, zi, padlen)
+    with pytest.raises(ValueError, match="float32"):
+        sos_filtfilt(torch.zeros(2, 100, device=dev, dtype=torch.float64), sos, zi, padlen)

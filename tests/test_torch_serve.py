@@ -14,7 +14,7 @@ import torch
 from eegflow.core.artifacts import save_checkpoint, save_results
 from eegflow.core.config import ModelConfig as JaxModelConfig
 from eegflow.nn.model import classifier_init as jax_classifier_init
-from eegflow_torch.cli.main import build_parser, load_coupled_model, resolve_device
+from eegflow_torch.cli.main import build_parser, load_coupled_model, resolve_device, start_server
 from eegflow_torch.cli.serve import serve
 from eegflow_torch.convert import params_to_jax
 from eegflow_torch.core.config import CouplingConfig, ModelConfig
@@ -140,3 +140,51 @@ def test_trainer_and_served_model_default_to_the_card():
     model = CoupledModel(params={}, model_cfg=TOY_CFG, k_base=torch.zeros(6),
                          coupling=CouplingConfig())
     assert model.device == torch.device("cuda")
+
+
+def test_serve_applies_the_config(tmp_path, rng):
+    """``--config`` reaches the served model: the coupling section (strength
+    0.8, 30 forecast steps, floor and thresholds), train.lstm_impl and the
+    warm-up length; /predict equals predict_batch with that coupling and
+    differs from the default coupling's answer."""
+    jcfg = JaxModelConfig(input_size=4, hidden_size=16, num_layers=1)
+    save_checkpoint(tmp_path / "models" / "lstm_attention",
+                    jax_classifier_init(jax.random.key(2), jcfg), jcfg)
+    rates = {"k_ap": 0.2, "k_af": 0.03, "k_pa": 0.1, "k_pf": 0.05, "k_fa": 0.07, "k_fp": 0.2}
+    save_results(tmp_path / "results" / "ode_results.json", {"fitted_params": rates})
+    coupling = {"coupling_strength": 0.8, "forecast_steps": 30, "rate_floor": 2e-3,
+                "init_threshold": 0.55, "fatigued_threshold": 0.45}
+    (tmp_path / "cfg.json").write_text(json.dumps({
+        "coupling": coupling, "train": {"lstm_impl": "plain"},
+        "preprocess": {"sequence_length": 24}}))
+    args = build_parser().parse_args(["--output-dir", str(tmp_path), "--config",
+                                      str(tmp_path / "cfg.json"), "serve", "--port", "0",
+                                      "--device", "cpu"])
+    httpd, model = start_server(args)
+    assert model.coupling == CouplingConfig(**coupling)
+    assert model.lstm_impl == "plain"
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    try:
+        httpd.warmup_thread.join(timeout=60)
+        assert not httpd.warmup_thread.is_alive()
+        windows = rng.standard_normal((3, 24, 4)).astype(np.float32)
+        status, out = _request(httpd.server_address, "POST", "/predict",
+                               {"windows": windows.tolist(), "trajectories": True})
+        status_h, health = _request(httpd.server_address, "GET", "/health")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=30)
+    assert status == 200 and status_h == 200
+    assert health["model"]["coupling_strength"] == 0.8
+    want = predict_batch(model, windows)
+    np.testing.assert_allclose(out["probs"], want["probs"], atol=1e-6)
+    np.testing.assert_allclose(out["final_state"], want["final_state"], atol=1e-6)
+    np.testing.assert_allclose(out["trajectories"], want["trajectories"], atol=1e-6)
+    assert np.asarray(out["trajectories"]).shape == (3, 30, 3)
+    default = CoupledModel(params=model.params, model_cfg=model.model_cfg,
+                           k_base=model.k_base, coupling=CouplingConfig(),
+                           device=torch.device("cpu"))
+    assert np.abs(np.asarray(out["final_state"])
+                  - predict_batch(default, windows)["final_state"]).max() > 1e-4
