@@ -103,11 +103,30 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      served answers equal predict_batch at that coupling and differ from the
      default coupling's; prints each stage's time, the windows per split,
      the proportion points, the fit and which of scipy, pandas and sklearn
-     import; then times apf_rk4 and its twin at the fit's shape.
+     import; then times apf_rk4 and its twin at the fit's shape;
+ 18. the analysis stages on phase 17's artifacts (its directory lives until
+     this phase ends), each a CLI call on the card: integrate, explain at its
+     defaults (KernelSHAP included), forecast and export; checks each
+     stage's launches (integrate, forecast and export only input_block_fwd,
+     lstm_fwd and pool_head_fwd; explain also one backward: 1
+     input_block_bwd, 6 lstm_fwd_train, 6 lstm_bwd, 1 pool_head_bwd), holds
+     one KernelSHAP evaluation (B=10,000 time-tiled rows) and one permuted
+     stack (B=5,000) to the plain path (P(closed)) and to a bitwise repeat,
+     and the B=100 input gradients likewise; checks the sweep's accuracy
+     against integrate's, the importances, shap_values.npy, the
+     efficiency identity and three rows evaluated in flight against
+     synchronous evaluations of their coalitions, the forecast's
+     trajectories against solve_ivp and the export CSVs against
+     predict_batch; prints each stage's and each attribution's time and
+     windows/s, the peak device memory of the B=10,000 evaluation, its
+     device time a window beside B=1,024's, and the kernel-shap step's
+     device idle share (the device time of its classifier forwards, by CUDA
+     events around each in the stage, against its wall time).
 The line before the last lists the kernels as JSON, each with its time, its
 twin's, its bound on an H100 (bytes over 3.35 TB/s or products over the
-dtype's peak, whichever is larger) and the library call's time where there is
-one; the last line is {"ok": true, "device": {...}}.
+dtype's peak, whichever is larger), the library call's time where there is
+one and its launches in phase 18 (analysis_launches); the last line is
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -219,6 +238,31 @@ FP32_LATENCY_CYCLES = 4
 # kernel 12 (3 fma, 2 mul, 1 add: 9)
 APF_FLOPS_PER_STEP = 111
 SOS_FLOPS_PER_SECTION_SAMPLE = 9
+# phase 18: the analysis stages' batches at their defaults: a KernelSHAP
+# evaluation (100 coalitions x 100 background rows), a permuted stack (5
+# repeats x 1,000 windows), the gradient attribution's windows; the input
+# gradients are held to their twin as phase 9 holds the micro-step's
+# gradients (STEP_GRAD_REL_TOL), the probabilities as phase 5 holds served
+# ones (PROBS_TOL); the forecast's trajectories against solve_ivp to the
+# judged ODE budget; the efficiency identity of the SHAP values per row;
+# the SHAP values of the first, a middle and the last explained row against
+# the same regression on synchronous evaluations of the same batches, which
+# give the same probabilities bit for bit (float64 rounding of the solve)
+SHAP_BG, SHAP_COALITIONS, SHAP_EXPLAIN = 100, 100, 200
+SHAP_CHECK_ROWS = (0, 100, SHAP_EXPLAIN - 1)
+SHAP_ROW_TOL = 1e-9
+PERM_REPEATS, PERM_WINDOWS = 5, 1000
+GRAD_WINDOWS = 100
+EXPLAIN_SEED = 42
+FORECAST_TOL = 1e-5
+EFFICIENCY_TOL = 1e-6
+# the columns the reference exports (eegflow/analyze/export.py)
+SAMPLE_COLUMNS = ["Sample_ID", "Prob_EyesOpen", "Prob_Drowsy", "Prob_EyesClosed", "LSTM_P_Open",
+                  "LSTM_P_Closed", "Predicted_State", "Ground_Truth"]
+PARTICIPANT_COLUMNS = ["Participant_ID", "N_Samples", "Prob_EyesOpen", "Prob_Drowsy",
+                       "Prob_EyesClosed", "Prob_EyesOpen_Std", "Prob_Drowsy_Std",
+                       "Prob_EyesClosed_Std", "Mean_LSTM_P_Open", "Mean_LSTM_P_Closed",
+                       "Pct_EyesOpen", "Pct_Drowsy", "Pct_EyesClosed"]
 
 
 def require(cond, msg):
@@ -500,10 +544,11 @@ def apf_at_the_fit(dev, props, smi):
     return m["kernel"], m["plain"], err, work, chain
 
 
-def pipeline_phase(dev, smi):
+def pipeline_phase(dev, smi, tmp):
     """Phase 17: synth -> preprocess -> train -> fit-ode -> serve --config,
-    every step a CLI call on the card in one temporary directory, nothing
-    written by hand. -> launches, times and the fit's proportions."""
+    every step a CLI call on the card in the directory ``tmp``, nothing
+    written by hand; phase 18 reads its artifacts under ``tmp / "out"``. ->
+    launches, times and the fit's proportions."""
     from eegflow_torch import kernels
     from eegflow_torch.cli.main import load_coupled_model
     from eegflow_torch.cli.main import main as cli_main
@@ -520,110 +565,460 @@ def pipeline_phase(dev, smi):
         except ImportError as e:
             print(f"host package {name}: does not import ({e})")
     out, times = {}, {}
-    with tempfile.TemporaryDirectory(prefix="eegflow_chip_pipeline_") as tmp:
-        tmp = Path(tmp)
-        base = ["--data-dir", str(tmp / "data"), "--output-dir", str(tmp / "out")]
+    base = ["--data-dir", str(tmp / "data"), "--output-dir", str(tmp / "out")]
 
-        def stage(name, argv, config=None):
-            kernels.reset_launch_counts()
-            t0 = time.perf_counter()
-            rc = cli_main((["--config", str(config)] if config else []) + argv)
-            torch.cuda.synchronize()
-            times[name] = time.perf_counter() - t0
-            counts = dict(kernels.launch_counts)
-            require(rc == 0, f"{name} stage returned 0")
-            print(f"pipeline {name}: {times[name]:.1f} s, launches {counts}", flush=True)
-            return counts
-
-        stage("synth", base + ["synth", "--subjects", str(PIPE_SUBJECTS), "--sessions", "1",
-                               "--duration", str(PIPE_SECONDS)])
-        stage("preprocess", base + ["preprocess", "--device", dev.type])
-        arrays, meta = load_processed(tmp / "out" / "processed_data" / "processed_sequences.npz")
-        windows = {s: tuple(arrays[f"X_{s}"].shape) for s in ("train", "val", "test")}
-        print(f"pipeline windows per split: {windows}; subjects "
-              f"{ {s: len(v['subjects']) for s, v in meta['splits'].items()} }")
-        require(all(len(v) == 3 and v[1:] == (T, C) for v in windows.values())
-                and min(v[0] for v in windows.values()) > 0
-                and np.isfinite(arrays["X_train"]).all(), "processed windows")
-        stage("train", base + ["train", "--epochs", "1", "--device", dev.type])
-        counts = stage("fit-ode", base + ["fit-ode", "--device", dev.type])
-        out["apf_launches"] = counts.get("apf_rk4", 0)
-        require(out["apf_launches"] > 0 and set(counts) == {"apf_rk4"},
-                "fit-ode runs kernel 11 and nothing else")
-        eye = np.concatenate([arrays["y_train"], arrays["y_test"]])
-        _, props = map_eye_state_to_cognitive(eye, 20)
-        res = load_results(tmp / "out" / "results" / "ode_results.json")
-        print(f"pipeline fit-ode: {len(props)} proportion points, {res['fit_info']}, loss "
-              f"{res['fit_loss']:.6g}, rates {res['fitted_params']}, steady state "
-              f"{res['steady_state']}", flush=True)
-        require(math.isfinite(res["fit_loss"]) and res["stability"]["is_stable"]
-                and all(lo - 1e-9 <= res["fitted_params"][nm] <= hi + 1e-9
-                        for nm, (lo, hi) in zip(RATE_NAMES, ODEConfig().bounds)),
-                "fitted rates finite, stable and within the bounds")
-        out["fit_props"] = props
-
-        # serve --config in its own process, as a user starts it
-        coupling = {"coupling_strength": 0.8, "forecast_steps": 30}
-        (tmp / "serve.json").write_text(json.dumps({"coupling": coupling}))
-        cmd = [sys.executable, "-m", "eegflow_torch.cli.main", "--output-dir", str(tmp / "out"),
-               "--config", str(tmp / "serve.json"), "serve", "--port", "0", "--device", dev.type]
+    def stage(name, argv, config=None):
+        kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                                text=True, cwd=str(Path(__file__).resolve().parent))
+        rc = cli_main((["--config", str(config)] if config else []) + argv)
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        counts = dict(kernels.launch_counts)
+        require(rc == 0, f"{name} stage returned 0")
+        print(f"pipeline {name}: {times[name]:.1f} s, launches {counts}", flush=True)
+        return counts
+
+    stage("synth", base + ["synth", "--subjects", str(PIPE_SUBJECTS), "--sessions", "1",
+                           "--duration", str(PIPE_SECONDS)])
+    stage("preprocess", base + ["preprocess", "--device", dev.type])
+    arrays, meta = load_processed(tmp / "out" / "processed_data" / "processed_sequences.npz")
+    windows = {s: tuple(arrays[f"X_{s}"].shape) for s in ("train", "val", "test")}
+    print(f"pipeline windows per split: {windows}; subjects "
+          f"{ {s: len(v['subjects']) for s, v in meta['splits'].items()} }")
+    require(all(len(v) == 3 and v[1:] == (T, C) for v in windows.values())
+            and min(v[0] for v in windows.values()) > 0
+            and np.isfinite(arrays["X_train"]).all(), "processed windows")
+    stage("train", base + ["train", "--epochs", "1", "--device", dev.type])
+    counts = stage("fit-ode", base + ["fit-ode", "--device", dev.type])
+    out["apf_launches"] = counts.get("apf_rk4", 0)
+    require(out["apf_launches"] > 0 and set(counts) == {"apf_rk4"},
+            "fit-ode runs kernel 11 and nothing else")
+    eye = np.concatenate([arrays["y_train"], arrays["y_test"]])
+    _, props = map_eye_state_to_cognitive(eye, 20)
+    res = load_results(tmp / "out" / "results" / "ode_results.json")
+    print(f"pipeline fit-ode: {len(props)} proportion points, {res['fit_info']}, loss "
+          f"{res['fit_loss']:.6g}, rates {res['fitted_params']}, steady state "
+          f"{res['steady_state']}", flush=True)
+    require(math.isfinite(res["fit_loss"]) and res["stability"]["is_stable"]
+            and all(lo - 1e-9 <= res["fitted_params"][nm] <= hi + 1e-9
+                    for nm, (lo, hi) in zip(RATE_NAMES, ODEConfig().bounds)),
+            "fitted rates finite, stable and within the bounds")
+    out["fit_props"] = props
+
+    # serve --config in its own process, as a user starts it
+    coupling = {"coupling_strength": 0.8, "forecast_steps": 30}
+    (tmp / "serve.json").write_text(json.dumps({"coupling": coupling}))
+    cmd = [sys.executable, "-m", "eegflow_torch.cli.main", "--output-dir", str(tmp / "out"),
+           "--config", str(tmp / "serve.json"), "serve", "--port", "0", "--device", dev.type]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, cwd=str(Path(__file__).resolve().parent))
+    try:
+        lines = []
+        reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+        reader.start()
+        deadline = time.time() + 600
+        addr = None
+        while addr is None and time.time() < deadline and proc.poll() is None:
+            for line in list(lines):
+                found = re.search(r"http://([\d.]+):(\d+)", line)
+                if found:
+                    addr = (found.group(1), int(found.group(2)))
+            time.sleep(0.2)
+        require(addr is not None, f"serve printed its address: {''.join(lines)[-2000:]}")
+        x_test = arrays["X_test"]
+        picks = [x_test[:1], x_test[1:6], x_test[6:23]]
+        served = []
+        for i, xs in enumerate(picks):
+            status, body = request(addr, "POST", "/predict",
+                                   {"windows": xs.tolist(), "trajectories": i == 0})
+            require(status == 200, f"/predict -> {status} {body}")
+            served.append(body)
+        status, health = request(addr, "GET", "/health")
+        times["serve"] = time.perf_counter() - t0
+        require(status == 200 and health["model"]["coupling_strength"] == 0.8,
+                "/health reports the config's coupling")
+    finally:
+        proc.send_signal(signal.SIGINT)
         try:
-            lines = []
-            reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
-            reader.start()
-            deadline = time.time() + 600
-            addr = None
-            while addr is None and time.time() < deadline and proc.poll() is None:
-                for line in list(lines):
-                    found = re.search(r"http://([\d.]+):(\d+)", line)
-                    if found:
-                        addr = (found.group(1), int(found.group(2)))
-                time.sleep(0.2)
-            require(addr is not None, f"serve printed its address: {''.join(lines)[-2000:]}")
-            x_test = arrays["X_test"]
-            picks = [x_test[:1], x_test[1:6], x_test[6:23]]
-            served = []
-            for i, xs in enumerate(picks):
-                status, body = request(addr, "POST", "/predict",
-                                       {"windows": xs.tolist(), "trajectories": i == 0})
-                require(status == 200, f"/predict -> {status} {body}")
-                served.append(body)
-            status, health = request(addr, "GET", "/health")
-            times["serve"] = time.perf_counter() - t0
-            require(status == 200 and health["model"]["coupling_strength"] == 0.8,
-                    "/health reports the config's coupling")
-        finally:
-            proc.send_signal(signal.SIGINT)
-            try:
-                proc.wait(timeout=60)
-            except subprocess.TimeoutExpired:
-                proc.kill()
-                proc.wait(timeout=60)
-        model = load_coupled_model(tmp / "out", dev, CouplingConfig(**coupling))
-        default = load_coupled_model(tmp / "out", dev)
-        err, moved = 0.0, 0.0
-        for xs, body in zip(picks, served):
-            want = predict_batch(model, xs, batch_size=BUCKET)
-            for key in ("probs", "final_state"):
-                err = max(err, float(np.abs(np.asarray(body[key]) - want[key]).max()))
-            moved = max(moved, float(np.abs(np.asarray(body["final_state"]) - predict_batch(
-                default, xs, batch_size=BUCKET)["final_state"]).max()))
-        traj = np.asarray(served[0]["trajectories"])
-        err = max(err, float(np.abs(traj - predict_batch(model, picks[0],
-                                                         batch_size=BUCKET)["trajectories"]).max()))
-        print(f"pipeline serve --config (coupling_strength 0.8, forecast_steps 30), own process, "
-              f"{times['serve']:.1f} s to start and answer {len(picks)} /predict: served "
-              f"probs, final states and trajectories {traj.shape} vs predict_batch at that "
-              f"coupling max abs diff {err:.3e}; vs the default coupling's final states "
-              f"{moved:.3e}", flush=True)
-        require(traj.shape == (1, 30, 3) and err <= 1e-6 and moved > 1e-4,
-                "served answers equal predict_batch at the config's coupling")
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+    model = load_coupled_model(tmp / "out", dev, CouplingConfig(**coupling))
+    default = load_coupled_model(tmp / "out", dev)
+    err, moved = 0.0, 0.0
+    for xs, body in zip(picks, served):
+        want = predict_batch(model, xs, batch_size=BUCKET)
+        for key in ("probs", "final_state"):
+            err = max(err, float(np.abs(np.asarray(body[key]) - want[key]).max()))
+        moved = max(moved, float(np.abs(np.asarray(body["final_state"]) - predict_batch(
+            default, xs, batch_size=BUCKET)["final_state"]).max()))
+    traj = np.asarray(served[0]["trajectories"])
+    err = max(err, float(np.abs(traj - predict_batch(model, picks[0],
+                                                     batch_size=BUCKET)["trajectories"]).max()))
+    print(f"pipeline serve --config (coupling_strength 0.8, forecast_steps 30), own process, "
+          f"{times['serve']:.1f} s to start and answer {len(picks)} /predict: served "
+          f"probs, final states and trajectories {traj.shape} vs predict_batch at that "
+          f"coupling max abs diff {err:.3e}; vs the default coupling's final states "
+          f"{moved:.3e}", flush=True)
+    require(traj.shape == (1, 30, 3) and err <= 1e-6 and moved > 1e-4,
+            "served answers equal predict_batch at the config's coupling")
     print(f"pipeline stage times: {', '.join(f'{k} {v:.1f} s' for k, v in times.items())}; "
           f"total {sum(times.values()):.1f} s [{smi}]", flush=True)
     return out
+
+
+def analysis_phase(dev, smi, out_dir, infer_ms_1024):
+    """Phase 18: integrate, explain (KernelSHAP included), forecast and
+    export as CLI calls on the card on phase 17's artifacts under
+    ``out_dir``, each with its launches counted; the new batches held to the
+    plain path (a KernelSHAP evaluation at B = 10,000, a permuted stack at
+    5,000, the input gradients at 100), and the stages' results checked. ->
+    the launches of the four stages together."""
+    from collections import Counter
+
+    import pandas as pd
+    from scipy.integrate import solve_ivp
+
+    from eegflow_torch import explain, kernels
+    from eegflow_torch.analyze.forecast import multistep_forecast, prob_to_ode_state
+    from eegflow_torch.cli.main import load_coupled_model, load_splits
+    from eegflow_torch.cli.main import main as cli_main
+    from eegflow_torch.convert import params_from_jax
+    from eegflow_torch.core.artifacts import load_checkpoint, load_results
+    from eegflow_torch.core.config import CouplingConfig, TrainConfig
+    from eegflow_torch.couple.modulation import infer_initial_state, modulate_rates
+    from eegflow_torch.couple.rollout import bucket_size, predict_batch
+    from eegflow_torch.explain.gradient import batch_input_gradients
+    from eegflow_torch.explain import kernelshap
+    from eegflow_torch.explain.kernelshap import _sample_coalitions
+    from eegflow_torch.nn.model import classifier_apply
+    from eegflow_torch.ode.field import rates_to_array
+    from eegflow_torch.ode.integrate import solve_batch
+    from eegflow_torch.train.loop import predict_probs
+
+    results = out_dir / "results"
+    times, counts, calls = {}, {}, {}
+
+    def stage(name, argv):
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        rc = cli_main(["--output-dir", str(out_dir)] + argv + ["--device", dev.type])
+        torch.cuda.synchronize()
+        times[name] = time.perf_counter() - t0
+        counts[name] = Counter(kernels.launch_counts)
+        require(rc == 0, f"{name} stage returned 0")
+        print(f"analysis {name}: {times[name]:.1f} s, launches {dict(counts[name])}", flush=True)
+
+    def timed(name, fn):
+        """``fn`` timed to a synchronize, with its launches and result."""
+        def call(*args, **kw):
+            before = Counter(kernels.launch_counts)
+            t0 = time.perf_counter()
+            res = fn(*args, **kw)
+            torch.cuda.synchronize()
+            calls[name] = (time.perf_counter() - t0, Counter(kernels.launch_counts) - before, res)
+            return res
+        return call
+
+    attributions = ("gradient_channel_importance", "permutation_channel_importance",
+                    "kernel_shap_channel_importance")
+    # the KernelSHAP step's classifier forwards, each between two CUDA events
+    # on the stream the kernels run on: their sum is the step's device time
+    shap_spans = []
+    shap_apply = kernelshap.classifier_apply
+
+    def spanned(*args, **kw):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = shap_apply(*args, **kw)
+        end.record()
+        shap_spans.append((start, end))
+        return out
+
+    stage("integrate", ["integrate"])
+    originals = {name: getattr(explain, name) for name in attributions}
+    try:
+        for name, fn in originals.items():
+            setattr(explain, name, timed(name, fn))
+        kernelshap.classifier_apply = spanned
+        stage("explain", ["explain"])
+    finally:
+        for name, fn in originals.items():
+            setattr(explain, name, fn)
+        kernelshap.classifier_apply = shap_apply
+    stage("forecast", ["forecast"])
+    stage("export", ["export"])
+
+    arrays, _ = load_splits(out_dir)
+    x_test, y_test = arrays["X_test"], arrays["y_test"]
+    n_test, steps, channels = x_test.shape
+    splits = [s for s in ("train", "val", "test") if len(arrays[f"y_{s}"])]
+
+    # launches: an eval launches 1 input_block_fwd, 6 lstm_fwd, 1 pool_head_fwd
+    def evals(n):
+        return Counter({"input_block_fwd": n, "lstm_fwd": 6 * n, "pool_head_fwd": n})
+
+    def batches(n, size):
+        return -(-n // size)
+
+    want = {"integrate": evals(2 * batches(n_test, 2048)),  # predict_batch, the sweep
+            "forecast": evals(batches(n_test, TrainConfig().eval_batch_size)),
+            "export": evals(sum(batches(len(arrays[f"y_{s}"]), 2048) for s in splits))}
+    backward = Counter({"input_block_fwd": 1, "pool_head_fwd": 1, "lstm_fwd_train": 6,
+                        "lstm_bwd": 6, "input_block_bwd": 1, "pool_head_bwd": 1})
+    want_calls = {"gradient_channel_importance": evals(1) + backward,
+                  "permutation_channel_importance": evals(1 + channels),
+                  "kernel_shap_channel_importance": evals(2 + SHAP_EXPLAIN)}
+    want["explain"] = sum(want_calls.values(), Counter())
+    for name, c in want_calls.items():
+        require(calls[name][1] == c, f"{name} launched {dict(c)}, got {dict(calls[name][1])}")
+    for name, c in want.items():
+        require(counts[name] == c, f"{name} launched {dict(c)}, got {dict(counts[name])}")
+    print("analysis launches as expected: integrate, forecast and export only the eval kernels "
+          "(input_block_fwd, lstm_fwd, pool_head_fwd); explain one backward (1 input_block_bwd, "
+          "6 lstm_fwd_train, 6 lstm_bwd, 1 pool_head_bwd); no apf_rk4, no sos_filtfilt",
+          flush=True)
+
+    params_np, cfg, _, _ = load_checkpoint(out_dir / "models" / "lstm_attention")
+    params = params_from_jax(params_np, dev)
+    bf16 = torch.bfloat16
+
+    # integrate: the sweep's accuracy at the config's strength against integrate's
+    cpl = CouplingConfig()
+    sweep = load_results(results / "coupling_analysis.json")
+    integ = load_results(results / "integration_results.json")["evaluation"]
+    require(list(sweep) == [f"{a}" for a in cpl.sweep_alphas], "coupling_analysis has 5 alphas")
+    model = load_coupled_model(out_dir, dev, cpl)
+    batch = predict_batch(model, x_test)  # integrate's buckets
+    probs_sweep = predict_probs(model.params, x_test, cfg, 2048)  # the sweep's chunks
+    with torch.inference_mode():
+        probs_d = torch.from_numpy(probs_sweep).to(dev)
+        k_mod = modulate_rates(model.k_base, probs_d[:, 1], probs_d[:, 0],
+                               cpl.coupling_strength, cpl.rate_floor)
+        y0 = infer_initial_state(probs_d[:, 1], probs_d[:, 0], cpl.init_threshold)
+        f_sweep = solve_batch(y0, 0.0, float(cpl.forecast_steps), cpl.forecast_steps,
+                              k_mod)[:, -1, 2].cpu().numpy()
+    f_batch = batch["final_state"][:, 2]
+    acc_sweep, acc_int = sweep[f"{cpl.coupling_strength}"]["accuracy"], integ["accuracy"]
+    differ = (f_sweep > 0.5) != (f_batch > 0.5)
+    near = np.minimum(np.abs(f_sweep - 0.5), np.abs(f_batch - 0.5)) <= PROBS_TOL
+    print(f"integrate: accuracy {acc_int:.6f}, the sweep's at alpha {cpl.coupling_strength} "
+          f"{acc_sweep:.6f}; P(closed) at B=2048 chunks vs power-of-two buckets max abs diff "
+          f"{np.abs(probs_sweep - batch['probs']).max():.3e}; windows whose decision differs "
+          f"{int(differ.sum())} of {n_test} (all within {PROBS_TOL:g} of 0.5: "
+          f"{bool(near[differ].all())})", flush=True)
+    # where B enters a row's result: the last chunk alone and in its bucket
+    tail = x_test[(n_test - 1) // 2048 * 2048:]
+    padded = np.concatenate([tail, np.zeros((bucket_size(len(tail), 2048) - len(tail),)
+                                            + tail.shape[1:], tail.dtype)])
+    with torch.inference_mode():
+        alone, in_bucket = (classifier_apply(params, torch.from_numpy(xb).to(dev), cfg,
+                                             return_attention=True, compute_dtype=bf16)
+                            for xb in (tail, padded))
+    print(f"the last {len(tail)} test windows alone vs in their {len(padded)}-window bucket: "
+          f"attention (kernels 9, 2, 7) max abs diff "
+          f"{(alone[1] - in_bucket[1][:len(tail)]).abs().max().item():.3e}, logits (the "
+          f"head's cuBLAS products after them) "
+          f"{(alone[0] - in_bucket[0][:len(tail)]).abs().max().item():.3e}", flush=True)
+    require(float(((f_sweep > 0.5) == y_test).mean()) == acc_sweep, "the sweep reproduced")
+    require(near[differ].all() and abs(acc_sweep - acc_int) <= differ.sum() / n_test,
+            "the sweep's accuracy equals integrate's but for windows at 0.5")
+
+    # explain: the attributions' times, results and the kernels at their batches
+    (grad_s, _, grad), (perm_s, _, perm), (shap_s, _, shap) = (calls[n] for n in attributions)
+    shap_windows = SHAP_BG + SHAP_EXPLAIN + SHAP_EXPLAIN * SHAP_COALITIONS * SHAP_BG
+    perm_windows = PERM_WINDOWS * (1 + channels * PERM_REPEATS)
+    print(f"explain: gradient {grad_s:.2f} s ({GRAD_WINDOWS} windows forward and backward, "
+          f"{GRAD_WINDOWS / grad_s:.0f} windows/s), permutation {perm_s:.2f} s ({perm_windows} "
+          f"windows, {perm_windows / perm_s:.0f}/s), kernel-shap {shap_s:.2f} s ({shap_windows} "
+          f"windows, {shap_windows / shap_s:.0f}/s) [{smi}]", flush=True)
+    for res in (grad, perm, shap):
+        require(np.isfinite(res["importance"]).all() and len(res["importance"]) == channels,
+                f"{res['method']} importances finite")
+    for res in (grad, shap):
+        require(abs(sum(res["importance"]) - 1.0) <= 1e-9, f"{res['method']} importances sum to 1")
+    collapsed = x_test.mean(axis=1)
+    rng = np.random.RandomState(EXPLAIN_SEED)
+    background = collapsed[rng.choice(n_test, SHAP_BG, replace=False)]
+    explained = collapsed[rng.choice(n_test, SHAP_EXPLAIN, replace=False)]
+    shap_values = np.load(results / "shap_values.npy")
+    require(shap_values.shape == (SHAP_EXPLAIN, channels)
+            and np.array_equal(shap["x_explain"], explained), "shap_values.npy (200, C)")
+
+    def shap_probs(rows, impl):
+        with torch.inference_mode():
+            r = torch.from_numpy(np.ascontiguousarray(rows, np.float32)).to(dev)
+            logits = classifier_apply(params, r[:, None, :].expand(r.shape[0], steps, channels),
+                                      cfg, compute_dtype=bf16, lstm_impl=impl)
+            return torch.softmax(logits, dim=-1)[:, 1]
+
+    fx = shap_probs(explained, "kernel").double().cpu().numpy()
+    phi0 = float(np.mean(shap_probs(background, "kernel").double().cpu().numpy()))
+    eff = np.abs(shap_values.sum(1) - (fx - phi0)).max()
+    print(f"shap_values.npy {shap_values.shape}: sum(phi) vs f(x) - phi0 per row max abs diff "
+          f"{eff:.3e} (tol {EFFICIENCY_TOL:g})", flush=True)
+    require(eff <= EFFICIENCY_TOL, "the efficiency identity per row")
+
+    # rows the stage evaluated with others in flight (pinned uploads, host
+    # copies read late), solved again from synchronous evaluations of the
+    # same coalitions: a copy read before it landed would change them
+    z = _sample_coalitions(np.random.RandomState(EXPLAIN_SEED), channels, SHAP_COALITIONS)
+    design = z[:, :-1] - z[:, -1:]
+
+    def synth_rows(i):
+        return np.where(z[:, None, :] > 0, explained[i][None, None, :],
+                        background[None, :, :]).reshape(-1, channels)
+
+    row_err = {}
+    for i in SHAP_CHECK_ROWS:
+        v = shap_probs(synth_rows(i), "kernel").double().cpu().numpy().reshape(
+            SHAP_COALITIONS, SHAP_BG).mean(axis=1)
+        coef, *_ = np.linalg.lstsq(design, v - phi0 - z[:, -1] * (fx[i] - phi0), rcond=None)
+        phi = np.append(coef, (fx[i] - phi0) - coef.sum())
+        row_err[i] = np.abs(phi - shap_values[i]).max()
+    print(f"shap_values rows {list(SHAP_CHECK_ROWS)} vs synchronous evaluations of their "
+          f"coalitions: max abs diff {max(row_err.values()):.3e} (tol {SHAP_ROW_TOL:g}), "
+          f"bitwise {all(e == 0 for e in row_err.values())}", flush=True)
+    require(max(row_err.values()) <= SHAP_ROW_TOL, "the in-flight rows' SHAP values reproduced")
+
+    # one KernelSHAP evaluation (the stage's first: its coalitions, the first
+    # explained row over the background), kernel path against the plain path
+    synth = synth_rows(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()  # what the earlier phases still hold
+    got = shap_probs(synth, "kernel")
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    shap_err = hold_at_main_shape(
+        f"KernelSHAP evaluation B={len(synth)} T={steps} C={channels} (time-tiled rows, eval "
+        f"kernels): P(closed)", [got], [shap_probs(synth, "kernel")], [shap_probs(synth, "plain")],
+        PROBS_TOL, relative=False)
+    rows_dev = torch.from_numpy(synth.astype(np.float32)).to(dev)
+
+    def eval_rows(r):
+        with torch.inference_mode():
+            classifier_apply(params, r[:, None, :].expand(r.shape[0], steps, channels), cfg,
+                             compute_dtype=bf16)
+
+    ms_big = cuda_ms(lambda: eval_rows(rows_dev), 3)
+    ms_1024 = cuda_ms(lambda: eval_rows(rows_dev[:BUCKET]), 5)
+    require(len(shap_spans) == 2 + SHAP_EXPLAIN, "a span for each of KernelSHAP's forwards")
+    busy = sum(start.elapsed_time(end) for start, end in shap_spans) / 1e3
+    print(f"KernelSHAP evaluation B={len(synth)}: peak device memory "
+          f"{peak / 2**30:.2f} GiB (torch.cuda.max_memory_allocated), "
+          f"{(peak - held) / 2**30:.2f} GiB above the {held / 2**30:.2f} GiB held before it; "
+          f"classifier eval "
+          f"{ms_big:.3f} ms, {ms_big / len(synth) * 1e3:.3f} us a window; at B={BUCKET} "
+          f"{ms_1024:.3f} ms, {ms_1024 / BUCKET * 1e3:.3f} us a window; phase 6's predict_batch "
+          f"at B={BUCKET} {infer_ms_1024 / BUCKET * 1e3:.3f} us a window; the kernel-shap "
+          f"step's {len(shap_spans)} classifier forwards {busy:.2f} s of device time (CUDA "
+          f"events around each in the stage) in its {shap_s:.2f} s, an idle share of "
+          f"{100 * (1 - busy / shap_s):.1f} % [{smi}]", flush=True)
+    del rows_dev
+
+    # one permuted stack (the stage's channel of largest importance), kernel
+    # path against the plain path, and that channel's importance on both
+    rng = np.random.RandomState(EXPLAIN_SEED)
+    pidx = rng.choice(n_test, PERM_WINDOWS, replace=False)
+    perms = np.stack([[rng.permutation(PERM_WINDOWS) for _ in range(PERM_REPEATS)]
+                      for _ in range(channels)])
+    ch = int(np.argmax(perm["importance"]))
+    x_dev = torch.from_numpy(np.ascontiguousarray(x_test[pidx])).to(dev)
+    flat = torch.from_numpy(perms[ch].reshape(-1)).to(dev)
+    stacked = torch.where(torch.arange(channels, device=dev) == ch, x_dev[flat],
+                          x_dev.repeat(PERM_REPEATS, 1, 1))
+
+    def stack_logits(impl):
+        with torch.inference_mode():
+            return classifier_apply(params, stacked, cfg, compute_dtype=bf16, lstm_impl=impl)
+
+    lk, lp = stack_logits("kernel"), stack_logits("plain")
+    perm_err = hold_at_main_shape(
+        f"permuted stack B={len(stacked)} T={steps} C={channels} (channel {ch}): P(closed)",
+        [torch.softmax(lk, -1)[:, 1]], [torch.softmax(stack_logits("kernel"), -1)[:, 1]],
+        [torch.softmax(lp, -1)[:, 1]], PROBS_TOL, relative=False)
+
+    def channel_importance(impl, logits):
+        base = float((predict_probs(params, x_test[pidx], cfg, 5120, lstm_impl=impl).argmax(1)
+                      == y_test[pidx]).mean())
+        hits = (logits.argmax(-1).reshape(PERM_REPEATS, -1).cpu().numpy() == y_test[pidx])
+        accs = hits.sum(1).astype(np.float32) * np.float32(1.0 / PERM_WINDOWS)
+        return float(np.mean(base - accs))
+
+    imp_k, imp_p = channel_importance("kernel", lk), channel_importance("plain", lp)
+    print(f"permutation importance of channel {ch}: stage {perm['importance'][ch]:.6f}, kernel "
+          f"path {imp_k:.6f}, plain path {imp_p:.6f}", flush=True)
+    require(imp_k == perm["importance"][ch], "the stage's permutation importance reproduced")
+    del x_dev, stacked, lk, lp
+
+    # the input gradients at B=100 (the stage's windows), kernel path against
+    # the plain path, and the gradient importance on both
+    gidx = np.random.RandomState(EXPLAIN_SEED).choice(n_test, GRAD_WINDOWS, replace=False)
+    xb = torch.from_numpy(np.ascontiguousarray(x_test[gidx])).to(dev)
+    grad_err = hold_at_main_shape(
+        f"input gradients B={GRAD_WINDOWS} T={steps} C={channels} (lstm_fwd_train, lstm_bwd, "
+        f"pool_head_bwd, input_block_bwd without dropout): dlogit/dx",
+        [batch_input_gradients(params, xb, cfg, "kernel")],
+        [batch_input_gradients(params, xb, cfg, "kernel")],
+        [batch_input_gradients(params, xb, cfg, "plain")], STEP_GRAD_REL_TOL, relative=True)
+    plain_grad = originals["gradient_channel_importance"](
+        params, cfg, x_test, channel_names=grad["channels"], lstm_impl="plain")
+    gk, gp = np.asarray(grad["importance"]), np.asarray(plain_grad["importance"])
+    print(f"gradient importance, kernel path (the stage's) vs plain path: max abs diff "
+          f"{np.abs(gk - gp).max():.3e}; top 5 {grad['ranking'][:5]} vs "
+          f"{plain_grad['ranking'][:5]}; {np.round(gk, 5).tolist()} vs "
+          f"{np.round(gp, 5).tolist()}", flush=True)
+
+    # forecast: the trajectories of three start indices against solve_ivp
+    fres = load_results(results / "forecasting_results.json")
+    require(list(fres["metrics"]) == ["5", "10", "20"] and all(
+        math.isfinite(v) for m in fres["metrics"].values() for v in m.values()),
+        "forecasting_results has finite metrics at 5, 10 and 20 steps")
+    p_closed = predict_probs(params, x_test, cfg, TrainConfig().eval_batch_size)[:, 1]
+    rates = load_results(results / "ode_results.json")["fitted_params"]
+    k = rates_to_array(rates, dev)
+    starts = [0, n_test // 2, n_test - 21]
+    y0 = torch.from_numpy(prob_to_ode_state(p_closed[starts]).astype(np.float32)).to(dev)
+    with torch.inference_mode():
+        traj = solve_batch(y0, 0.0, 20.0, 21, k.expand(len(starts), 6)).cpu().numpy()
+    kk = k.cpu().double().numpy()
+
+    def rhs(t, y):
+        a, pp, f = y
+        return [-(kk[0] + kk[1]) * a + kk[2] * pp + kk[4] * f,
+                kk[0] * a - (kk[2] + kk[3]) * pp + kk[5] * f,
+                kk[1] * a + kk[3] * pp - (kk[4] + kk[5]) * f]
+
+    ode_err = max(np.abs(traj[i] - solve_ivp(
+        rhs, (0.0, 20.0), prob_to_ode_state(p_closed[s]), t_eval=np.arange(21.0), rtol=1e-10,
+        atol=1e-12).y.T).max() for i, s in enumerate(starts))
+    fc = multistep_forecast(p_closed, k, (5, 10, 20))
+    read = max(abs(fc[h]["predictions"][s] - np.clip(traj[i, h, 2] + 0.5 * traj[i, h, 1], 0, 1))
+               for h in (5, 10, 20) for i, s in enumerate(starts))
+    print(f"forecast: trajectories from start indices {starts} vs solve_ivp max abs diff "
+          f"{ode_err:.3e} (tol {FORECAST_TOL:g}); the readouts F + P/2 {read:.3e}; metrics "
+          f"{fres['metrics']}", flush=True)
+    require(ode_err <= FORECAST_TOL and read <= FORECAST_TOL, "forecast trajectories")
+
+    # export: the reference's columns, a row a window, predict_batch's final states
+    for split in splits:
+        df = pd.read_csv(results / f"{split}_sample_probabilities.csv")
+        final = predict_batch(model, arrays[f"X_{split}"])["final_state"]
+        got3 = df[["Prob_EyesOpen", "Prob_Drowsy", "Prob_EyesClosed"]].to_numpy(np.float32)
+        print(f"export {split}: {len(df)} rows, three-state probabilities equal predict_batch's "
+              f"final_state bitwise: {np.array_equal(got3, final)}", flush=True)
+        require(list(df.columns) == SAMPLE_COLUMNS and len(df) == len(final)
+                and np.array_equal(got3, final), f"{split}_sample_probabilities.csv")
+    parts = pd.read_csv(results / "participant_probabilities.csv")
+    require(list(parts.columns) == PARTICIPANT_COLUMNS and len(parts) == 5,
+            "participant_probabilities.csv")
+    print(f"analysis stage times: {', '.join(f'{k} {v:.1f} s' for k, v in times.items())}; "
+          f"total {sum(times.values()):.1f} s [{smi}]", flush=True)
+    return {"launches": sum(counts.values(), Counter()), "shap_err": shap_err,
+            "perm_err": perm_err, "grad_err": grad_err}
 
 
 def main() -> int:
@@ -1640,14 +2035,21 @@ def main() -> int:
           f"[{smi}]", flush=True)
     del dd_args, res_f, res_r, h_f, h_r
 
-    # phase 16: kernels 11 and 12 against their twins; phase 17: the pipeline
+    # phase 16: kernels 11 and 12 against their twins; phase 17: the pipeline; phase
+    # 18: the analysis stages on its artifacts
     t_new = time.perf_counter()
     checks = kernel_check_phase(dev, smi)
-    pipe = pipeline_phase(dev, smi)
+    with tempfile.TemporaryDirectory(prefix="eegflow_chip_pipeline_") as tmp:
+        pipe = pipeline_phase(dev, smi, Path(tmp))
+        t_analysis = time.perf_counter()
+        analysis = analysis_phase(dev, smi, Path(tmp) / "out", batch_ms["kernel"])
+        print(f"phase 18 (the analysis stages): {time.perf_counter() - t_analysis:.1f} s",
+              flush=True)
     apf_ms, apf_plain_ms, apf_err, work["apf_rk4"], apf_chain = apf_at_the_fit(
         dev, pipe["fit_props"], smi)
     work["sos_filtfilt"] = checks["sos_work"]
-    print(f"phases 16-17 (kernels 11 and 12, the pipeline): {time.perf_counter() - t_new:.1f} s",
+    print(f"phases 16-18 (kernels 11 and 12, the pipeline, the analysis stages): "
+          f"{time.perf_counter() - t_new:.1f} s",
           flush=True)
 
     # one cuDNN LSTM call per LSTM kernel, at its shape (TF32 off): the forward,
@@ -1693,7 +2095,8 @@ def main() -> int:
         return {"name": name, "route": "cuda", "source": f"eegflow_torch/csrc/{source}",
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-                "library_ms": library_ms.get(name), **extra}
+                "library_ms": library_ms.get(name),
+                "analysis_launches": analysis["launches"].get(name, 0), **extra}
 
     print(json.dumps({"kernels": [
         entry("lstm_fwd", "lstm_fwd.cu", "eegflow/nn/pallas_lstm.py:430",

@@ -1,11 +1,16 @@
-"""eegflow_torch CLI: the ``synth``, ``preprocess``, ``train``, ``fit-ode``
-and ``serve`` subcommands, which run the pipeline from raw recordings to a
-served model on the card:
+"""eegflow_torch CLI: the ``synth``, ``preprocess``, ``train``, ``fit-ode``,
+``integrate``, ``explain``, ``forecast``, ``export`` and ``serve``
+subcommands, which run the pipeline from raw recordings to a served model,
+its analyses and its exports on the card:
 
     python -m eegflow_torch.cli.main --data-dir data/synth synth --subjects 12 --duration 120
     python -m eegflow_torch.cli.main --data-dir data/synth --output-dir outputs preprocess
     python -m eegflow_torch.cli.main --output-dir outputs train
     python -m eegflow_torch.cli.main --output-dir outputs fit-ode
+    python -m eegflow_torch.cli.main --output-dir outputs integrate
+    python -m eegflow_torch.cli.main --output-dir outputs explain [--skip-shap]
+    python -m eegflow_torch.cli.main --output-dir outputs forecast
+    python -m eegflow_torch.cli.main --output-dir outputs export
     python -m eegflow_torch.cli.main --output-dir outputs --config cfg.json serve --port 8799
 
 ``synth`` writes a synthetic ds004148-shaped BIDS tree of BrainVision files
@@ -18,19 +23,30 @@ evaluates it on the test split with attention and writes
 ``results/lstm_results.json`` and ``models/attention_weights.npy``.
 ``fit-ode`` maps the train and test eye states to cognitive-state
 proportions, fits the six rates (DE and L-BFGS-B polish on kernel 11) and
-writes ``results/ode_results.json``. ``serve`` loads the checkpoint and the
-fitted rates and serves the coupled model over HTTP. Every artifact is the
-JAX package's format, so either package reads what the other writes.
+writes ``results/ode_results.json``. ``integrate`` runs the coupled model on
+the test split, sweeps the coupling strength and merges the model zoo's
+results (``integration_results.json``, ``coupling_analysis.json``,
+``all_model_results.json``). ``explain`` ranks the channels by input
+gradients, permutation and (unless ``--skip-shap``) KernelSHAP and writes
+``explainability_summary.json`` and ``shap_values.npy``. ``forecast``
+forecasts P(closed) with the fitted ODE at 5, 10 and 20 steps
+(``forecasting_results.json``). ``export`` writes the per-sample and
+per-participant three-state probabilities (``{split}_sample_probabilities.csv``,
+``participant_probabilities.csv``, ``three_state_summary.json``). ``serve``
+loads the checkpoint and the fitted rates and serves the coupled model over
+HTTP. Every artifact is the JAX package's format, so either package reads
+what the other writes.
 
 ``--config`` reads a ``PipelineConfig`` JSON (defaults for what it leaves
 out); each stage reads its sections as the JAX package's does (``serve``:
 ``coupling``, ``train.lstm_impl`` and ``preprocess.sequence_length``). The
-figures the JAX package's stages draw (fig01, fig04, fig07, fig08, fig10-12)
-are not drawn: the plotting module is not ported.
+figures the JAX package's stages draw are not drawn: the plotting module is
+not ported (fig01, fig04, fig07, fig08, fig10-12; and fig13-fig23 of
+``integrate``, ``explain`` and ``forecast``).
 
-``--device cuda`` (the default of ``preprocess``, ``train``, ``fit-ode``
-and ``serve``) without a usable GPU raises; it never carries on on the CPU.
-``--device cpu`` runs the kernels' plain twins.
+``--device cuda`` (the default of every stage but ``synth``) without a
+usable GPU raises; it never carries on on the CPU. ``--device cpu`` runs the
+kernels' plain twins.
 """
 
 from __future__ import annotations
@@ -40,7 +56,7 @@ import dataclasses
 import sys
 import time
 from pathlib import Path
-from typing import Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -81,6 +97,14 @@ def load_coupled_model(output_dir: str | Path, device: torch.device,
         coupling=coupling, lstm_impl=lstm_impl, device=device)
 
 
+def load_splits(output_dir: str | Path) -> Tuple[Dict[str, np.ndarray], Optional[Dict]]:
+    """The processed archive under ``output_dir`` as host arrays, and its
+    metadata."""
+    arrays, meta = load_processed(Path(output_dir) / "processed_data" /
+                                  "processed_sequences.npz")
+    return {k: np.asarray(v) for k, v in arrays.items()}, meta
+
+
 def apply_small_subject_reg(train_cfg: TrainConfig, n_train_subj: Optional[int]) -> TrainConfig:
     """``eegflow.cli.main.apply_small_subject_reg``: below 12 training
     subjects add mixup + channel-dropout copies, below 20 add x2 fresh
@@ -100,14 +124,19 @@ def apply_small_subject_reg(train_cfg: TrainConfig, n_train_subj: Optional[int])
     return train_cfg
 
 
+def _no_tf32() -> None:
+    # float32 matmuls outside the kernels (dense layers, the ODE) stay float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
 def cmd_train(args) -> None:
     from eegflow_torch.analyze.evaluate import evaluate_model
     from eegflow_torch.train.data import augment_data, make_surrogate_refresher
     from eegflow_torch.train.loop import train_classifier
     from eegflow_torch.train.steps import make_eval_step
 
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _no_tf32()
     device = resolve_device(args.device)
     cfg = load_config(args.config)
     model_cfg, train_cfg = cfg.model, cfg.train
@@ -115,8 +144,7 @@ def cmd_train(args) -> None:
     models, results = out / "models", out / "results"
     models.mkdir(parents=True, exist_ok=True)
     results.mkdir(parents=True, exist_ok=True)
-    arrays, meta = load_processed(out / "processed_data" / "processed_sequences.npz")
-    arrays = {k: np.asarray(v) for k, v in arrays.items()}
+    arrays, meta = load_splits(out)
     x_train, y_train = arrays["X_train"], arrays["y_train"]
     x_val, y_val = arrays["X_val"], arrays["y_val"]
     if len(y_val) == 0:  # carve 15% from train, as the reference does
@@ -253,6 +281,176 @@ def cmd_fit_ode(args) -> None:
     })
 
 
+def cmd_integrate(args) -> None:
+    from eegflow_torch.analyze.evaluate import evaluate_model
+    from eegflow_torch.analyze.tables import format_results_table, merge_all_model_results
+    from eegflow_torch.couple.rollout import predict_batch
+    from eegflow_torch.couple.sweep import coupling_strength_sweep
+
+    _no_tf32()
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    results = Path(args.output_dir) / "results"
+    arrays, _ = load_splits(args.output_dir)
+    model = load_coupled_model(args.output_dir, device, cfg.coupling, cfg.train.lstm_impl)
+
+    t0 = time.time()
+    res = predict_batch(model, arrays["X_test"])
+    dt = time.time() - t0
+    n = len(arrays["y_test"])
+    print(f"coupled inference: {n} samples in {dt:.2f}s ({n / max(dt, 1e-9):.0f}/s)")
+
+    evaluation = evaluate_model(arrays["y_test"], res["pred_binary"],
+                                res["probs"][:, 1], "lstm_ode_integration")
+    print(f"integration acc={evaluation['accuracy']:.4f} f1={evaluation['f1']:.4f}")
+
+    sweep = coupling_strength_sweep(model, arrays["X_test"], arrays["y_test"],
+                                    cfg.coupling.sweep_alphas, cfg.coupling.forecast_steps)
+    save_results(results / "integration_results.json",
+                 {"evaluation": evaluation, "throughput_samples_per_sec": n / max(dt, 1e-9)})
+    save_results(results / "coupling_analysis.json", sweep)
+
+    # model-zoo comparison across all stages run so far (ref 06:636-777)
+    baselines = lstm = None
+    if (results / "baseline_results.json").exists():
+        baselines = load_results(results / "baseline_results.json")
+    if (results / "lstm_results.json").exists():
+        lstm = load_results(results / "lstm_results.json")
+    all_results = merge_all_model_results(baselines, lstm, {"evaluation": evaluation})
+    save_results(results / "all_model_results.json", all_results)
+    print(format_results_table(all_results))
+
+
+def cmd_explain(args) -> None:
+    from eegflow_torch.explain import (
+        analyze_attention_patterns, analyze_ode_dynamics, build_summary,
+        compare_importance_methods, gradient_channel_importance,
+        kernel_shap_channel_importance, permutation_channel_importance,
+    )
+
+    _no_tf32()
+    device = resolve_device(args.device)
+    out = Path(args.output_dir)
+    results = out / "results"
+    arrays, meta = load_splits(out)
+    params, model_cfg, _, _ = load_checkpoint(out / "models" / "lstm_attention")
+    params = params_from_jax(params, device)
+    channel_names = (meta or {}).get("channel_names") or None
+    x_test, y_test = arrays["X_test"], arrays["y_test"]
+
+    t0 = time.perf_counter()
+    grad = gradient_channel_importance(params, model_cfg, x_test,
+                                       channel_names=channel_names)
+    t1 = time.perf_counter()
+    perm = permutation_channel_importance(params, model_cfg, x_test, y_test,
+                                          channel_names=channel_names)
+    t2 = time.perf_counter()
+    print(f"  gradient {t1 - t0:.0f}s | permutation {t2 - t1:.0f}s", flush=True)
+    methods = [grad, perm]
+    shap_light = None
+    if not args.skip_shap:
+        shap_res = kernel_shap_channel_importance(params, model_cfg, x_test,
+                                                  channel_names=channel_names)
+        print(f"  kernel-shap {time.perf_counter() - t2:.0f}s", flush=True)
+        results.mkdir(parents=True, exist_ok=True)
+        np.save(results / "shap_values.npy", shap_res["shap_values"])
+        shap_light = {k: v for k, v in shap_res.items()
+                      if k not in ("shap_values", "x_explain")}
+        methods.append(shap_light)
+
+    comparison = compare_importance_methods(methods)
+
+    attn_path = out / "models" / "attention_weights.npy"
+    attention_analysis = None
+    if attn_path.exists():
+        attention = np.load(attn_path)
+        if len(attention) == len(y_test):
+            attention_analysis = analyze_attention_patterns(attention, y_test)
+
+    ode_analysis = None
+    if (results / "ode_results.json").exists():
+        ode_analysis = analyze_ode_dynamics(
+            load_results(results / "ode_results.json")["fitted_params"])
+
+    # reference-parity summary incl. region shares + clinical insights
+    # (ref 07_explainability.py:1207-1273)
+    summary = build_summary(
+        grad, perm,
+        {k: v for k, v in comparison.items() if k != "merged"},
+        attention_analysis=attention_analysis,
+        ode_analysis=ode_analysis,
+        shap=shap_light,
+    )
+    save_results(results / "explainability_summary.json", summary)
+    print(f"top channels: {summary['top_channels']}")
+
+
+def cmd_forecast(args) -> None:
+    from eegflow_torch.analyze.forecast import (evaluate_forecasts, multistep_forecast,
+                                                rolling_forecast_evaluation)
+    from eegflow_torch.train.loop import predict_probs
+
+    _no_tf32()
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    out = Path(args.output_dir)
+    arrays, _ = load_splits(out)
+    params, model_cfg, _, _ = load_checkpoint(out / "models" / "lstm_attention")
+    ode_results = load_results(out / "results" / "ode_results.json")
+    k = rates_to_array(ode_results["fitted_params"], device)
+
+    probs = predict_probs(params_from_jax(params, device), arrays["X_test"], model_cfg,
+                          cfg.train.eval_batch_size)
+    horizons = (5, 10, 20)
+    results = multistep_forecast(probs[:, 1], k, horizons)
+    metrics = evaluate_forecasts(results, horizons)
+    rolling = rolling_forecast_evaluation(probs[:, 1], k)
+    save_results(out / "results" / "forecasting_results.json",
+                 {"metrics": {str(h): m for h, m in metrics.items()},
+                  "rolling": rolling})
+    for h, m in metrics.items():
+        print(f"  h={h}: acc={m['accuracy']:.3f} mae={m['mae']:.3f} "
+              f"rho={m['correlation']:.3f}")
+
+
+def cmd_export(args) -> None:
+    from eegflow_torch.analyze.export import (export_frames, participant_dataframe,
+                                              sample_dataframe, three_state_probabilities)
+
+    _no_tf32()
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    results = Path(args.output_dir) / "results"
+    arrays, _ = load_splits(args.output_dir)
+    model = load_coupled_model(args.output_dir, device, cfg.coupling, cfg.train.lstm_impl)
+
+    frames = {}
+    summary = {}
+    for split in ("train", "val", "test"):
+        x = arrays[f"X_{split}"]
+        if len(x) == 0:
+            continue
+        res = three_state_probabilities(model, x)
+        df = sample_dataframe(res["lstm_probs"], res["three_state_probs"],
+                              res["predictions"], arrays[f"y_{split}"],
+                              prefix=f"{split}_")
+        frames[f"{split}_sample_probabilities"] = df
+        summary[split] = {
+            "n_samples": len(df),
+            "mean_probs": res["three_state_probs"].mean(0).tolist(),
+            "state_counts": {str(s): int((res["predictions"] == s).sum())
+                             for s in (0, 1, 2)},
+        }
+        if split == "test":
+            frames["participant_probabilities"] = participant_dataframe(
+                df, n_participants=5  # ref 10:408-411
+            )
+    written = export_frames(results, frames)
+    save_results(results / "three_state_summary.json", summary)
+    for name, ps in written.items():
+        print(f"  wrote {name}: {ps}")
+
+
 def start_server(args):
     """The coupled model of ``--output-dir`` with the config's ``coupling``
     and ``train.lstm_impl``, served on ``--host``/``--port`` (warmed up at
@@ -260,9 +458,7 @@ def start_server(args):
     ``serve_forever``."""
     from eegflow_torch.cli.serve import serve
 
-    # float32 matmuls outside the kernels (dense layers, the ODE) stay float32
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
+    _no_tf32()
     cfg = load_config(args.config)
     model = load_coupled_model(args.output_dir, resolve_device(args.device), cfg.coupling,
                                cfg.train.lstm_impl)
@@ -306,6 +502,17 @@ def build_parser() -> argparse.ArgumentParser:
     p = sub.add_parser("fit-ode", help="fit the APF rates to the eye-state proportions")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_fit_ode)
+    for name, fn, text in (
+            ("integrate", cmd_integrate, "coupled inference, coupling sweep and model zoo"),
+            ("forecast", cmd_forecast, "multi-horizon ODE forecasts of P(closed)"),
+            ("export", cmd_export, "per-sample and per-participant three-state exports")):
+        p = sub.add_parser(name, help=text)
+        p.add_argument("--device", default="cuda")
+        p.set_defaults(fn=fn)
+    p = sub.add_parser("explain", help="gradient, permutation and KernelSHAP channel importance")
+    p.add_argument("--skip-shap", action="store_true")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_explain)
     p = sub.add_parser("serve", help="serve the coupled model over HTTP")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8799)

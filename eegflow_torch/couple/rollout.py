@@ -4,13 +4,14 @@ Classifier forward (eval; the bf16 policy, or float32 with ``bf16=False``),
 softmax, rate modulation, initial-state inference, one batched exact ODE
 solve, and the final-state thresholds — all on the model's device.
 ``predict_batch`` pads each chunk of windows to a power-of-two bucket, as the
-JAX package does, so the shapes the device sees stay few and static.
+JAX package does, so the shapes the device sees stay few and static;
+``predict_trajectory`` rolls out one window, optionally from a given state.
 """
 
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional
+from typing import Dict, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -107,3 +108,32 @@ def predict_batch(
             for name, val in res.items():
                 out.setdefault(name, []).append(val[:k].cpu().numpy())
     return {name: np.concatenate(vals, axis=0) for name, vals in out.items()}
+
+
+def predict_trajectory(
+    model: CoupledModel,
+    x: np.ndarray,
+    initial_state: Optional[np.ndarray] = None,
+    forecast_steps: int = 10,
+) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """One window ``x (1, T, C)`` -> (trajectory (steps, 3), probs (1, 2),
+    attention (1, T)). With ``initial_state`` the ODE is solved again from
+    that state with the window's modulated rates, in place of the heuristic
+    initial state."""
+    cpl = model.coupling
+    with torch.inference_mode():
+        res = coupled_rollout(
+            model.params, torch.as_tensor(np.asarray(x, np.float32), device=model.device),
+            model.k_base, model.model_cfg, forecast_steps=forecast_steps,
+            alpha=cpl.coupling_strength, rate_floor=cpl.rate_floor,
+            init_threshold=cpl.init_threshold, lstm_impl=model.lstm_impl)
+        traj = res["trajectories"][0]
+        if initial_state is not None:
+            probs = res["probs"]
+            k_mod = modulate_rates(model.k_base, probs[0, 1], probs[0, 0],
+                                   cpl.coupling_strength, cpl.rate_floor)
+            y0 = torch.as_tensor(np.asarray(initial_state), dtype=torch.float32,
+                                 device=model.device)
+            traj = solve_batch(y0[None, :], 0.0, float(forecast_steps), forecast_steps,
+                               k_mod[None, :])[0]
+        return traj.cpu().numpy(), res["probs"].cpu().numpy(), res["attention"].cpu().numpy()

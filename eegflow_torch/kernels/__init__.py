@@ -28,6 +28,7 @@ from collections import Counter
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 _PKG = Path(__file__).resolve().parent.parent
@@ -244,6 +245,24 @@ def load_library(csrc: Optional[Path] = None, build_dir: Optional[Path] = None) 
 def stream(dev: torch.device) -> int:
     """The handle of ``dev``'s current CUDA stream, for a launch."""
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+class HostCopy:
+    """A device tensor's copy to host memory, started without waiting for the
+    device; ``np.asarray`` of it waits for that copy alone, so work queued
+    after it stays in flight."""
+
+    def __init__(self, t: torch.Tensor):
+        self._host = t.to("cpu", non_blocking=True)
+        self._done = None
+        if t.is_cuda:
+            self._done = torch.cuda.Event()
+            self._done.record(torch.cuda.current_stream(t.device))
+
+    def __array__(self, dtype=None, copy=None):
+        if self._done is not None:
+            self._done.synchronize()
+        return np.asarray(self._host.numpy(), dtype=dtype)
 
 
 def check(lib: ctypes.CDLL, err: int, name: str) -> None:
