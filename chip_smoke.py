@@ -122,11 +122,25 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      device time a window beside B=1,024's, and the kernel-shap step's
      device idle share (the device time of its classifier forwards, by CUDA
      events around each in the stage, against its wall time).
+ 19. the ablate stage on phase 17's processed set (and phase 18's
+     coupling_analysis.json), a CLI call on the card at its defaults (six
+     variants at hidden 256, 10 epochs, bf16) and one with --hidden 512
+     --epochs 1: each variant's launches per micro-step (1 input_block_fwd,
+     1 input_block_bwd, one lstm_fwd_train and one lstm_bwd a layer and
+     direction, the pool_head_fwd/pool_head_bwd pair with attention) and per
+     eval batch, its training seconds, windows/s and test accuracy, the
+     stage's seconds, sensitivity_analysis.json against the reference's
+     contracts; one B=512 bf16 micro-step of each variant at hidden 256 and of
+     the Full Model at hidden 512 against the plain path (phase 9's
+     tolerances) and a bitwise repeat; kernels 7, 8 and 10 in their wide bf16
+     classes (D = 1024, K = 512; C = 61, H = 512) at B=512 held to their
+     twins and bitwise repeats and timed beside them.
 The line before the last lists the kernels as JSON, each with its time, its
 twin's, its bound on an H100 (bytes over 3.35 TB/s or products over the
 dtype's peak, whichever is larger), the library call's time where there is
-one and its launches in phase 18 (analysis_launches); the last line is
-{"ok": true, "device": {...}}.
+one and its launches in phase 18 (analysis_launches) and phase 19
+(ablate_launches); the wide bf16 classes' entries count their launches in
+the hidden-512 ablate run; the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -256,6 +270,13 @@ GRAD_WINDOWS = 100
 EXPLAIN_SEED = 42
 FORECAST_TOL = 1e-5
 EFFICIENCY_TOL = 1e-6
+# phase 19: the ablate stage's variants (eegflow_torch.analyze.ablation
+# ABLATION_CONFIGS): bidirectional, attention, layers; its wide run's hidden
+# size and epochs (the default run: 256 units, 10 epochs)
+ABLATE_VARIANTS = {"Full Model": (True, True, 3), "No Attention": (True, False, 3),
+                   "Unidirectional": (False, True, 3), "1 Layer": (True, True, 1),
+                   "2 Layers": (True, True, 2), "Minimal": (False, False, 1)}
+ABLATE_WIDE_H, ABLATE_WIDE_EPOCHS = 512, 1
 # the columns the reference exports (eegflow/analyze/export.py)
 SAMPLE_COLUMNS = ["Sample_ID", "Prob_EyesOpen", "Prob_Drowsy", "Prob_EyesClosed", "LSTM_P_Open",
                   "LSTM_P_Closed", "Predicted_State", "Ground_Truth"]
@@ -1019,6 +1040,237 @@ def analysis_phase(dev, smi, out_dir, infer_ms_1024):
           f"total {sum(times.values()):.1f} s [{smi}]", flush=True)
     return {"launches": sum(counts.values(), Counter()), "shap_err": shap_err,
             "perm_err": perm_err, "grad_err": grad_err}
+
+
+def ablation_phase(dev, smi, out_dir):
+    """Phase 19: the ablate stage as a CLI call on the card on phase 17's
+    processed set under ``out_dir`` (and phase 18's coupling_analysis.json),
+    at its defaults (hidden 256, 10 epochs, bf16) and at hidden 512 for one
+    epoch; each variant's launches per micro-step and per eval batch, its
+    training time and test accuracy; the JSON against the reference's
+    contracts; one B=512 micro-step per variant (and the Full Model at
+    hidden 512) against the plain path and a bitwise repeat; kernels 7, 8
+    and 10 in their wide bf16 classes at B=512 against their twins, bitwise
+    repeats, timed. -> launches, errors, times and work of the wide kernels."""
+    from collections import Counter
+
+    from eegflow_torch import kernels
+    from eegflow_torch.analyze import ablation
+    from eegflow_torch.cli.main import load_splits
+    from eegflow_torch.cli.main import main as cli_main
+    from eegflow_torch.core.artifacts import load_results
+    from eegflow_torch.core.config import ModelConfig
+    from eegflow_torch.core.prng import make_generator
+    from eegflow_torch.nn.cuda_attention import (pool_head_bwd, pool_head_bwd_plain,
+                                                 pool_head_fused, pool_head_fused_plain)
+    from eegflow_torch.nn.cuda_input import input_block_bwd, input_block_bwd_plain
+    from eegflow_torch.nn.losses import cross_entropy_loss
+    from eegflow_torch.nn.model import classifier_apply, classifier_init, draw_dropout_masks
+
+    arrays, _ = load_splits(out_dir)
+    n_train, n_test = len(arrays["y_train"]), len(arrays["y_test"])
+    bs = min(B_TRAIN, max(n_train // 2, 1))
+    results_dir = out_dir / "results"
+    out = {"launches": Counter(), "wide": Counter(), "work": {}, "ms": {}, "err": {}}
+
+    def launches_of(variant):
+        """(per micro-step, per eval batch) launches of a variant: one LSTM
+        forward and backward a layer and direction, the pool-head pair only
+        with attention."""
+        bidirectional, attention, layers = ABLATE_VARIANTS[variant]
+        lstm = layers * (2 if bidirectional else 1)
+        train = {"input_block_fwd": 1, "input_block_bwd": 1, "lstm_fwd_train": lstm,
+                 "lstm_bwd": lstm}
+        evals = {"input_block_fwd": 1, "lstm_fwd": lstm}
+        if attention:
+            train.update(pool_head_fwd=1, pool_head_bwd=1)
+            evals["pool_head_fwd"] = 1
+        return train, evals
+
+    def run(hidden, epochs):
+        """One ablate call; each variant's counts read around its training
+        and its evaluation."""
+        records = []
+        train_fn, probs_fn = ablation.quick_train_evaluate, ablation.predict_probs
+
+        def timed_train(model_cfg, *args, **kw):
+            rec = {}
+
+            def timed_probs(*a, **k):
+                torch.cuda.synchronize()
+                rec["train_s"] = time.perf_counter() - rec["t0"]
+                rec["train"] = dict(kernels.launch_counts)
+                kernels.reset_launch_counts()
+                probs = probs_fn(*a, **k)
+                rec["eval"] = dict(kernels.launch_counts)
+                return probs
+
+            ablation.predict_probs = timed_probs
+            torch.cuda.synchronize()
+            kernels.reset_launch_counts()
+            rec["t0"] = time.perf_counter()
+            try:
+                metrics, preds = train_fn(model_cfg, *args, **kw)
+            finally:
+                ablation.predict_probs = probs_fn
+            rec["metrics"] = metrics
+            records.append(rec)
+            return metrics, preds
+
+        argv = ["--output-dir", str(out_dir), "ablate", "--device", dev.type]
+        if hidden != 256:
+            argv += ["--hidden", str(hidden)]
+        if epochs != 10:
+            argv += ["--epochs", str(epochs)]
+        ablation.quick_train_evaluate = timed_train
+        t0 = time.perf_counter()
+        try:
+            rc = cli_main(argv)
+        finally:
+            ablation.quick_train_evaluate = train_fn
+        torch.cuda.synchronize()
+        stage_s = time.perf_counter() - t0
+        require(rc == 0 and len(records) == len(ABLATE_VARIANTS), f"ablate {argv[2:]} ran")
+        steps, batches = n_train // bs * epochs, -(-n_test // (2 * bs))
+        total = Counter()
+        for variant, rec in zip(ABLATE_VARIANTS, records):
+            train, evals = launches_of(variant)
+            total.update(rec["train"])
+            total.update(rec["eval"])
+            ok = (rec["train"] == {k: v * steps for k, v in train.items()}
+                  and rec["eval"] == {k: v * batches for k, v in evals.items()})
+            print(f"ablate hidden {hidden} {variant}: {steps} micro-steps of {bs} in "
+                  f"{rec['train_s']:.2f} s ({steps * bs / rec['train_s']:.1f} windows/s), "
+                  f"test accuracy {rec['metrics']['accuracy']:.4f} f1 "
+                  f"{rec['metrics']['f1']:.4f}; launches per micro-step "
+                  f"{ {k: v / steps for k, v in rec['train'].items()} }, per eval batch "
+                  f"{ {k: v / batches for k, v in rec['eval'].items()} } ({batches} batches): "
+                  f"{ok} [{smi}]", flush=True)
+            require(ok, f"ablate hidden {hidden} {variant}: launches per micro-step and batch")
+            bidirectional, attention, _ = ABLATE_VARIANTS[variant]
+            if hidden > 256:  # kernel 10's wide class; kernels 7 and 8's at D = 2H = 1024
+                out["wide"]["input_block_bwd"] += rec["train"]["input_block_bwd"]
+                if attention and bidirectional:
+                    out["wide"]["pool_head_fwd"] += (rec["train"]["pool_head_fwd"]
+                                                     + rec["eval"]["pool_head_fwd"])
+                    out["wide"]["pool_head_bwd"] += rec["train"]["pool_head_bwd"]
+        require(all(total[k] > 0 for k in ("input_block_fwd", "input_block_bwd", "lstm_fwd",
+                                             "lstm_fwd_train", "lstm_bwd", "pool_head_fwd",
+                                             "pool_head_bwd")),
+                f"ablate hidden {hidden} launched every kernel of its path")
+        out["launches"].update(total)
+
+        # the JSON: the reference's keys and contracts
+        res = load_results(results_dir / "sensitivity_analysis.json")
+        abl, comp, cis = res["ablation"], res["statistical_comparison"], res["bootstrap_cis"]
+        full = abl["Full Model"]["metrics"]["accuracy"]
+        contrib = {c: full - abl[v]["metrics"]["accuracy"] for c, v in (
+            ("attention", "No Attention"), ("bidirectional", "Unidirectional"),
+            ("depth", "1 Layer"))}
+        ok = (list(res) == ["ablation", "statistical_comparison", "bootstrap_cis",
+                            "component_contributions", "coupling_sensitivity"]
+              and list(abl) == list(ABLATE_VARIANTS) == list(cis)
+              and list(comp) == list(ABLATE_VARIANTS)[1:]
+              and all(0 <= r["metrics"][m] <= 1 for r in abl.values() for m in ("accuracy", "f1"))
+              and all(0 <= c["mcnemar"]["p_value"] <= 1 for c in comp.values())
+              and all(ci["lower"] <= ci["mean"] <= ci["upper"] for ci in cis.values())
+              and res["component_contributions"] == contrib
+              and res["coupling_sensitivity"] == load_results(
+                  results_dir / "coupling_analysis.json")
+              and "Architecture ablation" in (results_dir / "results_tables.txt").read_text())
+        print(f"ablate hidden {hidden}: {stage_s:.1f} s for the stage; "
+              f"sensitivity_analysis.json keys {list(res)}, contributions "
+              f"{res['component_contributions']}; the reference's contracts hold: {ok} "
+              f"[{smi}]", flush=True)
+        require(ok, f"ablate hidden {hidden}: sensitivity_analysis.json")
+        return stage_s
+
+    out["stage_s"] = {256: run(256, 10), ABLATE_WIDE_H: run(ABLATE_WIDE_H, ABLATE_WIDE_EPOCHS)}
+
+    # one B=512 micro-step per variant, kernel path against plain path
+    rng = np.random.default_rng(SEED + 19)
+    x, y = synthetic_split(rng, B_TRAIN, T, C)
+    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    for variant, hidden in [(v, H) for v in ABLATE_VARIANTS] + [("Full Model", ABLATE_WIDE_H)]:
+        bidirectional, attention, layers = ABLATE_VARIANTS[variant]
+        cfg = ModelConfig(input_size=C, hidden_size=hidden, num_layers=layers, dropout=0.4,
+                          bidirectional=bidirectional, use_attention=attention)
+        params = classifier_init(cfg, make_generator(SEED + 19), device=dev, trainable=True)
+        masks = draw_dropout_masks(cfg, B_TRAIN, T, torch.Generator(device=dev).manual_seed(19),
+                                   dev)
+        leaves = list(params.parameters())
+
+        def step(impl):
+            for q in leaves:
+                q.grad = None
+            logits = classifier_apply(params, x, cfg, compute_dtype=torch.bfloat16,
+                                      lstm_impl=impl, train=True, masks=masks)
+            loss = cross_entropy_loss(logits, y)
+            loss.backward()
+            return loss.detach(), [q.grad.clone() if q.grad is not None else torch.zeros_like(q)
+                                   for q in leaves]
+
+        loss_k, grads_k = step("kernel")
+        loss_k2, grads_k2 = step("kernel")
+        loss_p, grads_p = step("plain")
+        torch.cuda.synchronize()
+        loss_diff = abs(loss_k.item() - loss_p.item())
+        grad_rel = max(rel_err(a, b) for a, b in zip(grads_k, grads_p) if b.abs().max() > 0)
+        bitwise = torch.equal(loss_k, loss_k2) and all(torch.equal(a, b)
+                                                       for a, b in zip(grads_k, grads_k2))
+        print(f"ablate micro-step {variant} hidden {hidden} B={B_TRAIN}: loss kernel "
+              f"{loss_k.item():.6f} plain {loss_p.item():.6f} (diff {loss_diff:.3e}, tol "
+              f"{STEP_LOSS_TOL:g}); gradients max rel diff {grad_rel:.3e} over {len(leaves)} "
+              f"leaves (tol {STEP_GRAD_REL_TOL:g}); second kernel run bitwise identical: "
+              f"{bitwise}", flush=True)
+        require(math.isfinite(loss_k.item()) and loss_diff <= STEP_LOSS_TOL
+                and grad_rel <= STEP_GRAD_REL_TOL and bitwise,
+                f"ablate micro-step {variant} hidden {hidden}: kernel path within tolerance "
+                "of the plain path and bitwise repeatable")
+        if hidden == ABLATE_WIDE_H:
+            m = median_ms({"plain": lambda: step("plain"), "kernel": lambda: step("kernel")},
+                          rounds=1)
+            print(f"training micro-step (forward + backward) hidden {hidden} B={B_TRAIN} T={T}: "
+                  f"kernel {m['kernel']:.3f} ms ({B_TRAIN / m['kernel'] * 1e3:.1f} windows/s), "
+                  f"plain {m['plain']:.3f} ms [{smi}]", flush=True)
+        del params, masks, leaves, grads_k, grads_k2, grads_p
+
+    # kernels 7, 8 and 10 in their wide bf16 classes at B=512, on hidden-512 weights
+    wide = classifier_init(ModelConfig(input_size=C, hidden_size=ABLATE_WIDE_H), make_generator(
+        SEED + 190), device=dev)
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 190)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    hw = ABLATE_WIDE_H
+    parts = tuple(torch.tanh(randn(B_TRAIN, T, hw)) for _ in range(2))
+    fargs = (wide["lstm_norm"], wide["attention"], parts, True, True)
+    bargs = (wide["lstm_norm"], wide["attention"], parts, torch.softmax(randn(B_TRAIN, T), dim=-1),
+             0.01 * randn(B_TRAIN, T), tuple(0.1 * randn(B_TRAIN, hw) for _ in range(2)),
+             0.1 * randn(B_TRAIN), True, True)
+    iargs = (wide["input_proj"], wide["input_norm"], randn(B_TRAIN, T, C),
+             randn(B_TRAIN, T, hw), True)
+    flat_head = lambda o: list(o[0]) + [o[1]]  # noqa: E731
+    flat_bwd = lambda o: list(o[0]) + [t for t in o[1:] if t is not None]  # noqa: E731
+    head_flops = 2 * B_TRAIN * T * 2 * hw * hw  # y . W1 at D = 2H, K = H
+    for name, kfn, pfn, args, flat, tol, relative, flops in (
+            ("pool_head_fwd bf16 wide", pool_head_fused, pool_head_fused_plain, fargs, flat_head,
+             POOL_TOL, False, head_flops),
+            ("pool_head_bwd bf16 wide", pool_head_bwd, pool_head_bwd_plain, bargs, flat_bwd,
+             POOL_BWD_REL_TOL, True, 3 * head_flops),
+            ("input_block_bwd bf16 wide", input_block_bwd, input_block_bwd_plain, iargs, list,
+             INPUT_BWD_REL_TOL[True], True, 3 * 2 * B_TRAIN * T * C * hw)):
+        out["err"][name] = hold_at_main_shape(
+            f"{name} B={B_TRAIN} T={T} H={hw}", flat(kfn(*args)), flat(kfn(*args)),
+            flat(pfn(*args)), tol, relative)
+        out["work"][name] = (nbytes(args, kfn(*args)), flops, "bf16")
+        m = median_ms({"plain": lambda: pfn(*args), "kernel": lambda: kfn(*args)}, rounds=1)
+        out["ms"][name] = (m["kernel"], m["plain"])
+        bound_ms, bound_by = bound(*out["work"][name])
+        print(f"{name} B={B_TRAIN} T={T} H={hw}: kernel {m['kernel']:.3f} ms, plain "
+              f"{m['plain']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) [{smi}]", flush=True)
+    return out
 
 
 def main() -> int:
@@ -2045,10 +2297,15 @@ def main() -> int:
         analysis = analysis_phase(dev, smi, Path(tmp) / "out", batch_ms["kernel"])
         print(f"phase 18 (the analysis stages): {time.perf_counter() - t_analysis:.1f} s",
               flush=True)
+        t_ablation = time.perf_counter()
+        abl = ablation_phase(dev, smi, Path(tmp) / "out")
+        print(f"phase 19 (the ablate stage): {time.perf_counter() - t_ablation:.1f} s",
+              flush=True)
+    work.update(abl["work"])
     apf_ms, apf_plain_ms, apf_err, work["apf_rk4"], apf_chain = apf_at_the_fit(
         dev, pipe["fit_props"], smi)
     work["sos_filtfilt"] = checks["sos_work"]
-    print(f"phases 16-18 (kernels 11 and 12, the pipeline, the analysis stages): "
+    print(f"phases 16-19 (kernels 11 and 12, the pipeline, the analysis and ablate stages): "
           f"{time.perf_counter() - t_new:.1f} s",
           flush=True)
 
@@ -2096,7 +2353,8 @@ def main() -> int:
                 "replaces": replaces, "launches": launches, "max_abs_err": err, "ms": ms,
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms.get(name),
-                "analysis_launches": analysis["launches"].get(name, 0), **extra}
+                "analysis_launches": analysis["launches"].get(name, 0),
+                "ablate_launches": abl["launches"].get(name, 0), **extra}
 
     print(json.dumps({"kernels": [
         entry("lstm_fwd", "lstm_fwd.cu", "eegflow/nn/pallas_lstm.py:430",
@@ -2132,6 +2390,16 @@ def main() -> int:
         entry("input_block_bwd float32", "input_block.cu", "eegflow/nn/pallas_input.py:117",
               f32_counts.get("input_block_bwd", 0), in_bwd_err32,
               *train_ms["input_block_bwd float32"]),
+        # the wide bf16 classes (phase 19): launches in the hidden-512 ablate run
+        entry("pool_head_fwd bf16 wide", "pool_head_fwd.cu", "eegflow/nn/pallas_attention.py:155",
+              abl["wide"]["pool_head_fwd"], abl["err"]["pool_head_fwd bf16 wide"],
+              *abl["ms"]["pool_head_fwd bf16 wide"]),
+        entry("pool_head_bwd bf16 wide", "pool_head_bwd.cu", "eegflow/nn/pallas_attention.py:221",
+              abl["wide"]["pool_head_bwd"], abl["err"]["pool_head_bwd bf16 wide"],
+              *abl["ms"]["pool_head_bwd bf16 wide"]),
+        entry("input_block_bwd bf16 wide", "input_block.cu", "eegflow/nn/pallas_input.py:117",
+              abl["wide"]["input_block_bwd"], abl["err"]["input_block_bwd bf16 wide"],
+              *abl["ms"]["input_block_bwd bf16 wide"]),
         entry("pool_head_fwd float32", "pool_head_fwd.cu", "eegflow/nn/pallas_attention.py:155",
               f32_counts.get("pool_head_fwd", 0), pool_err32,
               *train_ms["pool_head_fwd float32"]),

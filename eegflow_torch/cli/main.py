@@ -1,7 +1,7 @@
 """eegflow_torch CLI: the ``synth``, ``preprocess``, ``train``, ``fit-ode``,
-``integrate``, ``explain``, ``forecast``, ``export`` and ``serve``
-subcommands, which run the pipeline from raw recordings to a served model,
-its analyses and its exports on the card:
+``integrate``, ``explain``, ``forecast``, ``export``, ``ablate`` and
+``serve`` subcommands, which run the pipeline from raw recordings to a
+served model, its analyses and its exports on the card:
 
     python -m eegflow_torch.cli.main --data-dir data/synth synth --subjects 12 --duration 120
     python -m eegflow_torch.cli.main --data-dir data/synth --output-dir outputs preprocess
@@ -11,6 +11,7 @@ its analyses and its exports on the card:
     python -m eegflow_torch.cli.main --output-dir outputs explain [--skip-shap]
     python -m eegflow_torch.cli.main --output-dir outputs forecast
     python -m eegflow_torch.cli.main --output-dir outputs export
+    python -m eegflow_torch.cli.main --output-dir outputs ablate [--epochs N] [--hidden H]
     python -m eegflow_torch.cli.main --output-dir outputs --config cfg.json serve --port 8799
 
 ``synth`` writes a synthetic ds004148-shaped BIDS tree of BrainVision files
@@ -32,8 +33,13 @@ gradients, permutation and (unless ``--skip-shap``) KernelSHAP and writes
 forecasts P(closed) with the fitted ODE at 5, 10 and 20 steps
 (``forecasting_results.json``). ``export`` writes the per-sample and
 per-participant three-state probabilities (``{split}_sample_probabilities.csv``,
-``participant_probabilities.csv``, ``three_state_summary.json``). ``serve``
-loads the checkpoint and the fitted rates and serves the coupled model over
+``participant_probabilities.csv``, ``three_state_summary.json``).
+``ablate`` quick-trains the six architecture variants (full, no attention,
+unidirectional, 1 and 2 layers, minimal; ``--hidden`` units, 10 epochs
+unless ``--epochs``), compares each with the full model and writes
+``sensitivity_analysis.json`` (with ``coupling_analysis.json`` reloaded
+when ``integrate`` wrote one) and ``results_tables.txt``. ``serve`` loads
+the checkpoint and the fitted rates and serves the coupled model over
 HTTP. Every artifact is the JAX package's format, so either package reads
 what the other writes.
 
@@ -41,8 +47,8 @@ what the other writes.
 out); each stage reads its sections as the JAX package's does (``serve``:
 ``coupling``, ``train.lstm_impl`` and ``preprocess.sequence_length``). The
 figures the JAX package's stages draw are not drawn: the plotting module is
-not ported (fig01, fig04, fig07, fig08, fig10-12; and fig13-fig23 of
-``integrate``, ``explain`` and ``forecast``).
+not ported (fig01, fig04, fig07, fig08, fig10-12; fig13-fig23 of
+``integrate``, ``explain`` and ``forecast``; and fig25 of ``ablate``).
 
 ``--device cuda`` (the default of every stage but ``synth``) without a
 usable GPU raises; it never carries on on the CPU. ``--device cpu`` runs the
@@ -451,6 +457,50 @@ def cmd_export(args) -> None:
         print(f"  wrote {name}: {ps}")
 
 
+def cmd_ablate(args) -> None:
+    from eegflow_torch.analyze.ablation import (
+        analyze_component_contribution, compute_bootstrap_intervals,
+        run_architecture_ablation, run_statistical_comparison,
+    )
+    from eegflow_torch.analyze.tables import create_results_tables
+
+    _no_tf32()
+    device = resolve_device(args.device)
+    results_dir = Path(args.output_dir) / "results"
+    arrays, _ = load_splits(args.output_dir)
+    t0 = time.perf_counter()
+    results, predictions = run_architecture_ablation(
+        arrays["X_train"], arrays["y_train"], arrays["X_test"], arrays["y_test"],
+        hidden_size=args.hidden or 256, epochs=args.epochs or 10, device=device,
+    )
+    print(f"{len(results)} variants trained and evaluated in "
+          f"{time.perf_counter() - t0:.1f} s on {device}")
+    comparison = run_statistical_comparison(arrays["y_test"], predictions)
+    cis = compute_bootstrap_intervals(arrays["y_test"], predictions)
+    contributions = analyze_component_contribution(results)
+
+    coupling = None
+    coupling_path = results_dir / "coupling_analysis.json"
+    if coupling_path.exists():
+        coupling = load_results(coupling_path)  # reload (ref 09:424-461)
+
+    save_results(results_dir / "sensitivity_analysis.json", {
+        "ablation": results,
+        "statistical_comparison": comparison,
+        "bootstrap_cis": cis,
+        "component_contributions": contributions,
+        "coupling_sensitivity": coupling,
+    })
+
+    # manuscript tables (ref 09:671-703)
+    all_path = results_dir / "all_model_results.json"
+    all_results = load_results(all_path) if all_path.exists() else None
+    tables = create_results_tables(all_results, results, comparison)
+    (results_dir / "results_tables.txt").write_text("\n\n".join(tables))
+    for t in tables:
+        print("\n" + t)
+
+
 def start_server(args):
     """The coupled model of ``--output-dir`` with the config's ``coupling``
     and ``train.lstm_impl``, served on ``--host``/``--port`` (warmed up at
@@ -513,6 +563,11 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--skip-shap", action="store_true")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_explain)
+    p = sub.add_parser("ablate", help="quick-train and compare the six architecture variants")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--hidden", type=int, default=None)
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_ablate)
     p = sub.add_parser("serve", help="serve the coupled model over HTTP")
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8799)

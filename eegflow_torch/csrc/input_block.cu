@@ -27,7 +27,8 @@
 // tensor-core peak); the backward moves 198 MB (0.059 ms) and does 12 GFLOP
 // (float32: z 4.1 GFLOP on CUDA cores, 0.061 ms, and dx and dW 8.2 GFLOP in
 // 3xTF32, 0.050 ms at a third of the TF32 peak). Both are memory-bound
-// except the float32 modes, bound by their products. The LayerNorm needs a
+// except the float32 modes, bound by their products; at H = 512 the bf16
+// backward moves 332 MB (0.099 ms) for 25 GFLOP. The LayerNorm needs a
 // reduction across the H units of a row.
 //
 // Forward (input_block_fwd_kernel): a persistent grid of a fixed number of
@@ -68,8 +69,21 @@
 // The backward's bf16 mode (input_block_bwd_bf16_kernel): 64-row tiles, its
 // three products on mma.sync m16n8k16 with C padded to kCP = 64 by zeros in
 // shared memory and bf16(W) resident there: z = bf16(x) . bf16(W) (+ b), dx =
-// bf16(dz) . bf16(W)^T, dW += bf16(x)^T . bf16(dz). Needs C <= 64 and H <=
+// bf16(dz) . bf16(W)^T, dW += bf16(x)^T . bf16(dz). Takes C <= 64 and H <=
 // 256, H % 32 == 0.
+//
+// Its wide class (input_block_bwd_bf16_wide_kernel), any C and H <= 512,
+// H % 32 == 0 (kernel 9's widths): the same three products on 16-row tiles.
+// At H = 512 a 64-row tile's float32 z and dy beside bf16(W) are over the
+// shared memory a CTA may have, and the lanes' db, dgamma and dbeta of 512
+// columns (48 registers) beside dW's accumulators (64 at C = 64, H = 512)
+// would spill. So the row pass leaves dz, dln xhat and dln as float32 tiles
+// (dz over z, dln over dy, in place), and after it thread u adds column u of
+// the three over the tile's rows in order, into three registers of its own.
+// z is kernel 9's bf16 z (ZTileBf16, the same products in the same order).
+// For C > kCP the CTA walks its tiles once per channel chunk, as the float32
+// mode does: z and dz recomputed each pass from every chunk (W and x staged
+// per chunk), dx's columns and dW's rows of that pass's chunk formed.
 //
 // The backward's float32 mode (input_block_bwd_f32_kernel): 32-row tiles (16
 // for H > 256, as the forward's rule), W resident as float32 [c][u], z
@@ -1096,6 +1110,290 @@ size_t bwd_bf16_smem_bytes(int H) {
              sizeof(float);
 }
 
+// ---- kernel 10, bf16 mode, the wide class ----
+
+constexpr int kWTile = 16;
+constexpr int kWChunks = kMaxH / 128;  // float4 chunks of a row a lane owns
+constexpr int kWJJ = kMaxH / 16 / 4;   // 16-column pairs of dW a warp owns
+
+// Tiles of kWTile rows, kBThreads threads (16 warps). Thread (warp w, lane =
+// 4 g + q). z: ZTileBf16<kWTile> (warp w the 16-column pairs w + 16 p). Row
+// pass: row w, columns 4 (lane + 32 i) .. + 3. Column sums: thread tid column
+// tid. dx: warps 0-3, rows g, g + 8, channels 16 w + 8 j + 2 q, + 1 of the
+// chunk. dW: channels 16 (w % 4) + g, + 8 of the chunk, columns 16 p + 8 j +
+// 2 q, + 1 of the pairs p = w / 4 + 4 jj.
+//   x (rows, C), dy (rows, H) (both 16-byte aligned), w (C, H), bias, gamma,
+//   beta (H,) float32; dx (rows, C); part (gridDim.x, C H + 3 H) the CTA's
+//   partial [dW, db, dgamma, dbeta].
+// Shared memory (bwd_bf16_wide_smem_bytes): bf16(W) of a channel chunk
+// [kCP][H + 8], bf16(x) of the chunk [kWTile][kCP + 8], bf16(dz) [kWTile][H +
+// 8], z and then dz [kWTile][H + 8], dy and then dln [kWTile][H], dln xhat
+// [kWTile][H] float32, the tile's x as read [kWTile * kCP] (C <= kCP).
+__global__ void __launch_bounds__(kBThreads, 1)
+input_block_bwd_bf16_wide_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                                 const float* __restrict__ w, const float* __restrict__ bias,
+                                 const float* __restrict__ gamma,
+                                 const float* __restrict__ beta, float* __restrict__ dx,
+                                 float* __restrict__ part, int rows, int C, int H, float eps) {
+  using eegflow::smem_addr;
+  static_assert(kMaxH <= kBThreads, "a thread owns one column of the column sums");
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int ldw = H + 8, ldx = kCP + 8, ldz = H + 8;
+  __nv_bfloat16* const ws = reinterpret_cast<__nv_bfloat16*>(smem);  // [kCP][H + 8] bf16(W)
+  __nv_bfloat16* const xs = ws + kCP * ldw;                         // [kWTile][kCP + 8]
+  __nv_bfloat16* const dzs = xs + kWTile * ldx;                     // [kWTile][H + 8] bf16(dz)
+  float* const zs = reinterpret_cast<float*>(dzs + kWTile * ldz);   // [kWTile][H + 8] z, dz
+  float* const dys = zs + kWTile * ldz;                             // [kWTile][H] dy, dln
+  float* const gxs = dys + kWTile * H;                              // [kWTile][H] dln xhat
+  float* const xraw = gxs + kWTile * H;                             // [kWTile * C] x as read
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const int tiles = (rows + kWTile - 1) / kWTile;
+  const int nch = (C + kCP - 1) / kCP;
+  const int hc = H / 4;  // float4 chunks of a row
+  const float inv_h = 1.0f / static_cast<float>(H);
+
+  // bf16(W)'s channels c0 .. c0 + kCP into ws, rows past C zero
+  auto stage_w = [&](int c0) {
+    for (int i = tid; i < kCP * H; i += kBThreads) {
+      const int c = i / H, u = i - c * H;
+      ws[c * ldw + u] = __float2bfloat16_rn(c0 + c < C ? w[static_cast<size_t>(c0 + c) * H + u]
+                                                       : 0.f);
+    }
+  };
+  // bf16(x)[r][c0 + c] of the tile into xs from src (its channel c0, rows
+  // lds floats apart), rows past avail and channels past C zero
+  auto stage_x = [&](const float* src, int lds, int c0, int avail) {
+    const int cn = min(kCP, C - c0);
+    for (int i = tid; i < kWTile * kCP; i += kBThreads) {
+      const int r = i / kCP, c = i - r * kCP;
+      xs[r * ldx + c] = __float2bfloat16_rn(c < cn && r < avail ? src[r * lds + c] : 0.f);
+    }
+  };
+  // a tile's dy into dys by cp.async, rows past `rows` zero-filled, and for
+  // C <= kCP its x rows (one contiguous span) into xraw
+  auto fetch = [&](int tile) {
+    const int row0 = tile * kWTile;
+    for (int c = tid; c < kWTile * hc; c += kBThreads) {
+      const int r = c / hc, col = (c - r * hc) * 4;
+      const bool valid = row0 + r < rows;
+      eegflow::cp_async16(smem_addr(dys + r * H + col),
+                          valid ? dy + static_cast<size_t>(row0 + r) * H + col : dy, valid);
+    }
+    if (nch == 1) {
+      const int nx = min(kWTile, rows - row0) * C;  // floats of the tile's rows
+      const float* const xsrc = x + static_cast<size_t>(row0) * C;
+      for (int c = tid; c < (kWTile * C + 3) / 4; c += kBThreads) {
+        const int n = min(4, max(0, nx - 4 * c));
+        eegflow::cp_async16_part(smem_addr(xraw + 4 * c), n > 0 ? xsrc + 4 * c : x, 4 * n);
+      }
+    }
+    eegflow::cp_async_commit();
+  };
+
+  // db, dgamma, dbeta of column tid over the CTA's rows
+  float cdb = 0.f, cdg = 0.f, cdbt = 0.f;
+  ZTileBf16<kWTile> zt;
+  float* const out = part + static_cast<size_t>(blockIdx.x) * (C + 3) * H;
+
+  // one pass over the CTA's tiles per channel chunk (one for C <= kCP): dx's
+  // columns and dW's rows of channels c0 .. c0 + kCP
+  for (int pass = 0; pass < nch; ++pass) {
+    const int c0 = pass * kCP;
+    const int cn = min(kCP, C - c0);
+    float acc_w[kWJJ][2][4];  // dW of the warp's channels and pairs over the CTA's rows
+#pragma unroll
+    for (int jj = 0; jj < kWJJ; ++jj)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc_w[jj][j][e] = 0.f;
+    __syncthreads();  // the last pass's products are done with ws and xs
+    if (static_cast<int>(blockIdx.x) < tiles) fetch(blockIdx.x);
+    if (nch == 1) stage_w(0);  // bf16(W) resident for the CTA's tiles
+
+    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+      const int row0 = tile * kWTile;
+      const int tr = min(kWTile, rows - row0);
+      eegflow::cp_async_wait<0>();
+      __syncthreads();  // the tile's dy (and x) landed
+
+      // z = bf16(x) . bf16(W) + b, as kernel 9 forms it
+      zt.zero();
+      if (nch == 1) {
+        stage_x(xraw, C, 0, kWTile);
+        __syncthreads();
+        zt.accumulate(xs, ldx, ws, ldw, H, warp, lane);
+      } else {
+        for (int ch = 0; ch < nch; ++ch) {
+          if (ch > 0) __syncthreads();  // no thread reads ws or xs any more
+          stage_w(ch * kCP);
+          stage_x(x + static_cast<size_t>(row0) * C + ch * kCP, C, ch * kCP, tr);
+          __syncthreads();
+          zt.accumulate(xs, ldx, ws, ldw, H, warp, lane);
+        }
+      }
+      zt.store(zs, ldz, bias, H, warp, lane);
+      __syncthreads();  // z whole
+
+      // the LayerNorm and GELU backward, one warp per row: dz over z, dln
+      // over dy, dln xhat into gxs, bf16(dz) into dzs. Rows past `rows` have
+      // dy = 0 (zero-filled), so all four are 0 there.
+      for (int r = warp; r < kWTile; r += kBWarps) {
+        float zv[kWChunks][4], dv[kWChunks][4], mu, rsig;
+        row_stats<kWChunks>(zs + r * ldz, hc, lane, inv_h, eps, zv, mu, rsig);
+#pragma unroll
+        for (int i = 0; i < kWChunks; ++i) {
+          const int ch = lane + 32 * i;
+          float4 d4 = make_float4(0.f, 0.f, 0.f, 0.f);
+          if (ch < hc) d4 = *reinterpret_cast<const float4*>(dys + r * H + 4 * ch);
+          dv[i][0] = d4.x, dv[i][1] = d4.y, dv[i][2] = d4.z, dv[i][3] = d4.w;
+        }
+        float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < kWChunks; ++i) {
+          const int ch = lane + 32 * i;
+          if (ch >= hc) continue;
+          float dl[4], gx[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float gv = gamma[4 * ch + e];
+            const float xhat = (zv[i][e] - mu) * rsig;
+            const float dln = dv[i][e] * gelu_grad(xhat * gv + beta[4 * ch + e]);
+            dl[e] = dln;
+            gx[e] = dln * xhat;
+            const float dxh = dln * gv;
+            zv[i][e] = xhat;
+            dv[i][e] = dxh;
+            m1 += dxh;
+            m2 += dxh * xhat;
+          }
+          *reinterpret_cast<float4*>(dys + r * H + 4 * ch) = make_float4(dl[0], dl[1], dl[2], dl[3]);
+          *reinterpret_cast<float4*>(gxs + r * H + 4 * ch) = make_float4(gx[0], gx[1], gx[2], gx[3]);
+        }
+        m1 = eegflow::warp_sum(m1) * inv_h;
+        m2 = eegflow::warp_sum(m2) * inv_h;
+#pragma unroll
+        for (int i = 0; i < kWChunks; ++i) {
+          const int ch = lane + 32 * i;
+          if (ch >= hc) continue;
+          float dz[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) dz[e] = rsig * (dv[i][e] - m1 - zv[i][e] * m2);
+          *reinterpret_cast<float4*>(zs + r * ldz + 4 * ch) = make_float4(dz[0], dz[1], dz[2], dz[3]);
+          *reinterpret_cast<uint2*>(dzs + r * ldz + 4 * ch) =
+              make_uint2(eegflow::pack_bf16(dz[0], dz[1]), eegflow::pack_bf16(dz[2], dz[3]));
+        }
+      }
+      __syncthreads();  // dz, dln xhat and dln whole
+
+      // db, dgamma, dbeta: column tid over the tile's rows, in order
+      if (pass == 0 && tid < H) {
+#pragma unroll
+        for (int r = 0; r < kWTile; ++r) {
+          cdb += zs[r * ldz + tid];
+          cdg += gxs[r * H + tid];
+          cdbt += dys[r * H + tid];
+        }
+      }
+      if (nch > 1) {  // the pass's channels of W and x for dx and dW
+        __syncthreads();  // no thread reads ws or xs for z any more
+        stage_w(c0);
+        stage_x(x + static_cast<size_t>(row0) * C + c0, C, c0, tr);
+      }
+      __syncthreads();  // no thread reads dys, gxs or xraw any more
+      if (tile + static_cast<int>(gridDim.x) < tiles) fetch(tile + gridDim.x);
+
+      // dx = bf16(dz) . bf16(W)^T over the units, warps 0-3 a 16-channel block each
+      if (warp < kCP / 16 && 16 * warp < cn) {
+        const int nb = 16 * warp;
+        float acc[2][4];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+        for (int kk = 0; kk < H / 16; ++kk) {
+          uint32_t af[4], r[4];
+          eegflow::ldmatrix_x4(af, smem_addr(dzs + (lane & 15) * ldz + kk * 16 + (lane >> 4) * 8));
+          eegflow::ldmatrix_x4(r, smem_addr(ws + (nb + (lane & 7) + ((lane >> 4) << 3)) * ldw +
+                                            kk * 16 + ((lane >> 3) & 1) * 8));
+          eegflow::mma_bf16(acc[0], af, r[0], r[1]);
+          eegflow::mma_bf16(acc[1], af, r[2], r[3]);
+        }
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int row = 8 * rh + gq;
+            if (row >= tr) continue;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = nb + 8 * j + 2 * q + e;
+              if (c < cn) dx[static_cast<size_t>(row0 + row) * C + c0 + c] = acc[j][2 * rh + e];
+            }
+          }
+      }
+
+      // dW += bf16(x)^T . bf16(dz) over the tile's rows (one 16-deep k-step)
+      {
+        const int mt = warp & 3;
+        if (16 * mt < cn) {
+          uint32_t af[4];
+          eegflow::ldmatrix_x4_trans(af, smem_addr(xs + ((lane & 7) + ((lane >> 4) << 3)) * ldx +
+                                                   16 * mt + ((lane >> 3) & 1) * 8));
+#pragma unroll
+          for (int jj = 0; jj < kWJJ; ++jj) {
+            const int pr = (warp >> 2) + 4 * jj;
+            if (pr >= H / 16) continue;
+            uint32_t r[4];
+            eegflow::ldmatrix_x4_trans(
+                r, smem_addr(dzs + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldz + pr * 16 +
+                             (lane >> 4) * 8));
+            eegflow::mma_bf16(acc_w[jj][0], af, r[0], r[1]);
+            eegflow::mma_bf16(acc_w[jj][1], af, r[2], r[3]);
+          }
+        }
+      }
+      __syncthreads();  // the next tile overwrites xs, zs and dzs
+    }
+
+    // the pass's rows of the CTA's partial dW
+    {
+      const int mt = warp & 3;
+#pragma unroll
+      for (int jj = 0; jj < kWJJ; ++jj) {
+        const int pr = (warp >> 2) + 4 * jj;
+        if (pr >= H / 16) continue;
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int c = 16 * mt + 8 * rh + gq;
+            if (c < cn)
+              *reinterpret_cast<float2*>(out + static_cast<size_t>(c0 + c) * H + pr * 16 +
+                                         8 * j + 2 * q) =
+                  make_float2(acc_w[jj][j][2 * rh], acc_w[jj][j][2 * rh + 1]);
+          }
+      }
+    }
+  }
+  if (tid < H) {
+    out[static_cast<size_t>(C) * H + tid] = cdb;
+    out[static_cast<size_t>(C) * H + H + tid] = cdg;
+    out[static_cast<size_t>(C) * H + 2 * H + tid] = cdbt;
+  }
+}
+
+size_t bwd_bf16_wide_smem_bytes(int H) {
+  return (static_cast<size_t>(kCP) * (H + 8) + static_cast<size_t>(kWTile) * (kCP + 8) +
+          static_cast<size_t>(kWTile) * (H + 8)) *
+             sizeof(__nv_bfloat16) +
+         (static_cast<size_t>(kWTile) * (H + 8) + 2 * static_cast<size_t>(kWTile) * H +
+          static_cast<size_t>(kWTile) * kCP) *
+             sizeof(float);
+}
+
 bool bad_shape(int rows, int C, int H) {
   return rows <= 0 || C <= 0 || H <= 0 || H > kMaxH || H % 32 != 0;
 }
@@ -1129,9 +1427,9 @@ extern "C" int eegflow_input_block_fwd(const float* x, const float* w, const flo
 // bias, gamma, beta (H,) float32. Outputs dx (rows, C) and grads (C H + 3 H)
 // = [dW (C, H), db, dgamma, dbeta] float32, on `ctas` CTAs walking tiles of
 // tile_rows rows (the caller's plan, eegflow_torch/nn/cuda_input.py
-// bwd_plan: bf16 64 rows, C <= 64, H <= 256; float32 32 rows, or 16 for H >
-// 256); ctas <= the tiles. part (ctas, C H + 3 H) float32 scratch, the CTAs'
-// partial rows.
+// bwd_plan: bf16 64 rows for C <= 64 and H <= 256, else 16; float32 32 rows,
+// or 16 for H > 256); ctas <= the tiles. part (ctas, C H + 3 H) float32
+// scratch, the CTAs' partial rows.
 extern "C" int eegflow_input_block_bwd(const float* x, const float* dy, const float* w,
                                        const float* bias, const float* gamma,
                                        const float* beta, float* dx, float* grads, float* part,
@@ -1143,12 +1441,14 @@ extern "C" int eegflow_input_block_bwd(const float* x, const float* dy, const fl
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   if (bf16) {
-    if (C > kCP || H > kMaxHB || tile_rows != kTile) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = bwd_bf16_smem_bytes(H);
-    err = eegflow::allow_dynamic_smem(input_block_bwd_bf16_kernel, smem);
+    const bool narrow = C <= kCP && H <= kMaxHB;
+    if (tile_rows != (narrow ? kTile : kWTile)) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = narrow ? bwd_bf16_smem_bytes(H) : bwd_bf16_wide_smem_bytes(H);
+    auto kernel = narrow ? input_block_bwd_bf16_kernel : input_block_bwd_bf16_wide_kernel;
+    err = eegflow::allow_dynamic_smem(kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    input_block_bwd_bf16_kernel<<<ctas, kBThreads, smem, stream>>>(
-        x, dy, w, bias, gamma, beta, dx, part, rows, C, H, 1e-5f);
+    kernel<<<ctas, kBThreads, smem, stream>>>(x, dy, w, bias, gamma, beta, dx, part, rows, C, H,
+                                              1e-5f);
     err = cudaGetLastError();
   } else if (tile_rows == 32 && H <= 256) {
     err = launch_bwd_f32<32>(x, dy, w, bias, gamma, beta, dx, part, ctas, rows, C, H, stream);

@@ -26,7 +26,9 @@
 // D = 512, K = 256). In bf16 they take 0.10 ms together at the tensor-core
 // peak, below the bytes: x read and dh written once (0.54 GB, 0.16 ms). In
 // float32 they take 1.54 ms at the CUDA-core peak (TF32 is off), and 0.62 ms
-// as three TF32 products each at the TF32 peak (3xTF32, below).
+// as three TF32 products each at the TF32 peak (3xTF32, below). At H = 512
+// (D = 1024, K = 512) the bf16 products are 412 GFLOP (0.42 ms), above the
+// 1.07 GB of bytes (0.32 ms).
 //
 // Both modes share one structure. One CTA per batch row walks time in tiles
 // of kM (b, t) rows. Per tile: one warp per row computes the LayerNorm
@@ -47,13 +49,17 @@
 // the scratch. Every partial set is summed in a fixed order: no atomics, so
 // the result repeats bit for bit.
 //
-// bf16 mode (pool_head_bwd_bf16_kernel): 64-row tiles; y and u rounded to
-// bf16 (tiles and scratch), W1 and W1^T rounded to bf16 once per launch by the
-// wrapper and streamed through three 32-deep slices (mma_gemm.cuh's
-// tile_mma, mma.sync m16n8k16); the product of two bf16 values is exact and
-// the sums are float32, as the reference's preferred_element_type=float32;
-// only the order of summation differs. dW1 on mma_gemm.cuh's tensor-core
-// split-K from the bf16 scratch.
+// bf16 mode (pool_head_bwd_bf16_kernel): y and u rounded to bf16 (tiles and
+// scratch), W1 and W1^T rounded to bf16 once per launch by the wrapper and
+// streamed in 32-deep slices (mma_gemm.cuh's tile_mma, mma.sync m16n8k16);
+// the product of two bf16 values is exact and the sums are float32, as the
+// reference's preferred_element_type=float32; only the order of summation
+// differs. dW1 on mma_gemm.cuh's tensor-core split-K from the bf16 scratch.
+// Two width classes, one template body on 8 warps: 64-row tiles and a ring of
+// three slices for D <= 512 and K <= 256; 16-row tiles and a ring of two for
+// D <= 1024 and K <= 512 (the classifier at H = 512), where one 32-deep slice
+// of W1^T is 66 KB and the lanes' dgamma and dbeta of 1024 columns take 64
+// registers, as the float32 mode's 16-row tiles do above H = 256.
 //
 // float32 mode (pool_head_bwd_f32_kernel): the same in 3xTF32 (mma_gemm.cuh:
 // each float32 operand split into two TF32 parts as its fragment loads, three
@@ -76,25 +82,25 @@
 
 namespace {
 
-// bf16 mode: a tile of kM (b, t) rows of one batch row, kBThreads threads
-// (8 warps), the W1 slices kSlice deep in a ring of kStages.
-constexpr int kM = 64;
-constexpr int kMT = kM / 16;  // m-tiles of a tile
+// bf16 mode: kBThreads threads (8 warps), the W1 slices kSlice deep.
 constexpr int kBThreads = 256;
 constexpr int kBWarps = kBThreads / 32;
 constexpr int kSlice = eegflow::kTileSlice;
-constexpr int kStages = 3;
-constexpr int kMaxD = 512;  // so a warp owns at most 4 16-column pairs of dy
-constexpr int kMaxK = 256;  // and 2 of proj
+constexpr int kMaxD = 512;  // the narrow class: D <= 512 and K <= 256
+constexpr int kMaxK = 256;
 
-// bf16 mode, one CTA per batch row. Thread (warp w, lane = 4 g + q) holds,
-// for m-tile i and n-tile j of its pairs, rows 16 i + g, 16 i + g + 8 and
-// columns 16 pair + 8 (j % 2) + 2 q, + 1 of each product; in the row-wise
-// phases warp w takes rows w, w + 8, .. (the LayerNorm backward: pairs of
-// rows 2 w, 2 w + 1, 2 w + 16, ..) and lane l columns l + 32 i.
+// bf16 mode, one CTA per batch row: tiles of 16 kMT (b, t) rows, a ring of
+// kStages slices, D <= kDMax and K <= kDMax / 2, so a warp owns at most
+// kDMax / 128 16-column pairs of dy and half as many of proj. Thread (warp w,
+// lane = 4 g + q) holds, for m-tile i and n-tile j of its pairs, rows
+// 16 i + g, 16 i + g + 8 and columns 16 pair + 8 (j % 2) + 2 q, + 1 of each
+// product; in the row-wise phases warp w takes rows w, w + 8, .. (the
+// LayerNorm backward: kPair rows at a time, rows kPair w .. kPair w +
+// kPair - 1, then + 8 kPair, ..) and lane l columns l + 32 i.
 //   x_p (B, T, d_p) float32; w1b (D, K) and w1tb (K, D) bf16; y_scr (B T, D)
 //   and u_scr (B T, K) bf16 scratch; vec_part (B, 2K + 2D) the row's
 //   [db1, dw2, dgamma, dbeta] partials.
+template <int kMT, int kStages, int kDMax, int kPair>
 __global__ void __launch_bounds__(kBThreads, 1)
 pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict__ x1, int d0,
                           int d1, const float* __restrict__ gamma,
@@ -106,6 +112,10 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
                           float* __restrict__ dh0, float* __restrict__ dh1,
                           __nv_bfloat16* __restrict__ y_scr, __nv_bfloat16* __restrict__ u_scr,
                           float* __restrict__ vec_part, int T, int K, int use_ln, float eps) {
+  constexpr int kM = 16 * kMT;
+  constexpr int kCols = kDMax / 32;           // columns of a row a lane owns
+  constexpr int kNPp = kDMax / 32 / kBWarps;  // 16-column pairs of proj a warp owns
+  constexpr int kNPd = kDMax / 16 / kBWarps;  // and of dy
   extern __shared__ __align__(16) uint8_t smem[];
   const int D = d0 + d1;
   const int lda_y = D + 8, lda_u = K + 8;
@@ -134,9 +144,9 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
     g[d] = d < d0 ? g0[static_cast<size_t>(b) * d0 + d] : g1[static_cast<size_t>(b) * d1 + d - d0];
   for (int k = tid; k < K; k += kBThreads) acc_db1[k] = acc_dw2[k] = 0.f;
   // dgamma and dbeta of the lane's columns lane + 32 i over its warp's rows
-  float pdg[kMaxD / 32], pdb[kMaxD / 32];
+  float pdg[kCols], pdb[kCols];
 #pragma unroll
-  for (int i = 0; i < kMaxD / 32; ++i) pdg[i] = pdb[i] = 0.f;
+  for (int i = 0; i < kCols; ++i) pdg[i] = pdb[i] = 0.f;
   __syncthreads();
 
   for (int t0 = 0; t0 < T; t0 += kM) {
@@ -145,10 +155,10 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
       const int t = t0 + r;
       const bool valid = t < T;
       const size_t bt = static_cast<size_t>(b) * T + t;
-      float xv[kMaxD / 32];
+      float xv[kCols];
       float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-      for (int i = 0; i < kMaxD / 32; ++i) {
+      for (int i = 0; i < kCols; ++i) {
         const int d = lane + 32 * i;
         float v = 0.f;
         if (valid && d < D) v = d < d0 ? x0[bt * d0 + d] : x1[bt * d1 + (d - d0)];
@@ -165,7 +175,7 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
       }
       float gy = 0.f;
 #pragma unroll
-      for (int i = 0; i < kMaxD / 32; ++i) {
+      for (int i = 0; i < kCols; ++i) {
         const int d = lane + 32 * i;
         if (d >= D) continue;
         float v = xv[i];
@@ -189,16 +199,17 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
 
     // proj = bf16(y) . bf16(W1); u = ds (1 - proj^2) w2; db1, dw2
     {
-      float acc[kMT][4][4];
+      float acc[kMT][2 * kNPp][4];
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < 2 * kNPp; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-      eegflow::tile_mma<kMT, 2, kStages, kBWarps>(acc, ys, lda_y, w1b, D, K, ring, stage_elems);
+      eegflow::tile_mma<kMT, kNPp, kStages, kBWarps>(acc, ys, lda_y, w1b, D, K, ring,
+                                                      stage_elems);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < 2 * kNPp; ++j) {
         const int pair = warp + kBWarps * (j / 2);
         if (pair >= K / 16) continue;
         const int col = pair * 16 + 8 * (j % 2) + 2 * q;
@@ -243,17 +254,18 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
 
     // dy = w g + bf16(u) . bf16(W1)^T, staged as float32 in shared memory
     {
-      float acc[kMT][8][4];
+      float acc[kMT][2 * kNPd][4];
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
 #pragma unroll
-        for (int j = 0; j < 8; ++j)
+        for (int j = 0; j < 2 * kNPd; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-      eegflow::tile_mma<kMT, 4, kStages, kBWarps>(acc, us, lda_u, w1tb, K, D, ring, stage_elems);
+      eegflow::tile_mma<kMT, kNPd, kStages, kBWarps>(acc, us, lda_u, w1tb, K, D, ring,
+                                                      stage_elems);
       __syncthreads();  // no thread reads the tiles or the ring any more
 #pragma unroll
-      for (int j = 0; j < 8; ++j) {
+      for (int j = 0; j < 2 * kNPd; ++j) {
         const int pair = warp + kBWarps * (j / 2);
         if (pair >= D / 16) continue;
         const int col = pair * 16 + 8 * (j % 2) + 2 * q;
@@ -270,18 +282,20 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
     }
     __syncthreads();
 
-    // the LayerNorm backward, one warp per pair of rows (their loads in
-    // flight together), and dgamma, dbeta
-    for (int r0 = 2 * warp; r0 < kM; r0 += 2 * kBWarps) {
-      float xh[2][kMaxD / 32];
-      float m1[2] = {0.f, 0.f}, m2[2] = {0.f, 0.f};
+    // the LayerNorm backward, one warp per kPair rows (their loads in flight
+    // together), and dgamma, dbeta
+    for (int r0 = kPair * warp; r0 < kM; r0 += kPair * kBWarps) {
+      float xh[kPair][kCols];
+      float m1[kPair], m2[kPair];
+#pragma unroll
+      for (int rr = 0; rr < kPair; ++rr) m1[rr] = m2[rr] = 0.f;
       if (use_ln) {
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
+        for (int rr = 0; rr < kPair; ++rr) {
           const int t = t0 + r0 + rr;
           const size_t bt = static_cast<size_t>(b) * T + min(t, T - 1);
 #pragma unroll
-          for (int i = 0; i < kMaxD / 32; ++i) {
+          for (int i = 0; i < kCols; ++i) {
             const int d = lane + 32 * i;
             float x = 0.f;
             if (t < T && d < D) x = d < d0 ? x0[bt * d0 + d] : x1[bt * d1 + (d - d0)];
@@ -289,12 +303,12 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
           }
         }
 #pragma unroll
-        for (int rr = 0; rr < 2; ++rr) {
+        for (int rr = 0; rr < kPair; ++rr) {
           const int r = r0 + rr;
           if (t0 + r >= T) continue;
           const float* dyr = dys + r * ldd;
 #pragma unroll
-          for (int i = 0; i < kMaxD / 32; ++i) {
+          for (int i = 0; i < kCols; ++i) {
             const int d = lane + 32 * i;
             if (d >= D) continue;
             xh[rr][i] = (xh[rr][i] - mu_s[r]) * rsig_s[r];
@@ -310,7 +324,7 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
         }
       }
 #pragma unroll
-      for (int rr = 0; rr < 2; ++rr) {
+      for (int rr = 0; rr < kPair; ++rr) {
         const int r = r0 + rr;
         const int t = t0 + r;
         if (t >= T) continue;
@@ -318,7 +332,7 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
         const float* dyr = dys + r * ldd;
         const float rsig = rsig_s[r];
 #pragma unroll
-        for (int i = 0; i < kMaxD / 32; ++i) {
+        for (int i = 0; i < kCols; ++i) {
           const int d = lane + 32 * i;
           if (d >= D) continue;
           float v = dyr[d];
@@ -336,7 +350,7 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
   // the warps' dgamma and dbeta summed in warp order
   float* const part_s = dys;  // [kBWarps][2][D]
 #pragma unroll
-  for (int i = 0; i < kMaxD / 32; ++i) {
+  for (int i = 0; i < kCols; ++i) {
     const int d = lane + 32 * i;
     if (d >= D) continue;
     part_s[2 * warp * D + d] = pdg[i];
@@ -359,11 +373,26 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
   }
 }
 
-size_t bf16_smem_bytes(int D, int K) {
-  const size_t elems = static_cast<size_t>(kM) * (D + 8) + static_cast<size_t>(kM) * (K + 8) +
+template <int kMT, int kStages, int kDMax, int kPair>
+cudaError_t launch_bf16(const float* x0, const float* x1, int d0, int d1, const float* gamma,
+                        const float* beta, const __nv_bfloat16* w1b, const __nv_bfloat16* w1tb,
+                        const float* b1, const float* w2, const float* wts, const float* gs,
+                        const float* g0, const float* g1, const float* gctx, float* dh0,
+                        float* dh1, __nv_bfloat16* y_scr, __nv_bfloat16* u_scr,
+                        float* vec_part, int B, int T, int K, int use_ln, cudaStream_t stream) {
+  const size_t rows = 16 * kMT;
+  const int D = d0 + d1;
+  const size_t elems = rows * (D + 8) + rows * (K + 8) +
                        static_cast<size_t>(kStages) * kSlice * (std::max(D, K) + 8);
-  const size_t floats = static_cast<size_t>(D) + 2 * K + 4 * kM;
-  return elems * 2 + floats * 4;
+  const size_t floats = static_cast<size_t>(D) + 2 * K + 4 * rows;
+  const size_t smem = elems * 2 + floats * 4;
+  auto kernel = pool_head_bwd_bf16_kernel<kMT, kStages, kDMax, kPair>;
+  cudaError_t err = eegflow::allow_dynamic_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, kBThreads, smem, stream>>>(x0, x1, d0, d1, gamma, beta, w1b, w1tb, b1, w2, wts, gs,
+                                         g0, g1, gctx, dh0, dh1, y_scr, u_scr, vec_part, T, K,
+                                         use_ln, 1e-5f);
+  return cudaGetLastError();
 }
 
 // float32 mode: a tile of 16 kMT (b, t) rows of one batch row, kWarps
@@ -664,9 +693,8 @@ cudaError_t launch_f32(const float* x0, const float* x1, int d0, int d1, const f
 
 // x_p (B, T, d_p) float32; gamma, beta (d0 + d1,) or null without LN; b1,
 // w2 (K,); wts, gs (B, T); g_p (B, d_p); gctx (B,). W1 as w1 (d0 + d1, K)
-// and w1t (K, d0 + d1): bf16 under `bf16` (which needs d0 + d1 <= 512 and
-// K <= 256), else float32 (d0 + d1 <= 1024 and K <= 512, 16-byte aligned);
-// D and K multiples of 32. Outputs dh_p (B, T, d_p), dw1 (d0 + d1, K) and vec
+// and w1t (K, d0 + d1): bf16 under `bf16`, else float32 (16-byte aligned);
+// d0 + d1 <= 1024 and K <= 512, both multiples of 32. Outputs dh_p (B, T, d_p), dw1 (d0 + d1, K) and vec
 // (2K + 2(d0 + d1)) = [db1, dw2, dgamma, dbeta] float32. Scratch: y_scr (B,
 // T, d0 + d1) and u_scr (B, T, K), bf16 under `bf16`, else float32 (16-byte
 // aligned); vec_part (B, 2K + 2(d0 + d1)) and part (splits * (d0 + d1) * K)
@@ -681,20 +709,25 @@ extern "C" int eegflow_pool_head_bwd(
   const int D = d0 + d1;
   if (B <= 0 || T <= 0 || K <= 0 || d0 <= 0 || d1 < 0 || splits <= 0 ||
       (use_ln && (gamma == nullptr || beta == nullptr)) || D % 32 != 0 || K % 32 != 0 ||
-      D > (bf16 ? kMaxD : 2 * kMaxD) || K > (bf16 ? kMaxK : 2 * kMaxK))
+      D > 2 * kMaxD || K > 2 * kMaxK)
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   const int BT = B * T;
+  const bool narrow = D <= kMaxD && K <= kMaxK;
   if (bf16) {
     using Bf = __nv_bfloat16;
-    const size_t smem = bf16_smem_bytes(D, K);
-    err = eegflow::allow_dynamic_smem(pool_head_bwd_bf16_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    pool_head_bwd_bf16_kernel<<<B, kBThreads, smem, stream>>>(
-        x0, x1, d0, d1, gamma, beta, static_cast<const Bf*>(w1), static_cast<const Bf*>(w1t),
-        b1, w2, wts, gs, g0, g1, gctx, dh0, dh1, static_cast<Bf*>(y_scr), static_cast<Bf*>(u_scr),
-        vec_part, T, K, use_ln, 1e-5f);
-    err = cudaGetLastError();
+    const auto* const wb = static_cast<const Bf*>(w1);
+    const auto* const wtb = static_cast<const Bf*>(w1t);
+    auto* const ysb = static_cast<Bf*>(y_scr);
+    auto* const usb = static_cast<Bf*>(u_scr);
+    if (narrow)
+      err = launch_bf16<4, 3, kMaxD, 2>(x0, x1, d0, d1, gamma, beta, wb, wtb, b1, w2, wts, gs,
+                                        g0, g1, gctx, dh0, dh1, ysb, usb, vec_part, B, T, K,
+                                        use_ln, stream);
+    else
+      err = launch_bf16<1, 2, 2 * kMaxD, 1>(x0, x1, d0, d1, gamma, beta, wb, wtb, b1, w2, wts,
+                                            gs, g0, g1, gctx, dh0, dh1, ysb, usb, vec_part, B,
+                                            T, K, use_ln, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = eegflow::mma_gemm_split_k(
         eegflow::Bf16Cols{{static_cast<const Bf*>(y_scr), nullptr}, {BT, 0}, D, D},
@@ -709,7 +742,7 @@ extern "C" int eegflow_pool_head_bwd(
                             static_cast<const void*>(ys), static_cast<const void*>(us)})
       if (reinterpret_cast<uintptr_t>(ptr) % 16 != 0)
         return static_cast<int>(cudaErrorInvalidValue);
-    if (D <= kMaxD && K <= kMaxK)
+    if (narrow)
       err = launch_f32<2, 16, 3, 16>(x0, x1, d0, d1, gamma, beta, wf, wtf, b1, w2, wts, gs, g0, g1,
                                  gctx, dh0, dh1, ys, us, vec_part, B, T, K, use_ln, stream);
     else

@@ -19,7 +19,9 @@
 // (0.54 GB at B = 1024, T = 256, D = 512: 0.16 ms at 3.35 TB/s) and does
 // T x D x K multiply-adds (69 GFLOP at K = 256: 0.07 ms at the bf16
 // tensor-core peak, 0.42 ms in 3xTF32 at a third of the TF32 peak), so the
-// bytes bound the bf16 mode and the products the float32 one. The T loop of
+// bytes bound the bf16 mode and the products the float32 one. At H = 512
+// (D = 1024, K = 512, B = 512) the bf16 mode reads the same 0.54 GB and does
+// 137 GFLOP (0.14 ms): still bound by the bytes, by a little. The T loop of
 // the online softmax is serial within a row.
 //
 // Both modes: one CTA per batch row walks time in tiles. Per tile: one warp
@@ -33,15 +35,20 @@
 // launch repeats bit for bit.
 //
 // bf16 mode (pool_head_fwd_bf16_kernel): 64-step tiles of bf16(y) [kM][D +
-// 8] on 8 warps; proj on mma.sync m16n8k16 (tile_mma), W1 rounded to bf16
-// once by the wrapper and streamed through a ring of two 32-deep slices, so a
-// batch row reads W1 T / 64 times (4 x 256 KB at T = 256). bf16 y would move
-// the context by ~4e-3, and a float32 y tile (128 KB at D = 512) beside the
-// bf16 tile (65 KB) and the ring (33 KB) is over the 227 KB a CTA may have,
-// so each thread recomputes y for its features from x (the tile it read a
-// moment before, an L2 hit) and the row's statistics. Without the float32
-// tile a CTA takes 101 KB, so two share an SM and one's loads overlap the
-// other's products. Needs D <= 512 and K <= 256, both multiples of 32.
+// 8]; proj on mma.sync m16n8k16 (tile_mma), W1 rounded to bf16 once by the
+// wrapper and streamed through a ring of two 32-deep slices, so a batch row
+// reads W1 T / 64 times (4 x 256 KB at T = 256, D = 512, K = 256). bf16 y
+// would move the context by ~4e-3, and a float32 y tile (128 KB at D = 512)
+// beside the bf16 tile (65 KB) and the ring (33 KB) is over the 227 KB a CTA
+// may have, so each thread recomputes y for its features from x (the tile it
+// read a moment before, an L2 hit) and the row's statistics. Two width
+// classes, one template body: D <= 512 and K <= 256 on 8 warps (a CTA takes
+// 101 KB, so two share an SM and one's loads overlap the other's products),
+// and D <= 1024, K <= 512 (the classifier at H = 512) on 16 warps, one CTA an
+// SM (199 KB of tile and ring at D = 1024, K = 512; bf16 W1 is then 1 MiB, so
+// it streams from L2 as at the narrow width). In both a warp owns two
+// 16-column pairs of proj and a thread two context features. D and K
+// multiples of 32.
 //
 // float32 mode (pool_head_fwd_f32_kernel; also kernel 6, one part without
 // LayerNorm): the float32 y tile is the product's A operand and the context
@@ -64,30 +71,36 @@
 
 namespace {
 
-// bf16 mode: tiles of kM (b, t) rows of one batch row, kBThreads threads (8
-// warps), W1 in kTileSlice-deep slices in a ring of kStages.
+// bf16 mode: tiles of kM (b, t) rows of one batch row, W1 in
+// kTileSlice-deep slices in a ring of kStages.
 constexpr int kM = 64;
 constexpr int kMT = kM / 16;  // m-tiles of a tile
-constexpr int kBThreads = 256;
-constexpr int kBWarps = kBThreads / 32;
 constexpr int kStages = 2;
-constexpr int kMaxD = 512;  // a lane holds at most 16 features of a row
-constexpr int kMaxK = 256;  // a warp owns at most 2 16-column pairs of proj
-constexpr int kF = kMaxD / kBThreads;  // context features a thread
+constexpr int kMaxD = 512;  // the narrow bf16 class: D <= 512, K <= 256 on 8 warps
+constexpr int kMaxK = 256;
+constexpr int kWideD = 1024;  // the wide class (and the float32 mode): D <= 1024, K <= 512
+constexpr int kWideK = 512;
 
-// bf16 mode, one CTA per batch row. Thread (warp w, lane = 4 g + q) holds,
-// for m-tile i and n-tile j of its pairs, rows 16 i + g, 16 i + g + 8 and
-// columns 16 pair + 8 (j % 2) + 2 q, + 1 of proj (tile_mma); in the LayerNorm
-// pass warp w takes rows 2 w, 2 w + 1, 2 w + 16, .. and lane l features
-// l + 32 i; in the context sum thread tid owns features tid + kBThreads i.
+// bf16 mode, one CTA per batch row, kWarps warps, D <= kDMax and K <=
+// kDMax / 2. Thread (warp w, lane = 4 g + q) holds, for m-tile i and n-tile j
+// of its pairs, rows 16 i + g, 16 i + g + 8 and columns 16 pair + 8 (j % 2) +
+// 2 q, + 1 of proj (tile_mma; pair = w + kWarps (j / 2)); in the LayerNorm
+// pass warp w takes rows 2 w, 2 w + 1, 2 w + 2 kWarps, .. and lane l features
+// l + 32 i; in the context sum thread tid owns features tid + 32 kWarps i.
 //   x_p (B, T, d_p) float32; w1b (D, K) bf16; ctx_p (B, d_p), scores (B, T).
-__global__ void __launch_bounds__(kBThreads, 2)
+template <int kWarps, int kDMax, int kMinBlocks>
+__global__ void __launch_bounds__(32 * kWarps, kMinBlocks)
 pool_head_fwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict__ x1, int d0,
                           int d1, const float* __restrict__ gamma,
                           const float* __restrict__ beta, const __nv_bfloat16* __restrict__ w1b,
                           const float* __restrict__ b1, const float* __restrict__ w2,
                           float* __restrict__ ctx0, float* __restrict__ ctx1,
                           float* __restrict__ scores, int T, int K, int use_ln, float eps) {
+  constexpr int kBThreads = 32 * kWarps;
+  constexpr int kBWarps = kWarps;
+  constexpr int kNP = kDMax / 32 / kWarps;  // 16-column pairs of proj a warp owns
+  constexpr int kCols = kDMax / 32;         // features of a row a lane holds
+  constexpr int kF = kDMax / kBThreads;     // context features a thread
   extern __shared__ __align__(16) uint8_t smem[];
   const int D = d0 + d1;
   const int lda = D + 8;
@@ -114,13 +127,13 @@ pool_head_fwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
     // LayerNorm, bf16(y) into the tile (rows past T zero), two rows a warp
     // at a time so that their loads are in flight together
     for (int r0 = 2 * warp; r0 < kM; r0 += 2 * kBWarps) {
-      float xv[2][kMaxD / 32];
+      float xv[2][kCols];
 #pragma unroll
       for (int rr = 0; rr < 2; ++rr) {
         const bool valid = r0 + rr < tc;
         const size_t bt = bt0 + r0 + rr;
 #pragma unroll
-        for (int i = 0; i < kMaxD / 32; ++i) {
+        for (int i = 0; i < kCols; ++i) {
           const int d = lane + 32 * i;
           float v = 0.f;
           if (valid && d < D) v = d < d0 ? x0[bt * d0 + d] : x1[bt * d1 + (d - d0)];
@@ -134,7 +147,7 @@ pool_head_fwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
         if (use_ln) {
           float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-          for (int i = 0; i < kMaxD / 32; ++i) {
+          for (int i = 0; i < kCols; ++i) {
             s1 += xv[rr][i];
             s2 += xv[rr][i] * xv[rr][i];
           }
@@ -144,7 +157,7 @@ pool_head_fwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
           rsig = rsqrtf(s2 * inv_d - mu * mu + eps);
         }
 #pragma unroll
-        for (int i = 0; i < kMaxD / 32; ++i) {
+        for (int i = 0; i < kCols; ++i) {
           const int d = lane + 32 * i;
           if (d >= D) continue;
           float v = xv[rr][i];
@@ -158,19 +171,19 @@ pool_head_fwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
 
     // proj = bf16(y) . bf16(W1); the scores, reduced over K in a fixed order
     {
-      float acc[kMT][4][4];
+      float acc[kMT][2 * kNP][4];
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < 2 * kNP; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-      eegflow::tile_mma<kMT, 2, kStages, kBWarps>(acc, ys, lda, w1b, D, K, ring, stage_elems);
+      eegflow::tile_mma<kMT, kNP, kStages, kBWarps>(acc, ys, lda, w1b, D, K, ring, stage_elems);
       float sp[kMT][2];
 #pragma unroll
       for (int i = 0; i < kMT; ++i) sp[i][0] = sp[i][1] = 0.f;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
+      for (int j = 0; j < 2 * kNP; ++j) {
         const int pair = warp + kBWarps * (j / 2);
         if (pair >= K / 16) continue;
         const int col = pair * 16 + 8 * (j % 2) + 2 * q;
@@ -275,11 +288,22 @@ pool_head_fwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
   }
 }
 
-size_t bf16_smem_bytes(int D, int K) {
-  return (static_cast<size_t>(kM) * (D + 8) +
-          static_cast<size_t>(kStages) * eegflow::kTileSlice * (K + 8)) *
-             sizeof(__nv_bfloat16) +
-         kM * sizeof(float2) + (static_cast<size_t>(kBWarps) * kM + kM + 2) * sizeof(float);
+template <int kWarps, int kDMax, int kMinBlocks>
+cudaError_t launch_bf16(const float* x0, const float* x1, int d0, int d1, const float* gamma,
+                        const float* beta, const __nv_bfloat16* w1b, const float* b1,
+                        const float* w2, float* ctx0, float* ctx1, float* scores, int B, int T,
+                        int K, int use_ln, cudaStream_t stream) {
+  const size_t smem = (static_cast<size_t>(kM) * (d0 + d1 + 8) +
+                       static_cast<size_t>(kStages) * eegflow::kTileSlice * (K + 8)) *
+                          sizeof(__nv_bfloat16) +
+                      kM * sizeof(float2) +
+                      (static_cast<size_t>(kWarps) * kM + kM + 2) * sizeof(float);
+  auto kernel = pool_head_fwd_bf16_kernel<kWarps, kDMax, kMinBlocks>;
+  cudaError_t err = eegflow::allow_dynamic_smem(kernel, smem);
+  if (err != cudaSuccess) return err;
+  kernel<<<B, 32 * kWarps, smem, stream>>>(x0, x1, d0, d1, gamma, beta, w1b, b1, w2, ctx0, ctx1,
+                                          scores, T, K, use_ln, 1e-5f);
+  return cudaGetLastError();
 }
 
 // float32 mode (and kernel 6): a tile of 16 kMT (b, t) rows of one batch
@@ -496,10 +520,10 @@ cudaError_t launch_f32(const float* x0, const float* x1, int d0, int d1, const f
 }  // namespace
 
 // x_p (B, T, d_p) float32; gamma, beta (d0 + d1,) float32 (null without LN);
-// w1: W1 (d0 + d1, K) bf16 under `bf16` (which needs d0 + d1 <= 512 and K <=
-// 256), else W1^T (K, d0 + d1) float32, 16-byte aligned (d0 + d1 <= 1024 and
-// K <= 512); D and K multiples of 32; b1, w2 (K,) float32; ctx_p (B, d_p) and
-// scores (B, T) float32. x1/ctx1 may be null when d1 == 0.
+// w1: W1 (d0 + d1, K) bf16 under `bf16`, else W1^T (K, d0 + d1) float32,
+// 16-byte aligned; d0 + d1 <= 1024 and K <= 512, both multiples of 32; b1, w2
+// (K,) float32; ctx_p (B, d_p) and scores (B, T) float32. x1/ctx1 may be null
+// when d1 == 0.
 extern "C" int eegflow_pool_head_fwd(const float* x0, const float* x1, int d0, int d1,
                                      const float* gamma, const float* beta, const void* w1,
                                      const float* b1, const float* w2, float* ctx0,
@@ -508,21 +532,21 @@ extern "C" int eegflow_pool_head_fwd(const float* x0, const float* x1, int d0, i
   const int D = d0 + d1;
   if (B <= 0 || T <= 0 || K <= 0 || d0 <= 0 || d1 < 0 ||
       (use_ln && (gamma == nullptr || beta == nullptr)) || D % 32 != 0 || K % 32 != 0 ||
-      D > (bf16 ? kMaxD : 2 * kMaxD) || K > (bf16 ? kMaxK : 2 * kMaxK) ||
-      (!bf16 && reinterpret_cast<uintptr_t>(w1) % 16 != 0))
+      D > kWideD || K > kWideK || (!bf16 && reinterpret_cast<uintptr_t>(w1) % 16 != 0))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
+  const bool narrow = D <= kMaxD && K <= kMaxK;
   if (bf16) {
-    const size_t smem = bf16_smem_bytes(D, K);
-    err = eegflow::allow_dynamic_smem(pool_head_fwd_bf16_kernel, smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    pool_head_fwd_bf16_kernel<<<B, kBThreads, smem, stream>>>(
-        x0, x1, d0, d1, gamma, beta, static_cast<const __nv_bfloat16*>(w1), b1, w2, ctx0,
-        ctx1, scores, T, K, use_ln, 1e-5f);
-    err = cudaGetLastError();
+    const auto* const w1b = static_cast<const __nv_bfloat16*>(w1);
+    if (narrow)
+      err = launch_bf16<8, kMaxD, 2>(x0, x1, d0, d1, gamma, beta, w1b, b1, w2, ctx0, ctx1,
+                                     scores, B, T, K, use_ln, stream);
+    else
+      err = launch_bf16<16, kWideD, 1>(x0, x1, d0, d1, gamma, beta, w1b, b1, w2, ctx0, ctx1,
+                                       scores, B, T, K, use_ln, stream);
   } else {
     const float* const w1t = static_cast<const float*>(w1);
-    if (D <= kMaxD && K <= kMaxK)
+    if (narrow)
       err = launch_f32<4, 16, 512, 16, 3>(x0, x1, d0, d1, gamma, beta, w1t, b1, w2, ctx0, ctx1,
                                           scores, B, T, K, use_ln, stream);
     else

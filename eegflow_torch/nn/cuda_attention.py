@@ -32,10 +32,9 @@ from eegflow_torch.nn.cuda_lstm import Parts, _ptr, as_parts
 from eegflow_torch.nn.layers import bf16_round
 
 LN_EPS = 1e-5
-#: the widest D and K the bf16 modes of the pool-head kernels take
-BF16_MAX_D, BF16_MAX_K = 512, 256
-#: and the float32 modes of both (3xTF32 on the tensor cores; kernel 6 too)
-F32_MAX_D, F32_MAX_K = 1024, 512
+#: the widest D and K the pool-head kernels take, in either mode (kernel 6
+#: too): the classifier's D = 2H and K = H for H <= 512
+MAX_D, MAX_K = 1024, 512
 
 
 def _check_widths(what: str, d_total: int, k: int, max_d: int, max_k: int) -> None:
@@ -46,10 +45,11 @@ def _check_widths(what: str, d_total: int, k: int, max_d: int, max_k: int) -> No
 
 def check_bf16_widths(name: str, d_total: int, k: int) -> None:
     """The widths the bf16 modes of ``pool_head_fwd.cu`` and
-    ``pool_head_bwd.cu`` run on the tensor cores: D <= 512 and K <= 256, both
-    multiples of 32 (the classifier's D = 2H and K = H for H <= 256). Raises
-    ``ValueError`` naming ``name`` for any other; there is no other body."""
-    _check_widths(f"{name} under bf16", d_total, k, BF16_MAX_D, BF16_MAX_K)
+    ``pool_head_bwd.cu`` run on the tensor cores: D <= 1024 and K <= 512,
+    both multiples of 32 (the classifier's D = 2H and K = H for H <= 512; one
+    body for D <= 512 and K <= 256, a wider one above). Raises ``ValueError``
+    naming ``name`` for any other; there is no other body."""
+    _check_widths(f"{name} under bf16", d_total, k, MAX_D, MAX_K)
 
 
 def check_f32_widths(name: str, d_total: int, k: int) -> None:
@@ -58,7 +58,7 @@ def check_f32_widths(name: str, d_total: int, k: int) -> None:
     both multiples of 32 (the classifier's D = 2H and K = H for H <= 512).
     Raises ``ValueError`` naming ``name`` for any other; there is no other
     body."""
-    _check_widths(f"{name} in float32", d_total, k, F32_MAX_D, F32_MAX_K)
+    _check_widths(f"{name} in float32", d_total, k, MAX_D, MAX_K)
 
 
 def pool_head_fused_plain(ln_params: Optional[Mapping], attn_params: Mapping,
@@ -271,9 +271,9 @@ def pool_head_bwd(ln_params: Optional[Mapping], attn_params: Mapping, xs: Parts,
                   use_ln: bool = True, bf16: bool = False) -> PoolGrads:
     """Backward of :func:`pool_head_fused` (arguments as
     :func:`pool_head_bwd_plain`). The kernel runs its products on the tensor
-    cores, in bf16 under ``bf16`` (D <= 512 and K <= 256, both multiples of
-    32: the classifier's D = 2H and K = H for H <= 256), else in 3xTF32 (D <=
-    1024 and K <= 512, multiples of 32: H <= 512)."""
+    cores, in bf16 under ``bf16``, else in 3xTF32; either takes D <= 1024 and
+    K <= 512, multiples of 32 (the classifier's D = 2H and K = H for H <=
+    512)."""
     xs = as_parts(xs)
     if xs[0].device.type == "cpu":
         return pool_head_bwd_plain(ln_params, attn_params, xs, weights, g_scores, g_ctx,

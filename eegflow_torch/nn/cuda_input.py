@@ -39,12 +39,14 @@ FWD_CTAS = 132
 FWD_WIDE_TILE_MAX_HIDDEN = 256
 #: kernel 10: its fixed persistent grid (one CTA of 16 warps on each of an
 #: H100's 132 SMs; a fixed count keeps the order of the partial sums, and so
-#: the result, the same on any card); the bf16 mode's row tile and the widest
-#: input and hidden sizes it takes; the float32 mode takes 32-row tiles up to
+#: the result, the same on any card); the bf16 mode's row tile up to
+#: BWD_MAX_CHANNELS inputs and BWD_MAX_HIDDEN units, and its wide tile beyond
+#: either (a 64-row tile's float32 z and dy beside bf16 W would not fit in
+#: shared memory at H = 512); the float32 mode takes 32-row tiles up to
 #: FWD_WIDE_TILE_MAX_HIDDEN and 16-row tiles above it (float32 W, z and dy
 #: tiles of 32 rows would not fit in shared memory at H = 512)
 BWD_CTAS = 132
-BWD_TILE_ROWS = 64
+BWD_TILE_ROWS, BWD_WIDE_TILE_ROWS = 64, 16
 BWD_MAX_CHANNELS, BWD_MAX_HIDDEN = 64, 256
 
 
@@ -94,20 +96,17 @@ class BwdPlan(NamedTuple):
 def bwd_plan(rows: int, channels: int, hidden: int, bf16: bool) -> BwdPlan:
     """Kernel 10's grid, tile and scratch for ``rows`` = B*T rows of
     ``channels`` inputs and ``hidden`` units; the wrapper allocates from it.
-    The bf16 mode takes 64-row tiles and C <= 64, H <= 256, H % 32 == 0; the
-    float32 mode any C and kernel 9's widths (H % 32 == 0, H <= 512) on
-    32-row tiles, 16-row above H = 256. Raises ``ValueError`` for other
-    widths; there is no other body."""
+    Both modes take any C and kernel 9's widths (H % 32 == 0, H <= 512): the
+    bf16 mode on 64-row tiles for C <= 64 and H <= 256 and on 16-row tiles
+    beyond either, the float32 mode on 32-row tiles, 16-row above H = 256.
+    Raises ``ValueError`` for other widths; there is no other body."""
+    if hidden % 32 or not 0 < hidden <= 512:
+        raise ValueError(f"input_block_bwd {'under bf16' if bf16 else 'in float32'} needs "
+                         f"H % 32 == 0 and H <= 512; got C={channels}, H={hidden}")
     if bf16:
-        if channels > BWD_MAX_CHANNELS or hidden > BWD_MAX_HIDDEN or hidden % 32:
-            raise ValueError(f"input_block_bwd under bf16 needs C <= {BWD_MAX_CHANNELS} and "
-                             f"H <= {BWD_MAX_HIDDEN}, H % 32 == 0; got C={channels}, "
-                             f"H={hidden}")
-        tile_rows = BWD_TILE_ROWS
+        narrow = channels <= BWD_MAX_CHANNELS and hidden <= BWD_MAX_HIDDEN
+        tile_rows = BWD_TILE_ROWS if narrow else BWD_WIDE_TILE_ROWS
     else:
-        if hidden % 32 or not 0 < hidden <= 512:
-            raise ValueError(f"input_block_bwd in float32 needs H % 32 == 0 and H <= 512; got "
-                             f"C={channels}, H={hidden}")
         tile_rows = 32 if hidden <= FWD_WIDE_TILE_MAX_HIDDEN else 16
     ctas = min(BWD_CTAS, -(-rows // tile_rows))
     return BwdPlan(ctas, tile_rows, ctas * (channels + 3) * hidden)

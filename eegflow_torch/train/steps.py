@@ -17,11 +17,15 @@ A parameter without a gradient (the attention score bias: softmax ignores
 it) takes a zero gradient, so its moments stay 0 and weight decay still
 shrinks it, as optax does. ``torch.optim.AdamW`` would skip such a
 parameter.
+
+With ``max_norm=None``, ``every_k=1`` and a constant learning rate in place
+of the schedule it is plain ``optax.adamw(lr)``, as the ablation stage's
+quick training runs it (``eegflow.analyze.ablation.quick_train_evaluate``).
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence
+from typing import Callable, Dict, Optional, Sequence, Union
 
 import torch
 
@@ -34,13 +38,16 @@ from eegflow_torch.train.schedule import warmup_cosine_schedule
 
 class AdamW:
     """``MultiSteps(chain(clip_by_global_norm, adamw), every_k)`` over
-    ``params`` (see the module docstring)."""
+    ``params`` (see the module docstring). ``schedule`` maps the update's
+    index to its learning rate, or is the learning rate itself;
+    ``max_norm=None`` leaves out the clipping."""
 
-    def __init__(self, params: Sequence[torch.Tensor], schedule: Callable[[int], float],
-                 weight_decay: float = 1e-4, max_norm: float = 1.0, every_k: int = 1,
-                 b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8):
+    def __init__(self, params: Sequence[torch.Tensor],
+                 schedule: Union[Callable[[int], float], float], weight_decay: float = 1e-4,
+                 max_norm: Optional[float] = 1.0, every_k: int = 1, b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8):
         self.params = list(params)
-        self.schedule = schedule
+        self.schedule = schedule if callable(schedule) else (lambda _: float(schedule))
         self.weight_decay, self.max_norm, self.every_k = weight_decay, max_norm, every_k
         self.b1, self.b2, self.eps = b1, b2, eps
         self.mu = [torch.zeros_like(p) for p in self.params]
@@ -68,8 +75,9 @@ class AdamW:
         if self.mini_step < self.every_k:
             return False
         self.mini_step = 0
-        norm = torch.sqrt(sum(torch.sum(a * a) for a in self.acc))
-        keep = norm < self.max_norm  # on the device: no host sync
+        if self.max_norm is not None:
+            norm = torch.sqrt(sum(torch.sum(a * a) for a in self.acc))
+            keep = norm < self.max_norm  # on the device: no host sync
         self.count += 1
         f32 = torch.float32
         dev = self.params[0].device
@@ -77,7 +85,8 @@ class AdamW:
         bc2 = 1 - torch.tensor(self.b2, dtype=f32, device=dev) ** self.count
         step_size = torch.tensor(-self.schedule(self.count - 1), dtype=f32, device=dev)
         for p, acc, mu, nu in zip(self.params, self.acc, self.mu, self.nu):
-            g = torch.where(keep, acc, (acc / norm) * self.max_norm)
+            g = acc if self.max_norm is None else torch.where(keep, acc,
+                                                              (acc / norm) * self.max_norm)
             mu.copy_((1 - self.b1) * g + self.b1 * mu)
             nu.copy_((1 - self.b2) * (g * g) + self.b2 * nu)
             upd = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)

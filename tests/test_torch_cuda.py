@@ -728,13 +728,52 @@ def test_pool_head_bwd_bf16_on_tensor_cores_matches_twin_and_repeats_bitwise(dev
 
 
 def test_pool_head_bwd_bf16_rejects_widths_off_its_tiles(dev):
-    x = torch.zeros(2, 5, 40, device=dev)
-    attn = {"proj": {"w": torch.zeros(40, 64, device=dev), "b": torch.zeros(64, device=dev)},
-            "score": {"w": torch.zeros(64, 1, device=dev)}}
-    z2 = torch.zeros(2, 5, device=dev)
-    with pytest.raises(ValueError, match="multiples of 32"):
-        pool_head_bwd(None, attn, (x,), z2, z2, (torch.zeros(2, 40, device=dev),),
-                      torch.zeros(2, device=dev), False, True)
+    for d, k in ((40, 64), (64, 40), (1056, 64), (64, 544)):
+        x = torch.zeros(2, 5, d, device=dev)
+        attn = {"proj": {"w": torch.zeros(d, k, device=dev), "b": torch.zeros(k, device=dev)},
+                "score": {"w": torch.zeros(k, 1, device=dev)}}
+        z2 = torch.zeros(2, 5, device=dev)
+        with pytest.raises(ValueError, match="pool_head_bwd under bf16 needs D <= 1024 and K "
+                                             "<= 512, both multiples of 32"):
+            pool_head_bwd(None, attn, (x,), z2, z2, (torch.zeros(2, d, device=dev),),
+                          torch.zeros(2, device=dev), False, True)
+
+
+def _pool_bwd_case(gen, d_part, k, n_parts, batch, steps, dev, w_scale=0.05):
+    d = d_part * n_parts
+    ln = {"scale": 1 + 0.1 * _randn(gen, d, dev=dev), "bias": 0.1 * _randn(gen, d, dev=dev)}
+    attn = {"proj": {"w": w_scale * _randn(gen, d, k, dev=dev),
+                     "b": 0.1 * _randn(gen, k, dev=dev)},
+            "score": {"w": 0.1 * _randn(gen, k, 1, dev=dev)}}
+    xs = tuple(torch.tanh(_randn(gen, batch, steps, d_part, dev=dev)) for _ in range(n_parts))
+    w = torch.softmax(_randn(gen, batch, steps, dev=dev), dim=-1)
+    gs = 0.01 * _randn(gen, batch, steps, dev=dev)
+    gc = tuple(0.1 * _randn(gen, batch, d_part, dev=dev) for _ in range(n_parts))
+    gctx = 0.1 * _randn(gen, batch, dev=dev)
+    return ln, attn, xs, w, gs, gc, gctx
+
+
+@pytest.mark.parametrize("use_ln", [False, True])
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("batch,steps", [(3, 45), (2, 256)])
+def test_pool_head_bwd_bf16_takes_the_widths_of_hidden_512(dev, use_ln, n_parts, batch, steps):
+    """Kernel 8's wide bf16 class: D = 1024 (two parts of 512, a hidden-512
+    classifier) and one part of 512, K = 512, on its 16-row tiles, with and
+    without LN, T not a multiple of the tile (45) and a whole number (256)."""
+    gen = make_generator(240 + n_parts + 2 * int(use_ln))
+    ln, attn, xs, w, gs, gc, gctx = _pool_bwd_case(gen, 512, 512, n_parts, batch, steps, dev,
+                                                   w_scale=0.03)
+    args = (ln if use_ln else None, attn, xs, w, gs, gc, gctx, use_ln, True)
+    before = kernels.launch_counts["pool_head_bwd"]
+    got, again = pool_head_bwd(*args), pool_head_bwd(*args)
+    assert kernels.launch_counts["pool_head_bwd"] == before + 2
+    want = pool_head_bwd_plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda out: list(out[0]) + [t for t in out[1:] if t is not None]  # noqa: E731
+    assert len(flat(got)) == len(flat(want)) == n_parts + (5 if use_ln else 3)
+    for a, c in zip(flat(got), flat(want)):
+        assert bool(torch.isfinite(a).all()) and _rel(a, c) <= POOL_BWD_REL_TOL
+    assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
 
 
 @pytest.mark.parametrize("ln_parts", [(False, 1), (True, 2)])
@@ -765,14 +804,37 @@ def test_pool_head_fwd_bf16_on_tensor_cores_matches_twin_and_repeats_bitwise(dev
 
 
 def test_pool_head_fwd_bf16_rejects_widths_off_its_tiles(dev):
-    x = torch.zeros(2, 5, 40, device=dev)
-    attn = {"proj": {"w": torch.zeros(40, 64, device=dev), "b": torch.zeros(64, device=dev)},
-            "score": {"w": torch.zeros(64, 1, device=dev)}}
-    with pytest.raises(ValueError, match="multiples of 32"):
-        pool_head_fused(None, attn, (x,), False, True)
-    # so does the float32 mode (3xTF32 on the tensor cores)
-    with pytest.raises(ValueError, match="pool_head_fwd in float32 needs"):
-        pool_head_fused(None, attn, (x,), False, False)
+    for d, k in ((40, 64), (64, 40), (1056, 64), (64, 544)):
+        x = torch.zeros(2, 5, d, device=dev)
+        attn = {"proj": {"w": torch.zeros(d, k, device=dev), "b": torch.zeros(k, device=dev)},
+                "score": {"w": torch.zeros(k, 1, device=dev)}}
+        with pytest.raises(ValueError, match="pool_head_fwd under bf16 needs D <= 1024 and K "
+                                             "<= 512, both multiples of 32"):
+            pool_head_fused(None, attn, (x,), False, True)
+        # so does the float32 mode (3xTF32 on the tensor cores)
+        with pytest.raises(ValueError, match="pool_head_fwd in float32 needs"):
+            pool_head_fused(None, attn, (x,), False, False)
+
+
+@pytest.mark.parametrize("use_ln", [False, True])
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("batch,steps", [(3, 100), (2, 256)])
+def test_pool_head_fwd_bf16_takes_the_widths_of_hidden_512(dev, use_ln, n_parts, batch, steps):
+    """Kernel 7's wide bf16 class: D = 1024 (two parts of 512, a hidden-512
+    classifier) and one part of 512, K = 512, on 16 warps, with and without
+    LN, T not a multiple of its 64-row tile (100) and a whole number (256)."""
+    gen = make_generator(250 + n_parts + 2 * int(use_ln))
+    ln, attn, xs = _pool_case(gen, 512, 512, n_parts, batch, steps, dev, w_scale=0.03)
+    args = (ln if use_ln else None, attn, xs, use_ln, True)
+    before = kernels.launch_counts["pool_head_fwd"]
+    got, again = pool_head_fused(*args), pool_head_fused(*args)
+    assert kernels.launch_counts["pool_head_fwd"] == before + 2
+    want = pool_head_fused_plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda out: list(out[0]) + [out[1]]  # noqa: E731
+    for a, c in zip(flat(got), flat(want)):
+        assert bool(torch.isfinite(a).all()) and (a - c).abs().max().item() <= POOL_TOL[True]
+    assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
 
 
 @pytest.mark.parametrize("hidden", [64, 256])
@@ -793,6 +855,28 @@ def test_input_block_bwd_bf16_on_tensor_cores_matches_twin_and_repeats_bitwise(d
     torch.cuda.synchronize()
     for a, w in zip(got, want):
         assert a.shape == w.shape and _rel(a, w) <= BWD_REL_TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("channels,hidden", [(61, 512), (130, 512), (130, 256), (7, 288)])
+@pytest.mark.parametrize("batch,steps", [(5, 37), (40, 256)])
+def test_input_block_bwd_bf16_takes_kernel_9s_widths(dev, channels, hidden, batch, steps):
+    """Kernel 10's wide bf16 class (16-row tiles): H = 512 at the
+    classifier's C = 61 and at C = 130 (three channel chunks: a pass over the
+    tiles per chunk), C = 130 at H = 256 and H = 288 (not a multiple of 64),
+    on ragged rows (185) and on rows spanning more tiles than its persistent
+    grid holds (10240 rows: 640 tiles on 132 CTAs)."""
+    gen = make_generator(260 + channels + hidden)
+    proj, norm, x = _input_case(gen, hidden, dev, batch=batch, steps=steps, channels=channels)
+    dy = _randn(gen, batch, steps, hidden, dev=dev)
+    before = kernels.launch_counts["input_block_bwd"]
+    got = input_block_bwd(proj, norm, x, dy, True)
+    again = input_block_bwd(proj, norm, x, dy, True)
+    assert kernels.launch_counts["input_block_bwd"] == before + 2
+    want = input_block_bwd_plain(proj, norm, x, dy, True)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and bool(torch.isfinite(a).all()) and _rel(a, w) <= BWD_REL_TOL
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
@@ -1007,12 +1091,65 @@ def test_pool_head_fwd_f32_rejects_widths_off_its_tiles(dev):
 
 def test_input_block_bwd_rejects_widths_off_its_tiles(dev):
     gen = make_generator(140)
-    for channels, hidden, bf16 in ((65, 64, True), (61, 288, True), (61, 48, True),
+    for channels, hidden, bf16 in ((65, 48, True), (61, 544, True), (61, 48, True),
                                    (61, 48, False), (61, 544, False)):
         proj, norm, x = _input_case(gen, hidden, dev, channels=channels)
         dy = torch.zeros(*x.shape[:2], hidden, device=dev)
         with pytest.raises(ValueError):
             input_block_bwd(proj, norm, x, dy, bf16)
+
+
+# the six architecture variants of the ablation stage
+# (eegflow_torch.analyze.ablation.ABLATION_CONFIGS): (bidirectional,
+# use_attention, num_layers)
+ABLATION_VARIANTS = {"Full Model": (True, True, 3), "No Attention": (True, False, 3),
+                     "Unidirectional": (False, True, 3), "1 Layer": (True, True, 1),
+                     "2 Layers": (True, True, 2), "Minimal": (False, False, 1)}
+
+
+@pytest.mark.parametrize("hidden", [256, 512])
+@pytest.mark.parametrize("variant", list(ABLATION_VARIANTS))
+def test_ablation_variant_micro_step_matches_plain_path(dev, variant, hidden):
+    """A bf16 micro-step of each ablation variant at H = 256 and 512 (the
+    wide classes of kernels 7, 8 and 10 at 512): its launches (one LSTM
+    forward and backward a layer and direction, the pool-head pair only with
+    attention), the loss and every gradient against the plain path, and a
+    bitwise repeat."""
+    bidirectional, use_attention, num_layers = ABLATION_VARIANTS[variant]
+    cfg = ModelConfig(input_size=61, hidden_size=hidden, num_layers=num_layers, dropout=0.4,
+                      bidirectional=bidirectional, use_attention=use_attention)
+    params = classifier_init(cfg, make_generator(9), device=dev, trainable=True)
+    rng = np.random.default_rng(9)
+    x = torch.from_numpy(rng.standard_normal((6, 40, 61)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 2, 6)).to(dev)
+    masks = draw_dropout_masks(cfg, 6, 40, torch.Generator(device=dev).manual_seed(3), dev)
+    leaves = list(params.parameters())
+
+    def step(impl):
+        for q in leaves:
+            q.grad = None
+        logits = classifier_apply(params, x, cfg, compute_dtype=torch.bfloat16, lstm_impl=impl,
+                                  train=True, masks=masks)
+        loss = cross_entropy_loss(logits, y)
+        loss.backward()
+        return loss.item(), [q.grad.clone() if q.grad is not None else None for q in leaves]
+
+    kernels.reset_launch_counts()
+    loss_k, grads_k = step("kernel")
+    lstm = num_layers * (2 if bidirectional else 1)
+    want = {"input_block_fwd": 1, "input_block_bwd": 1, "lstm_fwd_train": lstm, "lstm_bwd": lstm}
+    if use_attention:
+        want.update(pool_head_fwd=1, pool_head_bwd=1)
+    assert dict(kernels.launch_counts) == want
+    loss_k2, grads_k2 = step("kernel")
+    loss_p, grads_p = step("plain")
+    assert abs(loss_k - loss_p) <= 1e-3 and loss_k == loss_k2
+    for a, a2, c in zip(grads_k, grads_k2, grads_p):
+        assert (a is None) == (c is None)
+        if a is not None:
+            assert torch.equal(a, a2)
+            if c.abs().max() > 0:
+                assert _rel(a, c) <= STEP_REL_TOL
 
 
 def test_cluster_plans_query_the_card(dev):

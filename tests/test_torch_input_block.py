@@ -12,9 +12,11 @@ import pytest
 import torch
 
 from eegflow.nn.pallas_input import input_block_fused as jax_input_block
-from eegflow_torch.nn.cuda_input import (BWD_CTAS, BWD_TILE_ROWS, FWD_CTAS, bwd_plan, fwd_plan,
-                                         input_block, input_block_bwd, input_block_bwd_plain,
-                                         input_block_fused, input_block_fused_plain)
+from eegflow_torch.nn.cuda_input import (BWD_CTAS, BWD_MAX_CHANNELS, BWD_MAX_HIDDEN,
+                                         BWD_TILE_ROWS, BWD_WIDE_TILE_ROWS, FWD_CTAS, bwd_plan,
+                                         fwd_plan, input_block, input_block_bwd,
+                                         input_block_bwd_plain, input_block_fused,
+                                         input_block_fused_plain)
 
 # forward: the same (bf16-rounded) operands and LayerNorm formula; float32
 # sums in another order, and the kernel's A&S erf (|err| <= 1.5e-7) against
@@ -126,15 +128,38 @@ def test_bwd_plan_owns_every_row_tile_once_and_sizes_the_scratch(rows, bf16):
     assert plan.part == plan.ctas * (channels * hidden + 3 * hidden)
 
 
-@pytest.mark.parametrize("channels,hidden", [(65, 256), (61, 288), (61, 48), (61, 512)])
+@pytest.mark.parametrize("channels,hidden", [(65, 48), (61, 544), (130, 1024), (61, 0)])
 def test_bwd_plan_rejects_widths_off_the_bf16_tiles(channels, hidden):
-    with pytest.raises(ValueError, match="input_block_bwd under bf16 needs C <= 64"):
+    """Both modes take any C and H % 32 == 0, 0 < H <= 512 (kernel 9's
+    widths), and raise for any other H."""
+    with pytest.raises(ValueError, match="input_block_bwd under bf16 needs H % 32 == 0 and "
+                                         "H <= 512"):
         bwd_plan(185, channels, hidden, True)
-    if hidden % 32 == 0:
-        bwd_plan(185, channels, hidden, False)  # the float32 mode takes them
-    else:
-        with pytest.raises(ValueError, match="input_block_bwd in float32 needs H % 32 == 0"):
-            bwd_plan(185, channels, hidden, False)
+    with pytest.raises(ValueError, match="input_block_bwd in float32 needs H % 32 == 0"):
+        bwd_plan(185, channels, hidden, False)
+
+
+@pytest.mark.parametrize("channels,hidden", [(65, 256), (61, 288), (61, 512), (130, 512),
+                                             (130, 288), (7, 512), (64, 256), (130, 32)])
+@pytest.mark.parametrize("rows", [185, 8449, 131072])
+def test_bwd_plan_bf16_takes_kernel_9s_widths_on_their_tiles(rows, channels, hidden):
+    """The bf16 mode's wide class: beyond C = 64 or H = 256 (the widths the
+    64-row tiles take) it runs 16-row tiles, each row tile owned once by a
+    CTA that owns at least one, one partial row a CTA; C <= 64 and H <= 256
+    keep the 64-row tiles."""
+    plan = bwd_plan(rows, channels, hidden, True)
+    narrow = channels <= BWD_MAX_CHANNELS and hidden <= BWD_MAX_HIDDEN
+    assert plan.tile_rows == (BWD_TILE_ROWS if narrow else BWD_WIDE_TILE_ROWS)
+    assert plan.ctas == min(BWD_CTAS, -(-rows // plan.tile_rows))
+    assert plan.part == plan.ctas * (channels + 3) * hidden
+    owned = np.zeros(rows, np.int64)
+    for cta in range(plan.ctas):
+        tiles = plan.tiles_of(cta, rows)
+        assert tiles
+        for row0, n in tiles:
+            assert row0 % plan.tile_rows == 0 and 0 < n <= plan.tile_rows
+            owned[row0:row0 + n] += 1
+    assert (owned == 1).all()
 
 
 @pytest.mark.parametrize("channels", [7, 61, 130])

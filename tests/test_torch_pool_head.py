@@ -105,21 +105,23 @@ def test_attention_pool_twin_matches_pallas(batch):
     assert torch.equal(w_ctx, ctx) and torch.equal(w_s, scores)
 
 
-@pytest.mark.parametrize("hidden", [32, 64, 128, 160, 256])
+@pytest.mark.parametrize("hidden", [32, 64, 128, 160, 256, 288, 512])
 def test_bf16_width_rule_takes_the_classifiers_widths(hidden):
     """The bf16 modes of kernels 7 and 8 share one width rule; it takes the
-    classifier's D = 2H and K = H for every H <= 256 that is a multiple of
-    32, and the widths of the card tests (D = 64, K = 96)."""
+    classifier's D = 2H and K = H for every H <= 512 that is a multiple of
+    32, and the widths of the card tests (D = 64, K = 96; one part of 512
+    with K = 512)."""
     for name in ("pool_head_fwd", "pool_head_bwd"):
         check_bf16_widths(name, 2 * hidden, hidden)
     check_bf16_widths("pool_head_fwd", 64, 96)
-    check_bf16_widths("pool_head_fwd", 512, 256)
+    check_bf16_widths("pool_head_fwd", 512, 512)
+    check_bf16_widths("pool_head_bwd", 1024, 512)
 
 
-@pytest.mark.parametrize("d,k", [(40, 64), (544, 256), (512, 288), (512, 48), (48, 32)])
+@pytest.mark.parametrize("d,k", [(40, 64), (1056, 256), (512, 544), (512, 48), (48, 32)])
 def test_bf16_width_rule_rejects_widths_off_its_tiles(d, k):
-    with pytest.raises(ValueError, match=rf"pool_head_fwd under bf16 needs D <= 512 and K "
-                                         rf"<= 256, both multiples of 32; got D={d}, K={k}"):
+    with pytest.raises(ValueError, match=rf"pool_head_fwd under bf16 needs D <= 1024 and K "
+                                         rf"<= 512, both multiples of 32; got D={d}, K={k}"):
         check_bf16_widths("pool_head_fwd", d, k)
 
 
