@@ -135,14 +135,31 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      tolerances) and a bitwise repeat; kernels 7, 8 and 10 in their wide bf16
      classes (D = 1024, K = 512; C = 61, H = 512) at B=512 held to their
      twins and bitwise repeats and timed beside them.
+ 20. the EEGFormer and the snapshots on phase 17's processed set: `train --model
+     transformer --epochs 1` as a CLI call (1 input_block_fwd, 1 input_block_bwd,
+     1 pool_head_fwd and 1 pool_head_bwd a micro-step, 1 input_block_fwd and
+     1 pool_head_fwd an eval batch, no LSTM kernel), `serve` of its checkpoint
+     in its own process (one /predict batch against the plain path),
+     `explain --skip-shap` on it (launches exact); one B=512 micro-step of
+     TransformerConfig() (4 layers, D=256) under bf16 against the plain path
+     (a bitwise repeat, timed, its device time by kernel and the GEMMs' share)
+     and under float32; evals at B=1,024 (against the plain path) and 10,000
+     (us a window, peak memory); kernels 9, 10, 7 and 8 in both modes at the
+     transformer's shapes (one part of 256, K=128) against their twins; a run
+     of the flagship (bf16 "fused") and of the transformer, 2 epochs on 2,048
+     windows, interrupted after epoch 1 and resumed from its snapshot, against
+     the uninterrupted run (train_state.msgpack byte for byte).
 The line before the last lists the kernels as JSON, each with its time, its
 twin's, its bound on an H100 (bytes over 3.35 TB/s or products over the
 dtype's peak, whichever is larger), the library call's time where there is
-one and its launches in phase 18 (analysis_launches) and phase 19
-(ablate_launches); the wide bf16 classes' entries count their launches in
-the hidden-512 ablate run; the last line is {"ok": true, "device": {...}}.
+one and its launches in phase 18 (analysis_launches), phase 19
+(ablate_launches) and phase 20's train and explain stages
+(transformer_launches); the wide bf16 classes' entries count their launches
+in the hidden-512 ablate run, the one-part pool head's in phase 20; the last
+line is {"ok": true, "device": {...}}.
 """
 
+import contextlib
 import json
 import math
 import re
@@ -277,6 +294,11 @@ ABLATE_VARIANTS = {"Full Model": (True, True, 3), "No Attention": (True, False, 
                    "Unidirectional": (False, True, 3), "1 Layer": (True, True, 1),
                    "2 Layers": (True, True, 2), "Minimal": (False, False, 1)}
 ABLATE_WIDE_H, ABLATE_WIDE_EPOCHS = 512, 1
+# phase 20: the EEGFormer's large eval batch (a KernelSHAP evaluation's size);
+# gradients zero by symmetry (the attention's key biases), rounding noise on
+# both paths (measured ~1e-11)
+TF_EVAL_BIG = 10_000
+ZERO_GRAD_TOL = 1e-7
 # the columns the reference exports (eegflow/analyze/export.py)
 SAMPLE_COLUMNS = ["Sample_ID", "Prob_EyesOpen", "Prob_Drowsy", "Prob_EyesClosed", "LSTM_P_Open",
                   "LSTM_P_Closed", "Predicted_State", "Ground_Truth"]
@@ -565,6 +587,39 @@ def apf_at_the_fit(dev, props, smi):
     return m["kernel"], m["plain"], err, work, chain
 
 
+@contextlib.contextmanager
+def serve_process(out_dir, dev, config=None):
+    """``serve --port 0`` on ``out_dir`` (with ``--config config``) in its own
+    process, as a user starts it -> its (host, port), read from its first
+    lines; the process is stopped on the way out."""
+    cmd = [sys.executable, "-m", "eegflow_torch.cli.main", "--output-dir", str(out_dir)]
+    cmd += ["--config", str(config)] if config else []
+    cmd += ["serve", "--port", "0", "--device", dev.type]
+    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True, cwd=str(Path(__file__).resolve().parent))
+    try:
+        lines = []
+        reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
+        reader.start()
+        deadline = time.time() + 600
+        addr = None
+        while addr is None and time.time() < deadline and proc.poll() is None:
+            for line in list(lines):
+                found = re.search(r"http://([\d.]+):(\d+)", line)
+                if found:
+                    addr = (found.group(1), int(found.group(2)))
+            time.sleep(0.2)
+        require(addr is not None, f"serve printed its address: {''.join(lines)[-2000:]}")
+        yield addr
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait(timeout=60)
+
+
 def pipeline_phase(dev, smi, tmp):
     """Phase 17: synth -> preprocess -> train -> fit-ode -> serve --config,
     every step a CLI call on the card in the directory ``tmp``, nothing
@@ -629,24 +684,8 @@ def pipeline_phase(dev, smi, tmp):
     # serve --config in its own process, as a user starts it
     coupling = {"coupling_strength": 0.8, "forecast_steps": 30}
     (tmp / "serve.json").write_text(json.dumps({"coupling": coupling}))
-    cmd = [sys.executable, "-m", "eegflow_torch.cli.main", "--output-dir", str(tmp / "out"),
-           "--config", str(tmp / "serve.json"), "serve", "--port", "0", "--device", dev.type]
     t0 = time.perf_counter()
-    proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True, cwd=str(Path(__file__).resolve().parent))
-    try:
-        lines = []
-        reader = threading.Thread(target=lambda: lines.extend(proc.stdout), daemon=True)
-        reader.start()
-        deadline = time.time() + 600
-        addr = None
-        while addr is None and time.time() < deadline and proc.poll() is None:
-            for line in list(lines):
-                found = re.search(r"http://([\d.]+):(\d+)", line)
-                if found:
-                    addr = (found.group(1), int(found.group(2)))
-            time.sleep(0.2)
-        require(addr is not None, f"serve printed its address: {''.join(lines)[-2000:]}")
+    with serve_process(tmp / "out", dev, tmp / "serve.json") as addr:
         x_test = arrays["X_test"]
         picks = [x_test[:1], x_test[1:6], x_test[6:23]]
         served = []
@@ -659,13 +698,6 @@ def pipeline_phase(dev, smi, tmp):
         times["serve"] = time.perf_counter() - t0
         require(status == 200 and health["model"]["coupling_strength"] == 0.8,
                 "/health reports the config's coupling")
-    finally:
-        proc.send_signal(signal.SIGINT)
-        try:
-            proc.wait(timeout=60)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait(timeout=60)
     model = load_coupled_model(tmp / "out", dev, CouplingConfig(**coupling))
     default = load_coupled_model(tmp / "out", dev)
     err, moved = 0.0, 0.0
@@ -1270,6 +1302,340 @@ def ablation_phase(dev, smi, out_dir):
         bound_ms, bound_by = bound(*out["work"][name])
         print(f"{name} B={B_TRAIN} T={T} H={hw}: kernel {m['kernel']:.3f} ms, plain "
               f"{m['plain']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) [{smi}]", flush=True)
+    return out
+
+
+def transformer_phase(dev, smi, out_dir):
+    """Phase 20: the EEGFormer and the snapshots on phase 17's processed set
+    under ``out_dir``. ``train --model transformer --epochs 1`` as a CLI call
+    (launches per micro-step and per eval batch), ``serve`` of its
+    checkpoint in its own process (one /predict batch against the plain
+    path), ``explain --skip-shap`` on it; one B=512 micro-step of
+    ``TransformerConfig()`` under bf16 (kernel against plain path, a bitwise
+    repeat, timed, its device time by kernel) and under float32; evals at
+    B = 1,024 and 10,000; kernels 9, 10, 7 and 8 at the transformer's shapes
+    against their twins; an interrupted and resumed run of the flagship and
+    of the transformer against the uninterrupted one. -> launches, errors,
+    times and work of the one-part pool head."""
+    import shutil
+    from collections import Counter
+
+    from eegflow_torch import kernels
+    from eegflow_torch.cli.main import load_coupled_model, load_splits
+    from eegflow_torch.cli.main import main as cli_main
+    from eegflow_torch.core.artifacts import load_checkpoint, load_results, msgpack_unpack
+    from eegflow_torch.core.config import ModelConfig, TrainConfig, TransformerConfig
+    from eegflow_torch.core.prng import make_generator
+    from eegflow_torch.couple.rollout import predict_batch
+    from eegflow_torch.nn.cuda_attention import (pool_head_bwd, pool_head_bwd_plain,
+                                                 pool_head_fused, pool_head_fused_plain)
+    from eegflow_torch.nn.cuda_input import (input_block_bwd, input_block_bwd_plain,
+                                             input_block_fused, input_block_fused_plain)
+    from eegflow_torch.nn.losses import cross_entropy_loss
+    from eegflow_torch.nn.model import (classifier_apply, classifier_init, draw_dropout_masks,
+                                        model_flops_per_window)
+    from eegflow_torch.train import loop, steps
+    from eegflow_torch.train.steps import make_eval_step
+
+    out = {"launches": Counter(), "err": {}, "ms": {}, "work": {}}
+    per_step = Counter({"input_block_fwd": 1, "input_block_bwd": 1, "pool_head_fwd": 1,
+                        "pool_head_bwd": 1})
+    per_eval = Counter({"input_block_fwd": 1, "pool_head_fwd": 1})
+    tf_dir = out_dir.parent / "transformer"
+    (tf_dir / "results").mkdir(parents=True)
+    (tf_dir / "processed_data").symlink_to(out_dir / "processed_data")
+    shutil.copy(out_dir / "results" / "ode_results.json", tf_dir / "results")
+
+    # the train stage, each micro-step's and eval batch's launches read around it
+    records = {"step": [], "eval": []}
+
+    def counted(kind, make):
+        def factory(*args, **kw):
+            fn = make(*args, **kw)
+
+            def call(*a, **k):
+                before = Counter(kernels.launch_counts)
+                res = fn(*a, **k)
+                records[kind].append(Counter(kernels.launch_counts) - before)
+                return res
+            return call
+        return factory
+
+    made = (loop.make_train_step, loop.make_eval_step, steps.make_eval_step)
+    loop.make_train_step = counted("step", made[0])
+    loop.make_eval_step = steps.make_eval_step = counted("eval", made[1])
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        rc = cli_main(["--output-dir", str(tf_dir), "train", "--model", "transformer",
+                       "--epochs", "1", "--device", dev.type])
+    finally:
+        loop.make_train_step, loop.make_eval_step, steps.make_eval_step = made
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    counts = Counter(kernels.launch_counts)
+    out["launches"].update(counts)
+    _, tf_cfg, hist, extra = load_checkpoint(tf_dir / "models" / "lstm_attention")
+    results = load_results(tf_dir / "results" / "lstm_results.json")
+    n_steps, n_evals = len(records["step"]), len(records["eval"])
+    ok = (rc == 0 and isinstance(tf_cfg, TransformerConfig) and tf_cfg.num_layers == 3
+          and tf_cfg.resolved_d_model() == H and n_steps > 0 and n_evals > 0
+          and all(r == per_step for r in records["step"])
+          and all(r == per_eval for r in records["eval"])
+          and counts == Counter({k: v * n_steps for k, v in per_step.items()})
+          + Counter({k: v * n_evals for k, v in per_eval.items()})
+          and all(math.isfinite(v) for v in hist["train_loss"] + hist["val_loss"]))
+    print(f"transformer train --model transformer --epochs 1: {train_s:.1f} s, {n_steps} "
+          f"micro-steps of {B_TRAIN} ({extra['windows_per_sec']:.1f} windows/s), {n_evals} eval "
+          f"batches; launches {dict(counts)}: {dict(per_step)} a micro-step and "
+          f"{dict(per_eval)} an eval batch, no LSTM kernel: {ok}; {tf_cfg}; train_loss "
+          f"{hist['train_loss']}, val_f1 {hist['val_f1']}, test accuracy "
+          f"{results['accuracy']:.4f} [{smi}]", flush=True)
+    require(ok, "train --model transformer: its checkpoint and its launches")
+
+    # serve the transformer's checkpoint in its own process: one /predict batch
+    arrays, _ = load_splits(out_dir)
+    x_test = arrays["X_test"]
+    t0 = time.perf_counter()
+    with serve_process(tf_dir, dev) as addr:
+        status, body = request(addr, "POST", "/predict", {"windows": x_test[:17].tolist()})
+    serve_s = time.perf_counter() - t0
+    require(status == 200, f"/predict on the transformer -> {status}")
+    model = load_coupled_model(tf_dir, dev)
+    want = predict_batch(model, x_test[:17], batch_size=BUCKET, lstm_impl="plain")
+    err = max(float(np.abs(np.asarray(body[k]) - want[k]).max()) for k in ("probs", "final_state"))
+    print(f"transformer serve, own process: {serve_s:.1f} s to start and answer /predict of 17 "
+          f"windows; probs and final states vs the plain path max abs diff {err:.3e} (tol "
+          f"{PROBS_TOL:g})", flush=True)
+    require(err <= PROBS_TOL, "served transformer probabilities agree with the plain path")
+
+    # explain --skip-shap: the input gradients (one backward) and the permutation
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(["--output-dir", str(tf_dir), "explain", "--skip-shap", "--device", dev.type])
+    torch.cuda.synchronize()
+    explain_s = time.perf_counter() - t0
+    counts = Counter(kernels.launch_counts)
+    out["launches"].update(counts)
+    summary = load_results(tf_dir / "results" / "explainability_summary.json")
+    evals = 2 + 1 + C  # gradient: prediction and differentiable forward; permutation
+    want_counts = Counter({"input_block_fwd": evals, "pool_head_fwd": evals,
+                           "input_block_bwd": 1, "pool_head_bwd": 1})
+    ok = rc == 0 and counts == want_counts and len(summary["top_channels"]) > 0
+    print(f"transformer explain --skip-shap: {explain_s:.1f} s, launches {dict(counts)} (want "
+          f"{dict(want_counts)}): {ok}; top channels {summary['top_channels']}", flush=True)
+    require(ok, "explain on the transformer's checkpoint")
+
+    # one micro-step of TransformerConfig() at full width, kernel path against plain path
+    cfg = TransformerConfig()
+    require(cfg.resolved_d_model() == H and cfg.input_size == C and cfg.num_layers == 4,
+            "full-width TransformerConfig defaults")
+    flops = model_flops_per_window(cfg, T)
+    params = classifier_init(cfg, make_generator(SEED + 20), device=dev, trainable=True)
+    rng = np.random.default_rng(SEED + 20)
+    x, y = synthetic_split(rng, B_TRAIN, T, C)
+    x, y = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    masks = draw_dropout_masks(cfg, B_TRAIN, T, torch.Generator(device=dev).manual_seed(20), dev)
+    names, leaves = zip(*params.named_parameters())
+    # the key biases' gradients are zero by symmetry (softmax over the keys
+    # ignores them): rounding noise on both paths, held absolutely
+    symmetric = [n.endswith("mha.key.b") for n in names]
+
+    def step(impl, compute_dtype=torch.bfloat16):
+        for q in leaves:
+            q.grad = None
+        logits = classifier_apply(params, x, cfg, compute_dtype=compute_dtype, lstm_impl=impl,
+                                  train=True, masks=masks)
+        loss = cross_entropy_loss(logits, y)
+        loss.backward()
+        return loss.detach(), [q.grad.clone() if q.grad is not None else torch.zeros_like(q)
+                               for q in leaves]
+
+    for policy, dtype, loss_tol, grad_tol in (("bf16", torch.bfloat16, STEP_LOSS_TOL,
+                                               STEP_GRAD_REL_TOL),
+                                              ("float32", None, STEP32_LOSS_TOL,
+                                               STEP32_GRAD_REL_TOL)):
+        torch.cuda.reset_peak_memory_stats(dev)
+        held = torch.cuda.memory_allocated(dev) / 2 ** 30
+        kernels.reset_launch_counts()
+        loss_k, grads_k = step("kernel", dtype)
+        launched = Counter(kernels.launch_counts)
+        loss_k2, grads_k2 = step("kernel", dtype)
+        loss_p, grads_p = step("plain", dtype)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+        loss_diff = abs(loss_k.item() - loss_p.item())
+        grad_rel = max(rel_err(a, b) for a, b, sym in zip(grads_k, grads_p, symmetric)
+                       if b.abs().max() > 0 and not sym)
+        noise = max(max(a.abs().max().item(), b.abs().max().item())
+                    for a, b, sym in zip(grads_k, grads_p, symmetric) if sym)
+        bitwise = torch.equal(loss_k, loss_k2) and all(torch.equal(a, b)
+                                                       for a, b in zip(grads_k, grads_k2))
+        print(f"transformer micro-step {policy} B={B_TRAIN} T={T} D={H} 4 layers: loss kernel "
+              f"{loss_k.item():.6f} plain {loss_p.item():.6f} (diff {loss_diff:.3e}, tol "
+              f"{loss_tol:g}); gradients max rel diff {grad_rel:.3e} over {len(leaves)} leaves "
+              f"(tol {grad_tol:g}), the key biases' {noise:.3e} (tol {ZERO_GRAD_TOL:g}); second "
+              f"kernel run bitwise identical: {bitwise}; launches {dict(launched)}; peak "
+              f"{peak:.2f} GiB ({held:.2f} GiB allocated before)", flush=True)
+        require(math.isfinite(loss_k.item()) and loss_diff <= loss_tol and grad_rel <= grad_tol
+                and noise <= ZERO_GRAD_TOL and bitwise and launched == per_step,
+                f"transformer {policy} micro-step: kernel path within tolerance of the plain "
+                "path, bitwise repeatable, one launch of each kernel")
+        del grads_k, grads_k2, grads_p
+        if policy == "bf16":
+            m = median_ms({"plain": lambda: step("plain"), "kernel": lambda: step("kernel")})
+            out["step_ms"] = m["kernel"]
+            print(f"transformer micro-step bf16 B={B_TRAIN}: kernel median {m['kernel']:.3f} ms "
+                  f"({B_TRAIN / m['kernel'] * 1e3:.1f} windows/s), plain {m['plain']:.3f} ms; "
+                  f"{flops / 1e9:.4f} GFLOP a window forward, {3 * flops * B_TRAIN / 1e12:.4f} "
+                  f"TFLOP a step, {3 * flops * B_TRAIN / m['kernel'] / 1e9:.2f} TFLOP/s achieved "
+                  f"[{smi}]", flush=True)
+            # device time by kernel of one step (torch.profiler): the products' share
+            step("kernel")
+            torch.cuda.synchronize()
+            with torch.profiler.profile(
+                    activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+                step("kernel")
+                torch.cuda.synchronize()
+            by_kernel = sorted(((e.device_time_total / 1e3, e.count, e.key)
+                                for e in prof.key_averages() if e.device_time_total > 0),
+                               reverse=True)
+            total = sum(t for t, _, _ in by_kernel)
+            gemm = sum(t for t, _, k in by_kernel if re.search(r"gemm|xmma|cutlass", k, re.I))
+            print(f"transformer micro-step bf16 device time {total:.3f} ms, GEMM kernels "
+                  f"{gemm:.3f} ms ({100 * gemm / max(total, 1e-9):.1f} %); top: "
+                  + "; ".join(f"{k[:60]} {t:.3f} ms ({n})" for t, n, k in by_kernel[:8]),
+                  flush=True)
+
+    # evals at B = 1,024 and 10,000 (no gradients: kernels 9 and 7 once each)
+    evaluate = make_eval_step(cfg, bf16=True)
+    evaluate_plain = make_eval_step(cfg, bf16=True, lstm_impl="plain")
+    x_eval = torch.from_numpy(np.resize(x_test, (TF_EVAL_BIG,) + x_test.shape[1:])).to(dev)
+    kernels.reset_launch_counts()
+    probs = evaluate(params, x_eval[:BUCKET])
+    launched = Counter(kernels.launch_counts)
+    err = (probs - evaluate_plain(params, x_eval[:BUCKET])).abs().max().item()
+    m = median_ms({"plain": lambda: evaluate_plain(params, x_eval[:BUCKET]),
+                   "kernel": lambda: evaluate(params, x_eval[:BUCKET])})
+    print(f"transformer eval B={BUCKET}: kernel {m['kernel']:.3f} ms a batch "
+          f"({m['kernel'] / BUCKET * 1e3:.3f} us a window), plain {m['plain']:.3f} ms; probs vs "
+          f"plain max abs diff {err:.3e} (tol {PROBS_TOL:g}); launches {dict(launched)} "
+          f"[{smi}]", flush=True)
+    require(err <= PROBS_TOL and launched == per_eval, "transformer eval at 1,024")
+    evaluate(params, x_eval)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    held = torch.cuda.memory_allocated(dev) / 2 ** 30
+    big_ms = cuda_ms(lambda: evaluate(params, x_eval), 1)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    big = evaluate(params, x_eval)
+    require(bool(torch.isfinite(big).all()) and big.shape == (TF_EVAL_BIG, 2),
+            "transformer eval at the large batch finite")
+    print(f"transformer eval B={TF_EVAL_BIG}: {big_ms:.3f} ms, "
+          f"{big_ms / TF_EVAL_BIG * 1e3:.3f} us a window; "
+          f"peak {peak:.2f} GiB ({held:.2f} GiB allocated before) [{smi}]", flush=True)
+
+    # kernels 9, 10, 7 and 8 at the transformer's shapes against their twins
+    gen = torch.Generator(device="cpu").manual_seed(SEED + 200)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    k = H // 2
+    with torch.no_grad():
+        h = torch.tanh(randn(B_TRAIN, T, H))
+        h_eval = torch.tanh(randn(BUCKET, T, H))
+    for bf16 in (True, False):
+        mode = "bf16" if bf16 else "float32"
+        iargs = (params["input_proj"], params["input_norm"], x, randn(B_TRAIN, T, H), bf16)
+        fargs = (params["final_norm"], params["attention"], (h,), True, bf16)
+        eargs = (params["final_norm"], params["attention"], (h_eval,), True, bf16)
+        bargs = (params["final_norm"], params["attention"], (h,),
+                 torch.softmax(randn(B_TRAIN, T), dim=-1), 0.01 * randn(B_TRAIN, T),
+                 (0.1 * randn(B_TRAIN, H),), 0.1 * randn(B_TRAIN), True, bf16)
+        flat_head = lambda o: list(o[0]) + [o[1]]  # noqa: E731
+        flat_bwd = lambda o: list(o[0]) + [t for t in o[1:] if t is not None]  # noqa: E731
+        pool_tol = POOL_TOL if bf16 else POOL32_TOL
+        in_shape, pool_shape = f"C={C} H={H}", f"one part D={H} K={k}"
+        for name, batch, shape, kfn, pfn, args, flat, tol, relative in (
+                (f"input_block_fwd {mode}", B_TRAIN, in_shape, input_block_fused,
+                 input_block_fused_plain, iargs[:3] + iargs[4:], lambda o: [o], INPUT_TOL,
+                 False),
+                (f"input_block_bwd {mode}", B_TRAIN, in_shape, input_block_bwd,
+                 input_block_bwd_plain, iargs, list, INPUT_BWD_REL_TOL[bf16], True),
+                (f"pool_head_fwd one part {mode}", B_TRAIN, pool_shape, pool_head_fused,
+                 pool_head_fused_plain, fargs, flat_head, pool_tol, False),
+                (f"pool_head_fwd one part {mode} eval", BUCKET, pool_shape, pool_head_fused,
+                 pool_head_fused_plain, eargs, flat_head, pool_tol, False),
+                (f"pool_head_bwd one part {mode}", B_TRAIN, pool_shape, pool_head_bwd,
+                 pool_head_bwd_plain, bargs, flat_bwd, POOL_BWD_REL_TOL, True)):
+            out["err"][name] = hold_at_main_shape(
+                f"transformer {name} B={batch} T={T} {shape}", flat(kfn(*args)),
+                flat(kfn(*args)), flat(pfn(*args)), tol, relative)
+            if name in ("pool_head_fwd one part bf16", "pool_head_bwd one part bf16"):
+                head_flops = 2 * B_TRAIN * T * H * k
+                out["work"][name] = (nbytes(args, kfn(*args)),
+                                     head_flops * (3 if "bwd" in name else 1), "bf16")
+                t = median_ms({"plain": lambda: pfn(*args), "kernel": lambda: kfn(*args)},
+                              rounds=1)
+                out["ms"][name] = (t["kernel"], t["plain"])
+                bound_ms, bound_by = bound(*out["work"][name])
+                print(f"transformer {name} B={B_TRAIN} T={T} {pool_shape}: kernel "
+                      f"{t['kernel']:.3f} ms, plain {t['plain']:.3f} ms, bound {bound_ms:.3f} "
+                      f"ms ({bound_by}) [{smi}]", flush=True)
+    del params, masks, names, leaves, x_eval, big, h, h_eval
+
+    # an interrupted and resumed run against the uninterrupted one, per family:
+    # 2 epochs on 2,048 training windows, accumulation 3 (an epoch ends between
+    # updates), a snapshot every epoch
+    class Interrupted(Exception):
+        pass
+
+    def stop_at_epoch_1(xd, epoch):
+        if epoch == 1:
+            raise Interrupted
+        return xd
+
+    train = TrainConfig(epochs=2, accumulation_steps=3)
+    data = (arrays["X_train"][:N_TRAIN_WINDOWS], arrays["y_train"][:N_TRAIN_WINDOWS],
+            arrays["X_val"], arrays["y_val"])
+    for family, family_cfg in (("flagship", ModelConfig()), ("transformer", cfg)):
+        snaps = out_dir.parent / f"snapshots_{family}"
+        t0 = time.perf_counter()
+        full = loop.train_classifier(*data, family_cfg, train, device=dev, verbose=False,
+                                     checkpoint_dir=snaps / "full", checkpoint_every=1)
+        try:
+            loop.train_classifier(*data, family_cfg, train, device=dev, verbose=False,
+                                  checkpoint_dir=snaps / "cut", checkpoint_every=1,
+                                  epoch_transform=stop_at_epoch_1)
+            require(False, f"{family}: the run stops at epoch 1")
+        except Interrupted:
+            pass
+        resumed = loop.train_classifier(*data, family_cfg, train, device=dev, verbose=False,
+                                        checkpoint_dir=snaps / "resumed", checkpoint_every=1,
+                                        resume_from=snaps / "cut")
+        torch.cuda.synchronize()
+        a = (snaps / "full" / "train_state.msgpack").read_bytes()
+        b = (snaps / "resumed" / "train_state.msgpack").read_bytes()
+        bitwise = a == b and resumed.history["train_loss"] == full.history["train_loss"]
+        diff = 0.0
+        if not bitwise:
+            sa, sb = msgpack_unpack(a), msgpack_unpack(b)
+
+            def leaves_of(tree):
+                if isinstance(tree, dict):
+                    return [v for key in sorted(tree) for v in leaves_of(tree[key])]
+                return [np.asarray(tree, np.float64)]
+            diff = max(float(np.abs(u - v).max() / max(np.abs(v).max(), 1e-30))
+                       for u, v in zip(leaves_of(sa), leaves_of(sb)) if v.size)
+        print(f"resume {family} on the card: 2 epochs of {len(data[1]) // B_TRAIN} micro-steps, "
+              f"interrupted after epoch 1 and resumed, {time.perf_counter() - t0:.1f} s for the "
+              f"three runs; train_state.msgpack ({len(a)} bytes) and train_loss "
+              f"{full.history['train_loss']} equal to the uninterrupted run's bit for bit: "
+              f"{bitwise}" + ("" if bitwise else f"; largest relative difference {diff:.3e}"),
+              flush=True)
+        require(bitwise or (family == "transformer" and diff <= STEP_GRAD_REL_TOL),
+                f"{family}: the resumed run ends with the uninterrupted run's train state")
     return out
 
 
@@ -2301,11 +2667,17 @@ def main() -> int:
         abl = ablation_phase(dev, smi, Path(tmp) / "out")
         print(f"phase 19 (the ablate stage): {time.perf_counter() - t_ablation:.1f} s",
               flush=True)
+        t_transformer = time.perf_counter()
+        tf = transformer_phase(dev, smi, Path(tmp) / "out")
+        print(f"phase 20 (the EEGFormer and the snapshots): "
+              f"{time.perf_counter() - t_transformer:.1f} s", flush=True)
     work.update(abl["work"])
+    work.update(tf["work"])
     apf_ms, apf_plain_ms, apf_err, work["apf_rk4"], apf_chain = apf_at_the_fit(
         dev, pipe["fit_props"], smi)
     work["sos_filtfilt"] = checks["sos_work"]
-    print(f"phases 16-19 (kernels 11 and 12, the pipeline, the analysis and ablate stages): "
+    print(f"phases 16-20 (kernels 11 and 12, the pipeline, the analysis and ablate stages, "
+          f"the EEGFormer and the snapshots): "
           f"{time.perf_counter() - t_new:.1f} s",
           flush=True)
 
@@ -2354,7 +2726,8 @@ def main() -> int:
                 "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
                 "library_ms": library_ms.get(name),
                 "analysis_launches": analysis["launches"].get(name, 0),
-                "ablate_launches": abl["launches"].get(name, 0), **extra}
+                "ablate_launches": abl["launches"].get(name, 0),
+                "transformer_launches": tf["launches"].get(name, 0), **extra}
 
     print(json.dumps({"kernels": [
         entry("lstm_fwd", "lstm_fwd.cu", "eegflow/nn/pallas_lstm.py:430",
@@ -2400,6 +2773,18 @@ def main() -> int:
         entry("input_block_bwd bf16 wide", "input_block.cu", "eegflow/nn/pallas_input.py:117",
               abl["wide"]["input_block_bwd"], abl["err"]["input_block_bwd bf16 wide"],
               *abl["ms"]["input_block_bwd bf16 wide"]),
+        # the EEGFormer's one-part pool head (phase 20): launches in its train and explain
+        # stages
+        entry("pool_head_fwd one part bf16", "pool_head_fwd.cu",
+              "eegflow/nn/pallas_attention.py:155", tf["launches"]["pool_head_fwd"],
+              tf["err"]["pool_head_fwd one part bf16"],
+              *tf["ms"]["pool_head_fwd one part bf16"],
+              transformer_launches=tf["launches"]["pool_head_fwd"]),
+        entry("pool_head_bwd one part bf16", "pool_head_bwd.cu",
+              "eegflow/nn/pallas_attention.py:221", tf["launches"]["pool_head_bwd"],
+              tf["err"]["pool_head_bwd one part bf16"],
+              *tf["ms"]["pool_head_bwd one part bf16"],
+              transformer_launches=tf["launches"]["pool_head_bwd"]),
         entry("pool_head_fwd float32", "pool_head_fwd.cu", "eegflow/nn/pallas_attention.py:155",
               f32_counts.get("pool_head_fwd", 0), pool_err32,
               *train_ms["pool_head_fwd float32"]),

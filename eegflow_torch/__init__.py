@@ -10,6 +10,6 @@ Kernels (``eegflow_torch/csrc``) build with ``nvcc`` on first use and bind
 through ``ctypes`` (:mod:`eegflow_torch.kernels`).
 """
 
-from eegflow_torch.core.config import CouplingConfig, ModelConfig, TrainConfig
+from eegflow_torch.core.config import CouplingConfig, ModelConfig, TrainConfig, TransformerConfig
 
-__all__ = ["CouplingConfig", "ModelConfig", "TrainConfig"]
+__all__ = ["CouplingConfig", "ModelConfig", "TrainConfig", "TransformerConfig"]

@@ -5,7 +5,7 @@ served model, its analyses and its exports on the card:
 
     python -m eegflow_torch.cli.main --data-dir data/synth synth --subjects 12 --duration 120
     python -m eegflow_torch.cli.main --data-dir data/synth --output-dir outputs preprocess
-    python -m eegflow_torch.cli.main --output-dir outputs train
+    python -m eegflow_torch.cli.main --output-dir outputs train [--model transformer]
     python -m eegflow_torch.cli.main --output-dir outputs fit-ode
     python -m eegflow_torch.cli.main --output-dir outputs integrate
     python -m eegflow_torch.cli.main --output-dir outputs explain [--skip-shap]
@@ -18,8 +18,10 @@ served model, its analyses and its exports on the card:
 (host numpy; byte for byte the JAX package's). ``preprocess`` discovers and
 splits the recordings, filters, z-scores and windows them on the device and
 writes ``processed_data/processed_sequences.npz`` and its metadata.
-``train`` reads that archive, trains the BiLSTM-attention classifier,
-evaluates it on the test split with attention and writes
+``train`` reads that archive, trains the BiLSTM-attention classifier (or,
+with ``--model transformer``, the EEGFormer: ``d_model`` the model
+section's ``hidden_size``, its layers, heads and dropout), evaluates it on
+the test split with attention and writes
 ``models/lstm_attention`` (``checkpoint.json`` + ``params.msgpack``),
 ``results/lstm_results.json`` and ``models/attention_weights.npy``.
 ``fit-ode`` maps the train and test eye states to cognitive-state
@@ -41,7 +43,8 @@ unless ``--epochs``), compares each with the full model and writes
 when ``integrate`` wrote one) and ``results_tables.txt``. ``serve`` loads
 the checkpoint and the fitted rates and serves the coupled model over
 HTTP. Every artifact is the JAX package's format, so either package reads
-what the other writes.
+what the other writes; the stages after ``train`` take a checkpoint of
+either model family.
 
 ``--config`` reads a ``PipelineConfig`` JSON (defaults for what it leaves
 out); each stage reads its sections as the JAX package's does (``serve``:
@@ -70,7 +73,8 @@ import torch
 from eegflow_torch.convert import params_from_jax
 from eegflow_torch.core.artifacts import (load_checkpoint, load_processed, load_results,
                                           save_checkpoint, save_processed, save_results)
-from eegflow_torch.core.config import CouplingConfig, PipelineConfig, TrainConfig
+from eegflow_torch.core.config import (CouplingConfig, PipelineConfig, TrainConfig,
+                                       TransformerConfig)
 from eegflow_torch.couple.rollout import CoupledModel
 from eegflow_torch.ode.field import rates_to_array
 
@@ -160,6 +164,14 @@ def cmd_train(args) -> None:
     if args.epochs:
         train_cfg = dataclasses.replace(train_cfg, epochs=args.epochs)
     model_cfg = dataclasses.replace(model_cfg, input_size=x_train.shape[2])
+    if args.model == "transformer":
+        # the EEGFormer family: its widths from the model section, as the
+        # reference's stage derives them
+        model_cfg = TransformerConfig(
+            input_size=x_train.shape[2], d_model=cfg.model.hidden_size,
+            num_layers=cfg.model.num_layers, num_heads=cfg.model.num_heads,
+            dropout=cfg.model.dropout)
+        print("model family: transformer (EEGFormer)")
     n_train_subj = len((meta or {}).get("splits", {}).get("train", {})
                        .get("subjects", [])) or None
     train_cfg = apply_small_subject_reg(train_cfg, n_train_subj)
@@ -547,6 +559,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.set_defaults(fn=cmd_preprocess)
     p = sub.add_parser("train", help="train the BiLSTM-attention classifier")
     p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--model", choices=["lstm", "transformer"], default="lstm",
+                   help="model family: the BiLSTM or the EEGFormer attention encoder")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_train)
     p = sub.add_parser("fit-ode", help="fit the APF rates to the eye-state proportions")

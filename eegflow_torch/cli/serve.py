@@ -9,6 +9,10 @@ Endpoints (JSON), the same contract as the JAX package's server:
       optional: {"trajectories": true} to include full (N, S, 3) rollouts
 
 Start: ``python -m eegflow_torch.cli.main serve --port 8799 --device cuda``.
+
+A checkpoint of either model family serves ``/predict``. ``/health`` reads
+``resolved_hidden()``, which the EEGFormer's ``TransformerConfig`` lacks, so
+on its checkpoint ``/health`` fails as the reference's handler does.
 """
 
 from __future__ import annotations

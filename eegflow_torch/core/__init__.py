@@ -1,8 +1,9 @@
 """Configs, seeded generators and the artifact reader and writer."""
 
 from eegflow_torch.core.config import (CouplingConfig, DataConfig, ModelConfig, ODEConfig,
-                                       PipelineConfig, PreprocessConfig, TrainConfig)
+                                       PipelineConfig, PreprocessConfig, TrainConfig,
+                                       TransformerConfig)
 from eegflow_torch.core.prng import make_generator
 
 __all__ = ["CouplingConfig", "DataConfig", "ModelConfig", "ODEConfig", "PipelineConfig",
-           "PreprocessConfig", "TrainConfig", "make_generator"]
+           "PreprocessConfig", "TrainConfig", "TransformerConfig", "make_generator"]

@@ -13,7 +13,14 @@ the ext types for ndarrays (1) and numpy scalars (3), whose payload is
 :func:`save_checkpoint` writes the bytes the JAX package's
 ``save_checkpoint`` writes for the same params (its pytree pass sorts the
 keys before flax's ``to_bytes``), and ``eegflow.core.artifacts.load_checkpoint``
-reads them.
+reads them. ``model_type`` names the family (``ModelConfig`` or
+``TransformerConfig``), as the reference writes it.
+
+A crash-recovery snapshot adds ``train_state.msgpack`` beside them
+(:func:`save_train_state`): the reference's ``to_bytes({"params": ...,
+"opt_state": ...})`` of the current parameters and optimizer state, in
+flax's state-dict form (:func:`eegflow_torch.train.steps.optimizer_state_dict`
+gives the optimizer's).
 """
 
 from __future__ import annotations
@@ -21,15 +28,18 @@ from __future__ import annotations
 import json
 import struct
 from pathlib import Path
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import numpy as np
 
 from eegflow_torch.convert import params_to_jax
-from eegflow_torch.core.config import ModelConfig
+from eegflow_torch.core.config import ModelConfig, TransformerConfig
 
 _EXT_NDARRAY = 1
 _EXT_NPSCALAR = 3
+#: the model families a checkpoint's ``model_type`` names
+MODEL_TYPES = {"ModelConfig": ModelConfig, "TransformerConfig": TransformerConfig}
+TRAIN_STATE_FILE = "train_state.msgpack"
 
 
 class _Reader:
@@ -133,20 +143,23 @@ def _restore_lists(tree: Any) -> Any:
     return tree
 
 
-def load_checkpoint(path: str | Path) -> Tuple[Any, ModelConfig, Dict, Dict]:
-    """Load ``(params, ModelConfig, history, extra)`` from a checkpoint
-    directory. ``params`` is the numpy pytree of ``classifier_init`` (lists
-    for the LSTM stack); :func:`eegflow_torch.convert.params_from_jax`
-    turns it into torch parameters."""
+def load_checkpoint(path: str | Path
+                    ) -> Tuple[Any, Union[ModelConfig, TransformerConfig], Dict, Dict]:
+    """Load ``(params, config, history, extra)`` from a checkpoint directory;
+    the config is a ``ModelConfig`` or a ``TransformerConfig`` as
+    ``model_type`` says. ``params`` is the numpy pytree of
+    ``classifier_init`` (lists for the LSTM stack and the EEGFormer's
+    blocks); :func:`eegflow_torch.convert.params_from_jax` turns it into
+    torch parameters."""
     path = Path(path)
     payload = json.loads((path / "checkpoint.json").read_text())
     model_type = payload.get("model_type", "ModelConfig")
-    if model_type != "ModelConfig":
+    if model_type not in MODEL_TYPES:
         raise NotImplementedError(f"model type {model_type!r} is not ported")
     if payload.get("backend") == "orbax":
         raise NotImplementedError("orbax checkpoints are not readable here; "
                                   "save with backend='msgpack'")
-    cfg = ModelConfig(**payload["model_config"])
+    cfg = MODEL_TYPES[model_type](**payload["model_config"])
     params = _restore_lists(msgpack_unpack((path / "params.msgpack").read_bytes()))
     return params, cfg, payload.get("history", {}), payload.get("extra", {})
 
@@ -196,11 +209,11 @@ def _encode(obj: Any, out: list) -> None:
     elif obj is True or obj is False:
         out.append(b"\xc3" if obj else b"\xc2")
     elif isinstance(obj, np.ndarray):
-        arr = np.ascontiguousarray(obj)
-        if arr.dtype.hasobject:
+        if obj.dtype.hasobject:
             raise ValueError("object arrays cannot be stored")
+        # tobytes("C") lays out any strides; 0-d arrays keep their shape ()
         out.append(_pack_ext(_EXT_NDARRAY, msgpack_pack(
-            (list(arr.shape), arr.dtype.name, arr.tobytes("C")))))
+            (list(obj.shape), obj.dtype.name, obj.tobytes("C")))))
     elif isinstance(obj, np.generic):
         arr = np.asarray(obj)
         out.append(_pack_ext(_EXT_NPSCALAR, msgpack_pack(
@@ -254,7 +267,8 @@ def _state_dict(tree: Any) -> Any:
     return np.asarray(tree)
 
 
-def save_checkpoint(path: str | Path, params: Any, model_config: ModelConfig,
+def save_checkpoint(path: str | Path, params: Any,
+                    model_config: Union[ModelConfig, TransformerConfig],
                     history: Optional[Dict[str, Any]] = None,
                     extra: Optional[Dict[str, Any]] = None) -> Path:
     """Write ``params`` (a numpy pytree or a torch parameter tree), the
@@ -269,6 +283,32 @@ def save_checkpoint(path: str | Path, params: Any, model_config: ModelConfig,
                "model_type": type(model_config).__name__}
     (path / "checkpoint.json").write_text(json.dumps(payload, indent=2))
     return path
+
+
+def save_train_state(path: str | Path, params: Any, opt_state: Dict[str, Any]) -> Path:
+    """Write ``train_state.msgpack`` into the checkpoint directory ``path``:
+    ``{"params": params, "opt_state": opt_state}`` (``params`` a numpy
+    pytree or a torch parameter tree) in flax's state-dict form
+    (lists as ``{"0": ...}`` maps, arrays as ndarray ext types, keys
+    sorted), which ``flax.serialization.from_bytes`` restores into the
+    reference's ``{"params", "opt_state"}`` target."""
+    path = Path(path)
+    path.mkdir(parents=True, exist_ok=True)
+    out = path / TRAIN_STATE_FILE
+    out.write_bytes(msgpack_pack({"params": _state_dict(params),
+                                  "opt_state": _state_dict(opt_state)}))
+    return out
+
+
+def load_train_state(path: str | Path) -> Optional[Tuple[Dict[str, Any], Dict[str, Any]]]:
+    """``(params, opt_state)`` of the checkpoint directory's
+    ``train_state.msgpack`` in flax's state-dict form (lists stay
+    ``{"0": ...}`` maps), or None when the directory has no snapshot."""
+    snap = Path(path) / TRAIN_STATE_FILE
+    if not snap.exists():
+        return None
+    state = msgpack_unpack(snap.read_bytes())
+    return state["params"], state["opt_state"]
 
 
 def save_results(path: str | Path, results: Dict[str, Any]) -> Path:

@@ -104,6 +104,30 @@ class ModelConfig:
 
 
 @dataclass(frozen=True)
+class TransformerConfig:
+    """EEGFormer architecture (``eegflow.core.config.TransformerConfig``),
+    the second model family: ``classifier_init`` / ``classifier_apply``
+    dispatch on this type wherever a ``ModelConfig`` goes.
+
+    ``d_model=None`` resolves like the flagship's hidden size (256 when
+    input_size > 30 else 128).
+    """
+
+    input_size: int = 61
+    d_model: Optional[int] = None
+    num_layers: int = 4
+    num_heads: int = 4
+    mlp_ratio: int = 4
+    num_classes: int = 2
+    dropout: float = 0.3
+
+    def resolved_d_model(self) -> int:
+        if self.d_model is not None:
+            return self.d_model
+        return 256 if self.input_size > 30 else 128
+
+
+@dataclass(frozen=True)
 class CouplingConfig:
     """LSTM->ODE probabilistic coupling (``eegflow.core.config.CouplingConfig``)."""
 

@@ -11,12 +11,12 @@ JAX package does, so the shapes the device sees stay few and static;
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
-from eegflow_torch.core.config import CouplingConfig, ModelConfig
+from eegflow_torch.core.config import CouplingConfig, ModelConfig, TransformerConfig
 from eegflow_torch.couple.modulation import infer_initial_state, modulate_rates
 from eegflow_torch.nn.model import classifier_apply
 from eegflow_torch.ode.integrate import solve_batch
@@ -24,11 +24,11 @@ from eegflow_torch.ode.integrate import solve_batch
 
 @dataclass
 class CoupledModel:
-    """Classifier params + fitted ODE rates + coupling config. ``params`` and
-    ``k_base (6,)`` live on ``device``."""
+    """Classifier params (either model family) + fitted ODE rates + coupling
+    config. ``params`` and ``k_base (6,)`` live on ``device``."""
 
     params: Mapping
-    model_cfg: ModelConfig
+    model_cfg: Union[ModelConfig, TransformerConfig]
     k_base: torch.Tensor
     coupling: CouplingConfig
     lstm_impl: str = "auto"
@@ -39,7 +39,7 @@ def coupled_rollout(
     params: Mapping,
     x: torch.Tensor,
     k_base: torch.Tensor,
-    model_cfg: ModelConfig,
+    model_cfg: Union[ModelConfig, TransformerConfig],
     forecast_steps: int = 20,
     alpha: float = 0.5,
     rate_floor: float = 1e-3,

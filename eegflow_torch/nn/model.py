@@ -4,7 +4,10 @@
 ``classifier_init`` returns an ``nn.ModuleDict`` whose indexing and
 ``state_dict`` paths mirror the JAX params pytree (:mod:`eegflow_torch.convert`);
 ``classifier_apply`` is a plain function over such a tree (or a nested dict
-of tensors), in eval mode or, with ``train=True``, in training mode.
+of tensors), in eval mode or, with ``train=True``, in training mode. Both,
+``draw_dropout_masks`` and ``model_flops_per_window`` dispatch on the config
+type, as the reference's do: a ``TransformerConfig`` selects the EEGFormer
+(:mod:`eegflow_torch.nn.transformer`), whose schedule is its own.
 
 ``lstm_impl`` picks how the input block, the recurrent stack and the pool
 head run, under either precision policy:
@@ -61,7 +64,7 @@ import torch
 from torch import nn
 
 from eegflow_torch.convert import module_from_tree
-from eegflow_torch.core.config import ModelConfig
+from eegflow_torch.core.config import ModelConfig, TransformerConfig
 from eegflow_torch.core.prng import make_generator
 from eegflow_torch.nn.attention import additive_attention_init
 from eegflow_torch.nn.cuda_attention import pool_head, pool_head_fused, pool_head_fused_plain
@@ -106,7 +109,13 @@ class DropoutMasks:
 def draw_dropout_masks(config: ModelConfig, batch: int, steps: int, gen: torch.Generator,
                        device: Optional[Union[torch.device, str]] = None) -> DropoutMasks:
     """All keep-masks of one training forward, drawn from ``gen`` (a generator
-    on ``device``) in a fixed order; no masks when ``config.dropout`` is 0."""
+    on ``device``) in a fixed order; no masks when ``config.dropout`` is 0.
+    A ``TransformerConfig`` gets its own record
+    (:func:`~eegflow_torch.nn.transformer.draw_transformer_masks`)."""
+    if isinstance(config, TransformerConfig):
+        from eegflow_torch.nn.transformer import draw_transformer_masks
+
+        return draw_transformer_masks(config, batch, steps, gen, device)
     d = config.dropout
     if d <= 0.0:
         return DropoutMasks()
@@ -128,7 +137,12 @@ def classifier_init(config: ModelConfig, gen: Optional[torch.Generator] = None,
                     device: Optional[Union[torch.device, str]] = None,
                     trainable: bool = False) -> nn.ModuleDict:
     """torch-default init (uniform fan-in bounds) drawn from ``gen``;
-    parameters require grad when ``trainable``."""
+    parameters require grad when ``trainable``. A ``TransformerConfig``
+    builds the EEGFormer (:mod:`eegflow_torch.nn.transformer`)."""
+    if isinstance(config, TransformerConfig):
+        from eegflow_torch.nn.transformer import transformer_init
+
+        return transformer_init(config, gen, device, trainable)
     gen = gen if gen is not None else make_generator(0)
     hidden = config.resolved_hidden()
     lstm_out = hidden * (2 if config.bidirectional else 1)
@@ -211,8 +225,15 @@ def classifier_apply(
     ``masks`` is None, as the reference does without a dropout key).
     ``lstm_bwd`` picks the stack's backward schedule (module docstring);
     any value but ``"fused"`` needs the bf16 policy, and ``"dualdir"`` a
-    bidirectional stack.
+    bidirectional stack. A ``TransformerConfig`` runs the EEGFormer
+    (:func:`~eegflow_torch.nn.transformer.transformer_apply`, which has no
+    LSTM and so no ``lstm_bwd``).
     """
+    if isinstance(config, TransformerConfig):
+        from eegflow_torch.nn.transformer import transformer_apply
+
+        return transformer_apply(params, x, config, return_attention, compute_dtype,
+                                 lstm_impl, train=train, masks=masks)
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"unsupported compute_dtype {compute_dtype}")
     bf16 = compute_dtype == torch.bfloat16
@@ -259,3 +280,23 @@ def classifier_apply(
     if return_attention:
         return logits, attn
     return logits
+
+
+def model_flops_per_window(config: ModelConfig, seq_len: int = 256) -> int:
+    """Forward-pass FLOPs per window, matmuls only
+    (``eegflow.nn.model.model_flops_per_window``)."""
+    if isinstance(config, TransformerConfig):
+        from eegflow_torch.nn.transformer import transformer_flops_per_window
+
+        return transformer_flops_per_window(config, seq_len)
+    h = config.resolved_hidden()
+    n_dir = 2 if config.bidirectional else 1
+    fl = 2 * seq_len * config.input_size * h  # input projection
+    d = h
+    for _ in range(config.num_layers):
+        fl += n_dir * (2 * seq_len * d * 4 * h + 2 * seq_len * h * 4 * h)
+        d = h * n_dir
+    lstm_out = h * n_dir
+    fl += 2 * seq_len * lstm_out * (lstm_out // 2) + 2 * seq_len * (lstm_out // 2)
+    fl += 2 * lstm_out * h + 2 * h * (h // 2) + 2 * (h // 2) * config.num_classes
+    return int(fl)

@@ -1,15 +1,16 @@
 """Training loop (``eegflow.train.loop``): weighted sampling, training steps
 on a device-resident training set, validation every epoch, early stopping
-with best-weight restore, the history dict and windows/s.
-
-One device, no mesh, no mid-run snapshots (``checkpoint_dir`` /
-``resume_from`` of the reference are not ported).
+with best-weight restore, the history dict and windows/s, and the
+reference's crash-recovery snapshots (``checkpoint_dir``,
+``checkpoint_every``, ``resume_from``) in its format, so either package
+resumes the other's. One device, no mesh.
 """
 
 from __future__ import annotations
 
 import time
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Callable, Dict, Optional, Union
 
 import numpy as np
@@ -17,12 +18,19 @@ import torch
 
 from eegflow_torch.analyze.evaluate import f1_binary, matthews_corrcoef
 from eegflow_torch.convert import params_to_jax
+from eegflow_torch.core.artifacts import (load_checkpoint, load_train_state, save_checkpoint,
+                                          save_train_state)
 from eegflow_torch.core.config import ModelConfig, TrainConfig
 from eegflow_torch.core.prng import make_generator
 from eegflow_torch.nn.model import classifier_init, draw_dropout_masks
 from eegflow_torch.train.data import class_weight_array, weighted_epoch_indices
 from eegflow_torch.train.schedule import lr_trace
-from eegflow_torch.train.steps import make_eval_step, make_optimizer, make_train_step
+from eegflow_torch.train.steps import (leaf_at, load_optimizer_state_dict, make_eval_step,
+                                       make_optimizer, make_train_step, optimizer_state_dict)
+
+#: added to the per-epoch seed of the dropout-mask generator, which keeps its
+#: seeds apart from those of the surrogate refresher (``train.data``)
+MASK_SEED_OFFSET = 2 ** 31
 
 
 @dataclass
@@ -51,32 +59,77 @@ def predict_probs(params: Any, x: Union[np.ndarray, torch.Tensor], model_cfg: Mo
     return np.concatenate(out) if out else np.empty((0, model_cfg.num_classes), np.float32)
 
 
+def restore_train_state(path: Union[str, Path], params, optimizer) -> bool:
+    """Load the ``train_state.msgpack`` of the snapshot directory ``path``
+    (either package's) into ``params`` (a torch parameter tree) and
+    ``optimizer`` (:func:`~eegflow_torch.train.steps.make_optimizer`'s, over
+    ``params.parameters()``) in place. -> False when there is none."""
+    snapshot = load_train_state(path)
+    if snapshot is None:
+        return False
+    snap_params, snap_opt = snapshot
+    names = [n for n, _ in params.named_parameters()]
+    with torch.no_grad():
+        for name, p in params.named_parameters():
+            p.copy_(torch.from_numpy(leaf_at(snap_params, name)))
+    load_optimizer_state_dict(optimizer, names, snap_opt)
+    return True
+
+
 def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray,
                      y_val: np.ndarray, model_cfg: ModelConfig, train_cfg: TrainConfig,
                      device: Union[torch.device, str] = "cuda", verbose: bool = True,
+                     checkpoint_dir: Optional[Union[str, Path]] = None,
+                     checkpoint_every: int = 10,
+                     resume_from: Optional[Union[str, Path]] = None,
                      epoch_transform: Optional[Callable] = None) -> TrainResult:
-    """Full training run -> best params + history.
+    """Full training run -> best params + history (either model family).
 
     Weights come from ``classifier_init`` with a generator seeded by
-    ``train_cfg.seed``; dropout masks from a generator on ``device`` seeded
-    by the same seed. Epoch e samples its batches with
-    ``np.random.default_rng(seed * 1_000_003 + e)``, as the reference does.
-    The training set is copied to the device once and each batch is gathered
-    there. ``epoch_transform``: ``(x_train_dev, epoch) -> x_train_dev`` at the
-    start of every epoch (e.g. :func:`~eegflow_torch.train.data.make_surrogate_refresher`).
-    Two runs with the same arguments on the same device give the same bits.
+    ``train_cfg.seed``. Epoch e samples its batches with
+    ``np.random.default_rng(seed * 1_000_003 + e)``, as the reference does,
+    and draws its dropout masks from a generator on ``device`` seeded with
+    ``seed * 1_000_003 + e + MASK_SEED_OFFSET``, a function of (seed, e)
+    alone, so a resumed run draws the same masks. The training set is
+    copied to the device once and each batch is gathered there.
+    ``epoch_transform``: ``(x_train_dev, epoch) -> x_train_dev`` at the
+    start of every epoch (e.g.
+    :func:`~eegflow_torch.train.data.make_surrogate_refresher`). Two runs
+    with the same arguments on the same device give the same bits.
+
+    ``checkpoint_dir``: every ``checkpoint_every`` epochs, a snapshot there
+    (``eegflow.train.loop``'s format): the best params so far with the
+    history and ``extra = {epoch, best_val_f1, selection_metric, step,
+    resumable}``, written before that epoch's early-stopping update, and
+    ``train_state.msgpack`` with the current params and optimizer state.
+    ``resume_from``: such a directory (of either package); without a
+    ``train_state.msgpack`` the run starts afresh. A resumed run cuts the
+    history to the snapshot's epoch, restores the best score only when its
+    ``selection_metric`` matches, takes the best params from
+    ``params.msgpack`` and restarts the patience count, as the reference
+    does; interrupted after an epoch and resumed, it ends with the
+    uninterrupted run's train state.
     """
     t_start = time.time()
     device = torch.device(device)
     params = classifier_init(model_cfg, make_generator(train_cfg.seed), device, trainable=True)
+    names = [n for n, _ in params.named_parameters()]
     batches_per_epoch = max(1, len(y_train) // train_cfg.batch_size)
     updates_per_epoch = max(1, batches_per_epoch // max(train_cfg.accumulation_steps, 1))
     optimizer = make_optimizer(list(params.parameters()), train_cfg, updates_per_epoch)
+
+    start_epoch, n_steps, resume_payload = 0, 0, None
+    if resume_from is not None:
+        ckpt_best_params, _, resume_history, extra = load_checkpoint(resume_from)
+        if restore_train_state(resume_from, params, optimizer):
+            n_steps = int(extra.get("step", 0))
+            start_epoch = int(extra.get("epoch", 0))
+            resume_payload = (resume_history, extra, ckpt_best_params)
+
     cw = torch.from_numpy(class_weight_array(y_train, model_cfg.num_classes)).to(device)
     step = make_train_step(model_cfg, train_cfg, optimizer, class_weights=cw)
     eval_step = make_eval_step(model_cfg, bf16=train_cfg.bf16, lstm_impl=train_cfg.lstm_impl)
     drop_gen = torch.Generator(device=device)
-    drop_gen.manual_seed(int(train_cfg.seed))
 
     history: Dict[str, list] = {
         "train_loss": [], "val_loss": [], "train_acc": [], "val_acc": [],
@@ -92,13 +145,25 @@ def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray
     total_windows = 0
     step_time = 0.0
 
+    if resume_payload is not None:
+        resume_history, extra, ckpt_best_params = resume_payload
+        for k in history:
+            history[k] = list(resume_history.get(k, []))[:start_epoch]
+        # the stored best is comparable only under the same selection metric
+        if extra.get("selection_metric") == train_cfg.selection_metric:
+            best_score = float(extra.get("best_val_f1", float("-inf")))
+        # params.msgpack holds the best params so far (the train state the
+        # current ones)
+        best_params = ckpt_best_params
+        epochs_run = start_epoch
+
     x_train_dev = torch.from_numpy(np.ascontiguousarray(x_train, np.float32)).to(device)
     y_train_dev = torch.from_numpy(np.asarray(y_train, np.int64)).to(device)
     x_val_dev = torch.from_numpy(np.ascontiguousarray(x_val, np.float32)).to(device)
     steps = x_train.shape[1]
     bs = train_cfg.batch_size
 
-    for epoch in range(train_cfg.epochs):
+    for epoch in range(start_epoch, train_cfg.epochs):
         ep_start = time.time()
         if epoch_transform is not None:
             x_train_dev = epoch_transform(x_train_dev, epoch)
@@ -107,6 +172,7 @@ def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray
             indices = weighted_epoch_indices(y_train, rng)
         else:
             indices = rng.permutation(len(y_train))
+        drop_gen.manual_seed(train_cfg.seed * 1_000_003 + epoch + MASK_SEED_OFFSET)
 
         batch_metrics = []
         ep_count = 0
@@ -120,6 +186,7 @@ def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray
             batch_metrics.append((metrics, bs))
             ep_count += bs
             total_windows += bs
+            n_steps += 1
         if device.type == "cuda":
             torch.cuda.synchronize(device)
         step_time += time.time() - t_steps
@@ -151,6 +218,15 @@ def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray
                   f"Acc: {history['train_acc'][-1]:.4f}/{val_acc:.4f} | "
                   f"F1: {val_f1:.4f} | LR: {lrs[epoch]:.2e} | Time: {epoch_time:.1f}s",
                   flush=True)
+
+        # the snapshot: the best params as of the previous epochs, then the
+        # current train state
+        if checkpoint_dir is not None and (epoch + 1) % checkpoint_every == 0:
+            save_checkpoint(checkpoint_dir, best_params, model_cfg, history=history,
+                            extra={"epoch": epoch + 1, "best_val_f1": best_score,
+                                   "selection_metric": train_cfg.selection_metric,
+                                   "step": n_steps, "resumable": True})
+            save_train_state(checkpoint_dir, params, optimizer_state_dict(optimizer, names))
 
         # early stopping on val MCC (default) or val F1 (the reference's)
         if train_cfg.selection_metric == "mcc":

@@ -21,15 +21,35 @@ parameter.
 With ``max_norm=None``, ``every_k=1`` and a constant learning rate in place
 of the schedule it is plain ``optax.adamw(lr)``, as the ablation stage's
 quick training runs it (``eegflow.analyze.ablation.quick_train_evaluate``).
+
+:func:`optimizer_state_dict` and :func:`load_optimizer_state_dict` carry
+the state of :func:`make_optimizer`'s chain to and from optax's state-dict
+layout (flax's ``to_state_dict`` of ``tx.init(params)``), which the
+snapshots' ``train_state.msgpack`` holds:
+
+    every_k > 1 (optax.MultiSteps):
+      {mini_step, gradient_step,
+       inner_opt_state: {"0": {} (clip),
+                         "1": {"0": {count, mu, nu} (scale_by_adam),
+                               "1": {} (add_decayed_weights),
+                               "2": {count} (scale_by_schedule)}},
+       acc_grads, skip_state: {}}
+    every_k == 1: the inner_opt_state dict alone
+
+``mu``, ``nu`` and ``acc_grads`` are parameter trees (lists as ``{"0": ...}``
+maps) and the counters 0-d int32 arrays: ``count`` (updates applied) is
+both ``count``s and ``gradient_step``, ``mini_step`` the micro-steps folded
+into ``acc_grads`` since the last update.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Optional, Sequence, Union
+from typing import Any, Callable, Dict, Optional, Sequence, Union
 
+import numpy as np
 import torch
 
-from eegflow_torch.core.config import ModelConfig, TrainConfig
+from eegflow_torch.core.config import ModelConfig, TrainConfig, TransformerConfig
 from eegflow_torch.nn.cuda_lstm import check_lstm_bwd
 from eegflow_torch.nn.losses import cross_entropy_loss
 from eegflow_torch.nn.model import DropoutMasks, classifier_apply
@@ -96,6 +116,71 @@ class AdamW:
         return True
 
 
+def _tree_of(names: Sequence[str], tensors: Sequence[torch.Tensor]) -> Dict[str, Any]:
+    """Host copies of ``tensors`` as a nested dict in flax's state-dict form:
+    ``names`` are their dotted paths (``blocks.0.mha.query.w``), so a list
+    index becomes a ``"0"`` key."""
+    tree: Dict[str, Any] = {}
+    for name, t in zip(names, tensors):
+        *path, leaf = name.split(".")
+        node = tree
+        for key in path:
+            node = node.setdefault(key, {})
+        node[leaf] = t.detach().cpu().numpy().copy()
+    return tree
+
+
+def leaf_at(tree: Dict[str, Any], name: str) -> np.ndarray:
+    """The leaf of a state-dict tree at the dotted path ``name``."""
+    for key in name.split("."):
+        tree = tree[key]
+    return np.asarray(tree)
+
+
+def _int32(n: int) -> np.ndarray:
+    return np.asarray(n, np.int32)
+
+
+def optimizer_state_dict(optimizer: AdamW, names: Sequence[str]) -> Dict[str, Any]:
+    """``optimizer``'s state in optax's state-dict layout (module docstring)
+    for the optimizer :func:`make_optimizer` builds; ``names`` are the
+    dotted paths of ``optimizer.params``, in order."""
+    inner = {"0": {},
+             "1": {"0": {"count": _int32(optimizer.count), "mu": _tree_of(names, optimizer.mu),
+                         "nu": _tree_of(names, optimizer.nu)},
+                   "1": {},
+                   "2": {"count": _int32(optimizer.count)}}}
+    if optimizer.every_k == 1:
+        return inner
+    return {"mini_step": _int32(optimizer.mini_step),
+            "gradient_step": _int32(optimizer.count),
+            "inner_opt_state": inner,
+            "acc_grads": _tree_of(names, optimizer.acc),
+            "skip_state": {}}
+
+
+@torch.no_grad()
+def load_optimizer_state_dict(optimizer: AdamW, names: Sequence[str],
+                              state: Dict[str, Any]) -> None:
+    """Restore ``optimizer`` in place from optax's state-dict layout (as
+    :func:`optimizer_state_dict` writes it, or the JAX package's snapshot)."""
+    multi = "inner_opt_state" in state
+    if multi != (optimizer.every_k > 1):
+        raise ValueError("the snapshot's optimizer state is "
+                         f"{'' if multi else 'not '}accumulated (optax.MultiSteps), "
+                         f"the optimizer's every_k is {optimizer.every_k}")
+    adam = (state["inner_opt_state"] if multi else state)["1"]["0"]
+    for name, mu, nu, acc in zip(names, optimizer.mu, optimizer.nu, optimizer.acc):
+        mu.copy_(torch.from_numpy(leaf_at(adam["mu"], name)))
+        nu.copy_(torch.from_numpy(leaf_at(adam["nu"], name)))
+        if multi:
+            acc.copy_(torch.from_numpy(leaf_at(state["acc_grads"], name)))
+        else:
+            acc.zero_()
+    optimizer.count = int(adam["count"])
+    optimizer.mini_step = int(state["mini_step"]) if multi else 0
+
+
 def make_optimizer(params: Sequence[torch.Tensor], train_cfg: TrainConfig,
                    updates_per_epoch: int) -> AdamW:
     """The reference's optimizer: clip, AdamW on the warmup-cosine schedule,
@@ -115,11 +200,12 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: A
     backward, optimizer step (the parameters change in place on every
     ``accumulation_steps``-th call). ``loss`` and ``correct`` stay on the
     device. ``lstm_bwd``: the LSTM stack's backward schedule
-    (``classifier_apply``); not a ``TrainConfig`` field, whose fields stay
-    the JAX package's."""
+    (``classifier_apply``; the EEGFormer has none); not a ``TrainConfig``
+    field, whose fields stay the JAX package's."""
     compute_dtype = torch.bfloat16 if train_cfg.bf16 else None
     impl = lstm_impl or train_cfg.lstm_impl
-    check_lstm_bwd(lstm_bwd, train_cfg.bf16, model_cfg.bidirectional)
+    if not isinstance(model_cfg, TransformerConfig):
+        check_lstm_bwd(lstm_bwd, train_cfg.bf16, model_cfg.bidirectional)
 
     def step(params, x: torch.Tensor, y: torch.Tensor,
              masks: Optional[DropoutMasks]) -> Dict[str, object]:

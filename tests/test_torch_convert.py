@@ -48,6 +48,23 @@ def test_params_round_trip_exact(kw):
     assert params["lstm"][1]["fwd"]["w_ih"].shape == tree["lstm"][1]["fwd"]["w_ih"].shape
 
 
+def test_transformer_params_round_trip_exact():
+    """The EEGFormer's tree (``blocks`` a list) both ways, its state_dict
+    paths, and the port's init in the reference's structure."""
+    jc = jcfg.TransformerConfig(input_size=5, d_model=16, num_layers=2, num_heads=2)
+    tree = jax.tree_util.tree_map(np.asarray, jax_classifier_init(jax.random.key(3), jc))
+    params = params_from_jax(tree)
+    _assert_tree_equal(params_to_jax(params), tree)
+    keys = set(params.state_dict())
+    for path in ("blocks.0.mha.query.w", "blocks.1.mha.out.b", "blocks.1.mlp2.w",
+                 "blocks.0.ln1.scale", "final_norm.bias", "attention.score.b", "head2.w"):
+        assert path in keys
+    got = params_to_jax(classifier_init(tcfg.TransformerConfig(**dataclasses.asdict(jc)),
+                                        make_generator(0)))
+    shapes = lambda t: jax.tree_util.tree_map(lambda a: a.shape, t)  # noqa: E731
+    assert shapes(got) == shapes(tree)
+
+
 def test_state_dict_paths_mirror_the_pytree():
     tree = jax_classifier_init(jax.random.key(0), jcfg.ModelConfig(**SMALL))
     keys = set(params_from_jax(tree).state_dict())
@@ -72,7 +89,8 @@ def test_classifier_init_matches_jax_structure():
 
 
 @pytest.mark.parametrize("name", ["ModelConfig", "CouplingConfig", "TrainConfig", "DataConfig",
-                                  "PreprocessConfig", "ODEConfig", "PipelineConfig"])
+                                  "PreprocessConfig", "ODEConfig", "PipelineConfig",
+                                  "TransformerConfig"])
 def test_config_defaults_match_reference(name):
     ref, port = getattr(jcfg, name), getattr(tcfg, name)
     ref_fields = [(f.name, f.default) for f in dataclasses.fields(ref)]
@@ -81,6 +99,9 @@ def test_config_defaults_match_reference(name):
     if name == "ModelConfig":
         for kw in ({}, {"input_size": 20}, {"hidden_size": 64}):
             assert port(**kw).resolved_hidden() == ref(**kw).resolved_hidden()
+    if name == "TransformerConfig":
+        for kw in ({}, {"input_size": 20}, {"d_model": 64}):
+            assert port(**kw).resolved_d_model() == ref(**kw).resolved_d_model()
     assert port().to_dict() == ref().to_dict() if name == "PipelineConfig" else \
         dataclasses.asdict(port()) == dataclasses.asdict(ref())
     if name == "ODEConfig":

@@ -11,7 +11,7 @@ import pytest
 import torch
 
 from eegflow_torch import kernels
-from eegflow_torch.core.config import CouplingConfig, ModelConfig
+from eegflow_torch.core.config import CouplingConfig, ModelConfig, TrainConfig, TransformerConfig
 from eegflow_torch.core.prng import make_generator
 from eegflow_torch.couple.rollout import CoupledModel, predict_batch
 from eegflow_torch.nn.cuda_attention import (attention_pool, attention_pool_plain,
@@ -1252,3 +1252,97 @@ def test_sos_filtfilt_rejects_what_it_does_not_take(dev):
         sos_filtfilt(torch.zeros(2, padlen, device=dev), sos, zi, padlen)
     with pytest.raises(ValueError, match="float32"):
         sos_filtfilt(torch.zeros(2, 100, device=dev, dtype=torch.float64), sos, zi, padlen)
+
+
+# the EEGFormer at a small width the kernels take (D = 64, K = 32)
+TINY_TF = TransformerConfig(input_size=61, d_model=64, num_layers=2, num_heads=4, mlp_ratio=2,
+                            dropout=0.3)
+
+
+@pytest.mark.parametrize("bf16", [True, False], ids=["bf16", "float32"])
+def test_transformer_micro_step_matches_plain_path(dev, bf16):
+    """A transformer micro-step launches kernels 9, 10, 7 and 8 once each and
+    no LSTM kernel; its loss and every gradient against the plain path and a
+    bitwise repeat."""
+    params = classifier_init(TINY_TF, make_generator(21), device=dev, trainable=True)
+    rng = np.random.default_rng(21)
+    x = torch.from_numpy(rng.standard_normal((6, 40, 61)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 2, 6)).to(dev)
+    masks = draw_dropout_masks(TINY_TF, 6, 40, torch.Generator(device=dev).manual_seed(4), dev)
+    names, leaves = zip(*params.named_parameters())
+
+    def step(impl):
+        for q in leaves:
+            q.grad = None
+        logits = classifier_apply(params, x, TINY_TF, lstm_impl=impl, train=True, masks=masks,
+                                  compute_dtype=torch.bfloat16 if bf16 else None)
+        loss = cross_entropy_loss(logits, y)
+        loss.backward()
+        return loss.item(), [q.grad.clone() if q.grad is not None else None for q in leaves]
+
+    kernels.reset_launch_counts()
+    loss_k, grads_k = step("kernel")
+    assert dict(kernels.launch_counts) == {"input_block_fwd": 1, "input_block_bwd": 1,
+                                           "pool_head_fwd": 1, "pool_head_bwd": 1}
+    loss_k2, grads_k2 = step("kernel")
+    loss_p, grads_p = step("plain")
+    assert abs(loss_k - loss_p) <= 1e-3 and loss_k == loss_k2
+    for name, a, a2, c in zip(names, grads_k, grads_k2, grads_p):
+        assert (a is None) == (c is None)
+        if a is None:
+            continue
+        assert torch.equal(a, a2)
+        if name.endswith("mha.key.b"):
+            # zero by symmetry (softmax over the keys ignores it): rounding noise
+            assert a.abs().max() <= 1e-7 and c.abs().max() <= 1e-7
+        elif c.abs().max() > 0:
+            assert _rel(a, c) <= (STEP_REL_TOL if bf16 else F32_REL_TOL), name
+
+
+def test_transformer_eval_at_the_1024_bucket(dev):
+    """An eval batch of 1,024 windows launches kernels 9 and 7 once each;
+    the probabilities against the plain path, the attention a simplex."""
+    params = classifier_init(TINY_TF, make_generator(22), device=dev)
+    x = np.random.default_rng(22).standard_normal((1024, 64, 61)).astype(np.float32)
+    model = CoupledModel(params, TINY_TF, rates_to_array(DEFAULT_RATES, dev), CouplingConfig(),
+                         device=dev)
+    kernels.reset_launch_counts()
+    got = predict_batch(model, x, batch_size=1024)
+    assert dict(kernels.launch_counts) == {"input_block_fwd": 1, "pool_head_fwd": 1}
+    want = predict_batch(model, x, batch_size=1024, lstm_impl="plain")
+    np.testing.assert_allclose(got["probs"], want["probs"], atol=2e-3, rtol=0)
+    np.testing.assert_allclose(got["attention"].sum(1), 1.0, atol=1e-5)
+
+
+@pytest.mark.parametrize("family", ["lstm", "transformer"])
+def test_resume_is_bitwise_on_the_card(dev, tmp_path, family):
+    """A 2-epoch toy run interrupted after epoch 1 and resumed from its
+    snapshot ends with the uninterrupted run's train state byte for byte."""
+    from eegflow_torch.train.loop import train_classifier
+
+    class Interrupted(Exception):
+        pass
+
+    def stop_at_epoch_1(xd, epoch):
+        if epoch == 1:
+            raise Interrupted
+        return xd
+
+    cfg = TINY_TF if family == "transformer" else ModelConfig(input_size=61, hidden_size=64,
+                                                              num_layers=2)
+    train = TrainConfig(epochs=2, batch_size=32, eval_batch_size=64, warmup_epochs=1,
+                        augment=False)
+    rng = np.random.default_rng(23)
+    x = rng.standard_normal((200, 40, 61)).astype(np.float32)
+    y = rng.integers(0, 2, 200)
+    args = (x[:160], y[:160], x[160:], y[160:], cfg, train)
+    full = train_classifier(*args, device=dev, verbose=False, checkpoint_dir=tmp_path / "full",
+                            checkpoint_every=1)
+    with pytest.raises(Interrupted):
+        train_classifier(*args, device=dev, verbose=False, checkpoint_dir=tmp_path / "cut",
+                         checkpoint_every=1, epoch_transform=stop_at_epoch_1)
+    resumed = train_classifier(*args, device=dev, verbose=False, resume_from=tmp_path / "cut",
+                               checkpoint_dir=tmp_path / "resumed", checkpoint_every=1)
+    assert ((tmp_path / "resumed" / "train_state.msgpack").read_bytes()
+            == (tmp_path / "full" / "train_state.msgpack").read_bytes())
+    assert resumed.history["train_loss"] == full.history["train_loss"]
