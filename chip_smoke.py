@@ -149,6 +149,19 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      of the flagship (bf16 "fused") and of the transformer, 2 epochs on 2,048
      windows, interrupted after epoch 1 and resumed from its snapshot, against
      the uninterrupted run (train_state.msgpack byte for byte).
+ 21. explore and the baselines' features on phase 17's tree: `explore` as a
+     CLI call on its raw recordings (eda_summary.json's keys and census, its
+     alpha closed/open ratio against scipy's float64 welch on the same
+     channel, no kernel launched, the stage's seconds); welch_psd on the card
+     on both full recordings (61 x 60,000) against scipy and against its own
+     CPU run; load_or_extract_features on the three processed splits on the
+     card, writing models/features_{split}.npz as the baselines stage does,
+     against a float64 oracle (the zcr's differing entries counted apart), a
+     bitwise repeat and the cache read back; extract_features timed on 50,000
+     N(0,1) windows (windows/s, device ms a chunk, the pageable upload's share,
+     the bound of one read of a chunk); which of sklearn and matplotlib
+     import (no estimator runs without sklearn: the baselines, parity and all
+     stages stop there on the GPU machine).
 The line before the last lists the kernels as JSON, each with its time, its
 twin's, its bound on an H100 (bytes over 3.35 TB/s or products over the
 dtype's peak, whichever is larger), the library call's time where there is
@@ -299,6 +312,19 @@ ABLATE_WIDE_H, ABLATE_WIDE_EPOCHS = 512, 1
 # both paths (measured ~1e-11)
 TF_EVAL_BIG = 10_000
 ZERO_GRAD_TOL = 1e-7
+# phase 21: Welch on the card against scipy's float64 welch, relative per bin
+# (the JAX package's rtol; float32 on the CPU measured 3.8e-7), and against its
+# own CPU run (float32 rfft of two libraries); the features against a float64
+# oracle of the reference's semantics at the JAX package's bound, the zcr apart:
+# a sample within float32 rounding of its window's mean may take the other
+# sign there (expected ~1 of the 175 M samples of phase 17's windows), moving
+# its window's rate by 1/T or 2/T; the timing set, five chunks of the
+# reference's 10,000 windows
+WELCH_SCIPY_RTOL = 1e-3
+WELCH_CPU_RTOL = 1e-4
+FEATURE_ORACLE_TOL = 2e-3
+ZCR_MAX_FLIP_SHARE = 1e-4
+FEATURE_CHUNK, FEATURE_TIMING_WINDOWS = 10_000, 50_000
 # the columns the reference exports (eegflow/analyze/export.py)
 SAMPLE_COLUMNS = ["Sample_ID", "Prob_EyesOpen", "Prob_Drowsy", "Prob_EyesClosed", "LSTM_P_Open",
                   "LSTM_P_Closed", "Predicted_State", "Ground_Truth"]
@@ -1302,6 +1328,210 @@ def ablation_phase(dev, smi, out_dir):
         bound_ms, bound_by = bound(*out["work"][name])
         print(f"{name} B={B_TRAIN} T={T} H={hw}: kernel {m['kernel']:.3f} ms, plain "
               f"{m['plain']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) [{smi}]", flush=True)
+    return out
+
+
+def feature_oracle(x, fs):
+    """The reference's 20 features a channel (ref 03:151-258) in float64
+    numpy, 1,024 windows at a time: (N, T, C) -> (N, C, 20)."""
+    n, t, c = x.shape
+    freqs = np.fft.rfftfreq(t, 1 / fs)
+    masks = [(freqs >= lo) & (freqs < hi) for lo, hi in
+             ((0.5, 4), (4, 8), (8, 13), (13, 30), (30, 45))]
+    out = np.empty((n, c, 20))
+    for i in range(0, n, 1024):
+        s = np.ascontiguousarray(x[i:i + 1024].transpose(0, 2, 1), np.float64)  # (b, C, T)
+        mean = s.mean(-1)
+        std, var = s.std(-1, ddof=1), s.var(-1, ddof=1)
+        mn, mx = s.min(-1), s.max(-1)
+        cen = s - mean[..., None]
+        cen2 = cen * cen  # products, not pow: numpy's float64 pow is ~20x slower
+        m2, m3, m4 = cen2.mean(-1), (cen2 * cen).mean(-1), (cen2 * cen2).mean(-1)
+        d1 = np.diff(s, axis=-1)
+        d2 = np.diff(d1, axis=-1)
+        mob = d1.std(-1, ddof=1) / (std + 1e-10)
+        comp = (d2.std(-1, ddof=1) / (d1.std(-1, ddof=1) + 1e-10)) / (mob + 1e-10)
+        p = np.abs(np.fft.rfft(s, axis=-1)) ** 2
+        delta, theta, alpha, beta, gamma = (p[..., m].sum(-1) for m in masks)
+        tot = delta + theta + alpha + beta + gamma + 1e-10
+        out[i:i + 1024] = np.stack(
+            [mean, std, var, mn, mx, mx - mn, m3 / (m2 ** 1.5 + 1e-10),
+             m4 / (m2 ** 2 + 1e-10) - 3,
+             np.abs(np.diff(np.sign(cen), axis=-1)).sum(-1) / 2 / t, (s ** 2).mean(-1), var,
+             mob, comp, delta / tot, theta / tot, alpha / tot, beta / tot, gamma / tot,
+             alpha / (theta + 1e-10), alpha / (beta + 1e-10)], axis=-1)
+    return out
+
+
+def eda_phase(dev, smi, tmp):
+    """Phase 21: the explore stage as a CLI call on phase 17's raw recordings
+    under ``tmp / "data"``, Welch on the card against scipy and its CPU run,
+    the baselines' feature extraction on phase 17's three splits against a
+    float64 oracle (a bitwise repeat, the cache read back) and timed on 50,000
+    windows; which of sklearn and matplotlib import. No estimator runs where
+    sklearn does not import. -> the numbers it printed."""
+    from scipy import signal as sps
+
+    from eegflow_torch import kernels
+    from eegflow_torch.baselines.classical import load_or_extract_features
+    from eegflow_torch.cli.main import main as cli_main
+    from eegflow_torch.core.artifacts import load_processed, load_results
+    from eegflow_torch.data.bids import discover_recordings
+    from eegflow_torch.data.brainvision import read_brainvision
+    from eegflow_torch.signal.features import _extract, extract_features
+    from eegflow_torch.signal.spectral import band_power, welch_psd
+
+    out = {}
+    imports = {}
+    for name in ("sklearn", "matplotlib"):
+        try:
+            __import__(name)
+            imports[name] = True
+            print(f"host package {name}: imports on this machine")
+        except ImportError as e:
+            imports[name] = False
+            print(f"host package {name}: does not import ({e})")
+    if imports["sklearn"]:
+        print("estimators: sklearn imports, but this phase runs none (their results are held "
+              "to the JAX package's on the CPU by tests/test_torch_baselines.py)")
+    else:
+        print("estimators: none run here; sklearn does not import, so the baselines, parity "
+              "and all stages stop at their first estimator on this machine")
+
+    # explore as a user runs it
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = cli_main(["--data-dir", str(tmp / "data"), "--output-dir", str(tmp / "out"),
+                   "explore", "--device", dev.type])
+    torch.cuda.synchronize()
+    out["explore_s"] = time.perf_counter() - t0
+    launches = {k: v for k, v in kernels.launch_counts.items() if v}
+    summary = load_results(tmp / "out" / "results" / "eda_summary.json")
+    report = (tmp / "out" / "results" / "eda_report.md").read_text()
+    print(f"explore: {out['explore_s']:.1f} s, census {summary['census']['n_recordings']} "
+          f"recordings of {summary['census']['n_subjects']} subjects, statistics "
+          f"{summary['statistics']}, alpha closed/open ratio {summary['alpha_ratio']:.6f}, "
+          f"kernel launches {launches} [{smi}]", flush=True)
+    require(rc == 0 and set(summary) == {"census", "statistics", "alpha_ratio"}
+            and summary["census"]["n_recordings"] == 2 * PIPE_SUBJECTS
+            and summary["census"]["n_subjects"] == PIPE_SUBJECTS
+            and summary["statistics"]["n_recordings"] == 5
+            and summary["statistics"]["sampling_rates"] == [500.0]
+            and "Alpha (8-13 Hz) closed/open power ratio" in report and not launches,
+            "explore writes the reference's summary and report and launches no kernel")
+
+    # the same channel of the same two recordings in float64 through scipy
+    recs = discover_recordings(tmp / "data")
+    open_data, header = read_brainvision(next(r for r in recs if r["label"] == 0)["vhdr_path"])
+    closed_data, _ = read_brainvision(next(r for r in recs if r["label"] == 1)["vhdr_path"])
+    fs = header["sampling_rate"]
+    names = [c["name"] for c in header["channels"]]
+    ch = next((names.index(w) for w in ("O1", "Oz", "O2", "POz", "Pz") if w in names),
+              len(open_data) - 1)
+    f_ref, p_open = sps.welch(open_data[ch].astype(np.float64), fs, nperseg=1024)
+    _, p_closed = sps.welch(closed_data[ch].astype(np.float64), fs, nperseg=1024)
+    want = (band_power(f_ref, p_closed, (8.0, 13.0))
+            / (band_power(f_ref, p_open, (8.0, 13.0)) + 1e-30))
+    ratio_err = abs(summary["alpha_ratio"] - want) / want
+    print(f"explore alpha ratio on {names[ch]}: {summary['alpha_ratio']:.6f}, scipy float64 "
+          f"{want:.6f}, relative diff {ratio_err:.3e} (tol {WELCH_SCIPY_RTOL:g})", flush=True)
+    require(ratio_err <= WELCH_SCIPY_RTOL, "the alpha ratio within tolerance of scipy's")
+
+    # Welch on the card, both full recordings, every channel
+    for label, data in (("open", open_data), ("closed", closed_data)):
+        freqs, psd = welch_psd(data, fs, 1024, device=dev)
+        _, psd_cpu = welch_psd(data, fs, 1024, device="cpu")
+        f_ref, p_ref = sps.welch(data.astype(np.float64), fs, nperseg=1024)
+        err_scipy = float((np.abs(psd - p_ref) / p_ref).max())
+        err_cpu = float((np.abs(psd - psd_cpu) / psd_cpu).max())
+        print(f"welch_psd on the card, eyes-{label} recording {data.shape}: relative diff per "
+              f"bin vs scipy float64 {err_scipy:.3e} (tol {WELCH_SCIPY_RTOL:g}), vs its CPU "
+              f"run {err_cpu:.3e} (tol {WELCH_CPU_RTOL:g})", flush=True)
+        require(np.array_equal(freqs, f_ref) and psd.shape == p_ref.shape
+                and err_scipy <= WELCH_SCIPY_RTOL and err_cpu <= WELCH_CPU_RTOL,
+                f"welch_psd ({label}) within tolerance of scipy and of its CPU run")
+
+    # the baselines' features of phase 17's splits, cached where the stage caches them
+    arrays, _ = load_processed(tmp / "out" / "processed_data" / "processed_sequences.npz")
+    for split in ("train", "val", "test"):
+        x = np.asarray(arrays[f"X_{split}"])
+        cache = tmp / "out" / "models" / f"features_{split}.npz"
+        require(not cache.exists(), f"no features_{split}.npz before this phase")
+        kernels.reset_launch_counts()
+        t0 = time.perf_counter()
+        feats = load_or_extract_features(x, cache, fs, device=dev)
+        secs = time.perf_counter() - t0
+        again = extract_features(x, fs, device=dev)
+        read_back = load_or_extract_features(x[:0], cache, fs, device=dev)
+        n, t, c = x.shape
+        got = feats.reshape(n, c, 20)
+        want = feature_oracle(x, fs)
+        rest_got, rest_want = np.delete(got, 8, -1), np.delete(want, 8, -1)
+        outside = int((np.abs(rest_got - rest_want)
+                       > FEATURE_ORACLE_TOL + FEATURE_ORACLE_TOL * np.abs(rest_want)).sum())
+        zcr_diff = np.abs(got[..., 8] - want[..., 8])
+        flips = int((zcr_diff > 0.25 / t).sum())
+        print(f"features {split} {x.shape} on the card: {secs:.2f} s ({n / secs:.0f} windows/s, "
+              f"the cache written), {feats.shape}; non-zcr entries outside rtol/atol "
+              f"{FEATURE_ORACLE_TOL:g} of the float64 oracle: {outside} of {rest_got.size}; zcr "
+              f"entries that differ: {flips} of {zcr_diff.size} (bound "
+              f"{ZCR_MAX_FLIP_SHARE:g} of them), largest {zcr_diff.max(initial=0.0) * t:.3f}/T; repeat "
+              f"bitwise identical: {np.array_equal(feats, again)}; cache read back equal: "
+              f"{np.array_equal(read_back, feats)}; kernel launches "
+              f"{ {k: v for k, v in kernels.launch_counts.items() if v} }", flush=True)
+        require(outside == 0 and flips <= ZCR_MAX_FLIP_SHARE * zcr_diff.size
+                and zcr_diff.max(initial=0.0) <= 2 / t + 1e-6 and np.isfinite(feats).all()
+                and np.array_equal(feats, again) and np.array_equal(read_back, feats)
+                and feats.shape == (n, c * 20),
+                f"the {split} features against the oracle, repeatable, cached")
+        out[f"features_{split}_s"] = secs
+
+    # 50,000 N(0, 1) windows: five chunks of 10,000, host -> card -> host
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    x_big = torch.randn(FEATURE_TIMING_WINDOWS, T, C, generator=gen, device=dev).cpu().numpy()
+    extract_features(x_big[:FEATURE_CHUNK], device=dev)  # warm-up at the chunk's shape
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    feats = extract_features(x_big, device=dev)
+    wall = time.perf_counter() - t0
+    # one chunk through extract_features' steps by the host clock, and the
+    # host's concatenation and scrub of the five chunks' features
+    marks = [time.perf_counter()]
+    chunk = torch.from_numpy(x_big[:FEATURE_CHUNK]).to(dev)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    res = _extract(chunk, 500.0)
+    torch.cuda.synchronize()
+    marks.append(time.perf_counter())
+    host = res.reshape(FEATURE_CHUNK, -1).cpu().numpy()
+    marks.append(time.perf_counter())
+    np.nan_to_num(np.concatenate([host] * (FEATURE_TIMING_WINDOWS // FEATURE_CHUNK)),
+                  nan=0.0, posinf=0.0, neginf=0.0)
+    marks.append(time.perf_counter())
+    steps_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+    print(f"extract_features' steps by the host clock, one chunk: upload {steps_ms[0]:.2f} ms, "
+          f"device work {steps_ms[1]:.2f} ms, features' download {steps_ms[2]:.2f} ms; the "
+          f"host's concatenation and scrub of all {FEATURE_TIMING_WINDOWS:,} windows' "
+          f"features {steps_ms[3]:.2f} ms [{smi}]", flush=True)
+    compute_ms = cuda_ms(lambda: _extract(chunk, 500.0), 3)
+    upload_ms = cuda_ms(lambda: torch.from_numpy(x_big[:FEATURE_CHUNK]).to(dev), 3)
+    download_ms = cuda_ms(lambda: res.cpu(), 3)
+    chunk_ms = wall * 1e3 * FEATURE_CHUNK / FEATURE_TIMING_WINDOWS
+    read_bound = chunk.numel() * 4 / HBM_BYTES_PER_S * 1e3
+    io_bound = (chunk.numel() + res.numel()) * 4 / HBM_BYTES_PER_S * 1e3
+    out.update(windows_per_s=FEATURE_TIMING_WINDOWS / wall, compute_ms=compute_ms,
+               upload_ms=upload_ms, chunk_ms=chunk_ms, steps_ms=steps_ms)
+    print(f"extract_features on {FEATURE_TIMING_WINDOWS:,} N(0,1) windows of {T} x {C} (chunks "
+          f"of {FEATURE_CHUNK:,}): {wall:.3f} s, {out['windows_per_s']:,.0f} windows/s, "
+          f"{chunk_ms:.2f} ms a chunk; device ms a chunk on the card (CUDA events, the chunk "
+          f"resident) {compute_ms:.3f}; its pageable upload ({chunk.numel() * 4 / 1e6:.1f} MB) "
+          f"{upload_ms:.3f} ms, {upload_ms / chunk_ms:.1%} of a chunk; the features' download "
+          f"{download_ms:.3f} ms; bound of one read of the chunk {read_bound:.3f} ms (with the "
+          f"features written {io_bound:.3f} ms; {read_bound / compute_ms:.1%} of the device "
+          f"time) [{smi}]", flush=True)
+    require(feats.shape == (FEATURE_TIMING_WINDOWS, C * 20) and np.isfinite(feats).all(),
+            "the timing set's features")
+    del x_big, chunk, res, host
     return out
 
 
@@ -2653,8 +2883,8 @@ def main() -> int:
           f"[{smi}]", flush=True)
     del dd_args, res_f, res_r, h_f, h_r
 
-    # phase 16: kernels 11 and 12 against their twins; phase 17: the pipeline; phase
-    # 18: the analysis stages on its artifacts
+    # phase 16: kernels 11 and 12 against their twins; phase 17: the pipeline; phases
+    # 18-21: the analysis, ablate, EEGFormer and explore phases on its artifacts
     t_new = time.perf_counter()
     checks = kernel_check_phase(dev, smi)
     with tempfile.TemporaryDirectory(prefix="eegflow_chip_pipeline_") as tmp:
@@ -2671,13 +2901,17 @@ def main() -> int:
         tf = transformer_phase(dev, smi, Path(tmp) / "out")
         print(f"phase 20 (the EEGFormer and the snapshots): "
               f"{time.perf_counter() - t_transformer:.1f} s", flush=True)
+        t_eda = time.perf_counter()
+        eda_phase(dev, smi, Path(tmp))
+        print(f"phase 21 (explore, Welch and the baselines' features): "
+              f"{time.perf_counter() - t_eda:.1f} s", flush=True)
     work.update(abl["work"])
     work.update(tf["work"])
     apf_ms, apf_plain_ms, apf_err, work["apf_rk4"], apf_chain = apf_at_the_fit(
         dev, pipe["fit_props"], smi)
     work["sos_filtfilt"] = checks["sos_work"]
-    print(f"phases 16-20 (kernels 11 and 12, the pipeline, the analysis and ablate stages, "
-          f"the EEGFormer and the snapshots): "
+    print(f"phases 16-21 (kernels 11 and 12, the pipeline, the analysis and ablate stages, "
+          f"the EEGFormer and the snapshots, explore and the features): "
           f"{time.perf_counter() - t_new:.1f} s",
           flush=True)
 

@@ -1,10 +1,13 @@
-"""eegflow_torch CLI: the ``synth``, ``preprocess``, ``train``, ``fit-ode``,
-``integrate``, ``explain``, ``forecast``, ``export``, ``ablate`` and
-``serve`` subcommands, which run the pipeline from raw recordings to a
-served model, its analyses and its exports on the card:
+"""eegflow_torch CLI: the ``synth``, ``explore``, ``preprocess``,
+``baselines``, ``train``, ``fit-ode``, ``integrate``, ``explain``,
+``forecast``, ``export``, ``ablate``, ``serve``, ``parity`` and ``all``
+subcommands, which run the pipeline from raw recordings to a served model,
+its analyses and its exports on the card:
 
     python -m eegflow_torch.cli.main --data-dir data/synth synth --subjects 12 --duration 120
+    python -m eegflow_torch.cli.main --data-dir data/synth --output-dir outputs explore
     python -m eegflow_torch.cli.main --data-dir data/synth --output-dir outputs preprocess
+    python -m eegflow_torch.cli.main --output-dir outputs baselines
     python -m eegflow_torch.cli.main --output-dir outputs train [--model transformer]
     python -m eegflow_torch.cli.main --output-dir outputs fit-ode
     python -m eegflow_torch.cli.main --output-dir outputs integrate
@@ -13,12 +16,23 @@ served model, its analyses and its exports on the card:
     python -m eegflow_torch.cli.main --output-dir outputs export
     python -m eegflow_torch.cli.main --output-dir outputs ablate [--epochs N] [--hidden H]
     python -m eegflow_torch.cli.main --output-dir outputs --config cfg.json serve --port 8799
+    python -m eegflow_torch.cli.main --data-dir D --output-dir outputs parity --synthetic
+    python -m eegflow_torch.cli.main --data-dir D --output-dir outputs all [--epochs N]
 
 ``synth`` writes a synthetic ds004148-shaped BIDS tree of BrainVision files
-(host numpy; byte for byte the JAX package's). ``preprocess`` discovers and
+(host numpy; byte for byte the JAX package's). ``explore`` counts the
+recordings, summarises five of them and compares the Welch band powers
+(on the device) of an eyes-open and an eyes-closed recording on a posterior
+channel (O1, Oz, O2, POz or Pz): ``results/eda_report.md`` and
+``results/eda_summary.json``. ``preprocess`` discovers and
 splits the recordings, filters, z-scores and windows them on the device and
 writes ``processed_data/processed_sequences.npz`` and its metadata.
-``train`` reads that archive, trains the BiLSTM-attention classifier (or,
+``baselines`` extracts the 20 features a channel on the device (cached as
+``models/features_{split}.npz``) and fits the SVM, random forest and
+boosted trees on the host with sklearn, which must import (it raises
+``ModuleNotFoundError`` otherwise): ``results/baseline_results.json`` and
+``models/baseline_models.pkl``.
+``train`` reads the processed archive, trains the BiLSTM-attention classifier (or,
 with ``--model transformer``, the EEGFormer: ``d_model`` the model
 section's ``hidden_size``, its layers, heads and dropout), evaluates it on
 the test split with attention and writes
@@ -42,7 +56,19 @@ unless ``--epochs``), compares each with the full model and writes
 ``sensitivity_analysis.json`` (with ``coupling_analysis.json`` reloaded
 when ``integrate`` wrote one) and ``results_tables.txt``. ``serve`` loads
 the checkpoint and the fitted rates and serves the coupled model over
-HTTP. Every artifact is the JAX package's format, so either package reads
+HTTP. ``parity`` runs preprocess (with ``filter_method="filtfilt"``, the
+one stage path to kernel 12) -> baselines -> train -> fit-ode -> integrate
+and diffs the results against the reference's published table
+(``parity_config.json``, ``results/parity_report.json``; ``--synthetic``
+generates a synthetic set when none is on disk and marks the verdict not
+comparable; ``--expect-reference`` audits the real ds004148 tree first,
+``results/parity_audit.json``, and returns 2 when it is incomplete). This
+package has no ``download`` stage: without a dataset, ``parity -y`` says the
+download is the blocked step and returns 1. ``all`` runs explore ->
+preprocess -> baselines -> train -> fit-ode -> integrate -> explain ->
+forecast -> ablate -> export with ``--epochs``, ``--skip-shap``,
+``--hidden`` and ``--device``, up to the first stage that fails. Every
+artifact is the JAX package's format, so either package reads
 what the other writes; the stages after ``train`` take a checkpoint of
 either model family.
 
@@ -50,8 +76,9 @@ either model family.
 out); each stage reads its sections as the JAX package's does (``serve``:
 ``coupling``, ``train.lstm_impl`` and ``preprocess.sequence_length``). The
 figures the JAX package's stages draw are not drawn: the plotting module is
-not ported (fig01, fig04, fig07, fig08, fig10-12; fig13-fig23 of
-``integrate``, ``explain`` and ``forecast``; and fig25 of ``ablate``).
+not ported (fig01-fig05 of ``preprocess``, ``explore`` and ``baselines``,
+fig07, fig08, fig10-12; fig13-fig23 of ``integrate``, ``explain`` and
+``forecast``; and fig25 of ``ablate``).
 
 ``--device cuda`` (the default of every stage but ``synth``) without a
 usable GPU raises; it never carries on on the CPU. ``--device cpu`` runs the
@@ -513,6 +540,161 @@ def cmd_ablate(args) -> None:
         print("\n" + t)
 
 
+def cmd_explore(args) -> None:
+    from eegflow_torch.data.bids import discover_recordings
+    from eegflow_torch.data.brainvision import read_brainvision
+    from eegflow_torch.eda import (analyze_recordings, basic_statistics, dataset_census,
+                                   generate_eda_report, spectral_summary)
+
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    results = Path(args.output_dir) / "results"
+    census = dataset_census(args.data_dir, cfg.data.max_subjects)
+    stats = basic_statistics(analyze_recordings(args.data_dir, n_sample=5,
+                                                max_subjects=cfg.data.max_subjects))
+
+    spectral = None
+    recs = discover_recordings(args.data_dir, max_subjects=cfg.data.max_subjects)
+    open_rec = next((r for r in recs if r["label"] == 0), None)
+    closed_rec = next((r for r in recs if r["label"] == 1), None)
+    if open_rec and closed_rec:
+        open_data, header = read_brainvision(open_rec["vhdr_path"])
+        closed_data, _ = read_brainvision(closed_rec["vhdr_path"])
+        # a posterior alpha-carrying channel, like the reference's O1
+        names = [c["name"] for c in header["channels"]]
+        ch = next((names.index(w) for w in ("O1", "Oz", "O2", "POz", "Pz") if w in names),
+                  len(open_data) - 1)
+        spectral = spectral_summary(open_data[ch], closed_data[ch], header["sampling_rate"],
+                                    device=device)
+
+    report = generate_eda_report(census, stats, spectral, results / "eda_report.md")
+    save_results(results / "eda_summary.json",
+                 {"census": census, "statistics": stats,
+                  "alpha_ratio": spectral["alpha_closed_open_ratio"] if spectral else None})
+    print(report)
+
+
+def cmd_baselines(args) -> None:
+    from eegflow_torch.baselines.classical import run_all_baselines
+
+    device = resolve_device(args.device)
+    cfg = load_config(args.config)
+    out = Path(args.output_dir)
+    arrays, _ = load_splits(out)
+    t0 = time.perf_counter()
+    results = run_all_baselines(
+        arrays["X_train"], arrays["y_train"], arrays["X_val"], arrays["y_val"],
+        arrays["X_test"], arrays["y_test"], fs=cfg.preprocess.sampling_rate,
+        cache_dir=out / "models", device=device)
+    print(f"{len(results)} baselines fitted and evaluated in {time.perf_counter() - t0:.1f} s "
+          f"(features on {device})")
+    save_results(out / "results" / "baseline_results.json", results)
+    for name, r in results.items():
+        print(f"  {name}: acc={r['accuracy']:.4f} f1={r['f1']:.4f} "
+              f"auc={r.get('auc', float('nan')):.4f}")
+
+
+def cmd_parity(args) -> int:
+    """Real-data parity against the reference's published table (ref
+    README.md:220-224, ±0.5 pp): preprocess with filter_method='filtfilt'
+    -> baselines -> train -> fit-ode -> integrate -> every published number
+    diffed. The dataset must be on disk (this package has no download stage);
+    ``--synthetic`` runs the chain on the synthetic dataset, its results
+    marked not comparable."""
+    from eegflow_torch.analyze.parity import (compare_to_reference, format_parity_table,
+                                              reference_dataset_audit)
+    from eegflow_torch.data.bids import discover_recordings
+
+    resolve_device(args.device)
+    cfg = load_config(args.config)
+    out = Path(args.output_dir)
+    results = out / "results"
+    if args.expect_reference:
+        # the gate of the real check: audit the full manifest and list every
+        # absent file, rather than train on whatever subset is on disk
+        if args.synthetic:
+            print("--expect-reference and --synthetic are mutually exclusive "
+                  "(the audit is for the REAL ds004148 run)")
+            return 2
+        audit = reference_dataset_audit(args.data_dir, n_subjects=cfg.data.max_subjects,
+                                        tasks=cfg.data.tasks)
+        audit_path = save_results(results / "parity_audit.json", audit)
+        if not audit["ok"]:
+            print(f"reference dataset INCOMPLETE under {audit['data_dir']}: "
+                  f"{audit['present']}/{audit['expected']} artifacts present, "
+                  f"{len(audit['missing'])} missing (full list: {audit_path}):")
+            for line in audit["missing"][:20]:
+                print(f"  - {line}")
+            if len(audit["missing"]) > 20:
+                print(f"  ... and {len(audit['missing']) - 20} more")
+            print("fix: `eegflow download -y` where network egress to OpenNeuro S3 exists, "
+                  "then rerun this command")
+            return 2
+        print(f"reference dataset audit OK: {audit['present']}/{audit['expected']} "
+              "artifacts real on disk")
+    if not discover_recordings(args.data_dir, cfg.data.tasks, cfg.data.max_subjects):
+        if args.synthetic:
+            from eegflow_torch.data.synthetic import generate_synthetic_dataset
+
+            generate_synthetic_dataset(args.data_dir, n_subjects=args.subjects,
+                                       duration_s=args.duration, n_channels=args.channels)
+            print(f"no recordings found; generated a synthetic dataset under {args.data_dir} "
+                  "(results will be marked not-comparable)")
+        elif args.yes:
+            print("eegflow_torch has no download stage")
+            print("BLOCKED STEP: downloading ds004148 requires network egress to OpenNeuro "
+                  "S3 — rerun where the network allows, or pass --synthetic to exercise the "
+                  "chain.")
+            return 1
+        else:
+            print("dataset not found; pass -y to download ds004148 (the one "
+                  "network-dependent step) or --synthetic for a dry run")
+            return 1
+
+    # the reference's filtfilt for the parity run (ref 02:114-131); on real
+    # data also its val-F1 model selection (ref 04:572-584) in place of MCC
+    cfg = dataclasses.replace(
+        cfg, preprocess=dataclasses.replace(cfg.preprocess, filter_method="filtfilt"))
+    if not args.synthetic:
+        cfg = dataclasses.replace(
+            cfg, train=dataclasses.replace(cfg.train, selection_metric="f1"))
+    cfg_path = out / "parity_config.json"
+    cfg_path.parent.mkdir(parents=True, exist_ok=True)
+    cfg.to_json(cfg_path)
+    stage_args = argparse.Namespace(
+        data_dir=args.data_dir, output_dir=args.output_dir, config=str(cfg_path),
+        epochs=args.epochs, model="lstm", device=args.device)
+    for fn in (cmd_preprocess, cmd_baselines, cmd_train, cmd_fit_ode, cmd_integrate):
+        print(f"\n===== parity: {fn.__name__[4:]} =====")
+        rc = fn(stage_args)
+        if rc:
+            return rc
+
+    measured = dict(load_results(results / "baseline_results.json"))
+    measured["lstm_attention"] = load_results(results / "lstm_results.json")
+    measured["lstm_ode_integration"] = load_results(
+        results / "integration_results.json")["evaluation"]
+    report = compare_to_reference(measured, comparable=not args.synthetic)
+    save_results(results / "parity_report.json", report)
+    print()
+    print(format_parity_table(report))
+    return 0
+
+
+def cmd_all(args) -> int:
+    """explore -> preprocess -> baselines -> train -> fit-ode -> integrate ->
+    explain -> forecast -> ablate -> export, up to the first stage that
+    returns non-zero."""
+    stage_args = argparse.Namespace(**vars(args), model="lstm")
+    for fn in (cmd_explore, cmd_preprocess, cmd_baselines, cmd_train, cmd_fit_ode,
+               cmd_integrate, cmd_explain, cmd_forecast, cmd_ablate, cmd_export):
+        print(f"\n===== {fn.__name__[4:]} =====")
+        rc = fn(stage_args)
+        if rc:
+            return rc
+    return 0
+
+
 def start_server(args):
     """The coupled model of ``--output-dir`` with the config's ``coupling``
     and ``train.lstm_impl``, served on ``--host``/``--port`` (warmed up at
@@ -554,9 +736,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--channels", type=int, default=61)
     p.add_argument("--seed", type=int, default=42)
     p.set_defaults(fn=cmd_synth)
+    p = sub.add_parser("explore", help="census, recording statistics and the alpha biomarker")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_explore)
     p = sub.add_parser("preprocess", help="filter, z-score and window the recordings")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_preprocess)
+    p = sub.add_parser("baselines", help="SVM, random forest and boosted trees on the features")
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_baselines)
     p = sub.add_parser("train", help="train the BiLSTM-attention classifier")
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--model", choices=["lstm", "transformer"], default="lstm",
@@ -587,6 +775,26 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--port", type=int, default=8799)
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_serve)
+    p = sub.add_parser("parity", help="real-data parity check vs the reference's published results")
+    p.add_argument("-y", "--yes", action="store_true",
+                   help="confirm the ds004148 download if absent (this package cannot download)")
+    p.add_argument("--synthetic", action="store_true",
+                   help="fall back to synthetic data (a dry run of the chain)")
+    p.add_argument("--expect-reference", action="store_true",
+                   help="audit the real ds004148 tree first and fail listing every absent file")
+    p.add_argument("--subjects", type=int, default=24)
+    p.add_argument("--duration", type=float, default=60.0)
+    p.add_argument("--channels", type=int, default=61,
+                   help="synthetic-mode channel count (real data is 61)")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_parity)
+    p = sub.add_parser("all", help="run the full pipeline")
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--skip-shap", action="store_true")
+    p.add_argument("--hidden", type=int, default=None)
+    p.add_argument("--device", default="cuda")
+    p.set_defaults(fn=cmd_all)
     return parser
 
 
