@@ -159,9 +159,23 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      against a float64 oracle (the zcr's differing entries counted apart), a
      bitwise repeat and the cache read back; extract_features timed on 50,000
      N(0,1) windows (windows/s, device ms a chunk, the pageable upload's share,
-     the bound of one read of a chunk); which of sklearn and matplotlib
-     import (no estimator runs without sklearn: the baselines, parity and all
-     stages stop there on the GPU machine).
+     the bound of one read of a chunk); whether sklearn imports and whether
+     matplotlib is installed (no estimator runs without sklearn: the
+     baselines, parity and all stages stop there on the GPU machine).
+     In phases 17-21 each stage that draws figures in the JAX package
+     (explore, preprocess, baselines, train, fit-ode, integrate, explain,
+     forecast, ablate) is checked for them: where matplotlib is not installed
+     it printed its skip line once and wrote no file under figures/ (and no
+     phase imports matplotlib), where it is installed it drew.
+ 22. `train --profile DIR --epochs 1` as a CLI call on a synthetic processed
+     set (phase 8's windows, 1,024 for training): the Chrome trace parsed and
+     searched for the default bf16 path's hand-written kernels (lstm_fwd in
+     planes mode, lstm_bwd, pool_head_fwd, pool_head_bwd, input_block forward
+     and backward; presence, since the profiler drops launches), its size and
+     the run's wall time; fig10's series (ode_analysis_series: one apf_rk4
+     launch in trajectory mode, 3 initial states x 120 points, and the steady
+     state) against its CPU twin; Timer/timed around one served batch and
+     compute_metrics on its decisions against analyze/evaluate.py.
 The line before the last lists the kernels as JSON, each with its time, its
 twin's, its bound on an H100 (bytes over 3.35 TB/s or products over the
 dtype's peak, whichever is larger), the library call's time where there is
@@ -173,6 +187,8 @@ line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
+import importlib.util
+import io
 import json
 import math
 import re
@@ -325,6 +341,22 @@ WELCH_CPU_RTOL = 1e-4
 FEATURE_ORACLE_TOL = 2e-3
 ZCR_MAX_FLIP_SHARE = 1e-4
 FEATURE_CHUNK, FEATURE_TIMING_WINDOWS = 10_000, 50_000
+# the stages that draw figures in the JAX package (eegflow/cli/main.py)
+FIGURE_STAGES = ("explore", "preprocess", "baselines", "train", "fit-ode", "integrate",
+                 "explain", "forecast", "ablate")
+# phase 22: the training windows of the profiled run; fig10's series on the card
+# against its CPU twin: float32 RK4 with FMA contraction on one side (kernel
+# 11's trajectory mode, APF_TRAJ_TOL at its check shape) and a float32 3 x 3
+# solve of two libraries
+PROFILE_WINDOWS = 1024
+ODE_SERIES_TOL = 1e-5
+# the default bf16 path's hand-written kernels as their names appear in a trace
+TRACE_KERNELS = {"lstm_fwd (planes)": r"lstm_fwd_rec_kernel<1,",
+                 "lstm_bwd": r"lstm_bwd_chain_kernel",
+                 "pool_head_fwd": r"pool_head_fwd_bf16_kernel",
+                 "pool_head_bwd": r"pool_head_bwd_bf16_kernel",
+                 "input_block_fwd": r"input_block_fwd_kernel",
+                 "input_block_bwd": r"input_block_bwd_bf16_kernel"}
 # the columns the reference exports (eegflow/analyze/export.py)
 SAMPLE_COLUMNS = ["Sample_ID", "Prob_EyesOpen", "Prob_Drowsy", "Prob_EyesClosed", "LSTM_P_Open",
                   "LSTM_P_Closed", "Predicted_State", "Ground_Truth"]
@@ -337,6 +369,47 @@ PARTICIPANT_COLUMNS = ["Participant_ID", "N_Samples", "Prob_EyesOpen", "Prob_Dro
 def require(cond, msg):
     if not cond:
         raise RuntimeError(f"check failed: {msg}")
+
+
+class _Tee(io.TextIOBase):
+    """Writes to ``out`` and keeps a copy."""
+
+    def __init__(self, out):
+        self.out, self.kept = out, io.StringIO()
+
+    def write(self, text):
+        self.out.write(text)
+        self.kept.write(text)
+        return len(text)
+
+    def flush(self):
+        self.out.flush()
+
+
+def run_cli(cli_main, argv):
+    """``cli_main(argv)`` with its standard output shown as it goes and kept
+    -> (return code, output)."""
+    tee = _Tee(sys.stdout)
+    with contextlib.redirect_stdout(tee):
+        rc = cli_main(argv)
+    return rc, tee.kept.getvalue()
+
+
+def check_figures(stage, output, out_dir):
+    """A stage that draws figures in the JAX package: where matplotlib is not
+    installed (the GPU machine), it printed its skip line once and wrote no
+    file under ``figures/``; where it is, it drew."""
+    from eegflow_torch.cli.main import FIGURES_SKIPPED
+
+    if stage not in FIGURE_STAGES:
+        return
+    skipped = output.count(f"{stage}: {FIGURES_SKIPPED}")
+    files = sorted(p.name for p in (Path(out_dir) / "figures").glob("*"))
+    if importlib.util.find_spec("matplotlib") is None:
+        require(skipped == 1 and not files,
+                f"{stage} printed its skip line once ({skipped}) and wrote no figure ({files})")
+    else:
+        require(skipped == 0 and files, f"{stage} drew its figures")
 
 
 def cuda_ms(fn, reps):
@@ -672,11 +745,12 @@ def pipeline_phase(dev, smi, tmp):
     def stage(name, argv, config=None):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        rc = cli_main((["--config", str(config)] if config else []) + argv)
+        rc, text = run_cli(cli_main, (["--config", str(config)] if config else []) + argv)
         torch.cuda.synchronize()
         times[name] = time.perf_counter() - t0
         counts = dict(kernels.launch_counts)
         require(rc == 0, f"{name} stage returned 0")
+        check_figures(name, text, tmp / "out")
         print(f"pipeline {name}: {times[name]:.1f} s, launches {counts}", flush=True)
         return counts
 
@@ -783,11 +857,13 @@ def analysis_phase(dev, smi, out_dir, infer_ms_1024):
     def stage(name, argv):
         kernels.reset_launch_counts()
         t0 = time.perf_counter()
-        rc = cli_main(["--output-dir", str(out_dir)] + argv + ["--device", dev.type])
+        rc, text = run_cli(cli_main, ["--output-dir", str(out_dir)] + argv
+                           + ["--device", dev.type])
         torch.cuda.synchronize()
         times[name] = time.perf_counter() - t0
         counts[name] = Counter(kernels.launch_counts)
         require(rc == 0, f"{name} stage returned 0")
+        check_figures(name, text, out_dir)
         print(f"analysis {name}: {times[name]:.1f} s, launches {dict(counts[name])}", flush=True)
 
     def timed(name, fn):
@@ -1183,12 +1259,13 @@ def ablation_phase(dev, smi, out_dir):
         ablation.quick_train_evaluate = timed_train
         t0 = time.perf_counter()
         try:
-            rc = cli_main(argv)
+            rc, text = run_cli(cli_main, argv)
         finally:
             ablation.quick_train_evaluate = train_fn
         torch.cuda.synchronize()
         stage_s = time.perf_counter() - t0
         require(rc == 0 and len(records) == len(ABLATE_VARIANTS), f"ablate {argv[2:]} ran")
+        check_figures("ablate", text, out_dir)
         steps, batches = n_train // bs * epochs, -(-n_test // (2 * bs))
         total = Counter()
         for variant, rec in zip(ABLATE_VARIANTS, records):
@@ -1383,14 +1460,16 @@ def eda_phase(dev, smi, tmp):
 
     out = {}
     imports = {}
-    for name in ("sklearn", "matplotlib"):
-        try:
-            __import__(name)
-            imports[name] = True
-            print(f"host package {name}: imports on this machine")
-        except ImportError as e:
-            imports[name] = False
-            print(f"host package {name}: does not import ({e})")
+    try:
+        __import__("sklearn")
+        imports["sklearn"] = True
+        print("host package sklearn: imports on this machine")
+    except ImportError as e:
+        imports["sklearn"] = False
+        print(f"host package sklearn: does not import ({e})")
+    # looked up, not imported: no phase imports matplotlib
+    print("host package matplotlib: "
+          + ("installed" if importlib.util.find_spec("matplotlib") else "not installed"))
     if imports["sklearn"]:
         print("estimators: sklearn imports, but this phase runs none (their results are held "
               "to the JAX package's on the CPU by tests/test_torch_baselines.py)")
@@ -1401,10 +1480,11 @@ def eda_phase(dev, smi, tmp):
     # explore as a user runs it
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    rc = cli_main(["--data-dir", str(tmp / "data"), "--output-dir", str(tmp / "out"),
-                   "explore", "--device", dev.type])
+    rc, text = run_cli(cli_main, ["--data-dir", str(tmp / "data"), "--output-dir",
+                                  str(tmp / "out"), "explore", "--device", dev.type])
     torch.cuda.synchronize()
     out["explore_s"] = time.perf_counter() - t0
+    check_figures("explore", text, tmp / "out")
     launches = {k: v for k, v in kernels.launch_counts.items() if v}
     summary = load_results(tmp / "out" / "results" / "eda_summary.json")
     report = (tmp / "out" / "results" / "eda_report.md").read_text()
@@ -1597,12 +1677,13 @@ def transformer_phase(dev, smi, out_dir):
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
     try:
-        rc = cli_main(["--output-dir", str(tf_dir), "train", "--model", "transformer",
-                       "--epochs", "1", "--device", dev.type])
+        rc, text = run_cli(cli_main, ["--output-dir", str(tf_dir), "train", "--model",
+                                      "transformer", "--epochs", "1", "--device", dev.type])
     finally:
         loop.make_train_step, loop.make_eval_step, steps.make_eval_step = made
     torch.cuda.synchronize()
     train_s = time.perf_counter() - t0
+    check_figures("train", text, tf_dir)
     counts = Counter(kernels.launch_counts)
     out["launches"].update(counts)
     _, tf_cfg, hist, extra = load_checkpoint(tf_dir / "models" / "lstm_attention")
@@ -1642,9 +1723,11 @@ def transformer_phase(dev, smi, out_dir):
     # explain --skip-shap: the input gradients (one backward) and the permutation
     kernels.reset_launch_counts()
     t0 = time.perf_counter()
-    rc = cli_main(["--output-dir", str(tf_dir), "explain", "--skip-shap", "--device", dev.type])
+    rc, text = run_cli(cli_main, ["--output-dir", str(tf_dir), "explain", "--skip-shap",
+                                  "--device", dev.type])
     torch.cuda.synchronize()
     explain_s = time.perf_counter() - t0
+    check_figures("explain", text, tf_dir)
     counts = Counter(kernels.launch_counts)
     out["launches"].update(counts)
     summary = load_results(tf_dir / "results" / "explainability_summary.json")
@@ -1866,6 +1949,91 @@ def transformer_phase(dev, smi, out_dir):
               flush=True)
         require(bitwise or (family == "transformer" and diff <= STEP_GRAD_REL_TOL),
                 f"{family}: the resumed run ends with the uninterrupted run's train state")
+    return out
+
+
+def profile_phase(dev, smi, tmp):
+    """Phase 22: ``train --profile DIR --epochs 1`` as a CLI call on a
+    synthetic processed set (phase 8's windows, ``PROFILE_WINDOWS`` of them
+    for training), its Chrome trace parsed and searched for the default bf16
+    path's hand-written kernels (presence: the profiler drops launches on
+    these machines); fig10's series (``ode_analysis_series``: kernel 11's
+    trajectory mode, 3 initial states x 120 points, and the steady state) on
+    the card against its CPU twin; ``Timer``/``timed`` around one served
+    batch of the trained model and ``compute_metrics`` on its decisions
+    against ``analyze/evaluate.py``. -> the numbers it printed."""
+    from eegflow_torch import kernels
+    from eegflow_torch.analyze.evaluate import binary_metrics
+    from eegflow_torch.cli.main import load_coupled_model
+    from eegflow_torch.cli.main import main as cli_main
+    from eegflow_torch.core import Timer, timed
+    from eegflow_torch.core.artifacts import save_results
+    from eegflow_torch.core.registry import available_metrics, compute_metrics
+    from eegflow_torch.couple.rollout import predict_batch
+    from eegflow_torch.ode.field import DEFAULT_RATES, RATE_NAMES
+    from eegflow_torch.viz.figures import ode_analysis_series
+
+    out = {}
+    rng = np.random.default_rng(SEED + 22)
+    (tmp / "processed_data").mkdir(parents=True)
+    arrays = {}
+    for split, n in (("train", PROFILE_WINDOWS), ("val", 256), ("test", 256)):
+        arrays[f"X_{split}"], arrays[f"y_{split}"] = synthetic_split(rng, n, T, C)
+    np.savez(tmp / "processed_data" / "processed_sequences.npz", **arrays)
+    save_results(tmp / "results" / "ode_results.json", {"fitted_params": DEFAULT_RATES})
+
+    # train --profile
+    trace_dir = tmp / "trace"
+    t0 = time.perf_counter()
+    rc, text = run_cli(cli_main, ["--output-dir", str(tmp), "train", "--epochs", "1",
+                                  "--profile", str(trace_dir), "--device", dev.type])
+    torch.cuda.synchronize()
+    out["train_profile_s"] = time.perf_counter() - t0
+    require(rc == 0, "train --profile returned 0")
+    check_figures("train", text, tmp)
+    traces = sorted(trace_dir.glob("torch_trace_*.json"))
+    require(len(traces) == 1, f"one trace written: {traces}")
+    out["trace_mb"] = traces[0].stat().st_size / 1e6
+    events = json.loads(traces[0].read_text())["traceEvents"]
+    names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    found = {k: any(re.search(pat, n) for n in names) for k, pat in TRACE_KERNELS.items()}
+    print(f"train --profile --epochs 1 on {PROFILE_WINDOWS} windows: "
+          f"{out['train_profile_s']:.1f} s wall (profiler on), trace {traces[0].name} "
+          f"{out['trace_mb']:.1f} MB, {len(events)} events, {len(names)} distinct kernels; "
+          f"the default bf16 path's kernels named: {found} [{smi}]", flush=True)
+    require(all(found.values()), f"the trace names the default bf16 path's kernels: {found}")
+
+    # fig10's series on the card against its CPU twin
+    k = np.asarray([DEFAULT_RATES[r] for r in RATE_NAMES], np.float32)
+    kernels.reset_launch_counts()
+    t0 = time.perf_counter()
+    got = ode_analysis_series(k, dev)
+    series_ms = (time.perf_counter() - t0) * 1e3
+    launches = dict(kernels.launch_counts)
+    want = ode_analysis_series(k, "cpu")
+    out["ode_series_err"] = max(float(np.abs(got[key] - want[key]).max()) for key in want)
+    print(f"ode_analysis_series on the card (trajectories {got['trajectories'].shape}, steady "
+          f"state {got['steady_state']}): {series_ms:.1f} ms, launches {launches}; max abs diff "
+          f"from the CPU twin {out['ode_series_err']:.3e} (tol {ODE_SERIES_TOL:g})", flush=True)
+    require(launches == {"apf_rk4": 1} and out["ode_series_err"] <= ODE_SERIES_TOL,
+            "fig10's series: one apf_rk4 launch, within its tolerance of the CPU twin")
+
+    # Timer / timed around one served batch, the registry on its decisions
+    model = load_coupled_model(tmp, dev)
+    timer = Timer()
+    serve_batch = timed("served batch", timer)(
+        lambda xs: predict_batch(model, xs, batch_size=BUCKET))
+    res = serve_batch(arrays["X_test"])
+    res = serve_batch(arrays["X_test"])
+    span = timer.summary()["served batch"]
+    y = arrays["y_test"]
+    metrics = compute_metrics(available_metrics(), y, res["pred_binary"], res["probs"][:, 1])
+    want = binary_metrics(y, res["pred_binary"], res["probs"][:, 1])
+    agree = all(abs(metrics[n] - want[n]) <= 1e-12 for n in metrics)
+    print(f"Timer/timed around predict_batch of {len(y)} windows: {span['count']} calls, "
+          f"mean {span['mean_s'] * 1e3:.2f} ms (host clock, the call returns host arrays); "
+          f"compute_metrics {metrics} equal to analyze/evaluate.py's: {agree}", flush=True)
+    require(span["count"] == 2 and agree, "the registry's metrics equal analyze/evaluate.py's")
     return out
 
 
@@ -2914,6 +3082,15 @@ def main() -> int:
           f"the EEGFormer and the snapshots, explore and the features): "
           f"{time.perf_counter() - t_new:.1f} s",
           flush=True)
+
+    # phase 22: train --profile, fig10's series, the timer and the registry
+    t_profile = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="eegflow_chip_profile_") as tmp:
+        profile_phase(dev, smi, Path(tmp))
+    print(f"phase 22 (train --profile, fig10's series, Timer and the registry): "
+          f"{time.perf_counter() - t_profile:.1f} s", flush=True)
+    if importlib.util.find_spec("matplotlib") is None:
+        require("matplotlib" not in sys.modules, "no phase imported matplotlib")
 
     # one cuDNN LSTM call per LSTM kernel, at its shape (TF32 off): the forward,
     # or forward + backward minus forward; in bf16 for the bf16 kernels where

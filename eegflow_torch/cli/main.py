@@ -74,11 +74,20 @@ either model family.
 
 ``--config`` reads a ``PipelineConfig`` JSON (defaults for what it leaves
 out); each stage reads its sections as the JAX package's does (``serve``:
-``coupling``, ``train.lstm_impl`` and ``preprocess.sequence_length``). The
-figures the JAX package's stages draw are not drawn: the plotting module is
-not ported (fig01-fig05 of ``preprocess``, ``explore`` and ``baselines``,
-fig07, fig08, fig10-12; fig13-fig23 of ``integrate``, ``explain`` and
-``forecast``; and fig25 of ``ablate``).
+``coupling``, ``train.lstm_impl`` and ``preprocess.sequence_length``).
+``train --profile DIR`` writes a ``torch.profiler`` Chrome trace of the
+training into ``DIR``.
+
+The stages draw the JAX package's figures under ``figures/`` (PNG and PDF
+at 300 dpi, :mod:`eegflow_torch.viz.figures`): ``explore`` fig03 and fig02,
+``preprocess`` fig01 and fig04, ``baselines`` fig05, ``train`` fig07 and
+fig08, ``fit-ode`` fig10-fig12, ``integrate`` fig13-fig15, ``explain``
+fig16-fig21 (fig21 unless ``--skip-shap``), ``forecast`` fig23 and
+``ablate`` fig25. Where matplotlib does not import, a stage prints one line
+saying it skipped its figures, skips their device work (fig04's filter,
+fig10's solves) and writes everything else; the JAX package's stages raise
+there. fig02 draws six channels and raises ``IndexError`` on fewer, as the
+JAX package's does.
 
 ``--device cuda`` (the default of every stage but ``synth``) without a
 usable GPU raises; it never carries on on the CPU. ``--device cpu`` runs the
@@ -161,6 +170,26 @@ def apply_small_subject_reg(train_cfg: TrainConfig, n_train_subj: Optional[int])
     return train_cfg
 
 
+FIGURES_SKIPPED = "figures skipped"
+
+
+def figures(stage: str):
+    """The plotting package (:mod:`eegflow_torch.viz`) where matplotlib
+    imports; else None, after one line saying that ``stage`` skipped its
+    figures. Only matplotlib's absence is caught."""
+    from eegflow_torch import viz
+    from eegflow_torch.viz.figures import pyplot
+
+    try:
+        pyplot()
+    except ModuleNotFoundError as e:
+        if (e.name or "").split(".")[0] != "matplotlib":
+            raise
+        print(f"{stage}: {FIGURES_SKIPPED}: matplotlib does not import ({e})", flush=True)
+        return None
+    return viz
+
+
 def _no_tf32() -> None:
     # float32 matmuls outside the kernels (dense layers, the ODE) stay float32
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -169,12 +198,14 @@ def _no_tf32() -> None:
 
 def cmd_train(args) -> None:
     from eegflow_torch.analyze.evaluate import evaluate_model
+    from eegflow_torch.core.timing import torch_trace
     from eegflow_torch.train.data import augment_data, make_surrogate_refresher
     from eegflow_torch.train.loop import train_classifier
     from eegflow_torch.train.steps import make_eval_step
 
     _no_tf32()
     device = resolve_device(args.device)
+    viz = figures("train")
     cfg = load_config(args.config)
     model_cfg, train_cfg = cfg.model, cfg.train
     out = Path(args.output_dir)
@@ -217,8 +248,9 @@ def cmd_train(args) -> None:
                 n_orig, train_cfg.aug_phase_surrogates, train_cfg.seed)
             print("per-epoch fresh surrogate refresh enabled")
 
-    res = train_classifier(x_train, y_train, x_val, y_val, model_cfg, train_cfg,
-                           device=device, epoch_transform=epoch_transform)
+    with torch_trace(getattr(args, "profile", None), device):
+        res = train_classifier(x_train, y_train, x_val, y_val, model_cfg, train_cfg,
+                               device=device, epoch_transform=epoch_transform)
     print(f"best val F1 {res.best_val_f1:.4f} in {res.epochs_run} epochs "
           f"({res.wall_time_s:.0f}s, {res.windows_per_sec:.0f} windows/s) on {device}")
 
@@ -245,6 +277,12 @@ def cmd_train(args) -> None:
                            "windows_per_sec": res.windows_per_sec})
     save_results(results / "lstm_results.json", evaluation)
     np.save(models / "attention_weights.npy", attention)
+    if viz:
+        figs = out / "figures"
+        viz.plot_training_history(res.history, figs / "fig07_training")
+        if len(attention) and len(y_test):
+            viz.plot_attention_weights(attention, y_test, figs / "fig08_attention",
+                                       cfg.preprocess.sampling_rate)
 
 
 def cmd_synth(args) -> None:
@@ -262,6 +300,7 @@ def cmd_preprocess(args) -> int:
     from eegflow_torch.signal.preprocess import process_recordings, split_subjects
 
     device = resolve_device(args.device)
+    viz = figures("preprocess")
     cfg = load_config(args.config)
     recs = discover_recordings(args.data_dir, cfg.data.tasks, cfg.data.max_subjects)
     if not recs:
@@ -287,6 +326,22 @@ def cmd_preprocess(args) -> int:
     meta["channel_names"] = [c["name"] for c in
                              read_brainvision(recs[0]["vhdr_path"])[1]["channels"]]
     npz = save_processed(Path(args.output_dir) / "processed_data", arrays, meta)
+    if viz:
+        figs = Path(args.output_dir) / "figures"
+        viz.plot_class_distribution({s: arrays[f"y_{s}"] for s in ("train", "val", "test")},
+                                    figs / "fig01_class_distribution")
+        if loaded["train"]:  # the stages of the first training recording
+            from eegflow_torch.signal.filters import bandpass_filter
+            from eegflow_torch.signal.preprocess import normalize
+
+            p = cfg.preprocess
+            raw = np.asarray(loaded["train"][0][1])
+            filt = bandpass_filter(torch.from_numpy(np.ascontiguousarray(raw, np.float32))
+                                   .to(device), p.lowcut, p.highcut, p.sampling_rate,
+                                   p.filter_order, method=p.filter_method)
+            norm, _, _ = normalize(filt)
+            viz.plot_preprocessing_overview(raw, filt.cpu().numpy(), norm.cpu().numpy(),
+                                            p.sampling_rate, figs / "fig04_preprocessing")
     for s in ("train", "val", "test"):
         print(f"  {s}: {arrays[f'X_{s}'].shape}")
     print(f"saved {npz}")
@@ -300,6 +355,7 @@ def cmd_fit_ode(args) -> None:
     from eegflow_torch.ode.sensitivity import parameter_sensitivity
 
     device = resolve_device(args.device)
+    viz = figures("fit-ode")
     cfg = load_config(args.config)
     out = Path(args.output_dir)
     arrays, _ = load_processed(out / "processed_data" / "processed_sequences.npz")
@@ -315,7 +371,7 @@ def cmd_fit_ode(args) -> None:
     for w in validation["warnings"]:
         print(f"  WARNING: {w}")
     k = rates_to_array(rates, device)
-    save_results(out / "results" / "ode_results.json", {
+    analysis = {
         "fitted_params": rates,
         "fit_loss": loss,
         "fit_info": info,
@@ -323,7 +379,15 @@ def cmd_fit_ode(args) -> None:
         "stability": stability_analysis(k),
         "sensitivity": parameter_sensitivity(k),
         "validation": validation,
-    })
+    }
+    save_results(out / "results" / "ode_results.json", analysis)
+    if viz:
+        figs = out / "figures"
+        viz.plot_ode_analysis(k.cpu().numpy(), figs / "fig10_ode_analysis",
+                              analysis["sensitivity"], device=device)
+        viz.plot_state_diagram(rates, figs / "fig11_state_diagram")
+        viz.plot_sensitivity_heatmap(analysis["sensitivity"]["sensitivities"],
+                                     figs / "fig12_sensitivity_heatmap")
 
 
 def cmd_integrate(args) -> None:
@@ -334,8 +398,10 @@ def cmd_integrate(args) -> None:
 
     _no_tf32()
     device = resolve_device(args.device)
+    viz = figures("integrate")
     cfg = load_config(args.config)
     results = Path(args.output_dir) / "results"
+    figs = Path(args.output_dir) / "figures"
     arrays, _ = load_splits(args.output_dir)
     model = load_coupled_model(args.output_dir, device, cfg.coupling, cfg.train.lstm_impl)
 
@@ -354,6 +420,10 @@ def cmd_integrate(args) -> None:
     save_results(results / "integration_results.json",
                  {"evaluation": evaluation, "throughput_samples_per_sec": n / max(dt, 1e-9)})
     save_results(results / "coupling_analysis.json", sweep)
+    if viz:
+        viz.plot_coupling_analysis(sweep, figs / "fig13_coupling")
+        viz.plot_trajectory_examples(res["trajectories"], res["probs"],
+                                     figs / "fig14_trajectories")
 
     # model-zoo comparison across all stages run so far (ref 06:636-777)
     baselines = lstm = None
@@ -363,6 +433,8 @@ def cmd_integrate(args) -> None:
         lstm = load_results(results / "lstm_results.json")
     all_results = merge_all_model_results(baselines, lstm, {"evaluation": evaluation})
     save_results(results / "all_model_results.json", all_results)
+    if viz:
+        viz.plot_comprehensive_comparison(all_results, figs / "fig15_model_zoo")
     print(format_results_table(all_results))
 
 
@@ -375,8 +447,9 @@ def cmd_explain(args) -> None:
 
     _no_tf32()
     device = resolve_device(args.device)
+    viz = figures("explain")
     out = Path(args.output_dir)
-    results = out / "results"
+    results, figs = out / "results", out / "figures"
     arrays, meta = load_splits(out)
     params, model_cfg, _, _ = load_checkpoint(out / "models" / "lstm_attention")
     params = params_from_jax(params, device)
@@ -399,6 +472,10 @@ def cmd_explain(args) -> None:
         print(f"  kernel-shap {time.perf_counter() - t2:.0f}s", flush=True)
         results.mkdir(parents=True, exist_ok=True)
         np.save(results / "shap_values.npy", shap_res["shap_values"])
+        if viz:
+            viz.plot_shap_analysis(shap_res["shap_values"], shap_res["x_explain"],
+                                   shap_res["channels"], figs / "fig21_shap_analysis",
+                                   gradient_importance=np.asarray(grad["importance"]))
         shap_light = {k: v for k, v in shap_res.items()
                       if k not in ("shap_values", "x_explain")}
         methods.append(shap_light)
@@ -411,11 +488,16 @@ def cmd_explain(args) -> None:
         attention = np.load(attn_path)
         if len(attention) == len(y_test):
             attention_analysis = analyze_attention_patterns(attention, y_test)
+            if viz:
+                viz.plot_attention_explainability(attention, y_test,
+                                                  figs / "fig18_attention_explainability")
 
     ode_analysis = None
     if (results / "ode_results.json").exists():
-        ode_analysis = analyze_ode_dynamics(
-            load_results(results / "ode_results.json")["fitted_params"])
+        fitted = load_results(results / "ode_results.json")["fitted_params"]
+        ode_analysis = analyze_ode_dynamics(fitted)
+        if viz:
+            viz.plot_ode_explainability(fitted, figs / "fig20_ode_explainability")
 
     # reference-parity summary incl. region shares + clinical insights
     # (ref 07_explainability.py:1207-1273)
@@ -427,6 +509,10 @@ def cmd_explain(args) -> None:
         shap=shap_light,
     )
     save_results(results / "explainability_summary.json", summary)
+    if viz:
+        viz.plot_channel_importance(grad, figs / "fig16_gradient_importance")
+        viz.plot_channel_importance(perm, figs / "fig17_permutation_importance")
+        viz.plot_importance_comparison(comparison, figs / "fig19_importance_comparison")
     print(f"top channels: {summary['top_channels']}")
 
 
@@ -437,6 +523,7 @@ def cmd_forecast(args) -> None:
 
     _no_tf32()
     device = resolve_device(args.device)
+    viz = figures("forecast")
     cfg = load_config(args.config)
     out = Path(args.output_dir)
     arrays, _ = load_splits(out)
@@ -453,6 +540,9 @@ def cmd_forecast(args) -> None:
     save_results(out / "results" / "forecasting_results.json",
                  {"metrics": {str(h): m for h, m in metrics.items()},
                   "rolling": rolling})
+    if viz and metrics:
+        viz.plot_forecasting_results(results, metrics, list(metrics),
+                                     out / "figures" / "fig23_forecasting")
     for h, m in metrics.items():
         print(f"  h={h}: acc={m['accuracy']:.3f} mae={m['mae']:.3f} "
               f"rho={m['correlation']:.3f}")
@@ -505,6 +595,7 @@ def cmd_ablate(args) -> None:
 
     _no_tf32()
     device = resolve_device(args.device)
+    viz = figures("ablate")
     results_dir = Path(args.output_dir) / "results"
     arrays, _ = load_splits(args.output_dir)
     t0 = time.perf_counter()
@@ -530,6 +621,9 @@ def cmd_ablate(args) -> None:
         "component_contributions": contributions,
         "coupling_sensitivity": coupling,
     })
+    if viz:
+        viz.plot_ablation_results(results, cis,
+                                  Path(args.output_dir) / "figures" / "fig25_ablation")
 
     # manuscript tables (ref 09:671-703)
     all_path = results_dir / "all_model_results.json"
@@ -547,6 +641,7 @@ def cmd_explore(args) -> None:
                                    generate_eda_report, spectral_summary)
 
     device = resolve_device(args.device)
+    viz = figures("explore")
     cfg = load_config(args.config)
     results = Path(args.output_dir) / "results"
     census = dataset_census(args.data_dir, cfg.data.max_subjects)
@@ -566,6 +661,11 @@ def cmd_explore(args) -> None:
                   len(open_data) - 1)
         spectral = spectral_summary(open_data[ch], closed_data[ch], header["sampling_rate"],
                                     device=device)
+        if viz:
+            figs = Path(args.output_dir) / "figures"
+            viz.plot_spectral_analysis(spectral, figs / "fig03_spectral")
+            viz.plot_sample_timeseries(open_data, header["sampling_rate"], names,
+                                       figs / "fig02_timeseries")
 
     report = generate_eda_report(census, stats, spectral, results / "eda_report.md")
     save_results(results / "eda_summary.json",
@@ -578,6 +678,7 @@ def cmd_baselines(args) -> None:
     from eegflow_torch.baselines.classical import run_all_baselines
 
     device = resolve_device(args.device)
+    viz = figures("baselines")
     cfg = load_config(args.config)
     out = Path(args.output_dir)
     arrays, _ = load_splits(out)
@@ -589,6 +690,8 @@ def cmd_baselines(args) -> None:
     print(f"{len(results)} baselines fitted and evaluated in {time.perf_counter() - t0:.1f} s "
           f"(features on {device})")
     save_results(out / "results" / "baseline_results.json", results)
+    if viz:
+        viz.plot_baseline_comparison(results, out / "figures" / "fig05_baselines")
     for name, r in results.items():
         print(f"  {name}: acc={r['accuracy']:.4f} f1={r['f1']:.4f} "
               f"auc={r.get('auc', float('nan')):.4f}")
@@ -663,7 +766,7 @@ def cmd_parity(args) -> int:
     cfg.to_json(cfg_path)
     stage_args = argparse.Namespace(
         data_dir=args.data_dir, output_dir=args.output_dir, config=str(cfg_path),
-        epochs=args.epochs, model="lstm", device=args.device)
+        epochs=args.epochs, model="lstm", profile=None, device=args.device)
     for fn in (cmd_preprocess, cmd_baselines, cmd_train, cmd_fit_ode, cmd_integrate):
         print(f"\n===== parity: {fn.__name__[4:]} =====")
         rc = fn(stage_args)
@@ -749,6 +852,8 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--epochs", type=int, default=None)
     p.add_argument("--model", choices=["lstm", "transformer"], default="lstm",
                    help="model family: the BiLSTM or the EEGFormer attention encoder")
+    p.add_argument("--profile", default=None,
+                   help="write a torch.profiler Chrome trace of the training to this directory")
     p.add_argument("--device", default="cuda")
     p.set_defaults(fn=cmd_train)
     p = sub.add_parser("fit-ode", help="fit the APF rates to the eye-state proportions")

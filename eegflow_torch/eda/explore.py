@@ -10,7 +10,6 @@ rest is host numpy over the port's BrainVision reader.
 
 from __future__ import annotations
 
-import configparser
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -51,7 +50,7 @@ def analyze_recordings(dataset_dir: str | Path, n_sample: int = 5,
     for r in recs:
         try:
             data, header = read_brainvision(r["vhdr_path"], crop_seconds)
-        except (OSError, ValueError, configparser.Error) as e:
+        except Exception as e:  # per-recording isolation, as the reference's
             stats.append({**{k: str(v) for k, v in r.items()}, "error": str(e)})
             continue
         uv = data * 1e6

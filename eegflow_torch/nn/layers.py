@@ -1,5 +1,5 @@
-"""Functional building blocks: dense, layer norm, GELU, dropout
-(``eegflow.nn.layers``).
+"""Functional building blocks: dense, layer norm, GELU, dropout and the
+residual block (``eegflow.nn.layers``).
 
 Params are nested mappings of float32 tensors (see :mod:`eegflow_torch.convert`).
 
@@ -86,3 +86,33 @@ def dropout(x: torch.Tensor, rate: float, mask: Optional[torch.Tensor]) -> torch
     if mask is None or rate <= 0.0:
         return x
     return torch.where(mask, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def residual_block_init(gen: torch.Generator, hidden: int):
+    """FC-GELU-dropout-FC + post-add LayerNorm residual block
+    (``eegflow.nn.layers.residual_block_init``; ref 04_lstm_model.py:131-150,
+    declared there but unused)."""
+    return {
+        "fc1": dense_init(gen, hidden, hidden),
+        "fc2": dense_init(gen, hidden, hidden),
+        "norm": layer_norm_init(hidden),
+    }
+
+
+def residual_block_apply(params: Mapping[str, Mapping[str, torch.Tensor]], x: torch.Tensor,
+                         rate: float = 0.3,
+                         masks: Optional[Sequence[torch.Tensor]] = None,
+                         train: bool = False,
+                         compute_dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+    """``LayerNorm(x + fc2(dropout(GELU(fc1(x)))))`` with a second dropout
+    after fc2. ``masks`` are the two keep-masks (after the GELU, after fc2;
+    :func:`dropout_mask`), applied only when ``train``; without them the
+    block applies no dropout, as the JAX block does without a key."""
+    m1 = m2 = None
+    if train and masks is not None:
+        m1, m2 = masks
+    out = gelu(dense_apply(params["fc1"], x, compute_dtype))
+    out = dropout(out, rate, m1)
+    out = dense_apply(params["fc2"], out, compute_dtype)
+    out = dropout(out, rate, m2)
+    return layer_norm_apply(params["norm"], out + x)

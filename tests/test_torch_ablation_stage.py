@@ -13,6 +13,7 @@ from eegflow.cli.main import main as jax_cli_main
 from eegflow.core import artifacts as jart
 from eegflow_torch.analyze import ablation as tabl
 from eegflow_torch.cli.main import main as cli_main
+from figure_records import figure_files, patch_figures
 from eegflow_torch.core import artifacts as tart
 
 T, C = 16, 4
@@ -86,10 +87,12 @@ def _shape(obj):
     return type(obj).__name__ if obj is None else "value"
 
 
-def test_ablate_stage_writes_what_the_reference_writes(tmp_path):
+def test_ablate_stage_writes_what_the_reference_writes(tmp_path, monkeypatch):
     """``ablate --epochs 1 --hidden 32`` of both packages on one tiny archive
     (with the ``coupling_analysis.json`` that ``integrate`` writes): the same
-    files and JSON structure, and each package reads the other's file."""
+    files and JSON structure, each package reads the other's file, and both
+    draw fig25 from the same variants (recorded, not rasterised)."""
+    rec = patch_figures(monkeypatch)
     rng = np.random.default_rng(3)
     arrays = {}
     for split, n in (("train", 24), ("val", 8), ("test", 30)):
@@ -116,5 +119,10 @@ def test_ablate_stage_writes_what_the_reference_writes(tmp_path):
     assert got["coupling_sensitivity"] == coupling
     assert jart.load_results(port_json) == got
     assert _shape(tart.load_results(jax_json)) == _shape(want)
+    for key in ("jax", "port"):
+        assert figure_files(tmp_path / key) == ["fig25_ablation.pdf", "fig25_ablation.png"]
+        (name, (results, cis, path), _), = rec[key]["calls"]
+        assert name == "plot_ablation_results" and path == "fig25_ablation"
+        assert list(results) == list(want["ablation"]) and list(cis) == list(results)
     tables = (tmp_path / "port" / "results" / "results_tables.txt").read_text()
     assert "Architecture ablation" in tables and "Statistical comparison" in tables

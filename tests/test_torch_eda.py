@@ -2,6 +2,8 @@
 package's on a dataset the port's ``synth`` writes (byte for byte the JAX
 package's), on the CPU."""
 
+import re
+
 import numpy as np
 import pytest
 
@@ -22,11 +24,17 @@ def ds(tmp_path_factory):
 
 @pytest.fixture(scope="module")
 def ds_with_a_broken_recording(tmp_path_factory):
-    """Two subjects, the first recording's payload gone."""
+    """Two subjects: the first recording's payload gone, the second's header
+    with ``NumberOfChannels=0`` and the third's with ``SamplingInterval=0``
+    (each reader divides by it); the fourth intact."""
     root = generate_synthetic_dataset(tmp_path_factory.mktemp("eda_broken"), n_subjects=2,
                                       duration_s=3.0, n_channels=4)
-    first = discover_recordings(root)[0]["vhdr_path"]
-    first.with_suffix(".eeg").unlink()
+    recs = discover_recordings(root)
+    recs[0]["vhdr_path"].with_suffix(".eeg").unlink()
+    for rec, pattern in ((recs[1], r"NumberOfChannels=\d+"), (recs[2], r"SamplingInterval=[\d.]+")):
+        vhdr = rec["vhdr_path"]
+        text = vhdr.read_text()
+        vhdr.write_text(re.sub(pattern, pattern.split("=")[0] + "=0", text, count=1))
     return root
 
 
@@ -55,9 +63,11 @@ def test_unreadable_recording_is_isolated(ds_with_a_broken_recording):
     rows = teda.analyze_recordings(ds_with_a_broken_recording, n_sample=4)
     want = jeda.analyze_recordings(ds_with_a_broken_recording, n_sample=4)
     assert rows == want
-    assert "error" in rows[0] and all("error" not in r for r in rows[1:])
+    assert "error" in rows[0]
+    assert [r.get("error", "ok") for r in rows[1:]] == [
+        "integer division or modulo by zero", "float division by zero", "ok"]
     assert teda.basic_statistics(rows) == jeda.basic_statistics(want)
-    assert teda.basic_statistics(rows)["n_recordings"] == 3
+    assert teda.basic_statistics(rows)["n_recordings"] == 1
 
 
 @pytest.mark.parametrize("rows", [[], [{"error": "x"}]])

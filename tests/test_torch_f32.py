@@ -26,6 +26,7 @@ from eegflow.ode.field import rates_to_array as jax_rates
 from eegflow.train.steps import TrainState, make_optimizer as jax_make_optimizer
 from eegflow.train.steps import make_train_step as jax_make_train_step
 from eegflow_torch.cli.main import main as cli_main
+from figure_records import patch_figures
 from eegflow_torch.convert import params_from_jax
 from eegflow_torch.core import config as tcfg
 from eegflow_torch.couple.rollout import coupled_rollout
@@ -186,10 +187,12 @@ def test_coupled_rollout_f32_matches_pallas_schedule(kernel_schedule):
                                    rtol=0, err_msg=name)
 
 
-def test_train_cli_runs_the_float32_policy(tmp_path):
+def test_train_cli_runs_the_float32_policy(tmp_path, monkeypatch):
     """``"bf16": false`` in --config: the stage trains and evaluates under
     the float32 policy (the plain twins on the CPU), and the JAX float32
-    forward on its checkpoint gives its test probabilities."""
+    forward on its checkpoint gives its test probabilities (the figures
+    recorded, not rasterised)."""
+    patch_figures(monkeypatch)
     from eegflow.core.artifacts import load_checkpoint as jax_load_checkpoint
 
     rng = np.random.default_rng(26)

@@ -20,6 +20,7 @@ from eegflow_torch.cli.main import main as cli_main
 from eegflow_torch.core.config import ODEConfig
 from eegflow_torch.fit import differential_evolution_fit, fit_ode_rates, make_fit_loss
 from eegflow_torch.ode.cuda_ode import rk4_fit_loss_plain
+from figure_records import STAGE_FIGURES, figure_files, patch_figures
 
 TRUE = {"k_ap": 0.1, "k_af": 0.05, "k_pa": 0.2, "k_pf": 0.15, "k_fa": 0.1, "k_fp": 0.2}
 # float32 losses of two implementations of the same steps (sums in another
@@ -119,10 +120,13 @@ def test_de_respects_bounds_without_polish():
     assert info == {"generations": 0, "polished": False} and fx == 1.0
 
 
-def test_fit_ode_stage_writes_what_the_jax_package_reads(tmp_path):
+def test_fit_ode_stage_writes_what_the_jax_package_reads(tmp_path, monkeypatch):
     """synth -> preprocess -> fit-ode through the CLI on the CPU; the JAX
     package's load_results and _load_coupled_model read the results, and its
-    steady state and stability of the fitted rates equal the port's."""
+    steady state and stability of the fitted rates equal the port's; the two
+    stages draw the JAX stages' figures (recorded, not rasterised), fig10 from
+    the fitted rates."""
+    rec = patch_figures(monkeypatch)
     from eegflow_torch.core.artifacts import save_checkpoint
     from eegflow_torch.core.config import ModelConfig
     from eegflow_torch.core.prng import make_generator
@@ -145,6 +149,11 @@ def test_fit_ode_stage_writes_what_the_jax_package_reads(tmp_path):
                                atol=1e-6)
     assert res["stability"] == jfield.stability_analysis(k)
     assert res["validation"] == jfield.validate_rates(res["fitted_params"])
+    assert figure_files(tmp_path / "out") == sorted(
+        f"{n}.{e}" for stage in ("preprocess", "fit-ode") for n in STAGE_FIGURES[stage]
+        for e in ("png", "pdf"))
+    fig10 = next(c for c in rec["port"]["calls"] if c[0] == "plot_ode_analysis")
+    np.testing.assert_allclose(fig10[1][0], np.asarray(k))
 
     mcfg = ModelConfig(input_size=4, hidden_size=16, num_layers=1)
     save_checkpoint(tmp_path / "out" / "models" / "lstm_attention",

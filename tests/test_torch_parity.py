@@ -16,6 +16,7 @@ from eegflow_torch.cli.main import main as cli_main
 from eegflow_torch.core.config import (DataConfig, ModelConfig, ODEConfig, PipelineConfig,
                                        TrainConfig)
 from eegflow_torch.data.synthetic import generate_synthetic_dataset
+from figure_records import STAGE_FIGURES, figure_files, patch_figures
 
 MEASURED = {
     "svm": {"accuracy": 0.381, "f1": 0.1, "auc": 0.5},
@@ -128,7 +129,8 @@ def test_parity_synthetic_end_to_end(tmp_path, monkeypatch):
     """tests/test_pipeline.py::test_parity_runner_synthetic's run on the port:
     4 subjects x 15 s x 8 channels, 2 epochs; the forest's and the boosted
     trees' grids cut to one candidate each (the chain is under test, not the
-    grids)."""
+    grids); the figures of its five stages recorded, not rasterised."""
+    patch_figures(monkeypatch)
     monkeypatch.setattr(tcls, "train_random_forest", functools.partial(
         tcls.train_random_forest, grid=[{"n_estimators": 20, "max_depth": None,
                                          "min_samples_split": 2}]))
@@ -170,3 +172,6 @@ def test_parity_synthetic_end_to_end(tmp_path, monkeypatch):
     for name in ("baseline_results.json", "lstm_results.json", "ode_results.json",
                  "integration_results.json", "coupling_analysis.json"):
         assert (out / "results" / name).exists()
+    assert figure_files(out) == sorted(
+        f"{n}.{e}" for stage in ("preprocess", "baselines", "train", "fit-ode", "integrate")
+        for n in STAGE_FIGURES[stage] for e in ("png", "pdf"))

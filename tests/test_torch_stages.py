@@ -4,11 +4,13 @@ the JAX package wrote (its ``save_processed``, ``save_checkpoint`` and
 ``save_results``, as its ``preprocess``, ``train`` and ``fit-ode`` stages
 write them, at a tiny size; a raw dataset its ``synth`` writes): each writes
 the files the JAX package's stage writes on the same artifacts, with the
-same keys; with ``--device cuda`` and no GPU each raises. Then the port's
-``all`` on a tiny dataset writes every one of those files and the rest of
-the JAX package's ``all``. The baselines' forest and boosted trees run a
-one-candidate grid here (their default grids are held in
-tests/test_torch_baselines.py)."""
+same keys, and draws the figures the JAX package's stage draws, by file
+name, from the same arrays (the plot calls of both packages recorded, the
+figures not rasterised: tests/figure_records.py); with ``--device cuda`` and
+no GPU each raises. Then the port's ``all`` on a tiny dataset writes every
+one of those files, figures included, and the rest of the JAX package's
+``all``. The baselines' forest and boosted trees run a one-candidate grid
+here (their default grids are held in tests/test_torch_baselines.py)."""
 
 import functools
 import json
@@ -29,6 +31,8 @@ from eegflow.nn.model import classifier_init as jax_classifier_init
 from eegflow_torch.baselines import classical as port_classical
 from eegflow_torch.cli.main import build_parser
 from eegflow_torch.cli.main import main as cli_main
+from figure_records import (STAGE_FIGURES, assert_close, call_name, figure_files,
+                            patch_figures)
 
 T, C = 16, 5
 RATES = {"k_ap": 0.2, "k_af": 0.03, "k_pa": 0.1, "k_pf": 0.05, "k_fa": 0.07, "k_fp": 0.2}
@@ -52,6 +56,16 @@ BASELINE_MODELS = ["baseline_models.pkl", "features_test.npz", "features_train.n
 # what the ablate stage writes under results/ (held against the JAX package's
 # stage in tests/test_torch_ablation_stage.py)
 ABLATE_WRITES = ["results_tables.txt", "sensitivity_analysis.json"]
+# the arguments of the port's plot calls against the JAX stage's (rtol, atol),
+# measured on this fixture in brackets: explore's band powers and PSDs (float32
+# Welch of two libraries, tests/test_torch_eda.py's bound; 3.6e-7) and the
+# baselines' probabilities (the features of two float32 extractors, 1e-5,
+# through sklearn; 1.8e-6) relative; the classifier's P(closed) and what is
+# computed from it absolutely: the JAX stages' "auto" is its scan path, ~2e-4
+# from the port's probabilities (ROADMAP §3; trajectories 7.2e-5, importances
+# 5.1e-5), and the forecast's correlation over 20 points amplifies it (9.6e-4)
+DRAW_TOL = {"explore": (1e-5, 0.0), "baselines": (1e-5, 0.0), "integrate": (0.0, 5e-4),
+            "explain": (0.0, 5e-4), "forecast": (0.0, 5e-3), "export": (0.0, 0.0)}
 SMALL_RF = [{"n_estimators": 10, "max_depth": 4, "min_samples_split": 2}]
 SMALL_GB = [{"n_estimators": 10, "max_depth": 3, "learning_rate": 0.3}]
 
@@ -111,24 +125,35 @@ def _shape(obj):
 
 @pytest.fixture(scope="module")
 def ran(artifacts, small_grids):
-    """Every stage of both packages, in pipeline order, on its copy ->
-    (jax copy, port copy, {stage: the files the port's stage wrote})."""
+    """Every stage of both packages, in pipeline order, on its copy, the
+    figures recorded (for this module) -> (jax copy, port copy, {stage: the
+    files the port's stage wrote}, {stage: {package: (the figure files it
+    drew, its plot calls)}})."""
     jax_out, port_out = artifacts
     data = ["--data-dir", str(jax_out.parent / "data")]
-    written = {}
-    for stage in WRITES:
-        before = set((port_out / "results").iterdir())
-        assert cli_main(data + ["--output-dir", str(port_out), stage,
-                                *STAGE_ARGS.get(stage, []), "--device", "cpu"]) == 0
-        written[stage] = sorted(p.name for p in set((port_out / "results").iterdir()) - before)
-        assert (jax_cli_main(data + ["--output-dir", str(jax_out), stage,
-                                     *STAGE_ARGS.get(stage, [])]) or 0) == 0
-    return jax_out, port_out, written
+    written, drawn = {}, {}
+    with pytest.MonkeyPatch.context() as mp:
+        rec = patch_figures(mp)
+        for stage in WRITES:
+            figs = {"jax": figure_files(jax_out), "port": figure_files(port_out)}
+            for calls in (rec["jax"]["calls"], rec["port"]["calls"]):
+                calls.clear()
+            before = set((port_out / "results").iterdir())
+            assert cli_main(data + ["--output-dir", str(port_out), stage,
+                                    *STAGE_ARGS.get(stage, []), "--device", "cpu"]) == 0
+            written[stage] = sorted(p.name for p in set((port_out / "results").iterdir())
+                                    - before)
+            assert (jax_cli_main(data + ["--output-dir", str(jax_out), stage,
+                                         *STAGE_ARGS.get(stage, [])]) or 0) == 0
+            drawn[stage] = {key: (sorted(set(figure_files(out)) - set(figs[key])),
+                                  list(rec[key]["calls"]))
+                            for key, out in (("jax", jax_out), ("port", port_out))}
+        yield jax_out, port_out, written, drawn
 
 
 @pytest.mark.parametrize("stage", list(WRITES))
 def test_stage_writes_what_the_jax_stage_writes(stage, ran):
-    jax_out, port_out, written = ran
+    jax_out, port_out, written, _ = ran
     assert written[stage] == WRITES[stage]
     for name in written[stage]:
         mine, theirs = port_out / "results" / name, jax_out / "results" / name
@@ -146,7 +171,7 @@ def test_explain_summary_reads_the_artifacts(ran):
     """The summary names the metadata's channels, the attention and ODE
     analyses of the stored weights and rates, and (with --skip-shap) two
     methods."""
-    _, port_out, _ = ran
+    _, port_out, _, _ = ran
     summary = json.loads((port_out / "results" / "explainability_summary.json").read_text())
     assert summary["explainability_methods"] == ["gradient", "permutation"]
     assert summary["gradient"]["channels"] == CHANNELS
@@ -160,7 +185,7 @@ def test_explore_and_baselines_read_what_they_should(ran):
     """explore's census and biomarker come from the raw dataset; baselines
     caches the features and pickles the models under models/, as the JAX
     package's stage does."""
-    jax_out, port_out, _ = ran
+    jax_out, port_out, _, _ = ran
     summary = json.loads((port_out / "results" / "eda_summary.json").read_text())
     want = json.loads((jax_out / "results" / "eda_summary.json").read_text())
     assert summary["census"] == want["census"] and summary["statistics"] == want["statistics"]
@@ -176,6 +201,72 @@ def test_explore_and_baselines_read_what_they_should(ran):
     assert {"svm", "random_forest", "gradient_boosting"} <= set(zoo)
 
 
+@pytest.mark.parametrize("stage", list(WRITES))
+def test_stage_draws_what_the_jax_stage_draws(stage, ran):
+    """The same figure files as the JAX stage's, from plot calls with the
+    same arguments."""
+    files, calls = ran[3][stage]["port"]
+    want_files, want_calls = ran[3][stage]["jax"]
+    names = [n for n in STAGE_FIGURES.get(stage, []) if n != "fig21_shap_analysis"]
+    assert files == want_files == sorted(f"{n}.{e}" for n in names for e in ("png", "pdf"))
+    assert [call_name(c) for c in calls] == [call_name(c) for c in want_calls]
+    rtol, atol = DRAW_TOL[stage]
+    for got, want in zip(calls, want_calls):
+        assert_close(got, want, rtol=rtol, atol=atol, where=call_name(got)[1])
+
+
+def _kernel_shap_stand_in(params, model_cfg, x, channel_names=None, **_):
+    """KernelSHAP's result format from a fixed function of the windows (the
+    values themselves are held in tests/test_torch_explain_numpy.py)."""
+    explain = np.asarray(x, np.float64)[:8].mean(axis=1)
+    values = explain * np.linspace(-1.0, 1.0, explain.shape[1])
+    importance = np.abs(values).mean(axis=0)
+    importance = importance / importance.sum()
+    names = list(channel_names)
+    return {"channels": names, "importance": importance.tolist(), "shap_values": values,
+            "x_explain": explain, "ranking": [names[i] for i in np.argsort(-importance)],
+            "method": "kernel_shap"}
+
+
+def test_explain_draws_fig21_where_the_jax_stage_does(tmp_path, monkeypatch):
+    """``explain`` without ``--skip-shap`` in both packages, KernelSHAP
+    replaced by one stand-in (its default budget takes minutes on the CPU):
+    fig21 is drawn from the SHAP values, the rows they explain, the channels
+    and the gradient importances, as the JAX stage draws it. Twelve channels:
+    fig21 labels ten, and both packages raise on fewer."""
+    import eegflow.explain
+    import eegflow_torch.explain
+
+    names = ["Fp1", "Fz", "F3", "C3", "Cz", "T7", "P7", "Pz", "POz", "O1", "Oz", "O2"]
+    rng = np.random.default_rng(1)
+    arrays = {}
+    for split, n in (("train", 8), ("val", 4), ("test", 12)):
+        arrays[f"X_{split}"] = rng.standard_normal((n, T, len(names))).astype(np.float32)
+        arrays[f"y_{split}"] = (np.arange(n) % 2).astype(np.int64)
+    save_processed(tmp_path / "src" / "processed_data", arrays, {"channel_names": names})
+    cfg = JaxModelConfig(input_size=len(names), hidden_size=16, num_layers=1)
+    save_checkpoint(tmp_path / "src" / "models" / "lstm_attention",
+                    jax_classifier_init(jax.random.key(4), cfg), cfg)
+    for key in ("jax", "port"):
+        shutil.copytree(tmp_path / "src", tmp_path / key)
+    for module in (eegflow.explain, eegflow_torch.explain):
+        monkeypatch.setattr(module, "kernel_shap_channel_importance", _kernel_shap_stand_in)
+    rec = patch_figures(monkeypatch)
+    assert cli_main(["--output-dir", str(tmp_path / "port"), "explain", "--device", "cpu"]) == 0
+    assert (jax_cli_main(["--output-dir", str(tmp_path / "jax"), "explain"]) or 0) == 0
+    drawn = ["fig21_shap_analysis", "fig16_gradient_importance",
+             "fig17_permutation_importance", "fig19_importance_comparison"]
+    for key in ("jax", "port"):
+        assert [call_name(c)[1] for c in rec[key]["calls"]] == drawn
+        assert figure_files(tmp_path / key) == sorted(f"{n}.{e}" for n in drawn
+                                                      for e in ("png", "pdf"))
+    rtol, atol = DRAW_TOL["explain"]
+    for got, want in zip(rec["port"]["calls"], rec["jax"]["calls"]):
+        assert_close(got, want, rtol=rtol, atol=atol, where=call_name(got)[1])
+    np.testing.assert_array_equal(np.load(tmp_path / "port" / "results" / "shap_values.npy"),
+                                  np.load(tmp_path / "jax" / "results" / "shap_values.npy"))
+
+
 @pytest.mark.parametrize("stage", list(WRITES) + ["parity", "all"])
 def test_stage_on_cuda_without_a_gpu_raises(stage, artifacts):
     assert build_parser().parse_args([stage]).device == "cuda"
@@ -189,11 +280,14 @@ def test_stage_on_cuda_without_a_gpu_raises(stage, artifacts):
 def test_all_writes_every_file_of_the_jax_packages_all(ran, tmp_path_factory, small_grids):
     """``all --epochs 1 --skip-shap --hidden 16 --device cpu`` on a tiny
     dataset (one torch thread) runs the ten stages and writes every file the
-    JAX package's stages wrote above, where its ``all`` writes them (the
-    figures aside), and the ablate stage's: nothing missing, nothing more."""
+    JAX package's stages wrote above, where its ``all`` writes them, with the
+    figures of the stages run here alone (``preprocess``, ``train``,
+    ``fit-ode``, ``ablate``), and the ablate stage's files: nothing missing,
+    nothing more. Six channels: ``explore``'s fig02 draws six, in both
+    packages (tests/test_torch_figures.py holds the raise on fewer)."""
     jax_out = ran[0]
     root = tmp_path_factory.mktemp("all")
-    jax_synth(root / "data", n_subjects=4, duration_s=8.0, n_channels=4)
+    jax_synth(root / "data", n_subjects=4, duration_s=8.0, n_channels=6)
     (root / "cfg.json").write_text(json.dumps({
         "data": {"max_subjects": None},
         "model": {"hidden_size": 16, "num_layers": 1},
@@ -211,13 +305,14 @@ def test_all_writes_every_file_of_the_jax_packages_all(ran, tmp_path_factory, sm
     assert rc == 0
 
     def files(out):
-        return {str(p.relative_to(out)) for p in out.rglob("*")
-                if p.is_file() and p.relative_to(out).parts[0] != "figures"}
+        return {str(p.relative_to(out)) for p in out.rglob("*") if p.is_file()}
 
-    want = files(jax_out) | {f"results/{name}" for name in ABLATE_WRITES}
+    want = files(jax_out) | {f"results/{name}" for name in ABLATE_WRITES} | {
+        f"figures/{n}.{e}" for stage in ("preprocess", "train", "fit-ode", "ablate")
+        for n in STAGE_FIGURES[stage] for e in ("png", "pdf")}
     assert files(root / "out") == want
     ckpt = json.loads((root / "out" / "models" / "lstm_attention" / "checkpoint.json")
                       .read_text())
-    assert ckpt["model_config"]["input_size"] == 4
+    assert ckpt["model_config"]["input_size"] == 6
     ablation = json.loads((root / "out" / "results" / "sensitivity_analysis.json").read_text())
     assert len(ablation["ablation"]) == 6

@@ -400,9 +400,11 @@ def _write_processed(tmp_path, seed=9):
     return arrays
 
 
-def test_train_cli_writes_the_artifacts_and_jax_reads_them(tmp_path):
+def test_train_cli_writes_the_artifacts_and_jax_reads_them(tmp_path, monkeypatch):
     from eegflow.core.artifacts import load_checkpoint as jax_load_checkpoint
+    from figure_records import patch_figures
 
+    patch_figures(monkeypatch)  # the figures recorded, not rasterised
     arrays = _write_processed(tmp_path)
     rc = cli_main(["--output-dir", str(tmp_path), "--config", str(tmp_path / "cfg.json"),
                    "train", "--epochs", "2", "--device", "cpu"])

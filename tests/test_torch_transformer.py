@@ -31,6 +31,7 @@ from eegflow.train.steps import TrainState
 from eegflow.train.steps import make_optimizer as jax_make_optimizer
 from eegflow.train.steps import make_train_step as jax_make_train_step
 from eegflow_torch.cli.main import build_parser, main as cli_main, start_server
+from figure_records import patch_figures
 from eegflow_torch.convert import params_from_jax, params_to_jax
 from eegflow_torch.core import config as tcfg
 from eegflow_torch.core.artifacts import (load_checkpoint, load_results, save_checkpoint,
@@ -339,10 +340,12 @@ def _request(addr, method, path, payload=None):
     return resp.status, out
 
 
-def test_cli_trains_integrates_and_serves_a_transformer(tmp_path):
+def test_cli_trains_integrates_and_serves_a_transformer(tmp_path, monkeypatch):
     """``train --model transformer --device cpu`` writes a TransformerConfig
     checkpoint the reference reads; ``integrate``, ``forecast``, ``export``
-    and ``/predict`` run on it."""
+    and ``/predict`` run on it; the stages' figures are recorded, not
+    rasterised."""
+    patch_figures(monkeypatch)
     rng = np.random.default_rng(4)
     arrays = {}
     for split, n in (("train", 96), ("val", 24), ("test", 40)):
