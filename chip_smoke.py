@@ -176,6 +176,22 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      launch in trajectory mode, 3 initial states x 120 points, and the steady
      state) against its CPU twin; Timer/timed around one served batch and
      compute_metrics on its decisions against analyze/evaluate.py.
+ 23. the data mesh (eegflow_torch/train/mesh.py) in spawned ranks that load
+     the library phase 2 built: (a) NCCL at world size 1: one B=512 bf16
+     micro-step of make_train_step(mesh=) against the step without a mesh
+     from the same params and masks, loss and every gradient bit for bit,
+     its launches phase 9's, both timed in turns and the 18 MB gradient
+     all-reduce apart; (b) gloo with two ranks sharing cuda:0 (NCCL refuses
+     two ranks on one device; no scaling is measured): a micro-step at
+     global B=512 against the single-process step (loss, every gradient),
+     four micro-steps (one AdamW update) leaving the ranks' params bitwise
+     equal, each rank's launches a micro-step and an eval batch,
+     train_classifier(mesh=) for 1 epoch on 2,048 windows (finite history,
+     best params bitwise equal on the ranks), predict_probs on 10,000
+     windows, predict_batch on 1,024 and 1,000, the coupling sweep, the
+     permutation importance (n = 1,000) and multistep_forecast with the mesh
+     against without it; each rank's micro-step, the gloo all-reduce and the
+     global mask draw timed.
 The line before the last lists the kernels as JSON, each with its time, its
 twin's, its bound on an H100 (bytes over 3.35 TB/s or products over the
 dtype's peak, whichever is larger), the library call's time where there is
@@ -357,6 +373,31 @@ TRACE_KERNELS = {"lstm_fwd (planes)": r"lstm_fwd_rec_kernel<1,",
                  "pool_head_bwd": r"pool_head_bwd_bf16_kernel",
                  "input_block_fwd": r"input_block_fwd_kernel",
                  "input_block_bwd": r"input_block_bwd_bf16_kernel"}
+# phase 23: the data mesh (eegflow_torch/train/mesh.py) on the card. The
+# micro-step's kernels are row-independent, but the head's cuBLAS products
+# pick their kernel by M, so a rank's 256 rows give logits ~2e-4 from the
+# same rows in a batch of 512 (ROADMAP §3, "A row's result depends on the
+# batch"): the loss is held as phase 9 holds it (STEP_LOSS_TOL), every
+# gradient to 2e-3 of its largest entry (the bf16 step tests' FUSED_REL_TOL)
+# but the head's weights': the gradient of a product of bf16-rounded operands
+# is rounded to bf16, once a rank, so two rounded half sums meet one rounded
+# whole, up to 2^-8 of an entry (measured 4.1e-3 on the CPU twins at B=32);
+# P(closed) to ~7x the 2.825e-05 that chunking moves it; an importance or a
+# sweep accuracy moves by 1/n a decision that this flips
+MESH_GRAD_REL_TOL = 2e-3
+MESH_BF16_GRAD_REL_TOL = 1e-2
+MESH_BF16_GRADS = ("head1.w", "head2.w", "head3.w")
+MESH_PROBS_TOL = 2e-4
+MESH_FLIP_SHARE = 5e-3
+MESH_PREDICT_WINDOWS = 10_000
+MESH_ROLLOUT_WINDOWS = (1024, 1000)
+MESH_PERM_WINDOWS = 1000
+MESH_TIMEOUT_S = 600
+# one micro-step's launches on the default bf16 "fused" path (phase 9) and an
+# eval batch's
+STEP_LAUNCHES = {"input_block_fwd": 1, "input_block_bwd": 1, "lstm_fwd_train": 6,
+                 "lstm_bwd": 6, "pool_head_fwd": 1, "pool_head_bwd": 1}
+EVAL_LAUNCHES = {"input_block_fwd": 1, "lstm_fwd": 6, "pool_head_fwd": 1}
 # the columns the reference exports (eegflow/analyze/export.py)
 SAMPLE_COLUMNS = ["Sample_ID", "Prob_EyesOpen", "Prob_Drowsy", "Prob_EyesClosed", "LSTM_P_Open",
                   "LSTM_P_Closed", "Predicted_State", "Ground_Truth"]
@@ -2037,6 +2078,303 @@ def profile_phase(dev, smi, tmp):
     return out
 
 
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _mesh_rank_setup(rank, world, port):
+    """A spawned rank's environment (as torch.distributed.run sets it), the
+    kernel library phase 2 built (loaded, not built again) and the float32
+    policy outside the kernels. -> the kernels module."""
+    import os
+
+    os.environ.update(RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK=str(rank),
+                      MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from eegflow_torch import kernels
+
+    kernels.load_library()
+    require("command" not in kernels.build_info,
+            "a rank loads the library phase 2 built, without building it")
+    return kernels
+
+
+def _mesh_micro_step_case(dev, seed):
+    """Full-width params (from ``seed``), a bf16 "fused" micro-step's global
+    batch of B_TRAIN windows N(0, 1) and its dropout masks, on ``dev``."""
+    from eegflow_torch.core.config import ModelConfig
+    from eegflow_torch.nn.model import draw_dropout_masks
+    from eegflow_torch.train.data import class_weight_array
+
+    cfg = ModelConfig()
+    x, y = synthetic_split(np.random.default_rng(seed), B_TRAIN, T, C)
+    masks = draw_dropout_masks(cfg, B_TRAIN, T, torch.Generator(device=dev).manual_seed(seed),
+                               dev)
+    cw = torch.from_numpy(class_weight_array(y, 2)).to(dev)
+    return cfg, x, y, masks, cw
+
+
+def _fresh_step(cfg, dev, seed, cw, mesh):
+    from eegflow_torch.core.config import TrainConfig
+    from eegflow_torch.core.prng import make_generator
+    from eegflow_torch.nn.model import classifier_init
+    from eegflow_torch.train.steps import make_optimizer, make_train_step
+
+    params = classifier_init(cfg, make_generator(seed), dev, trainable=True)
+    opt = make_optimizer(list(params.parameters()), TrainConfig(), updates_per_epoch=1)
+    return params, make_train_step(cfg, TrainConfig(), opt, class_weights=cw, mesh=mesh)
+
+
+def _grads(params):
+    return [p.grad.clone() if p.grad is not None else torch.zeros_like(p)
+            for p in params.parameters()]
+
+
+def mesh_nccl_rank(rank, port, smi):
+    """Phase 23 (a): NCCL at world size 1 on cuda:0. One micro-step of
+    make_train_step(mesh=) against the step without a mesh from the same
+    params and masks, bit for bit; its launches; both timed in turns; the
+    18 MB gradient all-reduce timed apart."""
+    import torch.distributed as dist
+
+    from eegflow_torch.train.mesh import all_reduce_sum, make_data_mesh, shard_batch
+
+    kernels = _mesh_rank_setup(rank, 1, port)
+    mesh = make_data_mesh()
+    dev = mesh.device
+    require(dist.get_backend() == "nccl" and dev == torch.device("cuda", 0),
+            f"the default mesh on one card is NCCL on cuda:0 ({dist.get_backend()}, {dev})")
+    cfg, x, y, masks, cw = _mesh_micro_step_case(dev, SEED + 23)
+    xd, yd = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+    xs, ys, ms = shard_batch((x, y, masks), mesh)
+    p_one, step_one = _fresh_step(cfg, dev, SEED + 23, cw, None)
+    p_mesh, step_mesh = _fresh_step(cfg, dev, SEED + 23, cw, mesh)
+    m_one = step_one(p_one, xd, yd, masks)
+    kernels.reset_launch_counts()
+    m_mesh = step_mesh(p_mesh, xs, ys, ms)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    same = (torch.equal(m_one["loss"], m_mesh["loss"])
+            and all(torch.equal(a, b) for a, b in zip(_grads(p_one), _grads(p_mesh))))
+    print(f"phase 23a NCCL world size 1: micro-step B={B_TRAIN} with the mesh: loss "
+          f"{m_mesh['loss'].item():.6f}, without {m_one['loss'].item():.6f}; loss and "
+          f"{len(list(p_mesh.parameters()))} gradients bit for bit: {same}; launches "
+          f"{launches}", flush=True)
+    require(same, "NCCL world size 1: the mesh step is the step without a mesh bit for bit")
+    require(launches == STEP_LAUNCHES, f"the mesh micro-step's launches are phase 9's "
+            f"({launches})")
+    ms_steps = median_ms({"mesh=None": lambda: step_one(p_one, xd, yd, masks),
+                          "mesh": lambda: step_mesh(p_mesh, xs, ys, ms)}, rounds=2)
+    flat = torch.zeros(sum(p.numel() for p in p_mesh.parameters()) + 2, device=dev)
+    reduce_ms = median_ms({"all_reduce": lambda: all_reduce_sum(flat, mesh)})["all_reduce"]
+    print(f"phase 23a timed in turns (CUDA events, median of 4): micro-step mesh=None "
+          f"{ms_steps['mesh=None']:.3f} ms, mesh (NCCL, world 1) {ms_steps['mesh']:.3f} ms; "
+          f"the all-reduce of {flat.numel() * 4 / 1e6:.2f} MB alone {reduce_ms:.3f} ms "
+          f"[{smi}]", flush=True)
+    dist.destroy_process_group()
+
+
+def mesh_gloo_rank(rank, port, smi):
+    """Phase 23 (b): two ranks sharing cuda:0 over gloo. A micro-step at
+    global B_TRAIN against the single-process step (rank 0), an AdamW
+    update of four micro-steps (the ranks' params bitwise equal), the
+    launches a micro-step and an eval batch, train_classifier(mesh=), and
+    predict_probs, predict_batch, the sweep, the permutation importance and
+    the forecasts with the mesh against without it (rank 0)."""
+    from datetime import timedelta
+
+    import torch.distributed as dist
+
+    from eegflow_torch.analyze.forecast import multistep_forecast
+    from eegflow_torch.core.config import CouplingConfig, TrainConfig
+    from eegflow_torch.core.prng import make_generator
+    from eegflow_torch.couple.rollout import CoupledModel, predict_batch
+    from eegflow_torch.couple.sweep import coupling_strength_sweep
+    from eegflow_torch.explain.permutation import permutation_channel_importance
+    from eegflow_torch.nn.model import classifier_init, draw_dropout_masks
+    from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
+    from eegflow_torch.train.loop import predict_probs, train_classifier
+    from eegflow_torch.train.mesh import (all_gather_rows, all_reduce_sum, make_data_mesh,
+                                          make_spmd_eval_step, shard_batch)
+
+    kernels = _mesh_rank_setup(rank, 2, port)
+    mesh = make_data_mesh(devices=["cuda:0", "cuda:0"], backend="gloo",
+                          timeout=timedelta(seconds=MESH_TIMEOUT_S))
+    dev = mesh.device
+    tag = f"phase 23b gloo rank {rank}/2 on {dev}"
+    require(dist.get_backend() == "gloo" and dev == torch.device("cuda", 0),
+            f"{tag}: gloo on the shared card")
+
+    def same_on_every_rank(t):
+        rows = all_gather_rows(t.reshape(1, -1), mesh)
+        return all(torch.equal(rows[0], r) for r in rows[1:])
+
+    # one micro-step at global B_TRAIN, B_TRAIN / 2 rows a rank
+    cfg, x, y, masks, cw = _mesh_micro_step_case(dev, SEED + 23)
+    xs, ys, ms = shard_batch((x, y, masks), mesh)
+    p_mesh, step_mesh = _fresh_step(cfg, dev, SEED + 23, cw, mesh)
+    kernels.reset_launch_counts()
+    m_mesh = step_mesh(p_mesh, xs, ys, ms)
+    torch.cuda.synchronize()
+    step_launches = dict(kernels.launch_counts)
+    g_mesh = _grads(p_mesh)
+    if rank == 0:
+        p_one, step_one = _fresh_step(cfg, dev, SEED + 23, cw, None)
+        m_one = step_one(p_one, torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev),
+                         masks)
+        loss_diff = abs(m_mesh["loss"].item() - m_one["loss"].item())
+        errs = {n: rel_err(a, b) for (n, _), a, b in zip(p_one.named_parameters(), g_mesh,
+                                                          _grads(p_one)) if b.abs().max() > 0}
+        head_rel = max(errs[n] for n in MESH_BF16_GRADS)
+        grad_rel, worst = max((e, n) for n, e in errs.items() if n not in MESH_BF16_GRADS)
+        print(f"{tag}: micro-step global B={B_TRAIN} ({B_TRAIN // 2} rows a rank) against the "
+              f"single-process step at B={B_TRAIN}: loss {m_mesh['loss'].item():.6f} vs "
+              f"{m_one['loss'].item():.6f} (diff {loss_diff:.3e}, tol {STEP_LOSS_TOL:g}); "
+              f"gradients max rel diff {grad_rel:.3e} ({worst}; tol {MESH_GRAD_REL_TOL:g}), "
+              f"the head's weights' {head_rel:.3e} (tol {MESH_BF16_GRAD_REL_TOL:g})",
+              flush=True)
+        require(loss_diff <= STEP_LOSS_TOL and grad_rel <= MESH_GRAD_REL_TOL
+                and head_rel <= MESH_BF16_GRAD_REL_TOL,
+                "two gloo ranks' micro-step within its tolerances of the single-process step")
+        del p_one
+    for _ in range(3):  # accumulation 4: the fourth micro-step updates
+        step_mesh(p_mesh, xs, ys, ms)
+    flat = torch.cat([p.detach().reshape(-1) for p in p_mesh.parameters()])
+    equal = same_on_every_rank(flat)
+    print(f"{tag}: launches a micro-step {step_launches}; after 4 micro-steps (one AdamW "
+          f"update) the ranks' params bitwise equal: {equal}", flush=True)
+    require(step_launches == STEP_LAUNCHES, f"{tag}: a micro-step's launches are phase 9's")
+    require(equal, "the ranks' params bitwise equal after the update")
+    evaluate = make_spmd_eval_step(cfg, mesh)
+    x_eval = synthetic_split(np.random.default_rng(SEED + 24), BUCKET, T, C)[0]
+    kernels.reset_launch_counts()
+    evaluate(p_mesh, shard_batch(x_eval, mesh))
+    torch.cuda.synchronize()
+    eval_launches = dict(kernels.launch_counts)
+    print(f"{tag}: launches an eval batch ({BUCKET // 2} rows) {eval_launches}", flush=True)
+    require(eval_launches == EVAL_LAUNCHES, f"{tag}: an eval batch's launches")
+
+    # overheads: a rank's micro-step, the gloo all-reduce, the global mask draw
+    micro = median_ms({"step": lambda: step_mesh(p_mesh, xs, ys, ms)}, rounds=2)["step"]
+    buf = torch.zeros(flat.numel() + 2, device=dev)
+    t0 = time.perf_counter()
+    for _ in range(4):
+        all_reduce_sum(buf, mesh)
+    torch.cuda.synchronize()
+    reduce_ms = (time.perf_counter() - t0) * 1e3 / 4
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    draw_ms = cuda_ms(lambda: draw_dropout_masks(cfg, B_TRAIN, T, gen, dev), 4)
+    print(f"{tag}: micro-step {micro:.3f} ms (CUDA events, median of 4, two ranks on one "
+          f"card); gloo all-reduce of {buf.numel() * 4 / 1e6:.2f} MB {reduce_ms:.3f} ms (host "
+          f"clock); the global mask draw for B={B_TRAIN} {draw_ms:.3f} ms [{smi}]", flush=True)
+    del p_mesh, step_mesh
+
+    # train_classifier(mesh=), 1 epoch on phase 8's kind of windows
+    rng = np.random.default_rng(SEED + 8)
+    train_data = (*synthetic_split(rng, N_TRAIN_WINDOWS, T, C), *synthetic_split(rng, 256, T, C))
+    t0 = time.perf_counter()
+    res = train_classifier(*train_data, cfg, TrainConfig(epochs=1), mesh=mesh)
+    train_s = time.perf_counter() - t0
+    finite = all(math.isfinite(v) for k in ("train_loss", "val_loss")
+                 for v in res.history[k])
+    best = torch.cat([torch.from_numpy(np.asarray(a, np.float32)).reshape(-1)
+                      for a in _tree_leaves(res.params)]).to(dev)
+    equal = same_on_every_rank(best)
+    print(f"{tag}: train_classifier(mesh=) 1 epoch on {N_TRAIN_WINDOWS} windows in "
+          f"{train_s:.1f} s: train_loss {res.history['train_loss']}, val_loss "
+          f"{res.history['val_loss']}, {res.windows_per_sec:.0f} windows/s; best params "
+          f"bitwise equal on the ranks: {equal}", flush=True)
+    require(finite and equal, f"{tag}: finite history, the ranks' best params bitwise equal")
+
+    # the inference and analysis paths with the mesh against without it
+    params = classifier_init(cfg, make_generator(SEED + 25), dev)
+    rng = np.random.default_rng(SEED + 25)
+    x_big, y_big = synthetic_split(rng, MESH_PREDICT_WINDOWS, T, C)
+    t0 = time.perf_counter()
+    probs = predict_probs(params, x_big, cfg, mesh=mesh)
+    probs_s = time.perf_counter() - t0
+    model = CoupledModel(params, cfg, rates_to_array(DEFAULT_RATES, dev), CouplingConfig(),
+                         device=dev)
+    rolled = {n: predict_batch(model, x_big[:n], mesh=mesh) for n in MESH_ROLLOUT_WINDOWS}
+    x_perm, y_perm = x_big[:MESH_PERM_WINDOWS], y_big[:MESH_PERM_WINDOWS]
+    sweep = coupling_strength_sweep(model, x_perm, y_perm, mesh=mesh)
+    t0 = time.perf_counter()
+    perm = permutation_channel_importance(params, cfg, x_perm, y_perm,
+                                          n_samples=MESH_PERM_WINDOWS, mesh=mesh)
+    perm_s = time.perf_counter() - t0
+    k = rates_to_array(DEFAULT_RATES, dev)
+    forecast = multistep_forecast(probs[:, 1], k, mesh=mesh)
+    same = same_on_every_rank(torch.from_numpy(probs).to(dev))
+    require(same, f"{tag}: every rank returns the same probabilities")
+    if rank == 0:
+        want = predict_probs(params, x_big, cfg)
+        err = float(np.abs(probs[:, 1] - want[:, 1]).max())
+        flips = int((probs.argmax(1) != want.argmax(1)).sum())
+        print(f"{tag}: predict_probs on {MESH_PREDICT_WINDOWS} windows with the mesh in "
+              f"{probs_s:.2f} s: P(closed) max abs diff {err:.3e} from mesh=None (tol "
+              f"{MESH_PROBS_TOL:g}), {flips} decisions flipped", flush=True)
+        require(err <= MESH_PROBS_TOL, f"{tag}: predict_probs with the mesh")
+        for n, got in rolled.items():
+            want = predict_batch(model, x_big[:n])
+            err = float(np.abs(got["probs"][:, 1] - want["probs"][:, 1]).max())
+            flips = int((got["pred_binary"] != want["pred_binary"]).sum())
+            shapes = all(got[key].shape == want[key].shape for key in want)
+            print(f"{tag}: predict_batch on {n} windows with the mesh: P(closed) max abs "
+                  f"diff {err:.3e} (tol {MESH_PROBS_TOL:g}), {flips} decisions flipped, "
+                  f"shapes equal: {shapes}", flush=True)
+            require(err <= MESH_PROBS_TOL and shapes, f"{tag}: predict_batch({n}) with the mesh")
+        want = coupling_strength_sweep(model, x_perm, y_perm)
+        sweep_err = max(abs(sweep[a][m] - want[a][m]) for a in want for m in want[a])
+        print(f"{tag}: coupling sweep on {MESH_PERM_WINDOWS} windows with the mesh {sweep}; "
+              f"max metric diff from mesh=None {sweep_err:.3e}", flush=True)
+        require(all(abs(sweep[a]["accuracy"] - want[a]["accuracy"]) <= MESH_FLIP_SHARE
+                    for a in want), f"{tag}: the sweep's accuracies with the mesh")
+        want = permutation_channel_importance(params, cfg, x_perm, y_perm,
+                                              n_samples=MESH_PERM_WINDOWS)
+        imp_err = float(np.abs(np.subtract(perm["importance"], want["importance"])).max())
+        print(f"{tag}: permutation importance (n={MESH_PERM_WINDOWS}, 61 channels x 5 "
+              f"repeats, {MESH_PERM_WINDOWS // 2} rows a rank) with the mesh in {perm_s:.1f} s; "
+              f"baseline {perm['baseline_accuracy']:.4f} vs {want['baseline_accuracy']:.4f}, "
+              f"max importance diff {imp_err:.3e} (tol {MESH_FLIP_SHARE:g})", flush=True)
+        require(imp_err <= MESH_FLIP_SHARE, f"{tag}: the importances with the mesh")
+        want = multistep_forecast(probs[:, 1], k)
+        f_err = max(float(np.abs(forecast[h]["predictions"] - want[h]["predictions"]).max())
+                    for h in want)
+        print(f"{tag}: multistep_forecast of {len(want[5]['predictions'])} start states with "
+              f"the mesh: max abs diff {f_err:.3e} (tol {FORECAST_TOL:g})", flush=True)
+        require(f_err <= FORECAST_TOL, f"{tag}: the forecasts with the mesh")
+    dist.destroy_process_group()
+
+
+def _tree_leaves(tree):
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in _tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in _tree_leaves(v)]
+    return [tree]
+
+
+def mesh_phase(smi):
+    """Phase 23: the data mesh on the card, in spawned ranks that load the
+    library phase 2 built: (a) NCCL at world size 1, (b) gloo with two
+    ranks sharing cuda:0 (NCCL refuses two ranks on one device, and the
+    machine has one card: no scaling is measured). A failure in a rank
+    raises here."""
+    import torch.multiprocessing as mp
+
+    t0 = time.perf_counter()
+    mp.spawn(mesh_nccl_rank, args=(free_port(), smi), nprocs=1, join=True)
+    t_a = time.perf_counter() - t0
+    mp.spawn(mesh_gloo_rank, args=(free_port(), smi), nprocs=2, join=True)
+    print(f"phase 23 (the data mesh): (a) {t_a:.1f} s, (b) {time.perf_counter() - t0 - t_a:.1f} s",
+          flush=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a GPU",
@@ -3091,6 +3429,10 @@ def main() -> int:
           f"{time.perf_counter() - t_profile:.1f} s", flush=True)
     if importlib.util.find_spec("matplotlib") is None:
         require("matplotlib" not in sys.modules, "no phase imported matplotlib")
+
+    # phase 23: the data mesh, in spawned ranks
+    torch.cuda.empty_cache()
+    mesh_phase(smi)
 
     # one cuDNN LSTM call per LSTM kernel, at its shape (TF32 off): the forward,
     # or forward + backward minus forward; in bf16 for the bf16 kernels where

@@ -11,13 +11,14 @@ Readout (ref 08:276): P_hat(closed at t+h) = F(h) + 0.5 * P(h), clipped to
 
 from __future__ import annotations
 
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
 from scipy.stats import spearmanr
 
 from eegflow_torch.ode.integrate import solve_batch
+from eegflow_torch.train.mesh import DataMesh, all_gather_rows, shard_batch
 
 
 def prob_to_ode_state(prob_closed: np.ndarray) -> np.ndarray:
@@ -53,11 +54,14 @@ def multistep_forecast(
     k: torch.Tensor,
     horizons: Sequence[int] = (5, 10, 20),
     dt: float = 1.0,
+    mesh: Optional[DataMesh] = None,
 ) -> Dict[int, Dict[str, np.ndarray]]:
     """For each start index i: ODE rollout from prob_to_ode_state(probs[i])
     with fixed (unmodulated) rates ``k (6,)``; predictions vs actual probs
     at t+h. ``probs_closed (N,)``. Returns {h: {predictions, actuals}}. The
-    solve runs on k's device."""
+    solve runs on k's device. ``mesh``: the start states are padded to a
+    multiple of the world size with [1, 0, 0] rows, as the JAX package pads
+    them, and sharded; every rank returns the whole result."""
     probs_closed = np.asarray(probs_closed, np.float64)
     max_h = max(horizons)
     n = len(probs_closed) - max_h
@@ -66,10 +70,18 @@ def multistep_forecast(
                 for h in horizons}
 
     k = k.to(torch.float32)
-    y0 = torch.from_numpy(prob_to_ode_state(probs_closed[:n]).astype(np.float32)).to(k.device)
+    y0 = prob_to_ode_state(probs_closed[:n]).astype(np.float32)
+    if mesh is None:
+        y0 = torch.from_numpy(y0).to(k.device)
+    else:
+        pad = np.tile(np.float32([1.0, 0.0, 0.0]), ((-n) % mesh.world_size, 1))
+        y0 = shard_batch(np.concatenate([y0, pad]), mesh)
     # grid matches ref predict_trajectory: t = linspace(0, H*dt, H+1)
     with torch.inference_mode():
-        traj = solve_batch(y0, 0.0, max_h * dt, max_h + 1, k.expand(n, 6)).cpu().numpy()
+        traj = solve_batch(y0, 0.0, max_h * dt, max_h + 1, k.to(y0.device).expand(len(y0), 6))
+        if mesh is not None:
+            traj = all_gather_rows(traj, mesh)[:n]
+        traj = traj.cpu().numpy()
 
     results: Dict[int, Dict[str, np.ndarray]] = {}
     for h in horizons:
@@ -114,11 +126,13 @@ def rolling_forecast_evaluation(
     k: torch.Tensor,
     window_size: int = 50,
     horizon: int = 10,
+    mesh: Optional[DataMesh] = None,
 ) -> list:
     """Non-overlapping rolling windows -> per-window accuracy/MAE
-    (ref 08:346-392), on top of one batched forecast."""
+    (ref 08:346-392), on top of one batched forecast (sharded over
+    ``mesh``'s ranks, as :func:`multistep_forecast`)."""
     probs_closed = np.asarray(probs_closed, np.float64)
-    res = multistep_forecast(probs_closed, k, horizons=(horizon,))
+    res = multistep_forecast(probs_closed, k, horizons=(horizon,), mesh=mesh)
     preds = res[horizon]["predictions"]
     actuals = res[horizon]["actuals"]
     n_windows = (len(probs_closed) - window_size - horizon) // window_size

@@ -92,14 +92,28 @@ JAX package's does.
 ``--device cuda`` (the default of every stage but ``synth``) without a
 usable GPU raises; it never carries on on the CPU. ``--device cpu`` runs the
 kernels' plain twins.
+
+Started by ``python -m torch.distributed.run --nproc-per-node N -m
+eegflow_torch.cli.main <stage> ...`` (``WORLD_SIZE`` > 1), the CLI runs in a
+data mesh of N ranks (:mod:`eegflow_torch.train.mesh`; ``--device cuda``
+means ``cuda:LOCAL_RANK`` over NCCL, ``--device cpu`` gloo): ``train``,
+``integrate``, ``explain`` (its permutation importance) and ``forecast``
+share their batches out over the ranks, as the JAX package's stages share
+them over its devices, and every other stage runs on rank 0 alone, one by
+one or inside ``all``. Rank 0 alone prints the results and writes the
+files; every stage ends at a barrier, whose timeout (:data:`MESH_TIMEOUT`)
+bounds how long a stage may run.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import os
 import sys
 import time
+from datetime import timedelta
 from pathlib import Path
 from typing import Dict, Optional, Tuple
 
@@ -113,6 +127,12 @@ from eegflow_torch.core.config import (CouplingConfig, PipelineConfig, TrainConf
                                        TransformerConfig)
 from eegflow_torch.couple.rollout import CoupledModel
 from eegflow_torch.ode.field import rates_to_array
+
+
+#: the process group's timeout under torch.distributed.run: every rank waits
+#: at the end of each stage for rank 0, which runs the stages without a mesh
+#: alone, so it is at least as long as the longest stage may run
+MESH_TIMEOUT = timedelta(hours=6)
 
 
 def resolve_device(name: str) -> torch.device:
@@ -196,6 +216,29 @@ def _no_tf32() -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
+def maybe_mesh(device: str):
+    """This rank's :class:`~eegflow_torch.train.mesh.DataMesh` when the CLI
+    runs under ``torch.distributed.run`` with ``WORLD_SIZE`` > 1 (``--device
+    cuda``: ``cuda:LOCAL_RANK`` over NCCL; any other device, each rank on
+    it), else None, as the JAX package's ``_maybe_mesh`` gives on one
+    device."""
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    if world <= 1:
+        return None
+    from eegflow_torch.train.mesh import make_data_mesh
+
+    resolve_device(device)
+    return make_data_mesh(devices=None if device == "cuda" else [device] * world,
+                          timeout=MESH_TIMEOUT)
+
+
+def _writer(args) -> bool:
+    """Whether this process prints the results and writes the files: rank 0
+    of a mesh, or the one process without."""
+    mesh = getattr(args, "mesh", None)
+    return mesh is None or mesh.rank == 0
+
+
 def cmd_train(args) -> None:
     from eegflow_torch.analyze.evaluate import evaluate_model
     from eegflow_torch.core.timing import torch_trace
@@ -205,6 +248,7 @@ def cmd_train(args) -> None:
 
     _no_tf32()
     device = resolve_device(args.device)
+    mesh = getattr(args, "mesh", None)
     viz = figures("train")
     cfg = load_config(args.config)
     model_cfg, train_cfg = cfg.model, cfg.train
@@ -247,12 +291,22 @@ def cmd_train(args) -> None:
             epoch_transform = make_surrogate_refresher(
                 n_orig, train_cfg.aug_phase_surrogates, train_cfg.seed)
             print("per-epoch fresh surrogate refresh enabled")
+    if mesh is not None:
+        print(f"data-parallel mesh over {mesh.world_size} devices")
+        if epoch_transform is not None:
+            # train_classifier refreshes on the single-device path only;
+            # the static surrogate copies stay
+            print("mesh path: per-epoch surrogate refresh disabled "
+                  "(static surrogate copies keep working)")
+            epoch_transform = None
 
     with torch_trace(getattr(args, "profile", None), device):
         res = train_classifier(x_train, y_train, x_val, y_val, model_cfg, train_cfg,
-                               device=device, epoch_transform=epoch_transform)
+                               device=device, epoch_transform=epoch_transform, mesh=mesh)
     print(f"best val F1 {res.best_val_f1:.4f} in {res.epochs_run} epochs "
           f"({res.wall_time_s:.0f}s, {res.windows_per_sec:.0f} windows/s) on {device}")
+    if not _writer(args):
+        return
 
     params = params_from_jax(res.params, device)
     eval_attn = make_eval_step(model_cfg, bf16=train_cfg.bf16, return_attention=True,
@@ -404,9 +458,10 @@ def cmd_integrate(args) -> None:
     figs = Path(args.output_dir) / "figures"
     arrays, _ = load_splits(args.output_dir)
     model = load_coupled_model(args.output_dir, device, cfg.coupling, cfg.train.lstm_impl)
+    mesh = getattr(args, "mesh", None)
 
     t0 = time.time()
-    res = predict_batch(model, arrays["X_test"])
+    res = predict_batch(model, arrays["X_test"], mesh=mesh)
     dt = time.time() - t0
     n = len(arrays["y_test"])
     print(f"coupled inference: {n} samples in {dt:.2f}s ({n / max(dt, 1e-9):.0f}/s)")
@@ -416,7 +471,10 @@ def cmd_integrate(args) -> None:
     print(f"integration acc={evaluation['accuracy']:.4f} f1={evaluation['f1']:.4f}")
 
     sweep = coupling_strength_sweep(model, arrays["X_test"], arrays["y_test"],
-                                    cfg.coupling.sweep_alphas, cfg.coupling.forecast_steps)
+                                    cfg.coupling.sweep_alphas, cfg.coupling.forecast_steps,
+                                    mesh=mesh)
+    if not _writer(args):
+        return
     save_results(results / "integration_results.json",
                  {"evaluation": evaluation, "throughput_samples_per_sec": n / max(dt, 1e-9)})
     save_results(results / "coupling_analysis.json", sweep)
@@ -456,13 +514,19 @@ def cmd_explain(args) -> None:
     channel_names = (meta or {}).get("channel_names") or None
     x_test, y_test = arrays["X_test"], arrays["y_test"]
 
+    # under a mesh only the permutation importance shares its rows out, as
+    # in the JAX package; rank 0 alone computes the rest
+    writer = _writer(args)
     t0 = time.perf_counter()
-    grad = gradient_channel_importance(params, model_cfg, x_test,
-                                       channel_names=channel_names)
+    grad = (gradient_channel_importance(params, model_cfg, x_test, channel_names=channel_names)
+            if writer else None)
     t1 = time.perf_counter()
     perm = permutation_channel_importance(params, model_cfg, x_test, y_test,
-                                          channel_names=channel_names)
+                                          channel_names=channel_names,
+                                          mesh=getattr(args, "mesh", None))
     t2 = time.perf_counter()
+    if not writer:
+        return
     print(f"  gradient {t1 - t0:.0f}s | permutation {t2 - t1:.0f}s", flush=True)
     methods = [grad, perm]
     shap_light = None
@@ -531,12 +595,15 @@ def cmd_forecast(args) -> None:
     ode_results = load_results(out / "results" / "ode_results.json")
     k = rates_to_array(ode_results["fitted_params"], device)
 
+    mesh = getattr(args, "mesh", None)
     probs = predict_probs(params_from_jax(params, device), arrays["X_test"], model_cfg,
-                          cfg.train.eval_batch_size)
+                          cfg.train.eval_batch_size, mesh=mesh)
     horizons = (5, 10, 20)
-    results = multistep_forecast(probs[:, 1], k, horizons)
+    results = multistep_forecast(probs[:, 1], k, horizons, mesh=mesh)
     metrics = evaluate_forecasts(results, horizons)
-    rolling = rolling_forecast_evaluation(probs[:, 1], k)
+    rolling = rolling_forecast_evaluation(probs[:, 1], k, mesh=mesh)
+    if not _writer(args):
+        return
     save_results(out / "results" / "forecasting_results.json",
                  {"metrics": {str(h): m for h, m in metrics.items()},
                   "rolling": rolling})
@@ -792,10 +859,28 @@ def cmd_all(args) -> int:
     for fn in (cmd_explore, cmd_preprocess, cmd_baselines, cmd_train, cmd_fit_ode,
                cmd_integrate, cmd_explain, cmd_forecast, cmd_ablate, cmd_export):
         print(f"\n===== {fn.__name__[4:]} =====")
-        rc = fn(stage_args)
+        rc = run_stage(fn, stage_args)
         if rc:
             return rc
     return 0
+
+
+def run_stage(fn, args) -> int:
+    """``fn(args)``'s return code. Under a mesh (``args.mesh``) the stages
+    with mesh paths (train, integrate, explain, forecast) run on every rank
+    and the others on rank 0 alone; then every rank meets the others in an
+    all-reduce that carries rank 0's return code to all of them, so that no
+    rank reads a file before rank 0 has written it."""
+    mesh = getattr(args, "mesh", None)
+    if mesh is None:
+        return fn(args) or 0
+    from eegflow_torch.train.mesh import all_reduce_sum
+
+    rc = 0
+    if mesh.rank == 0 or fn in (cmd_train, cmd_integrate, cmd_explain, cmd_forecast):
+        rc = fn(args) or 0
+    rc_t = torch.tensor([rc if mesh.rank == 0 else 0], device=mesh.device)
+    return int(all_reduce_sum(rc_t, mesh).item())
 
 
 def start_server(args):
@@ -905,8 +990,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    return args.fn(args) or 0
+    mesh = maybe_mesh(getattr(args, "device", "cpu"))
+    if mesh is None:
+        return args.fn(args) or 0
+    args.mesh, args.device = mesh, str(mesh.device)
+    with contextlib.ExitStack() as quiet:
+        if mesh.rank != 0:  # rank 0 alone prints
+            quiet.enter_context(contextlib.redirect_stdout(
+                quiet.enter_context(open(os.devnull, "w"))))
+        return cmd_all(args) if args.fn is cmd_all else run_stage(args.fn, args)
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+    sys.exit(code)

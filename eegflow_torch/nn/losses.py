@@ -19,13 +19,17 @@ def _nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor,
-                       class_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Weighted CE: logits (B, C), int labels (B,) -> scalar."""
+                       class_weights: Optional[torch.Tensor] = None,
+                       denominator: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Weighted CE: logits (B, C), int labels (B,) -> scalar.
+    ``denominator`` replaces the sum of the weights (the count without
+    weights): a data-parallel rank divides its rows' sum by the whole
+    batch's (``train.steps.make_train_step(mesh=)``)."""
     nll = _nll(logits, labels)
     if class_weights is None:
-        return nll.mean()
+        return nll.mean() if denominator is None else nll.sum() / denominator
     w = class_weights[labels.long()]
-    return (w * nll).sum() / w.sum()
+    return (w * nll).sum() / (w.sum() if denominator is None else denominator)
 
 
 def focal_loss(logits: torch.Tensor, labels: torch.Tensor, gamma: float = 2.0,

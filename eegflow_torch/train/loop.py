@@ -3,7 +3,8 @@ on a device-resident training set, validation every epoch, early stopping
 with best-weight restore, the history dict and windows/s, and the
 reference's crash-recovery snapshots (``checkpoint_dir``,
 ``checkpoint_every``, ``resume_from``) in its format, so either package
-resumes the other's. One device, no mesh.
+resumes the other's. ``mesh=`` (:mod:`eegflow_torch.train.mesh`) shares a
+batch out over the ranks of a data mesh.
 """
 
 from __future__ import annotations
@@ -24,6 +25,8 @@ from eegflow_torch.core.config import ModelConfig, TrainConfig
 from eegflow_torch.core.prng import make_generator
 from eegflow_torch.nn.model import classifier_init, draw_dropout_masks
 from eegflow_torch.train.data import class_weight_array, weighted_epoch_indices
+from eegflow_torch.train.mesh import (DataMesh, all_gather_rows, make_spmd_eval_step,
+                                      replicate_to_mesh, shard_batch)
 from eegflow_torch.train.schedule import lr_trace
 from eegflow_torch.train.steps import (leaf_at, load_optimizer_state_dict, make_eval_step,
                                        make_optimizer, make_train_step, optimizer_state_dict)
@@ -45,17 +48,36 @@ class TrainResult:
 
 def predict_probs(params: Any, x: Union[np.ndarray, torch.Tensor], model_cfg: ModelConfig,
                   batch_size: int = 1024, bf16: bool = True, eval_step=None,
-                  lstm_impl: str = "auto") -> np.ndarray:
+                  lstm_impl: str = "auto", mesh: Optional[DataMesh] = None) -> np.ndarray:
     """Batched inference -> (N, num_classes) probabilities on the host.
     ``params`` is a torch parameter tree; ``x`` may already lie on its
-    device, otherwise each batch is copied there."""
+    device, otherwise each batch is copied there.
+
+    ``mesh``: ``params`` are the same on every rank, on its device.
+    ``batch_size`` is rounded up to a multiple of the world size, as the
+    JAX package rounds it; each batch, zero-padded to a multiple of the
+    world size, is sharded, each rank evaluates its rows and the shards are
+    gathered in rank order, so every rank returns the whole array."""
     device = next(iter(params.parameters())).device
-    step = eval_step or make_eval_step(model_cfg, bf16=bf16, lstm_impl=lstm_impl)
+    if mesh is None:
+        step = eval_step or make_eval_step(model_cfg, bf16=bf16, lstm_impl=lstm_impl)
+    else:
+        step = eval_step or make_spmd_eval_step(model_cfg, mesh, bf16=bf16,
+                                                lstm_impl=lstm_impl)
+        batch_size += (-batch_size) % mesh.world_size
     out = []
     for i in range(0, len(x), batch_size):
         xb = x[i: i + batch_size]
         xb = xb if isinstance(xb, torch.Tensor) else torch.from_numpy(np.ascontiguousarray(xb))
-        out.append(step(params, xb.to(device)).cpu().numpy())
+        if mesh is None:
+            out.append(step(params, xb.to(device)).cpu().numpy())
+            continue
+        k = len(xb)
+        pad = (-k) % mesh.world_size
+        if pad:
+            xb = torch.cat([xb, xb.new_zeros((pad,) + tuple(xb.shape[1:]))])
+        probs = all_gather_rows(step(params, shard_batch(xb, mesh)), mesh)
+        out.append(probs[:k].cpu().numpy())
     return np.concatenate(out) if out else np.empty((0, model_cfg.num_classes), np.float32)
 
 
@@ -82,7 +104,8 @@ def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray
                      checkpoint_dir: Optional[Union[str, Path]] = None,
                      checkpoint_every: int = 10,
                      resume_from: Optional[Union[str, Path]] = None,
-                     epoch_transform: Optional[Callable] = None) -> TrainResult:
+                     epoch_transform: Optional[Callable] = None,
+                     mesh: Optional[DataMesh] = None) -> TrainResult:
     """Full training run -> best params + history (either model family).
 
     Weights come from ``classifier_init`` with a generator seeded by
@@ -109,10 +132,34 @@ def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray
     ``params.msgpack`` and restarts the patience count, as the reference
     does; interrupted after an epoch and resumed, it ends with the
     uninterrupted run's train state.
+
+    ``mesh`` (:class:`~eegflow_torch.train.mesh.DataMesh`; ``device`` is
+    then the mesh's): every rank holds the training set on its device,
+    draws the same epoch order and the whole batch's dropout masks, and
+    takes its rows of each; the step is
+    :func:`~eegflow_torch.train.steps.make_train_step` with the mesh, the
+    single-device function of the whole batch, so a mesh run is the run
+    without one up to the order of the sums. The JAX package takes its
+    explicit ``shard_map`` step on a TPU mesh, whose per-shard weighted
+    means are another function under class weights, because its implicit
+    sharded step cannot reach the Pallas kernels; each rank of the port
+    runs the kernels on its own shard either way, so the port keeps the
+    implicit step's function on every device. Every rank validates the
+    whole validation set, as the JAX package validates unsharded, so every
+    rank makes the same early-stopping decisions. Rank 0 alone prints and
+    writes the snapshots; every rank resumes from the same one. An
+    ``epoch_transform`` with a mesh raises ``ValueError``, as the JAX
+    package's does.
     """
     t_start = time.time()
-    device = torch.device(device)
+    if mesh is not None and epoch_transform is not None:
+        raise ValueError("epoch_transform needs the single-device training path (mesh=None)")
+    device = mesh.device if mesh is not None else torch.device(device)
+    writer = mesh is None or mesh.rank == 0
+    verbose = verbose and writer
     params = classifier_init(model_cfg, make_generator(train_cfg.seed), device, trainable=True)
+    if mesh is not None:
+        replicate_to_mesh(params, mesh)
     names = [n for n, _ in params.named_parameters()]
     batches_per_epoch = max(1, len(y_train) // train_cfg.batch_size)
     updates_per_epoch = max(1, batches_per_epoch // max(train_cfg.accumulation_steps, 1))
@@ -127,7 +174,7 @@ def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray
             resume_payload = (resume_history, extra, ckpt_best_params)
 
     cw = torch.from_numpy(class_weight_array(y_train, model_cfg.num_classes)).to(device)
-    step = make_train_step(model_cfg, train_cfg, optimizer, class_weights=cw)
+    step = make_train_step(model_cfg, train_cfg, optimizer, class_weights=cw, mesh=mesh)
     eval_step = make_eval_step(model_cfg, bf16=train_cfg.bf16, lstm_impl=train_cfg.lstm_impl)
     drop_gen = torch.Generator(device=device)
 
@@ -178,10 +225,14 @@ def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray
         ep_count = 0
         t_steps = time.time()
         for b_idx in range(len(indices) // bs):
-            sel = torch.from_numpy(indices[b_idx * bs: (b_idx + 1) * bs]).to(device)
+            sel = indices[b_idx * bs: (b_idx + 1) * bs]
+            sel = (torch.from_numpy(sel).to(device) if mesh is None
+                   else shard_batch(sel, mesh))
             xb = x_train_dev.index_select(0, sel)
             yb = y_train_dev.index_select(0, sel)
             masks = draw_dropout_masks(model_cfg, bs, steps, drop_gen, device)
+            if mesh is not None:
+                masks = shard_batch(masks, mesh)
             metrics = step(params, xb, yb, masks)
             batch_metrics.append((metrics, bs))
             ep_count += bs
@@ -221,7 +272,7 @@ def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray
 
         # the snapshot: the best params as of the previous epochs, then the
         # current train state
-        if checkpoint_dir is not None and (epoch + 1) % checkpoint_every == 0:
+        if writer and checkpoint_dir is not None and (epoch + 1) % checkpoint_every == 0:
             save_checkpoint(checkpoint_dir, best_params, model_cfg, history=history,
                             extra={"epoch": epoch + 1, "best_val_f1": best_score,
                                    "selection_metric": train_cfg.selection_metric,

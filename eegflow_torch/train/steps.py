@@ -53,6 +53,7 @@ from eegflow_torch.core.config import ModelConfig, TrainConfig, TransformerConfi
 from eegflow_torch.nn.cuda_lstm import check_lstm_bwd
 from eegflow_torch.nn.losses import cross_entropy_loss
 from eegflow_torch.nn.model import DropoutMasks, classifier_apply
+from eegflow_torch.train.mesh import DataMesh, all_reduce_sum, reduce_gradients
 from eegflow_torch.train.schedule import warmup_cosine_schedule
 
 
@@ -194,14 +195,35 @@ def make_optimizer(params: Sequence[torch.Tensor], train_cfg: TrainConfig,
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: AdamW,
                     class_weights: Optional[torch.Tensor] = None,
-                    lstm_impl: Optional[str] = None, *, lstm_bwd: str = "fused") -> Callable:
+                    lstm_impl: Optional[str] = None, *, lstm_bwd: str = "fused",
+                    mesh: Optional[DataMesh] = None) -> Callable:
     """``step(params, x, y, masks) -> {"loss", "correct", "count"}``: forward
     in training mode with the dropout ``masks``, weighted cross-entropy,
     backward, optimizer step (the parameters change in place on every
     ``accumulation_steps``-th call). ``loss`` and ``correct`` stay on the
     device. ``lstm_bwd``: the LSTM stack's backward schedule
     (``classifier_apply``; the EEGFormer has none); not a ``TrainConfig``
-    field, whose fields stay the JAX package's."""
+    field, whose fields stay the JAX package's.
+
+    ``mesh`` (:class:`~eegflow_torch.train.mesh.DataMesh`): ``x``, ``y``
+    and ``masks`` are this rank's shard of the batch, and the step computes
+    the single-device function of the whole batch, as the JAX package's
+    implicit sharded step does: each rank divides its rows' weighted sum by
+    the whole batch's weight sum (one all-reduce, from the labels), and the
+    gradients are summed over the ranks in one all-reduce before the
+    optimizer step. ``loss`` is the whole batch's, ``correct`` and
+    ``count`` the mesh's sums. With class weights, at world size 1 it is
+    the step without a mesh bit for bit."""
+    return _make_step(model_cfg, train_cfg, optimizer, class_weights, lstm_impl, lstm_bwd,
+                      mesh, explicit=False)
+
+
+def _make_step(model_cfg, train_cfg: TrainConfig, optimizer: AdamW,
+               class_weights: Optional[torch.Tensor], lstm_impl: Optional[str], lstm_bwd: str,
+               mesh: Optional[DataMesh], explicit: bool) -> Callable:
+    """The step of :func:`make_train_step` (``explicit=False``) or of
+    :func:`~eegflow_torch.train.mesh.make_spmd_train_step` (``explicit``:
+    each rank's own weighted mean, the gradients averaged)."""
     compute_dtype = torch.bfloat16 if train_cfg.bf16 else None
     impl = lstm_impl or train_cfg.lstm_impl
     if not isinstance(model_cfg, TransformerConfig):
@@ -210,13 +232,23 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: A
     def step(params, x: torch.Tensor, y: torch.Tensor,
              masks: Optional[DropoutMasks]) -> Dict[str, object]:
         optimizer.zero_grad()
+        denominator = None
+        if mesh is not None and not explicit:
+            denominator = all_reduce_sum(
+                torch.tensor(float(y.shape[0]), device=y.device) if class_weights is None
+                else class_weights[y.long()].sum(), mesh)
         logits = classifier_apply(params, x, model_cfg, compute_dtype=compute_dtype,
                                   lstm_impl=impl, train=True, masks=masks, lstm_bwd=lstm_bwd)
-        loss = cross_entropy_loss(logits, y, class_weights)
+        loss = cross_entropy_loss(logits, y, class_weights, denominator)
         loss.backward()
-        optimizer.step()
         correct = (logits.detach().argmax(-1) == y).sum()
-        return {"loss": loss.detach(), "correct": correct, "count": int(y.shape[0])}
+        count = int(y.shape[0])
+        if mesh is not None:
+            loss, correct = reduce_gradients(optimizer.params, mesh, loss, correct,
+                                             average=explicit)
+            count *= mesh.world_size
+        optimizer.step()
+        return {"loss": loss.detach(), "correct": correct, "count": count}
 
     return step
 

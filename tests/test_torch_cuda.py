@@ -1346,3 +1346,53 @@ def test_resume_is_bitwise_on_the_card(dev, tmp_path, family):
     assert ((tmp_path / "resumed" / "train_state.msgpack").read_bytes()
             == (tmp_path / "full" / "train_state.msgpack").read_bytes())
     assert resumed.history["train_loss"] == full.history["train_loss"]
+
+
+# the data mesh on the card (tests/mesh_workers.py spawns the ranks): one
+# micro-step's launches on the default bf16 "fused" path
+STEP_LAUNCHES = {"input_block_fwd": 1, "input_block_bwd": 1, "lstm_fwd_train": 6,
+                 "lstm_bwd": 6, "pool_head_fwd": 1, "pool_head_bwd": 1}
+# two ranks against one process: as chip_smoke.py phase 23 (the head's
+# weights' gradients are rounded to bf16 once a rank)
+MESH_LOSS_TOL = 1e-3
+MESH_GRAD_REL_TOL = 2e-3
+MESH_BF16_GRAD_REL_TOL = 1e-2
+
+
+def _mesh_case(**kw):
+    return dict(seed=31, batch=64, steps=64, micro_steps=4, **kw)
+
+
+def test_mesh_nccl_world_size_1_is_the_step_without_a_mesh_bit_for_bit(dev):
+    import mesh_workers as mw
+
+    (res,) = mw.spawn(mw.card_steps, _mesh_case(devices=None, backend=None), world=1)
+    got, want = res["mesh"], res["single"]
+    assert torch.equal(got["loss"], want["loss"])
+    assert all(torch.equal(a, b) for a, b in zip(got["grads"], want["grads"])
+               if b is not None)
+    assert torch.equal(got["params"][0], want["params"])
+    assert got["launches"] == STEP_LAUNCHES
+    assert res["eval_launches"] == {"input_block_fwd": 1, "lstm_fwd": 6, "pool_head_fwd": 1}
+
+
+def test_mesh_two_gloo_ranks_on_one_card_match_the_single_process_step(dev):
+    import mesh_workers as mw
+    from eegflow_torch.core.config import ModelConfig as MC
+    from eegflow_torch.nn.model import classifier_init as init
+
+    ranks = mw.spawn(mw.card_steps, _mesh_case(devices=["cuda:0", "cuda:0"], backend="gloo"))
+    got, want = ranks[0]["mesh"], ranks[0]["single"]
+    assert abs(got["loss"].item() - want["loss"].item()) <= MESH_LOSS_TOL
+    names = [n for n, _ in init(MC()).named_parameters()]
+    for name, a, b in zip(names, got["grads"], want["grads"]):
+        if b is None:
+            continue
+        tol = MESH_BF16_GRAD_REL_TOL if name in ("head1.w", "head2.w", "head3.w") \
+            else MESH_GRAD_REL_TOL
+        assert rel_err(a, b) <= tol, name
+    for r in ranks:
+        assert r["mesh"]["launches"] == STEP_LAUNCHES
+        assert r["eval_launches"] == {"input_block_fwd": 1, "lstm_fwd": 6, "pool_head_fwd": 1}
+        rows = r["mesh"]["params"]
+        assert torch.equal(rows[0], rows[1])

@@ -1,6 +1,7 @@
-"""The port stands alone: no module of ``eegflow_torch`` and not
-``chip_smoke.py`` imports JAX or the JAX package (the GPU machine has
-neither). Parsed with ``ast``; nothing is imported."""
+"""The port stands alone: no module of ``eegflow_torch``, not
+``chip_smoke.py`` and not ``tests/mesh_workers.py`` (the module that the
+data-parallel tests' spawned ranks import) imports JAX or the JAX package
+(the GPU machine has neither). Parsed with ``ast``; nothing is imported."""
 
 import ast
 from pathlib import Path
@@ -8,7 +9,8 @@ from pathlib import Path
 import pytest
 
 ROOT = Path(__file__).resolve().parent.parent
-SOURCES = sorted((ROOT / "eegflow_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "eegflow_torch").rglob("*.py")) + [ROOT / "chip_smoke.py",
+                                                            ROOT / "tests" / "mesh_workers.py"]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "eegflow")
 
 
