@@ -192,14 +192,29 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      permutation importance (n = 1,000) and multistep_forecast with the mesh
      against without it; each rank's micro-step, the gloo all-reduce and the
      global mask draw timed.
+ 24. the bf16 stack's option res_bf16 (EEGFLOW_RES_BF16=1: bf16 residual
+     planes or raw gates): (a) at B=64, T=256, H=256, one and two parts, both
+     directions, against the twins and a bitwise repeat: kernel 2 with bf16
+     planes and bf16 raw gates (the float32 mode's residual rounded to
+     nearest even, bit for bit), kernels 3 and 3b on bf16 residuals, kernel 4
+     on bf16 planes; (b) one B=512 micro-step of ModelConfig() on bf16
+     residuals under each of "fused", "two_pass" and "dualdir", kernel path
+     against plain path (loss, every gradient, bitwise repeat, exact launch
+     counts from model.train_step_launches); (c) its loss equal to the
+     float32-residual step's, and (d) its gradients' distance from that
+     step's and both steps' peak device memory; (e) each step timed in turns
+     with the float32-residual one, and each mode the steps launch held at
+     B=512 to its twin and a bitwise repeat and timed against its
+     float32-residual counterpart and its twin.
 The line before the last lists the kernels as JSON, each with its time, its
 twin's, its bound on an H100 (bytes over 3.35 TB/s or products over the
 dtype's peak, whichever is larger), the library call's time where there is
 one and its launches in phase 18 (analysis_launches), phase 19
 (ablate_launches) and phase 20's train and explain stages
 (transformer_launches); the wide bf16 classes' entries count their launches
-in the hidden-512 ablate run, the one-part pool head's in phase 20; the last
-line is {"ok": true, "device": {...}}.
+in the hidden-512 ablate run, the one-part pool head's in phase 20, the
+res_bf16 modes of phase 24 theirs in its three micro-steps; the last line is
+{"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -215,6 +230,7 @@ import sys
 import tempfile
 import threading
 import time
+from collections import Counter
 from http.client import HTTPConnection
 from pathlib import Path
 
@@ -393,6 +409,11 @@ MESH_PREDICT_WINDOWS = 10_000
 MESH_ROLLOUT_WINDOWS = (1024, 1000)
 MESH_PERM_WINDOWS = 1000
 MESH_TIMEOUT_S = 600
+# phase 24: a bf16 residual of a kernel against its twin's rounds float32
+# values that agree within TRAIN_FWD_TOL, so a value near a rounding boundary
+# takes the next bf16: one ulp of 8 significant bits, 2^-8 for the planes and
+# gates (all in [-1, 1])
+RES16_TOL = TRAIN_FWD_TOL + 2.0 ** -8
 # one micro-step's launches on the default bf16 "fused" path (phase 9) and an
 # eval batch's
 STEP_LAUNCHES = {"input_block_fwd": 1, "input_block_bwd": 1, "lstm_fwd_train": 6,
@@ -2398,7 +2419,8 @@ def main() -> int:
     from eegflow_torch.nn.cuda_input import (bwd_plan, fwd_plan, input_block_bwd,
                                              input_block_bwd_plain, input_block_fused,
                                              input_block_fused_plain)
-    from eegflow_torch.nn.cuda_lstm import (kernel_plan, lstm_bwd, lstm_bwd_dualdir,
+    from eegflow_torch.nn.cuda_lstm import (LSTM_BWD_SCHEDULES, counter, kernel_plan,
+                                            lstm_bwd, lstm_bwd_dualdir,
                                             lstm_bwd_dualdir_plain,
                                             lstm_bwd_plain, lstm_bwd_v2, lstm_bwd_v2_plain,
                                             lstm_fwd_fused_proj, lstm_fwd_fused_proj_plain,
@@ -2408,7 +2430,8 @@ def main() -> int:
                                             lstm_recurrence_backward_plain,
                                             lstm_recurrence_plain, select_dropout)
     from eegflow_torch.nn.losses import cross_entropy_loss
-    from eegflow_torch.nn.model import classifier_apply, classifier_init, draw_dropout_masks
+    from eegflow_torch.nn.model import (classifier_apply, classifier_init, draw_dropout_masks,
+                                        train_step_launches)
     from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
 
     # phase 1: the card
@@ -2441,6 +2464,11 @@ def main() -> int:
                                      ("bwd", B_TRAIN, 0, "lstm_bwd"),
                                      ("bwd_v2", B_TRAIN, 0, "lstm_bwd_v2"),
                                      ("bwd_dualdir", B_TRAIN, 0, "lstm_bwd_dualdir"),
+                                     ("fwd", B_TRAIN, 3, "lstm_fwd_train_res16"),
+                                     ("fwd", B_TRAIN, 4, "lstm_fwd_train_gates_res16"),
+                                     ("bwd", B_TRAIN, 1, "lstm_bwd_res16"),
+                                     ("bwd_v2", B_TRAIN, 1, "lstm_bwd_v2_res16"),
+                                     ("bwd_dualdir", B_TRAIN, 1, "lstm_bwd_dualdir_res16"),
                                      ("rec", B_TRAIN, 1, "lstm_rec_fwd_train"),
                                      ("rec_bwd", B_TRAIN, 0, "lstm_rec_bwd"),
                                      ("rec", B_TRAIN, 0, "lstm_rec_fwd"),
@@ -2764,11 +2792,12 @@ def main() -> int:
     cw = torch.tensor([1.0, 1.0], device=dev)
     leaves = list(tparams.parameters())
 
-    def micro_step(impl, compute_dtype=torch.bfloat16, lstm_bwd="fused"):
+    def micro_step(impl, compute_dtype=torch.bfloat16, lstm_bwd="fused", res_bf16=False):
         for q in leaves:
             q.grad = None
         logits = classifier_apply(tparams, x9, cfg, compute_dtype=compute_dtype,
-                                  lstm_impl=impl, train=True, masks=masks9, lstm_bwd=lstm_bwd)
+                                  lstm_impl=impl, train=True, masks=masks9, lstm_bwd=lstm_bwd,
+                                  res_bf16=res_bf16)
         loss = cross_entropy_loss(logits, y9, cw)
         loss.backward()
         return loss.detach(), [q.grad.clone() if q.grad is not None else torch.zeros_like(q)
@@ -3271,10 +3300,7 @@ def main() -> int:
 
     # phase 15: B=512 micro-steps under the two other backward schedules
     sched_counts, sched_ms = {}, {}
-    for sched, fwd_name, bwd_name, n_bwd in (("two_pass", "lstm_fwd_train_gates",
-                                              "lstm_bwd_v2", 6),
-                                             ("dualdir", "lstm_fwd_train", "lstm_bwd_dualdir",
-                                              3)):
+    for sched in ("two_pass", "dualdir"):
         kernels.reset_launch_counts()
         loss_k, grads_k = micro_step("kernel", lstm_bwd=sched)
         torch.cuda.synchronize()
@@ -3282,8 +3308,7 @@ def main() -> int:
         loss_k2, grads_k2 = micro_step("kernel", lstm_bwd=sched)
         loss_p, grads_p = micro_step("plain", lstm_bwd=sched)
         torch.cuda.synchronize()
-        want_counts = {"input_block_fwd": 1, "input_block_bwd": 1, fwd_name: 6,
-                       bwd_name: n_bwd, "pool_head_fwd": 1, "pool_head_bwd": 1}
+        want_counts = train_step_launches(cfg, sched)
         print(f"micro-step lstm_bwd={sched} B={B_TRAIN}: launches {sched_counts[sched]}")
         require(sched_counts[sched] == want_counts,
                 f"lstm_bwd={sched} launches per micro-step: want {want_counts}")
@@ -3434,6 +3459,184 @@ def main() -> int:
     torch.cuda.empty_cache()
     mesh_phase(smi)
 
+    # phase 24: the option res_bf16 (EEGFLOW_RES_BF16=1) of kernels 2, 3, 3b and 4
+    t24 = time.perf_counter()
+    opt_err = {}  # a mode's counter name -> its largest absolute difference from its twin
+    flat3 = lambda out: list(out[0]) + list(out[1]) + list(out[2])  # noqa: E731
+    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+
+    def hold24(label, name, got, again, want, tol, relative):
+        err = hold_at_main_shape(label, [t.float() for t in got], [t.float() for t in again],
+                                 [t.float() for t in want], tol, relative)
+        opt_err[name] = max(opt_err.get(name, 0.0), err)
+
+    # (a) each mode at B=64 against its twin and a bitwise repeat
+    for n_parts, layer, keep in ((1, params["lstm"][0], keep_in),
+                                 (2, params["lstm"][1], keep_mid)):
+        xs = tuple(torch.tanh(randn(B_CHECK, T, H)) for _ in range(n_parts))
+        ms = tuple(keep_masks((B_CHECK, T, H), keep) for _ in range(n_parts))
+        for direction, reverse in (("fwd", False), ("bwd", True)):
+            p = layer[direction]
+            tag = f"parts={n_parts} reverse={reverse} B={B_CHECK} T={T} H={H}"
+            fa = (xs, p["w_ih"], p["b"], p["w_hh"], reverse, ms, keep)
+            for fwd, plain, name in ((lstm_fwd_train, lstm_fwd_train_plain,
+                                      counter("lstm_fwd_train", True)),
+                                     (lstm_fwd_train_gates, lstm_fwd_train_gates_plain,
+                                      counter("lstm_fwd_train_gates", True))):
+                got, again = fwd(*fa, res_bf16=True), fwd(*fa, res_bf16=True)
+                want, f32 = plain(*fa, res_bf16=True), fwd(*fa)
+                hold24(f"{name} {tag}: h{', c' if len(got) == 3 else ''}", name,
+                       [got[0], *got[2:]], [again[0], *again[2:]], [want[0], *want[2:]],
+                       TRAIN_FWD_TOL, relative=False)
+                hold24(f"{name} {tag}: bf16 residual", name, got[1:2], again[1:2], want[1:2],
+                       RES16_TOL, relative=False)
+                same = (got[1].dtype == torch.bfloat16
+                        and torch.equal(got[1], bf(f32[1]))
+                        and all(torch.equal(a, b) for a, b in zip([got[0], *got[2:]],
+                                                                  [f32[0], *f32[2:]])))
+                print(f"{name} {tag}: the float32 mode's outputs, its residual rounded to bf16 "
+                      f"(nearest even), bit for bit: {same}")
+                require(same, f"{name}: the float32 mode's residual rounded to bf16")
+            # kernels 3 and 3b on bf16 residuals
+            g_up = 0.1 * randn(B_CHECK, T, H)
+            dx_add = tuple(randn(B_CHECK, T, H) for _ in range(n_parts)) if reverse else None
+            h_p, planes = lstm_fwd_train_plain(*fa, res_bf16=True)
+            h_g, gates, c_g = lstm_fwd_train_gates_plain(*fa, res_bf16=True)
+            for bwd, plain, res, h_in, base in (
+                    (lstm_bwd, lstm_bwd_plain, (planes,), h_p, "lstm_bwd"),
+                    (lstm_bwd_v2, lstm_bwd_v2_plain, (gates, c_g), h_g, "lstm_bwd_v2")):
+                ba = (*res, h_in, g_up, xs, p["w_ih"], p["w_hh"], reverse, ms, keep, dx_add)
+                name = counter(base, True)
+                hold24(f"{name} {tag} dx_add={dx_add is not None}: dx, dW_ih, dW_hh, db",
+                       name, flat_bwd(bwd(*ba)), flat_bwd(bwd(*ba)), flat_bwd(plain(*ba)),
+                       BWD_REL_TOL, relative=True)
+        # kernel 4 on the bf16 planes of the layer's parts dropped by select dropout
+        xd = tuple(select_dropout(x, m, keep) for x, m in zip(xs, ms))
+        pf, pb = layer["fwd"], layer["bwd"]
+        h_f, res_f = lstm_fwd_train_plain(xd, pf["w_ih"], pf["b"], pf["w_hh"], False,
+                                          res_bf16=True)
+        h_r, res_r = lstm_fwd_train_plain(xd, pb["w_ih"], pb["b"], pb["w_hh"], True,
+                                          res_bf16=True)
+        da = (res_f, h_f, 0.1 * randn(B_CHECK, T, H), res_r, h_r, 0.1 * randn(B_CHECK, T, H), xd,
+              (pf["w_ih"], pf["w_hh"]), (pb["w_ih"], pb["w_hh"]), keep, True)
+        name = counter("lstm_bwd_dualdir", True)
+        hold24(f"{name} parts={n_parts} mask_from_x B={B_CHECK} T={T} H={H}: dx, dW_ih, dW_hh, "
+               f"db of both directions", name, flat3(lstm_bwd_dualdir(*da)),
+               flat3(lstm_bwd_dualdir(*da)), flat3(lstm_bwd_dualdir_plain(*da)), BWD_REL_TOL,
+               relative=True)
+    del xs, ms, xd, da, h_f, res_f, h_r, res_r
+
+    # (b)-(e) a B=512 micro-step on bf16 residuals under each schedule: kernel
+    # path against plain path, then against the float32-residual step (loss,
+    # gradients, the step's peak device memory) and timed in turns with it
+    opt_counts = Counter()
+    for sched in LSTM_BWD_SCHEDULES:
+        label = f"lstm_bwd={sched} res_bf16=True"
+        kernels.reset_launch_counts()
+        loss_k, grads_k = micro_step("kernel", lstm_bwd=sched, res_bf16=True)
+        torch.cuda.synchronize()
+        step_counts = dict(kernels.launch_counts)
+        want_counts = train_step_launches(cfg, sched, res_bf16=True)
+        print(f"micro-step {label} B={B_TRAIN}: launches {step_counts}")
+        require(step_counts == want_counts,
+                f"{label} launches per micro-step: want {want_counts}")
+        opt_counts.update(step_counts)
+        loss_k2, grads_k2 = micro_step("kernel", lstm_bwd=sched, res_bf16=True)
+        loss_p, grads_p = micro_step("plain", lstm_bwd=sched, res_bf16=True)
+        torch.cuda.synchronize()
+        loss_diff = abs(loss_k.item() - loss_p.item())
+        grad_rel = max(rel_err(a, b) for a, b in zip(grads_k, grads_p) if b.abs().max() > 0)
+        bitwise = torch.equal(loss_k, loss_k2) and all(torch.equal(a, b)
+                                                       for a, b in zip(grads_k, grads_k2))
+        print(f"micro-step {label} B={B_TRAIN}: loss kernel {loss_k.item():.6f} plain "
+              f"{loss_p.item():.6f} (diff {loss_diff:.3e}, tol {STEP_LOSS_TOL:g}); gradients "
+              f"max rel diff {grad_rel:.3e} over {len(leaves)} leaves (tol "
+              f"{STEP_GRAD_REL_TOL:g}); second kernel run bitwise identical: {bitwise}")
+        require(math.isfinite(loss_k.item()) and loss_diff <= STEP_LOSS_TOL,
+                f"{label} micro-step loss within tolerance of the plain path")
+        require(grad_rel <= STEP_GRAD_REL_TOL, f"{label} micro-step gradients within tolerance")
+        require(bitwise, f"{label} kernel-path gradients bitwise repeatable")
+        del grads_k2, grads_p
+        # (d) the distance from the float32-residual step on the same masks and params
+        loss_32, grads_32 = micro_step("kernel", lstm_bwd=sched)
+        torch.cuda.synchronize()
+        rels = [rel_err(a, b) for a, b in zip(grads_k, grads_32) if b.abs().max() > 0]
+        print(f"micro-step {label} B={B_TRAIN} against the float32-residual step: loss "
+              f"{loss_k.item():.8f} vs {loss_32.item():.8f} (equal: "
+              f"{torch.equal(loss_k, loss_32)}); gradients relative to each one's largest "
+              f"entry: max {max(rels):.3e}, median {statistics.median(rels):.3e} over "
+              f"{len(rels)} leaves")
+        require(torch.equal(loss_k, loss_32), f"{label}: the forward does not read the residuals")
+        del grads_k, grads_32
+        # the step's peak device memory above what was allocated before it
+        peaks = {}
+        for res16 in (False, True):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            micro_step("kernel", lstm_bwd=sched, res_bf16=res16)
+            torch.cuda.synchronize()
+            peaks[res16] = torch.cuda.max_memory_allocated() - before
+        print(f"micro-step lstm_bwd={sched} B={B_TRAIN}: peak device memory above the "
+              f"allocations before it {peaks[False]} bytes with float32 residuals, "
+              f"{peaks[True]} bytes with bf16 ({peaks[False] - peaks[True]} bytes less) [{smi}]",
+              flush=True)
+        m = median_ms({sched: lambda: micro_step("kernel", lstm_bwd=sched),
+                       label: lambda: micro_step("kernel", lstm_bwd=sched, res_bf16=True)})
+        for name in (sched, label):
+            print(f"training micro-step {name} B={B_TRAIN} T={T} (kernel path, in turns with "
+                  f"the other): median {m[name]:.3f} ms, {B_TRAIN / m[name] * 1e3:.1f} "
+                  f"windows/s [{smi}]", flush=True)
+
+    # (e) each mode at B=512 on the micro-step's plans: against its twin and a
+    # bitwise repeat, then timed in turns with its float32-residual counterpart
+    # and its twin
+    hg, gates_m, c_m = lstm_fwd_train_gates_plain(*fargs)
+    xd2 = tuple(select_dropout(x, m, keep_mid) for x, m in zip(xs2, ms2))
+    pf, pb = params["lstm"][1]["fwd"], params["lstm"][1]["bwd"]
+    h_f, res_f = lstm_fwd_train_plain(xd2, pf["w_ih"], pf["b"], pf["w_hh"], False)
+    h_r, res_r = lstm_fwd_train_plain(xd2, pb["w_ih"], pb["b"], pb["w_hh"], True)
+    g_r = 0.1 * randn(B_TRAIN, T, H)
+    m_bwd = (xs2, p1["w_ih"], p1["w_hh"], True, ms2, keep_mid, add2)
+    dd = lambda rf, rr: (rf, h_f, g2, rr, h_r, g_r, xd2, (pf["w_ih"], pf["w_hh"]),  # noqa: E731
+                         (pb["w_ih"], pb["w_hh"]), keep_mid, True)
+    fwd_flops = lstm_flops(B_TRAIN, 2 * H, H)
+    v2_args = (gates_m, c_m, hg, g2, *m_bwd)
+    # mode -> (kernel, twin, args, keywords, its float32-residual args, operations,
+    #          flatten, tolerance, relative)
+    flat_list = lambda out: list(out)  # noqa: E731
+    modes = {
+        counter("lstm_fwd_train", True): (lstm_fwd_train, lstm_fwd_train_plain, fargs,
+                                          dict(res_bf16=True), fargs, fwd_flops, flat_list,
+                                          RES16_TOL, False),
+        counter("lstm_fwd_train_gates", True): (lstm_fwd_train_gates, lstm_fwd_train_gates_plain,
+                                                fargs, dict(res_bf16=True), fargs, fwd_flops,
+                                                flat_list, RES16_TOL, False),
+        counter("lstm_bwd", True): (lstm_bwd, lstm_bwd_plain, (bf(res2), *bargs[1:]), {}, bargs,
+                                    bwd_flops, flat_bwd, BWD_REL_TOL, True),
+        counter("lstm_bwd_v2", True): (lstm_bwd_v2, lstm_bwd_v2_plain,
+                                       (bf(gates_m), *v2_args[1:]), {}, v2_args, bwd_flops,
+                                       flat_bwd, BWD_REL_TOL, True),
+        counter("lstm_bwd_dualdir", True): (lstm_bwd_dualdir, lstm_bwd_dualdir_plain,
+                                            dd(bf(res_f), bf(res_r)), {}, dd(res_f, res_r),
+                                            2 * bwd_flops, flat3, BWD_REL_TOL, True),
+    }
+    for name, (kfn, pfn, args, kw, base_args, flops, flat, tol, relative) in modes.items():
+        out = kfn(*args, **kw)
+        hold24(f"{name} B={B_TRAIN} T={T} H={H} parts=2 (the micro-step's plan)", name,
+               flat(out), flat(kfn(*args, **kw)), flat(pfn(*args, **kw)), tol, relative)
+        work[name] = (nbytes(args, kw, out), flops, "bf16")
+        del out
+        m = median_ms({"plain": lambda: pfn(*args, **kw), "kernel": lambda: kfn(*args, **kw),
+                       "float32": lambda: kfn(*base_args)}, rounds=1)
+        train_ms[name] = (m["kernel"], m["plain"])
+        bound_ms24, bound_by24 = bound(*work[name])
+        print(f"{name} B={B_TRAIN} T={T} H={H}: kernel {m['kernel']:.3f} ms, on float32 "
+              f"residuals {m['float32']:.3f} ms, plain {m['plain']:.3f} ms, bound "
+              f"{bound_ms24:.3f} ms ({bound_by24}) [{smi}]", flush=True)
+    del modes, xd2, hg, gates_m, c_m, h_f, res_f, h_r, res_r, v2_args
+    print(f"phase 24 (res_bf16): {time.perf_counter() - t24:.1f} s", flush=True)
+
     # one cuDNN LSTM call per LSTM kernel, at its shape (TF32 off): the forward,
     # or forward + backward minus forward; in bf16 for the bf16 kernels where
     # cuDNN takes it (torch.backends.cudnn.is_acceptable), else in float16
@@ -3467,6 +3670,9 @@ def main() -> int:
     }
     library_ms["lstm_fwd_train_gates"] = library_ms["lstm_fwd_train"]
     library_ms["lstm_bwd_v2"] = library_ms["lstm_bwd"]
+    # phase 24's modes: the yardstick of the layer-direction they compute
+    for name in opt_err:
+        library_ms[name] = library_ms[name.removesuffix("_res16")]
     print(f"library yardsticks, one cuDNN torch.nn.LSTM call (D={2 * H}, H={H}, T={T}, {lib16} for "
           f"the bf16 kernels, float32 for the float32 ones): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in library_ms.items()) + f" [{smi}]", flush=True)
@@ -3551,6 +3757,15 @@ def main() -> int:
         entry("lstm_bwd_dualdir", "lstm_bwd_dualdir.cu", "eegflow/nn/pallas_lstm.py:1293",
               sched_counts["dualdir"].get("lstm_bwd_dualdir", 0), dd_err,
               *train_ms["lstm_bwd_dualdir"]),
+        # phase 24's modes (res_bf16): launches in its three micro-steps
+        *[entry(counter(name, True), source, replaces, opt_counts.get(counter(name, True), 0),
+                opt_err[counter(name, True)], *train_ms[counter(name, True)])
+          for name, source, replaces in (
+              ("lstm_fwd_train", "lstm_fwd.cu", "eegflow/nn/pallas_lstm.py:430"),
+              ("lstm_fwd_train_gates", "lstm_fwd.cu", "eegflow/nn/pallas_lstm.py:430"),
+              ("lstm_bwd", "lstm_bwd.cu", "eegflow/nn/pallas_lstm.py:754"),
+              ("lstm_bwd_v2", "lstm_bwd_v2.cu", "eegflow/nn/pallas_lstm.py:960"),
+              ("lstm_bwd_dualdir", "lstm_bwd_dualdir.cu", "eegflow/nn/pallas_lstm.py:1293"))],
         # kernels of the port with no Pallas counterpart: the lax loops they
         # replace, and the least time of their serial chain
         entry("apf_rk4", "apf_rk4.cu", "eegflow/ode/integrate.py:41-68 (rk4_solve lax.scan + "

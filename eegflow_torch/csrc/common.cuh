@@ -6,6 +6,14 @@
 
 namespace eegflow {
 
+// A type as a value, to pick a template's element type at run time:
+// f(Type<float>{}) or f(Type<__nv_bfloat16>{}), f reading typename
+// decltype(tag)::type.
+template <class T>
+struct Type {
+  using type = T;
+};
+
 // Round a float to bfloat16 (nearest even) and back: the bf16 matmul
 // operands of the reference's precision policy, multiplied in float32.
 __device__ __forceinline__ float bf16_round(float v) {

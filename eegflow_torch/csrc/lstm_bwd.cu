@@ -4,10 +4,11 @@
 // lstm_bwd_fused) under the default adjoint-residual contract (_ADJ_RES=1)
 // with uint8-mask input dropout and the sibling direction's dx added in
 // (dx_add), the mode the training step runs 3 layers x 2 directions per
-// micro-step.
+// micro-step; the planes may be bf16 (res_bf16, EEGFLOW_RES_BF16=1), widened
+// on load.
 //
-// Inputs: the six float32 planes res (B, T, 6H) that lstm_fwd.cu writes in
-// training mode, h (B, T, H), the upstream gradient g (B, T, H), the input
+// Inputs: the six float32 (or bf16) planes res (B, T, 6H) that lstm_fwd.cu
+// writes in training mode, h (B, T, H), the upstream gradient g (B, T, H), the input
 // parts x_p (B, T, d_p) with their keep-masks, and the weights. The adjoint
 // walks against the direction of time (t = T-1..0 for the forward direction,
 // 0..T-1 for the reverse one):
@@ -26,7 +27,8 @@
 // all of W_hh^T (512 KB bf16 at H = 256) against the dz of every unit; the
 // three products are 2 B T 4H (d0 + d1 + H) multiply-adds, 0.34 TFLOP at
 // B = 512, T = 256, H = 256 with two parts (0.35 ms at the bf16 tensor-core
-// peak), and the bytes in and out are 0.58 ms of HBM. The serial chain's
+// peak), and the bytes in and out are 0.58 ms of HBM (bf16 planes take 0.40
+// GB of it off). The serial chain's
 // latency is what remains above the bound (lstm_bwd_chain.cuh): on an H100
 // 80GB HBM3 at 700 W the chain takes ~2.5 ms of a ~5 ms launch at B = 512.
 //
@@ -49,9 +51,9 @@ namespace {
 
 using eegflow::ClusterGeom;
 
-template <int kMT, int kMaxThreads>
+template <int kMT, int kMaxThreads, typename ResT>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-lstm_bwd_chain_kernel(const float* __restrict__ res, const float* __restrict__ g,
+lstm_bwd_chain_kernel(const ResT* __restrict__ res, const float* __restrict__ g,
                       const uint4* __restrict__ wfrag, __nv_bfloat16* __restrict__ dz16,
                       float* __restrict__ db_part, int B, int T, int H, int k_res, int reverse) {
   chain_direction<kMT, false>(res, nullptr, g, wfrag, dz16, db_part, B, T, H, k_res,
@@ -63,28 +65,34 @@ lstm_bwd_chain_kernel(const float* __restrict__ res, const float* __restrict__ g
 using namespace lstm_bwd_ops;
 
 // The chain's shared memory per CTA and the clusters the card holds at once
-// at this geometry.
-extern "C" int eegflow_lstm_bwd_plan(int H, int hc, int rows, int k_res, int* smem,
+// at this geometry, on float32 planes or (res_bf16) bf16 ones.
+extern "C" int eegflow_lstm_bwd_plan(int res_bf16, int H, int hc, int rows, int k_res, int* smem,
                                      int* clusters) {
   const ClusterGeom geo{H, hc, rows, k_res, 1};
   *smem = static_cast<int>(geo.smem_bytes());
   *clusters = 0;
-  cudaError_t err = eegflow::with_tile(geo, [&](auto mt, auto threads) {
-    return eegflow::max_active_clusters(
-        lstm_bwd_chain_kernel<decltype(mt)::value, decltype(threads)::value>, geo, smem,
-        clusters);
-  });
+  auto query = [&](auto tag) {
+    return eegflow::with_tile(geo, [&](auto mt, auto threads) {
+      return eegflow::max_active_clusters(
+          lstm_bwd_chain_kernel<decltype(mt)::value, decltype(threads)::value,
+                                typename decltype(tag)::type>,
+          geo, smem, clusters);
+    });
+  };
+  cudaError_t err = res_bf16 ? query(eegflow::Type<__nv_bfloat16>{})
+                             : query(eegflow::Type<float>{});
   return static_cast<int>(err);
 }
 
-// res (B, T, 6H), h, g (B, T, H), x_p (B, T, d_p) float32; m_p (B, T, d_p)
-// uint8 or null; w_p (d_p, 4H) bf16; wfrag W_hh^T bf16 in the fragment order
-// of nn/lstm_plan.py bwd_fragments; add_p (B, T, d_p) or null. Outputs dx_p
+// res (B, T, 6H) float32 (bf16 when res_bf16), h, g (B, T, H), x_p (B, T,
+// d_p) float32; m_p (B, T, d_p) uint8 or null; w_p (d_p, 4H) bf16; wfrag
+// W_hh^T bf16 in the fragment order of nn/lstm_plan.py bwd_fragments; add_p
+// (B, T, d_p) or null. Outputs dx_p
 // (B, T, d_p), dw_ih (d0 + d1, 4H), dw_hh (H, 4H), db (4H) float32. Scratch:
 // dz16 (B, T, 4H) bf16, db_part (ceil(B / 16), 4H) and part (splits *
 // max(d0, d1, H) * 4H) float32. (hc, rows, k_res): the cluster plan. x1, m1,
 // w1, add1 and dx1 may be null when d1 == 0.
-extern "C" int eegflow_lstm_bwd(const float* res, const float* h, const float* g,
+extern "C" int eegflow_lstm_bwd(const void* res, int res_bf16, const float* h, const float* g,
                                 const float* x0, const float* x1, const uint8_t* m0,
                                 const uint8_t* m1, int d0, int d1, float inv_keep,
                                 const __nv_bfloat16* w0, const __nv_bfloat16* w1,
@@ -96,11 +104,17 @@ extern "C" int eegflow_lstm_bwd(const float* res, const float* h, const float* g
   const ClusterGeom geo{H, hc, rows, k_res, 1};
   if (!geo.valid() || B <= 0 || T <= 0 || d0 <= 0 || d1 < 0 || splits <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = eegflow::with_tile(geo, [&](auto mt, auto threads) {
-    return eegflow::launch_cluster(
-        lstm_bwd_chain_kernel<decltype(mt)::value, decltype(threads)::value>, geo,
-        (B + rows - 1) / rows, 1, stream, res, g, wfrag, dz16, db_part, B, T, H, k_res, reverse);
-  });
+  auto chain = [&](auto tag) {
+    using ResT = typename decltype(tag)::type;
+    return eegflow::with_tile(geo, [&](auto mt, auto threads) {
+      return eegflow::launch_cluster(
+          lstm_bwd_chain_kernel<decltype(mt)::value, decltype(threads)::value, ResT>, geo,
+          (B + rows - 1) / rows, 1, stream, static_cast<const ResT*>(res), g, wfrag, dz16,
+          db_part, B, T, H, k_res, reverse);
+    });
+  };
+  cudaError_t err = res_bf16 ? chain(eegflow::Type<__nv_bfloat16>{})
+                             : chain(eegflow::Type<float>{});
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const float* xs[2] = {x0, x1};

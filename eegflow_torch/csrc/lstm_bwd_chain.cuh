@@ -14,8 +14,10 @@
 // step before t in the forward's order, zero before the direction's first):
 //   do = dh tanh(c);  dc = dh o (1 - tanh^2 c) + dc_carry;  dc_carry = dc f
 //   dz = [dc g i(1-i), dc c_prev f(1-f), dc i (1-g^2), do o(1-o)]
-// and the products, with h_prev[t] the state before step t and x_p masked
-// as in the forward:
+// The planes, or the raw gates, arrive in float32 or in bf16 (the
+// forward's res_bf16, EEGFLOW_RES_BF16=1), upcast on load; c and g are
+// float32. Then the products, with h_prev[t] the state before step t and
+// x_p masked as in the forward:
 //   dx_p = bf16(dz) . bf16(W_ih_p)^T (masked, plus the sibling's dx)
 //   dW_ih_p = bf16(x_p)^T . bf16(dz);  dW_hh = bf16(h_prev)^T . bf16(dz)
 //   db = sum over (b, t) of the float32 dz
@@ -61,6 +63,16 @@
 
 namespace {
 
+// Two adjacent residuals (float32, or bf16 widened exactly) by one streaming
+// load.
+__device__ __forceinline__ float2 ldcs_pair(const float* p) {
+  return __ldcs(reinterpret_cast<const float2*>(p));
+}
+__device__ __forceinline__ float2 ldcs_pair(const __nv_bfloat16* p) {
+  const unsigned int u = __ldcs(reinterpret_cast<const unsigned int*>(p));
+  return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
+}
+
 // Four 16-deep k-tiles of a warp's dh_carry product for each m-tile, one in
 // each accumulator chain: A (bf16 dz, 16 rows a m-tile, ld_bytes apart) by
 // ldmatrix from a_addr, B two 16-byte fragment pairs of the warp's octet.
@@ -83,12 +95,13 @@ __device__ __forceinline__ void bwd_kquad(float (&acc)[4][kMT][4], uint32_t a_ad
 // entry functions with __restrict__ pointers. Thread (warp w, lane = 4 g + q)
 // of CTA `rank` owns units u0 = 8 (rank * warps + w) + 2 q, u0 + 1 and, in
 // m-tile mt, rows 16 mt + g and 16 mt + g + 8 of the tile.
-//   res (B, T, 6H) planes, or with kRaw the raw gates (B, T, 4H) and cst the
-//   cell state c (B, T, H); g (B, T, H) float32; wfrag W_hh^T in the fragment
+//   res (B, T, 6H) planes, or with kRaw the raw gates (B, T, 4H), of type
+//   ResT (float or bf16), and with kRaw cst the cell state c (B, T, H)
+//   float32; g (B, T, H) float32; wfrag W_hh^T in the fragment
 //   order of nn/lstm_plan.py bwd_fragments; dz16 (B, T, 4H) bf16 out; db_part
 //   (ceil(B / 16), 4H) float32 out.
-template <int kMT, bool kRaw>
-__device__ __forceinline__ void chain_direction(const float* __restrict__ res,
+template <int kMT, bool kRaw, typename ResT>
+__device__ __forceinline__ void chain_direction(const ResT* __restrict__ res,
                                                 const float* __restrict__ cst,
                                                 const float* __restrict__ gup,
                                                 const uint4* __restrict__ wfrag,
@@ -133,15 +146,14 @@ __device__ __forceinline__ void chain_direction(const float* __restrict__ res,
         const size_t btp = has_prev ? static_cast<size_t>(row) * T + tp : bt;
 #pragma unroll
         for (int k = 0; k < 7; ++k) {
-          const float* src;
-          if (kRaw)
-            src = k < 4 ? res + bt * 4 * H + k * H : k == 4 ? cst + bt * H
-                        : k == 5 ? cst + btp * H : gup + bt * H;
-          else
-            src = k < 6 ? res + bt * 6 * H + k * H : gup + bt * H;
+          // a plane or raw gate of res, else c, c_prev or g
+          const bool planar = kRaw ? k < 4 : k < 6;
+          const float* src = kRaw && k == 4 ? cst + bt * H
+                             : kRaw && k == 5 ? cst + btp * H : gup + bt * H;
           float2 v = make_float2(0.f, 0.f);
           if (row < B)
-            v = __ldcs(reinterpret_cast<const float2*>(src + u0));
+            v = planar ? ldcs_pair(res + bt * (kRaw ? 4 : 6) * H + k * H + u0)
+                       : ldcs_pair(src + u0);
           if (kRaw && k == 5 && !has_prev) v = make_float2(0.f, 0.f);
           pl[mt][k][2 * rh] = v.x;
           pl[mt][k][2 * rh + 1] = v.y;

@@ -5,10 +5,11 @@
 // lstm_bwd_dualdir) under the default adjoint-residual contract
 // (_ADJ_RES=1), with select dropout recovered from the already-dropped
 // input (mask_from_x): the "dualdir" schedule of the bf16 training step, one
-// launch per bidirectional layer (3 per micro-step).
+// launch per bidirectional layer (3 per micro-step). The planes may be bf16
+// (EEGFLOW_RES_BF16=1, the reference's cast_z), upcast on load.
 //
-// Inputs, per direction d in {forward, reverse}: the six float32 planes
-// res_d (B, T, 6H) that lstm_fwd.cu writes in training mode, h_d (B, T, H)
+// Inputs, per direction d in {forward, reverse}: the six float32 (or bf16)
+// planes res_d (B, T, 6H) that lstm_fwd.cu writes in training mode, h_d (B, T, H)
 // and the upstream gradient g_d (B, T, H); the input parts x_p (B, T, d_p)
 // that both directions read (already dropped when mask_from_x), and the
 // weights. Each direction's adjoint is kernel 3's (lstm_bwd.cu), the forward
@@ -46,8 +47,9 @@ namespace {
 
 using eegflow::ClusterGeom;
 
+template <typename ResT>
 struct Dir {
-  const float* res;
+  const ResT* res;
   const float* g;
   const uint4* wfrag;
   __nv_bfloat16* dz16;
@@ -55,9 +57,9 @@ struct Dir {
 };
 
 // grid (row tiles x cluster, 2): blockIdx.y 0 the forward direction, 1 the reverse
-template <int kMT, int kMaxThreads>
+template <int kMT, int kMaxThreads, typename ResT>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-lstm_bwd_dualdir_chain_kernel(Dir fwd, Dir rev, int B, int T, int H, int k_res) {
+lstm_bwd_dualdir_chain_kernel(Dir<ResT> fwd, Dir<ResT> rev, int B, int T, int H, int k_res) {
   if (blockIdx.y == 0)
     chain_direction<kMT, false>(fwd.res, nullptr, fwd.g, fwd.wfrag, fwd.dz16, fwd.db_part, B,
                                 T, H, k_res, 0);
@@ -97,33 +99,38 @@ struct DxFromXStore {
 using namespace lstm_bwd_ops;
 
 // The dual-direction chain's shared memory per CTA and the clusters the card
-// holds at once at this geometry.
-extern "C" int eegflow_lstm_bwd_dualdir_plan(int H, int hc, int rows, int k_res, int* smem,
-                                             int* clusters) {
+// holds at once at this geometry, on float32 planes or (res_bf16) bf16 ones.
+extern "C" int eegflow_lstm_bwd_dualdir_plan(int res_bf16, int H, int hc, int rows, int k_res,
+                                             int* smem, int* clusters) {
   const ClusterGeom geo{H, hc, rows, k_res, 1};
   *smem = static_cast<int>(geo.smem_bytes());
   *clusters = 0;
-  cudaError_t err = eegflow::with_tile(geo, [&](auto mt, auto threads) {
-    return eegflow::max_active_clusters(
-        lstm_bwd_dualdir_chain_kernel<decltype(mt)::value, decltype(threads)::value>, geo, smem,
-        clusters);
-  });
+  auto query = [&](auto tag) {
+    return eegflow::with_tile(geo, [&](auto mt, auto threads) {
+      return eegflow::max_active_clusters(
+          lstm_bwd_dualdir_chain_kernel<decltype(mt)::value, decltype(threads)::value,
+                                        typename decltype(tag)::type>,
+          geo, smem, clusters);
+    });
+  };
+  cudaError_t err = res_bf16 ? query(eegflow::Type<__nv_bfloat16>{})
+                             : query(eegflow::Type<float>{});
   return static_cast<int>(err);
 }
 
-// Per direction (suffix _f forward, _r reverse): res (B, T, 6H), h, g (B, T,
-// H) float32; w0, w1 (d_p, 4H) bf16 and wfrag W_hh^T in the fragment order
-// of nn/lstm_plan.py bwd_fragments; outputs dw_ih (d0 + d1, 4H), dw_hh (H,
-// 4H), db (4H) float32; scratch dz16 (B, T, 4H) bf16 and db_part (ceil(B /
-// 16), 4H) float32. Shared: x_p (B, T, d_p) float32, outputs dx_p (B, T, d_p)
-// float32 (the two directions' sum), part (splits * max(d0, d1, H) * 4H)
-// float32; (hc, rows, k_res) the cluster plan. x1, the w1 and dx1 may be null
-// when d1 == 0. mask_from_x: 1 when x_p carries the select dropout (dropped
-// positions exactly 0) with keep = 1 / inv_keep.
+// Per direction (suffix _f forward, _r reverse): res (B, T, 6H) float32 (bf16
+// when res_bf16), h, g (B, T, H) float32; w0, w1 (d_p, 4H) bf16 and wfrag
+// W_hh^T in the fragment order of nn/lstm_plan.py bwd_fragments; outputs dw_ih
+// (d0 + d1, 4H), dw_hh (H, 4H), db (4H) float32; scratch dz16 (B, T, 4H) bf16
+// and db_part (ceil(B / 16), 4H) float32. Shared: x_p (B, T, d_p) float32,
+// outputs dx_p (B, T, d_p) float32 (the two directions' sum), part (splits *
+// max(d0, d1, H) * 4H) float32; (hc, rows, k_res) the cluster plan. x1, the w1
+// and dx1 may be null when d1 == 0. mask_from_x: 1 when x_p carries the select
+// dropout (dropped positions exactly 0) with keep = 1 / inv_keep.
 extern "C" int eegflow_lstm_bwd_dualdir(
-    const float* res_f, const float* h_f, const float* g_f, const float* res_r,
-    const float* h_r, const float* g_r, const float* x0, const float* x1, int d0, int d1,
-    int mask_from_x, float inv_keep, const __nv_bfloat16* w0_f, const __nv_bfloat16* w1_f,
+    const void* res_f, const float* h_f, const float* g_f, const void* res_r,
+    const float* h_r, const float* g_r, int res_bf16, const float* x0, const float* x1, int d0,
+    int d1, int mask_from_x, float inv_keep, const __nv_bfloat16* w0_f, const __nv_bfloat16* w1_f,
     const uint4* wfrag_f, const __nv_bfloat16* w0_r, const __nv_bfloat16* w1_r,
     const uint4* wfrag_r, float* dx0, float* dx1, float* dw_ih_f, float* dw_hh_f, float* db_f,
     float* dw_ih_r, float* dw_hh_r, float* db_r, __nv_bfloat16* dz16_f, __nv_bfloat16* dz16_r,
@@ -132,13 +139,18 @@ extern "C" int eegflow_lstm_bwd_dualdir(
   const ClusterGeom geo{H, hc, rows, k_res, 1};
   if (!geo.valid() || B <= 0 || T <= 0 || d0 <= 0 || d1 < 0 || splits <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  const Dir fwd{res_f, g_f, wfrag_f, dz16_f, db_part_f};
-  const Dir rev{res_r, g_r, wfrag_r, dz16_r, db_part_r};
-  cudaError_t err = eegflow::with_tile(geo, [&](auto mt, auto threads) {
-    return eegflow::launch_cluster(
-        lstm_bwd_dualdir_chain_kernel<decltype(mt)::value, decltype(threads)::value>, geo,
-        (B + rows - 1) / rows, 2, stream, fwd, rev, B, T, H, k_res);
-  });
+  auto chain = [&](auto tag) {
+    using ResT = typename decltype(tag)::type;
+    const Dir<ResT> fwd{static_cast<const ResT*>(res_f), g_f, wfrag_f, dz16_f, db_part_f};
+    const Dir<ResT> rev{static_cast<const ResT*>(res_r), g_r, wfrag_r, dz16_r, db_part_r};
+    return eegflow::with_tile(geo, [&](auto mt, auto threads) {
+      return eegflow::launch_cluster(
+          lstm_bwd_dualdir_chain_kernel<decltype(mt)::value, decltype(threads)::value, ResT>,
+          geo, (B + rows - 1) / rows, 2, stream, fwd, rev, B, T, H, k_res);
+    });
+  };
+  cudaError_t err = res_bf16 ? chain(eegflow::Type<__nv_bfloat16>{})
+                             : chain(eegflow::Type<float>{});
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const float* xs[2] = {x0, x1};

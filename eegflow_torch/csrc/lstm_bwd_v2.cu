@@ -5,9 +5,11 @@
 // lstm_bwd_fused under EEGFLOW_ADJOINT_RES=0, EEGFLOW_BWD_V2=1) with
 // uint8-mask input dropout and the sibling direction's dx added in (dx_add):
 // the "two_pass" schedule of the bf16 training step, 3 layers x 2 directions
-// per micro-step.
+// per micro-step; the gates may be bf16 (res_bf16, EEGFLOW_RES_BF16=1),
+// widened on load.
 //
-// Inputs: the post-activation gates (B, T, 4H) [i, f, g, o] and the cell
+// Inputs: the post-activation gates (B, T, 4H) [i, f, g, o] (float32 or
+// bf16) and the cell
 // state c (B, T, H) that lstm_fwd.cu writes in raw-gate mode, h (B, T, H),
 // the upstream gradient g (B, T, H), the input parts x_p (B, T, d_p) with
 // their keep-masks, and the weights. The adjoint walks against the direction
@@ -26,7 +28,8 @@
 // W_hh^T (512 KB bf16 at H = 256) against the dz of every unit each step,
 // then 2 B T 4H (d0 + d1 + H) multiply-adds of products (0.34 TFLOP at
 // B = 512, T = 256, H = 256 with two parts, 0.35 ms on the tensor cores);
-// its bytes in and out (0.54 ms of HBM) bound the launch. The chain's serial
+// its bytes in and out (0.54 ms of HBM; bf16 gates take 0.27 GB off) bound
+// the launch. The chain's serial
 // step is what remains above the bound.
 //
 // Design: kernel 3's, with a raw-gate step. The chain is chain_direction of
@@ -51,9 +54,9 @@ namespace {
 
 using eegflow::ClusterGeom;
 
-template <int kMT, int kMaxThreads>
+template <int kMT, int kMaxThreads, typename ResT>
 __global__ void __launch_bounds__(kMaxThreads, 1)
-lstm_bwd_v2_chain_kernel(const float* __restrict__ gates, const float* __restrict__ c,
+lstm_bwd_v2_chain_kernel(const ResT* __restrict__ gates, const float* __restrict__ c,
                          const float* __restrict__ g, const uint4* __restrict__ wfrag,
                          __nv_bfloat16* __restrict__ dz16, float* __restrict__ db_part, int B,
                          int T, int H, int k_res, int reverse) {
@@ -65,32 +68,39 @@ lstm_bwd_v2_chain_kernel(const float* __restrict__ gates, const float* __restric
 using namespace lstm_bwd_ops;
 
 // The raw-gate chain's shared memory per CTA and the clusters the card holds
-// at once at this geometry.
-extern "C" int eegflow_lstm_bwd_v2_plan(int H, int hc, int rows, int k_res, int* smem,
-                                        int* clusters) {
+// at once at this geometry, on float32 gates or (res_bf16) bf16 ones.
+extern "C" int eegflow_lstm_bwd_v2_plan(int res_bf16, int H, int hc, int rows, int k_res,
+                                        int* smem, int* clusters) {
   const ClusterGeom geo{H, hc, rows, k_res, 1};
   *smem = static_cast<int>(geo.smem_bytes());
   *clusters = 0;
-  cudaError_t err = eegflow::with_tile(geo, [&](auto mt, auto threads) {
-    return eegflow::max_active_clusters(
-        lstm_bwd_v2_chain_kernel<decltype(mt)::value, decltype(threads)::value>, geo, smem,
-        clusters);
-  });
+  auto query = [&](auto tag) {
+    return eegflow::with_tile(geo, [&](auto mt, auto threads) {
+      return eegflow::max_active_clusters(
+          lstm_bwd_v2_chain_kernel<decltype(mt)::value, decltype(threads)::value,
+                                   typename decltype(tag)::type>,
+          geo, smem, clusters);
+    });
+  };
+  cudaError_t err = res_bf16 ? query(eegflow::Type<__nv_bfloat16>{})
+                             : query(eegflow::Type<float>{});
   return static_cast<int>(err);
 }
 
-// gates (B, T, 4H), c, h, g (B, T, H), x_p (B, T, d_p) float32; m_p (B, T,
-// d_p) uint8 or null; w_p (d_p, 4H) bf16; wfrag W_hh^T bf16 in the fragment
-// order of nn/lstm_plan.py bwd_fragments; add_p (B, T, d_p) or null. Outputs
+// gates (B, T, 4H) float32 (bf16 when res_bf16), c, h, g (B, T, H), x_p (B,
+// T, d_p) float32; m_p (B, T, d_p) uint8 or null; w_p (d_p, 4H) bf16; wfrag
+// W_hh^T bf16 in the fragment order of nn/lstm_plan.py bwd_fragments; add_p
+// (B, T, d_p) or null. Outputs
 // dx_p (B, T, d_p), dw_ih (d0 + d1, 4H), dw_hh (H, 4H), db (4H) float32.
 // Scratch: dz16 (B, T, 4H) bf16, db_part (ceil(B / 16), 4H) and part (splits
 // * max(d0, d1, H) * 4H) float32. (hc, rows, k_res): the cluster plan. x1,
 // m1, w1, add1 and dx1 may be null when d1 == 0.
-extern "C" int eegflow_lstm_bwd_v2(const float* gates, const float* c, const float* h,
-                                   const float* g, const float* x0, const float* x1,
-                                   const uint8_t* m0, const uint8_t* m1, int d0, int d1,
-                                   float inv_keep, const __nv_bfloat16* w0,
-                                   const __nv_bfloat16* w1, const uint4* wfrag,
+extern "C" int eegflow_lstm_bwd_v2(const void* gates, int res_bf16, const float* c,
+                                   const float* h, const float* g, const float* x0,
+                                   const float* x1, const uint8_t* m0, const uint8_t* m1,
+                                   int d0, int d1, float inv_keep,
+                                   const __nv_bfloat16* w0, const __nv_bfloat16* w1,
+                                   const uint4* wfrag,
                                    const float* add0, const float* add1, float* dx0, float* dx1,
                                    float* dw_ih, float* dw_hh, float* db, __nv_bfloat16* dz16,
                                    float* db_part, float* part, int splits, int B, int T, int H,
@@ -99,12 +109,17 @@ extern "C" int eegflow_lstm_bwd_v2(const float* gates, const float* c, const flo
   const ClusterGeom geo{H, hc, rows, k_res, 1};
   if (!geo.valid() || B <= 0 || T <= 0 || d0 <= 0 || d1 < 0 || splits <= 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  cudaError_t err = eegflow::with_tile(geo, [&](auto mt, auto threads) {
-    return eegflow::launch_cluster(
-        lstm_bwd_v2_chain_kernel<decltype(mt)::value, decltype(threads)::value>, geo,
-        (B + rows - 1) / rows, 1, stream, gates, c, g, wfrag, dz16, db_part, B, T, H, k_res,
-        reverse);
-  });
+  auto chain = [&](auto tag) {
+    using ResT = typename decltype(tag)::type;
+    return eegflow::with_tile(geo, [&](auto mt, auto threads) {
+      return eegflow::launch_cluster(
+          lstm_bwd_v2_chain_kernel<decltype(mt)::value, decltype(threads)::value, ResT>, geo,
+          (B + rows - 1) / rows, 1, stream, static_cast<const ResT*>(gates), c, g, wfrag, dz16,
+          db_part, B, T, H, k_res, reverse);
+    });
+  };
+  cudaError_t err = res_bf16 ? chain(eegflow::Type<__nv_bfloat16>{})
+                             : chain(eegflow::Type<float>{});
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const float* xs[2] = {x0, x1};

@@ -26,18 +26,22 @@
 // so the backward (lstm_bwd.cu) needs neither c nor a transcendental.
 // Raw-gate mode writes [i, f, g, o] (B, T, 4H) and c (B, T, H) instead; its
 // backward recomputes tanh(c) and reads c_prev from c at t-1 (t+1 reverse).
-// Eval mode writes no residuals.
+// Eval mode writes no residuals. Either training mode may store its
+// residuals (the planes, or the raw gates; c stays float32) in bf16, rounded
+// to nearest even as the reference's astype(bfloat16) (res_bf16,
+// EEGFLOW_RES_BF16=1), which halves the largest stream.
 //
 // What bounds it on the card: the recurrence is serial in t. Each step's
 // h . W_hh needs all of W_hh (512 KB bf16 at H = 256, over the 227 KB a block
 // may hold) and the h of every unit; the input projection does not depend
 // on h. At B = 512, T = 256, H = 256 the products are 0.2 TFLOP (0.2 ms on
 // the tensor cores) and training mode writes 0.8 GB of planes (0.24 ms of
-// HBM): the bound is far below one microsecond a step, so the time is the
-// latency of the serial step. On an H100 80GB HBM3 at 700 W a step of the
-// recurrence takes ~5 us at 32 rows a cluster (B = 512), its product, DSMEM
-// exchange, HBM stores and pre-gate loads under 1 us each, the rest the
-// cluster barrier and the gate math (python -m eegflow_torch.kernels.ablate).
+// HBM; 0.4 GB in bf16): the bound is far below one microsecond a step, so
+// the time is the latency of the serial step. On an H100 80GB HBM3 at 700 W
+// a step of the recurrence takes ~5 us at 32 rows a cluster (B = 512), its
+// product, DSMEM exchange, HBM stores and pre-gate loads under 1 us each,
+// the rest the cluster barrier and the gate math (python -m
+// eegflow_torch.kernels.ablate).
 //
 // Design, two stages per launch:
 // (1) The input projection b + sum_p bf16(mask_p(x_p)) . bf16(W_ih_p) for all
@@ -56,9 +60,9 @@
 //     (double-buffered), then one cluster barrier; h, the residual stores and
 //     the next step's pre-gate loads are issued between its arrive and wait.
 //     Rows past B are masked; the batch is not padded. The three modes are
-//     one template. At H = 512 the slice exceeds shared memory: its first
-//     rows stay resident and the rest is read from L2 each step
-//     (nn/lstm_plan.py).
+//     one template, with the residual's element type a parameter. At H = 512
+//     the slice exceeds shared memory: its first rows stay resident and the
+//     rest is read from L2 each step (nn/lstm_plan.py).
 
 #include <stdint.h>
 
@@ -72,6 +76,14 @@ using eegflow::ClusterGeom;
 
 // What a launch writes besides h.
 enum Mode { kEval = 0, kPlanes = 1, kGates = 2 };
+
+// a pair of adjacent residuals, streamed out: float32, or bf16 (nearest even)
+__device__ __forceinline__ void store_res(float* p, float a, float b) {
+  __stcs(reinterpret_cast<float2*>(p), make_float2(a, b));
+}
+__device__ __forceinline__ void store_res(__nv_bfloat16* p, float a, float b) {
+  __stcs(reinterpret_cast<unsigned int*>(p), eegflow::pack_bf16(a, b));
+}
 
 // b + the projection's sum, to the pre-gate scratch (M = B T rows of 4H)
 struct PreStore {
@@ -105,10 +117,11 @@ __device__ __forceinline__ void fwd_ktile(float (&acc)[kMT][4][4], uint32_t a_ad
 // Stage 2. Thread (warp w, lane = 4 g + q) of cluster CTA `rank` owns the
 // units u0 = 8 (rank * warps + w) + 2 q and u0 + 1 and, in m-tile mt, the rows
 // 16 mt + g and 16 mt + g + 8 of the cluster's tile.
-template <int kMode, int kMT, int kMaxThreads>
+// res_out holds ResT (float or bf16).
+template <int kMode, typename ResT, int kMT, int kMaxThreads>
 __global__ void __launch_bounds__(kMaxThreads, 1)
 lstm_fwd_rec_kernel(const float* __restrict__ pre, const uint4* __restrict__ wfrag,
-                    float* __restrict__ h_out, float* __restrict__ res_out,
+                    float* __restrict__ h_out, ResT* __restrict__ res_out,
                     float* __restrict__ c_out, int B, int T, int H, int k_res, int reverse) {
   extern __shared__ __align__(16) uint8_t smem[];
   const int warps = blockDim.x / 32;
@@ -262,17 +275,13 @@ lstm_fwd_rec_kernel(const float* __restrict__ pre, const uint4* __restrict__ wfr
         const int e = 2 * rh;
         *reinterpret_cast<float2*>(h_out + bt * H + u0) = make_float2(hv[mt][e], hv[mt][e + 1]);
         if (kMode == kPlanes) {
-          float* z = res_out + bt * 6 * H + u0;
+          ResT* z = res_out + bt * 6 * H + u0;
 #pragma unroll
-          for (int k = 0; k < 6; ++k)
-            __stcs(reinterpret_cast<float2*>(z + k * H),
-                   make_float2(res_v[mt][k][e], res_v[mt][k][e + 1]));
+          for (int k = 0; k < 6; ++k) store_res(z + k * H, res_v[mt][k][e], res_v[mt][k][e + 1]);
         } else if (kMode == kGates) {
-          float* z = res_out + bt * 4 * H + u0;
+          ResT* z = res_out + bt * 4 * H + u0;
 #pragma unroll
-          for (int k = 0; k < 4; ++k)
-            __stcs(reinterpret_cast<float2*>(z + k * H),
-                   make_float2(res_v[mt][k][e], res_v[mt][k][e + 1]));
+          for (int k = 0; k < 4; ++k) store_res(z + k * H, res_v[mt][k][e], res_v[mt][k][e + 1]);
           __stcs(reinterpret_cast<float2*>(c_out + bt * H + u0),
                  make_float2(res_v[mt][4][e], res_v[mt][4][e + 1]));
         }
@@ -283,10 +292,10 @@ lstm_fwd_rec_kernel(const float* __restrict__ pre, const uint4* __restrict__ wfr
   }
 }
 
-template <int kMode>
+template <int kMode, typename ResT>
 int launch(const float* x0, const float* x1, const uint8_t* m0, const uint8_t* m1, int d0,
            int d1, float inv_keep, const __nv_bfloat16* w0, const __nv_bfloat16* w1,
-           const float* bias, const uint4* wfrag, float* pre, float* h_out, float* res_out,
+           const float* bias, const uint4* wfrag, float* pre, float* h_out, void* res_out,
            float* c_out, int B, int T, int H, int hc, int rows, int k_res, int reverse,
            cudaStream_t stream) {
   const ClusterGeom geo{H, hc, rows, k_res, 0};
@@ -302,34 +311,42 @@ int launch(const float* x0, const float* x1, const uint8_t* m0, const uint8_t* m
   if (err != cudaSuccess) return static_cast<int>(err);
   err = eegflow::with_tile(geo, [&](auto mt, auto threads) {
     return eegflow::launch_cluster(
-        lstm_fwd_rec_kernel<kMode, decltype(mt)::value, decltype(threads)::value>, geo,
-        (B + rows - 1) / rows, 1, stream, pre, wfrag, h_out, res_out, c_out, B, T, H, k_res,
-        reverse);
+        lstm_fwd_rec_kernel<kMode, ResT, decltype(mt)::value, decltype(threads)::value>, geo,
+        (B + rows - 1) / rows, 1, stream, pre, wfrag, h_out, static_cast<ResT*>(res_out), c_out,
+        B, T, H, k_res, reverse);
   });
   return static_cast<int>(err);
 }
 
-template <int kMode>
+template <int kMode, typename ResT>
 cudaError_t plan_query(int H, int hc, int rows, int k_res, int* smem, int* clusters) {
   const ClusterGeom geo{H, hc, rows, k_res, 0};
   *smem = static_cast<int>(geo.smem_bytes());
   *clusters = 0;
   return eegflow::with_tile(geo, [&](auto mt, auto threads) {
     return eegflow::max_active_clusters(
-        lstm_fwd_rec_kernel<kMode, decltype(mt)::value, decltype(threads)::value>, geo, smem,
-        clusters);
+        lstm_fwd_rec_kernel<kMode, ResT, decltype(mt)::value, decltype(threads)::value>, geo,
+        smem, clusters);
   });
 }
 
 }  // namespace
 
 // The recurrence's shared memory per CTA and the clusters the card holds at
-// once for mode (0 eval, 1 planes, 2 raw gates) at this geometry.
+// once for mode (0 eval, 1 planes, 2 raw gates, 3 bf16 planes, 4 bf16 raw
+// gates) at this geometry.
 extern "C" int eegflow_lstm_fwd_plan(int mode, int H, int hc, int rows, int k_res, int* smem,
                                      int* clusters) {
-  cudaError_t err = mode == kEval     ? plan_query<kEval>(H, hc, rows, k_res, smem, clusters)
-                    : mode == kPlanes ? plan_query<kPlanes>(H, hc, rows, k_res, smem, clusters)
-                                      : plan_query<kGates>(H, hc, rows, k_res, smem, clusters);
+  using Bf = __nv_bfloat16;
+  cudaError_t err;
+  switch (mode) {
+    case 0: err = plan_query<kEval, float>(H, hc, rows, k_res, smem, clusters); break;
+    case 1: err = plan_query<kPlanes, float>(H, hc, rows, k_res, smem, clusters); break;
+    case 2: err = plan_query<kGates, float>(H, hc, rows, k_res, smem, clusters); break;
+    case 3: err = plan_query<kPlanes, Bf>(H, hc, rows, k_res, smem, clusters); break;
+    case 4: err = plan_query<kGates, Bf>(H, hc, rows, k_res, smem, clusters); break;
+    default: err = cudaErrorInvalidValue;
+  }
   return static_cast<int>(err);
 }
 
@@ -342,34 +359,44 @@ extern "C" int eegflow_lstm_fwd(const float* x0, const float* x1, int d0, int d1
                                 const float* bias, const uint4* wfrag, float* pre, float* h_out,
                                 int B, int T, int H, int hc, int rows, int k_res, int reverse,
                                 cudaStream_t stream) {
-  return launch<kEval>(x0, x1, nullptr, nullptr, d0, d1, 1.f, w0, w1, bias, wfrag, pre, h_out,
-                       nullptr, nullptr, B, T, H, hc, rows, k_res, reverse, stream);
+  return launch<kEval, float>(x0, x1, nullptr, nullptr, d0, d1, 1.f, w0, w1, bias, wfrag, pre,
+                              h_out, nullptr, nullptr, B, T, H, hc, rows, k_res, reverse,
+                              stream);
 }
 
 // Training mode: as eval mode, plus uint8 keep-masks m_p (B, T, d_p) (null:
 // no dropout on that part; 0 = dropped) scaled by inv_keep, and the adjoint
-// planes res_out (B, T, 6H) float32.
+// planes res_out (B, T, 6H), float32, or bf16 when res_bf16.
 extern "C" int eegflow_lstm_fwd_train(const float* x0, const float* x1, const uint8_t* m0,
                                       const uint8_t* m1, int d0, int d1, float inv_keep,
                                       const __nv_bfloat16* w0, const __nv_bfloat16* w1,
                                       const float* bias, const uint4* wfrag, float* pre,
-                                      float* h_out, float* res_out, int B, int T, int H, int hc,
-                                      int rows, int k_res, int reverse, cudaStream_t stream) {
-  return launch<kPlanes>(x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, bias, wfrag, pre, h_out,
-                         res_out, nullptr, B, T, H, hc, rows, k_res, reverse, stream);
+                                      float* h_out, void* res_out, int res_bf16, int B, int T,
+                                      int H, int hc, int rows, int k_res, int reverse,
+                                      cudaStream_t stream) {
+  auto run = [&](auto tag) {
+    return launch<kPlanes, typename decltype(tag)::type>(
+        x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, bias, wfrag, pre, h_out, res_out, nullptr, B,
+        T, H, hc, rows, k_res, reverse, stream);
+  };
+  return res_bf16 ? run(eegflow::Type<__nv_bfloat16>{}) : run(eegflow::Type<float>{});
 }
 
 // Raw-gate training mode: as training mode, but the residuals are the
-// post-activation gates [i, f, g, o] gates_out (B, T, 4H) and the cell state
-// c_out (B, T, H), float32.
+// post-activation gates [i, f, g, o] gates_out (B, T, 4H) (float32, or bf16
+// when res_bf16) and the cell state c_out (B, T, H) float32.
 extern "C" int eegflow_lstm_fwd_train_gates(const float* x0, const float* x1,
                                             const uint8_t* m0, const uint8_t* m1, int d0,
                                             int d1, float inv_keep, const __nv_bfloat16* w0,
                                             const __nv_bfloat16* w1, const float* bias,
                                             const uint4* wfrag, float* pre, float* h_out,
-                                            float* gates_out, float* c_out, int B, int T,
-                                            int H, int hc, int rows, int k_res, int reverse,
-                                            cudaStream_t stream) {
-  return launch<kGates>(x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, bias, wfrag, pre, h_out,
-                        gates_out, c_out, B, T, H, hc, rows, k_res, reverse, stream);
+                                            void* gates_out, int res_bf16, float* c_out, int B,
+                                            int T, int H, int hc, int rows, int k_res,
+                                            int reverse, cudaStream_t stream) {
+  auto run = [&](auto tag) {
+    return launch<kGates, typename decltype(tag)::type>(
+        x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, bias, wfrag, pre, h_out, gates_out, c_out, B,
+        T, H, hc, rows, k_res, reverse, stream);
+  };
+  return res_bf16 ? run(eegflow::Type<__nv_bfloat16>{}) : run(eegflow::Type<float>{});
 }

@@ -56,49 +56,51 @@ _SIGNATURES = {
     # reverse, stream
     "eegflow_lstm_fwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P],
-    # lstm_fwd.cu, kernel 2, training mode:
+    # lstm_fwd.cu, kernel 2, training mode (res_out bf16 when res_bf16):
     # x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, b, wfrag, pre, h_out, res_out,
-    # B, T, H, hc, rows, k_res, reverse, stream
+    # res_bf16, B, T, H, hc, rows, k_res, reverse, stream
     "eegflow_lstm_fwd_train": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P,
-                               _I, _I, _I, _I, _I, _I, _I, _P],
-    # lstm_fwd.cu, kernel 2, raw-gate training mode:
+                               _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # lstm_fwd.cu, kernel 2, raw-gate training mode (gates_out bf16 when
+    # res_bf16):
     # x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, b, wfrag, pre, h_out, gates_out,
-    # c_out, B, T, H, hc, rows, k_res, reverse, stream
+    # res_bf16, c_out, B, T, H, hc, rows, k_res, reverse, stream
     "eegflow_lstm_fwd_train_gates": [_P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P, _P,
-                                     _P, _I, _I, _I, _I, _I, _I, _I, _P],
+                                     _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # lstm_fwd.cu, the recurrence's shared memory and clusters held at once:
-    # mode (0 eval, 1 planes, 2 raw gates), H, hc, rows, k_res, *smem, *clusters
+    # mode (0 eval, 1 planes, 2 raw gates, 3 bf16 planes, 4 bf16 raw gates),
+    # H, hc, rows, k_res, *smem, *clusters
     "eegflow_lstm_fwd_plan": [_I, _I, _I, _I, _I, _P, _P],
-    # lstm_bwd.cu, kernel 3:
-    # res, h, g, x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, wfrag, add0, add1,
-    # dx0, dx1, dw_ih, dw_hh, db, dz16, db_part, part, splits, B, T, H, hc,
-    # rows, k_res, reverse, stream
-    "eegflow_lstm_bwd": [_P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P,
+    # lstm_bwd.cu, kernel 3 (res bf16 when res_bf16):
+    # res, res_bf16, h, g, x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, wfrag,
+    # add0, add1, dx0, dx1, dw_ih, dw_hh, db, dz16, db_part, part, splits, B,
+    # T, H, hc, rows, k_res, reverse, stream
+    "eegflow_lstm_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P,
                          _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # lstm_bwd.cu, the chain's shared memory and clusters held at once:
-    # H, hc, rows, k_res, *smem, *clusters
-    "eegflow_lstm_bwd_plan": [_I, _I, _I, _I, _P, _P],
-    # lstm_bwd_v2.cu, kernel 3b:
-    # gates, c, h, g, x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, wfrag, add0,
-    # add1, dx0, dx1, dw_ih, dw_hh, db, dz16, db_part, part, splits, B, T, H,
-    # hc, rows, k_res, reverse, stream
-    "eegflow_lstm_bwd_v2": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P,
-                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+    # res_bf16, H, hc, rows, k_res, *smem, *clusters
+    "eegflow_lstm_bwd_plan": [_I, _I, _I, _I, _I, _P, _P],
+    # lstm_bwd_v2.cu, kernel 3b (gates bf16 when res_bf16):
+    # gates, res_bf16, c, h, g, x0, x1, m0, m1, d0, d1, inv_keep, w0, w1,
+    # wfrag, add0, add1, dx0, dx1, dw_ih, dw_hh, db, dz16, db_part, part,
+    # splits, B, T, H, hc, rows, k_res, reverse, stream
+    "eegflow_lstm_bwd_v2": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                             _I, _I, _P],
     # lstm_bwd_v2.cu, its chain's shared memory and clusters held at once:
-    # H, hc, rows, k_res, *smem, *clusters
-    "eegflow_lstm_bwd_v2_plan": [_I, _I, _I, _I, _P, _P],
-    # lstm_bwd_dualdir.cu, kernel 4:
-    # res_f, h_f, g_f, res_r, h_r, g_r, x0, x1, d0, d1, mask_from_x, inv_keep,
-    # w0_f, w1_f, wfrag_f, w0_r, w1_r, wfrag_r, dx0, dx1, dw_ih_f, dw_hh_f,
-    # db_f, dw_ih_r, dw_hh_r, db_r, dz16_f, dz16_r, db_part_f, db_part_r, part,
-    # splits, B, T, H, hc, rows, k_res, stream
-    "eegflow_lstm_bwd_dualdir": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _F,
+    # res_bf16, H, hc, rows, k_res, *smem, *clusters
+    "eegflow_lstm_bwd_v2_plan": [_I, _I, _I, _I, _I, _P, _P],
+    # lstm_bwd_dualdir.cu, kernel 4 (both planes bf16 when res_bf16):
+    # res_f, h_f, g_f, res_r, h_r, g_r, res_bf16, x0, x1, d0, d1, mask_from_x,
+    # inv_keep, w0_f, w1_f, wfrag_f, w0_r, w1_r, wfrag_r, dx0, dx1, dw_ih_f,
+    # dw_hh_f, db_f, dw_ih_r, dw_hh_r, db_r, dz16_f, dz16_r, db_part_f,
+    # db_part_r, part, splits, B, T, H, hc, rows, k_res, stream
+    "eegflow_lstm_bwd_dualdir": [_P, _P, _P, _P, _P, _P, _I, _P, _P, _I, _I, _I, _F,
                                  _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                                  _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # lstm_bwd_dualdir.cu, its chain's shared memory and clusters held at once:
-    # H, hc, rows, k_res, *smem, *clusters
-    "eegflow_lstm_bwd_dualdir_plan": [_I, _I, _I, _I, _P, _P],
+    # res_bf16, H, hc, rows, k_res, *smem, *clusters
+    "eegflow_lstm_bwd_dualdir_plan": [_I, _I, _I, _I, _I, _P, _P],
     # lstm_rec.cu, kernel 1 (float32 policy); c_out null in eval mode, and in
     # training mode z written over the gates:
     # gates, wslice, h_out, c_out, B, T, H, hc, rows, k_res, reverse, stream

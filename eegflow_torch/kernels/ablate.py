@@ -144,8 +144,8 @@ VARIANTS = {
          "        if (v == 12345.f) out[0] = v;")],
     "noload": [
         ("lstm_fwd.cu", "if (row < B) v = __ldcs", "if (row < 0) v = __ldcs"),
-        ("lstm_bwd_chain.cuh", "          if (row < B)\n            v = __ldcs(",
-         "          if (row < 0)\n            v = __ldcs("),
+        ("lstm_bwd_chain.cuh", "          if (row < B)\n            v = planar ?",
+         "          if (row < 0)\n            v = planar ?"),
         ("lstm_rec.cu", "if (row < B) v = __ldcs(p + gate * H);",
          "if (row < 0) v = __ldcs(p + gate * H);"),
         ("lstm_rec.cu", "      if (row < B) {\n#pragma unroll\n        for (int gate = 0; gate < 4; "

@@ -13,9 +13,11 @@ For CPU tensors a wrapper runs its plain twin (:func:`input_block_fused_plain`,
 raises. :class:`InputBlock` is the ``torch.autograd.Function`` around the
 pair, as ``_input_block_core``'s custom VJP is in the reference.
 
-The reference's ``out_keep``/``out_seed``/``out_mask`` modes (input dropout
-folded into the block's output) are options that the port does not take: the
-input dropout is applied by the first LSTM layer, from explicit masks.
+The reference's ``out_keep``/``out_mask`` mode (``EEGFLOW_FWD_DROPW=2``: the
+stack's input dropout folded into the block's output) draws the same masks
+and computes the same function as the port's mask path, where the first LSTM
+layer applies the input dropout from explicit masks; its ``out_seed`` mode
+(the TPU's hardware PRNG) has no counterpart.
 """
 
 from __future__ import annotations

@@ -57,6 +57,20 @@ bf16 path under one set of its flags:
   arrive already dropped by :func:`select_dropout`, the forwards take no
   masks, and one :func:`lstm_bwd_dualdir` launch gives both directions'
   gradients. Bidirectional layers only.
+
+The bf16 training kernels take one option under each schedule,
+``res_bf16`` (a keyword of :func:`bilstm_layer`; the reference's
+``EEGFLOW_RES_BF16=1``): the forwards store their residual stream (the
+planes, or the raw gates; c stays float32) in bf16, rounded to nearest even,
+and the backwards widen it on load. A different function from the float32
+residuals (about 0.4 % relative error in the gate derivatives), for half the
+bytes of the largest stream. A launch on bf16 residuals is counted under
+:func:`counter`'s name for it, e.g. ``lstm_fwd_train_res16``.
+
+The reference's ``EEGFLOW_FWD_DROPW=2`` (the producing kernel writes the
+dropped copy of its output, the consumer recovers the mask from its zeros)
+draws the same masks as the mask path and gives the same loss and
+gradients; its counterpart here is the mask path itself.
 """
 
 from __future__ import annotations
@@ -101,9 +115,10 @@ def apply_mask(x: torch.Tensor, mask: Optional[torch.Tensor], keep: float) -> to
                                                                device=x.device))
 
 
-def _lstm_fwd_plain(xs, w_ih, b, w_hh, reverse, masks, keep, residuals=None):
+def _lstm_fwd_plain(xs, w_ih, b, w_hh, reverse, masks, keep, residuals=None, res_bf16=False):
     """The forward twins' loop. ``residuals``: None, ``"planes"`` (the six
-    adjoint planes) or ``"gates"`` (the post-activation gates and c)."""
+    adjoint planes) or ``"gates"`` (the post-activation gates and c), the
+    planes or gates rounded to bf16 with ``res_bf16``."""
     xs = as_parts(xs)
     masks = _mask_list(masks, len(xs))
     widths = [p.shape[-1] for p in xs]
@@ -136,9 +151,9 @@ def _lstm_fwd_plain(xs, w_ih, b, w_hh, reverse, masks, keep, residuals=None):
         elif residuals == "gates":
             res[:, t] = torch.cat([i, f, g, o], dim=-1)
             cs[:, t] = c
-    if residuals == "gates":
-        return out, res, cs
-    return out, res
+    if res_bf16:
+        res = res.to(torch.bfloat16)
+    return (out, res, cs) if residuals == "gates" else (out, res)
 
 
 def lstm_fwd_fused_proj_plain(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor,
@@ -153,22 +168,25 @@ def lstm_fwd_fused_proj_plain(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor,
 
 def lstm_fwd_train_plain(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor,
                          w_hh: torch.Tensor, reverse: bool = False, masks: Masks = None,
-                         keep: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
+                         keep: float = 1.0, *, res_bf16: bool = False
+                         ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Plain twin of the training-mode kernel: -> (h (B, T, H), residual
     planes (B, T, 6H)). Each part is masked as ``apply_mask`` does before the
     bf16 rounding; the planes are [g i(1-i), c_prev f(1-f), i(1-g^2),
-    o(1-tanh^2 c), f, tanh(c) o(1-o)] of every step."""
-    return _lstm_fwd_plain(xs, w_ih, b, w_hh, reverse, masks, keep, "planes")
+    o(1-tanh^2 c), f, tanh(c) o(1-o)] of every step, float32, or rounded to
+    bf16 (nearest even) with ``res_bf16``."""
+    return _lstm_fwd_plain(xs, w_ih, b, w_hh, reverse, masks, keep, "planes", res_bf16)
 
 
 def lstm_fwd_train_gates_plain(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor,
                                w_hh: torch.Tensor, reverse: bool = False, masks: Masks = None,
-                               keep: float = 1.0
+                               keep: float = 1.0, *, res_bf16: bool = False
                                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Plain twin of the raw-gate training mode: -> (h (B, T, H), gates
     (B, T, 4H), c (B, T, H)); the gates are the post-activation [i, f, g, o]
-    of every step, the inputs masked as :func:`lstm_fwd_train_plain`."""
-    return _lstm_fwd_plain(xs, w_ih, b, w_hh, reverse, masks, keep, "gates")
+    of every step (bf16 with ``res_bf16``; c stays float32), the inputs
+    masked as :func:`lstm_fwd_train_plain`."""
+    return _lstm_fwd_plain(xs, w_ih, b, w_hh, reverse, masks, keep, "gates", res_bf16)
 
 
 def _check_cuda_args(xs, w_ih, b, w_hh, masks=None):
@@ -211,11 +229,21 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-#: kernel 2's modes: wrapper (and counter) name -> (C entry point, mode of
-#: ``eegflow_lstm_fwd_plan``, widths of its outputs in units of H: h first)
+def counter(name: str, res_bf16: bool = False) -> str:
+    """The launch-counter name of a recurrent kernel's wrapper ``name``
+    (``lstm_fwd_train``, ``lstm_fwd_train_gates``, ``lstm_bwd``,
+    ``lstm_bwd_v2``, ``lstm_bwd_dualdir``) on bf16 residuals or not."""
+    return name + "_res16" if res_bf16 else name
+
+
+#: kernel 2's modes: wrapper name -> (C entry point, mode of
+#: ``eegflow_lstm_fwd_plan``, widths of its outputs in units of H: h first,
+#: then the residuals, the first of them the one ``res_bf16`` stores in bf16)
 _FWD_MODES = {"lstm_fwd": ("eegflow_lstm_fwd", 0, (1,)),
               "lstm_fwd_train": ("eegflow_lstm_fwd_train", 1, (1, 6)),
               "lstm_fwd_train_gates": ("eegflow_lstm_fwd_train_gates", 2, (1, 4, 1))}
+#: the plan mode of a training mode's bf16 residuals: its float32 mode + this
+_RES16_PLAN = 2
 #: recurrent kernel -> its cluster-plan query; the queries of "fwd" and "rec"
 #: take the kernel's mode
 _PLAN_QUERIES = {"fwd": "eegflow_lstm_fwd_plan", "bwd": "eegflow_lstm_bwd_plan",
@@ -250,7 +278,7 @@ def _query_clusters(kernel: str, mode: int, hidden: int, rows: int, hc: int, k_r
         got_smem, clusters = ctypes.c_int(0), ctypes.c_int(0)
         args = (hidden, hc, rows, k_res, ctypes.byref(got_smem), ctypes.byref(clusters))
         err = getattr(lib, _PLAN_QUERIES[kernel])(
-            *(((mode,) if kernel in ("fwd", "rec") else ()) + args))
+            *(((mode,) if kernel != "rec_bwd" else ()) + args))
         kernels.check(lib, err, _PLAN_QUERIES[kernel])
         if got_smem.value != smem:
             raise RuntimeError(f"{kernel}: the plan's shared memory ({smem} B) is not the "
@@ -261,11 +289,12 @@ def _query_clusters(kernel: str, mode: int, hidden: int, rows: int, hc: int, k_r
 
 def kernel_plan(kernel: str, batch: int, hidden: int, mode: int = 0) -> lstm_plan.LstmPlan:
     """The cluster launch plan of a recurrent kernel on this card: ``"fwd"``
-    (kernel 2, ``mode`` 0 eval, 1 planes, 2 raw gates), ``"bwd"`` (kernel 3's
-    chain), ``"bwd_v2"`` (kernel 3b's), ``"bwd_dualdir"`` (kernel 4's, both
-    directions), ``"rec"`` (kernel 1, float32; ``mode`` 0 eval, 1
-    training) or ``"rec_bwd"`` (kernel 5). Raises when the card holds no
-    such cluster."""
+    (kernel 2, ``mode`` 0 eval, 1 planes, 2 raw gates, 3 and 4 the same in
+    bf16), ``"bwd"`` (kernel 3's chain), ``"bwd_v2"`` (kernel 3b's),
+    ``"bwd_dualdir"`` (kernel 4's, both directions) (``mode`` 1: bf16
+    residuals), ``"rec"`` (kernel 1, float32; ``mode`` 0 eval, 1 training)
+    or ``"rec_bwd"`` (kernel 5). Raises when the card holds no such
+    cluster."""
     if kernel not in _PLAN_KINDS:
         raise ValueError(f"kernel must be one of {tuple(_PLAN_KINDS)}, got {kernel!r}")
     key = (kernel, batch, hidden, mode, _plan_rows)
@@ -278,11 +307,12 @@ def kernel_plan(kernel: str, batch: int, hidden: int, mode: int = 0) -> lstm_pla
     return _plans[key]
 
 
-def _fwd_kernel(name: str, xs, w_ih, b, w_hh, reverse, masks=None, keep=1.0):
+def _fwd_kernel(name: str, xs, w_ih, b, w_hh, reverse, masks=None, keep=1.0, res_bf16=False):
     """Launch kernel 2 in mode ``name`` (a key of :data:`_FWD_MODES`) on CUDA
-    parts -> its outputs, float32 (B, T, width H) each: h, then the
-    residuals. The wrapper builds the bf16 W_ih parts, W_hh in fragment
-    order and the pre-gate scratch (B, T, 4H)."""
+    parts -> its outputs, (B, T, width H) each: h, then the residuals
+    (float32; the first bf16 with ``res_bf16``), counted as
+    ``counter(name, res_bf16)``. The wrapper builds the bf16 W_ih parts,
+    W_hh in fragment order and the pre-gate scratch (B, T, 4H)."""
     entry, mode, widths_out = _FWD_MODES[name]
     _check_cuda_args(xs, w_ih, b, w_hh, masks)
     masks = _mask_list(masks, len(xs))
@@ -290,14 +320,15 @@ def _fwd_kernel(name: str, xs, w_ih, b, w_hh, reverse, masks=None, keep=1.0):
     dev = xs[0].device
     batch, steps = xs[0].shape[:2]
     hidden = w_hh.shape[0]
-    plan = kernel_plan("fwd", batch, hidden, mode)
+    plan = kernel_plan("fwd", batch, hidden, mode + (_RES16_PLAN if res_bf16 else 0))
     widths = [x.shape[-1] for x in xs]
     w_parts = torch.split(w_ih.to(torch.bfloat16).contiguous(), widths, dim=0)
     wfrag = lstm_plan.fwd_fragments(w_hh)
     bias = b.to(torch.float32).contiguous()
     pre = torch.empty(batch, steps, 4 * hidden, dtype=torch.float32, device=dev)
-    outs = [torch.empty(batch, steps, w * hidden, dtype=torch.float32, device=dev)
-            for w in widths_out]
+    outs = [torch.empty(batch, steps, w * hidden, device=dev,
+                        dtype=torch.bfloat16 if res_bf16 and k == 1 else torch.float32)
+            for k, w in enumerate(widths_out)]
     two = len(xs) == 2
     args = [xs[0].data_ptr(), _ptr(xs[1]) if two else None]
     if mode:
@@ -306,12 +337,14 @@ def _fwd_kernel(name: str, xs, w_ih, b, w_hh, reverse, masks=None, keep=1.0):
     if mode:
         args.append(1.0 / keep)
     args += [w_parts[0].data_ptr(), w_parts[1].data_ptr() if two else None, bias.data_ptr(),
-             wfrag.data_ptr(), pre.data_ptr(), *[o.data_ptr() for o in outs],
-             batch, steps, hidden, plan.hc, plan.rows, plan.k_res, int(reverse),
+             wfrag.data_ptr(), pre.data_ptr(), *[o.data_ptr() for o in outs[:2]]]
+    if mode:
+        args += [int(res_bf16), *[o.data_ptr() for o in outs[2:]]]
+    args += [batch, steps, hidden, plan.hc, plan.rows, plan.k_res, int(reverse),
              kernels.stream(dev)]
     err = getattr(lib, entry)(*args)
     kernels.check(lib, err, name)
-    kernels.launch_counts[name] += 1
+    kernels.launch_counts[counter(name, res_bf16)] += 1
     return outs
 
 
@@ -330,28 +363,34 @@ def lstm_fwd_fused_proj(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor,
 
 
 def lstm_fwd_train(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor,
-                   reverse: bool = False, masks: Masks = None,
-                   keep: float = 1.0) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Training-mode forward: -> (h (B, T, H), planes (B, T, 6H)), float32.
+                   reverse: bool = False, masks: Masks = None, keep: float = 1.0, *,
+                   res_bf16: bool = False) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Training-mode forward: -> (h (B, T, H), planes (B, T, 6H)), float32;
+    the planes bf16 with ``res_bf16``.
 
     ``masks``: one uint8 keep-mask (B, T, D_p) per part or None (0 = dropped,
     kept values scaled by 1/keep, as :func:`apply_mask`).
     """
     xs = as_parts(xs)
     if _device_kind("lstm_fwd_train", xs[0]) == "cpu":
-        return lstm_fwd_train_plain(xs, w_ih, b, w_hh, reverse, masks, keep)
-    return tuple(_fwd_kernel("lstm_fwd_train", xs, w_ih, b, w_hh, reverse, masks, keep))
+        return lstm_fwd_train_plain(xs, w_ih, b, w_hh, reverse, masks, keep, res_bf16=res_bf16)
+    return tuple(_fwd_kernel("lstm_fwd_train", xs, w_ih, b, w_hh, reverse, masks, keep,
+                             res_bf16))
 
 
 def lstm_fwd_train_gates(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.Tensor,
-                         reverse: bool = False, masks: Masks = None, keep: float = 1.0
+                         reverse: bool = False, masks: Masks = None, keep: float = 1.0, *,
+                         res_bf16: bool = False
                          ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Raw-gate training-mode forward: -> (h (B, T, H), gates (B, T, 4H),
-    c (B, T, H)), float32; ``masks`` as :func:`lstm_fwd_train`."""
+    c (B, T, H)), float32, the gates bf16 with ``res_bf16``; ``masks`` as
+    :func:`lstm_fwd_train`."""
     xs = as_parts(xs)
     if _device_kind("lstm_fwd_train_gates", xs[0]) == "cpu":
-        return lstm_fwd_train_gates_plain(xs, w_ih, b, w_hh, reverse, masks, keep)
-    return tuple(_fwd_kernel("lstm_fwd_train_gates", xs, w_ih, b, w_hh, reverse, masks, keep))
+        return lstm_fwd_train_gates_plain(xs, w_ih, b, w_hh, reverse, masks, keep,
+                                          res_bf16=res_bf16)
+    return tuple(_fwd_kernel("lstm_fwd_train_gates", xs, w_ih, b, w_hh, reverse, masks, keep,
+                             res_bf16))
 
 
 Grads = Tuple[Tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor, torch.Tensor]
@@ -359,10 +398,11 @@ Grads = Tuple[Tuple[torch.Tensor, ...], torch.Tensor, torch.Tensor, torch.Tensor
 
 def _planes_adjoint(res: torch.Tensor, g: torch.Tensor, w_hh: torch.Tensor,
                     reverse: bool) -> torch.Tensor:
-    """dz (B, T, 4H) float32 of kernel 3's chain: from the planes ``res``,
-    against the direction of time (dh = g + dh_carry; dc = dh E + dc_carry;
-    dz = [dc A, dc B, dc C, dh G]; dc_carry = dc F; dh_carry =
-    bf16(dz) . bf16(W_hh)^T)."""
+    """dz (B, T, 4H) float32 of kernel 3's chain: from the planes ``res``
+    (float32 or bf16, widened), against the direction of time (dh = g +
+    dh_carry; dc = dh E + dc_carry; dz = [dc A, dc B, dc C, dh G]; dc_carry
+    = dc F; dh_carry = bf16(dz) . bf16(W_hh)^T)."""
+    res = res.float()
     batch, steps, _ = res.shape
     hidden = w_hh.shape[0]
     whh_t = bf16_round(w_hh).t()
@@ -412,22 +452,31 @@ def lstm_bwd_plain(res: torch.Tensor, h: torch.Tensor, g: torch.Tensor, xs: Part
     """Plain twin of the backward kernel: -> (dx parts, dW_ih, dW_hh, db).
 
     The adjoint walks against the direction of time from the planes ``res``
-    (dh = g + dh_carry; dc = dh E + dc_carry; dz = [dc A, dc B, dc C, dh G];
-    dc_carry = dc F; dh_carry = bf16(dz) . bf16(W_hh)^T). The products take
-    bf16(dz), db sums the float32 dz, dx is masked like the input and
-    ``dx_add`` (the sibling direction's dx) is added last.
+    (float32 or bf16, widened; dh = g + dh_carry; dc = dh E + dc_carry; dz =
+    [dc A, dc B, dc C, dh G]; dc_carry = dc F; dh_carry = bf16(dz) .
+    bf16(W_hh)^T). The products take bf16(dz), db sums the float32 dz, dx is
+    masked like the input and ``dx_add`` (the sibling direction's dx) is
+    added last.
     """
     xs = as_parts(xs)
     return _weight_products(_planes_adjoint(res, g, w_hh, reverse), h, xs, w_ih, reverse,
                             masks, keep, dx_add)
 
 
+#: the element types a backward kernel reads its residual stream in
+_RES_DTYPES = (torch.float32, torch.bfloat16)
+
+
 def _check_seqs(xs, *seqs):
+    """Each (name, tensor, width[, dtypes]) a contiguous (B, T, width)
+    sequence on the parts' device, float32 unless ``dtypes`` says more."""
     batch, steps = xs[0].shape[:2]
-    for name, t, width in seqs:
-        if (t.dtype != torch.float32 or tuple(t.shape) != (batch, steps, width)
+    for name, t, width, *dtypes in seqs:
+        dtypes = dtypes[0] if dtypes else (torch.float32,)
+        if (t.dtype not in dtypes or tuple(t.shape) != (batch, steps, width)
                 or t.device != xs[0].device or not t.is_contiguous()):
-            raise ValueError(f"{name} must be contiguous float32 ({batch}, {steps}, {width})")
+            raise ValueError(f"{name} must be contiguous ({batch}, {steps}, {width}) of "
+                             f"{' or '.join(str(d) for d in dtypes)}")
 
 
 def _check_dx_add(dx_add, xs):
@@ -446,15 +495,16 @@ def lstm_bwd(res: torch.Tensor, h: torch.Tensor, g: torch.Tensor, xs: Parts,
              masks: Masks = None, keep: float = 1.0,
              dx_add: Optional[Sequence[torch.Tensor]] = None) -> Grads:
     """Backward of one layer-direction from its training-mode forward:
-    ``res`` (B, T, 6H) planes, ``h`` (B, T, H), upstream ``g`` (B, T, H), the
-    same input parts and masks as the forward -> (dx parts, dW_ih (D, 4H),
-    dW_hh (H, 4H), db (4H,)), float32."""
+    ``res`` (B, T, 6H) planes (float32, or bf16 from ``res_bf16``), ``h``
+    (B, T, H), upstream ``g`` (B, T, H), the same input parts and masks as
+    the forward -> (dx parts, dW_ih (D, 4H), dW_hh (H, 4H), db (4H,)),
+    float32."""
     xs = as_parts(xs)
     if _device_kind("lstm_bwd", res) == "cpu":
         return lstm_bwd_plain(res, h, g, xs, w_ih, w_hh, reverse, masks, keep, dx_add)
     _check_cuda_args(xs, w_ih, None, w_hh, masks)
     hidden = w_hh.shape[0]
-    _check_seqs(xs, ("res", res, 6 * hidden), ("h", h, hidden), ("g", g, hidden))
+    _check_seqs(xs, ("res", res, 6 * hidden, _RES_DTYPES), ("h", h, hidden), ("g", g, hidden))
     return _chain_bwd("lstm_bwd", "bwd", (res,), h, g, xs, w_ih, w_hh, reverse, masks, keep,
                       _check_dx_add(dx_add, xs))
 
@@ -463,16 +513,18 @@ def _chain_bwd(name: str, plan_kind: str, residuals, h, g, xs, w_ih, w_hh, rever
                keep, dx_add) -> Grads:
     """Launch kernel 3 (``residuals`` the planes) or 3b (the raw gates and c)
     on checked CUDA arguments: the C entry ``eegflow_<name>``, counted as
-    ``name``, on the plan ``kernel_plan(plan_kind, ...)``. The wrapper builds
-    the bf16 W_ih parts, W_hh^T in fragment order, the outputs and the
-    scratch (bf16 dz, db's per-16-row partials, split-K partials)."""
+    ``counter(name, res_bf16)`` (bf16 residuals or not), on the plan
+    ``kernel_plan(plan_kind, ...)``. The wrapper builds the bf16 W_ih parts,
+    W_hh^T in fragment order, the outputs and the scratch (bf16 dz, db's
+    per-16-row partials, split-K partials)."""
     masks = _mask_list(masks, len(xs))
     batch, steps = xs[0].shape[:2]
     hidden = w_hh.shape[0]
     lib = kernels.load_library()
     dev = xs[0].device
     gates = 4 * hidden
-    plan = kernel_plan(plan_kind, batch, hidden)
+    res16 = residuals[0].dtype == torch.bfloat16
+    plan = kernel_plan(plan_kind, batch, hidden, int(res16))
     widths = [x.shape[-1] for x in xs]
     w_parts = torch.split(w_ih.to(torch.bfloat16).contiguous(), widths, dim=0)
     wfrag = lstm_plan.bwd_fragments(w_hh)
@@ -488,8 +540,8 @@ def _chain_bwd(name: str, plan_kind: str, residuals, h, g, xs, w_ih, w_hh, rever
                        device=dev)
     two = len(xs) == 2
     err = getattr(lib, "eegflow_" + name)(
-        *[r.data_ptr() for r in residuals], h.data_ptr(), g.data_ptr(),
-        xs[0].data_ptr(), _ptr(xs[1]) if two else None,
+        residuals[0].data_ptr(), int(res16), *[r.data_ptr() for r in residuals[1:]],
+        h.data_ptr(), g.data_ptr(), xs[0].data_ptr(), _ptr(xs[1]) if two else None,
         _ptr(masks[0]), _ptr(masks[1]) if two else None,
         widths[0], widths[1] if two else 0, 1.0 / keep,
         w_parts[0].data_ptr(), w_parts[1].data_ptr() if two else None, wfrag.data_ptr(),
@@ -499,7 +551,7 @@ def _chain_bwd(name: str, plan_kind: str, residuals, h, g, xs, w_ih, w_hh, rever
         part.data_ptr(), splits, batch, steps, hidden, plan.hc, plan.rows, plan.k_res,
         int(reverse), kernels.stream(dev))
     kernels.check(lib, err, name)
-    kernels.launch_counts[name] += 1
+    kernels.launch_counts[counter(name, res16)] += 1
     return tuple(dxs), dw_ih, dw_hh, db
 
 
@@ -507,8 +559,8 @@ def lstm_bwd_v2_plain(gates: torch.Tensor, c: torch.Tensor, h: torch.Tensor, g: 
                       xs: Parts, w_ih: torch.Tensor, w_hh: torch.Tensor, reverse: bool = False,
                       masks: Masks = None, keep: float = 1.0,
                       dx_add: Optional[Sequence[torch.Tensor]] = None) -> Grads:
-    """Plain twin of kernel 3b: the adjoint from the raw-gate residuals ->
-    (dx parts, dW_ih, dW_hh, db).
+    """Plain twin of kernel 3b: the adjoint from the raw-gate residuals
+    (``gates`` float32 or bf16, widened) -> (dx parts, dW_ih, dW_hh, db).
 
     Against the direction of time, with tanh(c) recomputed and c_prev the
     cell state before the step: dh = g + dh_carry; do = dh tanh(c);
@@ -517,6 +569,7 @@ def lstm_bwd_v2_plain(gates: torch.Tensor, c: torch.Tensor, h: torch.Tensor, g: 
     bf16(dz) . bf16(W_hh)^T. The products are :func:`lstm_bwd_plain`'s.
     """
     xs = as_parts(xs)
+    gates = gates.float()
     batch, steps, g4 = gates.shape
     hidden = g4 // 4
     gi, gf, gg, go = gates.split(hidden, dim=-1)
@@ -543,19 +596,20 @@ def lstm_bwd_v2(gates: torch.Tensor, c: torch.Tensor, h: torch.Tensor, g: torch.
                 masks: Masks = None, keep: float = 1.0,
                 dx_add: Optional[Sequence[torch.Tensor]] = None) -> Grads:
     """Kernel 3b: the two-pass backward of one layer-direction from its
-    raw-gate forward (:func:`lstm_fwd_train_gates`): ``gates`` (B, T, 4H),
-    ``c``, ``h`` and the upstream ``g`` (B, T, H), the same input parts and
-    masks as the forward -> (dx parts, dW_ih (D, 4H), dW_hh (H, 4H), db
-    (4H,)), float32. Kernel 3's chain with a raw-gate step, on its own plan
-    (``kernel_plan("bwd_v2", ...)``), and kernel 3's products."""
+    raw-gate forward (:func:`lstm_fwd_train_gates`): ``gates`` (B, T, 4H,
+    float32 or bf16), ``c``, ``h`` and the upstream ``g`` (B, T, H), the
+    same input parts and masks as the forward -> (dx parts, dW_ih (D, 4H),
+    dW_hh (H, 4H), db (4H,)), float32. Kernel 3's chain with a raw-gate
+    step, on its own plan (``kernel_plan("bwd_v2", ...)``), and kernel 3's
+    products."""
     xs = as_parts(xs)
     if _device_kind("lstm_bwd_v2", gates) == "cpu":
         return lstm_bwd_v2_plain(gates, c, h, g, xs, w_ih, w_hh, reverse, masks, keep,
                                  dx_add)
     _check_cuda_args(xs, w_ih, None, w_hh, masks)
     hidden = w_hh.shape[0]
-    _check_seqs(xs, ("gates", gates, 4 * hidden), ("c", c, hidden), ("h", h, hidden),
-                ("g", g, hidden))
+    _check_seqs(xs, ("gates", gates, 4 * hidden, _RES_DTYPES), ("c", c, hidden),
+                ("h", h, hidden), ("g", g, hidden))
     return _chain_bwd("lstm_bwd_v2", "bwd_v2", (gates, c), h, g, xs, w_ih, w_hh, reverse,
                       masks, keep, _check_dx_add(dx_add, xs))
 
@@ -576,8 +630,9 @@ def lstm_bwd_dualdir_plain(res_f: torch.Tensor, h_f: torch.Tensor, g_f: torch.Te
                            keep: float = 1.0, mask_from_x: bool = False
                            ) -> Tuple[Tuple[torch.Tensor, ...], DirGrads, DirGrads]:
     """Plain twin of kernel 4: both directions' adjoints from their planes
-    (kernel 3's chain, the forward direction against time, the reverse one
-    with it) -> (dx parts, (dW_ih, dW_hh, db) forward, ... reverse).
+    (float32 or bf16; kernel 3's chain, the forward direction against time,
+    the reverse one with it) -> (dx parts, (dW_ih, dW_hh, db) forward, ...
+    reverse).
 
     ``xs`` are the parts both directions read, as given: with
     ``mask_from_x`` they are already dropped, each direction's dx becomes
@@ -604,10 +659,11 @@ def lstm_bwd_dualdir(res_f: torch.Tensor, h_f: torch.Tensor, g_f: torch.Tensor,
                      ) -> Tuple[Tuple[torch.Tensor, ...], DirGrads, DirGrads]:
     """Kernel 4: the backward of a bidirectional layer in one launch, from
     both directions' training-mode forwards without masks: per direction the
-    planes ``res_*`` (B, T, 6H), ``h_*`` and the upstream ``g_*`` (B, T, H),
-    and ``w_* = (w_ih, w_hh)``; the shared input parts ``xs`` -> (dx parts,
-    summed over both directions, (dW_ih, dW_hh, db) forward, ... reverse),
-    float32. ``mask_from_x``: the parts carry select dropout with ``keep``
+    planes ``res_*`` (B, T, 6H; both float32, or both bf16, counted as
+    ``counter("lstm_bwd_dualdir", True)``), ``h_*`` and the upstream ``g_*``
+    (B, T, H), and ``w_* = (w_ih, w_hh)``; the shared input parts ``xs`` ->
+    (dx parts, summed over both directions, (dW_ih, dW_hh, db) forward, ...
+    reverse), float32. ``mask_from_x``: the parts carry select dropout with ``keep``
     (see :func:`lstm_bwd_dualdir_plain`)."""
     xs = as_parts(xs)
     if _device_kind("lstm_bwd_dualdir", res_f) == "cpu":
@@ -619,11 +675,13 @@ def lstm_bwd_dualdir(res_f: torch.Tensor, h_f: torch.Tensor, g_f: torch.Tensor,
     batch, steps = xs[0].shape[:2]
     hidden = w_hh_f.shape[0]
     g4 = 4 * hidden
-    _check_seqs(xs, ("res_f", res_f, 6 * hidden), ("h_f", h_f, hidden), ("g_f", g_f, hidden),
-                ("res_r", res_r, 6 * hidden), ("h_r", h_r, hidden), ("g_r", g_r, hidden))
+    _check_seqs(xs, ("res_f", res_f, 6 * hidden, _RES_DTYPES), ("h_f", h_f, hidden),
+                ("g_f", g_f, hidden), ("res_r", res_r, 6 * hidden, (res_f.dtype,)),
+                ("h_r", h_r, hidden), ("g_r", g_r, hidden))
+    res16 = res_f.dtype == torch.bfloat16
     lib = kernels.load_library()
     dev = xs[0].device
-    plan = kernel_plan("bwd_dualdir", batch, hidden)
+    plan = kernel_plan("bwd_dualdir", batch, hidden, int(res16))
     widths = [x.shape[-1] for x in xs]
     wp_f = torch.split(w_ih_f.to(torch.bfloat16).contiguous(), widths, dim=0)
     wp_r = torch.split(w_ih_r.to(torch.bfloat16).contiguous(), widths, dim=0)
@@ -641,7 +699,7 @@ def lstm_bwd_dualdir(res_f: torch.Tensor, h_f: torch.Tensor, g_f: torch.Tensor,
     two = len(xs) == 2
     err = lib.eegflow_lstm_bwd_dualdir(
         res_f.data_ptr(), h_f.data_ptr(), g_f.data_ptr(),
-        res_r.data_ptr(), h_r.data_ptr(), g_r.data_ptr(),
+        res_r.data_ptr(), h_r.data_ptr(), g_r.data_ptr(), int(res16),
         xs[0].data_ptr(), _ptr(xs[1]) if two else None, widths[0], widths[1] if two else 0,
         int(mask_from_x), 1.0 / keep,
         wp_f[0].data_ptr(), wp_f[1].data_ptr() if two else None, wfrag_f.data_ptr(),
@@ -652,7 +710,7 @@ def lstm_bwd_dualdir(res_f: torch.Tensor, h_f: torch.Tensor, g_f: torch.Tensor,
         part.data_ptr(), splits, batch, steps, hidden, plan.hc, plan.rows, plan.k_res,
         kernels.stream(dev))
     kernels.check(lib, err, "lstm_bwd_dualdir")
-    kernels.launch_counts["lstm_bwd_dualdir"] += 1
+    kernels.launch_counts[counter("lstm_bwd_dualdir", res16)] += 1
     return tuple(dxs), grads[0], grads[1]
 
 
@@ -674,11 +732,14 @@ def select_dropout(x: torch.Tensor, mask: torch.Tensor, keep: float) -> torch.Te
 LSTM_BWD_SCHEDULES = ("fused", "two_pass", "dualdir")
 
 
-def check_lstm_bwd(lstm_bwd: str, bf16: bool = True, bidirectional: bool = True) -> None:
+def check_lstm_bwd(lstm_bwd: str, bf16: bool = True, bidirectional: bool = True, *,
+                   res_bf16: bool = False) -> None:
     """Raise ``ValueError`` unless the backward schedule ``lstm_bwd`` can run
     a layer of this precision policy and direction: any schedule but
-    ``"fused"`` needs the bf16 policy, ``"dualdir"`` a bidirectional layer.
-    There is no fallback: a schedule runs its kernels on every layer."""
+    ``"fused"`` needs the bf16 policy, ``"dualdir"`` a bidirectional layer,
+    and ``res_bf16`` the bf16 policy (the reference takes it only there).
+    There is no fallback: a schedule runs its kernels on every layer, and
+    the option is never dropped."""
     if lstm_bwd not in LSTM_BWD_SCHEDULES:
         raise ValueError(f"lstm_bwd must be one of {LSTM_BWD_SCHEDULES}, got {lstm_bwd!r}")
     if lstm_bwd != "fused" and not bf16:
@@ -686,26 +747,30 @@ def check_lstm_bwd(lstm_bwd: str, bf16: bool = True, bidirectional: bool = True)
                          f"only 'fused'")
     if lstm_bwd == "dualdir" and not bidirectional:
         raise ValueError("lstm_bwd='dualdir' needs a bidirectional layer")
+    if res_bf16 and not bf16:
+        raise ValueError("res_bf16 needs the bf16 policy; the float32 policy's residuals "
+                         "are float32")
 
 
 class BiLSTMLayer(torch.autograd.Function):
     """One LSTM layer over input parts, both directions under one Function.
 
     ``forward(kernel, keep, m0, m1, x0, x1, w_ih_f, w_hh_f, b_f, w_ih_b,
-    w_hh_b, b_b, schedule) -> (h_f, h_b)`` (``x1``/``m1`` None for a one-part
-    input; the ``_b`` weights None for a unidirectional layer, which returns
-    ``(h_f,)``). The masks are shared by both directions. ``kernel`` picks the
-    CUDA wrappers or their twins; ``schedule`` one of
+    w_hh_b, b_b, schedule, res_bf16) -> (h_f, h_b)`` (``x1``/``m1`` None for
+    a one-part input; the ``_b`` weights None for a unidirectional layer,
+    which returns ``(h_f,)``). The masks are shared by both directions.
+    ``kernel`` picks the CUDA wrappers or their twins; ``schedule`` one of
     :data:`LSTM_BWD_SCHEDULES` (see the module docstring). Under ``"fused"``
     and ``"two_pass"`` the backward runs the forward direction's adjoint,
     then the reverse direction's with the first dx added in; under
     ``"dualdir"`` (no masks: the parts are already dropped, and ``keep < 1``
     means the mask is recovered from their zeros) one launch runs both.
+    ``res_bf16``: bf16 residuals.
     """
 
     @staticmethod
     def forward(ctx, kernel, keep, m0, m1, x0, x1, w_ih_f, w_hh_f, b_f,
-                w_ih_b=None, w_hh_b=None, b_b=None, schedule="fused"):
+                w_ih_b=None, w_hh_b=None, b_b=None, schedule="fused", res_bf16=False):
         xs = (x0,) if x1 is None else (x0, x1)
         masks = None if m0 is None else ((m0,) if x1 is None else (m0, m1))
         dirs = [(w_ih_f, w_hh_f, b_f, False)]
@@ -715,11 +780,11 @@ class BiLSTMLayer(torch.autograd.Function):
         for w_ih, w_hh, b, reverse in dirs:
             if schedule == "two_pass":
                 fwd = lstm_fwd_train_gates if kernel else lstm_fwd_train_gates_plain
-                h, gates, c = fwd(xs, w_ih, b, w_hh, reverse, masks, keep)
+                h, gates, c = fwd(xs, w_ih, b, w_hh, reverse, masks, keep, res_bf16=res_bf16)
                 saved += [gates, c, h]
             else:
                 fwd = lstm_fwd_train if kernel else lstm_fwd_train_plain
-                h, res = fwd(xs, w_ih, b, w_hh, reverse, masks, keep)
+                h, res = fwd(xs, w_ih, b, w_hh, reverse, masks, keep, res_bf16=res_bf16)
                 saved += [res, h]
             outs.append(h)
         ctx.kernel, ctx.keep, ctx.two, ctx.schedule = kernel, keep, x1 is not None, schedule
@@ -752,12 +817,12 @@ class BiLSTMLayer(torch.autograd.Function):
                 dxs, dwih_b, dwhh_b, db_b = bwd(*saved[per_dir:], grads[1], xs, w_ih_b,
                                                 w_hh_b, True, masks, ctx.keep, dxs)
         return (None, None, None, None, dxs[0], dxs[1] if ctx.two else None,
-                dwih_f, dwhh_f, db_f, dwih_b, dwhh_b, db_b, None)
+                dwih_f, dwhh_f, db_f, dwih_b, dwhh_b, db_b, None, None)
 
 
 def bilstm_layer(layer: Mapping, xs: Parts, masks: Masks = None, keep: float = 1.0,
-                 kernel: bool = False, bf16: bool = True, *,
-                 lstm_bwd: str = "fused") -> Tuple[torch.Tensor, ...]:
+                 kernel: bool = False, bf16: bool = True, *, lstm_bwd: str = "fused",
+                 res_bf16: bool = False) -> Tuple[torch.Tensor, ...]:
     """One layer of the stack (``{"fwd": ..., "bwd": ...}`` params) over input
     parts, differentiable through :class:`BiLSTMLayer` (the bf16 policy) or
     :class:`BiLSTMLayerF32` (``bf16=False``) -> output parts.
@@ -766,9 +831,10 @@ def bilstm_layer(layer: Mapping, xs: Parts, masks: Masks = None, keep: float = 1
     (:data:`LSTM_BWD_SCHEDULES`); the float32 policy has only ``"fused"``.
     Under ``"dualdir"`` the layer must be bidirectional and takes no masks:
     its parts come already dropped by :func:`select_dropout` with ``keep``.
+    ``res_bf16`` (bf16): the residuals in bf16.
     """
     pf, pb = layer["fwd"], (layer["bwd"] if "bwd" in layer else None)
-    check_lstm_bwd(lstm_bwd, bf16, pb is not None)
+    check_lstm_bwd(lstm_bwd, bf16, pb is not None, res_bf16=res_bf16)
     xs = as_parts(xs)
     ms = _mask_list(masks, len(xs))
     two = len(xs) == 2
@@ -784,7 +850,7 @@ def bilstm_layer(layer: Mapping, xs: Parts, masks: Masks = None, keep: float = 1
     if pb is None:
         weights += [None, None, None]
     return BiLSTMLayer.apply(kernel, float(keep), ms[0], ms[1] if two else None,
-                             xs[0], xs[1] if two else None, *weights, lstm_bwd)
+                             xs[0], xs[1] if two else None, *weights, lstm_bwd, res_bf16)
 
 
 # ---------------------------------------------------------------------------

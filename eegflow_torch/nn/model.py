@@ -52,13 +52,22 @@ reference's select-dropout path, where each layer's input parts are dropped
 by :func:`~eegflow_torch.nn.cuda_lstm.select_dropout` with the same masks
 and the kernels recover the mask from the zeros). The float32 policy runs
 only ``"fused"``.
+
+``res_bf16`` (the reference's ``EEGFLOW_RES_BF16=1``), under any bf16
+schedule: the LSTM forwards store their residual planes (or raw gates) in
+bf16 and the backwards widen them, about 0.4 % relative error in the gate
+derivatives for half their bytes; the float32 policy refuses it. The
+reference's ``EEGFLOW_FWD_DROPW=2`` (the producing kernels write the
+dropped copies, the consumers recover the masks from their zeros) draws the
+same masks and gives the same loss and gradients as the mask path above,
+which is its counterpart here.
 """
 
 from __future__ import annotations
 
 import functools
 from dataclasses import dataclass
-from typing import Mapping, Optional, Sequence, Tuple, Union
+from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -69,9 +78,9 @@ from eegflow_torch.core.prng import make_generator
 from eegflow_torch.nn.attention import additive_attention_init
 from eegflow_torch.nn.cuda_attention import pool_head, pool_head_fused, pool_head_fused_plain
 from eegflow_torch.nn.cuda_input import input_block
-from eegflow_torch.nn.cuda_lstm import (bilstm_layer, check_lstm_bwd, lstm_fwd_fused_proj,
-                                        lstm_fwd_fused_proj_plain, lstm_rec_layer,
-                                        select_dropout)
+from eegflow_torch.nn.cuda_lstm import (bilstm_layer, check_lstm_bwd, counter,
+                                        lstm_fwd_fused_proj, lstm_fwd_fused_proj_plain,
+                                        lstm_rec_layer, select_dropout)
 from eegflow_torch.nn.layers import (dense_apply, dense_init, dropout, dropout_mask, gelu,
                                      layer_norm_apply, layer_norm_init)
 from eegflow_torch.nn.lstm import bilstm_stack_init
@@ -183,8 +192,8 @@ def _as_u8(masks: Optional[Sequence[torch.Tensor]]):
 
 
 def _stack_train(layers, h: torch.Tensor, kernel: bool, bf16: bool,
-                 masks: Optional[DropoutMasks], rate: float,
-                 lstm_bwd: str = "fused") -> Tuple[torch.Tensor, ...]:
+                 masks: Optional[DropoutMasks], rate: float, lstm_bwd: str = "fused",
+                 res_bf16: bool = False) -> Tuple[torch.Tensor, ...]:
     """The differentiable stack, one autograd Function per layer
     (:class:`~eegflow_torch.nn.cuda_lstm.BiLSTMLayer` under bf16,
     :class:`~eegflow_torch.nn.cuda_lstm.BiLSTMLayerF32` under float32), as
@@ -199,7 +208,7 @@ def _stack_train(layers, h: torch.Tensor, kernel: bool, bf16: bool,
             parts = tuple(select_dropout(p, m, keep) for p, m in zip(parts, part_masks))
             part_masks = None
         parts = bilstm_layer(layer, parts, _as_u8(part_masks), keep, kernel, bf16,
-                             lstm_bwd=lstm_bwd)
+                             lstm_bwd=lstm_bwd, res_bf16=res_bf16)
         part_masks, keep = None, 1.0
         if masks is not None and idx < len(masks.layers):
             part_masks, keep = masks.layers[idx], 1.0 - rate
@@ -217,6 +226,7 @@ def classifier_apply(
     train: bool = False,
     masks: Optional[DropoutMasks] = None,
     lstm_bwd: str = "fused",
+    res_bf16: bool = False,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """(B, T, C) windows -> (B, num_classes) logits (+ attention (B, T)).
 
@@ -225,9 +235,10 @@ def classifier_apply(
     ``masks`` is None, as the reference does without a dropout key).
     ``lstm_bwd`` picks the stack's backward schedule (module docstring);
     any value but ``"fused"`` needs the bf16 policy, and ``"dualdir"`` a
-    bidirectional stack. A ``TransformerConfig`` runs the EEGFormer
+    bidirectional stack. ``res_bf16``: the bf16 stack's residuals in bf16
+    (module docstring). A ``TransformerConfig`` runs the EEGFormer
     (:func:`~eegflow_torch.nn.transformer.transformer_apply`, which has no
-    LSTM and so no ``lstm_bwd``).
+    LSTM and so neither option).
     """
     if isinstance(config, TransformerConfig):
         from eegflow_torch.nn.transformer import transformer_apply
@@ -237,7 +248,7 @@ def classifier_apply(
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"unsupported compute_dtype {compute_dtype}")
     bf16 = compute_dtype == torch.bfloat16
-    check_lstm_bwd(lstm_bwd, bf16, config.bidirectional)
+    check_lstm_bwd(lstm_bwd, bf16, config.bidirectional, res_bf16=res_bf16)
     kernel = resolve_lstm_impl(lstm_impl, x.device) == "kernel"
     rate = config.dropout
     masks = masks if train else None
@@ -249,7 +260,7 @@ def classifier_apply(
     # the residual-free eval kernels serve inference; a forward that may be
     # differentiated (or carries dropout) runs the autograd Functions
     differentiable = masks is not None or (torch.is_grad_enabled() and h.requires_grad)
-    parts = (_stack_train(params["lstm"], h, kernel, bf16, masks, rate, lstm_bwd)
+    parts = (_stack_train(params["lstm"], h, kernel, bf16, masks, rate, lstm_bwd, res_bf16)
              if differentiable
              else _stack_eval(params["lstm"], h, kernel, bf16))
     if config.use_attention:
@@ -280,6 +291,26 @@ def classifier_apply(
     if return_attention:
         return logits, attn
     return logits
+
+
+def train_step_launches(config: ModelConfig, lstm_bwd: str = "fused",
+                        res_bf16: bool = False) -> Dict[str, int]:
+    """The kernel launches of one bf16 training micro-step of the LSTM
+    classifier ``config`` on the kernel path, by counter name
+    (:data:`eegflow_torch.kernels.launch_counts`): the input block's two,
+    each layer-direction's forward and backward under the schedule
+    ``lstm_bwd`` (one backward a layer under ``"dualdir"``) on float32 or
+    bf16 residuals, and the pool head's two with attention."""
+    dirs = 2 if config.bidirectional else 1
+    fwd = "lstm_fwd_train_gates" if lstm_bwd == "two_pass" else "lstm_fwd_train"
+    bwd = {"fused": "lstm_bwd", "two_pass": "lstm_bwd_v2", "dualdir": "lstm_bwd_dualdir"}[lstm_bwd]
+    launches = {"input_block_fwd": 1, "input_block_bwd": 1,
+                counter(fwd, res_bf16): config.num_layers * dirs,
+                counter(bwd, res_bf16): config.num_layers * (1 if lstm_bwd == "dualdir"
+                                                             else dirs)}
+    if config.use_attention:
+        launches.update(pool_head_fwd=1, pool_head_bwd=1)
+    return launches
 
 
 def model_flops_per_window(config: ModelConfig, seq_len: int = 256) -> int:

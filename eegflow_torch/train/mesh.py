@@ -205,7 +205,7 @@ def reduce_gradients(params: Sequence[torch.Tensor], mesh: DataMesh, loss: torch
 
 def make_spmd_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer,
                          mesh: DataMesh, class_weights: Optional[torch.Tensor] = None,
-                         lstm_bwd: str = "fused") -> Callable:
+                         lstm_bwd: str = "fused", *, res_bf16: bool = False) -> Callable:
     """The JAX package's explicit step: ``step(params, x, y, masks) ->
     {"loss", "correct", "count"}`` on this rank's shard ``x``, ``y`` and its
     rows of the dropout ``masks``. Each rank takes the weighted mean of its
@@ -213,11 +213,12 @@ def make_spmd_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimiz
     all-reduce, then / world size) before ``optimizer.step()``; ``loss`` is
     the mean of the ranks' losses and ``correct`` their sum. Under class
     weights this is not :func:`~eegflow_torch.train.steps.make_train_step`'s
-    function (see the module docstring)."""
+    function (see the module docstring). ``lstm_bwd`` and ``res_bf16`` as in
+    ``make_train_step``."""
     from eegflow_torch.train.steps import _make_step
 
     return _make_step(model_cfg, train_cfg, optimizer, class_weights, None, lstm_bwd, mesh,
-                      explicit=True)
+                      explicit=True, res_bf16=res_bf16)
 
 
 def make_spmd_eval_step(model_cfg: ModelConfig, mesh: DataMesh, bf16: bool = True,

@@ -2,17 +2,20 @@
 ``torch.profiler``.
 
     python -m eegflow_torch.train.profile [--impl kernel|plain] [--policy bf16|float32]
-                                          [--bwd fused|two_pass|dualdir] [--infer]
-                                          [--trace DIR]
+                                          [--bwd fused|two_pass|dualdir] [--res-bf16]
+                                          [--batch N] [--infer] [--trace DIR]
 
 Runs the full-width classifier (``ModelConfig()``, B=512, T=256, the bf16
 policy or, with ``--policy float32``, ``TrainConfig(bf16=False)``; random
 weights and windows from a seed; ``--bwd`` picks the bf16 stack's backward
-schedule, ``make_train_step(..., lstm_bwd=...)``) through one forward + backward +
-optimizer micro-step after two warm-up steps, and prints the step's wall
-time, the share of it in which the device was busy (the union of the
-device-side intervals: kernels, copies, memsets), and the device time by
-kernel name. ``--infer`` profiles one ``predict_batch`` of the coupled
+schedule, ``make_train_step(..., lstm_bwd=...)``, and ``--res-bf16`` its
+bf16 residuals; ``--batch`` another batch than 512) through one forward +
+backward + optimizer micro-step after two warm-up steps, and prints the
+step's wall time, the share of it in which the device was busy (the union of
+the device-side intervals: kernels, copies, memsets), the device time by
+kernel name, and the peak device memory the second warm-up step allocated
+(``torch.cuda.max_memory_allocated``), or that it does not fit (exit 3).
+``--infer`` profiles one ``predict_batch`` of the coupled
 model on 1024 windows (the serving bucket) instead, after two warm-ups.
 ``--trace`` also writes the Chrome trace there. Needs CUDA.
 """
@@ -62,6 +65,9 @@ def main(argv=None) -> int:
     parser.add_argument("--impl", default="kernel", choices=["kernel", "plain"])
     parser.add_argument("--policy", default="bf16", choices=["bf16", "float32"])
     parser.add_argument("--bwd", default="fused", choices=["fused", "two_pass", "dualdir"])
+    parser.add_argument("--res-bf16", action="store_true",
+                        help="bf16 residuals in the LSTM kernels (bf16 only)")
+    parser.add_argument("--batch", type=int, default=BATCH, help="the micro-step's windows")
     parser.add_argument("--infer", action="store_true")
     parser.add_argument("--trace", default=None)
     args = parser.parse_args(argv)
@@ -96,18 +102,35 @@ def main(argv=None) -> int:
     else:
         train_cfg = TrainConfig(lstm_impl=args.impl, bf16=args.policy == "bf16")
         opt = make_optimizer(list(params.parameters()), train_cfg, updates_per_epoch=1)
-        step = make_train_step(cfg, train_cfg, opt, lstm_bwd=args.bwd)
-        x = torch.from_numpy(rng.standard_normal((BATCH, STEPS, cfg.input_size),
+        step = make_train_step(cfg, train_cfg, opt, lstm_bwd=args.bwd,
+                               res_bf16=args.res_bf16)
+        x = torch.from_numpy(rng.standard_normal((args.batch, STEPS, cfg.input_size),
                                                  dtype=np.float32)).to(dev)
-        y = torch.from_numpy(rng.integers(0, 2, BATCH)).to(dev)
+        y = torch.from_numpy(rng.integers(0, 2, args.batch)).to(dev)
         gen = torch.Generator(device=dev).manual_seed(0)
 
         def one_step():
-            step(params, x, y, draw_dropout_masks(cfg, BATCH, STEPS, gen, dev))
+            step(params, x, y, draw_dropout_masks(cfg, args.batch, STEPS, gen, dev))
 
-    for _ in range(2):
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True, text=True,
+                          timeout=60).stdout.strip()
+    what = (f"predict_batch B={BUCKET} T={STEPS} impl={args.impl}" if args.infer else
+            f"micro-step B={args.batch} T={STEPS} impl={args.impl} policy={args.policy} "
+            f"bwd={args.bwd} res_bf16={args.res_bf16}")
+    try:
         one_step()
-    torch.cuda.synchronize()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        one_step()
+        torch.cuda.synchronize()
+    except torch.cuda.OutOfMemoryError as err:
+        print(f"{what}: does not fit in the card's "
+              f"{torch.cuda.get_device_properties(0).total_memory} bytes: {err} [{card}]")
+        return 3
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{what}: peak device memory allocated {peak} bytes = {peak / 2 ** 30:.3f} GiB of "
+          f"{torch.cuda.get_device_properties(0).total_memory / 2 ** 30:.3f} GiB [{card}]")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         one_step()
@@ -122,12 +145,6 @@ def main(argv=None) -> int:
         row[0] += e.time_range.end - e.time_range.start
         row[1] += 1
     total_dev = sum(v[0] for v in by_name.values())
-    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                           "--format=csv,noheader"], capture_output=True, text=True,
-                          timeout=60).stdout.strip()
-    what = (f"predict_batch B={BUCKET} T={STEPS} impl={args.impl}" if args.infer else
-            f"micro-step B={BATCH} T={STEPS} impl={args.impl} policy={args.policy} "
-            f"bwd={args.bwd}")
     print(f"{what}: wall "
           f"{wall_us / 1e3:.3f} ms (profiler on), device busy {busy / 1e3:.3f} ms = "
           f"{100 * busy / wall_us:.2f} %, idle {100 * (1 - busy / wall_us):.2f} %, "
@@ -142,7 +159,7 @@ def main(argv=None) -> int:
             str(Path(args.trace) / (f"predict_batch_{args.impl}.json" if args.infer else
                                     f"train_step_{args.impl}_{args.policy}_{args.bwd}.json")))
     print(json.dumps({"wall_ms": wall_us / 1e3, "busy_ms": busy / 1e3,
-                      "device_ms": total_dev / 1e3, "ops": len(device)}))
+                      "device_ms": total_dev / 1e3, "ops": len(device), "peak_bytes": peak}))
     return 0
 
 

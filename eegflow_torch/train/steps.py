@@ -196,14 +196,15 @@ def make_optimizer(params: Sequence[torch.Tensor], train_cfg: TrainConfig,
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: AdamW,
                     class_weights: Optional[torch.Tensor] = None,
                     lstm_impl: Optional[str] = None, *, lstm_bwd: str = "fused",
-                    mesh: Optional[DataMesh] = None) -> Callable:
+                    res_bf16: bool = False, mesh: Optional[DataMesh] = None) -> Callable:
     """``step(params, x, y, masks) -> {"loss", "correct", "count"}``: forward
     in training mode with the dropout ``masks``, weighted cross-entropy,
     backward, optimizer step (the parameters change in place on every
     ``accumulation_steps``-th call). ``loss`` and ``correct`` stay on the
-    device. ``lstm_bwd``: the LSTM stack's backward schedule
-    (``classifier_apply``; the EEGFormer has none); not a ``TrainConfig``
-    field, whose fields stay the JAX package's.
+    device. ``lstm_bwd``: the LSTM stack's backward schedule, and
+    ``res_bf16`` its bf16 residuals (``classifier_apply``; the EEGFormer has
+    neither); not ``TrainConfig`` fields, whose fields stay the JAX
+    package's.
 
     ``mesh`` (:class:`~eegflow_torch.train.mesh.DataMesh`): ``x``, ``y``
     and ``masks`` are this rank's shard of the batch, and the step computes
@@ -215,19 +216,19 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: A
     ``count`` the mesh's sums. With class weights, at world size 1 it is
     the step without a mesh bit for bit."""
     return _make_step(model_cfg, train_cfg, optimizer, class_weights, lstm_impl, lstm_bwd,
-                      mesh, explicit=False)
+                      mesh, explicit=False, res_bf16=res_bf16)
 
 
 def _make_step(model_cfg, train_cfg: TrainConfig, optimizer: AdamW,
                class_weights: Optional[torch.Tensor], lstm_impl: Optional[str], lstm_bwd: str,
-               mesh: Optional[DataMesh], explicit: bool) -> Callable:
+               mesh: Optional[DataMesh], explicit: bool, res_bf16: bool = False) -> Callable:
     """The step of :func:`make_train_step` (``explicit=False``) or of
     :func:`~eegflow_torch.train.mesh.make_spmd_train_step` (``explicit``:
     each rank's own weighted mean, the gradients averaged)."""
     compute_dtype = torch.bfloat16 if train_cfg.bf16 else None
     impl = lstm_impl or train_cfg.lstm_impl
     if not isinstance(model_cfg, TransformerConfig):
-        check_lstm_bwd(lstm_bwd, train_cfg.bf16, model_cfg.bidirectional)
+        check_lstm_bwd(lstm_bwd, train_cfg.bf16, model_cfg.bidirectional, res_bf16=res_bf16)
 
     def step(params, x: torch.Tensor, y: torch.Tensor,
              masks: Optional[DropoutMasks]) -> Dict[str, object]:
@@ -238,7 +239,8 @@ def _make_step(model_cfg, train_cfg: TrainConfig, optimizer: AdamW,
                 torch.tensor(float(y.shape[0]), device=y.device) if class_weights is None
                 else class_weights[y.long()].sum(), mesh)
         logits = classifier_apply(params, x, model_cfg, compute_dtype=compute_dtype,
-                                  lstm_impl=impl, train=True, masks=masks, lstm_bwd=lstm_bwd)
+                                  lstm_impl=impl, train=True, masks=masks, lstm_bwd=lstm_bwd,
+                                  res_bf16=res_bf16)
         loss = cross_entropy_loss(logits, y, class_weights, denominator)
         loss.backward()
         correct = (logits.detach().argmax(-1) == y).sum()

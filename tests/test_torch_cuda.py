@@ -19,7 +19,8 @@ from eegflow_torch.nn.cuda_attention import (attention_pool, attention_pool_plai
                                              pool_head_fused, pool_head_fused_plain)
 from eegflow_torch.nn.cuda_input import (input_block_bwd, input_block_bwd_plain,
                                          input_block_fused, input_block_fused_plain)
-from eegflow_torch.nn.cuda_lstm import (lstm_bwd, lstm_bwd_dualdir, lstm_bwd_dualdir_plain,
+from eegflow_torch.nn.cuda_lstm import (counter, lstm_bwd, lstm_bwd_dualdir,
+                                        lstm_bwd_dualdir_plain,
                                         lstm_bwd_plain, lstm_bwd_v2, lstm_bwd_v2_plain,
                                         lstm_fwd_fused_proj, lstm_fwd_fused_proj_plain,
                                         lstm_fwd_train, lstm_fwd_train_gates,
@@ -27,7 +28,8 @@ from eegflow_torch.nn.cuda_lstm import (lstm_bwd, lstm_bwd_dualdir, lstm_bwd_dua
                                         lstm_recurrence, lstm_recurrence_backward,
                                         lstm_recurrence_backward_plain, lstm_recurrence_plain)
 from eegflow_torch.nn.losses import cross_entropy_loss
-from eegflow_torch.nn.model import classifier_apply, classifier_init, draw_dropout_masks
+from eegflow_torch.nn.model import (classifier_apply, classifier_init, draw_dropout_masks,
+                                    train_step_launches)
 from eegflow_torch.ode.cuda_ode import (rk4_fit_loss, rk4_fit_loss_plain, rk4_trajectory,
                                         rk4_trajectory_plain, step_sizes)
 from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
@@ -484,8 +486,9 @@ def test_lstm_bwd_dualdir_kernel_matches_twin_and_repeats_bitwise(dev, n_parts, 
             assert _rel(a, w) <= BWD_REL_TOL
 
 
+@pytest.mark.parametrize("res_bf16", [False, True])
 @pytest.mark.parametrize("lstm_bwd", ["fused", "two_pass", "dualdir"])
-def test_training_micro_step_schedules_kernel_path_match_plain_path(dev, lstm_bwd):
+def test_training_micro_step_schedules_kernel_path_match_plain_path(dev, lstm_bwd, res_bf16):
     cfg = ModelConfig(input_size=7, hidden_size=64, num_layers=2)
     params = classifier_init(cfg, make_generator(7), device=dev, trainable=True)
     rng = np.random.default_rng(7)
@@ -498,19 +501,15 @@ def test_training_micro_step_schedules_kernel_path_match_plain_path(dev, lstm_bw
         for q in leaves:
             q.grad = None
         logits = classifier_apply(params, x, cfg, compute_dtype=torch.bfloat16, lstm_impl=impl,
-                                  train=True, masks=masks, lstm_bwd=lstm_bwd)
+                                  train=True, masks=masks, lstm_bwd=lstm_bwd,
+                                  res_bf16=res_bf16)
         loss = cross_entropy_loss(logits, y)
         loss.backward()
         return loss.item(), [q.grad.clone() if q.grad is not None else None for q in leaves]
 
     kernels.reset_launch_counts()
     loss_k, grads_k = step("kernel")
-    fwd, bwd, n_bwd = {"fused": ("lstm_fwd_train", "lstm_bwd", 4),
-                       "two_pass": ("lstm_fwd_train_gates", "lstm_bwd_v2", 4),
-                       "dualdir": ("lstm_fwd_train", "lstm_bwd_dualdir", 2)}[lstm_bwd]
-    assert dict(kernels.launch_counts) == {"input_block_fwd": 1, "input_block_bwd": 1,
-                                           fwd: 4, bwd: n_bwd, "pool_head_fwd": 1,
-                                           "pool_head_bwd": 1}
+    assert dict(kernels.launch_counts) == train_step_launches(cfg, lstm_bwd, res_bf16)
     loss_k2, grads_k2 = step("kernel")
     loss_p, grads_p = step("plain")
     assert abs(loss_k - loss_p) <= 1e-3 and loss_k == loss_k2
@@ -519,6 +518,99 @@ def test_training_micro_step_schedules_kernel_path_match_plain_path(dev, lstm_bw
         if a is not None:
             assert torch.equal(a, a2)
             assert _rel(a, c) <= STEP_REL_TOL
+
+
+# the option res_bf16 (kernels 2, 3, 3b and 4): a bf16 residual of the
+# kernel against the twin's rounds float32 values that agree within LSTM_TOL,
+# so a value near a rounding boundary may take the next bf16 (one ulp of 8
+# significant bits: 2^-7 of the value at most)
+RES16_RTOL = 2.0 ** -7
+
+
+@pytest.mark.parametrize("contract", ["planes", "gates"])
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch,hidden", [(5, 64), (16, 256)])
+def test_lstm_fwd_train_res16_kernel_matches_twin(dev, contract, n_parts, reverse, batch,
+                                                  hidden):
+    """Kernel 2 on bf16 residuals: h and c as in the float32 mode bit for
+    bit, the residual that mode's rounded to bf16, and all against the twin."""
+    gen = make_generator(200 + n_parts)
+    w_ih, w_hh, b, xs, ms, keep = _lstm_case(gen, n_parts, batch, hidden, dev)
+    name = "lstm_fwd_train_gates" if contract == "gates" else "lstm_fwd_train"
+    fwd = lstm_fwd_train_gates if contract == "gates" else lstm_fwd_train
+    plain = lstm_fwd_train_gates_plain if contract == "gates" else lstm_fwd_train_plain
+    args = (xs, w_ih, b, w_hh, reverse, ms, keep)
+    before = kernels.launch_counts[counter(name, True)]
+    got = fwd(*args, res_bf16=True)
+    assert kernels.launch_counts[counter(name, True)] == before + 1
+    f32 = fwd(*args)
+    want = plain(*args, res_bf16=True)
+    torch.cuda.synchronize()
+    assert len(got) == len(f32) and got[1].dtype == torch.bfloat16
+    assert all(torch.equal(a, b) for a, b in zip(got[:1] + got[2:], f32[:1] + f32[2:]))
+    assert torch.equal(got[1], f32[1].to(torch.bfloat16))
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype
+        assert torch.allclose(a.float(), w.float(), atol=LSTM_TOL,
+                              rtol=RES16_RTOL if a.dtype == torch.bfloat16 else 0)
+
+
+@pytest.mark.parametrize("kernel", ["3", "3b"])
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch,hidden", [(5, 64), (16, 256)])
+def test_lstm_bwd_res16_kernel_matches_twin_and_repeats_bitwise(dev, kernel, n_parts, reverse,
+                                                                batch, hidden):
+    """Kernels 3 and 3b on bf16 residuals against their twins, each launch
+    repeated."""
+    gen = make_generator(220 + n_parts)
+    w_ih, w_hh, b, xs, ms, keep = _lstm_case(gen, n_parts, batch, hidden, dev)
+    if kernel == "3b":
+        h, gates, c = lstm_fwd_train_gates_plain(xs, w_ih, b, w_hh, reverse, ms, keep,
+                                                 res_bf16=True)
+        res, bwd, plain, name = (gates, c), lstm_bwd_v2, lstm_bwd_v2_plain, "lstm_bwd_v2"
+    else:
+        h, planes = lstm_fwd_train_plain(xs, w_ih, b, w_hh, reverse, ms, keep, res_bf16=True)
+        res, bwd, plain, name = (planes,), lstm_bwd, lstm_bwd_plain, "lstm_bwd"
+    g = 0.1 * _randn(gen, *h.shape, dev=dev)
+    add = tuple(_randn(gen, *x.shape, dev=dev) for x in xs) if reverse else None
+    args = (*res, h, g, xs, w_ih, w_hh, reverse, ms, keep, add)
+    before = kernels.launch_counts[counter(name, True)]
+    got = bwd(*args)
+    again = bwd(*args)
+    assert kernels.launch_counts[counter(name, True)] == before + 2
+    want = plain(*args)
+    torch.cuda.synchronize()
+    for a, w in zip(got[0] + got[1:], want[0] + want[1:]):
+        assert _rel(a, w) <= BWD_REL_TOL
+    assert all(torch.equal(a, w) for a, w in zip(got[0] + got[1:], again[0] + again[1:]))
+
+
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("batch,hidden", [(5, 64), (16, 256)])
+def test_lstm_bwd_dualdir_res16_kernel_matches_twin_and_repeats_bitwise(dev, n_parts, batch,
+                                                                        hidden):
+    gen = make_generator(230 + n_parts)
+    w_ih_f, w_hh_f, b_f, xs, ms, keep = _lstm_case(gen, n_parts, batch, hidden, dev)
+    w_ih_r, w_hh_r, b_r = _lstm_case(gen, n_parts, batch, hidden, dev)[:3]
+    xs = tuple(torch.where(m != 0, x * (1.0 / keep), torch.zeros((), device=dev))
+               for x, m in zip(xs, ms))
+    h_f, res_f = lstm_fwd_train_plain(xs, w_ih_f, b_f, w_hh_f, False, res_bf16=True)
+    h_r, res_r = lstm_fwd_train_plain(xs, w_ih_r, b_r, w_hh_r, True, res_bf16=True)
+    g_f, g_r = (0.1 * _randn(gen, *h_f.shape, dev=dev) for _ in range(2))
+    args = (res_f, h_f, g_f, res_r, h_r, g_r, xs, (w_ih_f, w_hh_f), (w_ih_r, w_hh_r), keep, True)
+    name = counter("lstm_bwd_dualdir", True)
+    before = kernels.launch_counts[name]
+    got = lstm_bwd_dualdir(*args)
+    again = lstm_bwd_dualdir(*args)
+    assert kernels.launch_counts[name] == before + 2
+    want = lstm_bwd_dualdir_plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda out: list(out[0]) + list(out[1]) + list(out[2])  # noqa: E731
+    for a, w in zip(flat(got), flat(want)):
+        assert _rel(a, w) <= BWD_REL_TOL
+    assert all(torch.equal(a, w) for a, w in zip(flat(got), flat(again)))
 
 
 # The cluster kernels (kernel 2's three modes, kernel 3) over the batch,

@@ -278,11 +278,12 @@ def _part_masks(key, cfg, batch, steps):
         head2=t(jax_dropout_mask(keys["h2"], d, (batch, hidden // 2))))
 
 
-def classifier_matches_reference(lstm_bwd, kw, seeds):
-    """The port's classifier loss and gradients under ``lstm_bwd`` on the
-    plain twins against ``jax.value_and_grad`` of the reference's
-    ``classifier_apply(lstm_impl="pallas", compute_dtype=bfloat16)``, with
-    the reference's masks from one key (the caller sets the flags).
+def classifier_matches_reference(lstm_bwd, kw, seeds, **options):
+    """The port's classifier loss and gradients under ``lstm_bwd`` (and the
+    ``classifier_apply`` keywords ``options``) on the plain twins against
+    ``jax.value_and_grad`` of the reference's ``classifier_apply(lstm_impl=
+    "pallas", compute_dtype=bfloat16)``, with the reference's masks from one
+    key (the caller sets the flags).
 
     ``seeds`` = (params, windows, dropout key). The tolerance holds while
     both sides round the same values to the same bf16 operands; a value
@@ -306,7 +307,7 @@ def classifier_matches_reference(lstm_bwd, kw, seeds):
     params = params_from_jax(jp, trainable=True)
     logits = classifier_apply(params, torch.from_numpy(x), tc, compute_dtype=torch.bfloat16,
                               lstm_impl="plain", train=True,
-                              masks=_part_masks(key, jc, 6, 8), lstm_bwd=lstm_bwd)
+                              masks=_part_masks(key, jc, 6, 8), lstm_bwd=lstm_bwd, **options)
     loss = tlosses.cross_entropy_loss(logits, torch.from_numpy(y))
     loss.backward()
     assert abs(loss.item() - float(want_loss)) < FUSED_REL_TOL * abs(float(want_loss))
@@ -323,13 +324,15 @@ def test_classifier_two_pass_matches_the_reference_schedule(kw, classifier_two_p
     classifier_matches_reference("two_pass", kw, seeds=(12, 14, 36))
 
 
-def train_step_matches_reference(lstm_bwd):
-    """One ``make_train_step(..., lstm_bwd=...)`` step, dropout 0, against the
+def train_step_matches_reference(lstm_bwd, dropout=0.0, **options):
+    """One ``make_train_step(..., lstm_bwd=..., **options)`` step against the
     reference's ``make_train_step`` on ``lstm_impl="pallas"`` under the flags
-    the caller set: the loss, and the params after the update. Adam's first
-    update is about lr sign(g), so a gradient that differs in its last bits
-    can move an entry by up to ~lr (as test_train_steps_match_jax_make_train_step)."""
-    kw = dict(SMALL, dropout=0.0)
+    the caller set: the loss, and the params after the update. With
+    ``dropout`` the port's step takes the masks the reference draws from its
+    step's key. Adam's first update is about lr sign(g), so a gradient that
+    differs in its last bits can move an entry by up to ~lr (as
+    test_train_steps_match_jax_make_train_step)."""
+    kw = dict(SMALL, dropout=dropout)
     jc, tc = jcfg.ModelConfig(**kw), tcfg.ModelConfig(**kw)
     train_kw = dict(accumulation_steps=1, learning_rate=1e-3, warmup_epochs=1, epochs=4,
                     bf16=True)
@@ -347,8 +350,9 @@ def train_step_matches_reference(lstm_bwd):
     params = params_from_jax(jp, trainable=True)
     opt = make_optimizer(list(params.parameters()), ttrain, updates_per_epoch=1)
     tstep = make_train_step(tc, ttrain, opt, class_weights=torch.from_numpy(cw),
-                            lstm_bwd=lstm_bwd)
-    tm = tstep(params, torch.from_numpy(x), torch.from_numpy(y), None)
+                            lstm_bwd=lstm_bwd, **options)
+    masks = _part_masks(jax.random.key(0), jc, 6, 8) if dropout else None
+    tm = tstep(params, torch.from_numpy(x), torch.from_numpy(y), masks)
     assert abs(tm["loss"].item() - float(jm["loss"])) <= FUSED_REL_TOL * abs(float(jm["loss"]))
     for name, p in params.named_parameters():
         np.testing.assert_allclose(p.detach().numpy(), _leaf(state.params, name),

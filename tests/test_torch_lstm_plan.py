@@ -307,7 +307,10 @@ def test_raw_gate_chain_shares_the_patched_loader():
     for name in ("lstm_bwd.cu", "lstm_bwd_dualdir.cu"):
         assert "chain_direction<kMT, true>" not in (kernels.CSRC / name).read_text()
     assert chain.count("auto load_planes = [&](int t)") == 1
-    assert chain.count("v = __ldcs(") == 1
+    # one load statement, through ldcs_pair (float32 or bf16 residuals), the
+    # only streaming loads of the chain
+    assert chain.count("v = planar ? ldcs_pair(") == 1
+    assert chain.count("__ldcs(") == 2
 
 
 def test_load_library_keeps_one_build_per_process(tmp_path, monkeypatch):
