@@ -52,7 +52,14 @@ bf16 path under one set of its flags:
   first's dx in its kernel;
 * ``"two_pass"`` (+ ``EEGFLOW_ADJOINT_RES=0``, ``EEGFLOW_BWD_V2=1``):
   raw-gate forwards with uint8 masks, then :func:`lstm_bwd_v2` per
-  direction, the second adding the first's dx;
+  direction, the second adding the first's dx. It is also the counterpart
+  of the reference's other raw-gate backwards, which compute its function:
+  ``EEGFLOW_ADJOINT_RES=0`` with ``EEGFLOW_BWD_V2`` unset (the one-pass
+  kernel's raw-gate branch), with or without ``EEGFLOW_BWD_TC=1`` (the
+  forward streams the tanh(c) that the backward otherwise recomputes from
+  the same float32 c), and ``EEGFLOW_ADJOINT_RES=0 EEGFLOW_BWD_DUALDIR=1``
+  (both directions from raw gates in one kernel, or two launches with
+  ``BWD_TC=1`` or ``BWD_V2=1``; select dropout where this takes masks);
 * ``"dualdir"`` (``EEGFLOW_BWD_DUALDIR=1``, select dropout): the parts
   arrive already dropped by :func:`select_dropout`, the forwards take no
   masks, and one :func:`lstm_bwd_dualdir` launch gives both directions'

@@ -46,7 +46,10 @@ masks, so gradients are exact.
 ``lstm_bwd`` picks the bf16 stack's backward schedule
 (:data:`~eegflow_torch.nn.cuda_lstm.LSTM_BWD_SCHEDULES`): ``"fused"`` (the
 default, above), ``"two_pass"`` (raw-gate forwards, kernel 3b: the
-reference's ``EEGFLOW_ADJOINT_RES=0 EEGFLOW_BWD_V2=1``) or ``"dualdir"``
+reference's ``EEGFLOW_ADJOINT_RES=0 EEGFLOW_BWD_V2=1``, and as the same
+function its other raw-gate backwards: ``EEGFLOW_ADJOINT_RES=0`` with
+``BWD_V2`` unset, with or without ``EEGFLOW_BWD_TC=1``, and
+``EEGFLOW_ADJOINT_RES=0 EEGFLOW_BWD_DUALDIR=1``) or ``"dualdir"``
 (kernel 4, one backward launch per layer: ``EEGFLOW_BWD_DUALDIR=1`` on the
 reference's select-dropout path, where each layer's input parts are dropped
 by :func:`~eegflow_torch.nn.cuda_lstm.select_dropout` with the same masks
