@@ -123,8 +123,8 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      device idle share (the device time of its classifier forwards, by CUDA
      events around each in the stage, against its wall time).
  19. the ablate stage on phase 17's processed set (and phase 18's
-     coupling_analysis.json), a CLI call on the card at its defaults (six
-     variants at hidden 256, 10 epochs, bf16) and one with --hidden 512
+     coupling_analysis.json), a CLI call on the card at its defaults but
+     --epochs 4 (six variants at hidden 256, bf16) and one with --hidden 512
      --epochs 1: each variant's launches per micro-step (1 input_block_fwd,
      1 input_block_bwd, one lstm_fwd_train and one lstm_bwd a layer and
      direction, the pool_head_fwd/pool_head_bwd pair with attention) and per
@@ -206,6 +206,23 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      with the float32-residual one, and each mode the steps launch held at
      B=512 to its twin and a bitwise repeat and timed against its
      float32-residual counterpart and its twin.
+ 25. the in-kernel Philox dropout (kernel_dropout; the reference's
+     EEGFLOW_KERNEL_DROPOUT=1, FWD_DROPW=1 and the input block's out_seed) of
+     kernels 2, 3 and 3b (philox_phase): (a) at B=64, T=256, H=256, one and
+     two parts, both directions (the reverse one at a mesh rank's row
+     offset), kernel 2 (planes, raw gates, each with and without res_bf16)
+     and kernels 3 and 3b (float32 and bf16 residuals) against their twins,
+     a bitwise repeat and the same kernel on the uint8 masks the twin
+     expands from the key, bit for bit; (b) one B=512 ModelConfig()
+     micro-step under "fused" and under "two_pass" with kernel_dropout:
+     exact launch counts, loss and every gradient against the mask-path step
+     on the expanded masks bit for bit, each stream's keep fraction and the
+     agreement of streams and of two keys within 5 sigma of independent
+     masks', layer 0's dx zero exactly at stream 0's drops; (c) each step
+     timed in turns with the mask path (each with its draw), their peak
+     device memory above the allocations before the step at B=512 and, with
+     res_bf16, at B=7,168, and each Philox mode at B=512 against its twin
+     and a bitwise repeat, timed in turns with its uint8 mode.
 The line before the last lists the kernels as JSON, each with its time, its
 twin's, its bound on an H100 (bytes over 3.35 TB/s or products over the
 dtype's peak, whichever is larger), the library call's time where there is
@@ -213,8 +230,9 @@ one and its launches in phase 18 (analysis_launches), phase 19
 (ablate_launches) and phase 20's train and explain stages
 (transformer_launches); the wide bf16 classes' entries count their launches
 in the hidden-512 ablate run, the one-part pool head's in phase 20, the
-res_bf16 modes of phase 24 theirs in its three micro-steps; the last line is
-{"ok": true, "device": {...}}.
+res_bf16 modes of phase 24 theirs in its three micro-steps, the Philox modes
+of phase 25 theirs in its micro-steps (B=512, and B=7,168 with res_bf16); the
+last line is {"ok": true, "device": {...}}.
 """
 
 import contextlib
@@ -350,11 +368,13 @@ FORECAST_TOL = 1e-5
 EFFICIENCY_TOL = 1e-6
 # phase 19: the ablate stage's variants (eegflow_torch.analyze.ablation
 # ABLATION_CONFIGS): bidirectional, attention, layers; its wide run's hidden
-# size and epochs (the default run: 256 units, 10 epochs)
+# size and epochs, and the epochs of the run at the default 256 units (the
+# stage's default 10 cut to 4 for the script's time limit)
 ABLATE_VARIANTS = {"Full Model": (True, True, 3), "No Attention": (True, False, 3),
                    "Unidirectional": (False, True, 3), "1 Layer": (True, True, 1),
                    "2 Layers": (True, True, 2), "Minimal": (False, False, 1)}
 ABLATE_WIDE_H, ABLATE_WIDE_EPOCHS = 512, 1
+ABLATE_EPOCHS = 4
 # phase 20: the EEGFormer's large eval batch (a KernelSHAP evaluation's size);
 # gradients zero by symmetry (the attention's key biases), rounding noise on
 # both paths (measured ~1e-11)
@@ -414,6 +434,9 @@ MESH_TIMEOUT_S = 600
 # takes the next bf16: one ulp of 8 significant bits, 2^-8 for the planes and
 # gates (all in [-1, 1])
 RES16_TOL = TRAIN_FWD_TOL + 2.0 ** -8
+# phase 25: the batch that fits on the 80 GB card only with res_bf16 (PERF.md),
+# where the masks the Philox dropout does without weigh most
+B_BIG = 7168
 # one micro-step's launches on the default bf16 "fused" path (phase 9) and an
 # eval batch's
 STEP_LAUNCHES = {"input_block_fwd": 1, "input_block_bwd": 1, "lstm_fwd_train": 6,
@@ -1241,7 +1264,7 @@ def analysis_phase(dev, smi, out_dir, infer_ms_1024):
 def ablation_phase(dev, smi, out_dir):
     """Phase 19: the ablate stage as a CLI call on the card on phase 17's
     processed set under ``out_dir`` (and phase 18's coupling_analysis.json),
-    at its defaults (hidden 256, 10 epochs, bf16) and at hidden 512 for one
+    at hidden 256 (ABLATE_EPOCHS epochs, bf16) and at hidden 512 for one
     epoch; each variant's launches per micro-step and per eval batch, its
     training time and test accuracy; the JSON against the reference's
     contracts; one B=512 micro-step per variant (and the Full Model at
@@ -1382,7 +1405,8 @@ def ablation_phase(dev, smi, out_dir):
         require(ok, f"ablate hidden {hidden}: sensitivity_analysis.json")
         return stage_s
 
-    out["stage_s"] = {256: run(256, 10), ABLATE_WIDE_H: run(ABLATE_WIDE_H, ABLATE_WIDE_EPOCHS)}
+    out["stage_s"] = {256: run(256, ABLATE_EPOCHS),
+                      ABLATE_WIDE_H: run(ABLATE_WIDE_H, ABLATE_WIDE_EPOCHS)}
 
     # one B=512 micro-step per variant, kernel path against plain path
     rng = np.random.default_rng(SEED + 19)
@@ -2396,6 +2420,264 @@ def mesh_phase(smi):
           flush=True)
 
 
+def binomial_z(count, n, p):
+    """How many standard deviations ``count`` of ``n`` lies from a binomial
+    mean n p."""
+    return (count - n * p) / math.sqrt(n * p * (1 - p))
+
+
+def philox_phase(dev, smi, params, tparams, cfg, micro_step, randn, work, train_ms):
+    """Phase 25: the in-kernel Philox dropout (kernel_dropout) of kernels 2,
+    3 and 3b. (a) At B=64, one and two parts, both directions (the reverse
+    one at a mesh rank's row offset), each mode against its twin, a bitwise
+    repeat and the same kernel on the uint8 masks the twin expands from the
+    key, bit for bit; (b) one B=512 ModelConfig() micro-step under "fused"
+    and "two_pass" with kernel_dropout: launches, loss and every gradient
+    against the mask-path step on the expanded masks (bit for bit), each
+    stream's keep fraction, the agreement of streams and keys, layer 0's dx
+    zeros against stream 0's drops; (c) the steps timed in turns with the
+    mask path (its draw counted), the peak device memory above the
+    allocations before the step at B=512 and B=7,168 (res_bf16), each mode
+    at B=512 against its uint8 mode and its twin. -> {"err", "launches"}."""
+    from eegflow_torch import kernels
+    from eegflow_torch.nn.cuda_lstm import (counter, lstm_bwd, lstm_bwd_plain, lstm_bwd_v2,
+                                            lstm_bwd_v2_plain, lstm_fwd_train,
+                                            lstm_fwd_train_gates, lstm_fwd_train_gates_plain,
+                                            lstm_fwd_train_plain)
+    from eegflow_torch.nn.model import (draw_dropout_masks, expand_dropout_masks,
+                                        train_step_launches)
+    from eegflow_torch.nn.philox import PhiloxSource
+
+    err = {}  # a Philox mode's counter name -> its largest absolute difference from its twin
+    kgen = torch.Generator(device=dev).manual_seed(SEED + 25)
+    keep_in, keep_mid = 1.0 - cfg.dropout / 2, 1.0 - cfg.dropout
+    flat_bwd = lambda out: list(out[0]) + list(out[1:])  # noqa: E731
+    fwd_modes = ((lstm_fwd_train, lstm_fwd_train_plain, "lstm_fwd_train"),
+                 (lstm_fwd_train_gates, lstm_fwd_train_gates_plain, "lstm_fwd_train_gates"))
+
+    def new_key():
+        return torch.randint(-2 ** 31, 2 ** 31, (2,), generator=kgen, device=dev,
+                             dtype=torch.int32)
+
+    def hold25(label, name, got, again, want, on_masks, tol, relative):
+        """hold_at_main_shape, and the kernel on the expanded masks bit for bit."""
+        e = hold_at_main_shape(label, [t.float() for t in got], [t.float() for t in again],
+                               [t.float() for t in want], tol, relative)
+        same = all(torch.equal(a, b) for a, b in zip(got, on_masks))
+        print(f"{label}: the same kernel on the expanded uint8 masks bit for bit: {same}",
+              flush=True)
+        require(same, f"{name}: the Philox mode equals its uint8 mode on the expanded masks")
+        err[name] = max(err.get(name, 0.0), e)
+
+    # (a) each mode at B=64 against its twin, a bitwise repeat and its uint8 mode
+    for n_parts, layer, keep in ((1, params["lstm"][0], keep_in),
+                                 (2, params["lstm"][1], keep_mid)):
+        xs = tuple(torch.tanh(randn(B_CHECK, T, H)) for _ in range(n_parts))
+        for direction, reverse in (("fwd", False), ("bwd", True)):
+            p = layer[direction]
+            src = PhiloxSource(new_key(), tuple(1 + q for q in range(n_parts)),
+                               B_CHECK if reverse else 0)
+            ms = src.masks(xs, keep)
+            tag = (f"parts={n_parts} reverse={reverse} row_offset={src.row_offset} B={B_CHECK} "
+                   f"T={T} H={H}")
+            head = (xs, p["w_ih"], p["b"], p["w_hh"], reverse)
+            for fwd, plain, base in fwd_modes:
+                for res16 in (False, True):
+                    name = counter(base, res16, True)
+                    got = fwd(*head, src, keep, res_bf16=res16)
+                    hold25(f"{name} {tag}", name, got, fwd(*head, src, keep, res_bf16=res16),
+                           plain(*head, src, keep, res_bf16=res16),
+                           fwd(*head, ms, keep, res_bf16=res16),
+                           RES16_TOL if res16 else TRAIN_FWD_TOL, relative=False)
+            g_up = 0.1 * randn(B_CHECK, T, H)
+            dx_add = tuple(randn(B_CHECK, T, H) for _ in range(n_parts)) if reverse else None
+            for res16 in (False, True):
+                h_p, planes = lstm_fwd_train_plain(*head, ms, keep, res_bf16=res16)
+                h_g, gates, c_g = lstm_fwd_train_gates_plain(*head, ms, keep, res_bf16=res16)
+                for bwd, plain, res, h_in, base in (
+                        (lstm_bwd, lstm_bwd_plain, (planes,), h_p, "lstm_bwd"),
+                        (lstm_bwd_v2, lstm_bwd_v2_plain, (gates, c_g), h_g, "lstm_bwd_v2")):
+                    name = counter(base, res16, True)
+                    b_head = (*res, h_in, g_up, xs, p["w_ih"], p["w_hh"], reverse)
+                    hold25(f"{name} {tag} dx_add={dx_add is not None}: dx, dW_ih, dW_hh, db",
+                           name, flat_bwd(bwd(*b_head, src, keep, dx_add)),
+                           flat_bwd(bwd(*b_head, src, keep, dx_add)),
+                           flat_bwd(plain(*b_head, src, keep, dx_add)),
+                           flat_bwd(bwd(*b_head, ms, keep, dx_add)), BWD_REL_TOL, relative=True)
+    del xs, ms, planes, gates, c_g, h_p, h_g
+
+    # (b) one B=512 micro-step under "fused" and "two_pass" with kernel_dropout
+    rng25 = np.random.default_rng(SEED + 25)
+    x25, y25 = synthetic_split(rng25, B_TRAIN, T, C)
+    x25, y25 = torch.from_numpy(x25).to(dev), torch.from_numpy(y25).to(dev)
+    masks25 = draw_dropout_masks(cfg, B_TRAIN, T, kgen, dev, kernel_dropout=True)
+    expanded = expand_dropout_masks(masks25, cfg, B_TRAIN, T)
+    launches = Counter()
+    for sched in ("fused", "two_pass"):
+        label = f"lstm_bwd={sched} kernel_dropout=True"
+        kernels.reset_launch_counts()
+        loss_k, grads_k = micro_step("kernel", lstm_bwd=sched, masks=masks25,
+                                     kernel_dropout=True, x=x25, y=y25)
+        torch.cuda.synchronize()
+        step_counts = dict(kernels.launch_counts)
+        want_counts = train_step_launches(cfg, sched, kernel_dropout=True)
+        print(f"micro-step {label} B={B_TRAIN}: launches {step_counts}")
+        require(step_counts == want_counts, f"{label} launches per micro-step: want {want_counts}")
+        launches.update(step_counts)
+        loss_k2, grads_k2 = micro_step("kernel", lstm_bwd=sched, masks=masks25,
+                                       kernel_dropout=True, x=x25, y=y25)
+        loss_m, grads_m = micro_step("kernel", lstm_bwd=sched, masks=expanded, x=x25, y=y25)
+        torch.cuda.synchronize()
+        bitwise = torch.equal(loss_k, loss_k2) and all(torch.equal(a, b)
+                                                       for a, b in zip(grads_k, grads_k2))
+        same = torch.equal(loss_k, loss_m) and all(torch.equal(a, b)
+                                                   for a, b in zip(grads_k, grads_m))
+        grad_rel = max(rel_err(a, b) for a, b in zip(grads_k, grads_m) if b.abs().max() > 0)
+        print(f"micro-step {label} B={B_TRAIN}: loss {loss_k.item():.6f}, the mask-path step "
+              f"on the expanded masks {loss_m.item():.6f}; loss and all {len(grads_k)} "
+              f"gradients bit for bit: {same} (max rel diff {grad_rel:.3e}); second run bitwise "
+              f"identical: {bitwise}", flush=True)
+        require(math.isfinite(loss_k.item()) and same and bitwise,
+                f"{label}: the mask-path step on the expanded masks, bit for bit, repeatable")
+        del grads_k, grads_k2, grads_m
+
+    # the masks' statistics: each stream's keep fraction, the agreement of
+    # streams (and of two keys on one stream) with independent masks'
+    streams = [(0, expanded.input, keep_in)] + [
+        (1 + 2 * layer + q, m, keep_mid) for layer, parts in enumerate(expanded.layers)
+        for q, m in enumerate(parts)]
+    zs = []
+    for s, m, keep in streams:
+        z = binomial_z(int(m.sum()), m.numel(), keep)
+        zs.append(z)
+        print(f"stream {s}: keep fraction {m.float().mean().item():.6f} (keep {keep:g}, "
+              f"{m.numel()} elements, {z:+.2f} sigma)")
+        require(abs(z) < 5, f"stream {s}'s keep fraction within 5 sigma of its binomial")
+    other = expand_dropout_masks(draw_dropout_masks(cfg, B_TRAIN, T, kgen, dev,
+                                                    kernel_dropout=True), cfg, B_TRAIN, T)
+    others = [other.input] + [m for parts in other.layers for m in parts]
+    pairs = [(f"streams {a[0]},{b[0]}", a[1], b[1], a[2], b[2])
+             for i, a in enumerate(streams) for b in streams[i + 1:]]
+    pairs += [(f"stream {s} under two keys", m, o, keep, keep)
+              for (s, m, keep), o in zip(streams, others)]
+    worst = 0.0
+    for what, a, b, ka, kb in pairs:
+        p_agree = ka * kb + (1 - ka) * (1 - kb)
+        z = binomial_z(int((a == b).sum()), a.numel(), p_agree)
+        worst = max(worst, abs(z))
+        require(abs(z) < 5, f"{what}: agreement within 5 sigma of independent masks'")
+    print(f"agreement of {len(pairs)} pairs of masks (streams, and each stream under two keys) "
+          f"against keep_a keep_b + (1 - keep_a)(1 - keep_b): largest |z| {worst:.2f} sigma",
+          flush=True)
+    del other, others, pairs
+
+    # layer 0's dx (both directions on stream 0) is zero exactly where
+    # stream 0 drops: the forward and the backward draw the same bits
+    layer0 = tparams["lstm"][0]
+    x0 = (torch.tanh(randn(B_TRAIN, T, H)),)
+    src0 = PhiloxSource(masks25.key, (0,))
+    outs = [lstm_fwd_train(x0, layer0[d]["w_ih"], layer0[d]["b"], layer0[d]["w_hh"], d == "bwd",
+                           src0, keep_in) for d in ("fwd", "bwd")]
+    dx = lstm_bwd(outs[0][1], outs[0][0], 0.1 * randn(B_TRAIN, T, H), x0, layer0["fwd"]["w_ih"],
+                  layer0["fwd"]["w_hh"], False, src0, keep_in)[0]
+    dx = lstm_bwd(outs[1][1], outs[1][0], 0.1 * randn(B_TRAIN, T, H), x0, layer0["bwd"]["w_ih"],
+                  layer0["bwd"]["w_hh"], True, src0, keep_in, dx)[0][0]
+    zeros_match = torch.equal(dx == 0, ~expanded.input)
+    print(f"layer 0's dx (kernel 3, both directions) zero exactly at stream 0's "
+          f"{int((~expanded.input).sum())} dropped positions: {zeros_match}", flush=True)
+    require(zeros_match, "layer 0's dx zeros are stream 0's drops")
+    del outs, dx, x0, expanded
+
+    # (c) the steps in turns with the mask path, each with its own draw
+    mgen = torch.Generator(device=dev).manual_seed(SEED + 26)
+
+    def step_of(sched, kernel_dropout, batch=B_TRAIN, x=x25, y=y25, res16=False):
+        return lambda: micro_step("kernel", lstm_bwd=sched, res_bf16=res16,
+                                  masks=draw_dropout_masks(cfg, batch, T, mgen, dev,
+                                                           kernel_dropout=kernel_dropout),
+                                  kernel_dropout=kernel_dropout, x=x, y=y)
+
+    def peak_bytes(fn):
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        fn()
+        torch.cuda.synchronize()
+        return torch.cuda.max_memory_allocated() - before
+
+    for sched in ("fused", "two_pass"):
+        fns = {f"{sched} masks": step_of(sched, False), f"{sched} Philox": step_of(sched, True)}
+        m = median_ms(fns)
+        peaks = {name: peak_bytes(fn) for name, fn in fns.items()}
+        for name in fns:
+            print(f"training micro-step {name} B={B_TRAIN} T={T} with its draw (kernel path, in "
+                  f"turns, median of 4): {m[name]:.3f} ms, {B_TRAIN / m[name] * 1e3:.1f} "
+                  f"windows/s; peak device memory above the allocations before it "
+                  f"{peaks[name]} bytes [{smi}]", flush=True)
+    torch.cuda.empty_cache()
+    big = B_BIG
+    xb = torch.randn(big, T, C, device=dev, generator=kgen)
+    yb = torch.randint(0, 2, (big,), device=dev, generator=kgen)
+    for sched in ("fused", "two_pass"):
+        kernels.reset_launch_counts()
+        peak_p = peak_bytes(step_of(sched, True, big, xb, yb, True))
+        step_counts = dict(kernels.launch_counts)
+        want_counts = train_step_launches(cfg, sched, True, kernel_dropout=True)
+        require(step_counts == want_counts,
+                f"B={big} {sched} res_bf16 Philox launches: want {want_counts}, got {step_counts}")
+        launches.update(step_counts)
+        peak_m = peak_bytes(step_of(sched, False, big, xb, yb, True))
+        print(f"training micro-step {sched} res_bf16 B={big}: peak device memory above the "
+              f"allocations before it {peak_p} bytes with the Philox dropout, {peak_m} bytes "
+              f"on the mask path ({peak_m - peak_p} bytes less) [{smi}]", flush=True)
+    del xb, yb
+    torch.cuda.empty_cache()
+
+    # each mode at B=512 on the micro-step's plans (two parts, reverse, dx_add):
+    # against its twin and a bitwise repeat, timed in turns with its uint8 mode
+    # and its twin; the bound without the mask bytes (the key's 8 bytes count)
+    p1 = params["lstm"][1]["bwd"]
+    xs2 = tuple(torch.tanh(randn(B_TRAIN, T, H)) for _ in range(2))
+    src2 = PhiloxSource(masks25.key, (1, 2))
+    ms2 = src2.masks(xs2, keep_mid)
+    g2 = 0.1 * randn(B_TRAIN, T, H)
+    add2 = tuple(randn(B_TRAIN, T, H) for _ in range(2))
+    head = (xs2, p1["w_ih"], p1["b"], p1["w_hh"], True)
+    fwd_flops = 2 * B_TRAIN * T * (2 * H + H) * 4 * H
+    bwd_flops = 2 * B_TRAIN * T * 4 * H * (2 * 2 * H + 2 * H)
+    for res16 in (False, True):
+        h_p, planes = lstm_fwd_train_plain(*head, ms2, keep_mid, res_bf16=res16)
+        h_g, gates, c_g = lstm_fwd_train_gates_plain(*head, ms2, keep_mid, res_bf16=res16)
+        modes = {}
+        for fwd, plain, base in fwd_modes:
+            modes[counter(base, res16, True)] = (
+                fwd, plain, head, (keep_mid,), dict(res_bf16=res16), fwd_flops,
+                lambda out: list(out), RES16_TOL if res16 else TRAIN_FWD_TOL, False)
+        for bwd, plain, res, h_in, base in (
+                (lstm_bwd, lstm_bwd_plain, (planes,), h_p, "lstm_bwd"),
+                (lstm_bwd_v2, lstm_bwd_v2_plain, (gates, c_g), h_g, "lstm_bwd_v2")):
+            modes[counter(base, res16, True)] = (
+                bwd, plain, (*res, h_in, g2, xs2, p1["w_ih"], p1["w_hh"], True),
+                (keep_mid, add2), {}, bwd_flops, flat_bwd, BWD_REL_TOL, True)
+        for name, (kfn, pfn, a, tail, kw, flops, flat, tol, relative) in modes.items():
+            out = kfn(*a, src2, *tail, **kw)
+            hold25(f"{name} B={B_TRAIN} T={T} H={H} parts=2 (the micro-step's plan)", name,
+                   flat(out), flat(kfn(*a, src2, *tail, **kw)), flat(pfn(*a, src2, *tail, **kw)),
+                   flat(kfn(*a, ms2, *tail, **kw)), tol, relative)
+            work[name] = (nbytes(a, src2.key, tail, kw, out), flops, "bf16")
+            del out
+            m = median_ms({"plain": lambda: pfn(*a, src2, *tail, **kw),
+                           "kernel": lambda: kfn(*a, src2, *tail, **kw),
+                           "uint8": lambda: kfn(*a, ms2, *tail, **kw)}, rounds=1)
+            train_ms[name] = (m["kernel"], m["plain"])
+            bound_ms, bound_by = bound(*work[name])
+            print(f"{name} B={B_TRAIN} T={T} H={H}: kernel {m['kernel']:.3f} ms, its uint8 mode "
+                  f"in the same turns {m['uint8']:.3f} ms, plain {m['plain']:.3f} ms, bound "
+                  f"{bound_ms:.3f} ms ({bound_by}) [{smi}]", flush=True)
+        del modes, h_p, planes, h_g, gates, c_g
+    return {"err": err, "launches": dict(launches)}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; this needs a GPU",
@@ -2792,13 +3074,15 @@ def main() -> int:
     cw = torch.tensor([1.0, 1.0], device=dev)
     leaves = list(tparams.parameters())
 
-    def micro_step(impl, compute_dtype=torch.bfloat16, lstm_bwd="fused", res_bf16=False):
+    def micro_step(impl, compute_dtype=torch.bfloat16, lstm_bwd="fused", res_bf16=False,
+                   masks=None, kernel_dropout=False, x=None, y=None):
         for q in leaves:
             q.grad = None
-        logits = classifier_apply(tparams, x9, cfg, compute_dtype=compute_dtype,
-                                  lstm_impl=impl, train=True, masks=masks9, lstm_bwd=lstm_bwd,
-                                  res_bf16=res_bf16)
-        loss = cross_entropy_loss(logits, y9, cw)
+        logits = classifier_apply(tparams, x9 if x is None else x, cfg,
+                                  compute_dtype=compute_dtype, lstm_impl=impl, train=True,
+                                  masks=masks9 if masks is None else masks, lstm_bwd=lstm_bwd,
+                                  res_bf16=res_bf16, kernel_dropout=kernel_dropout)
+        loss = cross_entropy_loss(logits, y9 if y is None else y, cw)
         loss.backward()
         return loss.detach(), [q.grad.clone() if q.grad is not None else torch.zeros_like(q)
                                for q in leaves]
@@ -3637,6 +3921,12 @@ def main() -> int:
     del modes, xd2, hg, gates_m, c_m, h_f, res_f, h_r, res_r, v2_args
     print(f"phase 24 (res_bf16): {time.perf_counter() - t24:.1f} s", flush=True)
 
+    # phase 25: the in-kernel Philox dropout (kernel_dropout) of kernels 2, 3 and 3b
+    t25 = time.perf_counter()
+    philox = philox_phase(dev, smi, params, tparams, cfg, micro_step, randn, work, train_ms)
+    opt_err.update(philox["err"])
+    print(f"phase 25 (in-kernel Philox dropout): {time.perf_counter() - t25:.1f} s", flush=True)
+
     # one cuDNN LSTM call per LSTM kernel, at its shape (TF32 off): the forward,
     # or forward + backward minus forward; in bf16 for the bf16 kernels where
     # cuDNN takes it (torch.backends.cudnn.is_acceptable), else in float16
@@ -3670,9 +3960,9 @@ def main() -> int:
     }
     library_ms["lstm_fwd_train_gates"] = library_ms["lstm_fwd_train"]
     library_ms["lstm_bwd_v2"] = library_ms["lstm_bwd"]
-    # phase 24's modes: the yardstick of the layer-direction they compute
+    # phase 24's and 25's modes: the yardstick of the layer-direction they compute
     for name in opt_err:
-        library_ms[name] = library_ms[name.removesuffix("_res16")]
+        library_ms[name] = library_ms[name.removesuffix("_philox").removesuffix("_res16")]
     print(f"library yardsticks, one cuDNN torch.nn.LSTM call (D={2 * H}, H={H}, T={T}, {lib16} for "
           f"the bf16 kernels, float32 for the float32 ones): "
           + ", ".join(f"{k} {v:.3f} ms" for k, v in library_ms.items()) + f" [{smi}]", flush=True)
@@ -3766,6 +4056,20 @@ def main() -> int:
               ("lstm_bwd", "lstm_bwd.cu", "eegflow/nn/pallas_lstm.py:754"),
               ("lstm_bwd_v2", "lstm_bwd_v2.cu", "eegflow/nn/pallas_lstm.py:960"),
               ("lstm_bwd_dualdir", "lstm_bwd_dualdir.cu", "eegflow/nn/pallas_lstm.py:1293"))],
+        # phase 25's Philox modes (kernel_dropout): launches in its micro-steps, B=512
+        # on float32 residuals, B=7,168 on bf16 ones; the in-kernel PRNG masks
+        # (_prng_block_masks) of the TPU kernels they replace
+        *[entry(counter(name, res16, True), source,
+                f"{replaces} (_prng_block_masks eegflow/nn/pallas_lstm.py:395-422)",
+                philox["launches"].get(counter(name, res16, True), 0),
+                philox["err"][counter(name, res16, True)],
+                *train_ms[counter(name, res16, True)])
+          for name, source, replaces in (
+              ("lstm_fwd_train", "lstm_fwd.cu", "eegflow/nn/pallas_lstm.py:430"),
+              ("lstm_fwd_train_gates", "lstm_fwd.cu", "eegflow/nn/pallas_lstm.py:430"),
+              ("lstm_bwd", "lstm_bwd.cu", "eegflow/nn/pallas_lstm.py:754"),
+              ("lstm_bwd_v2", "lstm_bwd_v2.cu", "eegflow/nn/pallas_lstm.py:960"))
+          for res16 in (False, True)],
         # kernels of the port with no Pallas counterpart: the lax loops they
         # replace, and the least time of their serial chain
         entry("apf_rk4", "apf_rk4.cu", "eegflow/ode/integrate.py:41-68 (rk4_solve lax.scan + "

@@ -300,33 +300,41 @@ __device__ __forceinline__ void chain_direction(const ResT* __restrict__ res,
 // so the GEMM template is instantiated on types with linkage.
 namespace lstm_bwd_ops {
 
-// dx epilogue: the part's dropout mask, then the sibling direction's dx
+// dx epilogue: the part's dropout mask from the mask source (mma_gemm.cuh:
+// none, uint8 or Philox), then the sibling direction's dx
+template <class Src>
 struct DxStore {
   float* dx;
-  const uint8_t* m;
+  Src src;
+  int part;
   const float* add;
   int M, D;
   float inv_keep;
-  __device__ void one(size_t i, float v) const {
-    if (m != nullptr) v = m[i] != 0 ? v * inv_keep : 0.f;
+  __device__ void one(size_t i, float v, bool kept) const {
+    if (src.on(part)) v = kept ? v * inv_keep : 0.f;
     if (add != nullptr) v += add[i];
     dx[i] = v;
   }
   __device__ void operator()(int, int bt, int d, float v0, float v1) const {
-    if (bt >= M) return;
+    if (bt >= M || d >= D) return;
     const size_t i = static_cast<size_t>(bt) * D + d;
-    if (d < D) one(i, v0);
-    if (d + 1 < D) one(i + 1, v1);
+    if (d + 1 < D) {
+      const uint32_t kept = src.keep2(part, i);
+      one(i, v0, kept & 1u);
+      one(i + 1, v1, kept & 2u);
+    } else {
+      one(i, v0, src.keep1(part, i));
+    }
   }
 };
 
 // The products of one direction from its bf16 dz (B T, 4H), and db from the
 // chain's per-16-row partials: dx_p with the epilogue `dx_store(q)`, dW_ih
-// (the parts' rows stacked), dW_hh; `part` holds splits * max(d0, d1, H) * 4H
-// floats. m_p null: the part is used as it is.
-template <class DxStoreFor>
+// (the parts' rows stacked) from the parts masked by `src` (a mask source of
+// mma_gemm.cuh), dW_hh; `part` holds splits * max(d0, d1, H) * 4H floats.
+template <class DxStoreFor, class Src>
 cudaError_t bwd_products(DxStoreFor dx_store, const float* h, const float* const* xs,
-                         const uint8_t* const* ms, const int* ds, int n_parts, float inv_keep,
+                         const Src& src, const int* ds, int n_parts, float inv_keep,
                          const __nv_bfloat16* const* ws, const __nv_bfloat16* dz16,
                          const float* db_part, float* dw_ih, float* dw_hh, float* db,
                          float* part, int splits, int B, int T, int H, int reverse,
@@ -341,9 +349,9 @@ cudaError_t bwd_products(DxStoreFor dx_store, const float* h, const float* const
                             eegflow::Bf16Rows{ws[qp], ds[qp], G, G}, dx_store(qp), BT, ds[qp], G,
                             0, stream);
     if (err != cudaSuccess) return err;
-    err = eegflow::mma_gemm_split_k(eegflow::MaskedXCols{xs[qp], ms[qp], ds[qp], BT, inv_keep},
-                                    dz_cols, dw_ih + row_off * G, part, ds[qp], G, BT, splits,
-                                    stream);
+    err = eegflow::mma_gemm_split_k(
+        eegflow::MaskedXCols<Src>{xs[qp], src, qp, ds[qp], BT, inv_keep}, dz_cols,
+        dw_ih + row_off * G, part, ds[qp], G, BT, splits, stream);
     if (err != cudaSuccess) return err;
     row_off += ds[qp];
   }
@@ -354,6 +362,29 @@ cudaError_t bwd_products(DxStoreFor dx_store, const float* h, const float* const
   eegflow::reduce_splits_kernel<<<(G + 255) / 256, 256, 0, stream>>>(db_part, db, tiles,
                                                                       static_cast<size_t>(G));
   return cudaGetLastError();
+}
+
+// The products of kernel 3 or 3b (one direction, the sibling's dx added) on
+// the mask source of the launch's arguments (with_mask_source).
+inline cudaError_t bwd_products_masked(const float* h, const float* const* xs,
+                                       const uint8_t* m0, const uint8_t* m1,
+                                       const uint32_t* key, int stream0, int stream1,
+                                       long long row_offset, uint32_t thresh, const int* ds,
+                                       float inv_keep, const __nv_bfloat16* const* ws,
+                                       const float* const* adds, float* const* dxs,
+                                       const __nv_bfloat16* dz16, const float* db_part,
+                                       float* dw_ih, float* dw_hh, float* db, float* part,
+                                       int splits, int B, int T, int H, int reverse,
+                                       cudaStream_t stream) {
+  const int BT = B * T;
+  return eegflow::with_mask_source(
+      m0, m1, key, stream0, stream1, row_offset, thresh, T, ds[0], ds[1], [&](auto src) {
+        auto dx_store = [&](int qp) {
+          return DxStore<decltype(src)>{dxs[qp], src, qp, adds[qp], BT, ds[qp], inv_keep};
+        };
+        return bwd_products(dx_store, h, xs, src, ds, ds[1] > 0 ? 2 : 1, inv_keep, ws, dz16,
+                            db_part, dw_ih, dw_hh, db, part, splits, B, T, H, reverse, stream);
+      });
 }
 
 }  // namespace lstm_bwd_ops

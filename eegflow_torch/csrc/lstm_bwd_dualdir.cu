@@ -154,7 +154,6 @@ extern "C" int eegflow_lstm_bwd_dualdir(
   if (err != cudaSuccess) return static_cast<int>(err);
 
   const float* xs[2] = {x0, x1};
-  const uint8_t* no_masks[2] = {nullptr, nullptr};
   const __nv_bfloat16* ws[2][2] = {{w0_f, w1_f}, {w0_r, w1_r}};
   const __nv_bfloat16* dzs[2] = {dz16_f, dz16_r};
   const float* db_parts[2] = {db_part_f, db_part_r};
@@ -170,9 +169,9 @@ extern "C" int eegflow_lstm_bwd_dualdir(
       return DxFromXStore{dxs[qp], xs[qp], dir == 1 ? dxs[qp] : nullptr, BT, ds[qp],
                           mask_from_x, inv_keep};
     };
-    err = bwd_products(dx_store, hs[dir], xs, no_masks, ds, d1 > 0 ? 2 : 1, 1.f, ws[dir],
-                       dzs[dir], db_parts[dir], dw_ih[dir], dw_hh[dir], dbs[dir], part, splits,
-                       B, T, H, dir, stream);
+    err = bwd_products(dx_store, hs[dir], xs, eegflow::MaskNone{}, ds, d1 > 0 ? 2 : 1, 1.f,
+                       ws[dir], dzs[dir], db_parts[dir], dw_ih[dir], dw_hh[dir], dbs[dir], part,
+                       splits, B, T, H, dir, stream);
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   return static_cast<int>(cudaSuccess);

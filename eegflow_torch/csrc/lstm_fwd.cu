@@ -10,11 +10,16 @@
 // x 2 directions per micro-step. Raw-gate training mode
 // (eegflow_lstm_fwd_train_gates) is need_residuals=True under the raw-gate
 // contract (_ADJ_RES=0): the post-activation gates and c of every step, the
-// residuals of the two-pass backward (lstm_bwd_v2.cu).
+// residuals of the two-pass backward (lstm_bwd_v2.cu). Either training mode
+// takes its input dropout from uint8 masks or, in place of the reference's
+// in-kernel PRNG dropout (_prng_block_masks under EEGFLOW_KERNEL_DROPOUT; the
+// producer's dropped copy of EEGFLOW_FWD_DROPW=1 and the input block's
+// out_seed, applied here by the consumer), from the Philox bits of
+// philox.cuh, drawn in the A loader: no mask tensor in device memory.
 //
 // Per step t (walked T-1..0 for the reverse direction, h written at its
 // natural position):
-//   x_p = where(m_p[t], x_p[t] * (1/keep), 0)     (training mode with masks)
+//   x_p = where(m_p[t], x_p[t] * (1/keep), 0)     (training mode with dropout)
 //   z = b + sum_p bf16(x_p) . bf16(W_ih_p) + bf16(h) . bf16(W_hh)
 //   i, f, o = 0.5 tanh(z/2) + 0.5;  g = tanh(z)
 //   c = f c_prev + i g;  h = o tanh(c)      (c, h float32, zero initial state)
@@ -45,7 +50,8 @@
 //
 // Design, two stages per launch:
 // (1) The input projection b + sum_p bf16(mask_p(x_p)) . bf16(W_ih_p) for all
-//     B T rows at once on the tensor cores (mma_gemm.cuh): the mask and 1/keep
+//     B T rows at once on the tensor cores (mma_gemm.cuh): the mask (read, or
+//     drawn from the Philox key once per 128-column tile of 4H) and 1/keep
 //     applied in the A loader before the bf16 rounding, the two parts as two
 //     K segments, the result to a float32 pre-gate scratch (B, T, 4H).
 // (2) The recurrence on thread-block clusters (lstm_cluster.cuh): a cluster
@@ -292,12 +298,11 @@ lstm_fwd_rec_kernel(const float* __restrict__ pre, const uint4* __restrict__ wfr
   }
 }
 
-template <int kMode, typename ResT>
-int launch(const float* x0, const float* x1, const uint8_t* m0, const uint8_t* m1, int d0,
-           int d1, float inv_keep, const __nv_bfloat16* w0, const __nv_bfloat16* w1,
-           const float* bias, const uint4* wfrag, float* pre, float* h_out, void* res_out,
-           float* c_out, int B, int T, int H, int hc, int rows, int k_res, int reverse,
-           cudaStream_t stream) {
+template <int kMode, typename ResT, class Src>
+int launch(const float* x0, const float* x1, const Src& src, int d0, int d1, float inv_keep,
+           const __nv_bfloat16* w0, const __nv_bfloat16* w1, const float* bias,
+           const uint4* wfrag, float* pre, float* h_out, void* res_out, float* c_out, int B,
+           int T, int H, int hc, int rows, int k_res, int reverse, cudaStream_t stream) {
   const ClusterGeom geo{H, hc, rows, k_res, 0};
   if (!geo.valid() || B <= 0 || T <= 0 || d0 <= 0 || d1 < 0 ||
       (kMode != kEval && res_out == nullptr) || (kMode == kGates && c_out == nullptr))
@@ -305,7 +310,7 @@ int launch(const float* x0, const float* x1, const uint8_t* m0, const uint8_t* m
   const int G = 4 * H;
   const int BT = B * T;
   cudaError_t err = eegflow::mma_gemm(
-      eegflow::MaskedXRows{{x0, x1}, {m0, m1}, {d0, d1}, BT, inv_keep},
+      eegflow::MaskedXRows<Src>{{x0, x1}, src, {d0, d1}, BT, inv_keep},
       eegflow::Bf16Cols{{w0, w1}, {d0, d1}, G, G}, PreStore{pre, bias, BT, G}, BT, G, d0, d1,
       stream);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -316,6 +321,27 @@ int launch(const float* x0, const float* x1, const uint8_t* m0, const uint8_t* m
         B, T, H, k_res, reverse);
   });
   return static_cast<int>(err);
+}
+
+// A training mode's launch on the mask source of its arguments
+// (with_mask_source: the Philox bits from `key`, else the uint8 masks m_p,
+// else none) and its residual type (bf16 when res_bf16).
+template <int kMode>
+int launch_train(const float* x0, const float* x1, const uint8_t* m0, const uint8_t* m1,
+                 const uint32_t* key, int stream0, int stream1, long long row_offset,
+                 uint32_t thresh, int d0, int d1, float inv_keep, const __nv_bfloat16* w0,
+                 const __nv_bfloat16* w1, const float* bias, const uint4* wfrag, float* pre,
+                 float* h_out, void* res_out, int res_bf16, float* c_out, int B, int T, int H,
+                 int hc, int rows, int k_res, int reverse, cudaStream_t stream) {
+  return static_cast<int>(eegflow::with_mask_source(
+      m0, m1, key, stream0, stream1, row_offset, thresh, T, d0, d1, [&](auto src) {
+        auto run = [&](auto tag) {
+          return static_cast<cudaError_t>(launch<kMode, typename decltype(tag)::type>(
+              x0, x1, src, d0, d1, inv_keep, w0, w1, bias, wfrag, pre, h_out, res_out, c_out, B,
+              T, H, hc, rows, k_res, reverse, stream));
+        };
+        return res_bf16 ? run(eegflow::Type<__nv_bfloat16>{}) : run(eegflow::Type<float>{});
+      }));
 }
 
 template <int kMode, typename ResT>
@@ -359,44 +385,45 @@ extern "C" int eegflow_lstm_fwd(const float* x0, const float* x1, int d0, int d1
                                 const float* bias, const uint4* wfrag, float* pre, float* h_out,
                                 int B, int T, int H, int hc, int rows, int k_res, int reverse,
                                 cudaStream_t stream) {
-  return launch<kEval, float>(x0, x1, nullptr, nullptr, d0, d1, 1.f, w0, w1, bias, wfrag, pre,
-                              h_out, nullptr, nullptr, B, T, H, hc, rows, k_res, reverse,
+  return launch<kEval, float>(x0, x1, eegflow::MaskNone{}, d0, d1, 1.f, w0, w1, bias, wfrag,
+                              pre, h_out, nullptr, nullptr, B, T, H, hc, rows, k_res, reverse,
                               stream);
 }
 
-// Training mode: as eval mode, plus uint8 keep-masks m_p (B, T, d_p) (null:
-// no dropout on that part; 0 = dropped) scaled by inv_keep, and the adjoint
-// planes res_out (B, T, 6H), float32, or bf16 when res_bf16.
+// Training mode: as eval mode, plus the input parts' dropout, kept values
+// scaled by inv_keep, from one of three sources: the Philox bits of
+// philox.cuh where key (k0, k1) (uint32 on the device) is not null, part p
+// on stream stream_p, its rows row_offset.. of the whole batch, kept where
+// the word < thresh; else uint8 keep-masks m_p (B, T, d_p) (null: no dropout
+// on that part; 0 = dropped); else none. Writes the adjoint planes res_out
+// (B, T, 6H), float32, or bf16 when res_bf16.
 extern "C" int eegflow_lstm_fwd_train(const float* x0, const float* x1, const uint8_t* m0,
-                                      const uint8_t* m1, int d0, int d1, float inv_keep,
-                                      const __nv_bfloat16* w0, const __nv_bfloat16* w1,
-                                      const float* bias, const uint4* wfrag, float* pre,
-                                      float* h_out, void* res_out, int res_bf16, int B, int T,
-                                      int H, int hc, int rows, int k_res, int reverse,
-                                      cudaStream_t stream) {
-  auto run = [&](auto tag) {
-    return launch<kPlanes, typename decltype(tag)::type>(
-        x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, bias, wfrag, pre, h_out, res_out, nullptr, B,
-        T, H, hc, rows, k_res, reverse, stream);
-  };
-  return res_bf16 ? run(eegflow::Type<__nv_bfloat16>{}) : run(eegflow::Type<float>{});
+                                      const uint8_t* m1, const uint32_t* key, int stream0,
+                                      int stream1, long long row_offset, uint32_t thresh,
+                                      int d0, int d1, float inv_keep, const __nv_bfloat16* w0,
+                                      const __nv_bfloat16* w1, const float* bias,
+                                      const uint4* wfrag, float* pre, float* h_out,
+                                      void* res_out, int res_bf16, int B, int T, int H, int hc,
+                                      int rows, int k_res, int reverse, cudaStream_t stream) {
+  return launch_train<kPlanes>(x0, x1, m0, m1, key, stream0, stream1, row_offset, thresh, d0,
+                               d1, inv_keep, w0, w1, bias, wfrag, pre, h_out, res_out, res_bf16,
+                               nullptr, B, T, H, hc, rows, k_res, reverse, stream);
 }
 
 // Raw-gate training mode: as training mode, but the residuals are the
 // post-activation gates [i, f, g, o] gates_out (B, T, 4H) (float32, or bf16
 // when res_bf16) and the cell state c_out (B, T, H) float32.
 extern "C" int eegflow_lstm_fwd_train_gates(const float* x0, const float* x1,
-                                            const uint8_t* m0, const uint8_t* m1, int d0,
+                                            const uint8_t* m0, const uint8_t* m1,
+                                            const uint32_t* key, int stream0, int stream1,
+                                            long long row_offset, uint32_t thresh, int d0,
                                             int d1, float inv_keep, const __nv_bfloat16* w0,
                                             const __nv_bfloat16* w1, const float* bias,
                                             const uint4* wfrag, float* pre, float* h_out,
                                             void* gates_out, int res_bf16, float* c_out, int B,
                                             int T, int H, int hc, int rows, int k_res,
                                             int reverse, cudaStream_t stream) {
-  auto run = [&](auto tag) {
-    return launch<kGates, typename decltype(tag)::type>(
-        x0, x1, m0, m1, d0, d1, inv_keep, w0, w1, bias, wfrag, pre, h_out, gates_out, c_out, B,
-        T, H, hc, rows, k_res, reverse, stream);
-  };
-  return res_bf16 ? run(eegflow::Type<__nv_bfloat16>{}) : run(eegflow::Type<float>{});
+  return launch_train<kGates>(x0, x1, m0, m1, key, stream0, stream1, row_offset, thresh, d0,
+                              d1, inv_keep, w0, w1, bias, wfrag, pre, h_out, gates_out, res_bf16,
+                              c_out, B, T, H, hc, rows, k_res, reverse, stream);
 }

@@ -41,6 +41,7 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "philox.cuh"
 
 namespace eegflow {
 
@@ -698,6 +699,100 @@ struct Bf16Cols {
   }
 };
 
+// ---- the keep-mask sources of an input part's dropout -------------------------
+//
+// A source gives the keep bits of a part's elements (flat index i of the
+// part's row-major (B, T, D) tensor): on(s) says whether part s is masked at
+// all (kept values scaled by 1/keep), keep8 the bytes (nonzero = kept) of the
+// 8 elements at i0 when i0 % 8 == 0 and all 8 lie in the row, keep_upto those
+// of the first `limit` of them anywhere (the rest 0), keep1 one element's and
+// keep2 those of elements i and i + 1 of one row (bits 0 and 1).
+
+// no dropout (eval, kernel 4's parts as given)
+struct MaskNone {
+  __device__ bool on(int) const { return false; }
+  __device__ uint2 keep8(int, size_t) const { return make_uint2(0x01010101u, 0x01010101u); }
+  __device__ uint2 keep_upto(int, size_t, int limit) const {
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) w[e >> 2] |= (e < limit ? 1u : 0u) << (8 * (e & 3));
+    return make_uint2(w[0], w[1]);
+  }
+  __device__ bool keep1(int, size_t) const { return true; }
+  __device__ uint32_t keep2(int, size_t) const { return 3u; }
+};
+
+// uint8 keep-masks in device memory, one per part shaped like it (null: that
+// part is not masked)
+struct MaskU8 {
+  const uint8_t* m[2];
+  __device__ bool on(int s) const { return m[s] != nullptr; }
+  __device__ uint2 keep8(int s, size_t i0) const {
+    return *reinterpret_cast<const uint2*>(m[s] + i0);
+  }
+  __device__ uint2 keep_upto(int s, size_t i0, int limit) const {
+    uint32_t w[2] = {0u, 0u};
+#pragma unroll
+    for (int e = 0; e < 8; ++e) {
+      const uint32_t kept = e < limit && (m[s] == nullptr || m[s][i0 + e] != 0) ? 1u : 0u;
+      w[e >> 2] |= kept << (8 * (e & 3));
+    }
+    return make_uint2(w[0], w[1]);
+  }
+  __device__ bool keep1(int s, size_t i) const { return m[s] == nullptr || m[s][i] != 0; }
+  __device__ uint32_t keep2(int s, size_t i) const {
+    return (keep1(s, i) ? 1u : 0u) | (keep1(s, i + 1) ? 2u : 0u);
+  }
+};
+
+// the Philox bits of philox.cuh: the step's key (k0, k1) read through a
+// pointer on the device (no host sync), one stream per part, and each part's
+// element offset in the whole batch (row_offset T D: a mesh rank's first row)
+struct MaskPhilox {
+  const uint32_t* key;
+  uint32_t stream[2];
+  unsigned long long off[2];
+  uint32_t thresh;
+  __device__ bool on(int) const { return true; }
+  __device__ uint2 keep8(int s, size_t i0) const {
+    return keep_bits8(__ldg(key), __ldg(key + 1), stream[s], off[s] + i0, thresh);
+  }
+  __device__ uint2 keep_upto(int s, size_t i0, int limit) const {
+    if (limit <= 0) return make_uint2(0u, 0u);
+    const uint2 k = keep8(s, i0);
+    const uint64_t below = limit >= 8 ? ~0ull : (1ull << (8 * limit)) - 1ull;
+    return make_uint2(k.x & static_cast<uint32_t>(below), k.y & static_cast<uint32_t>(below >> 32));
+  }
+  __device__ bool keep1(int s, size_t i) const {
+    return keep_bits(__ldg(key), __ldg(key + 1), stream[s], off[s] + i, 1, thresh) != 0u;
+  }
+  // one generator call unless the two straddle two blocks
+  __device__ uint32_t keep2(int s, size_t i) const {
+    return keep_bits(__ldg(key), __ldg(key + 1), stream[s], off[s] + i, 2, thresh);
+  }
+};
+
+// Run f(source) on the mask source of a launch's arguments: the Philox bits
+// where `key` is given (then no uint8 mask may be), the uint8 masks where
+// either part has one, else none. T, d0 and d1 place a part's first element in
+// the whole batch: (row_offset T) d_s.
+template <class F>
+cudaError_t with_mask_source(const uint8_t* m0, const uint8_t* m1, const uint32_t* key,
+                             int stream0, int stream1, long long row_offset, uint32_t thresh,
+                             int T, int d0, int d1, F&& f) {
+  if (key != nullptr) {
+    if (m0 != nullptr || m1 != nullptr || row_offset < 0 || stream0 < 0 || stream1 < 0)
+      return cudaErrorInvalidValue;
+    const unsigned long long rows = static_cast<unsigned long long>(row_offset) * T;
+    return f(MaskPhilox{key,
+                        {static_cast<uint32_t>(stream0), static_cast<uint32_t>(stream1)},
+                        {rows * d0, rows * d1},
+                        thresh});
+  }
+  if (m0 != nullptr || m1 != nullptr) return f(MaskU8{{m0, m1}});
+  return f(MaskNone{});
+}
+
 // 8 consecutive float32 elements as loaded, with their keep-mask bytes and
 // the scale of a kept one (1 and every byte kept when the part has no mask)
 struct MaskedRaw {
@@ -706,27 +801,24 @@ struct MaskedRaw {
   float scale;
 };
 
-// 8 consecutive elements of an input part at flat index i0 (row-major rows
-// of D), the ones at or past `limit` (within the row) zero
-__device__ __forceinline__ MaskedRaw masked_load_x8(const float* __restrict__ x,
-                                                    const uint8_t* __restrict__ m, size_t i0,
-                                                    int D, int limit, float inv_keep) {
+// 8 consecutive elements of input part s at flat index i0 (row-major rows of
+// D), the ones at or past `limit` (within the row) zero, with their keep
+// bytes from the mask source
+template <class Src>
+__device__ __forceinline__ MaskedRaw masked_load_x8(const float* __restrict__ x, const Src& src,
+                                                    int s, size_t i0, int D, int limit,
+                                                    float inv_keep) {
   MaskedRaw raw;
-  raw.scale = m != nullptr ? inv_keep : 1.f;
+  raw.scale = src.on(s) ? inv_keep : 1.f;
   raw.keep = make_uint2(0x01010101u, 0x01010101u);
   if (limit >= 8 && (D & 7) == 0) {
     load_f32x8(raw.v, x + i0);
-    if (m != nullptr) raw.keep = *reinterpret_cast<const uint2*>(m + i0);
+    if (src.on(s)) raw.keep = src.keep8(s, i0);
     return raw;
   }
-  uint32_t w[2] = {0u, 0u};
 #pragma unroll
-  for (int e = 0; e < 8; ++e) {
-    raw.v[e] = e < limit ? x[i0 + e] : 0.f;
-    const uint32_t kept = e < limit && (m == nullptr || m[i0 + e] != 0) ? 1u : 0u;
-    w[e >> 2] |= kept << (8 * (e & 3));
-  }
-  raw.keep = make_uint2(w[0], w[1]);
+  for (int e = 0; e < 8; ++e) raw.v[e] = e < limit ? x[i0 + e] : 0.f;
+  raw.keep = src.keep_upto(s, i0, limit);
   return raw;
 }
 
@@ -742,34 +834,37 @@ __device__ __forceinline__ void masked_store(const MaskedRaw& raw, uint32_t dst)
 
 // bf16(masked x_p) with K contiguous, one or two parts as the K segments:
 // element (r = b*T + t, k = feature) of segment s = mask_s(x_s)[r * D[s] + k]
+template <class Src>
 struct MaskedXRows {
   static constexpr bool kKMajor = true;
   static constexpr bool kAsync = false;
   using Raw = MaskedRaw;
   const float* x[2];
-  const uint8_t* m[2];
+  Src src;
   int D[2];
   int M;
   float inv_keep;
   __device__ Raw load(int s, int r, int k) const {
-    return masked_load_x8(x[s], m[s], static_cast<size_t>(r) * D[s] + k, D[s],
+    return masked_load_x8(x[s], src, s, static_cast<size_t>(r) * D[s] + k, D[s],
                           r < M ? D[s] - k : 0, inv_keep);
   }
   __device__ void store(const Raw& raw, uint32_t dst) const { masked_store(raw, dst); }
 };
 
-// bf16(masked x_p) with M contiguous: element (r = feature, k = b*T + t) =
-// mask(x)[k * D + r]
+// bf16(masked x) of input part `part` with M contiguous: element (r =
+// feature, k = b*T + t) = mask(x)[k * D + r]
+template <class Src>
 struct MaskedXCols {
   static constexpr bool kKMajor = false;
   static constexpr bool kAsync = false;
   using Raw = MaskedRaw;
   const float* x;
-  const uint8_t* m;
+  Src src;
+  int part;
   int D, K;
   float inv_keep;
   __device__ Raw load(int, int r, int k) const {
-    return masked_load_x8(x, m, static_cast<size_t>(k) * D + r, D, k < K ? D - r : 0,
+    return masked_load_x8(x, src, part, static_cast<size_t>(k) * D + r, D, k < K ? D - r : 0,
                           inv_keep);
   }
   __device__ void store(const Raw& raw, uint32_t dst) const { masked_store(raw, dst); }

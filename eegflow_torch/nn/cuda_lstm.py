@@ -78,6 +78,17 @@ The reference's ``EEGFLOW_FWD_DROPW=2`` (the producing kernel writes the
 dropped copy of its output, the consumer recovers the mask from its zeros)
 draws the same masks as the mask path and gives the same loss and
 gradients; its counterpart here is the mask path itself.
+
+The input dropout of kernels 2, 3 and 3b has two sources: uint8 keep-masks
+in device memory, or, as a :class:`~eegflow_torch.nn.philox.PhiloxSource`
+in place of ``masks`` (``kernel_dropout``), the Philox bits the kernels draw
+themselves from a key on the device, keyed by element
+(:mod:`eegflow_torch.nn.philox`): the port's counterpart of the reference's
+in-kernel PRNG dropout (``EEGFLOW_KERNEL_DROPOUT=1``, the default mode 1 of
+``EEGFLOW_FWD_DROPW`` and the input block's ``out_seed``), for the bf16
+policy under ``"fused"`` and ``"two_pass"``. The twins expand the source
+into the uint8 masks it stands for and run the mask path; a launch on it is
+counted under :func:`counter`'s name for it, e.g. ``lstm_bwd_v2_res16_philox``.
 """
 
 from __future__ import annotations
@@ -90,9 +101,12 @@ import torch
 from eegflow_torch import kernels
 from eegflow_torch.nn import lstm_plan
 from eegflow_torch.nn.layers import bf16_round
+from eegflow_torch.nn.philox import PhiloxSource, keep_threshold
 
 Parts = Union[torch.Tensor, Sequence[torch.Tensor]]
-Masks = Optional[Sequence[Optional[torch.Tensor]]]
+#: an input part's dropout: uint8 keep-masks (one per part, or None), or the
+#: Philox bits the kernels draw from a key
+Masks = Union[None, Sequence[Optional[torch.Tensor]], PhiloxSource]
 
 
 def as_parts(xs: Parts) -> Tuple[torch.Tensor, ...]:
@@ -106,6 +120,12 @@ def _mask_list(masks: Masks, n: int) -> Tuple[Optional[torch.Tensor], ...]:
     if len(masks) != n:
         raise ValueError(f"{len(masks)} masks for {n} input parts")
     return masks
+
+
+def _expand(masks: Masks, xs: Sequence[torch.Tensor], keep: float) -> Masks:
+    """The uint8 masks a :class:`PhiloxSource` stands for (the twins' mask
+    source); other masks as they are."""
+    return masks.masks(xs, keep) if isinstance(masks, PhiloxSource) else masks
 
 
 def _sigmoid(z: torch.Tensor) -> torch.Tensor:
@@ -127,7 +147,7 @@ def _lstm_fwd_plain(xs, w_ih, b, w_hh, reverse, masks, keep, residuals=None, res
     adjoint planes) or ``"gates"`` (the post-activation gates and c), the
     planes or gates rounded to bf16 with ``res_bf16``."""
     xs = as_parts(xs)
-    masks = _mask_list(masks, len(xs))
+    masks = _mask_list(_expand(masks, xs, keep), len(xs))
     widths = [p.shape[-1] for p in xs]
     gates = b + sum(bf16_round(apply_mask(x, m, keep)) @ bf16_round(w)
                     for x, m, w in zip(xs, masks, torch.split(w_ih, widths, dim=0)))
@@ -208,6 +228,17 @@ def _check_cuda_args(xs, w_ih, b, w_hh, masks=None):
             raise ValueError("input parts disagree on (B, T)")
         if not x.is_contiguous():
             raise ValueError("input parts must be contiguous")
+    if isinstance(masks, PhiloxSource):
+        key = masks.key
+        if (key.dtype != torch.int32 or tuple(key.shape) != (2,) or key.device != dev
+                or not key.is_contiguous()):
+            raise ValueError("a Philox key must be a contiguous (2,) int32 tensor on the "
+                             "parts' device")
+        if len(masks.streams) != len(xs) or masks.row_offset < 0 or any(
+                not 0 <= s < 2 ** 31 for s in masks.streams):
+            raise ValueError(f"a Philox source needs one stream per part ({len(xs)}) and a "
+                             f"row offset >= 0, got {masks.streams}, {masks.row_offset}")
+        return
     for x, m in zip(xs, _mask_list(masks, len(xs))):
         if m is not None and (m.dtype != torch.uint8 or m.shape != x.shape
                               or m.device != dev or not m.is_contiguous()):
@@ -236,11 +267,24 @@ def _ptr(t: Optional[torch.Tensor]):
     return None if t is None else t.data_ptr()
 
 
-def counter(name: str, res_bf16: bool = False) -> str:
+def counter(name: str, res_bf16: bool = False, philox: bool = False) -> str:
     """The launch-counter name of a recurrent kernel's wrapper ``name``
     (``lstm_fwd_train``, ``lstm_fwd_train_gates``, ``lstm_bwd``,
-    ``lstm_bwd_v2``, ``lstm_bwd_dualdir``) on bf16 residuals or not."""
-    return name + "_res16" if res_bf16 else name
+    ``lstm_bwd_v2``, ``lstm_bwd_dualdir``) on bf16 residuals or not, with
+    its dropout drawn from Philox (``_philox``) or not."""
+    return name + ("_res16" if res_bf16 else "") + ("_philox" if philox else "")
+
+
+def _dropout_args(masks: Masks, n_parts: int, keep: float) -> list:
+    """The C arguments (m0, m1, key, stream0, stream1, row_offset, thresh) of
+    a training launch's input dropout: the uint8 masks or the Philox source
+    (checked by ``_check_cuda_args``)."""
+    if isinstance(masks, PhiloxSource):
+        streams = tuple(masks.streams) + (0,) * (2 - n_parts)
+        return [None, None, masks.key.data_ptr(), *streams, masks.row_offset,
+                keep_threshold(keep)]
+    masks = _mask_list(masks, n_parts)
+    return [_ptr(masks[0]), _ptr(masks[1]) if n_parts == 2 else None, None, 0, 0, 0, 0]
 
 
 #: kernel 2's modes: wrapper name -> (C entry point, mode of
@@ -322,7 +366,6 @@ def _fwd_kernel(name: str, xs, w_ih, b, w_hh, reverse, masks=None, keep=1.0, res
     W_hh in fragment order and the pre-gate scratch (B, T, 4H)."""
     entry, mode, widths_out = _FWD_MODES[name]
     _check_cuda_args(xs, w_ih, b, w_hh, masks)
-    masks = _mask_list(masks, len(xs))
     lib = kernels.load_library()
     dev = xs[0].device
     batch, steps = xs[0].shape[:2]
@@ -339,7 +382,7 @@ def _fwd_kernel(name: str, xs, w_ih, b, w_hh, reverse, masks=None, keep=1.0, res
     two = len(xs) == 2
     args = [xs[0].data_ptr(), _ptr(xs[1]) if two else None]
     if mode:
-        args += [_ptr(masks[0]), _ptr(masks[1]) if two else None]
+        args += _dropout_args(masks, len(xs), keep)
     args += [widths[0], widths[1] if two else 0]
     if mode:
         args.append(1.0 / keep)
@@ -351,7 +394,7 @@ def _fwd_kernel(name: str, xs, w_ih, b, w_hh, reverse, masks=None, keep=1.0, res
              kernels.stream(dev)]
     err = getattr(lib, entry)(*args)
     kernels.check(lib, err, name)
-    kernels.launch_counts[counter(name, res_bf16)] += 1
+    kernels.launch_counts[counter(name, res_bf16, isinstance(masks, PhiloxSource))] += 1
     return outs
 
 
@@ -376,7 +419,9 @@ def lstm_fwd_train(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.T
     the planes bf16 with ``res_bf16``.
 
     ``masks``: one uint8 keep-mask (B, T, D_p) per part or None (0 = dropped,
-    kept values scaled by 1/keep, as :func:`apply_mask`).
+    kept values scaled by 1/keep, as :func:`apply_mask`), or a
+    :class:`~eegflow_torch.nn.philox.PhiloxSource` whose bits the kernel
+    draws itself (the twin expands it into those masks).
     """
     xs = as_parts(xs)
     if _device_kind("lstm_fwd_train", xs[0]) == "cpu":
@@ -434,7 +479,7 @@ def _weight_products(dz: torch.Tensor, h: torch.Tensor, xs: Sequence[torch.Tenso
     bf16(dz) . bf16(W_ih_p)^T, masked like the input, plus ``dx_add``;
     dW_ih_p = bf16(masked x_p)^T . bf16(dz); dW_hh = bf16(h_prev)^T .
     bf16(dz); db = the sum of the float32 dz."""
-    masks = _mask_list(masks, len(xs))
+    masks = _mask_list(_expand(masks, xs, keep), len(xs))
     batch, steps, g4 = dz.shape
     hidden = g4 // 4
     dz16 = bf16_round(dz).reshape(batch * steps, g4)
@@ -524,7 +569,6 @@ def _chain_bwd(name: str, plan_kind: str, residuals, h, g, xs, w_ih, w_hh, rever
     ``kernel_plan(plan_kind, ...)``. The wrapper builds the bf16 W_ih parts,
     W_hh^T in fragment order, the outputs and the scratch (bf16 dz, db's
     per-16-row partials, split-K partials)."""
-    masks = _mask_list(masks, len(xs))
     batch, steps = xs[0].shape[:2]
     hidden = w_hh.shape[0]
     lib = kernels.load_library()
@@ -549,8 +593,7 @@ def _chain_bwd(name: str, plan_kind: str, residuals, h, g, xs, w_ih, w_hh, rever
     err = getattr(lib, "eegflow_" + name)(
         residuals[0].data_ptr(), int(res16), *[r.data_ptr() for r in residuals[1:]],
         h.data_ptr(), g.data_ptr(), xs[0].data_ptr(), _ptr(xs[1]) if two else None,
-        _ptr(masks[0]), _ptr(masks[1]) if two else None,
-        widths[0], widths[1] if two else 0, 1.0 / keep,
+        *_dropout_args(masks, len(xs), keep), widths[0], widths[1] if two else 0, 1.0 / keep,
         w_parts[0].data_ptr(), w_parts[1].data_ptr() if two else None, wfrag.data_ptr(),
         _ptr(dx_add[0]) if dx_add else None, _ptr(dx_add[1]) if dx_add and two else None,
         dxs[0].data_ptr(), dxs[1].data_ptr() if two else None,
@@ -558,7 +601,7 @@ def _chain_bwd(name: str, plan_kind: str, residuals, h, g, xs, w_ih, w_hh, rever
         part.data_ptr(), splits, batch, steps, hidden, plan.hc, plan.rows, plan.k_res,
         int(reverse), kernels.stream(dev))
     kernels.check(lib, err, name)
-    kernels.launch_counts[counter(name, res16)] += 1
+    kernels.launch_counts[counter(name, res16, isinstance(masks, PhiloxSource))] += 1
     return tuple(dxs), dw_ih, dw_hh, db
 
 
@@ -740,13 +783,16 @@ LSTM_BWD_SCHEDULES = ("fused", "two_pass", "dualdir")
 
 
 def check_lstm_bwd(lstm_bwd: str, bf16: bool = True, bidirectional: bool = True, *,
-                   res_bf16: bool = False) -> None:
+                   res_bf16: bool = False, kernel_dropout: bool = False) -> None:
     """Raise ``ValueError`` unless the backward schedule ``lstm_bwd`` can run
     a layer of this precision policy and direction: any schedule but
     ``"fused"`` needs the bf16 policy, ``"dualdir"`` a bidirectional layer,
-    and ``res_bf16`` the bf16 policy (the reference takes it only there).
-    There is no fallback: a schedule runs its kernels on every layer, and
-    the option is never dropped."""
+    and ``res_bf16`` the bf16 policy (the reference takes it only there);
+    ``kernel_dropout`` (the Philox masks) needs the bf16 policy, as the
+    reference's in-kernel dropout does, and a schedule whose kernels draw
+    them: ``"fused"`` or ``"two_pass"`` (``"dualdir"``'s parts arrive already
+    dropped). There is no fallback: a schedule runs its kernels on every
+    layer, and the option is never dropped."""
     if lstm_bwd not in LSTM_BWD_SCHEDULES:
         raise ValueError(f"lstm_bwd must be one of {LSTM_BWD_SCHEDULES}, got {lstm_bwd!r}")
     if lstm_bwd != "fused" and not bf16:
@@ -757,15 +803,23 @@ def check_lstm_bwd(lstm_bwd: str, bf16: bool = True, bidirectional: bool = True,
     if res_bf16 and not bf16:
         raise ValueError("res_bf16 needs the bf16 policy; the float32 policy's residuals "
                          "are float32")
+    if kernel_dropout and not bf16:
+        raise ValueError("kernel_dropout needs the bf16 policy; the float32 policy takes "
+                         "masks")
+    if kernel_dropout and lstm_bwd == "dualdir":
+        raise ValueError("kernel_dropout needs lstm_bwd='fused' or 'two_pass'; 'dualdir' "
+                         "reads parts already dropped by select_dropout")
 
 
 class BiLSTMLayer(torch.autograd.Function):
     """One LSTM layer over input parts, both directions under one Function.
 
     ``forward(kernel, keep, m0, m1, x0, x1, w_ih_f, w_hh_f, b_f, w_ih_b,
-    w_hh_b, b_b, schedule, res_bf16) -> (h_f, h_b)`` (``x1``/``m1`` None for
-    a one-part input; the ``_b`` weights None for a unidirectional layer,
-    which returns ``(h_f,)``). The masks are shared by both directions.
+    w_hh_b, b_b, schedule, res_bf16, source) -> (h_f, h_b)`` (``x1``/``m1``
+    None for a one-part input; the ``_b`` weights None for a unidirectional
+    layer, which returns ``(h_f,)``). The masks, or the
+    :class:`~eegflow_torch.nn.philox.PhiloxSource` ``source`` in their place
+    (``m0``, ``m1`` None), are shared by both directions.
     ``kernel`` picks the CUDA wrappers or their twins; ``schedule`` one of
     :data:`LSTM_BWD_SCHEDULES` (see the module docstring). Under ``"fused"``
     and ``"two_pass"`` the backward runs the forward direction's adjoint,
@@ -777,9 +831,11 @@ class BiLSTMLayer(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, kernel, keep, m0, m1, x0, x1, w_ih_f, w_hh_f, b_f,
-                w_ih_b=None, w_hh_b=None, b_b=None, schedule="fused", res_bf16=False):
+                w_ih_b=None, w_hh_b=None, b_b=None, schedule="fused", res_bf16=False,
+                source=None):
         xs = (x0,) if x1 is None else (x0, x1)
-        masks = None if m0 is None else ((m0,) if x1 is None else (m0, m1))
+        masks = source if source is not None else (
+            None if m0 is None else ((m0,) if x1 is None else (m0, m1)))
         dirs = [(w_ih_f, w_hh_f, b_f, False)]
         if w_ih_b is not None:
             dirs.append((w_ih_b, w_hh_b, b_b, True))
@@ -795,7 +851,7 @@ class BiLSTMLayer(torch.autograd.Function):
                 saved += [res, h]
             outs.append(h)
         ctx.kernel, ctx.keep, ctx.two, ctx.schedule = kernel, keep, x1 is not None, schedule
-        ctx.bidirectional = w_ih_b is not None
+        ctx.bidirectional, ctx.source = w_ih_b is not None, source
         ctx.save_for_backward(x0, x1, m0, m1, w_ih_f, w_hh_f, w_ih_b, w_hh_b, *saved)
         return tuple(outs)
 
@@ -803,7 +859,8 @@ class BiLSTMLayer(torch.autograd.Function):
     def backward(ctx, *grads):
         x0, x1, m0, m1, w_ih_f, w_hh_f, w_ih_b, w_hh_b, *saved = ctx.saved_tensors
         xs = (x0, x1) if ctx.two else (x0,)
-        masks = None if m0 is None else ((m0, m1) if ctx.two else (m0,))
+        masks = ctx.source if ctx.source is not None else (
+            None if m0 is None else ((m0, m1) if ctx.two else (m0,)))
         grads = [gr.contiguous() for gr in grads]
         dwih_b = dwhh_b = db_b = None
         if ctx.schedule == "dualdir":
@@ -824,12 +881,13 @@ class BiLSTMLayer(torch.autograd.Function):
                 dxs, dwih_b, dwhh_b, db_b = bwd(*saved[per_dir:], grads[1], xs, w_ih_b,
                                                 w_hh_b, True, masks, ctx.keep, dxs)
         return (None, None, None, None, dxs[0], dxs[1] if ctx.two else None,
-                dwih_f, dwhh_f, db_f, dwih_b, dwhh_b, db_b, None, None)
+                dwih_f, dwhh_f, db_f, dwih_b, dwhh_b, db_b, None, None, None)
 
 
 def bilstm_layer(layer: Mapping, xs: Parts, masks: Masks = None, keep: float = 1.0,
                  kernel: bool = False, bf16: bool = True, *, lstm_bwd: str = "fused",
-                 res_bf16: bool = False) -> Tuple[torch.Tensor, ...]:
+                 res_bf16: bool = False, kernel_dropout: bool = False
+                 ) -> Tuple[torch.Tensor, ...]:
     """One layer of the stack (``{"fwd": ..., "bwd": ...}`` params) over input
     parts, differentiable through :class:`BiLSTMLayer` (the bf16 policy) or
     :class:`BiLSTMLayerF32` (``bf16=False``) -> output parts.
@@ -838,11 +896,21 @@ def bilstm_layer(layer: Mapping, xs: Parts, masks: Masks = None, keep: float = 1
     (:data:`LSTM_BWD_SCHEDULES`); the float32 policy has only ``"fused"``.
     Under ``"dualdir"`` the layer must be bidirectional and takes no masks:
     its parts come already dropped by :func:`select_dropout` with ``keep``.
-    ``res_bf16`` (bf16): the residuals in bf16.
+    ``res_bf16`` (bf16): the residuals in bf16. ``kernel_dropout`` (bf16,
+    ``"fused"`` or ``"two_pass"``): ``masks`` is a
+    :class:`~eegflow_torch.nn.philox.PhiloxSource` with one stream per part,
+    whose bits the kernels draw in place of the uint8 masks.
     """
     pf, pb = layer["fwd"], (layer["bwd"] if "bwd" in layer else None)
-    check_lstm_bwd(lstm_bwd, bf16, pb is not None, res_bf16=res_bf16)
+    check_lstm_bwd(lstm_bwd, bf16, pb is not None, res_bf16=res_bf16,
+                   kernel_dropout=kernel_dropout)
     xs = as_parts(xs)
+    source = None
+    if kernel_dropout != isinstance(masks, PhiloxSource):
+        raise ValueError("kernel_dropout takes a PhiloxSource in place of the masks, and "
+                         "only then")
+    if kernel_dropout:
+        source, masks = masks, None
     ms = _mask_list(masks, len(xs))
     two = len(xs) == 2
     if lstm_bwd == "dualdir" and any(m is not None for m in ms):
@@ -857,7 +925,8 @@ def bilstm_layer(layer: Mapping, xs: Parts, masks: Masks = None, keep: float = 1
     if pb is None:
         weights += [None, None, None]
     return BiLSTMLayer.apply(kernel, float(keep), ms[0], ms[1] if two else None,
-                             xs[0], xs[1] if two else None, *weights, lstm_bwd, res_bf16)
+                             xs[0], xs[1] if two else None, *weights, lstm_bwd, res_bf16,
+                             source)
 
 
 # ---------------------------------------------------------------------------

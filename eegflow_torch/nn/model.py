@@ -64,10 +64,21 @@ reference's ``EEGFLOW_FWD_DROPW=2`` (the producing kernels write the
 dropped copies, the consumers recover the masks from their zeros) draws the
 same masks and gives the same loss and gradients as the mask path above,
 which is its counterpart here.
+
+``kernel_dropout`` (the bf16 policy under ``"fused"`` or ``"two_pass"``):
+the stack's dropout comes from the Philox bits kernels 2, 3 and 3b draw
+from a per-step key (:mod:`eegflow_torch.nn.philox`; ``masks.key``), with
+no mask tensor in device memory: the reference's in-kernel PRNG dropout
+(``EEGFLOW_KERNEL_DROPOUT=1``, the default mode 1 of ``EEGFLOW_FWD_DROPW``,
+the input block's ``out_seed``), whose TPU bits no other device reproduces.
+Stream 0 drops the stack's input, stream 1 + 2 l + p part p of layer l's
+output; the head keeps its generator masks. On the same bits
+(:func:`expand_dropout_masks`) it is the mask path's function bit for bit.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 from dataclasses import dataclass
 from typing import Dict, Mapping, Optional, Sequence, Tuple, Union
@@ -87,6 +98,7 @@ from eegflow_torch.nn.cuda_lstm import (bilstm_layer, check_lstm_bwd, counter,
 from eegflow_torch.nn.layers import (dense_apply, dense_init, dropout, dropout_mask, gelu,
                                      layer_norm_apply, layer_norm_init)
 from eegflow_torch.nn.lstm import bilstm_stack_init
+from eegflow_torch.nn.philox import PhiloxSource, philox_keep_mask
 
 LSTM_IMPLS = ("auto", "kernel", "plain")
 
@@ -110,21 +122,36 @@ class DropoutMasks:
     output parts of layer i (one (B, T, H) mask per direction), rate d, for
     every layer but the last. ``head1`` (B, H) and ``head2`` (B, H/2): after
     the first two head layers, rate d.
+
+    With ``kernel_dropout`` the stack's masks are not drawn (``input`` None,
+    ``layers`` empty): ``key``, a (2,) int32 tensor on the device, keys the
+    Philox bits the LSTM kernels draw, and ``row_offset`` is the global row
+    of the batch's first row (a mesh rank's offset). ``key`` is the whole
+    batch's on every rank: ``shard_batch`` replicates it.
     """
 
     input: Optional[torch.Tensor] = None
     layers: Tuple[Tuple[torch.Tensor, ...], ...] = ()
     head1: Optional[torch.Tensor] = None
     head2: Optional[torch.Tensor] = None
+    key: Optional[torch.Tensor] = dataclasses.field(default=None,
+                                                    metadata={"replicated": True})
+    row_offset: int = 0
 
 
 def draw_dropout_masks(config: ModelConfig, batch: int, steps: int, gen: torch.Generator,
-                       device: Optional[Union[torch.device, str]] = None) -> DropoutMasks:
+                       device: Optional[Union[torch.device, str]] = None, *,
+                       kernel_dropout: bool = False) -> DropoutMasks:
     """All keep-masks of one training forward, drawn from ``gen`` (a generator
     on ``device``) in a fixed order; no masks when ``config.dropout`` is 0.
-    A ``TransformerConfig`` gets its own record
-    (:func:`~eegflow_torch.nn.transformer.draw_transformer_masks`)."""
+    ``kernel_dropout``: the Philox key of the stack's in-kernel dropout
+    (two 32-bit words, drawn on ``device``: no host sync), then the head's
+    masks. A ``TransformerConfig`` gets its own record
+    (:func:`~eegflow_torch.nn.transformer.draw_transformer_masks`), and has
+    no in-kernel dropout."""
     if isinstance(config, TransformerConfig):
+        if kernel_dropout:
+            raise ValueError("kernel_dropout is the LSTM stack's; the EEGFormer has none")
         from eegflow_torch.nn.transformer import draw_transformer_masks
 
         return draw_transformer_masks(config, batch, steps, gen, device)
@@ -137,12 +164,43 @@ def draw_dropout_masks(config: ModelConfig, batch: int, steps: int, gen: torch.G
     def draw(rate, *shape):
         return dropout_mask(gen, rate, shape, device)
 
+    if kernel_dropout:
+        key = torch.randint(-2 ** 31, 2 ** 31, (2,), generator=gen, device=device,
+                            dtype=torch.int32)
+        return DropoutMasks(key=key, head1=draw(d, batch, hidden),
+                            head2=draw(d, batch, hidden // 2))
     return DropoutMasks(
         input=draw(d / 2, batch, steps, hidden),
         layers=tuple(tuple(draw(d, batch, steps, hidden) for _ in range(n_dir))
                      for _ in range(config.num_layers - 1)),
         head1=draw(d, batch, hidden),
         head2=draw(d, batch, hidden // 2))
+
+
+def _stack_sources(masks: DropoutMasks, n_dir: int,
+                   num_layers: int) -> Tuple[PhiloxSource, ...]:
+    """The Philox source of each layer's input parts: stream 0 for the
+    stack's input, 1 + 2 l + p for part p of layer l's output."""
+    return tuple(PhiloxSource(masks.key, (0,) if idx == 0 else
+                              tuple(1 + 2 * (idx - 1) + p for p in range(n_dir)),
+                              masks.row_offset)
+                 for idx in range(num_layers))
+
+
+def expand_dropout_masks(masks: DropoutMasks, config: ModelConfig, batch: int,
+                         steps: int) -> DropoutMasks:
+    """The mask-path record of a ``kernel_dropout`` draw: the stack's masks
+    the kernels draw from ``masks.key`` (bool, on its device) for these
+    ``batch`` rows from ``masks.row_offset`` on, and its head masks."""
+    d, hidden = config.dropout, config.resolved_hidden()
+    n_dir = 2 if config.bidirectional else 1
+    shape = (batch, steps, hidden)
+    keep = lambda idx: 1.0 - (d / 2 if idx == 0 else d)  # noqa: E731
+    parts = [tuple(philox_keep_mask(src.key, s, shape, keep(idx), src.row_offset)
+                   for s in src.streams)
+             for idx, src in enumerate(_stack_sources(masks, n_dir, config.num_layers))]
+    return DropoutMasks(input=parts[0][0], layers=tuple(parts[1:]), head1=masks.head1,
+                        head2=masks.head2)
 
 
 def classifier_init(config: ModelConfig, gen: Optional[torch.Generator] = None,
@@ -201,7 +259,16 @@ def _stack_train(layers, h: torch.Tensor, kernel: bool, bf16: bool,
     (:class:`~eegflow_torch.nn.cuda_lstm.BiLSTMLayer` under bf16,
     :class:`~eegflow_torch.nn.cuda_lstm.BiLSTMLayerF32` under float32), as
     feature parts; each layer applies the dropout of its input as masks, or
-    under ``"dualdir"`` reads parts dropped by ``select_dropout``."""
+    from the Philox key (``masks.key``), or under ``"dualdir"`` reads parts
+    dropped by ``select_dropout``."""
+    if masks is not None and masks.key is not None:
+        sources = _stack_sources(masks, 2 if "bwd" in layers[0] else 1, len(layers))
+        parts = (h,)
+        for idx, (layer, src) in enumerate(zip(layers, sources)):
+            parts = bilstm_layer(layer, parts, src, 1.0 - (rate / 2 if idx == 0 else rate),
+                                 kernel, bf16, lstm_bwd=lstm_bwd, res_bf16=res_bf16,
+                                 kernel_dropout=True)
+        return parts
     part_masks, keep = None, 1.0
     if masks is not None and masks.input is not None:
         part_masks, keep = (masks.input,), 1.0 - rate / 2
@@ -230,6 +297,7 @@ def classifier_apply(
     masks: Optional[DropoutMasks] = None,
     lstm_bwd: str = "fused",
     res_bf16: bool = False,
+    kernel_dropout: bool = False,
 ) -> Union[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """(B, T, C) windows -> (B, num_classes) logits (+ attention (B, T)).
 
@@ -239,11 +307,16 @@ def classifier_apply(
     ``lstm_bwd`` picks the stack's backward schedule (module docstring);
     any value but ``"fused"`` needs the bf16 policy, and ``"dualdir"`` a
     bidirectional stack. ``res_bf16``: the bf16 stack's residuals in bf16
-    (module docstring). A ``TransformerConfig`` runs the EEGFormer
-    (:func:`~eegflow_torch.nn.transformer.transformer_apply`, which has no
-    LSTM and so neither option).
+    (module docstring). ``kernel_dropout``: ``masks`` (from
+    ``draw_dropout_masks(..., kernel_dropout=True)``) carry the Philox key
+    of the stack's in-kernel dropout (module docstring); the bf16 policy
+    under ``"fused"`` or ``"two_pass"`` only. A ``TransformerConfig`` runs
+    the EEGFormer (:func:`~eegflow_torch.nn.transformer.transformer_apply`,
+    which has no LSTM and so none of these options).
     """
     if isinstance(config, TransformerConfig):
+        if kernel_dropout:
+            raise ValueError("kernel_dropout is the LSTM stack's; the EEGFormer has none")
         from eegflow_torch.nn.transformer import transformer_apply
 
         return transformer_apply(params, x, config, return_attention, compute_dtype,
@@ -251,10 +324,14 @@ def classifier_apply(
     if compute_dtype not in (None, torch.bfloat16):
         raise ValueError(f"unsupported compute_dtype {compute_dtype}")
     bf16 = compute_dtype == torch.bfloat16
-    check_lstm_bwd(lstm_bwd, bf16, config.bidirectional, res_bf16=res_bf16)
+    check_lstm_bwd(lstm_bwd, bf16, config.bidirectional, res_bf16=res_bf16,
+                   kernel_dropout=kernel_dropout)
     kernel = resolve_lstm_impl(lstm_impl, x.device) == "kernel"
     rate = config.dropout
     masks = masks if train else None
+    if masks is not None and (masks.key is not None) != (kernel_dropout and rate > 0.0):
+        raise ValueError("kernel_dropout takes the masks draw_dropout_masks(..., "
+                         "kernel_dropout=True) draws, and only then")
 
     h = input_block(params["input_proj"], params["input_norm"],
                     x.to(torch.float32).contiguous(), bf16, kernel)
@@ -297,20 +374,22 @@ def classifier_apply(
 
 
 def train_step_launches(config: ModelConfig, lstm_bwd: str = "fused",
-                        res_bf16: bool = False) -> Dict[str, int]:
+                        res_bf16: bool = False, kernel_dropout: bool = False) -> Dict[str, int]:
     """The kernel launches of one bf16 training micro-step of the LSTM
     classifier ``config`` on the kernel path, by counter name
     (:data:`eegflow_torch.kernels.launch_counts`): the input block's two,
     each layer-direction's forward and backward under the schedule
     ``lstm_bwd`` (one backward a layer under ``"dualdir"``) on float32 or
-    bf16 residuals, and the pool head's two with attention."""
+    bf16 residuals, with the Philox dropout (``kernel_dropout`` and a
+    dropout rate above 0) or not, and the pool head's two with attention."""
     dirs = 2 if config.bidirectional else 1
     fwd = "lstm_fwd_train_gates" if lstm_bwd == "two_pass" else "lstm_fwd_train"
     bwd = {"fused": "lstm_bwd", "two_pass": "lstm_bwd_v2", "dualdir": "lstm_bwd_dualdir"}[lstm_bwd]
+    philox = kernel_dropout and config.dropout > 0.0
     launches = {"input_block_fwd": 1, "input_block_bwd": 1,
-                counter(fwd, res_bf16): config.num_layers * dirs,
-                counter(bwd, res_bf16): config.num_layers * (1 if lstm_bwd == "dualdir"
-                                                             else dirs)}
+                counter(fwd, res_bf16, philox): config.num_layers * dirs,
+                counter(bwd, res_bf16, philox): config.num_layers * (1 if lstm_bwd == "dualdir"
+                                                                     else dirs)}
     if config.use_attention:
         launches.update(pool_head_fwd=1, pool_head_bwd=1)
     return launches

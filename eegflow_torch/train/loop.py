@@ -105,7 +105,8 @@ def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray
                      checkpoint_every: int = 10,
                      resume_from: Optional[Union[str, Path]] = None,
                      epoch_transform: Optional[Callable] = None,
-                     mesh: Optional[DataMesh] = None) -> TrainResult:
+                     mesh: Optional[DataMesh] = None,
+                     kernel_dropout: bool = False) -> TrainResult:
     """Full training run -> best params + history (either model family).
 
     Weights come from ``classifier_init`` with a generator seeded by
@@ -150,6 +151,14 @@ def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray
     writes the snapshots; every rank resumes from the same one. An
     ``epoch_transform`` with a mesh raises ``ValueError``, as the JAX
     package's does.
+
+    ``kernel_dropout`` (the LSTM classifier under the bf16 policy): the
+    stack's dropout is the in-kernel Philox dropout, its key drawn each step
+    from the same generator in place of the stack's masks
+    (``draw_dropout_masks(..., kernel_dropout=True)``), so a resumed run
+    draws the same keys; under a mesh every rank takes the whole batch's
+    key and its own rows' offset (``make_train_step``), so a mesh run draws
+    the masks of the run without one.
     """
     t_start = time.time()
     if mesh is not None and epoch_transform is not None:
@@ -174,7 +183,8 @@ def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray
             resume_payload = (resume_history, extra, ckpt_best_params)
 
     cw = torch.from_numpy(class_weight_array(y_train, model_cfg.num_classes)).to(device)
-    step = make_train_step(model_cfg, train_cfg, optimizer, class_weights=cw, mesh=mesh)
+    step = make_train_step(model_cfg, train_cfg, optimizer, class_weights=cw, mesh=mesh,
+                           kernel_dropout=kernel_dropout)
     eval_step = make_eval_step(model_cfg, bf16=train_cfg.bf16, lstm_impl=train_cfg.lstm_impl)
     drop_gen = torch.Generator(device=device)
 
@@ -230,7 +240,8 @@ def train_classifier(x_train: np.ndarray, y_train: np.ndarray, x_val: np.ndarray
                    else shard_batch(sel, mesh))
             xb = x_train_dev.index_select(0, sel)
             yb = y_train_dev.index_select(0, sel)
-            masks = draw_dropout_masks(model_cfg, bs, steps, drop_gen, device)
+            masks = draw_dropout_masks(model_cfg, bs, steps, drop_gen, device,
+                                       kernel_dropout=kernel_dropout)
             if mesh is not None:
                 masks = shard_batch(masks, mesh)
             metrics = step(params, xb, yb, masks)

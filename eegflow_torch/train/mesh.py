@@ -110,20 +110,25 @@ def make_data_mesh(n_devices: Optional[int] = None, axis_name: str = "data",
     return mesh
 
 
-def _map_leaves(fn: Callable, tree: Any) -> Any:
+def _map_leaves(fn: Callable, tree: Any, whole: Optional[Callable] = None) -> Any:
     """``tree`` with ``fn`` applied to each tensor or numpy array in it
-    (tuples, lists, dicts and dataclasses walked; None kept)."""
-    if tree is None:
-        return None
+    (tuples, lists, dicts and dataclasses walked; None, ints and floats
+    kept). A dataclass field whose metadata marks it ``replicated`` (such as
+    :class:`~eegflow_torch.nn.model.DropoutMasks`' Philox key) takes
+    ``whole`` instead, where one is given."""
+    if tree is None or isinstance(tree, (bool, int, float)):
+        return tree
     if isinstance(tree, (torch.Tensor, np.ndarray)):
         return fn(tree)
     if isinstance(tree, (tuple, list)):
-        return type(tree)(_map_leaves(fn, t) for t in tree)
+        return type(tree)(_map_leaves(fn, t, whole) for t in tree)
     if isinstance(tree, dict):
-        return {k: _map_leaves(fn, v) for k, v in tree.items()}
+        return {k: _map_leaves(fn, v, whole) for k, v in tree.items()}
     if dataclasses.is_dataclass(tree):
-        return dataclasses.replace(tree, **{f.name: _map_leaves(fn, getattr(tree, f.name))
-                                            for f in dataclasses.fields(tree)})
+        return dataclasses.replace(tree, **{
+            f.name: _map_leaves(whole if whole is not None and f.metadata.get("replicated")
+                                else fn, getattr(tree, f.name), whole)
+            for f in dataclasses.fields(tree)})
     raise TypeError(f"shard_batch: cannot shard a {type(tree).__name__}")
 
 
@@ -132,7 +137,9 @@ def shard_batch(batch: Any, mesh: DataMesh) -> Any:
     array in ``batch`` (tuples, lists, dicts and dataclasses such as
     :class:`~eegflow_torch.nn.model.DropoutMasks` walked), as tensors on
     the rank's device: rows ``[r n / W, (r + 1) n / W)`` for rank r of W.
-    A leading axis that W does not divide raises ``ValueError``."""
+    A dataclass field marked ``replicated`` (the masks' Philox key) goes to
+    the device whole. A leading axis that W does not divide raises
+    ``ValueError``."""
     def block(a):
         n = a.shape[0]
         if n % mesh.world_size:
@@ -144,7 +151,11 @@ def shard_batch(batch: Any, mesh: DataMesh) -> Any:
             a = torch.from_numpy(np.ascontiguousarray(a))
         return a.to(mesh.device)
 
-    return _map_leaves(block, batch)
+    def whole(a):
+        return (torch.from_numpy(np.ascontiguousarray(a)) if isinstance(a, np.ndarray)
+                else a).to(mesh.device)
+
+    return _map_leaves(block, batch, whole)
 
 
 @torch.no_grad()
@@ -205,7 +216,8 @@ def reduce_gradients(params: Sequence[torch.Tensor], mesh: DataMesh, loss: torch
 
 def make_spmd_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer,
                          mesh: DataMesh, class_weights: Optional[torch.Tensor] = None,
-                         lstm_bwd: str = "fused", *, res_bf16: bool = False) -> Callable:
+                         lstm_bwd: str = "fused", *, res_bf16: bool = False,
+                         kernel_dropout: bool = False) -> Callable:
     """The JAX package's explicit step: ``step(params, x, y, masks) ->
     {"loss", "correct", "count"}`` on this rank's shard ``x``, ``y`` and its
     rows of the dropout ``masks``. Each rank takes the weighted mean of its
@@ -214,8 +226,16 @@ def make_spmd_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimiz
     the mean of the ranks' losses and ``correct`` their sum. Under class
     weights this is not :func:`~eegflow_torch.train.steps.make_train_step`'s
     function (see the module docstring). ``lstm_bwd`` and ``res_bf16`` as in
-    ``make_train_step``."""
+    ``make_train_step``. ``kernel_dropout`` raises ``ValueError``: the JAX
+    package's explicit step gives every shard the same dropout key, and
+    that step's in-kernel masks are not ported (the implicit step,
+    ``make_train_step(mesh=, kernel_dropout=True)``, draws the one-process
+    step's)."""
     from eegflow_torch.train.steps import _make_step
+
+    if kernel_dropout:
+        raise ValueError("make_spmd_train_step does not take kernel_dropout; use "
+                         "make_train_step(mesh=..., kernel_dropout=True)")
 
     return _make_step(model_cfg, train_cfg, optimizer, class_weights, None, lstm_bwd, mesh,
                       explicit=True, res_bf16=res_bf16)

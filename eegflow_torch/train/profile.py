@@ -3,13 +3,16 @@
 
     python -m eegflow_torch.train.profile [--impl kernel|plain] [--policy bf16|float32]
                                           [--bwd fused|two_pass|dualdir] [--res-bf16]
-                                          [--batch N] [--infer] [--trace DIR]
+                                          [--kernel-dropout] [--batch N] [--infer]
+                                          [--trace DIR]
 
 Runs the full-width classifier (``ModelConfig()``, B=512, T=256, the bf16
 policy or, with ``--policy float32``, ``TrainConfig(bf16=False)``; random
 weights and windows from a seed; ``--bwd`` picks the bf16 stack's backward
-schedule, ``make_train_step(..., lstm_bwd=...)``, and ``--res-bf16`` its
-bf16 residuals; ``--batch`` another batch than 512) through one forward +
+schedule, ``make_train_step(..., lstm_bwd=...)``, ``--res-bf16`` its
+bf16 residuals and ``--kernel-dropout`` its in-kernel Philox dropout, the
+key drawn each step in place of the stack's masks; ``--batch`` another
+batch than 512) through one forward +
 backward + optimizer micro-step after two warm-up steps, and prints the
 step's wall time, the share of it in which the device was busy (the union of
 the device-side intervals: kernels, copies, memsets), the device time by
@@ -67,6 +70,9 @@ def main(argv=None) -> int:
     parser.add_argument("--bwd", default="fused", choices=["fused", "two_pass", "dualdir"])
     parser.add_argument("--res-bf16", action="store_true",
                         help="bf16 residuals in the LSTM kernels (bf16 only)")
+    parser.add_argument("--kernel-dropout", action="store_true",
+                        help="the LSTM stack's dropout drawn in the kernels from a Philox key "
+                             "(bf16, fused or two_pass)")
     parser.add_argument("--batch", type=int, default=BATCH, help="the micro-step's windows")
     parser.add_argument("--infer", action="store_true")
     parser.add_argument("--trace", default=None)
@@ -103,21 +109,22 @@ def main(argv=None) -> int:
         train_cfg = TrainConfig(lstm_impl=args.impl, bf16=args.policy == "bf16")
         opt = make_optimizer(list(params.parameters()), train_cfg, updates_per_epoch=1)
         step = make_train_step(cfg, train_cfg, opt, lstm_bwd=args.bwd,
-                               res_bf16=args.res_bf16)
+                               res_bf16=args.res_bf16, kernel_dropout=args.kernel_dropout)
         x = torch.from_numpy(rng.standard_normal((args.batch, STEPS, cfg.input_size),
                                                  dtype=np.float32)).to(dev)
         y = torch.from_numpy(rng.integers(0, 2, args.batch)).to(dev)
         gen = torch.Generator(device=dev).manual_seed(0)
 
         def one_step():
-            step(params, x, y, draw_dropout_masks(cfg, args.batch, STEPS, gen, dev))
+            step(params, x, y, draw_dropout_masks(cfg, args.batch, STEPS, gen, dev,
+                                                  kernel_dropout=args.kernel_dropout))
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
                           timeout=60).stdout.strip()
     what = (f"predict_batch B={BUCKET} T={STEPS} impl={args.impl}" if args.infer else
             f"micro-step B={args.batch} T={STEPS} impl={args.impl} policy={args.policy} "
-            f"bwd={args.bwd} res_bf16={args.res_bf16}")
+            f"bwd={args.bwd} res_bf16={args.res_bf16} kernel_dropout={args.kernel_dropout}")
     try:
         one_step()
         torch.cuda.synchronize()

@@ -44,6 +44,7 @@ into ``acc_grads`` since the last update.
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, Optional, Sequence, Union
 
 import numpy as np
@@ -196,15 +197,17 @@ def make_optimizer(params: Sequence[torch.Tensor], train_cfg: TrainConfig,
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: AdamW,
                     class_weights: Optional[torch.Tensor] = None,
                     lstm_impl: Optional[str] = None, *, lstm_bwd: str = "fused",
-                    res_bf16: bool = False, mesh: Optional[DataMesh] = None) -> Callable:
+                    res_bf16: bool = False, mesh: Optional[DataMesh] = None,
+                    kernel_dropout: bool = False) -> Callable:
     """``step(params, x, y, masks) -> {"loss", "correct", "count"}``: forward
     in training mode with the dropout ``masks``, weighted cross-entropy,
     backward, optimizer step (the parameters change in place on every
     ``accumulation_steps``-th call). ``loss`` and ``correct`` stay on the
     device. ``lstm_bwd``: the LSTM stack's backward schedule, and
-    ``res_bf16`` its bf16 residuals (``classifier_apply``; the EEGFormer has
-    neither); not ``TrainConfig`` fields, whose fields stay the JAX
-    package's.
+    ``res_bf16`` its bf16 residuals, ``kernel_dropout`` its in-kernel
+    Philox dropout with the masks of ``draw_dropout_masks(...,
+    kernel_dropout=True)`` (``classifier_apply``; the EEGFormer has none of
+    them); not ``TrainConfig`` fields, whose fields stay the JAX package's.
 
     ``mesh`` (:class:`~eegflow_torch.train.mesh.DataMesh`): ``x``, ``y``
     and ``masks`` are this rank's shard of the batch, and the step computes
@@ -214,21 +217,29 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimizer: A
     gradients are summed over the ranks in one all-reduce before the
     optimizer step. ``loss`` is the whole batch's, ``correct`` and
     ``count`` the mesh's sums. With class weights, at world size 1 it is
-    the step without a mesh bit for bit."""
+    the step without a mesh bit for bit. With ``kernel_dropout`` every rank
+    takes the whole batch's Philox key and the step sets the masks'
+    ``row_offset`` to the rank's first row (rank x its rows), so the ranks
+    draw the one-process step's masks."""
     return _make_step(model_cfg, train_cfg, optimizer, class_weights, lstm_impl, lstm_bwd,
-                      mesh, explicit=False, res_bf16=res_bf16)
+                      mesh, explicit=False, res_bf16=res_bf16, kernel_dropout=kernel_dropout)
 
 
 def _make_step(model_cfg, train_cfg: TrainConfig, optimizer: AdamW,
                class_weights: Optional[torch.Tensor], lstm_impl: Optional[str], lstm_bwd: str,
-               mesh: Optional[DataMesh], explicit: bool, res_bf16: bool = False) -> Callable:
+               mesh: Optional[DataMesh], explicit: bool, res_bf16: bool = False,
+               kernel_dropout: bool = False) -> Callable:
     """The step of :func:`make_train_step` (``explicit=False``) or of
     :func:`~eegflow_torch.train.mesh.make_spmd_train_step` (``explicit``:
     each rank's own weighted mean, the gradients averaged)."""
     compute_dtype = torch.bfloat16 if train_cfg.bf16 else None
     impl = lstm_impl or train_cfg.lstm_impl
-    if not isinstance(model_cfg, TransformerConfig):
-        check_lstm_bwd(lstm_bwd, train_cfg.bf16, model_cfg.bidirectional, res_bf16=res_bf16)
+    if isinstance(model_cfg, TransformerConfig):
+        if kernel_dropout:
+            raise ValueError("kernel_dropout is the LSTM stack's; the EEGFormer has none")
+    else:
+        check_lstm_bwd(lstm_bwd, train_cfg.bf16, model_cfg.bidirectional, res_bf16=res_bf16,
+                       kernel_dropout=kernel_dropout)
 
     def step(params, x: torch.Tensor, y: torch.Tensor,
              masks: Optional[DropoutMasks]) -> Dict[str, object]:
@@ -238,9 +249,11 @@ def _make_step(model_cfg, train_cfg: TrainConfig, optimizer: AdamW,
             denominator = all_reduce_sum(
                 torch.tensor(float(y.shape[0]), device=y.device) if class_weights is None
                 else class_weights[y.long()].sum(), mesh)
+        if mesh is not None and kernel_dropout and masks is not None and masks.key is not None:
+            masks = dataclasses.replace(masks, row_offset=mesh.rank * int(x.shape[0]))
         logits = classifier_apply(params, x, model_cfg, compute_dtype=compute_dtype,
                                   lstm_impl=impl, train=True, masks=masks, lstm_bwd=lstm_bwd,
-                                  res_bf16=res_bf16)
+                                  res_bf16=res_bf16, kernel_dropout=kernel_dropout)
         loss = cross_entropy_loss(logits, y, class_weights, denominator)
         loss.backward()
         correct = (logits.detach().argmax(-1) == y).sum()

@@ -112,6 +112,33 @@ def steps(rank, case):
     return out
 
 
+def philox_steps(rank, case):
+    """One bf16 ``make_train_step(mesh=, kernel_dropout=True)`` step on this
+    rank's shard of ``case``'s batch with the whole batch's Philox key (the
+    step sets the rank's row offset), and the mesh's mask-path step on the
+    rank's rows of the masks that key expands to, from the same params."""
+    from eegflow_torch.nn.model import DropoutMasks, expand_dropout_masks
+
+    mesh = make_data_mesh(devices=[case["device"]] * case["world"])
+    model_cfg, train_cfg = ModelConfig(**case["model"]), TrainConfig(**case["train"])
+    cw = torch.from_numpy(case["cw"]).to(mesh.device)
+    x, y = shard_batch((case["x"], case["y"]), mesh)
+    masks = DropoutMasks(key=torch.from_numpy(case["key"]), head1=torch.from_numpy(case["head1"]),
+                         head2=torch.from_numpy(case["head2"]))
+    whole = expand_dropout_masks(masks, model_cfg, *case["x"].shape[:2])
+    out = {}
+    for kind, (m, kernel_dropout) in {"philox": (masks, True), "masks": (whole, False)}.items():
+        params = params_from_jax(case["params"], mesh.device, trainable=True)
+        step = make_train_step(model_cfg, train_cfg,
+                               make_optimizer(list(params.parameters()), train_cfg,
+                                              updates_per_epoch=1),
+                               class_weights=cw, mesh=mesh, kernel_dropout=kernel_dropout)
+        metrics = step(params, x, y, shard_batch(m, mesh))
+        out[kind] = {"loss": float(metrics["loss"]), "grads": _grads(params),
+                     "params": params_to_jax(params)}
+    return out
+
+
 def inference(rank, case):
     """predict_probs, predict_batch, the coupling sweep, the permutation
     importance (sharded and not) and the forecasts, all with the mesh."""

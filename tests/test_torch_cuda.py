@@ -29,7 +29,8 @@ from eegflow_torch.nn.cuda_lstm import (counter, lstm_bwd, lstm_bwd_dualdir,
                                         lstm_recurrence_backward_plain, lstm_recurrence_plain)
 from eegflow_torch.nn.losses import cross_entropy_loss
 from eegflow_torch.nn.model import (classifier_apply, classifier_init, draw_dropout_masks,
-                                    train_step_launches)
+                                    expand_dropout_masks, train_step_launches)
+from eegflow_torch.nn.philox import PhiloxSource, philox_keep_mask
 from eegflow_torch.ode.cuda_ode import (rk4_fit_loss, rk4_fit_loss_plain, rk4_trajectory,
                                         rk4_trajectory_plain, step_sizes)
 from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
@@ -1488,3 +1489,124 @@ def test_mesh_two_gloo_ranks_on_one_card_match_the_single_process_step(dev):
         assert r["eval_launches"] == {"input_block_fwd": 1, "lstm_fwd": 6, "pool_head_fwd": 1}
         rows = r["mesh"]["params"]
         assert torch.equal(rows[0], rows[1])
+
+
+# The in-kernel Philox dropout of kernels 2, 3 and 3b (kernel_dropout): each
+# mode against its twin (which expands the key into uint8 masks), a bitwise
+# repeat, and the same kernel on those expanded masks, bit for bit: the bit
+# replaces the mask byte and nothing else changes. Streams above 0 and a row
+# offset (a mesh rank's) on the reverse direction.
+PHILOX_FWD = {"planes": (lstm_fwd_train, lstm_fwd_train_plain, "lstm_fwd_train"),
+              "gates": (lstm_fwd_train_gates, lstm_fwd_train_gates_plain,
+                        "lstm_fwd_train_gates")}
+
+
+def _philox_case(seed, n_parts, batch, hidden, dev, d_part, steps, reverse):
+    gen = make_generator(seed)
+    w_ih, w_hh, b, xs, _, keep = _lstm_case(gen, n_parts, batch, hidden, dev, d_part=d_part,
+                                            steps=steps)
+    key = torch.randint(-2 ** 31, 2 ** 31, (2,), generator=gen, dtype=torch.int32).to(dev)
+    src = PhiloxSource(key, tuple(3 + p for p in range(n_parts)), batch if reverse else 0)
+    return gen, w_ih, w_hh, b, xs, keep, src
+
+
+def test_philox_twin_draws_the_same_bits_on_the_card_as_on_the_cpu(dev):
+    key = torch.tensor([-123456789, 987654321], dtype=torch.int32)
+    for stream, shape, offset in ((0, (17, 40, 61), 0), (5, (64, 7, 256), 64), (2, (3, 5, 37), 9)):
+        want = philox_keep_mask(key, stream, shape, 0.6, offset)
+        got = philox_keep_mask(key.to(dev), stream, shape, 0.6, offset)
+        assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.parametrize("res_bf16", [False, True])
+@pytest.mark.parametrize("mode", list(PHILOX_FWD))
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch,hidden,steps,d_part", CLUSTER_CASES)
+def test_cluster_lstm_fwd_philox_matches_twin_and_the_expanded_masks(
+        dev, res_bf16, mode, n_parts, reverse, batch, hidden, steps, d_part):
+    kfn, pfn, name = PHILOX_FWD[mode]
+    _, w_ih, w_hh, b, xs, keep, src = _philox_case(110 + n_parts, n_parts, batch, hidden, dev,
+                                                   d_part, steps, reverse)
+    args = (xs, w_ih, b, w_hh, reverse, src, keep)
+    label = counter(name, res_bf16, philox=True)
+    before = kernels.launch_counts[label]
+    got, again = kfn(*args, res_bf16=res_bf16), kfn(*args, res_bf16=res_bf16)
+    assert kernels.launch_counts[label] == before + 2
+    want = pfn(*args, res_bf16=res_bf16)
+    on_masks = kfn(*args[:5], src.masks(xs, keep), keep, res_bf16=res_bf16)
+    torch.cuda.synchronize()
+    for a, a2, w, m in zip(got, again, want, on_masks):
+        tol = dict(atol=LSTM_TOL, rtol=RES16_RTOL if a.dtype == torch.bfloat16 else 0)
+        torch.testing.assert_close(a.float(), w.float(), **tol)
+        assert torch.equal(a, a2) and torch.equal(a, m)
+
+
+@pytest.mark.parametrize("kernel", ["3", "3b"])
+@pytest.mark.parametrize("n_parts", [1, 2])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("batch,hidden,steps,d_part", CLUSTER_CASES)
+def test_cluster_lstm_bwd_philox_matches_twin_and_the_expanded_masks(dev, kernel, n_parts,
+                                                                     reverse, batch, hidden,
+                                                                     steps, d_part):
+    gen, w_ih, w_hh, b, xs, keep, src = _philox_case(120 + n_parts, n_parts, batch, hidden,
+                                                     dev, d_part, steps, reverse)
+    ms = src.masks(xs, keep)
+    if kernel == "3b":
+        h, gates, c = lstm_fwd_train_gates_plain(xs, w_ih, b, w_hh, reverse, ms, keep)
+        kfn, pfn, res, name = lstm_bwd_v2, lstm_bwd_v2_plain, (gates, c), "lstm_bwd_v2"
+    else:
+        h, planes = lstm_fwd_train_plain(xs, w_ih, b, w_hh, reverse, ms, keep)
+        kfn, pfn, res, name = lstm_bwd, lstm_bwd_plain, (planes,), "lstm_bwd"
+    g = 0.1 * _randn(gen, *h.shape, dev=dev)
+    add = tuple(_randn(gen, *x.shape, dev=dev) for x in xs) if reverse else None
+    head, tail = (*res, h, g, xs, w_ih, w_hh, reverse), (keep, add)
+    label = counter(name, philox=True)
+    before = kernels.launch_counts[label]
+    got, again = kfn(*head, src, *tail), kfn(*head, src, *tail)
+    assert kernels.launch_counts[label] == before + 2
+    want = pfn(*head, src, *tail)
+    on_masks = kfn(*head, ms, *tail)
+    torch.cuda.synchronize()
+    flat = lambda out: list(out[0]) + list(out[1:])  # noqa: E731
+    for a, a2, w, m in zip(flat(got), flat(again), flat(want), flat(on_masks)):
+        assert _rel(a, w) <= BWD_REL_TOL
+        assert torch.equal(a, a2) and torch.equal(a, m)
+
+
+@pytest.mark.parametrize("res_bf16", [False, True])
+@pytest.mark.parametrize("lstm_bwd", ["fused", "two_pass"])
+def test_training_micro_step_philox_is_the_mask_path_on_the_expanded_masks(dev, lstm_bwd,
+                                                                           res_bf16):
+    cfg = ModelConfig(input_size=7, hidden_size=64, num_layers=3)
+    params = classifier_init(cfg, make_generator(8), device=dev, trainable=True)
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.standard_normal((9, 32, 7)).astype(np.float32)).to(dev)
+    y = torch.from_numpy(rng.integers(0, 2, 9)).to(dev)
+    masks = draw_dropout_masks(cfg, 9, 32, torch.Generator(device=dev).manual_seed(3), dev,
+                               kernel_dropout=True)
+    expanded = expand_dropout_masks(masks, cfg, 9, 32)
+    leaves = list(params.parameters())
+
+    def step(impl, m, kernel_dropout):
+        for q in leaves:
+            q.grad = None
+        logits = classifier_apply(params, x, cfg, compute_dtype=torch.bfloat16, lstm_impl=impl,
+                                  train=True, masks=m, lstm_bwd=lstm_bwd, res_bf16=res_bf16,
+                                  kernel_dropout=kernel_dropout)
+        loss = cross_entropy_loss(logits, y)
+        loss.backward()
+        return loss.detach(), [q.grad.clone() if q.grad is not None else None for q in leaves]
+
+    kernels.reset_launch_counts()
+    loss_k, grads_k = step("kernel", masks, True)
+    assert dict(kernels.launch_counts) == train_step_launches(cfg, lstm_bwd, res_bf16,
+                                                              kernel_dropout=True)
+    loss_m, grads_m = step("kernel", expanded, False)
+    loss_p, grads_p = step("plain", masks, True)
+    assert torch.equal(loss_k, loss_m) and abs(loss_k.item() - loss_p.item()) <= 1e-3
+    for a, m, c in zip(grads_k, grads_m, grads_p):
+        assert (a is None) == (m is None) == (c is None)
+        if a is not None:
+            assert torch.equal(a, m)
+            assert _rel(a, c) <= STEP_REL_TOL

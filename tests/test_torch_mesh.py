@@ -204,6 +204,57 @@ def test_explicit_step_is_the_jax_explicit_step_and_not_the_implicit_one(step_ca
                                       _leaf(ranks[1]["explicit"]["params"], name))
 
 
+# the bf16 kernel-dropout step on two ranks against one process: the head's
+# products round each rank's half of a weight gradient to bf16 (ROADMAP §3,
+# "A rank's head gradients are rounded to bf16 once a rank"); the rest sums
+# in another order
+PHILOX_MESH_REL_TOL = 2e-3
+PHILOX_MESH_HEAD_REL_TOL = 1e-2
+
+
+def test_kernel_dropout_on_two_ranks_draws_the_one_process_masks():
+    """``make_train_step(mesh=, kernel_dropout=True)`` on two gloo ranks:
+    each rank's step equals the mesh's mask-path step on its rows of the
+    masks the key expands to, bit for bit (the rank's row offset), and the
+    mesh's step is the one-process kernel-dropout step."""
+    from eegflow_torch.nn.model import DropoutMasks
+
+    model = dict(SMALL, dropout=0.4)
+    train = dict(TRAIN, bf16=True, lstm_impl="plain")
+    jp = jax.tree_util.tree_map(np.asarray, jax_init(jax.random.key(24),
+                                                     jcfg.ModelConfig(**model)))
+    rng = np.random.default_rng(24)
+    x = rng.standard_normal((8, 12, 5)).astype(np.float32)
+    y = np.array([0, 0, 0, 1, 1, 1, 1, 0])
+    key = np.array([-555555555, 777777777], np.int32)
+    head1 = rng.random((8, 16)) < 0.6
+    head2 = rng.random((8, 8)) < 0.6
+    case = dict(device="cpu", world=2, model=model, train=train, params=jp, x=x, y=y, cw=CW,
+                key=key, head1=head1, head2=head2)
+    ranks = mw.spawn(mw.philox_steps, case)
+    for r in ranks:
+        assert r["philox"]["loss"] == r["masks"]["loss"]
+        for name, g in r["philox"]["grads"].items():
+            want = r["masks"]["grads"][name]
+            assert (g is None) == (want is None) and (g is None or np.array_equal(g, want)), name
+    params = params_from_jax(jp, trainable=True)
+    tc = tcfg.TrainConfig(**train)
+    step = make_train_step(tcfg.ModelConfig(**model), tc,
+                           make_optimizer(list(params.parameters()), tc, updates_per_epoch=1),
+                           class_weights=torch.from_numpy(CW), kernel_dropout=True)
+    masks = DropoutMasks(key=torch.from_numpy(key), head1=torch.from_numpy(head1),
+                         head2=torch.from_numpy(head2))
+    loss = float(step(params, torch.from_numpy(x), torch.from_numpy(y), masks)["loss"])
+    got = ranks[0]["philox"]
+    assert abs(got["loss"] - loss) <= PHILOX_MESH_REL_TOL * abs(loss)
+    for name, p in params.named_parameters():
+        if p.grad is None or name == "attention.score.b":
+            continue
+        tol = PHILOX_MESH_HEAD_REL_TOL if name in ("head1.w", "head2.w", "head3.w") \
+            else PHILOX_MESH_REL_TOL
+        assert _rel(got["grads"][name], p.grad.numpy()) < tol, name
+
+
 @pytest.fixture(scope="module")
 def inference_case():
     jp = jax.tree_util.tree_map(np.asarray, jax_init(jax.random.key(22),
