@@ -563,6 +563,26 @@ def device_ms(fn, reps):
             for m, e in zip(names, events)}
 
 
+def split_ms(fn, reps, key):
+    """(device ms a call of the kernels whose name holds ``key``, device ms a
+    call of the others) over ``reps`` calls of ``fn`` after a warmup
+    (torch.profiler)."""
+    fn()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    inside = outside = 0.0
+    for e in prof.key_averages():
+        if e.device_time_total > 0:
+            if key in e.key:
+                inside += e.device_time_total
+            else:
+                outside += e.device_time_total
+    return inside / 1e3 / reps, outside / 1e3 / reps
+
+
 def nbytes(*items):
     """Bytes of every tensor in ``items`` (tuples, lists and dicts walked;
     anything else counts 0)."""
@@ -713,7 +733,8 @@ def kernel_check_phase(dev, smi):
     print(f"sos_filtfilt rows={SOS_ROWS} samples={SOS_SAMPLES}: kernel {kernel_ms:.3f} ms, "
           f"plain twin {plain_ms:.1f} ms (one call, host clock to synchronize); chain bound "
           f"{out['sos_chain_ms']:.3f} ms at the {clock[1]:.0f} MHz max SM clock (read "
-          f"{clock[0]:.0f} MHz) [{smi}]", flush=True)
+          f"{clock[0]:.0f} MHz), the kernel at {kernel_ms / out['sos_chain_ms']:.2f}x it; "
+          f"equal to its twin bit for bit: {torch.equal(got, want)} [{smi}]", flush=True)
     out["sos_work"] = (nbytes(x_rec, got), SOS_ROWS * 2 * (SOS_SAMPLES + 2 * padlen)
                        * len(sos) * SOS_FLOPS_PER_SECTION_SAMPLE, "float32")
     return out
@@ -3692,10 +3713,14 @@ def main() -> int:
                    "kernel": lambda: lstm_bwd_dualdir(*dd_args),
                    "2 x kernel 3": two_lstm_bwd}, rounds=1)
     train_ms["lstm_bwd_dualdir"] = (m["kernel"], m["plain"])
+    dd = kernel_plan("bwd_dualdir", B_TRAIN, H)
+    chain, products = split_ms(lambda: lstm_bwd_dualdir(*dd_args), 3, "chain_kernel")
     print(f"lstm_bwd_dualdir B={B_TRAIN} T={T} H={H} parts=2 mask_from_x: kernel "
           f"{m['kernel']:.3f} ms, plain {m['plain']:.3f} ms, two kernel 3 launches (lstm_bwd, "
-          f"forward then reverse with dx_add) on the same work {m['2 x kernel 3']:.3f} ms "
-          f"[{smi}]", flush=True)
+          f"forward then reverse with dx_add) on the same work {m['2 x kernel 3']:.3f} ms; "
+          f"plan {dd.rows} rows a cluster, {dd.clusters} clusters of {dd.hc} CTAs on "
+          f"{dd.clusters * dd.hc} SMs; device time a launch: chain {chain:.3f} ms, products "
+          f"{products:.3f} ms [{smi}]", flush=True)
     del dd_args, res_f, res_r, h_f, h_r
 
     # phase 16: kernels 11 and 12 against their twins; phase 17: the pipeline; phases

@@ -26,33 +26,44 @@
 // all of W_hh^T (512 KB bf16 at H = 256, over the 227 KB a block may hold)
 // against the dz of every unit; the products are 0.4 TFLOP a launch at
 // B = 512, T = 256, H = 256 with two parts (0.4 ms on the tensor cores).
-// The chain's time is the latency of its serial step: on an H100 80GB HBM3
-// at 700 W ~10 us at 32 rows a cluster, ~3 us of it the dh_carry product,
-// ~2.5 us the DSMEM exchange of dz, ~1 us each the plane loads and the dz
-// stores (python -m eegflow_torch.kernels.ablate).
+// The chain's time is the latency of its serial step. On an H100 80GB HBM3
+// at 700 W the first design took ~9.7 us a step at 32 rows a cluster and
+// ~19 us at 48 (three m-tiles, kernel 4's plan), where its 255 registers
+// left the next step's plane loads exposed (6.9 us of the step) and each of
+// a CTA's 8 warps read the whole dz tile for its product; this one ~8.6
+// and ~11.3 (python -m eegflow_torch.kernels.ablate).
 //
-// Design. The chain runs on thread-block clusters (lstm_cluster.cuh): a
-// cluster of H/64 CTAs owns 16, 32 or 48 batch rows and one direction; each
-// CTA owns 64 units and holds W_hh^T[:, its units] (4H x 64 bf16, 128 KB at
-// H = 256) in shared memory for the whole launch. Per step a thread
-// computes dz for all four gates of its (row, unit) pairs from the planes,
-// in registers with the carries; the bf16 dz of the CTA's units goes to
-// every CTA of the cluster through distributed shared memory, then a cluster
-// barrier, and each CTA's 8 warps run dh_carry for its units, bf16(dz)
-// (rows x 4H) . W_hh^T-slice, on mma.sync; each warp's n-tile is its own
-// octet, so the result lands on the threads that own those units. Between
-// the barrier's arrive and wait go the bf16 dz store to HBM and the next
-// step's plane loads. The dz tile has one buffer (two would not fit beside
-// the slice at 32 rows): a second barrier phase, arrived at after the
-// product's reads and waited for before the next step's exchange, keeps a
-// CTA from overwriting a buffer another CTA still reads. db is summed in
-// registers over the steps, then over the 16 rows of each m-tile in a fixed
-// order, into per-16-row partials that a second pass adds in order. The
-// products then run on the tensor-core GEMM of mma_gemm.cuh from the bf16
-// dz: dx with its epilogue, dW_ih and dW_hh split over B T with fixed-order
-// partial sums. No float atomics: a launch repeats bit for bit, and per row
-// and per 16-row tile the result does not depend on the plan, so kernel 4
-// without dropout equals two kernel 3 launches bit for bit.
+// Design. The chain runs on thread-block clusters (lstm_cluster.cuh): a cluster
+// of H/64 CTAs owns 16, 32 or 48 batch rows and one direction; each CTA owns 64
+// units and holds W_hh^T[:, its units] (4H x 64 bf16, 128 KB at H = 256) in
+// shared memory for the whole launch. Per step a thread computes dz for all
+// four gates of its (row, unit) pairs from the planes, in registers with the
+// carries, m-tile by m-tile, and stores each m-tile's bf16 dz into every CTA of
+// the cluster through distributed shared memory (its own CTA's by a local
+// store) as soon as it is computed, so one m-tile's stores travel while the
+// next computes; then a cluster barrier. Between the barrier's arrive and wait
+// goes an L2 prefetch, by the TMA unit, of the planes two steps ahead. Once the
+// tile has gathered, each CTA writes its share of the tile's rows to HBM by TMA
+// bulk stores, and its warps run dh_carry for its units, bf16(dz) (rows x 4H) .
+// W_hh^T-slice, on mma.sync. Each output sums four accumulator chains, chain c
+// over the k-tiles kt = c mod 4 in order, as (chain 0 + chain 1) + (chain 2 +
+// chain 3): a pair of warps shares two octets, each warp taking two of the
+// chains of both, so each reads half the tile (and the W_hh^T fragments once a
+// step); the chain-pair sums a warp holds for its partner's octet go across
+// through shared memory, so the result lands on the threads that own those
+// units. Then the next step's planes load, from L2, with the product's
+// registers free (loaded during the product, they kept the three-m-tile step at
+// 255 registers). The dz tile has one buffer (two would not fit beside the
+// slice at 32 rows): a second barrier phase, arrived at after the product's and
+// the bulk stores' reads and the partners' exchange and waited for before the
+// next step's exchange, keeps a CTA from overwriting a buffer another CTA still
+// reads. db is summed in registers over the steps, then over the 16 rows of
+// each m-tile in a fixed order, into per-16-row partials that a second pass
+// adds in order. The products then run on the tensor-core GEMM of mma_gemm.cuh
+// from the bf16 dz: dx with its epilogue, dW_ih and dW_hh split over B T with
+// fixed-order partial sums. No float atomics: a launch repeats bit for bit, and
+// per row and per 16-row tile the result does not depend on the plan, so kernel
+// 4 without dropout equals two kernel 3 launches bit for bit.
 #pragma once
 
 #include <stdint.h>
@@ -73,22 +84,87 @@ __device__ __forceinline__ float2 ldcs_pair(const __nv_bfloat16* p) {
   return make_float2(__uint_as_float(u << 16), __uint_as_float(u & 0xffff0000u));
 }
 
-// Four 16-deep k-tiles of a warp's dh_carry product for each m-tile, one in
-// each accumulator chain: A (bf16 dz, 16 rows a m-tile, ld_bytes apart) by
-// ldmatrix from a_addr, B two 16-byte fragment pairs of the warp's octet.
-template <int kMT>
-__device__ __forceinline__ void bwd_kquad(float (&acc)[4][kMT][4], uint32_t a_addr, int ld_bytes,
-                                          uint4 b0, uint4 b1) {
+// kM m-tiles of a warp's dh_carry product over one pair of its accumulator
+// chains (chain c takes the k-tiles kt = c mod 4, in order): the pair
+// index kk runs over h, h + 2, ... (k-tiles 2 kk and 2 kk + 1: chains 2 h
+// and 2 h + 1) for kOct octets. A (bf16 dz, 16 rows an m-tile, ld_bytes
+// apart) by ldmatrix from a_addr; B, the octets' 16-byte fragment pairs,
+// from the resident slice at ws[o] for kk < KT2_res, else from global
+// memory at wg[o] (both indexed kk * 32). acc[j][o][m] is chain 2 h + j of
+// octet o in m-tile m.
+template <int kOct, int kM>
+__device__ __forceinline__ void chain_pair_mma(float (&acc)[2][kOct][kM][4], uint32_t a_addr,
+                                               int ld_bytes, const uint4* const (&ws)[kOct],
+                                               const uint4* const (&wg)[kOct], int h,
+                                               int KT2_res, int KT2) {
 #pragma unroll
-  for (int mt = 0; mt < kMT; ++mt) {
-    uint32_t a[4][4];
+  for (int j = 0; j < 2; ++j)
 #pragma unroll
-    for (int c = 0; c < 4; ++c) eegflow::ldmatrix_x4(a[c], a_addr + mt * 16 * ld_bytes + c * 32);
-    eegflow::mma_bf16(acc[0][mt], a[0], b0.x, b0.y);
-    eegflow::mma_bf16(acc[1][mt], a[1], b0.z, b0.w);
-    eegflow::mma_bf16(acc[2][mt], a[2], b1.x, b1.y);
-    eegflow::mma_bf16(acc[3][mt], a[3], b1.z, b1.w);
+    for (int o = 0; o < kOct; ++o)
+#pragma unroll
+      for (int m = 0; m < kM; ++m)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][o][m][e] = 0.f;
+  auto kpair = [&](int kk, const uint4 (&b)[kOct]) {
+#pragma unroll
+    for (int m = 0; m < kM; ++m) {
+      uint32_t a0[4], a1[4];
+      eegflow::ldmatrix_x4(a0, a_addr + m * 16 * ld_bytes + kk * 64);
+      eegflow::ldmatrix_x4(a1, a_addr + m * 16 * ld_bytes + kk * 64 + 32);
+#pragma unroll
+      for (int o = 0; o < kOct; ++o) {
+        eegflow::mma_bf16(acc[0][o][m], a0, b[o].x, b[o].y);
+        eegflow::mma_bf16(acc[1][o][m], a1, b[o].z, b[o].w);
+      }
+    }
+  };
+#pragma unroll 2
+  for (int kk = h; kk < KT2_res; kk += 2) {
+    uint4 b[kOct];
+#pragma unroll
+    for (int o = 0; o < kOct; ++o) b[o] = ws[o][kk * 32];
+    kpair(kk, b);
   }
+#pragma unroll 2
+  for (int kk = KT2_res + h; kk < KT2; kk += 2) {
+    uint4 b[kOct];
+#pragma unroll
+    for (int o = 0; o < kOct; ++o) b[o] = __ldg(wg[o] + kk * 32);
+    kpair(kk, b);
+  }
+}
+
+// bytes global -> L2 by the TMA unit (no registers held), from p rounded
+// down to 16 bytes
+__device__ __forceinline__ void prefetch_l2(const void* p, uint32_t bytes) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  const uintptr_t lo = a & ~uintptr_t{15};
+  const uint32_t n = static_cast<uint32_t>((a + bytes + 15 - lo) & ~uintptr_t{15});
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(lo), "r"(n) : "memory");
+}
+
+// bytes shared -> global by the TMA unit, in the thread's bulk group
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src, uint32_t bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(dst),
+               "r"(src), "r"(bytes)
+               : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// until the thread's bulk stores have read their shared memory
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// until the thread's bulk stores are complete
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// shared-memory writes of the generic proxy (the cluster's DSMEM stores,
+// acquired by a barrier) made visible to the thread's later bulk copies
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
 // One direction's chain over a cluster's row tile, inlined into the kernels'
@@ -160,7 +236,26 @@ __device__ __forceinline__ void chain_direction(const ResT* __restrict__ res,
         }
       }
   };
+  // what step t reads for the whole tile into L2, each CTA its 1/hc of each
+  // row's span of res (and of c), and its units of g
+  const int P = kRaw ? 4 : 6;
+  auto prefetch_step = [&](int t) {
+    const int rows = 16 * kMT, streams = kRaw ? 3 : 2;
+    for (int i = threadIdx.x; i < streams * rows; i += blockDim.x) {
+      const int row = row0 + i % rows;
+      if (row >= B) continue;
+      const size_t bt = static_cast<size_t>(row) * T + t;
+      const int stream = i / rows;
+      if (stream == 0)
+        prefetch_l2(res + bt * P * H + rank * (P * H / hc), P * H / hc * sizeof(ResT));
+      else if (stream == 1)
+        prefetch_l2(gup + bt * H + rank * (H / hc), H / hc * 4);
+      else
+        prefetch_l2(cst + bt * H + rank * (H / hc), H / hc * 4);
+    }
+  };
   load_planes(reverse ? 0 : T - 1);
+  if (T > 1) prefetch_step(reverse ? 1 : T - 2);
   eegflow::cluster_arrive();
   eegflow::cluster_wait();
 
@@ -176,7 +271,12 @@ __device__ __forceinline__ void chain_direction(const ResT* __restrict__ res,
   const uint32_t a_base = cur + ((lane & 15) * ldz + (lane >> 4) * 8) * 2;
   for (int s = 0; s < T; ++s) {
     const int t = reverse ? s : T - 1 - s;
-    uint32_t zp[kMT][4][2];  // bf16 dz pairs: [mt][gate][rh]
+    // m-tile by m-tile: this thread's dz, then its bf16 dz to every CTA of
+    // the cluster (the first m-tile's once every CTA has read the buffer's
+    // previous step, the second phase of that step), so one m-tile's
+    // distributed stores are in flight while the next one computes. A
+    // transpose across each quad gives lane q gate q's 16 bytes of the octet
+    // per row.
 #pragma unroll
     for (int mt = 0; mt < kMT; ++mt) {
       float z[4][4];
@@ -202,78 +302,118 @@ __device__ __forceinline__ void chain_direction(const ResT* __restrict__ res,
           z[3][e] = dh * pl[mt][5][e];
         }
       }
+      uint32_t zp[4][2];  // bf16 dz pairs: [gate][rh]
 #pragma unroll
       for (int gate = 0; gate < 4; ++gate) {
         dbacc[mt][gate][0] += z[gate][0];
         dbacc[mt][gate][1] += z[gate][1];
         dbacc[mt][gate][0] += z[gate][2];
         dbacc[mt][gate][1] += z[gate][3];
-        zp[mt][gate][0] = eegflow::pack_bf16(z[gate][0], z[gate][1]);
-        zp[mt][gate][1] = eegflow::pack_bf16(z[gate][2], z[gate][3]);
+        zp[gate][0] = eegflow::pack_bf16(z[gate][0], z[gate][1]);
+        zp[gate][1] = eegflow::pack_bf16(z[gate][2], z[gate][3]);
       }
-    }
-
-    // bf16 dz of this CTA's units to every CTA of the cluster, once every CTA
-    // has read the buffer's previous step (the second phase of that step):
-    // a transpose across each quad gives lane q gate q's 16 bytes of the
-    // octet per row
-    uint4 chunk[kMT][2];
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+      uint4 chunk[2];
 #pragma unroll
       for (int rh = 0; rh < 2; ++rh) {
-        const uint32_t v[4] = {zp[mt][0][rh], zp[mt][1][rh], zp[mt][2][rh], zp[mt][3][rh]};
-        chunk[mt][rh] = eegflow::quad_transpose(v, lane);
+        const uint32_t v[4] = {zp[0][rh], zp[1][rh], zp[2][rh], zp[3][rh]};
+        chunk[rh] = eegflow::quad_transpose(v, lane);
       }
-    if (s > 0) eegflow::cluster_wait();
-    for (int r = 0; r < hc; ++r) {
-      const uint32_t base = eegflow::map_rank(cur, r);
-#pragma unroll
-      for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-        for (int rh = 0; rh < 2; ++rh)
-          eegflow::st_cluster_v4(base + ((16 * mt + 8 * rh + g) * ldz + q * H + octet * 8) * 2,
-                                 chunk[mt][rh]);
+      if (mt == 0 && s > 0) eegflow::cluster_wait();
+      for (int r = 0; r < hc; ++r) {
+        const uint32_t off = ((16 * mt + g) * ldz + q * H + octet * 8) * 2;
+        if (r == static_cast<int>(rank)) {
+          eegflow::st_shared_v4(cur + off, chunk[0]);
+          eegflow::st_shared_v4(cur + off + 8 * ldz * 2, chunk[1]);
+        } else {
+          const uint32_t base = eegflow::map_rank(cur, r);
+          eegflow::st_cluster_v4(base + off, chunk[0]);
+          eegflow::st_cluster_v4(base + off + 8 * ldz * 2, chunk[1]);
+        }
+      }
     }
     eegflow::cluster_arrive();
-#pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
-#pragma unroll
-      for (int rh = 0; rh < 2; ++rh) {
-        const int row = row0 + 16 * mt + 8 * rh + g;
-        if (row < B)
-          *reinterpret_cast<uint4*>(dz16 + (static_cast<size_t>(row) * T + t) * G + q * H +
-                                    octet * 8) = chunk[mt][rh];
-      }
-    if (s + 1 < T) load_planes(reverse ? t + 1 : t - 1);
+    if (s + 2 < T) prefetch_step(reverse ? t + 2 : t - 2);
     eegflow::cluster_wait();
 
-    // dh_carry of this warp's octet: dz (rows x 4H) . W_hh^T[:, octet], in
-    // four accumulator chains over the k-tiles, added in a fixed order
-    float acc[4][kMT][4];
-#pragma unroll
-    for (int c = 0; c < 4; ++c)
+    // the step's dz rows to HBM from the gathered tile, each CTA its rows
+    // r = rank mod hc, by the TMA unit
+    const int store_row = threadIdx.x * hc + static_cast<int>(rank);
+    const bool storer = store_row < 16 * kMT && row0 + store_row < B;
+    if (storer) {
+      fence_proxy_async();
+      bulk_store(dz16 + (static_cast<size_t>(row0 + store_row) * T + t) * G,
+                 cur + store_row * ldz * 2, G * 2);
+    }
+
+    // dh_carry: dz (rows x 4H) . W_hh^T[:, octet]. A pair
+    // of warps (2p, 2p + 1) shares octets 2p and 2p + 1, warp 2p + h taking
+    // chains 2h and 2h + 1 of both, so each reads half of the dz tile; a
+    // warp without a partner (odd count) takes all four chains of its own.
+    // Each warp keeps its own octet's chain-pair sum and passes the other
+    // to its partner through shared memory, and each output is added as
+    // (chain 0 + chain 1) + (chain 2 + chain 3).
+    const int h = warp & 1;
+    const bool paired = (warp | 1) < warps;
+    float other[kMT][4];
+    if (paired) {
+      const int o0 = warp & ~1;
+      const uint4* const ws[2] = {wsm + o0 * KT2_res * 32 + lane,
+                                  wsm + (o0 + 1) * KT2_res * 32 + lane};
+      const uint4* const wg[2] = {wfrag + static_cast<size_t>(octet - h) * KT2 * 32 + lane,
+                                  wfrag + static_cast<size_t>(octet - h + 1) * KT2 * 32 + lane};
+      float acc[2][2][kMT][4];
+      chain_pair_mma<2, kMT>(acc, a_base, ldz * 2, ws, wg, h, KT2_res, KT2);
 #pragma unroll
       for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) acc[c][mt][e] = 0.f;
-    const uint4* ws = wsm + warp * KT2_res * 32 + lane;
-#pragma unroll 2
-    for (int kk = 0; kk < KT2_res; kk += 2)
-      bwd_kquad<kMT>(acc, a_base + kk * 64, ldz * 2, ws[kk * 32], ws[(kk + 1) * 32]);
-    const uint4* wg = wfrag + static_cast<size_t>(octet) * KT2 * 32 + lane;
-#pragma unroll 2
-    for (int kk = KT2_res; kk < KT2; kk += 2)
-      bwd_kquad<kMT>(acc, a_base + kk * 64, ldz * 2, __ldg(wg + kk * 32),
-                     __ldg(wg + (kk + 1) * 32));
+        for (int e = 0; e < 4; ++e) {
+          const float s0 = acc[0][0][mt][e] + acc[1][0][mt][e];
+          const float s1 = acc[0][1][mt][e] + acc[1][1][mt][e];
+          dh_c[mt][e] = h ? s1 : s0;
+          other[mt][e] = h ? s0 : s1;
+        }
+    } else {
+      const uint4* const ws[1] = {wsm + warp * KT2_res * 32 + lane};
+      const uint4* const wg[1] = {wfrag + static_cast<size_t>(octet) * KT2 * 32 + lane};
+      float acc[2][1][kMT][4], s01[kMT][4];
+      chain_pair_mma<1, kMT>(acc, a_base, ldz * 2, ws, wg, 0, KT2_res, KT2);
 #pragma unroll
-    for (int mt = 0; mt < kMT; ++mt)
+      for (int mt = 0; mt < kMT; ++mt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e)
-        dh_c[mt][e] = (acc[0][mt][e] + acc[1][mt][e]) + (acc[2][mt][e] + acc[3][mt][e]);
+        for (int e = 0; e < 4; ++e) s01[mt][e] = acc[0][0][mt][e] + acc[1][0][mt][e];
+      chain_pair_mma<1, kMT>(acc, a_base, ldz * 2, ws, wg, 1, KT2_res, KT2);
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dh_c[mt][e] = s01[mt][e] + (acc[0][0][mt][e] + acc[1][0][mt][e]);
+    }
+    // the partners' sums through the dz tile, once no warp and no bulk
+    // store reads it any more
+    if (storer) bulk_wait_read();
+    __syncthreads();
+    float* const sums = reinterpret_cast<float*>(dzbuf);
+    if (paired) {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sums[(warp * kMT + mt) * 128 + e * 32 + lane] = other[mt][e];
+    }
+    __syncthreads();
+    if (paired) {
+#pragma unroll
+      for (int mt = 0; mt < kMT; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dh_c[mt][e] += sums[((warp ^ 1) * kMT + mt) * 128 + e * 32 + lane];
+    }
+    // the next step's planes, from L2 (prefetched a step ago), once the
+    // product no longer holds its registers
+    if (s + 1 < T) load_planes(reverse ? t + 1 : t - 1);
     eegflow::cluster_arrive();  // this CTA's reads of the buffer are done
   }
   eegflow::cluster_wait();
+  bulk_wait();
 
   // db: each m-tile's sums over its 16 rows (the 8 lanes of one q, in a
   // fixed order), one partial row per 16-row tile of the batch

@@ -25,7 +25,16 @@
 //
 // What bounds it on the card: each direction's chain is kernel 3's, serial
 // in t; the products are twice kernel 3's per launch (0.7 TFLOP at B = 512,
-// T = 256, H = 256, two parts).
+// T = 256, H = 256, two parts). Both directions need 2 x 16 clusters of 32
+// rows, over the 30 four-CTA clusters an H100 holds at once, so the plan
+// (nn/lstm_plan.py) takes 48-row tiles: 22 clusters on 88 SMs in one wave,
+// both directions resident together (python -m eegflow_torch.kernels.ablate
+// --variant stamps). The chain's serial step at three m-tiles is therefore
+// its cost; the shared chain (lstm_bwd_chain.cuh) is laid out for it: the
+// dh_carry product split over warp pairs by accumulator chain, the dz
+// exchange interleaved with its computation, the dz rows to HBM by TMA bulk
+// stores, and the planes prefetched into L2 two steps ahead and loaded after
+// the product, which at three m-tiles held them in 255 registers.
 //
 // Design: kernel 3's cluster chain (chain_direction, lstm_bwd_chain.cuh) on
 // a grid of (row tiles x cluster, 2), blockIdx.y the direction, each branch

@@ -3,8 +3,9 @@ input-block forward, the float32 input-block backward and the float32 pool
 head, on the GPU.
 
     python -m eegflow_torch.kernels.ablate [--variant base|nomma|noexch|nostore|noload|noln|
-                                                     nostream|onetf32]
+                                                     nostream|onetf32|onedir|stamps]
                                            [--rows 16,32,48] [--calls all|recurrent|head|filter]
+                                           [--csrc DIR] [--save FILE] [--against FILE]
 
 Builds the kernels from a copy of ``eegflow_torch/csrc`` with one part of
 the serial step of kernel 2's recurrence, of kernels 3, 3b and 4's chain, of
@@ -30,9 +31,10 @@ products alone: ``nostream`` the streaming of W1 and W1^T into kernels 8
 and 7 (the products read stale slices), ``onetf32`` two of the three TF32
 products (one TF32 product, a different function; kernel 10's dx and dW
 too). Kernel 12 (``sos_filter.cu``, ``--calls filter``) takes ``nomma`` as
-its recursion (the samples pass through), ``noload`` as its reads of x and
-of the forward pass, ``nostore`` as its writes of the forward pass and the
-output; it is timed on 61 x 20,000 and 61 x 60,000 samples. Each is timed
+its steady loop's recursion (the samples pass through), ``noload`` as the
+bulk copies of x and of the forward pass into its stages, ``nostore`` as
+the bulk stores of the forward pass and the output; it is timed on 61 x
+20,000 and 61 x 60,000 samples. Each is timed
 at B=512 (kernel 9's bf16 mode also at 1024), every
 launch of the call by name, with the SM clock and power draw that
 ``nvidia-smi`` samples during the warm-up (a power-limited card lowers its
@@ -43,11 +45,31 @@ results are wrong by construction and only its times mean anything; the
 difference to ``base`` is the part's share of a step or a call. Each variant
 needs its own process: two builds of the library in one process fault.
 Needs CUDA and nvcc.
+
+Two probes of kernel 4's placement: ``onedir`` runs its chain with the
+reverse direction's clusters returning at once (a chain as long as both
+directions' means they ran side by side), and ``stamps`` records each chain
+CTA's SM and ``%globaltimer`` at its start and end and prints, for kernel
+4's last launch at each batch, the SMs each direction ran on, their start
+and end spans and how many CTAs ran at the latest start. The recurrent
+calls print ptxas's registers and spills of every chain kernel
+(``-Xptxas -v``). ``--csrc`` builds another tree's sources (the same C
+interface), so one process per tree times a parent against a change in
+turns; ``--save`` writes the outputs of kernels 3, 3b and 4 (and of kernel
+12's calls) and ``--against`` holds this run's to a saved file bit for bit.
+The readings behind kernel 4's chain design (kernel 3's chain at 48 and 32
+rows, kernel 4 at both, its co-residence, the spills) repeat with::
+
+    python -m eegflow_torch.kernels.ablate --calls recurrent --rows 48
+    python -m eegflow_torch.kernels.ablate --calls recurrent --rows 32
+    python -m eegflow_torch.kernels.ablate --calls recurrent --rows 48 --variant onedir
+    python -m eegflow_torch.kernels.ablate --calls recurrent --variant stamps
 """
 
 from __future__ import annotations
 
 import argparse
+import ctypes
 import re
 import shutil
 import statistics
@@ -61,6 +83,37 @@ import torch
 
 H, STEPS, CHANNELS = 256, 256, 61
 
+# the "stamps" variant's probe: one record (SM, start ns, end ns) a CTA of
+# kernel 4's chain, indexed by its block, and a C entry that copies them out
+STAMPS_CODE = r"""
+__device__ unsigned long long g_ablate_stamps[4096][3];
+__device__ __forceinline__ unsigned long long ablate_clock() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+struct Stamp {
+  unsigned long long start;
+  __device__ Stamp() : start(ablate_clock()) {}
+  __device__ ~Stamp() {
+    unsigned int sm;
+    asm volatile("mov.u32 %0, %%smid;" : "=r"(sm));
+    const unsigned int i = blockIdx.y * gridDim.x + blockIdx.x;
+    if (threadIdx.x == 0 && i < 4096) {
+      g_ablate_stamps[i][0] = sm;
+      g_ablate_stamps[i][1] = start;
+      g_ablate_stamps[i][2] = ablate_clock();
+    }
+  }
+};
+}  // namespace
+extern "C" int eegflow_ablate_stamps(unsigned long long* host, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_ablate_stamps, 24 * n));
+}
+namespace {
+"""
+STAMPS_MAX = 4096
+
 # variant -> (source file, text, replacement); each text occurs once in its
 # source (held by tests/test_torch_lstm_plan.py)
 VARIANTS = {
@@ -70,10 +123,10 @@ VARIANTS = {
          "for (int kt = 0; kt < 0; kt += 2)"),
         ("lstm_fwd.cu", "for (int kt = KT_res; kt < KT; kt += 2)",
          "for (int kt = KT; kt < KT; kt += 2)"),
-        ("lstm_bwd_chain.cuh", "for (int kk = 0; kk < KT2_res; kk += 2)",
-         "for (int kk = 0; kk < 0; kk += 2)"),
-        ("lstm_bwd_chain.cuh", "for (int kk = KT2_res; kk < KT2; kk += 2)",
-         "for (int kk = KT2; kk < KT2; kk += 2)"),
+        ("lstm_bwd_chain.cuh", "for (int kk = h; kk < KT2_res; kk += 2)",
+         "for (int kk = h; kk < 0; kk += 2)"),
+        ("lstm_bwd_chain.cuh", "for (int kk = KT2_res + h; kk < KT2; kk += 2)",
+         "for (int kk = KT2 + h; kk < KT2; kk += 2)"),
         ("lstm_rec.cu", "for (int k = 0; k < k_res; k += 4) {", "for (int k = 0; k < 0; k += 4) {"),
         ("lstm_rec.cu", "for (int k = k_res; k < H; k += 4) {",
          "for (int k = H; k < H; k += 4) {"),
@@ -100,21 +153,20 @@ VARIANTS = {
          "    const float* bs"),
         ("mma_gemm.cuh", "for (int kt = 0; kt < n_tiles; ++kt) {",
          "for (int kt = 0; kt < 0; ++kt) {"),
-        ("sos_filter.cu", "        last = cascade.step(cur[j]);", "        last = cur[j];"),
-        ("sos_filter.cu", "        const float v = cascade.step(cur[j]);",
-         "        const float v = cur[j];")],
+        ("sos_filter.cu", "out[at(i + b)] = cascade.step(v[b]);", "out[at(i + b)] = v[b];"),
+        ("sos_filter.cu", "out[at(i)] = cascade.step(in[at(i)]);", "out[at(i)] = in[at(i)];")],
     "noexch": [
         ("lstm_fwd.cu", "for (int r = q; r < hc; r += 4) {", "for (int r = q; r < 0; r += 4) {"),
-        ("lstm_bwd_chain.cuh", "    for (int r = 0; r < hc; ++r) {\n      const uint32_t base",
-         "    for (int r = 0; r < 0; ++r) {\n      const uint32_t base"),
+        ("lstm_bwd_chain.cuh", "      for (int r = 0; r < hc; ++r) {\n        const uint32_t off",
+         "      for (int r = 0; r < 0; ++r) {\n        const uint32_t off"),
         ("lstm_rec.cu", "    for (int r = 0; r < hc; ++r) {\n      const uint32_t base",
          "    for (int r = 0; r < 0; ++r) {\n      const uint32_t base"),
         ("lstm_rec.cu", "    if (s + 1 < T && quad < quads) {", "    if (s + 1 < T && quad < 0) {")],
     "nostore": [
         ("lstm_fwd.cu", "        if (row >= B) continue;\n        const size_t bt",
          "        if (row >= 0) continue;\n        const size_t bt"),
-        ("lstm_bwd_chain.cuh", "        if (row < B)\n          *reinterpret_cast<uint4*>(dz16",
-         "        if (row < 0)\n          *reinterpret_cast<uint4*>(dz16"),
+        ("lstm_bwd_chain.cuh", "store_row < 16 * kMT && row0 + store_row < B;",
+         "store_row < 16 * kMT && row0 + store_row < 0;"),
         ("lstm_rec.cu", "      if (row < B)\n        *reinterpret_cast<uint4*>(h_out",
          "      if (row < 0)\n        *reinterpret_cast<uint4*>(h_out"),
         ("lstm_rec.cu", "if (row0 + r < B) __stcs(c_out", "if (row0 + r < 0) __stcs(c_out"),
@@ -138,10 +190,9 @@ VARIANTS = {
          "          dh1[bt * d1 + (d - d0)] = v;\n      }\n    }\n    __syncthreads();  // the "
          "next tile overwrites the tiles and the row stats\n  }\n\n  // the warps' dgamma and "
          "dbeta summed in warp order\n  float* const part_s = ys;"),
-        ("sos_filter.cu", "        y_fwd[static_cast<size_t>(i) * rows + r] = last;",
-         "        if (last == 12345.f) y_fwd[0] = last;"),
-        ("sos_filter.cu", "        if (o >= 0 && o < t) out[static_cast<size_t>(o) * rows + r] = v;",
-         "        if (v == 12345.f) out[0] = v;")],
+        ("sos_filter.cu",
+         "      store_chunk(dst + static_cast<size_t>(lo) * kRows, smem_u32(ost), len * kRows * 4);",
+         "")],
     "noload": [
         ("lstm_fwd.cu", "if (row < B) v = __ldcs", "if (row < 0) v = __ldcs"),
         ("lstm_bwd_chain.cuh", "          if (row < B)\n            v = planar ?",
@@ -163,12 +214,10 @@ VARIANTS = {
         ("pool_head_fwd.cu", "xv[i] = r < tc && d < D ? (d < d0 ? x0[bt * d0 + d] : x1[bt * d1 + "
          "(d - d0)]) : 0.f;",
          "xv[i] = 0.f;"),
-        ("sos_filter.cu", "  if (i < padlen) return __fsub_rn",
-         "  return 1e-3f * i;\n  if (i < padlen) return __fsub_rn"),
-        ("sos_filter.cu", "cur[j] = j < n ? y_fwd[static_cast<size_t>(n - 1 - j) * rows + r] : 0.f;",
-         "cur[j] = 1e-3f * j;"),
-        ("sos_filter.cu", "nxt[j] = i < n ? y_fwd[static_cast<size_t>(n - 1 - i) * rows + r] : 0.f;",
-         "nxt[j] = 1e-3f * i;")],
+        ("sos_filter.cu",
+         "        load_stage(smem_u32(in_ring) + stage * kStageBytes, src, len * kRows * 4,\n"
+         "                   full0 + 8 * stage);",
+         "        mbar_arrive(full0 + 8 * stage);")],
     "nostream": [
         ("mma_gemm.cuh", "if (it + kStages - 1 < slices) issue(it + kStages - 1);\n"
          "    cp_async_commit();\n    const float* bs",
@@ -186,6 +235,17 @@ VARIANTS = {
         ("input_block.cu", "eegflow::mma_tf32(acc[3 * h + 1], a.hi, bl[0], bl[1]);", ""),
         ("input_block.cu", "eegflow::mma_tf32(acc_w[j0 + j], a.lo, bh[j][0], bh[j][1]);", "{}"),
         ("input_block.cu", "eegflow::mma_tf32(acc_w[j0 + j], a.hi, bl[j][0], bl[j][1]);", "{}")],
+    # kernel 4's chain with the reverse direction's clusters returning at once
+    "onedir": [
+        ("lstm_bwd_dualdir.cu", "  else\n    chain_direction<kMT, false>(rev.res",
+         "  else if (B < 0)\n    chain_direction<kMT, false>(rev.res")],
+    # kernel 4's chain with each CTA's SM and %globaltimer at its start and end
+    # (read back through eegflow_ablate_stamps)
+    "stamps": [
+        ("lstm_bwd_dualdir.cu", "template <typename ResT>\nstruct Dir {",
+         STAMPS_CODE + "template <typename ResT>\nstruct Dir {"),
+        ("lstm_bwd_dualdir.cu", "int H, int k_res) {\n  if (blockIdx.y == 0)",
+         "int H, int k_res) {\n  const Stamp stamp;\n  if (blockIdx.y == 0)")],
     "noln": [
         ("input_block.cu", "const float4 o = ln_gelu4(zv[i], mu, rsig, gam[i], bet[i]);",
          "const float4 o = make_float4(zv[i][0], zv[i][1], zv[i][2], zv[i][3]);"),
@@ -196,13 +256,14 @@ VARIANTS = {
 }
 
 
-def patched_sources(variant: str, into: Path) -> Path:
-    """A copy of the kernel sources under ``into`` with ``variant``'s parts
-    taken out -> its ``csrc`` directory."""
+def patched_sources(variant: str, into: Path, csrc=None) -> Path:
+    """A copy of the kernel sources (``csrc``, by default the package's)
+    under ``into`` with ``variant``'s parts taken out -> its ``csrc``
+    directory."""
     from eegflow_torch import kernels
 
     src = into / "csrc"
-    shutil.copytree(kernels.CSRC, src)
+    shutil.copytree(csrc or kernels.CSRC, src)
     for name, text, repl in VARIANTS[variant]:
         path = src / name
         body = path.read_text()
@@ -211,6 +272,17 @@ def patched_sources(variant: str, into: Path) -> Path:
                                f"{body.count(text)} times, not once")
         path.write_text(body.replace(text, repl))
     return src
+
+
+#: the calls whose outputs --save and --against hold bit for bit
+BIT_CALLS = ("lstm_bwd", "lstm_bwd_v2", "lstm_bwd_dualdir")
+
+
+def _flat_cpu(out) -> list:
+    """The tensors of a call's (nested) output, on the host."""
+    if isinstance(out, torch.Tensor):
+        return [out.cpu()]
+    return [t for o in out for t in _flat_cpu(o)]
 
 
 def _recurrence_ms(fn, reps: int = 3) -> float:
@@ -227,6 +299,55 @@ def _recurrence_ms(fn, reps: int = 3) -> float:
              and ("rec_kernel" in e.name or "rec_fwd_kernel" in e.name
                   or "rec_bwd_kernel" in e.name or "chain_kernel" in e.name)]
     return sum(spans) / max(len(spans), 1) / 1e3
+
+
+def _ptxas_report(log: str, pattern: str = "chain_kernel"):
+    """ptxas's registers and spills of each compiled entry whose name holds
+    ``pattern``, from the build's ``-Xptxas -v`` log -> lines of text."""
+    out, name = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            name = m.group(1) if pattern in m.group(1) else None
+        elif name and ("spill" in line or "Used" in line):
+            out.append(f"{_demangle(name)}: {line.strip()}")
+    return out
+
+
+def _demangle(name: str) -> str:
+    try:
+        return subprocess.run(["c++filt", name], capture_output=True, text=True,
+                              timeout=10).stdout.strip() or name
+    except OSError:
+        return name
+
+
+def _chain_stamps(lib, n: int, tiles: int, hc: int):
+    """Kernel 4's chain CTAs in the last launch of the ``stamps`` variant:
+    per direction the SMs it ran on and its start and end (ms after the
+    first CTA started), and how many CTAs of both ran at once at the latest
+    start -> a line of text."""
+    import numpy as np
+
+    from eegflow_torch import kernels
+
+    buf = np.zeros((STAMPS_MAX, 3), dtype=np.uint64)
+    kernels.check(lib, lib.eegflow_ablate_stamps(
+        buf.ctypes.data_as(ctypes.c_void_p), ctypes.c_int(n)), "eegflow_ablate_stamps")
+    per_dir = tiles * hc
+    rec = buf[:2 * per_dir].astype(np.int64)
+    t0 = rec[:, 1].min()
+    parts = []
+    for d, name in enumerate(("forward", "reverse")):
+        r = rec[d * per_dir:(d + 1) * per_dir]
+        parts.append(f"{name}: {len(np.unique(r[:, 0]))} SMs, starts "
+                     f"{(r[:, 1].min() - t0) / 1e6:.3f}-{(r[:, 1].max() - t0) / 1e6:.3f} ms, "
+                     f"ends {(r[:, 2].min() - t0) / 1e6:.3f}-{(r[:, 2].max() - t0) / 1e6:.3f} ms")
+    last = rec[:, 1].max()
+    running = int(((rec[:, 1] <= last) & (rec[:, 2] > last)).sum())
+    both = len(np.unique(rec[:, 0]))
+    return (f"{'; '.join(parts)}; {both} SMs in all; {running} of {2 * per_dir} CTAs "
+            f"running at the latest start")
 
 
 def _device_ms_by_name(fn, reps: int = 5, warm_s: float = 0.5):
@@ -315,6 +436,12 @@ def main(argv=None) -> int:
     parser.add_argument("--rows", default=None, help="rows per cluster the plan may take")
     parser.add_argument("--calls", default="all",
                         choices=("all", "recurrent", "head", "filter"))
+    parser.add_argument("--csrc", default=None,
+                        help="build from this kernel source directory (another tree's)")
+    parser.add_argument("--save", default=None,
+                        help="save the backward kernels' and kernel 12's outputs to this file")
+    parser.add_argument("--against", default=None,
+                        help="compare those outputs bit for bit with a --save file")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("ablate: needs a CUDA device", file=sys.stderr)
@@ -326,7 +453,12 @@ def main(argv=None) -> int:
         cl.restrict_plan_rows(int(r) for r in args.rows.split(","))
     tmp = Path(tempfile.mkdtemp(prefix="eegflow_ablate_"))
     try:
-        kernels.load_library(patched_sources(args.variant, tmp), tmp / "build")
+        lib = kernels.load_library(patched_sources(args.variant, tmp, args.csrc), tmp / "build")
+        if args.variant == "stamps":
+            lib.eegflow_ablate_stamps.restype = ctypes.c_int
+        if args.calls in ("all", "recurrent"):
+            for line in _ptxas_report(kernels.build_info.get("log", "")):
+                print(f"ptxas {line}", flush=True)
         dev = torch.device("cuda", 0)
         gen = torch.Generator(device="cpu").manual_seed(0)
         bound = H ** -0.5
@@ -338,6 +470,7 @@ def main(argv=None) -> int:
         card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                                "--format=csv,noheader"], capture_output=True, text=True,
                               timeout=60).stdout.strip()
+        outputs = {}
         for batch in (16, 512, 1024) if args.calls in ("all", "recurrent") else ():
             xs = tuple(torch.randn(batch, STEPS, H, generator=gen).to(dev) for _ in range(2))
             ms = tuple((torch.rand(batch, STEPS, H, generator=gen) < 0.7).to(torch.uint8)
@@ -373,21 +506,36 @@ def main(argv=None) -> int:
                                                 (w_ih, w_hh)),
                     ("bwd_dualdir", batch, H))
             for name, (fn, plan_args) in calls.items():
+                if name in BIT_CALLS:
+                    outputs[f"{name} B={batch}"] = _flat_cpu(fn())
                 plan = cl.kernel_plan(*plan_args)
                 ms_rec = _recurrence_ms(fn)
                 print(f"{args.variant} {name} B={batch}: rows {plan.rows}, "
                       f"{plan.clusters} clusters in {plan.waves} wave(s); recurrence "
                       f"{ms_rec:.3f} ms, {ms_rec / STEPS * 1e3:.2f} us a step [{card}]",
                       flush=True)
+                if args.variant == "stamps" and name == "lstm_bwd_dualdir":
+                    print(f"stamps {name} B={batch}: "
+                          f"{_chain_stamps(lib, STAMPS_MAX, plan.tiles, plan.hc)}", flush=True)
         head = _head_calls(dev, gen) if args.calls in ("all", "head") else {}
         if args.calls in ("all", "filter"):
             head.update(_filter_calls(dev, gen))
         for name, fn in head.items():
+            if name.startswith("sos_filtfilt"):
+                outputs[name] = _flat_cpu(fn())
             by_name, clock, power = _device_ms_by_name(fn)
             print(f"{args.variant} {name}: device ms a launch by kernel: "
                   + ", ".join(f"{k} {v:.3f}" for k, v in by_name.items())
                   + f"; during the warm-up SM clock {clock:.0f} MHz (median), power up to "
                   f"{power:.1f} W [{card}]", flush=True)
+        if args.save:
+            torch.save(outputs, args.save)
+        if args.against:
+            want = torch.load(args.against)
+            for key, got in outputs.items():
+                same = key in want and len(want[key]) == len(got) and all(
+                    torch.equal(a, b) for a, b in zip(got, want[key]))
+                print(f"bits {key}: equal to {args.against}'s: {same}", flush=True)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     return 0

@@ -37,6 +37,8 @@ from eegflow_torch import kernels
 #: kernel 12 holds each section's state in registers, unrolled up to this
 #: many sections (an order-8 bandpass)
 MAX_SECTIONS = 8
+#: rows a CTA of kernel 12 filters (one warp, a row a thread)
+SOS_GROUP = 32
 
 
 def butter_bandpass(lowcut: float, highcut: float, fs: float, order: int = 4
@@ -143,9 +145,10 @@ def sos_filtfilt_plain(x: torch.Tensor, sos: np.ndarray, zi: np.ndarray,
 def sos_filtfilt(x: torch.Tensor, sos: np.ndarray, zi: np.ndarray, padlen: int) -> torch.Tensor:
     """Kernel 12: filtfilt of ``x (R, T)`` float32 rows through the float32
     sections ``sos (S, 6)`` with unit delay lines ``zi (S, 2)`` -> (R, T).
-    One thread a row runs the odd extension, both passes and the trim; rows
-    are staged time-major (T, R) so neighbouring threads read neighbouring
-    floats."""
+    One thread a row runs the odd extension, both passes and the trim, a CTA
+    a group of 32 rows; the rows are staged group-major, (ceil(R / 32), T,
+    32) with the last group padded by zero rows, so a chunk of a group's
+    samples is one contiguous block for the kernel's bulk copies."""
     if x.device.type == "cpu":
         return sos_filtfilt_plain(x, sos, zi, padlen)
     if x.dtype != torch.float32 or x.dim() != 2:
@@ -156,19 +159,38 @@ def sos_filtfilt(x: torch.Tensor, sos: np.ndarray, zi: np.ndarray, padlen: int) 
         raise ValueError(f"sos_filtfilt takes 1..{MAX_SECTIONS} sections, got {sections}")
     if t <= padlen:
         raise ValueError(f"signal length {t} must exceed padlen {padlen}")
+    if padlen <= 0:
+        raise ValueError(f"padlen must be positive, got {padlen}")
     dev = x.device
-    x_t = x.t().contiguous()  # (T, R)
+    xg = sos_groups(x)
+    groups = xg.shape[0]
     sos_d = torch.as_tensor(np.ascontiguousarray(sos, np.float32), device=dev)
     zi_d = torch.as_tensor(np.ascontiguousarray(zi, np.float32), device=dev)
-    y_fwd = torch.empty(t + 2 * padlen, rows, dtype=torch.float32, device=dev)
-    out = torch.empty(t, rows, dtype=torch.float32, device=dev)
+    y_fwd = torch.empty(groups, t + 2 * padlen, SOS_GROUP, dtype=torch.float32, device=dev)
+    out = torch.empty(groups, t, SOS_GROUP, dtype=torch.float32, device=dev)
     lib = kernels.load_library()
-    err = lib.eegflow_sos_filtfilt(x_t.data_ptr(), sos_d.data_ptr(), zi_d.data_ptr(),
+    err = lib.eegflow_sos_filtfilt(xg.data_ptr(), sos_d.data_ptr(), zi_d.data_ptr(),
                                    y_fwd.data_ptr(), out.data_ptr(), rows, t, padlen, sections,
                                    kernels.stream(dev))
     kernels.check(lib, err, "sos_filtfilt")
     kernels.launch_counts["sos_filtfilt"] += 1
-    return out.t().contiguous()
+    return sos_ungroup(out, rows)
+
+
+def sos_groups(x: torch.Tensor) -> torch.Tensor:
+    """Rows ``x (R, T)`` -> kernel 12's layout (ceil(R / 32), T, 32): groups
+    of 32 rows, time-major in each, the last group padded by zero rows."""
+    rows, t = x.shape
+    groups = -(-rows // SOS_GROUP)
+    xg = torch.nn.functional.pad(x, (0, 0, 0, groups * SOS_GROUP - rows))
+    return xg.view(groups, SOS_GROUP, t).transpose(1, 2).contiguous()
+
+
+def sos_ungroup(xg: torch.Tensor, rows: int) -> torch.Tensor:
+    """The inverse of :func:`sos_groups`: (G, T, 32) -> the first ``rows``
+    rows, (rows, T)."""
+    groups, t, _ = xg.shape
+    return xg.transpose(1, 2).reshape(groups * SOS_GROUP, t)[:rows].contiguous()
 
 
 def filtfilt_iir(x: torch.Tensor, b: np.ndarray, a: np.ndarray) -> torch.Tensor:

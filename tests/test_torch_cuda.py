@@ -488,6 +488,39 @@ def test_lstm_bwd_dualdir_kernel_matches_twin_and_repeats_bitwise(dev, n_parts, 
 
 
 @pytest.mark.parametrize("res_bf16", [False, True])
+@pytest.mark.parametrize("batch", [96, 100])
+def test_lstm_bwd_dualdir_on_48_row_tiles_is_two_lstm_bwd_launches_bit_for_bit(dev, batch,
+                                                                              res_bf16):
+    """Kernel 4 on the 48-row tiles it takes at B=512 (three m-tiles, paired
+    warps), at a batch that fills them and at one that does not, without
+    dropout: kernel 3 forward, then kernel 3 reverse adding the first's dx,
+    bit for bit, with both residual types."""
+    from eegflow_torch.nn import cuda_lstm
+
+    gen = make_generator(97)
+    w_ih_f, w_hh_f, b_f, xs, _, _ = _lstm_case(gen, 2, batch, 256, dev)
+    w_ih_r, w_hh_r, b_r = _lstm_case(gen, 2, batch, 256, dev)[:3]
+    h_f, res_f = lstm_fwd_train_plain(xs, w_ih_f, b_f, w_hh_f, False)
+    h_r, res_r = lstm_fwd_train_plain(xs, w_ih_r, b_r, w_hh_r, True)
+    if res_bf16:
+        res_f, res_r = res_f.to(torch.bfloat16), res_r.to(torch.bfloat16)
+    g_f, g_r = (0.1 * _randn(gen, *h_f.shape, dev=dev) for _ in range(2))
+    cuda_lstm.restrict_plan_rows((48,))
+    try:
+        assert cuda_lstm.kernel_plan("bwd_dualdir", batch, 256, int(res_bf16)).rows == 48
+        got = lstm_bwd_dualdir(res_f, h_f, g_f, res_r, h_r, g_r, xs, (w_ih_f, w_hh_f),
+                               (w_ih_r, w_hh_r))
+        dx_f, *gr_f = lstm_bwd(res_f, h_f, g_f, xs, w_ih_f, w_hh_f, False)
+        dx, *gr_r = lstm_bwd(res_r, h_r, g_r, xs, w_ih_r, w_hh_r, True, dx_add=dx_f)
+    finally:
+        cuda_lstm.restrict_plan_rows()
+    torch.cuda.synchronize()
+    want = list(dx) + gr_f + gr_r
+    assert all(torch.equal(a, w) for a, w in zip(list(got[0]) + list(got[1]) + list(got[2]),
+                                                  want))
+
+
+@pytest.mark.parametrize("res_bf16", [False, True])
 @pytest.mark.parametrize("lstm_bwd", ["fused", "two_pass", "dualdir"])
 def test_training_micro_step_schedules_kernel_path_match_plain_path(dev, lstm_bwd, res_bf16):
     cfg = ModelConfig(input_size=7, hidden_size=64, num_layers=2)
@@ -1310,9 +1343,15 @@ def test_fit_ode_rates_on_the_card_recovers_rates_and_repeats(dev):
 # (rows, samples, order, band): 8 sections at 8-30 Hz and fs 250, where the
 # order-16 (b, a) still factors into stable sections (at 1-45 Hz and fs 500
 # tf2sos gives a pole at |p| = 1.06, in the reference's design path too)
+# kernel 12 stages 64 samples a chunk and takes 32 rows a CTA: lengths
+# off the chunk (1000, 130, 3000) and under one (40), rows off the group (5,
+# 33, 61, 70) and over one group (33, 61, 64, 70), 1 to 8 sections
 @pytest.mark.parametrize("rows,samples,order,band", [(61, 3000, 4, (1.0, 45.0, 500.0)),
                                                      (5, 200, 2, (1.0, 45.0, 500.0)),
-                                                     (70, 1000, 8, (8.0, 30.0, 250.0))])
+                                                     (70, 1000, 8, (8.0, 30.0, 250.0)),
+                                                     (5, 40, 1, (1.0, 45.0, 500.0)),
+                                                     (33, 130, 2, (1.0, 45.0, 500.0)),
+                                                     (64, 128, 4, (1.0, 45.0, 500.0))])
 def test_sos_filtfilt_kernel_matches_twin_and_scipy(dev, rows, samples, order, band):
     from scipy.signal import filtfilt
 

@@ -208,8 +208,14 @@ def test_train_cli_runs_the_float32_policy(tmp_path, monkeypatch):
            "train": {"batch_size": 16, "accumulation_steps": 2, "eval_batch_size": 32,
                      "warmup_epochs": 1, "learning_rate": 3e-3, "bf16": False}}
     (tmp_path / "cfg.json").write_text(json.dumps(cfg))
-    rc = cli_main(["--output-dir", str(tmp_path), "--config", str(tmp_path / "cfg.json"),
-                   "train", "--epochs", "2", "--device", "cpu"])
+    # a toy model: per-operation work too small to share out, so one thread
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rc = cli_main(["--output-dir", str(tmp_path), "--config", str(tmp_path / "cfg.json"),
+                       "train", "--epochs", "2", "--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
     assert rc == 0
     params, mcfg, history, _ = jax_load_checkpoint(tmp_path / "models" / "lstm_attention")
     assert len(history["train_loss"]) == 2 and all(np.isfinite(history["train_loss"]))

@@ -92,6 +92,24 @@ def test_sos_twin_takes_the_sections_kernel_12_does(rng):
                                   tfilt.sos_filtfilt_plain(x, sos, zi, padlen).numpy())
 
 
+@pytest.mark.parametrize("rows,samples", [(1, 5), (5, 40), (32, 7), (33, 130), (61, 64),
+                                          (70, 3)])
+def test_sos_groups_stage_rows_in_padded_groups_of_32(rows, samples):
+    """Kernel 12's layout, which its wrapper builds and undoes on the card:
+    row r at sample t is group r // 32's [t, r % 32]; the last group's
+    padding rows are zero; ungrouping gives the rows back exactly."""
+    x = torch.arange(rows * samples, dtype=torch.float32).reshape(rows, samples) + 1
+    xg = tfilt.sos_groups(x)
+    groups = -(-rows // tfilt.SOS_GROUP)
+    assert xg.shape == (groups, samples, tfilt.SOS_GROUP) and xg.is_contiguous()
+    r = torch.arange(rows)
+    assert torch.equal(xg[r // 32, :, r % 32], x)
+    assert (xg.reshape(-1, tfilt.SOS_GROUP).abs().sum(0) > 0).sum() == min(rows, 32)
+    assert torch.equal(xg.transpose(1, 2).reshape(-1, samples)[rows:],
+                       torch.zeros(groups * 32 - rows, samples))
+    assert torch.equal(tfilt.sos_ungroup(xg, rows), x)
+
+
 @pytest.mark.parametrize("samples,overlap", [(1000, 0.5), (700, 0.25), (100, 0.5)])
 def test_create_sequences_equals_jax(rng, samples, overlap):
     data = rng.standard_normal((5, samples)).astype(np.float32)

@@ -406,8 +406,14 @@ def test_train_cli_writes_the_artifacts_and_jax_reads_them(tmp_path, monkeypatch
 
     patch_figures(monkeypatch)  # the figures recorded, not rasterised
     arrays = _write_processed(tmp_path)
-    rc = cli_main(["--output-dir", str(tmp_path), "--config", str(tmp_path / "cfg.json"),
-                   "train", "--epochs", "2", "--device", "cpu"])
+    # a toy model: per-operation work too small to share out, so one thread
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        rc = cli_main(["--output-dir", str(tmp_path), "--config", str(tmp_path / "cfg.json"),
+                       "train", "--epochs", "2", "--device", "cpu"])
+    finally:
+        torch.set_num_threads(threads)
     assert rc == 0
     results = json.loads((tmp_path / "results" / "lstm_results.json").read_text())
     assert results["model_name"] == "lstm_attention" and len(results["y_pred"]) == 12
