@@ -221,8 +221,13 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      masks', layer 0's dx zero exactly at stream 0's drops; (c) each step
      timed in turns with the mask path (each with its draw), their peak
      device memory above the allocations before the step at B=512 and, with
-     res_bf16, at B=7,168, and each Philox mode at B=512 against its twin
-     and a bitwise repeat, timed in turns with its uint8 mode.
+     res_bf16, at B=7,168, and each Philox mode at B=512 on a layer's drawn
+     keep-bit planes against its twin and a bitwise repeat, timed in turns
+     with its uint8 mode; the draw kernel (philox_keep_bits) against its
+     twin bit for bit at B=64, at a layer's B=512 and at a row offset that
+     carries the counter past 2^32, timed at B=512 against its twin, and
+     the generator calls a B=512 step makes, reckoned from the shapes, with
+     the draw in the loaders (the first design) and with the planes.
 The line before the last lists the kernels as JSON, each with its time, its
 twin's, its bound on an H100 (bytes over 3.35 TB/s or products over the
 dtype's peak, whichever is larger), the library call's time where there is
@@ -308,9 +313,30 @@ B_TRAIN = 512
 # HBM bytes per second, and products per second by operand type (bf16 on the
 # tensor cores; float32 outside them, since TF32 is off; float32 in 3xTF32,
 # three TF32 tensor-core products for each, at a third of the 495 TFLOP/s
-# TF32 peak)
+# TF32 peak; 32-bit integer instructions outside them, counted in slots of
+# one integer pipe: 64 results a clock on each of the 132 SMs (the CUDA C++
+# Programming Guide's throughput table, compute capability 9.0) at the 1.98
+# GHz at which the 128 float32 lanes give the data sheet's 67 TFLOP/s)
 HBM_BYTES_PER_S = 3.35e12
-PEAK_FLOPS = {"bf16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3}
+PEAK_FLOPS = {"bf16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3,
+              "int32": 132 * 64 * 1.98e9}
+# the fewest instructions of one Philox4x32-10 call and its threshold, by
+# the SM pipe that runs them (Nsight Compute's pipe names): the FMA pipe the
+# 10 rounds' two 32 x 32 -> 64-bit products (one IMAD.WIDE each, both
+# halves), the ALU pipe their two three-way XORs (one LOP3 each) and the 4
+# compares with the threshold (ISETP); the first round's product of the
+# stream word and its XOR with the key are the same for every call of a
+# stream, so a thread's calls share them (the compiled kernel does). The
+# pipes run side by side, each at 64 a clock an SM, and an SM issues 128 a
+# clock, so a call takes the busiest pipe's slots or half its instructions,
+# whichever is more
+PHILOX_PIPE_OPS = {"fma": 10 * 2 - 1, "alu": 10 * 2 - 1 + 4}
+PHILOX_CALL_OPS = max(*PHILOX_PIPE_OPS.values(), sum(PHILOX_PIPE_OPS.values()) / 2)
+# opcodes of the SASS pipes above (the rest: memory, control, moves,
+# uniform-datapath instructions)
+SASS_PIPES = {"fma": {"IMAD", "IMUL", "FFMA", "FMUL", "FADD"},
+              "alu": {"LOP3", "ISETP", "IADD3", "SHF", "LEA", "SEL", "PRMT", "IMNMX",
+                      "IABS", "PLOP3", "BMSK", "SGXT", "FSETP", "FSEL", "FMNMX"}}
 N_TRAIN_WINDOWS = 2048
 TRAIN_EPOCHS = 2
 # kernel 11 (apf_rk4) vs its twin: the same float32 RK4 steps, with FMA
@@ -606,6 +632,29 @@ def bound(bytes_moved, flops, dtype):
     by_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     by_ops = sum(f / PEAK_FLOPS[d] for f, d in pairs) * 1e3
     return (by_bytes, "bytes") if by_bytes >= by_ops else (by_ops, "operations")
+
+
+def sass_pipe_counts(library, function):
+    """The instructions of the kernel ``function`` in the SASS of the built
+    ``library`` (``cuobjdump -sass``), by the pipe of :data:`SASS_PIPES` that
+    runs them -> {"fma": n, "alu": n, "other": n}."""
+    from eegflow_torch import kernels
+
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    counts = Counter({"fma": 0, "alu": 0, "other": 0})
+    inside = False
+    for line in sass.splitlines():
+        if "Function :" in line:
+            inside = function in line
+            continue
+        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
+        if inside and m and m.group(1) != "NOP":
+            counts[next((pipe for pipe, ops in SASS_PIPES.items() if m.group(1) in ops),
+                        "other")] += 1
+    require(sum(counts.values()) > 0, f"cuobjdump -sass {library}: no {function}")
+    return dict(counts)
 
 
 def synthetic_split(rng, n, steps, channels):
@@ -2459,7 +2508,8 @@ def philox_phase(dev, smi, params, tparams, cfg, micro_step, randn, work, train_
     zeros against stream 0's drops; (c) the steps timed in turns with the
     mask path (its draw counted), the peak device memory above the
     allocations before the step at B=512 and B=7,168 (res_bf16), each mode
-    at B=512 against its uint8 mode and its twin. -> {"err", "launches"}."""
+    at B=512 against its uint8 mode and its twin; the draw kernel against its
+    twin bit for bit and timed. -> {"err", "draw_err", "launches"}."""
     from eegflow_torch import kernels
     from eegflow_torch.nn.cuda_lstm import (counter, lstm_bwd, lstm_bwd_plain, lstm_bwd_v2,
                                             lstm_bwd_v2_plain, lstm_fwd_train,
@@ -2467,7 +2517,7 @@ def philox_phase(dev, smi, params, tparams, cfg, micro_step, randn, work, train_
                                             lstm_fwd_train_plain)
     from eegflow_torch.nn.model import (draw_dropout_masks, expand_dropout_masks,
                                         train_step_launches)
-    from eegflow_torch.nn.philox import PhiloxSource
+    from eegflow_torch.nn.philox import PhiloxSource, draw_keep_bits, philox_keep_bits
 
     err = {}  # a Philox mode's counter name -> its largest absolute difference from its twin
     kgen = torch.Generator(device=dev).manual_seed(SEED + 25)
@@ -2490,6 +2540,37 @@ def philox_phase(dev, smi, params, tparams, cfg, micro_step, randn, work, train_
         require(same, f"{name}: the Philox mode equals its uint8 mode on the expanded masks")
         err[name] = max(err.get(name, 0.0), e)
 
+    # (a) the draw kernel against its twin bit for bit: the stack's input
+    # (stream 0) and a layer's two parts at B=64 (the second at a mesh rank's
+    # offset), a layer's two parts at B=512, and two rows at row 262,143,
+    # whose counter passes 2^32 (element 2^34 = T H 262,144 opens the second);
+    # keys of their own, so the phase's other keys stay those drawn before
+    # the draw kernel existed; draw_err counts the bits that differ
+    dgen = torch.Generator(device=dev).manual_seed(SEED + 27)
+    draw_err = 0
+    for batch, streams, row_offset in ((B_CHECK, (0,), 0), (B_CHECK, (1, 2), B_CHECK),
+                                       (B_TRAIN, (3, 4), 0), (2, (5,), 2 ** 34 // (T * H) - 1)):
+        key = torch.randint(-2 ** 31, 2 ** 31, (2,), generator=dgen, device=dev,
+                            dtype=torch.int32)
+        src = PhiloxSource(key, streams, row_offset)
+        parts = tuple(torch.empty(batch, T, H, device=dev) for _ in streams)
+        got = draw_keep_bits(src, parts, keep_mid).planes
+        again = draw_keep_bits(src, parts, keep_mid).planes
+        want = [philox_keep_bits(src.key, q, (batch, T, H), keep_mid, row_offset)
+                for q in streams]
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, w) for a, w in zip(got, want))
+        bitwise = all(torch.equal(a, b) for a, b in zip(got, again))
+        wrong = sum(int(((a ^ w) >> k & 1).sum()) for a, w in zip(got, want) for k in range(8))
+        draw_err = max(draw_err, wrong)
+        print(f"philox_keep_bits streams={streams} B={batch} T={T} D={H} row_offset={row_offset} "
+              f"(counter words {row_offset * T * H // 4:#x}..): {sum(g.numel() for g in got)} "
+              f"bytes equal to the twin's bit for bit: {same} ({wrong} bits differ); repeat "
+              f"bitwise identical: {bitwise}", flush=True)
+        require(same and bitwise, f"philox_keep_bits B={batch} row_offset={row_offset}: the "
+                                  f"twin's bits, repeatable")
+    del parts, got, again, want
+
     # (a) each mode at B=64 against its twin, a bitwise repeat and its uint8 mode
     for n_parts, layer, keep in ((1, params["lstm"][0], keep_in),
                                  (2, params["lstm"][1], keep_mid)):
@@ -2499,15 +2580,16 @@ def philox_phase(dev, smi, params, tparams, cfg, micro_step, randn, work, train_
             src = PhiloxSource(new_key(), tuple(1 + q for q in range(n_parts)),
                                B_CHECK if reverse else 0)
             ms = src.masks(xs, keep)
+            bits = draw_keep_bits(src, xs, keep)
             tag = (f"parts={n_parts} reverse={reverse} row_offset={src.row_offset} B={B_CHECK} "
                    f"T={T} H={H}")
             head = (xs, p["w_ih"], p["b"], p["w_hh"], reverse)
             for fwd, plain, base in fwd_modes:
                 for res16 in (False, True):
                     name = counter(base, res16, True)
-                    got = fwd(*head, src, keep, res_bf16=res16)
-                    hold25(f"{name} {tag}", name, got, fwd(*head, src, keep, res_bf16=res16),
-                           plain(*head, src, keep, res_bf16=res16),
+                    got = fwd(*head, bits, keep, res_bf16=res16)
+                    hold25(f"{name} {tag}", name, got, fwd(*head, bits, keep, res_bf16=res16),
+                           plain(*head, bits, keep, res_bf16=res16),
                            fwd(*head, ms, keep, res_bf16=res16),
                            RES16_TOL if res16 else TRAIN_FWD_TOL, relative=False)
             g_up = 0.1 * randn(B_CHECK, T, H)
@@ -2521,11 +2603,11 @@ def philox_phase(dev, smi, params, tparams, cfg, micro_step, randn, work, train_
                     name = counter(base, res16, True)
                     b_head = (*res, h_in, g_up, xs, p["w_ih"], p["w_hh"], reverse)
                     hold25(f"{name} {tag} dx_add={dx_add is not None}: dx, dW_ih, dW_hh, db",
-                           name, flat_bwd(bwd(*b_head, src, keep, dx_add)),
-                           flat_bwd(bwd(*b_head, src, keep, dx_add)),
-                           flat_bwd(plain(*b_head, src, keep, dx_add)),
+                           name, flat_bwd(bwd(*b_head, bits, keep, dx_add)),
+                           flat_bwd(bwd(*b_head, bits, keep, dx_add)),
+                           flat_bwd(plain(*b_head, bits, keep, dx_add)),
                            flat_bwd(bwd(*b_head, ms, keep, dx_add)), BWD_REL_TOL, relative=True)
-    del xs, ms, planes, gates, c_g, h_p, h_g
+    del xs, ms, bits, planes, gates, c_g, h_p, h_g
 
     # (b) one B=512 micro-step under "fused" and "two_pass" with kernel_dropout
     rng25 = np.random.default_rng(SEED + 25)
@@ -2592,22 +2674,34 @@ def philox_phase(dev, smi, params, tparams, cfg, micro_step, randn, work, train_
           flush=True)
     del other, others, pairs
 
-    # layer 0's dx (both directions on stream 0) is zero exactly where
-    # stream 0 drops: the forward and the backward draw the same bits
+    # layer 0's dx (both directions on stream 0): each direction's own dx is
+    # zero exactly where stream 0 drops (the forward and the backward draw the
+    # same bits), and so is the reverse direction's with the forward's added
+    # in its epilogue; that sum also vanishes where the two cancel (~2^-24 of
+    # the kept elements may), and there it must be their sum to one rounding
     layer0 = tparams["lstm"][0]
     x0 = (torch.tanh(randn(B_TRAIN, T, H)),)
-    src0 = PhiloxSource(masks25.key, (0,))
+    bits0 = draw_keep_bits(PhiloxSource(masks25.key, (0,)), x0, keep_in)
     outs = [lstm_fwd_train(x0, layer0[d]["w_ih"], layer0[d]["b"], layer0[d]["w_hh"], d == "bwd",
-                           src0, keep_in) for d in ("fwd", "bwd")]
-    dx = lstm_bwd(outs[0][1], outs[0][0], 0.1 * randn(B_TRAIN, T, H), x0, layer0["fwd"]["w_ih"],
-                  layer0["fwd"]["w_hh"], False, src0, keep_in)[0]
-    dx = lstm_bwd(outs[1][1], outs[1][0], 0.1 * randn(B_TRAIN, T, H), x0, layer0["bwd"]["w_ih"],
-                  layer0["bwd"]["w_hh"], True, src0, keep_in, dx)[0][0]
-    zeros_match = torch.equal(dx == 0, ~expanded.input)
-    print(f"layer 0's dx (kernel 3, both directions) zero exactly at stream 0's "
-          f"{int((~expanded.input).sum())} dropped positions: {zeros_match}", flush=True)
-    require(zeros_match, "layer 0's dx zeros are stream 0's drops")
-    del outs, dx, x0, expanded
+                           bits0, keep_in) for d in ("fwd", "bwd")]
+    dx_f = lstm_bwd(outs[0][1], outs[0][0], 0.1 * randn(B_TRAIN, T, H), x0,
+                    layer0["fwd"]["w_ih"], layer0["fwd"]["w_hh"], False, bits0, keep_in)[0]
+    head_r = (outs[1][1], outs[1][0], 0.1 * randn(B_TRAIN, T, H), x0, layer0["bwd"]["w_ih"],
+              layer0["bwd"]["w_hh"], True, bits0, keep_in)
+    dx_r = lstm_bwd(*head_r)[0][0]
+    dx = lstm_bwd(*head_r, dx_f)[0][0]
+    dx_f = dx_f[0]
+    dropped = ~expanded.input
+    cancel = (dx == 0) & ~dropped
+    zeros_match = (torch.equal(dx_f == 0, dropped) and torch.equal(dx_r == 0, dropped)
+                   and bool((dx[dropped] == 0).all()))
+    cancelled = bool(((dx_r + dx_f)[cancel].abs() <= 2 ** -23 * dx_r[cancel].abs()).all())
+    print(f"layer 0's dx (kernel 3) of each direction and of both zero exactly at stream 0's "
+          f"{int(dropped.sum())} dropped positions: {zeros_match}; both also zero at "
+          f"{int(cancel.sum())} kept positions, where the two cancel to one rounding: "
+          f"{cancelled}", flush=True)
+    require(zeros_match and cancelled, "layer 0's dx zeros are stream 0's drops")
+    del outs, dx, dx_f, dx_r, head_r, x0, bits0, expanded, dropped, cancel
 
     # (c) the steps in turns with the mask path, each with its own draw
     mgen = torch.Generator(device=dev).manual_seed(SEED + 26)
@@ -2654,13 +2748,48 @@ def philox_phase(dev, smi, params, tparams, cfg, micro_step, randn, work, train_
     del xb, yb
     torch.cuda.empty_cache()
 
-    # each mode at B=512 on the micro-step's plans (two parts, reverse, dx_add):
-    # against its twin and a bitwise repeat, timed in turns with its uint8 mode
-    # and its twin; the bound without the mask bytes (the key's 8 bytes count)
+    # each mode at B=512 on the micro-step's plans (two parts, reverse, dx_add)
+    # on a layer's keep-bit planes, drawn once as the step draws them: against
+    # its twin and a bitwise repeat, timed in turns with its uint8 mode and
+    # its twin; the bound counts the planes' bytes (1/32 of the parts')
     p1 = params["lstm"][1]["bwd"]
     xs2 = tuple(torch.tanh(randn(B_TRAIN, T, H)) for _ in range(2))
     src2 = PhiloxSource(masks25.key, (1, 2))
     ms2 = src2.masks(xs2, keep_mid)
+    bits2 = draw_keep_bits(src2, xs2, keep_mid)
+
+    # the draw kernel at a layer's B=512 against its twin, and the generator
+    # calls of a B=512 step: before, every element's bits drawn in kernel 2's
+    # projection loader once per 128-column tile of 4H (4H / 128 = 8, one
+    # call per 4 elements) and in kernel 3's dW_ih loader as often, both per
+    # direction, and in kernel 3's dx epilogue once per pair of elements per
+    # direction: 2 (2 8 / 4 + 1 / 2) = 9 calls per element a step; now one
+    # call per 4 elements (8 per 32-element word, 9 where a part does not
+    # start at a block of four) at the top of each layer's forward and
+    # backward; the bound counts each call's fewest instructions on its
+    # busiest pipe (PHILOX_PIPE_OPS), printed beside the compiled kernel's
+    m = median_ms({"kernel": lambda: draw_keep_bits(src2, xs2, keep_mid),
+                   "plain": lambda: [philox_keep_bits(src2.key, q, (B_TRAIN, T, H), keep_mid)
+                                     for q in src2.streams]}, rounds=2)
+    train_ms["philox_keep_bits"] = (m["kernel"], m["plain"])
+    layer_calls = sum(8 * -(-x.numel() // 32) for x in xs2)
+    work["philox_keep_bits"] = (nbytes(src2.key, bits2.planes), layer_calls * PHILOX_CALL_OPS,
+                                "int32")
+    bound_ms, bound_by = bound(*work["philox_keep_bits"])
+    sass = sass_pipe_counts(kernels.build_info["library"], "philox_keep_bits_kernel")
+    print(f"philox_keep_bits_kernel SASS (cuobjdump, 8 generator calls a 32-bit word and a "
+          f"9th for a part that does not start at a block of four): {sass}; the bound counts "
+          f"{PHILOX_PIPE_OPS} a call, {PHILOX_CALL_OPS:g} slots of the busiest pipe",
+          flush=True)
+    require(all(sass[pipe] >= 8 * n for pipe, n in PHILOX_PIPE_OPS.items()),
+            "philox_keep_bits: the bound counts no more instructions a pipe than the kernel has")
+    n_stack = B_TRAIN * T * H * (1 + 2 * (cfg.num_layers - 1))
+    print(f"philox_keep_bits (a layer's two parts, B={B_TRAIN} T={T} D={H}, "
+          f"{layer_calls} generator calls): kernel {m['kernel']:.3f} ms, plain {m['plain']:.3f} "
+          f"ms, bound {bound_ms:.4f} ms ({bound_by}); generator calls of a B={B_TRAIN} step "
+          f"over the stack's {n_stack} input elements: {9 * n_stack} with the draw in the "
+          f"loaders and dx epilogue, {2 * n_stack // 4} with one plane per layer and pass "
+          f"[{smi}]", flush=True)
     g2 = 0.1 * randn(B_TRAIN, T, H)
     add2 = tuple(randn(B_TRAIN, T, H) for _ in range(2))
     head = (xs2, p1["w_ih"], p1["b"], p1["w_hh"], True)
@@ -2681,14 +2810,15 @@ def philox_phase(dev, smi, params, tparams, cfg, micro_step, randn, work, train_
                 bwd, plain, (*res, h_in, g2, xs2, p1["w_ih"], p1["w_hh"], True),
                 (keep_mid, add2), {}, bwd_flops, flat_bwd, BWD_REL_TOL, True)
         for name, (kfn, pfn, a, tail, kw, flops, flat, tol, relative) in modes.items():
-            out = kfn(*a, src2, *tail, **kw)
+            out = kfn(*a, bits2, *tail, **kw)
             hold25(f"{name} B={B_TRAIN} T={T} H={H} parts=2 (the micro-step's plan)", name,
-                   flat(out), flat(kfn(*a, src2, *tail, **kw)), flat(pfn(*a, src2, *tail, **kw)),
-                   flat(kfn(*a, ms2, *tail, **kw)), tol, relative)
-            work[name] = (nbytes(a, src2.key, tail, kw, out), flops, "bf16")
+                   flat(out), flat(kfn(*a, bits2, *tail, **kw)),
+                   flat(pfn(*a, bits2, *tail, **kw)), flat(kfn(*a, ms2, *tail, **kw)), tol,
+                   relative)
+            work[name] = (nbytes(a, bits2.planes, tail, kw, out), flops, "bf16")
             del out
-            m = median_ms({"plain": lambda: pfn(*a, src2, *tail, **kw),
-                           "kernel": lambda: kfn(*a, src2, *tail, **kw),
+            m = median_ms({"plain": lambda: pfn(*a, bits2, *tail, **kw),
+                           "kernel": lambda: kfn(*a, bits2, *tail, **kw),
                            "uint8": lambda: kfn(*a, ms2, *tail, **kw)}, rounds=1)
             train_ms[name] = (m["kernel"], m["plain"])
             bound_ms, bound_by = bound(*work[name])
@@ -2696,7 +2826,7 @@ def philox_phase(dev, smi, params, tparams, cfg, micro_step, randn, work, train_
                   f"in the same turns {m['uint8']:.3f} ms, plain {m['plain']:.3f} ms, bound "
                   f"{bound_ms:.3f} ms ({bound_by}) [{smi}]", flush=True)
         del modes, h_p, planes, h_g, gates, c_g
-    return {"err": err, "launches": dict(launches)}
+    return {"err": err, "draw_err": draw_err, "launches": dict(launches)}
 
 
 def main() -> int:
@@ -4095,6 +4225,12 @@ def main() -> int:
               ("lstm_bwd", "lstm_bwd.cu", "eegflow/nn/pallas_lstm.py:754"),
               ("lstm_bwd_v2", "lstm_bwd_v2.cu", "eegflow/nn/pallas_lstm.py:960"))
           for res16 in (False, True)],
+        # the keep-bit planes of the Philox modes: launches in phase 25's
+        # micro-steps, timed at a layer's B=512
+        entry("philox_keep_bits", "philox_bits.cu",
+              "eegflow/nn/pallas_lstm.py:395-422 (_prng_block_masks, the TPU's in-kernel bits)",
+              philox["launches"].get("philox_keep_bits", 0), philox["draw_err"],
+              *train_ms["philox_keep_bits"]),
         # kernels of the port with no Pallas counterpart: the lax loops they
         # replace, and the least time of their serial chain
         entry("apf_rk4", "apf_rk4.cu", "eegflow/ode/integrate.py:41-68 (rk4_solve lax.scan + "

@@ -3,8 +3,8 @@
 // Replaces: eegflow/nn/pallas_lstm.py _bwd_fused_kernel (entry
 // lstm_bwd_fused) under the default adjoint-residual contract (_ADJ_RES=1)
 // with uint8-mask input dropout, or (EEGFLOW_KERNEL_DROPOUT) the in-kernel
-// PRNG dropout whose bits the port draws from Philox (philox.cuh), and the
-// sibling direction's dx added in
+// PRNG dropout whose bits the port draws from Philox (philox.cuh) into the
+// keep-bit plane of philox_bits.cu, and the sibling direction's dx added in
 // (dx_add), the mode the training step runs 3 layers x 2 directions per
 // micro-step; the planes may be bf16 (res_bf16, EEGFLOW_RES_BF16=1), widened
 // on load.
@@ -87,19 +87,18 @@ extern "C" int eegflow_lstm_bwd_plan(int res_bf16, int H, int hc, int rows, int 
 }
 
 // res (B, T, 6H) float32 (bf16 when res_bf16), h, g (B, T, H), x_p (B, T,
-// d_p) float32 with the dropout of the forward: the Philox bits of key
-// (stream_p, row_offset, thresh), or uint8 masks m_p, or none, as
-// eegflow_lstm_fwd_train takes them; w_p (d_p, 4H) bf16; wfrag W_hh^T bf16 in
-// the fragment order of nn/lstm_plan.py bwd_fragments; add_p (B, T, d_p) or
-// null. Outputs dx_p (B, T, d_p), dw_ih (d0 + d1, 4H), dw_hh (H, 4H), db (4H) float32. Scratch:
-// dz16 (B, T, 4H) bf16, db_part (ceil(B / 16), 4H) and part (splits *
-// max(d0, d1, H) * 4H) float32. (hc, rows, k_res): the cluster plan. x1, m1,
-// w1, add1 and dx1 may be null when d1 == 0.
+// d_p) float32 with the dropout of the forward: the keep-bit planes bits_p,
+// or uint8 masks m_p, or none, as eegflow_lstm_fwd_train takes them; w_p
+// (d_p, 4H) bf16; wfrag W_hh^T bf16 in the fragment order of nn/lstm_plan.py
+// bwd_fragments; add_p (B, T, d_p) or null. Outputs dx_p (B, T, d_p), dw_ih
+// (d0 + d1, 4H), dw_hh (H, 4H), db (4H) float32. Scratch: dz16 (B, T, 4H)
+// bf16, db_part (ceil(B / 16), 4H) and part (splits * max(d0, d1, H) * 4H)
+// float32. (hc, rows, k_res): the cluster plan. x1, m1, bits1, w1, add1 and
+// dx1 may be null when d1 == 0.
 extern "C" int eegflow_lstm_bwd(const void* res, int res_bf16, const float* h, const float* g,
                                 const float* x0, const float* x1, const uint8_t* m0,
-                                const uint8_t* m1, const uint32_t* key, int stream0,
-                                int stream1, long long row_offset, uint32_t thresh, int d0,
-                                int d1, float inv_keep,
+                                const uint8_t* m1, const uint8_t* bits0,
+                                const uint8_t* bits1, int d0, int d1, float inv_keep,
                                 const __nv_bfloat16* w0, const __nv_bfloat16* w1,
                                 const uint4* wfrag, const float* add0, const float* add1,
                                 float* dx0, float* dx1, float* dw_ih, float* dw_hh, float* db,
@@ -127,8 +126,7 @@ extern "C" int eegflow_lstm_bwd(const void* res, int res_bf16, const float* h, c
   const float* adds[2] = {add0, add1};
   float* const dxs[2] = {dx0, dx1};
   const int ds[2] = {d0, d1};
-  return static_cast<int>(bwd_products_masked(h, xs, m0, m1, key, stream0, stream1, row_offset,
-                                              thresh, ds, inv_keep, ws, adds, dxs, dz16,
-                                              db_part, dw_ih, dw_hh, db, part, splits, B, T, H,
-                                              reverse, stream));
+  return static_cast<int>(bwd_products_masked(h, xs, m0, m1, bits0, bits1, ds, inv_keep, ws,
+                                              adds, dxs, dz16, db_part, dw_ih, dw_hh, db, part,
+                                              splits, B, T, H, reverse, stream));
 }

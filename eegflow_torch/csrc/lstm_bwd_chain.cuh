@@ -441,7 +441,7 @@ __device__ __forceinline__ void chain_direction(const ResT* __restrict__ res,
 namespace lstm_bwd_ops {
 
 // dx epilogue: the part's dropout mask from the mask source (mma_gemm.cuh:
-// none, uint8 or Philox), then the sibling direction's dx
+// none, uint8 or the keep-bit plane), then the sibling direction's dx
 template <class Src>
 struct DxStore {
   float* dx;
@@ -508,23 +508,22 @@ cudaError_t bwd_products(DxStoreFor dx_store, const float* h, const float* const
 // the mask source of the launch's arguments (with_mask_source).
 inline cudaError_t bwd_products_masked(const float* h, const float* const* xs,
                                        const uint8_t* m0, const uint8_t* m1,
-                                       const uint32_t* key, int stream0, int stream1,
-                                       long long row_offset, uint32_t thresh, const int* ds,
-                                       float inv_keep, const __nv_bfloat16* const* ws,
+                                       const uint8_t* bits0, const uint8_t* bits1,
+                                       const int* ds, float inv_keep,
+                                       const __nv_bfloat16* const* ws,
                                        const float* const* adds, float* const* dxs,
                                        const __nv_bfloat16* dz16, const float* db_part,
                                        float* dw_ih, float* dw_hh, float* db, float* part,
                                        int splits, int B, int T, int H, int reverse,
                                        cudaStream_t stream) {
   const int BT = B * T;
-  return eegflow::with_mask_source(
-      m0, m1, key, stream0, stream1, row_offset, thresh, T, ds[0], ds[1], [&](auto src) {
-        auto dx_store = [&](int qp) {
-          return DxStore<decltype(src)>{dxs[qp], src, qp, adds[qp], BT, ds[qp], inv_keep};
-        };
-        return bwd_products(dx_store, h, xs, src, ds, ds[1] > 0 ? 2 : 1, inv_keep, ws, dz16,
-                            db_part, dw_ih, dw_hh, db, part, splits, B, T, H, reverse, stream);
-      });
+  return eegflow::with_mask_source(m0, m1, bits0, bits1, [&](auto src) {
+    auto dx_store = [&](int qp) {
+      return DxStore<decltype(src)>{dxs[qp], src, qp, adds[qp], BT, ds[qp], inv_keep};
+    };
+    return bwd_products(dx_store, h, xs, src, ds, ds[1] > 0 ? 2 : 1, inv_keep, ws, dz16,
+                        db_part, dw_ih, dw_hh, db, part, splits, B, T, H, reverse, stream);
+  });
 }
 
 }  // namespace lstm_bwd_ops

@@ -15,7 +15,8 @@
 // in-kernel PRNG dropout (_prng_block_masks under EEGFLOW_KERNEL_DROPOUT; the
 // producer's dropped copy of EEGFLOW_FWD_DROPW=1 and the input block's
 // out_seed, applied here by the consumer), from the Philox bits of
-// philox.cuh, drawn in the A loader: no mask tensor in device memory.
+// philox.cuh, read in the A loader from the packed plane (1 bit an element)
+// that philox_bits.cu draws once per layer for both directions.
 //
 // Per step t (walked T-1..0 for the reverse direction, h written at its
 // natural position):
@@ -50,8 +51,8 @@
 //
 // Design, two stages per launch:
 // (1) The input projection b + sum_p bf16(mask_p(x_p)) . bf16(W_ih_p) for all
-//     B T rows at once on the tensor cores (mma_gemm.cuh): the mask (read, or
-//     drawn from the Philox key once per 128-column tile of 4H) and 1/keep
+//     B T rows at once on the tensor cores (mma_gemm.cuh): the mask (a uint8
+//     byte or a plane's bit an element, read) and 1/keep
 //     applied in the A loader before the bf16 rounding, the two parts as two
 //     K segments, the result to a float32 pre-gate scratch (B, T, 4H).
 // (2) The recurrence on thread-block clusters (lstm_cluster.cuh): a cluster
@@ -324,24 +325,23 @@ int launch(const float* x0, const float* x1, const Src& src, int d0, int d1, flo
 }
 
 // A training mode's launch on the mask source of its arguments
-// (with_mask_source: the Philox bits from `key`, else the uint8 masks m_p,
+// (with_mask_source: the keep-bit planes bits_p, else the uint8 masks m_p,
 // else none) and its residual type (bf16 when res_bf16).
 template <int kMode>
 int launch_train(const float* x0, const float* x1, const uint8_t* m0, const uint8_t* m1,
-                 const uint32_t* key, int stream0, int stream1, long long row_offset,
-                 uint32_t thresh, int d0, int d1, float inv_keep, const __nv_bfloat16* w0,
-                 const __nv_bfloat16* w1, const float* bias, const uint4* wfrag, float* pre,
-                 float* h_out, void* res_out, int res_bf16, float* c_out, int B, int T, int H,
-                 int hc, int rows, int k_res, int reverse, cudaStream_t stream) {
-  return static_cast<int>(eegflow::with_mask_source(
-      m0, m1, key, stream0, stream1, row_offset, thresh, T, d0, d1, [&](auto src) {
-        auto run = [&](auto tag) {
-          return static_cast<cudaError_t>(launch<kMode, typename decltype(tag)::type>(
-              x0, x1, src, d0, d1, inv_keep, w0, w1, bias, wfrag, pre, h_out, res_out, c_out, B,
-              T, H, hc, rows, k_res, reverse, stream));
-        };
-        return res_bf16 ? run(eegflow::Type<__nv_bfloat16>{}) : run(eegflow::Type<float>{});
-      }));
+                 const uint8_t* bits0, const uint8_t* bits1, int d0, int d1, float inv_keep,
+                 const __nv_bfloat16* w0, const __nv_bfloat16* w1, const float* bias,
+                 const uint4* wfrag, float* pre, float* h_out, void* res_out, int res_bf16,
+                 float* c_out, int B, int T, int H, int hc, int rows, int k_res, int reverse,
+                 cudaStream_t stream) {
+  return static_cast<int>(eegflow::with_mask_source(m0, m1, bits0, bits1, [&](auto src) {
+    auto run = [&](auto tag) {
+      return static_cast<cudaError_t>(launch<kMode, typename decltype(tag)::type>(
+          x0, x1, src, d0, d1, inv_keep, w0, w1, bias, wfrag, pre, h_out, res_out, c_out, B, T,
+          H, hc, rows, k_res, reverse, stream));
+    };
+    return res_bf16 ? run(eegflow::Type<__nv_bfloat16>{}) : run(eegflow::Type<float>{});
+  }));
 }
 
 template <int kMode, typename ResT>
@@ -391,23 +391,22 @@ extern "C" int eegflow_lstm_fwd(const float* x0, const float* x1, int d0, int d1
 }
 
 // Training mode: as eval mode, plus the input parts' dropout, kept values
-// scaled by inv_keep, from one of three sources: the Philox bits of
-// philox.cuh where key (k0, k1) (uint32 on the device) is not null, part p
-// on stream stream_p, its rows row_offset.. of the whole batch, kept where
-// the word < thresh; else uint8 keep-masks m_p (B, T, d_p) (null: no dropout
-// on that part; 0 = dropped); else none. Writes the adjoint planes res_out
-// (B, T, 6H), float32, or bf16 when res_bf16.
+// scaled by inv_keep, from one of three sources: the packed keep bits bits_p
+// of part p (philox_bits.cu's planes; 1 = kept) where bits0 is not null;
+// else uint8 keep-masks m_p (B, T, d_p) (null: no dropout on that part; 0 =
+// dropped); else none. Writes the adjoint planes res_out (B, T, 6H),
+// float32, or bf16 when res_bf16.
 extern "C" int eegflow_lstm_fwd_train(const float* x0, const float* x1, const uint8_t* m0,
-                                      const uint8_t* m1, const uint32_t* key, int stream0,
-                                      int stream1, long long row_offset, uint32_t thresh,
-                                      int d0, int d1, float inv_keep, const __nv_bfloat16* w0,
-                                      const __nv_bfloat16* w1, const float* bias,
+                                      const uint8_t* m1, const uint8_t* bits0,
+                                      const uint8_t* bits1, int d0, int d1, float inv_keep,
+                                      const __nv_bfloat16* w0, const __nv_bfloat16* w1,
+                                      const float* bias,
                                       const uint4* wfrag, float* pre, float* h_out,
                                       void* res_out, int res_bf16, int B, int T, int H, int hc,
                                       int rows, int k_res, int reverse, cudaStream_t stream) {
-  return launch_train<kPlanes>(x0, x1, m0, m1, key, stream0, stream1, row_offset, thresh, d0,
-                               d1, inv_keep, w0, w1, bias, wfrag, pre, h_out, res_out, res_bf16,
-                               nullptr, B, T, H, hc, rows, k_res, reverse, stream);
+  return launch_train<kPlanes>(x0, x1, m0, m1, bits0, bits1, d0, d1, inv_keep, w0, w1, bias,
+                               wfrag, pre, h_out, res_out, res_bf16, nullptr, B, T, H, hc, rows,
+                               k_res, reverse, stream);
 }
 
 // Raw-gate training mode: as training mode, but the residuals are the
@@ -415,15 +414,14 @@ extern "C" int eegflow_lstm_fwd_train(const float* x0, const float* x1, const ui
 // when res_bf16) and the cell state c_out (B, T, H) float32.
 extern "C" int eegflow_lstm_fwd_train_gates(const float* x0, const float* x1,
                                             const uint8_t* m0, const uint8_t* m1,
-                                            const uint32_t* key, int stream0, int stream1,
-                                            long long row_offset, uint32_t thresh, int d0,
+                                            const uint8_t* bits0, const uint8_t* bits1, int d0,
                                             int d1, float inv_keep, const __nv_bfloat16* w0,
                                             const __nv_bfloat16* w1, const float* bias,
                                             const uint4* wfrag, float* pre, float* h_out,
                                             void* gates_out, int res_bf16, float* c_out, int B,
                                             int T, int H, int hc, int rows, int k_res,
                                             int reverse, cudaStream_t stream) {
-  return launch_train<kGates>(x0, x1, m0, m1, key, stream0, stream1, row_offset, thresh, d0,
-                              d1, inv_keep, w0, w1, bias, wfrag, pre, h_out, gates_out, res_bf16,
-                              c_out, B, T, H, hc, rows, k_res, reverse, stream);
+  return launch_train<kGates>(x0, x1, m0, m1, bits0, bits1, d0, d1, inv_keep, w0, w1, bias,
+                              wfrag, pre, h_out, gates_out, res_bf16, c_out, B, T, H, hc, rows,
+                              k_res, reverse, stream);
 }

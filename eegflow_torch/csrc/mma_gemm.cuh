@@ -41,7 +41,6 @@
 #include <stdint.h>
 
 #include "common.cuh"
-#include "philox.cuh"
 
 namespace eegflow {
 
@@ -703,13 +702,25 @@ struct Bf16Cols {
 //
 // A source gives the keep bits of a part's elements (flat index i of the
 // part's row-major (B, T, D) tensor): on(s) says whether part s is masked at
-// all (kept values scaled by 1/keep), keep8 the bytes (nonzero = kept) of the
-// 8 elements at i0 when i0 % 8 == 0 and all 8 lie in the row, keep_upto those
-// of the first `limit` of them anywhere (the rest 0), keep1 one element's and
-// keep2 those of elements i and i + 1 of one row (bits 0 and 1).
+// all (kept values scaled by 1/keep), keep8 the keep marks (a Keep, element e
+// kept where kept(k, e)) of the 8 elements at i0 when i0 % 8 == 0 and all 8
+// lie in the row, keep_upto those of the first `limit` of them anywhere (the
+// rest dropped), keep1 one element's and keep2 those of elements i and i + 1
+// of one row (bits 0 and 1). keep8's marks are what the loader fetched,
+// tested only when the tile is stored, so the load stays in flight while the
+// tensor cores work.
+
+// keep marks as bytes, nonzero = kept, byte e of the pair for element e (the
+// Keep of MaskNone and MaskU8)
+__device__ __forceinline__ bool byte_kept(const uint2& k, int e) {
+  return (((e < 4 ? k.x : k.y) >> (8 * (e & 3))) & 0xffu) != 0;
+}
 
 // no dropout (eval, kernel 4's parts as given)
 struct MaskNone {
+  using Keep = uint2;
+  __device__ static Keep all() { return make_uint2(0x01010101u, 0x01010101u); }
+  __device__ static bool kept(const Keep& k, int e) { return byte_kept(k, e); }
   __device__ bool on(int) const { return false; }
   __device__ uint2 keep8(int, size_t) const { return make_uint2(0x01010101u, 0x01010101u); }
   __device__ uint2 keep_upto(int, size_t, int limit) const {
@@ -725,6 +736,9 @@ struct MaskNone {
 // uint8 keep-masks in device memory, one per part shaped like it (null: that
 // part is not masked)
 struct MaskU8 {
+  using Keep = uint2;
+  __device__ static Keep all() { return make_uint2(0x01010101u, 0x01010101u); }
+  __device__ static bool kept(const Keep& k, int e) { return byte_kept(k, e); }
   const uint8_t* m[2];
   __device__ bool on(int s) const { return m[s] != nullptr; }
   __device__ uint2 keep8(int s, size_t i0) const {
@@ -745,59 +759,54 @@ struct MaskU8 {
   }
 };
 
-// the Philox bits of philox.cuh: the step's key (k0, k1) read through a
-// pointer on the device (no host sync), one stream per part, and each part's
-// element offset in the whole batch (row_offset T D: a mesh rank's first row)
-struct MaskPhilox {
-  const uint32_t* key;
-  uint32_t stream[2];
-  unsigned long long off[2];
-  uint32_t thresh;
+// packed keep bits in device memory, one plane per part: bit i mod 8 of byte
+// i / 8 for element i (philox_bits.cu draws them from the Philox key once per
+// layer and pass); a byte serves 8 elements, 1/32 of the part's bytes, and
+// is keep8's marks as loaded (bit e for element e)
+struct MaskBits {
+  using Keep = uint32_t;
+  __device__ static Keep all() { return 0xffu; }
+  __device__ static bool kept(Keep k, int e) { return ((k >> e) & 1u) != 0u; }
+  const uint8_t* b[2];
   __device__ bool on(int) const { return true; }
-  __device__ uint2 keep8(int s, size_t i0) const {
-    return keep_bits8(__ldg(key), __ldg(key + 1), stream[s], off[s] + i0, thresh);
+  __device__ uint32_t bit(int s, size_t i) const { return (b[s][i >> 3] >> (i & 7)) & 1u; }
+  __device__ Keep keep8(int s, size_t i0) const { return b[s][i0 >> 3]; }
+  __device__ Keep keep_upto(int s, size_t i0, int limit) const {
+    uint32_t k = 0u;
+#pragma unroll
+    for (int e = 0; e < 8; ++e)
+      if (e < limit) k |= bit(s, i0 + e) << e;
+    return k;
   }
-  __device__ uint2 keep_upto(int s, size_t i0, int limit) const {
-    if (limit <= 0) return make_uint2(0u, 0u);
-    const uint2 k = keep8(s, i0);
-    const uint64_t below = limit >= 8 ? ~0ull : (1ull << (8 * limit)) - 1ull;
-    return make_uint2(k.x & static_cast<uint32_t>(below), k.y & static_cast<uint32_t>(below >> 32));
-  }
-  __device__ bool keep1(int s, size_t i) const {
-    return keep_bits(__ldg(key), __ldg(key + 1), stream[s], off[s] + i, 1, thresh) != 0u;
-  }
-  // one generator call unless the two straddle two blocks
+  __device__ bool keep1(int s, size_t i) const { return bit(s, i) != 0u; }
   __device__ uint32_t keep2(int s, size_t i) const {
-    return keep_bits(__ldg(key), __ldg(key + 1), stream[s], off[s] + i, 2, thresh);
+    if ((i & 7) == 7) return bit(s, i) | (bit(s, i + 1) << 1);
+    return (b[s][i >> 3] >> (i & 7)) & 3u;
   }
 };
 
-// Run f(source) on the mask source of a launch's arguments: the Philox bits
-// where `key` is given (then no uint8 mask may be), the uint8 masks where
-// either part has one, else none. T, d0 and d1 place a part's first element in
-// the whole batch: (row_offset T) d_s.
+// Run f(source) on the mask source of a launch's arguments: the keep-bit
+// planes where bits0 is given (then no uint8 mask may be), the uint8 masks
+// where either part has one, else none.
 template <class F>
-cudaError_t with_mask_source(const uint8_t* m0, const uint8_t* m1, const uint32_t* key,
-                             int stream0, int stream1, long long row_offset, uint32_t thresh,
-                             int T, int d0, int d1, F&& f) {
-  if (key != nullptr) {
-    if (m0 != nullptr || m1 != nullptr || row_offset < 0 || stream0 < 0 || stream1 < 0)
-      return cudaErrorInvalidValue;
-    const unsigned long long rows = static_cast<unsigned long long>(row_offset) * T;
-    return f(MaskPhilox{key,
-                        {static_cast<uint32_t>(stream0), static_cast<uint32_t>(stream1)},
-                        {rows * d0, rows * d1},
-                        thresh});
+cudaError_t with_mask_source(const uint8_t* m0, const uint8_t* m1, const uint8_t* bits0,
+                             const uint8_t* bits1, F&& f) {
+  if (bits0 != nullptr) {
+    if (m0 != nullptr || m1 != nullptr) return cudaErrorInvalidValue;
+    return f(MaskBits{{bits0, bits1}});
   }
+  if (bits1 != nullptr) return cudaErrorInvalidValue;
   if (m0 != nullptr || m1 != nullptr) return f(MaskU8{{m0, m1}});
   return f(MaskNone{});
 }
 
-// 8 consecutive float32 elements as loaded, with their keep-mask bytes and
-// the scale of a kept one (1 and every byte kept when the part has no mask)
+// 8 consecutive float32 elements as loaded, with their keep marks (a mask
+// source's Keep) and the scale of a kept one (1 and all kept when the part
+// has no mask)
+template <class Keep>
 struct MaskedRaw {
   float v[8];
-  uint2 keep;
+  Keep keep;
   float scale;
 };
 
@@ -805,12 +814,12 @@ struct MaskedRaw {
 // D), the ones at or past `limit` (within the row) zero, with their keep
 // bytes from the mask source
 template <class Src>
-__device__ __forceinline__ MaskedRaw masked_load_x8(const float* __restrict__ x, const Src& src,
-                                                    int s, size_t i0, int D, int limit,
-                                                    float inv_keep) {
-  MaskedRaw raw;
+__device__ __forceinline__ MaskedRaw<typename Src::Keep> masked_load_x8(
+    const float* __restrict__ x, const Src& src, int s, size_t i0, int D, int limit,
+    float inv_keep) {
+  MaskedRaw<typename Src::Keep> raw;
   raw.scale = src.on(s) ? inv_keep : 1.f;
-  raw.keep = make_uint2(0x01010101u, 0x01010101u);
+  raw.keep = Src::all();
   if (limit >= 8 && (D & 7) == 0) {
     load_f32x8(raw.v, x + i0);
     if (src.on(s)) raw.keep = src.keep8(s, i0);
@@ -823,12 +832,12 @@ __device__ __forceinline__ MaskedRaw masked_load_x8(const float* __restrict__ x,
 }
 
 // where(m != 0, x * (1/keep), 0) (the reference's _masked), rounded to bf16
-__device__ __forceinline__ void masked_store(const MaskedRaw& raw, uint32_t dst) {
-  const uint32_t w[2] = {raw.keep.x, raw.keep.y};
+template <class Src>
+__device__ __forceinline__ void masked_store(const MaskedRaw<typename Src::Keep>& raw,
+                                             uint32_t dst) {
   float v[8];
 #pragma unroll
-  for (int e = 0; e < 8; ++e)
-    v[e] = ((w[e >> 2] >> (8 * (e & 3))) & 0xffu) != 0 ? raw.v[e] * raw.scale : 0.f;
+  for (int e = 0; e < 8; ++e) v[e] = Src::kept(raw.keep, e) ? raw.v[e] * raw.scale : 0.f;
   st_shared_v4(dst, pack_bf16x8(v));
 }
 
@@ -838,7 +847,7 @@ template <class Src>
 struct MaskedXRows {
   static constexpr bool kKMajor = true;
   static constexpr bool kAsync = false;
-  using Raw = MaskedRaw;
+  using Raw = MaskedRaw<typename Src::Keep>;
   const float* x[2];
   Src src;
   int D[2];
@@ -848,7 +857,7 @@ struct MaskedXRows {
     return masked_load_x8(x[s], src, s, static_cast<size_t>(r) * D[s] + k, D[s],
                           r < M ? D[s] - k : 0, inv_keep);
   }
-  __device__ void store(const Raw& raw, uint32_t dst) const { masked_store(raw, dst); }
+  __device__ void store(const Raw& raw, uint32_t dst) const { masked_store<Src>(raw, dst); }
 };
 
 // bf16(masked x) of input part `part` with M contiguous: element (r =
@@ -857,7 +866,7 @@ template <class Src>
 struct MaskedXCols {
   static constexpr bool kKMajor = false;
   static constexpr bool kAsync = false;
-  using Raw = MaskedRaw;
+  using Raw = MaskedRaw<typename Src::Keep>;
   const float* x;
   Src src;
   int part;
@@ -867,7 +876,7 @@ struct MaskedXCols {
     return masked_load_x8(x, src, part, static_cast<size_t>(k) * D + r, D, k < K ? D - r : 0,
                           inv_keep);
   }
-  __device__ void store(const Raw& raw, uint32_t dst) const { masked_store(raw, dst); }
+  __device__ void store(const Raw& raw, uint32_t dst) const { masked_store<Src>(raw, dst); }
 };
 
 // bf16(h_prev) with M contiguous: element (r = unit, k = b*T + t) = h[b, t-1]

@@ -1,25 +1,26 @@
-// Philox4x32-10 keep-masks for the in-kernel dropout of the bf16 LSTM kernels
-// (kernels 2, 3 and 3b): the counter-based generator of Salmon et al.,
-// "Parallel Random Numbers: As Easy as 1, 2, 3" (SC'11, Random123), the one
-// curand and PyTorch's CUDA generator use.
+// Philox4x32-10 keep bits for the input dropout of the bf16 LSTM kernels
+// (kernels 2, 3 and 3b under kernel_dropout): the counter-based generator of
+// Salmon et al., "Parallel Random Numbers: As Easy as 1, 2, 3" (SC'11,
+// Random123), the one curand and PyTorch's CUDA generator use.
 //
 // Replaces the TPU's hardware bits of eegflow/nn/pallas_lstm.py
 // _prng_block_masks, which key a block of masks by (seed, batch tile, seq
-// chunk, part). The port's forward and backward kernels walk other tiles
-// (kernel 2's 128 x 128 product tiles, the chains' 16 to 48 rows a cluster,
-// both directions of the next layer reading the same part), so a bit here is
-// a function of the element and never of the tile that reads it:
+// chunk, part). The port's kernels walk other tiles (kernel 2's 128 x 128
+// product tiles, the chains' 16 to 48 rows a cluster, both directions of the
+// next layer reading the same part), so a bit here is a function of the
+// element and never of the tile that reads it:
 //   element i = ((b_global T + t) D + j) of a part's (B_global, T, D) tensor
 //   reads word i & 3 of philox4x32_10(counter (q mod 2^32, q >> 32, stream, 0),
 //   key (k0, k1)), q = i >> 2, and is kept where that word < thresh,
 // thresh = min(floor(keep 2^32), 2^32 - 1) (the reference's _keep_threshold).
 // eegflow_torch/nn/philox.py is the plain twin.
 //
-// What it costs: ten rounds of two 32 x 32-bit multiplies (low and high
-// halves), three XORs and the key's two adds, about 25 integer instructions
-// an element when one block serves four; no memory traffic, which is the
-// point: the uint8 mask path reads one byte an element from device memory
-// (and its masks are drawn and held through the step).
+// philox_bits.cu draws these bits once per layer and pass into a transient
+// packed plane, 1 bit an element (1/32 of the part's float32 bytes), which
+// the kernels' loaders and dx epilogue read (mma_gemm.cuh MaskBits): a call
+// is ten rounds of two 32 x 64-bit-result multiplies (one IMAD.WIDE each, on
+// the FMA pipe) and two three-way XORs (one LOP3 each, on the ALU pipe),
+// then 4 compares with the threshold (ALU) for four elements.
 
 #pragma once
 
@@ -55,30 +56,6 @@ __device__ __forceinline__ uint32_t keep_bits4(uint32_t k0, uint32_t k1, uint32_
       make_uint4(static_cast<uint32_t>(q), static_cast<uint32_t>(q >> 32), stream, 0u), k0, k1);
   return (w.x < thresh ? 1u : 0u) | (w.y < thresh ? 2u : 0u) | (w.z < thresh ? 4u : 0u) |
          (w.w < thresh ? 8u : 0u);
-}
-
-// the keep bits of elements i0 .. i0 + n - 1 (n <= 8), bit e for element
-// i0 + e: exactly two generator calls when i0 % 4 == 0 and n > 4, one when the
-// n elements lie in one block, three at most
-__device__ __forceinline__ uint32_t keep_bits(uint32_t k0, uint32_t k1, uint32_t stream,
-                                              uint64_t i0, int n, uint32_t thresh) {
-  const uint64_t q = i0 >> 2;
-  const int s = static_cast<int>(i0 & 3);
-  uint32_t bits = keep_bits4(k0, k1, stream, q, thresh);
-  if (s + n > 4) bits |= keep_bits4(k0, k1, stream, q + 1, thresh) << 4;
-  if (s + n > 8) bits |= keep_bits4(k0, k1, stream, q + 2, thresh) << 8;
-  return (bits >> s) & ((1u << n) - 1u);
-}
-
-// the keep bytes (1 kept, 0 dropped) of the 8 consecutive elements at i0 that
-// masked_load_x8 (mma_gemm.cuh) loads, byte e of the pair for element i0 + e
-__device__ __forceinline__ uint2 keep_bits8(uint32_t k0, uint32_t k1, uint32_t stream,
-                                            uint64_t i0, uint32_t thresh) {
-  const uint32_t bits = keep_bits(k0, k1, stream, i0, 8, thresh);
-  uint32_t w[2] = {0u, 0u};
-#pragma unroll
-  for (int e = 0; e < 8; ++e) w[e >> 2] |= ((bits >> e) & 1u) << (8 * (e & 3));
-  return make_uint2(w[0], w[1]);
 }
 
 }  // namespace eegflow

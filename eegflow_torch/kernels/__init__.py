@@ -59,43 +59,40 @@ _SIGNATURES = {
     "eegflow_lstm_fwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
                          _P],
     # lstm_fwd.cu, kernel 2, training mode (res_out bf16 when res_bf16):
-    # x0, x1, m0, m1, key, stream0, stream1, row_offset, thresh, d0, d1,
-    # inv_keep, w0, w1, b, wfrag, pre, h_out, res_out, res_bf16, B, T, H, hc,
-    # rows, k_res, reverse, stream (key: the Philox key (k0, k1), or null for
-    # the uint8 masks m_p or none)
-    "eegflow_lstm_fwd_train": [_P, _P, _P, _P, _P, _I, _I, _L, _U, _I, _I, _F, _P, _P, _P,
-                               _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    # x0, x1, m0, m1, bits0, bits1, d0, d1, inv_keep, w0, w1, b, wfrag, pre,
+    # h_out, res_out, res_bf16, B, T, H, hc, rows, k_res, reverse, stream
+    # (bits_p: the parts' packed Philox keep bits, or null for the uint8 masks
+    # m_p or none)
+    "eegflow_lstm_fwd_train": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P, _P,
+                               _P, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     # lstm_fwd.cu, kernel 2, raw-gate training mode (gates_out bf16 when
     # res_bf16):
-    # x0, x1, m0, m1, key, stream0, stream1, row_offset, thresh, d0, d1,
-    # inv_keep, w0, w1, b, wfrag, pre, h_out, gates_out, res_bf16, c_out, B, T,
-    # H, hc, rows, k_res, reverse, stream
-    "eegflow_lstm_fwd_train_gates": [_P, _P, _P, _P, _P, _I, _I, _L, _U, _I, _I, _F, _P, _P,
-                                     _P, _P, _P, _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I,
-                                     _P],
+    # x0, x1, m0, m1, bits0, bits1, d0, d1, inv_keep, w0, w1, b, wfrag, pre,
+    # h_out, gates_out, res_bf16, c_out, B, T, H, hc, rows, k_res, reverse,
+    # stream
+    "eegflow_lstm_fwd_train_gates": [_P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P, _P,
+                                     _P, _P, _I, _P, _I, _I, _I, _I, _I, _I, _I, _P],
     # lstm_fwd.cu, the recurrence's shared memory and clusters held at once:
     # mode (0 eval, 1 planes, 2 raw gates, 3 bf16 planes, 4 bf16 raw gates),
     # H, hc, rows, k_res, *smem, *clusters
     "eegflow_lstm_fwd_plan": [_I, _I, _I, _I, _I, _P, _P],
     # lstm_bwd.cu, kernel 3 (res bf16 when res_bf16):
-    # res, res_bf16, h, g, x0, x1, m0, m1, key, stream0, stream1, row_offset,
-    # thresh, d0, d1, inv_keep, w0, w1, wfrag, add0, add1, dx0, dx1, dw_ih,
-    # dw_hh, db, dz16, db_part, part, splits, B, T, H, hc, rows, k_res,
-    # reverse, stream
-    "eegflow_lstm_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _U, _I, _I, _F, _P,
-                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _P],
+    # res, res_bf16, h, g, x0, x1, m0, m1, bits0, bits1, d0, d1, inv_keep, w0,
+    # w1, wfrag, add0, add1, dx0, dx1, dw_ih, dw_hh, db, dz16, db_part, part,
+    # splits, B, T, H, hc, rows, k_res, reverse, stream
+    "eegflow_lstm_bwd": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P, _P, _P,
+                         _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                         _P],
     # lstm_bwd.cu, the chain's shared memory and clusters held at once:
     # res_bf16, H, hc, rows, k_res, *smem, *clusters
     "eegflow_lstm_bwd_plan": [_I, _I, _I, _I, _I, _P, _P],
     # lstm_bwd_v2.cu, kernel 3b (gates bf16 when res_bf16):
-    # gates, res_bf16, c, h, g, x0, x1, m0, m1, key, stream0, stream1,
-    # row_offset, thresh, d0, d1, inv_keep, w0, w1, wfrag, add0, add1, dx0,
-    # dx1, dw_ih, dw_hh, db, dz16, db_part, part, splits, B, T, H, hc, rows,
-    # k_res, reverse, stream
-    "eegflow_lstm_bwd_v2": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _L, _U, _I, _I,
-                            _F, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                            _I, _I, _I, _I, _I, _I, _P],
+    # gates, res_bf16, c, h, g, x0, x1, m0, m1, bits0, bits1, d0, d1,
+    # inv_keep, w0, w1, wfrag, add0, add1, dx0, dx1, dw_ih, dw_hh, db, dz16,
+    # db_part, part, splits, B, T, H, hc, rows, k_res, reverse, stream
+    "eegflow_lstm_bwd_v2": [_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _F, _P, _P,
+                            _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                            _I, _I, _I, _P],
     # lstm_bwd_v2.cu, its chain's shared memory and clusters held at once:
     # res_bf16, H, hc, rows, k_res, *smem, *clusters
     "eegflow_lstm_bwd_v2_plan": [_I, _I, _I, _I, _I, _P, _P],
@@ -145,6 +142,9 @@ _SIGNATURES = {
     "eegflow_pool_head_bwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _P],
+    # philox_bits.cu, the keep-bit planes of kernel_dropout (one or two parts):
+    # key, stream0, stream1, off0, off1, n0, n1, thresh, bits0, bits1, stream
+    "eegflow_philox_keep_bits": [_P, _I, _I, _L, _L, _L, _L, _U, _P, _P, _P],
     # apf_rk4.cu, kernel 11 (trajectory mode with traj, else the fit loss,
     # with its gradient when grad is given):
     # y0, y0_stride, k, B, n_points, substeps, half, full, sixth, traj, obs,

@@ -3,8 +3,10 @@ input-block forward, the float32 input-block backward and the float32 pool
 head, on the GPU.
 
     python -m eegflow_torch.kernels.ablate [--variant base|nomma|noexch|nostore|noload|noln|
-                                                     nostream|onetf32|onedir|stamps]
-                                           [--rows 16,32,48] [--calls all|recurrent|head|filter]
+                                                     nostream|onetf32|onedir|stamps|nodraw|
+                                                     nodraw_loader]
+                                           [--rows 16,32,48]
+                                           [--calls all|recurrent|head|filter|philox]
                                            [--csrc DIR] [--save FILE] [--against FILE]
 
 Builds the kernels from a copy of ``eegflow_torch/csrc`` with one part of
@@ -64,6 +66,39 @@ rows, kernel 4 at both, its co-residence, the spills) repeat with::
     python -m eegflow_torch.kernels.ablate --calls recurrent --rows 32
     python -m eegflow_torch.kernels.ablate --calls recurrent --rows 48 --variant onedir
     python -m eegflow_torch.kernels.ablate --calls recurrent --variant stamps
+
+``--calls philox`` times the Philox modes of kernels 2 (planes), 3 and 3b
+(``kernel_dropout``) at B=512 (two parts of 256, H=256, T=256, keep 0.7)
+beside the same kernels on the uint8 masks the Philox source expands to,
+each launch by name: kernel 2's projection GEMM (``proj_gemm``) and
+recurrence, kernel 3's and 3b's chain, ``dx_gemm``, ``dw_ih_gemm``,
+``dw_hh_gemm`` and the split sums, and the mask source's own launches. A
+Philox call draws the layer's keep-bit planes (``philox_keep_bits_kernel``,
+timed by name; once per layer and pass in a step) and launches the kernel
+on them. It prints ptxas's registers and spills of every product kernel on
+a mask source. The variant ``nodraw`` takes the keep bits out of the
+kernels: ``MaskBits``' ``keep8``/``keep1``/``keep2`` return a fixed
+pattern in place of the plane's bits (wrong results), so the difference to
+``base`` is the plane reads' share of each launch::
+
+    python -m eegflow_torch.kernels.ablate --calls philox
+    python -m eegflow_torch.kernels.ablate --calls philox --variant nodraw
+
+Before the plane (commit ``0839b25``, the parent of the commit that added
+``csrc/philox_bits.cu``) the kernels drew the bits in their loaders and dx
+epilogue (``MaskPhilox``), and their wrappers took the source itself. The
+readings of that design's draw (PERF.md §6, "Step 1") repeat in a checkout
+of that commit with this module copied over its
+``eegflow_torch/kernels/ablate.py``: there ``--calls philox`` passes the
+source to the wrappers, and the variant ``nodraw_loader`` replaces the
+generator calls of ``MaskPhilox::keep8``, ``keep1`` and ``keep2`` by fixed
+patterns::
+
+    python -m eegflow_torch.kernels.ablate --calls philox
+    python -m eegflow_torch.kernels.ablate --calls philox --variant nodraw_loader
+
+``--save FILE`` / ``--against FILE`` (run in each tree) hold the two
+designs' outputs to each other bit for bit (the bits do not change).
 """
 
 from __future__ import annotations
@@ -239,6 +274,27 @@ VARIANTS = {
     "onedir": [
         ("lstm_bwd_dualdir.cu", "  else\n    chain_direction<kMT, false>(rev.res",
          "  else if (B < 0)\n    chain_direction<kMT, false>(rev.res")],
+    # the Philox keep bits as a fixed pattern, not read from the plane (the
+    # draw kernel's own launch is timed by name)
+    "nodraw": [
+        ("mma_gemm.cuh", "const { return (b[s][i >> 3] >> (i & 7)) & 1u; }",
+         "const { return (i & 3) != 2 ? 1u : 0u; }"),
+        ("mma_gemm.cuh", "size_t i0) const { return b[s][i0 >> 3]; }",
+         "size_t i0) const { return 0xb5u; }"),
+        ("mma_gemm.cuh", "    return (b[s][i >> 3] >> (i & 7)) & 3u;", "    return 1u;")],
+    # the same fixed patterns in place of the generator calls of the design
+    # before the plane (MaskPhilox, commit 0839b25; see the module docstring)
+    "nodraw_loader": [
+        ("mma_gemm.cuh",
+         "    return keep_bits8(__ldg(key), __ldg(key + 1), stream[s], off[s] + i0, thresh);",
+         "    return make_uint2(0x01000101u, 0x01010001u);"),
+        ("mma_gemm.cuh",
+         "    return keep_bits(__ldg(key), __ldg(key + 1), stream[s], off[s] + i, 1, thresh) "
+         "!= 0u;",
+         "    return (i & 3) != 2;"),
+        ("mma_gemm.cuh",
+         "    return keep_bits(__ldg(key), __ldg(key + 1), stream[s], off[s] + i, 2, thresh);",
+         "    return 1u;")],
     # kernel 4's chain with each CTA's SM and %globaltimer at its start and end
     # (read back through eegflow_ablate_stamps)
     "stamps": [
@@ -302,16 +358,17 @@ def _recurrence_ms(fn, reps: int = 3) -> float:
 
 
 def _ptxas_report(log: str, pattern: str = "chain_kernel"):
-    """ptxas's registers and spills of each compiled entry whose name holds
-    ``pattern``, from the build's ``-Xptxas -v`` log -> lines of text."""
+    """ptxas's registers and spills of each compiled entry whose (mangled)
+    name matches the regular expression ``pattern``, from the build's
+    ``-Xptxas -v`` log -> lines of text."""
     out, name = [], None
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '(\w+)'", line)
         if m:
-            name = m.group(1) if pattern in m.group(1) else None
+            name = m.group(1) if re.search(pattern, m.group(1)) else None
         elif name and ("spill" in line or "Used" in line):
             out.append(f"{_demangle(name)}: {line.strip()}")
-    return out
+    return list(dict.fromkeys(out))  # each source that instantiates a kernel reports it
 
 
 def _demangle(name: str) -> str:
@@ -352,12 +409,12 @@ def _chain_stamps(lib, n: int, tiles: int, hc: int):
 
 def _device_ms_by_name(fn, reps: int = 5, warm_s: float = 0.5):
     """Mean device ms of a launch of each kernel a call of ``fn`` makes, by
-    name, after ``warm_s`` seconds of calls (the card's clocks settle under
-    load), and the median SM clock (MHz) and the largest power draw (W) that
-    ``nvidia-smi`` sampled every 100 ms during the warm-up. The mean is over
-    the launches the profiler recorded (it has dropped some of a session's
-    launches on the H100 machines), so kernels launched once a call add up to
-    the call's device time."""
+    name, with the launches a call makes of it, after ``warm_s`` seconds of
+    calls (the card's clocks settle under load), and the median SM clock
+    (MHz) and the largest power draw (W) that ``nvidia-smi`` sampled every
+    100 ms during the warm-up. The mean is over the launches the profiler
+    recorded (it has dropped some of a session's launches on the H100
+    machines), so the launches' times add up to the call's device time."""
     smi = subprocess.Popen(["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
                             "--format=csv,noheader,nounits", "-lms", "100"],
                            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
@@ -375,12 +432,67 @@ def _device_ms_by_name(fn, reps: int = 5, warm_s: float = 0.5):
             fn()
         torch.cuda.synchronize()
     events = [e for e in prof.key_averages() if e.device_time_total > 0]
-    names = (re.search(r"(\w+)(?:<[^>]*>)?\(", e.key) for e in events)
-    by_name = {m.group(1) if m else e.key: e.device_time_total / 1e3 / e.count
-               for m, e in zip(names, events)}
+    by_name = {}
+    for e in events:
+        ms, n = by_name.get(_launch_name(e.key), (0.0, 0))
+        by_name[_launch_name(e.key)] = (ms + e.device_time_total / 1e3, n + e.count)
+    by_name = {k: (ms / n, max(1, round(n / reps))) for k, (ms, n) in by_name.items()}
     clock = statistics.median(c for c, _ in samples) if samples else float("nan")
     power = max((w for _, w in samples), default=float("nan"))
     return by_name, clock, power
+
+
+#: the LSTM products' GEMM (mma_gemm.cuh) named by the operand or epilogue
+#: its template holds
+GEMM_NAMES = (("MaskedXRows", "proj_gemm"), ("DxStore", "dx_gemm"),
+              ("MaskedXCols", "dw_ih_gemm"), ("HPrevCols", "dw_hh_gemm"))
+
+
+def _launch_name(key: str) -> str:
+    """A launch's name in a profile: the LSTM products' GEMM by its role
+    (:data:`GEMM_NAMES`), else the kernel's function name."""
+    if "mma_gemm_kernel" in key:
+        for part, name in GEMM_NAMES:
+            if part in key:
+                return name
+    m = re.search(r"(\w+)(?:<[^>]*>)?\(", key)
+    return m.group(1) if m else key
+
+
+def _philox_calls(dev, gen):
+    """Kernels 2 (planes), 3 and 3b at B=512 with two parts of 256 on the
+    keep-bit planes of a Philox source (streams 1 and 2, keep 0.7), drawn in
+    each call, and on the uint8 masks it expands to."""
+    from eegflow_torch.nn import cuda_lstm as cl
+    from eegflow_torch.nn import philox
+
+    bound = H ** -0.5
+
+    def uniform(*shape):
+        return ((torch.rand(shape, generator=gen) * 2 - 1) * bound).to(dev)
+
+    keep, batch = 0.7, 512
+    w_ih, w_hh, b = uniform(2 * H, 4 * H), uniform(H, 4 * H), uniform(4 * H)
+    xs = tuple(torch.randn(batch, STEPS, H, generator=gen).to(dev) for _ in range(2))
+    key = torch.randint(-2 ** 31, 2 ** 31 - 1, (2,), dtype=torch.int32, generator=gen)
+    src = philox.PhiloxSource(key.to(dev), (1, 2))
+    ms = src.masks(xs, keep)
+    if hasattr(philox, "draw_keep_bits"):
+        bits = lambda: philox.draw_keep_bits(src, xs, keep)  # noqa: E731
+    else:  # the design before the plane: its wrappers take the source
+        bits = lambda: src  # noqa: E731
+    h, res = cl.lstm_fwd_train_plain(xs, w_ih, b, w_hh, False, ms, keep)
+    hg, raw, c = cl.lstm_fwd_train_gates_plain(xs, w_ih, b, w_hh, False, ms, keep)
+    g = 0.1 * torch.randn(h.shape, generator=gen).to(dev)
+    calls = {}
+    for mode, masks in (("philox", bits), ("uint8", lambda: ms)):
+        calls[f"lstm_fwd_train {mode} B={batch}"] = (
+            lambda m=masks: cl.lstm_fwd_train(xs, w_ih, b, w_hh, False, m(), keep))
+        calls[f"lstm_bwd {mode} B={batch}"] = (
+            lambda m=masks: cl.lstm_bwd(res, h, g, xs, w_ih, w_hh, False, m(), keep))
+        calls[f"lstm_bwd_v2 {mode} B={batch}"] = (
+            lambda m=masks: cl.lstm_bwd_v2(raw, c, hg, g, xs, w_ih, w_hh, False, m(), keep))
+    return calls
 
 
 def _head_calls(dev, gen):
@@ -435,7 +547,7 @@ def main(argv=None) -> int:
     parser.add_argument("--variant", default="base", choices=sorted(VARIANTS))
     parser.add_argument("--rows", default=None, help="rows per cluster the plan may take")
     parser.add_argument("--calls", default="all",
-                        choices=("all", "recurrent", "head", "filter"))
+                        choices=("all", "recurrent", "head", "filter", "philox"))
     parser.add_argument("--csrc", default=None,
                         help="build from this kernel source directory (another tree's)")
     parser.add_argument("--save", default=None,
@@ -458,6 +570,10 @@ def main(argv=None) -> int:
             lib.eegflow_ablate_stamps.restype = ctypes.c_int
         if args.calls in ("all", "recurrent"):
             for line in _ptxas_report(kernels.build_info.get("log", "")):
+                print(f"ptxas {line}", flush=True)
+        if args.calls == "philox":
+            for line in _ptxas_report(kernels.build_info.get("log", ""),
+                                      r"mma_gemm_kernel.*Mask(Philox|U8|Bits)|philox_keep_bits"):
                 print(f"ptxas {line}", flush=True)
         dev = torch.device("cuda", 0)
         gen = torch.Generator(device="cpu").manual_seed(0)
@@ -520,14 +636,23 @@ def main(argv=None) -> int:
         head = _head_calls(dev, gen) if args.calls in ("all", "head") else {}
         if args.calls in ("all", "filter"):
             head.update(_filter_calls(dev, gen))
+        if args.calls == "philox":
+            head.update(_philox_calls(dev, gen))
         for name, fn in head.items():
-            if name.startswith("sos_filtfilt"):
+            if name.startswith("sos_filtfilt") or (args.calls == "philox"
+                                                   and not args.variant.startswith("nodraw")):
                 outputs[name] = _flat_cpu(fn())
             by_name, clock, power = _device_ms_by_name(fn)
             print(f"{args.variant} {name}: device ms a launch by kernel: "
-                  + ", ".join(f"{k} {v:.3f}" for k, v in by_name.items())
+                  + ", ".join(f"{k} {v:.3f}" + (f" x{n}" if n > 1 else "")
+                              for k, (v, n) in by_name.items())
+                  + f"; a call {sum(v * n for v, n in by_name.values()):.3f}"
                   + f"; during the warm-up SM clock {clock:.0f} MHz (median), power up to "
                   f"{power:.1f} W [{card}]", flush=True)
+        for name in [n for n in outputs if " philox " in n]:
+            twin = name.replace(" philox ", " uint8 ")
+            same = all(torch.equal(a, b) for a, b in zip(outputs[name], outputs[twin]))
+            print(f"bits {name}: equal to the uint8 mode's: {same}", flush=True)
         if args.save:
             torch.save(outputs, args.save)
         if args.against:

@@ -80,15 +80,24 @@ draws the same masks as the mask path and gives the same loss and
 gradients; its counterpart here is the mask path itself.
 
 The input dropout of kernels 2, 3 and 3b has two sources: uint8 keep-masks
-in device memory, or, as a :class:`~eegflow_torch.nn.philox.PhiloxSource`
-in place of ``masks`` (``kernel_dropout``), the Philox bits the kernels draw
-themselves from a key on the device, keyed by element
+in device memory, or, in place of ``masks`` (``kernel_dropout``), the
+Philox bits of a key on the device, keyed by element
 (:mod:`eegflow_torch.nn.philox`): the port's counterpart of the reference's
 in-kernel PRNG dropout (``EEGFLOW_KERNEL_DROPOUT=1``, the default mode 1 of
 ``EEGFLOW_FWD_DROPW`` and the input block's ``out_seed``), for the bf16
-policy under ``"fused"`` and ``"two_pass"``. The twins expand the source
-into the uint8 masks it stands for and run the mask path; a launch on it is
-counted under :func:`counter`'s name for it, e.g. ``lstm_bwd_v2_res16_philox``.
+policy under ``"fused"`` and ``"two_pass"``. The kernels read the bits from
+a transient packed plane, 1 bit an element (1/32 of the part's float32
+bytes): :class:`BiLSTMLayer` draws it once at the top of its forward for
+both directions' kernel 2 launches and once at the top of its backward for
+both directions' kernel 3 or 3b launches
+(:func:`~eegflow_torch.nn.philox.draw_keep_bits`, counted as
+``philox_keep_bits``), and frees it after them. The CUDA wrappers take the
+drawn :class:`~eegflow_torch.nn.philox.PhiloxBits` and refuse a
+:class:`~eegflow_torch.nn.philox.PhiloxSource`, so a pass draws only where
+its caller does. The twins expand the source (of the bits, or a source
+itself) into the uint8 masks it stands for and run the mask path; a launch
+on the bits is counted under :func:`counter`'s name for it, e.g.
+``lstm_bwd_v2_res16_philox``.
 """
 
 from __future__ import annotations
@@ -101,12 +110,13 @@ import torch
 from eegflow_torch import kernels
 from eegflow_torch.nn import lstm_plan
 from eegflow_torch.nn.layers import bf16_round
-from eegflow_torch.nn.philox import PhiloxSource, keep_threshold
+from eegflow_torch.nn.philox import PhiloxBits, PhiloxSource, draw_keep_bits
 
 Parts = Union[torch.Tensor, Sequence[torch.Tensor]]
 #: an input part's dropout: uint8 keep-masks (one per part, or None), or the
-#: Philox bits the kernels draw from a key
-Masks = Union[None, Sequence[Optional[torch.Tensor]], PhiloxSource]
+#: Philox bits of a key (its planes drawn for a layer and pass; the twins
+#: also take the source)
+Masks = Union[None, Sequence[Optional[torch.Tensor]], PhiloxSource, PhiloxBits]
 
 
 def as_parts(xs: Parts) -> Tuple[torch.Tensor, ...]:
@@ -123,9 +133,18 @@ def _mask_list(masks: Masks, n: int) -> Tuple[Optional[torch.Tensor], ...]:
 
 
 def _expand(masks: Masks, xs: Sequence[torch.Tensor], keep: float) -> Masks:
-    """The uint8 masks a :class:`PhiloxSource` stands for (the twins' mask
-    source); other masks as they are."""
+    """The uint8 masks a :class:`PhiloxSource`, or the source of a
+    :class:`PhiloxBits`, stands for (the twins' mask source); other masks as
+    they are."""
+    if isinstance(masks, PhiloxBits):
+        _check_bits_keep(masks, keep)
+        masks = masks.source
     return masks.masks(xs, keep) if isinstance(masks, PhiloxSource) else masks
+
+
+def _check_bits_keep(bits: PhiloxBits, keep: float) -> None:
+    if bits.keep != keep:
+        raise ValueError(f"keep-bit planes drawn at keep {bits.keep}, used at {keep}")
 
 
 def _sigmoid(z: torch.Tensor) -> torch.Tensor:
@@ -216,7 +235,7 @@ def lstm_fwd_train_gates_plain(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor,
     return _lstm_fwd_plain(xs, w_ih, b, w_hh, reverse, masks, keep, "gates", res_bf16)
 
 
-def _check_cuda_args(xs, w_ih, b, w_hh, masks=None):
+def _check_cuda_args(xs, w_ih, b, w_hh, masks=None, keep=1.0):
     dev = xs[0].device
     if len(xs) not in (1, 2):
         raise ValueError(f"lstm_fwd takes 1 or 2 input parts, got {len(xs)}")
@@ -228,21 +247,22 @@ def _check_cuda_args(xs, w_ih, b, w_hh, masks=None):
             raise ValueError("input parts disagree on (B, T)")
         if not x.is_contiguous():
             raise ValueError("input parts must be contiguous")
-    if isinstance(masks, PhiloxSource):
-        key = masks.key
-        if (key.dtype != torch.int32 or tuple(key.shape) != (2,) or key.device != dev
-                or not key.is_contiguous()):
-            raise ValueError("a Philox key must be a contiguous (2,) int32 tensor on the "
-                             "parts' device")
-        if len(masks.streams) != len(xs) or masks.row_offset < 0 or any(
-                not 0 <= s < 2 ** 31 for s in masks.streams):
-            raise ValueError(f"a Philox source needs one stream per part ({len(xs)}) and a "
-                             f"row offset >= 0, got {masks.streams}, {masks.row_offset}")
-        return
-    for x, m in zip(xs, _mask_list(masks, len(xs))):
-        if m is not None and (m.dtype != torch.uint8 or m.shape != x.shape
-                              or m.device != dev or not m.is_contiguous()):
-            raise ValueError("masks must be contiguous uint8 tensors shaped like their parts")
+    if isinstance(masks, PhiloxBits):
+        _check_bits_keep(masks, keep)
+        if len(masks.planes) != len(xs) or any(
+                p.dtype != torch.uint8 or p.dim() != 1 or p.numel() != 4 * -(-x.numel() // 32)
+                or p.device != dev or not p.is_contiguous() for p, x in zip(masks.planes, xs)):
+            raise ValueError("keep-bit planes must be contiguous uint8 tensors of 4 ceil(n / "
+                             "32) bytes, one per part, on the parts' device")
+    elif isinstance(masks, PhiloxSource):
+        raise ValueError("the kernels take the keep-bit planes of a PhiloxSource drawn by "
+                         "draw_keep_bits, not the source")
+    else:
+        for x, m in zip(xs, _mask_list(masks, len(xs))):
+            if m is not None and (m.dtype != torch.uint8 or m.shape != x.shape
+                                  or m.device != dev or not m.is_contiguous()):
+                raise ValueError("masks must be contiguous uint8 tensors shaped like their "
+                                 "parts")
     hidden = w_hh.shape[0]
     d_total = sum(x.shape[-1] for x in xs)
     if tuple(w_hh.shape) != (hidden, 4 * hidden):
@@ -275,16 +295,15 @@ def counter(name: str, res_bf16: bool = False, philox: bool = False) -> str:
     return name + ("_res16" if res_bf16 else "") + ("_philox" if philox else "")
 
 
-def _dropout_args(masks: Masks, n_parts: int, keep: float) -> list:
-    """The C arguments (m0, m1, key, stream0, stream1, row_offset, thresh) of
-    a training launch's input dropout: the uint8 masks or the Philox source
-    (checked by ``_check_cuda_args``)."""
-    if isinstance(masks, PhiloxSource):
-        streams = tuple(masks.streams) + (0,) * (2 - n_parts)
-        return [None, None, masks.key.data_ptr(), *streams, masks.row_offset,
-                keep_threshold(keep)]
+def _dropout_args(masks: Masks, n_parts: int) -> list:
+    """The C arguments (m0, m1, bits0, bits1) of a training launch's input
+    dropout: the uint8 masks or the keep-bit planes (checked by
+    ``_check_cuda_args``)."""
+    if isinstance(masks, PhiloxBits):
+        planes = masks.planes
+        return [None, None, planes[0].data_ptr(), _ptr(planes[1]) if n_parts == 2 else None]
     masks = _mask_list(masks, n_parts)
-    return [_ptr(masks[0]), _ptr(masks[1]) if n_parts == 2 else None, None, 0, 0, 0, 0]
+    return [_ptr(masks[0]), _ptr(masks[1]) if n_parts == 2 else None, None, None]
 
 
 #: kernel 2's modes: wrapper name -> (C entry point, mode of
@@ -365,7 +384,7 @@ def _fwd_kernel(name: str, xs, w_ih, b, w_hh, reverse, masks=None, keep=1.0, res
     ``counter(name, res_bf16)``. The wrapper builds the bf16 W_ih parts,
     W_hh in fragment order and the pre-gate scratch (B, T, 4H)."""
     entry, mode, widths_out = _FWD_MODES[name]
-    _check_cuda_args(xs, w_ih, b, w_hh, masks)
+    _check_cuda_args(xs, w_ih, b, w_hh, masks, keep)
     lib = kernels.load_library()
     dev = xs[0].device
     batch, steps = xs[0].shape[:2]
@@ -382,7 +401,7 @@ def _fwd_kernel(name: str, xs, w_ih, b, w_hh, reverse, masks=None, keep=1.0, res
     two = len(xs) == 2
     args = [xs[0].data_ptr(), _ptr(xs[1]) if two else None]
     if mode:
-        args += _dropout_args(masks, len(xs), keep)
+        args += _dropout_args(masks, len(xs))
     args += [widths[0], widths[1] if two else 0]
     if mode:
         args.append(1.0 / keep)
@@ -394,7 +413,7 @@ def _fwd_kernel(name: str, xs, w_ih, b, w_hh, reverse, masks=None, keep=1.0, res
              kernels.stream(dev)]
     err = getattr(lib, entry)(*args)
     kernels.check(lib, err, name)
-    kernels.launch_counts[counter(name, res_bf16, isinstance(masks, PhiloxSource))] += 1
+    kernels.launch_counts[counter(name, res_bf16, isinstance(masks, PhiloxBits))] += 1
     return outs
 
 
@@ -419,9 +438,10 @@ def lstm_fwd_train(xs: Parts, w_ih: torch.Tensor, b: torch.Tensor, w_hh: torch.T
     the planes bf16 with ``res_bf16``.
 
     ``masks``: one uint8 keep-mask (B, T, D_p) per part or None (0 = dropped,
-    kept values scaled by 1/keep, as :func:`apply_mask`), or a
-    :class:`~eegflow_torch.nn.philox.PhiloxSource` whose bits the kernel
-    draws itself (the twin expands it into those masks).
+    kept values scaled by 1/keep, as :func:`apply_mask`), or the
+    :class:`~eegflow_torch.nn.philox.PhiloxBits` that
+    :func:`~eegflow_torch.nn.philox.draw_keep_bits` drew for the parts (the
+    twin expands their source into those masks).
     """
     xs = as_parts(xs)
     if _device_kind("lstm_fwd_train", xs[0]) == "cpu":
@@ -554,7 +574,7 @@ def lstm_bwd(res: torch.Tensor, h: torch.Tensor, g: torch.Tensor, xs: Parts,
     xs = as_parts(xs)
     if _device_kind("lstm_bwd", res) == "cpu":
         return lstm_bwd_plain(res, h, g, xs, w_ih, w_hh, reverse, masks, keep, dx_add)
-    _check_cuda_args(xs, w_ih, None, w_hh, masks)
+    _check_cuda_args(xs, w_ih, None, w_hh, masks, keep)
     hidden = w_hh.shape[0]
     _check_seqs(xs, ("res", res, 6 * hidden, _RES_DTYPES), ("h", h, hidden), ("g", g, hidden))
     return _chain_bwd("lstm_bwd", "bwd", (res,), h, g, xs, w_ih, w_hh, reverse, masks, keep,
@@ -593,7 +613,7 @@ def _chain_bwd(name: str, plan_kind: str, residuals, h, g, xs, w_ih, w_hh, rever
     err = getattr(lib, "eegflow_" + name)(
         residuals[0].data_ptr(), int(res16), *[r.data_ptr() for r in residuals[1:]],
         h.data_ptr(), g.data_ptr(), xs[0].data_ptr(), _ptr(xs[1]) if two else None,
-        *_dropout_args(masks, len(xs), keep), widths[0], widths[1] if two else 0, 1.0 / keep,
+        *_dropout_args(masks, len(xs)), widths[0], widths[1] if two else 0, 1.0 / keep,
         w_parts[0].data_ptr(), w_parts[1].data_ptr() if two else None, wfrag.data_ptr(),
         _ptr(dx_add[0]) if dx_add else None, _ptr(dx_add[1]) if dx_add and two else None,
         dxs[0].data_ptr(), dxs[1].data_ptr() if two else None,
@@ -601,7 +621,7 @@ def _chain_bwd(name: str, plan_kind: str, residuals, h, g, xs, w_ih, w_hh, rever
         part.data_ptr(), splits, batch, steps, hidden, plan.hc, plan.rows, plan.k_res,
         int(reverse), kernels.stream(dev))
     kernels.check(lib, err, name)
-    kernels.launch_counts[counter(name, res16, isinstance(masks, PhiloxSource))] += 1
+    kernels.launch_counts[counter(name, res16, isinstance(masks, PhiloxBits))] += 1
     return tuple(dxs), dw_ih, dw_hh, db
 
 
@@ -656,7 +676,7 @@ def lstm_bwd_v2(gates: torch.Tensor, c: torch.Tensor, h: torch.Tensor, g: torch.
     if _device_kind("lstm_bwd_v2", gates) == "cpu":
         return lstm_bwd_v2_plain(gates, c, h, g, xs, w_ih, w_hh, reverse, masks, keep,
                                  dx_add)
-    _check_cuda_args(xs, w_ih, None, w_hh, masks)
+    _check_cuda_args(xs, w_ih, None, w_hh, masks, keep)
     hidden = w_hh.shape[0]
     _check_seqs(xs, ("gates", gates, 4 * hidden, _RES_DTYPES), ("c", c, hidden),
                 ("h", h, hidden), ("g", g, hidden))
@@ -811,6 +831,15 @@ def check_lstm_bwd(lstm_bwd: str, bf16: bool = True, bidirectional: bool = True,
                          "reads parts already dropped by select_dropout")
 
 
+def _layer_masks(kernel: bool, source: Optional[PhiloxSource], m0, m1, xs, keep) -> Masks:
+    """A layer's dropout for one pass: the keep-bit planes of ``source``,
+    drawn here for both directions' kernels (the twins expand the source),
+    else the uint8 masks ``m0``/``m1`` of its parts."""
+    if source is not None:
+        return draw_keep_bits(source, xs, keep) if kernel else source
+    return None if m0 is None else ((m0,) if len(xs) == 1 else (m0, m1))
+
+
 class BiLSTMLayer(torch.autograd.Function):
     """One LSTM layer over input parts, both directions under one Function.
 
@@ -819,7 +848,9 @@ class BiLSTMLayer(torch.autograd.Function):
     None for a one-part input; the ``_b`` weights None for a unidirectional
     layer, which returns ``(h_f,)``). The masks, or the
     :class:`~eegflow_torch.nn.philox.PhiloxSource` ``source`` in their place
-    (``m0``, ``m1`` None), are shared by both directions.
+    (``m0``, ``m1`` None), are shared by both directions: on the kernels the
+    source's keep-bit planes are drawn once at the top of the forward and
+    once at the top of the backward, each for both directions' launches.
     ``kernel`` picks the CUDA wrappers or their twins; ``schedule`` one of
     :data:`LSTM_BWD_SCHEDULES` (see the module docstring). Under ``"fused"``
     and ``"two_pass"`` the backward runs the forward direction's adjoint,
@@ -834,8 +865,7 @@ class BiLSTMLayer(torch.autograd.Function):
                 w_ih_b=None, w_hh_b=None, b_b=None, schedule="fused", res_bf16=False,
                 source=None):
         xs = (x0,) if x1 is None else (x0, x1)
-        masks = source if source is not None else (
-            None if m0 is None else ((m0,) if x1 is None else (m0, m1)))
+        masks = _layer_masks(kernel, source, m0, m1, xs, keep)
         dirs = [(w_ih_f, w_hh_f, b_f, False)]
         if w_ih_b is not None:
             dirs.append((w_ih_b, w_hh_b, b_b, True))
@@ -859,8 +889,7 @@ class BiLSTMLayer(torch.autograd.Function):
     def backward(ctx, *grads):
         x0, x1, m0, m1, w_ih_f, w_hh_f, w_ih_b, w_hh_b, *saved = ctx.saved_tensors
         xs = (x0, x1) if ctx.two else (x0,)
-        masks = ctx.source if ctx.source is not None else (
-            None if m0 is None else ((m0, m1) if ctx.two else (m0,)))
+        masks = _layer_masks(ctx.kernel, ctx.source, m0, m1, xs, ctx.keep)
         grads = [gr.contiguous() for gr in grads]
         dwih_b = dwhh_b = db_b = None
         if ctx.schedule == "dualdir":

@@ -66,9 +66,11 @@ same masks and gives the same loss and gradients as the mask path above,
 which is its counterpart here.
 
 ``kernel_dropout`` (the bf16 policy under ``"fused"`` or ``"two_pass"``):
-the stack's dropout comes from the Philox bits kernels 2, 3 and 3b draw
-from a per-step key (:mod:`eegflow_torch.nn.philox`; ``masks.key``), with
-no mask tensor in device memory: the reference's in-kernel PRNG dropout
+the stack's dropout comes from the Philox bits of a per-step key
+(:mod:`eegflow_torch.nn.philox`; ``masks.key``), drawn once per layer and
+pass into a transient packed plane of 1 bit an element that kernels 2, 3
+and 3b read, with no uint8 mask in device memory: the reference's in-kernel
+PRNG dropout
 (``EEGFLOW_KERNEL_DROPOUT=1``, the default mode 1 of ``EEGFLOW_FWD_DROPW``,
 the input block's ``out_seed``), whose TPU bits no other device reproduces.
 Stream 0 drops the stack's input, stream 1 + 2 l + p part p of layer l's
@@ -381,7 +383,9 @@ def train_step_launches(config: ModelConfig, lstm_bwd: str = "fused",
     each layer-direction's forward and backward under the schedule
     ``lstm_bwd`` (one backward a layer under ``"dualdir"``) on float32 or
     bf16 residuals, with the Philox dropout (``kernel_dropout`` and a
-    dropout rate above 0) or not, and the pool head's two with attention."""
+    dropout rate above 0: each layer's keep-bit planes drawn at the top of
+    its forward and of its backward) or not, and the pool head's two with
+    attention."""
     dirs = 2 if config.bidirectional else 1
     fwd = "lstm_fwd_train_gates" if lstm_bwd == "two_pass" else "lstm_fwd_train"
     bwd = {"fused": "lstm_bwd", "two_pass": "lstm_bwd_v2", "dualdir": "lstm_bwd_dualdir"}[lstm_bwd]
@@ -390,6 +394,8 @@ def train_step_launches(config: ModelConfig, lstm_bwd: str = "fused",
                 counter(fwd, res_bf16, philox): config.num_layers * dirs,
                 counter(bwd, res_bf16, philox): config.num_layers * (1 if lstm_bwd == "dualdir"
                                                                      else dirs)}
+    if philox:
+        launches["philox_keep_bits"] = 2 * config.num_layers
     if config.use_attention:
         launches.update(pool_head_fwd=1, pool_head_bwd=1)
     return launches

@@ -30,7 +30,8 @@ from eegflow_torch.nn.cuda_lstm import (counter, lstm_bwd, lstm_bwd_dualdir,
 from eegflow_torch.nn.losses import cross_entropy_loss
 from eegflow_torch.nn.model import (classifier_apply, classifier_init, draw_dropout_masks,
                                     expand_dropout_masks, train_step_launches)
-from eegflow_torch.nn.philox import PhiloxSource, philox_keep_mask
+from eegflow_torch.nn.philox import (PhiloxSource, draw_keep_bits, philox_keep_bits,
+                                     philox_keep_mask)
 from eegflow_torch.ode.cuda_ode import (rk4_fit_loss, rk4_fit_loss_plain, rk4_trajectory,
                                         rk4_trajectory_plain, step_sizes)
 from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
@@ -1557,6 +1558,43 @@ def test_philox_twin_draws_the_same_bits_on_the_card_as_on_the_cpu(dev):
         assert torch.equal(got.cpu(), want)
 
 
+# the draw kernel's cases: (B, T, D) parts, their streams, the row offset;
+# element counts that are not a multiple of 8 or 32, a part that does not
+# start at a block of four (35 elements a row), a layer's two 256-wide parts,
+# and two rows whose counter passes 2^32 (element 2^34 opens the second)
+PHILOX_BITS_CASES = [((5, 7, 61), (0,), 0), ((2, 5, 7), (4,), 1), ((3, 40, 256), (1, 2), 3),
+                     ((64, 256, 256), (3, 4), 0), ((2, 256, 256), (5,), 2 ** 34 // 65536 - 1)]
+
+
+@pytest.mark.parametrize("shape,streams,row_offset", PHILOX_BITS_CASES)
+def test_philox_keep_bits_kernel_is_its_twin_bit_for_bit(dev, shape, streams, row_offset):
+    key = torch.tensor([-123456789, 987654321], dtype=torch.int32, device=dev)
+    src = PhiloxSource(key, streams, row_offset)
+    xs = tuple(torch.empty(shape, device=dev) for _ in streams)
+    before = kernels.launch_counts["philox_keep_bits"]
+    got = draw_keep_bits(src, xs, 0.7)
+    assert kernels.launch_counts["philox_keep_bits"] == before + 1
+    torch.cuda.synchronize()
+    for plane, stream in zip(got.planes, streams):
+        assert torch.equal(plane, philox_keep_bits(key, stream, shape, 0.7, row_offset))
+
+
+def test_a_layers_drawn_planes_serve_both_directions_and_a_source_is_refused(dev):
+    """Kernel 2 in both directions on planes drawn once equals kernel 2 on
+    the source's expanded masks; planes drawn at another keep, and the
+    source itself, are refused."""
+    _, w_ih, w_hh, b, xs, keep, src = _philox_case(131, 2, 17, 256, dev, 48, 40, False)
+    bits = draw_keep_bits(src, xs, keep)
+    for reverse in (False, True):
+        got = lstm_fwd_train(xs, w_ih, b, w_hh, reverse, bits, keep)
+        want = lstm_fwd_train(xs, w_ih, b, w_hh, reverse, src.masks(xs, keep), keep)
+        assert all(torch.equal(a, w) for a, w in zip(got, want))
+    with pytest.raises(ValueError, match="keep"):
+        lstm_fwd_train(xs, w_ih, b, w_hh, False, draw_keep_bits(src, xs, 0.5), keep)
+    with pytest.raises(ValueError, match="draw_keep_bits"):
+        lstm_fwd_train(xs, w_ih, b, w_hh, False, src, keep)
+
+
 @pytest.mark.parametrize("res_bf16", [False, True])
 @pytest.mark.parametrize("mode", list(PHILOX_FWD))
 @pytest.mark.parametrize("n_parts", [1, 2])
@@ -1567,7 +1605,7 @@ def test_cluster_lstm_fwd_philox_matches_twin_and_the_expanded_masks(
     kfn, pfn, name = PHILOX_FWD[mode]
     _, w_ih, w_hh, b, xs, keep, src = _philox_case(110 + n_parts, n_parts, batch, hidden, dev,
                                                    d_part, steps, reverse)
-    args = (xs, w_ih, b, w_hh, reverse, src, keep)
+    args = (xs, w_ih, b, w_hh, reverse, draw_keep_bits(src, xs, keep), keep)
     label = counter(name, res_bf16, philox=True)
     before = kernels.launch_counts[label]
     got, again = kfn(*args, res_bf16=res_bf16), kfn(*args, res_bf16=res_bf16)
@@ -1600,11 +1638,12 @@ def test_cluster_lstm_bwd_philox_matches_twin_and_the_expanded_masks(dev, kernel
     g = 0.1 * _randn(gen, *h.shape, dev=dev)
     add = tuple(_randn(gen, *x.shape, dev=dev) for x in xs) if reverse else None
     head, tail = (*res, h, g, xs, w_ih, w_hh, reverse), (keep, add)
+    bits = draw_keep_bits(src, xs, keep)
     label = counter(name, philox=True)
     before = kernels.launch_counts[label]
-    got, again = kfn(*head, src, *tail), kfn(*head, src, *tail)
+    got, again = kfn(*head, bits, *tail), kfn(*head, bits, *tail)
     assert kernels.launch_counts[label] == before + 2
-    want = pfn(*head, src, *tail)
+    want = pfn(*head, bits, *tail)
     on_masks = kfn(*head, ms, *tail)
     torch.cuda.synchronize()
     flat = lambda out: list(out[0]) + list(out[1:])  # noqa: E731

@@ -32,7 +32,7 @@ from eegflow_torch.nn.cuda_lstm import (bilstm_layer, counter, lstm_bwd, lstm_bw
                                         lstm_fwd_train_plain)
 from eegflow_torch.nn.model import (classifier_apply, classifier_init, draw_dropout_masks,
                                     expand_dropout_masks, train_step_launches)
-from eegflow_torch.nn.philox import PhiloxSource, philox_keep_mask
+from eegflow_torch.nn.philox import PhiloxSource, draw_keep_bits, philox_keep_mask
 from eegflow_torch.train.loop import train_classifier
 from eegflow_torch.train.mesh import DataMesh, make_spmd_train_step, shard_batch
 from eegflow_torch.train.steps import make_optimizer, make_train_step
@@ -56,8 +56,9 @@ def _all_equal(a, b):
 @pytest.mark.parametrize("n_parts", [1, 2])
 def test_kernel_2_twin_on_a_philox_source_is_the_twin_on_its_masks(contract, res_bf16, n_parts):
     """Kernel 2's twin (both contracts, with and without bf16 residuals)
-    expands the source into the masks the kernel draws and applies them as
-    the mask path does; on CPU tensors the wrapper runs the twin."""
+    expands the source into the masks the kernel reads and applies them as
+    the mask path does; on CPU tensors the wrapper, given the planes drawn
+    for the parts, runs the twin."""
     _, p, xs, _ = _inputs(200 + n_parts, n_parts)
     tp, txs = _t(p), tuple(torch.from_numpy(x) for x in xs)
     src = _source(n_parts, row_offset=3)
@@ -66,7 +67,9 @@ def test_kernel_2_twin_on_a_philox_source_is_the_twin_on_its_masks(contract, res
     head = (txs, tp["w_ih"], tp["b"], tp["w_hh"], True)
     got = twin(*head, src, KEEP, res_bf16=res_bf16)
     assert _all_equal(got, twin(*head, src.masks(txs, KEEP), KEEP, res_bf16=res_bf16))
-    assert _all_equal(got, wrapper(*head, src, KEEP, res_bf16=res_bf16))
+    bits = draw_keep_bits(src, txs, KEEP)
+    assert _all_equal(got, twin(*head, bits, KEEP, res_bf16=res_bf16))
+    assert _all_equal(got, wrapper(*head, bits, KEEP, res_bf16=res_bf16))
     # the source drops: not the function without dropout
     assert not torch.equal(got[0], twin(*head, None, 1.0, res_bf16=res_bf16)[0])
 
@@ -92,7 +95,7 @@ def test_kernels_3_and_3b_twins_on_a_philox_source_are_the_twins_on_its_masks(ke
     flat = lambda out: list(out[0]) + list(out[1:])  # noqa: E731
     got = flat(twin(*head, src, KEEP, add))
     assert _all_equal(got, flat(twin(*head, ms, KEEP, add)))
-    assert _all_equal(got, flat(wrapper(*head, src, KEEP, add)))
+    assert _all_equal(got, flat(wrapper(*head, draw_keep_bits(src, txs, KEEP), KEEP, add)))
     # dropped inputs get exactly zero input gradient from this direction
     for dx, m in zip(twin(*head, src, KEEP)[0], ms):
         assert bool((dx[m == 0] == 0).all())
@@ -200,6 +203,73 @@ def test_the_launch_counts_name_the_philox_modes():
     # without dropout there is nothing to draw: the plain counters
     no_drop = tcfg.ModelConfig(dropout=0.0)
     assert train_step_launches(no_drop, kernel_dropout=True) == train_step_launches(no_drop)
+
+
+@pytest.mark.parametrize("lstm_bwd", ["fused", "two_pass"])
+def test_the_launch_counts_hold_one_draw_per_layer_and_pass(lstm_bwd):
+    """With the Philox dropout each layer draws its keep-bit planes at the
+    top of its forward and of its backward: 2 draws a layer; none without
+    it or without dropout."""
+    cfg = tcfg.ModelConfig()
+    got = train_step_launches(cfg, lstm_bwd, kernel_dropout=True)
+    assert got["philox_keep_bits"] == 2 * cfg.num_layers == 6
+    assert "philox_keep_bits" not in train_step_launches(cfg, lstm_bwd)
+    assert "philox_keep_bits" not in train_step_launches(tcfg.ModelConfig(dropout=0.0),
+                                                         lstm_bwd, kernel_dropout=True)
+
+
+@pytest.mark.parametrize("lstm_bwd", ["fused", "two_pass"])
+def test_a_layer_on_the_kernels_draws_its_planes_once_per_pass(lstm_bwd, monkeypatch):
+    """``BiLSTMLayer`` on the kernels' wrappers (their CPU twins here) draws
+    the planes once for both directions' forwards and once for both
+    backwards, and gives the twins' layer bit for bit."""
+    from eegflow_torch.nn import cuda_lstm
+
+    draws = []
+    real = cuda_lstm.draw_keep_bits
+
+    def counted(src, xs, keep):
+        draws.append(len(xs))
+        return real(src, xs, keep)
+
+    monkeypatch.setattr(cuda_lstm, "draw_keep_bits", counted)
+    rng, pf, xs, _ = _inputs(221, 2)
+    pb = _weights(rng, 32, 32)
+    out = []
+    for kernel in (True, False):
+        layer = {"fwd": {k: v.requires_grad_() for k, v in _t(pf).items()},
+                 "bwd": {k: v.requires_grad_() for k, v in _t(pb).items()}}
+        txs = tuple(torch.from_numpy(x).requires_grad_() for x in xs)
+        hf, hb = bilstm_layer(layer, txs, _source(2), KEEP, kernel, lstm_bwd=lstm_bwd,
+                              kernel_dropout=True)
+        (torch.tanh(hf).sum() + torch.cos(hb).sum()).backward()
+        out.append([hf.detach(), hb.detach(), *(x.grad for x in txs),
+                    *(p.grad for d in ("fwd", "bwd") for p in layer[d].values())])
+    assert draws == [2, 2]
+    assert _all_equal(*out)
+
+
+def test_the_kernels_argument_checks_take_drawn_planes_and_refuse_a_source():
+    """The CUDA wrappers' checks (run here on CPU tensors) pass a drawn
+    plane of the parts' size at its keep, and refuse planes of another size
+    or keep and the Philox source itself (its caller draws the planes)."""
+    from eegflow_torch.nn.cuda_lstm import _check_cuda_args
+    from eegflow_torch.nn.philox import PhiloxBits
+
+    _, w, xs, _ = _inputs(222, 2)
+    txs = tuple(torch.from_numpy(x) for x in xs)
+    tw = _t(w)
+    args = (txs, tw["w_ih"], tw["b"], tw["w_hh"])
+    src = _source(2)
+    bits = draw_keep_bits(src, txs, KEEP)
+    _check_cuda_args(*args, bits, KEEP)
+    with pytest.raises(ValueError, match="draw_keep_bits"):
+        _check_cuda_args(*args, src, KEEP)
+    with pytest.raises(ValueError, match="keep"):
+        _check_cuda_args(*args, bits, 0.5)
+    short = PhiloxBits(src, KEEP, (bits.planes[0][:-4], bits.planes[1]))
+    with pytest.raises(ValueError, match="planes"):
+        _check_cuda_args(*args, short, KEEP)
 
 
 def test_kernel_dropout_refusals():

@@ -3,8 +3,9 @@
 element (any row block drawn at its offset is the whole batch's rows), the
 key's effect, and the masks' statistics (each stream's keep fraction, the
 independence of streams and keys), as ``chip_smoke.py`` phase 25 checks
-them at full size on the card. The threshold is the reference's
-``_keep_threshold``."""
+them at full size on the card; the packed keep-bit plane the draw kernel
+(``csrc/philox_bits.cu``) writes, through its twin. The threshold is the
+reference's ``_keep_threshold``."""
 
 import math
 
@@ -13,8 +14,9 @@ import pytest
 import torch
 
 from eegflow.nn.pallas_lstm import _keep_threshold
-from eegflow_torch.nn.philox import (PhiloxSource, keep_threshold, philox4x32,
-                                     philox_keep_mask)
+from eegflow_torch.nn.philox import (PhiloxBits, PhiloxSource, draw_keep_bits, keep_threshold,
+                                     philox4x32, philox_keep_bits, philox_keep_mask,
+                                     unpack_keep_bits)
 
 # Random123's known-answer vectors for philox4x32-10 (kat_vectors): counter,
 # key, the four output words
@@ -107,3 +109,52 @@ def test_a_source_expands_one_uint8_mask_per_part():
     with pytest.raises(ValueError, match="int32"):
         philox_keep_mask(KEY.to(torch.int64), 0, (1, 1, 4), 0.6)
     np.testing.assert_array_equal(philox_keep_mask(KEY, 0, (2, 3, 4), 1.0).numpy(), True)
+
+
+# a row offset whose part straddles element 2^34 = counter word 2^32 at a
+# (3, 5, 7) part: 44 elements before it, 61 after
+PAST_2_32 = 2 ** 34 // 35 - 1
+
+
+@pytest.mark.parametrize("shape,row_offset", [((3, 5, 7), 0), ((2, 3, 11), 5), ((1, 1, 37), 2),
+                                              ((4, 8, 16), 3), ((3, 5, 7), PAST_2_32)])
+def test_the_plane_unpacks_to_the_mask(shape, row_offset):
+    """Bit i mod 8 of byte i / 8 is element i's keep bit, in 4 ceil(n / 32)
+    bytes whose bits past the part are 0: at element counts that are not a
+    multiple of 8 or 32, at a row offset, and across the 2^32 counter word."""
+    n = math.prod(shape)
+    bits = philox_keep_bits(KEY, 3, shape, 0.6, row_offset)
+    assert bits.dtype == torch.uint8 and bits.shape == (4 * -(-n // 32),)
+    mask = philox_keep_mask(KEY, 3, shape, 0.6, row_offset)
+    assert torch.equal(unpack_keep_bits(bits, shape), mask)
+    flat = mask.reshape(-1)
+    for i in (0, n // 3, n - 1):
+        assert (int(bits[i // 8]) >> (i % 8)) & 1 == int(flat[i])
+    tail = (bits[:, None].to(torch.int32) >> torch.arange(8)).reshape(-1)[n:] & 1
+    assert int(tail.sum()) == 0
+
+
+def test_the_element_at_2_34_reads_counter_word_2_32():
+    """Element 2^34 of a stream (row PAST_2_32 + 1 of a (B, 5, 7) part, plus
+    9) is word 0 of the block at counter (0, 1, stream, 0), and the element
+    before it word 3 of the block at (2^32 - 1, 0, stream, 0)."""
+    thresh = keep_threshold(0.6)
+    key = tuple(int(w) & 0xFFFFFFFF for w in KEY)
+    at = 2 ** 34 - PAST_2_32 * 35
+    after = philox4x32(tuple(torch.tensor(v) for v in (0, 1, 3, 0)), key)[0]
+    before = philox4x32(tuple(torch.tensor(v) for v in (2 ** 32 - 1, 0, 3, 0)), key)[3]
+    flat = unpack_keep_bits(philox_keep_bits(KEY, 3, (3, 5, 7), 0.6, PAST_2_32),
+                            (3, 5, 7)).reshape(-1)
+    assert bool(flat[at]) == (int(after) < thresh)
+    assert bool(flat[at - 1]) == (int(before) < thresh)
+
+
+def test_draw_keep_bits_on_the_cpu_is_the_twin_per_part():
+    xs = (torch.zeros(3, 4, 9), torch.zeros(3, 4, 9))
+    src = PhiloxSource(KEY, (5, 6), row_offset=7)
+    drawn = draw_keep_bits(src, xs, 0.7)
+    assert isinstance(drawn, PhiloxBits) and drawn.source is src and drawn.keep == 0.7
+    for plane, s in zip(drawn.planes, (5, 6)):
+        assert torch.equal(plane, philox_keep_bits(KEY, s, (3, 4, 9), 0.7, 7))
+    with pytest.raises(ValueError, match="streams"):
+        draw_keep_bits(PhiloxSource(KEY, (5,)), xs, 0.7)
