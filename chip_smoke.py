@@ -90,7 +90,11 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      yardstick (never on the port's path).
  16. kernels 11 and 12 against their twins: apf_rk4 (a DE population of 90,
      200 points, 16 substeps) in trajectory mode, loss mode and loss mode
-     with tangents, each bitwise repeatable; sos_filtfilt on 61 x 20,000
+     with tangents, each bitwise repeatable, and its cycles a step from the
+     loss mode's time and the SM clock; its DE mode (apf_de) against its
+     twin, the loop of generations on the loss mode, bit for bit and
+     repeated, at 513 points: a population of 90 that converges, 64 not
+     dividing 100 generations, n = 18 and 90; sos_filtfilt on 61 x 20,000
      samples (bitwise repeatable), and bandpass_filter(method="filtfilt") on a
      61 x 60,000 recording against scipy's float64 filtfilt; their times
      beside their chain bounds;
@@ -98,12 +102,16 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      call on the card in one temporary directory: synth (12 subjects x 120 s
      per task, 61 channels at 500 Hz), preprocess (default fft filter),
      train --epochs 1 (default TrainConfig, bf16 "fused"), fit-ode (default
-     ODEConfig: apf_rk4 and nothing else), serve in its own process with a
+     ODEConfig: one apf_rk4 launch for the first population, one apf_de a
+     chunk of 64 generations, apf_rk4 for the polish, nothing else; the
+     launches and the stage time printed), serve in its own process with a
      --config whose coupling sets strength 0.8 and 30 forecast steps; the
      served answers equal predict_batch at that coupling and differ from the
      default coupling's; prints each stage's time, the windows per split,
      the proportion points, the fit and which of scipy, pandas and sklearn
-     import; then times apf_rk4 and its twin at the fit's shape;
+     import; then times apf_rk4 and its twin at the fit's shape, and holds
+     the fit's whole DE (1,000 generations on the pipeline's series) in
+     apf_de to its twin bit for bit, repeated, timing both and a chunk;
  18. the analysis stages on phase 17's artifacts (its directory lives until
      this phase ends), each a CLI call on the card: integrate, explain at its
      defaults (KernelSHAP included), forecast and export; checks each
@@ -332,11 +340,6 @@ PEAK_FLOPS = {"bf16": 989e12, "float32": 67e12, "tf32x3": 495e12 / 3,
 # whichever is more
 PHILOX_PIPE_OPS = {"fma": 10 * 2 - 1, "alu": 10 * 2 - 1 + 4}
 PHILOX_CALL_OPS = max(*PHILOX_PIPE_OPS.values(), sum(PHILOX_PIPE_OPS.values()) / 2)
-# opcodes of the SASS pipes above (the rest: memory, control, moves,
-# uniform-datapath instructions)
-SASS_PIPES = {"fma": {"IMAD", "IMUL", "FFMA", "FMUL", "FADD"},
-              "alu": {"LOP3", "ISETP", "IADD3", "SHF", "LEA", "SEL", "PRMT", "IMNMX",
-                      "IABS", "PLOP3", "BMSK", "SGXT", "FSETP", "FSEL", "FMNMX"}}
 N_TRAIN_WINDOWS = 2048
 TRAIN_EPOCHS = 2
 # kernel 11 (apf_rk4) vs its twin: the same float32 RK4 steps, with FMA
@@ -349,6 +352,11 @@ APF_TRAJ_TOL = 1e-6
 # kernel 11's check shape: a DE population (popsize 15 x 6 rates), 200
 # output points, 16 RK4 substeps an interval
 APF_CANDIDATES, APF_POINTS, APF_SUBSTEPS = 90, 200, 16
+# kernel 11's DE mode against its twin at the fit's 513 points:
+# (popsize, generations, tol) of a population of 90 that converges, 64 not
+# dividing 100 generations at n = 18, and all 100 at n = 90
+APF_DE_POINTS = 513
+APF_DE_CASES = ((15, 600, 5e-2), (3, 100, 1e-7), (15, 100, 1e-7))
 # kernel 12 (sos_filtfilt) vs its twin, relative to the output's scale: the
 # same roundings (the multiply-adds written out on both sides); vs scipy's
 # float64 filtfilt: the float32 recursion floor (the JAX package's bound)
@@ -360,19 +368,20 @@ SOS_ROWS, SOS_SAMPLES = 61, 60_000
 # the pipeline phase: synth 12 subjects x 1 session x 120 s per task
 PIPE_SUBJECTS, PIPE_SECONDS = 12, 120.0
 # dependent operations on the serial chain, for the chain bounds: one RK4
-# step of kernel 11 (per stage max, the field's mul-fma-add, and the axpy
-# to the next stage's point: 3 x 5, then stage 4's field: 4, then the sum's
-# last add and the update: 2) and one sample of one section of kernel 12 (the
-# delay line's loop-carried cycle: fma, mul, fma, add); FP32 latency on
-# Hopper, cycles
+# step of kernel 11 (per stage point the max, the increment's mul, fma, fma
+# against a scaled rate matrix and its add into y: 3 x 5, then stage 4's
+# max and the weighted sum's last add: 2, then the update's mul, fma, fma,
+# add: 4) and one sample of one section of kernel 12 (the delay line's
+# loop-carried cycle: fma, mul, fma, add); FP32 latency on Hopper, cycles
 APF_CHAIN_OPS_PER_STEP = 21
 SOS_CHAIN_OPS_PER_SAMPLE = 4
 FP32_LATENCY_CYCLES = 4
 # float32 operations a kernel does, for its roofline bound: one RK4 step of
-# one candidate (4 fields of 3 max + 3 x (mul + 2 fma), 3 axpys, the
-# weighted sum and the update: 111, an FMA as 2) and one section-sample of
-# kernel 12 (3 fma, 2 mul, 1 add: 9)
-APF_FLOPS_PER_STEP = 111
+# one candidate (4 x 3 max, 3 stage points of 3 x (mul, 2 fma, add), the
+# weighted sum's 6 FMAs and 3 adds, the update's 3 x (mul, 2 fma, add): 99,
+# an FMA as 2; 111 in the first design, which scaled each field) and one
+# section-sample of kernel 12 (3 fma, 2 mul, 1 add: 9)
+APF_FLOPS_PER_STEP = 99
 SOS_FLOPS_PER_SECTION_SAMPLE = 9
 # phase 18: the analysis stages' batches at their defaults: a KernelSHAP
 # evaluation (100 coalitions x 100 background rows), a permuted stack (5
@@ -635,24 +644,15 @@ def bound(bytes_moved, flops, dtype):
 
 
 def sass_pipe_counts(library, function):
-    """The instructions of the kernel ``function`` in the SASS of the built
-    ``library`` (``cuobjdump -sass``), by the pipe of :data:`SASS_PIPES` that
-    runs them -> {"fma": n, "alu": n, "other": n}."""
-    from eegflow_torch import kernels
+    """The instructions of the kernels whose name holds ``function`` in the
+    SASS of the built ``library`` (``cuobjdump -sass``), by the pipe that
+    issues them (``eegflow_torch.kernels.ablate.SASS_PIPES``) -> {"fma": n,
+    "alu": n, "other": n}."""
+    from eegflow_torch.kernels.ablate import sass_counts
 
-    tool = Path(kernels._nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
-                          check=True, timeout=300).stdout
     counts = Counter({"fma": 0, "alu": 0, "other": 0})
-    inside = False
-    for line in sass.splitlines():
-        if "Function :" in line:
-            inside = function in line
-            continue
-        m = re.match(r"\s*/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)", line)
-        if inside and m and m.group(1) != "NOP":
-            counts[next((pipe for pipe, ops in SASS_PIPES.items() if m.group(1) in ops),
-                        "other")] += 1
+    for c in sass_counts(library, function).values():
+        counts.update(c)
     require(sum(counts.values()) > 0, f"cuobjdump -sass {library}: no {function}")
     return dict(counts)
 
@@ -691,6 +691,51 @@ def chain_ms(links, clock_mhz):
     """Milliseconds of ``links`` dependent FP32 operations in series at
     ``clock_mhz``: the least time of a serial recurrence."""
     return links * FP32_LATENCY_CYCLES / (clock_mhz * 1e3)
+
+
+def de_against_twin(label, loss, dev, popsize, maxiter, tol, seed, smi):
+    """Kernel 11's DE mode, run as the fit runs it on the card (chunks of
+    DE_CHUNK generations), against its twin, the loop of generations on the
+    loss mode, on the fit loss ``loss``: the same generations, best member
+    and loss bit for bit, again on a second run, one loss-mode launch and one
+    DE launch a chunk run -> (DE s, twin s, generations, DE launches, the
+    largest abs difference of the best member and loss), the times host
+    clock to a synchronize."""
+    from eegflow_torch import kernels
+    from eegflow_torch.core.config import ODEConfig
+    from eegflow_torch.fit.evolution import DE_CHUNK, _de_minimize, _de_minimize_chunked
+
+    lo, hi = (torch.tensor(v, dtype=torch.float32, device=dev) for v in zip(*ODEConfig().bounds))
+
+    def run(fn):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = fn(loss, gen, lo, hi, popsize, maxiter, tol)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    twin, twin_s = run(_de_minimize)
+    kernels.reset_launch_counts()
+    got, de_s = run(_de_minimize_chunked)
+    launches = dict(kernels.launch_counts)
+    again, _ = run(_de_minimize_chunked)
+    gens = got[2]
+    chunks = gens // DE_CHUNK + 1 if gens < maxiter else -(-maxiter // DE_CHUNK)
+    same = gens == twin[2] == again[2] and all(
+        torch.equal(a, b) for a, b in ((got[0], twin[0]), (got[1], twin[1]), (got[0], again[0]),
+                                       (got[1], again[1])))
+    print(f"apf_de {label}: n={popsize * 6}, {gens} of {maxiter} generations (tol {tol:g}; "
+          f"{'converged inside chunk ' + str(gens // DE_CHUNK + 1) if gens < maxiter else 'all run'}"
+          f"), best loss {got[1].item():.9g}; equal to its twin (the loop on the loss mode) bit for "
+          f"bit: {same}, launches {launches}; DE {de_s * 1e3:.1f} ms, twin {twin_s * 1e3:.1f} ms "
+          f"(host clock) [{smi}]", flush=True)
+    require(same and launches == {"apf_rk4": 1, "apf_de": chunks},
+            f"apf_de {label} equals its twin bit for bit, repeats, {chunks} DE launches")
+    err = max((got[0] - twin[0]).abs().max().item(), (got[1] - twin[1]).abs().item())
+    return de_s, twin_s, gens, launches.get("apf_de", 0), err
 
 
 def kernel_check_phase(dev, smi):
@@ -747,6 +792,32 @@ def kernel_check_phase(dev, smi):
           f"{chain_ms(steps * APF_CHAIN_OPS_PER_STEP, clock[1]):.3f} ms at the "
           f"{clock[1]:.0f} MHz max SM clock (read {clock[0]:.0f} MHz) [{smi}]", flush=True)
 
+    # kernel 11's DE mode against its twin on a noisy series of the ODE at the fit's 513 points
+    from eegflow_torch.fit.evolution import make_fit_loss
+    from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
+    from eegflow_torch.ode.integrate import solve
+
+    _, series = solve([0.6, 0.25, 0.15], (0.0, float(APF_DE_POINTS - 1)), APF_DE_POINTS,
+                      k=rates_to_array(DEFAULT_RATES, dev), method="expm")
+    series = np.clip(series.cpu().numpy() + rng.normal(0.0, 0.02, series.shape), 1e-3, 1.0)
+    series = (series / series.sum(axis=1, keepdims=True)).astype(np.float32)
+    de_loss = make_fit_loss(series, 0.0, float(APF_DE_POINTS - 1), APF_DE_POINTS, device=dev)
+    # the loss mode's cycles a step at the fit's 513 points, from calls back to back: each
+    # call's host path (~0.25 ms) runs under the previous launch, so the mean is the kernel's
+    fit_args = (k, de_loss.y0, de_loss.observed, sub, de_loss.steps, 1e-3)
+    back_to_back = cuda_ms(lambda: rk4_fit_loss(*fit_args), 20)
+    fit_steps = (APF_DE_POINTS - 1) * sub
+    print(f"apf_rk4 loss B={n} points={APF_DE_POINTS} substeps={sub}: {back_to_back:.3f} ms a "
+          f"call over 20 calls back to back (CUDA events), "
+          f"{back_to_back * clock[1] * 1e3 / fit_steps:.1f} cycles a step at the max SM clock, "
+          f"the per-point work included ({APF_CHAIN_OPS_PER_STEP * FP32_LATENCY_CYCLES} on its "
+          f"chain) [{smi}]", flush=True)
+    for i, (popsize, maxiter, tol) in enumerate(APF_DE_CASES):
+        _, _, gens, _, _ = de_against_twin(f"case {i + 1}, a noisy ODE series of {APF_DE_POINTS} "
+                                        f"points", de_loss, dev, popsize, maxiter, tol,
+                                        SEED + i, smi)
+        require((gens < maxiter) == (tol > 1e-3), f"apf_de case {i + 1} converged as planned")
+
     # kernel 12 on one recording, as bandpass_filter(method="filtfilt") gives it
     b, a = butter_bandpass(1.0, 45.0, 500.0, 4)
     sos, zi, padlen = _sos_design(b, a)
@@ -792,9 +863,13 @@ def kernel_check_phase(dev, smi):
 def apf_at_the_fit(dev, props, smi):
     """Kernel 11 at the shapes the fit-ode stage gave it, held to its twin
     and timed: the DE's loss over a population of 90 on the pipeline's
-    proportion series, and the polish's loss and gradient of one candidate
-    through the fit loss's autograd. -> (kernel ms, plain ms, largest abs
-    difference, (bytes, flops, dtype), chain bound ms)."""
+    proportion series, the polish's loss and gradient of one candidate
+    through the fit loss's autograd, and the fit's whole DE (the default
+    ODEConfig: 1,000 generations unless it converges) in the DE mode against
+    its twin, with a chunk of 64 generations timed. -> (kernel ms, plain ms,
+    largest abs difference, (bytes, flops, dtype), chain bound ms, the DE
+    mode's numbers for the kernels line, the loss mode's ms a call over
+    calls back to back)."""
     from eegflow_torch.core.config import ODEConfig
     from eegflow_torch.fit.evolution import make_fit_loss
     from eegflow_torch.ode.cuda_ode import rk4_fit_loss_plain
@@ -830,15 +905,60 @@ def apf_at_the_fit(dev, props, smi):
                                       relative=True))
     m = median_ms({"kernel": lambda: loss(k), "plain": lambda: rk4_fit_loss_plain(*args)},
                   rounds=1)
+    back_to_back = cuda_ms(lambda: loss(k), 20)  # each call's host path under the previous launch
     clock = sm_clock_mhz()
     steps = (pts - 1) * cfg.rk4_substeps
     chain = chain_ms(steps * APF_CHAIN_OPS_PER_STEP, clock[1])
     print(f"apf_rk4 at the fit: B={n} {shape} ({steps} serial steps): kernel "
-          f"{m['kernel']:.3f} ms, plain twin {m['plain']:.1f} ms; chain bound {chain:.3f} ms at "
+          f"{m['kernel']:.3f} ms (CUDA events around one call, the host's launch path in), "
+          f"{back_to_back:.3f} ms a call over 20 back to back, plain twin {m['plain']:.1f} ms; "
+          f"chain bound {chain:.3f} ms at "
           f"the {clock[1]:.0f} MHz max SM clock (read {clock[0]:.0f} MHz) [{smi}]", flush=True)
     work = (nbytes(k, loss.observed, loss.y0) + 4 * n, n * steps * APF_FLOPS_PER_STEP,
             "float32")
-    return m["kernel"], m["plain"], err, work, chain
+
+    # the fit's whole DE on the pipeline's series, and one chunk of it timed
+    from eegflow_torch.fit.evolution import DE_CHUNK, _draw_generations, _latin_hypercube
+    from eegflow_torch.ode.cuda_ode import de_generations, de_generations_plain
+
+    de_s, twin_s, gens, launches, de_err = de_against_twin(
+        f"the fit-ode stage's DE on the pipeline's series ({pts} points)", loss, dev,
+        cfg.de_popsize, cfg.de_maxiter, cfg.de_tol, cfg.de_seed, smi)
+    lo_t, hi_t = (torch.tensor(v, dtype=torch.float32, device=dev) for v in zip(*cfg.bounds))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(cfg.de_seed)
+    pop0 = _latin_hypercube(gen, n, lo_t, hi_t).contiguous()
+    with torch.no_grad():
+        fit0 = loss(pop0).contiguous()
+    draws = _draw_generations(gen, n, 6, DE_CHUNK, dev)
+    pop_c, fit_c = pop0.clone(), fit0.clone()
+
+    def chunk(fn, *rest):
+        pop_c.copy_(pop0)
+        fit_c.copy_(fit0)
+        with torch.no_grad():
+            return fn(pop_c, fit_c, lo_t, hi_t, draws, *rest)
+
+    # tol -1: no generation passes the convergence test, all of the chunk's run
+    dm = median_ms({"kernel": lambda: chunk(de_generations, loss.y0, loss.observed,
+                                            loss.substeps, loss.steps, loss.reg_weight, -1.0),
+                    "plain": lambda: chunk(de_generations_plain, loss, -1.0)}, rounds=1)
+    de_chain = chain * DE_CHUNK
+    de_work = (nbytes(pop0, fit0, draws, loss.observed, loss.y0, lo_t, hi_t) + 8,
+               DE_CHUNK * n * steps * APF_FLOPS_PER_STEP, "float32")
+    per_gen_bound = bound(*de_work)[0] / DE_CHUNK
+    print(f"apf_de at the fit: a chunk of {DE_CHUNK} generations (B={n} {shape}) "
+          f"{dm['kernel']:.3f} ms, {dm['kernel'] / DE_CHUNK:.4f} ms a generation; its twin (the "
+          f"loop on the loss mode) {dm['plain']:.3f} ms, {dm['plain'] / DE_CHUNK:.4f} ms a "
+          f"generation; a generation's chain bound {chain:.3f} ms, bound {per_gen_bound:.5f} ms; "
+          f"the whole DE ({gens} generations, {launches} DE launches, without polish) "
+          f"{de_s:.4f} s, its twin {twin_s:.4f} s [{smi}]", flush=True)
+    de = {"ms": dm["kernel"], "plain_ms": dm["plain"], "work": de_work,
+          "chain_bound_ms": de_chain, "generations": DE_CHUNK,
+          "per_generation": {"ms": dm["kernel"] / DE_CHUNK, "plain_ms": dm["plain"] / DE_CHUNK,
+                             "bound_ms": per_gen_bound, "chain_bound_ms": chain},
+          "fit_s": de_s, "fit_twin_s": twin_s, "fit_generations": gens, "err": de_err}
+    return m["kernel"], m["plain"], err, work, chain, de, back_to_back
 
 
 @contextlib.contextmanager
@@ -922,8 +1042,14 @@ def pipeline_phase(dev, smi, tmp):
     stage("train", base + ["train", "--epochs", "1", "--device", dev.type])
     counts = stage("fit-ode", base + ["fit-ode", "--device", dev.type])
     out["apf_launches"] = counts.get("apf_rk4", 0)
-    require(out["apf_launches"] > 0 and set(counts) == {"apf_rk4"},
-            "fit-ode runs kernel 11 and nothing else")
+    out["apf_de_launches"] = counts.get("apf_de", 0)
+    print(f"pipeline fit-ode: {times['fit-ode']:.3f} s, kernel 11's launches: apf_de "
+          f"{out['apf_de_launches']} (a chunk of up to 64 generations each), apf_rk4 "
+          f"{out['apf_launches']} (the first population and the polish's evaluations)",
+          flush=True)
+    require(out["apf_launches"] > 0 and out["apf_de_launches"] > 0
+            and set(counts) == {"apf_rk4", "apf_de"},
+            "fit-ode runs kernel 11's DE and loss modes and nothing else")
     eye = np.concatenate([arrays["y_train"], arrays["y_test"]])
     _, props = map_eye_state_to_cognitive(eye, 20)
     res = load_results(tmp / "out" / "results" / "ode_results.json")
@@ -3877,8 +4003,9 @@ def main() -> int:
               f"{time.perf_counter() - t_eda:.1f} s", flush=True)
     work.update(abl["work"])
     work.update(tf["work"])
-    apf_ms, apf_plain_ms, apf_err, work["apf_rk4"], apf_chain = apf_at_the_fit(
+    apf_ms, apf_plain_ms, apf_err, work["apf_rk4"], apf_chain, apf_de, apf_b2b = apf_at_the_fit(
         dev, pipe["fit_props"], smi)
+    work["apf_de"] = apf_de.pop("work")
     work["sos_filtfilt"] = checks["sos_work"]
     print(f"phases 16-21 (kernels 11 and 12, the pipeline, the analysis and ablate stages, "
           f"the EEGFormer and the snapshots, explore and the features): "
@@ -4236,7 +4363,12 @@ def main() -> int:
         entry("apf_rk4", "apf_rk4.cu", "eegflow/ode/integrate.py:41-68 (rk4_solve lax.scan + "
               "fori_loop) and eegflow/fit/evolution.py:52-62 (make_fit_loss)",
               pipe["apf_launches"], apf_err, apf_ms, apf_plain_ms,
-              chain_bound_ms=apf_chain),
+              chain_bound_ms=apf_chain, back_to_back_ms=apf_b2b),
+        # a launch of the DE mode: a chunk of generations (its error that of the
+        # whole fit's DE against its twin); its numbers per generation beside
+        entry("apf_de", "apf_rk4.cu", "eegflow/fit/evolution.py:83-134 (_de_minimize's "
+              "lax.while_loop over generations)", pipe["apf_de_launches"], apf_de.pop("err"),
+              apf_de.pop("ms"), apf_de.pop("plain_ms"), **apf_de),
         entry("sos_filtfilt", "sos_filter.cu", "eegflow/signal/filters.py:96-138 (_sos_scan "
               "lax.scan, _filtfilt_core)", checks["sos_launches"], checks["sos_err"],
               *checks["sos_ms"], chain_bound_ms=checks["sos_chain_ms"]),

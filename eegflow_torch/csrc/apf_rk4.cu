@@ -1,195 +1,457 @@
 // Kernel 11: batched fixed-step RK4 of the three-state APF system, one
-// candidate rate vector per thread.
+// candidate rate vector per thread, and the differential evolution (DE)
+// that fits the rates, whole generations in one launch.
 //
-// Replaces two loops the JAX package compiles into single XLA programs:
+// Replaces three loops the JAX package compiles into single XLA programs:
 // rk4_solve's lax.scan over output intervals with its lax.fori_loop over
-// RK4 substeps (eegflow/ode/integrate.py:41-68), and the loss body of
-// make_fit_loss over it (eegflow/fit/evolution.py:52-62). Eager PyTorch runs
-// those loops as one launch per serial step (~30 ops a step, ~8,000 steps a
-// fit-loss evaluation); here a whole evaluation is one launch.
+// RK4 substeps (eegflow/ode/integrate.py:41-68), the loss body of
+// make_fit_loss over it (eegflow/fit/evolution.py:52-62), and _de_minimize's
+// lax.while_loop over generations (eegflow/fit/evolution.py:83-134). Eager
+// PyTorch runs the first two as one launch per serial step (~30 ops a step,
+// ~8,000 steps a fit-loss evaluation) and the third as ~30 launches and a
+// host synchronisation a generation; here a loss evaluation is one launch,
+// and so is a chunk of up to G generations.
 //
-// What bounds it: the serial chain of RK4 steps. A thread's 6 rates, the
-// 3 x 3 rate matrix, its 3 states and (gradient mode) its 3 x 6 tangents
-// live in registers; nothing but the observed series (read as a broadcast,
-// every thread the same address) and the outputs touches memory. The time
-// is steps x the dependent-FMA path of one step, whatever the population
-// (a DE population of 90 fills 2 warps of one SM each), so it is latency
-// bound; the design keeps that chain free of memory traffic and of
-// synchronisation.
+// What bounds it: the serial chain of RK4 steps. A thread's rates, its
+// three scaled rate matrices, its 3 states and (gradient mode) its 3 x 6
+// tangents live in registers; nothing but the observed series (read as a
+// broadcast, every thread the same address) and the outputs touches memory.
+// The time is steps x the dependent path of one step, whatever the
+// population (a DE population of 90 is 3 warps, each alone on its SM
+// sub-partition), so it is latency bound. The step is written for that
+// chain: the field max(y, 0) @ Q is linear in max(y, 0), so a stage point is
+// y + max(y_k, 0) @ (c Q) with the step sizes folded into three matrices
+// once a candidate (no product of the field by the step), and the RK4 sum
+// is (p1 + 2 p2 + 2 p3 + p4) @ (h/6 Q), one matrix product in place of
+// four: 21 dependent operations a step, 69 instructions. Each increment is
+// summed at its own scale and added into y once, as the reference rounds.
+// A substep count of 16 (the fit's) runs unrolled in the trajectory, loss
+// and DE modes; any other, and the tangent mode, run the step in a loop. A
+// point's loss (branch-free) is taken beside the next interval's steps.
 //
-// Modes (template kMode):
-//   0 trajectory: traj (n_points, B, 3), the initial point first;
-//   1 fit loss: at each output point clip to [0, 1], renormalise and add the
+// Modes:
+//   trajectory: traj (n_points, B, 3), the initial point first;
+//   fit loss: at each output point clip to [0, 1], renormalise and add the
 //     squared error against obs (n_points, 3); loss[b] = sum / (3 n_points)
 //     + reg_weight * sum(k^2);
-//   2 fit loss and its gradient: forward tangents dy/dk through every RK4
+//   fit loss and its gradient: forward tangents dy/dk through every RK4
 //     stage, the clamp at 0 (slope 0 at 0), the clip and the
-//     renormalisation give the exact gradient of that discrete loss.
-// The step keeps _rk4_step's expression order (integrate.py:32-37), so the
-// plain twin (eegflow_torch/ode/cuda_ode.py) differs only by FMA
-// contraction and the order of the field's 3-term sums.
+//     renormalisation give the exact gradient of that discrete loss;
+//   DE (apf_de_kernel): one CTA holds the population (pop, fit) in shared
+//     memory and runs up to G generations of best1bin DE on random numbers
+//     the host drew for them, stopping early when the population converges.
+// The loss is written with rounding intrinsics, so every mode and the DE
+// give the same bits for the same candidate. The plain twins
+// (eegflow_torch/ode/cuda_ode.py, eegflow_torch/fit/evolution.py) keep the
+// step's expression order; they differ from the loss modes by FMA
+// contraction and the order of the field's 3-term sums, and the DE's twin
+// (the generation loop on the loss mode) equals the DE mode bit for bit.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 64;
+constexpr int kThreads = 64;    // loss and trajectory modes: candidates a CTA
+constexpr int kMaxPop = 1024;   // DE mode: the largest population one CTA holds
+constexpr int kRates = 6;
+constexpr int kFastSubsteps = 16;  // the fit's substeps, compiled unrolled
+// rate r moves mass from state src(r) to dst(r) (k_ap A->P, k_af A->F,
+// k_pa P->A, k_pf P->F, k_fa F->A, k_fp F->P)
+__device__ __forceinline__ constexpr int src(int r) { return r / 2; }
+__device__ __forceinline__ constexpr int dst(int r) {
+  return r == 0 ? 1 : r == 1 ? 2 : r == 2 ? 0 : r == 3 ? 2 : r == 4 ? 0 : 1;
+}
 
-// The rate matrix Q, q[src][dst]; the field is max(y, 0) @ Q.
-struct RateMatrix {
-  float q[3][3];
+struct StepSizes {
+  float half, full, sixth;
 };
 
-__device__ __forceinline__ RateMatrix rate_matrix(const float k[6]) {
-  RateMatrix m;
-  m.q[0][0] = -(k[0] + k[1]); m.q[0][1] = k[0];            m.q[0][2] = k[1];
-  m.q[1][0] = k[2];            m.q[1][1] = -(k[2] + k[3]); m.q[1][2] = k[3];
-  m.q[2][0] = k[4];            m.q[2][1] = k[5];            m.q[2][2] = -(k[4] + k[5]);
+// The rate matrix Q (q[src][dst]; the field is max(y, 0) @ Q) times half
+// the step to the second and third stage points (h/2), to the fourth (h)
+// and of the RK4 sum (h/6): the step multiplies pos2 = 2 max(y, 0), so each
+// product is that of max(y, 0) and the whole scaled matrix, bit for bit
+// (halving is exact above float32's subnormals).
+struct Scaled {
+  float h[3][3], f[3][3], s[3][3];
+};
+
+__device__ __forceinline__ Scaled scaled_rates(const float k[kRates], StepSizes st) {
+  float q[3][3];
+  q[0][0] = -__fadd_rn(k[0], k[1]); q[0][1] = k[0];                q[0][2] = k[1];
+  q[1][0] = k[2];                   q[1][1] = -__fadd_rn(k[2], k[3]); q[1][2] = k[3];
+  q[2][0] = k[4];                   q[2][1] = k[5];                q[2][2] = -__fadd_rn(k[4], k[5]);
+  Scaled m;
+#pragma unroll
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      m.h[i][j] = __fmul_rn(0.5f * st.half, q[i][j]);
+      m.f[i][j] = __fmul_rn(0.5f * st.full, q[i][j]);
+      m.s[i][j] = __fmul_rn(0.5f * st.sixth, q[i][j]);
+    }
   return m;
 }
 
-__device__ __forceinline__ void field(const float y[3], const RateMatrix& m, float f[3]) {
-  const float a = fmaxf(y[0], 0.f), p = fmaxf(y[1], 0.f), z = fmaxf(y[2], 0.f);
-#pragma unroll
-  for (int j = 0; j < 3; ++j) f[j] = (a * m.q[0][j] + p * m.q[1][j]) + z * m.q[2][j];
-}
+// 2 max(y, 0), exactly, as y + |y|: a FADD on the FMA pipe in place of an
+// FMNMX on the ALU pipe (a DE generation ~9 % faster on the H100)
+__device__ __forceinline__ float twice_pos(float y) { return __fadd_rn(y, fabsf(y)); }
 
-// d(field)/dk at y with tangents t = dy/dk: Q^T (mask * t) + max(y, 0) . dQ/dk
-__device__ __forceinline__ void field_tangent(const float y[3], const float t[3][6],
-                                              const RateMatrix& m, float g[3][6]) {
-  float pos[3], mask[3];
-#pragma unroll
-  for (int i = 0; i < 3; ++i) {
-    pos[i] = fmaxf(y[i], 0.f);
-    mask[i] = y[i] > 0.f ? 1.f : 0.f;
-  }
-#pragma unroll
-  for (int r = 0; r < 6; ++r) {
-    const float t0 = t[0][r] * mask[0], t1 = t[1][r] * mask[1], t2 = t[2][r] * mask[2];
-#pragma unroll
-    for (int j = 0; j < 3; ++j) g[j][r] = (m.q[0][j] * t0 + m.q[1][j] * t1) + m.q[2][j] * t2;
-  }
-  // dQ/dk: rate r moves mass from its source to its destination (k_ap A->P,
-  // k_af A->F, k_pa P->A, k_pf P->F, k_fa F->A, k_fp F->P)
-  g[1][0] += pos[0]; g[0][0] -= pos[0];
-  g[2][1] += pos[0]; g[0][1] -= pos[0];
-  g[0][2] += pos[1]; g[1][2] -= pos[1];
-  g[2][3] += pos[1]; g[1][3] -= pos[1];
-  g[0][4] += pos[2]; g[2][4] -= pos[2];
-  g[1][5] += pos[2]; g[2][5] -= pos[2];
-}
-
-// One RK4 step of y (and of its tangents when kTangent), in _rk4_step's
-// order: y + h/6 * (((f1 + 2 f2) + 2 f3) + f4).
-template <bool kTangent>
-__device__ __forceinline__ void rk4_step(float y[3], float t[3][6], const RateMatrix& m,
-                                         float half, float full, float sixth) {
-  float f[3], acc[3], ys[3];
-  field(y, m, f);
-#pragma unroll
-  for (int j = 0; j < 3; ++j) { acc[j] = f[j]; ys[j] = y[j] + half * f[j]; }
-  float g[3][6], tacc[3][6], ts[3][6];
-  if (kTangent) {
-    field_tangent(y, t, m, g);
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-#pragma unroll
-      for (int r = 0; r < 6; ++r) { tacc[j][r] = g[j][r]; ts[j][r] = t[j][r] + half * g[j][r]; }
-  }
-  // stages 2 and 3 (weight 2), then 4 (weight 1)
-#pragma unroll
-  for (int stage = 2; stage <= 4; ++stage) {
-    const float step = stage == 3 ? full : half;  // the step to the NEXT stage's point
-    if (kTangent) field_tangent(ys, ts, m, g);
-    field(ys, m, f);
-    const float w = stage == 4 ? 1.f : 2.f;
-#pragma unroll
-    for (int j = 0; j < 3; ++j) {
-      acc[j] = acc[j] + w * f[j];
-      if (stage < 4) ys[j] = y[j] + step * f[j];
-    }
-    if (kTangent) {
-#pragma unroll
-      for (int j = 0; j < 3; ++j)
-#pragma unroll
-        for (int r = 0; r < 6; ++r) {
-          tacc[j][r] = tacc[j][r] + w * g[j][r];
-          if (stage < 4) ts[j][r] = t[j][r] + step * g[j][r];
-        }
-    }
-  }
-  if (kTangent) {
-#pragma unroll
-    for (int j = 0; j < 3; ++j)
-#pragma unroll
-      for (int r = 0; r < 6; ++r) t[j][r] = t[j][r] + sixth * tacc[j][r];
-  }
-#pragma unroll
-  for (int j = 0; j < 3; ++j) y[j] = y[j] + sixth * acc[j];
-}
-
-template <int kMode>
-__global__ void __launch_bounds__(kThreads)
-apf_rk4_kernel(const float* __restrict__ y0, int y0_stride, const float* __restrict__ k,
-               int batch, int n_points, int substeps, float half, float full, float sixth,
-               float* __restrict__ traj, const float* __restrict__ obs, float reg_weight,
-               float* __restrict__ loss, float* __restrict__ grad) {
-  constexpr bool kTangent = kMode == 2;
-  const int b = blockIdx.x * blockDim.x + threadIdx.x;
-  if (b >= batch) return;
-  float kk[6];
-#pragma unroll
-  for (int r = 0; r < 6; ++r) kk[r] = k[b * 6 + r];
-  const RateMatrix m = rate_matrix(kk);
-  float y[3];
-#pragma unroll
-  for (int j = 0; j < 3; ++j) y[j] = y0[b * y0_stride + j];
-  float t[3][6];
+// out = y + p @ c, component j as y_j + ((p_0 c_0j + p_1 c_1j) + p_2 c_2j):
+// the increment is summed at its own scale and rounded into y once, as
+// _rk4_step rounds y + c f (three FMAs into y would round at y's scale three
+// times, ~10x the twin's distance to the reference over a fit's 8,192 steps)
+__device__ __forceinline__ void add_field(const float y[3], const float p[3], const float c[3][3],
+                                          float out[3]) {
 #pragma unroll
   for (int j = 0; j < 3; ++j)
-#pragma unroll
-    for (int r = 0; r < 6; ++r) t[j][r] = 0.f;
-  float acc = 0.f, g[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    out[j] = __fadd_rn(y[j], __fmaf_rn(p[2], c[2][j],
+                                       __fmaf_rn(p[1], c[1][j], __fmul_rn(p[0], c[0][j]))));
+}
 
-  for (int i = 0; i < n_points; ++i) {
-    if (i > 0) {
-      for (int s = 0; s < substeps; ++s) rk4_step<kTangent>(y, t, m, half, full, sixth);
-    }
-    if (kMode == 0) {
-      float* out = traj + (static_cast<size_t>(i) * batch + b) * 3;
-      out[0] = y[0]; out[1] = y[1]; out[2] = y[2];
-    } else {
-      float c[3], p[3], e[3];
+// Stage k's share of the tangents, all doubled as pos2 is: dpos2 = 2
+// mask(y_k > 0) t_k is added to dP2 with weight w, and (when next) the next
+// stage point's tangents are t + dpos2^T (c/2 Q) + (c/2) pos2 . dQ/dk, with
+// c2 = c/2 Q and half_step = c/2.
+__device__ __forceinline__ void stage_tangent(const float yk[3], const float pos2[3],
+                                              const float tk[3][kRates], const float t[3][kRates],
+                                              const float c2[3][3], float half_step, float w,
+                                              float dP[3][kRates], float next[3][kRates],
+                                              bool first, bool has_next) {
+  float dpos[3][kRates];
 #pragma unroll
-      for (int j = 0; j < 3; ++j) c[j] = fminf(fmaxf(y[j], 0.f), 1.f);
-      const float s = (c[0] + c[1]) + c[2];
+  for (int i = 0; i < 3; ++i)
+#pragma unroll
+    for (int r = 0; r < kRates; ++r) {
+      dpos[i][r] = yk[i] > 0.f ? __fadd_rn(tk[i][r], tk[i][r]) : 0.f;
+      dP[i][r] = first ? dpos[i][r] : __fmaf_rn(w, dpos[i][r], dP[i][r]);
+    }
+  if (!has_next) return;
+#pragma unroll
+  for (int r = 0; r < kRates; ++r) {
+    const float moved = __fmul_rn(half_step, pos2[src(r)]);
+#pragma unroll
+    for (int j = 0; j < 3; ++j) {
+      float v = __fmaf_rn(dpos[2][r], c2[2][j],
+                          __fmaf_rn(dpos[1][r], c2[1][j], __fmaf_rn(dpos[0][r], c2[0][j], t[j][r])));
+      if (j == dst(r)) v = __fadd_rn(v, moved);
+      if (j == src(r)) v = __fsub_rn(v, moved);
+      next[j][r] = v;
+    }
+  }
+}
+
+// One RK4 step of y (and of its tangents t = dy/dk when kTangent):
+//   p_k = max(y_k, 0); y_2 = y + p_1 @ (h/2 Q); y_3 = y + p_2 @ (h/2 Q);
+//   y_4 = y + p_3 @ (h Q); y' = y + (((p_1 + 2 p_2) + 2 p_3) + p_4) @ (h/6 Q),
+// each p_k carried doubled against the halved matrices (Scaled).
+template <bool kTangent>
+__device__ __forceinline__ void rk4_step(float y[3], float t[3][kRates], const Scaled& m,
+                                         StepSizes st) {
+  float pos[3], P[3], ys[3];
+  float dP[3][kRates], ts[3][kRates];
+#pragma unroll
+  for (int i = 0; i < 3; ++i) {
+    pos[i] = twice_pos(y[i]);
+    P[i] = pos[i];
+  }
+  if (kTangent) stage_tangent(y, pos, t, t, m.h, 0.5f * st.half, 1.f, dP, ts, true, true);
+  add_field(y, pos, m.h, ys);
+#pragma unroll
+  for (int stage = 2; stage <= 4; ++stage) {
+    const float(&c)[3][3] = stage == 3 ? m.f : m.h;  // the step to the NEXT stage's point
+    const float half_step = 0.5f * (stage == 3 ? st.full : st.half);
+#pragma unroll
+    for (int i = 0; i < 3; ++i) pos[i] = twice_pos(ys[i]);
+    if (kTangent) {
+      float tn[3][kRates];
+      stage_tangent(ys, pos, ts, t, c, half_step, stage == 4 ? 1.f : 2.f, dP, tn, false,
+                    stage < 4);
+      if (stage < 4) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j)
+#pragma unroll
+          for (int r = 0; r < kRates; ++r) ts[j][r] = tn[j][r];
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 3; ++i)
+      P[i] = stage == 4 ? __fadd_rn(P[i], pos[i]) : __fmaf_rn(2.f, pos[i], P[i]);
+    if (stage < 4) add_field(y, pos, c, ys);
+  }
+  if (kTangent) {
+    // t' = t + dP2^T (h/12 Q) + h/12 P2 . dQ/dk
+#pragma unroll
+    for (int r = 0; r < kRates; ++r) {
+      const float moved = __fmul_rn(0.5f * st.sixth, P[src(r)]);
 #pragma unroll
       for (int j = 0; j < 3; ++j) {
-        p[j] = c[j] / s;
-        e[j] = p[j] - __ldg(obs + 3 * i + j);
-      }
-      acc += (e[0] * e[0] + e[1] * e[1]) + e[2] * e[2];
-      if (kTangent) {
-        const float w = (e[0] * p[0] + e[1] * p[1]) + e[2] * p[2];
-        const float scale = 2.f / s;
-        float d[3];
-#pragma unroll
-        for (int j = 0; j < 3; ++j) d[j] = (y[j] > 0.f && y[j] < 1.f) ? e[j] - w : 0.f;
-#pragma unroll
-        for (int r = 0; r < 6; ++r)
-          g[r] += scale * ((d[0] * t[0][r] + d[1] * t[1][r]) + d[2] * t[2][r]);
+        float v = __fmaf_rn(dP[2][r], m.s[2][j],
+                            __fmaf_rn(dP[1][r], m.s[1][j], __fmaf_rn(dP[0][r], m.s[0][j], t[j][r])));
+        if (j == dst(r)) v = __fadd_rn(v, moved);
+        if (j == src(r)) v = __fsub_rn(v, moved);
+        t[j][r] = v;
       }
     }
   }
-  if (kMode == 0) return;
-  const float count = static_cast<float>(3 * n_points);
-  float ksq = 0.f;
+  add_field(y, P, m.s, ys);
 #pragma unroll
-  for (int r = 0; r < 6; ++r) ksq += kk[r] * kk[r];
-  loss[b] = acc / count + reg_weight * ksq;
-  if (kTangent) {
+  for (int j = 0; j < 3; ++j) y[j] = ys[j];
+}
+
+// The substeps of one output interval: kSub unrolled, or (kSub 0) a loop of
+// ``substeps``.
+template <int kSub, bool kTangent>
+__device__ __forceinline__ void interval(float y[3], float t[3][kRates], const Scaled& m,
+                                         StepSizes st, int substeps) {
+  if (kSub > 0) {
 #pragma unroll
-    for (int r = 0; r < 6; ++r) grad[b * 6 + r] = g[r] / count + (2.f * reg_weight) * kk[r];
+    for (int s = 0; s < kSub; ++s) rk4_step<kTangent>(y, t, m, st);
+  } else {
+#pragma unroll 1
+    for (int s = 0; s < substeps; ++s) rk4_step<kTangent>(y, t, m, st);
   }
+}
+
+// One output point's share of the fit loss: clip y to [0, 1], renormalise
+// and add the squared error against o to acc; p and e for the tangents.
+// Branch-free (the quotient by __fdividef, within 2 ulp), so the compiler
+// can interleave it with the next interval's steps.
+__device__ __forceinline__ float point_loss(float acc, const float y[3], const float o[3],
+                                            float p[3], float e[3], float& s) {
+  float c[3];
+#pragma unroll
+  for (int j = 0; j < 3; ++j) c[j] = fminf(fmaxf(y[j], 0.f), 1.f);
+  s = __fadd_rn(__fadd_rn(c[0], c[1]), c[2]);
+#pragma unroll
+  for (int j = 0; j < 3; ++j) {
+    p[j] = __fdividef(c[j], s);
+    e[j] = __fsub_rn(p[j], o[j]);
+  }
+  return __fadd_rn(acc, __fmaf_rn(e[2], e[2], __fmaf_rn(e[1], e[1], __fmul_rn(e[0], e[0]))));
+}
+
+// The fit loss of one candidate k from y0 against obs (n_points, 3), and
+// its gradient into grad when kTangent. Every rounding is written out, so
+// each kernel that inlines it gives the same bits. Without tangents a
+// point's loss is taken at the top of the next interval, beside its steps
+// (the same sum in the same order).
+template <int kSub, bool kTangent>
+__device__ float candidate_loss(const float k[kRates], const float* __restrict__ y0,
+                                const float* __restrict__ obs, int n_points, int substeps,
+                                StepSizes st, float reg_weight, float grad[kRates]) {
+  float ksq = __fmul_rn(k[0], k[0]);
+#pragma unroll
+  for (int r = 1; r < kRates; ++r) ksq = __fmaf_rn(k[r], k[r], ksq);
+  const Scaled m = scaled_rates(k, st);
+  float y[3] = {y0[0], y0[1], y0[2]};
+  float acc = 0.f, p[3], e[3], s;
+  if (!kTangent) {
+    float last[3] = {y[0], y[1], y[2]};
+    for (int i = 1; i < n_points; ++i) {
+      const float o[3] = {__ldg(obs + 3 * i - 3), __ldg(obs + 3 * i - 2), __ldg(obs + 3 * i - 1)};
+      acc = point_loss(acc, last, o, p, e, s);
+      interval<kSub, false>(y, nullptr, m, st, substeps);
+#pragma unroll
+      for (int j = 0; j < 3; ++j) last[j] = y[j];
+    }
+    const float* ol = obs + 3 * (n_points - 1);
+    const float o[3] = {__ldg(ol), __ldg(ol + 1), __ldg(ol + 2)};
+    acc = point_loss(acc, last, o, p, e, s);
+  } else {
+    float t[3][kRates];
+#pragma unroll
+    for (int j = 0; j < 3; ++j)
+#pragma unroll
+      for (int r = 0; r < kRates; ++r) t[j][r] = 0.f;
+    float g[kRates] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
+    for (int i = 0; i < n_points; ++i) {
+      const float o[3] = {__ldg(obs + 3 * i), __ldg(obs + 3 * i + 1), __ldg(obs + 3 * i + 2)};
+      if (i > 0) interval<kSub, true>(y, t, m, st, substeps);
+      acc = point_loss(acc, y, o, p, e, s);
+      const float w = (e[0] * p[0] + e[1] * p[1]) + e[2] * p[2];
+      const float scale = 2.f / s;
+      float d[3];
+#pragma unroll
+      for (int j = 0; j < 3; ++j) d[j] = (y[j] > 0.f && y[j] < 1.f) ? e[j] - w : 0.f;
+#pragma unroll
+      for (int r = 0; r < kRates; ++r)
+        g[r] += scale * ((d[0] * t[0][r] + d[1] * t[1][r]) + d[2] * t[2][r]);
+    }
+    const float count = static_cast<float>(3 * n_points);
+#pragma unroll
+    for (int r = 0; r < kRates; ++r) grad[r] = g[r] / count + (2.f * reg_weight) * k[r];
+  }
+  const float count = static_cast<float>(3 * n_points);
+  return __fadd_rn(__fdiv_rn(acc, count), __fmul_rn(reg_weight, ksq));
+}
+
+// Modes 0 (trajectory), 1 (fit loss) and 2 (fit loss and gradient), one
+// candidate a thread.
+template <int kMode, int kSub>
+__global__ void __launch_bounds__(kThreads)
+apf_rk4_kernel(const float* __restrict__ y0, int y0_stride, const float* __restrict__ k,
+               int batch, int n_points, int substeps, StepSizes st,
+               float* __restrict__ traj, const float* __restrict__ obs, float reg_weight,
+               float* __restrict__ loss, float* __restrict__ grad) {
+  const int b = blockIdx.x * blockDim.x + threadIdx.x;
+  if (b >= batch) return;
+  float kk[kRates];
+#pragma unroll
+  for (int r = 0; r < kRates; ++r) kk[r] = k[b * kRates + r];
+  const float* start = y0 + b * y0_stride;
+  if (kMode == 0) {
+    const Scaled m = scaled_rates(kk, st);
+    float y[3] = {start[0], start[1], start[2]};
+    float* out = traj + static_cast<size_t>(b) * 3;
+    for (int i = 0; i < n_points; ++i, out += static_cast<size_t>(batch) * 3) {
+      if (i > 0) interval<kSub, false>(y, nullptr, m, st, substeps);
+      out[0] = y[0]; out[1] = y[1]; out[2] = y[2];
+    }
+    return;
+  }
+  float g[kRates];
+  loss[b] = candidate_loss<kSub, kMode == 2>(kk, start, obs, n_points, substeps, st,
+                                             reg_weight, g);
+  if (kMode == 2) {
+#pragma unroll
+    for (int r = 0; r < kRates; ++r) grad[b * kRates + r] = g[r];
+  }
+}
+
+// The DE mode: up to `gens` generations of best1bin DE over the population
+// pop (n, 6) with losses fit (n), both updated in place. Generation g reads
+// the host's draws: fdraw[g] (the dither), u[g] (n, n) (the partners),
+// cr[g] (n, 6) (the crossover), jr[g] (n) (the guaranteed dimension).
+// Each generation, in _de_minimize's order:
+//   1. stop if std(fit) <= atol + tol |mean(fit)|, in float64 in candidate
+//      order (thread 0);
+//   2. best = the lowest index of the least loss (thread 0);
+//   3. member i's partners are the two least of u[g][i][j], j != i, ties to
+//      the lower index; its mutant clamp(best + F (pop[r1] - pop[r2]), lo,
+//      hi) with F = u * 0.5 + 0.5, each operation rounded on its own;
+//      crossover where cr < 0.7f or at jr;
+//   4. the trial's loss through candidate_loss, the loss mode's function;
+//   5. selection: the trial replaces the member where its loss is less.
+// status[0] = generations run, status[1] = 1 when the test stopped them.
+template <int kSub>
+__global__ void __launch_bounds__(kMaxPop)
+apf_de_kernel(float* __restrict__ pop, float* __restrict__ fit, int n,
+              const float* __restrict__ lo, const float* __restrict__ hi,
+              const float* __restrict__ fdraw, const float* __restrict__ u,
+              const float* __restrict__ cr, const long long* __restrict__ jr, int gens,
+              double tol, double atol, const float* __restrict__ y0,
+              const float* __restrict__ obs, int n_points, int substeps, StepSizes st,
+              float reg_weight, int* __restrict__ status) {
+  extern __shared__ float smem[];
+  float* const s_pop = smem;                       // (n, 6)
+  float* const s_trial = smem + kRates * n;        // (n, 6)
+  float* const s_fit = smem + 2 * kRates * n;      // (n)
+  __shared__ float s_best[kRates];
+  __shared__ int s_stop;
+  const int i = threadIdx.x;
+  const bool member = i < n;
+  for (int v = i; v < kRates * n; v += blockDim.x) s_pop[v] = pop[v];
+  for (int v = i; v < n; v += blockDim.x) s_fit[v] = fit[v];
+  __syncthreads();
+  int g = 0;
+  for (; g < gens; ++g) {
+    if (i == 0) {
+      double sum = 0.0;
+      for (int v = 0; v < n; ++v) sum = __dadd_rn(sum, static_cast<double>(s_fit[v]));
+      const double mean = __ddiv_rn(sum, static_cast<double>(n));
+      double ss = 0.0;
+      for (int v = 0; v < n; ++v) {
+        const double dv = __dsub_rn(static_cast<double>(s_fit[v]), mean);
+        ss = __dadd_rn(ss, __dmul_rn(dv, dv));
+      }
+      const double sd = __dsqrt_rn(__ddiv_rn(ss, static_cast<double>(n)));
+      s_stop = sd <= __dadd_rn(atol, __dmul_rn(tol, fabs(mean)));
+      int best = 0;
+      for (int v = 1; v < n; ++v)
+        if (s_fit[v] < s_fit[best]) best = v;
+#pragma unroll
+      for (int d = 0; d < kRates; ++d) s_best[d] = s_pop[best * kRates + d];
+    }
+    __syncthreads();
+    if (s_stop) break;
+    float trial_fit = 0.f;
+    if (member) {
+      const float* row = u + (static_cast<size_t>(g) * n + i) * n;
+      float m1 = 2.f, m2 = 2.f;
+      int r1 = 0, r2 = 0;
+      for (int j = 0; j < n; ++j) {
+        const float v = __ldg(row + j);
+        if (j == i) continue;
+        if (v < m1) {
+          m2 = m1; r2 = r1;
+          m1 = v; r1 = j;
+        } else if (v < m2) {
+          m2 = v; r2 = j;
+        }
+      }
+      const float f_scale = __fadd_rn(__fmul_rn(__ldg(fdraw + g), 0.5f), 0.5f);
+      const float* crow = cr + (static_cast<size_t>(g) * n + i) * kRates;
+      const long long jrand = jr[static_cast<size_t>(g) * n + i];
+      float trial[kRates];
+#pragma unroll
+      for (int d = 0; d < kRates; ++d) {
+        const float diff = __fsub_rn(s_pop[r1 * kRates + d], s_pop[r2 * kRates + d]);
+        const float mutant =
+            fminf(fmaxf(__fadd_rn(s_best[d], __fmul_rn(f_scale, diff)), __ldg(lo + d)),
+                  __ldg(hi + d));
+        const bool cross = __ldg(crow + d) < 0.7f || d == jrand;
+        trial[d] = cross ? mutant : s_pop[i * kRates + d];
+        s_trial[i * kRates + d] = trial[d];
+      }
+      trial_fit = candidate_loss<kSub, false>(trial, y0, obs, n_points, substeps, st,
+                                              reg_weight, nullptr);
+    }
+    __syncthreads();  // every mutant has read the population
+    if (member && trial_fit < s_fit[i]) {
+      s_fit[i] = trial_fit;
+#pragma unroll
+      for (int d = 0; d < kRates; ++d) s_pop[i * kRates + d] = s_trial[i * kRates + d];
+    }
+    __syncthreads();
+  }
+  for (int v = i; v < kRates * n; v += blockDim.x) pop[v] = s_pop[v];
+  for (int v = i; v < n; v += blockDim.x) fit[v] = s_fit[v];
+  if (i == 0) {
+    status[0] = g;
+    status[1] = g < gens ? 1 : 0;
+  }
+}
+
+template <int kSub>
+void launch_modes(const float* y0, int y0_stride, const float* k, int batch, int n_points,
+                  int substeps, StepSizes st, float* traj, const float* obs, float reg_weight,
+                  float* loss, float* grad, cudaStream_t stream) {
+  const dim3 grid((batch + kThreads - 1) / kThreads);
+  if (traj != nullptr)
+    apf_rk4_kernel<0, kSub><<<grid, kThreads, 0, stream>>>(
+        y0, y0_stride, k, batch, n_points, substeps, st, traj, obs, reg_weight, loss, grad);
+  else if (grad != nullptr)  // the tangents' step is ~470 instructions: never unrolled
+    apf_rk4_kernel<2, 0><<<grid, kThreads, 0, stream>>>(
+        y0, y0_stride, k, batch, n_points, substeps, st, traj, obs, reg_weight, loss, grad);
+  else
+    apf_rk4_kernel<1, kSub><<<grid, kThreads, 0, stream>>>(
+        y0, y0_stride, k, batch, n_points, substeps, st, traj, obs, reg_weight, loss, grad);
+}
+
+template <int kSub>
+int launch_de(float* pop, float* fit, int n, const float* lo, const float* hi,
+              const float* fdraw, const float* u, const float* cr, const long long* jr,
+              int gens, double tol, double atol, const float* y0, const float* obs,
+              int n_points, int substeps, StepSizes st, float reg_weight, int* status,
+              cudaStream_t stream) {
+  const int smem = static_cast<int>((2 * kRates + 1) * n * sizeof(float));
+  cudaError_t err = cudaFuncSetAttribute(apf_de_kernel<kSub>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int threads = (n + 31) / 32 * 32;
+  apf_de_kernel<kSub><<<1, threads, smem, stream>>>(pop, fit, n, lo, hi, fdraw, u, cr, jr, gens,
+                                                    tol, atol, y0, obs, n_points, substeps, st,
+                                                    reg_weight, status);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -201,19 +463,29 @@ extern "C" int eegflow_apf_rk4(const float* y0, int y0_stride, const float* k, i
                                int n_points, int substeps, float half, float full, float sixth,
                                float* traj, const float* obs, float reg_weight, float* loss,
                                float* grad, cudaStream_t stream) {
-  const dim3 grid((batch + kThreads - 1) / kThreads);
-  if (traj != nullptr) {
-    apf_rk4_kernel<0><<<grid, kThreads, 0, stream>>>(y0, y0_stride, k, batch, n_points,
-                                                     substeps, half, full, sixth, traj, obs,
-                                                     reg_weight, loss, grad);
-  } else if (grad != nullptr) {
-    apf_rk4_kernel<2><<<grid, kThreads, 0, stream>>>(y0, y0_stride, k, batch, n_points,
-                                                     substeps, half, full, sixth, traj, obs,
-                                                     reg_weight, loss, grad);
-  } else {
-    apf_rk4_kernel<1><<<grid, kThreads, 0, stream>>>(y0, y0_stride, k, batch, n_points,
-                                                     substeps, half, full, sixth, traj, obs,
-                                                     reg_weight, loss, grad);
-  }
+  const StepSizes st{half, full, sixth};
+  if (substeps == kFastSubsteps)
+    launch_modes<kFastSubsteps>(y0, y0_stride, k, batch, n_points, substeps, st, traj, obs,
+                                reg_weight, loss, grad, stream);
+  else
+    launch_modes<0>(y0, y0_stride, k, batch, n_points, substeps, st, traj, obs, reg_weight,
+                    loss, grad, stream);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The DE mode: pop (n, 6) and fit (n) in place, n <= 1024; the draws of
+// `gens` generations; y0 (3,), obs (n_points, 3); status (2,) int32.
+extern "C" int eegflow_apf_de(float* pop, float* fit, int n, const float* lo, const float* hi,
+                              const float* fdraw, const float* u, const float* cr,
+                              const long long* jr, int gens, double tol, double atol,
+                              const float* y0, const float* obs, int n_points, int substeps,
+                              float half, float full, float sixth, float reg_weight,
+                              int* status, cudaStream_t stream) {
+  if (n < 3 || n > kMaxPop) return static_cast<int>(cudaErrorInvalidValue);
+  const StepSizes st{half, full, sixth};
+  if (substeps == kFastSubsteps)
+    return launch_de<kFastSubsteps>(pop, fit, n, lo, hi, fdraw, u, cr, jr, gens, tol, atol, y0,
+                                    obs, n_points, substeps, st, reg_weight, status, stream);
+  return launch_de<0>(pop, fit, n, lo, hi, fdraw, u, cr, jr, gens, tol, atol, y0, obs, n_points,
+                      substeps, st, reg_weight, status, stream);
 }

@@ -1,9 +1,15 @@
 """ODE rate fitting: differential evolution on the population's device and
 an L-BFGS-B polish (``eegflow.fit.evolution``).
 
-The whole population's loss is one launch of kernel 11's fit-loss mode
-(:mod:`eegflow_torch.ode.cuda_ode`); the generation loop runs on the device
-and reads one flag a generation (the convergence test) back to the host.
+On the card the whole search runs as the JAX package's ``lax.while_loop``
+does, on the device: the first population's loss is one launch of kernel
+11's fit-loss mode, then each chunk of up to :data:`DE_CHUNK` generations
+is one launch of its DE mode (:func:`eegflow_torch.ode.cuda_ode.de_generations`),
+and the host reads one status (generations run, converged) a chunk. A
+:class:`FitLoss` on a CUDA device takes that path or raises. On the CPU, and
+for any other loss, :func:`_de_minimize` runs the same generations as a
+loop, one loss evaluation and one read-back of the losses a generation; on
+the card it is the DE mode's twin, equal bit for bit.
 
 As the reference, after scipy's defaults:
   * strategy best1bin: mutant = best + F (r1 - r2), F dithered U(0.5, 1);
@@ -12,10 +18,15 @@ As the reference, after scipy's defaults:
   * stop when std(fitness) <= atol + tol |mean(fitness)|;
   * polish: scipy's L-BFGS-B within the bounds on the host, loss and
     gradient from one launch of kernel 11 (:class:`Rk4FitLoss`).
+Where a reduction's order could decide, the rules are written out
+(``cuda_ode``: :func:`de_partners`, :func:`de_converged`, :func:`de_best`):
+partner ties go to the lower index, as the reference's stable argsort; the
+statistic is float64 in candidate order.
 
 The draws come from a ``torch.Generator`` on the population's device seeded
-from ``de_seed``: they repeat bit for bit from the seed, but are not the
-reference's ``jax.random`` (threefry) stream.
+from ``de_seed``, four calls a generation in the loop's order (:func:`_draw_generations`;
+a chunk's are drawn before its launch): they repeat bit for bit from the
+seed, but are not the reference's ``jax.random`` (threefry) stream.
 """
 
 from __future__ import annotations
@@ -26,7 +37,8 @@ import numpy as np
 import torch
 
 from eegflow_torch.core.config import ODEConfig
-from eegflow_torch.ode.cuda_ode import Rk4FitLoss, step_sizes
+from eegflow_torch.ode.cuda_ode import (GenerationDraws, Rk4FitLoss, de_best,
+                                        de_generations, de_generations_plain, step_sizes)
 from eegflow_torch.ode.field import rates_to_dict
 
 
@@ -41,7 +53,7 @@ class FitLoss:
                  device: Optional[torch.device | str] = None):
         if not isinstance(observed, torch.Tensor):
             observed = torch.tensor(np.asarray(observed, np.float32))
-        self.observed = observed.to(device=device, dtype=torch.float32)
+        self.observed = observed.to(device=device, dtype=torch.float32).contiguous()
         if self.observed.shape != (n_points, 3):
             raise ValueError(f"observed must be ({n_points}, 3), got "
                              f"{tuple(self.observed.shape)}")
@@ -78,37 +90,69 @@ def _latin_hypercube(gen: torch.Generator, n: int, lo: torch.Tensor,
     return lo + torch.gather(strata, 0, perms) * (hi - lo)
 
 
+def _draw_generations(gen: torch.Generator, n: int, d: int, count: int,
+                      dev: torch.device) -> GenerationDraws:
+    """The random numbers of ``count`` generations, drawn in the generation
+    loop's order: per generation ``rand(())``, ``rand((n, n))``,
+    ``rand((n, d))``, ``randint(0, d, (n,))``."""
+    draws = GenerationDraws(torch.empty(count, device=dev), torch.empty(count, n, n, device=dev),
+                            torch.empty(count, n, d, device=dev),
+                            torch.empty(count, n, dtype=torch.int64, device=dev))
+    for g in range(count):
+        torch.rand((), generator=gen, out=draws.f[g])
+        torch.rand((n, n), generator=gen, out=draws.u[g])
+        torch.rand((n, d), generator=gen, out=draws.cr[g])
+        torch.randint(0, d, (n,), generator=gen, out=draws.j[g])
+    return draws
+
+
 def _de_minimize(loss_fn: Callable[[torch.Tensor], torch.Tensor], gen: torch.Generator,
                  lo: torch.Tensor, hi: torch.Tensor, popsize: int, maxiter: int, tol: float,
                  atol: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """best1bin DE -> (best member, its loss, generations run)."""
+    """best1bin DE as a loop of generations -> (best member, its loss,
+    generations run)."""
     d = lo.shape[0]
     n = popsize * d
-    dev = lo.device
     pop = _latin_hypercube(gen, n, lo, hi)
     fit = loss_fn(pop)
-    self_mask = torch.eye(n, device=dev) * 2.0
-    dims = torch.arange(d, device=dev)
     gens = 0
     while gens < maxiter:
-        if bool(fit.std(correction=0) <= atol + tol * fit.mean().abs()):
+        draws = _draw_generations(gen, n, d, 1, lo.device)
+        ran, stopped = de_generations_plain(pop, fit, lo, hi, draws, loss_fn, tol, atol)
+        gens += ran
+        if stopped:
             break
-        best = pop[torch.argmin(fit)]
-        f_scale = torch.rand((), generator=gen, device=dev) * 0.5 + 0.5
-        # two distinct partners, neither the member itself
-        u = torch.rand((n, n), generator=gen, device=dev) + self_mask
-        r = torch.topk(u, 2, dim=1, largest=False).indices
-        mutant = torch.clamp(best + f_scale * (pop[r[:, 0]] - pop[r[:, 1]]), lo, hi)
-        cross = torch.rand((n, d), generator=gen, device=dev) < 0.7
-        jrand = torch.randint(0, d, (n,), generator=gen, device=dev)
-        cross = cross | (dims[None, :] == jrand[:, None])
-        trial = torch.where(cross, mutant, pop)
-        trial_fit = loss_fn(trial)
-        improve = trial_fit < fit
-        pop = torch.where(improve[:, None], trial, pop)
-        fit = torch.where(improve, trial_fit, fit)
-        gens += 1
-    i_best = torch.argmin(fit)
+    i_best = de_best(fit.tolist())
+    return pop[i_best], fit[i_best], gens
+
+
+#: generations a launch of the DE mode runs (draws of ~2.1 MB at n = 90)
+DE_CHUNK = 64
+
+
+def _de_minimize_chunked(loss_fn: FitLoss, gen: torch.Generator, lo: torch.Tensor,
+                         hi: torch.Tensor, popsize: int, maxiter: int, tol: float,
+                         atol: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor, int]:
+    """:func:`_de_minimize` in chunks of up to :data:`DE_CHUNK` generations,
+    each one launch of kernel 11's DE mode (its twin on the CPU), the next
+    chunk's draws queued before this one's status is read."""
+    chunk = DE_CHUNK
+    d = lo.shape[0]
+    n = popsize * d
+    pop = _latin_hypercube(gen, n, lo, hi).contiguous()
+    fit = loss_fn(pop).contiguous()
+    gens = 0
+    draws = _draw_generations(gen, n, d, min(chunk, maxiter), lo.device) if maxiter > 0 else None
+    while gens < maxiter:
+        status = de_generations(pop, fit, lo, hi, draws, loss_fn.y0, loss_fn.observed,
+                                loss_fn.substeps, loss_fn.steps, loss_fn.reg_weight, tol, atol)
+        left = maxiter - gens - draws.f.shape[0]
+        draws = _draw_generations(gen, n, d, min(chunk, left), lo.device) if left > 0 else None
+        ran, stopped = status.tolist()
+        gens += ran
+        if stopped:
+            break
+    i_best = de_best(fit.tolist())
     return pop[i_best], fit[i_best], gens
 
 
@@ -118,14 +162,17 @@ def differential_evolution_fit(loss_fn: FitLoss, bounds: Tuple[Tuple[float, floa
                                ) -> Tuple[np.ndarray, float, Dict[str, object]]:
     """Minimise ``loss_fn`` within ``bounds`` -> (x float64, loss, info with
     ``generations`` and ``polished``). The population lives on
-    ``loss_fn.device``."""
+    ``loss_fn.device``; a :class:`FitLoss` on a CUDA device runs the
+    generations in kernel 11's DE mode."""
     dev = loss_fn.device
     lo = torch.tensor([b[0] for b in bounds], dtype=torch.float32, device=dev)
     hi = torch.tensor([b[1] for b in bounds], dtype=torch.float32, device=dev)
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(seed))
+    on_card = isinstance(loss_fn, FitLoss) and dev.type == "cuda"
     with torch.no_grad():
-        x, fx, gens = _de_minimize(loss_fn, gen, lo, hi, popsize, maxiter, tol)
+        x, fx, gens = (_de_minimize_chunked if on_card else _de_minimize)(
+            loss_fn, gen, lo, hi, popsize, maxiter, tol)
     x = x.cpu().numpy().astype(np.float64)
     fx = float(fx)
     info = {"generations": int(gens), "polished": False}

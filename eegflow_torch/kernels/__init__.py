@@ -49,6 +49,7 @@ build_info: dict = {}
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_D = ctypes.c_double
 _L = ctypes.c_longlong
 _U = ctypes.c_uint32
 _SIGNATURES = {
@@ -150,6 +151,12 @@ _SIGNATURES = {
     # y0, y0_stride, k, B, n_points, substeps, half, full, sixth, traj, obs,
     # reg_weight, loss, grad, stream
     "eegflow_apf_rk4": [_P, _I, _P, _I, _I, _I, _F, _F, _F, _P, _P, _F, _P, _P, _P],
+    # apf_rk4.cu, kernel 11's DE mode (pop and fit in place; status: generations
+    # run, stopped by the convergence test):
+    # pop, fit, n, lo, hi, f, u, cr, j, gens, tol, atol, y0, obs, n_points,
+    # substeps, half, full, sixth, reg_weight, status, stream
+    "eegflow_apf_de": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _D, _D, _P, _P, _I, _I, _F, _F,
+                       _F, _F, _P, _P],
     # sos_filter.cu, kernel 12 (x, y_fwd and out in (time, row) layout):
     # x, sos, zi, y_fwd, out, rows, T, padlen, sections, stream
     "eegflow_sos_filtfilt": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

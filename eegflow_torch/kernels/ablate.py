@@ -4,9 +4,9 @@ head, on the GPU.
 
     python -m eegflow_torch.kernels.ablate [--variant base|nomma|noexch|nostore|noload|noln|
                                                      nostream|onetf32|onedir|stamps|nodraw|
-                                                     nodraw_loader]
+                                                     nodraw_loader|rk4loop]
                                            [--rows 16,32,48]
-                                           [--calls all|recurrent|head|filter|philox]
+                                           [--calls all|recurrent|head|filter|philox|rk4]
                                            [--csrc DIR] [--save FILE] [--against FILE]
 
 Builds the kernels from a copy of ``eegflow_torch/csrc`` with one part of
@@ -99,6 +99,33 @@ patterns::
 
 ``--save FILE`` / ``--against FILE`` (run in each tree) hold the two
 designs' outputs to each other bit for bit (the bits do not change).
+
+``--calls rk4`` times kernel 11 (``apf_rk4.cu``) at the fit's shape (a DE
+population of 90, 513 points, 16 RK4 substeps): the fit loss, the loss with
+tangents, the trajectory and, where the tree has it, the DE mode on a
+chunk of 64 generations, each launch by name with the SM clock; prints
+ptxas's registers and spills of every kernel 11 instantiation and the SASS
+(``cuobjdump -sass``) of each, whole and by loop that holds no other loop,
+by the pipe that issues each instruction (``fma``: FFMA, FMUL, FADD, IMAD,
+IMUL; ``alu``: FMNMX, FSETP, FSEL, LOP3, ISETP, ...; ``other``); then runs
+``differential_evolution_fit`` without its polish for 50 generations under
+``torch.profiler`` (a generation's wall ms, kernel 11's device ms, the
+other launches' device ms, the device's idle share) and for 1,000 (wall
+time). The variant ``stamps`` adds each warp's SM clock cycles over a
+trajectory or loss launch (``clock64()``; per RK4 step, the per-point work
+included; the probe itself slows the launch), ``rk4loop`` runs the fit's
+16 substeps through the general loop instead of unrolled, ``rk4fdiv`` takes
+a point's quotients with the IEEE division (a slow-path branch) in place of
+``__fdividef``, and ``rk4fmax`` the clamp as ``fmaxf`` (ALU pipe) in place of
+``y + |y|`` (FMA pipe). The readings behind kernel 11's design (PERF.md
+§6) repeat on the design before it (commit ``b70bdc5``: a thread a
+candidate, 21 dependent operations a step, the generation loop on the host)
+from an unpacked copy of that commit with this module copied over its
+``eegflow_torch/kernels/ablate.py``, and on today's tree::
+
+    python -m eegflow_torch.kernels.ablate --calls rk4
+    python -m eegflow_torch.kernels.ablate --calls rk4 --variant stamps
+    python -m eegflow_torch.kernels.ablate --calls rk4 --variant rk4loop
 """
 
 from __future__ import annotations
@@ -112,8 +139,11 @@ import subprocess
 import sys
 import tempfile
 import time
+from collections import Counter
 from pathlib import Path
+from typing import Dict
 
+import numpy as np
 import torch
 
 H, STEPS, CHANNELS = 256, 256, 61
@@ -148,6 +178,37 @@ extern "C" int eegflow_ablate_stamps(unsigned long long* host, int n) {
 namespace {
 """
 STAMPS_MAX = 4096
+
+# the "stamps" variant's probe of kernel 11: each warp's lane 0 records the
+# SM clock cycles from the start to the end of its candidates' launch of a
+# trajectory or loss mode (the step loop and the per-point work), indexed by
+# warp, and a C entry that copies them out
+APF_STAMPS_CODE = r"""
+__device__ unsigned long long g_ablate_apf_cycles[4096];
+__device__ __forceinline__ unsigned long long ablate_apf_clock() {
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%clock64;" : "=l"(t));
+  return t;
+}
+struct ApfStamp {
+  unsigned long long start;
+  __device__ ApfStamp() : start(ablate_apf_clock()) {}
+  __device__ ~ApfStamp() {
+    const unsigned int t = blockIdx.x * blockDim.x + threadIdx.x;
+    if ((threadIdx.x & 31) == 0 && (t >> 5) < 4096)
+      g_ablate_apf_cycles[t >> 5] = ablate_apf_clock() - start;
+  }
+};
+extern "C" int eegflow_ablate_apf_cycles(unsigned long long* host, int n) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_ablate_apf_cycles, 8 * n));
+}
+"""
+
+#: SASS opcodes by the SM pipe that issues them (the rest: memory, control,
+#: moves, conversions, the uniform datapath)
+SASS_PIPES = {"fma": {"IMAD", "IMUL", "FFMA", "FMUL", "FADD"},
+              "alu": {"LOP3", "ISETP", "IADD3", "SHF", "LEA", "SEL", "PRMT", "IMNMX",
+                      "IABS", "PLOP3", "BMSK", "SGXT", "FSETP", "FSEL", "FMNMX"}}
 
 # variant -> (source file, text, replacement); each text occurs once in its
 # source (held by tests/test_torch_lstm_plan.py)
@@ -297,11 +358,37 @@ VARIANTS = {
          "    return 1u;")],
     # kernel 4's chain with each CTA's SM and %globaltimer at its start and end
     # (read back through eegflow_ablate_stamps)
+    # and kernel 11's trajectory and loss modes with each warp's cycles (read back
+    # through eegflow_ablate_apf_cycles)
     "stamps": [
         ("lstm_bwd_dualdir.cu", "template <typename ResT>\nstruct Dir {",
          STAMPS_CODE + "template <typename ResT>\nstruct Dir {"),
         ("lstm_bwd_dualdir.cu", "int H, int k_res) {\n  if (blockIdx.y == 0)",
-         "int H, int k_res) {\n  const Stamp stamp;\n  if (blockIdx.y == 0)")],
+         "int H, int k_res) {\n  const Stamp stamp;\n  if (blockIdx.y == 0)"),
+        ("apf_rk4.cu", "#include <cuda_runtime.h>\n",
+         "#include <cuda_runtime.h>\n" + APF_STAMPS_CODE),
+        ("apf_rk4.cu", "const int b = blockIdx.x * blockDim.x + threadIdx.x;",
+         "const ApfStamp apf_stamp;\n  const int b = blockIdx.x * blockDim.x + threadIdx.x;")],
+    # kernel 11's point loss with the IEEE quotient (__fdiv_rn, a slow-path branch)
+    "rk4fdiv": [("apf_rk4.cu", "p[j] = __fdividef(c[j], s);", "p[j] = __fdiv_rn(c[j], s);")],
+    # kernel 11's clamp as max(y, 0) on the ALU pipe (FMNMX) against whole rate
+    # matrices, not y + |y| against halved ones: the same trajectory and loss
+    # bits, wrong tangents
+    "rk4fmax": [
+        ("apf_rk4.cu", "m.h[i][j] = __fmul_rn(0.5f * st.half, q[i][j]);",
+         "m.h[i][j] = __fmul_rn(st.half, q[i][j]);"),
+        ("apf_rk4.cu", "m.f[i][j] = __fmul_rn(0.5f * st.full, q[i][j]);",
+         "m.f[i][j] = __fmul_rn(st.full, q[i][j]);"),
+        ("apf_rk4.cu", "m.s[i][j] = __fmul_rn(0.5f * st.sixth, q[i][j]);",
+         "m.s[i][j] = __fmul_rn(st.sixth, q[i][j]);"),
+        ("apf_rk4.cu", "float twice_pos(float y) { return __fadd_rn(y, fabsf(y)); }",
+         "float twice_pos(float y) { return fmaxf(y, 0.f); }")],
+    # kernel 11 with the fit's 16 substeps run by the general loop, not unrolled
+    "rk4loop": [
+        ("apf_rk4.cu", "  if (substeps == kFastSubsteps)\n    launch_modes<kFastSubsteps>(",
+         "  if (substeps < 0)\n    launch_modes<kFastSubsteps>("),
+        ("apf_rk4.cu", "  if (substeps == kFastSubsteps)\n    return launch_de<kFastSubsteps>(",
+         "  if (substeps < 0)\n    return launch_de<kFastSubsteps>(")],
     "noln": [
         ("input_block.cu", "const float4 o = ln_gelu4(zv[i], mu, rsig, gam[i], bet[i]);",
          "const float4 o = make_float4(zv[i][0], zv[i][1], zv[i][2], zv[i][3]);"),
@@ -384,8 +471,6 @@ def _chain_stamps(lib, n: int, tiles: int, hc: int):
     per direction the SMs it ran on and its start and end (ms after the
     first CTA started), and how many CTAs of both ran at once at the latest
     start -> a line of text."""
-    import numpy as np
-
     from eegflow_torch import kernels
 
     buf = np.zeros((STAMPS_MAX, 3), dtype=np.uint64)
@@ -457,6 +542,165 @@ def _launch_name(key: str) -> str:
                 return name
     m = re.search(r"(\w+)(?:<[^>]*>)?\(", key)
     return m.group(1) if m else key
+
+
+def sass_counts(library, function: str, leaf_loops: bool = False) -> Dict[str, Counter]:
+    """The SASS (``cuobjdump -sass``) of the built ``library``'s kernels whose
+    mangled name contains ``function``, by the pipe of :data:`SASS_PIPES` that
+    issues each instruction -> {kernel: {"fma": n, "alu": n, "other": n}};
+    with ``leaf_loops``, one entry a loop that holds no other loop (the body
+    from a backward branch's target to the branch), named ``kernel @0xaddr``."""
+    from eegflow_torch import kernels
+
+    tool = Path(kernels._nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(library)], capture_output=True, text=True,
+                          check=True, timeout=300).stdout
+    funcs, name, labels, pending = {}, None, {}, []
+    for line in sass.splitlines():
+        if "Function :" in line:
+            name = line.split("Function :", 1)[1].strip()
+            name = name if function in name else None
+            if name:
+                funcs[name], labels[name], pending = [], {}, []
+            continue
+        if name is None:
+            continue
+        label = re.match(r"\s*(\.L_x_\d+):", line)
+        if label:
+            pending.append(label.group(1))
+            continue
+        m = re.match(r"\s*/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(.*)", line)
+        if m and m.group(2) != "NOP":
+            addr = int(m.group(1), 16)
+            labels[name].update((lab, addr) for lab in pending)
+            pending = []
+            funcs[name].append((addr, m.group(2), m.group(3)))
+
+    def by_pipe(instrs):
+        return Counter({"fma": 0, "alu": 0, "other": 0}) + Counter(
+            next((pipe for pipe, ops in SASS_PIPES.items() if op in ops), "other")
+            for _, op, _ in instrs)
+
+    out = {}
+    for name, instrs in funcs.items():
+        if not leaf_loops:
+            out[name] = by_pipe(instrs)
+            continue
+        loops = []
+        for addr, op, rest in instrs:
+            t = re.search(r"(0x[0-9a-f]+)|\(?(\.L_x_\d+)\)?", rest) if op == "BRA" else None
+            target = (int(t.group(1), 16) if t.group(1) else labels[name].get(t.group(2))) \
+                if t else None
+            if target is not None and target <= addr:
+                loops.append((target, addr))
+        for lo, hi in loops:
+            if not any((a, b) != (lo, hi) and lo <= a and b <= hi for a, b in loops):
+                out[f"{name} @{lo:#x}"] = by_pipe([i for i in instrs if lo <= i[0] <= hi])
+    return out
+
+
+#: kernel 11 at the fit: a DE population (popsize 15 x 6 rates), the
+#: pipeline's 513 proportion points, 16 RK4 substeps; the DE mode's chunk
+RK4_POP, RK4_POINTS, RK4_SUBSTEPS, RK4_CHUNK = 90, 513, 16, 64
+
+
+def _rk4_calls(dev, gen):
+    """Kernel 11's modes at the fit's shape (B=90, 513 points, 16 substeps):
+    the fit loss, the loss with tangents, the trajectory, and (where the tree
+    has it) the DE mode running a chunk of 64 generations on fixed draws
+    from the same population each call."""
+    from eegflow_torch.core.config import ODEConfig
+    from eegflow_torch.ode import cuda_ode
+
+    n, pts, sub = RK4_POP, RK4_POINTS, RK4_SUBSTEPS
+    rng = np.random.default_rng(0)
+    lo, hi = (torch.tensor(v, dtype=torch.float32) for v in zip(*ODEConfig().bounds))
+    k = (lo + torch.rand(n, 6, generator=gen) * (hi - lo)).to(dev)
+    y0 = torch.tensor(rng.dirichlet([2.0] * 3, n), dtype=torch.float32, device=dev)
+    obs = torch.tensor(rng.dirichlet([4.0] * 3, pts), dtype=torch.float32, device=dev)
+    start = obs[0] / obs[0].sum()
+    h = cuda_ode.step_sizes(0.0, float(pts - 1), pts, sub)
+    calls = {f"apf_rk4 loss B={n}": lambda: cuda_ode.rk4_fit_loss(k, start, obs, sub, h, 1e-3),
+             f"apf_rk4 loss with tangents B={n}":
+                 lambda: cuda_ode.rk4_fit_loss(k, start, obs, sub, h, 1e-3, grad=True),
+             f"apf_rk4 trajectory B={n}": lambda: cuda_ode.rk4_trajectory(y0, k, pts, sub, h)}
+    if hasattr(cuda_ode, "de_generations"):
+        fit = cuda_ode.rk4_fit_loss(k, start, obs, sub, h, 1e-3)[0]
+        draws = cuda_ode.GenerationDraws(
+            torch.rand(RK4_CHUNK, generator=gen).to(dev),
+            torch.rand(RK4_CHUNK, n, n, generator=gen).to(dev),
+            torch.rand(RK4_CHUNK, n, 6, generator=gen).to(dev),
+            torch.randint(0, 6, (RK4_CHUNK, n), generator=gen).to(dev))
+        pop_c, fit_c = k.clone(), fit.clone()
+
+        def de_chunk():
+            pop_c.copy_(k)
+            fit_c.copy_(fit)
+            return cuda_ode.de_generations(pop_c, fit_c, lo.to(dev), hi.to(dev), draws, start,
+                                           obs, sub, h, 1e-3, -1.0)
+
+        calls[f"apf_de {RK4_CHUNK} generations B={n}"] = de_chunk
+    return calls, (n, pts, sub)
+
+
+def _apf_cycles(lib, batch: int, steps: int) -> str:
+    """The ``stamps`` variant's cycles of kernel 11's last launch: each
+    warp's, over its ``steps`` RK4 steps -> a line of text."""
+    from eegflow_torch import kernels
+
+    warps = -(-batch // 32)
+    buf = np.zeros(warps, dtype=np.uint64)
+    kernels.check(lib, lib.eegflow_ablate_apf_cycles(
+        buf.ctypes.data_as(ctypes.c_void_p), ctypes.c_int(warps)), "eegflow_ablate_apf_cycles")
+    per_step = buf.astype(np.float64) / steps
+    return (f"{warps} warps, cycles a step (per-point work included) "
+            f"{per_step.min():.1f}-{per_step.max():.1f}")
+
+
+def _fit_profile(dev, gen, card: str) -> None:
+    """The fit without its polish at the fit's shape: 50 generations under
+    ``torch.profiler`` (a generation's wall ms, kernel 11's device ms, the
+    other launches' device ms, the device's idle share), and 1,000
+    generations' wall time (tol -1: no generation passes the convergence
+    test, so every generation runs in either design)."""
+    from eegflow_torch.core.config import ODEConfig
+    from eegflow_torch.fit import differential_evolution_fit, make_fit_loss
+
+    obs = np.random.default_rng(1).dirichlet([4.0] * 3, RK4_POINTS).astype(np.float32)
+    loss = make_fit_loss(torch.from_numpy(obs).to(dev), 0.0, float(RK4_POINTS - 1), RK4_POINTS,
+                         substeps=RK4_SUBSTEPS, device=dev)
+    bounds = ODEConfig().bounds
+
+    def fit(gens):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = differential_evolution_fit(loss, bounds, maxiter=gens, tol=-1.0, polish=False)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, out
+
+    fit(50)  # warm-up: the build, the allocator, the profiler's first use
+    base, _ = fit(0)
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CPU,
+                                            torch.profiler.ProfilerActivity.CUDA]) as prof:
+        wall, (_, _, info) = fit(50)
+    spans = sorted((e.time_range.start, e.time_range.end, e.name) for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    apf = sum(b - a for a, b, nm in spans if "apf_" in nm) / 1e3
+    other = sum(b - a for a, b, nm in spans if "apf_" not in nm) / 1e3
+    busy, end = 0.0, None
+    for a, b, _ in spans:
+        busy += max(0.0, b - max(a, end if end is not None else a))
+        end = b if end is None else max(end, b)
+    gens = info["generations"]
+    print(f"fit without polish, 50 generations (B={RK4_POP}, {RK4_POINTS} points, "
+          f"{RK4_SUBSTEPS} substeps): wall {wall * 1e3:.3f} ms ({(wall - base) * 1e3 / gens:.3f} "
+          f"ms a generation beyond the {base * 1e3:.3f} ms of 0 generations); device ms a "
+          f"generation: kernel 11 {apf / gens:.3f}, other launches {other / gens:.3f}; device "
+          f"idle {100 * (1 - busy / 1e3 / (wall * 1e3)):.2f} % of the wall; {len(spans)} device "
+          f"spans [{card}]", flush=True)
+    wall, (_, _, info) = fit(1000)
+    print(f"fit without polish, {info['generations']} generations: wall {wall:.4f} s, "
+          f"{wall * 1e3 / info['generations']:.4f} ms a generation [{card}]", flush=True)
 
 
 def _philox_calls(dev, gen):
@@ -547,7 +791,7 @@ def main(argv=None) -> int:
     parser.add_argument("--variant", default="base", choices=sorted(VARIANTS))
     parser.add_argument("--rows", default=None, help="rows per cluster the plan may take")
     parser.add_argument("--calls", default="all",
-                        choices=("all", "recurrent", "head", "filter", "philox"))
+                        choices=("all", "recurrent", "head", "filter", "philox", "rk4"))
     parser.add_argument("--csrc", default=None,
                         help="build from this kernel source directory (another tree's)")
     parser.add_argument("--save", default=None,
@@ -568,6 +812,7 @@ def main(argv=None) -> int:
         lib = kernels.load_library(patched_sources(args.variant, tmp, args.csrc), tmp / "build")
         if args.variant == "stamps":
             lib.eegflow_ablate_stamps.restype = ctypes.c_int
+            lib.eegflow_ablate_apf_cycles.restype = ctypes.c_int
         if args.calls in ("all", "recurrent"):
             for line in _ptxas_report(kernels.build_info.get("log", "")):
                 print(f"ptxas {line}", flush=True)
@@ -575,6 +820,16 @@ def main(argv=None) -> int:
             for line in _ptxas_report(kernels.build_info.get("log", ""),
                                       r"mma_gemm_kernel.*Mask(Philox|U8|Bits)|philox_keep_bits"):
                 print(f"ptxas {line}", flush=True)
+        if args.calls == "rk4":
+            for line in _ptxas_report(kernels.build_info.get("log", ""), "apf_"):
+                print(f"ptxas {line}", flush=True)
+            library = kernels.build_info["library"]
+            for loops in (False, True):
+                for name, c in sass_counts(library, "apf_", loops).items():
+                    if sum(c.values()) >= 20:
+                        print(f"sass {'leaf loop' if loops else 'kernel'} {_demangle(name)}: "
+                              f"{sum(c.values())} instructions, fma pipe {c['fma']}, alu pipe "
+                              f"{c['alu']}, other {c['other']}", flush=True)
         dev = torch.device("cuda", 0)
         gen = torch.Generator(device="cpu").manual_seed(0)
         bound = H ** -0.5
@@ -638,6 +893,10 @@ def main(argv=None) -> int:
             head.update(_filter_calls(dev, gen))
         if args.calls == "philox":
             head.update(_philox_calls(dev, gen))
+        rk4_shape = None
+        if args.calls == "rk4":
+            rk4_calls, rk4_shape = _rk4_calls(dev, gen)
+            head.update(rk4_calls)
         for name, fn in head.items():
             if name.startswith("sos_filtfilt") or (args.calls == "philox"
                                                    and not args.variant.startswith("nodraw")):
@@ -649,6 +908,13 @@ def main(argv=None) -> int:
                   + f"; a call {sum(v * n for v, n in by_name.values()):.3f}"
                   + f"; during the warm-up SM clock {clock:.0f} MHz (median), power up to "
                   f"{power:.1f} W [{card}]", flush=True)
+            if rk4_shape and args.variant == "stamps" and not name.startswith("apf_de"):
+                fn()
+                torch.cuda.synchronize()
+                batch, pts, sub = rk4_shape
+                print(f"stamps {name}: {_apf_cycles(lib, batch, (pts - 1) * sub)}", flush=True)
+        if args.calls == "rk4":
+            _fit_profile(dev, gen, card)
         for name in [n for n in outputs if " philox " in n]:
             twin = name.replace(" philox ", " uint8 ")
             same = all(torch.equal(a, b) for a, b in zip(outputs[name], outputs[twin]))

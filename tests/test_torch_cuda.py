@@ -1341,6 +1341,143 @@ def test_fit_ode_rates_on_the_card_recovers_rates_and_repeats(dev):
         (fitted, fx, info)
 
 
+def _de_fit_loss(dev, n_points, seed):
+    """A fit loss on the card at ``n_points`` proportion points (a noisy
+    trajectory of the ODE from the default rates), 16 substeps."""
+    from eegflow_torch.fit import make_fit_loss
+    from eegflow_torch.ode.integrate import solve
+
+    _, traj = solve([0.6, 0.25, 0.15], (0.0, float(n_points - 1)), n_points,
+                    k=rates_to_array(DEFAULT_RATES, dev), method="expm")
+    noise = np.random.default_rng(seed).normal(0.0, 0.02, (n_points, 3))
+    obs = np.clip(traj.cpu().numpy() + noise, 1e-3, 1.0)
+    obs = (obs / obs.sum(axis=1, keepdims=True)).astype(np.float32)
+    return make_fit_loss(obs, 0.0, float(n_points - 1), n_points, device=dev)
+
+
+def _de_bounds(dev):
+    from eegflow_torch.core.config import ODEConfig
+    bounds = ODEConfig().bounds
+    return (torch.tensor([b[0] for b in bounds], device=dev),
+            torch.tensor([b[1] for b in bounds], device=dev))
+
+
+# (popsize, points, generations, tol): the fit's shape for all 1,000
+# generations; a population that converges (at most one of the chunks of 64
+# and 7 has a boundary there); 64 and 7 not dividing 100 and 150
+# generations; n = 18 and 90
+@pytest.mark.parametrize("popsize,n_points,maxiter,tol", [(15, 513, 1000, 1e-7),
+                                                          (15, 513, 600, 5e-2),
+                                                          (3, 513, 100, 1e-7),
+                                                          (3, 60, 150, 1e-7)])
+@pytest.mark.parametrize("chunk", [64, 7])
+def test_apf_de_mode_is_its_twin_bit_for_bit(dev, popsize, n_points, maxiter, tol, chunk,
+                                             monkeypatch):
+    """Kernel 11's DE mode against its twin, the loop of generations driving
+    the loss mode on the same card: the same generations, best member and
+    loss, bit for bit, and again on a second run, with one loss-mode launch
+    and one DE launch a chunk run; the best loss is the loss mode's on the
+    best member, bit for bit."""
+    from eegflow_torch.fit import evolution
+    from eegflow_torch.fit.evolution import _de_minimize, _de_minimize_chunked
+
+    monkeypatch.setattr(evolution, "DE_CHUNK", chunk)
+    loss = _de_fit_loss(dev, n_points, popsize)
+    lo, hi = _de_bounds(dev)
+
+    def run(fn, **kw):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(42)
+        with torch.no_grad():
+            return fn(loss, gen, lo, hi, popsize, maxiter, tol, **kw)
+
+    twin = run(_de_minimize)
+    kernels.reset_launch_counts()
+    got = run(_de_minimize_chunked)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launch_counts)
+    again = run(_de_minimize_chunked)
+    assert got[2] == twin[2] == again[2]
+    assert torch.equal(got[0], twin[0]) and torch.equal(got[1], twin[1])
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    stopped = got[2] < maxiter
+    chunks = got[2] // chunk + 1 if stopped else -(-maxiter // chunk)
+    assert launches == {"apf_rk4": 1, "apf_de": chunks}
+    assert stopped == (tol > 1e-3) and got[2] > 0
+    with torch.no_grad():
+        assert torch.equal(loss(got[0]), got[1])
+
+
+def test_apf_de_mode_losses_are_the_loss_modes_bit_for_bit(dev):
+    """After a chunk of the DE mode every member's loss (the first
+    population's from the loss mode, each replacement's from the DE mode's
+    trial) equals the loss mode's on the final population, bit for bit."""
+    from eegflow_torch.fit.evolution import _draw_generations, _latin_hypercube
+    from eegflow_torch.ode.cuda_ode import de_generations
+
+    loss = _de_fit_loss(dev, 513, 1)
+    lo, hi = _de_bounds(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    pop = _latin_hypercube(gen, 90, lo, hi).contiguous()
+    with torch.no_grad():
+        fit = loss(pop).contiguous()
+        first = pop.clone()
+        status = de_generations(pop, fit, lo, hi, _draw_generations(gen, 90, 6, 20, dev),
+                                loss.y0, loss.observed, loss.substeps, loss.steps,
+                                loss.reg_weight, 1e-7)
+        assert status.tolist() == [20, 0] and not torch.equal(pop, first)
+        assert torch.equal(fit, loss(pop))
+
+
+def test_fit_launches_the_de_mode_a_chunk(dev):
+    """differential_evolution_fit with a FitLoss on the card: one loss-mode
+    launch for the first population, one DE launch a chunk of 64
+    generations, then the polish's evaluations (loss mode)."""
+    from eegflow_torch.fit import differential_evolution_fit
+    from eegflow_torch.fit.evolution import DE_CHUNK
+
+    from eegflow_torch.core.config import ODEConfig
+
+    loss = _de_fit_loss(dev, 60, 2)
+    kernels.reset_launch_counts()
+    _, _, info = differential_evolution_fit(loss, ODEConfig().bounds, maxiter=130, tol=0.0,
+                                            polish=False)
+    assert info["generations"] == 130 and DE_CHUNK == 64
+    assert dict(kernels.launch_counts) == {"apf_rk4": 1, "apf_de": 3}
+    differential_evolution_fit(loss, ODEConfig().bounds, maxiter=10, tol=0.0)
+    assert kernels.launch_counts["apf_de"] == 4 and kernels.launch_counts["apf_rk4"] > 2
+
+
+def test_apf_de_mode_rejects_what_it_does_not_take(dev):
+    """A population over the one CTA's 1,024, a wrong dtype, a tensor on
+    another device and draws of another shape raise; nothing falls back."""
+    from eegflow_torch.fit.evolution import _draw_generations
+    from eegflow_torch.ode.cuda_ode import DE_MAX_POPULATION, de_generations
+
+    loss = _de_fit_loss(dev, 20, 3)
+    lo, hi = _de_bounds(dev)
+    gen = torch.Generator(device=dev)
+
+    def call(n, pop_dtype=torch.float32, lo_=lo, draws_n=None):
+        pop = torch.full((n, 6), 0.1, dtype=pop_dtype, device=dev)
+        fit = torch.ones(n, device=dev)
+        draws = _draw_generations(gen, draws_n or n, 6, 2, dev)
+        return de_generations(pop, fit, lo_, hi, draws, loss.y0, loss.observed, loss.substeps,
+                              loss.steps, loss.reg_weight, 1e-7)
+
+    assert DE_MAX_POPULATION == 1024
+    assert call(1024).tolist() == [0, 1]  # one loss everywhere: converged at once
+    with pytest.raises(ValueError, match="population"):
+        call(1026)
+    with pytest.raises(ValueError, match="pop must be"):
+        call(18, pop_dtype=torch.float64)
+    with pytest.raises(ValueError, match="lo must be"):
+        call(18, lo_=lo.cpu())
+    with pytest.raises(ValueError, match="draws.u must be"):
+        call(18, draws_n=24)
+
+
 # (rows, samples, order, band): 8 sections at 8-30 Hz and fs 250, where the
 # order-16 (b, a) still factors into stable sections (at 1-45 Hz and fs 500
 # tf2sos gives a pole at |p| = 1.06, in the reference's design path too)

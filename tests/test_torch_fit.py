@@ -161,3 +161,100 @@ def test_fit_ode_stage_writes_what_the_jax_package_reads(tmp_path, monkeypatch):
     paths = {"models": tmp_path / "out" / "models", "results": tmp_path / "out" / "results"}
     model = jax_load_coupled_model(paths, JaxPipelineConfig())
     np.testing.assert_allclose(np.asarray(model.k_base), np.asarray(k))
+
+
+def _small_fit_loss(seed=0):
+    """A fit loss at a small shape: 20 points, 2 RK4 substeps."""
+    obs = _observation(TRUE, n_points=20, t_end=20.0, noise=0.02, seed=seed)
+    return make_fit_loss(obs, 0.0, 20.0, 20, substeps=2, device="cpu")
+
+
+def test_chunked_draws_are_the_loops_draws_from_the_same_seed():
+    """A chunk's draws, G generations at once, are the numbers the generation
+    loop draws one generation at a time from the same seed: per generation
+    rand(()), rand((n, n)), rand((n, d)), randint(0, d, (n,))."""
+    from eegflow_torch.fit.evolution import _draw_generations
+
+    n, d, count = 18, 6, 5
+    chunk = _draw_generations(torch.Generator().manual_seed(7), n, d, count, torch.device("cpu"))
+    gen = torch.Generator().manual_seed(7)
+    for g in range(count):
+        assert torch.equal(chunk.f[g], torch.rand((), generator=gen))
+        assert torch.equal(chunk.u[g], torch.rand((n, n), generator=gen))
+        assert torch.equal(chunk.cr[g], torch.rand((n, d), generator=gen))
+        assert torch.equal(chunk.j[g], torch.randint(0, d, (n,), generator=gen))
+    assert chunk.f.dtype == chunk.u.dtype == chunk.cr.dtype == torch.float32
+    assert chunk.j.dtype == torch.int64
+
+
+def test_partner_ties_go_to_the_lower_index_as_jnp_argsort():
+    """The pinned partner rule against the reference's stable argsort of the
+    self-masked draws, on rows with forced ties (on the 2^-24 grid of torch's
+    float32 uniforms) and on a plain draw."""
+    from eegflow_torch.ode.cuda_ode import de_partners
+
+    rng = np.random.default_rng(5)
+    n = 18
+    u = np.floor(rng.uniform(size=(n, n)) * 2 ** 24).astype(np.float32) / np.float32(2 ** 24)
+    tick = np.float32(2.0 ** -24)
+    u[0, [3, 9, 12]] = 0.0                       # three-way tie for both partners
+    u[1, [0, 17]] = 0.0                          # a tie at the head of the row
+    u[2, [4, 5]] = tick
+    u[2, 6] = 0.0                                # the second partner tied
+    u[4, :] = np.float32(0.5)                    # a row of one value
+    want = np.asarray(jnp.argsort(jnp.asarray(u) + jnp.eye(n) * 2.0, axis=1))[:, :2]
+    got = de_partners(torch.from_numpy(u)).numpy()
+    np.testing.assert_array_equal(got, want)
+    assert got[0].tolist() == [3, 9] and got[1].tolist() == [0, 17]
+    assert got[2].tolist() == [6, 4] and got[4].tolist() == [0, 1]
+
+
+@pytest.mark.parametrize("spread", [1e-6, 1e-4, 1e-2])
+def test_fixed_order_convergence_test_agrees_with_jnp_away_from_the_threshold(spread):
+    """The DE's float64 candidate-order statistic decides as the reference's
+    float32 jnp.std <= atol + tol |jnp.mean| wherever tol is not within a
+    factor of 2 of the ratio; the best member is jnp.argmin's."""
+    from eegflow_torch.ode.cuda_ode import de_best, de_converged
+
+    rng = np.random.default_rng(11)
+    fit = (0.01 * (1.0 + spread * rng.standard_normal(90))).astype(np.float32)
+    ratio = float(jnp.std(fit) / jnp.abs(jnp.mean(fit)))
+    for tol in (ratio / 2, ratio * 2):
+        want = bool(jnp.std(fit) <= tol * jnp.abs(jnp.mean(fit)))
+        assert de_converged(fit.tolist(), tol) == want == (tol > ratio)
+    fit[[7, 30]] = fit.min() / 2
+    assert de_best(fit.tolist()) == int(jnp.argmin(fit)) == 7
+    assert de_converged([0.5] * 18, 0.0)
+
+
+def test_chunked_generations_are_the_loops_bit_for_bit(monkeypatch):
+    """The card's chunked search (the DE mode's CPU twin here) equals the loop
+    of generations bit for bit: chunks of 3 over 10 generations (3 does not
+    divide 10), and a chunk inside which the population converges."""
+    from eegflow_torch.fit import evolution
+    from eegflow_torch.fit.evolution import _de_minimize, _de_minimize_chunked
+
+    monkeypatch.setattr(evolution, "DE_CHUNK", 3)
+    loss = _small_fit_loss()
+    lo = torch.tensor([b[0] for b in ODEConfig().bounds])
+    hi = torch.tensor([b[1] for b in ODEConfig().bounds])
+    for maxiter, tol in ((10, 1e-7), (40, 0.3)):
+        loop = _de_minimize(loss, torch.Generator().manual_seed(3), lo, hi, 3, maxiter, tol)
+        chunked = _de_minimize_chunked(loss, torch.Generator().manual_seed(3), lo, hi, 3,
+                                       maxiter, tol)
+        assert torch.equal(loop[0], chunked[0]) and torch.equal(loop[1], chunked[1])
+        assert loop[2] == chunked[2]
+        assert (loop[2] == maxiter) == (tol < 0.1)
+
+
+def test_pinned_loop_recovers_rates_at_a_small_shape():
+    """tests/test_fit.py's recovery criteria (loss under 1e-5, the refitted
+    trajectory within 0.02) for the loop with the pinned rules, at 20 points
+    and 4 substeps with popsize 5."""
+    true = {"k_ap": 0.12, "k_af": 0.06, "k_pa": 0.25, "k_pf": 0.18, "k_fa": 0.09, "k_fp": 0.22}
+    obs = _observation(true, n_points=20, t_end=60.0)
+    cfg = ODEConfig(de_maxiter=150, de_popsize=5, reg_weight=0.0, rk4_substeps=4)
+    fitted, fx, info = fit_ode_rates(obs, np.linspace(0, 60, 20), cfg, device="cpu")
+    assert fx < 1e-5 and info["generations"] <= 150
+    refit = _observation(fitted, n_points=20, t_end=60.0)
+    assert np.max(np.abs(refit - obs)) < 0.02
