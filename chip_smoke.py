@@ -1476,7 +1476,7 @@ def ablation_phase(dev, smi, out_dir):
     from eegflow_torch.core.artifacts import load_results
     from eegflow_torch.core.config import ModelConfig
     from eegflow_torch.core.prng import make_generator
-    from eegflow_torch.nn.cuda_attention import (pool_head_bwd, pool_head_bwd_plain,
+    from eegflow_torch.nn.cuda_attention import (bf16_plan, pool_head_bwd, pool_head_bwd_plain,
                                                  pool_head_fused, pool_head_fused_plain)
     from eegflow_torch.nn.cuda_input import input_block_bwd, input_block_bwd_plain
     from eegflow_torch.nn.losses import cross_entropy_loss
@@ -1486,7 +1486,8 @@ def ablation_phase(dev, smi, out_dir):
     n_train, n_test = len(arrays["y_train"]), len(arrays["y_test"])
     bs = min(B_TRAIN, max(n_train // 2, 1))
     results_dir = out_dir / "results"
-    out = {"launches": Counter(), "wide": Counter(), "work": {}, "ms": {}, "err": {}}
+    out = {"launches": Counter(), "wide": Counter(), "work": {}, "ms": {}, "err": {},
+           "plan": {}}
 
     def launches_of(variant):
         """(per micro-step, per eval batch) launches of a variant: one LSTM
@@ -1685,6 +1686,13 @@ def ablation_phase(dev, smi, out_dir):
         m = median_ms({"plain": lambda: pfn(*args), "kernel": lambda: kfn(*args)}, rounds=1)
         out["ms"][name] = (m["kernel"], m["plain"])
         bound_ms, bound_by = bound(*out["work"][name])
+        if name.startswith("pool_head_bwd"):  # kernel 8: a cluster of CTAs a batch row
+            plan = bf16_plan("pool_head_bwd", 2 * hw, hw)
+            require(plan.wide, f"{name}: D={2 * hw}, K={hw} take the wide class")
+            out["plan"][name] = {"kernel": "pool_head_bwd_wide_kernel",
+                                 "cluster": plan.bwd_cluster, "tile_rows": plan.rows,
+                                 "smem": plan.bwd_smem}
+            print(f"{name}: {out['plan'][name]}", flush=True)
         print(f"{name} B={B_TRAIN} T={T} H={hw}: kernel {m['kernel']:.3f} ms, plain "
               f"{m['plain']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) [{smi}]", flush=True)
     return out
@@ -4300,7 +4308,7 @@ def main() -> int:
               *abl["ms"]["pool_head_fwd bf16 wide"]),
         entry("pool_head_bwd bf16 wide", "pool_head_bwd.cu", "eegflow/nn/pallas_attention.py:221",
               abl["wide"]["pool_head_bwd"], abl["err"]["pool_head_bwd bf16 wide"],
-              *abl["ms"]["pool_head_bwd bf16 wide"]),
+              *abl["ms"]["pool_head_bwd bf16 wide"], **abl["plan"]["pool_head_bwd bf16 wide"]),
         entry("input_block_bwd bf16 wide", "input_block.cu", "eegflow/nn/pallas_input.py:117",
               abl["wide"]["input_block_bwd"], abl["err"]["input_block_bwd bf16 wide"],
               *abl["ms"]["input_block_bwd bf16 wide"]),

@@ -55,11 +55,20 @@
 // the product of two bf16 values is exact and the sums are float32, as the
 // reference's preferred_element_type=float32; only the order of summation
 // differs. dW1 on mma_gemm.cuh's tensor-core split-K from the bf16 scratch.
-// Two width classes, one template body on 8 warps: 64-row tiles and a ring of
-// three slices for D <= 512 and K <= 256; 16-row tiles and a ring of two for
-// D <= 1024 and K <= 512 (the classifier at H = 512), where one 32-deep slice
-// of W1^T is 66 KB and the lanes' dgamma and dbeta of 1024 columns take 64
-// registers, as the float32 mode's 16-row tiles do above H = 256.
+// Two width classes. D <= 512 and K <= 256 (the narrow class): 64-row tiles
+// and a ring of three slices on 8 warps, one CTA a batch row. D <= 1024 and
+// K <= 512 otherwise (the wide class, the classifier at H = 512;
+// pool_head_bwd_wide_kernel): a cluster of two CTAs a batch row, each owning
+// half of D and half of K (pool_head_wide.cuh), 64-row tiles on 16 warps.
+// There one 32-deep slice of W1^T would be 66 KB and a 64-row y tile 132 KB,
+// so a single CTA could take only 16 rows a tile, streaming all of W1 and
+// W1^T (2 MiB) from L2 every 16 rows and feeding each slice to one m-tile of
+// products: on an H100 that stream took 2.2 of the class's 6.2 ms, the
+// products at M = 16 another 1.8, and the row-wise phases of a lone CTA per
+// SM the rest (PERF.md). A cluster tile reads W1 once per 64 rows, in the
+// CTA's own rows of W1 (Dh x K, 512 KB at most) for proj and their
+// transpose for dy, through a ring of four 32-deep slices (ring_mma); y and
+// u share one A tile, which the ring then fits beside.
 //
 // float32 mode (pool_head_bwd_f32_kernel): the same in 3xTF32 (mma_gemm.cuh:
 // each float32 operand split into two TF32 parts as its fragment loads, three
@@ -79,6 +88,7 @@
 
 #include "common.cuh"
 #include "mma_gemm.cuh"
+#include "pool_head_wide.cuh"
 
 namespace {
 
@@ -89,11 +99,12 @@ constexpr int kSlice = eegflow::kTileSlice;
 constexpr int kMaxD = 512;  // the narrow class: D <= 512 and K <= 256
 constexpr int kMaxK = 256;
 
-// bf16 mode, one CTA per batch row: tiles of 16 kMT (b, t) rows, a ring of
-// kStages slices, D <= kDMax and K <= kDMax / 2, so a warp owns at most
-// kDMax / 128 16-column pairs of dy and half as many of proj. Thread (warp w,
-// lane = 4 g + q) holds, for m-tile i and n-tile j of its pairs, rows
-// 16 i + g, 16 i + g + 8 and columns 16 pair + 8 (j % 2) + 2 q, + 1 of each
+// bf16 mode's narrow class, one CTA per batch row: tiles of 16 kMT (b, t)
+// rows, a ring of kStages slices, D <= kDMax and K <= kDMax / 2, so a warp
+// owns at most kDMax / 128 16-column pairs of dy and half as many of proj.
+// Thread (warp w, lane = 4 g + q) holds, for m-tile i and n-tile j of its
+// pairs, rows 16 i + g, 16 i + g + 8 and columns 16 pair + 8 (j % 2) + 2 q,
+// + 1 of each
 // product; in the row-wise phases warp w takes rows w, w + 8, .. (the
 // LayerNorm backward: kPair rows at a time, rows kPair w .. kPair w +
 // kPair - 1, then + 8 kPair, ..) and lane l columns l + 32 i.
@@ -393,6 +404,382 @@ cudaError_t launch_bf16(const float* x0, const float* x1, int d0, int d1, const 
                                          g0, g1, gctx, dh0, dh1, y_scr, u_scr, vec_part, T, K,
                                          use_ln, 1e-5f);
   return cudaGetLastError();
+}
+
+// bf16 mode's wide class: one cluster of two CTAs per batch row
+// (pool_head_wide.cuh), 64-row tiles on 16 warps; D = d0 + d1 <= 1024 and
+// K <= 512, CTA `rank` owning the columns [c0, c0 + Dh) of x, y, dy and dh
+// and [k0, k0 + Kh) of proj and u. Per tile, with five cluster barriers:
+//   L: the LayerNorm sums of x and x^2 over each half;
+//   A: bf16(y) of the own half into the A tile and the scratch, the half's
+//      g . y, and the partial proj = bf16(y_half) . bf16(W1[half, :]) over
+//      all K columns, W1's rows of the half streamed;
+//   B: the partner's columns of the partial pushed into its ring;
+//   C: the own columns' proj (the two partials added), u into both CTAs' A
+//      tiles (over y) and the scratch, db1 and dw2 (added a tile at a time by
+//      the column's one owner thread);
+//   dy of the own half = w g + bf16(u) . bf16(W1)^T over all of K (W1^T's
+//   columns of the half streamed), staged as float32 over the A tile and the
+//   ring;
+//   D: the LayerNorm backward's sums of dy gamma and dy gamma xhat over
+//      each half;
+//   then dh, and the warps' dgamma and dbeta of the tile, added over the
+//   warps in order by the column's thread. The two halves' sums of a row add
+//   as rank 0's + rank 1's in both CTAs. Thread (warp w, lane = 4 g + q)
+//   holds, for m-tile i and n-tile j, rows 16 i + g, + 8 and columns
+//   16 pair + 8 (j % 2) + 2 q, + 1 of each product (pair = w + 16 (j / 2)); in
+//   the row-wise phases warp w takes rows 2 w + 32 p, + 1 and lane l the
+//   half's columns l + 32 i (pool_head_wide.cuh), x read again in each; thread
+//   tid sums dgamma and dbeta of the half's column tid.
+//   Arguments as pool_head_bwd_bf16_kernel's.
+__host__ __device__ inline size_t wide_bwd_region(int half_d, int K) {
+  // the A tile (y, then u) and the ring; over them dy (float32) and the
+  // warps' dgamma and dbeta
+  const size_t tiles = 2 * (static_cast<size_t>(eegflow::wide_tile_elems(half_d, K)) +
+                            static_cast<size_t>(eegflow::kWideStages) *
+                                eegflow::wide_stage_elems(half_d, K));
+  const size_t dy = 4 * (static_cast<size_t>(eegflow::kWideRows) * (half_d + 8) +
+                         2 * static_cast<size_t>(eegflow::kWideWarps) * half_d);
+  return tiles > dy ? tiles : dy;
+}
+
+__global__ void __launch_bounds__(eegflow::kWideThreads, 1)
+pool_head_bwd_wide_kernel(const float* __restrict__ x0, const float* __restrict__ x1, int d0,
+                          int d1, const float* __restrict__ gamma,
+                          const float* __restrict__ beta, const __nv_bfloat16* __restrict__ w1b,
+                          const __nv_bfloat16* __restrict__ w1tb, const float* __restrict__ b1,
+                          const float* __restrict__ w2, const float* __restrict__ wts,
+                          const float* __restrict__ gsc, const float* __restrict__ g0,
+                          const float* __restrict__ g1, const float* __restrict__ gctx,
+                          float* __restrict__ dh0, float* __restrict__ dh1,
+                          __nv_bfloat16* __restrict__ y_scr, __nv_bfloat16* __restrict__ u_scr,
+                          float* __restrict__ vec_part, int T, int K, int use_ln, float eps) {
+  constexpr int kM = eegflow::kWideRows, kMT = eegflow::kWideMT, kW = eegflow::kWideWarps;
+  constexpr int kNT = eegflow::kWideThreads, kNP = eegflow::kWideNP;
+  constexpr int kHC = eegflow::kWideLaneCols;
+  static_assert(kNT >= eegflow::kWideMaxHalfD, "a thread a column of the half");
+  extern __shared__ __align__(16) uint8_t smem[];
+  const int D = d0 + d1, Dh = D / 2, Kh = K / 2;
+  const uint32_t rank = eegflow::cluster_rank(), partner = rank ^ 1u;
+  const int c0 = static_cast<int>(rank) * Dh, k0 = static_cast<int>(rank) * Kh;
+  const int pk0 = static_cast<int>(partner) * Kh;
+  const int b = blockIdx.x >> 1;
+  const int lda_y = Dh + 8, lda_u = K + 8, ldd = Dh + 8, ldi = Kh + 4;
+  const int stage_elems = eegflow::wide_stage_elems(Dh, K);
+  // the A tile: bf16(y) [kM][Dh + 8] until proj, then bf16(u) [kM][K + 8]
+  __nv_bfloat16* const ys = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* const us = ys;
+  __nv_bfloat16* const ring = ys + eegflow::wide_tile_elems(Dh, K);  // [kWideStages][stage]
+  float* const inbox = reinterpret_cast<float*>(ring);  // the partner's partial, [kM][Kh + 4]
+  float* const dys = reinterpret_cast<float*>(smem);    // dy, [kM][Dh + 8] over the tiles
+  float* const part = dys + kM * ldd;  // [kW][2][Dh] the warps' dgamma and dbeta of a tile
+  float* const g = reinterpret_cast<float*>(smem + wide_bwd_region(Dh, K));  // [Dh]
+  float* const acc_db1 = g + Dh;     // [Kh]
+  float* const acc_dw2 = acc_db1 + Kh;  // [Kh]
+  float* const ln_x = acc_dw2 + Kh;  // [2][kM][2] each rank's half sums of x and x^2
+  float* const gy_x = ln_x + 4 * kM;  // [2][kM][2] each rank's half g . y (and an unused 0)
+  float* const m_x = gy_x + 4 * kM;   // [2][kM][2] each rank's half sums of dy gamma (xhat)
+  float* const mu_s = m_x + 4 * kM;   // [kM] per-row LayerNorm mean,
+  float* const rsig_s = mu_s + kM;    // [kM] 1 / sigma,
+  float* const ds_s = rsig_s + kM;    // [kM] ds and
+  float* const w_s = ds_s + kM;       // [kM] softmax weight
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int gq = lane >> 2, q = lane & 3;
+  const float inv_d = 1.0f / static_cast<float>(D);
+  const float gc = gctx[b];
+  // x of rows r0, r0 + 1 of the tile at step bt0, the half's columns
+  // lane + 32 i (0 past the tile's tc rows or the half)
+  auto load_pair = [&](size_t bt0, int r0, int tc, float (&xv)[2][kHC]) {
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr)
+#pragma unroll
+      for (int i = 0; i < kHC; ++i) {
+        const int dl = lane + 32 * i, d = c0 + dl;
+        const size_t bt = bt0 + r0 + rr;
+        xv[rr][i] = r0 + rr < tc && dl < Dh
+                        ? (d < d0 ? x0[bt * d0 + d] : x1[bt * d1 + (d - d0)])
+                        : 0.f;
+      }
+  };
+  for (int d = tid; d < Dh; d += kNT) {
+    const int gd = c0 + d;
+    g[d] = gd < d0 ? g0[static_cast<size_t>(b) * d0 + gd]
+                   : g1[static_cast<size_t>(b) * d1 + gd - d0];
+  }
+  for (int k = tid; k < Kh; k += kNT) acc_db1[k] = acc_dw2[k] = 0.f;
+  float pdg = 0.f, pdb = 0.f;  // dgamma, dbeta of the half's column tid
+  eegflow::pair_sync();  // both CTAs run before either stores into the other
+  EEGFLOW_WIDE_MARK(0);
+
+  for (int t0 = 0; t0 < T; t0 += kM) {
+    const int tc = min(kM, T - t0);
+    const size_t bt0 = static_cast<size_t>(b) * T + t0;
+    // L: the halves' LayerNorm sums
+    if (use_ln) {
+      for (int r0 = 2 * warp; r0 < kM; r0 += 2 * kW) {
+        float xv[2][kHC];
+        load_pair(bt0, r0, tc, xv);
+        float sums[2][2];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          sums[rr][0] = sums[rr][1] = 0.f;
+#pragma unroll
+          for (int i = 0; i < kHC; ++i) {
+            sums[rr][0] += xv[rr][i];
+            sums[rr][1] += xv[rr][i] * xv[rr][i];
+          }
+        }
+        eegflow::push_pair_sums(sums, r0, ln_x, rank, partner);
+      }
+      eegflow::pair_sync();
+    }
+    EEGFLOW_WIDE_MARK(1);
+    // bf16(y) of the own half into the A tile and the scratch; the half's
+    // g . y
+    for (int r0 = 2 * warp; r0 < kM; r0 += 2 * kW) {
+      float xv[2][kHC];
+      load_pair(bt0, r0, tc, xv);
+      float gy[2][2];
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        const int r = r0 + rr;
+        const bool valid = r < tc;
+        float2 st = make_float2(0.f, 1.f);
+        if (use_ln) st = eegflow::ln_stats(ln_x, r, inv_d, eps);
+        gy[rr][0] = gy[rr][1] = 0.f;
+#pragma unroll
+        for (int i = 0; i < kHC; ++i) {
+          const int dl = lane + 32 * i;
+          if (dl >= Dh) continue;
+          float v = xv[rr][i];
+          if (use_ln) v = (v - st.x) * st.y * gamma[c0 + dl] + beta[c0 + dl];
+          if (!valid) v = 0.f;
+          const __nv_bfloat16 vb = __float2bfloat16_rn(v);
+          ys[r * lda_y + dl] = vb;
+          if (valid) y_scr[(bt0 + r) * D + c0 + dl] = vb;
+          gy[rr][0] += g[dl] * v;
+        }
+        if (lane == rr) {
+          mu_s[r] = st.x;
+          rsig_s[r] = st.y;
+          w_s[r] = valid ? wts[bt0 + r] : 0.f;
+        }
+      }
+      eegflow::push_pair_sums(gy, r0, gy_x, rank, partner);
+    }
+    EEGFLOW_WIDE_MARK(2);
+
+    // A, B, C: proj = bf16(y) . bf16(W1) from the two halves' partials;
+    // u = ds (1 - proj^2) w2 of the own columns; db1, dw2
+    {
+      float acc[kMT][2 * kNP][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * kNP; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      eegflow::ring_mma<kMT, kNP, eegflow::kWideStages, eegflow::kWideSlice, kW>(
+          acc, ys, lda_y, w1b + static_cast<size_t>(c0) * K, K, Dh, K, ring, stage_elems);
+      EEGFLOW_WIDE_MARK(3);
+      eegflow::pair_sync();  // A: both products are done; the halves' g . y have landed
+      EEGFLOW_WIDE_MARK(4);
+      eegflow::push_partial<kNP>(acc, eegflow::map_rank(eegflow::smem_addr(inbox), partner), K,
+                                 pk0, Kh);
+      if (tid < kM)
+        ds_s[tid] = tid < tc
+                        ? w_s[tid] * (gy_x[2 * tid] + gy_x[2 * (kM + tid)] - gc) + gsc[bt0 + tid]
+                        : 0.f;
+      eegflow::pair_sync();  // B: the partner's partial has landed; ds is in place
+      EEGFLOW_WIDE_MARK(5);
+      const uint32_t us_remote = eegflow::map_rank(eegflow::smem_addr(us), partner);
+#pragma unroll
+      for (int j = 0; j < 2 * kNP; ++j) {
+        const int pair = warp + kW * (j / 2);
+        const int col = pair * 16 + 8 * (j % 2) + 2 * q;
+        if (pair >= K / 16 || col < k0 || col >= k0 + Kh) continue;
+        const float bk[2] = {b1[col], b1[col + 1]}, w2k[2] = {w2[col], w2[col + 1]};
+        float sdb[2] = {0.f, 0.f}, sdw[2] = {0.f, 0.f};
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int row = 16 * i + 8 * rh + gq;
+            const float ds = ds_s[row];
+            const float2 other = *reinterpret_cast<const float2*>(inbox + row * ldi + col - k0);
+            const float sum[2] = {acc[i][j][2 * rh] + other.x, acc[i][j][2 * rh + 1] + other.y};
+            float u[2];
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const float pr = tanhf(sum[e] + bk[e]);
+              u[e] = ds * (1.f - pr * pr) * w2k[e];
+              sdb[e] += u[e];
+              sdw[e] += ds * pr;
+            }
+            const uint32_t ub = eegflow::pack_bf16(u[0], u[1]);
+            const int off = row * lda_u + col;
+            *reinterpret_cast<uint32_t*>(us + off) = ub;
+            eegflow::st_cluster_u32(us_remote + 2u * static_cast<uint32_t>(off), ub);
+            if (row < tc) *reinterpret_cast<uint32_t*>(u_scr + (bt0 + row) * K + col) = ub;
+          }
+#pragma unroll
+        for (int e = 0; e < 2; ++e)
+#pragma unroll
+          for (int off = 4; off < 32; off <<= 1) {
+            sdb[e] += __shfl_xor_sync(0xffffffffu, sdb[e], off);
+            sdw[e] += __shfl_xor_sync(0xffffffffu, sdw[e], off);
+          }
+        if (gq == 0) {
+          acc_db1[col - k0] += sdb[0];
+          acc_db1[col - k0 + 1] += sdb[1];
+          acc_dw2[col - k0] += sdw[0];
+          acc_dw2[col - k0 + 1] += sdw[1];
+        }
+      }
+    }
+    EEGFLOW_WIDE_MARK(6);
+    eegflow::pair_sync();  // C: the u tiles are whole; no thread reads its inbox any more
+    EEGFLOW_WIDE_MARK(7);
+
+    // dy of the own half = w g + bf16(u) . bf16(W1)^T, staged as float32
+    {
+      float acc[kMT][2 * kNP][4];
+#pragma unroll
+      for (int i = 0; i < kMT; ++i)
+#pragma unroll
+        for (int j = 0; j < 2 * kNP; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+      eegflow::ring_mma<kMT, kNP, eegflow::kWideStages, eegflow::kWideSlice, kW>(
+          acc, us, lda_u, w1tb + c0, D, K, Dh, ring, stage_elems);
+      __syncthreads();  // no thread reads the tiles or the ring any more
+      EEGFLOW_WIDE_MARK(8);
+#pragma unroll
+      for (int j = 0; j < 2 * kNP; ++j) {
+        const int pair = warp + kW * (j / 2);
+        if (pair >= Dh / 16) continue;
+        const int col = pair * 16 + 8 * (j % 2) + 2 * q;
+#pragma unroll
+        for (int i = 0; i < kMT; ++i)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int row = 16 * i + 8 * rh + gq;
+            *reinterpret_cast<float2*>(dys + row * ldd + col) =
+                make_float2(w_s[row] * g[col] + acc[i][j][2 * rh],
+                            w_s[row] * g[col + 1] + acc[i][j][2 * rh + 1]);
+          }
+      }
+    }
+    __syncthreads();
+    EEGFLOW_WIDE_MARK(9);
+
+    // D: the halves' sums of the LayerNorm backward
+    if (use_ln) {
+      for (int r0 = 2 * warp; r0 < kM; r0 += 2 * kW) {
+        float xv[2][kHC];
+        load_pair(bt0, r0, tc, xv);
+        float m[2][2];
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int r = r0 + rr;
+          const float mu = mu_s[r], rsig = rsig_s[r];
+          m[rr][0] = m[rr][1] = 0.f;
+#pragma unroll
+          for (int i = 0; i < kHC; ++i) {
+            const int dl = lane + 32 * i;
+            if (dl >= Dh) continue;
+            const float dxh = dys[r * ldd + dl] * gamma[c0 + dl];
+            m[rr][0] += dxh;
+            m[rr][1] += dxh * ((xv[rr][i] - mu) * rsig);
+          }
+        }
+        eegflow::push_pair_sums(m, r0, m_x, rank, partner);
+      }
+      eegflow::pair_sync();
+    }
+    EEGFLOW_WIDE_MARK(10);
+    // dh; the warps' dgamma and dbeta of the tile, then added in warp order
+    {
+      float pg[kHC], pb[kHC];
+#pragma unroll
+      for (int i = 0; i < kHC; ++i) pg[i] = pb[i] = 0.f;
+      for (int r0 = 2 * warp; r0 < kM; r0 += 2 * kW) {
+        float xv[2][kHC];
+        if (use_ln) load_pair(bt0, r0, tc, xv);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int r = r0 + rr;
+          if (r >= tc) continue;
+          const size_t bt = bt0 + r;
+          const float mu = mu_s[r], rsig = rsig_s[r];
+          float m1 = 0.f, m2 = 0.f;
+          if (use_ln) {
+            m1 = (m_x[2 * r] + m_x[2 * (kM + r)]) * inv_d;
+            m2 = (m_x[2 * r + 1] + m_x[2 * (kM + r) + 1]) * inv_d;
+          }
+#pragma unroll
+          for (int i = 0; i < kHC; ++i) {
+            const int dl = lane + 32 * i;
+            if (dl >= Dh) continue;
+            const int d = c0 + dl;
+            const float dy = dys[r * ldd + dl];
+            float v = dy;
+            if (use_ln) {
+              const float xhat = (xv[rr][i] - mu) * rsig;
+              v = rsig * (dy * gamma[d] - m1 - xhat * m2);
+              pg[i] += dy * xhat;
+              pb[i] += dy;
+            }
+            if (d < d0)
+              dh0[bt * d0 + d] = v;
+            else
+              dh1[bt * d1 + (d - d0)] = v;
+          }
+        }
+      }
+      if (use_ln) {
+#pragma unroll
+        for (int i = 0; i < kHC; ++i) {
+          const int dl = lane + 32 * i;
+          if (dl >= Dh) continue;
+          part[2 * warp * Dh + dl] = pg[i];
+          part[(2 * warp + 1) * Dh + dl] = pb[i];
+        }
+        __syncthreads();
+        if (tid < Dh) {
+          float sg = 0.f, sb = 0.f;
+          for (int w = 0; w < kW; ++w) {
+            sg += part[2 * w * Dh + tid];
+            sb += part[(2 * w + 1) * Dh + tid];
+          }
+          pdg += sg;
+          pdb += sb;
+        }
+      }
+    }
+    __syncthreads();  // the next tile overwrites the tiles and the row stats
+    EEGFLOW_WIDE_MARK(11);
+  }
+
+  // the batch row's partials of the own columns (no store into the partner
+  // follows the last tile's barrier)
+  float* out = vec_part + static_cast<size_t>(b) * (2 * K + 2 * D);
+  for (int k = tid; k < Kh; k += kNT) {
+    out[k0 + k] = acc_db1[k];
+    out[K + k0 + k] = acc_dw2[k];
+  }
+  if (tid < Dh) {
+    out[2 * K + c0 + tid] = pdg;
+    out[2 * K + D + c0 + tid] = pdb;
+  }
+}
+
+// shared memory of pool_head_bwd_wide_kernel: the tiles, then g, db1, dw2
+// and the row sums
+size_t wide_bwd_smem(int D, int K) {
+  const size_t floats = static_cast<size_t>(D / 2) + K + 16 * eegflow::kWideRows;
+  return wide_bwd_region(D / 2, K) + floats * sizeof(float);
 }
 
 // float32 mode: a tile of 16 kMT (b, t) rows of one batch row, kWarps
@@ -725,9 +1112,9 @@ extern "C" int eegflow_pool_head_bwd(
                                         g0, g1, gctx, dh0, dh1, ysb, usb, vec_part, B, T, K,
                                         use_ln, stream);
     else
-      err = launch_bf16<1, 2, 2 * kMaxD, 1>(x0, x1, d0, d1, gamma, beta, wb, wtb, b1, w2, wts,
-                                            gs, g0, g1, gctx, dh0, dh1, ysb, usb, vec_part, B,
-                                            T, K, use_ln, stream);
+      err = eegflow::launch_pairs(pool_head_bwd_wide_kernel, B, wide_bwd_smem(D, K), stream, x0,
+                                  x1, d0, d1, gamma, beta, wb, wtb, b1, w2, wts, gs, g0, g1, gctx,
+                                  dh0, dh1, ysb, usb, vec_part, T, K, use_ln, 1e-5f);
     if (err != cudaSuccess) return static_cast<int>(err);
     err = eegflow::mma_gemm_split_k(
         eegflow::Bf16Cols{{static_cast<const Bf*>(y_scr), nullptr}, {BT, 0}, D, D},

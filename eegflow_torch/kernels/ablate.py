@@ -6,7 +6,7 @@ head, on the GPU.
                                                      nostream|onetf32|onedir|stamps|nodraw|
                                                      nodraw_loader|rk4loop]
                                            [--rows 16,32,48]
-                                           [--calls all|recurrent|head|filter|philox|rk4]
+                                           [--calls all|recurrent|head|filter|philox|rk4|steps]
                                            [--csrc DIR] [--save FILE] [--against FILE]
 
 Builds the kernels from a copy of ``eegflow_torch/csrc`` with one part of
@@ -126,6 +126,39 @@ from an unpacked copy of that commit with this module copied over its
     python -m eegflow_torch.kernels.ablate --calls rk4
     python -m eegflow_torch.kernels.ablate --calls rk4 --variant stamps
     python -m eegflow_torch.kernels.ablate --calls rk4 --variant rk4loop
+
+``--calls head`` also times the wide bf16 classes of kernels 8 and 7 at the
+shapes of a hidden-512 classifier (B=512, T=256, two parts of 512, K=512,
+LayerNorm), every launch by name (kernel 8's row kernel, its dW1 split-K GEMM
+``mma_gemm_kernel`` and the two ``reduce_splits_kernel``), and prints
+ptxas's registers and spills of every pool-head kernel. ``nostream`` also
+stops the refills of the ring that kernel 8's wide class streams W1
+through, ``nomma`` its product loops (and, through ``tile_mma``, kernel 7's);
+the variant ``phases`` makes thread 0 of each CTA of kernel 8's wide class
+add the SM clock cycles between the marks in its source
+(``EEGFLOW_WIDE_MARK``, nothing in a normal build) to a table by phase,
+printed as cycles a CTA tile and shares::
+
+    python -m eegflow_torch.kernels.ablate --calls head
+    python -m eegflow_torch.kernels.ablate --calls head --variant phases
+    python -m eegflow_torch.kernels.ablate --calls head --variant nostream
+
+``--calls steps`` times, with CUDA events, a bf16 micro-step of
+``ModelConfig()`` at hidden 256 and 512 (B=512) and a classifier
+evaluation at B=1024, and the CLI stage ``ablate --hidden 512 --epochs 1`` on
+a synthetic processed set (4,096 training windows) by the host clock. With
+``--csrc`` naming another tree's sources, the same calls run on that
+tree's kernels, so a parent and a change are timed in turns, one process a
+turn::
+
+    python -m eegflow_torch.kernels.ablate --calls steps --csrc PARENT/eegflow_torch/csrc
+    python -m eegflow_torch.kernels.ablate --calls steps
+
+The readings of kernel 8's wide class before its redesign (PERF.md §6)
+repeat in a checkout of commit ``27992d0`` with this module copied over its
+``eegflow_torch/kernels/ablate.py``: there ``nostream`` and ``nomma`` reach
+the old class through ``mma_gemm.cuh``'s ``tile_mma`` (a variant skips its
+patches to a source the tree does not have).
 """
 
 from __future__ import annotations
@@ -204,6 +237,32 @@ extern "C" int eegflow_ablate_apf_cycles(unsigned long long* host, int n) {
 }
 """
 
+# the "phases" variant's probe of kernel 8's wide bf16 class
+# (pool_head_wide.cuh's EEGFLOW_WIDE_MARK): thread 0 of each CTA adds the SM
+# clock cycles since its previous mark to the mark's phase (and counts the
+# tiles at phase 1), and a C entry that copies the table out
+WIDE_MARKS_CODE = r"""
+__device__ unsigned long long g_wide_marks[17];
+__device__ unsigned long long g_wide_last[8192];
+#define EEGFLOW_WIDE_MARK(p)                                                        \
+  do {                                                                              \
+    if (threadIdx.x == 0 && blockIdx.x < 8192) {                                    \
+      unsigned long long t_;                                                        \
+      asm volatile("mov.u64 %0, %%clock64;" : "=l"(t_));                            \
+      if ((p) > 0) atomicAdd(&g_wide_marks[(p)], t_ - g_wide_last[blockIdx.x]); \
+      if ((p) == 1) atomicAdd(&g_wide_marks[16], 1ull);                         \
+      g_wide_last[blockIdx.x] = t_;                                             \
+    }                                                                               \
+  } while (0)
+extern "C" int eegflow_ablate_wide_marks(unsigned long long* host) {
+  return static_cast<int>(cudaMemcpyFromSymbol(host, g_wide_marks, 8 * 17));
+}
+"""
+#: the phases the marks close
+WIDE_PHASES = ["LN sums and barrier L", "y, y scratch, g . y", "proj product", "barrier A",
+               "partial pushed, barrier B", "u, db1, dw2", "barrier C", "dy product",
+               "dy staged", "LN backward sums, barrier D", "dh, dgamma, dbeta"]
+
 #: SASS opcodes by the SM pipe that issues them (the rest: memory, control,
 #: moves, conversions, the uniform datapath)
 SASS_PIPES = {"fma": {"IMAD", "IMUL", "FFMA", "FMUL", "FADD"},
@@ -249,6 +308,17 @@ VARIANTS = {
          "    const float* bs"),
         ("mma_gemm.cuh", "for (int kt = 0; kt < n_tiles; ++kt) {",
          "for (int kt = 0; kt < 0; ++kt) {"),
+        ("mma_gemm.cuh", "for (int it = 0; it < slices; ++it) {\n"
+         "    cp_async_wait<kStages - 2>();\n"
+         "    __syncthreads();  // slice it has landed; slice it - 1's stage is free again\n"
+         "    if (it + kStages - 1 < slices) issue(it + kStages - 1);\n    cp_async_commit();\n"
+         "    const __nv_bfloat16* bs",
+         "for (int it = 0; it < 0; ++it) {\n    cp_async_wait<kStages - 2>();\n"
+         "    __syncthreads();  // slice it has landed; slice it - 1's stage is free again\n"
+         "    if (it + kStages - 1 < slices) issue(it + kStages - 1);\n    cp_async_commit();\n"
+         "    const __nv_bfloat16* bs"),
+        ("pool_head_wide.cuh", "for (int it = 0; it < slices; ++it) {",
+         "for (int it = 0; it < 0; ++it) {"),
         ("sos_filter.cu", "out[at(i + b)] = cascade.step(v[b]);", "out[at(i + b)] = v[b];"),
         ("sos_filter.cu", "out[at(i)] = cascade.step(in[at(i)]);", "out[at(i)] = in[at(i)];")],
     "noexch": [
@@ -318,7 +388,13 @@ VARIANTS = {
         ("mma_gemm.cuh", "if (it + kStages - 1 < slices) issue(it + kStages - 1);\n"
          "    cp_async_commit();\n    const float* bs",
          "if (it + kStages - 1 < 0) issue(it + kStages - 1);\n"
-         "    cp_async_commit();\n    const float* bs")],
+         "    cp_async_commit();\n    const float* bs"),
+        ("mma_gemm.cuh", "if (it + kStages - 1 < slices) issue(it + kStages - 1);\n"
+         "    cp_async_commit();\n    const __nv_bfloat16* bs",
+         "if (it + kStages - 1 < 0) issue(it + kStages - 1);\n"
+         "    cp_async_commit();\n    const __nv_bfloat16* bs"),
+        ("pool_head_wide.cuh", "if (it + kStages - 1 < slices) issue(it + kStages - 1);",
+         "if (it + kStages - 1 < 0) issue(it + kStages - 1);")],
     "onetf32": [
         ("mma_gemm.cuh", "          mma_tf32(acc[i][2 * p], a[i].lo, bh[0], bh[1]);\n"
          "          mma_tf32(acc[i][2 * p + 1], a[i].lo, bh[2], bh[3]);\n", ""),
@@ -369,6 +445,11 @@ VARIANTS = {
          "#include <cuda_runtime.h>\n" + APF_STAMPS_CODE),
         ("apf_rk4.cu", "const int b = blockIdx.x * blockDim.x + threadIdx.x;",
          "const ApfStamp apf_stamp;\n  const int b = blockIdx.x * blockDim.x + threadIdx.x;")],
+    # kernel 8's wide class with its phases' cycles (read back through
+    # eegflow_ablate_wide_marks)
+    "phases": [
+        ("pool_head_bwd.cu", '#include "pool_head_wide.cuh"',
+         WIDE_MARKS_CODE + '#include "pool_head_wide.cuh"')],
     # kernel 11's point loss with the IEEE quotient (__fdiv_rn, a slow-path branch)
     "rk4fdiv": [("apf_rk4.cu", "p[j] = __fdividef(c[j], s);", "p[j] = __fdiv_rn(c[j], s);")],
     # kernel 11's clamp as max(y, 0) on the ALU pipe (FMNMX) against whole rate
@@ -402,13 +483,16 @@ VARIANTS = {
 def patched_sources(variant: str, into: Path, csrc=None) -> Path:
     """A copy of the kernel sources (``csrc``, by default the package's)
     under ``into`` with ``variant``'s parts taken out -> its ``csrc``
-    directory."""
+    directory. A patch to a source the tree lacks (an older tree) is
+    skipped."""
     from eegflow_torch import kernels
 
     src = into / "csrc"
     shutil.copytree(csrc or kernels.CSRC, src)
     for name, text, repl in VARIANTS[variant]:
         path = src / name
+        if not path.exists():  # an older tree, from before the source
+            continue
         body = path.read_text()
         if body.count(text) != 1:
             raise RuntimeError(f"variant {variant}: {name} holds {text!r} "
@@ -490,6 +574,27 @@ def _chain_stamps(lib, n: int, tiles: int, hc: int):
     both = len(np.unique(rec[:, 0]))
     return (f"{'; '.join(parts)}; {both} SMs in all; {running} of {2 * per_dir} CTAs "
             f"running at the latest start")
+
+
+def _wide_marks(lib) -> np.ndarray:
+    """The "phases" variant's table of kernel 8's wide class: cycles by
+    phase 1-15 and, at 16, the tiles counted."""
+    from eegflow_torch import kernels
+
+    buf = np.zeros(17, dtype=np.uint64)
+    lib.eegflow_ablate_wide_marks.restype = ctypes.c_int
+    kernels.check(lib, lib.eegflow_ablate_wide_marks(buf.ctypes.data_as(ctypes.c_void_p)),
+                  "eegflow_ablate_wide_marks")
+    return buf.astype(np.int64)
+
+
+def _phase_line(name: str, cycles: np.ndarray) -> str:
+    """Kernel 8's wide class: cycles a CTA tile by phase, with their shares."""
+    tiles = max(int(cycles[16]), 1)
+    total = cycles[1:len(WIDE_PHASES) + 1].sum()
+    return (f"phases {name}: {tiles} CTA tiles, {total / tiles:.0f} cycles a tile: "
+            + ", ".join(f"{ph} {cycles[i + 1] / tiles:.0f} ({100 * cycles[i + 1] / total:.1f} %)"
+                        for i, ph in enumerate(WIDE_PHASES)))
 
 
 def _device_ms_by_name(fn, reps: int = 5, warm_s: float = 0.5):
@@ -740,9 +845,11 @@ def _philox_calls(dev, gen):
 
 
 def _head_calls(dev, gen):
-    """Kernel 9 (both modes at B=512, bf16 at 1024), kernel 10's float32 mode
-    (B=512) and the float32 modes of kernels 8 and 7 (B=512, two parts of
-    256, K=256, LayerNorm) at full width."""
+    """The wide bf16 classes of kernels 8 and 7 (B=512, two parts of 512,
+    K=512, LayerNorm: the classifier at hidden 512), kernel 9 (both modes at
+    B=512, bf16 at 1024), kernel 10's float32 mode (B=512) and the float32
+    modes of kernels 8 and 7 (B=512, two parts of 256, K=256, LayerNorm) at
+    full width."""
     from eegflow_torch.nn.cuda_attention import pool_head_bwd, pool_head_fused
     from eegflow_torch.nn.cuda_input import input_block_bwd, input_block_fused
 
@@ -762,7 +869,18 @@ def _head_calls(dev, gen):
              torch.softmax(randn(512, STEPS), dim=-1), 0.01 * randn(512, STEPS),
              tuple(0.1 * randn(512, H) for _ in range(2)), 0.1 * randn(512), True, False)
     dy512 = randn(512, STEPS, H)
-    return {"input_block_fwd bf16 B=512": lambda: input_block_fused(proj, norm, x512, True),
+    # the wide bf16 classes at hidden 512 (chip_smoke.py phase 19's shapes)
+    dw, kw = 4 * H, 2 * H
+    lnw = {"scale": 1 + 0.1 * randn(dw), "bias": 0.1 * randn(dw)}
+    attnw = {"proj": {"w": 0.05 * randn(dw, kw), "b": 0.1 * randn(kw)},
+             "score": {"w": 0.1 * randn(kw, 1)}}
+    wargs = (lnw, attnw, tuple(torch.tanh(randn(512, STEPS, 2 * H)) for _ in range(2)),
+             torch.softmax(randn(512, STEPS), dim=-1), 0.01 * randn(512, STEPS),
+             tuple(0.1 * randn(512, 2 * H) for _ in range(2)), 0.1 * randn(512), True, True)
+    return {"pool_head_bwd bf16 wide B=512": lambda: pool_head_bwd(*wargs),
+            "pool_head_fwd bf16 wide B=512": lambda: pool_head_fused(lnw, attnw, wargs[2], True,
+                                                                     True),
+            "input_block_fwd bf16 B=512": lambda: input_block_fused(proj, norm, x512, True),
             "input_block_fwd float32 B=512": lambda: input_block_fused(proj, norm, x512, False),
             "input_block_fwd bf16 B=1024": lambda: input_block_fused(proj, norm, x1024, True),
             "input_block_bwd float32 B=512": lambda: input_block_bwd(proj, norm, x512, dy512,
@@ -770,6 +888,92 @@ def _head_calls(dev, gen):
             "pool_head_bwd float32 B=512": lambda: pool_head_bwd(*pargs),
             "pool_head_fwd float32 B=512": lambda: pool_head_fused(ln, attn, pargs[2], True,
                                                                    False)}
+
+
+def _step_calls(dev):
+    """Whole-path timings around the pool-head kernels: one bf16 micro-step
+    (forward and backward, ``"fused"``, dropout masks, B=512, T=256) of
+    ``ModelConfig()`` at hidden 256 (``chip_smoke.py`` phase 9's) and at
+    hidden 512 (phase 19's), and one bf16 classifier evaluation at B=1024
+    (phase 6's bucket), on random weights and windows."""
+    from eegflow_torch.core.config import ModelConfig
+    from eegflow_torch.core.prng import make_generator
+    from eegflow_torch.nn.losses import cross_entropy_loss
+    from eegflow_torch.nn.model import classifier_apply, classifier_init, draw_dropout_masks
+
+    gen = torch.Generator(device="cpu").manual_seed(9)
+    x = torch.randn(1024, STEPS, CHANNELS, generator=gen).to(dev)
+    y = (torch.rand(512, generator=gen) < 0.5).long().to(dev)
+    calls = {}
+    for hidden in (256, 512):
+        cfg = ModelConfig(input_size=CHANNELS, hidden_size=hidden)
+        params = classifier_init(cfg, make_generator(9), device=dev, trainable=True)
+        masks = draw_dropout_masks(cfg, 512, STEPS, torch.Generator(device=dev).manual_seed(9),
+                                   dev)
+
+        def step(params=params, cfg=cfg, masks=masks):
+            for q in params.parameters():
+                q.grad = None
+            logits = classifier_apply(params, x[:512], cfg, compute_dtype=torch.bfloat16,
+                                      lstm_impl="kernel", train=True, masks=masks)
+            cross_entropy_loss(logits, y).backward()
+
+        calls[f"micro-step hidden {hidden} B=512"] = step
+    cfg = ModelConfig(input_size=CHANNELS)
+    eparams = classifier_init(cfg, make_generator(6), device=dev)
+
+    def infer():
+        with torch.no_grad():
+            classifier_apply(eparams, x, cfg, compute_dtype=torch.bfloat16, lstm_impl="kernel")
+
+    calls["classifier eval hidden 256 B=1024"] = infer
+    return calls
+
+
+def _event_ms(fn, reps: int = 5) -> float:
+    """Median CUDA-event ms of a call of ``fn``, after two warm-up calls."""
+    for _ in range(2):
+        fn()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def _ablate_stage_s(windows: int = 4096) -> float:
+    """Host seconds of the CLI stage ``ablate --hidden 512 --epochs 1`` on the
+    card, on a processed set of ``windows`` training windows (and an eighth
+    as many validation and a quarter as many test windows) of 256 x 61 from
+    a numpy seed."""
+    from eegflow_torch.cli.main import main as cli_main
+    from eegflow_torch.core.artifacts import save_processed, save_results
+
+    rng = np.random.default_rng(19)
+    arrays = {}
+    for split, n in (("train", windows), ("val", windows // 8), ("test", windows // 4)):
+        yy = np.arange(n) % 2
+        xx = rng.standard_normal((n, STEPS, CHANNELS)).astype(np.float32)
+        xx[:, :, 0] += (yy - 0.5).astype(np.float32)[:, None]
+        arrays[f"X_{split}"], arrays[f"y_{split}"] = xx, yy.astype(np.int64)
+    out = Path(tempfile.mkdtemp(prefix="eegflow_ablate_stage_"))
+    try:
+        save_processed(out / "processed_data", arrays, {})
+        save_results(out / "results" / "coupling_analysis.json", {"alphas": [0.0]})
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rc = cli_main(["--output-dir", str(out), "ablate", "--hidden", "512", "--epochs", "1",
+                       "--device", "cuda"])
+        torch.cuda.synchronize()
+        if rc not in (0, None):
+            raise RuntimeError(f"ablate stage returned {rc}")
+        return time.perf_counter() - t0
+    finally:
+        shutil.rmtree(out, ignore_errors=True)
 
 
 def _filter_calls(dev, gen):
@@ -791,7 +995,8 @@ def main(argv=None) -> int:
     parser.add_argument("--variant", default="base", choices=sorted(VARIANTS))
     parser.add_argument("--rows", default=None, help="rows per cluster the plan may take")
     parser.add_argument("--calls", default="all",
-                        choices=("all", "recurrent", "head", "filter", "philox", "rk4"))
+                        choices=("all", "recurrent", "head", "filter", "philox", "rk4",
+                                 "steps"))
     parser.add_argument("--csrc", default=None,
                         help="build from this kernel source directory (another tree's)")
     parser.add_argument("--save", default=None,
@@ -815,6 +1020,9 @@ def main(argv=None) -> int:
             lib.eegflow_ablate_apf_cycles.restype = ctypes.c_int
         if args.calls in ("all", "recurrent"):
             for line in _ptxas_report(kernels.build_info.get("log", "")):
+                print(f"ptxas {line}", flush=True)
+        if args.calls in ("all", "head"):
+            for line in _ptxas_report(kernels.build_info.get("log", ""), "pool_head"):
                 print(f"ptxas {line}", flush=True)
         if args.calls == "philox":
             for line in _ptxas_report(kernels.build_info.get("log", ""),
@@ -901,7 +1109,12 @@ def main(argv=None) -> int:
             if name.startswith("sos_filtfilt") or (args.calls == "philox"
                                                    and not args.variant.startswith("nodraw")):
                 outputs[name] = _flat_cpu(fn())
+            marks = args.variant == "phases" and name.startswith("pool_head_bwd bf16 wide")
+            if marks:
+                before = _wide_marks(lib)
             by_name, clock, power = _device_ms_by_name(fn)
+            if marks:
+                print(_phase_line(name, _wide_marks(lib) - before), flush=True)
             print(f"{args.variant} {name}: device ms a launch by kernel: "
                   + ", ".join(f"{k} {v:.3f}" + (f" x{n}" if n > 1 else "")
                               for k, (v, n) in by_name.items())
@@ -915,6 +1128,12 @@ def main(argv=None) -> int:
                 print(f"stamps {name}: {_apf_cycles(lib, batch, (pts - 1) * sub)}", flush=True)
         if args.calls == "rk4":
             _fit_profile(dev, gen, card)
+        if args.calls == "steps":
+            for name, fn in _step_calls(dev).items():
+                print(f"{args.variant} {name}: {_event_ms(fn):.3f} ms (CUDA events, median of 5) "
+                      f"[{card}]", flush=True)
+            print(f"{args.variant} ablate --hidden 512 --epochs 1 stage: "
+                  f"{_ablate_stage_s():.2f} s [{card}]", flush=True)
         for name in [n for n in outputs if " philox " in n]:
             twin = name.replace(" philox ", " uint8 ")
             same = all(torch.equal(a, b) for a, b in zip(outputs[name], outputs[twin]))

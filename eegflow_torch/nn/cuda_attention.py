@@ -23,7 +23,7 @@ path calls it, in the reference or here.
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Tuple
+from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -35,6 +35,13 @@ LN_EPS = 1e-5
 #: the widest D and K the pool-head kernels take, in either mode (kernel 6
 #: too): the classifier's D = 2H and K = H for H <= 512
 MAX_D, MAX_K = 1024, 512
+#: the bf16 modes' two width classes: up to NARROW_D and NARROW_K one CTA a
+#: batch row walks its time steps in 64-step tiles; above either, up to MAX_D
+#: and MAX_K, kernel 7 does the same on 16 warps and kernel 8 runs a cluster
+#: of WIDE_CLUSTER CTAs a batch row, each owning half of D and of K, on
+#: WIDE_ROWS-step tiles (``csrc/pool_head_wide.cuh``)
+NARROW_D, NARROW_K = 512, 256
+WIDE_CLUSTER, WIDE_ROWS = 2, 64
 
 
 def _check_widths(what: str, d_total: int, k: int, max_d: int, max_k: int) -> None:
@@ -50,6 +57,45 @@ def check_bf16_widths(name: str, d_total: int, k: int) -> None:
     body for D <= 512 and K <= 256, a wider one above). Raises ``ValueError``
     naming ``name`` for any other; there is no other body."""
     _check_widths(f"{name} under bf16", d_total, k, MAX_D, MAX_K)
+
+
+class Bf16Plan(NamedTuple):
+    """The launch of the bf16 modes of ``pool_head_fwd.cu`` and
+    ``pool_head_bwd.cu`` for D and K: its class, kernel 8's CTAs a batch row
+    (kernel 7 takes one), the time steps a tile and each kernel's shared
+    memory a CTA, in bytes."""
+
+    wide: bool
+    bwd_cluster: int
+    rows: int
+    fwd_smem: int
+    bwd_smem: int
+
+
+def bf16_plan(name: str, d_total: int, k: int) -> Bf16Plan:
+    """The plan that the bf16 modes' C entry points take for D = ``d_total``
+    and K = ``k``, their shared memory as the sources compute it (kernel 7's
+    ``launch_bf16``, kernel 8's narrow ``launch_bf16`` and wide
+    ``wide_bwd_smem``). Raises as :func:`check_bf16_widths` does for widths
+    outside its rule."""
+    check_bf16_widths(name, d_total, k)
+    wide = d_total > NARROW_D or k > NARROW_K
+    rows, slice_, fwd_warps = 64, 32, 16 if wide else 8
+    # kernel 7: the y tile, a ring of two 32-deep W1 slices, the row
+    # statistics, the warps' partial scores and the softmax's weights
+    fwd = ((rows * (d_total + 8) + 2 * slice_ * (k + 8)) * 2 + rows * 8
+           + ((fwd_warps + 1) * rows + 2) * 4)
+    if not wide:
+        bwd = ((rows * (d_total + 8) + rows * (k + 8) + 3 * slice_ * (max(d_total, k) + 8)) * 2
+               + (d_total + 2 * k + 4 * rows) * 4)
+        return Bf16Plan(False, 1, rows, fwd, bwd)
+    # kernel 8: one A tile (y, then u) and a ring of four 32-deep slices;
+    # over them dy and the 16 warps' dgamma and dbeta; then the row sums
+    half, stages, warps = d_total // 2, 4, 16
+    tiles = 2 * (WIDE_ROWS + stages * slice_) * (max(k, half) + 8)
+    dy = 4 * (WIDE_ROWS * (half + 8) + 2 * warps * half)
+    bwd = max(tiles, dy) + (half + k + 16 * WIDE_ROWS) * 4
+    return Bf16Plan(True, WIDE_CLUSTER, WIDE_ROWS, fwd, bwd)
 
 
 def check_f32_widths(name: str, d_total: int, k: int) -> None:

@@ -26,6 +26,7 @@ from eegflow_torch.convert import params_from_jax
 from eegflow_torch.core import config as tcfg
 from eegflow_torch.nn.model import draw_dropout_masks
 from eegflow_torch.train.steps import AdamW, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 C, H, T, B = 4, 32, 16, 6
 LR = 1e-3

@@ -15,6 +15,7 @@ from eegflow_torch.analyze import ablation as tabl
 from eegflow_torch.cli.main import main as cli_main
 from figure_records import figure_files, patch_figures
 from eegflow_torch.core import artifacts as tart
+from torch_threads import one_torch_thread  # noqa: F401
 
 T, C = 16, 4
 STAGE_FILES = ["results_tables.txt", "sensitivity_analysis.json"]

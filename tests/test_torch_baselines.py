@@ -16,6 +16,7 @@ from eegflow.signal.features import extract_features as jax_extract
 from eegflow_torch.baselines import classical as tcls
 from eegflow_torch.cli.main import main as cli_main
 from eegflow_torch.core.artifacts import save_processed
+from torch_threads import one_torch_thread  # noqa: F401
 
 T, C = 256, 4
 SMALL_RF = [{"n_estimators": 10, "max_depth": 4, "min_samples_split": 2},

@@ -23,6 +23,7 @@ from eegflow_torch.core import config as tcfg
 from eegflow_torch.couple import CoupledModel, coupling_strength_sweep, predict_trajectory
 from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
 from eegflow_torch.train.loop import predict_probs
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(input_size=5, hidden_size=32, num_layers=2)
 # bf16 schedule vs the Pallas path (and vs the scan path): identical

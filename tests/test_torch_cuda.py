@@ -964,6 +964,76 @@ def test_pool_head_fwd_bf16_takes_the_widths_of_hidden_512(dev, use_ln, n_parts,
     assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
 
 
+# the wide bf16 classes' edges (kernel 8: a cluster of two CTAs a batch row,
+# each half of D and of K, 64-row tiles): the narrowest widths that pick them
+# (D = 544, K = 288: halves of 272 columns, 144 columns of proj) and the
+# widest (1024, 512); one part, two equal parts, and two unequal ones whose
+# boundary falls inside a CTA's half
+WIDE_EDGE_PARTS = [((544,), 288), ((272, 272), 288), ((160, 384), 288), ((1024,), 512),
+                   ((512, 512), 512), ((256, 768), 512)]
+# B = 1 (one cluster) and 67 (a second wave of one cluster at one CTA an SM);
+# T = 1, 45 (a ragged tile) and 256 (four whole tiles)
+WIDE_EDGE_SHAPES = [(1, 1), (1, 45), (67, 45), (67, 256)]
+
+
+def _wide_case(gen, widths, k, batch, steps, dev):
+    d = sum(widths)
+    ln = {"scale": 1 + 0.1 * _randn(gen, d, dev=dev), "bias": 0.1 * _randn(gen, d, dev=dev)}
+    attn = {"proj": {"w": 0.03 * _randn(gen, d, k, dev=dev), "b": 0.1 * _randn(gen, k, dev=dev)},
+            "score": {"w": 0.1 * _randn(gen, k, 1, dev=dev)}}
+    xs = tuple(torch.tanh(_randn(gen, batch, steps, w, dev=dev)) for w in widths)
+    grads = (torch.softmax(_randn(gen, batch, steps, dev=dev), dim=-1),
+             0.01 * _randn(gen, batch, steps, dev=dev),
+             tuple(0.1 * _randn(gen, batch, w, dev=dev) for w in widths),
+             0.1 * _randn(gen, batch, dev=dev))
+    return ln, attn, xs, grads
+
+
+@pytest.mark.parametrize("use_ln", [False, True])
+@pytest.mark.parametrize("widths,k", WIDE_EDGE_PARTS)
+@pytest.mark.parametrize("batch,steps", WIDE_EDGE_SHAPES)
+def test_pool_head_fwd_wide_class_at_its_edges(dev, use_ln, widths, k, batch, steps):
+    """Kernel 7's wide bf16 class against its twin at the widths and shapes
+    at the edges of kernel 8's cluster design, with and without LN: one
+    launch a call, bitwise on repeat."""
+    gen = make_generator(300 + sum(widths) + k + batch + steps + int(use_ln))
+    ln, attn, xs, _ = _wide_case(gen, widths, k, batch, steps, dev)
+    args = (ln if use_ln else None, attn, xs, use_ln, True)
+    before = kernels.launch_counts["pool_head_fwd"]
+    got, again = pool_head_fused(*args), pool_head_fused(*args)
+    assert kernels.launch_counts["pool_head_fwd"] == before + 2
+    want = pool_head_fused_plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda out: list(out[0]) + [out[1]]  # noqa: E731
+    for a, c in zip(flat(got), flat(want)):
+        assert a.shape == c.shape and bool(torch.isfinite(a).all())
+        assert (a - c).abs().max().item() <= POOL_TOL[True]
+    assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
+
+
+@pytest.mark.parametrize("use_ln", [False, True])
+@pytest.mark.parametrize("widths,k", WIDE_EDGE_PARTS)
+@pytest.mark.parametrize("batch,steps", WIDE_EDGE_SHAPES)
+def test_pool_head_bwd_wide_cluster_at_its_edges(dev, use_ln, widths, k, batch, steps):
+    """Kernel 8's wide bf16 class against its twin at the edges of its
+    cluster design, with and without LN: every gradient within the bf16
+    tolerance of its largest entry, one launch a call, bitwise on repeat."""
+    gen = make_generator(400 + sum(widths) + k + batch + steps + int(use_ln))
+    ln, attn, xs, (w, gs, gc, gctx) = _wide_case(gen, widths, k, batch, steps, dev)
+    args = (ln if use_ln else None, attn, xs, w, gs, gc, gctx, use_ln, True)
+    before = kernels.launch_counts["pool_head_bwd"]
+    got, again = pool_head_bwd(*args), pool_head_bwd(*args)
+    assert kernels.launch_counts["pool_head_bwd"] == before + 2
+    want = pool_head_bwd_plain(*args)
+    torch.cuda.synchronize()
+    flat = lambda out: list(out[0]) + [t for t in out[1:] if t is not None]  # noqa: E731
+    assert len(flat(got)) == len(flat(want)) == len(widths) + (5 if use_ln else 3)
+    for a, c in zip(flat(got), flat(want)):
+        assert a.shape == c.shape and bool(torch.isfinite(a).all())
+        assert _rel(a, c) <= POOL_BWD_REL_TOL
+    assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
+
+
 @pytest.mark.parametrize("hidden", [64, 256])
 @pytest.mark.parametrize("batch,steps", [(5, 37), (40, 256)])
 def test_input_block_bwd_bf16_on_tensor_cores_matches_twin_and_repeats_bitwise(dev, hidden,

@@ -30,6 +30,7 @@ from eegflow_torch.nn.cuda_lstm import (apply_mask, lstm_bwd_plain, lstm_bwd_v2_
 from test_torch_lstm_bwd_v2 import (BWD_REL_TOL, KEEP, SMALL, TILE, TWIN_TOL, TWO_PASS, _inputs,
                                     _pad, _rel, _t, classifier_matches_reference,
                                     reference_flags, train_step_matches_reference)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the output mask's keep (the stack's inter-layer rate d = 0.3, as ModelConfig)
 OUT_KEEP = 0.7

@@ -25,6 +25,7 @@ from eegflow_torch.explain import (gradient_channel_importance, kernel_shap_chan
                                    permutation_channel_importance)
 from eegflow_torch.explain.gradient import batch_input_gradients
 from eegflow_torch.nn.model import classifier_apply
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(input_size=5, hidden_size=32, num_layers=2)
 # per-window input gradients, relative to the largest entry, against the

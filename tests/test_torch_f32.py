@@ -34,6 +34,7 @@ from eegflow_torch.nn import losses as tlosses
 from eegflow_torch.nn.model import DropoutMasks, classifier_apply
 from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
 from eegflow_torch.train.steps import make_optimizer, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(input_size=5, hidden_size=32, num_layers=2)
 # float32 on both sides, the same operations: float32 sums in another order

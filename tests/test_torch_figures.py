@@ -34,6 +34,7 @@ from eegflow_torch.cli.main import FIGURES_SKIPPED
 from eegflow_torch.cli.main import main as cli_main
 from figure_records import (STAGE_FIGURES, assert_close, call_name, figure_files,
                             patch_figures)
+from torch_threads import one_torch_thread  # noqa: F401
 
 RATES = {"k_ap": 0.2, "k_af": 0.03, "k_pa": 0.1, "k_pf": 0.05, "k_fa": 0.07, "k_fp": 0.2}
 STATES = ("Active", "Passive", "Fatigued")

@@ -21,6 +21,7 @@ from eegflow_torch.core.config import ODEConfig
 from eegflow_torch.fit import differential_evolution_fit, fit_ode_rates, make_fit_loss
 from eegflow_torch.ode.cuda_ode import rk4_fit_loss_plain
 from figure_records import STAGE_FIGURES, figure_files, patch_figures
+from torch_threads import one_torch_thread  # noqa: F401
 
 TRUE = {"k_ap": 0.1, "k_af": 0.05, "k_pa": 0.2, "k_pf": 0.15, "k_fa": 0.1, "k_fp": 0.2}
 # float32 losses of two implementations of the same steps (sums in another

@@ -24,6 +24,7 @@ from eegflow_torch.convert import params_from_jax
 from eegflow_torch.core import config as tcfg
 from eegflow_torch.couple.rollout import CoupledModel
 from eegflow_torch.ode.field import RATE_NAMES, rates_to_array
+from torch_threads import one_torch_thread  # noqa: F401
 
 RATES = {"k_ap": 0.12, "k_af": 0.05, "k_pa": 0.1, "k_pf": 0.09, "k_fa": 0.07, "k_fp": 0.15}
 HORIZONS = (5, 10, 20)

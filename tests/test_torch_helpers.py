@@ -24,6 +24,7 @@ from eegflow_torch.convert import params_from_jax
 from eegflow_torch.core import Timer, registry, timed
 from eegflow_torch.core.timing import GLOBAL_TIMER, torch_trace
 from eegflow_torch.nn import layers
+from torch_threads import one_torch_thread  # noqa: F401
 
 ROOT = Path(__file__).resolve().parents[1]
 HIDDEN = 16

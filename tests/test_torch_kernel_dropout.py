@@ -38,6 +38,7 @@ from eegflow_torch.train.mesh import DataMesh, make_spmd_train_step, shard_batch
 from eegflow_torch.train.steps import make_optimizer, make_train_step
 from test_torch_lstm_bwd_v2 import (BWD_REL_TOL, KEEP, SMALL, TWIN_TOL, TWO_PASS, _inputs,
                                     _rel, _t, _weights, reference_flags)
+from torch_threads import one_torch_thread  # noqa: F401
 
 KEY = torch.tensor([-987654321, 123456789], dtype=torch.int32)
 TINY = dict(SMALL, dropout=0.4)

@@ -12,6 +12,7 @@ from eegflow.nn import lstm as jlstm
 from eegflow.nn.pallas_lstm import lstm_fwd_fused_proj as pallas_fwd_proj
 from eegflow_torch.nn import lstm as tlstm
 from eegflow_torch.nn.cuda_lstm import lstm_fwd_fused_proj, lstm_fwd_fused_proj_plain
+from torch_threads import one_torch_thread  # noqa: F401
 
 # eager float32 stack vs the scan: same algorithm, float32 summation order
 # differs through two layers of 16 steps

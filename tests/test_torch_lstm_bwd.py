@@ -16,6 +16,7 @@ from eegflow.nn.pallas_lstm import (bilstm_layer_fused_parts, lstm_bwd_fused,
 from eegflow.nn.pallas_lstm import lstm_fwd_fused_proj as pallas_fwd_proj
 from eegflow_torch.nn.cuda_lstm import (bilstm_layer, lstm_bwd, lstm_bwd_plain,
                                         lstm_fwd_train, lstm_fwd_train_plain)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # twin vs Pallas kernel: the same masked, bf16-rounded operands and float32
 # sums in another order; a last-bit difference can flip the bf16 rounding of

@@ -39,6 +39,7 @@ from eegflow_torch.nn.cuda_lstm import (bilstm_layer, lstm_bwd_v2, lstm_bwd_v2_p
                                         lstm_fwd_train_gates, lstm_fwd_train_gates_plain)
 from eegflow_torch.nn.model import DropoutMasks, classifier_apply, classifier_init
 from eegflow_torch.train.steps import make_optimizer, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 # twin vs Pallas kernel: the same masked, bf16-rounded operands and float32
 # sums in another order; a last-bit difference can flip the bf16 rounding of

@@ -29,6 +29,7 @@ from eegflow_torch.nn.model import classifier_apply, classifier_init
 from test_torch_lstm_bwd_v2 import (BWD_REL_TOL, KEEP, LAYER_REL_TOL, SMALL, TILE, _inputs,
                                     _pad, _rel, _t, _weights, classifier_matches_reference,
                                     reference_flags, train_step_matches_reference)
+from torch_threads import one_torch_thread  # noqa: F401
 
 DUALDIR = {"EEGFLOW_BWD_DUALDIR": "1", "EEGFLOW_MASK_DROPOUT": None}
 # the reference's schedule of the port's whole classifier under "dualdir": the

@@ -22,6 +22,7 @@ from eegflow_torch.nn.cuda_lstm import (bilstm_layer, lstm_rec_layer, lstm_recur
                                         lstm_recurrence_backward,
                                         lstm_recurrence_backward_plain,
                                         lstm_recurrence_plain)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # twin vs Pallas kernel, float32 throughout: the same operations, float32
 # sums in another order (as tests/test_pallas_lstm.py holds its kernels)

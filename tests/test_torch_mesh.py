@@ -38,6 +38,7 @@ from eegflow_torch.explain.permutation import permutation_channel_importance
 from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
 from eegflow_torch.train.loop import predict_probs, train_classifier
 from eegflow_torch.train.steps import make_optimizer, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(input_size=5, hidden_size=16, num_layers=2, dropout=0.0)
 TRAIN = dict(accumulation_steps=1, learning_rate=1e-3, warmup_epochs=1, epochs=4, bf16=False)

@@ -17,6 +17,7 @@ from eegflow_torch.core.config import (DataConfig, ModelConfig, ODEConfig, Pipel
                                        TrainConfig)
 from eegflow_torch.data.synthetic import generate_synthetic_dataset
 from figure_records import STAGE_FIGURES, figure_files, patch_figures
+from torch_threads import one_torch_thread  # noqa: F401
 
 MEASURED = {
     "svm": {"accuracy": 0.381, "f1": 0.1, "auc": 0.5},

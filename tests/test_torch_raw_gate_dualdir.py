@@ -31,6 +31,7 @@ from test_torch_lstm_bwd_v2 import (KEEP, LAYER_REL_TOL, SMALL, TILE, _inputs, _
                                     train_step_matches_reference)
 from test_torch_raw_gate_one_pass import RAW_REL_TOL
 from test_torch_res_bf16 import _bf16_from_jax
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the reference's raw-gate dual-direction backward: its single-kernel path
 # needs BWD_V2 and BWD_TC unset and no explicit masks

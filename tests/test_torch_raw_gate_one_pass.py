@@ -21,6 +21,7 @@ from eegflow.nn.pallas_lstm import lstm_fwd_fused_proj as pallas_fwd_proj
 from eegflow_torch.nn.cuda_lstm import lstm_bwd_v2_plain, lstm_fwd_train_gates_plain
 from test_torch_lstm_bwd_v2 import (BWD_REL_TOL, KEEP, TILE, TWIN_TOL, _inputs, _pad, _rel, _t,
                                     reference_flags, train_step_matches_reference)
+from torch_threads import one_torch_thread  # noqa: F401
 
 # the reference's one-pass raw-gate backward with explicit masks: kernel
 # 3's entry on the raw gates, BWD_V2 unset

@@ -34,6 +34,7 @@ from test_torch_lstm_bwd_v2 import (BWD_REL_TOL, KEEP, SMALL, TILE, TWIN_TOL, TW
                                     _inputs, _pad, _rel, _t, _weights,
                                     classifier_matches_reference, reference_flags,
                                     train_step_matches_reference)
+from torch_threads import one_torch_thread  # noqa: F401
 
 RES16 = {"EEGFLOW_RES_BF16": "1", "EEGFLOW_FUSED_INPUT": "1"}
 # the reference's schedules of the port's classifier with bf16 residuals:

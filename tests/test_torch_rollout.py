@@ -32,6 +32,7 @@ from eegflow_torch.nn.model import classifier_apply, resolve_lstm_impl
 from eegflow_torch.ode import integrate as tint
 from eegflow_torch.ode import field as tfield
 from eegflow_torch.ode.field import DEFAULT_RATES, RATE_NAMES, rates_to_array
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(input_size=5, hidden_size=32, num_layers=2)
 # bf16 schedule vs the Pallas path: identical bf16-rounded operands and

@@ -22,6 +22,7 @@ from eegflow_torch.core.prng import make_generator
 from eegflow_torch.couple.rollout import CoupledModel, predict_batch
 from eegflow_torch.nn.model import classifier_init
 from eegflow_torch.ode.field import DEFAULT_RATES, rates_to_array
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOY_CFG = ModelConfig(input_size=4, hidden_size=16, num_layers=1, dropout=0.0)
 

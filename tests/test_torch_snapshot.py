@@ -29,6 +29,7 @@ from eegflow_torch.core.artifacts import load_checkpoint, msgpack_unpack, save_t
 from eegflow_torch.nn.model import classifier_init
 from eegflow_torch.train.loop import restore_train_state, train_classifier
 from eegflow_torch.train.steps import leaf_at, make_optimizer, optimizer_state_dict
+from torch_threads import one_torch_thread  # noqa: F401
 
 FAMILIES = {
     "lstm": ("ModelConfig", dict(input_size=4, hidden_size=16, num_layers=2, dropout=0.2)),

@@ -36,6 +36,7 @@ from eegflow_torch.train import data as tdata
 from eegflow_torch.train import schedule as tsched
 from eegflow_torch.train.loop import train_classifier
 from eegflow_torch.train.steps import make_optimizer, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 SMALL = dict(input_size=5, hidden_size=16, num_layers=2)
 # float32 policy: the eager stack against the scan, float32 sums in another

@@ -47,6 +47,7 @@ from eegflow_torch.nn.losses import cross_entropy_loss
 from eegflow_torch.nn.model import classifier_apply, classifier_init, model_flops_per_window
 from eegflow_torch.train.loop import predict_probs, train_classifier
 from eegflow_torch.train.steps import make_optimizer, make_train_step
+from torch_threads import one_torch_thread  # noqa: F401
 
 TOY = dict(input_size=4, d_model=16, num_layers=2, num_heads=2, mlp_ratio=2, dropout=0.1)
 B, T = 6, 32
