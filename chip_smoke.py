@@ -1476,8 +1476,9 @@ def ablation_phase(dev, smi, out_dir):
     from eegflow_torch.core.artifacts import load_results
     from eegflow_torch.core.config import ModelConfig
     from eegflow_torch.core.prng import make_generator
-    from eegflow_torch.nn.cuda_attention import (bf16_plan, pool_head_bwd, pool_head_bwd_plain,
-                                                 pool_head_fused, pool_head_fused_plain)
+    from eegflow_torch.nn.cuda_attention import (pool_head_bwd, pool_head_bwd_bf16_plan,
+                                                 pool_head_bwd_plain, pool_head_fused,
+                                                 pool_head_fused_plain)
     from eegflow_torch.nn.cuda_input import input_block_bwd, input_block_bwd_plain
     from eegflow_torch.nn.losses import cross_entropy_loss
     from eegflow_torch.nn.model import classifier_apply, classifier_init, draw_dropout_masks
@@ -1686,12 +1687,13 @@ def ablation_phase(dev, smi, out_dir):
         m = median_ms({"plain": lambda: pfn(*args), "kernel": lambda: kfn(*args)}, rounds=1)
         out["ms"][name] = (m["kernel"], m["plain"])
         bound_ms, bound_by = bound(*out["work"][name])
-        if name.startswith("pool_head_bwd"):  # kernel 8: a cluster of CTAs a batch row
-            plan = bf16_plan("pool_head_bwd", 2 * hw, hw)
-            require(plan.wide, f"{name}: D={2 * hw}, K={hw} take the wide class")
-            out["plan"][name] = {"kernel": "pool_head_bwd_wide_kernel",
-                                 "cluster": plan.bwd_cluster, "tile_rows": plan.rows,
-                                 "smem": plan.bwd_smem}
+        if name.startswith("pool_head_bwd"):
+            # kernel 8: the row kernel, cluster, tile and shared memory that its
+            # C entry point launches with
+            plan = pool_head_bwd_bf16_plan(2 * hw, hw)
+            require(plan.wide, f"{name}: D={2 * hw}, K={hw} take the wide class ({plan})")
+            out["plan"][name] = {"kernel": plan.kernel, "cluster": plan.cluster,
+                                 "tile_rows": plan.tile_rows, "smem": plan.smem}
             print(f"{name}: {out['plan'][name]}", flush=True)
         print(f"{name} B={B_TRAIN} T={T} H={hw}: kernel {m['kernel']:.3f} ms, plain "
               f"{m['plain']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) [{smi}]", flush=True)

@@ -128,27 +128,31 @@ constexpr int kTileSlice = 32;  // depth of a streamed slice
 // acc[m-tile][n-tile][4] += A . B for this warp's 16-column pairs (pair =
 // warp + kWarps p, p < kNP, pair < N / 16) in a CTA of kWarps warps: A a
 // K-major bf16 tile of 16 kMT rows (lda elements apart) in shared memory
-// holding the whole depth; B (depth x N, bf16 rows of N in global memory)
-// streamed through a ring of kStages kTileSlice-deep slices by cp.async,
-// each stage [kTileSlice][N + 8]. depth is a multiple of kTileSlice and N of
-// 16. Thread (warp, lane = 4 g + q) gets rows 16 i + g, + 8 and columns
-// 16 pair + 8 (n % 2) + 2 q, + 1 of m-tile i, n-tile n. The caller makes sure
-// no thread still reads the ring.
-template <int kMT, int kNP, int kStages, int kWarps>
+// holding the whole depth; B (depth x N bf16, rows ldg elements apart in
+// global memory, 16-byte aligned) streamed through a ring of kStages
+// kTileSlice-deep slices by cp.async, each stage [kTileSlice][N + 8]. depth
+// is a multiple of kTileSlice, or with kTail of 16 (the last slice then may
+// be 16 deep); N is a multiple of 16 and ldg of 8. Thread (warp, lane =
+// 4 g + q) gets rows 16 i + g, + 8 and columns 16 pair + 8 (n % 2) + 2 q, + 1
+// of m-tile i, n-tile n. The caller makes sure no thread still reads the
+// ring, and waits for every warp's last reads of it before the ring is
+// written again.
+template <int kMT, int kNP, int kStages, int kWarps, bool kTail = false>
 __device__ __forceinline__ void tile_mma(float (&acc)[kMT][2 * kNP][4], const __nv_bfloat16* As,
-                                         int lda, const __nv_bfloat16* __restrict__ Bg,
+                                         int lda, const __nv_bfloat16* __restrict__ Bg, int ldg,
                                          int depth, int N, __nv_bfloat16* ring,
                                          int stage_elems) {
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int ldb = N + 8;
-  const int slices = depth / kTileSlice;
+  const int slices = kTail ? (depth + kTileSlice - 1) / kTileSlice : depth / kTileSlice;
   const int chunks_per_row = N / 8;
   auto issue = [&](int i) {
     __nv_bfloat16* st = ring + (i % kStages) * stage_elems;
-    for (int c = tid; c < kTileSlice * chunks_per_row; c += 32 * kWarps) {
+    const int rows = kTail ? min(kTileSlice, depth - i * kTileSlice) : kTileSlice;
+    for (int c = tid; c < rows * chunks_per_row; c += 32 * kWarps) {
       const int r = c / chunks_per_row, col = (c - r * chunks_per_row) * 8;
       cp_async16(smem_addr(st + r * ldb + col),
-                 Bg + static_cast<size_t>(i * kTileSlice + r) * N + col, true);
+                 Bg + static_cast<size_t>(i * kTileSlice + r) * ldg + col, true);
     }
   };
 #pragma unroll
@@ -162,8 +166,7 @@ __device__ __forceinline__ void tile_mma(float (&acc)[kMT][2 * kNP][4], const __
     if (it + kStages - 1 < slices) issue(it + kStages - 1);
     cp_async_commit();
     const __nv_bfloat16* bs = ring + (it % kStages) * stage_elems;
-#pragma unroll
-    for (int kk = 0; kk < kTileSlice / 16; ++kk) {
+    auto step = [&](int kk) {  // 16 of the depth
       uint32_t af[kMT][4];
 #pragma unroll
       for (int i = 0; i < kMT; ++i)
@@ -182,6 +185,12 @@ __device__ __forceinline__ void tile_mma(float (&acc)[kMT][2 * kNP][4], const __
           mma_bf16(acc[i][2 * p + 1], af[i], r[2], r[3]);
         }
       }
+    };
+    if (!kTail || (it + 1) * kTileSlice <= depth) {
+#pragma unroll
+      for (int kk = 0; kk < kTileSlice / 16; ++kk) step(kk);
+    } else {
+      step(0);  // the last slice, 16 deep
     }
   }
   cp_async_wait<0>();

@@ -67,7 +67,7 @@
 // products at M = 16 another 1.8, and the row-wise phases of a lone CTA per
 // SM the rest (PERF.md). A cluster tile reads W1 once per 64 rows, in the
 // CTA's own rows of W1 (Dh x K, 512 KB at most) for proj and their
-// transpose for dy, through a ring of four 32-deep slices (ring_mma); y and
+// transpose for dy, through a ring of four 32-deep slices (tile_mma); y and
 // u share one A tile, which the ring then fits beside.
 //
 // float32 mode (pool_head_bwd_f32_kernel): the same in 3xTF32 (mma_gemm.cuh:
@@ -98,20 +98,22 @@ constexpr int kBWarps = kBThreads / 32;
 constexpr int kSlice = eegflow::kTileSlice;
 constexpr int kMaxD = 512;  // the narrow class: D <= 512 and K <= 256
 constexpr int kMaxK = 256;
+// the narrow class's tiles of 16 kBMT rows, ring of kBStages slices and
+// LayerNorm backward kBPair rows at a time
+constexpr int kBMT = 4, kBStages = 3, kBPair = 2;
 
-// bf16 mode's narrow class, one CTA per batch row: tiles of 16 kMT (b, t)
-// rows, a ring of kStages slices, D <= kDMax and K <= kDMax / 2, so a warp
-// owns at most kDMax / 128 16-column pairs of dy and half as many of proj.
+// bf16 mode's narrow class, one CTA per batch row: tiles of 16 kBMT (b, t)
+// rows, a ring of kBStages slices, D <= kMaxD and K <= kMaxD / 2, so a warp
+// owns at most kMaxD / 128 16-column pairs of dy and half as many of proj.
 // Thread (warp w, lane = 4 g + q) holds, for m-tile i and n-tile j of its
 // pairs, rows 16 i + g, 16 i + g + 8 and columns 16 pair + 8 (j % 2) + 2 q,
 // + 1 of each
 // product; in the row-wise phases warp w takes rows w, w + 8, .. (the
-// LayerNorm backward: kPair rows at a time, rows kPair w .. kPair w +
-// kPair - 1, then + 8 kPair, ..) and lane l columns l + 32 i.
+// LayerNorm backward: kBPair rows at a time, rows kBPair w .. kBPair w +
+// kBPair - 1, then + 8 kBPair, ..) and lane l columns l + 32 i.
 //   x_p (B, T, d_p) float32; w1b (D, K) and w1tb (K, D) bf16; y_scr (B T, D)
 //   and u_scr (B T, K) bf16 scratch; vec_part (B, 2K + 2D) the row's
 //   [db1, dw2, dgamma, dbeta] partials.
-template <int kMT, int kStages, int kDMax, int kPair>
 __global__ void __launch_bounds__(kBThreads, 1)
 pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict__ x1, int d0,
                           int d1, const float* __restrict__ gamma,
@@ -123,18 +125,18 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
                           float* __restrict__ dh0, float* __restrict__ dh1,
                           __nv_bfloat16* __restrict__ y_scr, __nv_bfloat16* __restrict__ u_scr,
                           float* __restrict__ vec_part, int T, int K, int use_ln, float eps) {
-  constexpr int kM = 16 * kMT;
-  constexpr int kCols = kDMax / 32;           // columns of a row a lane owns
-  constexpr int kNPp = kDMax / 32 / kBWarps;  // 16-column pairs of proj a warp owns
-  constexpr int kNPd = kDMax / 16 / kBWarps;  // and of dy
+  constexpr int kM = 16 * kBMT;
+  constexpr int kCols = kMaxD / 32;           // columns of a row a lane owns
+  constexpr int kNPp = kMaxD / 32 / kBWarps;  // 16-column pairs of proj a warp owns
+  constexpr int kNPd = kMaxD / 16 / kBWarps;  // and of dy
   extern __shared__ __align__(16) uint8_t smem[];
   const int D = d0 + d1;
   const int lda_y = D + 8, lda_u = K + 8;
   const int stage_elems = kSlice * (max(D, K) + 8);
   __nv_bfloat16* const ys = reinterpret_cast<__nv_bfloat16*>(smem);  // [kM][D + 8]
   __nv_bfloat16* const us = ys + kM * lda_y;                          // [kM][K + 8]
-  __nv_bfloat16* const ring = us + kM * lda_u;                        // [kStages][stage]
-  float* const g = reinterpret_cast<float*>(ring + kStages * stage_elems);  // [D]
+  __nv_bfloat16* const ring = us + kM * lda_u;                        // [kBStages][stage]
+  float* const g = reinterpret_cast<float*>(ring + kBStages * stage_elems);  // [D]
   float* const acc_db1 = g + D;         // [K]
   float* const acc_dw2 = acc_db1 + K;   // [K]
   float* const mu_s = acc_dw2 + K;      // [kM] per-row LayerNorm mean,
@@ -210,15 +212,15 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
 
     // proj = bf16(y) . bf16(W1); u = ds (1 - proj^2) w2; db1, dw2
     {
-      float acc[kMT][2 * kNPp][4];
+      float acc[kBMT][2 * kNPp][4];
 #pragma unroll
-      for (int i = 0; i < kMT; ++i)
+      for (int i = 0; i < kBMT; ++i)
 #pragma unroll
         for (int j = 0; j < 2 * kNPp; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-      eegflow::tile_mma<kMT, kNPp, kStages, kBWarps>(acc, ys, lda_y, w1b, D, K, ring,
-                                                      stage_elems);
+      eegflow::tile_mma<kBMT, kNPp, kBStages, kBWarps>(acc, ys, lda_y, w1b, K, D, K, ring,
+                                                       stage_elems);
 #pragma unroll
       for (int j = 0; j < 2 * kNPp; ++j) {
         const int pair = warp + kBWarps * (j / 2);
@@ -227,7 +229,7 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
         const float bk[2] = {b1[col], b1[col + 1]}, w2k[2] = {w2[col], w2[col + 1]};
         float sdb[2] = {0.f, 0.f}, sdw[2] = {0.f, 0.f};
 #pragma unroll
-        for (int i = 0; i < kMT; ++i)
+        for (int i = 0; i < kBMT; ++i)
 #pragma unroll
           for (int rh = 0; rh < 2; ++rh) {
             const int row = 16 * i + 8 * rh + gq;
@@ -265,15 +267,15 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
 
     // dy = w g + bf16(u) . bf16(W1)^T, staged as float32 in shared memory
     {
-      float acc[kMT][2 * kNPd][4];
+      float acc[kBMT][2 * kNPd][4];
 #pragma unroll
-      for (int i = 0; i < kMT; ++i)
+      for (int i = 0; i < kBMT; ++i)
 #pragma unroll
         for (int j = 0; j < 2 * kNPd; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-      eegflow::tile_mma<kMT, kNPd, kStages, kBWarps>(acc, us, lda_u, w1tb, K, D, ring,
-                                                      stage_elems);
+      eegflow::tile_mma<kBMT, kNPd, kBStages, kBWarps>(acc, us, lda_u, w1tb, D, K, D, ring,
+                                                       stage_elems);
       __syncthreads();  // no thread reads the tiles or the ring any more
 #pragma unroll
       for (int j = 0; j < 2 * kNPd; ++j) {
@@ -281,7 +283,7 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
         if (pair >= D / 16) continue;
         const int col = pair * 16 + 8 * (j % 2) + 2 * q;
 #pragma unroll
-        for (int i = 0; i < kMT; ++i)
+        for (int i = 0; i < kBMT; ++i)
 #pragma unroll
           for (int rh = 0; rh < 2; ++rh) {
             const int row = 16 * i + 8 * rh + gq;
@@ -293,16 +295,16 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
     }
     __syncthreads();
 
-    // the LayerNorm backward, one warp per kPair rows (their loads in flight
+    // the LayerNorm backward, one warp per kBPair rows (their loads in flight
     // together), and dgamma, dbeta
-    for (int r0 = kPair * warp; r0 < kM; r0 += kPair * kBWarps) {
-      float xh[kPair][kCols];
-      float m1[kPair], m2[kPair];
+    for (int r0 = kBPair * warp; r0 < kM; r0 += kBPair * kBWarps) {
+      float xh[kBPair][kCols];
+      float m1[kBPair], m2[kBPair];
 #pragma unroll
-      for (int rr = 0; rr < kPair; ++rr) m1[rr] = m2[rr] = 0.f;
+      for (int rr = 0; rr < kBPair; ++rr) m1[rr] = m2[rr] = 0.f;
       if (use_ln) {
 #pragma unroll
-        for (int rr = 0; rr < kPair; ++rr) {
+        for (int rr = 0; rr < kBPair; ++rr) {
           const int t = t0 + r0 + rr;
           const size_t bt = static_cast<size_t>(b) * T + min(t, T - 1);
 #pragma unroll
@@ -314,7 +316,7 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
           }
         }
 #pragma unroll
-        for (int rr = 0; rr < kPair; ++rr) {
+        for (int rr = 0; rr < kBPair; ++rr) {
           const int r = r0 + rr;
           if (t0 + r >= T) continue;
           const float* dyr = dys + r * ldd;
@@ -335,7 +337,7 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
         }
       }
 #pragma unroll
-      for (int rr = 0; rr < kPair; ++rr) {
+      for (int rr = 0; rr < kBPair; ++rr) {
         const int r = r0 + rr;
         const int t = t0 + r;
         if (t >= T) continue;
@@ -384,20 +386,24 @@ pool_head_bwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
   }
 }
 
-template <int kMT, int kStages, int kDMax, int kPair>
+// shared memory of pool_head_bwd_bf16_kernel: the y and u tiles, the ring,
+// then g, db1, dw2 and the row statistics
+size_t narrow_bwd_smem(int D, int K) {
+  const size_t rows = 16 * kBMT;
+  const size_t elems = rows * (D + 8) + rows * (K + 8) +
+                       static_cast<size_t>(kBStages) * kSlice * (std::max(D, K) + 8);
+  const size_t floats = static_cast<size_t>(D) + 2 * K + 4 * rows;
+  return elems * 2 + floats * 4;
+}
+
 cudaError_t launch_bf16(const float* x0, const float* x1, int d0, int d1, const float* gamma,
                         const float* beta, const __nv_bfloat16* w1b, const __nv_bfloat16* w1tb,
                         const float* b1, const float* w2, const float* wts, const float* gs,
                         const float* g0, const float* g1, const float* gctx, float* dh0,
                         float* dh1, __nv_bfloat16* y_scr, __nv_bfloat16* u_scr,
                         float* vec_part, int B, int T, int K, int use_ln, cudaStream_t stream) {
-  const size_t rows = 16 * kMT;
-  const int D = d0 + d1;
-  const size_t elems = rows * (D + 8) + rows * (K + 8) +
-                       static_cast<size_t>(kStages) * kSlice * (std::max(D, K) + 8);
-  const size_t floats = static_cast<size_t>(D) + 2 * K + 4 * rows;
-  const size_t smem = elems * 2 + floats * 4;
-  auto kernel = pool_head_bwd_bf16_kernel<kMT, kStages, kDMax, kPair>;
+  const size_t smem = narrow_bwd_smem(d0 + d1, K);
+  auto kernel = pool_head_bwd_bf16_kernel;
   cudaError_t err = eegflow::allow_dynamic_smem(kernel, smem);
   if (err != cudaSuccess) return err;
   kernel<<<B, kBThreads, smem, stream>>>(x0, x1, d0, d1, gamma, beta, w1b, w1tb, b1, w2, wts, gs,
@@ -580,7 +586,7 @@ pool_head_bwd_wide_kernel(const float* __restrict__ x0, const float* __restrict_
         for (int j = 0; j < 2 * kNP; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-      eegflow::ring_mma<kMT, kNP, eegflow::kWideStages, eegflow::kWideSlice, kW>(
+      eegflow::tile_mma<kMT, kNP, eegflow::kWideStages, kW, true>(
           acc, ys, lda_y, w1b + static_cast<size_t>(c0) * K, K, Dh, K, ring, stage_elems);
       EEGFLOW_WIDE_MARK(3);
       eegflow::pair_sync();  // A: both products are done; the halves' g . y have landed
@@ -651,7 +657,7 @@ pool_head_bwd_wide_kernel(const float* __restrict__ x0, const float* __restrict_
         for (int j = 0; j < 2 * kNP; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-      eegflow::ring_mma<kMT, kNP, eegflow::kWideStages, eegflow::kWideSlice, kW>(
+      eegflow::tile_mma<kMT, kNP, eegflow::kWideStages, kW, true>(
           acc, us, lda_u, w1tb + c0, D, K, Dh, ring, stage_elems);
       __syncthreads();  // no thread reads the tiles or the ring any more
       EEGFLOW_WIDE_MARK(8);
@@ -1076,7 +1082,31 @@ cudaError_t launch_f32(const float* x0, const float* x1, int d0, int d1, const f
   return cudaGetLastError();
 }
 
+// D and K both modes take: multiples of 32 up to twice the narrow class's
+bool widths_ok(int D, int K) {
+  return D > 0 && K > 0 && D % 32 == 0 && K % 32 == 0 && D <= 2 * kMaxD && K <= 2 * kMaxK;
+}
+
+// the narrow class (one CTA a batch row) in both modes; the wide one above
+bool narrow_class(int D, int K) { return D <= kMaxD && K <= kMaxK; }
+
 }  // namespace
+
+// The launch of the bf16 mode's row kernel for D and K, as
+// eegflow_pool_head_bwd makes it: plan = {class (0 narrow, 1 wide), CTAs a
+// batch row (its cluster), time steps a tile, dynamic shared memory a CTA in
+// bytes}, and the kernel's (mangled) name from the runtime.
+extern "C" int eegflow_pool_head_bwd_bf16_plan(int D, int K, int* plan, const char** name) {
+  if (!widths_ok(D, K)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool narrow = narrow_class(D, K);
+  plan[0] = narrow ? 0 : 1;
+  plan[1] = narrow ? 1 : eegflow::kWideCluster;
+  plan[2] = narrow ? 16 * kBMT : eegflow::kWideRows;
+  plan[3] = static_cast<int>(narrow ? narrow_bwd_smem(D, K) : wide_bwd_smem(D, K));
+  const void* kernel = narrow ? reinterpret_cast<const void*>(pool_head_bwd_bf16_kernel)
+                              : reinterpret_cast<const void*>(pool_head_bwd_wide_kernel);
+  return static_cast<int>(cudaFuncGetName(name, kernel));
+}
 
 // x_p (B, T, d_p) float32; gamma, beta (d0 + d1,) or null without LN; b1,
 // w2 (K,); wts, gs (B, T); g_p (B, d_p); gctx (B,). W1 as w1 (d0 + d1, K)
@@ -1094,13 +1124,12 @@ extern "C" int eegflow_pool_head_bwd(
     float* part, int splits, int B, int T, int K, int use_ln, int bf16,
     cudaStream_t stream) {
   const int D = d0 + d1;
-  if (B <= 0 || T <= 0 || K <= 0 || d0 <= 0 || d1 < 0 || splits <= 0 ||
-      (use_ln && (gamma == nullptr || beta == nullptr)) || D % 32 != 0 || K % 32 != 0 ||
-      D > 2 * kMaxD || K > 2 * kMaxK)
+  if (B <= 0 || T <= 0 || d0 <= 0 || d1 < 0 || splits <= 0 ||
+      (use_ln && (gamma == nullptr || beta == nullptr)) || !widths_ok(D, K))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaError_t err;
   const int BT = B * T;
-  const bool narrow = D <= kMaxD && K <= kMaxK;
+  const bool narrow = narrow_class(D, K);
   if (bf16) {
     using Bf = __nv_bfloat16;
     const auto* const wb = static_cast<const Bf*>(w1);
@@ -1108,7 +1137,7 @@ extern "C" int eegflow_pool_head_bwd(
     auto* const ysb = static_cast<Bf*>(y_scr);
     auto* const usb = static_cast<Bf*>(u_scr);
     if (narrow)
-      err = launch_bf16<4, 3, kMaxD, 2>(x0, x1, d0, d1, gamma, beta, wb, wtb, b1, w2, wts, gs,
+      err = launch_bf16(x0, x1, d0, d1, gamma, beta, wb, wtb, b1, w2, wts, gs,
                                         g0, g1, gctx, dh0, dh1, ysb, usb, vec_part, B, T, K,
                                         use_ln, stream);
     else

@@ -178,7 +178,8 @@ pool_head_fwd_bf16_kernel(const float* __restrict__ x0, const float* __restrict_
         for (int j = 0; j < 2 * kNP; ++j)
 #pragma unroll
           for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
-      eegflow::tile_mma<kMT, kNP, kStages, kBWarps>(acc, ys, lda, w1b, D, K, ring, stage_elems);
+      eegflow::tile_mma<kMT, kNP, kStages, kBWarps>(acc, ys, lda, w1b, K, D, K, ring,
+                                                     stage_elems);
       float sp[kMT][2];
 #pragma unroll
       for (int i = 0; i < kMT; ++i) sp[i][0] = sp[i][1] = 0.f;

@@ -9,7 +9,7 @@
 // row's LayerNorm statistics and its other sums over D are two partial sums,
 // one a CTA, each pushed into both CTAs' shared memory and added as
 // rank 0's + rank 1's after a cluster barrier, so both CTAs hold the same
-// bits. proj = y . W1 sums over D, so each CTA's product (ring_mma) gives a
+// bits. proj = y . W1 sums over D, so each CTA's product (tile_mma) gives a
 // partial proj of all K columns from its own y columns and its own rows of
 // W1 (Dh x K, streamed): it pushes the partner's columns of it into the
 // partner's shared memory (push_partial, over the partner's ring, which no
@@ -34,11 +34,11 @@
 
 namespace eegflow {
 
+constexpr int kWideCluster = 2;              // CTAs a batch row
 constexpr int kWideRows = 64;                // time steps a tile
 constexpr int kWideMT = kWideRows / 16;      // m-tiles a tile
 constexpr int kWideWarps = 16;
 constexpr int kWideThreads = 32 * kWideWarps;
-constexpr int kWideSlice = 32;               // depth of a streamed slice
 constexpr int kWideStages = 4;               // slices in the ring
 constexpr int kWideMaxHalfD = 512;           // Dh <= 512 (D <= 1024)
 constexpr int kWideMaxK = 512;
@@ -47,7 +47,7 @@ constexpr int kWideLaneCols = kWideMaxHalfD / 32;      // columns of a half row 
 
 // elements of one ring stage for a product of N columns (N <= max(K, Dh))
 __host__ __device__ inline int wide_stage_elems(int half_d, int K) {
-  return kWideSlice * ((K > half_d ? K : half_d) + 8);
+  return kTileSlice * ((K > half_d ? K : half_d) + 8);
 }
 
 // elements of a 64-row bf16 A tile of N <= max(K, Dh) columns: the y tile
@@ -113,73 +113,7 @@ __device__ __forceinline__ float2 ln_stats(const float* ln_x, int r, float inv_d
   return make_float2(mu, rsqrtf(ex2 - mu * mu + eps));
 }
 
-// acc[m-tile][n-tile][4] += A . B as mma_gemm.cuh's tile_mma, with B (depth x
-// N bf16) given by rows ldg elements apart in global memory (ldg and N
-// multiples of 8, 16-byte aligned rows) and streamed by cp.async through a
-// ring of kStages kSlice-deep slices, each stage [kSlice][N + 8]. depth is a
-// multiple of 16 (the last slice may be shallower), N of 16. Thread (warp,
-// lane = 4 g + q) gets rows
-// 16 i + g, + 8 and columns 16 pair + 8 (n % 2) + 2 q, + 1 of m-tile i,
-// n-tile n, pair = warp + kWarps (n / 2). The caller makes sure no thread
-// still reads the ring, and waits for every warp's last reads of it.
-template <int kMT, int kNP, int kStages, int kSlice, int kWarps>
-__device__ __forceinline__ void ring_mma(float (&acc)[kMT][2 * kNP][4], const __nv_bfloat16* As,
-                                         int lda, const __nv_bfloat16* __restrict__ Bg, int ldg,
-                                         int depth, int N, __nv_bfloat16* ring,
-                                         int stage_elems) {
-  static_assert(kSlice % 16 == 0 && kStages >= 2, "slices of whole k16 steps, two stages");
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ldb = N + 8;
-  const int slices = (depth + kSlice - 1) / kSlice;
-  const int chunks_per_row = N / 8;
-  auto issue = [&](int i) {
-    __nv_bfloat16* st = ring + (i % kStages) * stage_elems;
-    const __nv_bfloat16* src = Bg + static_cast<size_t>(i) * kSlice * ldg;
-    const int chunks = min(kSlice, depth - i * kSlice) * chunks_per_row;
-    for (int c = tid; c < chunks; c += 32 * kWarps) {
-      const int r = c / chunks_per_row, col = (c - r * chunks_per_row) * 8;
-      cp_async16(smem_addr(st + r * ldb + col), src + static_cast<size_t>(r) * ldg + col, true);
-    }
-  };
-#pragma unroll
-  for (int i = 0; i < kStages - 1; ++i) {
-    if (i < slices) issue(i);
-    cp_async_commit();
-  }
-  for (int it = 0; it < slices; ++it) {
-    cp_async_wait<kStages - 2>();
-    __syncthreads();  // slice it has landed; slice it - 1's stage is free again
-    if (it + kStages - 1 < slices) issue(it + kStages - 1);
-    cp_async_commit();
-    const __nv_bfloat16* bs = ring + (it % kStages) * stage_elems;
-    const int steps = min(kSlice, depth - it * kSlice) / 16;
-#pragma unroll
-    for (int kk = 0; kk < kSlice / 16; ++kk) {
-      if (kk >= steps) break;
-      uint32_t af[kMT][4];
-#pragma unroll
-      for (int i = 0; i < kMT; ++i)
-        ldmatrix_x4(af[i], smem_addr(As + (16 * i + (lane & 15)) * lda + it * kSlice + kk * 16 +
-                                     (lane >> 4) * 8));
-#pragma unroll
-      for (int p = 0; p < kNP; ++p) {
-        const int pair = warp + kWarps * p;
-        if (pair >= N / 16) continue;
-        uint32_t r[4];
-        ldmatrix_x4_trans(r, smem_addr(bs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldb +
-                                       pair * 16 + (lane >> 4) * 8));
-#pragma unroll
-        for (int i = 0; i < kMT; ++i) {
-          mma_bf16(acc[i][2 * p], af[i], r[0], r[1]);
-          mma_bf16(acc[i][2 * p + 1], af[i], r[2], r[3]);
-        }
-      }
-    }
-  }
-  cp_async_wait<0>();
-}
-
-// The partial proj of a 64-row tile (ring_mma's acc over the K columns, this
+// The partial proj of a 64-row tile (tile_mma's acc over the K columns, this
 // CTA's half of D): the partner's columns [pk0, pk0 + Kh) pushed into its
 // inbox (float [64][Kh + 4] in its shared memory, at remote address
 // `inbox`). Columns come in even pairs and Kh is a multiple of 16, so a pair
@@ -206,7 +140,8 @@ __device__ __forceinline__ void push_partial(const float (&acc)[kWideMT][2 * kNP
   }
 }
 
-// Launch `kernel` on `pairs` clusters of two CTAs of kWideThreads threads.
+// Launch `kernel` on `pairs` clusters of kWideCluster CTAs of kWideThreads
+// threads.
 template <typename... Params, typename... Args>
 cudaError_t launch_pairs(void (*kernel)(Params...), int pairs, size_t smem, cudaStream_t stream,
                          Args... args) {
@@ -214,13 +149,13 @@ cudaError_t launch_pairs(void (*kernel)(Params...), int pairs, size_t smem, cuda
                                          static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   cudaLaunchConfig_t cfg = {};
-  cfg.gridDim = dim3(2 * pairs, 1, 1);
+  cfg.gridDim = dim3(kWideCluster * pairs, 1, 1);
   cfg.blockDim = dim3(kWideThreads, 1, 1);
   cfg.dynamicSmemBytes = smem;
   cfg.stream = stream;
   cudaLaunchAttribute attr[1];
   attr[0].id = cudaLaunchAttributeClusterDimension;
-  attr[0].val.clusterDim.x = 2;
+  attr[0].val.clusterDim.x = kWideCluster;
   attr[0].val.clusterDim.y = 1;
   attr[0].val.clusterDim.z = 1;
   cfg.attrs = attr;

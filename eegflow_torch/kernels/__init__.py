@@ -143,6 +143,9 @@ _SIGNATURES = {
     "eegflow_pool_head_bwd": [_P, _P, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
                               _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I,
                               _I, _I, _P],
+    # pool_head_bwd.cu, kernel 8's bf16 launch for D and K: D, K, *plan (class,
+    # CTAs a batch row, time steps a tile, shared memory a CTA), *name
+    "eegflow_pool_head_bwd_bf16_plan": [_I, _I, _P, _P],
     # philox_bits.cu, the keep-bit planes of kernel_dropout (one or two parts):
     # key, stream0, stream1, off0, off1, n0, n1, thresh, bits0, bits1, stream
     "eegflow_philox_keep_bits": [_P, _I, _I, _L, _L, _L, _L, _U, _P, _P, _P],
@@ -250,6 +253,8 @@ def load_library(csrc: Optional[Path] = None, build_dir: Optional[Path] = None) 
                               command=[p[0] for p in procs] + [link])
         lib = ctypes.CDLL(str(so))
         for name, argtypes in _SIGNATURES.items():
+            if csrc.resolve() != CSRC.resolve() and not hasattr(lib, name):
+                continue  # another tree's sources (kernels.ablate --csrc) may predate an entry
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = ctypes.c_int

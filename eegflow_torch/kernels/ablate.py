@@ -58,7 +58,8 @@ calls print ptxas's registers and spills of every chain kernel
 (``-Xptxas -v``). ``--csrc`` builds another tree's sources (the same C
 interface), so one process per tree times a parent against a change in
 turns; ``--save`` writes the outputs of kernels 3, 3b and 4 (and of kernel
-12's calls) and ``--against`` holds this run's to a saved file bit for bit.
+12's calls, and of the bf16 classes of kernels 8 and 7 under ``--calls
+head``) and ``--against`` holds this run's to a saved file bit for bit.
 The readings behind kernel 4's chain design (kernel 3's chain at 48 and 32
 rows, kernel 4 at both, its co-residence, the spills) repeat with::
 
@@ -127,13 +128,18 @@ from an unpacked copy of that commit with this module copied over its
     python -m eegflow_torch.kernels.ablate --calls rk4 --variant stamps
     python -m eegflow_torch.kernels.ablate --calls rk4 --variant rk4loop
 
-``--calls head`` also times the wide bf16 classes of kernels 8 and 7 at the
-shapes of a hidden-512 classifier (B=512, T=256, two parts of 512, K=512,
-LayerNorm), every launch by name (kernel 8's row kernel, its dW1 split-K GEMM
-``mma_gemm_kernel`` and the two ``reduce_splits_kernel``), and prints
-ptxas's registers and spills of every pool-head kernel. ``nostream`` also
-stops the refills of the ring that kernel 8's wide class streams W1
-through, ``nomma`` its product loops (and, through ``tile_mma``, kernel 7's);
+``--calls head`` also times the bf16 classes of kernels 8 and 7: the narrow
+ones at the main path's shapes (B=512, T=256, two parts of 256, K=256,
+LayerNorm) and the wide ones at a hidden-512 classifier's (two parts of 512,
+K=512), every launch by name (kernel 8's row kernel, its dW1 split-K GEMM
+``mma_gemm_kernel`` and the two ``reduce_splits_kernel``); ``--save`` and
+``--against`` hold their outputs bit for bit. It prints ptxas's registers
+and spills of every pool-head kernel and, at B=1, T=256 on the card tests'
+edge cases (``WIDE_EDGE_PARTS``, ``wide_head_case``), how far kernel 8's
+wide class and its twin each lie from the float64 function
+(``pool_head_bwd_f64``). ``nostream`` also
+stops the refills of the rings that ``mma_gemm.cuh``'s ``tile_mma`` streams
+W1 through in both classes of kernels 8 and 7, ``nomma`` its product loops;
 the variant ``phases`` makes thread 0 of each CTA of kernel 8's wide class
 add the SM clock cycles between the marks in its source
 (``EEGFLOW_WIDE_MARK``, nothing in a normal build) to a table by phase,
@@ -156,9 +162,8 @@ turn::
 
 The readings of kernel 8's wide class before its redesign (PERF.md §6)
 repeat in a checkout of commit ``27992d0`` with this module copied over its
-``eegflow_torch/kernels/ablate.py``: there ``nostream`` and ``nomma`` reach
-the old class through ``mma_gemm.cuh``'s ``tile_mma`` (a variant skips its
-patches to a source the tree does not have).
+``eegflow_torch/kernels/ablate.py`` (a variant skips its patches to a source
+the tree does not have).
 """
 
 from __future__ import annotations
@@ -317,8 +322,6 @@ VARIANTS = {
          "    __syncthreads();  // slice it has landed; slice it - 1's stage is free again\n"
          "    if (it + kStages - 1 < slices) issue(it + kStages - 1);\n    cp_async_commit();\n"
          "    const __nv_bfloat16* bs"),
-        ("pool_head_wide.cuh", "for (int it = 0; it < slices; ++it) {",
-         "for (int it = 0; it < 0; ++it) {"),
         ("sos_filter.cu", "out[at(i + b)] = cascade.step(v[b]);", "out[at(i + b)] = v[b];"),
         ("sos_filter.cu", "out[at(i)] = cascade.step(in[at(i)]);", "out[at(i)] = in[at(i)];")],
     "noexch": [
@@ -392,9 +395,7 @@ VARIANTS = {
         ("mma_gemm.cuh", "if (it + kStages - 1 < slices) issue(it + kStages - 1);\n"
          "    cp_async_commit();\n    const __nv_bfloat16* bs",
          "if (it + kStages - 1 < 0) issue(it + kStages - 1);\n"
-         "    cp_async_commit();\n    const __nv_bfloat16* bs"),
-        ("pool_head_wide.cuh", "if (it + kStages - 1 < slices) issue(it + kStages - 1);",
-         "if (it + kStages - 1 < 0) issue(it + kStages - 1);")],
+         "    cp_async_commit();\n    const __nv_bfloat16* bs")],
     "onetf32": [
         ("mma_gemm.cuh", "          mma_tf32(acc[i][2 * p], a[i].lo, bh[0], bh[1]);\n"
          "          mma_tf32(acc[i][2 * p + 1], a[i].lo, bh[2], bh[3]);\n", ""),
@@ -885,9 +886,94 @@ def _head_calls(dev, gen):
             "input_block_fwd bf16 B=1024": lambda: input_block_fused(proj, norm, x1024, True),
             "input_block_bwd float32 B=512": lambda: input_block_bwd(proj, norm, x512, dy512,
                                                                      False),
+            "pool_head_bwd bf16 B=512": lambda: pool_head_bwd(*pargs[:-1], True),
+            "pool_head_fwd bf16 B=512": lambda: pool_head_fused(ln, attn, pargs[2], True, True),
             "pool_head_bwd float32 B=512": lambda: pool_head_bwd(*pargs),
             "pool_head_fwd float32 B=512": lambda: pool_head_fused(ln, attn, pargs[2], True,
                                                                    False)}
+
+
+#: kernel 8's and 7's widths at the edges of the wide bf16 class (parts, K):
+#: the narrowest that pick it (D = 544, K = 288: halves of 272 columns, 144
+#: columns of proj) and the widest (1024, 512); one part, two equal parts, and
+#: two unequal ones whose boundary falls inside a CTA's half
+WIDE_EDGE_PARTS = [((544,), 288), ((272, 272), 288), ((160, 384), 288), ((1024,), 512),
+                   ((512, 512), 512), ((256, 768), 512)]
+
+
+def wide_head_case(gen, widths, k, batch, steps, dev):
+    """A pool-head case of these widths, drawn from ``gen`` (the card tests'
+    draws): (LayerNorm params, attention params, parts (B, T, w), (softmax
+    weights, score gradients, context gradient parts, gctx))."""
+    def randn(*shape):
+        return torch.randn(shape, generator=gen).to(dev)
+
+    d = sum(widths)
+    ln = {"scale": 1 + 0.1 * randn(d), "bias": 0.1 * randn(d)}
+    attn = {"proj": {"w": 0.03 * randn(d, k), "b": 0.1 * randn(k)},
+            "score": {"w": 0.1 * randn(k, 1)}}
+    xs = tuple(torch.tanh(randn(batch, steps, w)) for w in widths)
+    grads = (torch.softmax(randn(batch, steps), dim=-1), 0.01 * randn(batch, steps),
+             tuple(0.1 * randn(batch, w) for w in widths), 0.1 * randn(batch))
+    return ln, attn, xs, grads
+
+
+def pool_head_bwd_f64(ln, attn, xs, weights, g_scores, g_ctx, gctx, use_ln):
+    """The function of ``nn.cuda_attention.pool_head_bwd_plain`` under bf16
+    in float64: y, W1 and u rounded to bf16 where the twin rounds them, every
+    other value and every sum in float64 -> its outputs in the twin's order
+    (dh parts, dW1, db1, dw2[, dgamma, dbeta]), float64."""
+    f = lambda t: t.to(torch.float64)  # noqa: E731
+    r = lambda t: t.to(torch.bfloat16).to(torch.float64)  # noqa: E731
+    widths = [p.shape[-1] for p in xs]
+    x = torch.cat([f(p) for p in xs], dim=-1)
+    d = x.shape[-1]
+    if use_ln:
+        mu = x.mean(-1, keepdim=True)
+        rsig = torch.rsqrt((x * x).mean(-1, keepdim=True) - mu * mu + 1e-5)
+        xhat = (x - mu) * rsig
+        y = xhat * f(ln["scale"]) + f(ln["bias"])
+    else:
+        y = x
+    w1 = r(attn["proj"]["w"])
+    proj = torch.tanh(r(y) @ w1 + f(attn["proj"]["b"]))
+    g = torch.cat([f(t) for t in g_ctx], dim=-1)
+    ds = f(weights) * ((y * g[:, None, :]).sum(-1) - f(gctx)[:, None]) + f(g_scores)
+    u = ds[..., None] * (1 - proj * proj) * f(attn["score"]["w"][:, 0])
+    dy = f(weights)[..., None] * g[:, None, :] + r(u) @ w1.t()
+    dw1 = r(y).reshape(-1, d).t() @ r(u).reshape(-1, w1.shape[1])
+    sums = [dw1, u.sum(dim=(0, 1)), (ds[..., None] * proj).sum(dim=(0, 1))]
+    if use_ln:
+        dxh = dy * f(ln["scale"])
+        dh = rsig * (dxh - dxh.mean(-1, keepdim=True) - xhat * (dxh * xhat).mean(-1, keepdim=True))
+        sums += [(dy * xhat).sum(dim=(0, 1)), dy.sum(dim=(0, 1))]
+    else:
+        dh = dy
+    return list(dh.split(widths, dim=-1)) + sums
+
+
+def _one_row_readings(card: str) -> None:
+    """Kernel 8's wide class and its twin at B = 1, T = 256 against
+    :func:`pool_head_bwd_f64`, on the cases of the card test
+    ``test_pool_head_bwd_wide_cluster_on_one_long_row``: each side's largest
+    error relative to a gradient's largest entry."""
+    from eegflow_torch.core.prng import make_generator
+    from eegflow_torch.nn.cuda_attention import pool_head_bwd, pool_head_bwd_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    flat = lambda out: list(out[0]) + [t for t in out[1:] if t is not None]  # noqa: E731
+    for widths, k in WIDE_EDGE_PARTS:
+        for use_ln in (False, True):
+            gen = make_generator(400 + sum(widths) + k + 1 + 256 + int(use_ln))
+            ln, attn, xs, grads = wide_head_case(gen, widths, k, 1, 256, torch.device("cuda"))
+            args = (ln if use_ln else None, attn, xs, *grads, use_ln)
+            want = pool_head_bwd_f64(*args)
+            errs = [max(((a.double() - c).abs().max() / c.abs().max()).item()
+                        for a, c in zip(flat(fn(*args, True)), want))
+                    for fn in (pool_head_bwd, pool_head_bwd_plain)]
+            print(f"pool_head_bwd bf16 wide B=1 T=256 parts {widths} K={k} LN {use_ln}: from "
+                  f"the float64 function kernel {errs[0]:.3e}, twin {errs[1]:.3e} (relative to "
+                  f"each gradient's largest entry) [{card}]", flush=True)
 
 
 def _step_calls(dev):
@@ -1107,7 +1193,8 @@ def main(argv=None) -> int:
             head.update(rk4_calls)
         for name, fn in head.items():
             if name.startswith("sos_filtfilt") or (args.calls == "philox"
-                                                   and not args.variant.startswith("nodraw")):
+                                                   and not args.variant.startswith("nodraw")) \
+                    or (name.startswith("pool_head") and " bf16 " in name):
                 outputs[name] = _flat_cpu(fn())
             marks = args.variant == "phases" and name.startswith("pool_head_bwd bf16 wide")
             if marks:
@@ -1126,6 +1213,8 @@ def main(argv=None) -> int:
                 torch.cuda.synchronize()
                 batch, pts, sub = rk4_shape
                 print(f"stamps {name}: {_apf_cycles(lib, batch, (pts - 1) * sub)}", flush=True)
+        if args.calls == "head":
+            _one_row_readings(card)
         if args.calls == "rk4":
             _fit_profile(dev, gen, card)
         if args.calls == "steps":

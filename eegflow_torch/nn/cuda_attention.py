@@ -23,6 +23,8 @@ path calls it, in the reference or here.
 
 from __future__ import annotations
 
+import ctypes
+import re
 from typing import Mapping, NamedTuple, Optional, Sequence, Tuple
 
 import torch
@@ -35,13 +37,6 @@ LN_EPS = 1e-5
 #: the widest D and K the pool-head kernels take, in either mode (kernel 6
 #: too): the classifier's D = 2H and K = H for H <= 512
 MAX_D, MAX_K = 1024, 512
-#: the bf16 modes' two width classes: up to NARROW_D and NARROW_K one CTA a
-#: batch row walks its time steps in 64-step tiles; above either, up to MAX_D
-#: and MAX_K, kernel 7 does the same on 16 warps and kernel 8 runs a cluster
-#: of WIDE_CLUSTER CTAs a batch row, each owning half of D and of K, on
-#: WIDE_ROWS-step tiles (``csrc/pool_head_wide.cuh``)
-NARROW_D, NARROW_K = 512, 256
-WIDE_CLUSTER, WIDE_ROWS = 2, 64
 
 
 def _check_widths(what: str, d_total: int, k: int, max_d: int, max_k: int) -> None:
@@ -60,42 +55,33 @@ def check_bf16_widths(name: str, d_total: int, k: int) -> None:
 
 
 class Bf16Plan(NamedTuple):
-    """The launch of the bf16 modes of ``pool_head_fwd.cu`` and
-    ``pool_head_bwd.cu`` for D and K: its class, kernel 8's CTAs a batch row
-    (kernel 7 takes one), the time steps a tile and each kernel's shared
-    memory a CTA, in bytes."""
+    """The launch that kernel 8's bf16 mode makes for D and K, as its C entry
+    point reports it: the wide class or the narrow one, its CTAs a batch row
+    (a cluster in the wide class), the time steps a tile, the dynamic
+    shared memory of a CTA, in bytes, and the row kernel's name."""
 
     wide: bool
-    bwd_cluster: int
-    rows: int
-    fwd_smem: int
-    bwd_smem: int
+    cluster: int
+    tile_rows: int
+    smem: int
+    kernel: str
 
 
-def bf16_plan(name: str, d_total: int, k: int) -> Bf16Plan:
-    """The plan that the bf16 modes' C entry points take for D = ``d_total``
-    and K = ``k``, their shared memory as the sources compute it (kernel 7's
-    ``launch_bf16``, kernel 8's narrow ``launch_bf16`` and wide
-    ``wide_bwd_smem``). Raises as :func:`check_bf16_widths` does for widths
-    outside its rule."""
-    check_bf16_widths(name, d_total, k)
-    wide = d_total > NARROW_D or k > NARROW_K
-    rows, slice_, fwd_warps = 64, 32, 16 if wide else 8
-    # kernel 7: the y tile, a ring of two 32-deep W1 slices, the row
-    # statistics, the warps' partial scores and the softmax's weights
-    fwd = ((rows * (d_total + 8) + 2 * slice_ * (k + 8)) * 2 + rows * 8
-           + ((fwd_warps + 1) * rows + 2) * 4)
-    if not wide:
-        bwd = ((rows * (d_total + 8) + rows * (k + 8) + 3 * slice_ * (max(d_total, k) + 8)) * 2
-               + (d_total + 2 * k + 4 * rows) * 4)
-        return Bf16Plan(False, 1, rows, fwd, bwd)
-    # kernel 8: one A tile (y, then u) and a ring of four 32-deep slices;
-    # over them dy and the 16 warps' dgamma and dbeta; then the row sums
-    half, stages, warps = d_total // 2, 4, 16
-    tiles = 2 * (WIDE_ROWS + stages * slice_) * (max(k, half) + 8)
-    dy = 4 * (WIDE_ROWS * (half + 8) + 2 * warps * half)
-    bwd = max(tiles, dy) + (half + k + 16 * WIDE_ROWS) * 4
-    return Bf16Plan(True, WIDE_CLUSTER, WIDE_ROWS, fwd, bwd)
+def pool_head_bwd_bf16_plan(d_total: int, k: int) -> Bf16Plan:
+    """Kernel 8's bf16 launch for D = ``d_total`` and K = ``k``, read from
+    ``csrc/pool_head_bwd.cu`` (``eegflow_pool_head_bwd_bf16_plan``, from the
+    constants and shared-memory formulas its launch uses; the row kernel's
+    identifier out of the name ``cudaFuncGetName`` gives). Builds the kernels
+    (CUDA only); raises as :func:`check_bf16_widths` does for other widths."""
+    check_bf16_widths("pool_head_bwd", d_total, k)
+    lib = kernels.load_library()
+    plan, name = (ctypes.c_int * 4)(), ctypes.c_char_p()
+    kernels.check(lib, lib.eegflow_pool_head_bwd_bf16_plan(d_total, k, plan, ctypes.byref(name)),
+                  "pool_head_bwd_bf16_plan")
+    mangled = name.value.decode()
+    ident = re.search(r"pool_head_bwd_[a-z0-9]+_kernel", mangled)
+    return Bf16Plan(bool(plan[0]), plan[1], plan[2], plan[3],
+                    ident.group(0) if ident else mangled)
 
 
 def check_f32_widths(name: str, d_total: int, k: int) -> None:

@@ -13,10 +13,12 @@ import torch
 from eegflow_torch import kernels
 from eegflow_torch.core.config import CouplingConfig, ModelConfig, TrainConfig, TransformerConfig
 from eegflow_torch.core.prng import make_generator
+from eegflow_torch.kernels.ablate import WIDE_EDGE_PARTS, pool_head_bwd_f64, wide_head_case
 from eegflow_torch.couple.rollout import CoupledModel, predict_batch
 from eegflow_torch.nn.cuda_attention import (attention_pool, attention_pool_plain,
-                                             pool_head_bwd, pool_head_bwd_plain,
-                                             pool_head_fused, pool_head_fused_plain)
+                                             pool_head_bwd, pool_head_bwd_bf16_plan,
+                                             pool_head_bwd_plain, pool_head_fused,
+                                             pool_head_fused_plain)
 from eegflow_torch.nn.cuda_input import (input_block_bwd, input_block_bwd_plain,
                                          input_block_fused, input_block_fused_plain)
 from eegflow_torch.nn.cuda_lstm import (counter, lstm_bwd, lstm_bwd_dualdir,
@@ -964,40 +966,24 @@ def test_pool_head_fwd_bf16_takes_the_widths_of_hidden_512(dev, use_ln, n_parts,
     assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
 
 
-# the wide bf16 classes' edges (kernel 8: a cluster of two CTAs a batch row,
-# each half of D and of K, 64-row tiles): the narrowest widths that pick them
-# (D = 544, K = 288: halves of 272 columns, 144 columns of proj) and the
-# widest (1024, 512); one part, two equal parts, and two unequal ones whose
-# boundary falls inside a CTA's half
-WIDE_EDGE_PARTS = [((544,), 288), ((272, 272), 288), ((160, 384), 288), ((1024,), 512),
-                   ((512, 512), 512), ((256, 768), 512)]
+# the wide bf16 classes' edges: kernels.ablate.WIDE_EDGE_PARTS (the widths)
+# and wide_head_case (the draws), which kernels.ablate --calls head reads too;
 # B = 1 (one cluster) and 67 (a second wave of one cluster at one CTA an SM);
-# T = 1, 45 (a ragged tile) and 256 (four whole tiles)
+# T = 1, 45 (a ragged tile) and 256 (four whole tiles); (1, 256) too, where
+# kernel 8 is held to its function in float64, not to its twin
+# (test_pool_head_bwd_wide_cluster_on_one_long_row)
 WIDE_EDGE_SHAPES = [(1, 1), (1, 45), (67, 45), (67, 256)]
-
-
-def _wide_case(gen, widths, k, batch, steps, dev):
-    d = sum(widths)
-    ln = {"scale": 1 + 0.1 * _randn(gen, d, dev=dev), "bias": 0.1 * _randn(gen, d, dev=dev)}
-    attn = {"proj": {"w": 0.03 * _randn(gen, d, k, dev=dev), "b": 0.1 * _randn(gen, k, dev=dev)},
-            "score": {"w": 0.1 * _randn(gen, k, 1, dev=dev)}}
-    xs = tuple(torch.tanh(_randn(gen, batch, steps, w, dev=dev)) for w in widths)
-    grads = (torch.softmax(_randn(gen, batch, steps, dev=dev), dim=-1),
-             0.01 * _randn(gen, batch, steps, dev=dev),
-             tuple(0.1 * _randn(gen, batch, w, dev=dev) for w in widths),
-             0.1 * _randn(gen, batch, dev=dev))
-    return ln, attn, xs, grads
 
 
 @pytest.mark.parametrize("use_ln", [False, True])
 @pytest.mark.parametrize("widths,k", WIDE_EDGE_PARTS)
-@pytest.mark.parametrize("batch,steps", WIDE_EDGE_SHAPES)
+@pytest.mark.parametrize("batch,steps", WIDE_EDGE_SHAPES + [(1, 256)])
 def test_pool_head_fwd_wide_class_at_its_edges(dev, use_ln, widths, k, batch, steps):
     """Kernel 7's wide bf16 class against its twin at the widths and shapes
     at the edges of kernel 8's cluster design, with and without LN: one
     launch a call, bitwise on repeat."""
     gen = make_generator(300 + sum(widths) + k + batch + steps + int(use_ln))
-    ln, attn, xs, _ = _wide_case(gen, widths, k, batch, steps, dev)
+    ln, attn, xs, _ = wide_head_case(gen, widths, k, batch, steps, dev)
     args = (ln if use_ln else None, attn, xs, use_ln, True)
     before = kernels.launch_counts["pool_head_fwd"]
     got, again = pool_head_fused(*args), pool_head_fused(*args)
@@ -1011,6 +997,23 @@ def test_pool_head_fwd_wide_class_at_its_edges(dev, use_ln, widths, k, batch, st
     assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
 
 
+def test_pool_head_bwd_bf16_plan_covers_the_width_rule(dev):
+    """Kernel 8's bf16 launch, as its C entry point reports it, for every
+    width the bf16 rule takes: one CTA a batch row up to D = 512 and K = 256,
+    a cluster of two above either (D = 544, K = 288 the narrowest such widths
+    of the classifier's kind), 64-step tiles, a CTA's shared memory within
+    what this card lets a block take, the row kernel named by the runtime."""
+    optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
+    for d in range(32, 1025, 32):
+        for k in range(32, 513, 32):
+            plan = pool_head_bwd_bf16_plan(d, k)
+            assert plan.wide == (d > 512 or k > 256)
+            assert (plan.cluster, plan.tile_rows) == ((2, 64) if plan.wide else (1, 64))
+            assert 0 < plan.smem <= optin
+            assert plan.kernel == ("pool_head_bwd_wide_kernel" if plan.wide
+                                   else "pool_head_bwd_bf16_kernel")
+
+
 @pytest.mark.parametrize("use_ln", [False, True])
 @pytest.mark.parametrize("widths,k", WIDE_EDGE_PARTS)
 @pytest.mark.parametrize("batch,steps", WIDE_EDGE_SHAPES)
@@ -1019,7 +1022,7 @@ def test_pool_head_bwd_wide_cluster_at_its_edges(dev, use_ln, widths, k, batch, 
     cluster design, with and without LN: every gradient within the bf16
     tolerance of its largest entry, one launch a call, bitwise on repeat."""
     gen = make_generator(400 + sum(widths) + k + batch + steps + int(use_ln))
-    ln, attn, xs, (w, gs, gc, gctx) = _wide_case(gen, widths, k, batch, steps, dev)
+    ln, attn, xs, (w, gs, gc, gctx) = wide_head_case(gen, widths, k, batch, steps, dev)
     args = (ln if use_ln else None, attn, xs, w, gs, gc, gctx, use_ln, True)
     before = kernels.launch_counts["pool_head_bwd"]
     got, again = pool_head_bwd(*args), pool_head_bwd(*args)
@@ -1031,6 +1034,33 @@ def test_pool_head_bwd_wide_cluster_at_its_edges(dev, use_ln, widths, k, batch, 
     for a, c in zip(flat(got), flat(want)):
         assert a.shape == c.shape and bool(torch.isfinite(a).all())
         assert _rel(a, c) <= POOL_BWD_REL_TOL
+    assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
+
+
+@pytest.mark.parametrize("use_ln", [False, True])
+@pytest.mark.parametrize("widths,k", WIDE_EDGE_PARTS)
+def test_pool_head_bwd_wide_cluster_on_one_long_row(dev, use_ln, widths, k):
+    """Kernel 8's wide class at B = 1, T = 256 (one cluster, four whole
+    tiles), held with the bf16 tolerance to its function in float64 (y, W1
+    and u rounded to bf16 where the twin rounds them): with 256 rows in dW1,
+    one y or u that a float32 side rounds the other way at a bf16 tie moves
+    dW1 by ~1e-3 of its largest entry, on the twin's side as on the
+    kernel's; an H100 read 1.56e-3 between the float32 twin and the float64
+    function at (512, 512), K = 512 with LN, and 1.9e-4 or less from the
+    kernel at every case here. One launch a call, bitwise on repeat."""
+    gen = make_generator(400 + sum(widths) + k + 1 + 256 + int(use_ln))
+    ln, attn, xs, (w, gs, gc, gctx) = wide_head_case(gen, widths, k, 1, 256, dev)
+    args = (ln if use_ln else None, attn, xs, w, gs, gc, gctx, use_ln, True)
+    before = kernels.launch_counts["pool_head_bwd"]
+    got, again = pool_head_bwd(*args), pool_head_bwd(*args)
+    assert kernels.launch_counts["pool_head_bwd"] == before + 2
+    want = pool_head_bwd_f64(*args[:-1])
+    torch.cuda.synchronize()
+    flat = lambda out: list(out[0]) + [t for t in out[1:] if t is not None]  # noqa: E731
+    assert len(flat(got)) == len(want) == len(widths) + (5 if use_ln else 3)
+    for a, c in zip(flat(got), want):
+        assert a.shape == c.shape and bool(torch.isfinite(a).all())
+        assert _rel(a.double(), c) <= POOL_BWD_REL_TOL
     assert all(torch.equal(a, c) for a, c in zip(flat(got), flat(again)))
 
 

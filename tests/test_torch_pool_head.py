@@ -13,8 +13,8 @@ import torch
 from eegflow.nn.pallas_attention import attention_pool_pallas, pallas_attention_apply
 from eegflow.nn.pallas_attention import pool_head_fused as pallas_pool_head
 from eegflow_torch.nn.cuda_attention import (attention_pool, attention_pool_apply,
-                                             attention_pool_plain, bf16_plan,
-                                             check_bf16_widths, check_f32_widths,
+                                             attention_pool_plain, check_bf16_widths,
+                                             check_f32_widths, pool_head_bwd_bf16_plan,
                                              pool_head_fused, pool_head_fused_plain)
 
 # Same LayerNorm formula and the same bf16-rounded operands on both sides;
@@ -125,27 +125,13 @@ def test_bf16_width_rule_rejects_widths_off_its_tiles(d, k):
         check_bf16_widths("pool_head_fwd", d, k)
 
 
-def test_bf16_plan_covers_the_width_rule_in_two_classes():
-    """Every width the bf16 rule takes has a plan: kernel 8 on one CTA a
-    batch row up to D = 512 and K = 256, on a cluster of two above either
-    (D = 544, K = 288 the narrowest such widths of the classifier's kind),
-    each kernel's CTA within an H100's shared memory; the widths the rule
-    refuses raise as it does."""
-    for d in range(32, 1025, 32):
-        for k in range(32, 513, 32):
-            plan = bf16_plan("pool_head_bwd", d, k)
-            assert plan.wide == (d > 512 or k > 256)
-            assert (plan.bwd_cluster, plan.rows) == ((2, 64) if plan.wide else (1, 64))
-            assert 0 < plan.fwd_smem <= 232_448 and 0 < plan.bwd_smem <= 232_448
-    assert bf16_plan("pool_head_fwd", 544, 288).wide and bf16_plan("pool_head_fwd", 512, 288).wide
-    assert not bf16_plan("pool_head_fwd", 512, 256).wide
-    # the classifier at H = 256: a kernel-7 CTA of 100.8 KiB (two share an SM);
-    # at H = 512 a kernel-7 CTA of 198.8 KiB and a kernel-8 CTA of 203 KiB
-    assert bf16_plan("pool_head_fwd", 512, 256).fwd_smem == 103_176
-    assert bf16_plan("pool_head_fwd", 1024, 512)[3:] == (203_528, 207_872)
-    for d, k in ((40, 64), (1056, 256), (512, 544)):
-        with pytest.raises(ValueError, match="pool_head_fwd under bf16 needs D <= 1024"):
-            bf16_plan("pool_head_fwd", d, k)
+@pytest.mark.parametrize("d,k", [(40, 64), (1056, 256), (512, 544)])
+def test_bf16_plan_refuses_what_the_width_rule_refuses(d, k):
+    """Kernel 8's launch plan (read from its C entry point on the card)
+    refuses, before it builds anything, the widths the bf16 rule refuses."""
+    with pytest.raises(ValueError, match=rf"pool_head_bwd under bf16 needs D <= 1024 and K "
+                                         rf"<= 512, both multiples of 32; got D={d}, K={k}"):
+        pool_head_bwd_bf16_plan(d, k)
 
 
 @pytest.mark.parametrize("hidden", [32, 64, 256, 288, 512])
