@@ -109,6 +109,13 @@
 #include "common.cuh"
 #include "mma_gemm.cuh"
 
+// Phase marks of kernel 10's wide bf16 class: nothing in a build of the
+// kernels; kernels.ablate's "phases" variant defines the mark to add the SM
+// clock cycles since a CTA's previous mark to phase p (thread 0 of each CTA).
+#ifndef EEGFLOW_INPUT_MARK
+#define EEGFLOW_INPUT_MARK(p)
+#endif
+
 namespace {
 
 constexpr int kMaxH = 512;  // the widest H of either kernel
@@ -1212,12 +1219,14 @@ input_block_bwd_bf16_wide_kernel(const float* __restrict__ x, const float* __res
     __syncthreads();  // the last pass's products are done with ws and xs
     if (static_cast<int>(blockIdx.x) < tiles) fetch(blockIdx.x);
     if (nch == 1) stage_w(0);  // bf16(W) resident for the CTA's tiles
+    EEGFLOW_INPUT_MARK(0);
 
     for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
       const int row0 = tile * kWTile;
       const int tr = min(kWTile, rows - row0);
       eegflow::cp_async_wait<0>();
       __syncthreads();  // the tile's dy (and x) landed
+      EEGFLOW_INPUT_MARK(1);
 
       // z = bf16(x) . bf16(W) + b, as kernel 9 forms it
       zt.zero();
@@ -1236,6 +1245,7 @@ input_block_bwd_bf16_wide_kernel(const float* __restrict__ x, const float* __res
       }
       zt.store(zs, ldz, bias, H, warp, lane);
       __syncthreads();  // z whole
+      EEGFLOW_INPUT_MARK(2);
 
       // the LayerNorm and GELU backward, one warp per row: dz over z, dln
       // over dy, dln xhat into gxs, bf16(dz) into dzs. Rows past `rows` have
@@ -1287,6 +1297,7 @@ input_block_bwd_bf16_wide_kernel(const float* __restrict__ x, const float* __res
         }
       }
       __syncthreads();  // dz, dln xhat and dln whole
+      EEGFLOW_INPUT_MARK(3);
 
       // db, dgamma, dbeta: column tid over the tile's rows, in order
       if (pass == 0 && tid < H) {
@@ -1303,6 +1314,7 @@ input_block_bwd_bf16_wide_kernel(const float* __restrict__ x, const float* __res
         stage_x(x + static_cast<size_t>(row0) * C + c0, C, c0, tr);
       }
       __syncthreads();  // no thread reads dys, gxs or xraw any more
+      EEGFLOW_INPUT_MARK(4);
       if (tile + static_cast<int>(gridDim.x) < tiles) fetch(tile + gridDim.x);
 
       // dx = bf16(dz) . bf16(W)^T over the units, warps 0-3 a 16-channel block each
@@ -1335,6 +1347,8 @@ input_block_bwd_bf16_wide_kernel(const float* __restrict__ x, const float* __res
           }
       }
 
+      EEGFLOW_INPUT_MARK(5);
+
       // dW += bf16(x)^T . bf16(dz) over the tile's rows (one 16-deep k-step)
       {
         const int mt = warp & 3;
@@ -1356,6 +1370,7 @@ input_block_bwd_bf16_wide_kernel(const float* __restrict__ x, const float* __res
         }
       }
       __syncthreads();  // the next tile overwrites xs, zs and dzs
+      EEGFLOW_INPUT_MARK(6);
     }
 
     // the pass's rows of the CTA's partial dW

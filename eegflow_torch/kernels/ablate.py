@@ -263,6 +263,13 @@ extern "C" int eegflow_ablate_wide_marks(unsigned long long* host) {
   return static_cast<int>(cudaMemcpyFromSymbol(host, g_wide_marks, 8 * 17));
 }
 """
+# the "phases" variant's probe of kernel 10's wide bf16 class (input_block.cu's
+# EEGFLOW_INPUT_MARK), as WIDE_MARKS_CODE for kernel 8's
+INPUT_MARKS_CODE = WIDE_MARKS_CODE.replace("EEGFLOW_WIDE_MARK", "EEGFLOW_INPUT_MARK").replace(
+    "g_wide_", "g_input_").replace("eegflow_ablate_wide_marks", "eegflow_ablate_input_marks")
+#: the phases kernel 10's wide class marks close
+INPUT_PHASES = ["x and dy waited for", "x staged, z product", "row pass", "column sums",
+                "dx product", "dW product, barrier"]
 #: the phases the marks close
 WIDE_PHASES = ["LN sums and barrier L", "y, y scratch, g . y", "proj product", "barrier A",
                "partial pushed, barrier B", "u, db1, dw2", "barrier C", "dy product",
@@ -450,7 +457,8 @@ VARIANTS = {
     # eegflow_ablate_wide_marks)
     "phases": [
         ("pool_head_bwd.cu", '#include "pool_head_wide.cuh"',
-         WIDE_MARKS_CODE + '#include "pool_head_wide.cuh"')],
+         WIDE_MARKS_CODE + '#include "pool_head_wide.cuh"'),
+        ("input_block.cu", '#include "common.cuh"', INPUT_MARKS_CODE + '#include "common.cuh"')],
     # kernel 11's point loss with the IEEE quotient (__fdiv_rn, a slow-path branch)
     "rk4fdiv": [("apf_rk4.cu", "p[j] = __fdividef(c[j], s);", "p[j] = __fdiv_rn(c[j], s);")],
     # kernel 11's clamp as max(y, 0) on the ALU pipe (FMNMX) against whole rate
@@ -479,6 +487,30 @@ VARIANTS = {
         ("pool_head_bwd.cu", "if (use_ln) {\n        load_row(t, xh);",
          "if (use_ln < 0) {\n        load_row(t, xh);")],
 }
+
+# the parts of kernel 10's bf16 classes that "nomma" (the three products) and
+# "noload" (the HBM reads of x and dy: zero-filled copies) take out
+VARIANTS["nomma"] += [
+    ("input_block.cu", "z_pair_mma<4>(acc, xs, ldx, ws, ldw, warp, lane);", ""),
+    ("input_block.cu", "\n        eegflow::mma_bf16(acc[0], af, r[0], r[1]);\n"
+     "        eegflow::mma_bf16(acc[1], af, r[2], r[3]);", ""),
+    ("input_block.cu", "\n          eegflow::mma_bf16(acc[0], af, r[0], r[1]);\n"
+     "          eegflow::mma_bf16(acc[1], af, r[2], r[3]);", ""),
+    ("input_block.cu", "\n          eegflow::mma_bf16(acc_w[jj][0], af, r[0], r[1]);\n"
+     "          eegflow::mma_bf16(acc_w[jj][1], af, r[2], r[3]);", ""),
+    ("input_block.cu", "\n            eegflow::mma_bf16(acc_w[jj][0], af, r[0], r[1]);\n"
+     "            eegflow::mma_bf16(acc_w[jj][1], af, r[2], r[3]);", "")]
+VARIANTS["noload"] += [
+    ("input_block.cu", "c < kTile * hc; c += kBThreads) {\n      const int r = c / hc, col = "
+     "(c - r * hc) * 4;\n      const bool valid = row0 + r < rows;",
+     "c < kTile * hc; c += kBThreads) {\n      const int r = c / hc, col = "
+     "(c - r * hc) * 4;\n      const bool valid = false;"),
+    ("input_block.cu", "c < kWTile * hc; c += kBThreads) {\n      const int r = c / hc, col = "
+     "(c - r * hc) * 4;\n      const bool valid = row0 + r < rows;",
+     "c < kWTile * hc; c += kBThreads) {\n      const int r = c / hc, col = "
+     "(c - r * hc) * 4;\n      const bool valid = false;"),
+    ("input_block.cu", "n > 0 ? xt + 4 * c : x, 4 * n);", "x, 0);"),
+    ("input_block.cu", "n > 0 ? xsrc + 4 * c : x, 4 * n);", "x, 0);")]
 
 
 def patched_sources(variant: str, into: Path, csrc=None) -> Path:
@@ -577,25 +609,26 @@ def _chain_stamps(lib, n: int, tiles: int, hc: int):
             f"running at the latest start")
 
 
-def _wide_marks(lib) -> np.ndarray:
-    """The "phases" variant's table of kernel 8's wide class: cycles by
-    phase 1-15 and, at 16, the tiles counted."""
+def _wide_marks(lib, entry: str = "eegflow_ablate_wide_marks") -> np.ndarray:
+    """The "phases" variant's table of kernel 8's wide class (or, with
+    ``entry`` ``eegflow_ablate_input_marks``, kernel 10's): cycles by phase
+    1-15 and, at 16, the tiles counted."""
     from eegflow_torch import kernels
 
     buf = np.zeros(17, dtype=np.uint64)
-    lib.eegflow_ablate_wide_marks.restype = ctypes.c_int
-    kernels.check(lib, lib.eegflow_ablate_wide_marks(buf.ctypes.data_as(ctypes.c_void_p)),
-                  "eegflow_ablate_wide_marks")
+    fn = getattr(lib, entry)
+    fn.restype = ctypes.c_int
+    kernels.check(lib, fn(buf.ctypes.data_as(ctypes.c_void_p)), entry)
     return buf.astype(np.int64)
 
 
-def _phase_line(name: str, cycles: np.ndarray) -> str:
-    """Kernel 8's wide class: cycles a CTA tile by phase, with their shares."""
+def _phase_line(name: str, cycles: np.ndarray, phases=WIDE_PHASES) -> str:
+    """A wide class: cycles a CTA tile by phase, with their shares."""
     tiles = max(int(cycles[16]), 1)
-    total = cycles[1:len(WIDE_PHASES) + 1].sum()
+    total = max(cycles[1:len(phases) + 1].sum(), 1)
     return (f"phases {name}: {tiles} CTA tiles, {total / tiles:.0f} cycles a tile: "
             + ", ".join(f"{ph} {cycles[i + 1] / tiles:.0f} ({100 * cycles[i + 1] / total:.1f} %)"
-                        for i, ph in enumerate(WIDE_PHASES)))
+                        for i, ph in enumerate(phases)))
 
 
 def _device_ms_by_name(fn, reps: int = 5, warm_s: float = 0.5):
@@ -976,6 +1009,84 @@ def _one_row_readings(card: str) -> None:
                   f"each gradient's largest entry) [{card}]", flush=True)
 
 
+def _input_params(gen, channels, hidden, dev):
+    """The input block's parameters as ``classifier_init`` draws them (W and b
+    uniform in +-1/sqrt(C)), LayerNorm scale and bias near 1 and 0."""
+    bound = channels ** -0.5
+    proj = {"w": ((torch.rand(channels, hidden, generator=gen) * 2 - 1) * bound).to(dev),
+            "b": ((torch.rand(hidden, generator=gen) * 2 - 1) * bound).to(dev)}
+    norm = {"scale": (1 + 0.1 * torch.randn(hidden, generator=gen)).to(dev),
+            "bias": (0.1 * torch.randn(hidden, generator=gen)).to(dev)}
+    return proj, norm
+
+
+def _input_calls(dev, gen):
+    """Kernels 9 and 10 at ``chip_smoke.py`` phase 19's shapes (B=512, T=256,
+    C=61): the bf16 forward and both classes of the bf16 backward, the narrow
+    at H = 256 and the wide at H = 512, and the float32 backward at both."""
+    from eegflow_torch.nn.cuda_input import input_block_bwd, input_block_fused
+
+    x = torch.randn(512, STEPS, CHANNELS, generator=gen).to(dev)
+    calls = {}
+    for hidden in (256, 512):
+        proj, norm = _input_params(gen, CHANNELS, hidden, dev)
+        dy = torch.randn(512, STEPS, hidden, generator=gen).to(dev)
+        cls = "narrow" if hidden <= 256 else "wide"
+        calls[f"input_block_fwd bf16 H={hidden} B=512"] = (
+            lambda p=proj, n=norm: input_block_fused(p, n, x, True))
+        calls[f"input_block_bwd bf16 {cls} H={hidden} B=512"] = (
+            lambda p=proj, n=norm, d=dy: input_block_bwd(p, n, x, d, True))
+        calls[f"input_block_bwd float32 H={hidden} B=512"] = (
+            lambda p=proj, n=norm, d=dy: input_block_bwd(p, n, x, d, False))
+    return calls
+
+
+def input_block_bwd_f64(proj, norm, x, dy):
+    """The function of ``nn.cuda_input.input_block_bwd_plain`` under bf16 in
+    float64: x, W and dz rounded to bf16 where the twin rounds them, every
+    other value and every sum in float64 -> (dx, dW, db, dgamma, dbeta),
+    float64."""
+    from eegflow_torch.nn.cuda_input import LN_EPS, _gelu_grad
+
+    f = lambda t: t.to(torch.float64)  # noqa: E731
+    r = lambda t: t.to(torch.bfloat16).to(torch.float64)  # noqa: E731
+    xr, wr, gamma = r(x).reshape(-1, x.shape[-1]), r(proj["w"]), f(norm["scale"])
+    z = xr @ wr + f(proj["b"])
+    mu = z.mean(-1, keepdim=True)
+    rsig = torch.rsqrt((z * z).mean(-1, keepdim=True) - mu * mu + LN_EPS)
+    xhat = (z - mu) * rsig
+    dln = f(dy).reshape(z.shape) * _gelu_grad(xhat * gamma + f(norm["bias"]))
+    dxhat = dln * gamma
+    dz = rsig * (dxhat - dxhat.mean(-1, keepdim=True)
+                 - xhat * (dxhat * xhat).mean(-1, keepdim=True))
+    dzr = r(dz)
+    return ((dzr @ wr.t()).reshape(x.shape), xr.t() @ dzr, dz.sum(0), (dln * xhat).sum(0),
+            dln.sum(0))
+
+
+def _input_one_row_readings(card: str) -> None:
+    """Kernel 10's wide class and its twin at B = 1, T = 256, C = 61, H = 512
+    (one row tile) against :func:`input_block_bwd_f64`: each side's largest
+    error relative to a gradient's largest entry."""
+    from eegflow_torch.core.prng import make_generator
+    from eegflow_torch.nn.cuda_input import input_block_bwd, input_block_bwd_plain
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda")
+    for seed in range(3):
+        gen = make_generator(700 + seed)
+        proj, norm = _input_params(gen, CHANNELS, 512, dev)
+        x = torch.randn(1, STEPS, CHANNELS, generator=gen).to(dev)
+        dy = torch.randn(1, STEPS, 512, generator=gen).to(dev)
+        want = input_block_bwd_f64(proj, norm, x, dy)
+        errs = [max(((a.double() - c).abs().max() / c.abs().max()).item()
+                    for a, c in zip(fn(proj, norm, x, dy, True), want))
+                for fn in (input_block_bwd, input_block_bwd_plain)]
+        print(f"input_block_bwd bf16 wide B=1 T={STEPS} C={CHANNELS} H=512 seed {700 + seed}: "
+              f"from the float64 function kernel {errs[0]:.3e}, twin {errs[1]:.3e} (relative "
+              f"to each gradient's largest entry) [{card}]", flush=True)
+
+
 def _step_calls(dev):
     """Whole-path timings around the pool-head kernels: one bf16 micro-step
     (forward and backward, ``"fused"``, dropout masks, B=512, T=256) of
@@ -1081,8 +1192,8 @@ def main(argv=None) -> int:
     parser.add_argument("--variant", default="base", choices=sorted(VARIANTS))
     parser.add_argument("--rows", default=None, help="rows per cluster the plan may take")
     parser.add_argument("--calls", default="all",
-                        choices=("all", "recurrent", "head", "filter", "philox", "rk4",
-                                 "steps"))
+                        choices=("all", "recurrent", "head", "input", "filter", "philox",
+                                 "rk4", "steps"))
     parser.add_argument("--csrc", default=None,
                         help="build from this kernel source directory (another tree's)")
     parser.add_argument("--save", default=None,
@@ -1109,6 +1220,9 @@ def main(argv=None) -> int:
                 print(f"ptxas {line}", flush=True)
         if args.calls in ("all", "head"):
             for line in _ptxas_report(kernels.build_info.get("log", ""), "pool_head"):
+                print(f"ptxas {line}", flush=True)
+        if args.calls == "input":
+            for line in _ptxas_report(kernels.build_info.get("log", ""), "input_block"):
                 print(f"ptxas {line}", flush=True)
         if args.calls == "philox":
             for line in _ptxas_report(kernels.build_info.get("log", ""),
@@ -1187,6 +1301,8 @@ def main(argv=None) -> int:
             head.update(_filter_calls(dev, gen))
         if args.calls == "philox":
             head.update(_philox_calls(dev, gen))
+        if args.calls == "input":
+            head.update(_input_calls(dev, gen))
         rk4_shape = None
         if args.calls == "rk4":
             rk4_calls, rk4_shape = _rk4_calls(dev, gen)
@@ -1194,20 +1310,28 @@ def main(argv=None) -> int:
         for name, fn in head.items():
             if name.startswith("sos_filtfilt") or (args.calls == "philox"
                                                    and not args.variant.startswith("nodraw")) \
-                    or (name.startswith("pool_head") and " bf16 " in name):
+                    or (name.startswith("pool_head") and " bf16 " in name) \
+                    or name.startswith("input_block"):
                 outputs[name] = _flat_cpu(fn())
-            marks = args.variant == "phases" and name.startswith("pool_head_bwd bf16 wide")
+            marks = args.variant == "phases" and (name.startswith("pool_head_bwd bf16 wide")
+                                                  or name.startswith("input_block_bwd bf16 wide"))
+            entry, phases = (("eegflow_ablate_input_marks", INPUT_PHASES)
+                             if name.startswith("input_block") else
+                             ("eegflow_ablate_wide_marks", WIDE_PHASES))
             if marks:
-                before = _wide_marks(lib)
+                before = _wide_marks(lib, entry)
             by_name, clock, power = _device_ms_by_name(fn)
             if marks:
-                print(_phase_line(name, _wide_marks(lib) - before), flush=True)
+                print(_phase_line(name, _wide_marks(lib, entry) - before, phases), flush=True)
             print(f"{args.variant} {name}: device ms a launch by kernel: "
                   + ", ".join(f"{k} {v:.3f}" + (f" x{n}" if n > 1 else "")
                               for k, (v, n) in by_name.items())
                   + f"; a call {sum(v * n for v, n in by_name.values()):.3f}"
                   + f"; during the warm-up SM clock {clock:.0f} MHz (median), power up to "
                   f"{power:.1f} W [{card}]", flush=True)
+            if args.calls == "input":
+                print(f"{args.variant} {name}: {_event_ms(fn):.3f} ms a call (CUDA events, "
+                      f"median of 5) [{card}]", flush=True)
             if rk4_shape and args.variant == "stamps" and not name.startswith("apf_de"):
                 fn()
                 torch.cuda.synchronize()
@@ -1215,6 +1339,8 @@ def main(argv=None) -> int:
                 print(f"stamps {name}: {_apf_cycles(lib, batch, (pts - 1) * sub)}", flush=True)
         if args.calls == "head":
             _one_row_readings(card)
+        if args.calls == "input" and args.variant == "base":
+            _input_one_row_readings(card)
         if args.calls == "rk4":
             _fit_profile(dev, gen, card)
         if args.calls == "steps":
