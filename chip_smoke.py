@@ -141,8 +141,11 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      contracts; one B=512 bf16 micro-step of each variant at hidden 256 and of
      the Full Model at hidden 512 against the plain path (phase 9's
      tolerances) and a bitwise repeat; kernels 7, 8 and 10 in their wide bf16
-     classes (D = 1024, K = 512; C = 61, H = 512) at B=512 held to their
-     twins and bitwise repeats and timed beside them.
+     classes (D = 1024, K = 512; C = 61, H = 512) and kernel 9 on its 32-row
+     tiles at B=512 held to their twins and bitwise repeats and timed beside
+     them; kernel 8's and kernel 10's wide launches read from their C entry
+     points (row kernel, cluster, tile rows, shared memory; kernel 10 also the
+     clusters the card holds) and required to be the two-CTA clusters.
  20. the EEGFormer and the snapshots on phase 17's processed set: `train --model
      transformer --epochs 1` as a CLI call (1 input_block_fwd, 1 input_block_bwd,
      1 pool_head_fwd and 1 pool_head_bwd a micro-step, 1 input_block_fwd and
@@ -241,8 +244,9 @@ twin's, its bound on an H100 (bytes over 3.35 TB/s or products over the
 dtype's peak, whichever is larger), the library call's time where there is
 one and its launches in phase 18 (analysis_launches), phase 19
 (ablate_launches) and phase 20's train and explain stages
-(transformer_launches); the wide bf16 classes' entries count their launches
-in the hidden-512 ablate run, the one-part pool head's in phase 20, the
+(transformer_launches); the wide bf16 classes' entries (and kernel 9's
+32-row tiles, "input_block_fwd bf16 wide") count their launches in the
+hidden-512 ablate run, the one-part pool head's in phase 20, the
 res_bf16 modes of phase 24 theirs in its three micro-steps, the Philox modes
 of phase 25 theirs in its micro-steps (B=512, and B=7,168 with res_bf16); the
 last line is {"ok": true, "device": {...}}.
@@ -1479,7 +1483,9 @@ def ablation_phase(dev, smi, out_dir):
     from eegflow_torch.nn.cuda_attention import (pool_head_bwd, pool_head_bwd_bf16_plan,
                                                  pool_head_bwd_plain, pool_head_fused,
                                                  pool_head_fused_plain)
-    from eegflow_torch.nn.cuda_input import input_block_bwd, input_block_bwd_plain
+    from eegflow_torch.nn.cuda_input import (input_block_bwd, input_block_bwd_bf16_plan,
+                                             input_block_bwd_plain, input_block_fused,
+                                             input_block_fused_plain)
     from eegflow_torch.nn.losses import cross_entropy_loss
     from eegflow_torch.nn.model import classifier_apply, classifier_init, draw_dropout_masks
 
@@ -1566,8 +1572,11 @@ def ablation_phase(dev, smi, out_dir):
                   f"{ok} [{smi}]", flush=True)
             require(ok, f"ablate hidden {hidden} {variant}: launches per micro-step and batch")
             bidirectional, attention, _ = ABLATE_VARIANTS[variant]
-            if hidden > 256:  # kernel 10's wide class; kernels 7 and 8's at D = 2H = 1024
+            if hidden > 256:  # kernel 10's wide class, kernel 9's 32-row tiles; kernels 7 and
+                # 8's wide classes at D = 2H = 1024
                 out["wide"]["input_block_bwd"] += rec["train"]["input_block_bwd"]
+                out["wide"]["input_block_fwd"] += (rec["train"]["input_block_fwd"]
+                                                   + rec["eval"]["input_block_fwd"])
                 if attention and bidirectional:
                     out["wide"]["pool_head_fwd"] += (rec["train"]["pool_head_fwd"]
                                                      + rec["eval"]["pool_head_fwd"])
@@ -1654,7 +1663,8 @@ def ablation_phase(dev, smi, out_dir):
                   f"plain {m['plain']:.3f} ms [{smi}]", flush=True)
         del params, masks, leaves, grads_k, grads_k2, grads_p
 
-    # kernels 7, 8 and 10 in their wide bf16 classes at B=512, on hidden-512 weights
+    # kernels 7, 8 and 10 in their wide bf16 classes and kernel 9 on its 32-row tiles at
+    # B=512, on hidden-512 weights
     wide = classifier_init(ModelConfig(input_size=C, hidden_size=ABLATE_WIDE_H), make_generator(
         SEED + 190), device=dev)
     gen = torch.Generator(device="cpu").manual_seed(SEED + 190)
@@ -1670,6 +1680,7 @@ def ablation_phase(dev, smi, out_dir):
              0.1 * randn(B_TRAIN), True, True)
     iargs = (wide["input_proj"], wide["input_norm"], randn(B_TRAIN, T, C),
              randn(B_TRAIN, T, hw), True)
+    ifargs = (*iargs[:3], True)
     flat_head = lambda o: list(o[0]) + [o[1]]  # noqa: E731
     flat_bwd = lambda o: list(o[0]) + [t for t in o[1:] if t is not None]  # noqa: E731
     head_flops = 2 * B_TRAIN * T * 2 * hw * hw  # y . W1 at D = 2H, K = H
@@ -1679,7 +1690,9 @@ def ablation_phase(dev, smi, out_dir):
             ("pool_head_bwd bf16 wide", pool_head_bwd, pool_head_bwd_plain, bargs, flat_bwd,
              POOL_BWD_REL_TOL, True, 3 * head_flops),
             ("input_block_bwd bf16 wide", input_block_bwd, input_block_bwd_plain, iargs, list,
-             INPUT_BWD_REL_TOL[True], True, 3 * 2 * B_TRAIN * T * C * hw)):
+             INPUT_BWD_REL_TOL[True], True, 3 * 2 * B_TRAIN * T * C * hw),
+            ("input_block_fwd bf16 wide", input_block_fused, input_block_fused_plain, ifargs,
+             lambda o: [o], INPUT_TOL, False, 2 * B_TRAIN * T * C * hw)):
         out["err"][name] = hold_at_main_shape(
             f"{name} B={B_TRAIN} T={T} H={hw}", flat(kfn(*args)), flat(kfn(*args)),
             flat(pfn(*args)), tol, relative)
@@ -1694,6 +1707,18 @@ def ablation_phase(dev, smi, out_dir):
             require(plan.wide, f"{name}: D={2 * hw}, K={hw} take the wide class ({plan})")
             out["plan"][name] = {"kernel": plan.kernel, "cluster": plan.cluster,
                                  "tile_rows": plan.tile_rows, "smem": plan.smem}
+            print(f"{name}: {out['plan'][name]}", flush=True)
+        if name.startswith("input_block_bwd"):
+            # kernel 10: the row kernel, cluster, tile, shared memory and the
+            # clusters the card holds, as its C entry point launches them
+            plan = input_block_bwd_bf16_plan(C, hw)
+            require(plan.wide and plan.cluster == 2 and plan.tile_rows == 64
+                    and plan.kernel == "input_block_bwd_wide_kernel",
+                    f"{name}: C={C}, H={hw} take the wide class, a cluster of two CTAs a "
+                    f"64-row tile ({plan})")
+            out["plan"][name] = {"kernel": plan.kernel, "cluster": plan.cluster,
+                                 "tile_rows": plan.tile_rows, "smem": plan.smem,
+                                 "clusters_held": plan.held}
             print(f"{name}: {out['plan'][name]}", flush=True)
         print(f"{name} B={B_TRAIN} T={T} H={hw}: kernel {m['kernel']:.3f} ms, plain "
               f"{m['plain']:.3f} ms, bound {bound_ms:.3f} ms ({bound_by}) [{smi}]", flush=True)
@@ -4313,7 +4338,10 @@ def main() -> int:
               *abl["ms"]["pool_head_bwd bf16 wide"], **abl["plan"]["pool_head_bwd bf16 wide"]),
         entry("input_block_bwd bf16 wide", "input_block.cu", "eegflow/nn/pallas_input.py:117",
               abl["wide"]["input_block_bwd"], abl["err"]["input_block_bwd bf16 wide"],
-              *abl["ms"]["input_block_bwd bf16 wide"]),
+              *abl["ms"]["input_block_bwd bf16 wide"], **abl["plan"]["input_block_bwd bf16 wide"]),
+        entry("input_block_fwd bf16 wide", "input_block.cu", "eegflow/nn/pallas_input.py:78",
+              abl["wide"]["input_block_fwd"], abl["err"]["input_block_fwd bf16 wide"],
+              *abl["ms"]["input_block_fwd bf16 wide"]),
         # the EEGFormer's one-part pool head (phase 20): launches in its train and explain
         # stages
         entry("pool_head_fwd one part bf16", "pool_head_fwd.cu",

@@ -28,8 +28,10 @@
 // (float32: z 4.1 GFLOP on CUDA cores, 0.061 ms, and dx and dW 8.2 GFLOP in
 // 3xTF32, 0.050 ms at a third of the TF32 peak). Both are memory-bound
 // except the float32 modes, bound by their products; at H = 512 the bf16
-// backward moves 332 MB (0.099 ms) for 25 GFLOP. The LayerNorm needs a
-// reduction across the H units of a row.
+// backward moves 332 MB (0.099 ms) for 25 GFLOP, but its row pass's GELU
+// derivative (~30 instructions an element, 67 M elements) and the products'
+// shared-memory traffic take longer than the bytes on the card. The
+// LayerNorm needs a reduction across the H units of a row.
 //
 // Forward (input_block_fwd_kernel): a persistent grid of a fixed number of
 // CTAs of 16 warps (the caller's plan, eegflow_torch/nn/cuda_input.py
@@ -60,11 +62,11 @@
 // statistics, then mean(dxhat) and mean(dxhat xhat)) forms dz into a tile,
 // and each lane sums db, dgamma and dbeta of its columns; then dx = dz . W^T
 // is stored and dW += x^T . dz accumulates in registers across the CTA's
-// tiles. Each CTA writes one partial row [dW (C x H), db, dgamma, dbeta]
-// (the warps' column sums added in warp order), and a second small launch
-// adds the rows in CTA order: no scratch of size B*T x H, no atomics, so a
-// launch repeats bit for bit. Rows past B*T have zero x and zero-filled dy,
-// so their dz is exactly 0.
+// tiles. Each CTA (each cluster in the bf16 wide class) writes one partial
+// row [dW (C x H), db, dgamma, dbeta] (the warps' column sums added in warp
+// order), and a second small launch adds the rows in CTA (cluster) order: no
+// scratch of size B*T x H, no atomics, so a launch repeats bit for bit. Rows
+// past B*T have zero x and zero-filled dy, so their dz is exactly 0.
 //
 // The backward's bf16 mode (input_block_bwd_bf16_kernel): 64-row tiles, its
 // three products on mma.sync m16n8k16 with C padded to kCP = 64 by zeros in
@@ -72,18 +74,34 @@
 // bf16(dz) . bf16(W)^T, dW += bf16(x)^T . bf16(dz). Takes C <= 64 and H <=
 // 256, H % 32 == 0.
 //
-// Its wide class (input_block_bwd_bf16_wide_kernel), any C and H <= 512,
-// H % 32 == 0 (kernel 9's widths): the same three products on 16-row tiles.
-// At H = 512 a 64-row tile's float32 z and dy beside bf16(W) are over the
-// shared memory a CTA may have, and the lanes' db, dgamma and dbeta of 512
-// columns (48 registers) beside dW's accumulators (64 at C = 64, H = 512)
-// would spill. So the row pass leaves dz, dln xhat and dln as float32 tiles
-// (dz over z, dln over dy, in place), and after it thread u adds column u of
-// the three over the tile's rows in order, into three registers of its own.
-// z is kernel 9's bf16 z (ZTileBf16, the same products in the same order).
-// For C > kCP the CTA walks its tiles once per channel chunk, as the float32
-// mode does: z and dz recomputed each pass from every chunk (W and x staged
-// per chunk), dx's columns and dW's rows of that pass's chunk formed.
+// Its wide class (input_block_bwd_wide_kernel), C > 64 or H > 256: any C,
+// H <= 512, H % 32 == 0 (kernel 9's widths). One CTA cannot hold a 64-row
+// tile at H = 512 (its float32 z and dy alone are 256 KB), and dW's
+// accumulators over 512 units (64 a thread) beside the row pass would spill;
+// the class before ran 16-row tiles, whose short phases between CTA
+// barriers, dx on four warps and W and x re-read every 16 rows took 8.8x the
+// bound (PERF.md). This one runs a cluster of two CTAs a 64-row tile, CTA
+// `rank` owning the units [rank H/2, rank H/2 + H/2) of z, dy and dW, each
+// CTA the narrow class's tile on its half: bf16(W) of its units resident, z
+// and dy of its units in shared memory (bf16(dz) goes over z and dxhat over
+// dy, in place), dW of its units in registers (32 a thread), and each warp
+// refills its own rows of dy for the next tile by cp.async as soon as its
+// row pass is done with them. A row's sums over H (the statistics, then
+// mean(dxhat) and mean(dxhat xhat)) are two half sums, each pushed into both
+// CTAs' shared memory (DSMEM) and added as rank 0's + rank 1's after a
+// cluster barrier, so both CTAs hold the same bits; dx = bf16(dz) .
+// bf16(W)^T is two partial products over the halves, the CTA that finishes a
+// 32-channel block adding the other's, pushed through DSMEM, behind the dW
+// product: three cluster barriers a tile. db, dgamma and dbeta are each
+// CTA's own columns, and a cluster writes one partial row. z is kernel 9's
+// bf16 z bit for bit (z_pair_mma); the statistics sum each half and then the
+// halves, an order other than kernel 9's (the last bits differ). The row
+// pass, the largest phase of a tile, issues ~30 instructions an element with
+// GELU's derivative on the hardware's approximate reciprocal and exponential
+// (gelu_grad_fast); the products are bound by their ldmatrix traffic. For C >
+// kCP the cluster walks its tiles once per channel chunk, as the float32 mode
+// does: z and dz recomputed each pass from every chunk (W and x staged per
+// chunk), dx's columns and dW's rows of that pass's chunk formed.
 //
 // The backward's float32 mode (input_block_bwd_f32_kernel): 32-row tiles (16
 // for H > 256, as the forward's rule), W resident as float32 [c][u], z
@@ -108,6 +126,7 @@
 
 #include "common.cuh"
 #include "mma_gemm.cuh"
+#include "pool_head_wide.cuh"
 
 // Phase marks of kernel 10's wide bf16 class: nothing in a build of the
 // kernels; kernels.ablate's "phases" variant defines the mark to add the SM
@@ -145,6 +164,23 @@ __device__ __forceinline__ float gelu_grad(float z) {
   const float phi = expf(-0.5f * z * z) * 0.3989422804014327f;
   const float cdf = 0.5f * (1.0f + erf_as(z * 0.7071067811865476f));
   return cdf + z * phi;
+}
+
+// gelu_grad with the hardware's approximate reciprocal and exponential, and
+// one exponential exp(-z^2 / 2) for both phi(z) and the erf formula's
+// exp(-(z / sqrt 2)^2): a few float32 ulp apart. The bf16 backward's wide
+// class, whose row pass it bounds, uses it.
+__device__ __forceinline__ float gelu_grad_fast(float z) {
+  const float e = __expf(-0.5f * z * z);
+  const float ax = fabsf(z * 0.7071067811865476f);
+  const float t = __fdividef(1.0f, 1.0f + 0.3275911f * ax);
+  const float poly =
+      ((((1.061405429f * t - 1.453152027f) * t + 1.421413741f) * t - 0.284496736f) * t +
+       0.254829592f) *
+      t;
+  const float erf_abs = 1.0f - poly * e;
+  const float cdf = 0.5f * (1.0f + (z < 0.f ? -erf_abs : erf_abs));
+  return cdf + z * (e * 0.3989422804014327f);
 }
 
 // mean and 1/sqrt(var + eps) of a row from its sums of z and z^2
@@ -1119,299 +1155,492 @@ size_t bwd_bf16_smem_bytes(int H) {
 
 // ---- kernel 10, bf16 mode, the wide class ----
 
-constexpr int kWTile = 16;
-constexpr int kWChunks = kMaxH / 128;  // float4 chunks of a row a lane owns
-constexpr int kWJJ = kMaxH / 16 / 4;   // 16-column pairs of dW a warp owns
+constexpr int kPair = 2;                                // CTAs a row tile: one cluster
+constexpr int kPairRows = 64;                           // rows a tile
+constexpr int kPairRowWarp = kPairRows / kBWarps;       // rows of the row pass a warp owns
+constexpr int kPairChunks = kMaxH / kPair / 128;        // float4 chunks of a half row a lane owns
+constexpr int kPairDx = kCP / kPair;                    // dx channels of a chunk a CTA finishes
+constexpr int kPairLdi = kPairDx + 4;                   // the dx inbox's row stride
 
-// Tiles of kWTile rows, kBThreads threads (16 warps). Thread (warp w, lane =
-// 4 g + q). z: ZTileBf16<kWTile> (warp w the 16-column pairs w + 16 p). Row
-// pass: row w, columns 4 (lane + 32 i) .. + 3. Column sums: thread tid column
-// tid. dx: warps 0-3, rows g, g + 8, channels 16 w + 8 j + 2 q, + 1 of the
-// chunk. dW: channels 16 (w % 4) + g, + 8 of the chunk, columns 16 p + 8 j +
-// 2 q, + 1 of the pairs p = w / 4 + 4 jj.
+// The wide class's shared memory, in floats from its start, for H units:
+// bf16(W) of the CTA's columns [kCP][Hh + 8], bf16(x) [kPairRows][kCP + 8],
+// z [kPairRows][Hh + 4] (then bf16(dz) over it, rows of 2 (Hh + 4)), dy
+// [kPairRows][Hh] (then dxhat over it), the tile's x as read [kPairRows *
+// kCP], gamma and beta of the columns [2][Hh], the half rows' sums of z and
+// z^2, then of dxhat and dxhat xhat ([kPair][kPairRows][2] each, one block a
+// rank), the partner's partial dx [kPairRows][kPairLdi], and db of the
+// columns over each warp's rows [kBWarps][Hh].
+struct PairLayout {
+  int Hh, ws, xs, zs, dys, xraw, gb, stat, msum, inbox, dbs, total;
+  __host__ __device__ explicit PairLayout(int H) : Hh(H / kPair) {
+    ws = 0;
+    xs = ws + kCP * (Hh + 8) / 2;
+    zs = xs + kPairRows * (kCP + 8) / 2;
+    dys = zs + kPairRows * (Hh + 4);
+    xraw = dys + kPairRows * Hh;
+    gb = xraw + kPairRows * kCP;
+    stat = gb + 2 * Hh;
+    msum = stat + kPair * kPairRows * 2;
+    inbox = msum + kPair * kPairRows * 2;
+    dbs = inbox + kPairRows * kPairLdi;
+    total = dbs + kBWarps * Hh;
+  }
+};
+
+// mean and 1 / sigma of row r from both halves' sums (rank 0's + rank 1's)
+__device__ __forceinline__ void pair_ln_stats(const float* stat, int r, float inv_h, float eps,
+                                              float& mu, float& rsig) {
+  ln_stats(stat[2 * r] + stat[2 * (kPairRows + r)],
+           stat[2 * r + 1] + stat[2 * (kPairRows + r) + 1], inv_h, eps, mu, rsig);
+}
+
+// Tiles of kPairRows rows, one cluster of kPair CTAs of kBThreads threads a
+// tile: the clusters walk the tiles as one CTA would (tile i of cluster k: i
+// = k, k + clusters, ..), both CTAs of a cluster the same ones, and CTA
+// `rank` takes the columns [rank Hh, rank Hh + Hh) (Hh = H / 2). Thread
+// (warp w, lane = 4 g + q). z: columns 16 w + 8 j + 2 q, + 1 of the half,
+// rows 16 i + g, + 8. Row pass: rows w + 16 k, the half's columns 4 (lane +
+// 32 i) .. + 3. dx: rows 16 (w % 4) + g, + 8, channels 16 (w / 4) + 8 j +
+// 2 q, + 1 of the chunk (a partial sum over the half's units; CTA c / 32
+// finishes channel c). dW: channels 16 (w % 4) + g, + 8 of the chunk, the
+// half's columns 16 p + 8 j + 2 q, + 1 of the pairs p = w / 4 + 4 jj.
 //   x (rows, C), dy (rows, H) (both 16-byte aligned), w (C, H), bias, gamma,
-//   beta (H,) float32; dx (rows, C); part (gridDim.x, C H + 3 H) the CTA's
-//   partial [dW, db, dgamma, dbeta].
-// Shared memory (bwd_bf16_wide_smem_bytes): bf16(W) of a channel chunk
-// [kCP][H + 8], bf16(x) of the chunk [kWTile][kCP + 8], bf16(dz) [kWTile][H +
-// 8], z and then dz [kWTile][H + 8], dy and then dln [kWTile][H], dln xhat
-// [kWTile][H] float32, the tile's x as read [kWTile * kCP] (C <= kCP).
+//   beta (H,) float32; dx (rows, C); part (clusters, C H + 3 H) the
+//   cluster's partial [dW, db, dgamma, dbeta], each CTA its columns.
 __global__ void __launch_bounds__(kBThreads, 1)
-input_block_bwd_bf16_wide_kernel(const float* __restrict__ x, const float* __restrict__ dy,
-                                 const float* __restrict__ w, const float* __restrict__ bias,
-                                 const float* __restrict__ gamma,
-                                 const float* __restrict__ beta, float* __restrict__ dx,
-                                 float* __restrict__ part, int rows, int C, int H, float eps) {
+input_block_bwd_wide_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+                            const float* __restrict__ w, const float* __restrict__ bias,
+                            const float* __restrict__ gamma, const float* __restrict__ beta,
+                            float* __restrict__ dx, float* __restrict__ part, int rows, int C,
+                            int H, float eps) {
   using eegflow::smem_addr;
-  static_assert(kMaxH <= kBThreads, "a thread owns one column of the column sums");
-  extern __shared__ __align__(16) uint8_t smem[];
-  const int ldw = H + 8, ldx = kCP + 8, ldz = H + 8;
-  __nv_bfloat16* const ws = reinterpret_cast<__nv_bfloat16*>(smem);  // [kCP][H + 8] bf16(W)
-  __nv_bfloat16* const xs = ws + kCP * ldw;                         // [kWTile][kCP + 8]
-  __nv_bfloat16* const dzs = xs + kWTile * ldx;                     // [kWTile][H + 8] bf16(dz)
-  float* const zs = reinterpret_cast<float*>(dzs + kWTile * ldz);   // [kWTile][H + 8] z, dz
-  float* const dys = zs + kWTile * ldz;                             // [kWTile][H] dy, dln
-  float* const gxs = dys + kWTile * H;                              // [kWTile][H] dln xhat
-  float* const xraw = gxs + kWTile * H;                             // [kWTile * C] x as read
+  using Bf = __nv_bfloat16;
+  extern __shared__ __align__(16) float smem_f[];
+  const PairLayout lay(H);
+  const int Hh = lay.Hh, ldw = Hh + 8, ldx = kCP + 8, ldz = Hh + 4, ldzb = 2 * ldz;
+  Bf* const ws = reinterpret_cast<Bf*>(smem_f + lay.ws);
+  Bf* const xs = reinterpret_cast<Bf*>(smem_f + lay.xs);
+  float* const zs = smem_f + lay.zs;
+  const Bf* const dzs = reinterpret_cast<const Bf*>(zs);
+  float* const dys = smem_f + lay.dys;
+  float* const xraw = smem_f + lay.xraw;
+  float* const gb = smem_f + lay.gb;
+  float* const stat = smem_f + lay.stat;
+  float* const msum = smem_f + lay.msum;
+  float* const inbox = smem_f + lay.inbox;
+  float* const dbs = smem_f + lay.dbs;
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int gq = lane >> 2, q = lane & 3;
-  const int tiles = (rows + kWTile - 1) / kWTile;
+  const uint32_t rank = eegflow::cluster_rank(), partner = rank ^ 1u;
+  const int cl = blockIdx.x / kPair, ncl = gridDim.x / kPair;
+  const int u0 = static_cast<int>(rank) * Hh;  // the CTA's first column
+  const int tiles = (rows + kPairRows - 1) / kPairRows;
   const int nch = (C + kCP - 1) / kCP;
-  const int hc = H / 4;  // float4 chunks of a row
+  const int hc = Hh / 4;  // float4 chunks of a half row
   const float inv_h = 1.0f / static_cast<float>(H);
 
-  // bf16(W)'s channels c0 .. c0 + kCP into ws, rows past C zero
+  // bf16(W)'s channels c0 .. c0 + kCP and the CTA's columns into ws, rows past C zero
   auto stage_w = [&](int c0) {
-    for (int i = tid; i < kCP * H; i += kBThreads) {
-      const int c = i / H, u = i - c * H;
-      ws[c * ldw + u] = __float2bfloat16_rn(c0 + c < C ? w[static_cast<size_t>(c0 + c) * H + u]
-                                                       : 0.f);
+    for (int i = tid; i < kCP * Hh; i += kBThreads) {
+      const int c = i / Hh, u = i - c * Hh;
+      ws[c * ldw + u] = __float2bfloat16_rn(
+          c0 + c < C ? w[static_cast<size_t>(c0 + c) * H + u0 + u] : 0.f);
     }
   };
   // bf16(x)[r][c0 + c] of the tile into xs from src (its channel c0, rows
   // lds floats apart), rows past avail and channels past C zero
   auto stage_x = [&](const float* src, int lds, int c0, int avail) {
     const int cn = min(kCP, C - c0);
-    for (int i = tid; i < kWTile * kCP; i += kBThreads) {
+    for (int i = tid; i < kPairRows * kCP; i += kBThreads) {
       const int r = i / kCP, c = i - r * kCP;
       xs[r * ldx + c] = __float2bfloat16_rn(c < cn && r < avail ? src[r * lds + c] : 0.f);
     }
   };
-  // a tile's dy into dys by cp.async, rows past `rows` zero-filled, and for
-  // C <= kCP its x rows (one contiguous span) into xraw
-  auto fetch = [&](int tile) {
-    const int row0 = tile * kWTile;
-    for (int c = tid; c < kWTile * hc; c += kBThreads) {
-      const int r = c / hc, col = (c - r * hc) * 4;
-      const bool valid = row0 + r < rows;
-      eegflow::cp_async16(smem_addr(dys + r * H + col),
-                          valid ? dy + static_cast<size_t>(row0 + r) * H + col : dy, valid);
-    }
-    if (nch == 1) {
-      const int nx = min(kWTile, rows - row0) * C;  // floats of the tile's rows
-      const float* const xsrc = x + static_cast<size_t>(row0) * C;
-      for (int c = tid; c < (kWTile * C + 3) / 4; c += kBThreads) {
+  // For C <= kCP a tile's x rows (one contiguous span) into xraw by
+  // cp.async, rows past `rows` zero-filled; one group a call (empty past the
+  // last tile or for C > kCP), so each thread's groups alternate x, dy.
+  auto fetch_x = [&](int tile) {
+    if (nch == 1 && tile < tiles) {
+      const int row0 = tile * kPairRows;
+      const int nx = min(kPairRows, rows - row0) * C;  // floats of the tile's rows
+      const float* const src = x + static_cast<size_t>(row0) * C;
+      for (int c = tid; c < kPairRows * C / 4; c += kBThreads) {
         const int n = min(4, max(0, nx - 4 * c));
-        eegflow::cp_async16_part(smem_addr(xraw + 4 * c), n > 0 ? xsrc + 4 * c : x, 4 * n);
+        eegflow::cp_async16_part(smem_addr(xraw + 4 * c), n > 0 ? src + 4 * c : x, 4 * n);
+      }
+    }
+    eegflow::cp_async_commit();
+  };
+  // The warp's rows of a tile's dy (the CTA's columns) into dys, rows past
+  // `rows` zero-filled: the warp reads those rows alone, so it refills them
+  // as soon as it is done with them. One group a call (empty past the last tile).
+  auto fetch_dy = [&](int tile) {
+    if (tile < tiles) {
+      const int row0 = tile * kPairRows;
+      for (int i = lane; i < kPairRowWarp * hc; i += 32) {
+        const int k = i / hc, col = (i - k * hc) * 4;
+        const int r = warp + kBWarps * k;
+        const bool valid = row0 + r < rows;
+        eegflow::cp_async16(smem_addr(dys + r * Hh + col),
+                            valid ? dy + static_cast<size_t>(row0 + r) * H + u0 + col : dy,
+                            valid);
       }
     }
     eegflow::cp_async_commit();
   };
 
-  // db, dgamma, dbeta of column tid over the CTA's rows
-  float cdb = 0.f, cdg = 0.f, cdbt = 0.f;
-  ZTileBf16<kWTile> zt;
-  float* const out = part + static_cast<size_t>(blockIdx.x) * (C + 3) * H;
+  for (int i = tid; i < Hh; i += kBThreads) {
+    gb[i] = gamma[u0 + i];
+    gb[Hh + i] = beta[u0 + i];
+  }
+  // dgamma and dbeta of the lane's columns over the warp's rows; db in dbs
+  // (fewer registers live beside dW's)
+  float cdg[kPairChunks][4], cdbt[kPairChunks][4];
+#pragma unroll
+  for (int i = 0; i < kPairChunks; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) cdg[i][e] = cdbt[i][e] = 0.f;
+  for (int i = tid; i < kBWarps * Hh; i += kBThreads) dbs[i] = 0.f;
+  float* const out = part + static_cast<size_t>(cl) * (C + 3) * H;
+  eegflow::pair_sync();  // both CTAs run: each may write the other's shared memory
 
-  // one pass over the CTA's tiles per channel chunk (one for C <= kCP): dx's
-  // columns and dW's rows of channels c0 .. c0 + kCP
+  // one pass over the cluster's tiles per channel chunk (one for C <= kCP):
+  // dx's columns and dW's rows of channels c0 .. c0 + kCP
   for (int pass = 0; pass < nch; ++pass) {
     const int c0 = pass * kCP;
     const int cn = min(kCP, C - c0);
-    float acc_w[kWJJ][2][4];  // dW of the warp's channels and pairs over the CTA's rows
+    float acc_w[4][2][4];  // dW of the warp's channels and pairs over the cluster's rows
 #pragma unroll
-    for (int jj = 0; jj < kWJJ; ++jj)
+    for (int jj = 0; jj < 4; ++jj)
 #pragma unroll
       for (int j = 0; j < 2; ++j)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc_w[jj][j][e] = 0.f;
-    __syncthreads();  // the last pass's products are done with ws and xs
-    if (static_cast<int>(blockIdx.x) < tiles) fetch(blockIdx.x);
-    if (nch == 1) stage_w(0);  // bf16(W) resident for the CTA's tiles
+    __syncthreads();  // the last pass's products are done with ws, xs and zs
+    if (nch == 1) stage_w(0);  // bf16(W) resident for the cluster's tiles
+    fetch_x(cl);
+    fetch_dy(cl);
     EEGFLOW_INPUT_MARK(0);
 
-    for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
-      const int row0 = tile * kWTile;
-      const int tr = min(kWTile, rows - row0);
-      eegflow::cp_async_wait<0>();
-      __syncthreads();  // the tile's dy (and x) landed
+    for (int tile = cl; tile < tiles; tile += ncl) {
+      const int row0 = tile * kPairRows;
+      const int tr = min(kPairRows, rows - row0);
+      const int next = tile + ncl;
+      eegflow::cp_async_wait<1>();
+      __syncthreads();  // the tile's x landed; the last tile's products are done
       EEGFLOW_INPUT_MARK(1);
 
-      // z = bf16(x) . bf16(W) + b, as kernel 9 forms it
-      zt.zero();
+      // z = bf16(x) . bf16(W) + b of the CTA's columns, as kernel 9 forms it
+      float acc[4][2][4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
       if (nch == 1) {
-        stage_x(xraw, C, 0, kWTile);
-        __syncthreads();
-        zt.accumulate(xs, ldx, ws, ldw, H, warp, lane);
+        stage_x(xraw, C, 0, kPairRows);
+        __syncthreads();  // xraw is free again
+        fetch_x(next);
+        if (warp < Hh / 16) z_pair_mma<4>(acc, xs, ldx, ws, ldw, warp, lane);
       } else {
+        fetch_x(tiles);
         for (int ch = 0; ch < nch; ++ch) {
           if (ch > 0) __syncthreads();  // no thread reads ws or xs any more
           stage_w(ch * kCP);
           stage_x(x + static_cast<size_t>(row0) * C + ch * kCP, C, ch * kCP, tr);
           __syncthreads();
-          zt.accumulate(xs, ldx, ws, ldw, H, warp, lane);
+          if (warp < Hh / 16) z_pair_mma<4>(acc, xs, ldx, ws, ldw, warp, lane);
         }
       }
-      zt.store(zs, ldz, bias, H, warp, lane);
+      if (warp < Hh / 16) z_pair_store<4>(acc, zs, ldz, bias + u0, warp, lane);
       __syncthreads();  // z whole
       EEGFLOW_INPUT_MARK(2);
 
-      // the LayerNorm and GELU backward, one warp per row: dz over z, dln
-      // over dy, dln xhat into gxs, bf16(dz) into dzs. Rows past `rows` have
-      // dy = 0 (zero-filled), so all four are 0 there.
-      for (int r = warp; r < kWTile; r += kBWarps) {
-        float zv[kWChunks][4], dv[kWChunks][4], mu, rsig;
-        row_stats<kWChunks>(zs + r * ldz, hc, lane, inv_h, eps, zv, mu, rsig);
+      // The LayerNorm statistics: each half row's sums of z and z^2 into
+      // both CTAs' stat[rank]; a row's are rank 0's + rank 1's in both.
+#pragma unroll 1
+      for (int k = 0; k < kPairRowWarp; ++k) {
+        const int r = warp + kBWarps * k;
+        const float* const zr = zs + r * ldz;
+        float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-        for (int i = 0; i < kWChunks; ++i) {
-          const int ch = lane + 32 * i;
-          float4 d4 = make_float4(0.f, 0.f, 0.f, 0.f);
-          if (ch < hc) d4 = *reinterpret_cast<const float4*>(dys + r * H + 4 * ch);
-          dv[i][0] = d4.x, dv[i][1] = d4.y, dv[i][2] = d4.z, dv[i][3] = d4.w;
-        }
-        float m1 = 0.f, m2 = 0.f;
-#pragma unroll
-        for (int i = 0; i < kWChunks; ++i) {
+        for (int i = 0; i < kPairChunks; ++i) {
           const int ch = lane + 32 * i;
           if (ch >= hc) continue;
-          float dl[4], gx[4];
+          const float4 z4 = *reinterpret_cast<const float4*>(zr + 4 * ch);
+          const float zv[4] = {z4.x, z4.y, z4.z, z4.w};
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
-            const float gv = gamma[4 * ch + e];
-            const float xhat = (zv[i][e] - mu) * rsig;
-            const float dln = dv[i][e] * gelu_grad(xhat * gv + beta[4 * ch + e]);
-            dl[e] = dln;
-            gx[e] = dln * xhat;
-            const float dxh = dln * gv;
-            zv[i][e] = xhat;
-            dv[i][e] = dxh;
+            s1 += zv[e];
+            s2 += zv[e] * zv[e];
+          }
+        }
+        s1 = eegflow::warp_sum(s1);
+        s2 = eegflow::warp_sum(s2);
+        if (lane == 0) {
+          float* const at = stat + 2 * (static_cast<int>(rank) * kPairRows + r);
+          eegflow::store_both(at, partner, s1);
+          eegflow::store_both(at + 1, partner, s2);
+        }
+      }
+      eegflow::pair_sync();  // both halves' sums of z landed
+      EEGFLOW_INPUT_MARK(3);
+      eegflow::cp_async_wait<1>();
+      __syncwarp();  // the warp's rows of dy landed
+      EEGFLOW_INPUT_MARK(4);
+
+      // The LayerNorm and GELU backward's first half, one warp a row: dxhat
+      // over dy, dgamma and dbeta summed per lane, and the half rows' sums of
+      // dxhat and dxhat xhat into both CTAs' msum[rank]. Rows past `rows`
+      // have dy = 0 (zero-filled), so all of it is 0 there.
+      float gv[kPairChunks][4], bv[kPairChunks][4];
+#pragma unroll
+      for (int i = 0; i < kPairChunks; ++i) {
+        const int ch = min(lane + 32 * i, hc - 1);
+        const float4 g4 = *reinterpret_cast<const float4*>(gb + 4 * ch);
+        const float4 b4 = *reinterpret_cast<const float4*>(gb + Hh + 4 * ch);
+        gv[i][0] = g4.x, gv[i][1] = g4.y, gv[i][2] = g4.z, gv[i][3] = g4.w;
+        bv[i][0] = b4.x, bv[i][1] = b4.y, bv[i][2] = b4.z, bv[i][3] = b4.w;
+      }
+#pragma unroll 1
+      for (int k = 0; k < kPairRowWarp; ++k) {
+        const int r = warp + kBWarps * k;
+        float mu, rsig;
+        pair_ln_stats(stat, r, inv_h, eps, mu, rsig);
+        float m1 = 0.f, m2 = 0.f;
+#pragma unroll
+        for (int i = 0; i < kPairChunks; ++i) {
+          const int ch = lane + 32 * i;
+          if (ch >= hc) continue;
+          const float4 z4 = *reinterpret_cast<const float4*>(zs + r * ldz + 4 * ch);
+          const float4 d4 = *reinterpret_cast<const float4*>(dys + r * Hh + 4 * ch);
+          const float zv[4] = {z4.x, z4.y, z4.z, z4.w}, dv[4] = {d4.x, d4.y, d4.z, d4.w};
+          float o[4];
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float xhat = (zv[e] - mu) * rsig;
+            const float dln = dv[e] * gelu_grad_fast(xhat * gv[i][e] + bv[i][e]);
+            if (pass == 0) {
+              cdg[i][e] += dln * xhat;
+              cdbt[i][e] += dln;
+            }
+            const float dxh = dln * gv[i][e];
+            o[e] = dxh;
             m1 += dxh;
             m2 += dxh * xhat;
           }
-          *reinterpret_cast<float4*>(dys + r * H + 4 * ch) = make_float4(dl[0], dl[1], dl[2], dl[3]);
-          *reinterpret_cast<float4*>(gxs + r * H + 4 * ch) = make_float4(gx[0], gx[1], gx[2], gx[3]);
+          *reinterpret_cast<float4*>(dys + r * Hh + 4 * ch) = make_float4(o[0], o[1], o[2], o[3]);
         }
-        m1 = eegflow::warp_sum(m1) * inv_h;
-        m2 = eegflow::warp_sum(m2) * inv_h;
+        m1 = eegflow::warp_sum(m1);
+        m2 = eegflow::warp_sum(m2);
+        if (lane == 0) {
+          float* const at = msum + 2 * (static_cast<int>(rank) * kPairRows + r);
+          eegflow::store_both(at, partner, m1);
+          eegflow::store_both(at + 1, partner, m2);
+        }
+      }
+      eegflow::pair_sync();  // both halves' sums of dxhat landed
+      EEGFLOW_INPUT_MARK(5);
+
+      // Its second half: dz = rsig (dxhat - mean(dxhat) - xhat mean(dxhat
+      // xhat)), db summed per lane over the warp's rows and then added to its
+      // row of dbs, bf16(dz) over the row's z. Then the warp refills its rows
+      // of dy with the next tile's.
+      float tdb[kPairChunks][4];
 #pragma unroll
-        for (int i = 0; i < kWChunks; ++i) {
+      for (int i = 0; i < kPairChunks; ++i)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) tdb[i][e] = 0.f;
+#pragma unroll 1
+      for (int k = 0; k < kPairRowWarp; ++k) {
+        const int r = warp + kBWarps * k;
+        float mu, rsig;
+        pair_ln_stats(stat, r, inv_h, eps, mu, rsig);
+        const float m1 = (msum[2 * r] + msum[2 * (kPairRows + r)]) * inv_h;
+        const float m2 = (msum[2 * r + 1] + msum[2 * (kPairRows + r) + 1]) * inv_h;
+        float zv[kPairChunks][4], dv[kPairChunks][4];
+#pragma unroll
+        for (int i = 0; i < kPairChunks; ++i) {
+          const int ch = lane + 32 * i;
+          float4 z4 = make_float4(0.f, 0.f, 0.f, 0.f), d4 = z4;
+          if (ch < hc) {
+            z4 = *reinterpret_cast<const float4*>(zs + r * ldz + 4 * ch);
+            d4 = *reinterpret_cast<const float4*>(dys + r * Hh + 4 * ch);
+          }
+          zv[i][0] = z4.x, zv[i][1] = z4.y, zv[i][2] = z4.z, zv[i][3] = z4.w;
+          dv[i][0] = d4.x, dv[i][1] = d4.y, dv[i][2] = d4.z, dv[i][3] = d4.w;
+        }
+        __syncwarp();  // the row's z is read before bf16(dz) goes over it
+#pragma unroll
+        for (int i = 0; i < kPairChunks; ++i) {
           const int ch = lane + 32 * i;
           if (ch >= hc) continue;
           float dz[4];
 #pragma unroll
-          for (int e = 0; e < 4; ++e) dz[e] = rsig * (dv[i][e] - m1 - zv[i][e] * m2);
-          *reinterpret_cast<float4*>(zs + r * ldz + 4 * ch) = make_float4(dz[0], dz[1], dz[2], dz[3]);
-          *reinterpret_cast<uint2*>(dzs + r * ldz + 4 * ch) =
+          for (int e = 0; e < 4; ++e) {
+            const float xhat = (zv[i][e] - mu) * rsig;
+            dz[e] = rsig * (dv[i][e] - m1 - xhat * m2);
+            tdb[i][e] += dz[e];
+          }
+          *reinterpret_cast<uint2*>(zs + r * ldz + 2 * ch) =
               make_uint2(eegflow::pack_bf16(dz[0], dz[1]), eegflow::pack_bf16(dz[2], dz[3]));
         }
       }
-      __syncthreads();  // dz, dln xhat and dln whole
-      EEGFLOW_INPUT_MARK(3);
-
-      // db, dgamma, dbeta: column tid over the tile's rows, in order
-      if (pass == 0 && tid < H) {
+      if (pass == 0) {
 #pragma unroll
-        for (int r = 0; r < kWTile; ++r) {
-          cdb += zs[r * ldz + tid];
-          cdg += gxs[r * H + tid];
-          cdbt += dys[r * H + tid];
+        for (int i = 0; i < kPairChunks; ++i) {
+          const int ch = lane + 32 * i;
+          if (ch >= hc) continue;
+          float4* const at = reinterpret_cast<float4*>(dbs + warp * Hh + 4 * ch);
+          const float4 v = *at;
+          *at = make_float4(v.x + tdb[i][0], v.y + tdb[i][1], v.z + tdb[i][2], v.w + tdb[i][3]);
         }
       }
+      __syncwarp();  // the warp's dxhat is read before the next tile's dy goes over it
+      fetch_dy(next);
       if (nch > 1) {  // the pass's channels of W and x for dx and dW
-        __syncthreads();  // no thread reads ws or xs for z any more
         stage_w(c0);
         stage_x(x + static_cast<size_t>(row0) * C + c0, C, c0, tr);
       }
-      __syncthreads();  // no thread reads dys, gxs or xraw any more
-      EEGFLOW_INPUT_MARK(4);
-      if (tile + static_cast<int>(gridDim.x) < tiles) fetch(tile + gridDim.x);
+      __syncthreads();  // bf16(dz) whole
+      EEGFLOW_INPUT_MARK(6);
 
-      // dx = bf16(dz) . bf16(W)^T over the units, warps 0-3 a 16-channel block each
-      if (warp < kCP / 16 && 16 * warp < cn) {
-        const int nb = 16 * warp;
-        float acc[2][4];
+      // dx = bf16(dz) . bf16(W)^T over the half's units: a partial sum; the
+      // CTA that finishes a channel block gets the other's through DSMEM
+      const int mt = warp & 3, nb = 16 * (warp >> 2);
+      const int owner = nb / kPairDx;
+      float accx[2][4];
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+      for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-        for (int kk = 0; kk < H / 16; ++kk) {
+        for (int e = 0; e < 4; ++e) accx[j][e] = 0.f;
+      if (nb < cn) {
+        for (int kk = 0; kk < Hh / 16; ++kk) {
           uint32_t af[4], r[4];
-          eegflow::ldmatrix_x4(af, smem_addr(dzs + (lane & 15) * ldz + kk * 16 + (lane >> 4) * 8));
+          eegflow::ldmatrix_x4(af, smem_addr(dzs + (16 * mt + (lane & 15)) * ldzb + kk * 16 +
+                                             (lane >> 4) * 8));
           eegflow::ldmatrix_x4(r, smem_addr(ws + (nb + (lane & 7) + ((lane >> 4) << 3)) * ldw +
                                             kk * 16 + ((lane >> 3) & 1) * 8));
-          eegflow::mma_bf16(acc[0], af, r[0], r[1]);
-          eegflow::mma_bf16(acc[1], af, r[2], r[3]);
+          eegflow::mma_bf16(accx[0], af, r[0], r[1]);
+          eegflow::mma_bf16(accx[1], af, r[2], r[3]);
         }
+        if (owner != static_cast<int>(rank)) {
 #pragma unroll
-        for (int j = 0; j < 2; ++j)
+          for (int j = 0; j < 2; ++j)
 #pragma unroll
-          for (int rh = 0; rh < 2; ++rh) {
-            const int row = 8 * rh + gq;
-            if (row >= tr) continue;
-#pragma unroll
-            for (int e = 0; e < 2; ++e) {
-              const int c = nb + 8 * j + 2 * q + e;
-              if (c < cn) dx[static_cast<size_t>(row0 + row) * C + c0 + c] = acc[j][2 * rh + e];
+            for (int rh = 0; rh < 2; ++rh) {
+              const int row = 16 * mt + 8 * rh + gq, c = nb + 8 * j + 2 * q - kPairDx * owner;
+              eegflow::st_cluster_v2_f32(
+                  eegflow::map_rank(smem_addr(inbox), partner) +
+                      4u * static_cast<uint32_t>(row * kPairLdi + c),
+                  accx[j][2 * rh], accx[j][2 * rh + 1]);
             }
-          }
+        }
       }
+      eegflow::cluster_arrive();  // (release) the partial dx pushed
 
-      EEGFLOW_INPUT_MARK(5);
-
-      // dW += bf16(x)^T . bf16(dz) over the tile's rows (one 16-deep k-step)
-      {
-        const int mt = warp & 3;
-        if (16 * mt < cn) {
+      // dW += bf16(x)^T . bf16(dz) over the tile's rows
+      if (16 * mt < cn) {
+#pragma unroll
+        for (int kk = 0; kk < kPairRows / 16; ++kk) {
           uint32_t af[4];
-          eegflow::ldmatrix_x4_trans(af, smem_addr(xs + ((lane & 7) + ((lane >> 4) << 3)) * ldx +
+          eegflow::ldmatrix_x4_trans(af, smem_addr(xs + (kk * 16 + (lane & 7) +
+                                                         ((lane >> 4) << 3)) * ldx +
                                                    16 * mt + ((lane >> 3) & 1) * 8));
 #pragma unroll
-          for (int jj = 0; jj < kWJJ; ++jj) {
+          for (int jj = 0; jj < 4; ++jj) {
             const int pr = (warp >> 2) + 4 * jj;
-            if (pr >= H / 16) continue;
+            if (pr >= Hh / 16) continue;
             uint32_t r[4];
             eegflow::ldmatrix_x4_trans(
-                r, smem_addr(dzs + ((lane & 7) + ((lane >> 3) & 1) * 8) * ldz + pr * 16 +
-                             (lane >> 4) * 8));
+                r, smem_addr(dzs + (kk * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * ldzb +
+                             pr * 16 + (lane >> 4) * 8));
             eegflow::mma_bf16(acc_w[jj][0], af, r[0], r[1]);
             eegflow::mma_bf16(acc_w[jj][1], af, r[2], r[3]);
           }
         }
       }
-      __syncthreads();  // the next tile overwrites xs, zs and dzs
-      EEGFLOW_INPUT_MARK(6);
+      EEGFLOW_INPUT_MARK(7);
+      eegflow::cluster_wait();  // (acquire) the partner's partial dx landed
+
+      // the CTA's channel blocks of dx: its partial + the partner's
+      if (owner == static_cast<int>(rank) && nb < cn) {
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+#pragma unroll
+          for (int rh = 0; rh < 2; ++rh) {
+            const int row = 16 * mt + 8 * rh + gq;
+            if (row >= tr) continue;
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int c = nb + 8 * j + 2 * q + e;
+              if (c < cn)
+                dx[static_cast<size_t>(row0 + row) * C + c0 + c] =
+                    accx[j][2 * rh + e] + inbox[row * kPairLdi + c - kPairDx * owner];
+            }
+          }
+      }
+      EEGFLOW_INPUT_MARK(8);
     }
 
-    // the pass's rows of the CTA's partial dW
+    // the pass's rows of the cluster's partial dW, the CTA's columns
     {
       const int mt = warp & 3;
 #pragma unroll
-      for (int jj = 0; jj < kWJJ; ++jj) {
+      for (int jj = 0; jj < 4; ++jj) {
         const int pr = (warp >> 2) + 4 * jj;
-        if (pr >= H / 16) continue;
+        if (pr >= Hh / 16) continue;
 #pragma unroll
         for (int j = 0; j < 2; ++j)
 #pragma unroll
           for (int rh = 0; rh < 2; ++rh) {
             const int c = 16 * mt + 8 * rh + gq;
             if (c < cn)
-              *reinterpret_cast<float2*>(out + static_cast<size_t>(c0 + c) * H + pr * 16 +
+              *reinterpret_cast<float2*>(out + static_cast<size_t>(c0 + c) * H + u0 + pr * 16 +
                                          8 * j + 2 * q) =
                   make_float2(acc_w[jj][j][2 * rh], acc_w[jj][j][2 * rh + 1]);
           }
       }
     }
   }
-  if (tid < H) {
-    out[static_cast<size_t>(C) * H + tid] = cdb;
-    out[static_cast<size_t>(C) * H + H + tid] = cdg;
-    out[static_cast<size_t>(C) * H + 2 * H + tid] = cdbt;
+
+  // db, dgamma, dbeta of the CTA's columns summed over the warps in order
+  eegflow::cp_async_wait<0>();
+  __syncthreads();  // no thread reads zs or dys any more
+  float* const red = zs;  // [kBWarps][2][Hh] dgamma, dbeta, over zs and dys
+#pragma unroll
+  for (int i = 0; i < kPairChunks; ++i) {
+    const int ch = lane + 32 * i;
+    if (ch >= hc) continue;
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      red[(2 * warp) * Hh + 4 * ch + e] = cdg[i][e];
+      red[(2 * warp + 1) * Hh + 4 * ch + e] = cdbt[i][e];
+    }
+  }
+  __syncthreads();
+  for (int i = tid; i < 3 * Hh; i += kBThreads) {
+    const int s = i / Hh, u = i - s * Hh;
+    float v = 0.f;
+    for (int wi = 0; wi < kBWarps; ++wi)
+      v += s == 0 ? dbs[wi * Hh + u] : red[(2 * wi + s - 1) * Hh + u];
+    out[static_cast<size_t>(C + s) * H + u0 + u] = v;
   }
 }
 
-size_t bwd_bf16_wide_smem_bytes(int H) {
-  return (static_cast<size_t>(kCP) * (H + 8) + static_cast<size_t>(kWTile) * (kCP + 8) +
-          static_cast<size_t>(kWTile) * (H + 8)) *
-             sizeof(__nv_bfloat16) +
-         (static_cast<size_t>(kWTile) * (H + 8) + 2 * static_cast<size_t>(kWTile) * H +
-          static_cast<size_t>(kWTile) * kCP) *
-             sizeof(float);
-}
+size_t bwd_wide_smem_bytes(int H) { return static_cast<size_t>(PairLayout(H).total) * 4; }
 
 bool bad_shape(int rows, int C, int H) {
   return rows <= 0 || C <= 0 || H <= 0 || H > kMaxH || H % 32 != 0;
 }
+
+// the bf16 backward's narrow class (one CTA a 64-row tile); the wide one beyond
+bool narrow_class(int C, int H) { return C <= kCP && H <= kMaxHB; }
+
+static_assert(kPair == eegflow::kWideCluster && kBThreads == eegflow::kWideThreads,
+              "the wide class launches as eegflow::launch_pairs does");
 
 }  // namespace
 
@@ -1442,29 +1671,39 @@ extern "C" int eegflow_input_block_fwd(const float* x, const float* w, const flo
 // bias, gamma, beta (H,) float32. Outputs dx (rows, C) and grads (C H + 3 H)
 // = [dW (C, H), db, dgamma, dbeta] float32, on `ctas` CTAs walking tiles of
 // tile_rows rows (the caller's plan, eegflow_torch/nn/cuda_input.py
-// bwd_plan: bf16 64 rows for C <= 64 and H <= 256, else 16; float32 32 rows,
-// or 16 for H > 256); ctas <= the tiles. part (ctas, C H + 3 H) float32
-// scratch, the CTAs' partial rows.
+// bwd_plan): bf16 C <= 64 and H <= 256 one CTA a 64-row tile, ctas <= the
+// tiles; bf16 beyond either ctas / 2 clusters of two CTAs a 64-row tile,
+// ctas / 2 <= the tiles; float32 32 rows, or 16 for H > 256, ctas <= the
+// tiles. part float32 scratch, the partial rows [dW, db, dgamma, dbeta] of
+// the CTAs (the clusters in the wide class), (C H + 3 H) floats each.
 extern "C" int eegflow_input_block_bwd(const float* x, const float* dy, const float* w,
                                        const float* bias, const float* gamma,
                                        const float* beta, float* dx, float* grads, float* part,
                                        int ctas, int tile_rows, int rows, int C, int H,
                                        int bf16, cudaStream_t stream) {
   if (bad_shape(rows, C, H) || ctas <= 0 || tile_rows <= 0 ||
-      ctas > (rows + tile_rows - 1) / tile_rows ||
       reinterpret_cast<uintptr_t>(dy) % 16 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0)
     return static_cast<int>(cudaErrorInvalidValue);
+  const int tiles = (rows + tile_rows - 1) / tile_rows;
+  int splits = ctas;  // partial rows
   cudaError_t err;
-  if (bf16) {
-    const bool narrow = C <= kCP && H <= kMaxHB;
-    if (tile_rows != (narrow ? kTile : kWTile)) return static_cast<int>(cudaErrorInvalidValue);
-    const size_t smem = narrow ? bwd_bf16_smem_bytes(H) : bwd_bf16_wide_smem_bytes(H);
-    auto kernel = narrow ? input_block_bwd_bf16_kernel : input_block_bwd_bf16_wide_kernel;
-    err = eegflow::allow_dynamic_smem(kernel, smem);
+  if (bf16 && narrow_class(C, H)) {
+    if (tile_rows != kTile || ctas > tiles) return static_cast<int>(cudaErrorInvalidValue);
+    const size_t smem = bwd_bf16_smem_bytes(H);
+    err = eegflow::allow_dynamic_smem(input_block_bwd_bf16_kernel, smem);
     if (err != cudaSuccess) return static_cast<int>(err);
-    kernel<<<ctas, kBThreads, smem, stream>>>(x, dy, w, bias, gamma, beta, dx, part, rows, C, H,
-                                              1e-5f);
+    input_block_bwd_bf16_kernel<<<ctas, kBThreads, smem, stream>>>(x, dy, w, bias, gamma, beta,
+                                                                   dx, part, rows, C, H, 1e-5f);
     err = cudaGetLastError();
+  } else if (bf16) {
+    if (tile_rows != kPairRows || ctas % kPair != 0 || ctas / kPair > tiles)
+      return static_cast<int>(cudaErrorInvalidValue);
+    splits = ctas / kPair;
+    err = eegflow::launch_pairs(input_block_bwd_wide_kernel, splits, bwd_wide_smem_bytes(H),
+                                stream, x, dy, w, bias, gamma, beta, dx, part, rows, C, H,
+                                1e-5f);
+  } else if (ctas > tiles) {
+    return static_cast<int>(cudaErrorInvalidValue);
   } else if (tile_rows == 32 && H <= 256) {
     err = launch_bwd_f32<32>(x, dy, w, bias, gamma, beta, dx, part, ctas, rows, C, H, stream);
   } else if (tile_rows == 16 && H > 256) {
@@ -1475,6 +1714,49 @@ extern "C" int eegflow_input_block_bwd(const float* x, const float* dy, const fl
   if (err != cudaSuccess) return static_cast<int>(err);
   const size_t count = (static_cast<size_t>(C) + 3) * H;
   eegflow::reduce_splits_kernel<<<static_cast<unsigned>((count + 255) / 256), 256, 0, stream>>>(
-      part, grads, ctas, count);
+      part, grads, splits, count);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The launch of the bf16 backward's row kernel for C and H, as
+// eegflow_input_block_bwd makes it: plan = {class (0 narrow, 1 wide), CTAs a
+// row tile (its cluster), rows a tile, dynamic shared memory a CTA in bytes,
+// the CTAs (narrow) or clusters (wide) the card holds at once}, and the
+// kernel's (mangled) name from the runtime.
+extern "C" int eegflow_input_block_bwd_bf16_plan(int C, int H, int* plan, const char** name) {
+  if (bad_shape(1, C, H)) return static_cast<int>(cudaErrorInvalidValue);
+  const bool narrow = narrow_class(C, H);
+  const size_t smem = narrow ? bwd_bf16_smem_bytes(H) : bwd_wide_smem_bytes(H);
+  plan[0] = narrow ? 0 : 1;
+  plan[1] = narrow ? 1 : kPair;
+  plan[2] = narrow ? kTile : kPairRows;
+  plan[3] = static_cast<int>(smem);
+  plan[4] = 0;
+  const void* kernel = narrow ? reinterpret_cast<const void*>(input_block_bwd_bf16_kernel)
+                              : reinterpret_cast<const void*>(input_block_bwd_wide_kernel);
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (narrow) {
+    int per_sm = 0, dev = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBThreads, smem);
+    if (err == cudaSuccess) err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    plan[4] = per_sm * sms;
+  } else {
+    cudaLaunchAttribute attr[1];
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = kPair;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cudaLaunchConfig_t cfg = {};
+    cfg.gridDim = dim3(kPair, 1, 1);
+    cfg.blockDim = dim3(kBThreads, 1, 1);
+    cfg.dynamicSmemBytes = smem;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+    err = cudaOccupancyMaxActiveClusters(&plan[4], kernel, &cfg);
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaFuncGetName(name, kernel));
 }

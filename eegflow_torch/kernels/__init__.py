@@ -125,10 +125,14 @@ _SIGNATURES = {
     # x, w, b, gamma, beta, y, ctas, tile_rows, rows, C, H, bf16, stream
     "eegflow_input_block_fwd": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P],
     # input_block.cu, kernel 10 (grid, tile and scratch from nn/cuda_input.py
-    # bwd_plan): x, dy, w, b, gamma, beta, dx, grads, part, ctas, tile_rows,
-    # rows, C, H, bf16, stream
+    # bwd_plan; the bf16 wide class in clusters of two CTAs): x, dy, w, b,
+    # gamma, beta, dx, grads, part, ctas, tile_rows, rows, C, H, bf16, stream
     "eegflow_input_block_bwd": [_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I,
                                 _I, _I, _I, _P],
+    # input_block.cu, kernel 10's bf16 launch for C and H: C, H, *plan (class,
+    # CTAs a row tile, rows a tile, shared memory a CTA, CTAs or clusters held
+    # at once), *name
+    "eegflow_input_block_bwd_bf16_plan": [_I, _I, _P, _P],
     # pool_head_fwd.cu, kernel 7 (and kernel 6: one part, use_ln=0, bf16=0;
     # w1: W1 in bf16 under bf16, else W1^T in float32):
     # x0, x1, d0, d1, gamma, beta, w1, b1, w2, ctx0, ctx1, scores,

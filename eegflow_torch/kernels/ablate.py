@@ -4,9 +4,11 @@ head, on the GPU.
 
     python -m eegflow_torch.kernels.ablate [--variant base|nomma|noexch|nostore|noload|noln|
                                                      nostream|onetf32|onedir|stamps|nodraw|
-                                                     nodraw_loader|rk4loop]
+                                                     nodraw_loader|rk4loop|phases|exactgelu|
+                                                     gbload]
                                            [--rows 16,32,48]
-                                           [--calls all|recurrent|head|filter|philox|rk4|steps]
+                                           [--calls all|recurrent|head|input|filter|philox|rk4|
+                                                    steps]
                                            [--csrc DIR] [--save FILE] [--against FILE]
 
 Builds the kernels from a copy of ``eegflow_torch/csrc`` with one part of
@@ -149,6 +151,28 @@ printed as cycles a CTA tile and shares::
     python -m eegflow_torch.kernels.ablate --calls head --variant phases
     python -m eegflow_torch.kernels.ablate --calls head --variant nostream
 
+``--calls input`` times kernels 9 and 10 at ``chip_smoke.py`` phase 19's
+shapes (B=512, T=256, C=61, H = 256 and 512): the bf16 forward, both classes
+of the bf16 backward (the narrow one at H = 256, the wide one, a cluster of
+two CTAs a 64-row tile, at H = 512) and the float32 backward, every launch
+by name (the row kernel and ``reduce_splits_kernel`` apart) and each call
+by CUDA events (the wrapper's host time included); it prints ptxas's report
+of the input-block kernels, the bf16 launch plans read from the C entry
+point, and at B = 1, T = 256, H = 512 how far the wide class and its twin
+lie from the float64 function (``input_block_bwd_f64``). ``noload`` zero-fills
+the x and dy copies of both bf16 classes, ``nomma`` takes out their three
+products, ``noexch`` turns the wide class's cluster barriers into CTA
+barriers, ``exactgelu`` and ``gbload`` are its row pass with the IEEE GELU
+derivative and with gamma and beta read from shared memory for each row, and
+``phases`` adds its SM cycles a tile by phase. ``--save``/``--against`` hold
+every output to another tree's bit for bit; keep the file off
+``chiprun_out/`` (at B=512 it outgrows what a chip call brings back). The
+parent's readings come from its own tree with this module copied over its
+``eegflow_torch/kernels/ablate.py`` (its wrapper plans its own tiles)::
+
+    python -m eegflow_torch.kernels.ablate --calls input --save /tmp/input.pt
+    python -m eegflow_torch.kernels.ablate --calls input --variant phases
+
 ``--calls steps`` times, with CUDA events, a bf16 micro-step of
 ``ModelConfig()`` at hidden 256 and 512 (B=512) and a classifier
 evaluation at B=1024, and the CLI stage ``ablate --hidden 512 --epochs 1`` on
@@ -268,8 +292,9 @@ extern "C" int eegflow_ablate_wide_marks(unsigned long long* host) {
 INPUT_MARKS_CODE = WIDE_MARKS_CODE.replace("EEGFLOW_WIDE_MARK", "EEGFLOW_INPUT_MARK").replace(
     "g_wide_", "g_input_").replace("eegflow_ablate_wide_marks", "eegflow_ablate_input_marks")
 #: the phases kernel 10's wide class marks close
-INPUT_PHASES = ["x and dy waited for", "x staged, z product", "row pass", "column sums",
-                "dx product", "dW product, barrier"]
+INPUT_PHASES = ["x waited for, barrier", "x staged, z product", "statistics, cluster barrier 1",
+                "dy waited for", "row pass 1, cluster barrier 2", "row pass 2, barrier",
+                "dx and dW products", "cluster barrier 3, dx stored"]
 #: the phases the marks close
 WIDE_PHASES = ["LN sums and barrier L", "y, y scratch, g . y", "proj product", "barrier A",
                "partial pushed, barrier B", "u, db1, dw2", "barrier C", "dy product",
@@ -459,6 +484,29 @@ VARIANTS = {
         ("pool_head_bwd.cu", '#include "pool_head_wide.cuh"',
          WIDE_MARKS_CODE + '#include "pool_head_wide.cuh"'),
         ("input_block.cu", '#include "common.cuh"', INPUT_MARKS_CODE + '#include "common.cuh"')],
+    # kernel 10's wide class reading gamma and beta from shared memory for each
+    # row in its row pass, not holding the lane's in registers
+    "gbload": [
+        ("input_block.cu",
+         "        gv[i][0] = g4.x, gv[i][1] = g4.y, gv[i][2] = g4.z, gv[i][3] = g4.w;\n"
+         "        bv[i][0] = b4.x, bv[i][1] = b4.y, bv[i][2] = b4.z, bv[i][3] = b4.w;\n",
+         "        gv[i][0] = gv[i][1] = gv[i][2] = gv[i][3] = 0.f;\n"
+         "        bv[i][0] = bv[i][1] = bv[i][2] = bv[i][3] = 0.f;\n"),
+        ("input_block.cu",
+         "          float o[4];\n#pragma unroll\n          for (int e = 0; e < 4; ++e) {\n"
+         "            const float xhat = (zv[e] - mu) * rsig;",
+         "          float o[4];\n          {\n"
+         "            const float4 g4 = *reinterpret_cast<const float4*>(gb + 4 * ch);\n"
+         "            const float4 b4 = *reinterpret_cast<const float4*>(gb + Hh + 4 * ch);\n"
+         "            gv[i][0] = g4.x, gv[i][1] = g4.y, gv[i][2] = g4.z, gv[i][3] = g4.w;\n"
+         "            bv[i][0] = b4.x, bv[i][1] = b4.y, bv[i][2] = b4.z, bv[i][3] = b4.w;\n"
+         "          }\n#pragma unroll\n          for (int e = 0; e < 4; ++e) {\n"
+         "            const float xhat = (zv[e] - mu) * rsig;")],
+    # kernel 10's wide class with the row pass's GELU derivative in IEEE
+    # division and expf (gelu_grad, the narrow class's) in place of the
+    # hardware's approximations (a few float32 ulp apart)
+    "exactgelu": [("input_block.cu", "dv[e] * gelu_grad_fast(xhat * gv[i][e] + bv[i][e]);",
+                   "dv[e] * gelu_grad(xhat * gv[i][e] + bv[i][e]);")],
     # kernel 11's point loss with the IEEE quotient (__fdiv_rn, a slow-path branch)
     "rk4fdiv": [("apf_rk4.cu", "p[j] = __fdividef(c[j], s);", "p[j] = __fdiv_rn(c[j], s);")],
     # kernel 11's clamp as max(y, 0) on the ALU pipe (FMNMX) against whole rate
@@ -491,26 +539,42 @@ VARIANTS = {
 # the parts of kernel 10's bf16 classes that "nomma" (the three products) and
 # "noload" (the HBM reads of x and dy: zero-filled copies) take out
 VARIANTS["nomma"] += [
-    ("input_block.cu", "z_pair_mma<4>(acc, xs, ldx, ws, ldw, warp, lane);", ""),
+    ("input_block.cu", "z_pair_mma<4>(acc, xs, ldx, ws, ldw, warp, lane);\n"
+     "      z_pair_store<4>(acc, zs, ldz, bias, warp, lane);",
+     "z_pair_store<4>(acc, zs, ldz, bias, warp, lane);"),
+    ("input_block.cu", "fetch_x(next);\n        if (warp < Hh / 16) z_pair_mma<4>",
+     "fetch_x(next);\n        if (warp < 0) z_pair_mma<4>"),
+    ("input_block.cu", "__syncthreads();\n          if (warp < Hh / 16) z_pair_mma<4>",
+     "__syncthreads();\n          if (warp < 0) z_pair_mma<4>"),
     ("input_block.cu", "\n        eegflow::mma_bf16(acc[0], af, r[0], r[1]);\n"
      "        eegflow::mma_bf16(acc[1], af, r[2], r[3]);", ""),
-    ("input_block.cu", "\n          eegflow::mma_bf16(acc[0], af, r[0], r[1]);\n"
-     "          eegflow::mma_bf16(acc[1], af, r[2], r[3]);", ""),
+    ("input_block.cu", "eegflow::mma_bf16(accx[0], af, r[0], r[1]);\n"
+     "          eegflow::mma_bf16(accx[1], af, r[2], r[3]);", ""),
     ("input_block.cu", "\n          eegflow::mma_bf16(acc_w[jj][0], af, r[0], r[1]);\n"
      "          eegflow::mma_bf16(acc_w[jj][1], af, r[2], r[3]);", ""),
     ("input_block.cu", "\n            eegflow::mma_bf16(acc_w[jj][0], af, r[0], r[1]);\n"
      "            eegflow::mma_bf16(acc_w[jj][1], af, r[2], r[3]);", "")]
+# kernel 10's wide class with its three cluster barriers a tile as CTA
+# barriers (the partner's sums and partial dx read unsynchronised: wrong
+# results), the exchange's cost
+VARIANTS["noexch"] += [
+    ("input_block.cu", "eegflow::pair_sync();  // both halves' sums of z landed",
+     "__syncthreads();"),
+    ("input_block.cu", "eegflow::pair_sync();  // both halves' sums of dxhat landed",
+     "__syncthreads();"),
+    ("input_block.cu", "eegflow::cluster_arrive();  // (release) the partial dx pushed", ""),
+    ("input_block.cu", "eegflow::cluster_wait();  // (acquire) the partner's partial dx landed",
+     "__syncthreads();")]
 VARIANTS["noload"] += [
     ("input_block.cu", "c < kTile * hc; c += kBThreads) {\n      const int r = c / hc, col = "
      "(c - r * hc) * 4;\n      const bool valid = row0 + r < rows;",
      "c < kTile * hc; c += kBThreads) {\n      const int r = c / hc, col = "
      "(c - r * hc) * 4;\n      const bool valid = false;"),
-    ("input_block.cu", "c < kWTile * hc; c += kBThreads) {\n      const int r = c / hc, col = "
-     "(c - r * hc) * 4;\n      const bool valid = row0 + r < rows;",
-     "c < kWTile * hc; c += kBThreads) {\n      const int r = c / hc, col = "
-     "(c - r * hc) * 4;\n      const bool valid = false;"),
+    ("input_block.cu", "const bool valid = row0 + r < rows;\n        eegflow::cp_async16("
+     "smem_addr(dys + r * Hh + col),",
+     "const bool valid = false;\n        eegflow::cp_async16(smem_addr(dys + r * Hh + col),"),
     ("input_block.cu", "n > 0 ? xt + 4 * c : x, 4 * n);", "x, 0);"),
-    ("input_block.cu", "n > 0 ? xsrc + 4 * c : x, 4 * n);", "x, 0);")]
+    ("input_block.cu", "n > 0 ? src + 4 * c : x, 4 * n);", "x, 0);")]
 
 
 def patched_sources(variant: str, into: Path, csrc=None) -> Path:
@@ -1224,6 +1288,12 @@ def main(argv=None) -> int:
         if args.calls == "input":
             for line in _ptxas_report(kernels.build_info.get("log", ""), "input_block"):
                 print(f"ptxas {line}", flush=True)
+            if hasattr(lib, "eegflow_input_block_bwd_bf16_plan"):  # not in older trees
+                from eegflow_torch.nn.cuda_input import input_block_bwd_bf16_plan
+
+                for channels, hidden in ((CHANNELS, 256), (CHANNELS, 512)):
+                    print(f"plan input_block_bwd bf16 C={channels} H={hidden}: "
+                          f"{input_block_bwd_bf16_plan(channels, hidden)}", flush=True)
         if args.calls == "philox":
             for line in _ptxas_report(kernels.build_info.get("log", ""),
                                       r"mma_gemm_kernel.*Mask(Philox|U8|Bits)|philox_keep_bits"):

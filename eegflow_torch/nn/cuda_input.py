@@ -22,7 +22,9 @@ layer applies the input dropout from explicit masks; its ``out_seed`` mode
 
 from __future__ import annotations
 
+import ctypes
 import math
+import re
 from typing import List, Mapping, NamedTuple, Tuple
 
 import torch
@@ -41,14 +43,17 @@ FWD_CTAS = 132
 FWD_WIDE_TILE_MAX_HIDDEN = 256
 #: kernel 10: its fixed persistent grid (one CTA of 16 warps on each of an
 #: H100's 132 SMs; a fixed count keeps the order of the partial sums, and so
-#: the result, the same on any card); the bf16 mode's row tile up to
-#: BWD_MAX_CHANNELS inputs and BWD_MAX_HIDDEN units, and its wide tile beyond
-#: either (a 64-row tile's float32 z and dy beside bf16 W would not fit in
-#: shared memory at H = 512); the float32 mode takes 32-row tiles up to
-#: FWD_WIDE_TILE_MAX_HIDDEN and 16-row tiles above it (float32 W, z and dy
-#: tiles of 32 rows would not fit in shared memory at H = 512)
+#: the result, the same on any card); the bf16 mode's rows a tile, one CTA a
+#: tile up to BWD_MAX_CHANNELS inputs and BWD_MAX_HIDDEN units (its narrow
+#: class) and beyond either a cluster of BWD_WIDE_CLUSTER CTAs a tile, each
+#: CTA half of the units (its wide class: a 64-row tile's float32 z and dy
+#: beside bf16 W would not fit in one CTA's shared memory at H = 512); the
+#: float32 mode takes 32-row tiles up to FWD_WIDE_TILE_MAX_HIDDEN and 16-row
+#: tiles above it (float32 W, z and dy tiles of 32 rows would not fit in
+#: shared memory at H = 512)
 BWD_CTAS = 132
-BWD_TILE_ROWS, BWD_WIDE_TILE_ROWS = 64, 16
+BWD_TILE_ROWS = 64
+BWD_WIDE_CLUSTER = 2
 BWD_MAX_CHANNELS, BWD_MAX_HIDDEN = 64, 256
 
 
@@ -83,35 +88,87 @@ def fwd_plan(rows: int, hidden: int) -> FwdPlan:
 
 
 class BwdPlan(NamedTuple):
-    """A launch of kernel 10: ``ctas`` CTAs, each taking ``tile_rows`` rows at
-    a time, and ``part`` floats of scratch: one partial row [dW, db, dgamma,
-    dbeta] a CTA, which a second launch adds in CTA order."""
+    """A launch of kernel 10: ``ctas`` CTAs in clusters of ``cluster`` (1: a
+    CTA alone), each cluster taking ``tile_rows`` rows at a time, and
+    ``part`` floats of scratch: one partial row [dW, db, dgamma, dbeta] a
+    cluster, which a second launch adds in cluster order."""
 
     ctas: int
+    cluster: int
     tile_rows: int
     part: int
 
+    @property
+    def clusters(self) -> int:
+        return self.ctas // self.cluster
+
     def tiles_of(self, cta: int, rows: int) -> List[Tuple[int, int]]:
-        return _tiles_of(cta, rows, self.ctas, self.tile_rows)
+        """(first row, rows) of each tile CTA ``cta`` walks: its cluster's."""
+        return _tiles_of(cta // self.cluster, rows, self.clusters, self.tile_rows)
+
+    def columns_of(self, cta: int, hidden: int) -> Tuple[int, int]:
+        """(first unit, units) of the columns of z, dy and dW that CTA ``cta``
+        owns: a cluster's CTAs split the ``hidden`` units evenly, in rank
+        order."""
+        n = hidden // self.cluster
+        return (cta % self.cluster) * n, n
 
 
 def bwd_plan(rows: int, channels: int, hidden: int, bf16: bool) -> BwdPlan:
     """Kernel 10's grid, tile and scratch for ``rows`` = B*T rows of
     ``channels`` inputs and ``hidden`` units; the wrapper allocates from it.
     Both modes take any C and kernel 9's widths (H % 32 == 0, H <= 512): the
-    bf16 mode on 64-row tiles for C <= 64 and H <= 256 and on 16-row tiles
-    beyond either, the float32 mode on 32-row tiles, 16-row above H = 256.
-    Raises ``ValueError`` for other widths; there is no other body."""
+    bf16 mode one CTA a 64-row tile for C <= 64 and H <= 256 and beyond
+    either a cluster of :data:`BWD_WIDE_CLUSTER` CTAs a 64-row tile (at most
+    ``BWD_CTAS / 2`` clusters), the float32 mode one CTA a 32-row tile,
+    16-row above H = 256. Raises ``ValueError`` for other widths; there is no
+    other body."""
     if hidden % 32 or not 0 < hidden <= 512:
         raise ValueError(f"input_block_bwd {'under bf16' if bf16 else 'in float32'} needs "
                          f"H % 32 == 0 and H <= 512; got C={channels}, H={hidden}")
+    cluster = 1
     if bf16:
-        narrow = channels <= BWD_MAX_CHANNELS and hidden <= BWD_MAX_HIDDEN
-        tile_rows = BWD_TILE_ROWS if narrow else BWD_WIDE_TILE_ROWS
+        tile_rows = BWD_TILE_ROWS
+        if channels > BWD_MAX_CHANNELS or hidden > BWD_MAX_HIDDEN:
+            cluster = BWD_WIDE_CLUSTER
     else:
         tile_rows = 32 if hidden <= FWD_WIDE_TILE_MAX_HIDDEN else 16
-    ctas = min(BWD_CTAS, -(-rows // tile_rows))
-    return BwdPlan(ctas, tile_rows, ctas * (channels + 3) * hidden)
+    clusters = min(BWD_CTAS // cluster, -(-rows // tile_rows))
+    return BwdPlan(clusters * cluster, cluster, tile_rows, clusters * (channels + 3) * hidden)
+
+
+class Bf16BwdPlan(NamedTuple):
+    """The launch that kernel 10's bf16 mode makes for C and H, as its C entry
+    point reports it: the wide class or the narrow one, its CTAs a row tile
+    (a cluster in the wide class), the rows a tile, the dynamic shared memory
+    of a CTA in bytes, how many of its CTAs (narrow) or clusters (wide) the
+    card holds at once, and the row kernel's name."""
+
+    wide: bool
+    cluster: int
+    tile_rows: int
+    smem: int
+    held: int
+    kernel: str
+
+
+def input_block_bwd_bf16_plan(channels: int, hidden: int) -> Bf16BwdPlan:
+    """Kernel 10's bf16 launch for C = ``channels`` and H = ``hidden``, read
+    from ``csrc/input_block.cu`` (``eegflow_input_block_bwd_bf16_plan``: the
+    constants and shared-memory layout its launch uses, the card's
+    ``cudaOccupancy`` answer, and the row kernel's identifier out of the name
+    ``cudaFuncGetName`` gives). Builds the kernels (CUDA only); raises as
+    :func:`bwd_plan` does for other widths."""
+    bwd_plan(1, channels, hidden, True)
+    lib = kernels.load_library()
+    plan, name = (ctypes.c_int * 5)(), ctypes.c_char_p()
+    kernels.check(lib, lib.eegflow_input_block_bwd_bf16_plan(channels, hidden, plan,
+                                                             ctypes.byref(name)),
+                  "input_block_bwd_bf16_plan")
+    mangled = name.value.decode()
+    ident = re.search(r"input_block_bwd_[a-z0-9_]*kernel", mangled)
+    return Bf16BwdPlan(bool(plan[0]), plan[1], plan[2], plan[3], plan[4],
+                       ident.group(0) if ident else mangled)
 
 
 def _erf(x: torch.Tensor) -> torch.Tensor:

@@ -13,14 +13,16 @@ import torch
 from eegflow_torch import kernels
 from eegflow_torch.core.config import CouplingConfig, ModelConfig, TrainConfig, TransformerConfig
 from eegflow_torch.core.prng import make_generator
-from eegflow_torch.kernels.ablate import WIDE_EDGE_PARTS, pool_head_bwd_f64, wide_head_case
+from eegflow_torch.kernels.ablate import (WIDE_EDGE_PARTS, input_block_bwd_f64,
+                                          pool_head_bwd_f64, wide_head_case)
 from eegflow_torch.couple.rollout import CoupledModel, predict_batch
 from eegflow_torch.nn.cuda_attention import (attention_pool, attention_pool_plain,
                                              pool_head_bwd, pool_head_bwd_bf16_plan,
                                              pool_head_bwd_plain, pool_head_fused,
                                              pool_head_fused_plain)
-from eegflow_torch.nn.cuda_input import (input_block_bwd, input_block_bwd_plain,
-                                         input_block_fused, input_block_fused_plain)
+from eegflow_torch.nn.cuda_input import (bwd_plan, input_block_bwd, input_block_bwd_bf16_plan,
+                                         input_block_bwd_plain, input_block_fused,
+                                         input_block_fused_plain)
 from eegflow_torch.nn.cuda_lstm import (counter, lstm_bwd, lstm_bwd_dualdir,
                                         lstm_bwd_dualdir_plain,
                                         lstm_bwd_plain, lstm_bwd_v2, lstm_bwd_v2_plain,
@@ -1088,11 +1090,11 @@ def test_input_block_bwd_bf16_on_tensor_cores_matches_twin_and_repeats_bitwise(d
 @pytest.mark.parametrize("channels,hidden", [(61, 512), (130, 512), (130, 256), (7, 288)])
 @pytest.mark.parametrize("batch,steps", [(5, 37), (40, 256)])
 def test_input_block_bwd_bf16_takes_kernel_9s_widths(dev, channels, hidden, batch, steps):
-    """Kernel 10's wide bf16 class (16-row tiles): H = 512 at the
-    classifier's C = 61 and at C = 130 (three channel chunks: a pass over the
-    tiles per chunk), C = 130 at H = 256 and H = 288 (not a multiple of 64),
-    on ragged rows (185) and on rows spanning more tiles than its persistent
-    grid holds (10240 rows: 640 tiles on 132 CTAs)."""
+    """Kernel 10's wide bf16 class (a cluster of two CTAs a 64-row tile):
+    H = 512 at the classifier's C = 61 and at C = 130 (three channel chunks:
+    a pass over the tiles per chunk), C = 130 at H = 256 and H = 288 (not a
+    multiple of 64), on ragged rows (185) and on rows spanning more tiles
+    than its persistent grid holds (10240 rows: 160 tiles on 66 clusters)."""
     gen = make_generator(260 + channels + hidden)
     proj, norm, x = _input_case(gen, hidden, dev, batch=batch, steps=steps, channels=channels)
     dy = _randn(gen, batch, steps, hidden, dev=dev)
@@ -1104,6 +1106,66 @@ def test_input_block_bwd_bf16_takes_kernel_9s_widths(dev, channels, hidden, batc
     torch.cuda.synchronize()
     for a, w in zip(got, want):
         assert a.shape == w.shape and bool(torch.isfinite(a).all()) and _rel(a, w) <= BWD_REL_TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_input_block_bwd_bf16_plan_reads_both_classes(dev):
+    """Kernel 10's bf16 launch as its C entry point makes it: the narrow
+    class at the classifier's C = 61, H = 256 (one CTA a 64-row tile) and
+    the wide class at H = 512 (a cluster of two CTAs a 64-row tile, each
+    under the 227 KB a CTA may have), as ``bwd_plan`` plans them, with the
+    card holding every cluster of the plan at once."""
+    narrow, wide = input_block_bwd_bf16_plan(61, 256), input_block_bwd_bf16_plan(61, 512)
+    assert (narrow.wide, narrow.cluster, narrow.tile_rows) == (False, 1, 64)
+    assert narrow.kernel == "input_block_bwd_bf16_kernel"
+    assert (wide.wide, wide.cluster, wide.tile_rows) == (True, 2, 64)
+    assert wide.kernel == "input_block_bwd_wide_kernel" and wide.smem <= 232_448
+    plan = bwd_plan(512 * 256, 61, 512, True)
+    assert (plan.cluster, plan.tile_rows) == (wide.cluster, wide.tile_rows)
+    assert wide.held >= plan.clusters
+
+
+@pytest.mark.parametrize("channels,hidden,batch,steps", [
+    (61, 512, 1, 37), (61, 512, 1, 1), (61, 512, 300, 1), (61, 512, 67, 127),
+    (130, 288, 5, 37), (130, 288, 40, 256), (130, 288, 1, 1)])
+def test_input_block_bwd_wide_cluster_at_its_edges(dev, channels, hidden, batch, steps):
+    """Kernel 10's wide class at the edges of its plan: B = 1 (one ragged
+    tile of 37 rows; 1 row), T = 1 (300 rows: 5 tiles), a tile count odd
+    against the 66 clusters (67 x 127 = 8509 rows: 133 tiles, cluster 0
+    takes three), and H = 288 (halves of 144 columns, 9 z pairs a CTA) at
+    C = 130 (three channel passes); against the twin, finite, one launch a
+    call, bitwise on repeat."""
+    gen = make_generator(500 + channels + hidden + batch + steps)
+    proj, norm, x = _input_case(gen, hidden, dev, batch=batch, steps=steps, channels=channels)
+    dy = _randn(gen, batch, steps, hidden, dev=dev)
+    before = kernels.launch_counts["input_block_bwd"]
+    got = input_block_bwd(proj, norm, x, dy, True)
+    again = input_block_bwd(proj, norm, x, dy, True)
+    assert kernels.launch_counts["input_block_bwd"] == before + 2
+    want = input_block_bwd_plain(proj, norm, x, dy, True)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and bool(torch.isfinite(a).all()) and _rel(a, w) <= BWD_REL_TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_input_block_bwd_wide_on_one_long_row(dev, seed):
+    """Kernel 10's wide class at B = 1, T = 256, C = 61, H = 512 (four row
+    tiles on four clusters), held to its function in float64 (x, W and dz
+    rounded to bf16 where the twin rounds them,
+    ``kernels.ablate.input_block_bwd_f64``): with 256 rows in dW, a dz that a
+    float32 side rounds the other way at a bf16 tie moves dW by ~1e-3 of its
+    largest entry on either side. Bitwise on repeat."""
+    gen = make_generator(700 + seed)
+    proj, norm, x = _input_case(gen, 512, dev, batch=1, steps=256)
+    dy = _randn(gen, 1, 256, 512, dev=dev)
+    got, again = input_block_bwd(proj, norm, x, dy, True), input_block_bwd(proj, norm, x, dy, True)
+    want = input_block_bwd_f64(proj, norm, x, dy)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and bool(torch.isfinite(a).all())
+        assert _rel(a.double(), w) <= BWD_REL_TOL
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 

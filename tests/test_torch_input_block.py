@@ -10,10 +10,11 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_threads import one_torch_thread  # noqa: F401
 
 from eegflow.nn.pallas_input import input_block_fused as jax_input_block
 from eegflow_torch.nn.cuda_input import (BWD_CTAS, BWD_MAX_CHANNELS, BWD_MAX_HIDDEN,
-                                         BWD_TILE_ROWS, BWD_WIDE_TILE_ROWS, FWD_CTAS, bwd_plan,
+                                         BWD_TILE_ROWS, BWD_WIDE_CLUSTER, FWD_CTAS, bwd_plan,
                                          fwd_plan, input_block, input_block_bwd,
                                          input_block_bwd_plain, input_block_fused,
                                          input_block_fused_plain)
@@ -109,9 +110,9 @@ def test_bwd_plan_owns_every_row_tile_once_and_sizes_the_scratch(rows, bf16):
     tiles (tile i of CTA c: i = c, c + ctas, ..) cover every row exactly once
     and every CTA owns at least one, also where the rows span more tiles than
     the persistent grid holds (8449 rows); 64-row tiles under bf16, 32-row
-    tiles in float32 at the classifier's H = 256; the scratch holds one
-    partial row [dW, db, dgamma, dbeta] a CTA in both modes, and nothing of
-    size B*T x H."""
+    tiles in float32 at the classifier's H = 256, one CTA a tile in both
+    modes; the scratch holds one partial row [dW, db, dgamma, dbeta] a CTA in
+    both modes, and nothing of size B*T x H."""
     channels, hidden = 61, 256
     plan = bwd_plan(rows, channels, hidden, bf16)
     owned = np.zeros(rows, np.int64)
@@ -122,7 +123,8 @@ def test_bwd_plan_owns_every_row_tile_once_and_sizes_the_scratch(rows, bf16):
             assert row0 % plan.tile_rows == 0 and 0 < n <= plan.tile_rows
             owned[row0:row0 + n] += 1
     assert (owned == 1).all()
-    assert plan._fields == ("ctas", "tile_rows", "part")
+    assert plan._fields == ("ctas", "cluster", "tile_rows", "part")
+    assert plan.cluster == 1 and plan.clusters == plan.ctas
     assert plan.tile_rows == (BWD_TILE_ROWS if bf16 else 32)
     assert plan.ctas == min(BWD_CTAS, -(-rows // plan.tile_rows))
     assert plan.part == plan.ctas * (channels * hidden + 3 * hidden)
@@ -143,23 +145,58 @@ def test_bwd_plan_rejects_widths_off_the_bf16_tiles(channels, hidden):
                                              (130, 288), (7, 512), (64, 256), (130, 32)])
 @pytest.mark.parametrize("rows", [185, 8449, 131072])
 def test_bwd_plan_bf16_takes_kernel_9s_widths_on_their_tiles(rows, channels, hidden):
-    """The bf16 mode's wide class: beyond C = 64 or H = 256 (the widths the
-    64-row tiles take) it runs 16-row tiles, each row tile owned once by a
-    CTA that owns at least one, one partial row a CTA; C <= 64 and H <= 256
-    keep the 64-row tiles."""
+    """The bf16 mode's wide class: beyond C = 64 or H = 256 (the widths one
+    CTA's 64-row tile takes) it runs clusters of two CTAs a 64-row tile, at
+    most BWD_CTAS / 2 of them, each row tile owned once by a cluster that
+    owns at least one, one partial row a cluster; C <= 64 and H <= 256 keep
+    one CTA a tile."""
     plan = bwd_plan(rows, channels, hidden, True)
     narrow = channels <= BWD_MAX_CHANNELS and hidden <= BWD_MAX_HIDDEN
-    assert plan.tile_rows == (BWD_TILE_ROWS if narrow else BWD_WIDE_TILE_ROWS)
-    assert plan.ctas == min(BWD_CTAS, -(-rows // plan.tile_rows))
-    assert plan.part == plan.ctas * (channels + 3) * hidden
+    assert plan.tile_rows == BWD_TILE_ROWS
+    assert plan.cluster == (1 if narrow else BWD_WIDE_CLUSTER)
+    assert plan.clusters == min(BWD_CTAS // plan.cluster, -(-rows // plan.tile_rows))
+    assert plan.ctas == plan.clusters * plan.cluster <= BWD_CTAS
+    assert plan.part == plan.clusters * (channels + 3) * hidden
     owned = np.zeros(rows, np.int64)
-    for cta in range(plan.ctas):
+    for cta in range(0, plan.ctas, plan.cluster):
         tiles = plan.tiles_of(cta, rows)
         assert tiles
         for row0, n in tiles:
             assert row0 % plan.tile_rows == 0 and 0 < n <= plan.tile_rows
             owned[row0:row0 + n] += 1
     assert (owned == 1).all()
+
+
+@pytest.mark.parametrize("channels,hidden", [(61, 512), (61, 288), (130, 288), (65, 256),
+                                             (7, 512), (130, 32)])
+@pytest.mark.parametrize("rows", [1, 64, 65, 185, 4223, 8449, 131072])
+def test_bwd_plan_wide_cluster_splits_the_tiles_and_the_units(rows, channels, hidden):
+    """The wide class's cluster plan: every row tile is owned once by one
+    cluster (66 tiles at 4223 rows, one a cluster; 133 at 8449 rows, odd
+    against the 66 clusters, the first taking three), both CTAs of a
+    cluster walk the same tiles, and their column halves cover H exactly, in
+    rank order, each a whole number of 16-column z pairs (144 columns at
+    H = 288); the widths off the kernel still raise."""
+    plan = bwd_plan(rows, channels, hidden, True)
+    assert plan.cluster == BWD_WIDE_CLUSTER == 2 and plan.ctas % 2 == 0
+    owner = np.full(-(-rows // plan.tile_rows), -1, np.int64)
+    for cta in range(plan.ctas):
+        tiles = plan.tiles_of(cta, rows)
+        assert tiles == plan.tiles_of(cta - cta % 2, rows)  # the cluster's
+        for row0, _ in tiles:
+            k = row0 // plan.tile_rows
+            assert owner[k] in (-1, cta // 2)
+            owner[k] = cta // 2
+        covered = np.zeros(hidden, np.int64)
+        for c in range(cta - cta % 2, cta - cta % 2 + 2):
+            u0, n = plan.columns_of(c, hidden)
+            assert u0 == (c % 2) * n and n % 16 == 0
+            covered[u0:u0 + n] += 1
+        assert (covered == 1).all()
+    assert (owner >= 0).all()
+    for bad in (0, 48, 544, 1024):
+        with pytest.raises(ValueError, match="H % 32 == 0 and H <= 512"):
+            bwd_plan(rows, channels, bad, True)
 
 
 @pytest.mark.parametrize("channels", [7, 61, 130])

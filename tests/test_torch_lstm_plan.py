@@ -178,7 +178,8 @@ def test_plan_rejects_rows_outside_the_kernels_tiles(rows):
 
 @pytest.mark.parametrize("variant", ["base", "nomma", "noexch", "nostore", "noload", "noln",
                                      "nostream", "onetf32", "onedir", "stamps", "nodraw",
-                                     "rk4loop", "rk4fdiv", "rk4fmax", "phases"])
+                                     "rk4loop", "rk4fdiv", "rk4fmax", "phases", "exactgelu",
+                                     "gbload"])
 def test_ablation_variants_patch_the_current_sources(variant, tmp_path):
     """Each text an ablation replaces occurs once in today's kernel sources,
     so the variant builds what its name says."""
