@@ -165,10 +165,10 @@ products, ``noexch`` turns the wide class's cluster barriers into CTA
 barriers, ``exactgelu`` and ``gbload`` are its row pass with the IEEE GELU
 derivative and with gamma and beta read from shared memory for each row, and
 ``phases`` adds its SM cycles a tile by phase. ``--save``/``--against`` hold
-every output to another tree's bit for bit; keep the file off
-``chiprun_out/`` (at B=512 it outgrows what a chip call brings back). The
-parent's readings come from its own tree with this module copied over its
-``eegflow_torch/kernels/ablate.py`` (its wrapper plans its own tiles)::
+every output to another tree's bit for bit (the file holds every output at
+B=512, over 100 MB). The parent's readings come from its own tree with this
+module copied over its ``eegflow_torch/kernels/ablate.py`` (its wrapper plans
+its own tiles)::
 
     python -m eegflow_torch.kernels.ablate --calls input --save /tmp/input.pt
     python -m eegflow_torch.kernels.ablate --calls input --variant phases
