@@ -88,13 +88,18 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      and lstm_bwd_dualdir without dropout to two lstm_bwd launches bit for
      bit; then one cuDNN LSTM call per LSTM kernel at its shape as a
      yardstick (never on the port's path).
- 16. kernels 11 and 12 against their twins: apf_rk4 (a DE population of 90,
-     200 points, 16 substeps) in trajectory mode, loss mode and loss mode
-     with tangents, each bitwise repeatable, and its cycles a step from the
-     loss mode's time and the SM clock; its DE mode (apf_de) against its
-     twin, the loop of generations on the loss mode, bit for bit and
-     repeated, at 513 points: a population of 90 that converges, 64 not
-     dividing 100 generations, n = 18 and 90; sos_filtfilt on 61 x 20,000
+ 16. kernels 3, 3b and 4 and the narrow bf16 classes of kernels 8 and 10 at
+     B=1, T=256 against their functions in float64 (kernels.ablate), both
+     sides' distances printed; kernels 11 and 12 against their twins:
+     apf_rk4 (a DE population of 90, 200 points, 16 substeps) in trajectory
+     mode, loss mode and loss mode with tangents, each bitwise repeatable,
+     and its cycles a step from the loss mode's time and the SM clock; its
+     DE mode (apf_de) against its twin, the loop of generations on the loss
+     mode, bit for bit and repeated, at 513 points: a population of 90 that
+     converges, 64 not dividing 100 generations, n = 18, 90, 1,026 and 3,000
+     (the grid class over 33 and 94 CTAs, chunks of 63 and 7 by the draws'
+     byte budget); the plan from C and the ms a generation at n = 90, 1,026
+     and 3,000, and the one-CTA class by name at 90 and 1,024; sos_filtfilt on 61 x 20,000
      samples (bitwise repeatable), and bandpass_filter(method="filtfilt") on a
      61 x 60,000 recording against scipy's float64 filtfilt; their times
      beside their chain bounds;
@@ -358,9 +363,17 @@ APF_TRAJ_TOL = 1e-6
 APF_CANDIDATES, APF_POINTS, APF_SUBSTEPS = 90, 200, 16
 # kernel 11's DE mode against its twin at the fit's 513 points:
 # (popsize, generations, tol) of a population of 90 that converges, 64 not
-# dividing 100 generations at n = 18, and all 100 at n = 90
+# dividing 100 generations at n = 18, all 100 at n = 90, 63 (the chunk at
+# n = 1,026) not dividing 150, and 7 (the chunk at n = 3,000, 94 CTAs of the
+# grid class) not dividing 40
 APF_DE_POINTS = 513
-APF_DE_CASES = ((15, 600, 5e-2), (3, 100, 1e-7), (15, 100, 1e-7))
+APF_DE_CASES = ((15, 600, 5e-2), (3, 100, 1e-7), (15, 100, 1e-7), (171, 150, 1e-7),
+                (500, 40, 1e-7))
+# kernel 11's DE mode timed a generation (a chunk at tol -1, every generation
+# run) at these populations: the default fit's, a popsize of 171 and of 500;
+# the one-CTA class by name at the populations it takes
+APF_DE_TIMED = (90, 1026, 3000)
+APF_DE_ONE_CTA_TIMED = (90, 1024)
 # kernel 12 (sos_filtfilt) vs its twin, relative to the output's scale: the
 # same roundings (the multiply-adds written out on both sides); vs scipy's
 # float64 filtfilt: the float32 recursion floor (the JAX package's bound)
@@ -707,9 +720,10 @@ def de_against_twin(label, loss, dev, popsize, maxiter, tol, seed, smi):
     clock to a synchronize."""
     from eegflow_torch import kernels
     from eegflow_torch.core.config import ODEConfig
-    from eegflow_torch.fit.evolution import DE_CHUNK, _de_minimize, _de_minimize_chunked
+    from eegflow_torch.fit.evolution import _de_minimize, _de_minimize_chunked, de_chunk_length
 
     lo, hi = (torch.tensor(v, dtype=torch.float32, device=dev) for v in zip(*ODEConfig().bounds))
+    chunk = de_chunk_length(popsize * 6)
 
     def run(fn):
         gen = torch.Generator(device=dev)
@@ -727,12 +741,13 @@ def de_against_twin(label, loss, dev, popsize, maxiter, tol, seed, smi):
     launches = dict(kernels.launch_counts)
     again, _ = run(_de_minimize_chunked)
     gens = got[2]
-    chunks = gens // DE_CHUNK + 1 if gens < maxiter else -(-maxiter // DE_CHUNK)
+    chunks = gens // chunk + 1 if gens < maxiter else -(-maxiter // chunk)
     same = gens == twin[2] == again[2] and all(
         torch.equal(a, b) for a, b in ((got[0], twin[0]), (got[1], twin[1]), (got[0], again[0]),
                                        (got[1], again[1])))
-    print(f"apf_de {label}: n={popsize * 6}, {gens} of {maxiter} generations (tol {tol:g}; "
-          f"{'converged inside chunk ' + str(gens // DE_CHUNK + 1) if gens < maxiter else 'all run'}"
+    print(f"apf_de {label}: n={popsize * 6}, {gens} of {maxiter} generations in chunks of "
+          f"{chunk} (tol {tol:g}; "
+          f"{'converged inside chunk ' + str(gens // chunk + 1) if gens < maxiter else 'all run'}"
           f"), best loss {got[1].item():.9g}; equal to its twin (the loop on the loss mode) bit for "
           f"bit: {same}, launches {launches}; DE {de_s * 1e3:.1f} ms, twin {twin_s * 1e3:.1f} ms "
           f"(host clock) [{smi}]", flush=True)
@@ -740,6 +755,85 @@ def de_against_twin(label, loss, dev, popsize, maxiter, tol, seed, smi):
             f"apf_de {label} equals its twin bit for bit, repeats, {chunks} DE launches")
     err = max((got[0] - twin[0]).abs().max().item(), (got[1] - twin[1]).abs().item())
     return de_s, twin_s, gens, launches.get("apf_de", 0), err
+
+
+def bwd_f64_holds(dev, smi):
+    """Kernels 3, 3b and 4 (H = 256, two parts of 256) and the narrow bf16
+    classes of kernels 8 (D = 512, K = 256) and 10 (C = 61, H = 256) at B = 1,
+    T = 256 against their functions in float64 (``kernels.ablate``): at one
+    long row a bf16 tie that a float32 side rounds the other way moves a
+    256-row dW by ~1e-3 of its largest entry, so a twin is no yardstick
+    there. Each kernel is held to BWD_REL_TOL; both sides' distances are
+    printed."""
+    from eegflow_torch.kernels.ablate import lstm_bwd_f64_holds, narrow_bwd_f64_holds
+
+    for name, (kernel, twin) in {**lstm_bwd_f64_holds(dev), **narrow_bwd_f64_holds(dev)}.items():
+        print(f"{name} bf16 B=1 T=256 against its float64 function: kernel {kernel:.3e}, twin "
+              f"{twin:.3e} (relative to each gradient's largest entry; tol {BWD_REL_TOL:g}) "
+              f"[{smi}]", flush=True)
+        require(kernel <= BWD_REL_TOL, f"{name} at B=1 holds to its float64 function")
+
+
+def de_generation_ms(loss, dev, n, de_class=-1, seed=0):
+    """Kernel 11's DE mode on n members of a Latin hypercube in the default
+    bounds, one chunk of ``de_chunk_length(n)`` generations at tol -1 (no
+    generation passes the convergence test, all run), timed by CUDA events
+    (median of 3 after a warm-up) -> (ms a generation, generations a chunk,
+    the plan from C)."""
+    from eegflow_torch.core.config import ODEConfig
+    from eegflow_torch.fit.evolution import _draw_generations, _latin_hypercube, de_chunk_length
+    from eegflow_torch.ode.cuda_ode import de_generations, de_plan
+
+    lo, hi = (torch.tensor(v, dtype=torch.float32, device=dev) for v in zip(*ODEConfig().bounds))
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(SEED + seed)
+    pop0 = _latin_hypercube(gen, n, lo, hi).contiguous()
+    with torch.no_grad():
+        fit0 = loss(pop0).contiguous()
+    gens = de_chunk_length(n)
+    draws = _draw_generations(gen, n, 6, gens, dev)
+    pop, fit = pop0.clone(), fit0.clone()
+
+    def chunk():
+        pop.copy_(pop0)
+        fit.copy_(fit0)
+        return de_generations(pop, fit, lo, hi, draws, loss.y0, loss.observed, loss.substeps,
+                              loss.steps, loss.reg_weight, -1.0, de_class=de_class)
+
+    status = chunk()
+    require(status.tolist() == [gens, 0], f"apf_de n={n} class {de_class} runs its {gens} "
+                                          f"generations")
+    times = []
+    for _ in range(3):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        chunk()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end))
+    return sorted(times)[1] / gens, gens, de_plan(n, loss.substeps, de_class)
+
+
+def de_class_timings(loss, dev, smi, chain):
+    """Kernel 11's DE mode a generation at the populations of APF_DE_TIMED in
+    the class its plan picks, and in the one-CTA class by name at those of
+    APF_DE_ONE_CTA_TIMED, each with its plan from C, beside the loss mode's
+    chain bound ``chain`` (ms a generation) -> {n: (ms, plan)} of the plan's
+    class."""
+    out = {}
+    for n in APF_DE_TIMED:
+        ms, gens, plan = de_generation_ms(loss, dev, n)
+        out[n] = (ms, plan)
+        print(f"apf_de n={n}: plan from C {plan._asdict()}; {ms:.4f} ms a generation (a chunk of "
+              f"{gens}, CUDA events, median of 3), {ms / chain:.2f}x the loss mode's "
+              f"{chain:.3f} ms chain bound [{smi}]", flush=True)
+    for n in APF_DE_ONE_CTA_TIMED:
+        ms, gens, plan = de_generation_ms(loss, dev, n, de_class=0)
+        grid_ms = de_generation_ms(loss, dev, n, de_class=1)[0]
+        print(f"apf_de n={n}: the one-CTA class ({plan.kernel}, {plan.threads} threads) "
+              f"{ms:.4f} ms a generation, the grid class {grid_ms:.4f} ms, timed in one call "
+              f"[{smi}]", flush=True)
+    return out
 
 
 def kernel_check_phase(dev, smi):
@@ -821,6 +915,8 @@ def kernel_check_phase(dev, smi):
                                         f"points", de_loss, dev, popsize, maxiter, tol,
                                         SEED + i, smi)
         require((gens < maxiter) == (tol > 1e-3), f"apf_de case {i + 1} converged as planned")
+    out["de_classes"] = de_class_timings(de_loss, dev, smi,
+                                         chain_ms(fit_steps * APF_CHAIN_OPS_PER_STEP, clock[1]))
 
     # kernel 12 on one recording, as bandpass_filter(method="filtfilt") gives it
     b, a = butter_bandpass(1.0, 45.0, 500.0, 4)
@@ -4014,9 +4110,11 @@ def main() -> int:
           f"{products:.3f} ms [{smi}]", flush=True)
     del dd_args, res_f, res_r, h_f, h_r
 
-    # phase 16: kernels 11 and 12 against their twins; phase 17: the pipeline; phases
-    # 18-21: the analysis, ablate, EEGFormer and explore phases on its artifacts
+    # phase 16: the bf16 backwards at one long row against their float64 functions,
+    # kernels 11 and 12 against their twins; phase 17: the pipeline; phases 18-21:
+    # the analysis, ablate, EEGFormer and explore phases on its artifacts
     t_new = time.perf_counter()
+    bwd_f64_holds(dev, smi)
     checks = kernel_check_phase(dev, smi)
     with tempfile.TemporaryDirectory(prefix="eegflow_chip_pipeline_") as tmp:
         pipe = pipeline_phase(dev, smi, Path(tmp))
@@ -4403,10 +4501,14 @@ def main() -> int:
               pipe["apf_launches"], apf_err, apf_ms, apf_plain_ms,
               chain_bound_ms=apf_chain, back_to_back_ms=apf_b2b),
         # a launch of the DE mode: a chunk of generations (its error that of the
-        # whole fit's DE against its twin); its numbers per generation beside
+        # whole fit's DE against its twin); its numbers per generation beside,
+        # and the class each timed population took, with its ms a generation
         entry("apf_de", "apf_rk4.cu", "eegflow/fit/evolution.py:83-134 (_de_minimize's "
               "lax.while_loop over generations)", pipe["apf_de_launches"], apf_de.pop("err"),
-              apf_de.pop("ms"), apf_de.pop("plain_ms"), **apf_de),
+              apf_de.pop("ms"), apf_de.pop("plain_ms"), **apf_de,
+              classes={str(n): {"kernel": plan.kernel, "ctas": plan.ctas,
+                                "ms_per_generation": ms}
+                       for n, (ms, plan) in checks["de_classes"].items()}),
         entry("sos_filtfilt", "sos_filter.cu", "eegflow/signal/filters.py:96-138 (_sos_scan "
               "lax.scan, _filtfilt_core)", checks["sos_launches"], checks["sos_err"],
               *checks["sos_ms"], chain_bound_ms=checks["sos_chain_ms"]),

@@ -37,21 +37,31 @@
 //   fit loss and its gradient: forward tangents dy/dk through every RK4
 //     stage, the clamp at 0 (slope 0 at 0), the clip and the
 //     renormalisation give the exact gradient of that discrete loss;
-//   DE (apf_de_kernel): one CTA holds the population (pop, fit) in shared
-//     memory and runs up to G generations of best1bin DE on random numbers
-//     the host drew for them, stopping early when the population converges.
+//   DE: up to G generations of best1bin DE on random numbers the host drew
+//     for them, stopping early when the population converges, in one of two
+//     classes (eegflow_apf_de_plan says which a population takes):
+//     apf_de_kernel, one CTA holding the population (pop, fit) in shared
+//     memory, a thread a member, up to 1,024 members; apf_de_grid_kernel, a
+//     cooperative grid of 32 members a CTA over any population the card
+//     holds at once, the population double-buffered in global memory (L2),
+//     one grid barrier a generation.
 // The loss is written with rounding intrinsics, so every mode and the DE
 // give the same bits for the same candidate. The plain twins
 // (eegflow_torch/ode/cuda_ode.py, eegflow_torch/fit/evolution.py) keep the
 // step's expression order; they differ from the loss modes by FMA
 // contraction and the order of the field's 3-term sums, and the DE's twin
 // (the generation loop on the loss mode) equals the DE mode bit for bit.
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+#include <climits>
 
 namespace {
 
 constexpr int kThreads = 64;    // loss and trajectory modes: candidates a CTA
 constexpr int kMaxPop = 1024;   // DE mode: the largest population one CTA holds
+constexpr int kGridMembers = 32;  // DE mode, grid class: members a CTA (one warp)
+constexpr int kGridThreads = 64;  // and its service warp
 constexpr int kRates = 6;
 constexpr int kFastSubsteps = 16;  // the fit's substeps, compiled unrolled
 // rate r moves mass from state src(r) to dst(r) (k_ap A->P, k_af A->F,
@@ -340,7 +350,7 @@ apf_de_kernel(float* __restrict__ pop, float* __restrict__ fit, int n,
               const float* __restrict__ cr, const long long* __restrict__ jr, int gens,
               double tol, double atol, const float* __restrict__ y0,
               const float* __restrict__ obs, int n_points, int substeps, StepSizes st,
-              float reg_weight, int* __restrict__ status) {
+              float reg_weight, int* __restrict__ status, float* __restrict__ /*work*/) {
   extern __shared__ float smem[];
   float* const s_pop = smem;                       // (n, 6)
   float* const s_trial = smem + kRates * n;        // (n, 6)
@@ -421,6 +431,281 @@ apf_de_kernel(float* __restrict__ pop, float* __restrict__ fit, int n,
   }
 }
 
+// The grid class's pieces. A member's two partners are the two least of its
+// row of draws in the order (draw, index), which is the stable sort's: each
+// lane scans its columns in increasing order and the lanes' pairs merge in
+// any order, every index being distinct (the sentinels, draws of 2 past the
+// row's end, never reach the top two of a row of n >= 3).
+struct Least2 {
+  float v1, v2;
+  int i1, i2;
+};
+
+__device__ __forceinline__ bool before(float a, int ia, float b, int ib) {
+  return a < b || (a == b && ia < ib);
+}
+
+__device__ __forceinline__ Least2 merge_least2(const Least2& a, const Least2& b) {
+  Least2 r;
+  if (before(b.v1, b.i1, a.v1, a.i1)) {
+    r.v1 = b.v1, r.i1 = b.i1;
+    const bool b2 = before(b.v2, b.i2, a.v1, a.i1);
+    r.v2 = b2 ? b.v2 : a.v1, r.i2 = b2 ? b.i2 : a.i1;
+  } else {
+    r.v1 = a.v1, r.i1 = a.i1;
+    const bool b1 = before(b.v1, b.i1, a.v2, a.i2);
+    r.v2 = b1 ? b.v1 : a.v2, r.i2 = b1 ? b.i1 : a.i2;
+  }
+  return r;
+}
+
+// Member i's partners from its row of n draws, read by the whole warp
+// (coalesced), its own column skipped; every lane returns the pair. A lane
+// loads kScanBatch columns before it compares any: the scan is bound by the
+// loads' latency, not by their bytes.
+constexpr int kScanBatch = 16;
+
+__device__ __forceinline__ Least2 warp_partners(const float* __restrict__ row, int n, int i,
+                                                int lane) {
+  Least2 p{2.f, 2.f, INT_MAX, INT_MAX};
+  for (int base = lane; base < n; base += 32 * kScanBatch) {
+    float v[kScanBatch];
+#pragma unroll
+    for (int k = 0; k < kScanBatch; ++k) {
+      const int j = base + 32 * k;
+      v[k] = j < n ? __ldg(row + j) : 2.f;
+    }
+#pragma unroll
+    for (int k = 0; k < kScanBatch; ++k) {
+      const int j = base + 32 * k;
+      if (j == i || j >= n) continue;
+      if (v[k] < p.v1) {
+        p.v2 = p.v1, p.i2 = p.i1;
+        p.v1 = v[k], p.i1 = j;
+      } else if (v[k] < p.v2) {
+        p.v2 = v[k], p.i2 = j;
+      }
+    }
+  }
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) {
+    Least2 o;
+    o.v1 = __shfl_xor_sync(0xffffffffu, p.v1, m);
+    o.v2 = __shfl_xor_sync(0xffffffffu, p.v2, m);
+    o.i1 = __shfl_xor_sync(0xffffffffu, p.i1, m);
+    o.i2 = __shfl_xor_sync(0xffffffffu, p.i2, m);
+    p = merge_least2(p, o);
+  }
+  return p;
+}
+
+// The best member, as de_best: the lowest index of the least loss, a NaN
+// never less. A candidate (v, i) with i == INT_MAX is none; better() keeps the
+// serial scan's answer whenever fit[0] is not NaN (the caller takes 0 when it
+// is, as the scan does).
+__device__ __forceinline__ bool better(float v, int i, float w, int j) {
+  return i != INT_MAX && (j == INT_MAX || v < w || (v == w && i < j));
+}
+
+__device__ __forceinline__ void warp_best(float& v, int& i) {
+#pragma unroll
+  for (int m = 16; m > 0; m >>= 1) {
+    const float w = __shfl_xor_sync(0xffffffffu, v, m);
+    const int j = __shfl_xor_sync(0xffffffffu, i, m);
+    if (better(w, j, v, i)) v = w, i = j;
+  }
+}
+
+// de_converged in float64 in candidate order (the one-CTA class's thread 0
+// loop, bit for bit), every lane of the warp the same sum: the warp reads 32
+// losses at a time, coalesced, and adds them in order from the shuffles.
+// Whole groups of 32 run unrolled, so only the float64 adds are serial.
+__device__ bool warp_converged(const float* fit, int n, double tol, double atol, int lane) {
+  const int whole = n & ~31;
+  double sum = 0.0;
+  for (int base = 0; base < whole; base += 32) {
+    const float v = __ldcg(fit + base + lane);
+#pragma unroll
+    for (int k = 0; k < 32; ++k)
+      sum = __dadd_rn(sum, static_cast<double>(__shfl_sync(0xffffffffu, v, k)));
+  }
+  {
+    const float v = whole + lane < n ? __ldcg(fit + whole + lane) : 0.f;
+    for (int k = 0; k < n - whole; ++k)
+      sum = __dadd_rn(sum, static_cast<double>(__shfl_sync(0xffffffffu, v, k)));
+  }
+  const double mean = __ddiv_rn(sum, static_cast<double>(n));
+  double ss = 0.0;
+  for (int base = 0; base < whole; base += 32) {
+    const float v = __ldcg(fit + base + lane);
+#pragma unroll
+    for (int k = 0; k < 32; ++k) {
+      const double dv = __dsub_rn(static_cast<double>(__shfl_sync(0xffffffffu, v, k)), mean);
+      ss = __dadd_rn(ss, __dmul_rn(dv, dv));
+    }
+  }
+  {
+    const float v = whole + lane < n ? __ldcg(fit + whole + lane) : 0.f;
+    for (int k = 0; k < n - whole; ++k) {
+      const double dv = __dsub_rn(static_cast<double>(__shfl_sync(0xffffffffu, v, k)), mean);
+      ss = __dadd_rn(ss, __dmul_rn(dv, dv));
+    }
+  }
+  const double sd = __dsqrt_rn(__ddiv_rn(ss, static_cast<double>(n)));
+  return sd <= __dadd_rn(atol, __dmul_rn(tol, fabs(mean)));
+}
+
+// The grid class of the DE mode: the one-CTA class's generations, bit for
+// bit, over ceil(n / 32) CTAs launched cooperatively (all resident at once).
+// Warp 0 of CTA c holds members 32c .. 32c + 31, each its own row and loss in
+// registers; warp 1 is the CTA's service warp. The population is published
+// double-buffered: buffer 0 is pop/fit, buffer 1 the scratch (pop1, fit1), and
+// generation g reads buffer g % 2 and writes every member's row and loss,
+// replaced or not, into the other. One grid barrier ends a generation. Off
+// the members' path, during generation g:
+//   * the service warp of CTA 0 runs de_converged on buffer g % 2 and writes
+//     the answer to stop[g % 2]; the members run the generation meanwhile,
+//     and after the barrier every CTA reads the flag: when set, generation g
+//     did not happen (its writes went to the other buffer, and each member
+//     keeps its registers' row);
+//   * each service warp scans its members' partner rows of generation g + 1
+//     (a warp a row, coalesced) into shared memory;
+//   * each member warp leaves its CTA's best candidate of the new losses
+//     (part_v, part_i, slot (g + 1) % 2), so the next generation's best
+//     member is a reduction over ceil(n / 32) candidates, not n losses.
+template <int kSub>
+__global__ void __launch_bounds__(kGridThreads)
+apf_de_grid_kernel(float* __restrict__ pop, float* __restrict__ fit, int n,
+                   const float* __restrict__ lo, const float* __restrict__ hi,
+                   const float* __restrict__ fdraw, const float* __restrict__ u,
+                   const float* __restrict__ cr, const long long* __restrict__ jr, int gens,
+                   double tol, double atol, const float* __restrict__ y0,
+                   const float* __restrict__ obs, int n_points, int substeps, StepSizes st,
+                   float reg_weight, int* __restrict__ status, float* __restrict__ work) {
+  namespace cg = cooperative_groups;
+  cg::grid_group grid = cg::this_grid();
+  const int ctas = gridDim.x;
+  float* const pops[2] = {pop, work};
+  float* const fits[2] = {fit, work + kRates * n};
+  float* const part_v = work + (kRates + 1) * n;                          // (2, ctas)
+  int* const part_i = reinterpret_cast<int*>(part_v + 2 * ctas);         // (2, ctas)
+  int* const stop = part_i + 2 * ctas;                                    // (2)
+  __shared__ int s_partners[2][kGridMembers][2];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int first = blockIdx.x * kGridMembers;
+  const int i = first + lane;
+  const bool member = warp == 0 && i < n;
+
+  // the prologue: each member's row and loss, its CTA's best candidate, the
+  // partners of generation 0
+  float own[kRates], own_fit = 0.f;
+  if (warp == 0) {
+    float v = 0.f;
+    int vi = INT_MAX;
+    if (member) {
+#pragma unroll
+      for (int d = 0; d < kRates; ++d) own[d] = pop[i * kRates + d];
+      own_fit = fit[i];
+      if (!isnan(own_fit)) v = own_fit, vi = i;
+    }
+    warp_best(v, vi);
+    if (lane == 0) part_v[blockIdx.x] = v, part_i[blockIdx.x] = vi;
+  } else {
+    for (int r = 0; r < kGridMembers && first + r < n; ++r) {
+      const Least2 p = warp_partners(u + static_cast<size_t>(first + r) * n, n, first + r, lane);
+      if (lane == 0) s_partners[0][r][0] = p.i1, s_partners[0][r][1] = p.i2;
+    }
+  }
+  grid.sync();
+
+  int g = 0, stopped = 0;
+  for (; g < gens; ++g) {
+    const int cur = g & 1, nxt = cur ^ 1;
+    float trial[kRates], trial_fit = 0.f;
+    if (warp == 0) {
+      // the best member of buffer cur
+      float v = 0.f;
+      int vi = INT_MAX;
+      for (int c = lane; c < ctas; c += 32) {
+        const float w = __ldcg(part_v + cur * ctas + c);
+        const int j = __ldcg(part_i + cur * ctas + c);
+        if (better(w, j, v, vi)) v = w, vi = j;
+      }
+      warp_best(v, vi);
+      const int best = isnan(__ldcg(fits[cur])) ? 0 : vi;
+      const float* const pc = pops[cur];
+      if (member) {
+        const int r1 = s_partners[cur][lane][0], r2 = s_partners[cur][lane][1];
+        const float f_scale = __fadd_rn(__fmul_rn(__ldg(fdraw + g), 0.5f), 0.5f);
+        const float* crow = cr + (static_cast<size_t>(g) * n + i) * kRates;
+        const long long jrand = jr[static_cast<size_t>(g) * n + i];
+#pragma unroll
+        for (int d = 0; d < kRates; ++d) {
+          const float diff = __fsub_rn(__ldcg(pc + r1 * kRates + d), __ldcg(pc + r2 * kRates + d));
+          const float mutant =
+              fminf(fmaxf(__fadd_rn(__ldcg(pc + best * kRates + d), __fmul_rn(f_scale, diff)),
+                          __ldg(lo + d)),
+                    __ldg(hi + d));
+          const bool cross = __ldg(crow + d) < 0.7f || d == jrand;
+          trial[d] = cross ? mutant : own[d];
+        }
+        trial_fit = candidate_loss<kSub, false>(trial, y0, obs, n_points, substeps, st,
+                                                reg_weight, nullptr);
+        // selection into buffer nxt, replaced or not
+        if (!(trial_fit < own_fit)) {
+#pragma unroll
+          for (int d = 0; d < kRates; ++d) trial[d] = own[d];
+          trial_fit = own_fit;
+        }
+#pragma unroll
+        for (int d = 0; d < kRates; ++d) __stcg(pops[nxt] + i * kRates + d, trial[d]);
+        __stcg(fits[nxt] + i, trial_fit);
+      }
+      float w = 0.f;
+      int wi = INT_MAX;
+      if (member && !isnan(trial_fit)) w = trial_fit, wi = i;
+      warp_best(w, wi);
+      if (lane == 0) {
+        __stcg(part_v + nxt * ctas + blockIdx.x, w);
+        __stcg(part_i + nxt * ctas + blockIdx.x, wi);
+      }
+    } else {
+      if (blockIdx.x == 0) {
+        const bool done = warp_converged(fits[cur], n, tol, atol, lane);
+        if (lane == 0) __stcg(stop + cur, done ? 1 : 0);
+      }
+      if (g + 1 < gens) {
+        for (int r = 0; r < kGridMembers && first + r < n; ++r) {
+          const Least2 p = warp_partners(u + (static_cast<size_t>(g + 1) * n + first + r) * n,
+                                         n, first + r, lane);
+          if (lane == 0) s_partners[nxt][r][0] = p.i1, s_partners[nxt][r][1] = p.i2;
+        }
+      }
+    }
+    grid.sync();
+    if (__ldcg(stop + cur)) {
+      stopped = 1;
+      break;
+    }
+    if (member) {
+#pragma unroll
+      for (int d = 0; d < kRates; ++d) own[d] = trial[d];
+      own_fit = trial_fit;
+    }
+  }
+  // every read of the buffers is behind the last barrier: pop and fit take the
+  // members' rows
+  if (member) {
+#pragma unroll
+    for (int d = 0; d < kRates; ++d) pop[i * kRates + d] = own[d];
+    fit[i] = own_fit;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    status[0] = g;
+    status[1] = stopped;
+  }
+}
+
 template <int kSub>
 void launch_modes(const float* y0, int y0_stride, const float* k, int batch, int n_points,
                   int substeps, StepSizes st, float* traj, const float* obs, float reg_weight,
@@ -437,20 +722,67 @@ void launch_modes(const float* y0, int y0_stride, const float* k, int batch, int
         y0, y0_stride, k, batch, n_points, substeps, st, traj, obs, reg_weight, loss, grad);
 }
 
+// The DE mode's launch for n members: the grid class takes every population
+// (the one-CTA class only when asked for by name, up to kMaxPop members).
+struct DePlan {
+  int grid_class, ctas, threads, smem;
+};
+
+bool de_plan(int n, int cls, DePlan* plan) {
+  if (n < 3 || cls < -1 || cls > 1 || (cls == 0 && n > kMaxPop)) return false;
+  if (cls == 0)
+    *plan = {0, 1, (n + 31) / 32 * 32, static_cast<int>((2 * kRates + 1) * n * sizeof(float))};
+  else
+    *plan = {1, (n + kGridMembers - 1) / kGridMembers, kGridThreads, 0};
+  return true;
+}
+
+// the grid class's scratch, in floats: pop1 (n, 6), fit1 (n), part_v and
+// part_i (2, ctas) each, stop (2)
+int de_scratch_floats(int n, const DePlan& plan) {
+  return plan.grid_class ? (kRates + 1) * n + 4 * plan.ctas + 2 : 0;
+}
+
+template <int kSub>
+const void* de_kernel(const DePlan& plan) {
+  return plan.grid_class ? reinterpret_cast<const void*>(apf_de_grid_kernel<kSub>)
+                         : reinterpret_cast<const void*>(apf_de_kernel<kSub>);
+}
+
+// CTAs of the plan's kernel the card holds at once
+cudaError_t de_held(const void* kernel, const DePlan& plan, int* held) {
+  int per_sm = 0, dev = 0, sms = 0;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         plan.smem);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, plan.threads, plan.smem);
+  if (err == cudaSuccess) err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  *held = per_sm * sms;
+  return err;
+}
+
 template <int kSub>
 int launch_de(float* pop, float* fit, int n, const float* lo, const float* hi,
               const float* fdraw, const float* u, const float* cr, const long long* jr,
               int gens, double tol, double atol, const float* y0, const float* obs,
               int n_points, int substeps, StepSizes st, float reg_weight, int* status,
-              cudaStream_t stream) {
-  const int smem = static_cast<int>((2 * kRates + 1) * n * sizeof(float));
-  cudaError_t err = cudaFuncSetAttribute(apf_de_kernel<kSub>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+              float* work, int cls, cudaStream_t stream) {
+  DePlan plan;
+  if (!de_plan(n, cls, &plan)) return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = de_kernel<kSub>(plan);
+  int held = 0;
+  cudaError_t err = de_held(kernel, plan, &held);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const int threads = (n + 31) / 32 * 32;
-  apf_de_kernel<kSub><<<1, threads, smem, stream>>>(pop, fit, n, lo, hi, fdraw, u, cr, jr, gens,
-                                                    tol, atol, y0, obs, n_points, substeps, st,
-                                                    reg_weight, status);
+  if (plan.ctas > held) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
+  void* args[] = {&pop, &fit, &n, &lo, &hi, &fdraw, &u, &cr, &jr, &gens, &tol, &atol, &y0,
+                  &obs, &n_points, &substeps, &st, &reg_weight, &status, &work};
+  if (plan.grid_class)
+    err = cudaLaunchCooperativeKernel(kernel, dim3(plan.ctas), dim3(plan.threads), args,
+                                      plan.smem, stream);
+  else
+    err = cudaLaunchKernel(kernel, dim3(1), dim3(plan.threads), args, plan.smem, stream);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -473,19 +805,40 @@ extern "C" int eegflow_apf_rk4(const float* y0, int y0_stride, const float* k, i
   return static_cast<int>(cudaGetLastError());
 }
 
-// The DE mode: pop (n, 6) and fit (n) in place, n <= 1024; the draws of
-// `gens` generations; y0 (3,), obs (n_points, 3); status (2,) int32.
+// The DE mode: pop (n, 6) and fit (n) in place, n >= 3; the draws of
+// `gens` generations; y0 (3,), obs (n_points, 3); status (2,) int32; work
+// the scratch eegflow_apf_de_plan sizes; cls -1 for the plan's class, 0 or 1
+// for the one-CTA or the grid class by name.
 extern "C" int eegflow_apf_de(float* pop, float* fit, int n, const float* lo, const float* hi,
                               const float* fdraw, const float* u, const float* cr,
                               const long long* jr, int gens, double tol, double atol,
                               const float* y0, const float* obs, int n_points, int substeps,
                               float half, float full, float sixth, float reg_weight,
-                              int* status, cudaStream_t stream) {
-  if (n < 3 || n > kMaxPop) return static_cast<int>(cudaErrorInvalidValue);
+                              int* status, float* work, int cls, cudaStream_t stream) {
   const StepSizes st{half, full, sixth};
   if (substeps == kFastSubsteps)
     return launch_de<kFastSubsteps>(pop, fit, n, lo, hi, fdraw, u, cr, jr, gens, tol, atol, y0,
-                                    obs, n_points, substeps, st, reg_weight, status, stream);
+                                    obs, n_points, substeps, st, reg_weight, status, work, cls,
+                                    stream);
   return launch_de<0>(pop, fit, n, lo, hi, fdraw, u, cr, jr, gens, tol, atol, y0, obs, n_points,
-                      substeps, st, reg_weight, status, stream);
+                      substeps, st, reg_weight, status, work, cls, stream);
+}
+
+// The DE mode's launch for n members at `substeps` (cls as eegflow_apf_de):
+// plan = (class: 0 one CTA, 1 grid; CTAs; threads a CTA; dynamic shared
+// memory a CTA; CTAs the card holds at once; the scratch eegflow_apf_de's
+// work holds, in floats), *name the kernel's. A population the plan's CTAs exceed what the
+// card holds is refused by eegflow_apf_de (cudaErrorCooperativeLaunchTooLarge).
+extern "C" int eegflow_apf_de_plan(int n, int substeps, int cls, int* plan, const char** name) {
+  DePlan p;
+  if (!de_plan(n, cls, &p)) return static_cast<int>(cudaErrorInvalidValue);
+  const void* kernel = substeps == kFastSubsteps ? de_kernel<kFastSubsteps>(p) : de_kernel<0>(p);
+  plan[0] = p.grid_class;
+  plan[1] = p.ctas;
+  plan[2] = p.threads;
+  plan[3] = p.smem;
+  plan[5] = de_scratch_floats(n, p);
+  cudaError_t err = de_held(kernel, p, &plan[4]);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  return static_cast<int>(cudaFuncGetName(name, kernel));
 }

@@ -3,9 +3,11 @@ an L-BFGS-B polish (``eegflow.fit.evolution``).
 
 On the card the whole search runs as the JAX package's ``lax.while_loop``
 does, on the device: the first population's loss is one launch of kernel
-11's fit-loss mode, then each chunk of up to :data:`DE_CHUNK` generations
-is one launch of its DE mode (:func:`eegflow_torch.ode.cuda_ode.de_generations`),
-and the host reads one status (generations run, converged) a chunk. A
+11's fit-loss mode, then each chunk of generations (:func:`de_chunk_length`:
+up to :data:`DE_CHUNK`, fewer where a large population's draws would pass
+:data:`DE_CHUNK_BYTES`) is one launch of its DE mode
+(:func:`eegflow_torch.ode.cuda_ode.de_generations`, any population the card
+holds), and the host reads one status (generations run, converged) a chunk. A
 :class:`FitLoss` on a CUDA device takes that path or raises. On the CPU, and
 for any other loss, :func:`_de_minimize` runs the same generations as a
 loop, one loss evaluation and one read-back of the losses a generation; on
@@ -126,19 +128,31 @@ def _de_minimize(loss_fn: Callable[[torch.Tensor], torch.Tensor], gen: torch.Gen
     return pop[i_best], fit[i_best], gens
 
 
-#: generations a launch of the DE mode runs (draws of ~2.1 MB at n = 90)
+#: the most generations a launch of the DE mode runs (draws of ~2.3 MB at n = 90)
 DE_CHUNK = 64
+#: the draws' bytes a chunk may hold: two chunks are live at once (the next is
+#: drawn before this one's status is read)
+DE_CHUNK_BYTES = 256 * 2 ** 20
+
+
+def de_chunk_length(n: int, d: int = 6) -> int:
+    """Generations a chunk of the DE mode runs for n members and d rates:
+    :data:`DE_CHUNK`, or fewer where their draws (float32 f, u (n, n), cr
+    (n, d), int64 j (n) a generation) would exceed :data:`DE_CHUNK_BYTES`;
+    at least one."""
+    per_generation = 4 + 4 * n * n + 4 * n * d + 8 * n
+    return max(1, min(DE_CHUNK, DE_CHUNK_BYTES // per_generation))
 
 
 def _de_minimize_chunked(loss_fn: FitLoss, gen: torch.Generator, lo: torch.Tensor,
                          hi: torch.Tensor, popsize: int, maxiter: int, tol: float,
                          atol: float = 0.0) -> Tuple[torch.Tensor, torch.Tensor, int]:
-    """:func:`_de_minimize` in chunks of up to :data:`DE_CHUNK` generations,
+    """:func:`_de_minimize` in chunks of :func:`de_chunk_length` generations,
     each one launch of kernel 11's DE mode (its twin on the CPU), the next
     chunk's draws queued before this one's status is read."""
-    chunk = DE_CHUNK
     d = lo.shape[0]
     n = popsize * d
+    chunk = de_chunk_length(n, d)
     pop = _latin_hypercube(gen, n, lo, hi).contiguous()
     fit = loss_fn(pop).contiguous()
     gens = 0

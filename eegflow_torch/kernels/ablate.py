@@ -1049,6 +1049,189 @@ def pool_head_bwd_f64(ln, attn, xs, weights, g_scores, g_ctx, gctx, use_ln):
     return list(dh.split(widths, dim=-1)) + sums
 
 
+def _lstm_adjoint_f64(step, g, w_hh, reverse):
+    """dz (B, T, 4H) float64 of kernels 3, 3b and 4's chain against the
+    direction of time: dh = g + dh_carry, ``step(t, dh, dc_carry) -> (dz row,
+    dc, f)``, dc_carry = dc f, dh_carry = bf16(dz) . bf16(W_hh)^T (the only
+    rounding on the chain, where the twin rounds), in float64."""
+    f = lambda t: t.to(torch.float64)  # noqa: E731
+    r = lambda t: t.to(torch.bfloat16).to(torch.float64)  # noqa: E731
+    g = f(g)
+    batch, steps, hidden = g.shape
+    whh_t = r(w_hh).t()
+    dh_c = torch.zeros(batch, hidden, dtype=torch.float64, device=g.device)
+    dc_c = torch.zeros_like(dh_c)
+    dz = torch.empty(batch, steps, 4 * hidden, dtype=torch.float64, device=g.device)
+    for t in (range(steps) if reverse else range(steps - 1, -1, -1)):
+        dh = g[:, t] + dh_c
+        z, dc, forget = step(t, dh, dc_c)
+        dc_c = dc * forget
+        dz[:, t] = z
+        dh_c = r(z) @ whh_t
+    return dz
+
+
+def _lstm_products_f64(dz, h, xs, w_ih, reverse, masks=None, keep=1.0):
+    """The products of the bf16 backward kernels from the float64 dz, as
+    ``nn.cuda_lstm._weight_products`` takes them: bf16(dz) against bf16
+    W_ih parts, masked bf16 x (masked as the twin masks, in float32) and
+    bf16 h_prev, the sums in float64; db the float64 dz's sum."""
+    from eegflow_torch.nn.cuda_lstm import _expand, _mask_list, _shift, apply_mask
+
+    f = lambda t: t.to(torch.float64)  # noqa: E731
+    r = lambda t: t.to(torch.bfloat16).to(torch.float64)  # noqa: E731
+    masks = _mask_list(_expand(masks, xs, keep), len(xs))
+    batch, steps, g4 = dz.shape
+    dz16 = r(dz).reshape(batch * steps, g4)
+    dw_hh = r(_shift(h, reverse)).reshape(-1, g4 // 4).t() @ dz16
+    widths = [p.shape[-1] for p in xs]
+    dxs, dw_ih = [], []
+    for x, m, w in zip(xs, masks, torch.split(w_ih, widths, dim=0)):
+        dw_ih.append(r(apply_mask(x, m, keep)).reshape(-1, x.shape[-1]).t() @ dz16)
+        dxs.append(apply_mask((dz16 @ r(w).t()).reshape(x.shape), m, keep))
+    return tuple(dxs), torch.cat(dw_ih, dim=0), dw_hh, dz.sum(dim=(0, 1))
+
+
+def lstm_bwd_f64(res, h, g, xs, w_ih, w_hh, reverse=False, masks=None, keep=1.0):
+    """The function of ``nn.cuda_lstm.lstm_bwd_plain`` (kernel 3) in float64:
+    dz rounded to bf16 where the twin rounds it (into dh_carry and the
+    products), W_hh, W_ih, the masked x and h_prev in bf16, every other value
+    and every sum in float64 -> (dx parts, dW_ih, dW_hh, db), float64."""
+    res = res.to(torch.float64)
+    hidden = w_hh.shape[0]
+
+    def step(t, dh, dc_c):
+        a, b, c, e, forget, gg = res[:, t].split(hidden, dim=-1)
+        dc = dh * e + dc_c
+        return torch.cat([dc * a, dc * b, dc * c, dh * gg], dim=-1), dc, forget
+
+    dz = _lstm_adjoint_f64(step, g, w_hh, reverse)
+    return _lstm_products_f64(dz, h, tuple(xs), w_ih, reverse, masks, keep)
+
+
+def lstm_bwd_v2_f64(gates, c, h, g, xs, w_ih, w_hh, reverse=False, masks=None, keep=1.0):
+    """The function of ``nn.cuda_lstm.lstm_bwd_v2_plain`` (kernel 3b) in
+    float64: the raw gates and c as given, tanh(c) and every product in
+    float64, bf16 rounding where :func:`lstm_bwd_f64` has it -> (dx parts,
+    dW_ih, dW_hh, db), float64."""
+    from eegflow_torch.nn.cuda_lstm import _shift
+
+    gates = gates.to(torch.float64)
+    hidden = w_hh.shape[0]
+    gi, gf, gg, go = gates.split(hidden, dim=-1)
+    tc, c_prev = torch.tanh(c.to(torch.float64)), _shift(c.to(torch.float64), reverse)
+
+    def step(t, dh, dc_c):
+        i, forget, gt, o, tct = gi[:, t], gf[:, t], gg[:, t], go[:, t], tc[:, t]
+        dc = dh * o * (1 - tct * tct) + dc_c
+        z = torch.cat([dc * gt * i * (1 - i), dc * c_prev[:, t] * forget * (1 - forget),
+                       dc * i * (1 - gt * gt), dh * tct * o * (1 - o)], dim=-1)
+        return z, dc, forget
+
+    dz = _lstm_adjoint_f64(step, g, w_hh, reverse)
+    return _lstm_products_f64(dz, h, tuple(xs), w_ih, reverse, masks, keep)
+
+
+def lstm_bwd_dualdir_f64(res_f, h_f, g_f, res_r, h_r, g_r, xs, w_f, w_r):
+    """The function of ``nn.cuda_lstm.lstm_bwd_dualdir_plain`` (kernel 4)
+    without select dropout in float64: each direction's
+    :func:`lstm_bwd_f64`, dx the forward direction's plus the reverse one's
+    -> (dx parts, (dW_ih, dW_hh, db) forward, ... reverse), float64."""
+    fwd = lstm_bwd_f64(res_f, h_f, g_f, xs, *w_f, reverse=False)
+    rev = lstm_bwd_f64(res_r, h_r, g_r, xs, *w_r, reverse=True)
+    return tuple(a + b for a, b in zip(fwd[0], rev[0])), fwd[1:], rev[1:]
+
+
+def lstm_bwd_case(gen, hidden, widths, batch, steps, dev):
+    """A layer-direction's backward case at these widths, drawn from ``gen``:
+    weights uniform in +-1/sqrt(H) as ``classifier_init`` draws them, input
+    parts (B, T, w) and the upstream gradient (B, T, H) normal -> (parts,
+    (w_ih, b, w_hh) of the forward direction, ... of the reverse one, g of
+    the forward direction, g of the reverse one)."""
+    bound = hidden ** -0.5
+
+    def uniform(*shape):
+        return ((torch.rand(shape, generator=gen) * 2 - 1) * bound).to(dev)
+
+    xs = tuple(torch.randn(batch, steps, w, generator=gen).to(dev) for w in widths)
+    dirs = [(uniform(sum(widths), 4 * hidden), uniform(4 * hidden), uniform(hidden, 4 * hidden))
+            for _ in range(2)]
+    gs = [torch.randn(batch, steps, hidden, generator=gen).to(dev) for _ in range(2)]
+    return xs, dirs[0], dirs[1], gs[0], gs[1]
+
+
+def lstm_bwd_f64_holds(dev):
+    """Kernels 3, 3b and 4 (and their twins) at B = 1, T = 256, H = 256 on
+    two parts of 256 (a layer above the first), each on its own forward's
+    residuals (the training-mode kernel 2 or its twin, by device), against
+    :func:`lstm_bwd_f64`, :func:`lstm_bwd_v2_f64` and
+    :func:`lstm_bwd_dualdir_f64` -> {kernel: (largest error of the kernel,
+    of its twin), each relative to a gradient's largest entry}."""
+    from eegflow_torch.core.prng import make_generator
+    from eegflow_torch.nn import cuda_lstm as cl
+
+    def worst(got, want):
+        return max(((a.double() - c).abs().max() / c.abs().max()).item()
+                   for a, c in zip(got, want))
+
+    def flat(out):
+        return list(out[0]) + [t for t in out[1:] if isinstance(t, torch.Tensor)] + [
+            t for part in out[1:] if isinstance(part, tuple) for t in part]
+
+    xs, (wf, bf, hf), (wr, br, hr), g_f, g_r = lstm_bwd_case(make_generator(2600), 256,
+                                                             (256, 256), 1, 256, dev)
+    out = {}
+    h, res = cl.lstm_fwd_train(xs, wf, bf, hf)
+    want = flat(lstm_bwd_f64(res, h, g_f, xs, wf, hf))
+    out["lstm_bwd"] = tuple(worst(flat(fn(res, h, g_f, xs, wf, hf)), want)
+                            for fn in (cl.lstm_bwd, cl.lstm_bwd_plain))
+    h, gates, c = cl.lstm_fwd_train_gates(xs, wf, bf, hf)
+    want = flat(lstm_bwd_v2_f64(gates, c, h, g_f, xs, wf, hf))
+    out["lstm_bwd_v2"] = tuple(worst(flat(fn(gates, c, h, g_f, xs, wf, hf)), want)
+                               for fn in (cl.lstm_bwd_v2, cl.lstm_bwd_v2_plain))
+    hf_, res_f = cl.lstm_fwd_train(xs, wf, bf, hf)
+    hr_, res_r = cl.lstm_fwd_train(xs, wr, br, hr, True)
+    args = (res_f, hf_, g_f, res_r, hr_, g_r, xs, (wf, hf), (wr, hr))
+    want = flat(lstm_bwd_dualdir_f64(*args))
+    out["lstm_bwd_dualdir"] = tuple(worst(flat(fn(*args)), want)
+                                    for fn in (cl.lstm_bwd_dualdir, cl.lstm_bwd_dualdir_plain))
+    return out
+
+
+def narrow_bwd_f64_holds(dev):
+    """The narrow bf16 classes of kernels 8 and 10 (and their twins) at B = 1,
+    T = 256 against :func:`pool_head_bwd_f64` (the classifier's head at H = 256:
+    two parts of 256, K = 256, with and without LayerNorm) and
+    :func:`input_block_bwd_f64` (C = 61, H = 256) -> {case: (largest error of
+    the kernel, of its twin), each relative to a gradient's largest
+    entry}."""
+    from eegflow_torch.core.prng import make_generator
+    from eegflow_torch.nn.cuda_attention import pool_head_bwd, pool_head_bwd_plain
+    from eegflow_torch.nn.cuda_input import input_block_bwd, input_block_bwd_plain
+
+    def worst(got, want):
+        return max(((a.double() - c).abs().max() / c.abs().max()).item()
+                   for a, c in zip(got, want))
+
+    flat = lambda out: list(out[0]) + [t for t in out[1:] if t is not None]  # noqa: E731
+    out = {}
+    for use_ln in (False, True):
+        gen = make_generator(2610 + int(use_ln))
+        ln, attn, xs, grads = wide_head_case(gen, (256, 256), 256, 1, 256, dev)
+        args = (ln if use_ln else None, attn, xs, *grads, use_ln)
+        want = pool_head_bwd_f64(*args)
+        out[f"pool_head_bwd LN {use_ln}"] = tuple(
+            worst(flat(fn(*args, True)), want) for fn in (pool_head_bwd, pool_head_bwd_plain))
+    gen = make_generator(2620)
+    proj, norm = _input_params(gen, CHANNELS, 256, dev)
+    x = torch.randn(1, STEPS, CHANNELS, generator=gen).to(dev)
+    dy = torch.randn(1, STEPS, 256, generator=gen).to(dev)
+    want = input_block_bwd_f64(proj, norm, x, dy)
+    out["input_block_bwd"] = tuple(worst(fn(proj, norm, x, dy, True), want)
+                                   for fn in (input_block_bwd, input_block_bwd_plain))
+    return out
+
+
 def _one_row_readings(card: str) -> None:
     """Kernel 8's wide class and its twin at B = 1, T = 256 against
     :func:`pool_head_bwd_f64`, on the cases of the card test

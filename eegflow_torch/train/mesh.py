@@ -226,19 +226,24 @@ def make_spmd_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig, optimiz
     the mean of the ranks' losses and ``correct`` their sum. Under class
     weights this is not :func:`~eegflow_torch.train.steps.make_train_step`'s
     function (see the module docstring). ``lstm_bwd`` and ``res_bf16`` as in
-    ``make_train_step``. ``kernel_dropout`` raises ``ValueError``: the JAX
-    package's explicit step gives every shard the same dropout key, and
-    that step's in-kernel masks are not ported (the implicit step,
-    ``make_train_step(mesh=, kernel_dropout=True)``, draws the one-process
-    step's)."""
+    ``make_train_step``.
+
+    ``kernel_dropout``: the stack's in-kernel Philox dropout under the JAX
+    package's rule for this step, which hands every shard the same dropout
+    key (``in_specs`` ``P()``), so each shard's kernels draw from it over
+    the shard's own rows: every rank draws the one-process bits of rows 0
+    to B / world_size - 1 (the step sets the masks' ``row_offset`` to 0),
+    and its head masks are the same on every rank too. ``masks`` is then
+    one shard's draw, ``draw_dropout_masks(model_cfg, B // world_size, T,
+    gen, kernel_dropout=True)``, given whole to every rank
+    (``replicate_to_mesh``), not sharded. ``"dualdir"``, float32 and the
+    EEGFormer raise with it, as in the step without a mesh. The implicit
+    step, ``make_train_step(mesh=, kernel_dropout=True)``, draws the
+    one-process step's masks instead."""
     from eegflow_torch.train.steps import _make_step
 
-    if kernel_dropout:
-        raise ValueError("make_spmd_train_step does not take kernel_dropout; use "
-                         "make_train_step(mesh=..., kernel_dropout=True)")
-
     return _make_step(model_cfg, train_cfg, optimizer, class_weights, None, lstm_bwd, mesh,
-                      explicit=True, res_bf16=res_bf16)
+                      explicit=True, res_bf16=res_bf16, kernel_dropout=kernel_dropout)
 
 
 def make_spmd_eval_step(model_cfg: ModelConfig, mesh: DataMesh, bf16: bool = True,

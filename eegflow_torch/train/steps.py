@@ -231,7 +231,8 @@ def _make_step(model_cfg, train_cfg: TrainConfig, optimizer: AdamW,
                kernel_dropout: bool = False) -> Callable:
     """The step of :func:`make_train_step` (``explicit=False``) or of
     :func:`~eegflow_torch.train.mesh.make_spmd_train_step` (``explicit``:
-    each rank's own weighted mean, the gradients averaged)."""
+    each rank's own weighted mean, the gradients averaged, and with
+    ``kernel_dropout`` the Philox rows from 0 on every rank)."""
     compute_dtype = torch.bfloat16 if train_cfg.bf16 else None
     impl = lstm_impl or train_cfg.lstm_impl
     if isinstance(model_cfg, TransformerConfig):
@@ -250,7 +251,10 @@ def _make_step(model_cfg, train_cfg: TrainConfig, optimizer: AdamW,
                 torch.tensor(float(y.shape[0]), device=y.device) if class_weights is None
                 else class_weights[y.long()].sum(), mesh)
         if mesh is not None and kernel_dropout and masks is not None and masks.key is not None:
-            masks = dataclasses.replace(masks, row_offset=mesh.rank * int(x.shape[0]))
+            # the implicit step draws the rank's rows of the whole batch; the
+            # explicit one, every shard the same key's rows from 0
+            masks = dataclasses.replace(masks, row_offset=0 if explicit
+                                        else mesh.rank * int(x.shape[0]))
         logits = classifier_apply(params, x, model_cfg, compute_dtype=compute_dtype,
                                   lstm_impl=impl, train=True, masks=masks, lstm_bwd=lstm_bwd,
                                   res_bf16=res_bf16, kernel_dropout=kernel_dropout)

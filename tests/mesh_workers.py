@@ -139,6 +139,54 @@ def philox_steps(rank, case):
     return out
 
 
+def explicit_philox_steps(rank, case):
+    """One bf16 ``make_spmd_train_step(kernel_dropout=True)`` step on this
+    rank's shard of ``case``'s batch with ``case``'s key and one shard's
+    head masks, the same on every rank (the reference's explicit step hands
+    every shard one key), recording every Philox mask its layers draw
+    (stream, keep, row offset, the mask); and the explicit mask-path step on
+    the uint8 expansion of that key's rows 0 .. B / world - 1, from the same
+    params."""
+    from eegflow_torch.nn import philox
+    from eegflow_torch.nn.model import DropoutMasks, expand_dropout_masks
+
+    mesh = make_data_mesh(devices=[case["device"]] * case["world"])
+    model_cfg, train_cfg = ModelConfig(**case["model"]), TrainConfig(**case["train"])
+    cw = torch.from_numpy(case["cw"]).to(mesh.device)
+    x, y = shard_batch((case["x"], case["y"]), mesh)
+    masks = replicate_to_mesh(DropoutMasks(key=torch.from_numpy(case["key"]),
+                                           head1=torch.from_numpy(case["head1"]),
+                                           head2=torch.from_numpy(case["head2"])), mesh)
+    drawn = []
+    real = philox.philox_keep_mask
+
+    def recording(key, stream, shape, keep, row_offset=0):
+        mask = real(key, stream, shape, keep, row_offset)
+        drawn.append((stream, keep, row_offset, mask.cpu().numpy()))
+        return mask
+
+    out = {}
+    for kind in ("philox", "masks"):
+        params = params_from_jax(case["params"], mesh.device, trainable=True)
+        step = make_spmd_train_step(model_cfg, train_cfg,
+                                    make_optimizer(list(params.parameters()), train_cfg,
+                                                   updates_per_epoch=1),
+                                    mesh, class_weights=cw, kernel_dropout=kind == "philox")
+        if kind == "philox":
+            philox.philox_keep_mask = recording
+            try:
+                metrics = step(params, x, y, masks)
+            finally:
+                philox.philox_keep_mask = real
+        else:
+            metrics = step(params, x, y,
+                           expand_dropout_masks(masks, model_cfg, x.shape[0], x.shape[1]))
+        out[kind] = {"loss": float(metrics["loss"]), "correct": int(metrics["correct"]),
+                     "grads": _grads(params), "params": params_to_jax(params)}
+    out["drawn"] = drawn
+    return out
+
+
 def inference(rank, case):
     """predict_probs, predict_batch, the coupling sweep, the permutation
     importance (sharded and not) and the forecasts, all with the mesh."""

@@ -14,6 +14,7 @@ from eegflow_torch import kernels
 from eegflow_torch.core.config import CouplingConfig, ModelConfig, TrainConfig, TransformerConfig
 from eegflow_torch.core.prng import make_generator
 from eegflow_torch.kernels.ablate import (WIDE_EDGE_PARTS, input_block_bwd_f64,
+                                          lstm_bwd_f64_holds, narrow_bwd_f64_holds,
                                           pool_head_bwd_f64, wide_head_case)
 from eegflow_torch.couple.rollout import CoupledModel, predict_batch
 from eegflow_torch.nn.cuda_attention import (attention_pool, attention_pool_plain,
@@ -1087,14 +1088,17 @@ def test_input_block_bwd_bf16_on_tensor_cores_matches_twin_and_repeats_bitwise(d
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
-@pytest.mark.parametrize("channels,hidden", [(61, 512), (130, 512), (130, 256), (7, 288)])
+@pytest.mark.parametrize("channels,hidden", [(61, 512), (130, 512), (130, 256), (7, 288),
+                                             (130, 32), (130, 64)])
 @pytest.mark.parametrize("batch,steps", [(5, 37), (40, 256)])
 def test_input_block_bwd_bf16_takes_kernel_9s_widths(dev, channels, hidden, batch, steps):
     """Kernel 10's wide bf16 class (a cluster of two CTAs a 64-row tile):
     H = 512 at the classifier's C = 61 and at C = 130 (three channel chunks:
     a pass over the tiles per chunk), C = 130 at H = 256 and H = 288 (not a
-    multiple of 64), on ragged rows (185) and on rows spanning more tiles
-    than its persistent grid holds (10240 rows: 160 tiles on 66 clusters)."""
+    multiple of 64) and at its narrowest halves, H = 32 and 64 (16 and 32
+    columns a CTA: one z pair on warp 0, a 16- or 32-deep dx product), on
+    ragged rows (185) and on rows spanning more tiles than its persistent
+    grid holds (10240 rows: 160 tiles on 66 clusters)."""
     gen = make_generator(260 + channels + hidden)
     proj, norm, x = _input_case(gen, hidden, dev, batch=batch, steps=steps, channels=channels)
     dy = _randn(gen, batch, steps, hidden, dev=dev)
@@ -1167,6 +1171,66 @@ def test_input_block_bwd_wide_on_one_long_row(dev, seed):
         assert a.shape == w.shape and bool(torch.isfinite(a).all())
         assert _rel(a.double(), w) <= BWD_REL_TOL
     assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("hidden", [32, 64])
+def test_input_block_bwd_wide_at_its_narrowest_halves_on_one_long_row(dev, hidden):
+    """Kernel 10's wide class at C = 130 (over the narrow class's 64
+    channels) and H = 32 or 64, B = 1, T = 256, held to its float64 function
+    (``kernels.ablate.input_block_bwd_f64``) with the bf16 tolerance: the plan
+    is the wide class's, one launch a call, bitwise on repeat."""
+    assert input_block_bwd_bf16_plan(130, hidden).wide
+    gen = make_generator(720 + hidden)
+    proj, norm, x = _input_case(gen, hidden, dev, batch=1, steps=256, channels=130)
+    dy = _randn(gen, 1, 256, hidden, dev=dev)
+    before = kernels.launch_counts["input_block_bwd"]
+    got, again = input_block_bwd(proj, norm, x, dy, True), input_block_bwd(proj, norm, x, dy, True)
+    assert kernels.launch_counts["input_block_bwd"] == before + 2
+    want = input_block_bwd_f64(proj, norm, x, dy)
+    torch.cuda.synchronize()
+    for a, w in zip(got, want):
+        assert a.shape == w.shape and bool(torch.isfinite(a).all())
+        assert _rel(a.double(), w) <= BWD_REL_TOL
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def test_lstm_bwd_kernels_on_one_long_row_hold_to_their_float64_functions(dev):
+    """Kernels 3, 3b and 4 at B = 1, T = 256, H = 256 on two parts of 256,
+    each on its own training forward's residuals, held to its function in
+    float64 (``kernels.ablate.lstm_bwd_f64``, ``lstm_bwd_v2_f64``,
+    ``lstm_bwd_dualdir_f64``: dz rounded to bf16 where the twin rounds it,
+    float64 elsewhere) with the bf16 tolerance, relative to each gradient's
+    largest entry: at B = 1 a bf16 tie that a float32 side rounds the other
+    way moves a 256-row dW by ~1e-3 of its largest entry, so the twin is no
+    yardstick there. Both sides' distances are printed."""
+    kernels.reset_launch_counts()
+    holds = lstm_bwd_f64_holds(dev)
+    torch.cuda.synchronize()
+    assert dict(kernels.launch_counts) == {"lstm_fwd_train": 3, "lstm_fwd_train_gates": 1,
+                                           "lstm_bwd": 1, "lstm_bwd_v2": 1,
+                                           "lstm_bwd_dualdir": 1}
+    for name, (kernel, twin) in holds.items():
+        print(f"{name} B=1 T=256 H=256 from its float64 function: kernel {kernel:.3e}, "
+              f"twin {twin:.3e}")
+        assert kernel <= BWD_REL_TOL, name
+
+
+def test_narrow_bf16_bwd_classes_on_one_long_row_hold_to_their_float64_functions(dev):
+    """The narrow bf16 classes of kernels 8 (the classifier's head at H =
+    256: two parts of 256, K = 256, with and without LayerNorm) and 10 (C = 61, H =
+    256) at B = 1, T = 256, held to ``kernels.ablate.pool_head_bwd_f64`` and
+    ``input_block_bwd_f64`` with the bf16 tolerance; both sides' distances
+    are printed."""
+    assert not input_block_bwd_bf16_plan(61, 256).wide
+    assert not pool_head_bwd_bf16_plan(512, 256).wide
+    kernels.reset_launch_counts()
+    holds = narrow_bwd_f64_holds(dev)
+    torch.cuda.synchronize()
+    assert dict(kernels.launch_counts) == {"pool_head_bwd": 2, "input_block_bwd": 1}
+    for name, (kernel, twin) in holds.items():
+        print(f"{name} B=1 T=256 narrow bf16 class from its float64 function: kernel "
+              f"{kernel:.3e}, twin {twin:.3e}")
+        assert kernel <= BWD_REL_TOL, name
 
 
 @pytest.mark.parametrize("bf16", [False, True])
@@ -1527,23 +1591,31 @@ def _de_bounds(dev):
 # (popsize, points, generations, tol): the fit's shape for all 1,000
 # generations; a population that converges (at most one of the chunks of 64
 # and 7 has a boundary there); 64 and 7 not dividing 100 and 150
-# generations; n = 18 and 90
+# generations; n = 18 and 90; n = 1,026 (popsize 171, 33 CTAs of the grid
+# class, chunks of at most 63 by the draws' byte budget) and n = 3,000
+# (popsize 500, 94 CTAs, chunks of 7), each run through and converging
 @pytest.mark.parametrize("popsize,n_points,maxiter,tol", [(15, 513, 1000, 1e-7),
                                                           (15, 513, 600, 5e-2),
                                                           (3, 513, 100, 1e-7),
-                                                          (3, 60, 150, 1e-7)])
+                                                          (3, 60, 150, 1e-7),
+                                                          (171, 513, 150, 1e-7),
+                                                          (171, 60, 1000, 5e-2),
+                                                          (500, 513, 40, 1e-7),
+                                                          (500, 60, 1000, 5e-2)])
 @pytest.mark.parametrize("chunk", [64, 7])
 def test_apf_de_mode_is_its_twin_bit_for_bit(dev, popsize, n_points, maxiter, tol, chunk,
                                              monkeypatch):
     """Kernel 11's DE mode against its twin, the loop of generations driving
     the loss mode on the same card: the same generations, best member and
     loss, bit for bit, and again on a second run, with one loss-mode launch
-    and one DE launch a chunk run; the best loss is the loss mode's on the
-    best member, bit for bit."""
+    and one DE launch a chunk run (``de_chunk_length``: ``DE_CHUNK``, or
+    fewer under the draws' byte budget); the best loss is the loss mode's on
+    the best member, bit for bit."""
     from eegflow_torch.fit import evolution
-    from eegflow_torch.fit.evolution import _de_minimize, _de_minimize_chunked
+    from eegflow_torch.fit.evolution import _de_minimize, _de_minimize_chunked, de_chunk_length
 
     monkeypatch.setattr(evolution, "DE_CHUNK", chunk)
+    chunk = de_chunk_length(popsize * 6)
     loss = _de_fit_loss(dev, n_points, popsize)
     lo, hi = _de_bounds(dev)
 
@@ -1611,11 +1683,37 @@ def test_fit_launches_the_de_mode_a_chunk(dev):
     assert kernels.launch_counts["apf_de"] == 4 and kernels.launch_counts["apf_rk4"] > 2
 
 
+@pytest.mark.parametrize("popsize", [171, 500])
+def test_fit_runs_a_large_population_in_the_de_mode(dev, popsize):
+    """differential_evolution_fit with a FitLoss on the card at popsize 171
+    and 500 (n = 1,026 and 3,000, over the one-CTA class's 1,024): one
+    loss-mode launch and one DE launch a chunk, nothing else, and the loop's
+    generations, best member and loss bit for bit."""
+    from eegflow_torch.core.config import ODEConfig
+    from eegflow_torch.fit import differential_evolution_fit
+    from eegflow_torch.fit.evolution import _de_minimize, de_chunk_length
+
+    loss = _de_fit_loss(dev, 60, popsize)
+    kernels.reset_launch_counts()
+    x, fx, info = differential_evolution_fit(loss, ODEConfig().bounds, seed=5, popsize=popsize,
+                                             maxiter=70, tol=0.0, polish=False)
+    assert dict(kernels.launch_counts) == {"apf_rk4": 1,
+                                           "apf_de": -(-70 // de_chunk_length(popsize * 6))}
+    lo, hi = _de_bounds(dev)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    with torch.no_grad():
+        best, best_fit, gens = _de_minimize(loss, gen, lo, hi, popsize, 70, 0.0)
+    assert info["generations"] == gens == 70
+    assert np.array_equal(x, best.cpu().numpy().astype(np.float64)) and fx == float(best_fit)
+
+
 def test_apf_de_mode_rejects_what_it_does_not_take(dev):
-    """A population over the one CTA's 1,024, a wrong dtype, a tensor on
-    another device and draws of another shape raise; nothing falls back."""
+    """A population under 3, a wrong dtype, a tensor on another device and
+    draws of another shape raise; nothing falls back. A population over the
+    one-CTA class's 1,024 runs in the grid class."""
     from eegflow_torch.fit.evolution import _draw_generations
-    from eegflow_torch.ode.cuda_ode import DE_MAX_POPULATION, de_generations
+    from eegflow_torch.ode.cuda_ode import de_generations
 
     loss = _de_fit_loss(dev, 20, 3)
     lo, hi = _de_bounds(dev)
@@ -1628,10 +1726,10 @@ def test_apf_de_mode_rejects_what_it_does_not_take(dev):
         return de_generations(pop, fit, lo_, hi, draws, loss.y0, loss.observed, loss.substeps,
                               loss.steps, loss.reg_weight, 1e-7)
 
-    assert DE_MAX_POPULATION == 1024
     assert call(1024).tolist() == [0, 1]  # one loss everywhere: converged at once
+    assert call(1026).tolist() == [0, 1]
     with pytest.raises(ValueError, match="population"):
-        call(1026)
+        call(2)
     with pytest.raises(ValueError, match="pop must be"):
         call(18, pop_dtype=torch.float64)
     with pytest.raises(ValueError, match="lo must be"):

@@ -259,3 +259,62 @@ def test_pinned_loop_recovers_rates_at_a_small_shape():
     assert fx < 1e-5 and info["generations"] <= 150
     refit = _observation(fitted, n_points=20, t_end=60.0)
     assert np.max(np.abs(refit - obs)) < 0.02
+
+
+def test_chunk_length_comes_from_the_draws_byte_budget():
+    """A chunk's generations: DE_CHUNK = 64 at the default n = 90 (so the
+    default fit keeps its 13 launches over 1,000 generations), fewer where 64
+    generations' draws (f, u (n, n), cr (n, 6), j (n)) would pass
+    DE_CHUNK_BYTES (63 at n = 1,026, 7 at n = 3,000), and never 0."""
+    from eegflow_torch.fit.evolution import DE_CHUNK, DE_CHUNK_BYTES, de_chunk_length
+
+    assert DE_CHUNK == 64 and de_chunk_length(90) == 64 and de_chunk_length(18) == 64
+    assert de_chunk_length(1026) == 63 and de_chunk_length(3000) == 7
+    for n in (1026, 3000, 8191, 10 ** 5):
+        chunk = de_chunk_length(n)
+        per_generation = 4 + 4 * n * n + 4 * n * 6 + 8 * n
+        assert 1 <= chunk < 64
+        assert chunk * per_generation <= DE_CHUNK_BYTES or chunk == 1
+        assert chunk == 1 or (chunk + 1) * per_generation > DE_CHUNK_BYTES
+    assert de_chunk_length(10 ** 5) == 1
+
+
+@pytest.mark.parametrize("maxiter,tol", [(5, 1e-7), (5, 10.0)])
+def test_chunked_generations_at_popsize_171_are_the_loops_bit_for_bit(monkeypatch, maxiter, tol):
+    """At popsize 171 (n = 1,026, over the one-CTA class's 1,024) the chunked
+    search equals the loop bit for bit: a byte budget of two generations'
+    draws gives chunks of 2 over 5 generations (2 does not divide 5), and a
+    population that passes the test before its first generation."""
+    from eegflow_torch.fit import evolution
+    from eegflow_torch.fit.evolution import _de_minimize, _de_minimize_chunked, de_chunk_length
+
+    n = 171 * 6
+    monkeypatch.setattr(evolution, "DE_CHUNK_BYTES", 2 * (4 + 4 * n * n + 4 * n * 6 + 8 * n))
+    assert de_chunk_length(n) == 2
+    obs = _observation(TRUE, n_points=4, t_end=6.0, noise=0.02)
+    loss = make_fit_loss(obs, 0.0, 6.0, 4, substeps=2, device="cpu")
+    lo = torch.tensor([b[0] for b in ODEConfig().bounds])
+    hi = torch.tensor([b[1] for b in ODEConfig().bounds])
+    calls = []
+    real = evolution.de_generations
+    monkeypatch.setattr(evolution, "de_generations",
+                        lambda *a, **k: calls.append(a[4].f.shape[0]) or real(*a, **k))
+    loop = _de_minimize(loss, torch.Generator().manual_seed(8), lo, hi, 171, maxiter, tol)
+    chunked = _de_minimize_chunked(loss, torch.Generator().manual_seed(8), lo, hi, 171, maxiter,
+                                   tol)
+    assert torch.equal(loop[0], chunked[0]) and torch.equal(loop[1], chunked[1])
+    assert loop[2] == chunked[2] == (maxiter if tol < 1 else 0)
+    assert calls == ([2, 2, 1] if tol < 1 else [2])
+
+
+def test_de_at_popsize_171_recovers_rates_at_a_small_shape():
+    """tests/test_fit.py's recovery criteria (loss under 1e-5, the refitted
+    trajectory within 0.02) for differential_evolution_fit at popsize 171
+    (n = 1,026), with its polish, at 12 points and 2 substeps."""
+    true = {"k_ap": 0.12, "k_af": 0.06, "k_pa": 0.25, "k_pf": 0.18, "k_fa": 0.09, "k_fp": 0.22}
+    obs = _observation(true, n_points=12, t_end=60.0)
+    cfg = ODEConfig(de_maxiter=30, de_popsize=171, reg_weight=0.0, rk4_substeps=2)
+    fitted, fx, info = fit_ode_rates(obs, np.linspace(0, 60, 12), cfg, device="cpu")
+    assert fx < 1e-5 and info["generations"] <= 30
+    refit = _observation(fitted, n_points=12, t_end=60.0)
+    assert np.max(np.abs(refit - obs)) < 0.02

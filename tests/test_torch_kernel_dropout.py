@@ -306,13 +306,19 @@ def test_kernel_dropout_refusals():
     bf16 = tcfg.TrainConfig(lstm_impl="plain")
     with pytest.raises(ValueError, match="'fused' or 'two_pass'"):
         make_train_step(cfg, bf16, opt, lstm_bwd="dualdir", kernel_dropout=True)
-    with pytest.raises(ValueError, match="make_spmd_train_step"):
-        make_spmd_train_step(cfg, bf16, opt, None, kernel_dropout=True)
+    # the explicit mesh step takes kernel_dropout and refuses what the step
+    # without a mesh refuses
+    with pytest.raises(ValueError, match="bf16 policy"):
+        make_spmd_train_step(cfg, f32, opt, None, kernel_dropout=True)
+    with pytest.raises(ValueError, match="'fused' or 'two_pass'"):
+        make_spmd_train_step(cfg, bf16, opt, None, lstm_bwd="dualdir", kernel_dropout=True)
     former = tcfg.TransformerConfig()
     with pytest.raises(ValueError, match="EEGFormer"):
         draw_dropout_masks(former, 2, 4, torch.Generator(), kernel_dropout=True)
     with pytest.raises(ValueError, match="EEGFormer"):
         make_train_step(former, bf16, opt, kernel_dropout=True)
+    with pytest.raises(ValueError, match="EEGFormer"):
+        make_spmd_train_step(former, bf16, opt, None, kernel_dropout=True)
 
 
 def test_train_classifier_with_kernel_dropout_repeats_and_is_not_the_mask_path_run():

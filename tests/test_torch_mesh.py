@@ -256,6 +256,50 @@ def test_kernel_dropout_on_two_ranks_draws_the_one_process_masks():
         assert _rel(got["grads"][name], p.grad.numpy()) < tol, name
 
 
+def test_explicit_step_with_kernel_dropout_draws_every_shard_the_same_rows():
+    """``make_spmd_train_step(kernel_dropout=True)`` on two gloo ranks, under
+    the reference's explicit step's rule (every shard the same key): each
+    rank's layers draw the one-process bits of rows 0 .. B/2 - 1 (row offset
+    0), both ranks the same masks; each rank's step equals the explicit
+    mask-path step on those bits' uint8 expansion bit for bit; the ranks end
+    with the same params."""
+    from eegflow_torch.nn.model import DropoutMasks, expand_dropout_masks
+
+    model = dict(SMALL, dropout=0.4)
+    train = dict(TRAIN, bf16=True, lstm_impl="plain")
+    jp = jax.tree_util.tree_map(np.asarray, jax_init(jax.random.key(26),
+                                                     jcfg.ModelConfig(**model)))
+    rng = np.random.default_rng(26)
+    x = rng.standard_normal((8, 12, 5)).astype(np.float32)
+    y = np.array([0, 0, 0, 1, 1, 1, 1, 0])
+    key = np.array([123456789, -987654321], np.int32)
+    head1 = rng.random((4, 16)) < 0.6
+    head2 = rng.random((4, 8)) < 0.6
+    case = dict(device="cpu", world=2, model=model, train=train, params=jp, x=x, y=y, cw=CW,
+                key=key, head1=head1, head2=head2)
+    ranks = mw.spawn(mw.explicit_philox_steps, case)
+    whole = expand_dropout_masks(DropoutMasks(key=torch.from_numpy(key)),
+                                 tcfg.ModelConfig(**model), 8, 12)
+    one_process = {0: whole.input.numpy()}
+    for layer, parts in enumerate(whole.layers):
+        for part, m in enumerate(parts):
+            one_process[1 + 2 * layer + part] = m.numpy()
+    for r in ranks:
+        assert {stream for stream, *_ in r["drawn"]} == set(one_process)
+        for stream, keep, row_offset, mask in r["drawn"]:
+            assert row_offset == 0 and keep == (0.8 if stream == 0 else 0.6)
+            np.testing.assert_array_equal(mask, one_process[stream][:4])
+        assert r["philox"]["loss"] == r["masks"]["loss"]
+        assert r["philox"]["correct"] == r["masks"]["correct"]
+        for name, g in r["philox"]["grads"].items():
+            want = r["masks"]["grads"][name]
+            assert (g is None) == (want is None) and (g is None or np.array_equal(g, want)), name
+    assert ranks[0]["philox"]["loss"] == ranks[1]["philox"]["loss"]
+    for name in _names(jp):
+        np.testing.assert_array_equal(_leaf(ranks[0]["philox"]["params"], name),
+                                      _leaf(ranks[1]["philox"]["params"], name))
+
+
 @pytest.fixture(scope="module")
 def inference_case():
     jp = jax.tree_util.tree_map(np.asarray, jax_init(jax.random.key(22),
