@@ -97,9 +97,9 @@ Phases, each printed on its own lines; any failure raises and exits non-zero:
      DE mode (apf_de) against its twin, the loop of generations on the loss
      mode, bit for bit and repeated, at 513 points: a population of 90 that
      converges, 64 not dividing 100 generations, n = 18, 90, 1,026 and 3,000
-     (the grid class over 33 and 94 CTAs, chunks of 63 and 7 by the draws'
+     (apf_de_grid_kernel over 33 and 94 CTAs, chunks of 63 and 7 by the draws'
      byte budget); the plan from C and the ms a generation at n = 90, 1,026
-     and 3,000, and the one-CTA class by name at 90 and 1,024; sos_filtfilt on 61 x 20,000
+     and 3,000; sos_filtfilt on 61 x 20,000
      samples (bitwise repeatable), and bandpass_filter(method="filtfilt") on a
      61 x 60,000 recording against scipy's float64 filtfilt; their times
      beside their chain bounds;
@@ -370,10 +370,8 @@ APF_DE_POINTS = 513
 APF_DE_CASES = ((15, 600, 5e-2), (3, 100, 1e-7), (15, 100, 1e-7), (171, 150, 1e-7),
                 (500, 40, 1e-7))
 # kernel 11's DE mode timed a generation (a chunk at tol -1, every generation
-# run) at these populations: the default fit's, a popsize of 171 and of 500;
-# the one-CTA class by name at the populations it takes
+# run) at these populations: the default fit's, a popsize of 171 and of 500
 APF_DE_TIMED = (90, 1026, 3000)
-APF_DE_ONE_CTA_TIMED = (90, 1024)
 # kernel 12 (sos_filtfilt) vs its twin, relative to the output's scale: the
 # same roundings (the multiply-adds written out on both sides); vs scipy's
 # float64 filtfilt: the float32 recursion floor (the JAX package's bound)
@@ -774,7 +772,7 @@ def bwd_f64_holds(dev, smi):
         require(kernel <= BWD_REL_TOL, f"{name} at B=1 holds to its float64 function")
 
 
-def de_generation_ms(loss, dev, n, de_class=-1, seed=0):
+def de_generation_ms(loss, dev, n, seed=0):
     """Kernel 11's DE mode on n members of a Latin hypercube in the default
     bounds, one chunk of ``de_chunk_length(n)`` generations at tol -1 (no
     generation passes the convergence test, all run), timed by CUDA events
@@ -798,11 +796,10 @@ def de_generation_ms(loss, dev, n, de_class=-1, seed=0):
         pop.copy_(pop0)
         fit.copy_(fit0)
         return de_generations(pop, fit, lo, hi, draws, loss.y0, loss.observed, loss.substeps,
-                              loss.steps, loss.reg_weight, -1.0, de_class=de_class)
+                              loss.steps, loss.reg_weight, -1.0)
 
     status = chunk()
-    require(status.tolist() == [gens, 0], f"apf_de n={n} class {de_class} runs its {gens} "
-                                          f"generations")
+    require(status.tolist() == [gens, 0], f"apf_de n={n} runs its {gens} generations")
     times = []
     for _ in range(3):
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -811,15 +808,13 @@ def de_generation_ms(loss, dev, n, de_class=-1, seed=0):
         end.record()
         torch.cuda.synchronize()
         times.append(start.elapsed_time(end))
-    return sorted(times)[1] / gens, gens, de_plan(n, loss.substeps, de_class)
+    return sorted(times)[1] / gens, gens, de_plan(n, loss.substeps)
 
 
-def de_class_timings(loss, dev, smi, chain):
-    """Kernel 11's DE mode a generation at the populations of APF_DE_TIMED in
-    the class its plan picks, and in the one-CTA class by name at those of
-    APF_DE_ONE_CTA_TIMED, each with its plan from C, beside the loss mode's
-    chain bound ``chain`` (ms a generation) -> {n: (ms, plan)} of the plan's
-    class."""
+def de_timings(loss, dev, smi, chain):
+    """Kernel 11's DE mode a generation at the populations of APF_DE_TIMED,
+    each with its plan from C, beside the loss mode's chain bound ``chain``
+    (ms a generation) -> {n: (ms, plan)}."""
     out = {}
     for n in APF_DE_TIMED:
         ms, gens, plan = de_generation_ms(loss, dev, n)
@@ -827,12 +822,6 @@ def de_class_timings(loss, dev, smi, chain):
         print(f"apf_de n={n}: plan from C {plan._asdict()}; {ms:.4f} ms a generation (a chunk of "
               f"{gens}, CUDA events, median of 3), {ms / chain:.2f}x the loss mode's "
               f"{chain:.3f} ms chain bound [{smi}]", flush=True)
-    for n in APF_DE_ONE_CTA_TIMED:
-        ms, gens, plan = de_generation_ms(loss, dev, n, de_class=0)
-        grid_ms = de_generation_ms(loss, dev, n, de_class=1)[0]
-        print(f"apf_de n={n}: the one-CTA class ({plan.kernel}, {plan.threads} threads) "
-              f"{ms:.4f} ms a generation, the grid class {grid_ms:.4f} ms, timed in one call "
-              f"[{smi}]", flush=True)
     return out
 
 
@@ -915,7 +904,7 @@ def kernel_check_phase(dev, smi):
                                         f"points", de_loss, dev, popsize, maxiter, tol,
                                         SEED + i, smi)
         require((gens < maxiter) == (tol > 1e-3), f"apf_de case {i + 1} converged as planned")
-    out["de_classes"] = de_class_timings(de_loss, dev, smi,
+    out["de_timings"] = de_timings(de_loss, dev, smi,
                                          chain_ms(fit_steps * APF_CHAIN_OPS_PER_STEP, clock[1]))
 
     # kernel 12 on one recording, as bandpass_filter(method="filtfilt") gives it
@@ -4502,13 +4491,13 @@ def main() -> int:
               chain_bound_ms=apf_chain, back_to_back_ms=apf_b2b),
         # a launch of the DE mode: a chunk of generations (its error that of the
         # whole fit's DE against its twin); its numbers per generation beside,
-        # and the class each timed population took, with its ms a generation
+        # and each timed population's kernel, CTAs and ms a generation
         entry("apf_de", "apf_rk4.cu", "eegflow/fit/evolution.py:83-134 (_de_minimize's "
               "lax.while_loop over generations)", pipe["apf_de_launches"], apf_de.pop("err"),
               apf_de.pop("ms"), apf_de.pop("plain_ms"), **apf_de,
-              classes={str(n): {"kernel": plan.kernel, "ctas": plan.ctas,
-                                "ms_per_generation": ms}
-                       for n, (ms, plan) in checks["de_classes"].items()}),
+              populations={str(n): {"kernel": plan.kernel, "ctas": plan.ctas,
+                                    "ms_per_generation": ms}
+                       for n, (ms, plan) in checks["de_timings"].items()}),
         entry("sos_filtfilt", "sos_filter.cu", "eegflow/signal/filters.py:96-138 (_sos_scan "
               "lax.scan, _filtfilt_core)", checks["sos_launches"], checks["sos_err"],
               *checks["sos_ms"], chain_bound_ms=checks["sos_chain_ms"]),

@@ -17,8 +17,8 @@
 // tangents live in registers; nothing but the observed series (read as a
 // broadcast, every thread the same address) and the outputs touches memory.
 // The time is steps x the dependent path of one step, whatever the
-// population (a DE population of 90 is 3 warps, each alone on its SM
-// sub-partition), so it is latency bound. The step is written for that
+// population up to a warp an SM sub-partition (the DE mode puts a member
+// warp on each SM: 3 at n = 90, 94 at n = 3,000), so it is latency bound. The step is written for that
 // chain: the field max(y, 0) @ Q is linear in max(y, 0), so a stage point is
 // y + max(y_k, 0) @ (c Q) with the step sizes folded into three matrices
 // once a candidate (no product of the field by the step), and the RK4 sum
@@ -37,14 +37,11 @@
 //   fit loss and its gradient: forward tangents dy/dk through every RK4
 //     stage, the clamp at 0 (slope 0 at 0), the clip and the
 //     renormalisation give the exact gradient of that discrete loss;
-//   DE: up to G generations of best1bin DE on random numbers the host drew
-//     for them, stopping early when the population converges, in one of two
-//     classes (eegflow_apf_de_plan says which a population takes):
-//     apf_de_kernel, one CTA holding the population (pop, fit) in shared
-//     memory, a thread a member, up to 1,024 members; apf_de_grid_kernel, a
-//     cooperative grid of 32 members a CTA over any population the card
-//     holds at once, the population double-buffered in global memory (L2),
-//     one grid barrier a generation.
+//   DE (apf_de_grid_kernel): up to G generations of best1bin DE on random
+//     numbers the host drew for them, stopping early when the population
+//     converges: a cooperative grid of 32 members a CTA over any population
+//     the card holds at once, the population double-buffered in global
+//     memory (L2), one grid barrier a generation.
 // The loss is written with rounding intrinsics, so every mode and the DE
 // give the same bits for the same candidate. The plain twins
 // (eegflow_torch/ode/cuda_ode.py, eegflow_torch/fit/evolution.py) keep the
@@ -59,8 +56,7 @@
 namespace {
 
 constexpr int kThreads = 64;    // loss and trajectory modes: candidates a CTA
-constexpr int kMaxPop = 1024;   // DE mode: the largest population one CTA holds
-constexpr int kGridMembers = 32;  // DE mode, grid class: members a CTA (one warp)
+constexpr int kGridMembers = 32;  // DE mode: members a CTA (one warp)
 constexpr int kGridThreads = 64;  // and its service warp
 constexpr int kRates = 6;
 constexpr int kFastSubsteps = 16;  // the fit's substeps, compiled unrolled
@@ -327,111 +323,7 @@ apf_rk4_kernel(const float* __restrict__ y0, int y0_stride, const float* __restr
   }
 }
 
-// The DE mode: up to `gens` generations of best1bin DE over the population
-// pop (n, 6) with losses fit (n), both updated in place. Generation g reads
-// the host's draws: fdraw[g] (the dither), u[g] (n, n) (the partners),
-// cr[g] (n, 6) (the crossover), jr[g] (n) (the guaranteed dimension).
-// Each generation, in _de_minimize's order:
-//   1. stop if std(fit) <= atol + tol |mean(fit)|, in float64 in candidate
-//      order (thread 0);
-//   2. best = the lowest index of the least loss (thread 0);
-//   3. member i's partners are the two least of u[g][i][j], j != i, ties to
-//      the lower index; its mutant clamp(best + F (pop[r1] - pop[r2]), lo,
-//      hi) with F = u * 0.5 + 0.5, each operation rounded on its own;
-//      crossover where cr < 0.7f or at jr;
-//   4. the trial's loss through candidate_loss, the loss mode's function;
-//   5. selection: the trial replaces the member where its loss is less.
-// status[0] = generations run, status[1] = 1 when the test stopped them.
-template <int kSub>
-__global__ void __launch_bounds__(kMaxPop)
-apf_de_kernel(float* __restrict__ pop, float* __restrict__ fit, int n,
-              const float* __restrict__ lo, const float* __restrict__ hi,
-              const float* __restrict__ fdraw, const float* __restrict__ u,
-              const float* __restrict__ cr, const long long* __restrict__ jr, int gens,
-              double tol, double atol, const float* __restrict__ y0,
-              const float* __restrict__ obs, int n_points, int substeps, StepSizes st,
-              float reg_weight, int* __restrict__ status, float* __restrict__ /*work*/) {
-  extern __shared__ float smem[];
-  float* const s_pop = smem;                       // (n, 6)
-  float* const s_trial = smem + kRates * n;        // (n, 6)
-  float* const s_fit = smem + 2 * kRates * n;      // (n)
-  __shared__ float s_best[kRates];
-  __shared__ int s_stop;
-  const int i = threadIdx.x;
-  const bool member = i < n;
-  for (int v = i; v < kRates * n; v += blockDim.x) s_pop[v] = pop[v];
-  for (int v = i; v < n; v += blockDim.x) s_fit[v] = fit[v];
-  __syncthreads();
-  int g = 0;
-  for (; g < gens; ++g) {
-    if (i == 0) {
-      double sum = 0.0;
-      for (int v = 0; v < n; ++v) sum = __dadd_rn(sum, static_cast<double>(s_fit[v]));
-      const double mean = __ddiv_rn(sum, static_cast<double>(n));
-      double ss = 0.0;
-      for (int v = 0; v < n; ++v) {
-        const double dv = __dsub_rn(static_cast<double>(s_fit[v]), mean);
-        ss = __dadd_rn(ss, __dmul_rn(dv, dv));
-      }
-      const double sd = __dsqrt_rn(__ddiv_rn(ss, static_cast<double>(n)));
-      s_stop = sd <= __dadd_rn(atol, __dmul_rn(tol, fabs(mean)));
-      int best = 0;
-      for (int v = 1; v < n; ++v)
-        if (s_fit[v] < s_fit[best]) best = v;
-#pragma unroll
-      for (int d = 0; d < kRates; ++d) s_best[d] = s_pop[best * kRates + d];
-    }
-    __syncthreads();
-    if (s_stop) break;
-    float trial_fit = 0.f;
-    if (member) {
-      const float* row = u + (static_cast<size_t>(g) * n + i) * n;
-      float m1 = 2.f, m2 = 2.f;
-      int r1 = 0, r2 = 0;
-      for (int j = 0; j < n; ++j) {
-        const float v = __ldg(row + j);
-        if (j == i) continue;
-        if (v < m1) {
-          m2 = m1; r2 = r1;
-          m1 = v; r1 = j;
-        } else if (v < m2) {
-          m2 = v; r2 = j;
-        }
-      }
-      const float f_scale = __fadd_rn(__fmul_rn(__ldg(fdraw + g), 0.5f), 0.5f);
-      const float* crow = cr + (static_cast<size_t>(g) * n + i) * kRates;
-      const long long jrand = jr[static_cast<size_t>(g) * n + i];
-      float trial[kRates];
-#pragma unroll
-      for (int d = 0; d < kRates; ++d) {
-        const float diff = __fsub_rn(s_pop[r1 * kRates + d], s_pop[r2 * kRates + d]);
-        const float mutant =
-            fminf(fmaxf(__fadd_rn(s_best[d], __fmul_rn(f_scale, diff)), __ldg(lo + d)),
-                  __ldg(hi + d));
-        const bool cross = __ldg(crow + d) < 0.7f || d == jrand;
-        trial[d] = cross ? mutant : s_pop[i * kRates + d];
-        s_trial[i * kRates + d] = trial[d];
-      }
-      trial_fit = candidate_loss<kSub, false>(trial, y0, obs, n_points, substeps, st,
-                                              reg_weight, nullptr);
-    }
-    __syncthreads();  // every mutant has read the population
-    if (member && trial_fit < s_fit[i]) {
-      s_fit[i] = trial_fit;
-#pragma unroll
-      for (int d = 0; d < kRates; ++d) s_pop[i * kRates + d] = s_trial[i * kRates + d];
-    }
-    __syncthreads();
-  }
-  for (int v = i; v < kRates * n; v += blockDim.x) pop[v] = s_pop[v];
-  for (int v = i; v < n; v += blockDim.x) fit[v] = s_fit[v];
-  if (i == 0) {
-    status[0] = g;
-    status[1] = g < gens ? 1 : 0;
-  }
-}
-
-// The grid class's pieces. A member's two partners are the two least of its
+// The DE mode's pieces. A member's two partners are the two least of its
 // row of draws in the order (draw, index), which is the stable sort's: each
 // lane scans its columns in increasing order and the lanes' pairs merge in
 // any order, every index being distinct (the sentinels, draws of 2 past the
@@ -516,9 +408,9 @@ __device__ __forceinline__ void warp_best(float& v, int& i) {
   }
 }
 
-// de_converged in float64 in candidate order (the one-CTA class's thread 0
-// loop, bit for bit), every lane of the warp the same sum: the warp reads 32
-// losses at a time, coalesced, and adds them in order from the shuffles.
+// de_converged in float64 in candidate order, bit for bit, every lane of the
+// warp the same sum: the warp reads 32 losses at a time, coalesced, and adds
+// them in order from the shuffles.
 // Whole groups of 32 run unrolled, so only the float64 adds are serial.
 __device__ bool warp_converged(const float* fit, int n, double tol, double atol, int lane) {
   const int whole = n & ~31;
@@ -555,9 +447,25 @@ __device__ bool warp_converged(const float* fit, int n, double tol, double atol,
   return sd <= __dadd_rn(atol, __dmul_rn(tol, fabs(mean)));
 }
 
-// The grid class of the DE mode: the one-CTA class's generations, bit for
-// bit, over ceil(n / 32) CTAs launched cooperatively (all resident at once).
-// Warp 0 of CTA c holds members 32c .. 32c + 31, each its own row and loss in
+// The DE mode: up to `gens` generations of best1bin DE over the population
+// pop (n, 6) with losses fit (n), both updated in place. Generation g reads
+// the host's draws: fdraw[g] (the dither), u[g] (n, n) (the partners),
+// cr[g] (n, 6) (the crossover), jr[g] (n) (the guaranteed dimension).
+// Each generation, in _de_minimize's order:
+//   1. stop if std(fit) <= atol + tol |mean(fit)|, in float64 in candidate
+//      order;
+//   2. best = the lowest index of the least loss;
+//   3. member i's partners are the two least of u[g][i][j], j != i, ties to
+//      the lower index; its mutant clamp(best + F (pop[r1] - pop[r2]), lo,
+//      hi) with F = u * 0.5 + 0.5, each operation rounded on its own;
+//      crossover where cr < 0.7f or at jr;
+//   4. the trial's loss through candidate_loss, the loss mode's function;
+//   5. selection: the trial replaces the member where its loss is less,
+//      once every mutant has read the population.
+// status[0] = generations run, status[1] = 1 when the test stopped them.
+//
+// It runs over ceil(n / 32) CTAs launched cooperatively (all resident at
+// once). Warp 0 of CTA c holds members 32c .. 32c + 31, each its own row and loss in
 // registers; warp 1 is the CTA's service warp. The population is published
 // double-buffered: buffer 0 is pop/fit, buffer 1 the scratch (pop1, fit1), and
 // generation g reads buffer g % 2 and writes every member's row and loss,
@@ -722,40 +630,28 @@ void launch_modes(const float* y0, int y0_stride, const float* k, int batch, int
         y0, y0_stride, k, batch, n_points, substeps, st, traj, obs, reg_weight, loss, grad);
 }
 
-// The DE mode's launch for n members: the grid class takes every population
-// (the one-CTA class only when asked for by name, up to kMaxPop members).
+// The DE mode's launch for n members: a CTA for each 32 members, each CTA the
+// members' warp and the service warp.
 struct DePlan {
-  int grid_class, ctas, threads, smem;
+  int ctas, threads;
 };
 
-bool de_plan(int n, int cls, DePlan* plan) {
-  if (n < 3 || cls < -1 || cls > 1 || (cls == 0 && n > kMaxPop)) return false;
-  if (cls == 0)
-    *plan = {0, 1, (n + 31) / 32 * 32, static_cast<int>((2 * kRates + 1) * n * sizeof(float))};
-  else
-    *plan = {1, (n + kGridMembers - 1) / kGridMembers, kGridThreads, 0};
-  return true;
-}
+DePlan de_plan(int n) { return {(n + kGridMembers - 1) / kGridMembers, kGridThreads}; }
 
-// the grid class's scratch, in floats: pop1 (n, 6), fit1 (n), part_v and
-// part_i (2, ctas) each, stop (2)
-int de_scratch_floats(int n, const DePlan& plan) {
-  return plan.grid_class ? (kRates + 1) * n + 4 * plan.ctas + 2 : 0;
-}
+// the scratch, in floats: pop1 (n, 6), fit1 (n), part_v and part_i (2, ctas)
+// each, stop (2)
+int de_scratch_floats(int n, const DePlan& plan) { return (kRates + 1) * n + 4 * plan.ctas + 2; }
 
 template <int kSub>
-const void* de_kernel(const DePlan& plan) {
-  return plan.grid_class ? reinterpret_cast<const void*>(apf_de_grid_kernel<kSub>)
-                         : reinterpret_cast<const void*>(apf_de_kernel<kSub>);
+const void* de_kernel() {
+  return reinterpret_cast<const void*>(apf_de_grid_kernel<kSub>);
 }
 
-// CTAs of the plan's kernel the card holds at once
-cudaError_t de_held(const void* kernel, const DePlan& plan, int* held) {
+// CTAs the card holds at once
+cudaError_t de_held(const void* kernel, int* held) {
   int per_sm = 0, dev = 0, sms = 0;
-  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                         plan.smem);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, plan.threads, plan.smem);
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kGridThreads, 0);
   if (err == cudaSuccess) err = cudaGetDevice(&dev);
   if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   *held = per_sm * sms;
@@ -767,21 +663,17 @@ int launch_de(float* pop, float* fit, int n, const float* lo, const float* hi,
               const float* fdraw, const float* u, const float* cr, const long long* jr,
               int gens, double tol, double atol, const float* y0, const float* obs,
               int n_points, int substeps, StepSizes st, float reg_weight, int* status,
-              float* work, int cls, cudaStream_t stream) {
-  DePlan plan;
-  if (!de_plan(n, cls, &plan)) return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel = de_kernel<kSub>(plan);
+              float* work, cudaStream_t stream) {
+  if (n < 3) return static_cast<int>(cudaErrorInvalidValue);
+  const DePlan plan = de_plan(n);
+  const void* kernel = de_kernel<kSub>();
   int held = 0;
-  cudaError_t err = de_held(kernel, plan, &held);
+  cudaError_t err = de_held(kernel, &held);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (plan.ctas > held) return static_cast<int>(cudaErrorCooperativeLaunchTooLarge);
   void* args[] = {&pop, &fit, &n, &lo, &hi, &fdraw, &u, &cr, &jr, &gens, &tol, &atol, &y0,
                   &obs, &n_points, &substeps, &st, &reg_weight, &status, &work};
-  if (plan.grid_class)
-    err = cudaLaunchCooperativeKernel(kernel, dim3(plan.ctas), dim3(plan.threads), args,
-                                      plan.smem, stream);
-  else
-    err = cudaLaunchKernel(kernel, dim3(1), dim3(plan.threads), args, plan.smem, stream);
+  err = cudaLaunchCooperativeKernel(kernel, dim3(plan.ctas), dim3(plan.threads), args, 0, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
@@ -807,38 +699,38 @@ extern "C" int eegflow_apf_rk4(const float* y0, int y0_stride, const float* k, i
 
 // The DE mode: pop (n, 6) and fit (n) in place, n >= 3; the draws of
 // `gens` generations; y0 (3,), obs (n_points, 3); status (2,) int32; work
-// the scratch eegflow_apf_de_plan sizes; cls -1 for the plan's class, 0 or 1
-// for the one-CTA or the grid class by name.
+// the scratch eegflow_apf_de_plan sizes.
 extern "C" int eegflow_apf_de(float* pop, float* fit, int n, const float* lo, const float* hi,
                               const float* fdraw, const float* u, const float* cr,
                               const long long* jr, int gens, double tol, double atol,
                               const float* y0, const float* obs, int n_points, int substeps,
                               float half, float full, float sixth, float reg_weight,
-                              int* status, float* work, int cls, cudaStream_t stream) {
+                              int* status, float* work, cudaStream_t stream) {
   const StepSizes st{half, full, sixth};
   if (substeps == kFastSubsteps)
     return launch_de<kFastSubsteps>(pop, fit, n, lo, hi, fdraw, u, cr, jr, gens, tol, atol, y0,
-                                    obs, n_points, substeps, st, reg_weight, status, work, cls,
+                                    obs, n_points, substeps, st, reg_weight, status, work,
                                     stream);
   return launch_de<0>(pop, fit, n, lo, hi, fdraw, u, cr, jr, gens, tol, atol, y0, obs, n_points,
-                      substeps, st, reg_weight, status, work, cls, stream);
+                      substeps, st, reg_weight, status, work, stream);
 }
 
-// The DE mode's launch for n members at `substeps` (cls as eegflow_apf_de):
-// plan = (class: 0 one CTA, 1 grid; CTAs; threads a CTA; dynamic shared
-// memory a CTA; CTAs the card holds at once; the scratch eegflow_apf_de's
-// work holds, in floats), *name the kernel's. A population the plan's CTAs exceed what the
-// card holds is refused by eegflow_apf_de (cudaErrorCooperativeLaunchTooLarge).
-extern "C" int eegflow_apf_de_plan(int n, int substeps, int cls, int* plan, const char** name) {
-  DePlan p;
-  if (!de_plan(n, cls, &p)) return static_cast<int>(cudaErrorInvalidValue);
-  const void* kernel = substeps == kFastSubsteps ? de_kernel<kFastSubsteps>(p) : de_kernel<0>(p);
-  plan[0] = p.grid_class;
-  plan[1] = p.ctas;
-  plan[2] = p.threads;
-  plan[3] = p.smem;
-  plan[5] = de_scratch_floats(n, p);
-  cudaError_t err = de_held(kernel, p, &plan[4]);
+// The DE mode's launch for n members at `substeps`: plan = (CTAs, threads a
+// CTA, static shared memory a CTA, CTAs the card holds at once, the scratch
+// eegflow_apf_de's work holds in floats), *name the kernel's. eegflow_apf_de
+// refuses a population whose CTAs exceed what the card holds
+// (cudaErrorCooperativeLaunchTooLarge).
+extern "C" int eegflow_apf_de_plan(int n, int substeps, int* plan, const char** name) {
+  if (n < 3) return static_cast<int>(cudaErrorInvalidValue);
+  const DePlan p = de_plan(n);
+  const void* kernel = substeps == kFastSubsteps ? de_kernel<kFastSubsteps>() : de_kernel<0>();
+  cudaFuncAttributes attr;
+  cudaError_t err = cudaFuncGetAttributes(&attr, kernel);
+  if (err == cudaSuccess) err = de_held(kernel, &plan[3]);
   if (err != cudaSuccess) return static_cast<int>(err);
+  plan[0] = p.ctas;
+  plan[1] = p.threads;
+  plan[2] = static_cast<int>(attr.sharedSizeBytes);
+  plan[4] = de_scratch_floats(n, p);
   return static_cast<int>(cudaFuncGetName(name, kernel));
 }

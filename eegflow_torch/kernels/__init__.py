@@ -159,16 +159,15 @@ _SIGNATURES = {
     # reg_weight, loss, grad, stream
     "eegflow_apf_rk4": [_P, _I, _P, _I, _I, _I, _F, _F, _F, _P, _P, _F, _P, _P, _P],
     # apf_rk4.cu, kernel 11's DE mode (pop and fit in place; status: generations
-    # run, stopped by the convergence test; work: the plan's scratch; cls: -1
-    # the plan's class, 0 or 1 by name):
+    # run, stopped by the convergence test; work: the plan's scratch):
     # pop, fit, n, lo, hi, f, u, cr, j, gens, tol, atol, y0, obs, n_points,
-    # substeps, half, full, sixth, reg_weight, status, work, cls, stream
+    # substeps, half, full, sixth, reg_weight, status, work, stream
     "eegflow_apf_de": [_P, _P, _I, _P, _P, _P, _P, _P, _P, _I, _D, _D, _P, _P, _I, _I, _F, _F,
-                       _F, _F, _P, _P, _I, _P],
-    # apf_rk4.cu, kernel 11's DE launch for n members: n, substeps, cls, *plan
-    # (class, CTAs, threads a CTA, shared memory a CTA, CTAs held at once,
-    # scratch floats), *name
-    "eegflow_apf_de_plan": [_I, _I, _I, _P, _P],
+                       _F, _F, _P, _P, _P],
+    # apf_rk4.cu, kernel 11's DE launch for n members: n, substeps, *plan
+    # (CTAs, threads a CTA, shared memory a CTA, CTAs held at once, scratch
+    # floats), *name
+    "eegflow_apf_de_plan": [_I, _I, _P, _P],
     # sos_filter.cu, kernel 12 (x, y_fwd and out in (time, row) layout):
     # x, sos, zi, y_fwd, out, rows, T, padlen, sections, stream
     "eegflow_sos_filtfilt": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -106,7 +106,9 @@ designs' outputs to each other bit for bit (the bits do not change).
 ``--calls rk4`` times kernel 11 (``apf_rk4.cu``) at the fit's shape (a DE
 population of 90, 513 points, 16 RK4 substeps): the fit loss, the loss with
 tangents, the trajectory and, where the tree has it, the DE mode on a
-chunk of 64 generations, each launch by name with the SM clock; prints
+chunk of 64 generations at n = 90 (and at 1,024, 1,026 and 3,000 where the
+tree takes them, fewer generations where their draws would pass 256 MiB),
+each launch by name with the SM clock and the DE's ms a generation; prints
 ptxas's registers and spills of every kernel 11 instantiation and the SASS
 (``cuobjdump -sass``) of each, whole and by loop that holds no other loop,
 by the pipe that issues each instruction (``fma``: FFMA, FMUL, FADD, IMAD,
@@ -805,13 +807,19 @@ def sass_counts(library, function: str, leaf_loops: bool = False) -> Dict[str, C
 #: kernel 11 at the fit: a DE population (popsize 15 x 6 rates), the
 #: pipeline's 513 proportion points, 16 RK4 substeps; the DE mode's chunk
 RK4_POP, RK4_POINTS, RK4_SUBSTEPS, RK4_CHUNK = 90, 513, 16, 64
+#: the DE mode's populations timed by ``--calls rk4``: the default fit's, the
+#: most one CTA held before PR 26, popsize 171 and 500; a chunk of RK4_CHUNK
+#: generations, fewer where their partner draws would pass RK4_DE_BYTES
+RK4_DE_POPS, RK4_DE_BYTES = (90, 1024, 1026, 3000), 2 ** 28
 
 
 def _rk4_calls(dev, gen):
     """Kernel 11's modes at the fit's shape (B=90, 513 points, 16 substeps):
     the fit loss, the loss with tangents, the trajectory, and (where the tree
-    has it) the DE mode running a chunk of 64 generations on fixed draws
-    from the same population each call."""
+    has it) the DE mode running a chunk of generations on fixed draws from
+    the same population each call, at each population of RK4_DE_POPS that
+    the tree's DE mode takes (a population it refuses is printed and
+    skipped)."""
     from eegflow_torch.core.config import ODEConfig
     from eegflow_torch.ode import cuda_ode
 
@@ -827,22 +835,33 @@ def _rk4_calls(dev, gen):
              f"apf_rk4 loss with tangents B={n}":
                  lambda: cuda_ode.rk4_fit_loss(k, start, obs, sub, h, 1e-3, grad=True),
              f"apf_rk4 trajectory B={n}": lambda: cuda_ode.rk4_trajectory(y0, k, pts, sub, h)}
-    if hasattr(cuda_ode, "de_generations"):
-        fit = cuda_ode.rk4_fit_loss(k, start, obs, sub, h, 1e-3)[0]
+    if not hasattr(cuda_ode, "de_generations"):
+        return calls, (n, pts, sub)
+    dgen = torch.Generator(device=dev).manual_seed(0)
+    for pop_n in RK4_DE_POPS:
+        gens = max(1, min(RK4_CHUNK, RK4_DE_BYTES // (4 * pop_n * pop_n)))
+        pop0 = (lo.to(dev) + torch.rand(pop_n, 6, generator=dgen, device=dev)
+                * (hi - lo).to(dev))
+        fit0 = cuda_ode.rk4_fit_loss(pop0, start, obs, sub, h, 1e-3)[0]
         draws = cuda_ode.GenerationDraws(
-            torch.rand(RK4_CHUNK, generator=gen).to(dev),
-            torch.rand(RK4_CHUNK, n, n, generator=gen).to(dev),
-            torch.rand(RK4_CHUNK, n, 6, generator=gen).to(dev),
-            torch.randint(0, 6, (RK4_CHUNK, n), generator=gen).to(dev))
-        pop_c, fit_c = k.clone(), fit.clone()
+            torch.rand(gens, generator=dgen, device=dev),
+            torch.rand(gens, pop_n, pop_n, generator=dgen, device=dev),
+            torch.rand(gens, pop_n, 6, generator=dgen, device=dev),
+            torch.randint(0, 6, (gens, pop_n), generator=dgen, device=dev))
+        pop_c, fit_c = pop0.clone(), fit0.clone()
 
-        def de_chunk():
-            pop_c.copy_(k)
-            fit_c.copy_(fit)
+        def de_chunk(pop0=pop0, fit0=fit0, draws=draws, pop_c=pop_c, fit_c=fit_c):
+            pop_c.copy_(pop0)
+            fit_c.copy_(fit0)
             return cuda_ode.de_generations(pop_c, fit_c, lo.to(dev), hi.to(dev), draws, start,
                                            obs, sub, h, 1e-3, -1.0)
 
-        calls[f"apf_de {RK4_CHUNK} generations B={n}"] = de_chunk
+        try:
+            de_chunk()
+        except ValueError as err:
+            print(f"apf_de B={pop_n}: refused ({err})", flush=True)
+            continue
+        calls[f"apf_de {gens} generations B={pop_n}"] = de_chunk
     return calls, (n, pts, sub)
 
 
@@ -1585,6 +1604,11 @@ def main(argv=None) -> int:
             if args.calls == "input":
                 print(f"{args.variant} {name}: {_event_ms(fn):.3f} ms a call (CUDA events, "
                       f"median of 5) [{card}]", flush=True)
+            if name.startswith("apf_de"):
+                gens = int(name.split()[1])
+                print(f"{args.variant} {name}: {sum(v * n for v, n in by_name.values()) / gens:.4f} "
+                      f"device ms a generation, {_event_ms(fn) / gens:.4f} by CUDA events (median "
+                      f"of 5 calls) [{card}]", flush=True)
             if rk4_shape and args.variant == "stamps" and not name.startswith("apf_de"):
                 fn()
                 torch.cuda.synchronize()

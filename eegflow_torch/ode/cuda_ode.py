@@ -332,12 +332,11 @@ def de_generations_plain(pop: torch.Tensor, fit: torch.Tensor, lo: torch.Tensor,
 
 class DePlan(NamedTuple):
     """Kernel 11's DE launch for a population, as ``csrc/apf_rk4.cu``'s
-    ``eegflow_apf_de_plan`` makes it: ``grid`` (the cooperative grid class,
-    32 members a CTA, or the one-CTA class), its CTAs, threads a CTA and
-    dynamic shared memory a CTA, the CTAs the card holds at once (``held``),
-    the scratch it takes in floats and the kernel's name."""
+    ``eegflow_apf_de_plan`` makes it: its CTAs (a cooperative grid, 32
+    members a CTA), threads a CTA and shared memory a CTA, the CTAs the card
+    holds at once (``held``), the scratch it takes in floats and the
+    kernel's name."""
 
-    grid: bool
     ctas: int
     threads: int
     smem: int
@@ -346,33 +345,30 @@ class DePlan(NamedTuple):
     kernel: str
 
 
-def de_plan(n: int, substeps: int = 16, de_class: int = -1) -> DePlan:
-    """The DE mode's launch for n members at ``substeps``: ``de_class`` -1
-    the C entry's own choice, 0 or 1 the one-CTA or the grid class by name
-    (the one-CTA class holds at most 1,024 members). Builds the kernels
+def de_plan(n: int, substeps: int = 16) -> DePlan:
+    """The DE mode's launch for n members at ``substeps``. Builds the kernels
     (CUDA only)."""
     lib = kernels.load_library()
-    plan, name = (ctypes.c_int * 6)(), ctypes.c_char_p()
-    kernels.check(lib, lib.eegflow_apf_de_plan(n, substeps, de_class, plan, ctypes.byref(name)),
+    plan, name = (ctypes.c_int * 5)(), ctypes.c_char_p()
+    kernels.check(lib, lib.eegflow_apf_de_plan(n, substeps, plan, ctypes.byref(name)),
                   "apf_de_plan")
     mangled = name.value.decode()
     ident = re.search(r"apf_de[a-z_]*kernel", mangled)
-    return DePlan(bool(plan[0]), plan[1], plan[2], plan[3], plan[4], plan[5],
-                  ident.group(0) if ident else mangled)
+    return DePlan(*plan, ident.group(0) if ident else mangled)
 
 
 def de_generations(pop: torch.Tensor, fit: torch.Tensor, lo: torch.Tensor, hi: torch.Tensor,
                    draws: GenerationDraws, y0: torch.Tensor, observed: torch.Tensor,
                    substeps: int, h: StepSizes, reg_weight: float, tol: float,
-                   atol: float = 0.0, de_class: int = -1) -> torch.Tensor:
+                   atol: float = 0.0) -> torch.Tensor:
     """Kernel 11, DE mode: up to ``len(draws.f)`` generations of best1bin DE
     over pop (n, 6) and fit (n,), float32, updated in place, each trial's
     loss the fit-loss mode's (y0 (3,), observed (n_points, 3)), stopping
     at the generation whose population passes :func:`de_converged`. ->
     status (2,) int32 on pop's device: generations run, 1 if the test
     stopped them. Nothing is synchronised: the caller reads the status.
-    The launch is :func:`de_plan`'s (``de_class`` as there); a population
-    whose CTAs the card cannot hold at once raises ``ValueError``."""
+    The launch is :func:`de_plan`'s; a population whose CTAs the card
+    cannot hold at once raises ``ValueError``."""
     if pop.device.type == "cpu":
         ran, stopped = de_generations_plain(
             pop, fit, lo, hi, draws,
@@ -395,18 +391,18 @@ def de_generations(pop: torch.Tensor, fit: torch.Tensor, lo: torch.Tensor, hi: t
     if n < 3 or gens < 1 or observed.shape[0] < 1:
         raise ValueError(f"de_generations: a population of at least 3, at least one generation "
                          f"and one point, got {n}, {gens} and {observed.shape[0]}")
-    plan = de_plan(n, substeps, de_class)
+    plan = de_plan(n, substeps)
     if plan.ctas > plan.held:
         raise ValueError(f"de_generations: a population of {n} takes {plan.ctas} CTAs of "
                          f"{plan.kernel} at once, and the card holds {plan.held}")
     status = torch.empty(2, dtype=torch.int32, device=pop.device)
-    work = torch.empty(max(plan.scratch, 1), dtype=torch.float32, device=pop.device)
+    work = torch.empty(plan.scratch, dtype=torch.float32, device=pop.device)
     lib = kernels.load_library()
     err = lib.eegflow_apf_de(pop.data_ptr(), fit.data_ptr(), n, lo.data_ptr(), hi.data_ptr(),
                              draws.f.data_ptr(), draws.u.data_ptr(), draws.cr.data_ptr(),
                              draws.j.data_ptr(), gens, tol, atol, y0.data_ptr(),
                              observed.data_ptr(), observed.shape[0], substeps, h.half, h.full,
-                             h.sixth, reg_weight, status.data_ptr(), work.data_ptr(), de_class,
+                             h.sixth, reg_weight, status.data_ptr(), work.data_ptr(),
                              kernels.stream(pop.device))
     kernels.check(lib, err, "apf_de")
     kernels.launch_counts["apf_de"] += 1

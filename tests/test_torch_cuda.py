@@ -1708,6 +1708,36 @@ def test_fit_runs_a_large_population_in_the_de_mode(dev, popsize):
     assert np.array_equal(x, best.cpu().numpy().astype(np.float64)) and fx == float(best_fit)
 
 
+def test_apf_de_plan_comes_from_c(dev, monkeypatch):
+    """Kernel 11's DE launch as its C entry makes it
+    (``eegflow_apf_de_plan``): a cooperative grid of 64-thread CTAs, 32
+    members each, the card holding every CTA at once up to popsize 500 and
+    far beyond, and the scratch of the second population buffer, the CTAs'
+    best candidates and the stop flags; a plan the card cannot hold raises
+    before any launch."""
+    from eegflow_torch.ode import cuda_ode
+
+    for n, ctas in ((3, 1), (90, 3), (1024, 32), (1026, 33), (3000, 94)):
+        for substeps in (16, 3):
+            plan = cuda_ode.de_plan(n, substeps)
+            assert (plan.ctas, plan.threads, plan.kernel) == (ctas, 64, "apf_de_grid_kernel")
+            assert plan.scratch == 7 * n + 4 * ctas + 2 and plan.smem > 0
+            assert plan.held >= 132 * 8
+    loss = _de_fit_loss(dev, 20, 3)
+    lo, hi = _de_bounds(dev)
+    pop, fit = torch.full((90, 6), 0.1, device=dev), torch.ones(90, device=dev)
+    draws = cuda_ode.GenerationDraws(torch.rand(1, device=dev), torch.rand(1, 90, 90, device=dev),
+                                     torch.rand(1, 90, 6, device=dev),
+                                     torch.zeros(1, 90, dtype=torch.int64, device=dev))
+    real = cuda_ode.de_plan
+    monkeypatch.setattr(cuda_ode, "de_plan", lambda n, s: real(n, s)._replace(held=2))
+    kernels.reset_launch_counts()
+    with pytest.raises(ValueError, match="the card holds 2"):
+        cuda_ode.de_generations(pop, fit, lo, hi, draws, loss.y0, loss.observed, loss.substeps,
+                                loss.steps, loss.reg_weight, 1e-7)
+    assert kernels.launch_counts["apf_de"] == 0
+
+
 def test_apf_de_mode_rejects_what_it_does_not_take(dev):
     """A population under 3, a wrong dtype, a tensor on another device and
     draws of another shape raise; nothing falls back. A population over the
