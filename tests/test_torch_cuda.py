@@ -1567,9 +1567,10 @@ def test_fit_ode_rates_on_the_card_recovers_rates_and_repeats(dev):
         (fitted, fx, info)
 
 
-def _de_fit_loss(dev, n_points, seed):
+def _de_fit_loss(dev, n_points, seed, substeps=16):
     """A fit loss on the card at ``n_points`` proportion points (a noisy
-    trajectory of the ODE from the default rates), 16 substeps."""
+    trajectory of the ODE from the default rates), 16 substeps unless
+    ``substeps`` says otherwise."""
     from eegflow_torch.fit import make_fit_loss
     from eegflow_torch.ode.integrate import solve
 
@@ -1578,7 +1579,7 @@ def _de_fit_loss(dev, n_points, seed):
     noise = np.random.default_rng(seed).normal(0.0, 0.02, (n_points, 3))
     obs = np.clip(traj.cpu().numpy() + noise, 1e-3, 1.0)
     obs = (obs / obs.sum(axis=1, keepdims=True)).astype(np.float32)
-    return make_fit_loss(obs, 0.0, float(n_points - 1), n_points, device=dev)
+    return make_fit_loss(obs, 0.0, float(n_points - 1), n_points, substeps=substeps, device=dev)
 
 
 def _de_bounds(dev):
@@ -1681,6 +1682,31 @@ def test_fit_launches_the_de_mode_a_chunk(dev):
     assert dict(kernels.launch_counts) == {"apf_rk4": 1, "apf_de": 3}
     differential_evolution_fit(loss, ODEConfig().bounds, maxiter=10, tol=0.0)
     assert kernels.launch_counts["apf_de"] == 4 and kernels.launch_counts["apf_rk4"] > 2
+
+
+@pytest.mark.parametrize("popsize", [5, 171])
+def test_apf_de_mode_takes_other_substeps_bit_for_bit(dev, popsize):
+    """The DE mode at 3 substeps an interval (the step in a loop, not the
+    fit's 16 unrolled) against the loop of generations on the loss mode, bit
+    for bit, one DE launch a chunk."""
+    from eegflow_torch.fit.evolution import _de_minimize, _de_minimize_chunked, de_chunk_length
+
+    loss = _de_fit_loss(dev, 40, popsize, substeps=3)
+    lo, hi = _de_bounds(dev)
+
+    def run(fn):
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(popsize)
+        with torch.no_grad():
+            return fn(loss, gen, lo, hi, popsize, 70, 1e-7)
+
+    twin = run(_de_minimize)
+    kernels.reset_launch_counts()
+    got = run(_de_minimize_chunked)
+    assert dict(kernels.launch_counts) == {"apf_rk4": 1,
+                                           "apf_de": -(-70 // de_chunk_length(popsize * 6))}
+    assert got[2] == twin[2] == 70
+    assert torch.equal(got[0], twin[0]) and torch.equal(got[1], twin[1])
 
 
 @pytest.mark.parametrize("popsize", [171, 500])
