@@ -808,8 +808,9 @@ def sass_counts(library, function: str, leaf_loops: bool = False) -> Dict[str, C
 #: pipeline's 513 proportion points, 16 RK4 substeps; the DE mode's chunk
 RK4_POP, RK4_POINTS, RK4_SUBSTEPS, RK4_CHUNK = 90, 513, 16, 64
 #: the DE mode's populations timed by ``--calls rk4``: the default fit's, the
-#: most one CTA held before PR 26, popsize 171 and 500; a chunk of RK4_CHUNK
-#: generations, fewer where their partner draws would pass RK4_DE_BYTES
+#: most the earlier one-CTA design held, popsize 171 and 500; a chunk of
+#: RK4_CHUNK generations, fewer where their partner draws would pass
+#: RK4_DE_BYTES
 RK4_DE_POPS, RK4_DE_BYTES = (90, 1024, 1026, 3000), 2 ** 28
 
 
